@@ -1,0 +1,292 @@
+"""Chain state, initialization and the fused-engine phase runners.
+
+Port of ``nuts_rs_tpu/chain.py``: ``ChainState`` / ``ChainConfig`` /
+``DiagStrategy`` (``:73-200``), ``init_chain_state`` (``:426-515``) and the
+fused runners ``make_pallas_posterior_runner`` (``:663-943``) and
+``make_pallas_warmup_runner`` (``:946-1200``), for the diagonal mass matrix
+with chains on the block's lanes, no model args, flow or stream.
+
+The chain axis is the leading axis of every state tensor.  Randomness comes
+from the counter hash (kernels/rng.py): each launch's seed is derived from
+(base seed, global draw index, purpose), where the JAX runners derive theirs
+from threefry keys.  The two packages therefore agree in distribution, not
+draw for draw.  Unlike the JAX runners, a chunk is one launch: the VMEM
+tiers and the cap of 64 draws per launch (``chain.py:710-745,993-1053``) do
+not apply, since device memory holds a whole chunk's outputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from .adapt import mass_matrix as mm
+from .adapt import step_size as ss
+from .dynamics.hamiltonian import init_point_from_q, sample_momentum
+from .dynamics.point import Point
+from .kernels import nuts_fused as nf
+from .kernels.nuts import NutsOptions
+from .kernels.rng import derive_seed, host_uniform
+from .transform.affine import (
+    AffineTransform,
+    grad_to_transformed,
+    identity_transform,
+    init_diag_from_grad,
+    to_transformed,
+)
+
+# Purposes of the derived seeds (see kernels/rng.py::derive_seed).
+PURPOSE_INIT_SEARCH = 1
+PURPOSE_REINIT_SEARCH = 2
+PURPOSE_WARMUP = 3
+PURPOSE_POSTERIOR = 4
+PURPOSE_LAUNCH_STEP = 5
+
+# Draws of init positions for chains with a non-finite logp or gradient.
+INIT_RETRIES = 500
+
+
+class ChainState(NamedTuple):
+    """All per-chain state; every tensor has a leading chains axis."""
+
+    pt: Point
+    transform: AffineTransform
+    diag_adapt: mm.DiagAdaptState
+    step: ss.StepSizeState
+    draw_idx: int  # global draw counter
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainConfig:
+    """Static configuration shared by all chains."""
+
+    nuts: NutsOptions
+    step_size: ss.StepSizeSettings
+    use_grad_based_estimate: bool = True
+
+
+class DiagStrategy:
+    """Diagonal mass-matrix adaptation (nuts-rs ``DiagAdaptStrategy``); the
+    per-draw updates run inside the fused warmup kernel."""
+
+    def __init__(self, config: ChainConfig):
+        self.config = config
+
+    def make_transform(self, num_chains, dim, dtype, device):
+        return identity_transform(num_chains, dim, dtype, device)
+
+    def init_mass_matrix(self, state: ChainState) -> ChainState:
+        """Feed the init point into the estimators and set sigma^2 = 1/|g|
+        (nuts-rs transform/adapt/diagonal.rs:209-231)."""
+        da = mm.update_estimators(state.diag_adapt, state.pt.q, state.pt.g,
+                                  True)
+        transform = init_diag_from_grad(state.transform, state.pt.q,
+                                        state.pt.g)
+        return state._replace(diag_adapt=da, transform=transform)
+
+
+def _init_search(seed, state: ChainState, model, config: ChainConfig):
+    """Step-size init search from the current positions, with momentum from
+    the counter hash, then the dual-averaging reset."""
+    q = state.pt.q
+    v = sample_momentum(seed, 0, 1, 2, q.shape, q.dtype, q.device,
+                        config.nuts.kind)
+    found = ss.init_search(q, state.transform, v,
+                           logp_grad_fn=model.logp_and_grad,
+                           settings=config.step_size, kind=config.nuts.kind)
+    return state._replace(step=ss.reset_from_found_step(state.step, found))
+
+
+def init_chain_state(seed: int, model, strategy: DiagStrategy,
+                     config: ChainConfig, num_chains: int, dtype, device,
+                     init_positions=None) -> ChainState:
+    """Set up all chains: init positions (with retries for non-finite logp
+    or gradient, as nuts-rs src/sampler.rs:1133-1143), the mass-matrix init
+    and the step-size search."""
+    C, d = num_chains, model.dim
+    if init_positions is None:
+        q0 = model.init_position(seed, 0, C, dtype, device)
+        for attempt in range(1, INIT_RETRIES):
+            logp, g = model.logp_and_grad(q0)
+            ok = torch.isfinite(logp) & torch.isfinite(g).all(-1)
+            if bool(ok.all()):
+                break
+            q_new = model.init_position(seed, attempt, C, dtype, device)
+            q0 = torch.where(ok[:, None], q0, q_new)
+    else:
+        q0 = torch.as_tensor(init_positions, dtype=dtype, device=device)
+    transform = strategy.make_transform(C, d, dtype, device)
+    state = ChainState(
+        pt=init_point_from_q(q0, transform, model.logp_and_grad),
+        transform=transform,
+        diag_adapt=mm.new_diag_adapt_state(C, d, dtype, device),
+        step=ss.new_step_size_state(config.step_size.initial_step, C, dtype,
+                                    device),
+        draw_idx=0,
+    )
+    state = strategy.init_mass_matrix(state)
+    state = state._replace(pt=init_point_from_q(
+        state.pt.q, state.transform, model.logp_and_grad))
+    return _init_search(derive_seed(seed, 0, PURPOSE_INIT_SEARCH), state,
+                        model, config)
+
+
+def _stats(draws, out, bars, tid, tuning):
+    """Per-draw stats dict of [k, C, ...] tensors (chain.py:917-940)."""
+    k = draws.shape[1]
+
+    def t(x):
+        return x.T.contiguous()
+
+    n = torch.clamp(out["n_steps"], min=1.0)
+    return {
+        "position": draws.permute(1, 0, 2).contiguous(),
+        "depth": t(out["depth"]).to(torch.int32),
+        "maxdepth_reached": t(out["maxdepth_reached"]) > 0.5,
+        "diverging": t(out["diverging"]) > 0.5,
+        "n_steps": t(out["n_steps"]).to(torch.int32),
+        "step_size": t(out["step_size"]),
+        "step_size_bar": bars,
+        "mean_tree_accept": t(out["sum_accept"] / n),
+        "mean_tree_accept_sym": t(out["sum_accept_sym"] / n),
+        "max_energy_error": t(out["max_energy_error"]),
+        "logp": t(out["logp"]),
+        "energy": t(out["energy"]),
+        "energy_error": t(out["energy_error"]),
+        "index_in_trajectory": t(out["index_in_trajectory"]).to(torch.int32),
+        "fisher_distance": t(out["fisher_distance"]),
+        "transformation_index": tid,
+        "tuning": torch.as_tensor(tuning, device=draws.device)[:, None]
+        .expand(k, draws.shape[0]).contiguous(),
+    }
+
+
+def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
+                                base_seed: int):
+    """Posterior-phase runner on the fused engine: ``(state, flags) ->
+    (state, stats)`` with ``stats[name]`` shaped [k, C, ...].  One launch
+    per chunk."""
+    sset = config.step_size
+
+    def runner(state: ChainState, flags):
+        k = len(flags["is_tuning"])
+        C = state.pt.q.shape[0]
+        t = state.transform
+        bars = ss.step_size_bar(state.step, sset)
+        step_in = state.step.step_size
+        # The first posterior draw keeps the warmup's step (chain.py:847-871);
+        # a continuation launch gets a freshly jittered first step.
+        if sset.jitter is not None and state.draw_idx != phase_start:
+            u = host_uniform(derive_seed(base_seed, state.draw_idx,
+                                         PURPOSE_LAUNCH_STEP), 0, 1, (C,),
+                             bars.device)
+            step_in = bars * ((1.0 - sset.jitter) + (2.0 * sset.jitter) * u)
+        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_POSTERIOR)
+        q_f, g_f, logp_f, draws, out = nf.nuts_fused_run(
+            seed, state.pt.q, state.pt.g, state.pt.logp, t.stds, t.mean,
+            t.logdet, step_in, bars, k, model, config.nuts, sset.jitter)
+        pt = state.pt._replace(q=q_f, g=g_f, z=to_transformed(t, q_f),
+                               zg=grad_to_transformed(t, g_f), logp=logp_f)
+        state = state._replace(
+            pt=pt, step=state.step._replace(
+                step_size=out["step_size"][:, -1].contiguous()),
+            draw_idx=state.draw_idx + k)
+        stats = _stats(draws, out, bars[None, :].expand(k, C).contiguous(),
+                       t.id[None, :].expand(k, C).contiguous(),
+                       flags["is_tuning"])
+        return state, stats
+
+    return runner
+
+
+_FLAG_COLUMNS = ((nf.FLAG_UPDATE_EST, "update_estimators"),
+                 (nf.FLAG_DO_UPDATE, "do_update"),
+                 (nf.FLAG_ADVANCE_DA, "advance_da"),
+                 (nf.FLAG_USE_LATE, "use_late_estimator"),
+                 (nf.FLAG_USE_BEST, "use_best_guess"),
+                 (nf.FLAG_DO_SWITCH, "do_switch"))
+
+
+def warmup_flags(flags, device):
+    """The schedule flags of a chunk as the warmup kernel's [k, NFLAGS]
+    int32 columns."""
+    k = len(flags["is_tuning"])
+    cols = torch.zeros(k, nf.NFLAGS, dtype=torch.int32)
+    for col, name in _FLAG_COLUMNS:
+        cols[:, col] = torch.as_tensor(flags[name], dtype=torch.int32)
+    return cols.to(device)
+
+
+def pack_warmup_state(state: ChainState):
+    """The estimator planes [C, 8, d] and scalar rows [C, NSCA] the warmup
+    kernel carries (chain.py:1069-1089)."""
+    a, st, t = state.diag_adapt, state.step, state.transform
+    est = torch.stack([a.draw.mean, a.draw.var_sum, a.grad.mean,
+                       a.grad.var_sum, a.draw_bg.mean, a.draw_bg.var_sum,
+                       a.grad_bg.mean, a.grad_bg.var_sum], 1)
+    sca = torch.stack([st.step_size, st.log_step, st.log_step_adapted,
+                       st.hbar, st.mu, st.count, a.draw.count,
+                       a.draw_bg.count, t.id.to(st.step_size.dtype),
+                       t.logdet], 1)
+    return est.contiguous(), sca.contiguous()
+
+
+def make_fused_warmup_runner(model, config: ChainConfig, base_seed: int):
+    """Warmup-phase runner on the fused engine, with the fg/bg estimators,
+    the diagonal rule and dual averaging inside the kernel.  The step-size
+    re-init search on the first mass-matrix change runs here, after the
+    chunk whose last draw carries ``reinit_step_size`` (the sampler splits
+    the warmup phase there)."""
+    sset = config.step_size
+
+    def runner(state: ChainState, flags):
+        k = len(flags["is_tuning"])
+        st, t = state.step, state.transform
+        est, sca = pack_warmup_state(state)
+        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_WARMUP)
+        (q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f, draws,
+         out) = nf.nuts_fused_warmup_run(
+            seed, warmup_flags(flags, est.device), state.pt.q, state.pt.g,
+            state.pt.logp, t.stds.contiguous(), t.mean.contiguous(), est,
+            sca, model, config.nuts, sset, config.use_grad_based_estimate)
+
+        def row(i):
+            return sca_f[:, i].contiguous()
+
+        def plane(p):
+            return est_f[:, p].contiguous()
+
+        transform = AffineTransform(
+            mean=mean_f, stds=stds_f, inv_stds=1.0 / stds_f,
+            logdet=row(nf.SCA_LOGDET), id=row(nf.SCA_TID).to(torch.int32))
+
+        def rv(p, c):
+            return mm.RunningVariance(mean=plane(p), var_sum=plane(p + 1),
+                                      count=c)
+
+        cfg, cbg = row(nf.SCA_CNT_FG), row(nf.SCA_CNT_BG)
+        diag_adapt = mm.DiagAdaptState(draw=rv(0, cfg), grad=rv(2, cfg),
+                                       draw_bg=rv(4, cbg), grad_bg=rv(6, cbg))
+        step = st._replace(
+            log_step=row(nf.SCA_DA_LS), log_step_adapted=row(nf.SCA_DA_LSA),
+            hbar=row(nf.SCA_DA_HBAR), mu=row(nf.SCA_DA_MU),
+            count=row(nf.SCA_DA_CNT), step_size=row(nf.SCA_STEP))
+        pt = state.pt._replace(q=q_f, g=g_f, z=to_transformed(transform, q_f),
+                               zg=grad_to_transformed(transform, g_f),
+                               logp=logp_f, logdet=transform.logdet)
+        state = state._replace(pt=pt, transform=transform,
+                               diag_adapt=diag_adapt, step=step,
+                               draw_idx=state.draw_idx + k)
+        if flags["reinit_step_size"][-1]:
+            # First mass-matrix change (adapt_strategy.rs:207-212).
+            state = _init_search(
+                derive_seed(base_seed, state.draw_idx, PURPOSE_REINIT_SEARCH),
+                state, model, config)
+        stats = _stats(draws, out, out["step_size_bar"].T.contiguous(),
+                       out["transformation_index"].T.to(torch.int32),
+                       flags["is_tuning"])
+        return state, stats
+
+    return runner

@@ -1,0 +1,78 @@
+"""Chain state to and from numpy arrays.
+
+No counterpart in the JAX package.  ``state_to_numpy`` reads any object
+with the ``ChainState`` attribute layout (``pt``, ``transform``,
+``diag_adapt``, ``step``, ``draw_idx``), so it takes this package's state
+and the JAX package's state alike, without importing JAX; with
+``state_from_numpy`` the tests start both packages from one state.  Model
+parameters pass through ``Model`` construction, not through the state.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .adapt.mass_matrix import DiagAdaptState, RunningVariance
+from .adapt.step_size import StepSizeState
+from .chain import ChainState
+from .dynamics.point import Point
+from .transform.affine import AffineTransform
+
+_ESTIMATORS = ("draw", "grad", "draw_bg", "grad_bg")
+_STEP_FIELDS = ("log_step", "log_step_adapted", "hbar", "mu", "count",
+                "adam_m", "adam_v", "adam_t", "step_size")
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def state_to_numpy(state) -> dict:
+    """Flat dict of numpy arrays (leading chains axis) from a chain state."""
+    pt, t = state.pt, state.transform
+    out = {name: _np(getattr(pt, name))
+           for name in ("q", "g", "z", "zg", "logp")}
+    out.update(stds=_np(t.stds), mean=_np(t.mean), logdet=_np(t.logdet),
+               transform_id=_np(t.id))
+    for est in _ESTIMATORS:
+        rv = getattr(state.diag_adapt, est)
+        out[f"{est}_mean"] = _np(rv.mean)
+        out[f"{est}_var_sum"] = _np(rv.var_sum)
+        out[f"{est}_count"] = _np(rv.count)
+    for name in _STEP_FIELDS:
+        out[f"step_{name}"] = _np(getattr(state.step, name))
+    out["draw_idx"] = np.asarray(int(np.asarray(state.draw_idx)))
+    return out
+
+
+def state_from_numpy(arrays, device="cpu", dtype=torch.float32) -> ChainState:
+    """The chain state of this package from :func:`state_to_numpy` arrays."""
+    def f(name):
+        return torch.as_tensor(np.array(arrays[name]), dtype=dtype,
+                               device=device)
+
+    def i32(name):
+        return torch.as_tensor(np.array(arrays[name]), dtype=torch.int32,
+                               device=device)
+
+    stds = f("stds")
+    transform = AffineTransform(mean=f("mean"), stds=stds,
+                                inv_stds=1.0 / stds, logdet=f("logdet"),
+                                id=i32("transform_id"))
+    q = f("q")
+    logp = f("logp")
+    pt = Point(q=q, g=f("g"), z=f("z"), zg=f("zg"), v=torch.zeros_like(q),
+               logp=logp, logdet=transform.logdet, ke=torch.zeros_like(logp),
+               idx=torch.zeros(q.shape[:-1], dtype=torch.int32,
+                               device=device))
+    diag = DiagAdaptState(*(
+        RunningVariance(mean=f(f"{e}_mean"), var_sum=f(f"{e}_var_sum"),
+                        count=f(f"{e}_count")) for e in _ESTIMATORS))
+    step = StepSizeState(**{
+        name: (i32 if name == "adam_t" else f)(f"step_{name}")
+        for name in _STEP_FIELDS})
+    return ChainState(pt=pt, transform=transform, diag_adapt=diag, step=step,
+                      draw_idx=int(np.asarray(arrays["draw_idx"])))

@@ -1,0 +1,254 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+No counterpart in the JAX package (Pallas compiles inside ``pallas_call``).
+On first use, every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a``
+into one shared library with a plain C interface, under
+``nuts_rs_tpu_torch/_build/`` (named by a hash of the sources and flags, so
+an edited source rebuilds), and loaded with ``ctypes``.  The launchers
+check every tensor, allocate outputs with ``torch.empty`` and launch on
+PyTorch's current stream; a nonzero ``cudaGetLastError`` raises.
+
+The kernels compile with ``-fmad=false`` and without fast math, so their
+arithmetic stays within a few ulp of the plain PyTorch versions (one
+rounding per operation, as PyTorch's elementwise kernels round).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# (d, maxdepth) instantiations of both kernels; other sizes raise.
+SIZES = tuple((d, 10) for d in (3, 4, 6, 10))
+MODEL_IDS = {"iid_normal": 0}
+MAX_BLOCK = 128  # nrt::MAX_BLOCK, the kernels' __launch_bounds__
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+
+_LIB = None
+BUILD_INFO = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the fused CUDA kernels are built "
+                           "from csrc/ with the CUDA toolkit")
+    return path
+
+
+def _sizes_header() -> str:
+    cases = " ".join(f"X({d}, {D})" for d, D in SIZES)
+    return ("// Generated by nuts_rs_tpu_torch/kernels/_build.py\n"
+            f"#define NRT_FOR_EACH_SIZE(X) {cases}\n")
+
+
+def library():
+    """The loaded kernel library, built from ``csrc/`` on first use."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    sources = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    h = hashlib.sha256()
+    for p in sources + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(_sizes_header().encode())
+    so = BUILD_DIR / f"libnuts_fused_{h.hexdigest()[:16]}.so"
+    t0 = time.monotonic()
+    if not so.exists():
+        BUILD_DIR.mkdir(exist_ok=True)
+        (BUILD_DIR / "nrt_sizes.h").write_text(_sizes_header())
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in sources:
+            obj = BUILD_DIR / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c",
+                 "-I", str(BUILD_DIR), "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log = []
+        for src, p in procs:
+            out, _ = p.communicate()
+            log.append(f"== {src.name}\n{out}")
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+        tmp = so.with_suffix(".tmp")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                               *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        tmp.replace(so)
+        (BUILD_DIR / "build.log").write_text("\n".join(log))
+    BUILD_INFO["seconds"] = time.monotonic() - t0
+    BUILD_INFO["library"] = str(so)
+    lib = ctypes.CDLL(str(so))
+    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+    lib.nrt_posterior_launch.argtypes = (
+        [I, I, I, I, I, U, F, I, F, F, I] + [P] * 15 + [P])
+    lib.nrt_posterior_launch.restype = I
+    lib.nrt_warmup_launch.argtypes = (
+        [I, I, I, I, I, U, F, I, F, F, I, F, F, F, F, F, I] + [P] * 19
+        + [P])
+    lib.nrt_warmup_launch.restype = I
+    lib.nrt_error_string.argtypes = [I]
+    lib.nrt_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check_tensor(name, x, shape, device, dtype=torch.float32):
+    """Raise unless ``x`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``."""
+    if not isinstance(x, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if x.device != device:
+        raise ValueError(f"{name} must lie on {device}, got {x.device}")
+    if x.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must have shape {tuple(shape)}, "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar,
+                         K):
+    C, d = q.shape
+    for name, x, shape in (("q", q, (C, d)), ("g", g, (C, d)),
+                           ("stds", stds, (C, d)), ("mean", mean, (C, d)),
+                           ("logp", logp, (C,)), ("logdet", logdet, (C,)),
+                           ("step0", step0, (C,)),
+                           ("step_bar", step_bar, (C,))):
+        check_tensor(name, x, shape, q.device)
+    if K < 1:
+        raise ValueError("num_draws must be >= 1")
+
+
+def check_warmup_args(flags, q, g, logp, stds, mean, est, sca):
+    C, d = q.shape
+    check_tensor("flags", flags, (flags.shape[0], 8), q.device, torch.int32)
+    for name, x, shape in (("q", q, (C, d)), ("g", g, (C, d)),
+                           ("stds", stds, (C, d)), ("mean", mean, (C, d)),
+                           ("logp", logp, (C,)), ("est", est, (C, 8, d)),
+                           ("sca", sca, (C, 10))):
+        check_tensor(name, x, shape, q.device)
+    if flags.shape[0] < 1:
+        raise ValueError("flags must hold at least one draw")
+
+
+def _common(q, model, opts, B):
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {q.device}")
+    C, d = q.shape
+    D = opts.maxdepth
+    if (d, D) not in SIZES:
+        raise NotImplementedError(
+            f"the fused CUDA kernels are instantiated for (d, maxdepth) in "
+            f"{SIZES}, not ({d}, {D}) (ROADMAP.md queue 1 item 11)")
+    hook = model.kernel_hook
+    if hook is None or hook[0] not in MODEL_IDS:
+        raise NotImplementedError(
+            f"model {model.name!r} has no kernel hook the CUDA kernels "
+            "compile in (ROADMAP.md queue 1 item 10)")
+    if not 1 <= B <= MAX_BLOCK or C % B:
+        raise ValueError(f"chain block {B} must divide num_chains ({C}) and "
+                         f"be at most {MAX_BLOCK}")
+    params = (ctypes.c_float * max(1, len(hook[1])))(*hook[1])
+    return C, d, D, MODEL_IDS[hook[0]], params
+
+
+def _raise_on(rc, lib, what):
+    if rc != 0:
+        msg = lib.nrt_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+
+
+def _jitter_args(jitter):
+    if jitter is None:
+        return 0, 0.0, 0.0
+    return 1, 1.0 - jitter, 2.0 * jitter
+
+
+def launch_posterior(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
+                     K, model, opts, jitter, B):
+    """Launch csrc/nuts_fused_posterior.cu; returns (draws [K, d, C],
+    stats [K, NSTATS, C], q_f, g_f [C, d], logp_f [C], iters [C])."""
+    C, d, D, model_id, params = _common(q, model, opts, B)
+    dev = q.device
+    check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
+    lib = library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, d, C, **f32)
+    stats = torch.empty(K, 13, C, **f32)
+    q_f, g_f = torch.empty(C, d, **f32), torch.empty(C, d, **f32)
+    logp_f = torch.empty(C, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(jitter)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_posterior_launch(
+            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            float(opts.max_energy_error), hj, jc1, jc2, model_id,
+            ctypes.cast(params, ctypes.c_void_p),
+            q.data_ptr(), g.data_ptr(), logp.data_ptr(), stds.data_ptr(),
+            mean.data_ptr(), logdet.data_ptr(), step0.data_ptr(),
+            step_bar.data_ptr(), draws.data_ptr(), stats.data_ptr(),
+            q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
+            iters.data_ptr(), stream)
+    _raise_on(rc, lib, "nuts_fused_posterior")
+    return draws, stats, q_f, g_f, logp_f, iters
+
+
+def launch_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model, opts,
+                  sset, use_grad_based, B):
+    """Launch csrc/nuts_fused_warmup.cu; returns (draws [K, d, C],
+    stats [K, NSTATS_W, C], q, g, logp, stds, mean, est, sca, iters)."""
+    C, d, D, model_id, params = _common(q, model, opts, B)
+    dev = q.device
+    K = flags.shape[0]
+    check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
+    lib = library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, d, C, **f32)
+    stats = torch.empty(K, 15, C, **f32)
+    outs = [torch.empty(C, d, **f32), torch.empty(C, d, **f32),
+            torch.empty(C, **f32), torch.empty(C, d, **f32),
+            torch.empty(C, d, **f32), torch.empty(C, 8, d, **f32),
+            torch.empty(C, 10, **f32)]
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(sset.jitter)
+    da = sset.dual_average
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_warmup_launch(
+            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            float(opts.max_energy_error), hj, jc1, jc2, int(use_grad_based),
+            float(sset.target_accept), float(da.t0), float(da.gamma),
+            float(-da.k), math.log(da.max_step_size), model_id,
+            ctypes.cast(params, ctypes.c_void_p), flags.data_ptr(),
+            q.data_ptr(), g.data_ptr(), logp.data_ptr(), stds.data_ptr(),
+            mean.data_ptr(), est.data_ptr(), sca.data_ptr(),
+            draws.data_ptr(), stats.data_ptr(),
+            *(o.data_ptr() for o in outs), iters.data_ptr(), stream)
+    _raise_on(rc, lib, "nuts_fused_warmup")
+    return (draws, stats, *outs, iters)

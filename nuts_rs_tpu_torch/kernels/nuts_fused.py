@@ -1,0 +1,662 @@
+"""Fused NUTS engine: posterior (K1) and warmup (K2) kernels.
+
+Port of ``nuts_rs_tpu/kernels/nuts_pallas.py``: ``nuts_pallas_run``
+(``:718``, body ``make_kernel`` ``:82``) becomes ``nuts_fused_run`` with the
+CUDA kernel ``csrc/nuts_fused_posterior.cu``, and ``nuts_pallas_warmup_run``
+(``:1532``, body ``make_warmup_kernel`` ``:942``) becomes
+``nuts_fused_warmup_run`` with ``csrc/nuts_fused_warmup.cu``.  Only the
+chains-on-lanes layout with the plain diagonal evaluation is ported (no
+model args, flow or stream; ROADMAP.md queue 2).
+
+Each kernel has a plain PyTorch version here (``*_reference``): the same
+tree algorithm, the same counter-hash random sites with the same salts,
+the same chain-block mapping (B chains per block) and the same order of
+floating-point operations, vectorized over all chains.  The wrappers take
+the plain version for tensors on the CPU; for CUDA tensors they launch the
+kernel or raise.  ``LAUNCHES`` counts kernel launches per kernel.
+
+Random sites (static salts, as the Pallas trace numbers them):
+posterior: momentum 1,2 and direction 3 at it=0; per iteration it>=1:
+r_sel 4, r_acc 5, new direction 6, fresh momentum 7,8, jitter 9.
+warmup, per draw: momentum 1,2 and direction 3 at the draw's first it;
+per tree iteration: r_sel 4, r_acc 5, new direction 6; after the tree the
+jitter 7 at the tree's final it.  ``it`` carries across the draws of a
+warmup launch.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops import dsum
+from ._build import (
+    check_posterior_args,
+    check_warmup_args,
+    launch_posterior,
+    launch_warmup,
+)
+from .rng import BlockRng, tz
+
+STAT_NAMES = [
+    "depth", "diverging", "n_steps", "sum_accept", "sum_accept_sym",
+    "max_energy_error", "logp", "energy", "energy_error",
+    "index_in_trajectory", "fisher_distance", "step_size",
+    "maxdepth_reached",
+]
+NSTATS = len(STAT_NAMES)
+WARMUP_STAT_NAMES = STAT_NAMES + ["step_size_bar", "transformation_index"]
+NSTATS_W = len(WARMUP_STAT_NAMES)
+
+# flags columns (int32), as nuts_pallas.py:915-922
+FLAG_UPDATE_EST = 0
+FLAG_DO_UPDATE = 1
+FLAG_ADVANCE_DA = 2
+FLAG_USE_LATE = 3
+FLAG_USE_BEST = 4
+FLAG_DO_SWITCH = 5
+NFLAGS = 8
+
+# packed per-chain scalar state rows, as nuts_pallas.py:924-935
+SCA_STEP = 0
+SCA_DA_LS = 1
+SCA_DA_LSA = 2
+SCA_DA_HBAR = 3
+SCA_DA_MU = 4
+SCA_DA_CNT = 5
+SCA_CNT_FG = 6
+SCA_CNT_BG = 7
+SCA_TID = 8
+SCA_LOGDET = 9
+NSCA = 10
+
+# estimator planes: fg draw mean/var, fg grad mean/var, bg x4
+NEST = 8
+
+DEFAULT_BLOCK = 32  # chains per CUDA block: one warp
+
+LAUNCHES = {"nuts_fused_posterior": 0, "nuts_fused_warmup": 0}
+
+_F32 = torch.float32
+_NEG_INF = float("-inf")
+
+
+def _logaddexp(x1, x2):
+    """jax.lax.logaddexp's formula (lax/other.py), which the kernels share."""
+    amax = torch.maximum(x1, x2)
+    delta = x1 - x2
+    return torch.where(torch.isnan(delta), x1 + x2,
+                       amax + torch.log1p(torch.exp(-torch.abs(delta))))
+
+
+def _block_any(x, B):
+    """Per-chain view of ``any(x)`` over each chain's block of B."""
+    C = x.shape[0]
+    return x.reshape(C // B, B).any(1).repeat_interleave(B)
+
+
+def _rand_dir(u):
+    return torch.where(u < 0.5, 1.0, -1.0).to(_F32)
+
+
+def _sel(m, a, b):
+    """Per-chain select of [C] or [C, d] values on a [C] mask."""
+    if a.dim() > m.dim():
+        m = m[:, None]
+    return torch.where(m, a, b)
+
+
+def _uturn(leaf, depth, dirf, z1, v2, d1, lz, lv, bl, mz, mv, bm,
+           m_z, m_v, p_z, p_v, D):
+    """U-turn checks of one leapfrog (nuts_pallas.py:405-576).
+
+    Returns (turning_int, turning_top).  Stacks are the updated ones; the
+    endpoints are the carried (pre-merge) ones."""
+    C = z1.shape[0]
+    ar = torch.arange(C, device=z1.device)
+    rows = torch.arange(D + 1, device=z1.device)[None, :]
+    tzn = tz(leaf + 1, D)
+    z1v = dsum(z1[:, None, :] * lv)
+    zv2 = dsum(lz * v2[:, None, :])
+    m1 = dsum(z1[:, None, :] * mv)
+    m2 = dsum(mz * v2[:, None, :])
+    zero = torch.zeros(C, 1, dtype=_F32, device=z1.device)
+    adj_bzav = torch.cat([zero, dsum(lz[:, :-1] * lv[:, 1:])], 1)
+    adj_azbv = torch.cat([zero, dsum(lz[:, 1:] * lv[:, :-1])], 1)
+    blm1 = torch.cat([zero, bl[:, :-1]], 1)
+    dirb = dirf[:, None]
+    d1b = d1[:, None]
+    t1 = (dirb * (z1v - bl) < 0) | (dirb * (d1b - zv2) < 0)
+    t2 = (dirb * (m1 - bm) < 0) | (dirb * (d1b - m2) < 0)
+    t3 = (dirb * (adj_bzav - bl) < 0) | (dirb * (blm1 - adj_azbv) < 0)
+    tj = t1 | ((rows >= 2) & (t2 | t3))
+    act_lvl = (rows >= 1) & (rows < tzn[:, None])
+    turning = (act_lvl & tj).any(1)
+
+    # the boundary level j == tzn, the only one with a dynamic row
+    s_a = leaf + 1 - (1 << tzn)
+    ra = torch.clamp(tz(s_a, D), max=D)
+    rt = tzn
+    rb = torch.clamp(tzn - 1, min=0)
+    a_b = bl[ar, ra]
+    t1d = ((dirf * (z1v[ar, ra] - a_b) < 0)
+           | (dirf * (d1 - zv2[ar, ra]) < 0))
+    t2d = ((dirf * (m1[ar, rt] - bm[ar, rt]) < 0)
+           | (dirf * (d1 - m2[ar, rt]) < 0))
+    t3d = ((dirf * (dsum(lz[ar, rb] * lv[ar, ra]) - a_b) < 0)
+           | (dirf * (bl[ar, rb] - dsum(lz[ar, ra] * lv[ar, rb])) < 0))
+    turning = turning | ((tzn >= 1) & t1d) | ((tzn >= 2) & (t2d | t3d))
+
+    fwd = dirf > 0
+    far_z = _sel(fwd, m_z, p_z)
+    far_v = _sel(fwd, m_v, p_v)
+    near_z = _sel(fwd, p_z, m_z)
+    near_v = _sel(fwd, p_v, m_v)
+    far_zv = dsum(far_z * far_v)
+    t_out = ((dirf * (dsum(z1 * far_v) - far_zv) < 0)
+             | (dirf * (d1 - dsum(far_z * v2)) < 0))
+    near_zv = dsum(near_z * near_v)
+    t_nr = ((dirf * (dsum(z1 * near_v) - near_zv) < 0)
+            | (dirf * (d1 - dsum(near_z * v2)) < 0))
+    t_b0 = ((dirf * (dsum(lz[:, D] * far_v) - far_zv) < 0)
+            | (dirf * (bl[:, D] - dsum(far_z * lv[:, D])) < 0))
+    turning_top = t_out | ((depth > 0) & (t_nr | t_b0))
+    return turning, turning_top
+
+
+def _check_block(C, block):
+    B = min(block, C)
+    if C % B:
+        raise ValueError(f"num_chains ({C}) must be a multiple of the chain "
+                         f"block ({B})")
+    return B
+
+
+def _jitter_consts(jitter):
+    """(1 - j, 2 j) as the Pallas body forms them in f64 before the f32
+    arithmetic; the CUDA kernels take the same two f32 constants."""
+    return 1.0 - jitter, 2.0 * jitter
+
+
+# ---------------------------------------------------------------------------
+# K1: fused posterior
+# ---------------------------------------------------------------------------
+
+
+def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
+                             step_bar, num_draws, model, opts, jitter,
+                             block=DEFAULT_BLOCK):
+    """Plain PyTorch version of the fused posterior kernel.
+
+    Same arguments and results as :func:`nuts_fused_run`."""
+    C, d = q.shape
+    K = num_draws
+    B = _check_block(C, block)
+    D = opts.maxdepth
+    max_err = float(opts.max_energy_error)
+    dev = q.device
+    f = lambda x: x.to(_F32).contiguous()  # noqa: E731
+    q, g, stds, mean = f(q), f(g), f(stds), f(mean)
+    logp, logdet, step, bar = f(logp), f(logdet), f(step0), f(step_bar)
+    rng = BlockRng(seed, C, d, B, dev)
+    ar = torch.arange(C, device=dev)
+    zi = torch.zeros(C, dtype=torch.int32, device=dev)
+    zf = torch.zeros(C, dtype=_F32, device=dev)
+
+    z0 = (q - mean) / stds
+    zg0 = g * stds
+    v0 = rng.normals_vec(0, 1, 2)
+    ke0 = 0.5 * dsum(v0 * v0)
+    e_init = ke0 - (logp + logdet)
+    dc = zi
+    e_z, e_v, e_zg, e_idx = z0, v0, zg0, zi
+    m_z, m_v, m_zg, m_idx = z0, v0, zg0, zi
+    p_z, p_v, p_zg, p_idx = z0, v0, zg0, zi
+    dm_z, dm_zg, dm_logp, dm_ke, dm_idx, dm_q = z0, zg0, logp, ke0, zi, q
+    ds_z, ds_zg, ds_logp, ds_ke, ds_idx, ds_q = z0, zg0, logp, ke0, zi, q
+    logw_m = zf
+    logw_s = torch.full_like(zf, _NEG_INF)
+    depth, leaf = zi, zi
+    direction = _rand_dir(rng.uniform(0, 3))
+    n_steps, s_acc, s_sym, mx_err = zi, zf, zf, zf
+    lz = torch.zeros(C, D + 1, d, dtype=_F32, device=dev)
+    lv, mz, mv = lz.clone(), lz.clone(), lz.clone()
+    bl = torch.zeros(C, D + 1, dtype=_F32, device=dev)
+    bm = bl.clone()
+
+    draws = torch.zeros(C, K, d, dtype=_F32, device=dev)
+    stats = torch.zeros(C, K, NSTATS, dtype=_F32, device=dev)
+    fin_q, fin_zg, fin_logp = dm_q, dm_zg, dm_logp
+    iters = torch.zeros(C, dtype=torch.int32, device=dev)
+    c1, c2 = _jitter_consts(jitter) if jitter is not None else (None, None)
+
+    it = 1
+    live = _block_any(dc < K, B)
+    while bool(live.any()):
+        r_sel = rng.uniform(it, 4)
+        r_acc = rng.uniform(it, 5)
+        dirf = direction
+        eps = (dirf * step)[:, None]
+        v1 = e_v + (eps / 2.0) * e_zg
+        z1 = e_z + eps * v1
+        q1 = z1 * stds + mean
+        logp1, g1 = model.logp_and_grad(q1)
+        zg1 = g1 * stds
+        v2 = v1 + (eps / 2.0) * zg1
+        ke1 = 0.5 * dsum(v2 * v2)
+        err = (ke1 - (logp1 + logdet)) - e_init
+        diverged = (err > max_err) | ~torch.isfinite(err)
+        idx1 = e_idx + dirf.to(torch.int32)
+
+        diff = -err
+        acc = torch.exp(torch.clamp(diff, max=0.0))
+        n_steps = n_steps + 1
+        s_acc = s_acc + torch.where(diverged, 0.0, acc)
+        s_sym = s_sym + torch.where(diverged, 0.0,
+                                    2.0 * acc / (1.0 + torch.exp(diff)))
+        mx_err = torch.where(diverged, _NEG_INF,
+                             torch.where(torch.abs(diff) > torch.abs(mx_err),
+                                         diff, mx_err))
+
+        logw_leaf = -err
+        first = leaf == 0
+        logw_s = torch.where(first, logw_leaf, _logaddexp(logw_s, logw_leaf))
+        take = first | (torch.log(r_sel) < logw_leaf - logw_s)
+        ds_z, ds_zg = _sel(take, z1, ds_z), _sel(take, zg1, ds_zg)
+        ds_logp, ds_ke = _sel(take, logp1, ds_logp), _sel(take, ke1, ds_ke)
+        ds_idx, ds_q = _sel(take, idx1, ds_idx), _sel(take, q1, ds_q)
+
+        d1 = dsum(z1 * v2)
+        row_l = torch.clamp(tz(leaf, D), max=D)
+        row_m = torch.clamp(tz(leaf + 1, D) + 1, max=D)
+        lz[ar, row_l] = z1
+        lv[ar, row_l] = v2
+        bl[ar, row_l] = d1
+        mz[ar, row_m] = z1
+        mv[ar, row_m] = v2
+        bm[ar, row_m] = d1
+        turning_int, turning_top = _uturn(
+            leaf, depth, dirf, z1, v2, d1, lz, lv, bl, mz, mv, bm,
+            m_z, m_v, p_z, p_v, D)
+
+        subtree_done = (leaf + 1) == (1 << depth)
+        fwd = dirf > 0
+        do_merge = subtree_done & ~diverged & ~turning_int
+        take_s = (logw_s >= logw_m) | (torch.log(r_acc) < logw_s - logw_m)
+        mt = do_merge & take_s
+        dm_z, dm_zg = _sel(mt, ds_z, dm_z), _sel(mt, ds_zg, dm_zg)
+        dm_logp, dm_ke = _sel(mt, ds_logp, dm_logp), _sel(mt, ds_ke, dm_ke)
+        dm_idx, dm_q = _sel(mt, ds_idx, dm_idx), _sel(mt, ds_q, dm_q)
+        logw_m = torch.where(do_merge, _logaddexp(logw_m, logw_s), logw_m)
+        mf = do_merge & fwd
+        mb = do_merge & ~fwd
+        p_z, p_v, p_zg = _sel(mf, z1, p_z), _sel(mf, v2, p_v), _sel(mf, zg1, p_zg)
+        p_idx = _sel(mf, idx1, p_idx)
+        m_z, m_v, m_zg = _sel(mb, z1, m_z), _sel(mb, v2, m_v), _sel(mb, zg1, m_zg)
+        m_idx = _sel(mb, idx1, m_idx)
+
+        depth = depth + do_merge.to(torch.int32)
+        turned = turning_int | (do_merge & turning_top)
+        fin = diverged | turned | (depth >= D)
+
+        emit = fin & (dc < K)
+        if bool(emit.any()):
+            energy_m = dm_ke - (dm_logp + logdet)
+            row = torch.stack([
+                depth.to(_F32), diverged.to(_F32), n_steps.to(_F32), s_acc,
+                s_sym, mx_err, dm_logp, energy_m, energy_m - e_init,
+                dm_idx.to(_F32), dsum(torch.square(dm_z + dm_zg)), step,
+                ((depth >= D) & ~turned & ~diverged).to(_F32)], 1)
+            ce = emit.nonzero()[:, 0]
+            draws[ce, dc[ce].long()] = dm_q[ce]
+            stats[ce, dc[ce].long()] = row[ce]
+
+        new_dir = _rand_dir(rng.uniform(it, 6))
+        new_doub = do_merge & ~fin
+        v_new = rng.normals_vec(it, 7, 8)
+        ke_new = 0.5 * dsum(v_new * v_new)
+        if jitter is None:
+            step_new = bar
+        else:
+            step_new = bar * (c1 + c2 * rng.uniform(it, 9))
+        jump_p = new_dir > 0
+        j_z, j_v = _sel(jump_p, p_z, m_z), _sel(jump_p, p_v, m_v)
+        j_zg, j_idx = _sel(jump_p, p_zg, m_zg), _sel(jump_p, p_idx, m_idx)
+
+        def nxt(fresh, doub, cont):
+            return _sel(fin, fresh, _sel(new_doub, doub, cont))
+
+        step = _sel(fin, step_new, step)
+        e_init = _sel(fin, ke_new - (dm_logp + logdet), e_init)
+        dc = dc + fin.to(torch.int32)
+        e_z, e_v = nxt(dm_z, j_z, z1), nxt(v_new, j_v, v2)
+        e_zg, e_idx = nxt(dm_zg, j_zg, zg1), nxt(zi, j_idx, idx1)
+        m_z, m_v = _sel(fin, dm_z, m_z), _sel(fin, v_new, m_v)
+        m_zg, m_idx = _sel(fin, dm_zg, m_zg), _sel(fin, zi, m_idx)
+        p_z, p_v = _sel(fin, dm_z, p_z), _sel(fin, v_new, p_v)
+        p_zg, p_idx = _sel(fin, dm_zg, p_zg), _sel(fin, zi, p_idx)
+        dm_ke, dm_idx = _sel(fin, ke_new, dm_ke), _sel(fin, zi, dm_idx)
+        logw_m = _sel(fin, zf, logw_m)
+        depth = _sel(fin, zi, depth)
+        reset = fin | new_doub
+        leaf = torch.where(reset, 0, leaf + 1).to(torch.int32)
+        direction = _sel(reset, new_dir, direction)
+        n_steps = _sel(fin, zi, n_steps)
+        s_acc, s_sym = _sel(fin, zf, s_acc), _sel(fin, zf, s_sym)
+        mx_err = _sel(fin, zf, mx_err)
+
+        # a block's results are its chains' values at its last iteration
+        fin_q = _sel(live, dm_q, fin_q)
+        fin_zg = _sel(live, dm_zg, fin_zg)
+        fin_logp = _sel(live, dm_logp, fin_logp)
+        iters = torch.where(live, it + 1, iters).to(torch.int32)
+        it += 1
+        live = _block_any(dc < K, B)
+
+    stats_out = {name: stats[:, :, i] for i, name in enumerate(STAT_NAMES)}
+    stats_out["loop_iterations"] = iters
+    return fin_q, fin_zg / stds, fin_logp, draws, stats_out
+
+
+def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
+                   num_draws, model, opts, jitter, block=DEFAULT_BLOCK):
+    """Run ``num_draws`` draw-asynchronous NUTS draws per chain.
+
+    q, g, stds, mean: [C, d]; logp, logdet, step0, step_bar: [C].  Returns
+    (q_f [C, d], g_f [C, d], logp_f [C], draws [C, K, d], stats) with stats
+    a dict of [C, K] float32 arrays keyed by ``STAT_NAMES`` plus
+    ``loop_iterations`` [C].  The first draw of each chain uses ``step0``;
+    later draws use ``step_bar`` jittered by ``jitter``.
+
+    CPU tensors run the plain PyTorch version; CUDA tensors launch
+    ``csrc/nuts_fused_posterior.cu``."""
+    check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar,
+                         num_draws)
+    if q.device.type == "cpu":
+        return nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet,
+                                        step0, step_bar, num_draws, model,
+                                        opts, jitter, block)
+    draws, stats, q_f, g_f, logp_f, iters = launch_posterior(
+        seed, q, g, logp, stds, mean, logdet, step0, step_bar, num_draws,
+        model, opts, jitter, _check_block(q.shape[0], block))
+    LAUNCHES["nuts_fused_posterior"] += 1
+    stats_out = {name: stats[:, i, :].T for i, name in enumerate(STAT_NAMES)}
+    stats_out["loop_iterations"] = iters
+    return q_f, g_f, logp_f, draws.permute(2, 0, 1), stats_out
+
+
+# ---------------------------------------------------------------------------
+# K2: fused warmup
+# ---------------------------------------------------------------------------
+
+
+def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
+                                    sca, model, opts, sset, use_grad_based,
+                                    block=DEFAULT_BLOCK):
+    """Plain PyTorch version of the fused warmup kernel.
+
+    Same arguments and results as :func:`nuts_fused_warmup_run`."""
+    C, d = q.shape
+    K = flags.shape[0]
+    B = _check_block(C, block)
+    D = opts.maxdepth
+    max_err = float(opts.max_energy_error)
+    da = sset.dual_average
+    jitter = sset.jitter
+    dev = q.device
+    f = lambda x: x.to(_F32).contiguous()  # noqa: E731
+    q, g, logp, stds, mean = f(q), f(g), f(logp), f(stds), f(mean)
+    est = [f(est[:, p]) for p in range(NEST)]
+    sca = [f(sca[:, r]) for r in range(NSCA)]
+    flags = flags.to("cpu", torch.int32)
+    rng = BlockRng(seed, C, d, B, dev)
+    ar = torch.arange(C, device=dev)
+    zi = torch.zeros(C, dtype=torch.int32, device=dev)
+    zf = torch.zeros(C, dtype=_F32, device=dev)
+    zd = torch.zeros(C, d, dtype=_F32, device=dev)
+    ls_max = math.log(da.max_step_size)
+    c1, c2 = _jitter_consts(jitter) if jitter is not None else (None, None)
+
+    draws = torch.zeros(C, K, d, dtype=_F32, device=dev)
+    stats = torch.zeros(C, K, NSTATS_W, dtype=_F32, device=dev)
+    it = torch.ones(C, dtype=torch.int64, device=dev)
+
+    for i in range(K):
+        fl = [bool(flags[i, col]) for col in range(6)]
+        (f_upd_est, f_do_upd, f_adv_da, f_use_late, f_use_best,
+         f_switch) = fl
+        logdet = sca[SCA_LOGDET]
+        step = sca[SCA_STEP]
+
+        z0 = (q - mean) / stds
+        zg0 = g * stds
+        v0 = rng.normals_vec(it, 1, 2)
+        ke0 = 0.5 * dsum(v0 * v0)
+        e_init = ke0 - (logp + logdet)
+        done, div, turn = (torch.zeros(C, dtype=torch.bool, device=dev)
+                           for _ in range(3))
+        e_z, e_v, e_zg, e_idx = z0, v0, zg0, zi
+        m_z, m_v, m_zg, m_idx = z0, v0, zg0, zi
+        p_z, p_v, p_zg, p_idx = z0, v0, zg0, zi
+        dm_z, dm_zg, dm_logp, dm_ke, dm_idx = z0, zg0, logp, ke0, zi
+        ds_z, ds_zg, ds_logp, ds_ke, ds_idx = z0, zg0, logp, ke0, zi
+        logw_m = zf
+        logw_s = torch.full_like(zf, _NEG_INF)
+        depth, leaf = zi, zi
+        direction = _rand_dir(rng.uniform(it, 3))
+        n_steps, s_acc, s_sym, mx_err = zi, zf, zf, zf
+        lz = torch.zeros(C, D + 1, d, dtype=_F32, device=dev)
+        lv, mz, mv = lz.clone(), lz.clone(), lz.clone()
+        bl = torch.zeros(C, D + 1, dtype=_F32, device=dev)
+        bm = bl.clone()
+
+        live = _block_any(~done, B)
+        while bool(live.any()):
+            act = ~done
+            r_sel = rng.uniform(it, 4)
+            r_acc = rng.uniform(it, 5)
+            dirf = direction
+            eps = (dirf * step)[:, None]
+            v1 = e_v + (eps / 2.0) * e_zg
+            z1 = e_z + eps * v1
+            logp1, g1 = model.logp_and_grad(z1 * stds + mean)
+            zg1 = g1 * stds
+            v2 = v1 + (eps / 2.0) * zg1
+            ke1 = 0.5 * dsum(v2 * v2)
+            err = (ke1 - (logp1 + logdet)) - e_init
+            diverged = act & ((err > max_err) | ~torch.isfinite(err))
+            idx1 = e_idx + dirf.to(torch.int32)
+
+            diff = -err
+            acc = torch.exp(torch.clamp(diff, max=0.0))
+            n_steps = n_steps + act.to(torch.int32)
+            ok = act & ~diverged
+            s_acc = s_acc + torch.where(ok, acc, 0.0)
+            s_sym = s_sym + torch.where(
+                ok, 2.0 * acc / (1.0 + torch.exp(diff)), 0.0)
+            mx_err = torch.where(
+                diverged, _NEG_INF,
+                torch.where(act & (torch.abs(diff) > torch.abs(mx_err)),
+                            diff, mx_err))
+
+            logw_leaf = -err
+            first = leaf == 0
+            logw_s = torch.where(
+                act, torch.where(first, logw_leaf,
+                                 _logaddexp(logw_s, logw_leaf)), logw_s)
+            take = act & (first | (torch.log(r_sel) < logw_leaf - logw_s))
+            ds_z, ds_zg = _sel(take, z1, ds_z), _sel(take, zg1, ds_zg)
+            ds_logp, ds_ke = _sel(take, logp1, ds_logp), _sel(take, ke1, ds_ke)
+            ds_idx = _sel(take, idx1, ds_idx)
+
+            d1 = dsum(z1 * v2)
+            row_l = torch.clamp(tz(leaf, D), max=D)
+            row_m = torch.clamp(tz(leaf + 1, D) + 1, max=D)
+            ca = act.nonzero()[:, 0]
+            lz[ca, row_l[ca]] = z1[ca]
+            lv[ca, row_l[ca]] = v2[ca]
+            bl[ca, row_l[ca]] = d1[ca]
+            mz[ca, row_m[ca]] = z1[ca]
+            mv[ca, row_m[ca]] = v2[ca]
+            bm[ca, row_m[ca]] = d1[ca]
+            turning_int, turning_top = _uturn(
+                leaf, depth, dirf, z1, v2, d1, lz, lv, bl, mz, mv, bm,
+                m_z, m_v, p_z, p_v, D)
+            turning_int = turning_int & act
+
+            subtree_done = (leaf + 1) == (1 << depth)
+            fwd = dirf > 0
+            do_merge = act & subtree_done & ~diverged & ~turning_int
+            take_s = (logw_s >= logw_m) | (torch.log(r_acc) < logw_s - logw_m)
+            mt = do_merge & take_s
+            dm_z, dm_zg = _sel(mt, ds_z, dm_z), _sel(mt, ds_zg, dm_zg)
+            dm_logp, dm_ke = _sel(mt, ds_logp, dm_logp), _sel(mt, ds_ke, dm_ke)
+            dm_idx = _sel(mt, ds_idx, dm_idx)
+            logw_m = torch.where(do_merge, _logaddexp(logw_m, logw_s), logw_m)
+            mf = do_merge & fwd
+            mb = do_merge & ~fwd
+            p_z, p_v = _sel(mf, z1, p_z), _sel(mf, v2, p_v)
+            p_zg, p_idx = _sel(mf, zg1, p_zg), _sel(mf, idx1, p_idx)
+            m_z, m_v = _sel(mb, z1, m_z), _sel(mb, v2, m_v)
+            m_zg, m_idx = _sel(mb, zg1, m_zg), _sel(mb, idx1, m_idx)
+
+            depth = depth + do_merge.to(torch.int32)
+            turned = turning_int | (do_merge & turning_top)
+            tree_done = act & (diverged | turned | (depth >= D))
+
+            new_dir = _rand_dir(rng.uniform(it, 6))
+            new_doub = do_merge & (depth < D) & ~turned
+            jump_p = new_dir > 0
+            j_z, j_v = _sel(jump_p, p_z, m_z), _sel(jump_p, p_v, m_v)
+            j_zg, j_idx = _sel(jump_p, p_zg, m_zg), _sel(jump_p, p_idx, m_idx)
+
+            def cont2(doub, cont, old):
+                return _sel(act, _sel(new_doub, doub, cont), old)
+
+            done = done | tree_done
+            div = div | diverged
+            turn = turn | turned
+            e_z, e_v = cont2(j_z, z1, e_z), cont2(j_v, v2, e_v)
+            e_zg, e_idx = cont2(j_zg, zg1, e_zg), cont2(j_idx, idx1, e_idx)
+            leaf = torch.where(act, torch.where(new_doub, 0, leaf + 1),
+                               leaf).to(torch.int32)
+            direction = _sel(act & new_doub, new_dir, direction)
+            it = it + live.to(torch.int64)
+            live = _block_any(~done, B)
+
+        # ---- draw results and in-kernel adaptation ----
+        dm_q = dm_z * stds + mean
+        dm_g = dm_zg / stds
+        is_good = ((div & (torch.abs(dm_idx) > 4))
+                   | (~div & (dm_idx != 0)))
+        cnt_fg, cnt_bg = sca[SCA_CNT_FG], sca[SCA_CNT_BG]
+        inc = is_good & f_upd_est
+
+        def add2(mean_p, var_p, cnt_old, value):
+            cnt = cnt_old + inc.to(_F32)
+            first1 = (cnt == 1.0)[:, None]
+            diffv = value - mean_p
+            meann = torch.where(first1, value,
+                                mean_p + diffv / torch.clamp(cnt, min=1.0)[:, None])
+            varn = var_p + torch.where(first1, 0.0, diffv * diffv)
+            return _sel(inc, meann, mean_p), _sel(inc, varn, var_p)
+
+        fg_dm, fg_dv = add2(est[0], est[1], cnt_fg, dm_q)
+        fg_gm, fg_gv = add2(est[2], est[3], cnt_fg, dm_g)
+        bg_dm, bg_dv = add2(est[4], est[5], cnt_bg, dm_q)
+        bg_gm, bg_gv = add2(est[6], est[7], cnt_bg, dm_g)
+        cnt_fg = cnt_fg + torch.where(inc, 1.0, 0.0)
+        cnt_bg = cnt_bg + torch.where(inc, 1.0, 0.0)
+        if f_switch:
+            fg_dm, fg_dv, fg_gm, fg_gv = bg_dm, bg_dv, bg_gm, bg_gv
+            bg_dm, bg_dv, bg_gm, bg_gv = zd, zd, zd, zd
+            cnt_fg, cnt_bg = cnt_bg, zf
+
+        enough = (cnt_fg >= 3.0) & f_do_upd
+        if use_grad_based:
+            val = torch.sqrt(fg_dv / fg_gv)
+        else:
+            val = fg_dv * (1.0 / torch.clamp(cnt_fg, min=1.0))[:, None]
+        invalid = ~torch.isfinite(val) | (val == 0.0)
+        var = torch.clamp(val, 1e-20, 1e20)
+        var = torch.where(invalid, torch.square(stds), var)
+        new_stds = torch.sqrt(var)
+        new_mean = fg_dm + var * fg_gm if use_grad_based else fg_dm
+        stds_n = _sel(enough, new_stds, stds)
+        mean_n = _sel(enough, new_mean, mean)
+        logdet_n = -dsum(torch.log(stds_n))
+        tid_n = sca[SCA_TID] + torch.where(enough, 1.0, 0.0)
+
+        nst = torch.clamp(n_steps.to(_F32), min=1.0)
+        accept = s_sym / nst if f_use_late else s_acc / nst
+        da_cnt = sca[SCA_DA_CNT]
+        w = 1.0 / (da_cnt + da.t0)
+        hbar_n = (1.0 - w) * sca[SCA_DA_HBAR] + w * (sset.target_accept
+                                                    - accept)
+        # a tensor divisor: PyTorch's CUDA division by a Python scalar
+        # multiplies by its reciprocal, which rounds differently
+        ls_n = sca[SCA_DA_MU] - hbar_n * torch.sqrt(da_cnt) / torch.full_like(
+            hbar_n, da.gamma)
+        ls_n = torch.clamp(ls_n, max=ls_max)
+        mk = torch.exp(-da.k * torch.log(da_cnt))
+        lsa_n = mk * ls_n + (1.0 - mk) * sca[SCA_DA_LSA]
+        if f_adv_da:
+            da_ls, da_lsa, da_hbar = ls_n, lsa_n, hbar_n
+            da_cnt = da_cnt + 1.0
+        else:
+            da_ls, da_lsa, da_hbar = (sca[SCA_DA_LS], sca[SCA_DA_LSA],
+                                      sca[SCA_DA_HBAR])
+        base = torch.exp(da_lsa if f_use_best else da_ls)
+        if jitter is not None:
+            base = base * (c1 + c2 * rng.uniform(it, 7))
+        bar = torch.exp(da_lsa)
+
+        energy_m = dm_ke - (dm_logp + logdet)
+        draws[:, i] = dm_q
+        stats[:, i] = torch.stack([
+            depth.to(_F32), div.to(_F32), n_steps.to(_F32), s_acc, s_sym,
+            mx_err, dm_logp, energy_m, energy_m - e_init, dm_idx.to(_F32),
+            dsum(torch.square(dm_z + dm_zg)), base,
+            ((depth >= D) & ~div & ~turn).to(_F32), bar, tid_n], 1)
+
+        sca = [base, da_ls, da_lsa, da_hbar, sca[SCA_DA_MU], da_cnt, cnt_fg,
+               cnt_bg, tid_n, logdet_n]
+        est = [fg_dm, fg_dv, fg_gm, fg_gv, bg_dm, bg_dv, bg_gm, bg_gv]
+        q, g, logp, stds, mean = dm_q, dm_g, dm_logp, stds_n, mean_n
+
+    stats_out = {name: stats[:, :, i] for i, name in enumerate(WARMUP_STAT_NAMES)}
+    stats_out["loop_iterations"] = it.to(torch.int32)
+    return (q, g, logp, stds, mean, torch.stack(est, 1), torch.stack(sca, 1),
+            draws, stats_out)
+
+
+def nuts_fused_warmup_run(seed, flags, q, g, logp, stds, mean, est, sca,
+                          model, opts, sset, use_grad_based,
+                          block=DEFAULT_BLOCK):
+    """Run K = flags.shape[0] lock-step warmup draws with in-kernel
+    adaptation.
+
+    flags [K, NFLAGS] int32 (``FLAG_*`` columns); q, g, stds, mean [C, d];
+    logp [C]; est [C, 8, d] estimator planes; sca [C, NSCA] scalar rows
+    (``SCA_*``).  Returns (q, g, logp, stds, mean, est, sca, draws
+    [C, K, d], stats) with stats a dict of [C, K] arrays keyed by
+    ``WARMUP_STAT_NAMES`` plus ``loop_iterations`` [C].
+
+    CPU tensors run the plain PyTorch version; CUDA tensors launch
+    ``csrc/nuts_fused_warmup.cu``."""
+    check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
+    if q.device.type == "cpu":
+        return nuts_fused_warmup_run_reference(
+            seed, flags, q, g, logp, stds, mean, est, sca, model, opts, sset,
+            use_grad_based, block)
+    (draws, stats, q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
+     iters) = launch_warmup(seed, flags, q, g, logp, stds, mean, est, sca,
+                            model, opts, sset, use_grad_based,
+                            _check_block(q.shape[0], block))
+    LAUNCHES["nuts_fused_warmup"] += 1
+    stats_out = {name: stats[:, i, :].T
+                 for i, name in enumerate(WARMUP_STAT_NAMES)}
+    stats_out["loop_iterations"] = iters
+    return (q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
+            draws.permute(2, 0, 1), stats_out)

@@ -1,0 +1,338 @@
+"""Settings presets, the phase plan and the chunked sampler.
+
+Port of ``nuts_rs_tpu/sampler.py``: ``NutsSettings`` and
+``DiagNutsSettings`` (``:45-281,538-541``), the phase plan ``build_phases``
+(``:202-281``), a reduced ``Sampler`` (``:758``: ``__init__``, the phase
+runners, ``run_next_chunk``, ``_finish_chunk``, ``run`` ``:1957``) and the
+free functions ``schema`` (``:2216``) and ``sample`` (``:2248``).
+
+This slice runs the fused engine only: warmup on the fused warmup kernel,
+split at the step-size re-init draw, and the posterior on the fused
+posterior kernel.  ``posterior_kernel="pallas"`` keeps its name, so one user
+script runs on both packages; in this package it selects the hand-written
+CUDA kernels (and their plain PyTorch versions for CPU tensors).  A setting
+the slice does not take raises ``NotImplementedError`` naming the ROADMAP.md
+item that ports it; nothing runs quietly on another path.  The control
+surface (pause/resume, checkpoints, progress, convergence stop, transfer
+knobs, expansions) is queue-1 item 9.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .adapt.schedule import AdaptScheduleOptions, build_schedule
+from .adapt.step_size import StepSizeMethod, StepSizeSettings
+from .chain import (
+    ChainConfig,
+    DiagStrategy,
+    init_chain_state,
+    make_fused_posterior_runner,
+    make_fused_warmup_runner,
+)
+from .dynamics.hamiltonian import KineticKind
+from .kernels import _build
+from .kernels.nuts import NutsOptions
+from .models.model import Model
+from .storage.core import StorageConfig, dims_for_tail
+from .storage.memory import MemoryConfig, Trace
+
+
+def cl_max_dim(maxdepth: int) -> int:
+    """Largest d the chains-on-lanes layout takes: the JAX package's VMEM
+    rule at its smallest lane block (128 chains, ``chain.py:721,740-745``),
+    kept so that one configuration takes the same path in both packages.
+    Larger models take the dim-on-lanes layout (ROADMAP.md queue 1 item 11)."""
+    per_d = 6 * (maxdepth + 1) + 32 + 16
+    return (12_500_000 // (4 * 128) - 4 - 16 * 13) // per_d
+
+
+@dataclasses.dataclass(frozen=True)
+class NutsSettings:
+    """Generic NUTS settings (nuts-rs ``NutsSettings``, src/sampler.rs:199-239),
+    with the JAX package's names and defaults."""
+
+    num_tune: int = 400
+    num_draws: int = 1000
+    maxdepth: int = 10
+    mindepth: int = 0
+    num_chains: int = 6
+    seed: int = 0
+    max_energy_error: float = 1000.0
+    check_turning: bool = True
+    target_integration_time: Optional[float] = None
+    extra_doublings: int = 0
+    store_gradient: bool = False
+    store_unconstrained: bool = False
+    store_transformed: bool = False
+    store_divergences: bool = False
+    store_mass_matrix: bool = False
+    kinetic_energy: KineticKind = KineticKind.EUCLIDEAN
+    async_posterior: bool = False
+    # "sync" | "async" | "pallas".  "pallas" selects the fused engine: the
+    # hand-written CUDA kernels in this package.
+    posterior_kernel: str = "sync"
+    cross_chain_adaptation: bool = False
+    mesh_axis_name: Optional[str] = None
+    adapt: AdaptScheduleOptions = AdaptScheduleOptions()
+    step_size: StepSizeSettings = StepSizeSettings()
+    use_grad_based_estimate: bool = True
+    mass_matrix: str = "diag"  # "diag" | "low_rank" | "flow"
+
+    def nuts_options(self) -> NutsOptions:
+        return NutsOptions(
+            maxdepth=self.maxdepth, mindepth=self.mindepth,
+            check_turning=self.check_turning,
+            max_energy_error=self.max_energy_error,
+            extra_doublings=self.extra_doublings,
+            target_integration_time=self.target_integration_time,
+            kind=self.kinetic_energy,
+            store_divergences=self.store_divergences)
+
+    def chain_config(self) -> ChainConfig:
+        return ChainConfig(nuts=self.nuts_options(),
+                           step_size=self.step_size,
+                           use_grad_based_estimate=self.use_grad_based_estimate)
+
+    @property
+    def _posterior_kernel(self) -> str:
+        if self.async_posterior and self.posterior_kernel == "sync":
+            return "async"
+        return self.posterior_kernel
+
+    def unsupported(self, model: Model, device=None) -> list:
+        """What this slice does not take on ``device``, each with the
+        ROADMAP.md item that ports it (queue 1 unless named otherwise)."""
+        kind = self._posterior_kernel
+        reasons = []
+        if kind == "sync":
+            reasons.append("posterior_kernel='sync' (item 3, the sync engine)")
+        elif kind == "async":
+            reasons.append("posterior_kernel='async' (item 16)")
+        elif kind != "pallas":
+            raise ValueError(f"unknown posterior_kernel {kind!r}")
+        if self.mass_matrix == "low_rank":
+            reasons.append("mass_matrix='low_rank' (item 14)")
+        elif self.mass_matrix == "flow":
+            reasons.append("mass_matrix='flow' (item 15)")
+        elif self.mass_matrix != "diag":
+            raise ValueError(f"unknown mass_matrix {self.mass_matrix!r}")
+        if self.kinetic_energy is not KineticKind.EUCLIDEAN:
+            reasons.append(f"kinetic_energy={self.kinetic_energy.name} "
+                           "(item 13)")
+        for name, bad in (("mindepth", self.mindepth != 0),
+                          ("extra_doublings", self.extra_doublings != 0),
+                          ("target_integration_time",
+                           self.target_integration_time is not None),
+                          ("check_turning=False", not self.check_turning)):
+            if bad:
+                reasons.append(f"{name} (item 3, the sync engine)")
+        if (self.store_gradient or self.store_unconstrained
+                or self.store_transformed or self.store_divergences
+                or self.store_mass_matrix):
+            reasons.append("store_* extra stores (item 9)")
+        if self.cross_chain_adaptation or self.mesh_axis_name is not None:
+            reasons.append("cross-chain adaptation / meshes (item 17)")
+        if self.adapt.window_by_good_draws:
+            reasons.append("adapt.window_by_good_draws (item 4, the "
+                           "per-draw warmup of the sync engine)")
+        if self.step_size.method is not StepSizeMethod.DUAL_AVERAGE:
+            reasons.append(f"step_size.method={self.step_size.method.name} "
+                           "(item 4, the per-draw warmup of the sync engine)")
+        if model.kernel_hook is None:
+            reasons.append(f"model {model.name!r} without a kernel_hook "
+                           "(item 10)")
+        if model.dim > cl_max_dim(self.maxdepth):
+            reasons.append(f"dim {model.dim} above the chains-on-lanes "
+                           f"layout's {cl_max_dim(self.maxdepth)} (item 11)")
+        elif (device is not None and torch.device(device).type == "cuda"
+              and (model.dim, self.maxdepth) not in _build.SIZES):
+            reasons.append(f"(dim, maxdepth) = {(model.dim, self.maxdepth)} "
+                           "on CUDA: the kernels are instantiated for "
+                           f"{_build.SIZES} (item 11, more kernel sizes)")
+        return reasons
+
+    def build_phases(self, model: Model, config: ChainConfig, device=None):
+        """``[(start, end, runner)]``: fused warmup split after each
+        step-size re-init draw, so the init search runs at a launch
+        boundary (adapt_strategy.rs:207-212), then the fused posterior.
+        Raises ``NotImplementedError`` for what :meth:`unsupported` lists."""
+        reasons = self.unsupported(model, device)
+        if reasons:
+            raise NotImplementedError(
+                "not ported yet (see ROADMAP.md): " + "; ".join(reasons))
+        total = self.num_tune + self.num_draws
+        post = make_fused_posterior_runner(model, config, self.num_tune,
+                                           self.seed)
+        warm = make_fused_warmup_runner(model, config, self.seed)
+        sched = build_schedule(self.num_tune, self.num_draws, self.adapt)
+        phases, start = [], 0
+        for r in np.nonzero(sched.reinit_step_size)[0].tolist():
+            phases.append((start, r + 1, warm))
+            start = r + 1
+        if start < self.num_tune:
+            phases.append((start, self.num_tune, warm))
+        phases.append((self.num_tune, total, post))
+        return phases
+
+
+def DiagNutsSettings(**kw) -> NutsSettings:
+    """Defaults of nuts-rs ``DiagNutsSettings`` (src/sampler.rs:630-633)."""
+    return NutsSettings(**kw)
+
+
+def _schedule_chunk(sched, lo: int, hi: int):
+    return {name: getattr(sched, name)[lo:hi] for name in (
+        "is_tuning", "update_estimators", "do_switch", "do_update",
+        "use_late_estimator", "reinit_step_size", "use_best_guess",
+        "advance_da")}
+
+
+# Stored stats (name -> dtype, trailing shape given the model dim), as the
+# JAX fused runners emit them.
+_STAT_DTYPES = {
+    "position": np.float32, "depth": np.int32, "maxdepth_reached": np.bool_,
+    "diverging": np.bool_, "n_steps": np.int32, "step_size": np.float32,
+    "step_size_bar": np.float32, "mean_tree_accept": np.float32,
+    "mean_tree_accept_sym": np.float32, "max_energy_error": np.float32,
+    "logp": np.float32, "energy": np.float32, "energy_error": np.float32,
+    "index_in_trajectory": np.int32, "fisher_distance": np.float32,
+    "transformation_index": np.int32, "tuning": np.bool_,
+}
+_POSTERIOR_STAT_KEYS = ("position",)
+
+
+class Sampler:
+    """Chunked multi-chain sampler (parallel controller of src/sampler.rs:1254).
+
+    All chains run as one batched computation on ``device`` (``"cuda"``
+    launches the CUDA kernels; on ``"cpu"`` the plain PyTorch versions
+    run, meant for tests at small sizes); the host loop
+    launches one chunk at a time and streams it to storage.  State is
+    float32, the fused kernels' type.  ``chunk_seconds`` records
+    ``(first_draw, last_draw + 1, seconds)`` per chunk, from launch to the
+    chunk's stats on the host.
+    """
+
+    def __init__(self, model: Model, settings: NutsSettings,
+                 storage: Optional[StorageConfig] = None,
+                 chunk_size: int = 128, init_positions=None, *, device):
+        if model.dim < 1:
+            raise ValueError("model.dim must be >= 1")
+        if chunk_size < 1:
+            raise ValueError("chunk_size must be >= 1")
+        self.model = model
+        self.settings = settings
+        self.device = torch.device(device)
+        self.chunk_size = chunk_size
+        self.config = settings.chain_config()
+        self.strategy = DiagStrategy(self.config)
+        self._phase_runners = settings.build_phases(model, self.config,
+                                                    self.device)
+        self.schedule = build_schedule(settings.num_tune, settings.num_draws,
+                                       settings.adapt)
+        C = settings.num_chains
+        self.trace = (storage or MemoryConfig()).new_trace(settings, model, C)
+        if init_positions is not None:
+            init_positions = np.asarray(init_positions)
+            if init_positions.shape != (C, model.dim):
+                raise ValueError(
+                    f"init_positions has shape {init_positions.shape}, "
+                    f"expected (num_chains, dim) = {(C, model.dim)}")
+        self.state = init_chain_state(
+            settings.seed, model, self.strategy, self.config, C,
+            torch.float32, self.device, init_positions=init_positions)
+        init_logp = self.state.pt.logp.cpu().numpy()
+        if not np.isfinite(init_logp).all():
+            bad = np.nonzero(~np.isfinite(init_logp))[0]
+            raise RuntimeError(
+                f"could not find a valid initial position for chains "
+                f"{bad.tolist()[:10]} (logp is not finite after retries); "
+                "provide init_positions or check the model")
+        self._next_draw = 0
+        self._total = settings.num_tune + settings.num_draws
+        self.chunk_seconds = []
+
+    @property
+    def finished(self) -> bool:
+        return self._next_draw >= self._total
+
+    def run_next_chunk(self):
+        """Run one chunk and stream it to storage.  Returns ``(lo, stats,
+        tuning)``: the chunk's first global draw index, the host stats dict
+        (``stats[name]`` shaped [chains, k, ...]) and the tuning mask."""
+        lo = self._next_draw
+        start, end, runner = next(
+            (s, e, r) for s, e, r in self._phase_runners if s <= lo < e)
+        hi = min(lo + self.chunk_size, self._total, end)
+        t0 = time.monotonic()
+        self.state, stats = runner(self.state,
+                                   _schedule_chunk(self.schedule, lo, hi))
+        self._next_draw = hi
+        return self._finish_chunk(lo, hi, stats, t0)
+
+    def _finish_chunk(self, lo, hi, stats, t0):
+        # device -> host; [k, C, ...] -> [C, k, ...]
+        stats = {k: np.moveaxis(v.cpu().numpy(), 0, 1)
+                 for k, v in stats.items()}
+        self.chunk_seconds.append((lo, hi, time.monotonic() - t0))
+        tuning = self.schedule.is_tuning[lo:hi]
+        self.trace.record_chunk(lo, stats, tuning)
+        return lo, stats, tuning
+
+    def run(self) -> Trace:
+        while not self.finished:
+            self.run_next_chunk()
+        return self.trace.finalize()
+
+    def schema(self):
+        """The trace schema: ``{group: {name: {"dtype", "shape", "dims"}}}``
+        for the four draw groups plus ``"coords"`` and ``"events"``, as
+        ``nuts_rs_tpu``'s ``Sampler.schema`` reflects it for these
+        settings."""
+        return schema(self.model, self.settings)
+
+
+def schema(model: Model, settings: Optional[NutsSettings] = None):
+    """Settings-level trace schema, without a sampler or a device."""
+    settings = settings or NutsSettings()
+
+    def entry(name):
+        shape = (model.dim,) if name == "position" else ()
+        return {"dtype": np.dtype(_STAT_DTYPES[name]), "shape": shape,
+                "dims": dims_for_tail(model, name, shape)}
+
+    draws = {n: entry(n) for n in _STAT_DTYPES if n in _POSTERIOR_STAT_KEYS}
+    stats = {n: entry(n) for n in _STAT_DTYPES
+             if n not in _POSTERIOR_STAT_KEYS}
+    scalar = {"dtype": np.dtype(np.int64), "shape": (), "dims": []}
+    return {
+        "posterior": dict(draws) if settings.num_draws else {},
+        "sample_stats": dict(stats) if settings.num_draws else {},
+        "warmup_posterior": dict(draws) if settings.num_tune else {},
+        "warmup_sample_stats": dict(stats) if settings.num_tune else {},
+        "coords": dict(model.coords or {}),
+        "events": {"divergence": {"draw": dict(scalar)},
+                   "transformation_update": {
+                       "draw": dict(scalar),
+                       "transformation_update_id": dict(scalar)}},
+    }
+
+
+def sample(model: Model, settings: Optional[NutsSettings] = None, *,
+           seed: Optional[int] = None,
+           storage: Optional[StorageConfig] = None, chunk_size: int = 128,
+           init_positions=None, device) -> Trace:
+    """Sample from ``model``; returns an in-memory :class:`Trace` unless
+    another storage backend is given."""
+    settings = settings or NutsSettings()
+    if seed is not None:
+        settings = dataclasses.replace(settings, seed=seed)
+    return Sampler(model, settings, storage=storage, chunk_size=chunk_size,
+                   init_positions=init_positions, device=device).run()
+

@@ -1,0 +1,112 @@
+"""In-memory trace storage (nuts-rs HashMap + ndarray backends,
+``src/storage/hashmap.rs``, ``src/storage/ndarray.rs``).
+
+Port of ``nuts_rs_tpu/storage/memory.py`` (numpy only, the same in
+substance; importing the JAX package's copy would import JAX).
+
+Accumulates chunks and finalizes into a :class:`Trace` with xarray-free
+ArviZ-style groups: ``posterior``, ``sample_stats``, ``warmup_posterior``,
+``warmup_sample_stats`` — each a dict of arrays shaped ``[chain, draw, ...]``
+— plus compacted sparse event streams (divergences, transformation updates).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional
+
+import numpy as np
+
+from .core import StorageConfig, TraceStorage
+
+# Stats that describe the drawn sample itself and go to ``posterior``-adjacent
+# groups; everything else is a sampler statistic.
+_POSTERIOR_KEYS = ("position",)
+
+
+@dataclasses.dataclass
+class Trace:
+    """Finalized in-memory trace."""
+
+    posterior: Dict[str, np.ndarray]
+    sample_stats: Dict[str, np.ndarray]
+    warmup_posterior: Dict[str, np.ndarray]
+    warmup_sample_stats: Dict[str, np.ndarray]
+    transformation_updates: List[Dict[str, np.ndarray]]
+    settings: Any = None
+    coords: Optional[Mapping[str, Any]] = None
+    dims: Optional[Mapping[str, Any]] = None
+
+    @property
+    def divergent_draws(self) -> List[np.ndarray]:
+        div = np.concatenate(
+            [self.warmup_sample_stats["diverging"], self.sample_stats["diverging"]],
+            axis=1)
+        return [np.nonzero(div[c])[0] for c in range(div.shape[0])]
+
+
+class MemoryStorage(TraceStorage):
+    def __init__(self, settings=None, model=None, num_chains: int = 0):
+        self._chunks: List[Mapping[str, np.ndarray]] = []
+        self._tuning: List[np.ndarray] = []
+        self._settings = settings
+        self._model = model
+
+    def record_chunk(self, start_draw, stats, tuning):
+        self._chunks.append({k: np.asarray(v) for k, v in stats.items()})
+        self._tuning.append(np.asarray(tuning))
+
+    def finalize(self) -> Trace:
+        if not self._chunks:  # num_tune = num_draws = 0
+            return Trace(
+                posterior={}, sample_stats={}, warmup_posterior={},
+                warmup_sample_stats={}, transformation_updates=[],
+                settings=self._settings,
+                coords=getattr(self._model, "coords", None),
+                dims=getattr(self._model, "dims", None))
+        stats = {
+            k: np.concatenate([c[k] for c in self._chunks], axis=1)
+            for k in self._chunks[0]
+        }
+        tuning = np.concatenate(self._tuning)
+        warm = tuning
+        post = ~tuning
+
+        def split(d):
+            w = {k: v[:, warm] for k, v in d.items()}
+            p = {k: v[:, post] for k, v in d.items()}
+            return w, p
+
+        posterior_all = {"position": stats["position"]}
+        sample_stats_all = {k: v for k, v in stats.items() if k not in _POSTERIOR_KEYS}
+
+        warm_post, post_post = split(posterior_all)
+        warm_stats, post_stats = split(sample_stats_all)
+
+        # Compact transformation-update events from the id stream.
+        updates: List[Dict[str, np.ndarray]] = []
+        ids = stats.get("transformation_index")
+        if ids is not None:
+            n_chains = ids.shape[0]
+            for c in range(n_chains):
+                prev = np.concatenate([[np.int64(-(10 ** 9))], ids[c][:-1]])
+                ev = np.nonzero(ids[c] != prev)[0]
+                updates.append({"draw": ev,
+                                "transformation_update_id": ids[c][ev]})
+
+        model = self._model
+        return Trace(
+            posterior=post_post,
+            sample_stats=post_stats,
+            warmup_posterior=warm_post,
+            warmup_sample_stats=warm_stats,
+            transformation_updates=updates,
+            settings=self._settings,
+            coords=getattr(model, "coords", None),
+            dims=getattr(model, "dims", None),
+        )
+
+
+class MemoryConfig(StorageConfig):
+    def new_trace(self, settings, model, num_chains):
+        return MemoryStorage(settings, model, num_chains)

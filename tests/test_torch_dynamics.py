@@ -1,0 +1,152 @@
+"""The port's model, diagonal transform and Euclidean dynamics against the
+JAX package, at float64 on random points (tolerance 1e-12: the same
+formulas, sums over d of a few terms in possibly another order)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nuts_rs_tpu.dynamics import hamiltonian as jh
+from nuts_rs_tpu.models import gaussian as jg
+from nuts_rs_tpu.transform import affine as ja
+from nuts_rs_tpu_torch.dynamics import hamiltonian as th
+from nuts_rs_tpu_torch.models import gaussian as tg
+from nuts_rs_tpu_torch.models.model import Model
+from nuts_rs_tpu_torch.transform import affine as ta
+
+TOL = dict(rtol=1e-12, atol=1e-12)
+C, D = 5, 4
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), **TOL)
+
+
+def _transforms(rng):
+    stds = rng.uniform(0.5, 2.0, size=(C, D))
+    mean = rng.normal(size=(C, D))
+    logdet = np.sum(np.log(1.0 / stds), axis=1)
+    ids = np.arange(C, dtype=np.int32)
+    jt = ja.AffineTransform(mean=jnp.asarray(mean), stds=jnp.asarray(stds),
+                            inv_stds=jnp.asarray(1.0 / stds),
+                            logdet=jnp.asarray(logdet), id=jnp.asarray(ids))
+    tt = ta.AffineTransform(mean=_t(mean), stds=_t(stds),
+                            inv_stds=_t(1.0 / stds), logdet=_t(logdet),
+                            id=_t(ids))
+    return jt, tt
+
+
+@pytest.mark.parametrize("mu", [0.0, 3.0])
+def test_normal_logp_value_and_grad(mu):
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(C, D)) * 2.0
+    jm, tm = jg.normal_logp(D, mu), tg.normal_logp(D, mu)
+    want_lp, want_g = jax.vmap(jm.logp_and_grad)(jnp.asarray(q))
+    got_lp, got_g = tm.logp_and_grad(_t(q))
+    _close(got_lp, want_lp)
+    _close(got_g, want_g)
+    # the torch.func path of a model without a closed form
+    plain = Model(logp_fn=tm.logp_fn, dim=D)
+    lp2, g2 = plain.logp_and_grad(_t(q))
+    _close(lp2, want_lp)
+    _close(g2, want_g)
+    assert tm.kernel_hook == ("iid_normal", (mu,))
+
+
+def test_diagonal_transform_functions():
+    rng = np.random.default_rng(1)
+    jt, tt = _transforms(rng)
+    q = rng.normal(size=(C, D))
+    g = rng.normal(size=(C, D))
+    _close(ta.to_transformed(tt, _t(q)),
+           jax.vmap(ja.to_transformed)(jt, jnp.asarray(q)))
+    _close(ta.to_untransformed(tt, _t(q)),
+           jax.vmap(ja.to_untransformed)(jt, jnp.asarray(q)))
+    _close(ta.grad_to_transformed(tt, _t(g)),
+           jax.vmap(ja.grad_to_transformed)(jt, jnp.asarray(g)))
+    _close(ta.diag_logdet(tt.inv_stds),
+           jax.vmap(ja.diag_logdet)(jt.inv_stds))
+
+    new_stds = rng.uniform(0.5, 2.0, size=(C, D))
+    new_mean = rng.normal(size=(C, D))
+    changed = np.array([True, False, True, True, False])
+    want = jax.vmap(ja.set_diag)(jt, jnp.asarray(new_stds),
+                                 jnp.asarray(new_mean), jnp.asarray(changed))
+    got = ta.set_diag(tt, _t(new_stds), _t(new_mean), _t(changed))
+    for name in ("mean", "stds", "inv_stds", "logdet", "id"):
+        _close(getattr(got, name), getattr(want, name))
+
+    g[0, 1] = 0.0  # 1/|g| clamps at 1e20
+    want = jax.vmap(ja.init_diag_from_grad)(jt, jnp.asarray(q),
+                                            jnp.asarray(g))
+    got = ta.init_diag_from_grad(tt, _t(q), _t(g))
+    for name in ("mean", "stds", "inv_stds", "logdet", "id"):
+        _close(getattr(got, name), getattr(want, name))
+
+
+def _jax_point(jm, jt, q, v):
+    pt = jax.vmap(lambda qq, t: jh.init_point_from_q(qq, t, jm.logp_and_grad)
+                  )(jnp.asarray(q), jt)
+    return pt._replace(v=jnp.asarray(v),
+                       ke=0.5 * jnp.sum(jnp.asarray(v) ** 2, axis=1))
+
+
+def test_init_point_and_trajectory():
+    rng = np.random.default_rng(2)
+    jt, tt = _transforms(rng)
+    q = rng.normal(size=(C, D))
+    v = rng.normal(size=(C, D))
+    jm, tm = jg.normal_logp(D, 1.5), tg.normal_logp(D, 1.5)
+    want = jax.vmap(lambda qq, t: jh.init_point_from_q(
+        qq, t, jm.logp_and_grad))(jnp.asarray(q), jt)
+    got = th.init_point_from_q(_t(q), tt, tm.logp_and_grad)
+    for name in want._fields:
+        _close(getattr(got, name), getattr(want, name))
+
+    want = jax.vmap(lambda p, t: jh.initialize_trajectory(
+        None, p, t, jh.KineticKind.EUCLIDEAN, resample_velocity=False))(
+        _jax_point(jm, jt, q, v), jt)
+    got = th.initialize_trajectory(got, tt, th.KineticKind.EUCLIDEAN, _t(v))
+    for name in want._fields:
+        _close(getattr(got, name), getattr(want, name))
+
+
+@pytest.mark.parametrize("direction", [1, -1])
+def test_leapfrog(direction):
+    rng = np.random.default_rng(3)
+    jt, tt = _transforms(rng)
+    q = rng.normal(size=(C, D))
+    v = rng.normal(size=(C, D))
+    step = rng.uniform(0.1, 1.5, size=C)
+    jm, tm = jg.normal_logp(D, -0.5), tg.normal_logp(D, -0.5)
+    jpt = _jax_point(jm, jt, q, v)
+    tpt = th.init_point_from_q(_t(q), tt, tm.logp_and_grad)._replace(
+        v=_t(v), ke=_t(0.5 * np.sum(v * v, axis=1)))
+    base = np.asarray(jpt.energy) - 0.3
+    want = jax.vmap(lambda p, s, t, e: jh.leapfrog(
+        p, jnp.int32(direction), s, t, jm.logp_and_grad,
+        jh.KineticKind.EUCLIDEAN, e, 1.0))(jpt, jnp.asarray(step), jt,
+                                           jnp.asarray(base))
+    got = th.leapfrog(tpt, direction, _t(step), tt, tm.logp_and_grad,
+                      th.KineticKind.EUCLIDEAN, _t(base), 1.0)
+    for name in want.point._fields:
+        _close(getattr(got.point, name), getattr(want.point, name))
+    _close(got.energy_error, want.energy_error)
+    np.testing.assert_array_equal(got.diverging.numpy(),
+                                  np.asarray(want.diverging))
+
+
+def test_other_kinetic_energies_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        th.require_euclidean(th.KineticKind.MICROCANONICAL)

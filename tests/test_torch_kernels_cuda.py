@@ -1,0 +1,70 @@
+"""The fused CUDA kernels against their plain PyTorch versions, on the card.
+
+Needs a CUDA card and the CUDA toolkit; skips without a card.  The file
+imports no JAX, so it runs where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+
+(``--noconftest`` skips tests/conftest.py, which sets JAX up for the rest
+of the suite).  With sums in coordinate order and the kernels built with
+``-fmad=false``, kernel and plain version agree draw for draw: integer
+stats equal, floats to 1e-5 relative.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from nuts_rs_tpu_torch.adapt.step_size import StepSizeSettings
+from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+from nuts_rs_tpu_torch.kernels.nuts import NutsOptions
+from nuts_rs_tpu_torch.models import gaussian as tg
+
+INT_STATS = ("depth", "diverging", "n_steps", "index_in_trajectory",
+             "maxdepth_reached", "loop_iterations")
+
+
+def _close(got, want, what, rtol, atol):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=rtol,
+                               atol=atol, err_msg=what)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    dev = torch.device("cuda", 0)
+    model, opts = tg.normal_logp(4, 0.5), NutsOptions(maxdepth=10)
+    C, dim = 64, 4
+    rng = np.random.default_rng(0)
+    q = torch.tensor(rng.normal(size=(C, dim)), dtype=torch.float32,
+                     device=dev)
+    logp, g = model.logp_and_grad(q)
+    stds = torch.tensor(rng.uniform(0.7, 1.3, size=(C, dim)),
+                        dtype=torch.float32, device=dev)
+    mean = torch.zeros_like(q)
+    logdet = -torch.log(stds).sum(1)
+    step = torch.full((C,), 0.6, device=dev)
+    args = (q, g, logp, stds, mean, logdet, step, step.clone())
+    got = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1)
+    want = nf.nuts_fused_run_reference(3, *args, 8, model, opts, 0.1)
+    for name in INT_STATS:
+        np.testing.assert_array_equal(got[4][name].cpu().numpy(),
+                                      want[4][name].cpu().numpy())
+    _close(got[3].cpu(), want[3].cpu(), "draws", 1e-5, 1e-6)
+
+    flags = torch.ones(6, nf.NFLAGS, dtype=torch.int32, device=dev)
+    est = torch.zeros(C, 8, dim, device=dev)
+    sca = torch.zeros(C, nf.NSCA, device=dev)
+    sca[:, nf.SCA_STEP] = 0.5
+    sca[:, nf.SCA_DA_CNT] = 1.0
+    sca[:, nf.SCA_DA_MU] = float(np.log(5.0))
+    wargs = (flags, q, g, logp, stds, mean, est, sca, model, opts,
+             StepSizeSettings(), True)
+    got = nf.nuts_fused_warmup_run(5, *wargs)
+    want = nf.nuts_fused_warmup_run_reference(5, *wargs)
+    for name in INT_STATS:
+        np.testing.assert_array_equal(got[8][name].cpu().numpy(),
+                                      want[8][name].cpu().numpy())
+    for i in range(8):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
