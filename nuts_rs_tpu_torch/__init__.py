@@ -1,10 +1,10 @@
 """nuts_rs_tpu_torch — the PyTorch/CUDA port of nuts_rs_tpu.
 
 A second package beside the JAX one (``nuts_rs_tpu``, the reference), for one
-NVIDIA H100.  This slice runs the main path: ``DiagNutsSettings`` with
-``posterior_kernel="pallas"`` on a model with a kernel hook, whose warmup
-and posterior run on two hand-written CUDA kernels (``csrc/``) for CUDA
-tensors, and on their plain PyTorch versions for CPU tensors.  The package
+NVIDIA H100.  It runs ``DiagNutsSettings`` and ``DiagMclmcSettings`` with
+``posterior_kernel="pallas"`` on a model with a kernel hook: warmup and
+posterior of each run on hand-written CUDA kernels (``csrc/``, four in all)
+for CUDA tensors, and on their plain PyTorch versions for CPU tensors.  The package
 imports torch and numpy and never JAX.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
@@ -20,7 +20,17 @@ from .convert import state_from_numpy, state_to_numpy
 from .dynamics.hamiltonian import KineticKind
 from .kernels.nuts import NutsOptions
 from .models.model import Model
-from .sampler import DiagNutsSettings, NutsSettings, Sampler, sample, schema
+from .kernels.mclmc import MclmcOptions
+from .sampler import (
+    DiagMclmcSettings,
+    DiagNutsSettings,
+    MclmcSettings,
+    MclmcTrajectoryKind,
+    NutsSettings,
+    Sampler,
+    sample,
+    schema,
+)
 from .storage.memory import MemoryConfig, Trace
 
 __version__ = "0.1.0"
@@ -28,9 +38,13 @@ __version__ = "0.1.0"
 __all__ = [
     "AdamOptions",
     "AdaptScheduleOptions",
+    "DiagMclmcSettings",
     "DiagNutsSettings",
     "DualAverageOptions",
     "KineticKind",
+    "MclmcOptions",
+    "MclmcSettings",
+    "MclmcTrajectoryKind",
     "MemoryConfig",
     "Model",
     "NutsOptions",

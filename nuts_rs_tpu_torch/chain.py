@@ -1,10 +1,12 @@
 """Chain state, initialization and the fused-engine phase runners.
 
 Port of ``nuts_rs_tpu/chain.py``: ``ChainState`` / ``ChainConfig`` /
-``DiagStrategy`` (``:73-200``), ``init_chain_state`` (``:426-515``) and the
-fused runners ``make_pallas_posterior_runner`` (``:663-943``) and
-``make_pallas_warmup_runner`` (``:946-1200``), for the diagonal mass matrix
-with chains on the block's lanes, no model args, flow or stream.
+``DiagStrategy`` (``:73-200``), ``init_chain_state`` (``:426-515``), the
+fused NUTS runners ``make_pallas_posterior_runner`` (``:663-943``) and
+``make_pallas_warmup_runner`` (``:946-1200``), and the fused MCLMC runners
+``make_pallas_mclmc_posterior_runner`` (``:1203-1337``) and
+``make_pallas_mclmc_warmup_runner`` (``:1340-1525``), for the diagonal mass
+matrix with chains on the block's lanes, no model args, flow or stream.
 
 The chain axis is the leading axis of every state tensor.  Randomness comes
 from the counter hash (kernels/rng.py): each launch's seed is derived from
@@ -26,9 +28,12 @@ from .adapt import mass_matrix as mm
 from .adapt import step_size as ss
 from .dynamics.hamiltonian import init_point_from_q, sample_momentum
 from .dynamics.point import Point
+from .dynamics.hamiltonian import KineticKind
+from .kernels import mclmc_fused as mf
 from .kernels import nuts_fused as nf
 from .kernels.nuts import NutsOptions
 from .kernels.rng import derive_seed, host_uniform
+from .ops import dsum
 from .transform.affine import (
     AffineTransform,
     grad_to_transformed,
@@ -43,6 +48,8 @@ PURPOSE_REINIT_SEARCH = 2
 PURPOSE_WARMUP = 3
 PURPOSE_POSTERIOR = 4
 PURPOSE_LAUNCH_STEP = 5
+PURPOSE_MCLMC_WARMUP = 6
+PURPOSE_MCLMC_POSTERIOR = 7
 
 # Draws of init positions for chains with a non-finite logp or gradient.
 INIT_RETRIES = 500
@@ -163,6 +170,15 @@ def _stats(draws, out, bars, tid, tuning):
     }
 
 
+def _launch_step(base_seed, draw_idx, bars, jitter):
+    """The jittered first step of a launch starting at ``draw_idx``: the
+    counterpart of the JAX runners' ``launch_step`` (``chain.py:1264-1270``,
+    threefry there, the counter hash here)."""
+    u = host_uniform(derive_seed(base_seed, draw_idx, PURPOSE_LAUNCH_STEP),
+                     0, 1, bars.shape, bars.device)
+    return bars * ((1.0 - jitter) + (2.0 * jitter) * u)
+
+
 def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
                                 base_seed: int):
     """Posterior-phase runner on the fused engine: ``(state, flags) ->
@@ -179,10 +195,8 @@ def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
         # The first posterior draw keeps the warmup's step (chain.py:847-871);
         # a continuation launch gets a freshly jittered first step.
         if sset.jitter is not None and state.draw_idx != phase_start:
-            u = host_uniform(derive_seed(base_seed, state.draw_idx,
-                                         PURPOSE_LAUNCH_STEP), 0, 1, (C,),
-                             bars.device)
-            step_in = bars * ((1.0 - sset.jitter) + (2.0 * sset.jitter) * u)
+            step_in = _launch_step(base_seed, state.draw_idx, bars,
+                                   sset.jitter)
         seed = derive_seed(base_seed, state.draw_idx, PURPOSE_POSTERIOR)
         q_f, g_f, logp_f, draws, out = nf.nuts_fused_run(
             seed, state.pt.q, state.pt.g, state.pt.logp, t.stds, t.mean,
@@ -209,28 +223,32 @@ _FLAG_COLUMNS = ((nf.FLAG_UPDATE_EST, "update_estimators"),
                  (nf.FLAG_DO_SWITCH, "do_switch"))
 
 
-def warmup_flags(flags, device):
-    """The schedule flags of a chunk as the warmup kernel's [k, NFLAGS]
-    int32 columns."""
+def warmup_flags(flags, device, columns=_FLAG_COLUMNS):
+    """The schedule flags of a chunk as a warmup kernel's [k, NFLAGS]
+    int32 columns (``MCLMC_FLAG_COLUMNS`` for the MCLMC warmup kernel)."""
     k = len(flags["is_tuning"])
     cols = torch.zeros(k, nf.NFLAGS, dtype=torch.int32)
-    for col, name in _FLAG_COLUMNS:
+    for col, name in columns:
         cols[:, col] = torch.as_tensor(flags[name], dtype=torch.int32)
     return cols.to(device)
+
+
+def _estimator_planes(a: mm.DiagAdaptState):
+    """The [C, 8, d] fg/bg estimator planes the warmup kernels carry."""
+    return torch.stack([a.draw.mean, a.draw.var_sum, a.grad.mean,
+                        a.grad.var_sum, a.draw_bg.mean, a.draw_bg.var_sum,
+                        a.grad_bg.mean, a.grad_bg.var_sum], 1).contiguous()
 
 
 def pack_warmup_state(state: ChainState):
     """The estimator planes [C, 8, d] and scalar rows [C, NSCA] the warmup
     kernel carries (chain.py:1069-1089)."""
     a, st, t = state.diag_adapt, state.step, state.transform
-    est = torch.stack([a.draw.mean, a.draw.var_sum, a.grad.mean,
-                       a.grad.var_sum, a.draw_bg.mean, a.draw_bg.var_sum,
-                       a.grad_bg.mean, a.grad_bg.var_sum], 1)
     sca = torch.stack([st.step_size, st.log_step, st.log_step_adapted,
                        st.hbar, st.mu, st.count, a.draw.count,
                        a.draw_bg.count, t.id.to(st.step_size.dtype),
                        t.logdet], 1)
-    return est.contiguous(), sca.contiguous()
+    return _estimator_planes(a), sca.contiguous()
 
 
 def make_fused_warmup_runner(model, config: ChainConfig, base_seed: int):
@@ -287,6 +305,148 @@ def make_fused_warmup_runner(model, config: ChainConfig, base_seed: int):
         stats = _stats(draws, out, out["step_size_bar"].T.contiguous(),
                        out["transformation_index"].T.to(torch.int32),
                        flags["is_tuning"])
+        return state, stats
+
+    return runner
+
+
+def _mclmc_stats(draws, out, tid, tuning):
+    """MCLMC per-draw stats dict of [k, C, ...] tensors
+    (chain.py:1318-1334,1507-1522); ``log_weight`` is the energy change, as
+    nuts-rs stores it (mclmc.rs:441-442)."""
+    k = draws.shape[1]
+
+    def t(x):
+        return x.T.contiguous()
+
+    e_change = t(out["energy_change"])
+    return {
+        "position": draws.permute(1, 0, 2).contiguous(),
+        "diverging": t(out["diverging"]) > 0.5,
+        "n_steps": t(out["n_steps"]).to(torch.int32),
+        "energy_change": e_change,
+        "log_weight": e_change,
+        "average_step_size": t(out["average_step_size"]),
+        "step_size": t(out["step_size"]),
+        "logp": t(out["logp"]),
+        "energy": t(out["energy"]),
+        "fisher_distance": t(out["fisher_distance"]),
+        "transformation_index": tid,
+        "tuning": torch.as_tensor(tuning, device=draws.device)[:, None]
+        .expand(k, draws.shape[0]).contiguous(),
+    }
+
+
+def _mclmc_point(pt, transform, q, g, logp, v, kind):
+    """The chain point after a launch: the transform's z and zg, and the
+    kinetic energy of the carried velocity (0 on the unit sphere)."""
+    ke = (torch.zeros_like(logp) if kind is KineticKind.MICROCANONICAL
+          else 0.5 * dsum(v * v))
+    return pt._replace(q=q, g=g, z=to_transformed(transform, q),
+                       zg=grad_to_transformed(transform, g), logp=logp, v=v,
+                       ke=ke, logdet=transform.logdet)
+
+
+def make_fused_mclmc_posterior_runner(model, config: ChainConfig, mopts,
+                                      phase_start: int, base_seed: int):
+    """MCLMC posterior-phase runner on the fused engine: ``(state, flags) ->
+    (state, stats)``, one launch per chunk.  The posterior never resamples
+    the momentum in full, so the velocity threads from one launch to the
+    next through the kernel's final ``v``."""
+    sset = config.step_size
+
+    def runner(state: ChainState, flags):
+        k = len(flags["is_tuning"])
+        t = state.transform
+        bars = ss.step_size_bar(state.step, sset)
+        # The first posterior draw keeps the warmup's step_next
+        # (chain.py:1487-1495); a continuation launch gets a fresh jitter.
+        step_in = state.step.step_size
+        if sset.jitter is not None and state.draw_idx != phase_start:
+            step_in = _launch_step(base_seed, state.draw_idx, bars,
+                                   sset.jitter)
+        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_MCLMC_POSTERIOR)
+        q_f, g_f, logp_f, v_f, draws, out = mf.mclmc_fused_run(
+            seed, state.pt.q, state.pt.g, state.pt.logp, state.pt.v, t.stds,
+            t.mean, t.logdet, step_in, bars, k, model, mopts, sset.jitter)
+        state = state._replace(
+            pt=_mclmc_point(state.pt, t, q_f, g_f, logp_f, v_f, mopts.kind),
+            step=state.step._replace(
+                step_size=out["step_size"][:, -1].contiguous()),
+            draw_idx=state.draw_idx + k)
+        C = state.pt.q.shape[0]
+        stats = _mclmc_stats(draws, out,
+                             t.id[None, :].expand(k, C).contiguous(),
+                             flags["is_tuning"])
+        return state, stats
+
+    return runner
+
+
+# the MCLMC warmup kernel's flag columns (chain.py:1402-1408)
+MCLMC_FLAG_COLUMNS = ((mf.FLAG_UPDATE_EST, "update_estimators"),
+                      (mf.FLAG_DO_UPDATE, "do_update"),
+                      (mf.FLAG_DO_SWITCH, "do_switch"),
+                      (mf.FLAG_RESAMPLE, "resample_velocity"))
+
+
+def pack_mclmc_warmup_state(state: ChainState):
+    """The estimator planes [C, 8, d] and scalar rows [C, NSCA] the MCLMC
+    warmup kernel carries (chain.py:1410-1423)."""
+    a, t = state.diag_adapt, state.transform
+    sca = torch.stack([t.id.to(t.logdet.dtype), t.logdet, a.draw.count,
+                       a.draw_bg.count], 1)
+    return _estimator_planes(a), sca.contiguous()
+
+
+def make_fused_mclmc_warmup_runner(model, config: ChainConfig, mopts,
+                                   base_seed: int):
+    """MCLMC warmup-phase runner on the fused engine, with the fg/bg
+    estimators and the diagonal rule inside the kernel.  The step size is
+    FIXED with per-draw jitter, so there is no dual averaging and no
+    re-init search; the chunk's last state carries ``step_next``, the
+    jittered step of the next phase's first draw (chain.py:1484-1495)."""
+    sset = config.step_size
+
+    def runner(state: ChainState, flags):
+        k = len(flags["is_tuning"])
+        t = state.transform
+        est, sca = pack_mclmc_warmup_state(state)
+        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_MCLMC_WARMUP)
+        (q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f, draws,
+         out) = mf.mclmc_fused_warmup_run(
+            seed, warmup_flags(flags, est.device, MCLMC_FLAG_COLUMNS),
+            state.pt.q, state.pt.g, state.pt.logp, state.pt.v.contiguous(),
+            t.stds.contiguous(), t.mean.contiguous(), est, sca, model, mopts,
+            sset, config.use_grad_based_estimate)
+
+        def row(i):
+            return sca_f[:, i].contiguous()
+
+        def rv(p, c):
+            return mm.RunningVariance(mean=est_f[:, p].contiguous(),
+                                      var_sum=est_f[:, p + 1].contiguous(),
+                                      count=c)
+
+        transform = AffineTransform(
+            mean=mean_f, stds=stds_f, inv_stds=1.0 / stds_f,
+            logdet=row(mf.SCA_LOGDET), id=row(mf.SCA_TID).to(torch.int32))
+        cfg, cbg = row(mf.SCA_CNT_FG), row(mf.SCA_CNT_BG)
+        diag_adapt = mm.DiagAdaptState(draw=rv(0, cfg), grad=rv(2, cfg),
+                                       draw_bg=rv(4, cbg), grad_bg=rv(6, cbg))
+        step_next = torch.full_like(logp_f, float(sset.fixed_value))
+        if sset.jitter is not None:
+            step_next = _launch_step(base_seed, state.draw_idx + k, step_next,
+                                     sset.jitter)
+        state = state._replace(
+            pt=_mclmc_point(state.pt, transform, q_f, g_f, logp_f, v_f,
+                            mopts.kind),
+            transform=transform, diag_adapt=diag_adapt,
+            step=state.step._replace(step_size=step_next),
+            draw_idx=state.draw_idx + k)
+        stats = _mclmc_stats(draws, out,
+                             out["transformation_index"].T.to(torch.int32),
+                             flags["is_tuning"])
         return state, stats
 
     return runner

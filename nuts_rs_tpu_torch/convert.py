@@ -4,8 +4,11 @@ No counterpart in the JAX package.  ``state_to_numpy`` reads any object
 with the ``ChainState`` attribute layout (``pt``, ``transform``,
 ``diag_adapt``, ``step``, ``draw_idx``), so it takes this package's state
 and the JAX package's state alike, without importing JAX; with
-``state_from_numpy`` the tests start both packages from one state.  Model
-parameters pass through ``Model`` construction, not through the state.
+``state_from_numpy`` the tests start both packages from one state.  The
+point carries its velocity ``v`` and kinetic energy ``ke``, which MCLMC
+threads from one draw to the next, and the step state carries MCLMC's
+jittered ``step_size``.  Model parameters pass through ``Model``
+construction, not through the state.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ def state_to_numpy(state) -> dict:
     """Flat dict of numpy arrays (leading chains axis) from a chain state."""
     pt, t = state.pt, state.transform
     out = {name: _np(getattr(pt, name))
-           for name in ("q", "g", "z", "zg", "logp")}
+           for name in ("q", "g", "z", "zg", "v", "logp", "ke")}
     out.update(stds=_np(t.stds), mean=_np(t.mean), logdet=_np(t.logdet),
                transform_id=_np(t.id))
     for est in _ESTIMATORS:
@@ -63,9 +66,8 @@ def state_from_numpy(arrays, device="cpu", dtype=torch.float32) -> ChainState:
                                 inv_stds=1.0 / stds, logdet=f("logdet"),
                                 id=i32("transform_id"))
     q = f("q")
-    logp = f("logp")
-    pt = Point(q=q, g=f("g"), z=f("z"), zg=f("zg"), v=torch.zeros_like(q),
-               logp=logp, logdet=transform.logdet, ke=torch.zeros_like(logp),
+    pt = Point(q=q, g=f("g"), z=f("z"), zg=f("zg"), v=f("v"), logp=f("logp"),
+               logdet=transform.logdet, ke=f("ke"),
                idx=torch.zeros(q.shape[:-1], dtype=torch.int32,
                                device=device))
     diag = DiagAdaptState(*(

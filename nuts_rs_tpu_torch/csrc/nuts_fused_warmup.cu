@@ -11,7 +11,8 @@
 // chain of the block finished its tree, with every update gated on the
 // chain still being active; between draws each thread updates its chain's
 // fg/bg Welford estimators, switches windows, applies the diagonal
-// mass-matrix rule and advances dual averaging (nuts_pallas.py:1399-1482).
+// mass-matrix rule (diag_adapt.cuh, shared with the MCLMC warmup) and
+// advances dual averaging (nuts_pallas.py:1399-1482).
 //
 // What bounds it on this card: as the posterior kernel, latency-bound scalar
 // work per thread with the checkpoint stacks and the eight estimator planes
@@ -25,6 +26,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "diag_adapt.cuh"
 #include "models.cuh"
 #include "nuts_tree.cuh"
 #include "rng.cuh"
@@ -37,7 +39,6 @@ enum { F_UPD_EST = 0, F_DO_UPDATE, F_ADVANCE_DA, F_USE_LATE, F_USE_BEST,
        F_DO_SWITCH, NFLAGS = 8 };
 enum { S_STEP = 0, S_DA_LS, S_DA_LSA, S_DA_HBAR, S_DA_MU, S_DA_CNT,
        S_CNT_FG, S_CNT_BG, S_TID, S_LOGDET, NSCA };
-constexpr int NEST = 8;
 
 struct WarmArgs {
   int C, K;
@@ -52,23 +53,6 @@ struct WarmArgs {
   float *draws, *stats, *q_f, *g_f, *logp_f, *stds_f, *mean_f, *est_f, *sca_f;
   int* iters;
 };
-
-// mass_matrix.py::add_sample on one plane pair, gated on `inc`.
-template <int DIM>
-__device__ __forceinline__ void add2(float* mean_p, float* var_p,
-                                     float cnt_old, bool inc,
-                                     const float* value) {
-  if (!inc) return;
-  const float cnt = cnt_old + 1.0f;
-  const bool first1 = cnt == 1.0f;
-#pragma unroll
-  for (int j = 0; j < DIM; ++j) {
-    const float diffv = value[j] - mean_p[j];
-    const float meann = first1 ? value[j] : mean_p[j] + diffv / fmaxf(cnt, 1.0f);
-    var_p[j] = var_p[j] + (first1 ? 0.0f : diffv * diffv);
-    mean_p[j] = meann;
-  }
-}
 
 template <int DIM, int D, class Model>
 __global__ void __launch_bounds__(MAX_BLOCK)
@@ -258,49 +242,12 @@ __global__ void __launch_bounds__(MAX_BLOCK)
     }
     const bool is_good = (div && abs(dm_idx) > 4) || (!div && dm_idx != 0);
 
-    // ---- estimator updates and window switch ----
-    float cnt_fg = sca[S_CNT_FG], cnt_bg = sca[S_CNT_BG];
-    const bool inc = (fl[F_UPD_EST] != 0) && is_good;
-    add2<DIM>(est[0], est[1], cnt_fg, inc, dm_q);
-    add2<DIM>(est[2], est[3], cnt_fg, inc, dm_g);
-    add2<DIM>(est[4], est[5], cnt_bg, inc, dm_q);
-    add2<DIM>(est[6], est[7], cnt_bg, inc, dm_g);
-    cnt_fg = cnt_fg + (inc ? 1.0f : 0.0f);
-    cnt_bg = cnt_bg + (inc ? 1.0f : 0.0f);
-    if (fl[F_DO_SWITCH] != 0) {
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int j = 0; j < DIM; ++j) {
-          est[p][j] = est[p + 4][j];
-          est[p + 4][j] = 0.0f;
-        }
-      cnt_fg = cnt_bg;
-      cnt_bg = 0.0f;
-    }
-
-    // ---- mass-matrix update (adapt_diag + set_diag) ----
-    const bool enough = (fl[F_DO_UPDATE] != 0) && cnt_fg >= 3.0f;
-    float logdet_n = 0.0f;
-#pragma unroll
-    for (int j = 0; j < DIM; ++j) {
-      if (enough) {
-        const float val = a.use_grad_based
-                              ? sqrtf(est[1][j] / est[3][j])
-                              : est[1][j] * (1.0f / fmaxf(cnt_fg, 1.0f));
-        const bool invalid = !isfinite(val) || val == 0.0f;
-        float var = fminf(fmaxf(val, 1e-20f), 1e20f);
-        if (invalid) var = stds[j] * stds[j];
-        const float new_mean =
-            a.use_grad_based ? est[0][j] + var * est[2][j] : est[0][j];
-        stds[j] = sqrtf(var);
-        mean[j] = new_mean;
-      }
-      const float l = logf(stds[j]);
-      logdet_n = (j == 0) ? l : logdet_n + l;
-    }
-    logdet_n = -logdet_n;
-    const float tid_n = sca[S_TID] + (enough ? 1.0f : 0.0f);
+    // ---- estimators, window switch, mass-matrix update ----
+    float cnt_fg = sca[S_CNT_FG], cnt_bg = sca[S_CNT_BG], tid_n = sca[S_TID];
+    const float logdet_n = adapt_draw<DIM>(
+        est, cnt_fg, cnt_bg, tid_n, stds, mean, dm_q, dm_g,
+        (fl[F_UPD_EST] != 0) && is_good, fl[F_DO_SWITCH] != 0,
+        fl[F_DO_UPDATE] != 0, a.use_grad_based != 0);
 
     // ---- dual averaging (step_size.py::advance) ----
     const float nst = fmaxf((float)n_steps, 1.0f);

@@ -1,15 +1,18 @@
-"""Euclidean leapfrog and trajectory initialization, batched over chains.
+"""Leapfrog integrators, trajectory initialization and the MCLMC momentum
+refresh, batched over chains.
 
-Port of the Euclidean part of ``nuts_rs_tpu/dynamics/hamiltonian.py``
-(``:31-229``).  Every function works on ``[C, d]`` tensors (the chain axis
-that JAX adds with ``vmap`` is written out).  The other kinetic energies
-(exact-normal, microcanonical) raise ``NotImplementedError``; they come
-with MCLMC, queue-1 item 13 of ROADMAP.md.
+Port of ``nuts_rs_tpu/dynamics/hamiltonian.py`` (``:31-250``) for the
+Euclidean and the microcanonical (ESH, unit-sphere momentum) kinetic
+energies.  Every function works on ``[C, d]`` tensors (the chain axis that
+JAX adds with ``vmap`` is written out).  The exact-normal kinetic energy
+raises ``NotImplementedError``; it comes with the sync engine, queue-1 item 8
+of ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import enum
+import math
 from typing import NamedTuple
 
 import torch
@@ -32,10 +35,32 @@ class KineticKind(enum.Enum):
 
 
 def require_euclidean(kind: KineticKind) -> None:
-    if kind is not KineticKind.EUCLIDEAN:
+    """Refuse the kinetic energy this package has not ported (exact-normal);
+    Euclidean and microcanonical pass."""
+    if kind is KineticKind.EXACT_NORMAL:
         raise NotImplementedError(
             f"kinetic_energy={kind.name} is not ported yet (ROADMAP.md "
-            "queue 1 item 13, MCLMC and the non-Euclidean dynamics)")
+            "queue 1 item 8, the sync engines)")
+
+
+def esh_momentum_update(zg, v, step):
+    """One ESH momentum half-step; returns (v_new [C, d], delta_ke [C]).
+
+    Port of ``_esh_momentum_update`` (``hamiltonian.py:40-61``; nuts-rs
+    ``src/math/math.rs:188-204``).  ``step`` is [C]."""
+    n = zg.shape[-1]
+    grad_norm = torch.sqrt(dsum(zg * zg))
+    g_hat = zg / grad_norm[:, None]
+    alpha = dsum(v * g_hat)
+    dims_m1 = float(n - 1)
+    delta = step * grad_norm / dims_m1
+    zeta = torch.exp(-delta)
+    coeff_g = (1.0 - zeta) * (1.0 + zeta + alpha * (1.0 - zeta))
+    v_raw = coeff_g[:, None] * g_hat + (2.0 * zeta)[:, None] * v
+    v_new = v_raw / torch.sqrt(dsum(v_raw * v_raw))[:, None]
+    dke = (delta - math.log(2.0)
+           + torch.log1p(alpha + (1.0 - alpha) * zeta * zeta)) * dims_m1
+    return v_new, dke
 
 
 class LeapfrogResult(NamedTuple):
@@ -47,39 +72,61 @@ class LeapfrogResult(NamedTuple):
 def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
              logp_grad_fn, kind: KineticKind, energy_baseline,
              max_energy_error, step_size_factor=1.0) -> LeapfrogResult:
-    """One velocity-Verlet step (nuts-rs transformed_hamiltonian.rs:524-615).
+    """One leapfrog step (nuts-rs transformed_hamiltonian.rs:524-615).
 
-    ``direction`` is +1/-1 (int or [C]); divergence is
-    ``err > max_energy_error`` or a non-finite energy."""
+    ``direction`` is +1/-1 (int or [C]).  Divergence: Euclidean uses
+    ``err > max_energy_error``, microcanonical ``|err| >= max_energy_error``;
+    a non-finite energy always diverges."""
     require_euclidean(kind)
     dtype = pt.z.dtype
-    eps = (torch.as_tensor(direction, dtype=dtype, device=pt.z.device)
-           * step_size * step_size_factor)
-    eps = eps.expand(pt.z.shape[:-1])[..., None]
-    v1 = pt.v + (eps / 2.0) * pt.zg
-    z1 = pt.z + eps * v1
+    eps_c = (torch.as_tensor(direction, dtype=dtype, device=pt.z.device)
+             * step_size * step_size_factor)
+    eps_c = eps_c.expand(pt.z.shape[:-1])
+    eps = eps_c[..., None]
+    micro = kind is KineticKind.MICROCANONICAL
+    sqrt_n = math.sqrt(pt.z.shape[-1])
+    ke = pt.ke
+    if micro:
+        v1, dke1 = esh_momentum_update(pt.zg, pt.v, sqrt_n * eps_c / 2.0)
+        ke = ke + dke1
+        z1 = pt.z + eps * sqrt_n * v1
+    else:
+        v1 = pt.v + (eps / 2.0) * pt.zg
+        z1 = pt.z + eps * v1
     q1 = to_untransformed(transform, z1)
     logp1, g1 = logp_grad_fn(q1)
     zg1 = grad_to_transformed(transform, g1)
-    v2 = v1 + (eps / 2.0) * zg1
+    if micro:
+        v2, dke2 = esh_momentum_update(zg1, v1, sqrt_n * eps_c / 2.0)
+        ke = ke + dke2
+    else:
+        v2 = v1 + (eps / 2.0) * zg1
+        ke = 0.5 * dsum(v2 * v2)
     new_pt = Point(
         q=q1, g=g1, z=z1, zg=zg1, v=v2, logp=logp1,
-        logdet=transform.logdet.to(dtype),
-        ke=0.5 * dsum(v2 * v2),
+        logdet=transform.logdet.to(dtype), ke=ke,
         idx=pt.idx + torch.as_tensor(direction, dtype=torch.int32,
                                      device=pt.z.device),
     )
     energy_error = new_pt.energy - energy_baseline
-    diverging = (energy_error > max_energy_error) | ~torch.isfinite(
-        energy_error)
+    if micro:
+        bad = torch.abs(energy_error) >= max_energy_error
+    else:
+        bad = energy_error > max_energy_error
+    diverging = bad | ~torch.isfinite(energy_error)
     return LeapfrogResult(new_pt, diverging, energy_error)
 
 
 def sample_momentum(seed: int, it: int, salt1: int, salt2: int, shape,
                     dtype, device, kind: KineticKind):
-    """Fresh Gaussian momentum from the counter hash (flat index)."""
+    """Fresh Gaussian momentum from the counter hash (flat index); on the
+    unit sphere for the microcanonical kind (transformed_hamiltonian.rs
+    :696-704)."""
     require_euclidean(kind)
-    return host_normals(seed, it, salt1, salt2, shape, device).to(dtype)
+    v = host_normals(seed, it, salt1, salt2, shape, device).to(dtype)
+    if kind is KineticKind.MICROCANONICAL:
+        v = v / torch.sqrt(dsum(v * v))[..., None]
+    return v
 
 
 def init_point_from_q(q, transform: AffineTransform, logp_grad_fn) -> Point:
@@ -96,15 +143,43 @@ def init_point_from_q(q, transform: AffineTransform, logp_grad_fn) -> Point:
 
 
 def initialize_trajectory(pt: Point, transform: AffineTransform,
-                          kind: KineticKind, v) -> Point:
-    """Set the momentum ``v`` and re-sync the transform cache before a draw
+                          kind: KineticKind, v=None) -> Point:
+    """Set the momentum and re-sync the transform cache before a draw
     (nuts-rs initialize_trajectory, transformed_hamiltonian.rs:687-736).
-    The caller draws ``v`` (see ``sample_momentum``)."""
+    The caller draws a fresh ``v`` (see ``sample_momentum``); ``v=None``
+    carries ``pt.v`` verbatim, as ``resample_velocity=False`` does."""
     require_euclidean(kind)
+    v = pt.v if v is None else v
+    if kind is KineticKind.MICROCANONICAL:
+        ke = torch.zeros_like(pt.logp)
+    else:
+        ke = 0.5 * dsum(v * v)
     return pt._replace(
         v=v, z=to_transformed(transform, pt.q),
         zg=grad_to_transformed(transform, pt.g),
-        logdet=transform.logdet.to(pt.q.dtype),
-        ke=0.5 * dsum(v * v),
+        logdet=transform.logdet.to(pt.q.dtype), ke=ke,
         idx=torch.zeros_like(pt.idx),
     )
+
+
+def partial_momentum_refresh(pt: Point, noise, step_size, factor,
+                             decoherence_length, kind: KineticKind) -> Point:
+    """MCLMC Ornstein-Uhlenbeck partial momentum refresh
+    (transformed_hamiltonian.rs:777-826).  Microcanonical:
+    nu = sqrt(expm1(2 h / L) / n), v <- normalize(v + nu z); Euclidean:
+    alpha = exp(-h / L), v <- alpha v + sqrt(1 - alpha^2) z.  ``step_size``
+    and ``factor`` are floats or [C]."""
+    require_euclidean(kind)
+    half_step = torch.as_tensor(step_size * factor / 2.0,
+                                dtype=pt.v.dtype, device=pt.v.device)
+    half_step = half_step.expand(pt.v.shape[:-1])[..., None]
+    if kind is KineticKind.MICROCANONICAL:
+        n = float(pt.v.shape[-1])
+        nu = torch.sqrt(torch.expm1(2.0 * half_step / decoherence_length) / n)
+        v = pt.v + nu * noise
+        v = v / torch.sqrt(dsum(v * v))[..., None]
+        return pt._replace(v=v)
+    alpha = torch.exp(-half_step / decoherence_length)
+    beta = torch.sqrt(1.0 - alpha * alpha)
+    v = alpha * pt.v + beta * noise
+    return pt._replace(v=v, ke=0.5 * dsum(v * v))

@@ -26,12 +26,17 @@ from pathlib import Path
 
 import torch
 
+from ..dynamics.hamiltonian import KineticKind
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# (d, maxdepth) instantiations of both kernels; other sizes raise.
+# (d, maxdepth) instantiations of the NUTS kernels; other sizes raise.  The
+# MCLMC kernels are instantiated for the same d (``DIMS``), both kinetic
+# energies and both settings of ``dynamic_step_size``.
 SIZES = tuple((d, 10) for d in (3, 4, 6, 10))
+DIMS = tuple(sorted({d for d, _ in SIZES}))
 MODEL_IDS = {"iid_normal": 0}
 MAX_BLOCK = 128  # nrt::MAX_BLOCK, the kernels' __launch_bounds__
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -53,8 +58,10 @@ def _nvcc() -> str:
 
 def _sizes_header() -> str:
     cases = " ".join(f"X({d}, {D})" for d, D in SIZES)
+    dims = " ".join(f"X({d})" for d in DIMS)
     return ("// Generated by nuts_rs_tpu_torch/kernels/_build.py\n"
-            f"#define NRT_FOR_EACH_SIZE(X) {cases}\n")
+            f"#define NRT_FOR_EACH_SIZE(X) {cases}\n"
+            f"#define NRT_FOR_EACH_DIM(X) {dims}\n")
 
 
 def library():
@@ -109,6 +116,13 @@ def library():
         [I, I, I, I, I, U, F, I, F, F, I, F, F, F, F, F, I] + [P] * 19
         + [P])
     lib.nrt_warmup_launch.restype = I
+    lib.nrt_mclmc_posterior_launch.argtypes = (
+        [I, I, I, I, I, I, U, F, F, F, F, I, F, F, I] + [P] * 17 + [P])
+    lib.nrt_mclmc_posterior_launch.restype = I
+    lib.nrt_mclmc_warmup_launch.argtypes = (
+        [I, I, I, I, I, I, U, F, F, F, F, F, I, F, F, I, I] + [P] * 21
+        + [P])
+    lib.nrt_mclmc_warmup_launch.restype = I
     lib.nrt_error_string.argtypes = [I]
     lib.nrt_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -144,27 +158,55 @@ def check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar,
         raise ValueError("num_draws must be >= 1")
 
 
-def check_warmup_args(flags, q, g, logp, stds, mean, est, sca):
+def check_warmup_args(flags, q, g, logp, stds, mean, est, sca, nsca=10):
     C, d = q.shape
     check_tensor("flags", flags, (flags.shape[0], 8), q.device, torch.int32)
     for name, x, shape in (("q", q, (C, d)), ("g", g, (C, d)),
                            ("stds", stds, (C, d)), ("mean", mean, (C, d)),
                            ("logp", logp, (C,)), ("est", est, (C, 8, d)),
-                           ("sca", sca, (C, 10))):
+                           ("sca", sca, (C, nsca))):
         check_tensor(name, x, shape, q.device)
     if flags.shape[0] < 1:
         raise ValueError("flags must hold at least one draw")
 
 
+def check_mclmc_posterior_args(q, g, logp, v, stds, mean, logdet, step0,
+                               step_bar, K, mopts):
+    check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
+    check_tensor("v", v, q.shape, q.device)
+    _check_esh_dim(q.shape[1], mopts)
+
+
+def check_mclmc_warmup_args(flags, q, g, logp, v, stds, mean, est, sca,
+                            mopts):
+    check_warmup_args(flags, q, g, logp, stds, mean, est, sca, nsca=4)
+    check_tensor("v", v, q.shape, q.device)
+    _check_esh_dim(q.shape[1], mopts)
+
+
+def _check_esh_dim(d, mopts):
+    # the ESH step divides by d - 1 (undefined at d = 1 in the JAX package)
+    if d < 2 and mopts.kind is KineticKind.MICROCANONICAL:
+        raise ValueError("the microcanonical dynamics need dim >= 2")
+
+
 def _common(q, model, opts, B):
-    if q.device.type != "cuda":
-        raise ValueError(f"the CUDA kernels take CUDA tensors, got {q.device}")
+    model_id, params = _model_and_block(q, model, B)
     C, d = q.shape
     D = opts.maxdepth
     if (d, D) not in SIZES:
         raise NotImplementedError(
             f"the fused CUDA kernels are instantiated for (d, maxdepth) in "
             f"{SIZES}, not ({d}, {D}) (ROADMAP.md queue 1 item 11)")
+    return C, d, D, model_id, params
+
+
+def _model_and_block(q, model, B):
+    """(model id, params) of the kernel hook, after the device and block
+    checks."""
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {q.device}")
+    C = q.shape[0]
     hook = model.kernel_hook
     if hook is None or hook[0] not in MODEL_IDS:
         raise NotImplementedError(
@@ -174,7 +216,22 @@ def _common(q, model, opts, B):
         raise ValueError(f"chain block {B} must divide num_chains ({C}) and "
                          f"be at most {MAX_BLOCK}")
     params = (ctypes.c_float * max(1, len(hook[1])))(*hook[1])
-    return C, d, D, MODEL_IDS[hook[0]], params
+    return MODEL_IDS[hook[0]], params
+
+
+def _mclmc_common(q, model, mopts, B):
+    model_id, params = _model_and_block(q, model, B)
+    C, d = q.shape
+    if d not in DIMS:
+        raise NotImplementedError(
+            f"the fused CUDA kernels are instantiated for d in {DIMS}, not "
+            f"{d} (ROADMAP.md queue 1 item 11)")
+    L = float(mopts.momentum_decoherence_length)
+    consts = (int(mopts.kind is KineticKind.MICROCANONICAL),
+              int(mopts.dynamic_step_size))
+    fconsts = (float(mopts.max_energy_error), L,
+               float(mopts.subsample_frequency) * L, math.sqrt(d))
+    return C, d, model_id, params, consts, fconsts
 
 
 def _raise_on(rc, lib, what):
@@ -251,4 +308,69 @@ def launch_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model, opts,
             draws.data_ptr(), stats.data_ptr(),
             *(o.data_ptr() for o in outs), iters.data_ptr(), stream)
     _raise_on(rc, lib, "nuts_fused_warmup")
+    return (draws, stats, *outs, iters)
+
+
+def launch_mclmc_posterior(seed, q, g, logp, v, stds, mean, logdet, step0,
+                           step_bar, K, model, mopts, jitter, B):
+    """Launch csrc/mclmc_fused_posterior.cu; returns (draws [K, d, C],
+    stats [K, 8, C], q_f, g_f [C, d], logp_f [C], v_f [C, d], iters [C])."""
+    C, d, model_id, params, consts, fconsts = _mclmc_common(q, model, mopts,
+                                                            B)
+    dev = q.device
+    check_mclmc_posterior_args(q, g, logp, v, stds, mean, logdet, step0,
+                               step_bar, K, mopts)
+    lib = library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, d, C, **f32)
+    stats = torch.empty(K, 8, C, **f32)
+    q_f, g_f, v_f = (torch.empty(C, d, **f32) for _ in range(3))
+    logp_f = torch.empty(C, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(jitter)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_mclmc_posterior_launch(
+            d, *consts, C, B, K, int(seed) & 0xFFFFFFFF, *fconsts, hj, jc1,
+            jc2, model_id, ctypes.cast(params, ctypes.c_void_p),
+            q.data_ptr(), g.data_ptr(), logp.data_ptr(), v.data_ptr(),
+            stds.data_ptr(), mean.data_ptr(), logdet.data_ptr(),
+            step0.data_ptr(), step_bar.data_ptr(), draws.data_ptr(),
+            stats.data_ptr(), q_f.data_ptr(), g_f.data_ptr(),
+            logp_f.data_ptr(), v_f.data_ptr(), iters.data_ptr(), stream)
+    _raise_on(rc, lib, "mclmc_fused_posterior")
+    return draws, stats, q_f, g_f, logp_f, v_f, iters
+
+
+def launch_mclmc_warmup(seed, flags, q, g, logp, v, stds, mean, est, sca,
+                        model, mopts, sset, use_grad_based, B):
+    """Launch csrc/mclmc_fused_warmup.cu; returns (draws [K, d, C],
+    stats [K, 9, C], q, g, logp, v, stds, mean, est, sca, iters)."""
+    C, d, model_id, params, consts, fconsts = _mclmc_common(q, model, mopts,
+                                                            B)
+    dev = q.device
+    K = flags.shape[0]
+    check_mclmc_warmup_args(flags, q, g, logp, v, stds, mean, est, sca,
+                            mopts)
+    lib = library()
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, d, C, **f32)
+    stats = torch.empty(K, 9, C, **f32)
+    outs = [torch.empty(C, d, **f32), torch.empty(C, d, **f32),
+            torch.empty(C, **f32), torch.empty(C, d, **f32),
+            torch.empty(C, d, **f32), torch.empty(C, d, **f32),
+            torch.empty(C, 8, d, **f32), torch.empty(C, 4, **f32)]
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(sset.jitter)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_mclmc_warmup_launch(
+            d, *consts, C, B, K, int(seed) & 0xFFFFFFFF, *fconsts,
+            float(sset.fixed_value), hj, jc1, jc2, int(use_grad_based),
+            model_id, ctypes.cast(params, ctypes.c_void_p), flags.data_ptr(),
+            q.data_ptr(), g.data_ptr(), logp.data_ptr(), v.data_ptr(),
+            stds.data_ptr(), mean.data_ptr(), est.data_ptr(), sca.data_ptr(),
+            draws.data_ptr(), stats.data_ptr(),
+            *(o.data_ptr() for o in outs), iters.data_ptr(), stream)
+    _raise_on(rc, lib, "mclmc_fused_warmup")
     return (draws, stats, *outs, iters)

@@ -37,6 +37,7 @@ from ._build import (
     launch_posterior,
     launch_warmup,
 )
+from .diag_adapt import NEST, adapt_draw
 from .rng import BlockRng, tz
 
 STAT_NAMES = [
@@ -70,9 +71,6 @@ SCA_CNT_BG = 7
 SCA_TID = 8
 SCA_LOGDET = 9
 NSCA = 10
-
-# estimator planes: fg draw mean/var, fg grad mean/var, bg x4
-NEST = 8
 
 DEFAULT_BLOCK = 32  # chains per CUDA block: one warp
 
@@ -414,7 +412,6 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
     ar = torch.arange(C, device=dev)
     zi = torch.zeros(C, dtype=torch.int32, device=dev)
     zf = torch.zeros(C, dtype=_F32, device=dev)
-    zd = torch.zeros(C, d, dtype=_F32, device=dev)
     ls_max = math.log(da.max_step_size)
     c1, c2 = _jitter_consts(jitter) if jitter is not None else (None, None)
 
@@ -550,43 +547,10 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
         dm_g = dm_zg / stds
         is_good = ((div & (torch.abs(dm_idx) > 4))
                    | (~div & (dm_idx != 0)))
-        cnt_fg, cnt_bg = sca[SCA_CNT_FG], sca[SCA_CNT_BG]
-        inc = is_good & f_upd_est
-
-        def add2(mean_p, var_p, cnt_old, value):
-            cnt = cnt_old + inc.to(_F32)
-            first1 = (cnt == 1.0)[:, None]
-            diffv = value - mean_p
-            meann = torch.where(first1, value,
-                                mean_p + diffv / torch.clamp(cnt, min=1.0)[:, None])
-            varn = var_p + torch.where(first1, 0.0, diffv * diffv)
-            return _sel(inc, meann, mean_p), _sel(inc, varn, var_p)
-
-        fg_dm, fg_dv = add2(est[0], est[1], cnt_fg, dm_q)
-        fg_gm, fg_gv = add2(est[2], est[3], cnt_fg, dm_g)
-        bg_dm, bg_dv = add2(est[4], est[5], cnt_bg, dm_q)
-        bg_gm, bg_gv = add2(est[6], est[7], cnt_bg, dm_g)
-        cnt_fg = cnt_fg + torch.where(inc, 1.0, 0.0)
-        cnt_bg = cnt_bg + torch.where(inc, 1.0, 0.0)
-        if f_switch:
-            fg_dm, fg_dv, fg_gm, fg_gv = bg_dm, bg_dv, bg_gm, bg_gv
-            bg_dm, bg_dv, bg_gm, bg_gv = zd, zd, zd, zd
-            cnt_fg, cnt_bg = cnt_bg, zf
-
-        enough = (cnt_fg >= 3.0) & f_do_upd
-        if use_grad_based:
-            val = torch.sqrt(fg_dv / fg_gv)
-        else:
-            val = fg_dv * (1.0 / torch.clamp(cnt_fg, min=1.0))[:, None]
-        invalid = ~torch.isfinite(val) | (val == 0.0)
-        var = torch.clamp(val, 1e-20, 1e20)
-        var = torch.where(invalid, torch.square(stds), var)
-        new_stds = torch.sqrt(var)
-        new_mean = fg_dm + var * fg_gm if use_grad_based else fg_dm
-        stds_n = _sel(enough, new_stds, stds)
-        mean_n = _sel(enough, new_mean, mean)
-        logdet_n = -dsum(torch.log(stds_n))
-        tid_n = sca[SCA_TID] + torch.where(enough, 1.0, 0.0)
+        est, cnt_fg, cnt_bg, stds_n, mean_n, logdet_n, tid_n = adapt_draw(
+            est, sca[SCA_CNT_FG], sca[SCA_CNT_BG], sca[SCA_TID], stds, mean,
+            dm_q, dm_g, is_good & f_upd_est, f_switch, f_do_upd,
+            use_grad_based)
 
         nst = torch.clamp(n_steps.to(_F32), min=1.0)
         accept = s_sym / nst if f_use_late else s_acc / nst
@@ -622,7 +586,6 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
 
         sca = [base, da_ls, da_lsa, da_hbar, sca[SCA_DA_MU], da_cnt, cnt_fg,
                cnt_bg, tid_n, logdet_n]
-        est = [fg_dm, fg_dv, fg_gm, fg_gv, bg_dm, bg_dv, bg_gm, bg_gv]
         q, g, logp, stds, mean = dm_q, dm_g, dm_logp, stds_n, mean_n
 
     stats_out = {name: stats[:, :, i] for i, name in enumerate(WARMUP_STAT_NAMES)}

@@ -1,15 +1,18 @@
 """Settings presets, the phase plan and the chunked sampler.
 
 Port of ``nuts_rs_tpu/sampler.py``: ``NutsSettings`` and
-``DiagNutsSettings`` (``:45-281,538-541``), the phase plan ``build_phases``
-(``:202-281``), a reduced ``Sampler`` (``:758``: ``__init__``, the phase
+``DiagNutsSettings`` (``:45-281,538-541``), ``MclmcTrajectoryKind``,
+``MclmcSettings`` and ``DiagMclmcSettings`` (``:287-517``), the phase plans
+``build_phases``, a reduced ``Sampler`` (``:758``: ``__init__``, the phase
 runners, ``run_next_chunk``, ``_finish_chunk``, ``run`` ``:1957``) and the
 free functions ``schema`` (``:2216``) and ``sample`` (``:2248``).
 
-This slice runs the fused engine only: warmup on the fused warmup kernel,
-split at the step-size re-init draw, and the posterior on the fused
-posterior kernel.  ``posterior_kernel="pallas"`` keeps its name, so one user
-script runs on both packages; in this package it selects the hand-written
+This package runs the fused engines only.  NUTS: warmup on the fused
+warmup kernel, split at the step-size re-init draw, and the posterior on
+the fused posterior kernel.  MCLMC: warmup on the fused MCLMC warmup
+kernel, split at the Euclidean -> microcanonical switch, and the posterior
+on the fused MCLMC posterior kernel.  ``posterior_kernel="pallas"`` keeps
+its name, so one user script runs on both packages; in this package it selects the hand-written
 CUDA kernels (and their plain PyTorch versions for CPU tensors).  A setting
 the slice does not take raises ``NotImplementedError`` naming the ROADMAP.md
 item that ports it; nothing runs quietly on another path.  The control
@@ -20,6 +23,7 @@ knobs, expansions) is queue-1 item 9.
 from __future__ import annotations
 
 import dataclasses
+import enum
 import time
 from typing import Optional
 
@@ -32,11 +36,14 @@ from .chain import (
     ChainConfig,
     DiagStrategy,
     init_chain_state,
+    make_fused_mclmc_posterior_runner,
+    make_fused_mclmc_warmup_runner,
     make_fused_posterior_runner,
     make_fused_warmup_runner,
 )
 from .dynamics.hamiltonian import KineticKind
 from .kernels import _build
+from .kernels.mclmc import MclmcOptions
 from .kernels.nuts import NutsOptions
 from .models.model import Model
 from .storage.core import StorageConfig, dims_for_tail
@@ -123,8 +130,10 @@ class NutsSettings:
         elif self.mass_matrix != "diag":
             raise ValueError(f"unknown mass_matrix {self.mass_matrix!r}")
         if self.kinetic_energy is not KineticKind.EUCLIDEAN:
+            # the JAX package demotes these to its sync engine
+            # (nuts_rs_tpu/sampler.py:180-181,224-241)
             reasons.append(f"kinetic_energy={self.kinetic_energy.name} "
-                           "(item 13)")
+                           "(item 3, the sync engine)")
         for name, bad in (("mindepth", self.mindepth != 0),
                           ("extra_doublings", self.extra_doublings != 0),
                           ("target_integration_time",
@@ -144,18 +153,7 @@ class NutsSettings:
         if self.step_size.method is not StepSizeMethod.DUAL_AVERAGE:
             reasons.append(f"step_size.method={self.step_size.method.name} "
                            "(item 4, the per-draw warmup of the sync engine)")
-        if model.kernel_hook is None:
-            reasons.append(f"model {model.name!r} without a kernel_hook "
-                           "(item 10)")
-        if model.dim > cl_max_dim(self.maxdepth):
-            reasons.append(f"dim {model.dim} above the chains-on-lanes "
-                           f"layout's {cl_max_dim(self.maxdepth)} (item 11)")
-        elif (device is not None and torch.device(device).type == "cuda"
-              and (model.dim, self.maxdepth) not in _build.SIZES):
-            reasons.append(f"(dim, maxdepth) = {(model.dim, self.maxdepth)} "
-                           "on CUDA: the kernels are instantiated for "
-                           f"{_build.SIZES} (item 11, more kernel sizes)")
-        return reasons
+        return reasons + _model_reasons(model, self.maxdepth, device)
 
     def build_phases(self, model: Model, config: ChainConfig, device=None):
         """``[(start, end, runner)]``: fused warmup split after each
@@ -180,10 +178,194 @@ class NutsSettings:
         phases.append((self.num_tune, total, post))
         return phases
 
+    def extra_flags(self, flags, lo, hi):
+        return flags
+
+    @property
+    def sampler_name(self) -> str:
+        return "nuts"
+
 
 def DiagNutsSettings(**kw) -> NutsSettings:
     """Defaults of nuts-rs ``DiagNutsSettings`` (src/sampler.rs:630-633)."""
     return NutsSettings(**kw)
+
+
+def _model_reasons(model: Model, maxdepth: int, device) -> list:
+    """What the fused kernels do not take of ``model`` on ``device``."""
+    reasons = []
+    if model.kernel_hook is None:
+        reasons.append(f"model {model.name!r} without a kernel_hook "
+                       "(item 10)")
+    if model.dim > cl_max_dim(maxdepth):
+        reasons.append(f"dim {model.dim} above the chains-on-lanes "
+                       f"layout's {cl_max_dim(maxdepth)} (item 11)")
+    elif (device is not None and torch.device(device).type == "cuda"
+          and (model.dim, maxdepth) not in _build.SIZES):
+        reasons.append(f"(dim, maxdepth) = {(model.dim, maxdepth)} "
+                       "on CUDA: the kernels are instantiated for "
+                       f"{_build.SIZES} (item 11, more kernel sizes)")
+    return reasons
+
+
+class MclmcTrajectoryKind(str, enum.Enum):
+    """nuts-rs ``MclmcTrajectoryKind`` (src/mclmc.rs:44-70)."""
+
+    MICROCANONICAL = "microcanonical"
+    EUCLIDEAN = "euclidean"
+    EUCLIDEAN_EARLY_THEN_MICROCANONICAL = "euclidean_early_then_microcanonical"
+
+
+@dataclasses.dataclass(frozen=True)
+class MclmcSettings:
+    """Unadjusted MCLMC settings (nuts-rs ``MclmcSettings``,
+    src/sampler.rs:268-318), with the JAX package's names and defaults.
+
+    Step size and decoherence length L are constants; the geometry adapts
+    during warmup with the shared window schedule."""
+
+    step_size: float = 0.5
+    momentum_decoherence_length: float = 3.0
+    num_tune: int = 400
+    num_draws: int = 1000
+    num_chains: int = 6
+    seed: int = 0
+    max_energy_error: float = 1000.0
+    store_gradient: bool = False
+    store_unconstrained: bool = False
+    store_transformed: bool = False
+    store_divergences: bool = False
+    store_mass_matrix: bool = False
+    subsample_frequency: float = 1.0
+    dynamic_step_size: bool = True
+    trajectory_kind: MclmcTrajectoryKind = (
+        MclmcTrajectoryKind.EUCLIDEAN_EARLY_THEN_MICROCANONICAL)
+    trajectory_switch_fraction: float = 0.3
+    adapt: AdaptScheduleOptions = AdaptScheduleOptions()
+    use_grad_based_estimate: bool = True
+    mass_matrix: str = "diag"  # "diag" | "low_rank" | "flow"
+    cross_chain_adaptation: bool = False
+    mesh_axis_name: Optional[str] = None
+    # "sync" | "pallas".  "pallas" selects the fused engine: the
+    # hand-written CUDA kernels in this package.
+    posterior_kernel: str = "sync"
+
+    @property
+    def step_size_settings(self) -> StepSizeSettings:
+        # Reference MCLMC presets: Fixed step size with the default 10% jitter.
+        return StepSizeSettings(method=StepSizeMethod.FIXED,
+                                fixed_value=self.step_size,
+                                initial_step=self.step_size)
+
+    def chain_config(self) -> ChainConfig:
+        if self.adapt.window_by_good_draws:
+            raise ValueError(
+                "adapt.window_by_good_draws is a NUTS warmup option; the "
+                "MCLMC driver runs the draw-index schedule")
+        return ChainConfig(
+            nuts=NutsOptions(max_energy_error=self.max_energy_error),
+            step_size=self.step_size_settings,
+            use_grad_based_estimate=self.use_grad_based_estimate)
+
+    @property
+    def switch_draw(self) -> Optional[int]:
+        if (self.trajectory_kind
+                is not MclmcTrajectoryKind.EUCLIDEAN_EARLY_THEN_MICROCANONICAL):
+            return None
+        return int(self.trajectory_switch_fraction * self.num_tune)
+
+    def _mclmc_options(self, kind) -> MclmcOptions:
+        return MclmcOptions(
+            momentum_decoherence_length=self.momentum_decoherence_length,
+            subsample_frequency=self.subsample_frequency,
+            dynamic_step_size=self.dynamic_step_size,
+            max_energy_error=self.max_energy_error,
+            kind=(KineticKind.MICROCANONICAL
+                  if kind is MclmcTrajectoryKind.MICROCANONICAL
+                  else KineticKind.EUCLIDEAN),
+            store_divergences=self.store_divergences)
+
+    def unsupported(self, model: Model, device=None) -> list:
+        """What this package does not take on ``device``, each with the
+        ROADMAP.md item that ports it (queue 1)."""
+        reasons = []
+        if self.posterior_kernel == "sync":
+            reasons.append("posterior_kernel='sync' (item 8, the sync "
+                           "engines: kernels/mclmc.py::mclmc_draw)")
+        elif self.posterior_kernel != "pallas":
+            raise ValueError(
+                f"unknown posterior_kernel {self.posterior_kernel!r}")
+        if self.mass_matrix == "low_rank":
+            reasons.append("mass_matrix='low_rank' (item 14)")
+        elif self.mass_matrix == "flow":
+            reasons.append("mass_matrix='flow' (item 15)")
+        elif self.mass_matrix != "diag":
+            raise ValueError(f"unknown mass_matrix {self.mass_matrix!r}")
+        if (self.store_gradient or self.store_unconstrained
+                or self.store_transformed or self.store_divergences
+                or self.store_mass_matrix):
+            reasons.append("store_* extra stores (item 9)")
+        if self.cross_chain_adaptation or self.mesh_axis_name is not None:
+            reasons.append("cross-chain adaptation / meshes (item 17)")
+        return reasons + _model_reasons(model, 10, device)
+
+    def build_phases(self, model: Model, config: ChainConfig, device=None):
+        """``[(start, end, runner)]`` as the JAX package plans them
+        (``sampler.py:405-492``): fused warmup split at the Euclidean ->
+        microcanonical switch, then the fused posterior.  Raises
+        ``NotImplementedError`` for what :meth:`unsupported` lists."""
+        reasons = self.unsupported(model, device)
+        if reasons:
+            raise NotImplementedError(
+                "not ported yet (see ROADMAP.md): " + "; ".join(reasons))
+        if model.dim < 2 and self.trajectory_kind is not (
+                MclmcTrajectoryKind.EUCLIDEAN):
+            raise ValueError("the microcanonical dynamics need dim >= 2 "
+                             "(the ESH step divides by dim - 1)")
+        total = self.num_tune + self.num_draws
+        sw = self.switch_draw
+        if sw is None:
+            warm = [(0, total)]
+        else:
+            warm = [(0, sw), (sw, total)]
+        phases = []
+        for lo, hi in warm:
+            if lo >= self.num_tune:
+                continue
+            hi = min(hi, self.num_tune)
+            if sw is None:
+                kind = self.trajectory_kind
+            elif hi <= sw:
+                kind = MclmcTrajectoryKind.EUCLIDEAN
+            else:
+                kind = MclmcTrajectoryKind.MICROCANONICAL
+            phases.append((lo, hi, make_fused_mclmc_warmup_runner(
+                model, config, self._mclmc_options(kind), self.seed)))
+        post_kind = (MclmcTrajectoryKind.EUCLIDEAN
+                     if self.trajectory_kind is MclmcTrajectoryKind.EUCLIDEAN
+                     else MclmcTrajectoryKind.MICROCANONICAL)
+        phases.append((self.num_tune, total, make_fused_mclmc_posterior_runner(
+            model, config, self._mclmc_options(post_kind), self.num_tune,
+            self.seed)))
+        return phases
+
+    def extra_flags(self, flags, lo, hi):
+        """Full momentum resample on the first draw and at the trajectory
+        switch (mclmc.rs:488-503)."""
+        special = {0, self.switch_draw}
+        flags = dict(flags)
+        flags["resample_velocity"] = np.array(
+            [d in special for d in range(lo, hi)], dtype=bool)
+        return flags
+
+    @property
+    def sampler_name(self) -> str:
+        return "mclmc"
+
+
+def DiagMclmcSettings(**kw) -> MclmcSettings:
+    """Defaults of nuts-rs ``DiagMclmcSettings`` (src/sampler.rs:381-387)."""
+    return MclmcSettings(**kw)
 
 
 def _schedule_chunk(sched, lo: int, hi: int):
@@ -193,16 +375,27 @@ def _schedule_chunk(sched, lo: int, hi: int):
         "advance_da")}
 
 
-# Stored stats (name -> dtype, trailing shape given the model dim), as the
-# JAX fused runners emit them.
+# Stored stats (name -> dtype; "position" has the model dim as trailing
+# shape) of each sampler, as the JAX fused runners emit them.
 _STAT_DTYPES = {
-    "position": np.float32, "depth": np.int32, "maxdepth_reached": np.bool_,
-    "diverging": np.bool_, "n_steps": np.int32, "step_size": np.float32,
-    "step_size_bar": np.float32, "mean_tree_accept": np.float32,
-    "mean_tree_accept_sym": np.float32, "max_energy_error": np.float32,
-    "logp": np.float32, "energy": np.float32, "energy_error": np.float32,
-    "index_in_trajectory": np.int32, "fisher_distance": np.float32,
-    "transformation_index": np.int32, "tuning": np.bool_,
+    "nuts": {
+        "position": np.float32, "depth": np.int32,
+        "maxdepth_reached": np.bool_, "diverging": np.bool_,
+        "n_steps": np.int32, "step_size": np.float32,
+        "step_size_bar": np.float32, "mean_tree_accept": np.float32,
+        "mean_tree_accept_sym": np.float32, "max_energy_error": np.float32,
+        "logp": np.float32, "energy": np.float32, "energy_error": np.float32,
+        "index_in_trajectory": np.int32, "fisher_distance": np.float32,
+        "transformation_index": np.int32, "tuning": np.bool_,
+    },
+    "mclmc": {
+        "position": np.float32, "diverging": np.bool_, "n_steps": np.int32,
+        "energy_change": np.float32, "log_weight": np.float32,
+        "average_step_size": np.float32, "step_size": np.float32,
+        "logp": np.float32, "energy": np.float32,
+        "fisher_distance": np.float32, "transformation_index": np.int32,
+        "tuning": np.bool_,
+    },
 }
 _POSTERIOR_STAT_KEYS = ("position",)
 
@@ -219,7 +412,7 @@ class Sampler:
     chunk's stats on the host.
     """
 
-    def __init__(self, model: Model, settings: NutsSettings,
+    def __init__(self, model: Model, settings,
                  storage: Optional[StorageConfig] = None,
                  chunk_size: int = 128, init_positions=None, *, device):
         if model.dim < 1:
@@ -271,8 +464,9 @@ class Sampler:
             (s, e, r) for s, e, r in self._phase_runners if s <= lo < e)
         hi = min(lo + self.chunk_size, self._total, end)
         t0 = time.monotonic()
-        self.state, stats = runner(self.state,
-                                   _schedule_chunk(self.schedule, lo, hi))
+        flags = self.settings.extra_flags(
+            _schedule_chunk(self.schedule, lo, hi), lo, hi)
+        self.state, stats = runner(self.state, flags)
         self._next_draw = hi
         return self._finish_chunk(lo, hi, stats, t0)
 
@@ -298,18 +492,18 @@ class Sampler:
         return schema(self.model, self.settings)
 
 
-def schema(model: Model, settings: Optional[NutsSettings] = None):
+def schema(model: Model, settings=None):
     """Settings-level trace schema, without a sampler or a device."""
     settings = settings or NutsSettings()
+    dtypes = _STAT_DTYPES[settings.sampler_name]
 
     def entry(name):
         shape = (model.dim,) if name == "position" else ()
-        return {"dtype": np.dtype(_STAT_DTYPES[name]), "shape": shape,
+        return {"dtype": np.dtype(dtypes[name]), "shape": shape,
                 "dims": dims_for_tail(model, name, shape)}
 
-    draws = {n: entry(n) for n in _STAT_DTYPES if n in _POSTERIOR_STAT_KEYS}
-    stats = {n: entry(n) for n in _STAT_DTYPES
-             if n not in _POSTERIOR_STAT_KEYS}
+    draws = {n: entry(n) for n in dtypes if n in _POSTERIOR_STAT_KEYS}
+    stats = {n: entry(n) for n in dtypes if n not in _POSTERIOR_STAT_KEYS}
     scalar = {"dtype": np.dtype(np.int64), "shape": (), "dims": []}
     return {
         "posterior": dict(draws) if settings.num_draws else {},
@@ -324,7 +518,7 @@ def schema(model: Model, settings: Optional[NutsSettings] = None):
     }
 
 
-def sample(model: Model, settings: Optional[NutsSettings] = None, *,
+def sample(model: Model, settings=None, *,
            seed: Optional[int] = None,
            storage: Optional[StorageConfig] = None, chunk_size: int = 128,
            init_positions=None, device) -> Trace:

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the port's main path goes, on one CUDA card.
+"""Where the time of the port's main paths goes, on one CUDA card.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 profile_main_path.py [--repeats 3] [--trace trace.json]
 
-The main path is chip_smoke.py's: ``Sampler(...)`` and ``run()`` on
-N(3, 1) at d=10 with 1024 chains, 300 tuning and 700 posterior draws,
-``posterior_kernel="pallas"``.  After building the kernels it prints
+The paths are chip_smoke.py's: ``Sampler(...)`` and ``run()`` on N(3, 1)
+at d=10 with 1024 chains, 300 tuning and 700 posterior draws,
+``posterior_kernel="pallas"``, with ``DiagNutsSettings`` (kernels K1, K2)
+and with ``DiagMclmcSettings`` (K3, K4).  After building the kernels it
+prints, for each path,
 
 1. for ``--repeats`` unprofiled runs: the total seconds, Sampler
    construction (init and init search), and for every chunk the runner's
@@ -15,7 +17,7 @@ N(3, 1) at d=10 with 1024 chains, 300 tuning and 700 posterior draws,
    chunk (stats to the host and into storage), then ``finalize``;
 2. for one run under ``torch.profiler``: the device time per kernel or
    copy, and the device's busy share of the profiled wall (``--trace``
-   also writes a Chrome trace);
+   also writes a Chrome trace, one file per path);
 3. each kernel's milliseconds per 128-draw launch at chain blocks
    B = 8 ... 128 (CUDA events, same inputs), and at B = 32 the fused
    posterior's loop iterations per block and leapfrogs per draw.
@@ -34,6 +36,7 @@ import torch
 
 from chip_smoke import (
     CHAINS, CHUNK, DIM, DRAWS, MU, SEED, TUNE, card_line, cuda_events_ms,
+    mclmc_posterior_args, mclmc_settings, mclmc_warmup_setup,
     posterior_inputs, warmup_setup)
 
 BLOCKS = (8, 16, 32, 64, 128)
@@ -73,7 +76,7 @@ def run_main_path(model, settings, device):
         lo, stats, _ = sampler.run_next_chunk()
         chunk_s = time.perf_counter() - t
         runner_s, wait_s = split[-1]
-        chunks.append((lo, lo + stats["depth"].shape[1], runner_s, wait_s,
+        chunks.append((lo, lo + stats["n_steps"].shape[1], runner_s, wait_s,
                        chunk_s - runner_s - wait_s))
     t = time.perf_counter()
     trace = sampler.trace.finalize()
@@ -122,29 +125,48 @@ def profile_once(model, settings, device, trace_path=None):
         print(f"  chrome trace: {trace_path}")
 
 
-def sweep_blocks(model, settings, device):
-    """ms per 128-draw launch of each kernel at every chain block size."""
+def nuts_launches(model, settings, device):
+    """(posterior, warmup) launches of K1 and K2 at a chain block B, and
+    K1's stats, on the main path's shapes."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     opts = settings.nuts_options()
     k1 = posterior_inputs(model, device, seed=2)
     k2 = warmup_setup(model, settings, device, 2, 2 + CHUNK)
+    return (lambda B: nf.nuts_fused_run(3, *k1, CHUNK, model, opts, 0.1,
+                                        B)[4],
+            lambda B: nf.nuts_fused_warmup_run(*k2, B))
+
+
+def mclmc_launches(model, settings, device):
+    """The same for K3 and K4 (K4 on the microcanonical warmup rows)."""
+    from nuts_rs_tpu_torch import MclmcTrajectoryKind
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+
+    k3, mopts = mclmc_posterior_args(model, settings, device, seed=2)
+    jitter = settings.step_size_settings.jitter
+    sw = settings.switch_draw
+    k4 = mclmc_warmup_setup(model, settings, device, sw, sw + CHUNK,
+                            MclmcTrajectoryKind.MICROCANONICAL)
+    return (lambda B: mf.mclmc_fused_run(3, *k3, CHUNK, model, mopts, jitter,
+                                         B)[5],
+            lambda B: mf.mclmc_fused_warmup_run(*k4, B))
+
+
+def sweep_blocks(launches):
+    """ms per 128-draw launch of each kernel at every chain block size."""
+    post, warm = launches
     for B in BLOCKS:
-        def post():
-            return nf.nuts_fused_run(3, *k1, CHUNK, model, opts, 0.1, B)
-
-        def warm():
-            return nf.nuts_fused_warmup_run(*k2, B)
-
-        post()
-        warm()
+        post(B)
+        warm(B)
         print(f"B={B}: blocks {CHAINS // B}, posterior "
-              f"{cuda_events_ms(post, 3):.4f} ms, warmup "
-              f"{cuda_events_ms(warm, 3):.4f} ms per {CHUNK}-draw launch")
-    out = nf.nuts_fused_run(3, *k1, CHUNK, model, opts, 0.1)[4]
+              f"{cuda_events_ms(lambda: post(B), 3):.4f} ms, warmup "
+              f"{cuda_events_ms(lambda: warm(B), 3):.4f} ms per "
+              f"{CHUNK}-draw launch")
+    out = post(32)
     iters = out["loop_iterations"].cpu().numpy()
-    print(f"posterior loop iterations per block (B={nf.DEFAULT_BLOCK}): min "
-          f"{iters.min()} max {iters.max()}; leapfrogs per draw mean "
+    print(f"posterior loop iterations per block (B=32): min {iters.min()} "
+          f"max {iters.max()}; leapfrogs per draw mean "
           f"{float(np.mean(out['n_steps'].cpu().numpy())):.4f}")
 
 
@@ -163,14 +185,20 @@ def main() -> int:
     print(card_line())
     _build.library()
     model = normal_logp(DIM, MU)
-    settings = DiagNutsSettings(num_chains=CHAINS, num_tune=TUNE,
-                                num_draws=DRAWS, seed=SEED,
-                                posterior_kernel="pallas")
-    run_main_path(model, settings, device)  # first launches, allocator
-    for rep in range(args.repeats):
-        print_run(f"run {rep}", run_main_path(model, settings, device))
-    profile_once(model, settings, device, args.trace)
-    sweep_blocks(model, settings, device)
+    nuts = DiagNutsSettings(num_chains=CHAINS, num_tune=TUNE,
+                            num_draws=DRAWS, seed=SEED,
+                            posterior_kernel="pallas")
+    for label, settings, launches in (("NUTS", nuts, nuts_launches),
+                                      ("MCLMC", mclmc_settings(),
+                                       mclmc_launches)):
+        print(f"== {label} path")
+        run_main_path(model, settings, device)  # first launches, allocator
+        for rep in range(args.repeats):
+            print_run(f"run {rep}", run_main_path(model, settings, device))
+        trace = (args.trace.replace(".json", f"_{label.lower()}.json")
+                 if args.trace else None)
+        profile_once(model, settings, device, trace)
+        sweep_blocks(launches(model, settings, device))
     print(card_line())
     return 0
 

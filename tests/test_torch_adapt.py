@@ -81,6 +81,47 @@ def test_step_size_updates(method):
         _close(got.step_size, base * (0.9 + 0.2 * u))
 
 
+def test_fixed_step_with_jitter():
+    """MCLMC's step law: FIXED with uniform jitter (step_size.py:123,155,
+    163,207), as the JAX functions give it and as the fused MCLMC warmup
+    forms it in f32 (fixed * ((1 - j) + 2 j u))."""
+    rng = np.random.default_rng(3)
+    js, ts = _step_states(rng)
+    fixed, j = 0.37, 0.1
+    jset = jss.StepSizeSettings(method=jss.StepSizeMethod.FIXED,
+                                fixed_value=fixed, jitter=j)
+    tset = tss.StepSizeSettings(method=tss.StepSizeMethod.FIXED,
+                                fixed_value=fixed, jitter=j)
+    acc = _t(rng.uniform(size=C))
+    for name, value in tss.advance(ts, acc, tset)._asdict().items():
+        _close(value, getattr(ts, name))
+    for best in (False, True):
+        _close(tss.current_step(ts, tset, best), np.full(C, fixed))
+    _close(tss.step_size_bar(ts, tset),
+           jax.vmap(lambda s: jss.step_size_bar(s, jset))(js))
+    q = rng.normal(size=(C, D))
+    found = tss.init_search(_t(q), None, None, logp_grad_fn=None,
+                            settings=tset, kind=KineticKind.EUCLIDEAN)
+    _close(found, np.full(C, float(jss.init_search(
+        None, jnp.asarray(q[0]), None, logp_grad_fn=None, settings=jset,
+        kind=JKind.EUCLIDEAN))))
+    # the JAX jitter draws its factor in [1 - j, 1 + j]; the port maps the
+    # uniform u to the same factor
+    keys = jax.random.split(jax.random.key(0), C)
+    want = jax.vmap(lambda k, s: jss.apply_jitter(k, s, jset, True))(keys, js)
+    factor = np.asarray(want.step_size) / fixed
+    assert ((factor >= 1 - j) & (factor <= 1 + j)).all()
+    got = tss.apply_jitter(_t((factor - (1 - j)) / (2 * j)), ts, tset, True)
+    np.testing.assert_allclose(got.step_size.numpy(),
+                               np.asarray(want.step_size), rtol=1e-12)
+    # the f32 form of the fused warmup kernel
+    u32 = torch.tensor([0.0, 0.25, 0.5, 0.999], dtype=torch.float32)
+    s32 = tss.apply_jitter(u32, tss.new_step_size_state(
+        fixed, 4, torch.float32, "cpu"), tset, True).step_size
+    k32 = torch.full((4,), fixed) * ((1.0 - j) + (2.0 * j) * u32)
+    np.testing.assert_array_equal(s32.numpy(), k32.numpy())
+
+
 def _estimators(rng):
     def rv():
         m, v = rng.normal(size=(C, D)), rng.uniform(0, 5, size=(C, D))

@@ -1,6 +1,7 @@
-"""The port's model, diagonal transform and Euclidean dynamics against the
-JAX package, at float64 on random points (tolerance 1e-12: the same
-formulas, sums over d of a few terms in possibly another order)."""
+"""The port's model, diagonal transform and dynamics (Euclidean and
+microcanonical) against the JAX package, at float64 on random points
+(tolerance 1e-12: the same formulas, sums over d of a few terms in possibly
+another order)."""
 
 import jax
 import jax.numpy as jnp
@@ -147,6 +148,102 @@ def test_leapfrog(direction):
                                   np.asarray(want.diverging))
 
 
+@pytest.mark.parametrize("direction", [1, -1])
+def test_microcanonical_leapfrog(direction):
+    kind = "MICROCANONICAL"
+    rng = np.random.default_rng(3)
+    jt, tt = _transforms(rng)
+    q = rng.normal(size=(C, D))
+    v = rng.normal(size=(C, D))
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    ke = rng.normal(size=C)  # the running ESH energy, any value
+    step = rng.uniform(0.1, 1.5, size=C)
+    factor = 0.5
+    jm, tm = jg.normal_logp(D, -0.5), tg.normal_logp(D, -0.5)
+    jpt = _jax_point(jm, jt, q, v)._replace(ke=jnp.asarray(ke))
+    tpt = th.init_point_from_q(_t(q), tt, tm.logp_and_grad)._replace(
+        v=_t(v), ke=_t(ke))
+    base = np.asarray(jpt.energy) - 0.3
+    want = jax.vmap(lambda p, s, t, e: jh.leapfrog(
+        p, jnp.int32(direction), s, t, jm.logp_and_grad,
+        jh.KineticKind[kind], e, 0.25, step_size_factor=factor))(
+        jpt, jnp.asarray(step), jt, jnp.asarray(base))
+    got = th.leapfrog(tpt, direction, _t(step), tt, tm.logp_and_grad,
+                      th.KineticKind[kind], _t(base), 0.25,
+                      step_size_factor=factor)
+    for name in want.point._fields:
+        _close(getattr(got.point, name), getattr(want.point, name))
+    _close(got.energy_error, want.energy_error)
+    np.testing.assert_array_equal(got.diverging.numpy(),
+                                  np.asarray(want.diverging))
+    assert bool(got.diverging.any()) and not bool(got.diverging.all())
+
+
 def test_other_kinetic_energies_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.require_euclidean(th.KineticKind.MICROCANONICAL)
+        th.require_euclidean(th.KineticKind.EXACT_NORMAL)
+    for kind in (th.KineticKind.EUCLIDEAN, th.KineticKind.MICROCANONICAL):
+        th.require_euclidean(kind)
+
+
+def test_esh_momentum_update():
+    rng = np.random.default_rng(4)
+    zg = rng.normal(size=(C, D)) * 2.0
+    v = rng.normal(size=(C, D))
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    step = rng.uniform(0.05, 2.0, size=C)
+    want = jax.vmap(jh._esh_momentum_update)(
+        jnp.asarray(zg), jnp.asarray(v), jnp.asarray(step))
+    got = th.esh_momentum_update(_t(zg), _t(v), _t(step))
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    np.testing.assert_allclose(np.linalg.norm(got[0].numpy(), axis=1), 1.0,
+                               rtol=1e-14)
+
+
+@pytest.mark.parametrize("kind", ["EUCLIDEAN", "MICROCANONICAL"])
+def test_partial_momentum_refresh(kind):
+    rng = np.random.default_rng(5)
+    jt, tt = _transforms(rng)
+    q = rng.normal(size=(C, D))
+    v = rng.normal(size=(C, D))
+    if kind == "MICROCANONICAL":
+        v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    noise = rng.normal(size=(C, D))
+    step = rng.uniform(0.1, 1.0, size=C)
+    jm, tm = jg.normal_logp(D, 1.0), tg.normal_logp(D, 1.0)
+    jpt = _jax_point(jm, jt, q, v)
+    tpt = th.init_point_from_q(_t(q), tt, tm.logp_and_grad)._replace(
+        v=_t(v), ke=_t(np.asarray(jpt.ke)))
+    want = jax.vmap(lambda p, n, s: jh.partial_momentum_refresh(
+        p, n, s, 0.5, 3.0, jh.KineticKind[kind]))(
+        jpt, jnp.asarray(noise), jnp.asarray(step))
+    got = th.partial_momentum_refresh(tpt, _t(noise), _t(step), 0.5, 3.0,
+                                      th.KineticKind[kind])
+    for name in ("v", "ke"):
+        _close(getattr(got, name), getattr(want, name))
+
+
+def test_microcanonical_momentum_and_trajectory_init():
+    rng = np.random.default_rng(6)
+    jt, tt = _transforms(rng)
+    q = rng.normal(size=(C, D))
+    v = rng.normal(size=(C, D))
+    v = v / np.linalg.norm(v, axis=1, keepdims=True)
+    jm, tm = jg.normal_logp(D, 0.0), tg.normal_logp(D, 0.0)
+    micro = th.KineticKind.MICROCANONICAL
+    # fresh momentum lies on the unit sphere, as the JAX package's
+    vs = th.sample_momentum(3, 0, 1, 2, (C, D), torch.float64, "cpu", micro)
+    np.testing.assert_allclose(np.linalg.norm(vs.numpy(), axis=1), 1.0,
+                               rtol=1e-14)
+    jv = jh.sample_momentum(jax.random.key(0), D, jnp.float64,
+                            jh.KineticKind.MICROCANONICAL)
+    np.testing.assert_allclose(float(jnp.linalg.norm(jv)), 1.0, rtol=1e-14)
+    # without a resample the velocity is carried verbatim and ke is 0
+    want = jax.vmap(lambda p, t: jh.initialize_trajectory(
+        None, p, t, jh.KineticKind.MICROCANONICAL,
+        resample_velocity=False))(_jax_point(jm, jt, q, v), jt)
+    pt = th.init_point_from_q(_t(q), tt, tm.logp_and_grad)._replace(v=_t(v))
+    got = th.initialize_trajectory(pt, tt, micro)
+    for name in want._fields:
+        _close(getattr(got, name), getattr(want, name))

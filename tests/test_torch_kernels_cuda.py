@@ -1,4 +1,5 @@
-"""The fused CUDA kernels against their plain PyTorch versions, on the card.
+"""The fused CUDA kernels (NUTS K1/K2, MCLMC K3/K4) against their plain
+PyTorch versions, on the card.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -67,4 +68,68 @@ def test_kernels_match_plain_versions_on_the_card():
         np.testing.assert_array_equal(got[8][name].cpu().numpy(),
                                       want[8][name].cpu().numpy())
     for i in range(8):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+
+
+MCLMC_INT_STATS = ("diverging", "n_steps", "loop_iterations")
+
+
+def _mclmc_state(dev, C, dim, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    model = tg.normal_logp(dim, 0.5)
+    q = f(0.5 + rng.normal(size=(C, dim)))
+    logp, g = model.logp_and_grad(q)
+    v = rng.normal(size=(C, dim))
+    v = f(v / np.linalg.norm(v, axis=1, keepdims=True))
+    stds = f(rng.uniform(0.7, 1.3, size=(C, dim)))
+    return model, q, g, logp, v, stds, torch.zeros_like(q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("micro,max_err,dynamic", [
+    (True, 1000.0, True), (True, 0.05, True), (False, 0.02, False)])
+def test_mclmc_kernels_match_plain_versions_on_the_card(micro, max_err,
+                                                        dynamic):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.adapt.step_size import StepSizeMethod
+    from nuts_rs_tpu_torch.dynamics.hamiltonian import KineticKind
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels.mclmc import MclmcOptions
+
+    dev = torch.device("cuda", 0)
+    C, dim = 64, 4
+    kind = KineticKind.MICROCANONICAL if micro else KineticKind.EUCLIDEAN
+    mopts = MclmcOptions(kind=kind, max_energy_error=max_err,
+                         dynamic_step_size=dynamic)
+    model, q, g, logp, v, stds, mean = _mclmc_state(dev, C, dim, 1)
+    logdet = -torch.log(stds).sum(1)
+    step = torch.full((C,), 1.2, device=dev)
+    args = (q, g, logp, v, stds, mean, logdet, step, step.clone())
+    got = mf.mclmc_fused_run(3, *args, 8, model, mopts, 0.1)
+    want = mf.mclmc_fused_run_reference(3, *args, 8, model, mopts, 0.1)
+    for name in MCLMC_INT_STATS:
+        np.testing.assert_array_equal(got[5][name].cpu().numpy(),
+                                      want[5][name].cpu().numpy())
+    for i in range(5):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+
+    flags = torch.zeros(6, mf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, mf.FLAG_UPDATE_EST] = 1
+    flags[0, mf.FLAG_RESAMPLE] = flags[4, mf.FLAG_RESAMPLE] = 1
+    flags[2:, mf.FLAG_DO_UPDATE] = 1
+    flags[3, mf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, dim, device=dev)
+    sca = torch.zeros(C, mf.NSCA, device=dev)
+    sca[:, mf.SCA_LOGDET] = logdet
+    sset = StepSizeSettings(method=StepSizeMethod.FIXED, fixed_value=0.9)
+    wargs = (flags, q, g, logp, v, stds, mean, est, sca, model, mopts, sset,
+             True)
+    got = mf.mclmc_fused_warmup_run(5, *wargs)
+    want = mf.mclmc_fused_warmup_run_reference(5, *wargs)
+    for name in MCLMC_INT_STATS + ("transformation_index",):
+        np.testing.assert_array_equal(got[9][name].cpu().numpy(),
+                                      want[9][name].cpu().numpy())
+    for i in range(9):
         _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)

@@ -156,7 +156,7 @@ def _no_hook(dim):
     (dict(posterior_kernel="sync", async_posterior=True), "item 16"),
     (dict(mass_matrix="low_rank"), "item 14"),
     (dict(mass_matrix="flow"), "item 15"),
-    (dict(kinetic_energy=KineticKind.MICROCANONICAL), "item 13"),
+    (dict(kinetic_energy=KineticKind.MICROCANONICAL), "item 3"),
     (dict(mindepth=1), "item 3"),
     (dict(extra_doublings=1), "item 3"),
     (dict(check_turning=False), "item 3"),
@@ -190,6 +190,21 @@ def test_unsupported_settings_raise(change, item):
         kw.update(change)
     with pytest.raises(NotImplementedError, match=item):
         tnt.Sampler(model, tnt.DiagNutsSettings(**kw), device=device)
+
+
+@pytest.mark.parametrize("kind", ["MICROCANONICAL", "EXACT_NORMAL"])
+def test_nuts_kinetic_energies_name_the_sync_engine(kind):
+    # the JAX package runs NUTS with these only on its sync engine (it
+    # demotes a fused request there), so the port points at that item
+    settings = tnt.DiagNutsSettings(posterior_kernel="pallas", num_chains=4,
+                                    num_tune=5, num_draws=5,
+                                    kinetic_energy=KineticKind[kind])
+    reasons = settings.unsupported(tg.normal_logp(3), "cpu")
+    assert reasons == [f"kinetic_energy={kind} (item 3, the sync engine)"]
+    jsettings = jnt.DiagNutsSettings(
+        posterior_kernel="pallas",
+        kinetic_energy=jnt.KineticKind[kind])
+    assert not jsettings._pallas_ok()
 
 
 def test_sizes_without_a_kernel_run_on_the_cpu():
