@@ -7,12 +7,26 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the fused CUDA kernels from ``nuts_rs_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-and drives two paths, each ``Sampler(...).run()`` on N(3, 1) at d=10 with
-1024 chains, 300 tuning and 700 posterior draws and
-``posterior_kernel="pallas"``: NUTS (``DiagNutsSettings``, kernels K1 and
-K2) and MCLMC (``DiagMclmcSettings``, kernels K3 and K4).  For each path it
-checks that its kernels ran and that the posterior is right, then times
-each kernel against its plain version at the main path's shapes.
+and drives three paths through ``Sampler(...).run()`` with
+``posterior_kernel="pallas"``.  Two run N(3, 1) at d=10 with 1024 chains,
+300 tuning and 700 posterior draws: NUTS (``DiagNutsSettings``, kernels K1
+and K2) and MCLMC (``DiagMclmcSettings``, kernels K3 and K4).  The third is
+the large-d path: NUTS on N(3, 1) at d=1000 with 512 chains, 200 tuning and
+300 posterior draws, on the dim-on-lanes kernels K1-ld and K2-ld.  For each
+path it sets the launch counts to 0, runs, reads them, and checks that its
+kernels ran and that the posterior is right.  Every kernel is held against
+its plain version at its path's chains and dimension (8 posterior or 16
+warmup draws).
+
+Each kernel is timed (CUDA events) beside its plain version on the check's
+inputs (``ms``, ``plain_ms``, with the bound ``bound_ms`` of that work), and
+alone at its path's 128-draw launch (``chunk_ms``, ``chunk_bound_ms``).  The
+bound is the larger of the bytes the call must move (every input read once,
+every output written once) over 3.35 TB/s and its FP32 operations over 67
+TFLOP/s, the card's published peaks; operations are counted from the
+leapfrogs the run's data needed (``n_steps``), ``FLOP_PER_COORD`` per
+coordinate.  No single PyTorch call computes a NUTS or MCLMC launch, so
+``library_ms`` is null.
 
 Output: the card's name and power limit, the nvcc version, the build time,
 the checks and timings, a JSON line ``{"kernels": [...]}`` and, last,
@@ -36,6 +50,21 @@ CHECK_K1_DRAWS = 8   # posterior draws per chain in the kernel check
 CHECK_K2_DRAWS = 16  # warmup draws in the kernel check
 CHECK_K3_DRAWS = 8   # MCLMC posterior draws per chain in the kernel check
 CHECK_K4_DRAWS = 16  # MCLMC warmup draws in each kernel check
+# the large-d path (the JAX benchmark's normal_d1000 sizes); its kernels are
+# checked at the path's own 512 chains (64 logical blocks of 8, several
+# waves of clusters, the full stack workspace)
+LD_DIM, LD_CHAINS, LD_TUNE, LD_DRAWS = 1000, 512, 200, 300
+LD_STEP = (0.2, 0.3)  # adapted step sizes at d=1000, for the made-up states
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+FP32_FLOP_PER_S = 67e12    # H100 SXM outside the tensor cores, published
+# FP32 operations per coordinate and gradient evaluation that every version
+# of a step needs.  NUTS: the leapfrog with the diagonal transform (8), the
+# model (3), and six sums of products (logp, kinetic energy, z.v and the
+# three dots of the far-end U-turn check: 12); the dots of the U-turn
+# levels a leaf completes depend on the tree and are left out, so the bound
+# is a lower one.  MCLMC: two ESH half steps and the partial refresh with
+# their norms and the model.
+FLOP_PER_COORD = {"nuts": 23, "mclmc": 40}
 INT_STATS = ("depth", "n_steps", "diverging", "index_in_trajectory",
              "maxdepth_reached", "loop_iterations")
 MCLMC_INT_STATS = ("n_steps", "diverging", "loop_iterations")
@@ -71,6 +100,50 @@ def cuda_events_ms(fn, repeats: int) -> float:
     return start.elapsed_time(end) / repeats
 
 
+def tensor_bytes(*objs) -> int:
+    """Bytes of every tensor in ``objs`` (tuples, lists and dicts walked)."""
+    n = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            n += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            n += tensor_bytes(*o.values())
+        elif isinstance(o, (tuple, list)):
+            n += tensor_bytes(*o)
+    return n
+
+
+def bound(kind, dim, inputs, out, stats):
+    """(bound_ms, bound_by) of one launch from its inputs and results."""
+    grads = float(stats["n_steps"].sum())
+    t_ops = grads * dim * FLOP_PER_COORD[kind] / FP32_FLOP_PER_S
+    t_bytes = tensor_bytes(inputs, out) / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def timed_pair(kernel, plain):
+    """Run a kernel and its plain version on the same inputs: (kernel's
+    result, plain result, kernel ms per call over 3 calls, plain ms of its
+    one call)."""
+    out_k = kernel()
+    torch.cuda.synchronize()
+    ms = cuda_events_ms(kernel, 3)
+    box = []
+    plain_ms = cuda_events_ms(lambda: box.append(plain()), 1)
+    return out_k, box[0], ms, plain_ms
+
+
+def chunk_time(kind, dim, fn, inputs, stats_at):
+    """A kernel alone at its path's 128-draw launch: (ms over 3 calls,
+    bound_ms, bound_by)."""
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cuda_events_ms(fn, 3)
+    b_ms, b_by = bound(kind, dim, inputs, out, out[stats_at])
+    return ms, b_ms, b_by
+
+
 def require_same_ints(out_k, out_p, what, names=INT_STATS):
     """Raise unless every integer stat agrees; returns the count of
     (chain, draw) entries."""
@@ -95,40 +168,65 @@ def close(a, b, what):
     return float(diff)
 
 
-def posterior_inputs(model, device, seed=1):
-    """A post-warmup-like state of the main path's model, made with numpy."""
+def posterior_inputs(model, device, seed=1, chains=CHAINS, step=(0.8, 1.0)):
+    """A post-warmup-like state of ``model``, made with numpy."""
     rng = np.random.default_rng(seed)
     f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)  # noqa: E731
-    q = f(MU + rng.normal(size=(CHAINS, DIM)))
-    stds = f(rng.uniform(0.8, 1.2, size=(CHAINS, DIM)))
-    mean = f(MU + 0.1 * rng.normal(size=(CHAINS, DIM)))
+    dim = model.dim
+    q = f(MU + rng.normal(size=(chains, dim)))
+    stds = f(rng.uniform(0.8, 1.2, size=(chains, dim)))
+    mean = f(MU + 0.1 * rng.normal(size=(chains, dim)))
     logp, g = model.logp_and_grad(q)
     logdet = -torch.log(stds).sum(1)
-    step = f(rng.uniform(0.8, 1.0, size=CHAINS))
+    step = f(rng.uniform(*step, size=chains))
     return q, g, logp, stds, mean, logdet, step, step.clone()
 
 
-def check_posterior(model, opts, device):
+def compare(name, out_k, out_p, state_names, stat_names, int_stats):
+    """Raise unless kernel and plain version agree: integer stats on every
+    (chain, draw), floats within RTOL / ATOL.  The last two entries of each
+    result are the draws and the stats dict.  Returns (entries, max abs
+    err)."""
+    n = require_same_ints(out_k[-1], out_p[-1], name, int_stats)
+    err = close(out_k[-2], out_p[-2], f"{name} draws")
+    for i, what in enumerate(state_names):
+        err = max(err, close(out_k[i], out_p[i], f"{name} {what}"))
+    for what in stat_names:
+        err = max(err, close(out_k[-1][what], out_p[-1][what],
+                             f"{name} {what}"))
+    return n, err
+
+
+def check_row(kind, dim, inputs, out_k, err, ms, plain_ms):
+    b_ms, b_by = bound(kind, dim, inputs, out_k, out_k[-1])
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_posterior(model, opts, device, layout="cl", chains=CHAINS,
+                    step=(0.8, 1.0)):
+    """K1 (cl) or K1-ld against its plain version."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
-    args = posterior_inputs(model, device)
-    out_k = nf.nuts_fused_run(7, *args, CHECK_K1_DRAWS, model, opts, 0.1)
-    torch.cuda.synchronize()
-    out_p = nf.nuts_fused_run_reference(7, *args, CHECK_K1_DRAWS, model,
-                                        opts, 0.1)
-    n = require_same_ints(out_k[4], out_p[4], "K1")
-    err = close(out_k[3], out_p[3], "K1 draws")
-    for i, name in enumerate(("q_f", "g_f", "logp_f")):
-        err = max(err, close(out_k[i], out_p[i], f"K1 {name}"))
-    for name in nf.STAT_NAMES:
-        err = max(err, close(out_k[4][name], out_p[4][name], f"K1 {name}"))
-    print(f"K1 check: C={CHAINS} d={DIM} B=32 K={CHECK_K1_DRAWS}: integer "
-          f"stats equal on all {n} (chain, draw) entries, max abs err "
-          f"{err:.3g} (draws, final state, all stats)")
-    return err
+    name = "K1-ld" if layout == "ld" else "K1"
+    args = posterior_inputs(model, device, chains=chains, step=step)
+    out_k, out_p, ms, plain_ms = timed_pair(
+        lambda: nf.nuts_fused_run(7, *args, CHECK_K1_DRAWS, model, opts, 0.1,
+                                  layout=layout),
+        lambda: nf.nuts_fused_run_reference(7, *args, CHECK_K1_DRAWS, model,
+                                            opts, 0.1, layout=layout))
+    n, err = compare(name, out_k, out_p, ("q_f", "g_f", "logp_f"),
+                     nf.STAT_NAMES, INT_STATS)
+    blocks = len(set(out_k[4]["loop_iterations"].cpu().tolist()))
+    print(f"{name} check: C={chains} d={model.dim} K={CHECK_K1_DRAWS}: "
+          f"integer stats equal on all {n} (chain, draw) entries, max abs "
+          f"err {err:.3g} (draws, final state, all stats); {blocks} distinct "
+          f"block iteration counts; kernel {ms:.4f} ms, plain {plain_ms:.2f} "
+          "ms")
+    return check_row("nuts", model.dim, args, out_k, err, ms, plain_ms)
 
 
-def warmup_setup(model, settings, device, lo, hi):
+def warmup_setup(model, settings, device, lo, hi, chains=CHAINS):
     from nuts_rs_tpu_torch.adapt.schedule import build_schedule
     from nuts_rs_tpu_torch.chain import (
         DiagStrategy, init_chain_state, pack_warmup_state, warmup_flags)
@@ -136,8 +234,9 @@ def warmup_setup(model, settings, device, lo, hi):
 
     config = settings.chain_config()
     state = init_chain_state(SEED, model, DiagStrategy(config), config,
-                             CHAINS, torch.float32, device)
-    sched = build_schedule(TUNE, DRAWS, settings.adapt)
+                             chains, torch.float32, device)
+    sched = build_schedule(settings.num_tune, settings.num_draws,
+                           settings.adapt)
     flags = warmup_flags(_schedule_chunk(sched, lo, hi), device)
     est, sca = pack_warmup_state(state)
     t = state.transform
@@ -146,27 +245,29 @@ def warmup_setup(model, settings, device, lo, hi):
             config.nuts, config.step_size, config.use_grad_based_estimate)
 
 
-def check_warmup(model, settings, device):
+def check_warmup(model, settings, device, layout="cl", chains=CHAINS):
+    """K2 (cl) or K2-ld against its plain version."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
+    name = "K2-ld" if layout == "ld" else "K2"
     # schedule rows 2.. are the second warmup phase's: estimator updates,
-    # mass-matrix updates every draw and the early window switches
-    args = warmup_setup(model, settings, device, 2, 2 + CHECK_K2_DRAWS)
-    out_k = nf.nuts_fused_warmup_run(*args)
-    torch.cuda.synchronize()
-    out_p = nf.nuts_fused_warmup_run_reference(*args)
-    n = require_same_ints(out_k[8], out_p[8], "K2")
-    err = close(out_k[7], out_p[7], "K2 draws")
-    for i, name in enumerate(("q", "g", "logp", "stds", "mean", "est",
-                              "sca")):
-        err = max(err, close(out_k[i], out_p[i], f"K2 {name}"))
-    for name in nf.WARMUP_STAT_NAMES:
-        err = max(err, close(out_k[8][name], out_p[8][name], f"K2 {name}"))
-    print(f"K2 check: C={CHAINS} d={DIM} B=32 K={CHECK_K2_DRAWS} "
-          f"(schedule rows 2..{1 + CHECK_K2_DRAWS}): integer stats equal on "
-          f"all {n} (chain, draw) entries, max abs err {err:.3g} (draws, "
-          "final state, est, sca, all stats)")
-    return err
+    # mass-matrix updates every draw and the first window switch (row 8)
+    args = warmup_setup(model, settings, device, 2, 2 + CHECK_K2_DRAWS,
+                        chains)
+    if not args[1][:, nf.FLAG_DO_SWITCH].any():
+        raise AssertionError(f"{name} check rows hold no window switch")
+    out_k, out_p, ms, plain_ms = timed_pair(
+        lambda: nf.nuts_fused_warmup_run(*args, layout=layout),
+        lambda: nf.nuts_fused_warmup_run_reference(*args, layout=layout))
+    n, err = compare(name, out_k, out_p,
+                     ("q", "g", "logp", "stds", "mean", "est", "sca"),
+                     nf.WARMUP_STAT_NAMES, INT_STATS)
+    print(f"{name} check: C={chains} d={model.dim} K={CHECK_K2_DRAWS} "
+          f"(schedule rows 2..{1 + CHECK_K2_DRAWS}, a window switch among "
+          f"them): integer stats equal on all {n} (chain, draw) entries, "
+          f"max abs err {err:.3g} (draws, final state, est, sca, all "
+          f"stats); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+    return check_row("nuts", model.dim, args[1:9], out_k, err, ms, plain_ms)
 
 
 def zero_launch_counts():
@@ -178,9 +279,9 @@ def zero_launch_counts():
             counts[name] = 0
 
 
-def read_launch_counts(counts):
+def read_launch_counts(counts, names):
     """The path's own counts, after it ran; each must be at least 1."""
-    launches = dict(counts)
+    launches = {name: counts[name] for name in names}
     for name, n in launches.items():
         if n < 1:
             raise AssertionError(f"the main path never launched {name}")
@@ -194,31 +295,42 @@ def run_sampler(model, settings, device):
     sampler = Sampler(model, settings, device=device)
     init_s = time.monotonic() - t0
     trace = sampler.run()
-    warm_s = sum(s for lo, hi, s in sampler.chunk_seconds if lo < TUNE)
-    post_s = sum(s for lo, hi, s in sampler.chunk_seconds if lo >= TUNE)
-    return trace, init_s, warm_s, post_s
+    total_s = time.monotonic() - t0
+    tune = settings.num_tune
+    warm_s = sum(s for lo, hi, s in sampler.chunk_seconds if lo < tune)
+    post_s = sum(s for lo, hi, s in sampler.chunk_seconds if lo >= tune)
+    return trace, init_s, warm_s, post_s, total_s
 
 
-def main_path(model, settings, device):
+def main_path(model, settings, device, kernels, what="main path"):
+    """One NUTS path through Sampler.run with its gates; ``kernels`` names
+    the launch counters it must move."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     zero_launch_counts()
-    trace, init_s, warm_s, post_s = run_sampler(model, settings, device)
-    launches = read_launch_counts(nf.LAUNCHES)
-    pos = trace.posterior["position"].astype(np.float64)
+    trace, init_s, warm_s, post_s, total_s = run_sampler(model, settings,
+                                                         device)
+    launches = read_launch_counts(nf.LAUNCHES, kernels)
+    pos = trace.posterior["position"]
     st = trace.sample_stats
-    mean, std = float(pos.mean()), float(pos.std())
+    mean = float(pos.mean(dtype=np.float64))
+    std = float(pos.std(dtype=np.float64))
     n_div = int(st["diverging"].sum())
     acc = float(st["mean_tree_accept"].mean())
     n_grad = int(st["n_steps"].sum())
-    print(f"main path: d={DIM} chains={CHAINS} tune={TUNE} draws={DRAWS}: "
-          f"init {init_s:.3f} s, warmup {warm_s:.3f} s, posterior "
-          f"{post_s:.3f} s, {n_grad / post_s:.6g} posterior gradient "
-          f"evaluations/s ({n_grad} in the posterior), launches {launches}")
-    print(f"posterior: mean {mean:.5f} std {std:.5f} divergences {n_div} "
-          f"mean accept {acc:.4f} step size "
+    print(f"{what}: d={model.dim} chains={settings.num_chains} "
+          f"tune={settings.num_tune} draws={settings.num_draws}: init "
+          f"{init_s:.3f} s, warmup {warm_s:.3f} s, posterior {post_s:.3f} s, "
+          f"total with trace assembly {total_s:.3f} s, "
+          f"{n_grad / post_s:.6g} posterior gradient evaluations/s "
+          f"({n_grad} in the posterior), launches {launches}")
+    print(f"{what} posterior: mean {mean:.5f} std {std:.5f} divergences "
+          f"{n_div} mean accept {acc:.4f} step size "
           f"{float(np.median(st['step_size_bar'][:, -1])):.4f} mean tree "
-          f"depth {float(st['depth'].mean()):.3f}")
+          f"depth {float(st['depth'].mean()):.3f} mean n_steps "
+          f"{float(st['n_steps'].mean()):.2f}")
+    if pos.shape != (settings.num_chains, settings.num_draws, model.dim):
+        raise AssertionError(f"posterior shape {pos.shape}")
     if not abs(mean - MU) < 0.02:
         raise AssertionError(f"posterior mean {mean} not within 0.02 of {MU}")
     if not abs(std - 1.0) < 0.05:
@@ -230,38 +342,28 @@ def main_path(model, settings, device):
     return launches
 
 
-def time_kernels(model, settings, device):
-    """ms per launch of each kernel and of its plain version, at the main
-    path's shapes (1024 chains, d=10, one 128-draw chunk)."""
+def time_kernels(model, settings, device, layout="cl", chains=CHAINS,
+                 step=(0.8, 1.0)):
+    """Each NUTS kernel alone at its path's launch: ``chains`` chains, one
+    128-draw chunk."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     opts = settings.nuts_options()
-    k1 = posterior_inputs(model, device, seed=2)
-    k2 = warmup_setup(model, settings, device, 2, 2 + CHUNK)
-
-    def post():
-        nf.nuts_fused_run(3, *k1, CHUNK, model, opts, 0.1)
-
-    def post_plain():
-        nf.nuts_fused_run_reference(3, *k1, CHUNK, model, opts, 0.1)
-
-    def warm():
-        nf.nuts_fused_warmup_run(*k2)
-
-    def warm_plain():
-        nf.nuts_fused_warmup_run_reference(*k2)
-
-    post()
-    warm()
+    k1 = posterior_inputs(model, device, seed=2, chains=chains, step=step)
+    k2 = warmup_setup(model, settings, device, 2, 2 + CHUNK, chains)
+    suffix = "_ld" if layout == "ld" else ""
     times = {
-        "nuts_fused_posterior": (cuda_events_ms(post, 3),
-                                 cuda_events_ms(post_plain, 1)),
-        "nuts_fused_warmup": (cuda_events_ms(warm, 3),
-                              cuda_events_ms(warm_plain, 1)),
+        f"nuts_fused{suffix}_posterior": chunk_time(
+            "nuts", model.dim,
+            lambda: nf.nuts_fused_run(3, *k1, CHUNK, model, opts, 0.1,
+                                      layout=layout), k1, 4),
+        f"nuts_fused{suffix}_warmup": chunk_time(
+            "nuts", model.dim,
+            lambda: nf.nuts_fused_warmup_run(*k2, layout=layout), k2[1:9], 8),
     }
-    for name, (ms, plain_ms) in times.items():
-        print(f"time {name}: kernel {ms:.4f} ms, plain PyTorch {plain_ms:.2f} "
-              f"ms per {CHUNK}-draw launch at C={CHAINS} d={DIM}")
+    for name, (ms, b_ms, b_by) in times.items():
+        print(f"time {name}: {ms:.4f} ms per {CHUNK}-draw launch at "
+              f"C={chains} d={model.dim}; bound {b_ms:.5f} ms ({b_by})")
     return times
 
 
@@ -297,20 +399,18 @@ def check_mclmc_posterior(model, settings, device):
 
     args, mopts = mclmc_posterior_args(model, settings, device)
     jitter = settings.step_size_settings.jitter
-    out_k = mf.mclmc_fused_run(7, *args, CHECK_K3_DRAWS, model, mopts, jitter)
-    torch.cuda.synchronize()
-    out_p = mf.mclmc_fused_run_reference(7, *args, CHECK_K3_DRAWS, model,
-                                         mopts, jitter)
-    n = require_same_ints(out_k[5], out_p[5], "K3", MCLMC_INT_STATS)
-    err = close(out_k[4], out_p[4], "K3 draws")
-    for i, name in enumerate(("q_f", "g_f", "logp_f", "v_f")):
-        err = max(err, close(out_k[i], out_p[i], f"K3 {name}"))
-    for name in mf.STAT_NAMES:
-        err = max(err, close(out_k[5][name], out_p[5][name], f"K3 {name}"))
+    out_k, out_p, ms, plain_ms = timed_pair(
+        lambda: mf.mclmc_fused_run(7, *args, CHECK_K3_DRAWS, model, mopts,
+                                   jitter),
+        lambda: mf.mclmc_fused_run_reference(7, *args, CHECK_K3_DRAWS, model,
+                                             mopts, jitter))
+    n, err = compare("K3", out_k, out_p, ("q_f", "g_f", "logp_f", "v_f"),
+                     mf.STAT_NAMES, MCLMC_INT_STATS)
     print(f"K3 check: C={CHAINS} d={DIM} B=32 K={CHECK_K3_DRAWS} "
           f"microcanonical: integer stats equal on all {n} (chain, draw) "
-          f"entries, max abs err {err:.3g} (draws, final state, all stats)")
-    return err
+          f"entries, max abs err {err:.3g} (draws, final state, all stats); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+    return check_row("mclmc", DIM, args, out_k, err, ms, plain_ms)
 
 
 def mclmc_warmup_setup(model, settings, device, lo, hi, kind):
@@ -338,7 +438,8 @@ def mclmc_warmup_setup(model, settings, device, lo, hi, kind):
 def check_mclmc_warmup(model, settings, device):
     """K4 on schedule rows that hold a momentum resample, a window switch
     and mass-matrix updates: from draw 0 with the Euclidean kinetic energy,
-    and across the trajectory switch with the microcanonical one."""
+    and across the trajectory switch with the microcanonical one.  The
+    row's times and bound are those of the microcanonical rows."""
     from nuts_rs_tpu_torch import MclmcTrajectoryKind as Kind
     from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
 
@@ -352,33 +453,31 @@ def check_mclmc_warmup(model, settings, device):
                 and flags[:, mf.FLAG_DO_SWITCH].any()):
             raise AssertionError(f"K4 check rows {lo}..{hi - 1} miss the "
                                  "resample or a window switch")
-        out_k = mf.mclmc_fused_warmup_run(*args)
-        torch.cuda.synchronize()
-        out_p = mf.mclmc_fused_warmup_run_reference(*args)
-        n += require_same_ints(out_k[9], out_p[9], f"K4 rows {lo}..",
-                               MCLMC_INT_STATS + ("transformation_index",))
-        err = max(err, close(out_k[8], out_p[8], "K4 draws"))
-        for i, name in enumerate(("q", "g", "logp", "v", "stds", "mean",
-                                  "est", "sca")):
-            err = max(err, close(out_k[i], out_p[i], f"K4 {name}"))
-        for name in mf.WARMUP_STAT_NAMES:
-            err = max(err, close(out_k[9][name], out_p[9][name],
-                                 f"K4 {name}"))
+        out_k, out_p, ms, plain_ms = timed_pair(
+            lambda: mf.mclmc_fused_warmup_run(*args),
+            lambda: mf.mclmc_fused_warmup_run_reference(*args))
+        n_i, err_i = compare(
+            f"K4 rows {lo}..", out_k, out_p,
+            ("q", "g", "logp", "v", "stds", "mean", "est", "sca"),
+            mf.WARMUP_STAT_NAMES,
+            MCLMC_INT_STATS + ("transformation_index",))
+        n, err = n + n_i, max(err, err_i)
         rows.append(f"{lo}..{hi - 1} {kind.value}")
     print(f"K4 check: C={CHAINS} d={DIM} B=32 K={CHECK_K4_DRAWS}, schedule "
           f"rows {' and '.join(rows)} (each holds a momentum resample and a "
           "window switch): integer stats equal on all "
           f"{n} (chain, draw) entries, max abs err {err:.3g} (draws, final "
-          "state, est, sca, all stats)")
-    return err
+          f"state, est, sca, all stats); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms (microcanonical rows)")
+    return check_row("mclmc", DIM, args[1:10], out_k, err, ms, plain_ms)
 
 
 def mclmc_main_path(model, settings, device):
     from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
 
     zero_launch_counts()
-    trace, init_s, warm_s, post_s = run_sampler(model, settings, device)
-    launches = read_launch_counts(mf.LAUNCHES)
+    trace, init_s, warm_s, post_s, _ = run_sampler(model, settings, device)
+    launches = read_launch_counts(mf.LAUNCHES, list(mf.LAUNCHES))
     pos = trace.posterior["position"].astype(np.float64)
     st = trace.sample_stats
     mean, std = float(pos.mean()), float(pos.std())
@@ -405,9 +504,9 @@ def mclmc_main_path(model, settings, device):
 
 
 def time_mclmc_kernels(model, settings, device):
-    """ms per 128-draw launch of K3 and K4 and of their plain versions at
-    the main path's shapes (1024 chains, d=10; K4 on the microcanonical
-    warmup rows from the trajectory switch)."""
+    """K3 and K4 alone at the main path's launch (1024 chains, d=10, one
+    128-draw chunk; K4 on the microcanonical warmup rows from the
+    trajectory switch)."""
     from nuts_rs_tpu_torch import MclmcTrajectoryKind
     from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
 
@@ -416,31 +515,35 @@ def time_mclmc_kernels(model, settings, device):
     sw = settings.switch_draw
     k4 = mclmc_warmup_setup(model, settings, device, sw, sw + CHUNK,
                             MclmcTrajectoryKind.MICROCANONICAL)
-
-    def post():
-        mf.mclmc_fused_run(3, *args, CHUNK, model, mopts, jitter)
-
-    def post_plain():
-        mf.mclmc_fused_run_reference(3, *args, CHUNK, model, mopts, jitter)
-
-    def warm():
-        mf.mclmc_fused_warmup_run(*k4)
-
-    def warm_plain():
-        mf.mclmc_fused_warmup_run_reference(*k4)
-
-    post()
-    warm()
     times = {
-        "mclmc_fused_posterior": (cuda_events_ms(post, 3),
-                                  cuda_events_ms(post_plain, 1)),
-        "mclmc_fused_warmup": (cuda_events_ms(warm, 3),
-                               cuda_events_ms(warm_plain, 1)),
+        "mclmc_fused_posterior": chunk_time(
+            "mclmc", DIM,
+            lambda: mf.mclmc_fused_run(3, *args, CHUNK, model, mopts, jitter),
+            args, 5),
+        "mclmc_fused_warmup": chunk_time(
+            "mclmc", DIM, lambda: mf.mclmc_fused_warmup_run(*k4), k4[1:10],
+            9),
     }
-    for name, (ms, plain_ms) in times.items():
-        print(f"time {name}: kernel {ms:.4f} ms, plain PyTorch {plain_ms:.2f} "
-              f"ms per {CHUNK}-draw launch at C={CHAINS} d={DIM}")
+    for name, (ms, b_ms, b_by) in times.items():
+        print(f"time {name}: {ms:.4f} ms per {CHUNK}-draw launch at "
+              f"C={CHAINS} d={DIM}; bound {b_ms:.5f} ms ({b_by})")
     return times
+
+
+KERNELS = (
+    ("nuts_fused_posterior", "nuts_fused_posterior.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:82"),
+    ("nuts_fused_warmup", "nuts_fused_warmup.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:942"),
+    ("mclmc_fused_posterior", "mclmc_fused_posterior.cu",
+     "nuts_rs_tpu/kernels/mclmc_pallas.py:59"),
+    ("mclmc_fused_warmup", "mclmc_fused_warmup.cu",
+     "nuts_rs_tpu/kernels/mclmc_pallas.py:504"),
+    ("nuts_fused_ld_posterior", "nuts_fused_ld_posterior.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:124"),
+    ("nuts_fused_ld_warmup", "nuts_fused_ld_warmup.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:959"),
+)
 
 
 def main() -> int:
@@ -454,7 +557,8 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(card_line())
+    card = card_line()
+    print(card)
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60)
     print(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}; torch "
@@ -465,51 +569,63 @@ def main() -> int:
     log = (_build.BUILD_DIR / "build.log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                print("  ptxas: " + line.strip().removeprefix("ptxas info    : "))
+            if "Compiling entry function" in line:
+                print("  ptxas: " + line.split("'")[1][:72])
+            elif "Used" in line or "spill" in line:
+                print("  ptxas:   " + line.strip().removeprefix("ptxas info    : "))
 
+    checks, launches, times = {}, {}, {}
+
+    # ---- NUTS at d=10: K1, K2 ----
     model = normal_logp(DIM, MU)
     settings = DiagNutsSettings(num_chains=CHAINS, num_tune=TUNE,
                                 num_draws=DRAWS, seed=SEED,
                                 posterior_kernel="pallas")
-    err1 = check_posterior(model, settings.nuts_options(), device)
-    err2 = check_warmup(model, settings, device)
-    launches = main_path(model, settings, device)
-    times = time_kernels(model, settings, device)
+    checks["nuts_fused_posterior"] = check_posterior(
+        model, settings.nuts_options(), device)
+    checks["nuts_fused_warmup"] = check_warmup(model, settings, device)
+    launches.update(main_path(model, settings, device,
+                              ("nuts_fused_posterior", "nuts_fused_warmup")))
+    times.update(time_kernels(model, settings, device))
 
+    # ---- MCLMC at d=10: K3, K4 ----
     msettings = mclmc_settings()
-    err3 = check_mclmc_posterior(model, msettings, device)
-    err4 = check_mclmc_warmup(model, msettings, device)
+    checks["mclmc_fused_posterior"] = check_mclmc_posterior(model, msettings,
+                                                            device)
+    checks["mclmc_fused_warmup"] = check_mclmc_warmup(model, msettings,
+                                                      device)
     launches.update(mclmc_main_path(model, msettings, device))
     times.update(time_mclmc_kernels(model, msettings, device))
 
-    kernels = [
-        {"name": "nuts_fused_posterior", "route": "cuda",
-         "source": "nuts_rs_tpu_torch/csrc/nuts_fused_posterior.cu",
-         "replaces": "nuts_rs_tpu/kernels/nuts_pallas.py:82",
-         "launches": launches["nuts_fused_posterior"], "max_abs_err": err1,
-         "ms": times["nuts_fused_posterior"][0],
-         "plain_ms": times["nuts_fused_posterior"][1]},
-        {"name": "nuts_fused_warmup", "route": "cuda",
-         "source": "nuts_rs_tpu_torch/csrc/nuts_fused_warmup.cu",
-         "replaces": "nuts_rs_tpu/kernels/nuts_pallas.py:942",
-         "launches": launches["nuts_fused_warmup"], "max_abs_err": err2,
-         "ms": times["nuts_fused_warmup"][0],
-         "plain_ms": times["nuts_fused_warmup"][1]},
-        {"name": "mclmc_fused_posterior", "route": "cuda",
-         "source": "nuts_rs_tpu_torch/csrc/mclmc_fused_posterior.cu",
-         "replaces": "nuts_rs_tpu/kernels/mclmc_pallas.py:59",
-         "launches": launches["mclmc_fused_posterior"], "max_abs_err": err3,
-         "ms": times["mclmc_fused_posterior"][0],
-         "plain_ms": times["mclmc_fused_posterior"][1]},
-        {"name": "mclmc_fused_warmup", "route": "cuda",
-         "source": "nuts_rs_tpu_torch/csrc/mclmc_fused_warmup.cu",
-         "replaces": "nuts_rs_tpu/kernels/mclmc_pallas.py:504",
-         "launches": launches["mclmc_fused_warmup"], "max_abs_err": err4,
-         "ms": times["mclmc_fused_warmup"][0],
-         "plain_ms": times["mclmc_fused_warmup"][1]},
-    ]
+    # ---- NUTS at d=1000, the dim-on-lanes layout: K1-ld, K2-ld ----
+    ld_model = normal_logp(LD_DIM, MU)
+    ld_settings = DiagNutsSettings(num_chains=LD_CHAINS, num_tune=LD_TUNE,
+                                   num_draws=LD_DRAWS, seed=SEED,
+                                   posterior_kernel="pallas")
+    checks["nuts_fused_ld_posterior"] = check_posterior(
+        ld_model, ld_settings.nuts_options(), device, "ld", LD_CHAINS,
+        LD_STEP)
+    checks["nuts_fused_ld_warmup"] = check_warmup(
+        ld_model, ld_settings, device, "ld", LD_CHAINS)
+    launches.update(main_path(
+        ld_model, ld_settings, device,
+        ("nuts_fused_ld_posterior", "nuts_fused_ld_warmup"),
+        what="large-d path"))
+    times.update(time_kernels(ld_model, ld_settings, device, "ld", LD_CHAINS,
+                              LD_STEP))
+
+    kernels = []
+    for name, source, replaces in KERNELS:
+        chunk_ms, chunk_bound_ms, chunk_bound_by = times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "nuts_rs_tpu_torch/csrc/" + source,
+            "replaces": replaces, "launches": launches[name],
+            **checks[name], "library_ms": None, "chunk_ms": chunk_ms,
+            "chunk_bound_ms": chunk_bound_ms,
+            "chunk_bound_by": chunk_bound_by})
     print(json.dumps({"kernels": kernels}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

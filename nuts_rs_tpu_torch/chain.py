@@ -6,7 +6,10 @@ fused NUTS runners ``make_pallas_posterior_runner`` (``:663-943``) and
 ``make_pallas_warmup_runner`` (``:946-1200``), and the fused MCLMC runners
 ``make_pallas_mclmc_posterior_runner`` (``:1203-1337``) and
 ``make_pallas_mclmc_warmup_runner`` (``:1340-1525``), for the diagonal mass
-matrix with chains on the block's lanes, no model args, flow or stream.
+matrix, no model args, flow or stream.  Like the JAX runners
+(``chain.py:757-784,1005-1028``), the NUTS runners take the chains-on-lanes
+layout while a model fits it (``cl_max_dim``) and the dim-on-lanes layout
+(``layout="ld"``) above that.
 
 The chain axis is the leading axis of every state tensor.  Randomness comes
 from the counter hash (kernels/rng.py): each launch's seed is derived from
@@ -33,7 +36,7 @@ from .kernels import mclmc_fused as mf
 from .kernels import nuts_fused as nf
 from .kernels.nuts import NutsOptions
 from .kernels.rng import derive_seed, host_uniform
-from .ops import dsum
+from .ops import hsum
 from .transform.affine import (
     AffineTransform,
     grad_to_transformed,
@@ -53,6 +56,28 @@ PURPOSE_MCLMC_POSTERIOR = 7
 
 # Draws of init positions for chains with a non-finite logp or gradient.
 INIT_RETRIES = 500
+
+
+def cl_max_dim(maxdepth: int, warmup: bool = False) -> int:
+    """Largest d the chains-on-lanes layout takes: the JAX package's VMEM
+    rule at its smallest lane block (128 chains) for the posterior runner
+    (``chain.py:721,740-745``) or, with ``warmup``, for the warmup runner,
+    whose launch also holds the estimator planes (``chain.py:1002-1011``).
+    Kept so that one configuration takes the same layout in both packages;
+    larger models take the dim-on-lanes layout.  At maxdepth 10 the limits
+    are 212 and 178: in between, the warmup runs dim-on-lanes and the
+    posterior chains-on-lanes, as in the JAX package."""
+    stacks = 6 * (maxdepth + 1)
+    if warmup:
+        return (12_000_000 // (4 * 128) - 16 * 15) // (stacks + 48 + 16)
+    return (12_500_000 // (4 * 128) - 4 - 16 * 13) // (stacks + 32 + 16)
+
+
+def fused_layout(model, config: "ChainConfig", warmup: bool) -> str:
+    """The layout of the fused NUTS warmup or posterior kernel for
+    ``model``: ``"cl"`` or ``"ld"``."""
+    limit = cl_max_dim(config.nuts.maxdepth, warmup)
+    return "ld" if model.dim > limit else "cl"
 
 
 class ChainState(NamedTuple):
@@ -141,7 +166,10 @@ def init_chain_state(seed: int, model, strategy: DiagStrategy,
 
 
 def _stats(draws, out, bars, tid, tuning):
-    """Per-draw stats dict of [k, C, ...] tensors (chain.py:917-940)."""
+    """Per-draw stats dict of [k, C, ...] tensors (chain.py:917-940).
+    ``draws`` is [C, k, d]: a view of the cl kernels' [k, d, C] output,
+    copied here into [k, C, d], or of the ld kernels' [k, C, d] output,
+    which ``contiguous`` passes through without a copy."""
     k = draws.shape[1]
 
     def t(x):
@@ -185,6 +213,7 @@ def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
     (state, stats)`` with ``stats[name]`` shaped [k, C, ...].  One launch
     per chunk."""
     sset = config.step_size
+    layout = fused_layout(model, config, warmup=False)
 
     def runner(state: ChainState, flags):
         k = len(flags["is_tuning"])
@@ -200,7 +229,8 @@ def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
         seed = derive_seed(base_seed, state.draw_idx, PURPOSE_POSTERIOR)
         q_f, g_f, logp_f, draws, out = nf.nuts_fused_run(
             seed, state.pt.q, state.pt.g, state.pt.logp, t.stds, t.mean,
-            t.logdet, step_in, bars, k, model, config.nuts, sset.jitter)
+            t.logdet, step_in, bars, k, model, config.nuts, sset.jitter,
+            layout=layout)
         pt = state.pt._replace(q=q_f, g=g_f, z=to_transformed(t, q_f),
                                zg=grad_to_transformed(t, g_f), logp=logp_f)
         state = state._replace(
@@ -258,6 +288,7 @@ def make_fused_warmup_runner(model, config: ChainConfig, base_seed: int):
     chunk whose last draw carries ``reinit_step_size`` (the sampler splits
     the warmup phase there)."""
     sset = config.step_size
+    layout = fused_layout(model, config, warmup=True)
 
     def runner(state: ChainState, flags):
         k = len(flags["is_tuning"])
@@ -268,7 +299,8 @@ def make_fused_warmup_runner(model, config: ChainConfig, base_seed: int):
          out) = nf.nuts_fused_warmup_run(
             seed, warmup_flags(flags, est.device), state.pt.q, state.pt.g,
             state.pt.logp, t.stds.contiguous(), t.mean.contiguous(), est,
-            sca, model, config.nuts, sset, config.use_grad_based_estimate)
+            sca, model, config.nuts, sset, config.use_grad_based_estimate,
+            layout=layout)
 
         def row(i):
             return sca_f[:, i].contiguous()
@@ -341,7 +373,7 @@ def _mclmc_point(pt, transform, q, g, logp, v, kind):
     """The chain point after a launch: the transform's z and zg, and the
     kinetic energy of the carried velocity (0 on the unit sphere)."""
     ke = (torch.zeros_like(logp) if kind is KineticKind.MICROCANONICAL
-          else 0.5 * dsum(v * v))
+          else 0.5 * hsum(v * v))
     return pt._replace(q=q, g=g, z=to_transformed(transform, q),
                        zg=grad_to_transformed(transform, g), logp=logp, v=v,
                        ke=ke, logdet=transform.logdet)

@@ -4,7 +4,11 @@
 // fg/bg Welford estimators, the window switch and the diagonal mass-matrix
 // rule that the Pallas warmup bodies inline
 // (nuts_rs_tpu/kernels/nuts_pallas.py:1399-1450, mclmc_pallas.py:785-842),
-// one thread per chain, with the plain version's order of operations.
+// with the plain version's order of operations.  The *_coord functions handle
+// one coordinate; the chains-on-lanes kernels (one thread per chain) loop
+// them over d in adapt_draw, the dim-on-lanes warmup kernel
+// (nuts_fused_ld_warmup.cu) calls them on each thread's own coordinates and
+// sums logdet through its block reduction.
 #pragma once
 
 #include <math.h>
@@ -13,21 +17,42 @@ namespace nrt {
 
 constexpr int NEST = 8;  // fg draw mean/var, fg grad mean/var, bg x4
 
-// mass_matrix.py::add_sample on one plane pair, gated on `inc`.
+// mass_matrix.py::add_sample on one coordinate of a plane pair; the caller
+// gates on `inc`.  cnt is the count after the sample.
+__device__ __forceinline__ void add2_coord(float& mean_p, float& var_p,
+                                           float cnt, float value) {
+  const bool first1 = cnt == 1.0f;
+  const float diffv = value - mean_p;
+  const float meann = first1 ? value : mean_p + diffv / fmaxf(cnt, 1.0f);
+  var_p = var_p + (first1 ? 0.0f : diffv * diffv);
+  mean_p = meann;
+}
+
+// The diagonal rule on one coordinate (adapt_diag + set_diag): fg draw
+// mean/var dm/dv, fg grad mean/var gm/gv after the draw (and the switch).
+__device__ __forceinline__ void diag_rule_coord(float dm, float dv, float gm,
+                                                float gv, float cnt_fg,
+                                                bool use_grad_based,
+                                                float& stds, float& mean) {
+  const float val = use_grad_based ? sqrtf(dv / gv)
+                                   : dv * (1.0f / fmaxf(cnt_fg, 1.0f));
+  const bool invalid = !isfinite(val) || val == 0.0f;
+  float var = fminf(fmaxf(val, 1e-20f), 1e20f);
+  if (invalid) var = stds * stds;
+  const float new_mean = use_grad_based ? dm + var * gm : dm;
+  stds = sqrtf(var);
+  mean = new_mean;
+}
+
+// add_sample on one plane pair of one chain, gated on `inc`.
 template <int DIM>
 __device__ __forceinline__ void add2(float* mean_p, float* var_p,
                                      float cnt_old, bool inc,
                                      const float* value) {
   if (!inc) return;
   const float cnt = cnt_old + 1.0f;
-  const bool first1 = cnt == 1.0f;
 #pragma unroll
-  for (int j = 0; j < DIM; ++j) {
-    const float diffv = value[j] - mean_p[j];
-    const float meann = first1 ? value[j] : mean_p[j] + diffv / fmaxf(cnt, 1.0f);
-    var_p[j] = var_p[j] + (first1 ? 0.0f : diffv * diffv);
-    mean_p[j] = meann;
-  }
+  for (int j = 0; j < DIM; ++j) add2_coord(mean_p[j], var_p[j], cnt, value[j]);
 }
 
 // One draw: feed (q, g) to fg and bg where `inc`, switch windows, apply the
@@ -60,18 +85,9 @@ __device__ __forceinline__ float adapt_draw(
   float logdet = 0.0f;
 #pragma unroll
   for (int j = 0; j < DIM; ++j) {
-    if (enough) {
-      const float val = use_grad_based
-                            ? sqrtf(est[1][j] / est[3][j])
-                            : est[1][j] * (1.0f / fmaxf(cnt_fg, 1.0f));
-      const bool invalid = !isfinite(val) || val == 0.0f;
-      float var = fminf(fmaxf(val, 1e-20f), 1e20f);
-      if (invalid) var = stds[j] * stds[j];
-      const float new_mean =
-          use_grad_based ? est[0][j] + var * est[2][j] : est[0][j];
-      stds[j] = sqrtf(var);
-      mean[j] = new_mean;
-    }
+    if (enough)
+      diag_rule_coord(est[0][j], est[1][j], est[2][j], est[3][j], cnt_fg,
+                      use_grad_based, stds[j], mean[j]);
     const float l = logf(stds[j]);
     logdet = (j == 0) ? l : logdet + l;
   }

@@ -1,10 +1,15 @@
 // Model functors compiled into the fused kernels (Model.kernel_hook).
 //
 // Counterpart of the batched logp/grad that the Pallas kernels trace in
-// (nuts_rs_tpu/chain.py:677-690); here one thread evaluates one chain.
-// A functor computes logp at q and writes the gradient into g.  Sums run in
-// coordinate order, as the plain versions' closed forms do
-// (nuts_rs_tpu_torch/models/gaussian.py).
+// (nuts_rs_tpu/chain.py:677-690).  A functor has two forms.  eval: one
+// thread evaluates one chain (the chains-on-lanes kernels); it computes
+// logp at q and writes the gradient into g, summing in coordinate order.
+// term / finish: the threads of a block share one chain (the dim-on-lanes
+// kernels, chain.py:805-807); term gives one coordinate's gradient and its
+// summand of logp, the block sums the summands in its fixed order
+// (nuts_tree_ld.cuh::Reducer), and finish turns the sum into logp.  The
+// plain versions' closed forms take the same orders
+// (nuts_rs_tpu_torch/models/gaussian.py with ops.dsum / ops.tsum).
 #pragma once
 
 namespace nrt {
@@ -28,6 +33,14 @@ struct IidNormal {
     }
     return -0.5f * s;
   }
+
+  __device__ __forceinline__ float term(float q, float& g) const {
+    const float diff = q - mu;
+    g = -diff;
+    return diff * diff;
+  }
+
+  __device__ __forceinline__ float finish(float s) const { return -0.5f * s; }
 };
 
 }  // namespace nrt

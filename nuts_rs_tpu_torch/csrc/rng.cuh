@@ -41,6 +41,14 @@ __device__ __forceinline__ float normal(uint32_t seed, uint32_t it,
          cosf((float)(2.0 * 3.14159265358979323846) * u2);
 }
 
+// Index of a vector site's element for lane b of a logical block and
+// coordinate j: the flat position in the block's (d, B) shape in the
+// chains-on-lanes layout is j * B + b (written out in those kernels); in
+// the dim-on-lanes layout the shape is (B, d).
+__device__ __forceinline__ uint32_t ld_site(int b, int d, int j) {
+  return (uint32_t)b * (uint32_t)d + (uint32_t)j;
+}
+
 // Trailing zeros over bits 0..cap-1; cap for x == 0; 0 when no bit below
 // cap is set (exactly the Pallas _tz loop).
 __device__ __forceinline__ int tz(int x, int cap) {

@@ -18,7 +18,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.rng import host_normals
-from ..ops import dsum
+from ..ops import hsum
 from ..transform.affine import (
     AffineTransform,
     grad_to_transformed,
@@ -49,15 +49,15 @@ def esh_momentum_update(zg, v, step):
     Port of ``_esh_momentum_update`` (``hamiltonian.py:40-61``; nuts-rs
     ``src/math/math.rs:188-204``).  ``step`` is [C]."""
     n = zg.shape[-1]
-    grad_norm = torch.sqrt(dsum(zg * zg))
+    grad_norm = torch.sqrt(hsum(zg * zg))
     g_hat = zg / grad_norm[:, None]
-    alpha = dsum(v * g_hat)
+    alpha = hsum(v * g_hat)
     dims_m1 = float(n - 1)
     delta = step * grad_norm / dims_m1
     zeta = torch.exp(-delta)
     coeff_g = (1.0 - zeta) * (1.0 + zeta + alpha * (1.0 - zeta))
     v_raw = coeff_g[:, None] * g_hat + (2.0 * zeta)[:, None] * v
-    v_new = v_raw / torch.sqrt(dsum(v_raw * v_raw))[:, None]
+    v_new = v_raw / torch.sqrt(hsum(v_raw * v_raw))[:, None]
     dke = (delta - math.log(2.0)
            + torch.log1p(alpha + (1.0 - alpha) * zeta * zeta)) * dims_m1
     return v_new, dke
@@ -101,7 +101,7 @@ def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
         ke = ke + dke2
     else:
         v2 = v1 + (eps / 2.0) * zg1
-        ke = 0.5 * dsum(v2 * v2)
+        ke = 0.5 * hsum(v2 * v2)
     new_pt = Point(
         q=q1, g=g1, z=z1, zg=zg1, v=v2, logp=logp1,
         logdet=transform.logdet.to(dtype), ke=ke,
@@ -125,7 +125,7 @@ def sample_momentum(seed: int, it: int, salt1: int, salt2: int, shape,
     require_euclidean(kind)
     v = host_normals(seed, it, salt1, salt2, shape, device).to(dtype)
     if kind is KineticKind.MICROCANONICAL:
-        v = v / torch.sqrt(dsum(v * v))[..., None]
+        v = v / torch.sqrt(hsum(v * v))[..., None]
     return v
 
 
@@ -153,7 +153,7 @@ def initialize_trajectory(pt: Point, transform: AffineTransform,
     if kind is KineticKind.MICROCANONICAL:
         ke = torch.zeros_like(pt.logp)
     else:
-        ke = 0.5 * dsum(v * v)
+        ke = 0.5 * hsum(v * v)
     return pt._replace(
         v=v, z=to_transformed(transform, pt.q),
         zg=grad_to_transformed(transform, pt.g),
@@ -177,9 +177,9 @@ def partial_momentum_refresh(pt: Point, noise, step_size, factor,
         n = float(pt.v.shape[-1])
         nu = torch.sqrt(torch.expm1(2.0 * half_step / decoherence_length) / n)
         v = pt.v + nu * noise
-        v = v / torch.sqrt(dsum(v * v))[..., None]
+        v = v / torch.sqrt(hsum(v * v))[..., None]
         return pt._replace(v=v)
     alpha = torch.exp(-half_step / decoherence_length)
     beta = torch.sqrt(1.0 - alpha * alpha)
     v = alpha * pt.v + beta * noise
-    return pt._replace(v=v, ke=0.5 * dsum(v * v))
+    return pt._replace(v=v, ke=0.5 * hsum(v * v))

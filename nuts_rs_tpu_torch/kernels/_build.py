@@ -32,13 +32,24 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# (d, maxdepth) instantiations of the NUTS kernels; other sizes raise.  The
-# MCLMC kernels are instantiated for the same d (``DIMS``), both kinetic
-# energies and both settings of ``dynamic_step_size``.
+# (d, maxdepth) instantiations of the chains-on-lanes NUTS kernels; other
+# sizes raise.  The MCLMC kernels are instantiated for the same d
+# (``DIMS``), both kinetic energies and both settings of
+# ``dynamic_step_size``.  The dim-on-lanes (ld) NUTS kernels take d and
+# maxdepth at run time.
 SIZES = tuple((d, 10) for d in (3, 4, 6, 10))
 DIMS = tuple(sorted({d for d, _ in SIZES}))
 MODEL_IDS = {"iid_normal": 0}
 MAX_BLOCK = 128  # nrt::MAX_BLOCK, the kernels' __launch_bounds__
+# ld kernels: chains per logical block = CUDA blocks per cluster
+# (nrt::LD_MAX_CLUSTER, the portable cluster size); live vectors a chain
+# keeps in shared memory (nrt::LD_POST_NVEC / LD_WARM_NVEC) and the dynamic
+# shared memory a block may opt in to on sm_90.
+MAX_LD_BLOCK = 8
+LD_NVEC = {"posterior": 21, "warmup": 18}
+LD_REDUCE_FLOATS = 2 * 11 * 8  # two scratch buffers of LD_NRED x LD_W sums
+LD_MAX_MAXDEPTH = 30
+SMEM_OPT_IN_BYTES = 232448
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
@@ -123,6 +134,15 @@ def library():
         [I, I, I, I, I, I, U, F, F, F, F, F, I, F, F, I, I] + [P] * 21
         + [P])
     lib.nrt_mclmc_warmup_launch.restype = I
+    lib.nrt_ld_posterior_launch.argtypes = (
+        [I, I, I, I, I, U, F, I, F, F, I] + [P] * 16 + [P])
+    lib.nrt_ld_posterior_launch.restype = I
+    lib.nrt_ld_warmup_launch.argtypes = (
+        [I, I, I, I, I, U, F, I, F, F, I, F, F, F, F, F, I] + [P] * 17
+        + [P])
+    lib.nrt_ld_warmup_launch.restype = I
+    lib.nrt_ld_smem_bytes.argtypes = [I, I, I]
+    lib.nrt_ld_smem_bytes.restype = ctypes.c_longlong
     lib.nrt_error_string.argtypes = [I]
     lib.nrt_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -197,11 +217,11 @@ def _common(q, model, opts, B):
     if (d, D) not in SIZES:
         raise NotImplementedError(
             f"the fused CUDA kernels are instantiated for (d, maxdepth) in "
-            f"{SIZES}, not ({d}, {D}) (ROADMAP.md queue 1 item 11)")
+            f"{SIZES}, not ({d}, {D}) (ROADMAP.md queue 1 item 12)")
     return C, d, D, model_id, params
 
 
-def _model_and_block(q, model, B):
+def _model_and_block(q, model, B, max_block=MAX_BLOCK):
     """(model id, params) of the kernel hook, after the device and block
     checks."""
     if q.device.type != "cuda":
@@ -212,9 +232,9 @@ def _model_and_block(q, model, B):
         raise NotImplementedError(
             f"model {model.name!r} has no kernel hook the CUDA kernels "
             "compile in (ROADMAP.md queue 1 item 10)")
-    if not 1 <= B <= MAX_BLOCK or C % B:
+    if not 1 <= B <= max_block or C % B:
         raise ValueError(f"chain block {B} must divide num_chains ({C}) and "
-                         f"be at most {MAX_BLOCK}")
+                         f"be at most {max_block}")
     params = (ctypes.c_float * max(1, len(hook[1])))(*hook[1])
     return MODEL_IDS[hook[0]], params
 
@@ -225,13 +245,57 @@ def _mclmc_common(q, model, mopts, B):
     if d not in DIMS:
         raise NotImplementedError(
             f"the fused CUDA kernels are instantiated for d in {DIMS}, not "
-            f"{d} (ROADMAP.md queue 1 item 11)")
+            f"{d} (ROADMAP.md queue 1 item 12)")
     L = float(mopts.momentum_decoherence_length)
     consts = (int(mopts.kind is KineticKind.MICROCANONICAL),
               int(mopts.dynamic_step_size))
     fconsts = (float(mopts.max_energy_error), L,
                float(mopts.subsample_frequency) * L, math.sqrt(d))
     return C, d, model_id, params, consts, fconsts
+
+
+def ld_smem_bytes(kind, d, maxdepth):
+    """Dynamic shared memory of one chain's CUDA block in the ld kernel
+    ``kind`` ("posterior" / "warmup"), as csrc/nuts_tree_ld.cuh lays it out:
+    the live vectors, the two cached-dot rows, the reduction scratch and
+    the cluster slots."""
+    return 4 * (LD_NVEC[kind] * d + 2 * (maxdepth + 1) + LD_REDUCE_FLOATS
+                + 2 * MAX_LD_BLOCK)
+
+
+def ld_max_dim(maxdepth):
+    """Largest d whose chain state fits a block's shared memory in both ld
+    kernels."""
+    nvec = max(LD_NVEC.values())
+    return (SMEM_OPT_IN_BYTES - ld_smem_bytes("posterior", 0, maxdepth)) \
+        // (4 * nvec)
+
+
+def _ld_common(kind, q, model, opts, B):
+    """(C, d, D, model id, params, workspace) of an ld launch, after the
+    device, block and size checks.  The workspace holds the four checkpoint
+    stacks of every chain, [C, 4, D + 1, d]; the kernels write a row before
+    they read it, so it is not cleared."""
+    model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK)
+    C, d = q.shape
+    D = opts.maxdepth
+    if not 1 <= D <= LD_MAX_MAXDEPTH:
+        raise NotImplementedError(
+            f"the dim-on-lanes CUDA kernels take maxdepth 1..{LD_MAX_MAXDEPTH}"
+            f", got {D}")
+    need = ld_smem_bytes(kind, d, D)
+    if need > SMEM_OPT_IN_BYTES:
+        raise NotImplementedError(
+            f"dim {d} needs {need} bytes of shared memory per chain in the "
+            f"dim-on-lanes {kind} kernel; a block has {SMEM_OPT_IN_BYTES} "
+            f"(d <= {ld_max_dim(D)} at maxdepth {D})")
+    lib = library()
+    built = lib.nrt_ld_smem_bytes(int(kind == "warmup"), d, D)
+    if built != need:
+        raise RuntimeError(f"csrc/nuts_tree_ld.cuh lays out {built} bytes of "
+                           f"shared memory, _build.ld_smem_bytes {need}")
+    work = torch.empty(C, 4, D + 1, d, dtype=torch.float32, device=q.device)
+    return C, d, D, model_id, params, work, lib
 
 
 def _raise_on(rc, lib, what):
@@ -309,6 +373,75 @@ def launch_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model, opts,
             *(o.data_ptr() for o in outs), iters.data_ptr(), stream)
     _raise_on(rc, lib, "nuts_fused_warmup")
     return (draws, stats, *outs, iters)
+
+
+def launch_ld_posterior(seed, q, g, logp, stds, mean, logdet, step0,
+                        step_bar, K, model, opts, jitter, B):
+    """Launch csrc/nuts_fused_ld_posterior.cu; returns (draws [K, C, d],
+    stats [K, C, NSTATS], q_f, g_f [C, d], logp_f [C], iters [C])."""
+    check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
+    C, d, D, model_id, params, work, lib = _ld_common("posterior", q, model,
+                                                      opts, B)
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, C, d, **f32)
+    stats = torch.empty(K, C, 13, **f32)
+    q_f, g_f = torch.empty(C, d, **f32), torch.empty(C, d, **f32)
+    logp_f = torch.empty(C, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(jitter)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_ld_posterior_launch(
+            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            float(opts.max_energy_error), hj, jc1, jc2, model_id,
+            ctypes.cast(params, ctypes.c_void_p),
+            q.data_ptr(), g.data_ptr(), logp.data_ptr(), stds.data_ptr(),
+            mean.data_ptr(), logdet.data_ptr(), step0.data_ptr(),
+            step_bar.data_ptr(), draws.data_ptr(), stats.data_ptr(),
+            q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
+            iters.data_ptr(), work.data_ptr(), stream)
+    _raise_on(rc, lib, "nuts_fused_ld_posterior")
+    return draws, stats, q_f, g_f, logp_f, iters
+
+
+def launch_ld_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
+                     opts, sset, use_grad_based, B):
+    """Launch csrc/nuts_fused_ld_warmup.cu; returns (draws [K, C, d],
+    stats [K, C, NSTATS_W], q, g, logp, stds, mean, est, sca, iters).  The
+    kernel keeps a chain's current q and g and its estimator planes in the
+    output buffers, which start as copies of the inputs."""
+    check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
+    C, d, D, model_id, params, work, lib = _ld_common("warmup", q, model,
+                                                      opts, B)
+    dev = q.device
+    K = flags.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, C, d, **f32)
+    stats = torch.empty(K, C, 15, **f32)
+    q_f, g_f, est_f = q.clone(), g.clone(), est.clone()
+    logp_f = torch.empty(C, **f32)
+    stds_f, mean_f = torch.empty(C, d, **f32), torch.empty(C, d, **f32)
+    sca_f = torch.empty(C, 10, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(sset.jitter)
+    da = sset.dual_average
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_ld_warmup_launch(
+            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            float(opts.max_energy_error), hj, jc1, jc2, int(use_grad_based),
+            float(sset.target_accept), float(da.t0), float(da.gamma),
+            float(-da.k), math.log(da.max_step_size), model_id,
+            ctypes.cast(params, ctypes.c_void_p), flags.data_ptr(),
+            logp.data_ptr(), stds.data_ptr(), mean.data_ptr(),
+            sca.data_ptr(), draws.data_ptr(), stats.data_ptr(),
+            q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
+            stds_f.data_ptr(), mean_f.data_ptr(), est_f.data_ptr(),
+            sca_f.data_ptr(), iters.data_ptr(), work.data_ptr(), stream)
+    _raise_on(rc, lib, "nuts_fused_ld_warmup")
+    return (draws, stats, q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
+            iters)
 
 
 def launch_mclmc_posterior(seed, q, g, logp, v, stds, mean, logdet, step0,

@@ -20,14 +20,15 @@ NEST = 8
 
 
 def adapt_draw(est, cnt_fg, cnt_bg, tid, stds, mean, q, g, inc, do_switch,
-               do_update, use_grad_based):
+               do_update, use_grad_based, csum=dsum):
     """One draw of the fg/bg Welford estimators, the window switch and the
     diagonal mass-matrix rule.
 
     ``est`` is the list of the 8 [C, d] planes; ``cnt_fg``, ``cnt_bg`` and
     ``tid`` are [C]; ``q``, ``g`` the draw fed to the estimators where
     ``inc`` [C] holds; ``do_switch`` and ``do_update`` are the schedule's
-    host flags.  Returns ``(est, cnt_fg, cnt_bg, stds, mean, logdet, tid)``
+    host flags; ``csum`` is the layout's sum over the parameter axis
+    (``ops.tsum`` for the dim-on-lanes kernel).  Returns ``(est, cnt_fg, cnt_bg, stds, mean, logdet, tid)``
     after the draw."""
     zf = torch.zeros_like(cnt_fg)
     zd = torch.zeros_like(q)
@@ -65,7 +66,7 @@ def adapt_draw(est, cnt_fg, cnt_bg, tid, stds, mean, q, g, inc, do_switch,
     new_mean = fg_dm + var * fg_gm if use_grad_based else fg_dm
     stds_n = torch.where(enough[:, None], new_stds, stds)
     mean_n = torch.where(enough[:, None], new_mean, mean)
-    logdet_n = -dsum(torch.log(stds_n))
+    logdet_n = -csum(torch.log(stds_n))
     tid_n = tid + torch.where(enough, 1.0, 0.0)
     est = [fg_dm, fg_dv, fg_gm, fg_gv, bg_dm, bg_dv, bg_gm, bg_gv]
     return est, cnt_fg, cnt_bg, stds_n, mean_n, logdet_n, tid_n

@@ -4,9 +4,17 @@ Port of ``nuts_rs_tpu/kernels/nuts_pallas.py``: ``nuts_pallas_run``
 (``:718``, body ``make_kernel`` ``:82``) becomes ``nuts_fused_run`` with the
 CUDA kernel ``csrc/nuts_fused_posterior.cu``, and ``nuts_pallas_warmup_run``
 (``:1532``, body ``make_warmup_kernel`` ``:942``) becomes
-``nuts_fused_warmup_run`` with ``csrc/nuts_fused_warmup.cu``.  Only the
-chains-on-lanes layout with the plain diagonal evaluation is ported (no
-model args, flow or stream; ROADMAP.md queue 2).
+``nuts_fused_warmup_run`` with ``csrc/nuts_fused_warmup.cu``.  Both
+layouts of those bodies are ported with the plain diagonal evaluation (no
+model args, flow or stream; ROADMAP.md queue 2): ``layout="cl"``
+(chains-on-lanes, one thread per chain, small d) and ``layout="ld"``
+(dim-on-lanes, ``nuts_pallas.py:123-136``: large d), whose kernels are
+``csrc/nuts_fused_ld_posterior.cu`` and ``csrc/nuts_fused_ld_warmup.cu``:
+one CUDA block of ``ops.TSUM_THREADS`` threads per chain and one thread
+block cluster per logical chain block.  The layouts share the tree
+algorithm, salts and stats.  They differ in the index of a vector random
+site (``rng.BlockRng``), in the order of every sum over the parameter axis
+(``ops.dsum`` in cl, ``ops.tsum`` in ld) and in the default chain block.
 
 Each kernel has a plain PyTorch version here (``*_reference``): the same
 tree algorithm, the same counter-hash random sites with the same salts,
@@ -30,10 +38,13 @@ import math
 
 import torch
 
-from ..ops import dsum
+from ..ops import dsum, tsum
 from ._build import (
+    MAX_LD_BLOCK,
     check_posterior_args,
     check_warmup_args,
+    launch_ld_posterior,
+    launch_ld_warmup,
     launch_posterior,
     launch_warmup,
 )
@@ -72,9 +83,13 @@ SCA_TID = 8
 SCA_LOGDET = 9
 NSCA = 10
 
-DEFAULT_BLOCK = 32  # chains per CUDA block: one warp
+DEFAULT_BLOCK = 32  # cl: chains per CUDA block, one warp
+# ld: chains per logical block = CUDA blocks per cluster (the portable
+# cluster size, and the JAX package's smallest ld tier)
+DEFAULT_LD_BLOCK = MAX_LD_BLOCK
 
-LAUNCHES = {"nuts_fused_posterior": 0, "nuts_fused_warmup": 0}
+LAUNCHES = {"nuts_fused_posterior": 0, "nuts_fused_warmup": 0,
+            "nuts_fused_ld_posterior": 0, "nuts_fused_ld_warmup": 0}
 
 _F32 = torch.float32
 _NEG_INF = float("-inf")
@@ -106,22 +121,24 @@ def _sel(m, a, b):
 
 
 def _uturn(leaf, depth, dirf, z1, v2, d1, lz, lv, bl, mz, mv, bm,
-           m_z, m_v, p_z, p_v, D):
+           m_z, m_v, p_z, p_v, D, csum):
     """U-turn checks of one leapfrog (nuts_pallas.py:405-576).
 
     Returns (turning_int, turning_top).  Stacks are the updated ones; the
-    endpoints are the carried (pre-merge) ones."""
+    endpoints are the carried (pre-merge) ones.  The ld Pallas body reads
+    the same dots from its cross-dot matrix ``czs`` (``:450-474``), which
+    holds the same products summed the same way: no separate form here."""
     C = z1.shape[0]
     ar = torch.arange(C, device=z1.device)
     rows = torch.arange(D + 1, device=z1.device)[None, :]
     tzn = tz(leaf + 1, D)
-    z1v = dsum(z1[:, None, :] * lv)
-    zv2 = dsum(lz * v2[:, None, :])
-    m1 = dsum(z1[:, None, :] * mv)
-    m2 = dsum(mz * v2[:, None, :])
+    z1v = csum(z1[:, None, :] * lv)
+    zv2 = csum(lz * v2[:, None, :])
+    m1 = csum(z1[:, None, :] * mv)
+    m2 = csum(mz * v2[:, None, :])
     zero = torch.zeros(C, 1, dtype=_F32, device=z1.device)
-    adj_bzav = torch.cat([zero, dsum(lz[:, :-1] * lv[:, 1:])], 1)
-    adj_azbv = torch.cat([zero, dsum(lz[:, 1:] * lv[:, :-1])], 1)
+    adj_bzav = torch.cat([zero, csum(lz[:, :-1] * lv[:, 1:])], 1)
+    adj_azbv = torch.cat([zero, csum(lz[:, 1:] * lv[:, :-1])], 1)
     blm1 = torch.cat([zero, bl[:, :-1]], 1)
     dirb = dirf[:, None]
     d1b = d1[:, None]
@@ -142,8 +159,8 @@ def _uturn(leaf, depth, dirf, z1, v2, d1, lz, lv, bl, mz, mv, bm,
            | (dirf * (d1 - zv2[ar, ra]) < 0))
     t2d = ((dirf * (m1[ar, rt] - bm[ar, rt]) < 0)
            | (dirf * (d1 - m2[ar, rt]) < 0))
-    t3d = ((dirf * (dsum(lz[ar, rb] * lv[ar, ra]) - a_b) < 0)
-           | (dirf * (bl[ar, rb] - dsum(lz[ar, ra] * lv[ar, rb])) < 0))
+    t3d = ((dirf * (csum(lz[ar, rb] * lv[ar, ra]) - a_b) < 0)
+           | (dirf * (bl[ar, rb] - csum(lz[ar, ra] * lv[ar, rb])) < 0))
     turning = turning | ((tzn >= 1) & t1d) | ((tzn >= 2) & (t2d | t3d))
 
     fwd = dirf > 0
@@ -151,24 +168,47 @@ def _uturn(leaf, depth, dirf, z1, v2, d1, lz, lv, bl, mz, mv, bm,
     far_v = _sel(fwd, m_v, p_v)
     near_z = _sel(fwd, p_z, m_z)
     near_v = _sel(fwd, p_v, m_v)
-    far_zv = dsum(far_z * far_v)
-    t_out = ((dirf * (dsum(z1 * far_v) - far_zv) < 0)
-             | (dirf * (d1 - dsum(far_z * v2)) < 0))
-    near_zv = dsum(near_z * near_v)
-    t_nr = ((dirf * (dsum(z1 * near_v) - near_zv) < 0)
-            | (dirf * (d1 - dsum(near_z * v2)) < 0))
-    t_b0 = ((dirf * (dsum(lz[:, D] * far_v) - far_zv) < 0)
-            | (dirf * (bl[:, D] - dsum(far_z * lv[:, D])) < 0))
+    far_zv = csum(far_z * far_v)
+    t_out = ((dirf * (csum(z1 * far_v) - far_zv) < 0)
+             | (dirf * (d1 - csum(far_z * v2)) < 0))
+    near_zv = csum(near_z * near_v)
+    t_nr = ((dirf * (csum(z1 * near_v) - near_zv) < 0)
+            | (dirf * (d1 - csum(near_z * v2)) < 0))
+    t_b0 = ((dirf * (csum(lz[:, D] * far_v) - far_zv) < 0)
+            | (dirf * (bl[:, D] - csum(far_z * lv[:, D])) < 0))
     turning_top = t_out | ((depth > 0) & (t_nr | t_b0))
     return turning, turning_top
 
 
-def _check_block(C, block):
+def _check_layout(layout):
+    if layout not in ("cl", "ld"):
+        raise ValueError(f"unknown layout {layout!r}")
+    return layout == "ld"
+
+
+def _check_block(C, block, layout="cl"):
+    if block is None:
+        block = DEFAULT_LD_BLOCK if layout == "ld" else DEFAULT_BLOCK
     B = min(block, C)
     if C % B:
         raise ValueError(f"num_chains ({C}) must be a multiple of the chain "
                          f"block ({B})")
     return B
+
+
+def _evaluators(model, ld):
+    """(csum, logp_and_grad) of a layout: its sum over the parameter axis,
+    and the model evaluated as the kernel evaluates it, through the plain
+    counterpart of its device functor with that sum.  A model without a
+    functor has no kernel to agree with and is evaluated as it is."""
+    from ..models.gaussian import PLAIN_FUNCTORS
+
+    csum = tsum if ld else dsum
+    if model.kernel_hook is None:
+        return csum, model.logp_and_grad
+    name, params = model.kernel_hook
+    functor = PLAIN_FUNCTORS[name]
+    return csum, lambda q: functor(q, *params, csum)
 
 
 def _jitter_consts(jitter):
@@ -184,20 +224,22 @@ def _jitter_consts(jitter):
 
 def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
                              step_bar, num_draws, model, opts, jitter,
-                             block=DEFAULT_BLOCK):
-    """Plain PyTorch version of the fused posterior kernel.
+                             block=None, layout="cl"):
+    """Plain PyTorch version of the fused posterior kernels.
 
     Same arguments and results as :func:`nuts_fused_run`."""
     C, d = q.shape
     K = num_draws
-    B = _check_block(C, block)
+    ld = _check_layout(layout)
+    csum, logp_and_grad = _evaluators(model, ld)
+    B = _check_block(C, block, layout)
     D = opts.maxdepth
     max_err = float(opts.max_energy_error)
     dev = q.device
     f = lambda x: x.to(_F32).contiguous()  # noqa: E731
     q, g, stds, mean = f(q), f(g), f(stds), f(mean)
     logp, logdet, step, bar = f(logp), f(logdet), f(step0), f(step_bar)
-    rng = BlockRng(seed, C, d, B, dev)
+    rng = BlockRng(seed, C, d, B, dev, layout)
     ar = torch.arange(C, device=dev)
     zi = torch.zeros(C, dtype=torch.int32, device=dev)
     zf = torch.zeros(C, dtype=_F32, device=dev)
@@ -205,7 +247,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
     z0 = (q - mean) / stds
     zg0 = g * stds
     v0 = rng.normals_vec(0, 1, 2)
-    ke0 = 0.5 * dsum(v0 * v0)
+    ke0 = 0.5 * csum(v0 * v0)
     e_init = ke0 - (logp + logdet)
     dc = zi
     e_z, e_v, e_zg, e_idx = z0, v0, zg0, zi
@@ -239,10 +281,10 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
         v1 = e_v + (eps / 2.0) * e_zg
         z1 = e_z + eps * v1
         q1 = z1 * stds + mean
-        logp1, g1 = model.logp_and_grad(q1)
+        logp1, g1 = logp_and_grad(q1)
         zg1 = g1 * stds
         v2 = v1 + (eps / 2.0) * zg1
-        ke1 = 0.5 * dsum(v2 * v2)
+        ke1 = 0.5 * csum(v2 * v2)
         err = (ke1 - (logp1 + logdet)) - e_init
         diverged = (err > max_err) | ~torch.isfinite(err)
         idx1 = e_idx + dirf.to(torch.int32)
@@ -265,7 +307,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
         ds_logp, ds_ke = _sel(take, logp1, ds_logp), _sel(take, ke1, ds_ke)
         ds_idx, ds_q = _sel(take, idx1, ds_idx), _sel(take, q1, ds_q)
 
-        d1 = dsum(z1 * v2)
+        d1 = csum(z1 * v2)
         row_l = torch.clamp(tz(leaf, D), max=D)
         row_m = torch.clamp(tz(leaf + 1, D) + 1, max=D)
         lz[ar, row_l] = z1
@@ -276,7 +318,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
         bm[ar, row_m] = d1
         turning_int, turning_top = _uturn(
             leaf, depth, dirf, z1, v2, d1, lz, lv, bl, mz, mv, bm,
-            m_z, m_v, p_z, p_v, D)
+            m_z, m_v, p_z, p_v, D, csum)
 
         subtree_done = (leaf + 1) == (1 << depth)
         fwd = dirf > 0
@@ -304,7 +346,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
             row = torch.stack([
                 depth.to(_F32), diverged.to(_F32), n_steps.to(_F32), s_acc,
                 s_sym, mx_err, dm_logp, energy_m, energy_m - e_init,
-                dm_idx.to(_F32), dsum(torch.square(dm_z + dm_zg)), step,
+                dm_idx.to(_F32), csum(torch.square(dm_z + dm_zg)), step,
                 ((depth >= D) & ~turned & ~diverged).to(_F32)], 1)
             ce = emit.nonzero()[:, 0]
             draws[ce, dc[ce].long()] = dm_q[ce]
@@ -313,7 +355,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
         new_dir = _rand_dir(rng.uniform(it, 6))
         new_doub = do_merge & ~fin
         v_new = rng.normals_vec(it, 7, 8)
-        ke_new = 0.5 * dsum(v_new * v_new)
+        ke_new = 0.5 * csum(v_new * v_new)
         if jitter is None:
             step_new = bar
         else:
@@ -358,23 +400,35 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
 
 
 def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
-                   num_draws, model, opts, jitter, block=DEFAULT_BLOCK):
+                   num_draws, model, opts, jitter, block=None, layout="cl"):
     """Run ``num_draws`` draw-asynchronous NUTS draws per chain.
 
     q, g, stds, mean: [C, d]; logp, logdet, step0, step_bar: [C].  Returns
     (q_f [C, d], g_f [C, d], logp_f [C], draws [C, K, d], stats) with stats
     a dict of [C, K] float32 arrays keyed by ``STAT_NAMES`` plus
     ``loop_iterations`` [C].  The first draw of each chain uses ``step0``;
-    later draws use ``step_bar`` jittered by ``jitter``.
+    later draws use ``step_bar`` jittered by ``jitter``.  ``block`` is the
+    logical chain block (default 32 in cl, 8 in ld).
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
-    ``csrc/nuts_fused_posterior.cu``."""
+    ``csrc/nuts_fused_posterior.cu`` (cl) or
+    ``csrc/nuts_fused_ld_posterior.cu`` (ld)."""
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar,
                          num_draws)
+    ld = _check_layout(layout)
     if q.device.type == "cpu":
         return nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet,
                                         step0, step_bar, num_draws, model,
-                                        opts, jitter, block)
+                                        opts, jitter, block, layout)
+    if ld:
+        draws, stats, q_f, g_f, logp_f, iters = launch_ld_posterior(
+            seed, q, g, logp, stds, mean, logdet, step0, step_bar, num_draws,
+            model, opts, jitter, _check_block(q.shape[0], block, layout))
+        LAUNCHES["nuts_fused_ld_posterior"] += 1
+        stats_out = {name: stats[:, :, i].T
+                     for i, name in enumerate(STAT_NAMES)}
+        stats_out["loop_iterations"] = iters
+        return q_f, g_f, logp_f, draws.permute(1, 0, 2), stats_out
     draws, stats, q_f, g_f, logp_f, iters = launch_posterior(
         seed, q, g, logp, stds, mean, logdet, step0, step_bar, num_draws,
         model, opts, jitter, _check_block(q.shape[0], block))
@@ -391,13 +445,15 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
 
 def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
                                     sca, model, opts, sset, use_grad_based,
-                                    block=DEFAULT_BLOCK):
-    """Plain PyTorch version of the fused warmup kernel.
+                                    block=None, layout="cl"):
+    """Plain PyTorch version of the fused warmup kernels.
 
     Same arguments and results as :func:`nuts_fused_warmup_run`."""
     C, d = q.shape
     K = flags.shape[0]
-    B = _check_block(C, block)
+    ld = _check_layout(layout)
+    csum, logp_and_grad = _evaluators(model, ld)
+    B = _check_block(C, block, layout)
     D = opts.maxdepth
     max_err = float(opts.max_energy_error)
     da = sset.dual_average
@@ -408,7 +464,7 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
     est = [f(est[:, p]) for p in range(NEST)]
     sca = [f(sca[:, r]) for r in range(NSCA)]
     flags = flags.to("cpu", torch.int32)
-    rng = BlockRng(seed, C, d, B, dev)
+    rng = BlockRng(seed, C, d, B, dev, layout)
     ar = torch.arange(C, device=dev)
     zi = torch.zeros(C, dtype=torch.int32, device=dev)
     zf = torch.zeros(C, dtype=_F32, device=dev)
@@ -429,7 +485,7 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
         z0 = (q - mean) / stds
         zg0 = g * stds
         v0 = rng.normals_vec(it, 1, 2)
-        ke0 = 0.5 * dsum(v0 * v0)
+        ke0 = 0.5 * csum(v0 * v0)
         e_init = ke0 - (logp + logdet)
         done, div, turn = (torch.zeros(C, dtype=torch.bool, device=dev)
                            for _ in range(3))
@@ -457,10 +513,10 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
             eps = (dirf * step)[:, None]
             v1 = e_v + (eps / 2.0) * e_zg
             z1 = e_z + eps * v1
-            logp1, g1 = model.logp_and_grad(z1 * stds + mean)
+            logp1, g1 = logp_and_grad(z1 * stds + mean)
             zg1 = g1 * stds
             v2 = v1 + (eps / 2.0) * zg1
-            ke1 = 0.5 * dsum(v2 * v2)
+            ke1 = 0.5 * csum(v2 * v2)
             err = (ke1 - (logp1 + logdet)) - e_init
             diverged = act & ((err > max_err) | ~torch.isfinite(err))
             idx1 = e_idx + dirf.to(torch.int32)
@@ -487,7 +543,7 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
             ds_logp, ds_ke = _sel(take, logp1, ds_logp), _sel(take, ke1, ds_ke)
             ds_idx = _sel(take, idx1, ds_idx)
 
-            d1 = dsum(z1 * v2)
+            d1 = csum(z1 * v2)
             row_l = torch.clamp(tz(leaf, D), max=D)
             row_m = torch.clamp(tz(leaf + 1, D) + 1, max=D)
             ca = act.nonzero()[:, 0]
@@ -499,7 +555,7 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
             bm[ca, row_m[ca]] = d1[ca]
             turning_int, turning_top = _uturn(
                 leaf, depth, dirf, z1, v2, d1, lz, lv, bl, mz, mv, bm,
-                m_z, m_v, p_z, p_v, D)
+                m_z, m_v, p_z, p_v, D, csum)
             turning_int = turning_int & act
 
             subtree_done = (leaf + 1) == (1 << depth)
@@ -550,7 +606,7 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
         est, cnt_fg, cnt_bg, stds_n, mean_n, logdet_n, tid_n = adapt_draw(
             est, sca[SCA_CNT_FG], sca[SCA_CNT_BG], sca[SCA_TID], stds, mean,
             dm_q, dm_g, is_good & f_upd_est, f_switch, f_do_upd,
-            use_grad_based)
+            use_grad_based, csum)
 
         nst = torch.clamp(n_steps.to(_F32), min=1.0)
         accept = s_sym / nst if f_use_late else s_acc / nst
@@ -581,7 +637,7 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
         stats[:, i] = torch.stack([
             depth.to(_F32), div.to(_F32), n_steps.to(_F32), s_acc, s_sym,
             mx_err, dm_logp, energy_m, energy_m - e_init, dm_idx.to(_F32),
-            dsum(torch.square(dm_z + dm_zg)), base,
+            csum(torch.square(dm_z + dm_zg)), base,
             ((depth >= D) & ~div & ~turn).to(_F32), bar, tid_n], 1)
 
         sca = [base, da_ls, da_lsa, da_hbar, sca[SCA_DA_MU], da_cnt, cnt_fg,
@@ -595,8 +651,8 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
 
 
 def nuts_fused_warmup_run(seed, flags, q, g, logp, stds, mean, est, sca,
-                          model, opts, sset, use_grad_based,
-                          block=DEFAULT_BLOCK):
+                          model, opts, sset, use_grad_based, block=None,
+                          layout="cl"):
     """Run K = flags.shape[0] lock-step warmup draws with in-kernel
     adaptation.
 
@@ -604,15 +660,30 @@ def nuts_fused_warmup_run(seed, flags, q, g, logp, stds, mean, est, sca,
     logp [C]; est [C, 8, d] estimator planes; sca [C, NSCA] scalar rows
     (``SCA_*``).  Returns (q, g, logp, stds, mean, est, sca, draws
     [C, K, d], stats) with stats a dict of [C, K] arrays keyed by
-    ``WARMUP_STAT_NAMES`` plus ``loop_iterations`` [C].
+    ``WARMUP_STAT_NAMES`` plus ``loop_iterations`` [C].  The chains of a
+    logical block of ``block`` chains (default 32 in cl, 8 in ld) share the
+    iteration counter and wait for the block's longest tree in every draw.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
-    ``csrc/nuts_fused_warmup.cu``."""
+    ``csrc/nuts_fused_warmup.cu`` (cl) or ``csrc/nuts_fused_ld_warmup.cu``
+    (ld)."""
     check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
+    ld = _check_layout(layout)
     if q.device.type == "cpu":
         return nuts_fused_warmup_run_reference(
             seed, flags, q, g, logp, stds, mean, est, sca, model, opts, sset,
-            use_grad_based, block)
+            use_grad_based, block, layout)
+    if ld:
+        (draws, stats, q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
+         iters) = launch_ld_warmup(seed, flags, q, g, logp, stds, mean, est,
+                                   sca, model, opts, sset, use_grad_based,
+                                   _check_block(q.shape[0], block, layout))
+        LAUNCHES["nuts_fused_ld_warmup"] += 1
+        stats_out = {name: stats[:, :, i].T
+                     for i, name in enumerate(WARMUP_STAT_NAMES)}
+        stats_out["loop_iterations"] = iters
+        return (q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
+                draws.permute(1, 0, 2), stats_out)
     (draws, stats, q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
      iters) = launch_warmup(seed, flags, q, g, logp, stds, mean, est, sca,
                             model, opts, sset, use_grad_based,

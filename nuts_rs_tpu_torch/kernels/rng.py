@@ -15,7 +15,9 @@ Fused-kernel sites follow the Pallas kernels' block layout: chain ``c``
 lives in block ``pid = c // B`` at lane ``b = c % B``; the block's seed is
 ``seed + 0x51ED2701 * pid``; a scalar site has index ``b`` and a vector
 site, coordinate ``j``, index ``j * B + b`` (the flat position in the
-block's ``(d, B)`` shape).
+block's ``(d, B)`` shape).  In the dim-on-lanes layout (``layout="ld"``)
+the block's vectors are ``(B, d)``, so a vector site has index
+``b * d + j``; scalar sites and the block seed are the same.
 """
 
 from __future__ import annotations
@@ -90,14 +92,18 @@ class BlockRng:
     as the warmup kernel's blocks advance their counters independently).
     """
 
-    def __init__(self, seed: int, C: int, dim: int, B: int, device):
+    def __init__(self, seed: int, C: int, dim: int, B: int, device,
+                 layout: str = "cl"):
         c = torch.arange(C, dtype=torch.int64, device=device)
         pid = c // B
         self.seed = ((int(seed) & MASK32) + _mul32(pid, PID_MUL)) & MASK32
         lane = c % B
         self.sidx = lane
-        self.vidx = (torch.arange(dim, dtype=torch.int64, device=device)[None, :]
-                     * B + lane[:, None])
+        j = torch.arange(dim, dtype=torch.int64, device=device)[None, :]
+        if layout == "ld":
+            self.vidx = lane[:, None] * dim + j
+        else:
+            self.vidx = j * B + lane[:, None]
 
     def _it(self, it, vector):
         if isinstance(it, torch.Tensor) and vector:

@@ -45,8 +45,9 @@ class Model:
         coordinate (the nutpie convention).
     kernel_hook:
         ``(name, (float, ...))``: the device model functor the fused CUDA
-        kernels evaluate, and its parameters.  Models without one cannot
-        take the fused engine.
+        kernels evaluate, and its parameters; the kernels' plain versions
+        evaluate its plain counterpart (``gaussian.PLAIN_FUNCTORS``).
+        Models without one cannot take the fused engine.
     dims / coords:
         xarray-style dimension names / coordinate arrays.
     """

@@ -5,9 +5,58 @@ axis.  The fused CUDA kernels sum over the parameter axis in order
 j = 0 .. d-1; the plain PyTorch versions use this helper so that both take
 the same order and agree to the last bit wherever the elementwise math
 agrees (``torch.sum`` may reduce in another order).
+
+The dim-on-lanes (``ld``) kernels spread one chain's coordinates over the
+``TSUM_THREADS`` threads of a CUDA block, so their sums cannot run in
+coordinate order.  ``tsum`` is their order, shared with
+``csrc/nuts_tree_ld.cuh::Reducer``: thread ``t`` sums its coordinates
+``t, t + T, t + 2T, ...`` in ascending order (missing ones count as 0.0),
+then the T partials are halved lane-wise inside each warp of 32
+(16, 8, 4, 2, 1: the ``__shfl_xor_sync`` butterfly) and the warps' sums are
+halved in turn (``x[:h] + x[h:]``).
 """
 
 from __future__ import annotations
+
+import torch
+
+# Threads per chain of the ld kernels (nrt::LD_T in csrc/nuts_tree_ld.cuh).
+# Part of the contract between the kernels and their plain versions.
+TSUM_THREADS = 256
+
+
+def _halve(x):
+    """Sum over the last axis (a power of two) by ``x[:h] + x[h:]``."""
+    h = x.shape[-1] // 2
+    while h:
+        x = x[..., :h] + x[..., h:2 * h]
+        h //= 2
+    return x[..., 0]
+
+
+def tsum(x, T: int = TSUM_THREADS):
+    """Sum over the last axis in the ld kernels' order (see above)."""
+    d = x.shape[-1]
+    n = -(-d // T)
+    if n * T != d:
+        x = torch.nn.functional.pad(x, (0, n * T - d))
+    x = x.reshape(*x.shape[:-1], n, T)
+    s = x[..., 0, :]
+    for i in range(1, n):
+        s = s + x[..., i, :]
+    return _halve(_halve(s.reshape(*s.shape[:-1], T // 32, 32)))
+
+
+def hsum(x):
+    """The host code's sum over the last axis (energies, norms, log
+    determinants, a model's closed form outside the kernels).  Not a third
+    order, and no part of the contract with a kernel: host values are
+    inputs that a kernel and its plain version share.  It chooses for cost
+    alone: ``dsum`` up to ``TSUM_THREADS`` coordinates (what the host summed
+    with before the dim-on-lanes layout, so its values at those sizes stay
+    what they were), ``tsum`` above, a dozen tensor operations where
+    ``dsum`` takes d."""
+    return dsum(x) if x.shape[-1] <= TSUM_THREADS else tsum(x)
 
 
 def dsum(x):

@@ -9,7 +9,9 @@ free functions ``schema`` (``:2216``) and ``sample`` (``:2248``).
 
 This package runs the fused engines only.  NUTS: warmup on the fused
 warmup kernel, split at the step-size re-init draw, and the posterior on
-the fused posterior kernel.  MCLMC: warmup on the fused MCLMC warmup
+the fused posterior kernel, in the chains-on-lanes layout up to
+``cl_max_dim(maxdepth)`` dimensions and in the dim-on-lanes layout above
+(as the JAX runners choose, ``nuts_rs_tpu/chain.py:757-784``).  MCLMC: warmup on the fused MCLMC warmup
 kernel, split at the Euclidean -> microcanonical switch, and the posterior
 on the fused MCLMC posterior kernel.  ``posterior_kernel="pallas"`` keeps
 its name, so one user script runs on both packages; in this package it selects the hand-written
@@ -35,6 +37,7 @@ from .adapt.step_size import StepSizeMethod, StepSizeSettings
 from .chain import (
     ChainConfig,
     DiagStrategy,
+    cl_max_dim,
     init_chain_state,
     make_fused_mclmc_posterior_runner,
     make_fused_mclmc_warmup_runner,
@@ -48,15 +51,6 @@ from .kernels.nuts import NutsOptions
 from .models.model import Model
 from .storage.core import StorageConfig, dims_for_tail
 from .storage.memory import MemoryConfig, Trace
-
-
-def cl_max_dim(maxdepth: int) -> int:
-    """Largest d the chains-on-lanes layout takes: the JAX package's VMEM
-    rule at its smallest lane block (128 chains, ``chain.py:721,740-745``),
-    kept so that one configuration takes the same path in both packages.
-    Larger models take the dim-on-lanes layout (ROADMAP.md queue 1 item 11)."""
-    per_d = 6 * (maxdepth + 1) + 32 + 16
-    return (12_500_000 // (4 * 128) - 4 - 16 * 13) // per_d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +147,8 @@ class NutsSettings:
         if self.step_size.method is not StepSizeMethod.DUAL_AVERAGE:
             reasons.append(f"step_size.method={self.step_size.method.name} "
                            "(item 4, the per-draw warmup of the sync engine)")
-        return reasons + _model_reasons(model, self.maxdepth, device)
+        return reasons + _model_reasons(model, self.maxdepth, device,
+                                        ld=True)
 
     def build_phases(self, model: Model, config: ChainConfig, device=None):
         """``[(start, end, runner)]``: fused warmup split after each
@@ -191,20 +186,34 @@ def DiagNutsSettings(**kw) -> NutsSettings:
     return NutsSettings(**kw)
 
 
-def _model_reasons(model: Model, maxdepth: int, device) -> list:
-    """What the fused kernels do not take of ``model`` on ``device``."""
+def _model_reasons(model: Model, maxdepth: int, device, ld: bool) -> list:
+    """What the fused kernels do not take of ``model`` on ``device``.
+    ``ld``: the sampler has a dim-on-lanes layout for models above
+    ``cl_max_dim`` (NUTS; the MCLMC kernels are chains-on-lanes only, as in
+    the JAX package, ``mclmc_pallas.py:62``)."""
     reasons = []
+    on_cuda = device is not None and torch.device(device).type == "cuda"
     if model.kernel_hook is None:
         reasons.append(f"model {model.name!r} without a kernel_hook "
                        "(item 10)")
     if model.dim > cl_max_dim(maxdepth):
-        reasons.append(f"dim {model.dim} above the chains-on-lanes "
-                       f"layout's {cl_max_dim(maxdepth)} (item 11)")
-    elif (device is not None and torch.device(device).type == "cuda"
-          and (model.dim, maxdepth) not in _build.SIZES):
+        if not ld:
+            reasons.append(
+                f"dim {model.dim} above the chains-on-lanes layout's "
+                f"{cl_max_dim(maxdepth)}: the fused MCLMC kernels have no "
+                "dim-on-lanes layout (item 8, the sync engines)")
+        elif on_cuda and (model.dim > _build.ld_max_dim(maxdepth)
+                          or maxdepth > _build.LD_MAX_MAXDEPTH):
+            reasons.append(
+                f"(dim, maxdepth) = {(model.dim, maxdepth)} on CUDA: the "
+                "dim-on-lanes kernels keep a chain's state in one block's "
+                f"shared memory, dim <= {_build.ld_max_dim(maxdepth)} "
+                f"(maxdepth <= {_build.LD_MAX_MAXDEPTH}) (item 12, larger d)")
+    elif on_cuda and (model.dim, maxdepth) not in _build.SIZES:
         reasons.append(f"(dim, maxdepth) = {(model.dim, maxdepth)} "
-                       "on CUDA: the kernels are instantiated for "
-                       f"{_build.SIZES} (item 11, more kernel sizes)")
+                       "on CUDA: the chains-on-lanes kernels are "
+                       f"instantiated for {_build.SIZES} (item 12, more "
+                       "kernel sizes)")
     return reasons
 
 
@@ -307,7 +316,7 @@ class MclmcSettings:
             reasons.append("store_* extra stores (item 9)")
         if self.cross_chain_adaptation or self.mesh_axis_name is not None:
             reasons.append("cross-chain adaptation / meshes (item 17)")
-        return reasons + _model_reasons(model, 10, device)
+        return reasons + _model_reasons(model, 10, device, ld=False)
 
     def build_phases(self, model: Model, config: ChainConfig, device=None):
         """``[(start, end, runner)]`` as the JAX package plans them

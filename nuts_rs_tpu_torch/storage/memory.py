@@ -64,28 +64,37 @@ class MemoryStorage(TraceStorage):
                 settings=self._settings,
                 coords=getattr(self._model, "coords", None),
                 dims=getattr(self._model, "dims", None))
-        stats = {
-            k: np.concatenate([c[k] for c in self._chunks], axis=1)
-            for k in self._chunks[0]
-        }
-        tuning = np.concatenate(self._tuning)
-        warm = tuning
-        post = ~tuning
+        tuning = self._tuning
+        names = list(self._chunks[0])
 
-        def split(d):
-            w = {k: v[:, warm] for k, v in d.items()}
-            p = {k: v[:, post] for k, v in d.items()}
-            return w, p
+        def part(name, want_tuning):
+            """One group's array: the chunks' draws of that phase, joined
+            once.  A chunk that lies wholly in the phase (every chunk does
+            when chunks end at the phase boundary) is joined as it is, so
+            the trace is the only copy made of a large posterior."""
+            pieces = []
+            for chunk, t in zip(self._chunks, tuning):
+                keep = t if want_tuning else ~t
+                if keep.all():
+                    pieces.append(chunk[name])
+                elif keep.any():
+                    pieces.append(chunk[name][:, keep])
+            if not pieces:
+                first = self._chunks[0][name]
+                return first[:, :0]
+            return np.concatenate(pieces, axis=1)
 
-        posterior_all = {"position": stats["position"]}
-        sample_stats_all = {k: v for k, v in stats.items() if k not in _POSTERIOR_KEYS}
-
-        warm_post, post_post = split(posterior_all)
-        warm_stats, post_stats = split(sample_stats_all)
+        ids = (np.concatenate([c["transformation_index"]
+                               for c in self._chunks], axis=1)
+               if "transformation_index" in names else None)
+        warm_post = {"position": part("position", True)}
+        post_post = {"position": part("position", False)}
+        stat_names = [k for k in names if k not in _POSTERIOR_KEYS]
+        warm_stats = {k: part(k, True) for k in stat_names}
+        post_stats = {k: part(k, False) for k in stat_names}
 
         # Compact transformation-update events from the id stream.
         updates: List[Dict[str, np.ndarray]] = []
-        ids = stats.get("transformation_index")
         if ids is not None:
             n_chains = ids.shape[0]
             for c in range(n_chains):

@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..ops import dsum
+from ..ops import hsum
 
 
 class AffineTransform(NamedTuple):
@@ -51,7 +51,7 @@ def grad_to_transformed(t: AffineTransform, g):
 
 
 def diag_logdet(inv_stds):
-    return dsum(torch.log(inv_stds))
+    return hsum(torch.log(inv_stds))
 
 
 def set_diag(t: AffineTransform, stds, mean, changed=True) -> AffineTransform:

@@ -5,11 +5,12 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 profile_main_path.py [--repeats 3] [--trace trace.json]
 
-The paths are chip_smoke.py's: ``Sampler(...)`` and ``run()`` on N(3, 1)
-at d=10 with 1024 chains, 300 tuning and 700 posterior draws,
-``posterior_kernel="pallas"``, with ``DiagNutsSettings`` (kernels K1, K2)
-and with ``DiagMclmcSettings`` (K3, K4).  After building the kernels it
-prints, for each path,
+The paths are chip_smoke.py's: ``Sampler(...)`` and ``run()`` with
+``posterior_kernel="pallas"`` on N(3, 1) at d=10 with 1024 chains, 300
+tuning and 700 posterior draws, with ``DiagNutsSettings`` (kernels K1, K2)
+and with ``DiagMclmcSettings`` (K3, K4), and the large-d path: NUTS at
+d=1000 with 512 chains, 200 tuning and 300 posterior draws (K1-ld, K2-ld).
+After building the kernels it prints, for each path,
 
 1. for ``--repeats`` unprofiled runs: the total seconds, Sampler
    construction (init and init search), and for every chunk the runner's
@@ -19,8 +20,17 @@ prints, for each path,
    copy, and the device's busy share of the profiled wall (``--trace``
    also writes a Chrome trace, one file per path);
 3. each kernel's milliseconds per 128-draw launch at chain blocks
-   B = 8 ... 128 (CUDA events, same inputs), and at B = 32 the fused
-   posterior's loop iterations per block and leapfrogs per draw.
+   B = 8 ... 128 (the ld kernels: 1 ... 8, their cluster sizes; CUDA
+   events, same inputs), and at the default block the fused posterior's
+   loop iterations per block and leapfrogs per draw;
+4. for the ld kernels, milliseconds per 128-draw launch and microseconds
+   per block iteration at d = 256 ... 2048 with 512 chains;
+5. K1-ld per 128-draw launch at B = 1 ... 8 on the states the large-d
+   path's own warmup ends in (adapted step sizes and mass matrices, not
+   the made-up states of 3), with each block's iterations: what the
+   block's wait for its slowest chain costs on the path itself; then the
+   same at B = 1 and B = 8 on the first 64 ... 264 of those chains, around
+   the card's 132 SMs (where a second wave of blocks or clusters starts).
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -35,11 +45,16 @@ import numpy as np
 import torch
 
 from chip_smoke import (
-    CHAINS, CHUNK, DIM, DRAWS, MU, SEED, TUNE, card_line, cuda_events_ms,
-    mclmc_posterior_args, mclmc_settings, mclmc_warmup_setup,
-    posterior_inputs, warmup_setup)
+    CHAINS, CHUNK, DIM, DRAWS, LD_CHAINS, LD_DIM, LD_DRAWS, LD_STEP, LD_TUNE,
+    MU, SEED, TUNE, card_line, cuda_events_ms, mclmc_posterior_args,
+    mclmc_settings, mclmc_warmup_setup, posterior_inputs, warmup_setup)
 
 BLOCKS = (8, 16, 32, 64, 128)
+LD_BLOCKS = (1, 2, 4, 8)
+LD_SWEEP_DIMS = (256, 512, 1000, 2048)
+# chain counts around the card's 132 SMs: where a launch of one chain block
+# an SM goes from one wave of blocks (or clusters) to two
+LD_WAVE_CHAINS = (64, 96, 104, 112, 120, 128, 136, 264)
 
 
 def run_main_path(model, settings, device):
@@ -84,11 +99,11 @@ def run_main_path(model, settings, device):
     return time.perf_counter() - t0, init_s, chunks, finalize_s, trace
 
 
-def print_run(label, result):
+def print_run(label, result, tune):
     total_s, init_s, chunks, finalize_s, trace = result
     warm = int(trace.warmup_sample_stats["n_steps"].sum())
     post = int(trace.sample_stats["n_steps"].sum())
-    post_s = sum(c[2] + c[3] + c[4] for c in chunks if c[0] >= TUNE)
+    post_s = sum(c[2] + c[3] + c[4] for c in chunks if c[0] >= tune)
     print(f"{label}: total {total_s:.4f} s, init {init_s:.4f} s, finalize "
           f"{finalize_s:.4f} s, posterior chunks {post_s:.4f} s "
           f"({post / post_s:.6g} gradient evaluations/s), gradient "
@@ -125,17 +140,23 @@ def profile_once(model, settings, device, trace_path=None):
         print(f"  chrome trace: {trace_path}")
 
 
-def nuts_launches(model, settings, device):
-    """(posterior, warmup) launches of K1 and K2 at a chain block B, and
-    K1's stats, on the main path's shapes."""
+def nuts_launches(model, settings, device, layout="cl",
+                  step=(0.8, 1.0)):
+    """(posterior, warmup) launches of K1 and K2 (or K1-ld and K2-ld) at a
+    chain block B, and the posterior's stats, on the path's shapes."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     opts = settings.nuts_options()
-    k1 = posterior_inputs(model, device, seed=2)
-    k2 = warmup_setup(model, settings, device, 2, 2 + CHUNK)
+    chains = settings.num_chains
+    k1 = posterior_inputs(model, device, seed=2, chains=chains, step=step)
+    k2 = warmup_setup(model, settings, device, 2, 2 + CHUNK, chains)
     return (lambda B: nf.nuts_fused_run(3, *k1, CHUNK, model, opts, 0.1,
-                                        B)[4],
-            lambda B: nf.nuts_fused_warmup_run(*k2, B))
+                                        B, layout)[4],
+            lambda B: nf.nuts_fused_warmup_run(*k2, B, layout))
+
+
+def ld_launches(model, settings, device):
+    return nuts_launches(model, settings, device, "ld", LD_STEP)
 
 
 def mclmc_launches(model, settings, device):
@@ -153,27 +174,94 @@ def mclmc_launches(model, settings, device):
             lambda B: mf.mclmc_fused_warmup_run(*k4, B))
 
 
-def sweep_blocks(launches):
+def sweep_blocks(launches, blocks, chains):
     """ms per 128-draw launch of each kernel at every chain block size."""
     post, warm = launches
-    for B in BLOCKS:
+    for B in blocks:
         post(B)
         warm(B)
-        print(f"B={B}: blocks {CHAINS // B}, posterior "
+        print(f"B={B}: blocks {chains // B}, posterior "
               f"{cuda_events_ms(lambda: post(B), 3):.4f} ms, warmup "
               f"{cuda_events_ms(lambda: warm(B), 3):.4f} ms per "
               f"{CHUNK}-draw launch")
-    out = post(32)
+    out = post(None)
     iters = out["loop_iterations"].cpu().numpy()
-    print(f"posterior loop iterations per block (B=32): min {iters.min()} "
-          f"max {iters.max()}; leapfrogs per draw mean "
+    print(f"posterior loop iterations per block (default B): min "
+          f"{iters.min()} max {iters.max()}; leapfrogs per draw mean "
           f"{float(np.mean(out['n_steps'].cpu().numpy())):.4f}")
+
+
+def sweep_ld_dims(settings, device):
+    """K1-ld per 128-draw launch against d, with the same step size and
+    chains: what of a block iteration grows with the coordinates a thread
+    owns, and what does not."""
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    for dim in LD_SWEEP_DIMS:
+        model = normal_logp(dim, MU)
+        post, _ = ld_launches(model, settings, device)
+        out = post(None)
+        ms = cuda_events_ms(lambda: post(None), 3)
+        iters = float(out["loop_iterations"].float().mean())
+        print(f"ld d={dim}: posterior {ms:.4f} ms per {CHUNK}-draw launch, "
+              f"{iters:.0f} block iterations, {1e3 * ms / iters:.3f} us an "
+              f"iteration, leapfrogs per draw "
+              f"{float(out['n_steps'].mean()):.3f}")
+
+
+def sweep_ld_own_states(model, settings, device):
+    """K1-ld at every cluster size on the post-warmup state of the path
+    itself: the Sampler runs its tuning chunks, then the posterior runner's
+    launch (chain.py::make_fused_posterior_runner) is repeated here at each
+    chain block B on that state."""
+    from nuts_rs_tpu_torch import Sampler
+    from nuts_rs_tpu_torch.adapt import step_size as ss
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    sampler = Sampler(model, settings, device=device)
+    while sampler._next_draw < settings.num_tune:
+        sampler.run_next_chunk()
+    state, config = sampler.state, sampler.config
+    t = state.transform
+    bars = ss.step_size_bar(state.step, config.step_size)
+    step = state.step.step_size
+    print(f"own states after {sampler._next_draw} tuning draws: step size "
+          f"min {float(step.min()):.4f} median {float(step.median()):.4f} "
+          f"max {float(step.max()):.4f}")
+
+    def post(B, n=settings.num_chains):
+        return nf.nuts_fused_run(
+            5, state.pt.q[:n], state.pt.g[:n], state.pt.logp[:n], t.stds[:n],
+            t.mean[:n], t.logdet[:n], step[:n], bars[:n], CHUNK, model,
+            config.nuts, config.step_size.jitter, B, "ld")[4]
+
+    for B in LD_BLOCKS:
+        out = post(B)
+        ms = cuda_events_ms(lambda: post(B), 3)
+        iters = out["loop_iterations"].cpu().numpy()
+        steps = out["n_steps"].cpu().numpy()
+        print(f"own states B={B}: K1-ld {ms:.4f} ms per {CHUNK}-draw launch; "
+              f"block iterations min {iters.min()} mean {iters.mean():.1f} "
+              f"max {iters.max()}; leapfrogs per draw mean "
+              f"{steps.mean():.4f} min {steps.min()} max {steps.max()}")
+    # the first n of those chains: a step in the time between two counts is
+    # a second wave, and tells how many blocks or clusters the card holds
+    for n in LD_WAVE_CHAINS:
+        post(1, n), post(8, n)
+        print(f"own states, first {n} chains: K1-ld B=1 "
+              f"{cuda_events_ms(lambda: post(1, n), 3):.4f} ms, B=8 "
+              f"{cuda_events_ms(lambda: post(8, n), 3):.4f} ms per "
+              f"{CHUNK}-draw launch")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
     parser.add_argument("--trace", help="write a Chrome trace here")
+    parser.add_argument("--only-large-d", action="store_true",
+                        help="skip the two d=10 paths")
+    parser.add_argument("--only-own-states", action="store_true",
+                        help="item 5 alone")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_main_path.py needs a CUDA card")
@@ -188,17 +276,32 @@ def main() -> int:
     nuts = DiagNutsSettings(num_chains=CHAINS, num_tune=TUNE,
                             num_draws=DRAWS, seed=SEED,
                             posterior_kernel="pallas")
-    for label, settings, launches in (("NUTS", nuts, nuts_launches),
-                                      ("MCLMC", mclmc_settings(),
-                                       mclmc_launches)):
+    large = DiagNutsSettings(num_chains=LD_CHAINS, num_tune=LD_TUNE,
+                             num_draws=LD_DRAWS, seed=SEED,
+                             posterior_kernel="pallas")
+    if args.only_own_states:
+        sweep_ld_own_states(normal_logp(LD_DIM, MU), large, device)
+        print(card_line())
+        return 0
+    for label, model, settings, launches, blocks in (
+            ("NUTS", model, nuts, nuts_launches, BLOCKS),
+            ("MCLMC", model, mclmc_settings(), mclmc_launches, BLOCKS),
+            ("large-d", normal_logp(LD_DIM, MU), large, ld_launches,
+             LD_BLOCKS)):
+        if args.only_large_d and label != "large-d":
+            continue
         print(f"== {label} path")
         run_main_path(model, settings, device)  # first launches, allocator
         for rep in range(args.repeats):
-            print_run(f"run {rep}", run_main_path(model, settings, device))
+            print_run(f"run {rep}", run_main_path(model, settings, device),
+                      settings.num_tune)
         trace = (args.trace.replace(".json", f"_{label.lower()}.json")
                  if args.trace else None)
         profile_once(model, settings, device, trace)
-        sweep_blocks(launches(model, settings, device))
+        sweep_blocks(launches(model, settings, device), blocks,
+                     settings.num_chains)
+    sweep_ld_dims(large, device)
+    sweep_ld_own_states(normal_logp(LD_DIM, MU), large, device)
     print(card_line())
     return 0
 

@@ -1,5 +1,5 @@
-"""The fused CUDA kernels (NUTS K1/K2, MCLMC K3/K4) against their plain
-PyTorch versions, on the card.
+"""The fused CUDA kernels (NUTS K1/K2 and their dim-on-lanes forms K1-ld /
+K2-ld, MCLMC K3/K4) against their plain PyTorch versions, on the card.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -9,7 +9,8 @@ imports no JAX, so it runs where JAX is not installed:
 (``--noconftest`` skips tests/conftest.py, which sets JAX up for the rest
 of the suite).  With sums in coordinate order and the kernels built with
 ``-fmad=false``, kernel and plain version agree draw for draw: integer
-stats equal, floats to 1e-5 relative.
+stats equal, floats to 1e-5 relative.  The dim-on-lanes kernels sum in
+``ops.tsum``'s order, which their plain versions share.
 """
 
 import numpy as np
@@ -69,6 +70,73 @@ def test_kernels_match_plain_versions_on_the_card():
                                       want[8][name].cpu().numpy())
     for i in range(8):
         _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,block,maxdepth", [(300, 8, 10), (257, 4, 6)])
+def test_ld_kernels_match_plain_versions_on_the_card(dim, block, maxdepth):
+    """K1-ld and K2-ld at a mid size, C = 16 chains in logical blocks of
+    ``block`` (clusters of that many CUDA blocks), d and maxdepth given at
+    launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    dev = torch.device("cuda", 0)
+    C, mu = 16, 3.0
+    model, opts = tg.normal_logp(dim, mu), NutsOptions(maxdepth=maxdepth)
+    rng = np.random.default_rng(dim)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    q = f(mu + rng.normal(size=(C, dim)))
+    logp, g = model.logp_and_grad(q)
+    stds = f(rng.uniform(0.7, 1.3, size=(C, dim)))
+    mean = f(mu + 0.1 * rng.normal(size=(C, dim)))
+    logdet = -torch.log(stds).sum(1)
+    step = torch.full((C,), 0.25, device=dev)
+    args = (q, g, logp, stds, mean, logdet, step, step.clone())
+    before = dict(nf.LAUNCHES)
+    got = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=block,
+                            layout="ld")
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_run_reference(3, *args, 8, model, opts, 0.1,
+                                       block=block, layout="ld")
+    for name in INT_STATS:
+        np.testing.assert_array_equal(got[4][name].cpu().numpy(),
+                                      want[4][name].cpu().numpy(), name)
+    assert got[3].shape == (C, 8, dim)
+    for i in range(4):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+    for name in nf.STAT_NAMES:
+        _close(got[4][name].cpu(), want[4][name].cpu(), name, 1e-5, 1e-5)
+
+    flags = torch.ones(6, nf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, nf.FLAG_DO_SWITCH] = 0
+    flags[3, nf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, dim, device=dev)
+    sca = torch.zeros(C, nf.NSCA, device=dev)
+    sca[:, nf.SCA_STEP] = 0.2
+    sca[:, nf.SCA_DA_CNT] = 1.0
+    sca[:, nf.SCA_DA_MU] = float(np.log(2.0))
+    sca[:, nf.SCA_LOGDET] = logdet
+    wargs = (flags, q, g, logp, stds, mean, est, sca, model, opts,
+             StepSizeSettings(), True)
+    got = nf.nuts_fused_warmup_run(5, *wargs, block=block, layout="ld")
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_warmup_run_reference(5, *wargs, block=block,
+                                              layout="ld")
+    for name in INT_STATS + ("transformation_index",):
+        np.testing.assert_array_equal(got[8][name].cpu().numpy(),
+                                      want[8][name].cpu().numpy(), name)
+    for i in range(8):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+    for name in nf.WARMUP_STAT_NAMES:
+        _close(got[8][name].cpu(), want[8][name].cpu(), name, 1e-5, 1e-5)
+    assert nf.LAUNCHES["nuts_fused_ld_posterior"] == \
+        before["nuts_fused_ld_posterior"] + 1
+    assert nf.LAUNCHES["nuts_fused_ld_warmup"] == \
+        before["nuts_fused_ld_warmup"] + 1
+    # a chain block above the cluster size is refused, not run another way
+    with pytest.raises(ValueError, match="chain block"):
+        nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=16,
+                          layout="ld")
 
 
 MCLMC_INT_STATS = ("diverging", "n_steps", "loop_iterations")

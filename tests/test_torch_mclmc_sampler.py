@@ -215,7 +215,7 @@ def _no_hook(dim):
     (dict(cross_chain_adaptation=True), "item 17"),
     (dict(mesh_axis_name="chains"), "item 17"),
     ("no_hook", "item 10"),
-    ("cuda_dim", "item 11"),
+    ("cuda_dim", "item 12"),
 ])
 def test_unsupported_settings_raise(change, item):
     model, device = tg.normal_logp(3), "cpu"

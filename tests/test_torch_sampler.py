@@ -18,6 +18,7 @@ from nuts_rs_tpu.models import gaussian as jg
 from nuts_rs_tpu.sampler import _strategy_for
 from nuts_rs_tpu_torch.adapt.schedule import build_schedule
 from nuts_rs_tpu_torch.dynamics.hamiltonian import KineticKind
+from nuts_rs_tpu_torch.kernels import _build
 from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 from nuts_rs_tpu_torch.models import gaussian as tg
 from nuts_rs_tpu_torch.models.model import Model
@@ -146,6 +147,21 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
         assert '"ok"' not in out.stdout
 
 
+def test_packaging_ships_the_kernel_sources():
+    """An installed port builds its kernels from ``csrc/``, so the package
+    data must name every source and header there."""
+    import fnmatch
+    import tomllib
+
+    meta = tomllib.loads((REPO / "pyproject.toml").read_text())
+    patterns = meta["tool"]["setuptools"]["package-data"]["nuts_rs_tpu_torch"]
+    sources = sorted(p.name for p in _build.CSRC.iterdir())
+    assert len(sources) >= 12
+    for name in sources:
+        assert any(fnmatch.fnmatch(f"csrc/{name}", pat) for pat in patterns), \
+            name
+
+
 def _no_hook(dim):
     return Model(logp_fn=lambda q: -0.5 * torch.sum(q * q), dim=dim)
 
@@ -167,9 +183,9 @@ def _no_hook(dim):
     (dict(adapt=tnt.AdaptScheduleOptions(window_by_good_draws=True)),
      "item 4"),
     ("no_hook", "item 10"),
-    ("large_d", "item 11"),
-    ("cuda_dim", "item 11"),
-    ("cuda_maxdepth", "item 11"),
+    ("cuda_dim", "item 12"),
+    ("cuda_maxdepth", "item 12"),
+    ("cuda_ld_dim", "item 12"),
 ])
 def test_unsupported_settings_raise(change, item):
     model = tg.normal_logp(3)
@@ -178,8 +194,9 @@ def test_unsupported_settings_raise(change, item):
               num_draws=5)
     if change == "no_hook":
         model = _no_hook(3)
-    elif change == "large_d":
-        model = tg.normal_logp(cl_max_dim(10) + 1)
+    elif change == "cuda_ld_dim":
+        # a chain's state must fit one block's shared memory
+        model, device = tg.normal_logp(_build.ld_max_dim(10) + 1), "cuda"
     elif change == "cuda_dim":
         # no kernel instantiation for d=5: refused before anything launches
         model, device = tg.normal_logp(5), "cuda"
@@ -224,3 +241,153 @@ def test_device_is_required():
         tnt.sample(tg.normal_logp(3), settings)
     with pytest.raises(TypeError, match="device"):
         tnt.Sampler(tg.normal_logp(3), settings)
+
+
+# ---------------------------------------------------------------------------
+# the large-d (dim-on-lanes) path
+# ---------------------------------------------------------------------------
+
+
+def _spy_layout(monkeypatch, target, name):
+    """Record the ``layout`` a runner passes to ``target.name`` and stop
+    the call there."""
+    seen = []
+
+    class _Stop(Exception):
+        pass
+
+    def spy(*args, **kw):
+        seen.append(kw.get("layout", "cl"))
+        raise _Stop
+
+    monkeypatch.setattr(target, name, spy)
+    return seen, _Stop
+
+
+def _jax_layouts(monkeypatch, dim):
+    """The layouts the JAX posterior and warmup runners pass to the Pallas
+    launchers for ``normal_logp(dim)`` (nothing launches)."""
+    import nuts_rs_tpu.chain as jchain
+    import nuts_rs_tpu.kernels.nuts_pallas as jpallas
+
+    kw = dict(num_chains=8, num_tune=20, num_draws=10,
+              posterior_kernel="pallas")
+    js = jnt.DiagNutsSettings(**kw)
+    jcfg = js.chain_config()
+    model = jg.normal_logp(dim, 3.0)
+    state = jnt.Sampler(model, js, dtype=jnp.float32).state
+    sched = build_schedule(20, 10, js.adapt)
+    out = []
+    for make, fn_name, lo, hi in (
+            (lambda: jchain.make_pallas_warmup_runner(
+                model, _strategy_for(js, jcfg), jcfg, base_seed=0,
+                use_grad_based=True),
+             "nuts_pallas_warmup_run", 0, 4),
+            (lambda: jchain.make_pallas_posterior_runner(
+                model, _strategy_for(js, jcfg), jcfg, phase_start=20,
+                base_seed=0),
+             "nuts_pallas_run", 20, 24)):
+        # the factories bind the launcher's name when they are called
+        seen, stop = _spy_layout(monkeypatch, jpallas, fn_name)
+        runner = make()
+        assert runner is not None
+        flags = {k: jnp.asarray(v)
+                 for k, v in _schedule_chunk(sched, lo, hi).items()}
+        with pytest.raises(stop):
+            runner(state, flags)
+        out.append(seen[0])
+    return out
+
+
+def _torch_layouts(monkeypatch, dim):
+    ts = tnt.DiagNutsSettings(num_chains=8, num_tune=20, num_draws=10,
+                              posterior_kernel="pallas")
+    sampler = tnt.Sampler(tg.normal_logp(dim, 3.0), ts, device="cpu")
+    out = []
+    for fn_name, lo, hi in (("nuts_fused_warmup_run", 0, 4),
+                            ("nuts_fused_run", 20, 24)):
+        seen, stop = _spy_layout(monkeypatch, nf, fn_name)
+        runner = next(r for s, e, r in sampler._phase_runners if s <= lo < e)
+        with pytest.raises(stop):
+            runner(sampler.state, _schedule_chunk(sampler.schedule, lo, hi))
+        out.append(seen[0])
+    return out
+
+
+@pytest.mark.parametrize("warmup,offset,layouts", [
+    (True, 0, ["cl", "cl"]), (True, 1, ["ld", "cl"]),
+    (False, 0, ["ld", "cl"]), (False, 1, ["ld", "ld"])])
+def test_layout_boundary_is_the_jax_runners(monkeypatch, warmup, offset,
+                                            layouts):
+    """Both packages' warmup and posterior runners change from the
+    chains-on-lanes to the dim-on-lanes kernels at the same dimensions: the
+    warmup one above ``cl_max_dim(10, warmup=True)``, the posterior one
+    above ``cl_max_dim(10)``."""
+    dim = cl_max_dim(10, warmup) + offset
+    assert _torch_layouts(monkeypatch, dim) == layouts
+    assert _jax_layouts(monkeypatch, dim) == layouts
+
+
+def test_ld_slice_on_the_cpu():
+    """A model above the chains-on-lanes limit runs end to end on the
+    dim-on-lanes plain versions: finite draws, no divergences, the trace of
+    the JAX schema."""
+    dim = cl_max_dim(10) + 8
+    model = tg.normal_logp(dim, 3.0)
+    settings = tnt.DiagNutsSettings(num_chains=8, num_tune=40, num_draws=20,
+                                    seed=0, posterior_kernel="pallas")
+    assert settings.unsupported(model, "cpu") == []
+    assert settings.unsupported(model, "cuda") == []
+    before = dict(nf.LAUNCHES)
+    trace = tnt.sample(model, settings, device="cpu")
+    assert nf.LAUNCHES == before
+    pos = trace.posterior["position"]
+    assert pos.shape == (8, 20, dim) and pos.dtype == np.float32
+    assert trace.warmup_posterior["position"].shape == (8, 40, dim)
+    assert np.isfinite(pos).all()
+    assert not trace.sample_stats["diverging"].any()
+    assert abs(pos.astype(np.float64).mean() - 3.0) < 0.1
+    # the emitted logp is the model's at the emitted position
+    lp = -0.5 * ((pos.astype(np.float64) - 3.0) ** 2).sum(-1)
+    np.testing.assert_allclose(trace.sample_stats["logp"], lp, rtol=1e-4)
+    want = jnt.schema(jg.normal_logp(dim, 3.0), jnt.DiagNutsSettings(
+        num_chains=8, num_tune=40, num_draws=20, posterior_kernel="pallas"),
+        dtype=jnp.float32)
+    for group in ("posterior", "sample_stats", "warmup_posterior",
+                  "warmup_sample_stats"):
+        arrays = getattr(trace, group)
+        assert set(arrays) == set(want[group]), group
+        for name, entry in want[group].items():
+            assert arrays[name].dtype == entry["dtype"], name
+            assert arrays[name].shape[2:] == entry["shape"], name
+
+
+def test_mclmc_refuses_large_d_naming_the_sync_engine():
+    # the JAX package's MCLMC kernels are chains-on-lanes only
+    settings = tnt.DiagMclmcSettings(posterior_kernel="pallas", num_chains=4,
+                                     num_tune=5, num_draws=5)
+    model = tg.normal_logp(cl_max_dim(10) + 1)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tnt.Sampler(model, settings, device="cpu")
+
+
+def test_trace_parts_are_joined_per_phase():
+    """Chunks that end at the phase boundary go into the trace as they are;
+    a chunk across it is split."""
+    from nuts_rs_tpu_torch.storage.memory import MemoryStorage
+
+    rng = np.random.default_rng(0)
+    store = MemoryStorage()
+    chunks = [rng.normal(size=(2, k, 3)).astype(np.float32) for k in (3, 4)]
+    tuning = [np.array([True, True, True]),
+              np.array([True, False, False, False])]
+    for lo, (pos, t) in enumerate(zip(chunks, tuning)):
+        store.record_chunk(lo, {"position": pos,
+                                "n_steps": pos[..., 0].astype(np.int32)}, t)
+    trace = store.finalize()
+    whole = np.concatenate(chunks, axis=1)
+    np.testing.assert_array_equal(trace.warmup_posterior["position"],
+                                  whole[:, :4])
+    np.testing.assert_array_equal(trace.posterior["position"], whole[:, 4:])
+    assert trace.sample_stats["n_steps"].shape == (2, 3)
+    assert trace.warmup_sample_stats["n_steps"].dtype == np.int32
