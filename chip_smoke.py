@@ -7,16 +7,23 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the fused CUDA kernels from ``nuts_rs_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-and drives three paths through ``Sampler(...).run()`` with
+and drives four paths through ``Sampler(...).run()`` with
 ``posterior_kernel="pallas"``.  Two run N(3, 1) at d=10 with 1024 chains,
 300 tuning and 700 posterior draws: NUTS (``DiagNutsSettings``, kernels K1
 and K2) and MCLMC (``DiagMclmcSettings``, kernels K3 and K4).  The third is
 the large-d path: NUTS on N(3, 1) at d=1000 with 512 chains, 200 tuning and
-300 posterior draws, on the dim-on-lanes kernels K1-ld and K2-ld.  For each
-path it sets the launch counts to 0, runs, reads them, and checks that its
-kernels ran and that the posterior is right.  Every kernel is held against
-its plain version at its path's chains and dimension (8 posterior or 16
-warmup draws).
+300 posterior draws, on the dim-on-lanes kernels K1-ld and K2-ld.  The
+fourth is the data-carrying path: NUTS on Bayesian logistic regression with
+1000 rows and 100 columns, 1024 chains, 300 tuning and 400 posterior draws,
+on the mid-d chains-on-lanes kernels K1-args and K2-args, which evaluate the
+model with its data in the kernel body; its posterior is held against the
+JAX package's (``tests/data/logreg_d100_reference.json``, moments from that
+package's sync engine on a CPU).  For each path it sets the launch counts
+to 0, runs, reads them, and checks that its kernels ran and that the
+posterior is right.  Every kernel is held against its plain version at its
+path's chains and dimension (8 posterior or 16 warmup draws); the mid-d
+kernels also on N(3, 1) at d=100 with 64 chains.  Nothing of the earlier
+paths was cut to make room: the script takes about three minutes.
 
 Each kernel is timed (CUDA events) beside its plain version on the check's
 inputs (``ms``, ``plain_ms``, with the bound ``bound_ms`` of that work), and
@@ -25,8 +32,11 @@ bound is the larger of the bytes the call must move (every input read once,
 every output written once) over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, the card's published peaks; operations are counted from the
 leapfrogs the run's data needed (``n_steps``), ``FLOP_PER_COORD`` per
-coordinate.  No single PyTorch call computes a NUTS or MCLMC launch, so
-``library_ms`` is null.
+coordinate, and for the logistic regression 4 N d + 4 (N + d) more per
+evaluation, with its data among the bytes.  No single PyTorch call computes
+a NUTS or MCLMC launch, so ``library_ms`` is null; the time of one batched
+evaluation of the regression by two ``torch.matmul`` calls is printed as a
+yardstick for its products.
 
 Output: the card's name and power limit, the nvcc version, the build time,
 the checks and timings, a JSON line ``{"kernels": [...]}`` and, last,
@@ -40,6 +50,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -55,6 +66,14 @@ CHECK_K4_DRAWS = 16  # MCLMC warmup draws in each kernel check
 # waves of clusters, the full stack workspace)
 LD_DIM, LD_CHAINS, LD_TUNE, LD_DRAWS = 1000, 512, 200, 300
 LD_STEP = (0.2, 0.3)  # adapted step sizes at d=1000, for the made-up states
+# the data-carrying path (the JAX benchmark's logreg_d100 sizes) and the
+# mid-d kernels' check without data
+GLM_ROWS, GLM_DIM, GLM_CHAINS, GLM_TUNE, GLM_DRAWS = 1000, 100, 1024, 300, 400
+GLM_REFERENCE = Path(__file__).resolve().parent / "tests" / "data" / \
+    "logreg_d100_reference.json"
+GLM_MEAN_TOL = 0.1  # of a coordinate's posterior standard deviation
+GLM_STD_TOL = 0.1   # relative
+MID_DIM, MID_CHAINS = 100, 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOP_PER_S = 67e12    # H100 SXM outside the tensor cores, published
 # FP32 operations per coordinate and gradient evaluation that every version
@@ -113,11 +132,24 @@ def tensor_bytes(*objs) -> int:
     return n
 
 
-def bound(kind, dim, inputs, out, stats):
-    """(bound_ms, bound_by) of one launch from its inputs and results."""
+def model_flop_per_grad(model):
+    """FP32 operations of one evaluation beyond FLOP_PER_COORD's: the
+    regression's two products and its elementwise pass over rows and
+    columns, as the JAX benchmark counts them (bench.py:271-278)."""
+    if not model.carries_data:
+        return 0
+    xt = model.hook_parts()[2][0]
+    d, n = xt.shape
+    return 4 * n * d + 4 * (n + d)
+
+
+def bound(kind, model, inputs, out, stats):
+    """(bound_ms, bound_by) of one launch from its inputs and results; a
+    model's data count among the bytes, read once per launch."""
     grads = float(stats["n_steps"].sum())
-    t_ops = grads * dim * FLOP_PER_COORD[kind] / FP32_FLOP_PER_S
-    t_bytes = tensor_bytes(inputs, out) / HBM_BYTES_PER_S
+    t_ops = grads * (model.dim * FLOP_PER_COORD[kind]
+                     + model_flop_per_grad(model)) / FP32_FLOP_PER_S
+    t_bytes = (tensor_bytes(inputs, out) + model.data_bytes) / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -134,13 +166,13 @@ def timed_pair(kernel, plain):
     return out_k, box[0], ms, plain_ms
 
 
-def chunk_time(kind, dim, fn, inputs, stats_at):
+def chunk_time(kind, model, fn, inputs, stats_at):
     """A kernel alone at its path's 128-draw launch: (ms over 3 calls,
     bound_ms, bound_by)."""
     out = fn()
     torch.cuda.synchronize()
     ms = cuda_events_ms(fn, 3)
-    b_ms, b_by = bound(kind, dim, inputs, out, out[stats_at])
+    b_ms, b_by = bound(kind, model, inputs, out, out[stats_at])
     return ms, b_ms, b_by
 
 
@@ -197,24 +229,27 @@ def compare(name, out_k, out_p, state_names, stat_names, int_stats):
     return n, err
 
 
-def check_row(kind, dim, inputs, out_k, err, ms, plain_ms):
-    b_ms, b_by = bound(kind, dim, inputs, out_k, out_k[-1])
+def check_row(kind, model, inputs, out_k, err, ms, plain_ms):
+    b_ms, b_by = bound(kind, model, inputs, out_k, out_k[-1])
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by}
 
 
 def check_posterior(model, opts, device, layout="cl", chains=CHAINS,
-                    step=(0.8, 1.0)):
-    """K1 (cl) or K1-ld against its plain version."""
+                    step=(0.8, 1.0), name=None, args=None, block=None):
+    """K1 (cl), K1-ld or, with ``name`` and maybe its own inputs ``args``
+    and logical chain block, the mid-d cl kernel against its plain
+    version."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
-    name = "K1-ld" if layout == "ld" else "K1"
-    args = posterior_inputs(model, device, chains=chains, step=step)
+    name = name or ("K1-ld" if layout == "ld" else "K1")
+    if args is None:
+        args = posterior_inputs(model, device, chains=chains, step=step)
     out_k, out_p, ms, plain_ms = timed_pair(
         lambda: nf.nuts_fused_run(7, *args, CHECK_K1_DRAWS, model, opts, 0.1,
-                                  layout=layout),
+                                  block, layout),
         lambda: nf.nuts_fused_run_reference(7, *args, CHECK_K1_DRAWS, model,
-                                            opts, 0.1, layout=layout))
+                                            opts, 0.1, block, layout))
     n, err = compare(name, out_k, out_p, ("q_f", "g_f", "logp_f"),
                      nf.STAT_NAMES, INT_STATS)
     blocks = len(set(out_k[4]["loop_iterations"].cpu().tolist()))
@@ -223,7 +258,7 @@ def check_posterior(model, opts, device, layout="cl", chains=CHAINS,
           f"err {err:.3g} (draws, final state, all stats); {blocks} distinct "
           f"block iteration counts; kernel {ms:.4f} ms, plain {plain_ms:.2f} "
           "ms")
-    return check_row("nuts", model.dim, args, out_k, err, ms, plain_ms)
+    return check_row("nuts", model, args, out_k, err, ms, plain_ms)
 
 
 def warmup_setup(model, settings, device, lo, hi, chains=CHAINS):
@@ -245,11 +280,13 @@ def warmup_setup(model, settings, device, lo, hi, chains=CHAINS):
             config.nuts, config.step_size, config.use_grad_based_estimate)
 
 
-def check_warmup(model, settings, device, layout="cl", chains=CHAINS):
-    """K2 (cl) or K2-ld against its plain version."""
+def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
+                 name=None, block=None):
+    """K2 (cl), K2-ld or, with ``name`` and maybe a logical chain block, the
+    mid-d cl kernel against its plain version."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
-    name = "K2-ld" if layout == "ld" else "K2"
+    name = name or ("K2-ld" if layout == "ld" else "K2")
     # schedule rows 2.. are the second warmup phase's: estimator updates,
     # mass-matrix updates every draw and the first window switch (row 8)
     args = warmup_setup(model, settings, device, 2, 2 + CHECK_K2_DRAWS,
@@ -257,8 +294,8 @@ def check_warmup(model, settings, device, layout="cl", chains=CHAINS):
     if not args[1][:, nf.FLAG_DO_SWITCH].any():
         raise AssertionError(f"{name} check rows hold no window switch")
     out_k, out_p, ms, plain_ms = timed_pair(
-        lambda: nf.nuts_fused_warmup_run(*args, layout=layout),
-        lambda: nf.nuts_fused_warmup_run_reference(*args, layout=layout))
+        lambda: nf.nuts_fused_warmup_run(*args, block, layout),
+        lambda: nf.nuts_fused_warmup_run_reference(*args, block, layout))
     n, err = compare(name, out_k, out_p,
                      ("q", "g", "logp", "stds", "mean", "est", "sca"),
                      nf.WARMUP_STAT_NAMES, INT_STATS)
@@ -267,7 +304,7 @@ def check_warmup(model, settings, device, layout="cl", chains=CHAINS):
           f"them): integer stats equal on all {n} (chain, draw) entries, "
           f"max abs err {err:.3g} (draws, final state, est, sca, all "
           f"stats); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
-    return check_row("nuts", model.dim, args[1:9], out_k, err, ms, plain_ms)
+    return check_row("nuts", model, args[1:9], out_k, err, ms, plain_ms)
 
 
 def zero_launch_counts():
@@ -343,28 +380,135 @@ def main_path(model, settings, device, kernels, what="main path"):
 
 
 def time_kernels(model, settings, device, layout="cl", chains=CHAINS,
-                 step=(0.8, 1.0)):
+                 step=(0.8, 1.0), k1=None):
     """Each NUTS kernel alone at its path's launch: ``chains`` chains, one
-    128-draw chunk."""
+    128-draw chunk (``k1``: the posterior kernel's own inputs)."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     opts = settings.nuts_options()
-    k1 = posterior_inputs(model, device, seed=2, chains=chains, step=step)
+    if k1 is None:
+        k1 = posterior_inputs(model, device, seed=2, chains=chains, step=step)
     k2 = warmup_setup(model, settings, device, 2, 2 + CHUNK, chains)
     suffix = "_ld" if layout == "ld" else ""
+    if layout == "cl" and nf.cl_kernel(model, model.dim) == "mid":
+        suffix = "_mid"
     times = {
         f"nuts_fused{suffix}_posterior": chunk_time(
-            "nuts", model.dim,
+            "nuts", model,
             lambda: nf.nuts_fused_run(3, *k1, CHUNK, model, opts, 0.1,
                                       layout=layout), k1, 4),
         f"nuts_fused{suffix}_warmup": chunk_time(
-            "nuts", model.dim,
+            "nuts", model,
             lambda: nf.nuts_fused_warmup_run(*k2, layout=layout), k2[1:9], 8),
     }
     for name, (ms, b_ms, b_by) in times.items():
         print(f"time {name}: {ms:.4f} ms per {CHUNK}-draw launch at "
               f"C={chains} d={model.dim}; bound {b_ms:.5f} ms ({b_by})")
     return times
+
+
+# ---------------------------------------------------------------------------
+# The data-carrying path: kernels K1-args and K2-args on logistic regression
+# ---------------------------------------------------------------------------
+
+
+def glm_reference():
+    """The JAX package's posterior moments of the regression (the file names
+    the command that made it)."""
+    ref = json.loads(GLM_REFERENCE.read_text())
+    return np.array(ref["mean"]), np.array(ref["std"]), ref
+
+
+def glm_posterior_inputs(model, device, ref_mean, ref_std, seed=1,
+                         chains=GLM_CHAINS):
+    """A post-warmup-like state of the regression, made with numpy around
+    the reference posterior: positions drawn from its marginals, the
+    transform near its scales, steps near the adapted one."""
+    rng = np.random.default_rng(seed)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+    dim = model.dim
+    q = f(ref_mean + ref_std * rng.normal(size=(chains, dim)))
+    stds = f(ref_std * rng.uniform(0.8, 1.2, size=(chains, dim)))
+    mean = f(ref_mean + 0.1 * ref_std * rng.normal(size=(chains, dim)))
+    logp, g = model.logp_and_grad(q)
+    logdet = -torch.log(stds).sum(1)
+    step = f(rng.uniform(0.4, 0.55, size=chains))
+    return q, g, logp, stds, mean, logdet, step, step.clone()
+
+
+def time_glm_by_matmul(model, device):
+    """The regression's two products at the path's [chains, d] by
+    ``torch.matmul`` in IEEE float32, alone and inside the host's closed
+    form (with its elementwise pass and sums): the yardstick for the
+    kernels' products, not a launch's work."""
+    rng = np.random.default_rng(5)
+    q = torch.as_tensor(0.1 * rng.normal(size=(GLM_CHAINS, model.dim)),
+                        dtype=torch.float32, device=device)
+    xt = model.hook_parts()[2][0]
+
+    def products():
+        return torch.matmul(torch.matmul(q, xt), xt.T)
+
+    products()
+    model.logp_and_grad(q)
+    ms_two = cuda_events_ms(products, 20)
+    ms = cuda_events_ms(lambda: model.logp_and_grad(q), 20)
+    flop = GLM_CHAINS * 4 * GLM_ROWS * model.dim
+    print(f"glm products by two torch.matmul calls (TF32 off): {ms_two:.4f} "
+          f"ms for q [{GLM_CHAINS}, {model.dim}], x [{GLM_ROWS}, "
+          f"{model.dim}] ({flop / ms_two / 1e9:.4g} TFLOP/s); the host's "
+          f"closed form around them {ms:.4f} ms per batched evaluation")
+
+
+def glm_main_path(model, settings, device, ref_mean, ref_std):
+    """The data-carrying path through Sampler.run, held against the JAX
+    package's posterior."""
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    zero_launch_counts()
+    trace, init_s, warm_s, post_s, total_s = run_sampler(model, settings,
+                                                         device)
+    launches = read_launch_counts(
+        nf.LAUNCHES, ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"))
+    pos = trace.posterior["position"]
+    st = trace.sample_stats
+    flat = pos.reshape(-1, pos.shape[-1]).astype(np.float64)
+    mean, std = flat.mean(0), flat.std(0)
+    mean_err = float(np.max(np.abs(mean - ref_mean) / ref_std))
+    std_err = float(np.max(np.abs(std / ref_std - 1.0)))
+    n_div = int(st["diverging"].sum())
+    acc = float(st["mean_tree_accept"].mean())
+    n_grad = int(st["n_steps"].sum())
+    n_warm = int(trace.warmup_sample_stats["n_steps"].sum())
+    print(f"data path: logistic regression N={GLM_ROWS} d={model.dim} "
+          f"chains={settings.num_chains} tune={settings.num_tune} "
+          f"draws={settings.num_draws}: init {init_s:.3f} s, warmup "
+          f"{warm_s:.3f} s, posterior {post_s:.3f} s, total with trace "
+          f"assembly {total_s:.3f} s, {n_grad / post_s:.6g} posterior "
+          f"gradient evaluations/s ({n_grad} in the posterior, {n_warm} in "
+          f"the warmup), launches {launches}")
+    print(f"data path posterior: max |mean - reference| "
+          f"{mean_err:.4f} posterior std (gate {GLM_MEAN_TOL}), max |std / "
+          f"reference - 1| {std_err:.4f} (gate {GLM_STD_TOL}), divergences "
+          f"{n_div} mean accept {acc:.4f} step size "
+          f"{float(np.median(st['step_size_bar'][:, -1])):.4f} mean tree "
+          f"depth {float(st['depth'].mean()):.3f} mean n_steps "
+          f"{float(st['n_steps'].mean()):.2f}")
+    if pos.shape != (settings.num_chains, settings.num_draws, model.dim):
+        raise AssertionError(f"posterior shape {pos.shape}")
+    if not np.isfinite(flat).all():
+        raise AssertionError("non-finite posterior draws")
+    if not mean_err < GLM_MEAN_TOL:
+        raise AssertionError(f"a posterior mean is {mean_err} posterior "
+                             "standard deviations from the reference")
+    if not std_err < GLM_STD_TOL:
+        raise AssertionError(f"a posterior std differs by {std_err} "
+                             "(relative) from the reference")
+    if n_div:
+        raise AssertionError(f"{n_div} divergences on the regression")
+    if not 0.7 < acc < 0.95:
+        raise AssertionError(f"mean accept {acc} outside (0.7, 0.95)")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -410,7 +554,7 @@ def check_mclmc_posterior(model, settings, device):
           f"microcanonical: integer stats equal on all {n} (chain, draw) "
           f"entries, max abs err {err:.3g} (draws, final state, all stats); "
           f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
-    return check_row("mclmc", DIM, args, out_k, err, ms, plain_ms)
+    return check_row("mclmc", model, args, out_k, err, ms, plain_ms)
 
 
 def mclmc_warmup_setup(model, settings, device, lo, hi, kind):
@@ -469,7 +613,7 @@ def check_mclmc_warmup(model, settings, device):
           f"{n} (chain, draw) entries, max abs err {err:.3g} (draws, final "
           f"state, est, sca, all stats); kernel {ms:.4f} ms, plain "
           f"{plain_ms:.2f} ms (microcanonical rows)")
-    return check_row("mclmc", DIM, args[1:10], out_k, err, ms, plain_ms)
+    return check_row("mclmc", model, args[1:10], out_k, err, ms, plain_ms)
 
 
 def mclmc_main_path(model, settings, device):
@@ -517,11 +661,11 @@ def time_mclmc_kernels(model, settings, device):
                             MclmcTrajectoryKind.MICROCANONICAL)
     times = {
         "mclmc_fused_posterior": chunk_time(
-            "mclmc", DIM,
+            "mclmc", model,
             lambda: mf.mclmc_fused_run(3, *args, CHUNK, model, mopts, jitter),
             args, 5),
         "mclmc_fused_warmup": chunk_time(
-            "mclmc", DIM, lambda: mf.mclmc_fused_warmup_run(*k4), k4[1:10],
+            "mclmc", model, lambda: mf.mclmc_fused_warmup_run(*k4), k4[1:10],
             9),
     }
     for name, (ms, b_ms, b_by) in times.items():
@@ -543,6 +687,10 @@ KERNELS = (
      "nuts_rs_tpu/kernels/nuts_pallas.py:124"),
     ("nuts_fused_ld_warmup", "nuts_fused_ld_warmup.cu",
      "nuts_rs_tpu/kernels/nuts_pallas.py:959"),
+    ("nuts_fused_mid_posterior", "nuts_fused_mid_posterior.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:84"),
+    ("nuts_fused_mid_warmup", "nuts_fused_mid_warmup.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:944"),
 )
 
 
@@ -552,7 +700,10 @@ def main() -> int:
                            "(torch.cuda.is_available() is false)")
     from nuts_rs_tpu_torch import DiagNutsSettings
     from nuts_rs_tpu_torch.kernels import _build
-    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+    from nuts_rs_tpu_torch.models.gaussian import (
+        logistic_regression,
+        normal_logp,
+    )
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -613,6 +764,39 @@ def main() -> int:
         what="large-d path"))
     times.update(time_kernels(ld_model, ld_settings, device, "ld", LD_CHAINS,
                               LD_STEP))
+
+    # ---- NUTS with model data at d=100: K1-args, K2-args (mid-d cl) ----
+    ref_mean, ref_std, ref = glm_reference()
+    print(f"data path reference: {ref['engine']}, {ref['chains']} chains x "
+          f"{ref['draws']} draws, Monte-Carlo error of a mean at most "
+          f"{ref['max_mc_error_of_mean_in_std']:.4f} posterior std")
+    glm = logistic_regression(GLM_ROWS, GLM_DIM, SEED).to(device)
+    glm_settings = DiagNutsSettings(num_chains=GLM_CHAINS, num_tune=GLM_TUNE,
+                                    num_draws=GLM_DRAWS, seed=SEED,
+                                    posterior_kernel="pallas")
+    time_glm_by_matmul(glm, device)
+    checks["nuts_fused_mid_posterior"] = check_posterior(
+        glm, glm_settings.nuts_options(), device, chains=GLM_CHAINS,
+        name="K1-args",
+        args=glm_posterior_inputs(glm, device, ref_mean, ref_std))
+    checks["nuts_fused_mid_warmup"] = check_warmup(
+        glm, glm_settings, device, chains=GLM_CHAINS, name="K2-args")
+    # the same kernels without data, on N(3, 1) at a d that had no kernel,
+    # in logical blocks of 8 chains (clusters; the path runs chains alone)
+    mid_model = normal_logp(MID_DIM, MU)
+    mid_settings = DiagNutsSettings(num_chains=MID_CHAINS, num_tune=TUNE,
+                                    num_draws=DRAWS, seed=SEED,
+                                    posterior_kernel="pallas")
+    check_posterior(mid_model, mid_settings.nuts_options(), device,
+                    chains=MID_CHAINS, step=(0.45, 0.6), name="mid-d K1 B=8",
+                    block=8)
+    check_warmup(mid_model, mid_settings, device, chains=MID_CHAINS,
+                 name="mid-d K2 B=8", block=8)
+    launches.update(glm_main_path(glm, glm_settings, device, ref_mean,
+                                  ref_std))
+    times.update(time_kernels(
+        glm, glm_settings, device, chains=GLM_CHAINS,
+        k1=glm_posterior_inputs(glm, device, ref_mean, ref_std, seed=2)))
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -3,8 +3,10 @@
 A second package beside the JAX one (``nuts_rs_tpu``, the reference), for one
 NVIDIA H100.  It runs ``DiagNutsSettings`` and ``DiagMclmcSettings`` with
 ``posterior_kernel="pallas"`` on a model with a kernel hook: warmup and
-posterior of each run on hand-written CUDA kernels (``csrc/``, four in all)
-for CUDA tensors, and on their plain PyTorch versions for CPU tensors.  The package
+posterior of each run on hand-written CUDA kernels (``csrc/``, eight in all:
+NUTS at small, mid and large d, with a model's data read inside the kernel,
+and MCLMC) for CUDA tensors, and on their plain PyTorch versions for CPU
+tensors.  The package
 imports torch and numpy and never JAX.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """

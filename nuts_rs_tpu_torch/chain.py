@@ -6,10 +6,13 @@ fused NUTS runners ``make_pallas_posterior_runner`` (``:663-943``) and
 ``make_pallas_warmup_runner`` (``:946-1200``), and the fused MCLMC runners
 ``make_pallas_mclmc_posterior_runner`` (``:1203-1337``) and
 ``make_pallas_mclmc_warmup_runner`` (``:1340-1525``), for the diagonal mass
-matrix, no model args, flow or stream.  Like the JAX runners
+matrix, without flow or stream.  The NUTS runners pass a model's data to
+the kernels (``chain.py:677-678,881`` and ``:970-971,1112``; here the data
+travel in ``Model.kernel_hook``); the MCLMC runners do not yet (kernels
+K3-args and K4-args).  Like the JAX runners
 (``chain.py:757-784,1005-1028``), the NUTS runners take the chains-on-lanes
-layout while a model fits it (``cl_max_dim``) and the dim-on-lanes layout
-(``layout="ld"``) above that.
+layout while a model and its data fit it (``cl_max_dim``) and the
+dim-on-lanes layout (``layout="ld"``) above that.
 
 The chain axis is the leading axis of every state tensor.  Randomness comes
 from the counter hash (kernels/rng.py): each launch's seed is derived from
@@ -58,25 +61,58 @@ PURPOSE_MCLMC_POSTERIOR = 7
 INIT_RETRIES = 500
 
 
-def cl_max_dim(maxdepth: int, warmup: bool = False) -> int:
+def cl_max_dim(maxdepth: int, warmup: bool = False,
+               args_bytes: int = 0) -> int:
     """Largest d the chains-on-lanes layout takes: the JAX package's VMEM
     rule at its smallest lane block (128 chains) for the posterior runner
-    (``chain.py:721,740-745``) or, with ``warmup``, for the warmup runner,
-    whose launch also holds the estimator planes (``chain.py:1002-1011``).
-    Kept so that one configuration takes the same layout in both packages;
-    larger models take the dim-on-lanes layout.  At maxdepth 10 the limits
-    are 212 and 178: in between, the warmup runs dim-on-lanes and the
-    posterior chains-on-lanes, as in the JAX package."""
+    (``chain.py:719-721,740-745``) or, with ``warmup``, for the warmup
+    runner, whose launch also holds the estimator planes
+    (``chain.py:1001-1011``).  ``args_bytes`` are the bytes of the model's
+    data, which the rule adds to the launch's footprint, so the limit falls
+    as the data grow (negative: no d fits).  Kept so that one configuration
+    takes the same layout in both packages.  Without data the limits at
+    maxdepth 10 are 212 and 178: in between, the warmup runs dim-on-lanes
+    and the posterior chains-on-lanes, as in the JAX package."""
     stacks = 6 * (maxdepth + 1)
     if warmup:
-        return (12_000_000 // (4 * 128) - 16 * 15) // (stacks + 48 + 16)
-    return (12_500_000 // (4 * 128) - 4 - 16 * 13) // (stacks + 32 + 16)
+        return (((12_000_000 - args_bytes) // (4 * 128) - 16 * 15)
+                // (stacks + 48 + 16))
+    return (((12_500_000 - args_bytes) // (4 * 128) - 4 - 16 * 13)
+            // (stacks + 32 + 16))
+
+
+def layout_refusal(model, maxdepth: int, warmup: bool):
+    """Why the fused NUTS warmup or posterior kernels do not take
+    ``model``'s data, or None.  A model with data runs only in the
+    chains-on-lanes layout (kernels K1-args / K2-args).  Where its data fail
+    the rule there, the JAX posterior runner streams them from device
+    memory (``chain.py:747-765``) and, above the layout's limit on d, both
+    JAX runners differentiate ``pallas_spec`` in the dim-on-lanes layout
+    (``:795-801,1038-1044``); neither is ported."""
+    if not model.carries_data:
+        return None
+    what = "warmup" if warmup else "posterior"
+    if model.dim <= cl_max_dim(maxdepth, warmup, model.data_bytes):
+        return None
+    if model.dim <= cl_max_dim(maxdepth, warmup):
+        return (f"model {model.name!r}: {model.data_bytes} bytes of data do "
+                f"not fit the chains-on-lanes {what} launch at dim "
+                f"{model.dim}; such data stream from device memory (kernel "
+                "K1-stream, item 12)")
+    return (f"model {model.name!r} carries data at dim {model.dim}, above "
+            f"the chains-on-lanes {what} layout's "
+            f"{cl_max_dim(maxdepth, warmup)}: the dim-on-lanes kernels "
+            "read no model data (item 12)")
 
 
 def fused_layout(model, config: "ChainConfig", warmup: bool) -> str:
     """The layout of the fused NUTS warmup or posterior kernel for
     ``model``: ``"cl"`` or ``"ld"``."""
-    limit = cl_max_dim(config.nuts.maxdepth, warmup)
+    reason = layout_refusal(model, config.nuts.maxdepth, warmup)
+    if reason is not None:
+        raise NotImplementedError("not ported yet (see ROADMAP.md): "
+                                  + reason)
+    limit = cl_max_dim(config.nuts.maxdepth, warmup, model.data_bytes)
     return "ld" if model.dim > limit else "cl"
 
 

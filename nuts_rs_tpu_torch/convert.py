@@ -8,7 +8,9 @@ and the JAX package's state alike, without importing JAX; with
 point carries its velocity ``v`` and kinetic energy ``ke``, which MCLMC
 threads from one draw to the next, and the step state carries MCLMC's
 jittered ``step_size``.  Model parameters pass through ``Model``
-construction, not through the state.
+construction, not through the state; ``model_from_pallas_args`` builds a
+data-carrying model of this package from the arrays the JAX model hands to
+the Pallas kernels' ``model_args`` channel.
 """
 
 from __future__ import annotations
@@ -20,6 +22,10 @@ from .adapt.mass_matrix import DiagAdaptState, RunningVariance
 from .adapt.step_size import StepSizeState
 from .chain import ChainState
 from .dynamics.point import Point
+from .models.gaussian import (
+    logistic_regression_from_tensors,
+    logistic_regression_tensors,
+)
 from .transform.affine import AffineTransform
 
 _ESTIMATORS = ("draw", "grad", "draw_bg", "grad_bg")
@@ -78,3 +84,18 @@ def state_from_numpy(arrays, device="cpu", dtype=torch.float32) -> ChainState:
         for name in _STEP_FIELDS})
     return ChainState(pt=pt, transform=transform, diag_adapt=diag, step=step,
                       draw_idx=int(np.asarray(arrays["draw_idx"])))
+
+
+def model_from_pallas_args(kind: str, args, name=None):
+    """This package's model from the numpy arrays of the JAX model's
+    ``pallas_logp_grad`` (``(fn, args)``), so that both packages evaluate
+    the same data.  ``kind`` names the model family: ``"logistic_regression"``
+    takes ``(x [N, d], y [N, 1])`` and holds them as the device functor
+    reads them, ``(xt [d, N], y [N])``."""
+    if kind != "logistic_regression":
+        raise NotImplementedError(
+            f"no data-carrying model {kind!r} is ported (ROADMAP.md queue 1 "
+            "item 10)")
+    x, y = (np.asarray(a) for a in args)
+    return logistic_regression_from_tensors(
+        *logistic_regression_tensors(x, y), name=name)

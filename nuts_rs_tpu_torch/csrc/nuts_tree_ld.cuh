@@ -19,11 +19,15 @@
 // (warmup) does, and the chains agree on it through distributed shared
 // memory and one cluster barrier (ClusterMax), not once per iteration.
 //
-// Every per-chain contraction goes through Reducer::sum, whose order is the
-// one of nuts_rs_tpu_torch/ops.py::tsum: each thread adds its coordinates in
-// ascending order (0.0 for a missing one), a __shfl_xor_sync butterfly
-// (16, 8, 4, 2, 1) halves the 32 partials of a warp, and every thread then
-// halves the LD_W warp sums (4, 2, 1) read from shared memory.  The Pallas
+// The mid-d chains-on-lanes kernels (nuts_fused_mid_*.cu, template flag MID)
+// are built on the same pieces: they keep the chains-on-lanes numbering of a
+// vector site, j * B + b, so that a configuration whose layout is "cl" in
+// the JAX runners takes the cl random stream, and they evaluate the model
+// through its eval_block form (models.cuh), in which the block's threads
+// see the whole position vector and the model's data.
+//
+// Every per-chain contraction goes through Reducer::sum (block_sum.cuh),
+// whose order is the one of nuts_rs_tpu_torch/ops.py::tsum.  The Pallas
 // body's cross-dot matrix caches these same dots; here the few rows a
 // leapfrog's checks need are read from the stacks directly, which gives the
 // same values.
@@ -34,6 +38,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "block_sum.cuh"
 #include "nuts_tree.cuh"
 #include "rng.cuh"
 
@@ -41,56 +46,18 @@ namespace nrt {
 
 namespace cg = cooperative_groups;
 
-constexpr int LD_T = 256;          // threads per chain; ops.py::TSUM_THREADS
-constexpr int LD_W = LD_T / 32;    // warps per chain
-constexpr int LD_NRED = 11;        // most sums of one Reducer::sum call
 constexpr int LD_MAX_CLUSTER = 8;  // chains per logical block (portable size)
 // live vectors of a chain in shared memory (LdChain's 18; the posterior
 // kernel adds dm_q, ds_q, q1)
 constexpr int LD_WARM_NVEC = 18;
 constexpr int LD_POST_NVEC = 21;
 
-// Block-wide sums in the fixed order above.  Two scratch buffers alternate,
-// so one __syncthreads per call is enough: a buffer is written again only
-// after every thread has passed the barrier of the call in between.
-struct Reducer {
-  float* scratch;  // shared memory, [2][LD_NRED][LD_W]
-  int parity;
-
-  template <int N>
-  __device__ __forceinline__ void sum(float (&v)[N]) {
-    static_assert(N <= LD_NRED, "scratch too small");
-    float* buf = scratch + parity * (LD_NRED * LD_W);
-    parity ^= 1;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float x = v[k];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        x = x + __shfl_xor_sync(0xffffffffu, x, o);
-      if (lane == 0) buf[k * LD_W + warp] = x;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float p[LD_W];
-#pragma unroll
-      for (int w = 0; w < LD_W; ++w) p[w] = buf[k * LD_W + w];
-#pragma unroll
-      for (int h = LD_W / 2; h > 0; h >>= 1)
-#pragma unroll
-        for (int w = 0; w < h; ++w) p[w] = p[w] + p[w + h];
-      v[k] = p[0];
-    }
-  }
-};
-
-// Accumulate one coordinate's term into a thread's partial: the first term
-// starts the sum, as tsum starts from the first row.
-__device__ __forceinline__ void acc(float& s, int i, float term) {
-  s = (i == 0) ? term : s + term;
+// Index of a vector site's element for lane b of a logical block of B
+// chains and coordinate j: the flat position in the block's (B, d) shape in
+// the dim-on-lanes layout, in its (d, B) shape in the chains-on-lanes one.
+template <bool MID>
+__device__ __forceinline__ uint32_t block_site(int b, int B, int d, int j) {
+  return MID ? (uint32_t)j * (uint32_t)B + (uint32_t)b : ld_site(b, d, j);
 }
 
 // max(value) over the blocks of the cluster (the chains of a logical block).
@@ -159,11 +126,14 @@ struct LdLeap {
 // One leapfrog from the moving edge with the model, the checkpoint-stack
 // writes and every U-turn check of the new leaf (nuts_pallas.py:348-576).
 // Writes z1, v2, zg1 (and q1 where the caller keeps it) and the stack rows.
-template <class Model>
+// With MID the model is evaluated in its eval_block form between two passes
+// over the coordinates: q1_keep must be given, and `scratch` is the
+// functor's shared memory.
+template <bool MID, class Model>
 __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
                                               const Model& model, float dirf,
                                               float step, int leaf, int depth,
-                                              float* q1_keep) {
+                                              float* q1_keep, float* scratch) {
   const int d = c.d, D = c.D;
   const float eps = dirf * step;
   const float half = eps / 2.0f;
@@ -182,7 +152,22 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
   const float* b0_z = c.lz + (size_t)D * d;
   const float* b0_v = c.lv + (size_t)D * d;
 
-  // sums: model term, v2.v2, z1.v2, then the top-level dots far_z.far_v,
+  float logp_block = 0.0f;
+  if constexpr (MID) {
+    // first pass: the half step and the new position; v2 holds v1 and zg1
+    // the model's gradient until the second pass
+    for (int j = threadIdx.x; j < d; j += LD_T) {
+      const float v1 = c.e_v[j] + half * c.e_zg[j];
+      const float z1 = c.e_z[j] + eps * v1;
+      c.z1[j] = z1;
+      c.v2[j] = v1;
+      q1_keep[j] = z1 * c.stds[j] + c.mean[j];
+    }
+    __syncthreads();
+    logp_block = model.eval_block(q1_keep, c.zg1, d, red, scratch);
+  }
+
+  // sums: model term (0 with MID), v2.v2, z1.v2, then the top-level dots far_z.far_v,
   // z1.far_v, far_z.v2, near_z.near_v, z1.near_v, near_z.v2, b0_z.far_v,
   // far_z.b0_v (the last five only matter at depth > 0)
   float s[LD_NRED];
@@ -191,17 +176,24 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
     float t[LD_NRED];
     if (j < d) {
       const float sd = c.stds[j];
-      const float v1 = c.e_v[j] + half * c.e_zg[j];
-      const float z1 = c.e_z[j] + eps * v1;
-      const float q1 = z1 * sd + c.mean[j];
-      float g1;
-      t[0] = model.term(q1, g1);
+      float v1, z1, g1;
+      if constexpr (MID) {
+        v1 = c.v2[j];
+        z1 = c.z1[j];
+        g1 = c.zg1[j];
+        t[0] = 0.0f;
+      } else {
+        v1 = c.e_v[j] + half * c.e_zg[j];
+        z1 = c.e_z[j] + eps * v1;
+        const float q1 = z1 * sd + c.mean[j];
+        t[0] = model.term(q1, g1);
+        c.z1[j] = z1;
+        if (q1_keep != nullptr) q1_keep[j] = q1;
+      }
       const float zg1 = g1 * sd;
       const float v2 = v1 + half * zg1;
-      c.z1[j] = z1;
       c.v2[j] = v2;
       c.zg1[j] = zg1;
-      if (q1_keep != nullptr) q1_keep[j] = q1;
       lz_l[j] = z1;
       lv_l[j] = v2;
       mz_m[j] = z1;
@@ -232,7 +224,10 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
   red.sum(s);
 
   LdLeap out;
-  out.logp1 = model.finish(s[0]);
+  if constexpr (MID)
+    out.logp1 = logp_block;
+  else
+    out.logp1 = model.finish(s[0]);
   out.ke1 = 0.5f * s[1];
   out.d1 = s[2];
   const float d1 = out.d1;
@@ -301,7 +296,8 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
   return out;
 }
 
-// Shared-memory floats of a chain block with `nvec` live vectors.
+// Shared-memory floats of a chain block with `nvec` live vectors; a model
+// functor's scratch (the eval_block form) follows them.
 __host__ __device__ inline size_t ld_smem_floats(int nvec, int d, int D) {
   return (size_t)nvec * d + 2 * (D + 1) + 2 * LD_NRED * LD_W +
          2 * LD_MAX_CLUSTER;

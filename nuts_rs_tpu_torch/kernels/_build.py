@@ -32,14 +32,17 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# (d, maxdepth) instantiations of the chains-on-lanes NUTS kernels; other
-# sizes raise.  The MCLMC kernels are instantiated for the same d
-# (``DIMS``), both kinetic energies and both settings of
-# ``dynamic_step_size``.  The dim-on-lanes (ld) NUTS kernels take d and
-# maxdepth at run time.
+# (d, maxdepth) instantiations of the thread-per-chain chains-on-lanes NUTS
+# kernels; other sizes up to ``CL_THREAD_MAX_DIM`` raise.  The MCLMC kernels
+# are instantiated for the same d (``DIMS``), both kinetic energies and both
+# settings of ``dynamic_step_size``.  The mid-d chains-on-lanes kernels
+# (above ``CL_THREAD_MAX_DIM``, and every model with data) and the
+# dim-on-lanes (ld) NUTS kernels take d and maxdepth at run time.
 SIZES = tuple((d, 10) for d in (3, 4, 6, 10))
 DIMS = tuple(sorted({d for d, _ in SIZES}))
-MODEL_IDS = {"iid_normal": 0}
+CL_THREAD_MAX_DIM = max(DIMS)
+# nrt::ModelId of each kernel hook name (csrc/models.cuh)
+MODEL_IDS = {"iid_normal": 0, "logistic_regression": 1}
 MAX_BLOCK = 128  # nrt::MAX_BLOCK, the kernels' __launch_bounds__
 # ld kernels: chains per logical block = CUDA blocks per cluster
 # (nrt::LD_MAX_CLUSTER, the portable cluster size); live vectors a chain
@@ -47,7 +50,9 @@ MAX_BLOCK = 128  # nrt::MAX_BLOCK, the kernels' __launch_bounds__
 # shared memory a block may opt in to on sm_90.
 MAX_LD_BLOCK = 8
 LD_NVEC = {"posterior": 21, "warmup": 18}
-LD_REDUCE_FLOATS = 2 * 11 * 8  # two scratch buffers of LD_NRED x LD_W sums
+MID_NVEC = {"posterior": 21, "warmup": 19}  # the warmup keeps q1 as well
+LD_WARPS = 8  # nrt::LD_W, warps of a chain's block (ops.TSUM_THREADS / 32)
+LD_REDUCE_FLOATS = 2 * 11 * LD_WARPS  # two scratch buffers, LD_NRED x LD_W
 LD_MAX_MAXDEPTH = 30
 SMEM_OPT_IN_BYTES = 232448
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -143,6 +148,15 @@ def library():
     lib.nrt_ld_warmup_launch.restype = I
     lib.nrt_ld_smem_bytes.argtypes = [I, I, I]
     lib.nrt_ld_smem_bytes.restype = ctypes.c_longlong
+    lib.nrt_mid_posterior_launch.argtypes = (
+        [I, I, I, I, I, U, F, I, F, F, I] + [P] * 18 + [P])
+    lib.nrt_mid_posterior_launch.restype = I
+    lib.nrt_mid_warmup_launch.argtypes = (
+        [I, I, I, I, I, U, F, I, F, F, I, F, F, F, F, F, I] + [P] * 19
+        + [P])
+    lib.nrt_mid_warmup_launch.restype = I
+    lib.nrt_mid_smem_bytes.argtypes = [I, I, I, I, P]
+    lib.nrt_mid_smem_bytes.restype = ctypes.c_longlong
     lib.nrt_error_string.argtypes = [I]
     lib.nrt_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -221,22 +235,77 @@ def _common(q, model, opts, B):
     return C, d, D, model_id, params
 
 
-def _model_and_block(q, model, B, max_block=MAX_BLOCK):
+def _model_and_block(q, model, B, max_block=MAX_BLOCK, data=False):
     """(model id, params) of the kernel hook, after the device and block
-    checks."""
+    checks.  ``data``: the kernel reads the hook's tensors (only the mid-d
+    kernels do)."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {q.device}")
     C = q.shape[0]
-    hook = model.kernel_hook
-    if hook is None or hook[0] not in MODEL_IDS:
+    if model.kernel_hook is None or model.hook_parts()[0] not in MODEL_IDS:
         raise NotImplementedError(
             f"model {model.name!r} has no kernel hook the CUDA kernels "
             "compile in (ROADMAP.md queue 1 item 10)")
+    name, floats, tensors = model.hook_parts()
+    if tensors and not data:
+        raise NotImplementedError(
+            f"model {model.name!r} carries data, which only the mid-d "
+            "chains-on-lanes NUTS kernels read (ROADMAP.md queue 1 item 12)")
     if not 1 <= B <= max_block or C % B:
         raise ValueError(f"chain block {B} must divide num_chains ({C}) and "
                          f"be at most {max_block}")
-    params = (ctypes.c_float * max(1, len(hook[1])))(*hook[1])
-    return MODEL_IDS[hook[0]], params
+    params = (ctypes.c_float * max(1, len(floats)))(*floats)
+    return MODEL_IDS[name], params
+
+
+def _logistic_regression_data(tensors, d, device):
+    """Checks ``(xt [d, N], y [N])``; returns the functor's sizes (N, d)."""
+    if len(tensors) != 2:
+        raise ValueError("logistic_regression carries (xt [d, N], y [N])")
+    xt, y = tensors
+    N = y.shape[0] if isinstance(y, torch.Tensor) and y.dim() == 1 else -1
+    check_tensor("xt", xt, (d, N), device)
+    check_tensor("y", y, (N,), device)
+    if N < 1:
+        raise ValueError("logistic_regression needs at least one row")
+    return (N, d)
+
+
+def _no_data(tensors, d, device):
+    if tensors:
+        raise ValueError("iid_normal carries no data")
+    return ()
+
+
+# per kernel hook name: (the check of its tensors, which returns the ints
+# the functor takes; the functor's shared-memory scratch in floats from
+# those ints), as csrc/models.cuh::with_block_model and scratch_floats
+_MODEL_DATA = {
+    "iid_normal": (_no_data, lambda ints: 0),
+    "logistic_regression": (_logistic_regression_data,
+                            lambda ints: ints[0] + LD_WARPS * ints[1]),
+}
+
+
+def model_data_args(model, d, device):
+    """(ints, ptrs) of a model's hook tensors for a mid-d launch, after the
+    functor's own check of them on ``device``."""
+    name, _, tensors = model.hook_parts()
+    ints = _MODEL_DATA[name][0](tensors, d, torch.device(device))
+    return ints, [t.data_ptr() for t in tensors]
+
+
+def mid_smem_bytes(kind, d, maxdepth, model):
+    """Dynamic shared memory of one chain's CUDA block in the mid-d kernel
+    ``kind`` ("posterior" / "warmup"): the dim-on-lanes layout of
+    ``ld_smem_bytes`` with ``MID_NVEC`` vectors, then the model functor's
+    scratch, whose size comes from the functor's check of the model's data
+    where they lie."""
+    name, _, tensors = model.hook_parts()
+    ints = _MODEL_DATA[name][0](tensors, d, tensors[0].device if tensors
+                                else None)
+    return 4 * (MID_NVEC[kind] * d + 2 * (maxdepth + 1) + LD_REDUCE_FLOATS
+                + 2 * MAX_LD_BLOCK + _MODEL_DATA[name][1](ints))
 
 
 def _mclmc_common(q, model, mopts, B):
@@ -296,6 +365,39 @@ def _ld_common(kind, q, model, opts, B):
                            f"shared memory, _build.ld_smem_bytes {need}")
     work = torch.empty(C, 4, D + 1, d, dtype=torch.float32, device=q.device)
     return C, d, D, model_id, params, work, lib
+
+
+def _mid_common(kind, q, model, opts, B):
+    """(C, d, D, model id, params, ptrs, ints, workspace, lib) of a mid-d
+    launch, after the device, block, size and data checks.  ``ptrs`` and
+    ``ints`` are ctypes arrays of the hook tensors' device pointers and of
+    the sizes their functor takes."""
+    model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK, data=True)
+    C, d = q.shape
+    D = opts.maxdepth
+    if not 1 <= D <= LD_MAX_MAXDEPTH:
+        raise NotImplementedError(
+            f"the mid-d CUDA kernels take maxdepth 1..{LD_MAX_MAXDEPTH}, "
+            f"got {D}")
+    ints, ptrs = model_data_args(model, d, q.device)
+    need = mid_smem_bytes(kind, d, D, model)
+    if need > SMEM_OPT_IN_BYTES:
+        raise NotImplementedError(
+            f"model {model.name!r} at dim {d} needs {need} bytes of shared "
+            f"memory per chain in the mid-d {kind} kernel; a block has "
+            f"{SMEM_OPT_IN_BYTES}: data of that size must stream (kernel "
+            "K1-stream, ROADMAP.md queue 1 item 12)")
+    c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
+    c_ptrs = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+    lib = library()
+    built = lib.nrt_mid_smem_bytes(int(kind == "warmup"), d, D, model_id,
+                                   ctypes.cast(c_ints, ctypes.c_void_p))
+    if built != need:
+        raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
+                           f"for the mid-d {kind} kernel, "
+                           f"_build.mid_smem_bytes {need}")
+    work = torch.empty(C, 4, D + 1, d, dtype=torch.float32, device=q.device)
+    return C, d, D, model_id, params, c_ptrs, c_ints, work, lib
 
 
 def _raise_on(rc, lib, what):
@@ -440,6 +542,80 @@ def launch_ld_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
             stds_f.data_ptr(), mean_f.data_ptr(), est_f.data_ptr(),
             sca_f.data_ptr(), iters.data_ptr(), work.data_ptr(), stream)
     _raise_on(rc, lib, "nuts_fused_ld_warmup")
+    return (draws, stats, q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
+            iters)
+
+
+def launch_mid_posterior(seed, q, g, logp, stds, mean, logdet, step0,
+                         step_bar, K, model, opts, jitter, B):
+    """Launch csrc/nuts_fused_mid_posterior.cu; returns (draws [K, C, d],
+    stats [K, C, NSTATS], q_f, g_f [C, d], logp_f [C], iters [C])."""
+    check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
+    (C, d, D, model_id, params, ptrs, ints, work,
+     lib) = _mid_common("posterior", q, model, opts, B)
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, C, d, **f32)
+    stats = torch.empty(K, C, 13, **f32)
+    q_f, g_f = torch.empty(C, d, **f32), torch.empty(C, d, **f32)
+    logp_f = torch.empty(C, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(jitter)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_mid_posterior_launch(
+            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            float(opts.max_energy_error), hj, jc1, jc2, model_id,
+            ctypes.cast(params, ctypes.c_void_p),
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(ints, ctypes.c_void_p),
+            q.data_ptr(), g.data_ptr(), logp.data_ptr(), stds.data_ptr(),
+            mean.data_ptr(), logdet.data_ptr(), step0.data_ptr(),
+            step_bar.data_ptr(), draws.data_ptr(), stats.data_ptr(),
+            q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
+            iters.data_ptr(), work.data_ptr(), stream)
+    _raise_on(rc, lib, "nuts_fused_mid_posterior")
+    return draws, stats, q_f, g_f, logp_f, iters
+
+
+def launch_mid_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
+                      opts, sset, use_grad_based, B):
+    """Launch csrc/nuts_fused_mid_warmup.cu; returns (draws [K, C, d],
+    stats [K, C, NSTATS_W], q, g, logp, stds, mean, est, sca, iters).  As
+    the ld warmup kernel, it keeps a chain's current q and g and its
+    estimator planes in the output buffers, which start as copies of the
+    inputs."""
+    check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
+    (C, d, D, model_id, params, ptrs, ints, work,
+     lib) = _mid_common("warmup", q, model, opts, B)
+    dev = q.device
+    K = flags.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, C, d, **f32)
+    stats = torch.empty(K, C, 15, **f32)
+    q_f, g_f, est_f = q.clone(), g.clone(), est.clone()
+    logp_f = torch.empty(C, **f32)
+    stds_f, mean_f = torch.empty(C, d, **f32), torch.empty(C, d, **f32)
+    sca_f = torch.empty(C, 10, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(sset.jitter)
+    da = sset.dual_average
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_mid_warmup_launch(
+            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            float(opts.max_energy_error), hj, jc1, jc2, int(use_grad_based),
+            float(sset.target_accept), float(da.t0), float(da.gamma),
+            float(-da.k), math.log(da.max_step_size), model_id,
+            ctypes.cast(params, ctypes.c_void_p),
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(ints, ctypes.c_void_p), flags.data_ptr(),
+            logp.data_ptr(), stds.data_ptr(), mean.data_ptr(),
+            sca.data_ptr(), draws.data_ptr(), stats.data_ptr(),
+            q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
+            stds_f.data_ptr(), mean_f.data_ptr(), est_f.data_ptr(),
+            sca_f.data_ptr(), iters.data_ptr(), work.data_ptr(), stream)
+    _raise_on(rc, lib, "nuts_fused_mid_warmup")
     return (draws, stats, q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
             iters)
 

@@ -5,16 +5,27 @@ Port of ``nuts_rs_tpu/kernels/nuts_pallas.py``: ``nuts_pallas_run``
 CUDA kernel ``csrc/nuts_fused_posterior.cu``, and ``nuts_pallas_warmup_run``
 (``:1532``, body ``make_warmup_kernel`` ``:942``) becomes
 ``nuts_fused_warmup_run`` with ``csrc/nuts_fused_warmup.cu``.  Both
-layouts of those bodies are ported with the plain diagonal evaluation (no
-model args, flow or stream; ROADMAP.md queue 2): ``layout="cl"``
-(chains-on-lanes, one thread per chain, small d) and ``layout="ld"``
+layouts of those bodies are ported, without flow or stream (ROADMAP.md
+queue 2): ``layout="cl"`` (chains-on-lanes) and ``layout="ld"``
 (dim-on-lanes, ``nuts_pallas.py:123-136``: large d), whose kernels are
 ``csrc/nuts_fused_ld_posterior.cu`` and ``csrc/nuts_fused_ld_warmup.cu``:
 one CUDA block of ``ops.TSUM_THREADS`` threads per chain and one thread
 block cluster per logical chain block.  The layouts share the tree
 algorithm, salts and stats.  They differ in the index of a vector random
-site (``rng.BlockRng``), in the order of every sum over the parameter axis
-(``ops.dsum`` in cl, ``ops.tsum`` in ld) and in the default chain block.
+site (``rng.BlockRng``) and in the default chain block.
+
+Two kernel pairs serve ``layout="cl"`` (:func:`cl_kernel`).  Up to
+``_build.CL_THREAD_MAX_DIM`` dimensions a model without data takes the
+thread-per-chain kernels above (sizes as template parameters, every sum over
+the parameter axis in coordinate order, ``ops.dsum``).  Above that, and for
+every model that carries data (the ``n_model_args > 0`` variants of the
+Pallas bodies, ``nuts_pallas.py:84,159-166`` and ``:944,975-979``: K1-args
+and K2-args), it takes the mid-d kernels ``csrc/nuts_fused_mid_posterior.cu``
+and ``csrc/nuts_fused_mid_warmup.cu``: the ld kernels' bodies (256 threads
+a chain, d and maxdepth at launch, sums in ``ops.tsum``'s order, logical
+blocks of at most 8 chains, by default 1) with the cl site index and the model evaluated
+by the block's threads together.  A model's data travel in its
+``kernel_hook`` (``models/model.py``), not in an argument of their own.
 
 Each kernel has a plain PyTorch version here (``*_reference``): the same
 tree algorithm, the same counter-hash random sites with the same salts,
@@ -39,12 +50,16 @@ import math
 import torch
 
 from ..ops import dsum, tsum
+from ..ops import logaddexp as _logaddexp
 from ._build import (
+    CL_THREAD_MAX_DIM,
     MAX_LD_BLOCK,
     check_posterior_args,
     check_warmup_args,
     launch_ld_posterior,
     launch_ld_warmup,
+    launch_mid_posterior,
+    launch_mid_warmup,
     launch_posterior,
     launch_warmup,
 )
@@ -83,24 +98,25 @@ SCA_TID = 8
 SCA_LOGDET = 9
 NSCA = 10
 
-DEFAULT_BLOCK = 32  # cl: chains per CUDA block, one warp
+DEFAULT_BLOCK = 32  # cl, thread per chain: chains per CUDA block, one warp
 # ld: chains per logical block = CUDA blocks per cluster (the portable
 # cluster size, and the JAX package's smallest ld tier)
 DEFAULT_LD_BLOCK = MAX_LD_BLOCK
+# mid-d cl: a chain alone.  The chains of a logical block share only the
+# iteration counter, so a larger block buys nothing and costs the wait for
+# the block's slowest chain (posterior) or longest tree (warmup, per draw),
+# and clusters of 8 fill the card in coarser waves (PERF.md: 1.4x and 1.9x
+# the time per launch at 8 on the data path); blocks up to 8 stay available.
+DEFAULT_MID_BLOCK = 1
+_DEFAULT_BLOCKS = {"thread": DEFAULT_BLOCK, "mid": DEFAULT_MID_BLOCK,
+                   "ld": DEFAULT_LD_BLOCK}
 
 LAUNCHES = {"nuts_fused_posterior": 0, "nuts_fused_warmup": 0,
-            "nuts_fused_ld_posterior": 0, "nuts_fused_ld_warmup": 0}
+            "nuts_fused_ld_posterior": 0, "nuts_fused_ld_warmup": 0,
+            "nuts_fused_mid_posterior": 0, "nuts_fused_mid_warmup": 0}
 
 _F32 = torch.float32
 _NEG_INF = float("-inf")
-
-
-def _logaddexp(x1, x2):
-    """jax.lax.logaddexp's formula (lax/other.py), which the kernels share."""
-    amax = torch.maximum(x1, x2)
-    delta = x1 - x2
-    return torch.where(torch.isnan(delta), x1 + x2,
-                       amax + torch.log1p(torch.exp(-torch.abs(delta))))
 
 
 def _block_any(x, B):
@@ -186,9 +202,24 @@ def _check_layout(layout):
     return layout == "ld"
 
 
-def _check_block(C, block, layout="cl"):
+def cl_kernel(model, dim):
+    """The kernel pair that serves ``layout="cl"`` for ``model`` at ``dim``:
+    ``"thread"`` (one thread per chain, instantiated sizes) or ``"mid"``
+    (256 threads a chain, any size, the only one that reads a model's
+    data).  The plain versions take its sum order and default block."""
+    if dim > CL_THREAD_MAX_DIM or model.carries_data:
+        return "mid"
+    return "thread"
+
+
+def _kernel_kind(model, dim, layout):
+    """``"ld"``, ``"mid"`` or ``"thread"``: the kernel pair of a call."""
+    return "ld" if _check_layout(layout) else cl_kernel(model, dim)
+
+
+def _check_block(C, block, kind="thread"):
     if block is None:
-        block = DEFAULT_LD_BLOCK if layout == "ld" else DEFAULT_BLOCK
+        block = _DEFAULT_BLOCKS[kind]
     B = min(block, C)
     if C % B:
         raise ValueError(f"num_chains ({C}) must be a multiple of the chain "
@@ -196,19 +227,20 @@ def _check_block(C, block, layout="cl"):
     return B
 
 
-def _evaluators(model, ld):
-    """(csum, logp_and_grad) of a layout: its sum over the parameter axis,
-    and the model evaluated as the kernel evaluates it, through the plain
-    counterpart of its device functor with that sum.  A model without a
-    functor has no kernel to agree with and is evaluated as it is."""
+def _evaluators(model, kind):
+    """(csum, logp_and_grad) of a kernel pair ("thread", "mid" or "ld"):
+    its sum over the parameter axis, and the model evaluated as the kernel
+    evaluates it, through the plain counterpart of its device functor with
+    that sum.  A model without a functor has no kernel to agree with and is
+    evaluated as it is."""
     from ..models.gaussian import PLAIN_FUNCTORS
 
-    csum = tsum if ld else dsum
+    csum = dsum if kind == "thread" else tsum
     if model.kernel_hook is None:
         return csum, model.logp_and_grad
-    name, params = model.kernel_hook
+    name, floats, tensors = model.hook_parts()
     functor = PLAIN_FUNCTORS[name]
-    return csum, lambda q: functor(q, *params, csum)
+    return csum, lambda q: functor(q, *floats, *tensors, csum)
 
 
 def _jitter_consts(jitter):
@@ -230,9 +262,9 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
     Same arguments and results as :func:`nuts_fused_run`."""
     C, d = q.shape
     K = num_draws
-    ld = _check_layout(layout)
-    csum, logp_and_grad = _evaluators(model, ld)
-    B = _check_block(C, block, layout)
+    kind = _kernel_kind(model, d, layout)
+    csum, logp_and_grad = _evaluators(model, kind)
+    B = _check_block(C, block, kind)
     D = opts.maxdepth
     max_err = float(opts.max_energy_error)
     dev = q.device
@@ -408,23 +440,26 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
     a dict of [C, K] float32 arrays keyed by ``STAT_NAMES`` plus
     ``loop_iterations`` [C].  The first draw of each chain uses ``step0``;
     later draws use ``step_bar`` jittered by ``jitter``.  ``block`` is the
-    logical chain block (default 32 in cl, 8 in ld).
+    logical chain block (default 32 for the thread-per-chain cl kernel, 1
+    for the mid-d cl kernel, 8 for the ld kernel).
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
-    ``csrc/nuts_fused_posterior.cu`` (cl) or
-    ``csrc/nuts_fused_ld_posterior.cu`` (ld)."""
+    ``csrc/nuts_fused_posterior.cu`` or ``csrc/nuts_fused_mid_posterior.cu``
+    (cl, see :func:`cl_kernel`) or ``csrc/nuts_fused_ld_posterior.cu``
+    (ld)."""
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar,
                          num_draws)
-    ld = _check_layout(layout)
+    kind = _kernel_kind(model, q.shape[1], layout)
     if q.device.type == "cpu":
         return nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet,
                                         step0, step_bar, num_draws, model,
                                         opts, jitter, block, layout)
-    if ld:
-        draws, stats, q_f, g_f, logp_f, iters = launch_ld_posterior(
+    if kind != "thread":
+        launch = launch_ld_posterior if kind == "ld" else launch_mid_posterior
+        draws, stats, q_f, g_f, logp_f, iters = launch(
             seed, q, g, logp, stds, mean, logdet, step0, step_bar, num_draws,
-            model, opts, jitter, _check_block(q.shape[0], block, layout))
-        LAUNCHES["nuts_fused_ld_posterior"] += 1
+            model, opts, jitter, _check_block(q.shape[0], block, kind))
+        LAUNCHES[f"nuts_fused_{kind}_posterior"] += 1
         stats_out = {name: stats[:, :, i].T
                      for i, name in enumerate(STAT_NAMES)}
         stats_out["loop_iterations"] = iters
@@ -451,9 +486,9 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
     Same arguments and results as :func:`nuts_fused_warmup_run`."""
     C, d = q.shape
     K = flags.shape[0]
-    ld = _check_layout(layout)
-    csum, logp_and_grad = _evaluators(model, ld)
-    B = _check_block(C, block, layout)
+    kind = _kernel_kind(model, d, layout)
+    csum, logp_and_grad = _evaluators(model, kind)
+    B = _check_block(C, block, kind)
     D = opts.maxdepth
     max_err = float(opts.max_energy_error)
     da = sset.dual_average
@@ -661,24 +696,26 @@ def nuts_fused_warmup_run(seed, flags, q, g, logp, stds, mean, est, sca,
     (``SCA_*``).  Returns (q, g, logp, stds, mean, est, sca, draws
     [C, K, d], stats) with stats a dict of [C, K] arrays keyed by
     ``WARMUP_STAT_NAMES`` plus ``loop_iterations`` [C].  The chains of a
-    logical block of ``block`` chains (default 32 in cl, 8 in ld) share the
-    iteration counter and wait for the block's longest tree in every draw.
+    logical block of ``block`` chains (default 32 for the thread-per-chain
+    cl kernel, 1 for the mid-d cl kernel, 8 for the ld kernel) share the iteration
+    counter and wait for the block's longest tree in every draw.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
-    ``csrc/nuts_fused_warmup.cu`` (cl) or ``csrc/nuts_fused_ld_warmup.cu``
-    (ld)."""
+    ``csrc/nuts_fused_warmup.cu`` or ``csrc/nuts_fused_mid_warmup.cu`` (cl,
+    see :func:`cl_kernel`) or ``csrc/nuts_fused_ld_warmup.cu`` (ld)."""
     check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
-    ld = _check_layout(layout)
+    kind = _kernel_kind(model, q.shape[1], layout)
     if q.device.type == "cpu":
         return nuts_fused_warmup_run_reference(
             seed, flags, q, g, logp, stds, mean, est, sca, model, opts, sset,
             use_grad_based, block, layout)
-    if ld:
+    if kind != "thread":
+        launch = launch_ld_warmup if kind == "ld" else launch_mid_warmup
         (draws, stats, q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
-         iters) = launch_ld_warmup(seed, flags, q, g, logp, stds, mean, est,
-                                   sca, model, opts, sset, use_grad_based,
-                                   _check_block(q.shape[0], block, layout))
-        LAUNCHES["nuts_fused_ld_warmup"] += 1
+         iters) = launch(seed, flags, q, g, logp, stds, mean, est, sca,
+                         model, opts, sset, use_grad_based,
+                         _check_block(q.shape[0], block, kind))
+        LAUNCHES[f"nuts_fused_{kind}_warmup"] += 1
         stats_out = {name: stats[:, :, i].T
                      for i, name in enumerate(WARMUP_STAT_NAMES)}
         stats_out["loop_iterations"] = iters

@@ -9,7 +9,9 @@ Where the JAX model carries its Pallas hooks (``pallas_spec``,
 ``pallas_logp_grad``, ``pallas_stream``, ``model.py:103-119``), this one
 carries ``kernel_hook``: the name of a ``__device__`` model functor that is
 compiled into the fused CUDA kernels (``csrc/models.cuh``), with its float
-parameters.
+parameters and, for a model with data, its tensors: the counterpart of the
+arrays in ``pallas_logp_grad`` that the Pallas kernels' ``model_args``
+channel carries.
 """
 
 from __future__ import annotations
@@ -44,10 +46,19 @@ class Model:
         uniforms in (0, 1) to initial positions; defaults to U(-2, 2) per
         coordinate (the nutpie convention).
     kernel_hook:
-        ``(name, (float, ...))``: the device model functor the fused CUDA
-        kernels evaluate, and its parameters; the kernels' plain versions
-        evaluate its plain counterpart (``gaussian.PLAIN_FUNCTORS``).
-        Models without one cannot take the fused engine.
+        ``(name, (float, ...))`` or ``(name, (float, ...), (tensor, ...))``:
+        the device model functor the fused CUDA kernels evaluate, its float
+        parameters and the model's data, float32 tensors in the layout the
+        functor reads (``csrc/models.cuh``; ``kernels/_build.py`` checks
+        them per functor and hands their device pointers and sizes to the
+        launch).  The kernels' plain versions evaluate the functor's plain
+        counterpart, ``gaussian.PLAIN_FUNCTORS[name](q, *floats, *tensors,
+        csum)``.  Models without a hook cannot take the fused engine.
+        :meth:`hook_parts` reads either form.
+    on_device:
+        ``fn(device) -> Model``: the same model with its data (hook tensors
+        and whatever the closed forms capture) on ``device``; :meth:`to`
+        calls it.  Models without data need none.
     dims / coords:
         xarray-style dimension names / coordinate arrays.
     """
@@ -57,9 +68,35 @@ class Model:
     logp_grad_fn: Optional[Callable] = None
     init_position_fn: Optional[Callable] = None
     kernel_hook: Optional[tuple] = None
+    on_device: Optional[Callable] = None
     dims: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     coords: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     name: str = "model"
+
+    def hook_parts(self):
+        """``(name, floats, tensors)`` of the kernel hook."""
+        name, floats, *rest = self.kernel_hook
+        return name, tuple(floats), tuple(rest[0]) if rest else ()
+
+    @property
+    def carries_data(self) -> bool:
+        """Whether the kernels must read tensors of this model (the JAX
+        package's ``model_args``)."""
+        return self.kernel_hook is not None and bool(self.hook_parts()[2])
+
+    @property
+    def data_bytes(self) -> int:
+        """Bytes of the hook tensors: the JAX runners' ``args_bytes``."""
+        if self.kernel_hook is None:
+            return 0
+        return sum(t.numel() * t.element_size() for t in self.hook_parts()[2])
+
+    def to(self, device) -> "Model":
+        """This model with its data on ``device`` (itself when it has
+        none); the sampler calls it once, at construction."""
+        if self.on_device is None:
+            return self
+        return self.on_device(torch.device(device))
 
     def logp_and_grad(self, q: torch.Tensor):
         """Batched ``(logp [C], grad [C, d])`` at ``q [C, d]``."""

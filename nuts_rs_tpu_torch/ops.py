@@ -1,4 +1,5 @@
-"""Reductions with a fixed summation order.
+"""Reductions with a fixed summation order, and the other arithmetic that
+kernels, plain versions and host code must spell alike.
 
 Counterpart of ``nuts_rs_tpu/parallel/axis.py::dsum`` without the mesh
 axis.  The fused CUDA kernels sum over the parameter axis in order
@@ -17,6 +18,8 @@ halved in turn (``x[:h] + x[h:]``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -65,3 +68,25 @@ def dsum(x):
     for j in range(1, x.shape[-1]):
         s = s + x[..., j]
     return s
+
+
+def logaddexp(x1, x2):
+    """jax.lax.logaddexp's formula (lax/other.py) out of primitive tensor
+    operations, which the kernels share (csrc/nuts_tree.cuh)."""
+    amax = torch.maximum(x1, x2)
+    delta = x1 - x2
+    return torch.where(torch.isnan(delta), x1 + x2,
+                       amax + torch.log1p(torch.exp(-torch.abs(delta))))
+
+
+@contextlib.contextmanager
+def ieee_matmul():
+    """IEEE float32 matrix products on the card inside the block (no TF32),
+    for the host's evaluation of a model whose energies the sampler
+    compares; the setting is restored on leaving."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old

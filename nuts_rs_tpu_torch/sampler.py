@@ -10,7 +10,8 @@ free functions ``schema`` (``:2216``) and ``sample`` (``:2248``).
 This package runs the fused engines only.  NUTS: warmup on the fused
 warmup kernel, split at the step-size re-init draw, and the posterior on
 the fused posterior kernel, in the chains-on-lanes layout up to
-``cl_max_dim(maxdepth)`` dimensions and in the dim-on-lanes layout above
+``cl_max_dim(maxdepth)`` dimensions (less for a model with data, whose
+bytes the rule counts) and in the dim-on-lanes layout above
 (as the JAX runners choose, ``nuts_rs_tpu/chain.py:757-784``).  MCLMC: warmup on the fused MCLMC warmup
 kernel, split at the Euclidean -> microcanonical switch, and the posterior
 on the fused MCLMC posterior kernel.  ``posterior_kernel="pallas"`` keeps
@@ -39,13 +40,14 @@ from .chain import (
     DiagStrategy,
     cl_max_dim,
     init_chain_state,
+    layout_refusal,
     make_fused_mclmc_posterior_runner,
     make_fused_mclmc_warmup_runner,
     make_fused_posterior_runner,
     make_fused_warmup_runner,
 )
 from .dynamics.hamiltonian import KineticKind
-from .kernels import _build
+from .kernels import _build, nuts_fused
 from .kernels.mclmc import MclmcOptions
 from .kernels.nuts import NutsOptions
 from .models.model import Model
@@ -155,10 +157,7 @@ class NutsSettings:
         step-size re-init draw, so the init search runs at a launch
         boundary (adapt_strategy.rs:207-212), then the fused posterior.
         Raises ``NotImplementedError`` for what :meth:`unsupported` lists."""
-        reasons = self.unsupported(model, device)
-        if reasons:
-            raise NotImplementedError(
-                "not ported yet (see ROADMAP.md): " + "; ".join(reasons))
+        _refuse(self.unsupported(model, device))
         total = self.num_tune + self.num_draws
         post = make_fused_posterior_runner(model, config, self.num_tune,
                                            self.seed)
@@ -186,34 +185,70 @@ def DiagNutsSettings(**kw) -> NutsSettings:
     return NutsSettings(**kw)
 
 
+def _refuse(reasons):
+    if reasons:
+        raise NotImplementedError(
+            "not ported yet (see ROADMAP.md): " + "; ".join(reasons))
+
+
 def _model_reasons(model: Model, maxdepth: int, device, ld: bool) -> list:
     """What the fused kernels do not take of ``model`` on ``device``.
-    ``ld``: the sampler has a dim-on-lanes layout for models above
-    ``cl_max_dim`` (NUTS; the MCLMC kernels are chains-on-lanes only, as in
-    the JAX package, ``mclmc_pallas.py:62``)."""
+    ``ld``: the sampler is NUTS, which has a dim-on-lanes layout for models
+    above ``cl_max_dim`` and kernels that read a model's data; the MCLMC
+    kernels are chains-on-lanes only, as in the JAX package
+    (``mclmc_pallas.py:62``), and their data-carrying variants are not
+    ported."""
     reasons = []
     on_cuda = device is not None and torch.device(device).type == "cuda"
     if model.kernel_hook is None:
-        reasons.append(f"model {model.name!r} without a kernel_hook "
-                       "(item 10)")
-    if model.dim > cl_max_dim(maxdepth):
-        if not ld:
+        return [f"model {model.name!r} without a kernel_hook (item 10)"]
+    if not ld:
+        if model.carries_data:
+            reasons.append(
+                f"model {model.name!r} carries data: the fused MCLMC kernels "
+                "with model data (K3-args, K4-args) are not ported (item 12)")
+        if model.dim > cl_max_dim(maxdepth):
             reasons.append(
                 f"dim {model.dim} above the chains-on-lanes layout's "
                 f"{cl_max_dim(maxdepth)}: the fused MCLMC kernels have no "
                 "dim-on-lanes layout (item 8, the sync engines)")
-        elif on_cuda and (model.dim > _build.ld_max_dim(maxdepth)
-                          or maxdepth > _build.LD_MAX_MAXDEPTH):
+        elif on_cuda and model.dim not in _build.DIMS:
+            reasons.append(
+                f"dim {model.dim} on CUDA: the fused MCLMC kernels are "
+                f"instantiated for d in {_build.DIMS} (item 12, more kernel "
+                "sizes)")
+        return reasons
+    for warmup in (True, False):
+        reason = layout_refusal(model, maxdepth, warmup)
+        if reason is not None:
+            return [reason]
+    if not on_cuda:
+        return reasons
+    if maxdepth > _build.LD_MAX_MAXDEPTH:
+        reasons.append(f"maxdepth {maxdepth} on CUDA: the kernels that take "
+                       "maxdepth at launch take at most "
+                       f"{_build.LD_MAX_MAXDEPTH} (item 12)")
+    elif model.dim > cl_max_dim(maxdepth, False, model.data_bytes):
+        if model.dim > _build.ld_max_dim(maxdepth):
             reasons.append(
                 f"(dim, maxdepth) = {(model.dim, maxdepth)} on CUDA: the "
                 "dim-on-lanes kernels keep a chain's state in one block's "
                 f"shared memory, dim <= {_build.ld_max_dim(maxdepth)} "
                 f"(maxdepth <= {_build.LD_MAX_MAXDEPTH}) (item 12, larger d)")
-    elif on_cuda and (model.dim, maxdepth) not in _build.SIZES:
-        reasons.append(f"(dim, maxdepth) = {(model.dim, maxdepth)} "
-                       "on CUDA: the chains-on-lanes kernels are "
-                       f"instantiated for {_build.SIZES} (item 12, more "
-                       "kernel sizes)")
+    elif nuts_fused.cl_kernel(model, model.dim) == "thread":
+        if (model.dim, maxdepth) not in _build.SIZES:
+            reasons.append(f"(dim, maxdepth) = {(model.dim, maxdepth)} "
+                           "on CUDA: the thread-per-chain chains-on-lanes "
+                           f"kernels are instantiated for {_build.SIZES} "
+                           "(item 12, more kernel sizes)")
+    else:
+        need = _build.mid_smem_bytes("posterior", model.dim, maxdepth, model)
+        if need > _build.SMEM_OPT_IN_BYTES:
+            reasons.append(
+                f"model {model.name!r} on CUDA: the mid-d kernels keep "
+                f"{need} bytes per chain in one block's shared memory of "
+                f"{_build.SMEM_OPT_IN_BYTES}; data of that size must stream "
+                "(kernel K1-stream, item 12)")
     return reasons
 
 
@@ -323,10 +358,7 @@ class MclmcSettings:
         (``sampler.py:405-492``): fused warmup split at the Euclidean ->
         microcanonical switch, then the fused posterior.  Raises
         ``NotImplementedError`` for what :meth:`unsupported` lists."""
-        reasons = self.unsupported(model, device)
-        if reasons:
-            raise NotImplementedError(
-                "not ported yet (see ROADMAP.md): " + "; ".join(reasons))
+        _refuse(self.unsupported(model, device))
         if model.dim < 2 and self.trajectory_kind is not (
                 MclmcTrajectoryKind.EUCLIDEAN):
             raise ValueError("the microcanonical dynamics need dim >= 2 "
@@ -428,9 +460,12 @@ class Sampler:
             raise ValueError("model.dim must be >= 1")
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
+        self.device = torch.device(device)
+        _refuse(settings.unsupported(model, self.device))
+        # a model's data go to the sampler's device once
+        model = model.to(self.device)
         self.model = model
         self.settings = settings
-        self.device = torch.device(device)
         self.chunk_size = chunk_size
         self.config = settings.chain_config()
         self.strategy = DiagStrategy(self.config)

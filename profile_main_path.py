@@ -8,8 +8,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 The paths are chip_smoke.py's: ``Sampler(...)`` and ``run()`` with
 ``posterior_kernel="pallas"`` on N(3, 1) at d=10 with 1024 chains, 300
 tuning and 700 posterior draws, with ``DiagNutsSettings`` (kernels K1, K2)
-and with ``DiagMclmcSettings`` (K3, K4), and the large-d path: NUTS at
-d=1000 with 512 chains, 200 tuning and 300 posterior draws (K1-ld, K2-ld).
+and with ``DiagMclmcSettings`` (K3, K4), the large-d path: NUTS at
+d=1000 with 512 chains, 200 tuning and 300 posterior draws (K1-ld, K2-ld),
+and the data path: NUTS on logistic regression with 1000 rows and 100
+columns, 1024 chains, 300 tuning and 400 posterior draws (K1-args, K2-args).
 After building the kernels it prints, for each path,
 
 1. for ``--repeats`` unprofiled runs: the total seconds, Sampler
@@ -30,7 +32,11 @@ After building the kernels it prints, for each path,
    the made-up states of 3), with each block's iterations: what the
    block's wait for its slowest chain costs on the path itself; then the
    same at B = 1 and B = 8 on the first 64 ... 264 of those chains, around
-   the card's 132 SMs (where a second wave of blocks or clusters starts).
+   the card's 132 SMs (where a second wave of blocks or clusters starts);
+6. for the data path, the same own-state sweep of K1-args (B = 1 ... 8,
+   then 120 ... 1024 chains), and the mid-d posterior kernel without data
+   (N(3, 1) at d=100, 1024 chains) beside it, in microseconds per block
+   iteration: the difference is what the regression's evaluation costs.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -45,9 +51,11 @@ import numpy as np
 import torch
 
 from chip_smoke import (
-    CHAINS, CHUNK, DIM, DRAWS, LD_CHAINS, LD_DIM, LD_DRAWS, LD_STEP, LD_TUNE,
-    MU, SEED, TUNE, card_line, cuda_events_ms, mclmc_posterior_args,
-    mclmc_settings, mclmc_warmup_setup, posterior_inputs, warmup_setup)
+    CHAINS, CHUNK, DIM, DRAWS, GLM_CHAINS, GLM_DIM, GLM_DRAWS, GLM_ROWS,
+    GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS, LD_STEP, LD_TUNE, MID_DIM, MU,
+    SEED, TUNE, card_line, cuda_events_ms, glm_posterior_inputs,
+    glm_reference, mclmc_posterior_args, mclmc_settings, mclmc_warmup_setup,
+    posterior_inputs, warmup_setup)
 
 BLOCKS = (8, 16, 32, 64, 128)
 LD_BLOCKS = (1, 2, 4, 8)
@@ -55,6 +63,7 @@ LD_SWEEP_DIMS = (256, 512, 1000, 2048)
 # chain counts around the card's 132 SMs: where a launch of one chain block
 # an SM goes from one wave of blocks (or clusters) to two
 LD_WAVE_CHAINS = (64, 96, 104, 112, 120, 128, 136, 264)
+GLM_WAVE_CHAINS = (120, 128, 256, 512, 1024)
 
 
 def run_main_path(model, settings, device):
@@ -141,14 +150,16 @@ def profile_once(model, settings, device, trace_path=None):
 
 
 def nuts_launches(model, settings, device, layout="cl",
-                  step=(0.8, 1.0)):
-    """(posterior, warmup) launches of K1 and K2 (or K1-ld and K2-ld) at a
-    chain block B, and the posterior's stats, on the path's shapes."""
+                  step=(0.8, 1.0), k1=None):
+    """(posterior, warmup) launches of K1 and K2 (or K1-ld and K2-ld, or the
+    mid-d kernels with the posterior inputs ``k1``) at a chain block B, and
+    the posterior's stats, on the path's shapes."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     opts = settings.nuts_options()
     chains = settings.num_chains
-    k1 = posterior_inputs(model, device, seed=2, chains=chains, step=step)
+    if k1 is None:
+        k1 = posterior_inputs(model, device, seed=2, chains=chains, step=step)
     k2 = warmup_setup(model, settings, device, 2, 2 + CHUNK, chains)
     return (lambda B: nf.nuts_fused_run(3, *k1, CHUNK, model, opts, 0.1,
                                         B, layout)[4],
@@ -157,6 +168,15 @@ def nuts_launches(model, settings, device, layout="cl",
 
 def ld_launches(model, settings, device):
     return nuts_launches(model, settings, device, "ld", LD_STEP)
+
+
+def glm_launches(model, settings, device):
+    """K1-args and K2-args on made-up states around the JAX package's
+    posterior of the regression."""
+    ref_mean, ref_std, _ = glm_reference()
+    return nuts_launches(model, settings, device, k1=glm_posterior_inputs(
+        model, device, ref_mean, ref_std, seed=2,
+        chains=settings.num_chains))
 
 
 def mclmc_launches(model, settings, device):
@@ -209,16 +229,20 @@ def sweep_ld_dims(settings, device):
               f"{float(out['n_steps'].mean()):.3f}")
 
 
-def sweep_ld_own_states(model, settings, device):
-    """K1-ld at every cluster size on the post-warmup state of the path
-    itself: the Sampler runs its tuning chunks, then the posterior runner's
-    launch (chain.py::make_fused_posterior_runner) is repeated here at each
-    chain block B on that state."""
+def sweep_ld_own_states(model, settings, device, layout="ld", name="K1-ld",
+                        waves=LD_WAVE_CHAINS):
+    """K1-ld (or, with ``layout="cl"``, the mid-d posterior kernel) at every
+    cluster size on the post-warmup state of the path itself: the Sampler
+    runs its tuning chunks, then the posterior runner's launch
+    (chain.py::make_fused_posterior_runner) is repeated here at each chain
+    block B on that state.  Returns the launch at the default block as
+    (ms, mean block iterations)."""
     from nuts_rs_tpu_torch import Sampler
     from nuts_rs_tpu_torch.adapt import step_size as ss
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     sampler = Sampler(model, settings, device=device)
+    model = sampler.model  # with its data on the device
     while sampler._next_draw < settings.num_tune:
         sampler.run_next_chunk()
     state, config = sampler.state, sampler.config
@@ -233,25 +257,46 @@ def sweep_ld_own_states(model, settings, device):
         return nf.nuts_fused_run(
             5, state.pt.q[:n], state.pt.g[:n], state.pt.logp[:n], t.stds[:n],
             t.mean[:n], t.logdet[:n], step[:n], bars[:n], CHUNK, model,
-            config.nuts, config.step_size.jitter, B, "ld")[4]
+            config.nuts, config.step_size.jitter, B, layout)[4]
 
     for B in LD_BLOCKS:
         out = post(B)
         ms = cuda_events_ms(lambda: post(B), 3)
         iters = out["loop_iterations"].cpu().numpy()
         steps = out["n_steps"].cpu().numpy()
-        print(f"own states B={B}: K1-ld {ms:.4f} ms per {CHUNK}-draw launch; "
+        print(f"own states B={B}: {name} {ms:.4f} ms per {CHUNK}-draw launch; "
               f"block iterations min {iters.min()} mean {iters.mean():.1f} "
               f"max {iters.max()}; leapfrogs per draw mean "
               f"{steps.mean():.4f} min {steps.min()} max {steps.max()}")
     # the first n of those chains: a step in the time between two counts is
     # a second wave, and tells how many blocks or clusters the card holds
-    for n in LD_WAVE_CHAINS:
+    for n in waves:
         post(1, n), post(8, n)
-        print(f"own states, first {n} chains: K1-ld B=1 "
+        print(f"own states, first {n} chains: {name} B=1 "
               f"{cuda_events_ms(lambda: post(1, n), 3):.4f} ms, B=8 "
               f"{cuda_events_ms(lambda: post(8, n), 3):.4f} ms per "
               f"{CHUNK}-draw launch")
+    return ms, float(iters.mean())
+
+
+def evaluation_cost(glm, glm_settings, device):
+    """What the regression's evaluation costs inside K1-args: the kernel on
+    the data path's own post-warmup states beside the same kernel without
+    data, on N(3, 1) at the same d and chains, in microseconds per block
+    iteration of a launch."""
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    ms_g, it_g = sweep_ld_own_states(glm, glm_settings, device, "cl",
+                                     "K1-args", GLM_WAVE_CHAINS)
+    plain = DiagNutsSettings(num_chains=GLM_CHAINS, num_tune=GLM_TUNE,
+                             num_draws=GLM_DRAWS, seed=SEED,
+                             posterior_kernel="pallas")
+    ms_n, it_n = sweep_ld_own_states(normal_logp(MID_DIM, MU), plain, device,
+                                     "cl", "mid-d K1 without data", ())
+    print(f"per block iteration of a {CHUNK}-draw launch at {GLM_CHAINS} "
+          f"chains, B=8: K1-args {1e3 * ms_g / it_g:.3f} us, the same kernel "
+          f"on N(3, 1) at d={MID_DIM} {1e3 * ms_n / it_n:.3f} us")
 
 
 def main() -> int:
@@ -262,14 +307,20 @@ def main() -> int:
                         help="skip the two d=10 paths")
     parser.add_argument("--only-own-states", action="store_true",
                         help="item 5 alone")
+    parser.add_argument("--only-data", action="store_true",
+                        help="the data path alone, items 1-3 and 6")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise RuntimeError("profile_main_path.py needs a CUDA card")
     from nuts_rs_tpu_torch import DiagNutsSettings
     from nuts_rs_tpu_torch.kernels import _build
-    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+    from nuts_rs_tpu_torch.models.gaussian import (
+        logistic_regression,
+        normal_logp,
+    )
 
     device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
     print(card_line())
     _build.library()
     model = normal_logp(DIM, MU)
@@ -279,6 +330,10 @@ def main() -> int:
     large = DiagNutsSettings(num_chains=LD_CHAINS, num_tune=LD_TUNE,
                              num_draws=LD_DRAWS, seed=SEED,
                              posterior_kernel="pallas")
+    glm = logistic_regression(GLM_ROWS, GLM_DIM, SEED).to(device)
+    data = DiagNutsSettings(num_chains=GLM_CHAINS, num_tune=GLM_TUNE,
+                            num_draws=GLM_DRAWS, seed=SEED,
+                            posterior_kernel="pallas")
     if args.only_own_states:
         sweep_ld_own_states(normal_logp(LD_DIM, MU), large, device)
         print(card_line())
@@ -287,8 +342,11 @@ def main() -> int:
             ("NUTS", model, nuts, nuts_launches, BLOCKS),
             ("MCLMC", model, mclmc_settings(), mclmc_launches, BLOCKS),
             ("large-d", normal_logp(LD_DIM, MU), large, ld_launches,
-             LD_BLOCKS)):
+             LD_BLOCKS),
+            ("data", glm, data, glm_launches, LD_BLOCKS)):
         if args.only_large_d and label != "large-d":
+            continue
+        if args.only_data and label != "data":
             continue
         print(f"== {label} path")
         run_main_path(model, settings, device)  # first launches, allocator
@@ -300,8 +358,11 @@ def main() -> int:
         profile_once(model, settings, device, trace)
         sweep_blocks(launches(model, settings, device), blocks,
                      settings.num_chains)
-    sweep_ld_dims(large, device)
-    sweep_ld_own_states(normal_logp(LD_DIM, MU), large, device)
+    if not args.only_data:
+        sweep_ld_dims(large, device)
+        sweep_ld_own_states(normal_logp(LD_DIM, MU), large, device)
+    if not args.only_large_d:
+        evaluation_cost(glm, data, device)
     print(card_line())
     return 0
 

@@ -1,5 +1,6 @@
-"""The fused CUDA kernels (NUTS K1/K2 and their dim-on-lanes forms K1-ld /
-K2-ld, MCLMC K3/K4) against their plain PyTorch versions, on the card.
+"""The fused CUDA kernels (NUTS K1/K2, their dim-on-lanes forms K1-ld /
+K2-ld and their mid-d forms with model data K1-args / K2-args, MCLMC K3/K4)
+against their plain PyTorch versions, on the card.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -10,7 +11,9 @@ imports no JAX, so it runs where JAX is not installed:
 of the suite).  With sums in coordinate order and the kernels built with
 ``-fmad=false``, kernel and plain version agree draw for draw: integer
 stats equal, floats to 1e-5 relative.  The dim-on-lanes kernels sum in
-``ops.tsum``'s order, which their plain versions share.
+``ops.tsum``'s order, which their plain versions share; so do the mid-d
+kernels, whose logistic-regression functor also sums a logit's terms in
+ascending j.
 """
 
 import numpy as np
@@ -137,6 +140,104 @@ def test_ld_kernels_match_plain_versions_on_the_card(dim, block, maxdepth):
     with pytest.raises(ValueError, match="chain block"):
         nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=16,
                           layout="ld")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,rows,block,maxdepth", [(37, 300, 8, 6),
+                                                     (5, 70, 4, 10),
+                                                     (150, 1001, 8, 8)])
+def test_mid_kernels_with_data_match_plain_versions_on_the_card(
+        dim, rows, block, maxdepth):
+    """K1-args and K2-args on logistic regression at other sizes than the
+    main path's: rows no multiple of the 256 threads, maxdepth at launch,
+    C = 16 chains in logical blocks of ``block``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    dev = torch.device("cuda", 0)
+    C = 16
+    model = tg.logistic_regression(rows, dim, 3).to(dev)
+    assert model.hook_parts()[2][0].device.type == "cuda"
+    assert nf.cl_kernel(model, dim) == "mid"
+    opts = NutsOptions(maxdepth=maxdepth)
+    rng = np.random.default_rng(dim)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    q = f(0.2 * rng.normal(size=(C, dim)))
+    logp, g = model.logp_and_grad(q)
+    stds = f(rng.uniform(0.05, 0.15, size=(C, dim)))
+    mean = f(0.02 * rng.normal(size=(C, dim)))
+    logdet = -torch.log(stds).sum(1)
+    step = torch.full((C,), 0.4, device=dev)
+    args = (q, g, logp, stds, mean, logdet, step, step.clone())
+    before = dict(nf.LAUNCHES)
+    got = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=block)
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_run_reference(3, *args, 8, model, opts, 0.1,
+                                       block=block)
+    for name in INT_STATS:
+        np.testing.assert_array_equal(got[4][name].cpu().numpy(),
+                                      want[4][name].cpu().numpy(), name)
+    assert got[3].shape == (C, 8, dim)
+    for i in range(4):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+    for name in nf.STAT_NAMES:
+        _close(got[4][name].cpu(), want[4][name].cpu(), name, 1e-5, 1e-5)
+
+    flags = torch.ones(6, nf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, nf.FLAG_DO_SWITCH] = 0
+    flags[3, nf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, dim, device=dev)
+    sca = torch.zeros(C, nf.NSCA, device=dev)
+    sca[:, nf.SCA_STEP] = 0.3
+    sca[:, nf.SCA_DA_CNT] = 1.0
+    sca[:, nf.SCA_DA_MU] = float(np.log(3.0))
+    sca[:, nf.SCA_LOGDET] = logdet
+    wargs = (flags, q, g, logp, stds, mean, est, sca, model, opts,
+             StepSizeSettings(), True)
+    got = nf.nuts_fused_warmup_run(5, *wargs, block=block)
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_warmup_run_reference(5, *wargs, block=block)
+    for name in INT_STATS + ("transformation_index",):
+        np.testing.assert_array_equal(got[8][name].cpu().numpy(),
+                                      want[8][name].cpu().numpy(), name)
+    for i in range(8):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+    for name in nf.WARMUP_STAT_NAMES:
+        _close(got[8][name].cpu(), want[8][name].cpu(), name, 1e-5, 1e-5)
+    assert nf.LAUNCHES["nuts_fused_mid_posterior"] == \
+        before["nuts_fused_mid_posterior"] + 1
+    assert nf.LAUNCHES["nuts_fused_mid_warmup"] == \
+        before["nuts_fused_mid_warmup"] + 1
+    # data on another device than the state is refused, not copied
+    with pytest.raises(ValueError, match="must lie on"):
+        nf.nuts_fused_run(3, *args, 8, model.to("cpu"), opts, 0.1,
+                          block=block)
+
+
+@pytest.mark.cuda
+def test_normal_100_runs_end_to_end_on_the_card():
+    """A size between the thread-per-chain instances and the dim-on-lanes
+    layout (d = 11..212 used to raise at construction on the card) runs
+    warmup and posterior on the mid-d kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    import nuts_rs_tpu_torch as tnt
+
+    before = dict(nf.LAUNCHES)
+    trace = tnt.sample(tg.normal_logp(100, 3.0), tnt.DiagNutsSettings(
+        num_chains=64, num_tune=150, num_draws=100, seed=0,
+        posterior_kernel="pallas"), device="cuda")
+    pos = trace.posterior["position"].astype(np.float64)
+    assert pos.shape == (64, 100, 100)
+    assert abs(pos.mean() - 3.0) < 0.03
+    assert abs(pos.std() - 1.0) < 0.05
+    assert not trace.sample_stats["diverging"].any()
+    assert 0.7 < trace.sample_stats["mean_tree_accept"].mean() < 0.95
+    assert nf.LAUNCHES["nuts_fused_mid_posterior"] > \
+        before["nuts_fused_mid_posterior"]
+    assert nf.LAUNCHES["nuts_fused_mid_warmup"] > \
+        before["nuts_fused_mid_warmup"]
+    assert nf.LAUNCHES["nuts_fused_posterior"] == \
+        before["nuts_fused_posterior"]
 
 
 MCLMC_INT_STATS = ("diverging", "n_steps", "loop_iterations")

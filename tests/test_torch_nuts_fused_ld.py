@@ -274,13 +274,13 @@ def test_ld_plain_version_evaluates_the_model_as_the_kernel_does():
     q = _t((MU + np.random.default_rng(5).normal(size=(4, d)))
            .astype(np.float32))
     model = tg.normal_logp(d, MU)
-    csum, evaluate = nf._evaluators(model, True)
+    csum, evaluate = nf._evaluators(model, "ld")
     assert csum is tsum
     logp, g = evaluate(q)
     np.testing.assert_array_equal(logp.numpy(),
                                   (-0.5 * tsum((q - MU) ** 2)).numpy())
     np.testing.assert_array_equal(g.numpy(), (-(q - MU)).numpy())
-    csum, evaluate = nf._evaluators(model, False)
+    csum, evaluate = nf._evaluators(model, "thread")
     assert csum is dsum
     np.testing.assert_array_equal(evaluate(q)[0].numpy(),
                                   (-0.5 * dsum((q - MU) ** 2)).numpy())

@@ -186,6 +186,8 @@ def _no_hook(dim):
     ("cuda_dim", "item 12"),
     ("cuda_maxdepth", "item 12"),
     ("cuda_ld_dim", "item 12"),
+    ("data_stream", "K1-stream, item 12"),
+    ("data_above_cl", "item 12"),
 ])
 def test_unsupported_settings_raise(change, item):
     model = tg.normal_logp(3)
@@ -203,6 +205,14 @@ def test_unsupported_settings_raise(change, item):
     elif change == "cuda_maxdepth":
         kw.update(maxdepth=8)
         device = "cuda"
+    elif change == "data_stream":
+        # the JAX benchmark's logreg_big rows (bench.py:365-370) at a dim the
+        # layout takes: the data alone fail the rule, and would stream
+        model = tg.logistic_regression_from_tensors(
+            torch.zeros(32, 131072), torch.zeros(131072))
+    elif change == "data_above_cl":
+        # the dim-on-lanes kernels read no model data
+        model = tg.logistic_regression(16, cl_max_dim(10) + 1, 0)
     else:
         kw.update(change)
     with pytest.raises(NotImplementedError, match=item):
