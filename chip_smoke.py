@@ -7,7 +7,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the fused CUDA kernels from ``nuts_rs_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-and drives four paths through ``Sampler(...).run()`` with
+and drives five paths through ``Sampler(...).run()`` with
 ``posterior_kernel="pallas"``.  Two run N(3, 1) at d=10 with 1024 chains,
 300 tuning and 700 posterior draws: NUTS (``DiagNutsSettings``, kernels K1
 and K2) and MCLMC (``DiagMclmcSettings``, kernels K3 and K4).  The third is
@@ -18,12 +18,17 @@ fourth is the data-carrying path: NUTS on Bayesian logistic regression with
 on the mid-d chains-on-lanes kernels K1-args and K2-args, which evaluate the
 model with its data in the kernel body; its posterior is held against the
 JAX package's (``tests/data/logreg_d100_reference.json``, moments from that
-package's sync engine on a CPU).  For each path it sets the launch counts
-to 0, runs, reads them, and checks that its kernels ran and that the
-posterior is right.  Every kernel is held against its plain version at its
-path's chains and dimension (8 posterior or 16 warmup draws); the mid-d
-kernels also on N(3, 1) at d=100 with 64 chains.  Nothing of the earlier
-paths was cut to make room: the script takes about three minutes.
+package's sync engine on a CPU).  The fifth is the same regression under
+MCLMC (``DiagMclmcSettings``, the same chains and draws), on the mid-d MCLMC
+kernels K3-args and K4-args, held against that package's sync MCLMC engine
+(``tests/data/mclmc_logreg_d100_reference.json``).  For each path it sets
+the launch counts to 0, runs, reads them, and checks that its kernels ran
+and that the posterior is right.  Every kernel is held against its plain
+version at its path's chains and dimension (8 posterior or 16 warmup
+draws); the mid-d kernels, NUTS and MCLMC, also on N(3, 1) at d=100 with 64
+chains in logical blocks of 8.  Cut to make room: K2-args is checked on 8
+schedule rows (2..9, with the window switch), not 16.  The script takes
+about four minutes.
 
 Each kernel is timed (CUDA events) beside its plain version on the check's
 inputs (``ms``, ``plain_ms``, with the bound ``bound_ms`` of that work), and
@@ -59,6 +64,10 @@ DIM, MU, CHAINS, TUNE, DRAWS, SEED = 10, 3.0, 1024, 300, 700, 0
 CHUNK = 128          # the Sampler's chunk: draws per launch on the main path
 CHECK_K1_DRAWS = 8   # posterior draws per chain in the kernel check
 CHECK_K2_DRAWS = 16  # warmup draws in the kernel check
+# K2-args' check: rows 2..9 keep the window switch of row 8; its plain version
+# took 89 s of the script at 16 rows (the first trees from the initial state
+# are the deep ones), and the script has the two MCLMC checks to make room for
+CHECK_K2_ARGS_DRAWS = 8
 CHECK_K3_DRAWS = 8   # MCLMC posterior draws per chain in the kernel check
 CHECK_K4_DRAWS = 16  # MCLMC warmup draws in each kernel check
 # the large-d path (the JAX benchmark's normal_d1000 sizes); its kernels are
@@ -73,6 +82,10 @@ GLM_REFERENCE = Path(__file__).resolve().parent / "tests" / "data" / \
     "logreg_d100_reference.json"
 GLM_MEAN_TOL = 0.1  # of a coordinate's posterior standard deviation
 GLM_STD_TOL = 0.1   # relative
+# the MCLMC data path: the same model and sizes under DiagMclmcSettings, held
+# against the JAX package's sync MCLMC engine (unadjusted, so its own file)
+MGLM_REFERENCE = GLM_REFERENCE.with_name("mclmc_logreg_d100_reference.json")
+MGLM_NSTEPS = (5.5, 6.7)  # mean leapfrogs a draw: round(3 / 0.5), 10% jitter
 MID_DIM, MID_CHAINS = 100, 64
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOP_PER_S = 67e12    # H100 SXM outside the tensor cores, published
@@ -281,16 +294,15 @@ def warmup_setup(model, settings, device, lo, hi, chains=CHAINS):
 
 
 def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
-                 name=None, block=None):
+                 name=None, block=None, draws=CHECK_K2_DRAWS):
     """K2 (cl), K2-ld or, with ``name`` and maybe a logical chain block, the
-    mid-d cl kernel against its plain version."""
+    mid-d cl kernel against its plain version, on ``draws`` schedule rows."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     name = name or ("K2-ld" if layout == "ld" else "K2")
     # schedule rows 2.. are the second warmup phase's: estimator updates,
     # mass-matrix updates every draw and the first window switch (row 8)
-    args = warmup_setup(model, settings, device, 2, 2 + CHECK_K2_DRAWS,
-                        chains)
+    args = warmup_setup(model, settings, device, 2, 2 + draws, chains)
     if not args[1][:, nf.FLAG_DO_SWITCH].any():
         raise AssertionError(f"{name} check rows hold no window switch")
     out_k, out_p, ms, plain_ms = timed_pair(
@@ -299,8 +311,8 @@ def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
     n, err = compare(name, out_k, out_p,
                      ("q", "g", "logp", "stds", "mean", "est", "sca"),
                      nf.WARMUP_STAT_NAMES, INT_STATS)
-    print(f"{name} check: C={chains} d={model.dim} K={CHECK_K2_DRAWS} "
-          f"(schedule rows 2..{1 + CHECK_K2_DRAWS}, a window switch among "
+    print(f"{name} check: C={chains} d={model.dim} K={draws} "
+          f"(schedule rows 2..{1 + draws}, a window switch among "
           f"them): integer stats equal on all {n} (chain, draw) entries, "
           f"max abs err {err:.3g} (draws, final state, est, sca, all "
           f"stats); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
@@ -412,10 +424,10 @@ def time_kernels(model, settings, device, layout="cl", chains=CHAINS,
 # ---------------------------------------------------------------------------
 
 
-def glm_reference():
+def glm_reference(path=GLM_REFERENCE):
     """The JAX package's posterior moments of the regression (the file names
     the command that made it)."""
-    ref = json.loads(GLM_REFERENCE.read_text())
+    ref = json.loads(path.read_text())
     return np.array(ref["mean"]), np.array(ref["std"]), ref
 
 
@@ -460,6 +472,30 @@ def time_glm_by_matmul(model, device):
           f"closed form around them {ms:.4f} ms per batched evaluation")
 
 
+def glm_moment_errors(trace, settings, dim, ref_mean, ref_std):
+    """(max |mean - reference| in posterior std, max |std / reference - 1|)
+    over the regression's coordinates, after the shape and finiteness
+    checks of the posterior draws."""
+    pos = trace.posterior["position"]
+    if pos.shape != (settings.num_chains, settings.num_draws, dim):
+        raise AssertionError(f"posterior shape {pos.shape}")
+    flat = pos.reshape(-1, pos.shape[-1]).astype(np.float64)
+    if not np.isfinite(flat).all():
+        raise AssertionError("non-finite posterior draws")
+    mean, std = flat.mean(0), flat.std(0)
+    return (float(np.max(np.abs(mean - ref_mean) / ref_std)),
+            float(np.max(np.abs(std / ref_std - 1.0))))
+
+
+def require_glm_moments(mean_err, std_err):
+    if not mean_err < GLM_MEAN_TOL:
+        raise AssertionError(f"a posterior mean is {mean_err} posterior "
+                             "standard deviations from the reference")
+    if not std_err < GLM_STD_TOL:
+        raise AssertionError(f"a posterior std differs by {std_err} "
+                             "(relative) from the reference")
+
+
 def glm_main_path(model, settings, device, ref_mean, ref_std):
     """The data-carrying path through Sampler.run, held against the JAX
     package's posterior."""
@@ -470,12 +506,9 @@ def glm_main_path(model, settings, device, ref_mean, ref_std):
                                                          device)
     launches = read_launch_counts(
         nf.LAUNCHES, ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"))
-    pos = trace.posterior["position"]
     st = trace.sample_stats
-    flat = pos.reshape(-1, pos.shape[-1]).astype(np.float64)
-    mean, std = flat.mean(0), flat.std(0)
-    mean_err = float(np.max(np.abs(mean - ref_mean) / ref_std))
-    std_err = float(np.max(np.abs(std / ref_std - 1.0)))
+    mean_err, std_err = glm_moment_errors(trace, settings, model.dim,
+                                          ref_mean, ref_std)
     n_div = int(st["diverging"].sum())
     acc = float(st["mean_tree_accept"].mean())
     n_grad = int(st["n_steps"].sum())
@@ -494,16 +527,7 @@ def glm_main_path(model, settings, device, ref_mean, ref_std):
           f"{float(np.median(st['step_size_bar'][:, -1])):.4f} mean tree "
           f"depth {float(st['depth'].mean()):.3f} mean n_steps "
           f"{float(st['n_steps'].mean()):.2f}")
-    if pos.shape != (settings.num_chains, settings.num_draws, model.dim):
-        raise AssertionError(f"posterior shape {pos.shape}")
-    if not np.isfinite(flat).all():
-        raise AssertionError("non-finite posterior draws")
-    if not mean_err < GLM_MEAN_TOL:
-        raise AssertionError(f"a posterior mean is {mean_err} posterior "
-                             "standard deviations from the reference")
-    if not std_err < GLM_STD_TOL:
-        raise AssertionError(f"a posterior std differs by {std_err} "
-                             "(relative) from the reference")
+    require_glm_moments(mean_err, std_err)
     if n_div:
         raise AssertionError(f"{n_div} divergences on the regression")
     if not 0.7 < acc < 0.95:
@@ -524,13 +548,14 @@ def mclmc_settings():
                              posterior_kernel="pallas")
 
 
-def mclmc_posterior_args(model, settings, device, seed=1):
-    """K3's inputs: a post-warmup-like state with unit-sphere velocities."""
+def mclmc_posterior_args(model, settings, device, seed=1, state=None):
+    """K3's inputs: a post-warmup-like state (``state``: one made elsewhere,
+    as ``posterior_inputs`` returns it) with unit-sphere velocities."""
     from nuts_rs_tpu_torch import MclmcTrajectoryKind
 
-    q, g, logp, stds, mean, logdet, step, _ = posterior_inputs(
+    q, g, logp, stds, mean, logdet, step, _ = state or posterior_inputs(
         model, device, seed)
-    v = torch.randn(CHAINS, DIM, generator=torch.Generator().manual_seed(
+    v = torch.randn(*q.shape, generator=torch.Generator().manual_seed(
         seed)).to(device)
     v = (v / v.norm(dim=1, keepdim=True)).contiguous()
     bar = torch.full_like(step, settings.step_size)
@@ -538,27 +563,38 @@ def mclmc_posterior_args(model, settings, device, seed=1):
     return (q, g, logp, v, stds, mean, logdet, step * 0.5, bar), mopts
 
 
-def check_mclmc_posterior(model, settings, device):
+def check_mclmc_posterior(model, settings, device, name="K3", state=None,
+                          block=None):
+    """K3 or, with ``name`` and maybe a state of its own and a logical chain
+    block, the mid-d MCLMC posterior kernel against its plain version."""
     from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
-    args, mopts = mclmc_posterior_args(model, settings, device)
+    args, mopts = mclmc_posterior_args(model, settings, device, state=state)
     jitter = settings.step_size_settings.jitter
     out_k, out_p, ms, plain_ms = timed_pair(
         lambda: mf.mclmc_fused_run(7, *args, CHECK_K3_DRAWS, model, mopts,
-                                   jitter),
+                                   jitter, block),
         lambda: mf.mclmc_fused_run_reference(7, *args, CHECK_K3_DRAWS, model,
-                                             mopts, jitter))
-    n, err = compare("K3", out_k, out_p, ("q_f", "g_f", "logp_f", "v_f"),
+                                             mopts, jitter, block))
+    n, err = compare(name, out_k, out_p, ("q_f", "g_f", "logp_f", "v_f"),
                      mf.STAT_NAMES, MCLMC_INT_STATS)
-    print(f"K3 check: C={CHAINS} d={DIM} B=32 K={CHECK_K3_DRAWS} "
+    chains = args[0].shape[0]
+    B = nf._check_block(chains, block, nf.cl_kernel(model, model.dim))
+    print(f"{name} check: C={chains} d={model.dim} B={B} K={CHECK_K3_DRAWS} "
           f"microcanonical: integer stats equal on all {n} (chain, draw) "
           f"entries, max abs err {err:.3g} (draws, final state, all stats); "
           f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
     return check_row("mclmc", model, args, out_k, err, ms, plain_ms)
 
 
-def mclmc_warmup_setup(model, settings, device, lo, hi, kind):
-    """K4's inputs for schedule rows lo..hi-1 from the initial state."""
+def mclmc_warmup_setup(model, settings, device, lo, hi, kind, state=None):
+    """K4's inputs for schedule rows lo..hi-1 from the initial state of
+    ``settings.num_chains`` chains, or from ``state``, a post-warmup-like one
+    as ``posterior_inputs`` returns it, with unit-sphere velocities and empty
+    estimators (what the path hands the kernel at the trajectory switch,
+    where the mass matrix is tuned; the microcanonical dynamics from the
+    initial state of a d=100 regression halve for hundreds of iterations)."""
     from nuts_rs_tpu_torch.adapt.schedule import build_schedule
     from nuts_rs_tpu_torch.chain import (
         MCLMC_FLAG_COLUMNS, DiagStrategy, init_chain_state,
@@ -566,48 +602,76 @@ def mclmc_warmup_setup(model, settings, device, lo, hi, kind):
     from nuts_rs_tpu_torch.sampler import _schedule_chunk
 
     config = settings.chain_config()
-    state = init_chain_state(SEED, model, DiagStrategy(config), config,
-                             CHAINS, torch.float32, device)
-    sched = build_schedule(TUNE, DRAWS, settings.adapt)
-    flags = settings.extra_flags(_schedule_chunk(sched, lo, hi), lo, hi)
+    made_up = state
+    if made_up is None:
+        state = init_chain_state(SEED, model, DiagStrategy(config), config,
+                                 settings.num_chains, torch.float32, device)
+    sched = build_schedule(settings.num_tune, settings.num_draws,
+                           settings.adapt)
+    flags = warmup_flags(
+        settings.extra_flags(_schedule_chunk(sched, lo, hi), lo, hi), device,
+        MCLMC_FLAG_COLUMNS)
+    tail = (model, settings._mclmc_options(kind), config.step_size,
+            config.use_grad_based_estimate)
+    if made_up is not None:
+        from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+
+        q, g, logp, stds, mean, logdet = made_up[:6]
+        v = torch.randn(*q.shape, generator=torch.Generator().manual_seed(
+            3)).to(device)
+        v = (v / v.norm(dim=1, keepdim=True)).contiguous()
+        est = torch.zeros(q.shape[0], 8, q.shape[1], device=device)
+        sca = torch.zeros(q.shape[0], mf.NSCA, device=device)
+        sca[:, mf.SCA_LOGDET] = logdet
+        return (13, flags, q, g, logp, v, stds, mean, est, sca, *tail)
     est, sca = pack_mclmc_warmup_state(state)
     t = state.transform
-    return (13, warmup_flags(flags, device, MCLMC_FLAG_COLUMNS), state.pt.q,
-            state.pt.g, state.pt.logp, state.pt.v, t.stds.contiguous(),
-            t.mean.contiguous(), est, sca, model,
-            settings._mclmc_options(kind), config.step_size,
-            config.use_grad_based_estimate)
+    return (13, flags, state.pt.q, state.pt.g, state.pt.logp, state.pt.v,
+            t.stds.contiguous(), t.mean.contiguous(), est, sca, *tail)
 
 
-def check_mclmc_warmup(model, settings, device):
-    """K4 on schedule rows that hold a momentum resample, a window switch
-    and mass-matrix updates: from draw 0 with the Euclidean kinetic energy,
-    and across the trajectory switch with the microcanonical one.  The
-    row's times and bound are those of the microcanonical rows."""
+def check_mclmc_warmup(model, settings, device, name="K4", block=None,
+                       micro_state=None):
+    """K4 or, with ``name`` and maybe a logical chain block, the mid-d MCLMC
+    warmup kernel, on schedule rows that hold a momentum resample, a window
+    switch and mass-matrix updates: from draw 0 with the Euclidean kinetic
+    energy, and across the trajectory switch with the microcanonical one
+    (from the initial state too, or from ``micro_state``, see
+    ``mclmc_warmup_setup``).  The row's times and bound are those of the
+    microcanonical rows."""
     from nuts_rs_tpu_torch import MclmcTrajectoryKind as Kind
     from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     err, n, rows = 0.0, 0, []
     for lo, kind in ((0, Kind.EUCLIDEAN),
                      (settings.switch_draw - 6, Kind.MICROCANONICAL)):
         hi = lo + CHECK_K4_DRAWS
-        args = mclmc_warmup_setup(model, settings, device, lo, hi, kind)
+        args = mclmc_warmup_setup(
+            model, settings, device, lo, hi, kind,
+            micro_state if kind is Kind.MICROCANONICAL else None)
         flags = args[1].cpu().numpy()
         if not (flags[:, mf.FLAG_RESAMPLE].any()
                 and flags[:, mf.FLAG_DO_SWITCH].any()):
-            raise AssertionError(f"K4 check rows {lo}..{hi - 1} miss the "
-                                 "resample or a window switch")
+            raise AssertionError(f"{name} check rows {lo}..{hi - 1} miss "
+                                 "the resample or a window switch")
         out_k, out_p, ms, plain_ms = timed_pair(
-            lambda: mf.mclmc_fused_warmup_run(*args),
-            lambda: mf.mclmc_fused_warmup_run_reference(*args))
+            lambda: mf.mclmc_fused_warmup_run(*args, block),
+            lambda: mf.mclmc_fused_warmup_run_reference(*args, block))
         n_i, err_i = compare(
-            f"K4 rows {lo}..", out_k, out_p,
+            f"{name} rows {lo}..", out_k, out_p,
             ("q", "g", "logp", "v", "stds", "mean", "est", "sca"),
             mf.WARMUP_STAT_NAMES,
             MCLMC_INT_STATS + ("transformation_index",))
         n, err = n + n_i, max(err, err_i)
-        rows.append(f"{lo}..{hi - 1} {kind.value}")
-    print(f"K4 check: C={CHAINS} d={DIM} B=32 K={CHECK_K4_DRAWS}, schedule "
+        rows.append(f"{lo}..{hi - 1} {kind.value}" + (
+            " from a post-warmup-like state"
+            if micro_state is not None and kind is Kind.MICROCANONICAL
+            else ""))
+    chains = settings.num_chains
+    B = nf._check_block(chains, block, nf.cl_kernel(model, model.dim))
+    print(f"{name} check: C={chains} d={model.dim} B={B} "
+          f"K={CHECK_K4_DRAWS}, schedule "
           f"rows {' and '.join(rows)} (each holds a momentum resample and a "
           "window switch): integer stats equal on all "
           f"{n} (chain, draw) entries, max abs err {err:.3g} (draws, final "
@@ -621,7 +685,8 @@ def mclmc_main_path(model, settings, device):
 
     zero_launch_counts()
     trace, init_s, warm_s, post_s, _ = run_sampler(model, settings, device)
-    launches = read_launch_counts(mf.LAUNCHES, list(mf.LAUNCHES))
+    launches = read_launch_counts(
+        mf.LAUNCHES, ("mclmc_fused_posterior", "mclmc_fused_warmup"))
     pos = trace.posterior["position"].astype(np.float64)
     st = trace.sample_stats
     mean, std = float(pos.mean()), float(pos.std())
@@ -647,31 +712,77 @@ def mclmc_main_path(model, settings, device):
     return launches
 
 
-def time_mclmc_kernels(model, settings, device):
-    """K3 and K4 alone at the main path's launch (1024 chains, d=10, one
-    128-draw chunk; K4 on the microcanonical warmup rows from the
-    trajectory switch)."""
+def time_mclmc_kernels(model, settings, device, state=None):
+    """Each MCLMC kernel alone at its path's launch (``settings.num_chains``
+    chains, one 128-draw chunk; the warmup kernel on the microcanonical
+    warmup rows from the trajectory switch; ``state``: a post-warmup-like
+    state of their own for both kernels, else the posterior kernel's is
+    ``posterior_inputs``' and the warmup kernel's the initial state)."""
     from nuts_rs_tpu_torch import MclmcTrajectoryKind
     from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
-    args, mopts = mclmc_posterior_args(model, settings, device, seed=2)
+    args, mopts = mclmc_posterior_args(model, settings, device, seed=2,
+                                       state=state)
     jitter = settings.step_size_settings.jitter
     sw = settings.switch_draw
     k4 = mclmc_warmup_setup(model, settings, device, sw, sw + CHUNK,
-                            MclmcTrajectoryKind.MICROCANONICAL)
+                            MclmcTrajectoryKind.MICROCANONICAL, state)
+    mid = "_mid" if nf.cl_kernel(model, model.dim) == "mid" else ""
     times = {
-        "mclmc_fused_posterior": chunk_time(
+        f"mclmc_fused{mid}_posterior": chunk_time(
             "mclmc", model,
             lambda: mf.mclmc_fused_run(3, *args, CHUNK, model, mopts, jitter),
             args, 5),
-        "mclmc_fused_warmup": chunk_time(
+        f"mclmc_fused{mid}_warmup": chunk_time(
             "mclmc", model, lambda: mf.mclmc_fused_warmup_run(*k4), k4[1:10],
             9),
     }
     for name, (ms, b_ms, b_by) in times.items():
         print(f"time {name}: {ms:.4f} ms per {CHUNK}-draw launch at "
-              f"C={CHAINS} d={DIM}; bound {b_ms:.5f} ms ({b_by})")
+              f"C={settings.num_chains} d={model.dim}; bound {b_ms:.5f} ms "
+              f"({b_by})")
     return times
+
+
+def mclmc_glm_main_path(model, settings, device, ref_mean, ref_std):
+    """The MCLMC data path through Sampler.run, held against the JAX
+    package's sync MCLMC posterior of the same model."""
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+
+    zero_launch_counts()
+    trace, init_s, warm_s, post_s, total_s = run_sampler(model, settings,
+                                                         device)
+    launches = read_launch_counts(
+        mf.LAUNCHES, ("mclmc_fused_mid_posterior", "mclmc_fused_mid_warmup"))
+    st = trace.sample_stats
+    mean_err, std_err = glm_moment_errors(trace, settings, model.dim,
+                                          ref_mean, ref_std)
+    n_div = int(st["diverging"].sum())
+    n_steps = float(st["n_steps"].mean())
+    n_grad = int(st["n_steps"].sum())
+    n_warm = int(trace.warmup_sample_stats["n_steps"].sum())
+    print(f"MCLMC data path: logistic regression N={GLM_ROWS} d={model.dim} "
+          f"chains={settings.num_chains} tune={settings.num_tune} "
+          f"draws={settings.num_draws}: init {init_s:.3f} s, warmup "
+          f"{warm_s:.3f} s, posterior {post_s:.3f} s, total with trace "
+          f"assembly {total_s:.3f} s, {n_grad / post_s:.6g} posterior "
+          f"gradient evaluations/s ({n_grad} in the posterior, {n_warm} in "
+          f"the warmup), launches {launches}")
+    print(f"MCLMC data path posterior: max |mean - reference| "
+          f"{mean_err:.4f} posterior std (gate {GLM_MEAN_TOL}), max |std / "
+          f"reference - 1| {std_err:.4f} (gate {GLM_STD_TOL}), divergences "
+          f"{n_div} (warmup "
+          f"{int(trace.warmup_sample_stats['diverging'].sum())}), mean "
+          f"n_steps {n_steps:.3f} (gate {MGLM_NSTEPS}), mean "
+          f"|energy_change| "
+          f"{float(np.abs(st['energy_change']).mean()):.4g}")
+    require_glm_moments(mean_err, std_err)
+    if n_div:
+        raise AssertionError(f"{n_div} MCLMC divergences on the regression")
+    if not MGLM_NSTEPS[0] < n_steps < MGLM_NSTEPS[1]:
+        raise AssertionError(f"mean n_steps {n_steps} outside {MGLM_NSTEPS}")
+    return launches
 
 
 KERNELS = (
@@ -691,6 +802,10 @@ KERNELS = (
      "nuts_rs_tpu/kernels/nuts_pallas.py:84"),
     ("nuts_fused_mid_warmup", "nuts_fused_mid_warmup.cu",
      "nuts_rs_tpu/kernels/nuts_pallas.py:944"),
+    ("mclmc_fused_mid_posterior", "mclmc_fused_mid_posterior.cu",
+     "nuts_rs_tpu/kernels/mclmc_pallas.py:61"),
+    ("mclmc_fused_mid_warmup", "mclmc_fused_mid_warmup.cu",
+     "nuts_rs_tpu/kernels/mclmc_pallas.py:506"),
 )
 
 
@@ -698,7 +813,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card "
                            "(torch.cuda.is_available() is false)")
-    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch import DiagMclmcSettings, DiagNutsSettings
     from nuts_rs_tpu_torch.kernels import _build
     from nuts_rs_tpu_torch.models.gaussian import (
         logistic_regression,
@@ -780,7 +895,8 @@ def main() -> int:
         name="K1-args",
         args=glm_posterior_inputs(glm, device, ref_mean, ref_std))
     checks["nuts_fused_mid_warmup"] = check_warmup(
-        glm, glm_settings, device, chains=GLM_CHAINS, name="K2-args")
+        glm, glm_settings, device, chains=GLM_CHAINS, name="K2-args",
+        draws=CHECK_K2_ARGS_DRAWS)
     # the same kernels without data, on N(3, 1) at a d that had no kernel,
     # in logical blocks of 8 chains (clusters; the path runs chains alone)
     mid_model = normal_logp(MID_DIM, MU)
@@ -797,6 +913,40 @@ def main() -> int:
     times.update(time_kernels(
         glm, glm_settings, device, chains=GLM_CHAINS,
         k1=glm_posterior_inputs(glm, device, ref_mean, ref_std, seed=2)))
+
+    # ---- MCLMC with model data at d=100: K3-args, K4-args (mid-d) ----
+    mref_mean, mref_std, mref = glm_reference(MGLM_REFERENCE)
+    print(f"MCLMC data path reference: {mref['engine']}, {mref['chains']} "
+          f"chains x {mref['draws']} draws, {mref['divergences']} "
+          f"divergences, {mref['mean_n_steps']:.3f} leapfrogs a draw, "
+          "Monte-Carlo error of a mean at most "
+          f"{mref['max_mc_error_of_mean_in_std']:.4f} posterior std")
+    mglm_settings = DiagMclmcSettings(
+        num_chains=GLM_CHAINS, num_tune=GLM_TUNE, num_draws=GLM_DRAWS,
+        seed=SEED, posterior_kernel="pallas")
+    checks["mclmc_fused_mid_posterior"] = check_mclmc_posterior(
+        glm, mglm_settings, device, name="K3-args",
+        state=glm_posterior_inputs(glm, device, mref_mean, mref_std))
+    checks["mclmc_fused_mid_warmup"] = check_mclmc_warmup(
+        glm, mglm_settings, device, name="K4-args",
+        micro_state=glm_posterior_inputs(glm, device, mref_mean, mref_std,
+                                         seed=3))
+    # the same kernels without data, on N(3, 1) at d=100, in logical blocks
+    # of 8 chains (clusters; the path runs chains alone)
+    mmid_settings = DiagMclmcSettings(
+        num_chains=MID_CHAINS, num_tune=TUNE, num_draws=DRAWS, seed=SEED,
+        posterior_kernel="pallas")
+    check_mclmc_posterior(
+        mid_model, mmid_settings, device, name="mid-d K3 B=8", block=8,
+        state=posterior_inputs(mid_model, device, chains=MID_CHAINS,
+                               step=(0.45, 0.6)))
+    check_mclmc_warmup(mid_model, mmid_settings, device, name="mid-d K4 B=8",
+                       block=8)
+    launches.update(mclmc_glm_main_path(glm, mglm_settings, device, mref_mean,
+                                        mref_std))
+    times.update(time_mclmc_kernels(
+        glm, mglm_settings, device,
+        state=glm_posterior_inputs(glm, device, mref_mean, mref_std, seed=2)))
 
     kernels = []
     for name, source, replaces in KERNELS:

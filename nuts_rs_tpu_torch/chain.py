@@ -6,10 +6,10 @@ fused NUTS runners ``make_pallas_posterior_runner`` (``:663-943``) and
 ``make_pallas_warmup_runner`` (``:946-1200``), and the fused MCLMC runners
 ``make_pallas_mclmc_posterior_runner`` (``:1203-1337``) and
 ``make_pallas_mclmc_warmup_runner`` (``:1340-1525``), for the diagonal mass
-matrix, without flow or stream.  The NUTS runners pass a model's data to
-the kernels (``chain.py:677-678,881`` and ``:970-971,1112``; here the data
-travel in ``Model.kernel_hook``); the MCLMC runners do not yet (kernels
-K3-args and K4-args).  Like the JAX runners
+matrix, without flow or stream.  All four runners pass a model's data to
+the kernels (``chain.py:677-678,881``, ``:970-971,1112``, ``:1219-1220,1291``
+and ``:1363-1364,1445``; here the data travel in ``Model.kernel_hook``).
+Like the JAX runners
 (``chain.py:757-784,1005-1028``), the NUTS runners take the chains-on-lanes
 layout while a model and its data fit it (``cl_max_dim``) and the
 dim-on-lanes layout (``layout="ld"``) above that.
@@ -79,6 +79,47 @@ def cl_max_dim(maxdepth: int, warmup: bool = False,
                 // (stacks + 48 + 16))
     return (((12_500_000 - args_bytes) // (4 * 128) - 4 - 16 * 13)
             // (stacks + 32 + 16))
+
+
+def mclmc_max_dim(warmup: bool = False, args_bytes: int = 0) -> int:
+    """Largest d the fused MCLMC posterior or, with ``warmup``, warmup kernel
+    takes: the JAX MCLMC runners' VMEM rule at their smallest lane block
+    (128 chains), ``4 * 128 * (fixed + 16 * (d + rows)) + args_bytes <=
+    12_000_000`` with ``fixed = 32 d + 64`` and 8 stat rows for the
+    posterior (``chain.py:1242-1250``) and ``fixed = 48 d + 128`` and 9 for
+    the warmup, whose launch also holds the estimator planes
+    (``:1386-1394``).  No checkpoint stacks enter, so the limits are not the
+    NUTS layouts': without data 484 and 361.  ``args_bytes`` are the bytes
+    of the model's data (negative result: no d fits).  Above a limit the
+    JAX runner is ``None`` and the JAX package runs its sync engine there;
+    the limit is kept so that one configuration takes the fused kernels in
+    both packages or in neither."""
+    words = (12_000_000 - args_bytes) // (4 * 128)
+    if warmup:
+        return (words - 128 - 16 * 9) // (48 + 16)
+    return (words - 64 - 16 * 8) // (32 + 16)
+
+
+def mclmc_refusal(model):
+    """Why the fused MCLMC kernels do not take ``model``, or None.  Above
+    the posterior limit the JAX package demotes the whole run to its sync
+    engine (``nuts_rs_tpu/sampler.py:431-438,457-458``); between the warmup
+    and the posterior limit it runs the per-draw sync warmup and the fused
+    posterior (``:482-491``).  The sync engines are item 8."""
+    dim, nbytes = model.dim, model.data_bytes
+    data = (f"with its {nbytes} bytes of data " if model.carries_data else "")
+    if dim > mclmc_max_dim(False, nbytes):
+        return (f"model {model.name!r} at dim {dim} {data}is above the fused "
+                f"MCLMC posterior launch's limit of "
+                f"{mclmc_max_dim(False, nbytes)}: the JAX package runs such "
+                "a model on its sync MCLMC engine (item 8, the sync engines)")
+    if dim > mclmc_max_dim(True, nbytes):
+        return (f"model {model.name!r} at dim {dim} {data}is above the fused "
+                f"MCLMC warmup launch's limit of "
+                f"{mclmc_max_dim(True, nbytes)}: the JAX package runs its "
+                "per-draw sync warmup before the fused posterior there "
+                "(item 8, the sync engines)")
+    return None
 
 
 def layout_refusal(model, maxdepth: int, warmup: bool):

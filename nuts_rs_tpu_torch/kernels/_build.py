@@ -35,9 +35,9 @@ BUILD_DIR = _PKG / "_build"
 # (d, maxdepth) instantiations of the thread-per-chain chains-on-lanes NUTS
 # kernels; other sizes up to ``CL_THREAD_MAX_DIM`` raise.  The MCLMC kernels
 # are instantiated for the same d (``DIMS``), both kinetic energies and both
-# settings of ``dynamic_step_size``.  The mid-d chains-on-lanes kernels
-# (above ``CL_THREAD_MAX_DIM``, and every model with data) and the
-# dim-on-lanes (ld) NUTS kernels take d and maxdepth at run time.
+# settings of ``dynamic_step_size``.  The mid-d chains-on-lanes kernels, NUTS
+# and MCLMC (above ``CL_THREAD_MAX_DIM``, and every model with data), and the
+# dim-on-lanes (ld) NUTS kernels take d (and maxdepth) at run time.
 SIZES = tuple((d, 10) for d in (3, 4, 6, 10))
 DIMS = tuple(sorted({d for d, _ in SIZES}))
 CL_THREAD_MAX_DIM = max(DIMS)
@@ -51,6 +51,7 @@ MAX_BLOCK = 128  # nrt::MAX_BLOCK, the kernels' __launch_bounds__
 MAX_LD_BLOCK = 8
 LD_NVEC = {"posterior": 21, "warmup": 18}
 MID_NVEC = {"posterior": 21, "warmup": 19}  # the warmup keeps q1 as well
+MCLMC_MID_NVEC = 15  # nrt::MC_MID_NVEC, both mid-d MCLMC kernels
 LD_WARPS = 8  # nrt::LD_W, warps of a chain's block (ops.TSUM_THREADS / 32)
 LD_REDUCE_FLOATS = 2 * 11 * LD_WARPS  # two scratch buffers, LD_NRED x LD_W
 LD_MAX_MAXDEPTH = 30
@@ -157,6 +158,15 @@ def library():
     lib.nrt_mid_warmup_launch.restype = I
     lib.nrt_mid_smem_bytes.argtypes = [I, I, I, I, P]
     lib.nrt_mid_smem_bytes.restype = ctypes.c_longlong
+    lib.nrt_mclmc_mid_posterior_launch.argtypes = (
+        [I, I, I, I, I, I, U, F, F, F, F, I, F, F, I] + [P] * 19 + [P])
+    lib.nrt_mclmc_mid_posterior_launch.restype = I
+    lib.nrt_mclmc_mid_warmup_launch.argtypes = (
+        [I, I, I, I, I, I, U, F, F, F, F, F, I, F, F, I, I] + [P] * 20
+        + [P])
+    lib.nrt_mclmc_mid_warmup_launch.restype = I
+    lib.nrt_mclmc_mid_smem_bytes.argtypes = [I, I, P]
+    lib.nrt_mclmc_mid_smem_bytes.restype = ctypes.c_longlong
     lib.nrt_error_string.argtypes = [I]
     lib.nrt_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -250,7 +260,7 @@ def _model_and_block(q, model, B, max_block=MAX_BLOCK, data=False):
     if tensors and not data:
         raise NotImplementedError(
             f"model {model.name!r} carries data, which only the mid-d "
-            "chains-on-lanes NUTS kernels read (ROADMAP.md queue 1 item 12)")
+            "chains-on-lanes kernels read (ROADMAP.md queue 1 item 12)")
     if not 1 <= B <= max_block or C % B:
         raise ValueError(f"chain block {B} must divide num_chains ({C}) and "
                          f"be at most {max_block}")
@@ -301,11 +311,37 @@ def mid_smem_bytes(kind, d, maxdepth, model):
     ``ld_smem_bytes`` with ``MID_NVEC`` vectors, then the model functor's
     scratch, whose size comes from the functor's check of the model's data
     where they lie."""
+    return 4 * (MID_NVEC[kind] * d + 2 * (maxdepth + 1) + LD_REDUCE_FLOATS
+                + 2 * MAX_LD_BLOCK + _scratch_floats(model, d))
+
+
+def _scratch_floats(model, d):
+    """Shared-memory floats of a model functor's scratch, from the functor's
+    check of the model's data where they lie."""
     name, _, tensors = model.hook_parts()
     ints = _MODEL_DATA[name][0](tensors, d, tensors[0].device if tensors
                                 else None)
-    return 4 * (MID_NVEC[kind] * d + 2 * (maxdepth + 1) + LD_REDUCE_FLOATS
-                + 2 * MAX_LD_BLOCK + _MODEL_DATA[name][1](ints))
+    return _MODEL_DATA[name][1](ints)
+
+
+def mclmc_mid_smem_bytes(d, model):
+    """Dynamic shared memory of one chain's CUDA block in either mid-d MCLMC
+    kernel, as csrc/mclmc_step_block.cuh lays it out: the live vectors, the
+    reduction scratch and the cluster slots, then the model functor's
+    scratch.  No checkpoint stacks, so nothing depends on a depth."""
+    return 4 * (MCLMC_MID_NVEC * d + LD_REDUCE_FLOATS + 2 * MAX_LD_BLOCK
+                + _scratch_floats(model, d))
+
+
+def _mclmc_consts(d, mopts):
+    """The dynamics' template flags (microcanonical, dynamic step size) and
+    f32 constants (max_energy_error, L, F L, sqrt(d)) of an MCLMC launch."""
+    L = float(mopts.momentum_decoherence_length)
+    consts = (int(mopts.kind is KineticKind.MICROCANONICAL),
+              int(mopts.dynamic_step_size))
+    fconsts = (float(mopts.max_energy_error), L,
+               float(mopts.subsample_frequency) * L, math.sqrt(d))
+    return consts, fconsts
 
 
 def _mclmc_common(q, model, mopts, B):
@@ -313,14 +349,36 @@ def _mclmc_common(q, model, mopts, B):
     C, d = q.shape
     if d not in DIMS:
         raise NotImplementedError(
-            f"the fused CUDA kernels are instantiated for d in {DIMS}, not "
-            f"{d} (ROADMAP.md queue 1 item 12)")
-    L = float(mopts.momentum_decoherence_length)
-    consts = (int(mopts.kind is KineticKind.MICROCANONICAL),
-              int(mopts.dynamic_step_size))
-    fconsts = (float(mopts.max_energy_error), L,
-               float(mopts.subsample_frequency) * L, math.sqrt(d))
+            f"the thread-per-chain MCLMC kernels are instantiated for d in "
+            f"{DIMS}, not {d} (ROADMAP.md queue 1 item 12)")
+    consts, fconsts = _mclmc_consts(d, mopts)
     return C, d, model_id, params, consts, fconsts
+
+
+def _mclmc_mid_common(q, model, mopts, B):
+    """(C, d, model id, params, ptrs, ints, consts, fconsts, lib) of a mid-d
+    MCLMC launch, after the device, block, size and data checks."""
+    model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK, data=True)
+    C, d = q.shape
+    ints, ptrs = model_data_args(model, d, q.device)
+    need = mclmc_mid_smem_bytes(d, model)
+    if need > SMEM_OPT_IN_BYTES:
+        raise NotImplementedError(
+            f"model {model.name!r} at dim {d} needs {need} bytes of shared "
+            f"memory per chain in the mid-d MCLMC kernels; a block has "
+            f"{SMEM_OPT_IN_BYTES}: data of that size must stream (ROADMAP.md "
+            "queue 1 item 12)")
+    c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
+    c_ptrs = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+    lib = library()
+    built = lib.nrt_mclmc_mid_smem_bytes(
+        d, model_id, ctypes.cast(c_ints, ctypes.c_void_p))
+    if built != need:
+        raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
+                           "for the mid-d MCLMC kernels, "
+                           f"_build.mclmc_mid_smem_bytes {need}")
+    consts, fconsts = _mclmc_consts(d, mopts)
+    return C, d, model_id, params, c_ptrs, c_ints, consts, fconsts, lib
 
 
 def ld_smem_bytes(kind, d, maxdepth):
@@ -683,3 +741,74 @@ def launch_mclmc_warmup(seed, flags, q, g, logp, v, stds, mean, est, sca,
             *(o.data_ptr() for o in outs), iters.data_ptr(), stream)
     _raise_on(rc, lib, "mclmc_fused_warmup")
     return (draws, stats, *outs, iters)
+
+
+def launch_mclmc_mid_posterior(seed, q, g, logp, v, stds, mean, logdet, step0,
+                               step_bar, K, model, mopts, jitter, B):
+    """Launch csrc/mclmc_fused_mid_posterior.cu; returns (draws [K, C, d],
+    stats [K, C, 8], q_f, g_f [C, d], logp_f [C], v_f [C, d], iters [C])."""
+    check_mclmc_posterior_args(q, g, logp, v, stds, mean, logdet, step0,
+                               step_bar, K, mopts)
+    (C, d, model_id, params, ptrs, ints, consts, fconsts,
+     lib) = _mclmc_mid_common(q, model, mopts, B)
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, C, d, **f32)
+    stats = torch.empty(K, C, 8, **f32)
+    q_f, g_f, v_f = (torch.empty(C, d, **f32) for _ in range(3))
+    logp_f = torch.empty(C, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(jitter)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_mclmc_mid_posterior_launch(
+            d, *consts, C, B, K, int(seed) & 0xFFFFFFFF, *fconsts, hj, jc1,
+            jc2, model_id, ctypes.cast(params, ctypes.c_void_p),
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(ints, ctypes.c_void_p),
+            q.data_ptr(), g.data_ptr(), logp.data_ptr(), v.data_ptr(),
+            stds.data_ptr(), mean.data_ptr(), logdet.data_ptr(),
+            step0.data_ptr(), step_bar.data_ptr(), draws.data_ptr(),
+            stats.data_ptr(), q_f.data_ptr(), g_f.data_ptr(),
+            logp_f.data_ptr(), v_f.data_ptr(), iters.data_ptr(), stream)
+    _raise_on(rc, lib, "mclmc_fused_mid_posterior")
+    return draws, stats, q_f, g_f, logp_f, v_f, iters
+
+
+def launch_mclmc_mid_warmup(seed, flags, q, g, logp, v, stds, mean, est, sca,
+                            model, mopts, sset, use_grad_based, B):
+    """Launch csrc/mclmc_fused_mid_warmup.cu; returns (draws [K, C, d],
+    stats [K, C, 9], q, g, logp, v, stds, mean, est, sca, iters).  As the ld
+    NUTS warmup kernel, it keeps a chain's current q and g and its estimator
+    planes in the output buffers, which start as copies of the inputs."""
+    check_mclmc_warmup_args(flags, q, g, logp, v, stds, mean, est, sca,
+                            mopts)
+    (C, d, model_id, params, ptrs, ints, consts, fconsts,
+     lib) = _mclmc_mid_common(q, model, mopts, B)
+    dev = q.device
+    K = flags.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, C, d, **f32)
+    stats = torch.empty(K, C, 9, **f32)
+    q_f, g_f, est_f = q.clone(), g.clone(), est.clone()
+    logp_f = torch.empty(C, **f32)
+    v_f, stds_f, mean_f = (torch.empty(C, d, **f32) for _ in range(3))
+    sca_f = torch.empty(C, 4, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(sset.jitter)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_mclmc_mid_warmup_launch(
+            d, *consts, C, B, K, int(seed) & 0xFFFFFFFF, *fconsts,
+            float(sset.fixed_value), hj, jc1, jc2, int(use_grad_based),
+            model_id, ctypes.cast(params, ctypes.c_void_p),
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(ints, ctypes.c_void_p), flags.data_ptr(),
+            logp.data_ptr(), v.data_ptr(), stds.data_ptr(), mean.data_ptr(),
+            sca.data_ptr(), draws.data_ptr(), stats.data_ptr(),
+            q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
+            v_f.data_ptr(), stds_f.data_ptr(), mean_f.data_ptr(),
+            est_f.data_ptr(), sca_f.data_ptr(), iters.data_ptr(), stream)
+    _raise_on(rc, lib, "mclmc_fused_mid_warmup")
+    return (draws, stats, q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f,
+            iters)

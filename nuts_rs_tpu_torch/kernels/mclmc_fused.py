@@ -5,8 +5,22 @@ Port of ``nuts_rs_tpu/kernels/mclmc_pallas.py``: ``mclmc_pallas_run``
 with the CUDA kernel ``csrc/mclmc_fused_posterior.cu``, and
 ``mclmc_pallas_warmup_run`` (``:887``, body ``make_mclmc_warmup_kernel``
 ``:504``) becomes ``mclmc_fused_warmup_run`` with
-``csrc/mclmc_fused_warmup.cu``, both for the plain diagonal evaluation (no
-model args).
+``csrc/mclmc_fused_warmup.cu``.
+
+Two kernel pairs serve them, chosen as the fused NUTS kernels choose
+(``nuts_fused.cl_kernel``).  A model without data of at most
+``_build.CL_THREAD_MAX_DIM`` dimensions takes the thread-per-chain kernels
+above (instantiated for the d of ``_build.DIMS``): a chain in one thread's
+registers, every sum over the parameter axis in coordinate order
+(``ops.dsum``), chain blocks of 32.  Every larger size, and every model that
+carries data (the
+``n_model_args > 0`` variants of the Pallas bodies,
+``mclmc_pallas.py:61,82-85,124`` and ``:506,532-536,574``: K3-args and
+K4-args), takes the mid-d kernels ``csrc/mclmc_fused_mid_posterior.cu`` and
+``csrc/mclmc_fused_mid_warmup.cu``: 256 threads a chain with its vectors in
+shared memory, d at launch, sums in ``ops.tsum``'s order, the model
+evaluated by the block's threads together from its data in device memory,
+logical chain blocks of at most 8 (a thread block cluster), by default 1.
 
 Per draw, ``round(subsample_frequency * L / eps)`` leapfrogs (ESH or
 Euclidean) bracketed by partial momentum refreshes, with the dynamic
@@ -20,8 +34,10 @@ step, with the diagonal adaptation of ``diag_adapt.py`` between draws.
 
 Each kernel has a plain PyTorch version here (``*_reference``) with the
 same counter-hash random sites and salts, the same chain blocks of B and
-the same order of floating-point operations; divisors are tensors, since
-PyTorch's CUDA division by a Python scalar multiplies by its reciprocal.
+the same order of floating-point operations: the sum order and the model's
+evaluation are those of the kernel pair that serves the size
+(``nuts_fused._evaluators``); divisors are tensors, since PyTorch's CUDA
+division by a Python scalar multiplies by its reciprocal.
 The wrappers take the plain version for tensors on the CPU; for CUDA
 tensors they launch the kernel or raise.  ``LAUNCHES`` counts kernel
 launches per kernel.
@@ -44,16 +60,24 @@ import math
 import torch
 
 from ..dynamics.hamiltonian import KineticKind
-from ..ops import dsum
 from ._build import (
     check_mclmc_posterior_args,
     check_mclmc_warmup_args,
+    launch_mclmc_mid_posterior,
+    launch_mclmc_mid_warmup,
     launch_mclmc_posterior,
     launch_mclmc_warmup,
 )
 from .diag_adapt import NEST, adapt_draw
 from .mclmc import MAX_HALVINGS, STAT_NAMES
-from .nuts_fused import _block_any, _check_block, _jitter_consts, _sel
+from .nuts_fused import (
+    _block_any,
+    _check_block,
+    _evaluators,
+    _jitter_consts,
+    _sel,
+    cl_kernel,
+)
 from .rng import BlockRng
 
 NSTATS = len(STAT_NAMES)
@@ -75,9 +99,8 @@ SCA_CNT_FG = 2
 SCA_CNT_BG = 3
 NSCA = 4
 
-DEFAULT_BLOCK = 32  # chains per CUDA block: one warp
-
-LAUNCHES = {"mclmc_fused_posterior": 0, "mclmc_fused_warmup": 0}
+LAUNCHES = {"mclmc_fused_posterior": 0, "mclmc_fused_warmup": 0,
+            "mclmc_fused_mid_posterior": 0, "mclmc_fused_mid_warmup": 0}
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -86,9 +109,12 @@ _LN2 = math.log(2.0)
 
 class _Consts:
     """The kernels' f32 constants as 0-dim tensors on the device, so every
-    division is a tensor division (IEEE, as in the kernels and XLA)."""
+    division is a tensor division (IEEE, as in the kernels and XLA), with
+    the sum over the parameter axis (``csum``) and the model's evaluation
+    (``logp_and_grad``) of the kernel pair ``kind`` ("thread" or "mid")."""
 
-    def __init__(self, mopts, dim, device):
+    def __init__(self, mopts, model, dim, device, kind):
+        self.csum, self.logp_and_grad = _evaluators(model, kind)
         def t(x):
             return torch.tensor(float(x), dtype=_F32, device=device)
         self.micro = mopts.kind is KineticKind.MICROCANONICAL
@@ -106,14 +132,14 @@ class _Consts:
 def _esh(zg, v, step, k):
     """ESH momentum half-step (mclmc_pallas.py:132-148, with the log1p
     argument regrouped as the Pallas body writes it); step is [C]."""
-    gn = torch.sqrt(dsum(zg * zg))
+    gn = torch.sqrt(k.csum(zg * zg))
     gh = zg / gn[:, None]
-    alpha = dsum(v * gh)
+    alpha = k.csum(v * gh)
     delta = step * gn / k.dm1
     zeta = torch.exp(-delta)
     cg = (1.0 - zeta) * (1.0 + zeta + alpha * (1.0 - zeta))
     vr = cg[:, None] * gh + (2.0 * zeta)[:, None] * v
-    vn = vr / torch.sqrt(dsum(vr * vr))[:, None]
+    vn = vr / torch.sqrt(k.csum(vr * vr))[:, None]
     dke = (delta - _LN2
            + torch.log((1.0 + alpha) + (1.0 - alpha) * zeta * zeta)) * k.dm1
     return vn, dke
@@ -125,11 +151,11 @@ def _refresh(v, noise, half, k):
     if k.micro:
         nu = torch.sqrt((torch.exp(2.0 * half / k.ell) - 1.0) / k.dim)
         vr = v + nu[:, None] * noise
-        return vr / torch.sqrt(dsum(vr * vr))[:, None], None
+        return vr / torch.sqrt(k.csum(vr * vr))[:, None], None
     alpha = torch.exp(-half / k.ell)
     beta = torch.sqrt(1.0 - alpha * alpha)
     vr = alpha[:, None] * v + beta[:, None] * noise
-    return vr, 0.5 * dsum(vr * vr)
+    return vr, 0.5 * k.csum(vr * vr)
 
 
 def _num_steps(step, k):
@@ -137,7 +163,7 @@ def _num_steps(step, k):
     return torch.clamp(torch.round(k.fsub_ell / step), 1.0, 1e6).to(_I32)
 
 
-def _leapfrog_try(s, step, nsd, ld, stds, mean, model, k, n1, n2, act):
+def _leapfrog_try(s, step, nsd, ld, stds, mean, k, n1, n2, act):
     """One leapfrog attempt of every chain where ``act`` holds, with the
     halving stack (mclmc_pallas.py:202-282, 660-746).
 
@@ -161,14 +187,14 @@ def _leapfrog_try(s, step, nsd, ld, stds, mean, model, k, n1, n2, act):
         v1 = vr + half[:, None] * s["zg"]
         ke1 = ke_r
         z1 = s["z"] + eps[:, None] * v1
-    logp1, g1 = model.logp_and_grad(z1 * stds + mean)
+    logp1, g1 = k.logp_and_grad(z1 * stds + mean)
     zg1 = g1 * stds
     if k.micro:
         v2, dke2 = _esh(zg1, v1, k.sqrt_n * eps / 2.0, k)
         ke2 = ke1 + dke2
     else:
         v2 = v1 + half[:, None] * zg1
-        ke2 = 0.5 * dsum(v2 * v2)
+        ke2 = 0.5 * k.csum(v2 * v2)
     err = (ke2 - (logp1 + ld)) - base
     max_err_step = (k.max_err / nsd.to(_F32)) * f
     bad = torch.abs(err) >= max_err_step if k.micro else err > max_err_step
@@ -222,9 +248,9 @@ def _trajectory(z, v, zg, noise, logp, ke, nsd, HS):
 def _give_up_momentum(vfail, k):
     """The emitted momentum and kinetic energy of a give-up draw."""
     if k.micro:
-        vf = vfail / torch.sqrt(dsum(vfail * vfail))[:, None]
+        vf = vfail / torch.sqrt(k.csum(vfail * vfail))[:, None]
         return vf, torch.zeros_like(vf[:, 0])
-    return vfail, 0.5 * dsum(vfail * vfail)
+    return vfail, 0.5 * k.csum(vfail * vfail)
 
 
 # ---------------------------------------------------------------------------
@@ -234,15 +260,16 @@ def _give_up_momentum(vfail, k):
 
 def mclmc_fused_run_reference(seed, q, g, logp, v, stds, mean, logdet, step0,
                               step_bar, num_draws, model, mopts, jitter,
-                              block=DEFAULT_BLOCK):
-    """Plain PyTorch version of the fused MCLMC posterior kernel.
+                              block=None):
+    """Plain PyTorch version of the fused MCLMC posterior kernels.
 
     Same arguments and results as :func:`mclmc_fused_run`."""
     C, d = q.shape
     K = num_draws
-    B = _check_block(C, block)
+    kind = cl_kernel(model, d)
+    B = _check_block(C, block, kind)
     dev = q.device
-    k = _Consts(mopts, d, dev)
+    k = _Consts(mopts, model, d, dev, kind)
     f = lambda x: x.to(_F32).contiguous()  # noqa: E731
     q, g, v, stds, mean = f(q), f(g), f(v), f(stds), f(mean)
     logp, ld, step, bar = f(logp), f(logdet), f(step0), f(step_bar)
@@ -250,7 +277,7 @@ def mclmc_fused_run_reference(seed, q, g, logp, v, stds, mean, logdet, step0,
     zf = torch.zeros(C, dtype=_F32, device=dev)
 
     z, zg = (q - mean) / stds, g * stds
-    ke = zf if k.micro else 0.5 * dsum(v * v)
+    ke = zf if k.micro else 0.5 * k.csum(v * v)
     nsd = _num_steps(step, k)
     s = _trajectory(z, v, zg, rng.normals_vec(0, 1, 2), logp, ke, nsd, k.HS)
     e_init = ke - (logp + ld)
@@ -274,8 +301,8 @@ def mclmc_fused_run_reference(seed, q, g, logp, v, stds, mean, logdet, step0,
             u_step = bar
         else:
             u_step = bar * (c1 + c2 * rng.uniform(it, 9))
-        t, gave_up, done = _leapfrog_try(s, step, nsd, ld, stds, mean, model,
-                                         k, n1, n2, act)
+        t, gave_up, done = _leapfrog_try(s, step, nsd, ld, stds, mean, k, n1,
+                                         n2, act)
 
         # the emitted point: the trajectory end, or on a give-up the draw's
         # start with fresh momentum (mclmc.rs:361-384)
@@ -293,7 +320,7 @@ def mclmc_fused_run_reference(seed, q, g, logp, v, stds, mean, logdet, step0,
                 (t["ke"] - (t["logp"] + ld)) - e_init,
                 t["ttime"] / torch.clamp(t["steps"], min=1).to(_F32), step,
                 em_logp, em_ke - (em_logp + ld),
-                dsum(torch.square(em_z + em_zg))], 1)
+                k.csum(torch.square(em_z + em_zg))], 1)
             ce = emit.nonzero()[:, 0]
             draws[ce, dc[ce].long()] = (em_z * stds + mean)[ce]
             stats[ce, dc[ce].long()] = row[ce]
@@ -330,8 +357,7 @@ def mclmc_fused_run_reference(seed, q, g, logp, v, stds, mean, logdet, step0,
 
 
 def mclmc_fused_run(seed, q, g, logp, v, stds, mean, logdet, step0,
-                    step_bar, num_draws, model, mopts, jitter,
-                    block=DEFAULT_BLOCK):
+                    step_bar, num_draws, model, mopts, jitter, block=None):
     """Run ``num_draws`` draw-asynchronous MCLMC draws per chain.
 
     q, g, v (transformed-space velocity), stds, mean: [C, d]; logp, logdet,
@@ -339,16 +365,32 @@ def mclmc_fused_run(seed, q, g, logp, v, stds, mean, logdet, step0,
     [C, d], draws [C, K, d], stats) with stats a dict of [C, K] float32
     arrays keyed by ``STAT_NAMES`` plus ``loop_iterations`` [C].  The first
     draw of each chain uses ``step0``; later draws use ``step_bar``
-    jittered by ``jitter``.
+    jittered by ``jitter``.  The chains of a logical block of ``block``
+    chains (default 32 for the thread-per-chain kernel, 1 for the mid-d
+    kernel) share the iteration counter and run until the block's last
+    chain has its draws.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
-    ``csrc/mclmc_fused_posterior.cu``."""
+    ``csrc/mclmc_fused_posterior.cu`` or ``csrc/mclmc_fused_mid_posterior.cu``
+    (see :func:`nuts_fused.cl_kernel`)."""
     check_mclmc_posterior_args(q, g, logp, v, stds, mean, logdet, step0,
                                step_bar, num_draws, mopts)
     if q.device.type == "cpu":
         return mclmc_fused_run_reference(seed, q, g, logp, v, stds, mean,
                                          logdet, step0, step_bar, num_draws,
                                          model, mopts, jitter, block)
+    kind = cl_kernel(model, q.shape[1])
+    if kind == "mid":
+        draws, stats, q_f, g_f, logp_f, v_f, iters = \
+            launch_mclmc_mid_posterior(
+                seed, q, g, logp, v, stds, mean, logdet, step0, step_bar,
+                num_draws, model, mopts, jitter,
+                _check_block(q.shape[0], block, kind))
+        LAUNCHES["mclmc_fused_mid_posterior"] += 1
+        stats_out = {name: stats[:, :, i].T
+                     for i, name in enumerate(STAT_NAMES)}
+        stats_out["loop_iterations"] = iters
+        return q_f, g_f, logp_f, v_f, draws.permute(1, 0, 2), stats_out
     draws, stats, q_f, g_f, logp_f, v_f, iters = launch_mclmc_posterior(
         seed, q, g, logp, v, stds, mean, logdet, step0, step_bar, num_draws,
         model, mopts, jitter, _check_block(q.shape[0], block))
@@ -365,15 +407,16 @@ def mclmc_fused_run(seed, q, g, logp, v, stds, mean, logdet, step0,
 
 def mclmc_fused_warmup_run_reference(seed, flags, q, g, logp, v, stds, mean,
                                      est, sca, model, mopts, sset,
-                                     use_grad_based, block=DEFAULT_BLOCK):
-    """Plain PyTorch version of the fused MCLMC warmup kernel.
+                                     use_grad_based, block=None):
+    """Plain PyTorch version of the fused MCLMC warmup kernels.
 
     Same arguments and results as :func:`mclmc_fused_warmup_run`."""
     C, d = q.shape
     K = flags.shape[0]
-    B = _check_block(C, block)
+    kind = cl_kernel(model, d)
+    B = _check_block(C, block, kind)
     dev = q.device
-    k = _Consts(mopts, d, dev)
+    k = _Consts(mopts, model, d, dev, kind)
     jitter = sset.jitter
     j = 0 if jitter is None else 1
     f = lambda x: x.to(_F32).contiguous()  # noqa: E731
@@ -403,8 +446,8 @@ def mclmc_fused_warmup_run_reference(seed, flags, q, g, logp, v, stds, mean,
         if flags[i, FLAG_RESAMPLE]:
             v = rng.normals_vec(it, 1 + j, 2 + j)
             if k.micro:
-                v = v / torch.sqrt(dsum(v * v))[:, None]
-        ke0 = zf if k.micro else 0.5 * dsum(v * v)
+                v = v / torch.sqrt(k.csum(v * v))[:, None]
+        ke0 = zf if k.micro else 0.5 * k.csum(v * v)
         e_init = ke0 - (logp0 + logdet)
         t = _trajectory(z0, v, zg0, rng.normals_vec(it, 3 + j, 4 + j), logp0,
                         ke0, nsd, k.HS)
@@ -416,7 +459,7 @@ def mclmc_fused_warmup_run_reference(seed, flags, q, g, logp, v, stds, mean,
             n1 = rng.normals_vec(it, 5 + j, 6 + j)
             n2 = rng.normals_vec(it, 7 + j, 8 + j)
             t, gave_up, fin_now = _leapfrog_try(
-                t, step, nsd, logdet, stds, mean, model, k, n1, n2, ~done)
+                t, step, nsd, logdet, stds, mean, k, n1, n2, ~done)
             done = done | fin_now
             div = div | gave_up
             it = it + live.to(torch.int64)
@@ -434,7 +477,7 @@ def mclmc_fused_warmup_run_reference(seed, flags, q, g, logp, v, stds, mean,
             t["z"] * stds + mean, t["zg"] / stds,
             is_good & bool(flags[i, FLAG_UPDATE_EST]),
             bool(flags[i, FLAG_DO_SWITCH]), bool(flags[i, FLAG_DO_UPDATE]),
-            use_grad_based)
+            use_grad_based, k.csum)
 
         em_q = em_z * stds + mean
         draws[:, i] = em_q
@@ -443,7 +486,7 @@ def mclmc_fused_warmup_run_reference(seed, flags, q, g, logp, v, stds, mean,
             (t["ke"] - (t["logp"] + logdet)) - e_init,
             t["ttime"] / torch.clamp(t["steps"], min=1).to(_F32), step,
             em_logp, em_ke - (em_logp + logdet),
-            dsum(torch.square(em_z + em_zg)), tid_n], 1)
+            k.csum(torch.square(em_z + em_zg)), tid_n], 1)
 
         q, g, logp, v = em_q, em_zg / stds, em_logp, em_v
         stds, mean = stds_n, mean_n
@@ -457,8 +500,7 @@ def mclmc_fused_warmup_run_reference(seed, flags, q, g, logp, v, stds, mean,
 
 
 def mclmc_fused_warmup_run(seed, flags, q, g, logp, v, stds, mean, est, sca,
-                           model, mopts, sset, use_grad_based,
-                           block=DEFAULT_BLOCK):
+                           model, mopts, sset, use_grad_based, block=None):
     """Run K = flags.shape[0] lock-step MCLMC warmup draws with in-kernel
     diagonal adaptation and the FIXED jittered step ``sset`` gives.
 
@@ -466,16 +508,31 @@ def mclmc_fused_warmup_run(seed, flags, q, g, logp, v, stds, mean, est, sca,
     [C, d]; logp [C]; est [C, 8, d] estimator planes; sca [C, NSCA] scalar
     rows (``SCA_*``).  Returns (q, g, logp, v, stds, mean, est, sca, draws
     [C, K, d], stats) with stats a dict of [C, K] arrays keyed by
-    ``WARMUP_STAT_NAMES`` plus ``loop_iterations`` [C].
+    ``WARMUP_STAT_NAMES`` plus ``loop_iterations`` [C].  The chains of a
+    logical block (``block`` as in :func:`mclmc_fused_run`) share the
+    iteration counter and wait for the block's longest trajectory in every
+    draw.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
-    ``csrc/mclmc_fused_warmup.cu``."""
+    ``csrc/mclmc_fused_warmup.cu`` or ``csrc/mclmc_fused_mid_warmup.cu``."""
     check_mclmc_warmup_args(flags, q, g, logp, v, stds, mean, est, sca,
                             mopts)
     if q.device.type == "cpu":
         return mclmc_fused_warmup_run_reference(
             seed, flags, q, g, logp, v, stds, mean, est, sca, model, mopts,
             sset, use_grad_based, block)
+    kind = cl_kernel(model, q.shape[1])
+    if kind == "mid":
+        (draws, stats, q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f,
+         iters) = launch_mclmc_mid_warmup(
+            seed, flags, q, g, logp, v, stds, mean, est, sca, model, mopts,
+            sset, use_grad_based, _check_block(q.shape[0], block, kind))
+        LAUNCHES["mclmc_fused_mid_warmup"] += 1
+        stats_out = {name: stats[:, :, i].T
+                     for i, name in enumerate(WARMUP_STAT_NAMES)}
+        stats_out["loop_iterations"] = iters
+        return (q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f,
+                draws.permute(1, 0, 2), stats_out)
     (draws, stats, q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f,
      iters) = launch_mclmc_warmup(seed, flags, q, g, logp, v, stds, mean, est,
                                   sca, model, mopts, sset, use_grad_based,

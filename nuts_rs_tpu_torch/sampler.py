@@ -14,7 +14,8 @@ the fused posterior kernel, in the chains-on-lanes layout up to
 bytes the rule counts) and in the dim-on-lanes layout above
 (as the JAX runners choose, ``nuts_rs_tpu/chain.py:757-784``).  MCLMC: warmup on the fused MCLMC warmup
 kernel, split at the Euclidean -> microcanonical switch, and the posterior
-on the fused MCLMC posterior kernel.  ``posterior_kernel="pallas"`` keeps
+on the fused MCLMC posterior kernel, with or without model data, up to the
+JAX MCLMC runners' own limits (``chain.mclmc_max_dim``).  ``posterior_kernel="pallas"`` keeps
 its name, so one user script runs on both packages; in this package it selects the hand-written
 CUDA kernels (and their plain PyTorch versions for CPU tensors).  A setting
 the slice does not take raises ``NotImplementedError`` naming the ROADMAP.md
@@ -41,6 +42,7 @@ from .chain import (
     cl_max_dim,
     init_chain_state,
     layout_refusal,
+    mclmc_refusal,
     make_fused_mclmc_posterior_runner,
     make_fused_mclmc_warmup_runner,
     make_fused_posterior_runner,
@@ -194,29 +196,35 @@ def _refuse(reasons):
 def _model_reasons(model: Model, maxdepth: int, device, ld: bool) -> list:
     """What the fused kernels do not take of ``model`` on ``device``.
     ``ld``: the sampler is NUTS, which has a dim-on-lanes layout for models
-    above ``cl_max_dim`` and kernels that read a model's data; the MCLMC
-    kernels are chains-on-lanes only, as in the JAX package
-    (``mclmc_pallas.py:62``), and their data-carrying variants are not
-    ported."""
+    above ``cl_max_dim``; the MCLMC kernels are chains-on-lanes only, as in
+    the JAX package (``mclmc_pallas.py:62``), with limits of their own
+    (``chain.mclmc_refusal``).  The port has no model whose data only
+    stream; the JAX MCLMC runners refuse such a model
+    (``nuts_rs_tpu/chain.py:1228-1230``) for its sync engine, item 8."""
     reasons = []
     on_cuda = device is not None and torch.device(device).type == "cuda"
     if model.kernel_hook is None:
         return [f"model {model.name!r} without a kernel_hook (item 10)"]
     if not ld:
-        if model.carries_data:
-            reasons.append(
-                f"model {model.name!r} carries data: the fused MCLMC kernels "
-                "with model data (K3-args, K4-args) are not ported (item 12)")
-        if model.dim > cl_max_dim(maxdepth):
-            reasons.append(
-                f"dim {model.dim} above the chains-on-lanes layout's "
-                f"{cl_max_dim(maxdepth)}: the fused MCLMC kernels have no "
-                "dim-on-lanes layout (item 8, the sync engines)")
-        elif on_cuda and model.dim not in _build.DIMS:
-            reasons.append(
-                f"dim {model.dim} on CUDA: the fused MCLMC kernels are "
-                f"instantiated for d in {_build.DIMS} (item 12, more kernel "
-                "sizes)")
+        reason = mclmc_refusal(model)
+        if reason is not None:
+            return [reason]
+        if not on_cuda:
+            return reasons
+        if nuts_fused.cl_kernel(model, model.dim) == "thread":
+            if model.dim not in _build.DIMS:
+                reasons.append(
+                    f"dim {model.dim} on CUDA: the thread-per-chain MCLMC "
+                    f"kernels are instantiated for d in {_build.DIMS} (item "
+                    "12, more kernel sizes)")
+        else:
+            need = _build.mclmc_mid_smem_bytes(model.dim, model)
+            if need > _build.SMEM_OPT_IN_BYTES:
+                reasons.append(
+                    f"model {model.name!r} on CUDA: the mid-d MCLMC kernels "
+                    f"keep {need} bytes per chain in one block's shared "
+                    f"memory of {_build.SMEM_OPT_IN_BYTES}; data of that "
+                    "size must stream (item 12)")
         return reasons
     for warmup in (True, False):
         reason = layout_refusal(model, maxdepth, warmup)

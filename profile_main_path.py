@@ -10,8 +10,10 @@ The paths are chip_smoke.py's: ``Sampler(...)`` and ``run()`` with
 tuning and 700 posterior draws, with ``DiagNutsSettings`` (kernels K1, K2)
 and with ``DiagMclmcSettings`` (K3, K4), the large-d path: NUTS at
 d=1000 with 512 chains, 200 tuning and 300 posterior draws (K1-ld, K2-ld),
-and the data path: NUTS on logistic regression with 1000 rows and 100
-columns, 1024 chains, 300 tuning and 400 posterior draws (K1-args, K2-args).
+the data path: NUTS on logistic regression with 1000 rows and 100
+columns, 1024 chains, 300 tuning and 400 posterior draws (K1-args, K2-args),
+and the MCLMC data path: the same model and sizes with
+``DiagMclmcSettings`` (K3-args, K4-args).
 After building the kernels it prints, for each path,
 
 1. for ``--repeats`` unprofiled runs: the total seconds, Sampler
@@ -36,7 +38,12 @@ After building the kernels it prints, for each path,
 6. for the data path, the same own-state sweep of K1-args (B = 1 ... 8,
    then 120 ... 1024 chains), and the mid-d posterior kernel without data
    (N(3, 1) at d=100, 1024 chains) beside it, in microseconds per block
-   iteration: the difference is what the regression's evaluation costs.
+   iteration: the difference is what the regression's evaluation costs;
+7. for the MCLMC data path, the own-state sweep of K3-args (B = 1 ... 8,
+   then 120 ... 1024 chains: how many chain blocks the card holds at once),
+   and the mid-d MCLMC posterior kernel without data (N(3, 1) at d=100, 1024
+   chains) beside it: what a trajectory's iteration costs beside the
+   evaluation.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -52,8 +59,8 @@ import torch
 
 from chip_smoke import (
     CHAINS, CHUNK, DIM, DRAWS, GLM_CHAINS, GLM_DIM, GLM_DRAWS, GLM_ROWS,
-    GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS, LD_STEP, LD_TUNE, MID_DIM, MU,
-    SEED, TUNE, card_line, cuda_events_ms, glm_posterior_inputs,
+    GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS, LD_STEP, LD_TUNE, MGLM_REFERENCE,
+    MID_DIM, MU, SEED, TUNE, card_line, cuda_events_ms, glm_posterior_inputs,
     glm_reference, mclmc_posterior_args, mclmc_settings, mclmc_warmup_setup,
     posterior_inputs, warmup_setup)
 
@@ -194,6 +201,27 @@ def mclmc_launches(model, settings, device):
             lambda B: mf.mclmc_fused_warmup_run(*k4, B))
 
 
+def mclmc_data_launches(model, settings, device):
+    """K3-args and K4-args on made-up states around the JAX package's MCLMC
+    posterior of the regression (K4-args on the microcanonical warmup
+    rows)."""
+    from nuts_rs_tpu_torch import MclmcTrajectoryKind
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+
+    ref_mean, ref_std, _ = glm_reference(MGLM_REFERENCE)
+    state = glm_posterior_inputs(model, device, ref_mean, ref_std, seed=2,
+                                 chains=settings.num_chains)
+    k3, mopts = mclmc_posterior_args(model, settings, device, seed=2,
+                                     state=state)
+    jitter = settings.step_size_settings.jitter
+    sw = settings.switch_draw
+    k4 = mclmc_warmup_setup(model, settings, device, sw, sw + CHUNK,
+                            MclmcTrajectoryKind.MICROCANONICAL, state)
+    return (lambda B: mf.mclmc_fused_run(3, *k3, CHUNK, model, mopts, jitter,
+                                         B)[5],
+            lambda B: mf.mclmc_fused_warmup_run(*k4, B))
+
+
 def sweep_blocks(launches, blocks, chains):
     """ms per 128-draw launch of each kernel at every chain block size."""
     post, warm = launches
@@ -237,21 +265,10 @@ def sweep_ld_own_states(model, settings, device, layout="ld", name="K1-ld",
     (chain.py::make_fused_posterior_runner) is repeated here at each chain
     block B on that state.  Returns the launch at the default block as
     (ms, mean block iterations)."""
-    from nuts_rs_tpu_torch import Sampler
-    from nuts_rs_tpu_torch.adapt import step_size as ss
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
-    sampler = Sampler(model, settings, device=device)
-    model = sampler.model  # with its data on the device
-    while sampler._next_draw < settings.num_tune:
-        sampler.run_next_chunk()
-    state, config = sampler.state, sampler.config
+    model, state, config, step, bars = tuned_state(model, settings, device)
     t = state.transform
-    bars = ss.step_size_bar(state.step, config.step_size)
-    step = state.step.step_size
-    print(f"own states after {sampler._next_draw} tuning draws: step size "
-          f"min {float(step.min()):.4f} median {float(step.median()):.4f} "
-          f"max {float(step.max()):.4f}")
 
     def post(B, n=settings.num_chains):
         return nf.nuts_fused_run(
@@ -259,6 +276,33 @@ def sweep_ld_own_states(model, settings, device, layout="ld", name="K1-ld",
             t.mean[:n], t.logdet[:n], step[:n], bars[:n], CHUNK, model,
             config.nuts, config.step_size.jitter, B, layout)[4]
 
+    return sweep_own_states(post, name, waves)[LD_BLOCKS[-1]]
+
+
+def tuned_state(model, settings, device):
+    """(model on the device, chain state, config, first step, step bars)
+    after the Sampler ran the path's own tuning chunks."""
+    from nuts_rs_tpu_torch import Sampler
+    from nuts_rs_tpu_torch.adapt import step_size as ss
+
+    sampler = Sampler(model, settings, device=device)
+    while sampler._next_draw < settings.num_tune:
+        sampler.run_next_chunk()
+    state, config = sampler.state, sampler.config
+    step = state.step.step_size
+    print(f"own states after {sampler._next_draw} tuning draws: step size "
+          f"min {float(step.min()):.4f} median {float(step.median()):.4f} "
+          f"max {float(step.max()):.4f}")
+    return (sampler.model, state, config, step,
+            ss.step_size_bar(state.step, config.step_size))
+
+
+def sweep_own_states(post, name, waves):
+    """``post(B, n)``, a posterior launch's stats on the first n chains of
+    the path's own state at chain block B, timed at every cluster size and
+    then at B = 1 and 8 on the first n chains for n in ``waves``.  Returns
+    {B: (ms, mean block iterations)}."""
+    by_block = {}
     for B in LD_BLOCKS:
         out = post(B)
         ms = cuda_events_ms(lambda: post(B), 3)
@@ -268,6 +312,7 @@ def sweep_ld_own_states(model, settings, device, layout="ld", name="K1-ld",
               f"block iterations min {iters.min()} mean {iters.mean():.1f} "
               f"max {iters.max()}; leapfrogs per draw mean "
               f"{steps.mean():.4f} min {steps.min()} max {steps.max()}")
+        by_block[B] = (ms, float(iters.mean()))
     # the first n of those chains: a step in the time between two counts is
     # a second wave, and tells how many blocks or clusters the card holds
     for n in waves:
@@ -276,7 +321,7 @@ def sweep_ld_own_states(model, settings, device, layout="ld", name="K1-ld",
               f"{cuda_events_ms(lambda: post(1, n), 3):.4f} ms, B=8 "
               f"{cuda_events_ms(lambda: post(8, n), 3):.4f} ms per "
               f"{CHUNK}-draw launch")
-    return ms, float(iters.mean())
+    return by_block
 
 
 def evaluation_cost(glm, glm_settings, device):
@@ -299,6 +344,52 @@ def evaluation_cost(glm, glm_settings, device):
           f"on N(3, 1) at d={MID_DIM} {1e3 * ms_n / it_n:.3f} us")
 
 
+def sweep_mclmc_own_states(model, settings, device, name,
+                           waves=GLM_WAVE_CHAINS):
+    """The mid-d MCLMC posterior kernel at every cluster size on the
+    post-warmup state of the path itself: the Sampler runs its tuning
+    chunks, then the posterior runner's launch
+    (chain.py::make_fused_mclmc_posterior_runner) is repeated here at each
+    chain block B on that state, and at B = 1 and 8 on its first n chains.
+    Returns the launch at B = 1 as (ms, mean block iterations)."""
+    from nuts_rs_tpu_torch import MclmcTrajectoryKind
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+
+    model, state, config, step, bars = tuned_state(model, settings, device)
+    t = state.transform
+    mopts = settings._mclmc_options(MclmcTrajectoryKind.MICROCANONICAL)
+
+    def post(B, n=settings.num_chains):
+        return mf.mclmc_fused_run(
+            5, state.pt.q[:n], state.pt.g[:n], state.pt.logp[:n],
+            state.pt.v[:n].contiguous(), t.stds[:n], t.mean[:n],
+            t.logdet[:n], step[:n], bars[:n], CHUNK, model, mopts,
+            config.step_size.jitter, B)[5]
+
+    return sweep_own_states(post, name, waves)[1]
+
+
+def mclmc_iteration_cost(glm, glm_settings, device):
+    """What a trajectory's iteration costs beside the regression's
+    evaluation inside K3-args: the kernel on the MCLMC data path's own
+    post-warmup states beside the same kernel without data, on N(3, 1) at
+    the same d and chains, in microseconds per iteration of a launch."""
+    from nuts_rs_tpu_torch import DiagMclmcSettings
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    ms_g, it_g = sweep_mclmc_own_states(glm, glm_settings, device, "K3-args")
+    plain = DiagMclmcSettings(num_chains=GLM_CHAINS, num_tune=GLM_TUNE,
+                              num_draws=GLM_DRAWS, seed=SEED,
+                              posterior_kernel="pallas")
+    ms_n, it_n = sweep_mclmc_own_states(
+        normal_logp(MID_DIM, MU), plain, device, "mid-d K3 without data",
+        (128, 264, 528, 1024))
+    print(f"per iteration of a {CHUNK}-draw launch at {GLM_CHAINS} chains, "
+          f"B=1: K3-args {1e3 * ms_g / it_g:.3f} us, the same kernel on "
+          f"N(3, 1) at d={MID_DIM} {1e3 * ms_n / it_n:.3f} us (launch time "
+          "over a chain's iterations: the waves of chain blocks are in it)")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
@@ -309,10 +400,14 @@ def main() -> int:
                         help="item 5 alone")
     parser.add_argument("--only-data", action="store_true",
                         help="the data path alone, items 1-3 and 6")
+    parser.add_argument("--only-mclmc-data", action="store_true",
+                        help="the MCLMC data path alone, items 1-3 and 7")
     args = parser.parse_args()
+    only = ("large-d" if args.only_large_d else "data" if args.only_data
+            else "mclmc-data" if args.only_mclmc_data else None)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_main_path.py needs a CUDA card")
-    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch import DiagMclmcSettings, DiagNutsSettings
     from nuts_rs_tpu_torch.kernels import _build
     from nuts_rs_tpu_torch.models.gaussian import (
         logistic_regression,
@@ -334,6 +429,9 @@ def main() -> int:
     data = DiagNutsSettings(num_chains=GLM_CHAINS, num_tune=GLM_TUNE,
                             num_draws=GLM_DRAWS, seed=SEED,
                             posterior_kernel="pallas")
+    mdata = DiagMclmcSettings(num_chains=GLM_CHAINS, num_tune=GLM_TUNE,
+                              num_draws=GLM_DRAWS, seed=SEED,
+                              posterior_kernel="pallas")
     if args.only_own_states:
         sweep_ld_own_states(normal_logp(LD_DIM, MU), large, device)
         print(card_line())
@@ -343,10 +441,9 @@ def main() -> int:
             ("MCLMC", model, mclmc_settings(), mclmc_launches, BLOCKS),
             ("large-d", normal_logp(LD_DIM, MU), large, ld_launches,
              LD_BLOCKS),
-            ("data", glm, data, glm_launches, LD_BLOCKS)):
-        if args.only_large_d and label != "large-d":
-            continue
-        if args.only_data and label != "data":
+            ("data", glm, data, glm_launches, LD_BLOCKS),
+            ("mclmc-data", glm, mdata, mclmc_data_launches, LD_BLOCKS)):
+        if only and label != only:
             continue
         print(f"== {label} path")
         run_main_path(model, settings, device)  # first launches, allocator
@@ -358,11 +455,13 @@ def main() -> int:
         profile_once(model, settings, device, trace)
         sweep_blocks(launches(model, settings, device), blocks,
                      settings.num_chains)
-    if not args.only_data:
+    if only in (None, "large-d"):
         sweep_ld_dims(large, device)
         sweep_ld_own_states(normal_logp(LD_DIM, MU), large, device)
-    if not args.only_large_d:
+    if only in (None, "data"):
         evaluation_cost(glm, data, device)
+    if only in (None, "mclmc-data"):
+        mclmc_iteration_cost(glm, mdata, device)
     print(card_line())
     return 0
 

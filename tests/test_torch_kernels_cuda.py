@@ -1,6 +1,7 @@
 """The fused CUDA kernels (NUTS K1/K2, their dim-on-lanes forms K1-ld /
-K2-ld and their mid-d forms with model data K1-args / K2-args, MCLMC K3/K4)
-against their plain PyTorch versions, on the card.
+K2-ld and their mid-d forms with model data K1-args / K2-args, MCLMC K3/K4
+and their mid-d forms with model data K3-args / K4-args) against their plain
+PyTorch versions, on the card.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -302,3 +303,131 @@ def test_mclmc_kernels_match_plain_versions_on_the_card(micro, max_err,
                                       want[9][name].cpu().numpy())
     for i in range(9):
         _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,rows,block,micro,max_err,dynamic", [
+    (37, 300, 8, True, 1000.0, True),
+    (37, 300, 1, False, 1000.0, True),
+    (5, 70, 4, True, 0.5, True),
+    (5, 70, 4, False, 0.05, False),
+    (150, 1001, 8, True, 2.0, True),
+    (150, 1001, 2, False, 1000.0, False),
+    (100, 0, 8, True, 1000.0, True),
+    (12, 0, 4, False, 0.02, True),
+])
+def test_mclmc_mid_kernels_match_plain_versions_on_the_card(
+        dim, rows, block, micro, max_err, dynamic):
+    """K3-args and K4-args on logistic regression (``rows`` > 0) or, without
+    data, on the iid normal at a d above the thread-per-chain sizes: both
+    kinetic energies, halvings and give-ups under a small
+    ``max_energy_error``, C = 16 chains in logical blocks of ``block``
+    (clusters).  Same sum orders, so floats agree to rounding of the
+    library functions (exp, log, cos) alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.adapt.step_size import StepSizeMethod
+    from nuts_rs_tpu_torch.dynamics.hamiltonian import KineticKind
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels.mclmc import MclmcOptions
+
+    dev = torch.device("cuda", 0)
+    C = 16
+    rng = np.random.default_rng(dim + rows)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    if rows:
+        model = tg.logistic_regression(rows, dim, 3).to(dev)
+        q = f(0.2 * rng.normal(size=(C, dim)))
+        stds = f(rng.uniform(0.05, 0.15, size=(C, dim)))
+        mean = f(0.02 * rng.normal(size=(C, dim)))
+    else:
+        model = tg.normal_logp(dim, 0.5)
+        q = f(0.5 + rng.normal(size=(C, dim)))
+        stds = f(rng.uniform(0.7, 1.3, size=(C, dim)))
+        mean = torch.zeros_like(q)
+    assert nf.cl_kernel(model, dim) == "mid"
+    logp, g = model.logp_and_grad(q)
+    v = rng.normal(size=(C, dim))
+    v = f(v / np.linalg.norm(v, axis=1, keepdims=True))
+    logdet = -torch.log(stds).sum(1)
+    kind = KineticKind.MICROCANONICAL if micro else KineticKind.EUCLIDEAN
+    mopts = MclmcOptions(kind=kind, max_energy_error=max_err,
+                         dynamic_step_size=dynamic)
+    step = torch.full((C,), 0.9, device=dev)
+    args = (q, g, logp, v, stds, mean, logdet, step, step.clone())
+    before = dict(mf.LAUNCHES)
+    got = mf.mclmc_fused_run(3, *args, 8, model, mopts, 0.1, block=block)
+    torch.cuda.synchronize()
+    want = mf.mclmc_fused_run_reference(3, *args, 8, model, mopts, 0.1,
+                                        block=block)
+    for name in MCLMC_INT_STATS:
+        np.testing.assert_array_equal(got[5][name].cpu().numpy(),
+                                      want[5][name].cpu().numpy(), name)
+    assert got[4].shape == (C, 8, dim)
+    for i in range(5):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+    for name in mf.STAT_NAMES:
+        _close(got[5][name].cpu(), want[5][name].cpu(), name, 1e-5, 1e-5)
+    if max_err < 1.0:  # the case exercises halvings or give-ups
+        st = want[5]
+        assert bool((st["diverging"] > 0).any()) or bool(
+            (st["average_step_size"] < st["step_size"] * 0.99).any())
+
+    flags = torch.zeros(6, mf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, mf.FLAG_UPDATE_EST] = 1
+    flags[0, mf.FLAG_RESAMPLE] = flags[4, mf.FLAG_RESAMPLE] = 1
+    flags[2:, mf.FLAG_DO_UPDATE] = 1
+    flags[3, mf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, dim, device=dev)
+    sca = torch.zeros(C, mf.NSCA, device=dev)
+    sca[:, mf.SCA_LOGDET] = logdet
+    sset = StepSizeSettings(method=StepSizeMethod.FIXED, fixed_value=0.7)
+    wargs = (flags, q, g, logp, v, stds, mean, est, sca, model, mopts, sset,
+             True)
+    got = mf.mclmc_fused_warmup_run(5, *wargs, block=block)
+    torch.cuda.synchronize()
+    want = mf.mclmc_fused_warmup_run_reference(5, *wargs, block=block)
+    for name in MCLMC_INT_STATS + ("transformation_index",):
+        np.testing.assert_array_equal(got[9][name].cpu().numpy(),
+                                      want[9][name].cpu().numpy(), name)
+    for i in range(9):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+    for name in mf.WARMUP_STAT_NAMES:
+        _close(got[9][name].cpu(), want[9][name].cpu(), name, 1e-5, 1e-5)
+    assert mf.LAUNCHES["mclmc_fused_mid_posterior"] == \
+        before["mclmc_fused_mid_posterior"] + 1
+    assert mf.LAUNCHES["mclmc_fused_mid_warmup"] == \
+        before["mclmc_fused_mid_warmup"] + 1
+    assert mf.LAUNCHES["mclmc_fused_posterior"] == \
+        before["mclmc_fused_posterior"]
+    # a chain block above the cluster size is refused, not run another way
+    with pytest.raises(ValueError, match="chain block"):
+        mf.mclmc_fused_run(3, *args, 8, model, mopts, 0.1, block=16)
+
+
+@pytest.mark.cuda
+def test_normal_100_runs_mclmc_end_to_end_on_the_card():
+    """MCLMC at a d between the thread-per-chain instances and the fused
+    MCLMC limit (d = 11..361 used to raise at construction on the card) runs
+    warmup and posterior on the mid-d MCLMC kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    import nuts_rs_tpu_torch as tnt
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+
+    before = dict(mf.LAUNCHES)
+    trace = tnt.sample(tg.normal_logp(100, 3.0), tnt.DiagMclmcSettings(
+        num_chains=64, num_tune=200, num_draws=200, seed=0,
+        posterior_kernel="pallas"), device="cuda")
+    pos = trace.posterior["position"].astype(np.float64)
+    assert pos.shape == (64, 200, 100)
+    assert abs(pos.mean() - 3.0) < 0.03
+    assert abs(pos.std() - 1.0) < 0.05
+    assert not trace.sample_stats["diverging"].any()
+    assert 5.5 < trace.sample_stats["n_steps"].mean() < 6.7
+    assert mf.LAUNCHES["mclmc_fused_mid_posterior"] > \
+        before["mclmc_fused_mid_posterior"]
+    assert mf.LAUNCHES["mclmc_fused_mid_warmup"] > \
+        before["mclmc_fused_mid_warmup"]
+    assert mf.LAUNCHES["mclmc_fused_posterior"] == \
+        before["mclmc_fused_posterior"]

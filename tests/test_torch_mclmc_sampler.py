@@ -216,6 +216,10 @@ def _no_hook(dim):
     (dict(mesh_axis_name="chains"), "item 17"),
     ("no_hook", "item 10"),
     ("cuda_dim", "item 12"),
+    ("above_warmup_limit", "warmup launch's limit of 361.*item 8"),
+    ("above_posterior_limit", "posterior launch's limit of 484.*item 8"),
+    ("data_fail_the_rule", "bytes of data.*item 8"),
+    ("cuda_smem", "shared.*item 12"),
 ])
 def test_unsupported_settings_raise(change, item):
     model, device = tg.normal_logp(3), "cpu"
@@ -226,6 +230,19 @@ def test_unsupported_settings_raise(change, item):
     elif change == "cuda_dim":
         # no kernel instantiation for d=5: refused before anything launches
         model, device = tg.normal_logp(5), "cuda"
+    elif change == "above_warmup_limit":
+        # the JAX package runs its sync warmup and the fused posterior
+        model = tg.normal_logp(362)
+    elif change == "above_posterior_limit":
+        model = tg.normal_logp(485)  # the JAX package runs all of it sync
+    elif change == "data_fail_the_rule":
+        # 8.9 MB of data at d = 100 leave the warmup launch no room
+        model = tg.logistic_regression_from_tensors(
+            torch.zeros(100, 22000), torch.zeros(22000))
+    elif change == "cuda_smem":
+        # fits the JAX rule, but not one block's shared memory on the card
+        model, device = tg.logistic_regression_from_tensors(
+            torch.zeros(11, 60000), torch.zeros(60000)), "cuda"
     else:
         kw.update(change)
     with pytest.raises(NotImplementedError, match=item):

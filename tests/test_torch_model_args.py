@@ -509,23 +509,27 @@ def test_mid_sizes_are_served_on_cuda():
 
 
 @pytest.mark.parametrize("case,match", [
-    ("mclmc_data", "K3-args, K4-args.*item 12"),
-    ("mclmc_cuda_dim", "item 12"),
+    ("mclmc_data", "bytes of data.*item 8"),
+    ("mclmc_cuda_dim", "warmup launch's limit of 361.*item 8"),
     ("cuda_smem", "K1-stream, item 12"),
 ])
 def test_refusals_name_their_items(case, match):
-    """MCLMC with data or at a d without a kernel, and data beyond a
-    block's shared memory on the card (the NUTS refusals for data that
+    """MCLMC with data that fail the JAX MCLMC runners' rule or at a d above
+    their warmup limit (data that fit, and d = 11..361, run on K3-args and
+    K4-args: tests/test_torch_mclmc_args.py), and data beyond a block's
+    shared memory on the card (the NUTS refusals for data that
     would stream or lie above the chains-on-lanes limit are cases of
     tests/test_torch_sampler.py::test_unsupported_settings_raise)."""
     kw = dict(posterior_kernel="pallas", num_chains=4, num_tune=5,
               num_draws=5)
     device, settings = "cpu", tnt.DiagNutsSettings(**kw)
     if case == "mclmc_data":
-        model, settings = (tg.logistic_regression(32, 4, 0),
-                           tnt.DiagMclmcSettings(**kw))
+        # the JAX benchmark's logreg_big rows: the data alone fail the rule
+        model, settings = (tg.logistic_regression_from_tensors(
+            torch.zeros(32, 131072), torch.zeros(131072)),
+            tnt.DiagMclmcSettings(**kw))
     elif case == "mclmc_cuda_dim":
-        model, settings, device = (tg.normal_logp(100),
+        model, settings, device = (tg.normal_logp(362),
                                    tnt.DiagMclmcSettings(**kw), "cuda")
     else:
         # fits the JAX rule, but not one block's shared memory on the card

@@ -373,10 +373,16 @@ def test_ld_slice_on_the_cpu():
 
 
 def test_mclmc_refuses_large_d_naming_the_sync_engine():
-    # the JAX package's MCLMC kernels are chains-on-lanes only
+    # the JAX package's MCLMC kernels are chains-on-lanes only, up to the
+    # MCLMC runners' own limit (no checkpoint stacks in it), not the NUTS
+    # layouts': one dimension above cl_max_dim is still served
+    from nuts_rs_tpu_torch.chain import mclmc_max_dim
+
     settings = tnt.DiagMclmcSettings(posterior_kernel="pallas", num_chains=4,
                                      num_tune=5, num_draws=5)
-    model = tg.normal_logp(cl_max_dim(10) + 1)
+    assert settings.unsupported(tg.normal_logp(cl_max_dim(10) + 1),
+                                "cuda") == []
+    model = tg.normal_logp(mclmc_max_dim(warmup=True) + 1)
     with pytest.raises(NotImplementedError, match="item 8"):
         tnt.Sampler(model, settings, device="cpu")
 
