@@ -7,8 +7,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the fused CUDA kernels from ``nuts_rs_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-and drives five paths through ``Sampler(...).run()`` with
-``posterior_kernel="pallas"``.  Two run N(3, 1) at d=10 with 1024 chains,
+and drives six paths through ``Sampler(...).run()`` with
+``posterior_kernel="pallas"`` (``--only PATH`` drives one of them: ``nuts``,
+``mclmc``, ``large_d``, ``data``, ``mclmc_data`` or ``stream``, and builds
+only its kernels).  Two run N(3, 1) at d=10 with 1024 chains,
 300 tuning and 700 posterior draws: NUTS (``DiagNutsSettings``, kernels K1
 and K2) and MCLMC (``DiagMclmcSettings``, kernels K3 and K4).  The third is
 the large-d path: NUTS on N(3, 1) at d=1000 with 512 chains, 200 tuning and
@@ -21,14 +23,27 @@ JAX package's (``tests/data/logreg_d100_reference.json``, moments from that
 package's sync engine on a CPU).  The fifth is the same regression under
 MCLMC (``DiagMclmcSettings``, the same chains and draws), on the mid-d MCLMC
 kernels K3-args and K4-args, held against that package's sync MCLMC engine
-(``tests/data/mclmc_logreg_d100_reference.json``).  For each path it sets
+(``tests/data/mclmc_logreg_d100_reference.json``).  The sixth is the
+streamed-data path: NUTS on the same regression with 131072 rows (52 MB of
+data, more than a block's shared memory and the card's L2), 256 chains, 150
+tuning and 256 posterior draws (the JAX benchmark's 300 and 400 cut for this
+script's time; ``profile_main_path.py --only-stream`` runs them whole): the
+per-draw sync engine (plain PyTorch) for the warmup, then the posterior on
+kernel K1-stream, which walks the rows in tiles of 512; its posterior is held
+against the JAX package's sync engine on the same rows
+(``tests/data/logreg_big_reference.json``), and its launch counts must be 2
+of K1-stream and none of a fused warmup kernel.  K1-stream
+is checked at the path's rows and dimension on 64 chains.  For each path it sets
 the launch counts to 0, runs, reads them, and checks that its kernels ran
 and that the posterior is right.  Every kernel is held against its plain
-version at its path's chains and dimension (8 posterior or 16 warmup
+version at its path's chains and dimension (8 posterior or up to 16 warmup
 draws); the mid-d kernels, NUTS and MCLMC, also on N(3, 1) at d=100 with 64
-chains in logical blocks of 8.  Cut to make room: K2-args is checked on 8
-schedule rows (2..9, with the window switch), not 16.  The script takes
-about four minutes.
+chains in logical blocks of 8.  Cut to keep the script under five minutes:
+K2-args is checked on 4 schedule rows (6..9, with the window switch), not
+16, K2-ld and the mid-d K2 without data on 8 (2..9); K4-args' rows start
+from a post-warmup-like state, not the initial one; the streamed-data path
+runs half its warmup and two of its four posterior launches, and
+K1-stream's 128-draw launch is timed once.
 
 Each kernel is timed (CUDA events) beside its plain version on the check's
 inputs (``ms``, ``plain_ms``, with the bound ``bound_ms`` of that work), and
@@ -51,7 +66,9 @@ without a CUDA card it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -64,10 +81,13 @@ DIM, MU, CHAINS, TUNE, DRAWS, SEED = 10, 3.0, 1024, 300, 700, 0
 CHUNK = 128          # the Sampler's chunk: draws per launch on the main path
 CHECK_K1_DRAWS = 8   # posterior draws per chain in the kernel check
 CHECK_K2_DRAWS = 16  # warmup draws in the kernel check
-# K2-args' check: rows 2..9 keep the window switch of row 8; its plain version
-# took 89 s of the script at 16 rows (the first trees from the initial state
-# are the deep ones), and the script has the two MCLMC checks to make room for
-CHECK_K2_ARGS_DRAWS = 8
+# K2-args' check: rows 6..9 keep the window switch of row 8 and one draw after
+# it; its plain version took 89 s of the script at 16 rows and 48-58 s at 8
+# (every tree from the initial state is a deep one), and the script has five
+# minutes for six paths
+CHECK_K2_ARGS_ROWS = (6, 10)
+# K2-ld and the mid-d kernel without data: rows 2..9, with the switch of row 8
+CHECK_K2_SHORT_ROWS = (2, 10)
 CHECK_K3_DRAWS = 8   # MCLMC posterior draws per chain in the kernel check
 CHECK_K4_DRAWS = 16  # MCLMC warmup draws in each kernel check
 # the large-d path (the JAX benchmark's normal_d1000 sizes); its kernels are
@@ -87,6 +107,15 @@ GLM_STD_TOL = 0.1   # relative
 MGLM_REFERENCE = GLM_REFERENCE.with_name("mclmc_logreg_d100_reference.json")
 MGLM_NSTEPS = (5.5, 6.7)  # mean leapfrogs a draw: round(3 / 0.5), 10% jitter
 MID_DIM, MID_CHAINS = 100, 64
+# the streamed-data path (the JAX benchmark's logreg_big sizes): the warmup is
+# the per-draw sync engine, the posterior kernel K1-stream
+BIG_ROWS, BIG_CHAINS = 131072, 256
+BIG_FULL_TUNE, BIG_FULL_DRAWS = 300, 400  # what profile_main_path.py runs
+# cut here for the script's five minutes (the sync warmup's 300 draws take
+# 49-96 s with the host's speed): half the warmup, two posterior launches
+BIG_TUNE, BIG_DRAWS = 150, 256
+BIG_CHECK_CHAINS = 64  # of the K1-stream check (its plain version's time)
+BIG_REFERENCE = GLM_REFERENCE.with_name("logreg_big_reference.json")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOP_PER_S = 67e12    # H100 SXM outside the tensor cores, published
 # FP32 operations per coordinate and gradient evaluation that every version
@@ -179,12 +208,12 @@ def timed_pair(kernel, plain):
     return out_k, box[0], ms, plain_ms
 
 
-def chunk_time(kind, model, fn, inputs, stats_at):
-    """A kernel alone at its path's 128-draw launch: (ms over 3 calls,
-    bound_ms, bound_by)."""
+def chunk_time(kind, model, fn, inputs, stats_at, repeats=3):
+    """A kernel alone at its path's 128-draw launch: (ms over ``repeats``
+    calls after a first one, bound_ms, bound_by)."""
     out = fn()
     torch.cuda.synchronize()
-    ms = cuda_events_ms(fn, 3)
+    ms = cuda_events_ms(fn, repeats)
     b_ms, b_by = bound(kind, model, inputs, out, out[stats_at])
     return ms, b_ms, b_by
 
@@ -249,10 +278,11 @@ def check_row(kind, model, inputs, out_k, err, ms, plain_ms):
 
 
 def check_posterior(model, opts, device, layout="cl", chains=CHAINS,
-                    step=(0.8, 1.0), name=None, args=None, block=None):
+                    step=(0.8, 1.0), name=None, args=None, block=None,
+                    stream=False):
     """K1 (cl), K1-ld or, with ``name`` and maybe its own inputs ``args``
-    and logical chain block, the mid-d cl kernel against its plain
-    version."""
+    and logical chain block, the mid-d cl kernel or (``stream``) the
+    streamed one against its plain version."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     name = name or ("K1-ld" if layout == "ld" else "K1")
@@ -260,12 +290,13 @@ def check_posterior(model, opts, device, layout="cl", chains=CHAINS,
         args = posterior_inputs(model, device, chains=chains, step=step)
     out_k, out_p, ms, plain_ms = timed_pair(
         lambda: nf.nuts_fused_run(7, *args, CHECK_K1_DRAWS, model, opts, 0.1,
-                                  block, layout),
+                                  block, layout, stream),
         lambda: nf.nuts_fused_run_reference(7, *args, CHECK_K1_DRAWS, model,
-                                            opts, 0.1, block, layout))
+                                            opts, 0.1, block, layout, stream))
     n, err = compare(name, out_k, out_p, ("q_f", "g_f", "logp_f"),
                      nf.STAT_NAMES, INT_STATS)
     blocks = len(set(out_k[4]["loop_iterations"].cpu().tolist()))
+    chains = args[0].shape[0]
     print(f"{name} check: C={chains} d={model.dim} K={CHECK_K1_DRAWS}: "
           f"integer stats equal on all {n} (chain, draw) entries, max abs "
           f"err {err:.3g} (draws, final state, all stats); {blocks} distinct "
@@ -294,15 +325,18 @@ def warmup_setup(model, settings, device, lo, hi, chains=CHAINS):
 
 
 def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
-                 name=None, block=None, draws=CHECK_K2_DRAWS):
+                 name=None, block=None, rows=(2, 2 + CHECK_K2_DRAWS)):
     """K2 (cl), K2-ld or, with ``name`` and maybe a logical chain block, the
-    mid-d cl kernel against its plain version, on ``draws`` schedule rows."""
+    mid-d cl kernel against its plain version, on schedule rows
+    ``rows[0] .. rows[1] - 1`` from the initial state."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     name = name or ("K2-ld" if layout == "ld" else "K2")
     # schedule rows 2.. are the second warmup phase's: estimator updates,
     # mass-matrix updates every draw and the first window switch (row 8)
-    args = warmup_setup(model, settings, device, 2, 2 + draws, chains)
+    lo, hi = rows
+    draws = hi - lo
+    args = warmup_setup(model, settings, device, lo, hi, chains)
     if not args[1][:, nf.FLAG_DO_SWITCH].any():
         raise AssertionError(f"{name} check rows hold no window switch")
     out_k, out_p, ms, plain_ms = timed_pair(
@@ -312,7 +346,7 @@ def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
                      ("q", "g", "logp", "stds", "mean", "est", "sca"),
                      nf.WARMUP_STAT_NAMES, INT_STATS)
     print(f"{name} check: C={chains} d={model.dim} K={draws} "
-          f"(schedule rows 2..{1 + draws}, a window switch among "
+          f"(schedule rows {lo}..{hi - 1}, a window switch among "
           f"them): integer stats equal on all {n} (chain, draw) entries, "
           f"max abs err {err:.3g} (draws, final state, est, sca, all "
           f"stats); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
@@ -448,15 +482,16 @@ def glm_posterior_inputs(model, device, ref_mean, ref_std, seed=1,
     return q, g, logp, stds, mean, logdet, step, step.clone()
 
 
-def time_glm_by_matmul(model, device):
+def time_glm_by_matmul(model, device, chains=GLM_CHAINS):
     """The regression's two products at the path's [chains, d] by
     ``torch.matmul`` in IEEE float32, alone and inside the host's closed
     form (with its elementwise pass and sums): the yardstick for the
     kernels' products, not a launch's work."""
     rng = np.random.default_rng(5)
-    q = torch.as_tensor(0.1 * rng.normal(size=(GLM_CHAINS, model.dim)),
+    q = torch.as_tensor(0.1 * rng.normal(size=(chains, model.dim)),
                         dtype=torch.float32, device=device)
     xt = model.hook_parts()[2][0]
+    rows = xt.shape[1]
 
     def products():
         return torch.matmul(torch.matmul(q, xt), xt.T)
@@ -465,11 +500,12 @@ def time_glm_by_matmul(model, device):
     model.logp_and_grad(q)
     ms_two = cuda_events_ms(products, 20)
     ms = cuda_events_ms(lambda: model.logp_and_grad(q), 20)
-    flop = GLM_CHAINS * 4 * GLM_ROWS * model.dim
+    flop = chains * 4 * rows * model.dim
     print(f"glm products by two torch.matmul calls (TF32 off): {ms_two:.4f} "
-          f"ms for q [{GLM_CHAINS}, {model.dim}], x [{GLM_ROWS}, "
+          f"ms for q [{chains}, {model.dim}], x [{rows}, "
           f"{model.dim}] ({flop / ms_two / 1e9:.4g} TFLOP/s); the host's "
           f"closed form around them {ms:.4f} ms per batched evaluation")
+    return ms_two, ms
 
 
 def glm_moment_errors(trace, settings, dim, ref_mean, ref_std):
@@ -496,16 +532,23 @@ def require_glm_moments(mean_err, std_err):
                              "(relative) from the reference")
 
 
-def glm_main_path(model, settings, device, ref_mean, ref_std):
-    """The data-carrying path through Sampler.run, held against the JAX
-    package's posterior."""
+def glm_main_path(model, settings, device, ref_mean, ref_std,
+                  kernels=("nuts_fused_mid_posterior",
+                           "nuts_fused_mid_warmup"), what="data path"):
+    """A regression's NUTS path through Sampler.run, held against the JAX
+    package's posterior; ``kernels`` names the launch counters it must move
+    (every other fused NUTS kernel must stay at 0).  Returns (launches,
+    warmup seconds)."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     zero_launch_counts()
     trace, init_s, warm_s, post_s, total_s = run_sampler(model, settings,
                                                          device)
-    launches = read_launch_counts(
-        nf.LAUNCHES, ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"))
+    launches = read_launch_counts(nf.LAUNCHES, kernels)
+    others = {k: n for k, n in nf.LAUNCHES.items() if k not in kernels and n}
+    if others:
+        raise AssertionError(f"{what} launched other kernels: {others}")
+    rows = model.hook_parts()[2][1].shape[0]
     st = trace.sample_stats
     mean_err, std_err = glm_moment_errors(trace, settings, model.dim,
                                           ref_mean, ref_std)
@@ -513,14 +556,14 @@ def glm_main_path(model, settings, device, ref_mean, ref_std):
     acc = float(st["mean_tree_accept"].mean())
     n_grad = int(st["n_steps"].sum())
     n_warm = int(trace.warmup_sample_stats["n_steps"].sum())
-    print(f"data path: logistic regression N={GLM_ROWS} d={model.dim} "
+    print(f"{what}: logistic regression N={rows} d={model.dim} "
           f"chains={settings.num_chains} tune={settings.num_tune} "
           f"draws={settings.num_draws}: init {init_s:.3f} s, warmup "
           f"{warm_s:.3f} s, posterior {post_s:.3f} s, total with trace "
           f"assembly {total_s:.3f} s, {n_grad / post_s:.6g} posterior "
           f"gradient evaluations/s ({n_grad} in the posterior, {n_warm} in "
           f"the warmup), launches {launches}")
-    print(f"data path posterior: max |mean - reference| "
+    print(f"{what} posterior: max |mean - reference| "
           f"{mean_err:.4f} posterior std (gate {GLM_MEAN_TOL}), max |std / "
           f"reference - 1| {std_err:.4f} (gate {GLM_STD_TOL}), divergences "
           f"{n_div} mean accept {acc:.4f} step size "
@@ -532,7 +575,7 @@ def glm_main_path(model, settings, device, ref_mean, ref_std):
         raise AssertionError(f"{n_div} divergences on the regression")
     if not 0.7 < acc < 0.95:
         raise AssertionError(f"mean accept {acc} outside (0.7, 0.95)")
-    return launches
+    return launches, warm_s
 
 
 # ---------------------------------------------------------------------------
@@ -631,25 +674,25 @@ def mclmc_warmup_setup(model, settings, device, lo, hi, kind, state=None):
 
 
 def check_mclmc_warmup(model, settings, device, name="K4", block=None,
-                       micro_state=None):
+                       micro_state=None, euclid_state=None):
     """K4 or, with ``name`` and maybe a logical chain block, the mid-d MCLMC
     warmup kernel, on schedule rows that hold a momentum resample, a window
     switch and mass-matrix updates: from draw 0 with the Euclidean kinetic
     energy, and across the trajectory switch with the microcanonical one
-    (from the initial state too, or from ``micro_state``, see
-    ``mclmc_warmup_setup``).  The row's times and bound are those of the
-    microcanonical rows."""
+    (each from the initial state, or from ``euclid_state`` /
+    ``micro_state``, see ``mclmc_warmup_setup``).  The row's times and bound
+    are those of the microcanonical rows."""
     from nuts_rs_tpu_torch import MclmcTrajectoryKind as Kind
     from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     err, n, rows = 0.0, 0, []
-    for lo, kind in ((0, Kind.EUCLIDEAN),
-                     (settings.switch_draw - 6, Kind.MICROCANONICAL)):
+    for lo, kind, state in (
+            (0, Kind.EUCLIDEAN, euclid_state),
+            (settings.switch_draw - 6, Kind.MICROCANONICAL, micro_state)):
         hi = lo + CHECK_K4_DRAWS
-        args = mclmc_warmup_setup(
-            model, settings, device, lo, hi, kind,
-            micro_state if kind is Kind.MICROCANONICAL else None)
+        args = mclmc_warmup_setup(model, settings, device, lo, hi, kind,
+                                  state)
         flags = args[1].cpu().numpy()
         if not (flags[:, mf.FLAG_RESAMPLE].any()
                 and flags[:, mf.FLAG_DO_SWITCH].any()):
@@ -665,9 +708,7 @@ def check_mclmc_warmup(model, settings, device, name="K4", block=None,
             MCLMC_INT_STATS + ("transformation_index",))
         n, err = n + n_i, max(err, err_i)
         rows.append(f"{lo}..{hi - 1} {kind.value}" + (
-            " from a post-warmup-like state"
-            if micro_state is not None and kind is Kind.MICROCANONICAL
-            else ""))
+            " from a post-warmup-like state" if state is not None else ""))
     chains = settings.num_chains
     B = nf._check_block(chains, block, nf.cl_kernel(model, model.dim))
     print(f"{name} check: C={chains} d={model.dim} B={B} "
@@ -806,43 +847,16 @@ KERNELS = (
      "nuts_rs_tpu/kernels/mclmc_pallas.py:61"),
     ("mclmc_fused_mid_warmup", "mclmc_fused_mid_warmup.cu",
      "nuts_rs_tpu/kernels/mclmc_pallas.py:506"),
+    ("nuts_fused_stream_posterior", "nuts_fused_stream_posterior.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:217"),
 )
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise RuntimeError("chip_smoke.py needs a CUDA card "
-                           "(torch.cuda.is_available() is false)")
-    from nuts_rs_tpu_torch import DiagMclmcSettings, DiagNutsSettings
-    from nuts_rs_tpu_torch.kernels import _build
-    from nuts_rs_tpu_torch.models.gaussian import (
-        logistic_regression,
-        normal_logp,
-    )
+def path_nuts(device, checks, launches, times):
+    """NUTS at d=10: K1, K2."""
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
 
-    device = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    card = card_line()
-    print(card)
-    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
-                          text=True, check=True, timeout=60)
-    print(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}; torch "
-          f"{torch.__version__} (CUDA {torch.version.cuda})")
-    t0 = time.monotonic()
-    _build.library()
-    print(f"build: {time.monotonic() - t0:.1f} s ({_build.BUILD_INFO['library']})")
-    log = (_build.BUILD_DIR / "build.log")
-    if log.exists():
-        for line in log.read_text().splitlines():
-            if "Compiling entry function" in line:
-                print("  ptxas: " + line.split("'")[1][:72])
-            elif "Used" in line or "spill" in line:
-                print("  ptxas:   " + line.strip().removeprefix("ptxas info    : "))
-
-    checks, launches, times = {}, {}, {}
-
-    # ---- NUTS at d=10: K1, K2 ----
     model = normal_logp(DIM, MU)
     settings = DiagNutsSettings(num_chains=CHAINS, num_tune=TUNE,
                                 num_draws=DRAWS, seed=SEED,
@@ -854,7 +868,12 @@ def main() -> int:
                               ("nuts_fused_posterior", "nuts_fused_warmup")))
     times.update(time_kernels(model, settings, device))
 
-    # ---- MCLMC at d=10: K3, K4 ----
+
+def path_mclmc(device, checks, launches, times):
+    """MCLMC at d=10: K3, K4."""
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    model = normal_logp(DIM, MU)
     msettings = mclmc_settings()
     checks["mclmc_fused_posterior"] = check_mclmc_posterior(model, msettings,
                                                             device)
@@ -863,7 +882,12 @@ def main() -> int:
     launches.update(mclmc_main_path(model, msettings, device))
     times.update(time_mclmc_kernels(model, msettings, device))
 
-    # ---- NUTS at d=1000, the dim-on-lanes layout: K1-ld, K2-ld ----
+
+def path_large_d(device, checks, launches, times):
+    """NUTS at d=1000, the dim-on-lanes layout: K1-ld, K2-ld."""
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
     ld_model = normal_logp(LD_DIM, MU)
     ld_settings = DiagNutsSettings(num_chains=LD_CHAINS, num_tune=LD_TUNE,
                                    num_draws=LD_DRAWS, seed=SEED,
@@ -872,7 +896,8 @@ def main() -> int:
         ld_model, ld_settings.nuts_options(), device, "ld", LD_CHAINS,
         LD_STEP)
     checks["nuts_fused_ld_warmup"] = check_warmup(
-        ld_model, ld_settings, device, "ld", LD_CHAINS)
+        ld_model, ld_settings, device, "ld", LD_CHAINS,
+        rows=CHECK_K2_SHORT_ROWS)
     launches.update(main_path(
         ld_model, ld_settings, device,
         ("nuts_fused_ld_posterior", "nuts_fused_ld_warmup"),
@@ -880,7 +905,15 @@ def main() -> int:
     times.update(time_kernels(ld_model, ld_settings, device, "ld", LD_CHAINS,
                               LD_STEP))
 
-    # ---- NUTS with model data at d=100: K1-args, K2-args (mid-d cl) ----
+
+def path_data(device, checks, launches, times):
+    """NUTS with model data at d=100: K1-args, K2-args (mid-d cl)."""
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.models.gaussian import (
+        logistic_regression,
+        normal_logp,
+    )
+
     ref_mean, ref_std, ref = glm_reference()
     print(f"data path reference: {ref['engine']}, {ref['chains']} chains x "
           f"{ref['draws']} draws, Monte-Carlo error of a mean at most "
@@ -896,7 +929,7 @@ def main() -> int:
         args=glm_posterior_inputs(glm, device, ref_mean, ref_std))
     checks["nuts_fused_mid_warmup"] = check_warmup(
         glm, glm_settings, device, chains=GLM_CHAINS, name="K2-args",
-        draws=CHECK_K2_ARGS_DRAWS)
+        rows=CHECK_K2_ARGS_ROWS)
     # the same kernels without data, on N(3, 1) at a d that had no kernel,
     # in logical blocks of 8 chains (clusters; the path runs chains alone)
     mid_model = normal_logp(MID_DIM, MU)
@@ -907,14 +940,24 @@ def main() -> int:
                     chains=MID_CHAINS, step=(0.45, 0.6), name="mid-d K1 B=8",
                     block=8)
     check_warmup(mid_model, mid_settings, device, chains=MID_CHAINS,
-                 name="mid-d K2 B=8", block=8)
+                 name="mid-d K2 B=8", block=8, rows=CHECK_K2_SHORT_ROWS)
     launches.update(glm_main_path(glm, glm_settings, device, ref_mean,
-                                  ref_std))
+                                  ref_std)[0])
     times.update(time_kernels(
         glm, glm_settings, device, chains=GLM_CHAINS,
         k1=glm_posterior_inputs(glm, device, ref_mean, ref_std, seed=2)))
 
-    # ---- MCLMC with model data at d=100: K3-args, K4-args (mid-d) ----
+
+def path_mclmc_data(device, checks, launches, times):
+    """MCLMC with model data at d=100: K3-args, K4-args (mid-d)."""
+    from nuts_rs_tpu_torch import DiagMclmcSettings
+    from nuts_rs_tpu_torch.models.gaussian import (
+        logistic_regression,
+        normal_logp,
+    )
+
+    glm = logistic_regression(GLM_ROWS, GLM_DIM, SEED).to(device)
+    mid_model = normal_logp(MID_DIM, MU)
     mref_mean, mref_std, mref = glm_reference(MGLM_REFERENCE)
     print(f"MCLMC data path reference: {mref['engine']}, {mref['chains']} "
           f"chains x {mref['draws']} draws, {mref['divergences']} "
@@ -930,7 +973,11 @@ def main() -> int:
     checks["mclmc_fused_mid_warmup"] = check_mclmc_warmup(
         glm, mglm_settings, device, name="K4-args",
         micro_state=glm_posterior_inputs(glm, device, mref_mean, mref_std,
-                                         seed=3))
+                                         seed=3),
+        # the Euclidean rows too: from the initial state their plain version
+        # took 45-65 s of the script (hundreds of halving iterations)
+        euclid_state=glm_posterior_inputs(glm, device, mref_mean, mref_std,
+                                          seed=4))
     # the same kernels without data, on N(3, 1) at d=100, in logical blocks
     # of 8 chains (clusters; the path runs chains alone)
     mmid_settings = DiagMclmcSettings(
@@ -948,8 +995,127 @@ def main() -> int:
         glm, mglm_settings, device,
         state=glm_posterior_inputs(glm, device, mref_mean, mref_std, seed=2)))
 
+
+def path_stream(device, checks, launches, times):
+    """NUTS with streamed data, 131072 rows at d=100: the sync engine for
+    the warmup, K1-stream for the posterior."""
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+    from nuts_rs_tpu_torch.models.gaussian import logistic_regression
+
+    ref_mean, ref_std, ref = glm_reference(BIG_REFERENCE)
+    print(f"streamed-data path reference: {ref['engine']}, {ref['chains']} "
+          f"chains x {ref['draws']} draws, {ref['mean_n_steps']:.2f} "
+          "leapfrogs a draw, Monte-Carlo error of a mean at most "
+          f"{ref['max_mc_error_of_mean_in_std']:.4f} posterior std")
+    big = logistic_regression(BIG_ROWS, GLM_DIM, SEED).to(device)
+    settings = DiagNutsSettings(num_chains=BIG_CHAINS, num_tune=BIG_TUNE,
+                                num_draws=BIG_DRAWS, seed=SEED,
+                                posterior_kernel="pallas")
+    opts = settings.nuts_options()
+    print(f"streamed-data path: {big.data_bytes / 1e6:.1f} MB of data in "
+          f"{-(-BIG_ROWS // big.stream_tile_rows)} tiles of "
+          f"{big.stream_tile_rows} rows")
+    matmul_ms, _ = time_glm_by_matmul(big, device, BIG_CHAINS)
+    checks["nuts_fused_stream_posterior"] = check_posterior(
+        big, opts, device, name="K1-stream", stream=True,
+        args=glm_posterior_inputs(big, device, ref_mean, ref_std,
+                                  chains=BIG_CHECK_CHAINS))
+    got, warm_s = glm_main_path(
+        big, settings, device, ref_mean, ref_std,
+        kernels=("nuts_fused_stream_posterior",), what="streamed-data path")
+    want = -(-BIG_DRAWS // CHUNK)
+    if got["nuts_fused_stream_posterior"] != want:
+        raise AssertionError(f"K1-stream launched {got} times, not {want}")
+    launches.update(got)
+    print(f"sync engine: {warm_s / BIG_TUNE:.4f} s per warmup draw "
+          f"({BIG_TUNE} draws of {BIG_CHAINS} chains in lock step, "
+          f"{warm_s:.2f} s)")
+    k1 = glm_posterior_inputs(big, device, ref_mean, ref_std, seed=2,
+                              chains=BIG_CHAINS)
+    # one timed call and no first one: the path has just run this kernel, and
+    # a launch takes seconds
+    box = []
+    ms = cuda_events_ms(lambda: box.append(nf.nuts_fused_run(
+        3, *k1, CHUNK, big, opts, 0.1, stream=True)), 1)
+    b_ms, b_by = bound("nuts", big, k1, box[0], box[0][4])
+    times["nuts_fused_stream_posterior"] = (ms, b_ms, b_by)
+    evals = float(box[0][4]["n_steps"].sum())
+    print(f"time nuts_fused_stream_posterior: {ms:.4f} ms per {CHUNK}-draw "
+          f"launch at C={BIG_CHAINS} d={big.dim} N={BIG_ROWS}; bound "
+          f"{b_ms:.5f} ms ({b_by}); the two products of one batched "
+          f"evaluation by torch.matmul take {matmul_ms:.4f} ms "
+          f"({evals / CHUNK / BIG_CHAINS:.2f} evaluations a draw and chain)")
+
+
+PATHS = {"nuts": path_nuts, "mclmc": path_mclmc, "large_d": path_large_d,
+         "data": path_data, "mclmc_data": path_mclmc_data,
+         "stream": path_stream}
+# the sources each path launches (the smem-size helpers of the mid-d and ld
+# warmup kernels live in their posterior sources)
+PATH_SOURCES = {
+    "nuts": ("nuts_fused_posterior", "nuts_fused_warmup"),
+    "mclmc": ("mclmc_fused_posterior", "mclmc_fused_warmup"),
+    "large_d": ("nuts_fused_ld_posterior", "nuts_fused_ld_warmup"),
+    "data": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
+    "mclmc_data": ("mclmc_fused_mid_posterior", "mclmc_fused_mid_warmup"),
+    "stream": ("nuts_fused_stream_posterior",),
+}
+
+
+def ptxas_summary(stem, log):
+    """One line for a source from nvcc's ``-Xptxas -v`` output (kept whole in
+    ``log``): its entry functions, the most registers and stack bytes of any,
+    and the bytes spilled by all."""
+    if not log.exists():
+        return f"ptxas {stem}: built before this run"
+    text = log.read_text()
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", text)]
+    stack = [int(n) for n in re.findall(r"(\d+) bytes stack frame", text)]
+    spill = [int(n) for n in re.findall(r"(\d+) bytes spill stores", text)]
+    return (f"ptxas {stem}: {len(regs)} entry functions, at most "
+            f"{max(regs, default=0)} registers and {max(stack, default=0)} "
+            f"bytes of stack, {sum(spill)} bytes of spill stores in all")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", choices=sorted(PATHS), default=None,
+                    help="drive this path alone and build only its kernels")
+    only = ap.parse_args(argv).only
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA card "
+                           "(torch.cuda.is_available() is false)")
+    from nuts_rs_tpu_torch.kernels import _build
+
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(card)
+    nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
+                          text=True, check=True, timeout=60)
+    print(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}; torch "
+          f"{torch.__version__} (CUDA {torch.version.cuda})")
+    paths = [only] if only else list(PATHS)
+    stems = [stem for path in paths for stem in PATH_SOURCES[path]]
+    t0 = time.monotonic()
+    _build.build(stems)
+    print(f"build: {time.monotonic() - t0:.1f} s ({len(stems)} sources, one "
+          f"nvcc each, together, into {_build.BUILD_DIR})")
+    for stem in stems:
+        print("  " + ptxas_summary(stem, _build.BUILD_DIR / f"build_{stem}.log"))
+
+    checks, launches, times = {}, {}, {}
+    for path in paths:
+        t0 = time.monotonic()
+        PATHS[path](device, checks, launches, times)
+        print(f"path {path}: {time.monotonic() - t0:.1f} s")
+
     kernels = []
     for name, source, replaces in KERNELS:
+        if name not in checks:
+            continue  # --only: another path's kernel
         chunk_ms, chunk_bound_ms, chunk_bound_by = times[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -958,6 +1124,8 @@ def main() -> int:
             **checks[name], "library_ms": None, "chunk_ms": chunk_ms,
             "chunk_bound_ms": chunk_bound_ms,
             "chunk_bound_by": chunk_bound_by})
+    if not only and len(kernels) != len(KERNELS):
+        raise AssertionError("a kernel of the table was not checked")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -89,11 +89,15 @@ def switch(s: DiagAdaptState) -> DiagAdaptState:
 
 
 def adapt_diag(s: DiagAdaptState, transform: AffineTransform,
-               use_grad_based_estimate: bool = True) -> AffineTransform:
+               use_grad_based_estimate: bool = True,
+               update_mask=None) -> AffineTransform:
     """Recompute the diagonal transform from the foreground estimators
     (diagonal.rs:161-196); chains with fewer than 3 good samples keep their
-    transform."""
+    transform, and so do the chains outside ``update_mask`` [C] (the
+    good-draw window mode's per-chain update decision)."""
     enough = s.draw.count >= 3.0
+    if update_mask is not None:
+        enough = enough & update_mask
     if use_grad_based_estimate:
         val = torch.sqrt(s.draw.var_sum / s.grad.var_sum)
     else:

@@ -1,12 +1,18 @@
-"""Chain state, initialization and the fused-engine phase runners.
+"""Chain state, initialization, the per-draw sync engine's step and the
+fused-engine phase runners.
 
 Port of ``nuts_rs_tpu/chain.py``: ``ChainState`` / ``ChainConfig`` /
-``DiagStrategy`` (``:73-200``), ``init_chain_state`` (``:426-515``), the
+``DiagStrategy`` (``:73-200``), ``make_draw_step`` (``:217-423``: one draw
+of the sync NUTS engine, ``kernels/nuts.py``, and its adaptation, for the
+draw-index schedule), ``init_chain_state`` (``:426-515``), the
 fused NUTS runners ``make_pallas_posterior_runner`` (``:663-943``) and
 ``make_pallas_warmup_runner`` (``:946-1200``), and the fused MCLMC runners
 ``make_pallas_mclmc_posterior_runner`` (``:1203-1337``) and
 ``make_pallas_mclmc_warmup_runner`` (``:1340-1525``), for the diagonal mass
-matrix, without flow or stream.  All four runners pass a model's data to
+matrix, without flow.  The posterior runner streams a model's data in row
+tiles (kernel K1-stream) where they fail the resident kernels' size rule and
+the streamed tiles pass it, as the JAX runner does (``:740-765``).  All four
+runners pass a model's data to
 the kernels (``chain.py:677-678,881``, ``:970-971,1112``, ``:1219-1220,1291``
 and ``:1363-1364,1445``; here the data travel in ``Model.kernel_hook``).
 Like the JAX runners
@@ -26,18 +32,20 @@ not apply, since device memory holds a whole chunk's outputs.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from .adapt import mass_matrix as mm
 from .adapt import step_size as ss
+from .adapt.schedule import WindowParams
 from .dynamics.hamiltonian import init_point_from_q, sample_momentum
-from .dynamics.point import Point
+from .dynamics.point import Point, chains_where
 from .dynamics.hamiltonian import KineticKind
 from .kernels import mclmc_fused as mf
 from .kernels import nuts_fused as nf
-from .kernels.nuts import NutsOptions
+from .kernels import _build
+from .kernels.nuts import SALT_JITTER, NutsOptions, nuts_draw
 from .kernels.rng import derive_seed, host_uniform
 from .ops import hsum
 from .transform.affine import (
@@ -56,6 +64,13 @@ PURPOSE_POSTERIOR = 4
 PURPOSE_LAUNCH_STEP = 5
 PURPOSE_MCLMC_WARMUP = 6
 PURPOSE_MCLMC_POSTERIOR = 7
+PURPOSE_SYNC_DRAW = 8
+
+# The JAX runners' VMEM budgets in bytes (posterior ``chain.py:742-743``,
+# warmup ``:1008-1009``), kept so that a configuration takes the same path
+# in both packages.
+POSTERIOR_BUDGET_BYTES = 12_500_000
+WARMUP_BUDGET_BYTES = 12_000_000
 
 # Draws of init positions for chains with a non-finite logp or gradient.
 INIT_RETRIES = 500
@@ -75,9 +90,9 @@ def cl_max_dim(maxdepth: int, warmup: bool = False,
     and the posterior chains-on-lanes, as in the JAX package."""
     stacks = 6 * (maxdepth + 1)
     if warmup:
-        return (((12_000_000 - args_bytes) // (4 * 128) - 16 * 15)
+        return (((WARMUP_BUDGET_BYTES - args_bytes) // (4 * 128) - 16 * 15)
                 // (stacks + 48 + 16))
-    return (((12_500_000 - args_bytes) // (4 * 128) - 4 - 16 * 13)
+    return (((POSTERIOR_BUDGET_BYTES - args_bytes) // (4 * 128) - 4 - 16 * 13)
             // (stacks + 32 + 16))
 
 
@@ -122,39 +137,65 @@ def mclmc_refusal(model):
     return None
 
 
-def layout_refusal(model, maxdepth: int, warmup: bool):
-    """Why the fused NUTS warmup or posterior kernels do not take
-    ``model``'s data, or None.  A model with data runs only in the
-    chains-on-lanes layout (kernels K1-args / K2-args).  Where its data fail
-    the rule there, the JAX posterior runner streams them from device
-    memory (``chain.py:747-765``) and, above the layout's limit on d, both
-    JAX runners differentiate ``pallas_spec`` in the dim-on-lanes layout
-    (``:795-801,1038-1044``); neither is ported."""
+def stream_bytes(model) -> int:
+    """Bytes of the double-buffered tile the JAX stream kernel keeps on chip
+    (``chain.py:760-761``): two tiles of ``tile_rows`` rows of the JAX
+    model's packed array, whose ``(x, y, w)`` columns are padded to a
+    multiple of 128 (``models/gaussian.py:196``).  The port packs nothing;
+    the number is the size rule's alone."""
+    pcols = -(-(model.dim + 2) // 128) * 128
+    return 4 * 2 * model.stream_tile_rows * pcols
+
+
+def _ld_with_data_fits(model, maxdepth: int, warmup: bool) -> bool:
+    """Whether the JAX runner would take its dim-on-lanes layout for a model
+    with data (``chain.py:773-784``, ``:1017-1028``, smallest tier 8)."""
+    dim_pad = -(-model.dim // 128) * 128
+    D1 = maxdepth + 1
+    fixed_ld = (6 * D1 + (48 if warmup else 32)) * dim_pad + D1 ** 2 + 64 * 128
+    return (4 * 8 * (fixed_ld + 2 * 8 * (dim_pad + 128)) + model.data_bytes
+            <= WARMUP_BUDGET_BYTES)
+
+
+def fused_layout(model, config: "ChainConfig", warmup: bool, device=None):
+    """How the fused NUTS warmup or posterior kernel takes ``model``:
+    ``"cl"`` (chains-on-lanes, data resident), ``"ld"`` (dim-on-lanes, no
+    data), ``"stream"`` (posterior only: chains-on-lanes with the data
+    streamed in row tiles, kernel K1-stream) or None (warmup only: no fused
+    warmup, the sampler runs the per-draw sync warmup), as the JAX runners
+    choose (``chain.py:740-786``, ``:1001-1030``).  Data that fail the
+    chains-on-lanes rule stream when two tiles pass it; the JAX warmup
+    runner, which cannot stream, then runs its dim-on-lanes layout on
+    ``pallas_spec`` while the data fit that tier, which this package has not
+    ported (it raises ``NotImplementedError``), and has no fused warmup
+    beyond.  On a CUDA ``device`` the resident kernels also need the
+    functor's scratch, one float per row, in a block's shared memory; data
+    beyond that stream, and their warmup is the sync one."""
+    D = config.nuts.maxdepth
     if not model.carries_data:
-        return None
+        return "ld" if model.dim > cl_max_dim(D, warmup) else "cl"
+    if model.dim <= cl_max_dim(D, warmup, model.data_bytes):
+        on_cuda = device is not None and torch.device(device).type == "cuda"
+        kind = "warmup" if warmup else "posterior"
+        if not on_cuda or (_build.mid_smem_bytes(kind, model.dim, D, model)
+                           <= _build.SMEM_OPT_IN_BYTES):
+            return "cl"
+        if model.stream_tile_rows is not None:
+            return None if warmup else "stream"
+    elif (model.stream_tile_rows is not None
+          and model.dim <= cl_max_dim(D, False, stream_bytes(model))):
+        if not warmup:
+            return "stream"
+        if not _ld_with_data_fits(model, D, True):
+            return None
     what = "warmup" if warmup else "posterior"
-    if model.dim <= cl_max_dim(maxdepth, warmup, model.data_bytes):
-        return None
-    if model.dim <= cl_max_dim(maxdepth, warmup):
-        return (f"model {model.name!r}: {model.data_bytes} bytes of data do "
-                f"not fit the chains-on-lanes {what} launch at dim "
-                f"{model.dim}; such data stream from device memory (kernel "
-                "K1-stream, item 12)")
-    return (f"model {model.name!r} carries data at dim {model.dim}, above "
-            f"the chains-on-lanes {what} layout's "
-            f"{cl_max_dim(maxdepth, warmup)}: the dim-on-lanes kernels "
-            "read no model data (item 12)")
-
-
-def fused_layout(model, config: "ChainConfig", warmup: bool) -> str:
-    """The layout of the fused NUTS warmup or posterior kernel for
-    ``model``: ``"cl"`` or ``"ld"``."""
-    reason = layout_refusal(model, config.nuts.maxdepth, warmup)
-    if reason is not None:
-        raise NotImplementedError("not ported yet (see ROADMAP.md): "
-                                  + reason)
-    limit = cl_max_dim(config.nuts.maxdepth, warmup, model.data_bytes)
-    return "ld" if model.dim > limit else "cl"
+    raise NotImplementedError(
+        "not ported yet (see ROADMAP.md): model "
+        f"{model.name!r} carries {model.data_bytes} bytes of data at dim "
+        f"{model.dim}, beyond the chains-on-lanes {what} launch's rule "
+        f"({cl_max_dim(D, warmup, model.data_bytes)}): the JAX {what} "
+        "runner differentiates pallas_spec in its dim-on-lanes layout "
+        "there, and the dim-on-lanes kernels read no model data (item 12)")
 
 
 class ChainState(NamedTuple):
@@ -165,6 +206,7 @@ class ChainState(NamedTuple):
     diag_adapt: mm.DiagAdaptState
     step: ss.StepSizeState
     draw_idx: int  # global draw counter
+    window: Any = None  # WindowState when adapt.window_by_good_draws
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,11 +216,25 @@ class ChainConfig:
     nuts: NutsOptions
     step_size: ss.StepSizeSettings
     use_grad_based_estimate: bool = True
+    # Non-None switches the sync warmup to per-chain good-draw window
+    # advancement (adapt_strategy.rs:121-216).
+    window_params: Optional[WindowParams] = None
+
+
+class WindowState(NamedTuple):
+    """Per-chain ``GlobalStrategy`` counters of the good-draw window mode
+    (nuts-rs ``src/adapt_strategy.rs:71-98``); the good-draw counts are the
+    estimator counts in ``DiagAdaptState``."""
+
+    current_window: torch.Tensor  # [C] float current_window_size
+    last_update: torch.Tensor     # [C] int32 draw of the last mass update
+    has_initial: torch.Tensor     # [C] bool has_initial_mass_matrix
 
 
 class DiagStrategy:
-    """Diagonal mass-matrix adaptation (nuts-rs ``DiagAdaptStrategy``); the
-    per-draw updates run inside the fused warmup kernel."""
+    """Diagonal mass-matrix adaptation (nuts-rs ``DiagAdaptStrategy``).  The
+    fused warmup kernels run the per-draw updates themselves; the sync
+    engine's draw step calls them here."""
 
     def __init__(self, config: ChainConfig):
         self.config = config
@@ -195,6 +251,27 @@ class DiagStrategy:
                                         state.pt.g)
         return state._replace(diag_adapt=da, transform=transform)
 
+    def update_estimators(self, state: ChainState, draw_q, draw_g, is_good):
+        return state._replace(diag_adapt=mm.update_estimators(
+            state.diag_adapt, draw_q, draw_g, is_good))
+
+    def switch(self, state: ChainState, mask=None) -> ChainState:
+        """Promote the background estimators; with ``mask`` [C] only for
+        those chains."""
+        da = mm.switch(state.diag_adapt)
+        if mask is not None:
+            da = chains_where(mask, da, state.diag_adapt)
+        return state._replace(diag_adapt=da)
+
+    def adapt_update(self, state: ChainState, mask=None) -> ChainState:
+        """The mass-matrix update from the foreground estimators; with
+        ``mask`` [C] the other chains keep their transform untouched."""
+        transform = mm.adapt_diag(
+            state.diag_adapt, state.transform,
+            use_grad_based_estimate=self.config.use_grad_based_estimate,
+            update_mask=mask)
+        return state._replace(transform=transform)
+
 
 def _init_search(seed, state: ChainState, model, config: ChainConfig):
     """Step-size init search from the current positions, with momentum from
@@ -206,6 +283,184 @@ def _init_search(seed, state: ChainState, model, config: ChainConfig):
                            logp_grad_fn=model.logp_and_grad,
                            settings=config.step_size, kind=config.nuts.kind)
     return state._replace(step=ss.reset_from_found_step(state.step, found))
+
+
+def _mean0(x, n):
+    return x / torch.clamp(n.to(x.dtype), min=1.0)
+
+
+def make_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
+                   base_seed: int):
+    """One draw of the sync NUTS engine and its adaptation for all chains:
+    ``(state, flags) -> (state, stats)``, where ``flags`` is one row of the
+    schedule as Python booleans and ``stats[name]`` is shaped [C, ...] with
+    the names and dtypes of the fused runners' ``_stats``
+    (``chain.py:217-423``).
+
+    Randomness: the draw's seed is ``derive_seed(base_seed, draw index,
+    PURPOSE_SYNC_DRAW)``; ``kernels/nuts.py`` documents the tree's sites
+    under it, and the step-size jitter is the scalar site
+    ``(seed, it 0, salt 7, chain)``.  The re-init search takes its momentum
+    from ``derive_seed(base_seed, draw index + 1, PURPOSE_REINIT_SEARCH)``,
+    as the fused warmup runner does after the same draw.  Every number is a
+    function of (base seed, draw index, chain), so a checkpoint can hold
+    the stream as counters."""
+    logp_grad = model.logp_and_grad
+    sset = config.step_size
+    wp = config.window_params
+
+    def draw_step(state: ChainState, flags):
+        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_SYNC_DRAW)
+        draw_pt, info = nuts_draw(seed, state.pt, state.transform,
+                                  state.step.step_size, logp_grad,
+                                  config.nuts)
+        state = state._replace(pt=draw_pt)
+        C = draw_pt.q.shape[0]
+        dev = draw_pt.q.device
+
+        # --- step-size statistics from this draw's collector ---
+        mean_acc = _mean0(info.sum_accept, info.n_steps)
+        sym_acc = _mean0(info.sum_accept_sym, info.n_steps)
+
+        def update(s):
+            return strategy.update_estimators(s, draw_pt.q, draw_pt.g,
+                                              info.is_good_for_adapt)
+
+        reinit_mask = None
+        if wp is None:
+            # --- mass-matrix window by the draw-index schedule
+            # (adapt_strategy.rs:140-216) ---
+            if flags["update_estimators"]:
+                state = update(state)
+            if flags["do_switch"]:
+                state = strategy.switch(state)
+            if flags["do_update"]:
+                state = strategy.adapt_update(state)
+            accept_stat = sym_acc if flags["use_late_estimator"] else mean_acc
+        else:
+            # --- good-draw window mode: per-chain GlobalStrategy::adapt
+            # (adapt_strategy.rs:121-216).  The bg/fg good-draw counts are
+            # the estimator counts; the other counters live in
+            # state.window.  Without divergences it decides as the
+            # schedule does on every draw.
+            draw = state.draw_idx
+            w = state.window
+            in_win = bool(flags["is_tuning"]) and (
+                draw < wp.final_step_size_window)
+            is_early = draw < wp.early_end
+            cw = w.current_window
+            if draw == wp.early_end:
+                # never shrink below the accumulated background count
+                # (adapt_strategy.rs:144-150), read before this draw's update
+                cw = torch.maximum(cw, state.diag_adapt.draw_bg.count)
+            if in_win:
+                state = update(state)
+            bg_count = state.diag_adapt.draw_bg.count
+            early_freq = torch.full_like(cw, float(wp.early_switch_freq))
+            switch_freq = early_freq if is_early else cw
+            # round half away from zero, like Rust's f64::round
+            next_window = early_freq if is_early else torch.maximum(
+                cw + 1.0, torch.floor(cw * wp.growth + 0.5))
+            is_late = (next_window + float(draw)) > wp.final_step_size_window
+            switch_mask = (bg_count >= switch_freq) & ~is_late
+            if not in_win:
+                switch_mask = torch.zeros_like(switch_mask)
+            if bool(switch_mask.any()):
+                state = strategy.switch(state, switch_mask)
+            if not is_early:
+                cw = torch.where(switch_mask, next_window, cw)
+            update_mask = switch_mask | (
+                (draw - w.last_update) >= wp.update_freq)
+            if not in_win:
+                update_mask = torch.zeros_like(update_mask)
+            enough = state.diag_adapt.draw.count >= 3.0
+            if bool(update_mask.any()):
+                state = strategy.adapt_update(state, update_mask)
+            did_change = update_mask & enough
+            state = state._replace(window=WindowState(
+                current_window=cw,
+                last_update=torch.where(did_change,
+                                        torch.full_like(w.last_update, draw),
+                                        w.last_update),
+                has_initial=w.has_initial & ~did_change))
+            reinit_mask = did_change & w.has_initial
+            use_late = is_late | (not in_win)
+            accept_stat = torch.where(use_late, sym_acc, mean_acc)
+
+        # --- dual averaging advance (early: plain mean; late: symmetric) ---
+        step_state = state.step
+        if flags["advance_da"]:
+            step_state = ss.advance(step_state, accept_stat, sset)
+
+        # --- step size for the next draw ---
+        def with_reinit(stp):
+            # first mass-matrix change: the coarse init search from the
+            # current position with the new transform
+            # (adapt_strategy.rs:207-212)
+            return _init_search(
+                derive_seed(base_seed, state.draw_idx + 1,
+                            PURPOSE_REINIT_SEARCH),
+                state._replace(step=stp), model, config).step
+
+        def without_reinit(stp):
+            u = host_uniform(seed, 0, SALT_JITTER, (C,), dev)
+            return ss.apply_jitter(u, stp, sset, bool(flags["use_best_guess"]))
+
+        if reinit_mask is None:
+            step_state = (with_reinit(step_state) if flags["reinit_step_size"]
+                          else without_reinit(step_state))
+        elif bool(reinit_mask.any()):
+            step_state = chains_where(reinit_mask, with_reinit(step_state),
+                                        without_reinit(step_state))
+        else:
+            step_state = without_reinit(step_state)
+        state = state._replace(step=step_state, draw_idx=state.draw_idx + 1)
+
+        # --- per-draw stats record ---
+        stats = {
+            "position": draw_pt.q,
+            "depth": info.depth,
+            "maxdepth_reached": info.reached_maxdepth,
+            "diverging": info.diverging,
+            "n_steps": info.n_steps,
+            "step_size": state.step.step_size,
+            "step_size_bar": ss.step_size_bar(state.step, sset),
+            "mean_tree_accept": mean_acc,
+            "mean_tree_accept_sym": sym_acc,
+            "max_energy_error": info.max_energy_error,
+            "logp": draw_pt.logp,
+            "energy": info.energy,
+            "energy_error": info.energy_error,
+            "index_in_trajectory": info.idx_in_trajectory,
+            "fisher_distance": torch.sum(
+                torch.square(draw_pt.z + draw_pt.zg), -1),
+            "transformation_index": state.transform.id,
+            "tuning": torch.full((C,), bool(flags["is_tuning"]), device=dev),
+        }
+        return state, stats
+
+    return draw_step
+
+
+def make_sync_runner(model, strategy: DiagStrategy, config: ChainConfig,
+                     base_seed: int):
+    """Phase runner of the per-draw sync engine, with the fused runners'
+    signature: ``(state, flags) -> (state, stats)``, ``flags`` the chunk's
+    schedule rows and ``stats[name]`` shaped [k, C, ...]
+    (``sampler.py::_scan_chunk`` over ``make_draw_step``)."""
+    step = make_draw_step(model, strategy, config, base_seed)
+
+    def runner(state: ChainState, flags):
+        k = len(flags["is_tuning"])
+        rows = []
+        for i in range(k):
+            state, stats = step(state, {name: bool(v[i])
+                                        for name, v in flags.items()})
+            rows.append(stats)
+        return state, {name: torch.stack([r[name] for r in rows])
+                       for name in rows[0]}
+
+    return runner
 
 
 def init_chain_state(seed: int, model, strategy: DiagStrategy,
@@ -234,6 +489,12 @@ def init_chain_state(seed: int, model, strategy: DiagStrategy,
         step=ss.new_step_size_state(config.step_size.initial_step, C, dtype,
                                     device),
         draw_idx=0,
+        window=(None if config.window_params is None else WindowState(
+            current_window=torch.full(
+                (C,), float(config.window_params.init_window), dtype=dtype,
+                device=device),
+            last_update=torch.zeros(C, dtype=torch.int32, device=device),
+            has_initial=torch.ones(C, dtype=torch.bool, device=device))),
     )
     state = strategy.init_mass_matrix(state)
     state = state._replace(pt=init_point_from_q(
@@ -285,12 +546,16 @@ def _launch_step(base_seed, draw_idx, bars, jitter):
 
 
 def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
-                                base_seed: int):
+                                base_seed: int, device=None):
     """Posterior-phase runner on the fused engine: ``(state, flags) ->
     (state, stats)`` with ``stats[name]`` shaped [k, C, ...].  One launch
-    per chunk."""
+    per chunk.  ``device`` is where the sampler runs (:func:`fused_layout`
+    needs it to choose between the resident and the streamed kernel)."""
     sset = config.step_size
-    layout = fused_layout(model, config, warmup=False)
+    layout = fused_layout(model, config, warmup=False, device=device)
+    stream = layout == "stream"
+    if stream:
+        layout = "cl"
 
     def runner(state: ChainState, flags):
         k = len(flags["is_tuning"])
@@ -307,7 +572,7 @@ def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
         q_f, g_f, logp_f, draws, out = nf.nuts_fused_run(
             seed, state.pt.q, state.pt.g, state.pt.logp, t.stds, t.mean,
             t.logdet, step_in, bars, k, model, config.nuts, sset.jitter,
-            layout=layout)
+            layout=layout, stream=stream)
         pt = state.pt._replace(q=q_f, g=g_f, z=to_transformed(t, q_f),
                                zg=grad_to_transformed(t, g_f), logp=logp_f)
         state = state._replace(
@@ -358,14 +623,18 @@ def pack_warmup_state(state: ChainState):
     return _estimator_planes(a), sca.contiguous()
 
 
-def make_fused_warmup_runner(model, config: ChainConfig, base_seed: int):
+def make_fused_warmup_runner(model, config: ChainConfig, base_seed: int,
+                             device=None):
     """Warmup-phase runner on the fused engine, with the fg/bg estimators,
-    the diagonal rule and dual averaging inside the kernel.  The step-size
+    the diagonal rule and dual averaging inside the kernel, or None where
+    :func:`fused_layout` gives the model no fused warmup.  The step-size
     re-init search on the first mass-matrix change runs here, after the
     chunk whose last draw carries ``reinit_step_size`` (the sampler splits
     the warmup phase there)."""
     sset = config.step_size
-    layout = fused_layout(model, config, warmup=True)
+    layout = fused_layout(model, config, warmup=True, device=device)
+    if layout is None:
+        return None
 
     def runner(state: ChainState, flags):
         k = len(flags["is_tuning"])

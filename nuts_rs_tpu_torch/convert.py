@@ -10,7 +10,8 @@ threads from one draw to the next, and the step state carries MCLMC's
 jittered ``step_size``.  Model parameters pass through ``Model``
 construction, not through the state; ``model_from_pallas_args`` builds a
 data-carrying model of this package from the arrays the JAX model hands to
-the Pallas kernels' ``model_args`` channel.
+the Pallas kernels' ``model_args`` channel, or from those of its
+``pallas_stream``.
 """
 
 from __future__ import annotations
@@ -86,12 +87,45 @@ def state_from_numpy(arrays, device="cpu", dtype=torch.float32) -> ChainState:
                       draw_idx=int(np.asarray(arrays["draw_idx"])))
 
 
-def model_from_pallas_args(kind: str, args, name=None):
+def model_from_pallas_args(kind: str, args, name=None, tile_rows=None,
+                           dim=None):
     """This package's model from the numpy arrays of the JAX model's
-    ``pallas_logp_grad`` (``(fn, args)``), so that both packages evaluate
-    the same data.  ``kind`` names the model family: ``"logistic_regression"``
-    takes ``(x [N, d], y [N, 1])`` and holds them as the device functor
-    reads them, ``(xt [d, N], y [N])``."""
+    ``pallas_logp_grad`` (``(fn, args)``) or ``pallas_stream``
+    (``StreamSpec.args``), so that both packages evaluate the same data.
+    ``kind`` names the model family and the form of ``args``:
+
+    ``"logistic_regression"`` takes ``(x [N, d], y [N, 1])`` and holds them
+    as the device functor reads them, ``(xt [d, N], y [N])``.
+
+    ``"logistic_regression_stream"`` takes a stream spec's padded arrays and
+    its ``tile_rows``: either ``(x [R, d], y [R, 1], w [R, 1])`` or the one
+    packed array ``[R, PCOLS]`` of the shipped model (columns ``[0, dim)``
+    x, ``dim`` y, ``dim + 1`` w; pass ``dim``), where ``w`` is 1 on the N
+    rows of data and 0 on the padding rows that fill the last tile.  The
+    port's functor needs no padding rows (a row past the data's end counts
+    exactly nothing), so the model holds the N weighted rows as
+    ``(xt [d, N], y [N])`` with ``stream_tile_rows = tile_rows``: the same
+    tiles in the same order."""
+    if kind == "logistic_regression_stream":
+        if tile_rows is None:
+            raise ValueError("a stream spec's arrays come with its tile_rows")
+        arrays = [np.asarray(a) for a in args]
+        if len(arrays) == 1:
+            if dim is None:
+                raise ValueError("the packed array needs the model's dim")
+            p = arrays[0]
+            x, y, w = p[:, :dim], p[:, dim], p[:, dim + 1]
+        else:
+            x, y, w = arrays
+        w = w.reshape(-1)
+        n = int(w.sum())
+        if not (np.all(w[:n] == 1.0) and np.all(w[n:] == 0.0)
+                and x.shape[0] - n < tile_rows):
+            raise ValueError("stream weights must be 1 on the rows of data "
+                             "and 0 on less than a tile of padding rows")
+        return logistic_regression_from_tensors(
+            *logistic_regression_tensors(x[:n], y.reshape(-1)[:n]),
+            name=name, tile_rows=int(tile_rows))
     if kind != "logistic_regression":
         raise NotImplementedError(
             f"no data-carrying model {kind!r} is ported (ROADMAP.md queue 1 "

@@ -30,6 +30,32 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The butterflies of 16 values at once, in 16 shuffles where 16 calls of
+// warp_sum take 80: at each of the halvings 16, 8, 4, 2 a lane keeps the half
+// of its values that its side of the halving ends up owning and sends the
+// other half, so that the sums of a lane and its partner are formed once;
+// the last halving is the plain one.  Every sum adds the same pairs in the
+// same tree as warp_sum (IEEE addition commutes).  Returns the index of the
+// value whose warp sum this lane now holds in v[0] (both lanes of a pair
+// l, l ^ 1 hold the same one).
+__device__ __forceinline__ int warp_sum16(float (&v)[16]) {
+  const int lane = threadIdx.x & 31;
+  int index = 0;
+#pragma unroll
+  for (int h = 8, o = 16; h > 0; h >>= 1, o >>= 1) {
+    const bool upper = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = upper ? v[i] : v[i + h];
+      const float keep = upper ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
+    if (upper) index += h;
+  }
+  v[0] = v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+  return index;
+}
+
 // The LD_W warp sums p[0..LD_W) of one value, halved (4, 2, 1).
 __device__ __forceinline__ float halve_warps(const float* p_in) {
   float p[LD_W];

@@ -30,6 +30,7 @@
 // (nuts_rs_tpu_torch/models/gaussian.py with ops.dsum / ops.tsum).
 #pragma once
 
+#include <cooperative_groups.h>
 #include <stddef.h>
 
 #include "block_sum.cuh"
@@ -37,8 +38,14 @@
 
 namespace nrt {
 
+namespace cg = cooperative_groups;
+
 // Model ids, as _build.MODEL_IDS names them.
-enum ModelId { MODEL_IID_NORMAL = 0, MODEL_LOGISTIC_REGRESSION = 1 };
+enum ModelId {
+  MODEL_IID_NORMAL = 0,
+  MODEL_LOGISTIC_REGRESSION = 1,
+  MODEL_LOGISTIC_REGRESSION_STREAM = 2
+};
 
 // iid Normal(mu, 1): logp = -0.5 sum (q - mu)^2, grad = -(q - mu).
 struct IidNormal {
@@ -205,6 +212,226 @@ struct LogisticRegression {
   }
 };
 
+// The same regression with its rows streamed from device memory in tiles of
+// TR rows (the stream= mode of the TPU kernel,
+// nuts_rs_tpu/kernels/nuts_pallas.py:217-254, with the model's tile_eval and
+// finalize, models/gaussian.py:202-228): the functor of kernel K1-stream.
+// LogisticRegression keeps N + 8 d floats of shared memory, which no block
+// has at N = 131072; this one keeps the residuals of one tile in registers
+// (a thread owns up to 4 rows of a tile, so a tile has at most 4 LD_T rows)
+// and the warp partials of two tiles in shared memory, whatever N is.
+//
+// The G chains of a logical block (a thread block cluster of G CUDA blocks,
+// one chain each, stepping in lock step) share one pass over the data, as
+// the B chains of a TPU block share a tile: block b of the cluster walks
+// range b of the tiles, tiles [b T / G, (b + 1) T / G), for all G chains at
+// once (a loaded x[n][j] serves G products), and hands chain g's partial
+// (logp, grad) of its range to block g through distributed shared memory.
+// So a launch reads the data once per cluster and evaluation, not once per
+// chain.
+//
+// Sum order, shared with the plain version
+// (gaussian.py::logistic_regression_stream_logp_grad with splits = G).  A
+// logit's terms in ascending j.  Inside a tile the log-likelihood's terms
+// and each gradient column's terms x[n][j] (y - p)[n] are summed over the
+// tile's TR rows in the block order (ops.tsum over the tile: thread t owns
+// the tile's rows t, t + LD_T, ..., a row past the tile's or the data's end
+// counts 0.0, the warp's halving 16, 8, 4, 2, 1, the LD_W warp sums halved).
+// The tiles of a range are added in ascending order to the range's sums,
+// which start as its first tile's; the ranges' sums are added in ascending
+// order, starting from the first range that holds a tile.  Last the prior:
+// logp = ll - 0.5 tsum_j(q q), g = g - q.  With G = 1 there is one range:
+// tiles ascending, and a single tile that holds all rows gives
+// LogisticRegression's bits.
+//
+// Barriers: one __syncthreads a tile (the Reducer call that sums the tile's
+// log-likelihoods also publishes its warp partials, whose buffer alternates
+// with the tile's parity), and two cluster barriers an evaluation: after
+// every chain's position is written (then each block copies all G), and
+// after every range's partials are (then each block adds up its chain's).
+// A block overwrites its position or its partials only after the next
+// barrier of the other kind, which its readers have passed by then.
+template <int G>
+struct LogisticRegressionStream {
+  static constexpr int J = 16 / G;  // columns of one pass, second product
+  static constexpr int MAX_ROWS = 4;  // of a tile that one thread may own
+  const float* xt;  // [d, N]
+  const float* y;   // [N]
+  int N, d, TR;
+
+  __host__ __device__ int rows_per_thread() const {
+    return (TR + LD_T - 1) / LD_T;
+  }
+
+  // the G positions [d][G] (16-byte aligned: 4 floats of slack); two
+  // buffers of LD_W partials per column and chain; this block's range sums:
+  // log-likelihoods [8] and gradients [d][G]
+  __host__ __device__ size_t scratch_floats() const {
+    return 4 + (size_t)d * G + 2 * (size_t)LD_W * d * G + 8 + (size_t)d * G;
+  }
+
+  // One tile for all G chains: the log-likelihood sums into s, the warp
+  // partials of the gradient columns into `part`.  A thread owns R rows of
+  // the tile (t, t + LD_T, ...); they advance together through the columns
+  // of the first product, so that their loads are in flight at once, and
+  // their residuals y - p stay in registers for the second.  Each logit sums
+  // its terms in ascending j; a row past the tile's or the data's end reads
+  // the tile's first row and counts 0.0.
+  template <int R>
+  __device__ __forceinline__ void tile(const float* qs, float* part, int base,
+                                       float (&s)[G]) const {
+    const int t = threadIdx.x;
+    const int lane = t & 31, warp = t >> 5;
+    int nc[R];
+    bool in[R];
+    float res[R][G];  // the logits, then y - p
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int loc = t + k * LD_T;
+      in[k] = loc < TR && base + loc < N;
+      nc[k] = in[k] ? base + loc : base;
+      const float x0 = xt[nc[k]];
+#pragma unroll
+      for (int c = 0; c < G; ++c) res[k][c] = x0 * qs[c];
+    }
+#pragma unroll((G == 1 ? 32 : 16) / R)
+    for (int j = 1; j < d; ++j) {
+      const float* col = xt + (size_t)j * N;
+      float qj[G];
+      if constexpr (G % 4 == 0) {
+#pragma unroll
+        for (int c = 0; c < G; c += 4) {
+          const float4 q4 = *reinterpret_cast<const float4*>(qs + j * G + c);
+          qj[c] = q4.x, qj[c + 1] = q4.y, qj[c + 2] = q4.z, qj[c + 3] = q4.w;
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < G; ++c) qj[c] = qs[j * G + c];
+      }
+#pragma unroll
+      for (int k = 0; k < R; ++k) {
+        const float x = col[nc[k]];
+#pragma unroll
+        for (int c = 0; c < G; ++c) res[k][c] = res[k][c] + x * qj[c];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const float yn = in[k] ? y[nc[k]] : 0.0f;
+#pragma unroll
+      for (int c = 0; c < G; ++c) {
+        const float logit = res[k][c];
+        float term = 0.0f, r = 0.0f;
+        if (in[k]) {
+          term = yn * logit - logaddexp(0.0f, logit);
+          r = yn - 1.0f / (1.0f + expf(-logit));
+        }
+        res[k][c] = r;
+        acc(s[c], k, term);
+      }
+    }
+    // J columns of all G chains share one pass over the thread's rows and
+    // one reduction of their 16 sums over the warp; a column past the end
+    // repeats the last one and is not stored.
+    for (int j0 = 0; j0 < d; j0 += J) {
+      float c16[16];
+#pragma unroll
+      for (int k = 0; k < J; ++k) {
+        const float* col = xt + (size_t)min(j0 + k, d - 1) * N;
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float x = col[nc[i]];
+#pragma unroll
+          for (int c = 0; c < G; ++c)
+            acc(c16[k * G + c], i, in[i] ? x * res[i][c] : 0.0f);
+        }
+      }
+      const int v = warp_sum16(c16);
+      if ((lane & 1) == 0 && j0 + v / G < d)
+        part[((j0 + v / G) * G + v % G) * LD_W + warp] = c16[0];
+    }
+  }
+
+  __device__ __forceinline__ float eval_block(const float* q, float* g, int,
+                                              Reducer& red,
+                                              float* scratch) const {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int b = (int)cluster.block_rank();
+    const int rows = rows_per_thread();
+    // [d][G], 16-byte aligned for the float4 reads of a column's G values
+    float* qs = reinterpret_cast<float*>(
+        (reinterpret_cast<size_t>(scratch) + 15) & ~(size_t)15);
+    float* part0 = qs + d * G;             // [2][d][G][LD_W]
+    float* pl = part0 + 2 * LD_W * d * G;  // [8]
+    float* pg = pl + 8;                    // [d][G]
+    const int t = threadIdx.x;
+    const int nd = (d + LD_T - 1) / LD_T;
+    const int ndg = (d * G + LD_T - 1) / LD_T;
+    const int tiles = (N + TR - 1) / TR;
+
+    cluster.sync();  // every chain of the cluster has written its position
+    for (int i = t; i < d * G; i += LD_T)
+      qs[i] = cluster.map_shared_rank(const_cast<float*>(q), i % G)[i / G];
+    __syncthreads();
+
+    const int lo = b * tiles / G, hi = (b + 1) * tiles / G;
+    float ll[G];
+    for (int tl = lo; tl < hi; ++tl) {
+      float* part = part0 + (tl & 1) * LD_W * d * G;
+      float s[G];
+      if (rows == 1)
+        tile<1>(qs, part, tl * TR, s);
+      else if (rows == 2)
+        tile<2>(qs, part, tl * TR, s);
+      else
+        tile<MAX_ROWS>(qs, part, tl * TR, s);
+      red.sum(s);  // its barrier also publishes `part`
+#pragma unroll
+      for (int c = 0; c < G; ++c) ll[c] = tl == lo ? s[c] : ll[c] + s[c];
+      for (int i = 0; i < ndg; ++i) {
+        const int e = t + i * LD_T;  // column e / G of chain e % G
+        if (e < d * G) {
+          const float gp = halve_warps(part + e * LD_W);
+          pg[e] = tl == lo ? gp : pg[e] + gp;
+        }
+      }
+    }
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < G; ++c) pl[c] = ll[c];
+    }
+    cluster.sync();  // every range's sums are written
+
+    // this block's chain: the ranges' sums in ascending order
+    float total = 0.0f;
+    bool first = true;
+    for (int sb = 0; sb < G; ++sb) {
+      if ((sb + 1) * tiles / G == sb * tiles / G) continue;  // no tile
+      const float v = cluster.map_shared_rank(pl, sb)[b];
+      total = first ? v : total + v;
+      first = false;
+    }
+    float s2[1];
+    for (int i = 0; i < nd; ++i) {
+      const int j = t + i * LD_T;
+      if (j < d) {
+        float gj = 0.0f;
+        first = true;
+        for (int sb = 0; sb < G; ++sb) {
+          if ((sb + 1) * tiles / G == sb * tiles / G) continue;
+          const float v = cluster.map_shared_rank(pg, sb)[j * G + b];
+          gj = first ? v : gj + v;
+          first = false;
+        }
+        g[j] = gj - q[j];
+      }
+      acc(s2[0], i, j < d ? q[j] * q[j] : 0.0f);
+    }
+    red.sum(s2);
+    return total - 0.5f * s2[0];
+  }
+};
+
 // Host side of the eval_block form: build the functor `model_id` names from
 // the kernel hook's floats, the device pointers of its tensors and their
 // sizes (Model.kernel_hook, _build.MODEL_IDS) and hand it to fn.
@@ -223,4 +450,33 @@ inline cudaError_t with_block_model(int model_id, const float* params,
   return cudaErrorInvalidValue;
 }
 
+// The same for the streamed functors (kernel K1-stream alone compiles them):
+// ints are (N, d, tile_rows); G is the cluster's size, the chains that share
+// a pass over the data.
+template <class Fn>
+inline cudaError_t with_stream_model(int model_id, const void* const* ptrs,
+                                     const int* ints, int G, Fn&& fn) {
+  if (model_id != MODEL_LOGISTIC_REGRESSION_STREAM || ints[2] < 1 ||
+      ints[2] > LogisticRegressionStream<1>::MAX_ROWS * LD_T)
+    return cudaErrorInvalidValue;
+  const float* xt = static_cast<const float*>(ptrs[0]);
+  const float* y = static_cast<const float*>(ptrs[1]);
+  switch (G) {
+    case 1:
+      return fn(LogisticRegressionStream<1>{xt, y, ints[0], ints[1], ints[2]});
+    case 2:
+      return fn(LogisticRegressionStream<2>{xt, y, ints[0], ints[1], ints[2]});
+    case 4:
+      return fn(LogisticRegressionStream<4>{xt, y, ints[0], ints[1], ints[2]});
+    case 8:
+      return fn(LogisticRegressionStream<8>{xt, y, ints[0], ints[1], ints[2]});
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace nrt
+
+// Every kernel library exports the text of a launch's return code.
+extern "C" const char* nrt_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}

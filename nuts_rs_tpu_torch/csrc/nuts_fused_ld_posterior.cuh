@@ -64,7 +64,11 @@ struct LdPostArgs {
   float* work;  // [C][4][D + 1][d] checkpoint stacks
 };
 
-template <class Model, bool MID>
+// LOCKSTEP: the chains of a cluster take every iteration together, because
+// the model's evaluation is the cluster's (the streamed functor, models.cuh,
+// whose cluster barriers every block must meet): they agree at the top of
+// each iteration on whether any of them still lacks draws.
+template <class Model, bool MID, bool LOCKSTEP = false>
 __global__ void __launch_bounds__(LD_T)
     ld_posterior_kernel(const LdPostArgs a, const Model model) {
   extern __shared__ float smem[];
@@ -149,11 +153,15 @@ __global__ void __launch_bounds__(LD_T)
   uint32_t it = 1, it_end = 0;
   bool have_end = false;
   while (true) {
-    if (!have_end && dc >= K) {
-      it_end = last.max(it);
-      have_end = true;
+    if constexpr (LOCKSTEP) {
+      if (last.max(dc < K ? 1u : 0u) == 0u) break;
+    } else {
+      if (!have_end && dc >= K) {
+        it_end = last.max(it);
+        have_end = true;
+      }
+      if (have_end && it >= it_end) break;
     }
-    if (have_end && it >= it_end) break;
     const float r_sel = uniform(seed, it, 4u, (uint32_t)b);
     const float r_acc = uniform(seed, it, 5u, (uint32_t)b);
     const float dirf = direction;

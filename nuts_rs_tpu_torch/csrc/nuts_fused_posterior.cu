@@ -286,10 +286,6 @@ cudaError_t launch_posterior(const PostArgs& a, int B, int model_id,
 
 }  // namespace nrt
 
-extern "C" const char* nrt_error_string(int err) {
-  return cudaGetErrorString((cudaError_t)err);
-}
-
 extern "C" int nrt_posterior_launch(
     int dim, int maxdepth, int C, int B, int K, uint32_t seed, float max_err,
     int has_jitter, float jc1, float jc2, int model_id,

@@ -43,21 +43,22 @@ def require_euclidean(kind: KineticKind) -> None:
             "queue 1 item 8, the sync engines)")
 
 
-def esh_momentum_update(zg, v, step):
+def esh_momentum_update(zg, v, step, csum=hsum):
     """One ESH momentum half-step; returns (v_new [C, d], delta_ke [C]).
 
     Port of ``_esh_momentum_update`` (``hamiltonian.py:40-61``; nuts-rs
-    ``src/math/math.rs:188-204``).  ``step`` is [C]."""
+    ``src/math/math.rs:188-204``).  ``step`` is [C]; ``csum`` sums over the
+    parameter axis."""
     n = zg.shape[-1]
-    grad_norm = torch.sqrt(hsum(zg * zg))
+    grad_norm = torch.sqrt(csum(zg * zg))
     g_hat = zg / grad_norm[:, None]
-    alpha = hsum(v * g_hat)
+    alpha = csum(v * g_hat)
     dims_m1 = float(n - 1)
     delta = step * grad_norm / dims_m1
     zeta = torch.exp(-delta)
     coeff_g = (1.0 - zeta) * (1.0 + zeta + alpha * (1.0 - zeta))
     v_raw = coeff_g[:, None] * g_hat + (2.0 * zeta)[:, None] * v
-    v_new = v_raw / torch.sqrt(hsum(v_raw * v_raw))[:, None]
+    v_new = v_raw / torch.sqrt(csum(v_raw * v_raw))[:, None]
     dke = (delta - math.log(2.0)
            + torch.log1p(alpha + (1.0 - alpha) * zeta * zeta)) * dims_m1
     return v_new, dke
@@ -71,12 +72,14 @@ class LeapfrogResult(NamedTuple):
 
 def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
              logp_grad_fn, kind: KineticKind, energy_baseline,
-             max_energy_error, step_size_factor=1.0) -> LeapfrogResult:
+             max_energy_error, step_size_factor=1.0,
+             csum=hsum) -> LeapfrogResult:
     """One leapfrog step (nuts-rs transformed_hamiltonian.rs:524-615).
 
     ``direction`` is +1/-1 (int or [C]).  Divergence: Euclidean uses
     ``err > max_energy_error``, microcanonical ``|err| >= max_energy_error``;
-    a non-finite energy always diverges."""
+    a non-finite energy always diverges.  ``csum`` sums over the parameter
+    axis (the host's ``hsum``; the sync NUTS engine passes ``torch.sum``)."""
     require_euclidean(kind)
     dtype = pt.z.dtype
     eps_c = (torch.as_tensor(direction, dtype=dtype, device=pt.z.device)
@@ -87,7 +90,8 @@ def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
     sqrt_n = math.sqrt(pt.z.shape[-1])
     ke = pt.ke
     if micro:
-        v1, dke1 = esh_momentum_update(pt.zg, pt.v, sqrt_n * eps_c / 2.0)
+        v1, dke1 = esh_momentum_update(pt.zg, pt.v, sqrt_n * eps_c / 2.0,
+                                       csum)
         ke = ke + dke1
         z1 = pt.z + eps * sqrt_n * v1
     else:
@@ -97,11 +101,11 @@ def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
     logp1, g1 = logp_grad_fn(q1)
     zg1 = grad_to_transformed(transform, g1)
     if micro:
-        v2, dke2 = esh_momentum_update(zg1, v1, sqrt_n * eps_c / 2.0)
+        v2, dke2 = esh_momentum_update(zg1, v1, sqrt_n * eps_c / 2.0, csum)
         ke = ke + dke2
     else:
         v2 = v1 + (eps / 2.0) * zg1
-        ke = 0.5 * hsum(v2 * v2)
+        ke = 0.5 * csum(v2 * v2)
     new_pt = Point(
         q=q1, g=g1, z=z1, zg=zg1, v=v2, logp=logp1,
         logdet=transform.logdet.to(dtype), ke=ke,
@@ -115,6 +119,19 @@ def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
         bad = energy_error > max_energy_error
     diverging = bad | ~torch.isfinite(energy_error)
     return LeapfrogResult(new_pt, diverging, energy_error)
+
+
+def is_turning(z1, v1, i1, z2, v2, i2):
+    """U-turn criterion between two trajectory states, per chain (port of
+    ``hamiltonian.py:147-163``; nuts-rs transformed_hamiltonian.rs:617-638):
+    order the states by index in trajectory; with dz = z_end - z_start the
+    trajectory turns if dz . v_start < 0 or dz . v_end < 0.  ``z``, ``v`` are
+    [C, d] and ``i`` [C]."""
+    swap = (i1 > i2)[..., None]
+    z_lo, v_lo = torch.where(swap, z2, z1), torch.where(swap, v2, v1)
+    z_hi, v_hi = torch.where(swap, z1, z2), torch.where(swap, v1, v2)
+    dz = z_hi - z_lo
+    return (hsum(dz * v_lo) < 0.0) | (hsum(dz * v_hi) < 0.0)
 
 
 def sample_momentum(seed: int, it: int, salt1: int, salt2: int, shape,

@@ -28,9 +28,15 @@ class Point(NamedTuple):
         return self.ke - (self.logp + self.logdet)
 
 
+def chains_where(cond, a, b):
+    """Per-chain select on a [C] bool mask between two tensors with a
+    leading chains axis, or two (nested) tuples of such tensors."""
+    if isinstance(a, torch.Tensor):
+        return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)),
+                           a, b)
+    return type(a)(*(chains_where(cond, x, y) for x, y in zip(a, b)))
+
+
 def point_where(cond, a: Point, b: Point) -> Point:
     """Per-chain select between two points on a [C] bool mask."""
-    def sel(x, y):
-        return torch.where(cond.reshape(cond.shape + (1,) * (x.dim() - 1)),
-                           x, y)
-    return Point(*(sel(x, y) for x, y in zip(a, b)))
+    return chains_where(cond, a, b)

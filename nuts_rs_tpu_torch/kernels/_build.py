@@ -1,10 +1,12 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 No counterpart in the JAX package (Pallas compiles inside ``pallas_call``).
-On first use, every ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface, under
-``nuts_rs_tpu_torch/_build/`` (named by a hash of the sources and flags, so
-an edited source rebuilds), and loaded with ``ctypes``.  The launchers
+On first use, a ``csrc/*.cu`` is compiled with ``nvcc`` for ``sm_90a`` into
+a shared library of its own with a plain C interface, under
+``nuts_rs_tpu_torch/_build/`` (named by a hash of the source, the headers
+and the flags, so an edited source rebuilds), and loaded with ``ctypes``: a
+caller builds only the kernels it launches, and :func:`build` starts one
+``nvcc`` per source for several at once.  The launchers
 check every tensor, allocate outputs with ``torch.empty`` and launch on
 PyTorch's current stream; a nonzero ``cudaGetLastError`` raises.
 
@@ -33,7 +35,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # (d, maxdepth) instantiations of the thread-per-chain chains-on-lanes NUTS
-# kernels; other sizes up to ``CL_THREAD_MAX_DIM`` raise.  The MCLMC kernels
+# kernels; every other size takes the mid-d kernels
+# (``nuts_fused.cl_kernel``).  The MCLMC kernels
 # are instantiated for the same d (``DIMS``), both kinetic energies and both
 # settings of ``dynamic_step_size``.  The mid-d chains-on-lanes kernels, NUTS
 # and MCLMC (above ``CL_THREAD_MAX_DIM``, and every model with data), and the
@@ -42,7 +45,8 @@ SIZES = tuple((d, 10) for d in (3, 4, 6, 10))
 DIMS = tuple(sorted({d for d, _ in SIZES}))
 CL_THREAD_MAX_DIM = max(DIMS)
 # nrt::ModelId of each kernel hook name (csrc/models.cuh)
-MODEL_IDS = {"iid_normal": 0, "logistic_regression": 1}
+MODEL_IDS = {"iid_normal": 0, "logistic_regression": 1,
+             "logistic_regression_stream": 2}
 MAX_BLOCK = 128  # nrt::MAX_BLOCK, the kernels' __launch_bounds__
 # ld kernels: chains per logical block = CUDA blocks per cluster
 # (nrt::LD_MAX_CLUSTER, the portable cluster size); live vectors a chain
@@ -59,8 +63,47 @@ SMEM_OPT_IN_BYTES = 232448
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
 
-_LIB = None
-BUILD_INFO = {}
+BUILD_INFO = {"seconds": 0.0, "libraries": {}}
+_LIBS = {}
+
+_P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                  ctypes.c_float)
+_LL = ctypes.c_longlong
+_NUTS_POST = [_I, _I, _I, _I, _I, _U, _F, _I, _F, _F, _I]
+_NUTS_WARM = _NUTS_POST + [_F] * 5 + [_I]
+_MCLMC_POST = [_I, _I, _I, _I, _I, _I, _U, _F, _F, _F, _F, _I, _F, _F, _I]
+_MCLMC_WARM = [_I, _I, _I, _I, _I, _I, _U, _F, _F, _F, _F, _F, _I, _F, _F,
+               _I, _I]
+# One shared library per source: stem -> {exported function: (argtypes,
+# restype)}.
+SOURCES = {
+    "nuts_fused_posterior": {
+        "nrt_posterior_launch": (_NUTS_POST + [_P] * 16, _I)},
+    "nuts_fused_warmup": {
+        "nrt_warmup_launch": (_NUTS_WARM + [_P] * 20, _I)},
+    "mclmc_fused_posterior": {
+        "nrt_mclmc_posterior_launch": (_MCLMC_POST + [_P] * 18, _I)},
+    "mclmc_fused_warmup": {
+        "nrt_mclmc_warmup_launch": (_MCLMC_WARM + [_P] * 22, _I)},
+    "nuts_fused_ld_posterior": {
+        "nrt_ld_posterior_launch": (_NUTS_POST + [_P] * 17, _I),
+        "nrt_ld_smem_bytes": ([_I, _I, _I], _LL)},
+    "nuts_fused_ld_warmup": {
+        "nrt_ld_warmup_launch": (_NUTS_WARM + [_P] * 18, _I)},
+    "nuts_fused_mid_posterior": {
+        "nrt_mid_posterior_launch": (_NUTS_POST + [_P] * 19, _I),
+        "nrt_mid_smem_bytes": ([_I, _I, _I, _I, _P], _LL)},
+    "nuts_fused_mid_warmup": {
+        "nrt_mid_warmup_launch": (_NUTS_WARM + [_P] * 20, _I)},
+    "mclmc_fused_mid_posterior": {
+        "nrt_mclmc_mid_posterior_launch": (_MCLMC_POST + [_P] * 20, _I),
+        "nrt_mclmc_mid_smem_bytes": ([_I, _I, _P], _LL)},
+    "mclmc_fused_mid_warmup": {
+        "nrt_mclmc_mid_warmup_launch": (_MCLMC_WARM + [_P] * 21, _I)},
+    "nuts_fused_stream_posterior": {
+        "nrt_stream_posterior_launch": (_NUTS_POST + [_P] * 19, _I),
+        "nrt_stream_smem_bytes": ([_I, _I, _I, _I, _P], _LL)},
+}
 
 
 def _nvcc() -> str:
@@ -81,95 +124,69 @@ def _sizes_header() -> str:
             f"#define NRT_FOR_EACH_DIM(X) {dims}\n")
 
 
-def library():
-    """The loaded kernel library, built from ``csrc/`` on first use."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    sources = sorted(CSRC.glob("*.cu"))
-    headers = sorted(CSRC.glob("*.cuh"))
+def _library_path(stem: str) -> Path:
+    """Where the library of ``csrc/<stem>.cu`` lies: named by a hash of that
+    source, every header, the flags and the instantiated sizes."""
     h = hashlib.sha256()
-    for p in sources + headers:
+    for p in [CSRC / f"{stem}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     h.update(_sizes_header().encode())
-    so = BUILD_DIR / f"libnuts_fused_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
+
+
+def build(stems=None):
+    """Build the libraries of ``stems`` (default: every source) that are not
+    built yet, one ``nvcc`` per source, all started together."""
+    stems = list(SOURCES) if stems is None else list(stems)
     t0 = time.monotonic()
-    if not so.exists():
+    missing = [(stem, so) for stem in stems
+               if not (so := _library_path(stem)).exists()]
+    if missing:
+        # the generated header is in place, whole, before any nvcc starts
         BUILD_DIR.mkdir(exist_ok=True)
-        (BUILD_DIR / "nrt_sizes.h").write_text(_sizes_header())
-        nvcc = _nvcc()
-        objs, procs = [], []
-        for src in sources:
-            obj = BUILD_DIR / (src.stem + ".o")
-            objs.append(obj)
-            procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c",
-                 "-I", str(BUILD_DIR), "-o", str(obj), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        log = []
-        for src, p in procs:
-            out, _ = p.communicate()
-            log.append(f"== {src.name}\n{out}")
-            if p.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
+        header = BUILD_DIR / "nrt_sizes.h"
+        text = _sizes_header()
+        if not header.exists() or header.read_text() != text:
+            new = header.with_suffix(f".{os.getpid()}.tmp")
+            new.write_text(text)
+            new.replace(header)
+    procs = []
+    for stem, so in missing:
         tmp = so.with_suffix(".tmp")
-        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
-                               *map(str, objs)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
-        tmp.replace(so)
-        (BUILD_DIR / "build.log").write_text("\n".join(log))
-    BUILD_INFO["seconds"] = time.monotonic() - t0
-    BUILD_INFO["library"] = str(so)
+        procs.append((stem, so, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(BUILD_DIR), "-o",
+             str(tmp), str(CSRC / f"{stem}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = None
+    for stem, so, tmp, p in procs:
+        out, _ = p.communicate()
+        (BUILD_DIR / f"build_{stem}.log").write_text(out)
+        if p.returncode != 0:
+            failed = failed or f"nvcc failed on {stem}.cu:\n{out}"
+        else:
+            tmp.replace(so)
+    if failed:
+        raise RuntimeError(failed)
+    BUILD_INFO["seconds"] += time.monotonic() - t0
+
+
+def library(stem: str):
+    """The loaded library of ``csrc/<stem>.cu``, built on first use."""
+    lib = _LIBS.get(stem)
+    if lib is not None:
+        return lib
+    build([stem])
+    so = _library_path(stem)
     lib = ctypes.CDLL(str(so))
-    P, I, U, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.nrt_posterior_launch.argtypes = (
-        [I, I, I, I, I, U, F, I, F, F, I] + [P] * 15 + [P])
-    lib.nrt_posterior_launch.restype = I
-    lib.nrt_warmup_launch.argtypes = (
-        [I, I, I, I, I, U, F, I, F, F, I, F, F, F, F, F, I] + [P] * 19
-        + [P])
-    lib.nrt_warmup_launch.restype = I
-    lib.nrt_mclmc_posterior_launch.argtypes = (
-        [I, I, I, I, I, I, U, F, F, F, F, I, F, F, I] + [P] * 17 + [P])
-    lib.nrt_mclmc_posterior_launch.restype = I
-    lib.nrt_mclmc_warmup_launch.argtypes = (
-        [I, I, I, I, I, I, U, F, F, F, F, F, I, F, F, I, I] + [P] * 21
-        + [P])
-    lib.nrt_mclmc_warmup_launch.restype = I
-    lib.nrt_ld_posterior_launch.argtypes = (
-        [I, I, I, I, I, U, F, I, F, F, I] + [P] * 16 + [P])
-    lib.nrt_ld_posterior_launch.restype = I
-    lib.nrt_ld_warmup_launch.argtypes = (
-        [I, I, I, I, I, U, F, I, F, F, I, F, F, F, F, F, I] + [P] * 17
-        + [P])
-    lib.nrt_ld_warmup_launch.restype = I
-    lib.nrt_ld_smem_bytes.argtypes = [I, I, I]
-    lib.nrt_ld_smem_bytes.restype = ctypes.c_longlong
-    lib.nrt_mid_posterior_launch.argtypes = (
-        [I, I, I, I, I, U, F, I, F, F, I] + [P] * 18 + [P])
-    lib.nrt_mid_posterior_launch.restype = I
-    lib.nrt_mid_warmup_launch.argtypes = (
-        [I, I, I, I, I, U, F, I, F, F, I, F, F, F, F, F, I] + [P] * 19
-        + [P])
-    lib.nrt_mid_warmup_launch.restype = I
-    lib.nrt_mid_smem_bytes.argtypes = [I, I, I, I, P]
-    lib.nrt_mid_smem_bytes.restype = ctypes.c_longlong
-    lib.nrt_mclmc_mid_posterior_launch.argtypes = (
-        [I, I, I, I, I, I, U, F, F, F, F, I, F, F, I] + [P] * 19 + [P])
-    lib.nrt_mclmc_mid_posterior_launch.restype = I
-    lib.nrt_mclmc_mid_warmup_launch.argtypes = (
-        [I, I, I, I, I, I, U, F, F, F, F, F, I, F, F, I, I] + [P] * 20
-        + [P])
-    lib.nrt_mclmc_mid_warmup_launch.restype = I
-    lib.nrt_mclmc_mid_smem_bytes.argtypes = [I, I, P]
-    lib.nrt_mclmc_mid_smem_bytes.restype = ctypes.c_longlong
-    lib.nrt_error_string.argtypes = [I]
+    for name, (argtypes, restype) in SOURCES[stem].items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    lib.nrt_error_string.argtypes = [_I]
     lib.nrt_error_string.restype = ctypes.c_char_p
-    _LIB = lib
+    BUILD_INFO["libraries"][stem] = str(so)
+    _LIBS[stem] = lib
     return lib
 
 
@@ -239,9 +256,10 @@ def _common(q, model, opts, B):
     C, d = q.shape
     D = opts.maxdepth
     if (d, D) not in SIZES:
-        raise NotImplementedError(
-            f"the fused CUDA kernels are instantiated for (d, maxdepth) in "
-            f"{SIZES}, not ({d}, {D}) (ROADMAP.md queue 1 item 12)")
+        raise ValueError(
+            f"the thread-per-chain kernels are instantiated for (d, "
+            f"maxdepth) in {SIZES}, not ({d}, {D}): the mid-d kernels serve "
+            "every other size (nuts_fused.cl_kernel)")
     return C, d, D, model_id, params
 
 
@@ -348,14 +366,15 @@ def _mclmc_common(q, model, mopts, B):
     model_id, params = _model_and_block(q, model, B)
     C, d = q.shape
     if d not in DIMS:
-        raise NotImplementedError(
+        raise ValueError(
             f"the thread-per-chain MCLMC kernels are instantiated for d in "
-            f"{DIMS}, not {d} (ROADMAP.md queue 1 item 12)")
+            f"{DIMS}, not {d}: the mid-d kernels serve every other size "
+            "(nuts_fused.cl_kernel)")
     consts, fconsts = _mclmc_consts(d, mopts)
     return C, d, model_id, params, consts, fconsts
 
 
-def _mclmc_mid_common(q, model, mopts, B):
+def _mclmc_mid_common(kind, q, model, mopts, B):
     """(C, d, model id, params, ptrs, ints, consts, fconsts, lib) of a mid-d
     MCLMC launch, after the device, block, size and data checks."""
     model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK, data=True)
@@ -370,15 +389,33 @@ def _mclmc_mid_common(q, model, mopts, B):
             "queue 1 item 12)")
     c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
     c_ptrs = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
-    lib = library()
-    built = lib.nrt_mclmc_mid_smem_bytes(
+    built = library("mclmc_fused_mid_posterior").nrt_mclmc_mid_smem_bytes(
         d, model_id, ctypes.cast(c_ints, ctypes.c_void_p))
     if built != need:
         raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
                            "for the mid-d MCLMC kernels, "
                            f"_build.mclmc_mid_smem_bytes {need}")
     consts, fconsts = _mclmc_consts(d, mopts)
+    lib = library(f"mclmc_fused_mid_{kind}")
     return C, d, model_id, params, c_ptrs, c_ints, consts, fconsts, lib
+
+
+STREAM_BLOCKS = (1, 2, 4, 8)  # cluster sizes the streamed kernel is built for
+# most rows of a streamed tile: a thread keeps its rows' residuals in
+# registers, at most 4 (csrc/models.cuh::LogisticRegressionStream::MAX_ROWS)
+STREAM_MAX_TILE_ROWS = 4 * 32 * LD_WARPS
+
+
+def stream_smem_bytes(d, maxdepth, B):
+    """Dynamic shared memory of one chain's CUDA block in the streamed
+    posterior kernel at a logical block of ``B`` chains: the mid-d posterior
+    layout, then the streamed functor's scratch (csrc/models.cuh): the B
+    positions (with 4 floats of slack for their alignment), two buffers of
+    warp partials per column and chain, and the block's range sums;
+    whatever the rows of data or of a tile."""
+    scratch = 4 + d * B + 2 * LD_WARPS * d * B + 8 + d * B
+    return 4 * (MID_NVEC["posterior"] * d + 2 * (maxdepth + 1)
+                + LD_REDUCE_FLOATS + 2 * MAX_LD_BLOCK + scratch)
 
 
 def ld_smem_bytes(kind, d, maxdepth):
@@ -416,13 +453,13 @@ def _ld_common(kind, q, model, opts, B):
             f"dim {d} needs {need} bytes of shared memory per chain in the "
             f"dim-on-lanes {kind} kernel; a block has {SMEM_OPT_IN_BYTES} "
             f"(d <= {ld_max_dim(D)} at maxdepth {D})")
-    lib = library()
-    built = lib.nrt_ld_smem_bytes(int(kind == "warmup"), d, D)
+    built = library("nuts_fused_ld_posterior").nrt_ld_smem_bytes(
+        int(kind == "warmup"), d, D)
     if built != need:
         raise RuntimeError(f"csrc/nuts_tree_ld.cuh lays out {built} bytes of "
                            f"shared memory, _build.ld_smem_bytes {need}")
     work = torch.empty(C, 4, D + 1, d, dtype=torch.float32, device=q.device)
-    return C, d, D, model_id, params, work, lib
+    return C, d, D, model_id, params, work, library(f"nuts_fused_ld_{kind}")
 
 
 def _mid_common(kind, q, model, opts, B):
@@ -447,15 +484,16 @@ def _mid_common(kind, q, model, opts, B):
             "K1-stream, ROADMAP.md queue 1 item 12)")
     c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
     c_ptrs = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
-    lib = library()
-    built = lib.nrt_mid_smem_bytes(int(kind == "warmup"), d, D, model_id,
-                                   ctypes.cast(c_ints, ctypes.c_void_p))
+    built = library("nuts_fused_mid_posterior").nrt_mid_smem_bytes(
+        int(kind == "warmup"), d, D, model_id,
+        ctypes.cast(c_ints, ctypes.c_void_p))
     if built != need:
         raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
                            f"for the mid-d {kind} kernel, "
                            f"_build.mid_smem_bytes {need}")
     work = torch.empty(C, 4, D + 1, d, dtype=torch.float32, device=q.device)
-    return C, d, D, model_id, params, c_ptrs, c_ints, work, lib
+    return (C, d, D, model_id, params, c_ptrs, c_ints, work,
+            library(f"nuts_fused_mid_{kind}"))
 
 
 def _raise_on(rc, lib, what):
@@ -477,7 +515,7 @@ def launch_posterior(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
     C, d, D, model_id, params = _common(q, model, opts, B)
     dev = q.device
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
-    lib = library()
+    lib = library("nuts_fused_posterior")
     f32 = dict(dtype=torch.float32, device=dev)
     draws = torch.empty(K, d, C, **f32)
     stats = torch.empty(K, 13, C, **f32)
@@ -508,7 +546,7 @@ def launch_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model, opts,
     dev = q.device
     K = flags.shape[0]
     check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
-    lib = library()
+    lib = library("nuts_fused_warmup")
     f32 = dict(dtype=torch.float32, device=dev)
     draws = torch.empty(K, d, C, **f32)
     stats = torch.empty(K, 15, C, **f32)
@@ -636,6 +674,77 @@ def launch_mid_posterior(seed, q, g, logp, stds, mean, logdet, step0,
     return draws, stats, q_f, g_f, logp_f, iters
 
 
+def launch_stream_posterior(seed, q, g, logp, stds, mean, logdet, step0,
+                            step_bar, K, model, opts, jitter, B):
+    """Launch csrc/nuts_fused_stream_posterior.cu (kernel K1-stream) on the
+    hook tensors of ``model`` in tiles of ``model.stream_tile_rows`` rows;
+    returns (draws [K, C, d], stats [K, C, NSTATS], q_f, g_f [C, d],
+    logp_f [C], iters [C])."""
+    check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
+    _, params = _model_and_block(q, model, B, MAX_LD_BLOCK, data=True)
+    name = model.hook_parts()[0] + "_stream"
+    rows = model.stream_tile_rows
+    if name not in MODEL_IDS or rows is None or rows < 1:
+        raise NotImplementedError(
+            f"model {model.name!r} has no streamed functor the CUDA kernels "
+            "compile in (ROADMAP.md queue 1 item 10)")
+    model_id = MODEL_IDS[name]
+    C, d = q.shape
+    D = opts.maxdepth
+    if not 1 <= D <= LD_MAX_MAXDEPTH:
+        raise NotImplementedError(
+            f"the streamed CUDA kernel takes maxdepth 1..{LD_MAX_MAXDEPTH}, "
+            f"got {D}")
+    ints, ptrs = model_data_args(model, d, q.device)
+    if B not in STREAM_BLOCKS:
+        raise ValueError(f"the streamed kernel is built for chain blocks "
+                         f"{STREAM_BLOCKS}, not {B}")
+    ints = (*ints, int(rows))
+    if rows > STREAM_MAX_TILE_ROWS:
+        raise NotImplementedError(
+            f"the streamed kernel takes tiles of at most "
+            f"{STREAM_MAX_TILE_ROWS} rows, got {rows}")
+    need = stream_smem_bytes(d, D, B)
+    if need > SMEM_OPT_IN_BYTES:
+        raise NotImplementedError(
+            f"dim {d} with {B} chains a block needs {need} bytes of shared "
+            f"memory per chain in the streamed kernel; a block has "
+            f"{SMEM_OPT_IN_BYTES}")
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    lib = library("nuts_fused_stream_posterior")
+    built = lib.nrt_stream_smem_bytes(d, D, B, model_id,
+                                      ctypes.cast(c_ints, ctypes.c_void_p))
+    if built != need:
+        raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
+                           "for the streamed kernel, "
+                           f"_build.stream_smem_bytes {need}")
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    work = torch.empty(C, 4, D + 1, d, **f32)
+    draws = torch.empty(K, C, d, **f32)
+    stats = torch.empty(K, C, 13, **f32)
+    q_f, g_f = torch.empty(C, d, **f32), torch.empty(C, d, **f32)
+    logp_f = torch.empty(C, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(jitter)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_stream_posterior_launch(
+            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            float(opts.max_energy_error), hj, jc1, jc2, model_id,
+            ctypes.cast(params, ctypes.c_void_p),
+            ctypes.cast(c_ptrs, ctypes.c_void_p),
+            ctypes.cast(c_ints, ctypes.c_void_p),
+            q.data_ptr(), g.data_ptr(), logp.data_ptr(), stds.data_ptr(),
+            mean.data_ptr(), logdet.data_ptr(), step0.data_ptr(),
+            step_bar.data_ptr(), draws.data_ptr(), stats.data_ptr(),
+            q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
+            iters.data_ptr(), work.data_ptr(), stream)
+    _raise_on(rc, lib, "nuts_fused_stream_posterior")
+    return draws, stats, q_f, g_f, logp_f, iters
+
+
 def launch_mid_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
                       opts, sset, use_grad_based, B):
     """Launch csrc/nuts_fused_mid_warmup.cu; returns (draws [K, C, d],
@@ -687,7 +796,7 @@ def launch_mclmc_posterior(seed, q, g, logp, v, stds, mean, logdet, step0,
     dev = q.device
     check_mclmc_posterior_args(q, g, logp, v, stds, mean, logdet, step0,
                                step_bar, K, mopts)
-    lib = library()
+    lib = library("mclmc_fused_posterior")
     f32 = dict(dtype=torch.float32, device=dev)
     draws = torch.empty(K, d, C, **f32)
     stats = torch.empty(K, 8, C, **f32)
@@ -719,7 +828,7 @@ def launch_mclmc_warmup(seed, flags, q, g, logp, v, stds, mean, est, sca,
     K = flags.shape[0]
     check_mclmc_warmup_args(flags, q, g, logp, v, stds, mean, est, sca,
                             mopts)
-    lib = library()
+    lib = library("mclmc_fused_warmup")
     f32 = dict(dtype=torch.float32, device=dev)
     draws = torch.empty(K, d, C, **f32)
     stats = torch.empty(K, 9, C, **f32)
@@ -750,7 +859,7 @@ def launch_mclmc_mid_posterior(seed, q, g, logp, v, stds, mean, logdet, step0,
     check_mclmc_posterior_args(q, g, logp, v, stds, mean, logdet, step0,
                                step_bar, K, mopts)
     (C, d, model_id, params, ptrs, ints, consts, fconsts,
-     lib) = _mclmc_mid_common(q, model, mopts, B)
+     lib) = _mclmc_mid_common("posterior", q, model, mopts, B)
     dev = q.device
     f32 = dict(dtype=torch.float32, device=dev)
     draws = torch.empty(K, C, d, **f32)
@@ -784,7 +893,7 @@ def launch_mclmc_mid_warmup(seed, flags, q, g, logp, v, stds, mean, est, sca,
     check_mclmc_warmup_args(flags, q, g, logp, v, stds, mean, est, sca,
                             mopts)
     (C, d, model_id, params, ptrs, ints, consts, fconsts,
-     lib) = _mclmc_mid_common(q, model, mopts, B)
+     lib) = _mclmc_mid_common("warmup", q, model, mopts, B)
     dev = q.device
     K = flags.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)

@@ -5,8 +5,10 @@ Port of ``nuts_rs_tpu/kernels/nuts_pallas.py``: ``nuts_pallas_run``
 CUDA kernel ``csrc/nuts_fused_posterior.cu``, and ``nuts_pallas_warmup_run``
 (``:1532``, body ``make_warmup_kernel`` ``:942``) becomes
 ``nuts_fused_warmup_run`` with ``csrc/nuts_fused_warmup.cu``.  Both
-layouts of those bodies are ported, without flow or stream (ROADMAP.md
-queue 2): ``layout="cl"`` (chains-on-lanes) and ``layout="ld"``
+layouts of those bodies are ported, and the posterior body's ``stream=``
+mode (``:115-121,217-254``: kernel K1-stream,
+``csrc/nuts_fused_stream_posterior.cu``, chosen with ``stream=True``),
+without flow (ROADMAP.md queue 2): ``layout="cl"`` (chains-on-lanes) and ``layout="ld"``
 (dim-on-lanes, ``nuts_pallas.py:123-136``: large d), whose kernels are
 ``csrc/nuts_fused_ld_posterior.cu`` and ``csrc/nuts_fused_ld_warmup.cu``:
 one CUDA block of ``ops.TSUM_THREADS`` threads per chain and one thread
@@ -14,10 +16,11 @@ block cluster per logical chain block.  The layouts share the tree
 algorithm, salts and stats.  They differ in the index of a vector random
 site (``rng.BlockRng``) and in the default chain block.
 
-Two kernel pairs serve ``layout="cl"`` (:func:`cl_kernel`).  Up to
-``_build.CL_THREAD_MAX_DIM`` dimensions a model without data takes the
-thread-per-chain kernels above (sizes as template parameters, every sum over
-the parameter axis in coordinate order, ``ops.dsum``).  Above that, and for
+Two kernel pairs serve ``layout="cl"`` (:func:`cl_kernel`).  At the
+instantiated sizes (``_build.SIZES``, d <= ``_build.CL_THREAD_MAX_DIM``) a
+model without data takes the thread-per-chain kernels above (sizes as
+template parameters, every sum over the parameter axis in coordinate order,
+``ops.dsum``).  At every other size, and for
 every model that carries data (the ``n_model_args > 0`` variants of the
 Pallas bodies, ``nuts_pallas.py:84,159-166`` and ``:944,975-979``: K1-args
 and K2-args), it takes the mid-d kernels ``csrc/nuts_fused_mid_posterior.cu``
@@ -52,8 +55,10 @@ import torch
 from ..ops import dsum, tsum
 from ..ops import logaddexp as _logaddexp
 from ._build import (
-    CL_THREAD_MAX_DIM,
+    DIMS,
     MAX_LD_BLOCK,
+    SIZES,
+    STREAM_BLOCKS,
     check_posterior_args,
     check_warmup_args,
     launch_ld_posterior,
@@ -61,6 +66,7 @@ from ._build import (
     launch_mid_posterior,
     launch_mid_warmup,
     launch_posterior,
+    launch_stream_posterior,
     launch_warmup,
 )
 from .diag_adapt import NEST, adapt_draw
@@ -113,7 +119,8 @@ _DEFAULT_BLOCKS = {"thread": DEFAULT_BLOCK, "mid": DEFAULT_MID_BLOCK,
 
 LAUNCHES = {"nuts_fused_posterior": 0, "nuts_fused_warmup": 0,
             "nuts_fused_ld_posterior": 0, "nuts_fused_ld_warmup": 0,
-            "nuts_fused_mid_posterior": 0, "nuts_fused_mid_warmup": 0}
+            "nuts_fused_mid_posterior": 0, "nuts_fused_mid_warmup": 0,
+            "nuts_fused_stream_posterior": 0}
 
 _F32 = torch.float32
 _NEG_INF = float("-inf")
@@ -202,23 +209,46 @@ def _check_layout(layout):
     return layout == "ld"
 
 
-def cl_kernel(model, dim):
+def cl_kernel(model, dim, maxdepth=None):
     """The kernel pair that serves ``layout="cl"`` for ``model`` at ``dim``:
-    ``"thread"`` (one thread per chain, instantiated sizes) or ``"mid"``
-    (256 threads a chain, any size, the only one that reads a model's
-    data).  The plain versions take its sum order and default block."""
-    if dim > CL_THREAD_MAX_DIM or model.carries_data:
+    ``"thread"`` (one thread per chain, at the instantiated sizes: ``dim`` in
+    ``_build.DIMS`` and, for NUTS, which passes its ``maxdepth``,
+    ``(dim, maxdepth)`` in ``_build.SIZES``) or ``"mid"`` (256 threads a
+    chain, any size, the only one that reads a model's data).  The plain
+    versions take its sum order and default block."""
+    if model.carries_data or dim not in DIMS:
+        return "mid"
+    if maxdepth is not None and (dim, maxdepth) not in SIZES:
         return "mid"
     return "thread"
 
 
-def _kernel_kind(model, dim, layout):
-    """``"ld"``, ``"mid"`` or ``"thread"``: the kernel pair of a call."""
-    return "ld" if _check_layout(layout) else cl_kernel(model, dim)
+def _kernel_kind(model, dim, layout, maxdepth=None, stream=False):
+    """``"ld"``, ``"stream"``, ``"mid"`` or ``"thread"``: the kernel of a
+    call."""
+    if _check_layout(layout):
+        if stream:
+            raise ValueError("the streamed kernel is chains-on-lanes only")
+        return "ld"
+    if stream:
+        if model.stream_tile_rows is None:
+            raise ValueError(f"model {model.name!r} has no streamed form "
+                             "(Model.stream_tile_rows)")
+        return "stream"
+    return cl_kernel(model, dim, maxdepth)
 
 
 def _check_block(C, block, kind="thread"):
-    if block is None:
+    if kind == "stream":
+        # the chains of a block share a pass over the data (and its tiles
+        # are summed in as many ranges): the largest cluster that divides
+        # the chains, unless the caller names one
+        if block is None:
+            block = max(b for b in STREAM_BLOCKS if C % b == 0)
+        if block not in STREAM_BLOCKS:
+            raise ValueError(f"the streamed kernel takes chain blocks "
+                             f"{STREAM_BLOCKS}, not {block}")
+    elif block is None:
         block = _DEFAULT_BLOCKS[kind]
     B = min(block, C)
     if C % B:
@@ -227,18 +257,24 @@ def _check_block(C, block, kind="thread"):
     return B
 
 
-def _evaluators(model, kind):
-    """(csum, logp_and_grad) of a kernel pair ("thread", "mid" or "ld"):
-    its sum over the parameter axis, and the model evaluated as the kernel
-    evaluates it, through the plain counterpart of its device functor with
-    that sum.  A model without a functor has no kernel to agree with and is
-    evaluated as it is."""
+def _evaluators(model, kind, B=1):
+    """(csum, logp_and_grad) of a kernel ("thread", "mid", "stream" or
+    "ld"): its sum over the parameter axis, and the model evaluated as the
+    kernel evaluates it, through the plain counterpart of its device functor
+    with that sum ("stream": the streamed functor, tile after tile, the
+    tiles in ``B`` ranges as the logical block's ``B`` chains split them).
+    A model without a functor has no kernel to agree with and is evaluated
+    as it is."""
     from ..models.gaussian import PLAIN_FUNCTORS
 
     csum = dsum if kind == "thread" else tsum
     if model.kernel_hook is None:
         return csum, model.logp_and_grad
     name, floats, tensors = model.hook_parts()
+    if kind == "stream":
+        functor = PLAIN_FUNCTORS[name + "_stream"]
+        rows = model.stream_tile_rows
+        return csum, lambda q: functor(q, *floats, *tensors, rows, csum, B)
     functor = PLAIN_FUNCTORS[name]
     return csum, lambda q: functor(q, *floats, *tensors, csum)
 
@@ -256,15 +292,15 @@ def _jitter_consts(jitter):
 
 def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
                              step_bar, num_draws, model, opts, jitter,
-                             block=None, layout="cl"):
+                             block=None, layout="cl", stream=False):
     """Plain PyTorch version of the fused posterior kernels.
 
     Same arguments and results as :func:`nuts_fused_run`."""
     C, d = q.shape
     K = num_draws
-    kind = _kernel_kind(model, d, layout)
-    csum, logp_and_grad = _evaluators(model, kind)
+    kind = _kernel_kind(model, d, layout, opts.maxdepth, stream)
     B = _check_block(C, block, kind)
+    csum, logp_and_grad = _evaluators(model, kind, B)
     D = opts.maxdepth
     max_err = float(opts.max_energy_error)
     dev = q.device
@@ -432,7 +468,8 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
 
 
 def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
-                   num_draws, model, opts, jitter, block=None, layout="cl"):
+                   num_draws, model, opts, jitter, block=None, layout="cl",
+                   stream=False):
     """Run ``num_draws`` draw-asynchronous NUTS draws per chain.
 
     q, g, stds, mean: [C, d]; logp, logdet, step0, step_bar: [C].  Returns
@@ -441,21 +478,27 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
     ``loop_iterations`` [C].  The first draw of each chain uses ``step0``;
     later draws use ``step_bar`` jittered by ``jitter``.  ``block`` is the
     logical chain block (default 32 for the thread-per-chain cl kernel, 1
-    for the mid-d cl kernel, 8 for the ld kernel).
+    for the mid-d cl kernel, 8 for the ld kernel).  With ``stream`` the
+    model's data are evaluated in row tiles of ``model.stream_tile_rows``
+    (kernel K1-stream, ``layout="cl"`` only), and the chains of a block
+    share each pass over the data: ``block`` is 1, 2, 4 or 8 (default: the
+    largest that divides the chains), and the tiles' sums are added in that
+    many ranges.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
     ``csrc/nuts_fused_posterior.cu`` or ``csrc/nuts_fused_mid_posterior.cu``
-    (cl, see :func:`cl_kernel`) or ``csrc/nuts_fused_ld_posterior.cu``
-    (ld)."""
+    (cl, see :func:`cl_kernel`), ``csrc/nuts_fused_stream_posterior.cu``
+    (``stream``) or ``csrc/nuts_fused_ld_posterior.cu`` (ld)."""
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar,
                          num_draws)
-    kind = _kernel_kind(model, q.shape[1], layout)
+    kind = _kernel_kind(model, q.shape[1], layout, opts.maxdepth, stream)
     if q.device.type == "cpu":
         return nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet,
                                         step0, step_bar, num_draws, model,
-                                        opts, jitter, block, layout)
+                                        opts, jitter, block, layout, stream)
     if kind != "thread":
-        launch = launch_ld_posterior if kind == "ld" else launch_mid_posterior
+        launch = {"ld": launch_ld_posterior, "mid": launch_mid_posterior,
+                  "stream": launch_stream_posterior}[kind]
         draws, stats, q_f, g_f, logp_f, iters = launch(
             seed, q, g, logp, stds, mean, logdet, step0, step_bar, num_draws,
             model, opts, jitter, _check_block(q.shape[0], block, kind))
@@ -486,7 +529,7 @@ def nuts_fused_warmup_run_reference(seed, flags, q, g, logp, stds, mean, est,
     Same arguments and results as :func:`nuts_fused_warmup_run`."""
     C, d = q.shape
     K = flags.shape[0]
-    kind = _kernel_kind(model, d, layout)
+    kind = _kernel_kind(model, d, layout, opts.maxdepth)
     csum, logp_and_grad = _evaluators(model, kind)
     B = _check_block(C, block, kind)
     D = opts.maxdepth
@@ -704,7 +747,7 @@ def nuts_fused_warmup_run(seed, flags, q, g, logp, stds, mean, est, sca,
     ``csrc/nuts_fused_warmup.cu`` or ``csrc/nuts_fused_mid_warmup.cu`` (cl,
     see :func:`cl_kernel`) or ``csrc/nuts_fused_ld_warmup.cu`` (ld)."""
     check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
-    kind = _kernel_kind(model, q.shape[1], layout)
+    kind = _kernel_kind(model, q.shape[1], layout, opts.maxdepth)
     if q.device.type == "cpu":
         return nuts_fused_warmup_run_reference(
             seed, flags, q, g, logp, stds, mean, est, sca, model, opts, sset,

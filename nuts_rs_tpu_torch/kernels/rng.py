@@ -47,9 +47,13 @@ def hash_bits(seed, it, salt: int, idx):
     """murmur3-finalized uint32 bits, as int64 values in [0, 2^32).
 
     ``seed``, ``it`` and ``idx`` are ints or int64 tensors (broadcast
-    together); ``salt`` is a static site number.
+    together); ``salt`` is a static site number, or an int64 tensor of
+    site numbers that broadcasts with them.
     """
-    salt_c = (salt * _SALT_MUL) & MASK32
+    if isinstance(salt, torch.Tensor):
+        salt_c = _mul32(salt, _SALT_MUL)
+    else:
+        salt_c = (salt * _SALT_MUL) & MASK32
     h = ((seed & MASK32) ^ salt_c)
     h = (h + _mul32(torch.as_tensor(it, dtype=torch.int64) & MASK32, _IT_MUL)
          + _mul32(idx & MASK32, _IDX_MUL)) & MASK32
@@ -75,14 +79,12 @@ def tz(x, cap: int):
     """Trailing zeros of int ``x`` over bits 0..cap-1, ``cap`` for x == 0.
 
     Exactly the Pallas ``_tz``: a nonzero ``x`` with no set bit below
-    ``cap`` gives 0."""
-    res = torch.where(x == 0, torch.full_like(x, cap), torch.zeros_like(x))
-    found = x == 0
-    for b in range(cap):
-        newly = ~found & (((x >> b) & 1) == 1)
-        res = torch.where(newly, torch.full_like(x, b), res)
-        found = found | newly
-    return res
+    ``cap`` gives 0.  The lowest set bit ``x & -x`` is a power of two, whose
+    exponent ``frexp`` reads exactly (x < 2^24)."""
+    low = (x & -x).to(torch.float32)
+    t = (torch.frexp(low)[1] - 1).to(x.dtype)
+    t = torch.where(t < cap, t, torch.zeros_like(t))
+    return torch.where(x == 0, torch.full_like(x, cap), t)
 
 
 class BlockRng:

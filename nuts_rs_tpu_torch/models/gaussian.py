@@ -2,9 +2,9 @@
 
 Port of ``nuts_rs_tpu/models/gaussian.py``: ``normal_logp`` (``:20-28``) and
 ``logistic_regression`` (``:149-180,230-232``) with its dense data channel,
-the counterpart of ``Model.pallas_logp_grad``; its streaming form
-(``:182-228``) comes with kernel K1-stream.  The other models are queue-1
-item 10 of ROADMAP.md.
+the counterpart of ``Model.pallas_logp_grad``, and its streaming form
+(``:182-228``, kernel K1-stream).  The other models are queue-1 item 10 of
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -44,12 +44,89 @@ def logistic_regression_logp_grad(q, xt, y, csum):
     return ll - 0.5 * csum(q * q), grad
 
 
+# Elements of the [chains, d, rows] product that the streamed plain functor
+# forms at once; more chains are evaluated in groups.
+_STREAM_PRODUCT_ELEMENTS = 1 << 28
+
+
+def logistic_regression_stream_logp_grad(q, xt, y, tile_rows, csum,
+                                         splits=1):
+    """Plain counterpart of the ``logistic_regression_stream`` device functor
+    (csrc/models.cuh::LogisticRegressionStream), the evaluation of kernel
+    K1-stream: ``(logp [C], grad [C, d])`` at ``q [C, d]`` for the data
+    ``xt [d, N]`` and ``y [N]`` walked in tiles of ``tile_rows`` rows, as the
+    JAX model's ``tile_eval`` and ``finalize`` walk them
+    (``gaussian.py:202-228``).
+
+    Sum order, the functor's: a logit's terms in ascending j; inside a tile
+    the log-likelihood's and each gradient column's terms over the tile's
+    rows in the block order (``ops.tsum`` over the tile; a row past the data's
+    end counts 0.0, as the JAX model's zero-weight padding rows do).  The T
+    tiles fall into ``splits`` ranges, range s the tiles
+    ``[s T // splits, (s + 1) T // splits)`` (the kernel's logical block of
+    ``splits`` chains gives each of its CUDA blocks one range): a range's
+    tiles are added in ascending order, starting from its first, and the
+    ranges' sums in ascending order, starting from the first range that holds
+    a tile.  Last the prior, its terms by ``csum`` (``tsum``).  With
+    ``splits`` 1 that is tiles ascending, and a single tile that holds every
+    row gives :func:`logistic_regression_logp_grad`'s bits.  The tiles are
+    evaluated side by side and only their sums are added in turn; the
+    [C, d, N] product is formed for a group of chains at a time."""
+    d, N = xt.shape
+    T = -(-N // tile_rows)
+    pad = T * tile_rows - N
+    if pad:
+        xt = torch.nn.functional.pad(xt, (0, pad))
+        y = torch.nn.functional.pad(y, (0, pad))
+    valid = (torch.arange(T * tile_rows, device=q.device) < N).reshape(
+        T, tile_rows)
+    xt = xt.reshape(d, T, tile_rows)
+    y = y.reshape(T, tile_rows)
+    group = max(1, _STREAM_PRODUCT_ELEMENTS // (d * T * tile_rows))
+    lls, grads = [], []
+    for lo in range(0, q.shape[0], group):
+        qc = q[lo:lo + group]
+        logits = xt[0] * qc[:, 0, None, None]
+        for j in range(1, d):
+            logits = logits + xt[j] * qc[:, j, None, None]
+        zero = torch.zeros_like(logits)
+        tile_ll = tsum(torch.where(
+            valid, y * logits - logaddexp(zero, logits), zero))
+        p = torch.ones_like(logits) / (1.0 + torch.exp(-logits))
+        res = torch.where(valid, y - p, zero)
+        tile_grad = tsum(torch.where(valid, xt * res[:, None], zero[:, None]))
+        ll = grad = None
+        for s in range(splits):
+            lo, hi = s * T // splits, (s + 1) * T // splits
+            if lo == hi:
+                continue
+            part_ll, part_grad = tile_ll[:, lo], tile_grad[:, :, lo]
+            for t in range(lo + 1, hi):
+                part_ll = part_ll + tile_ll[:, t]
+                part_grad = part_grad + tile_grad[:, :, t]
+            ll = part_ll if ll is None else ll + part_ll
+            grad = part_grad if grad is None else grad + part_grad
+        lls.append(ll)
+        grads.append(grad)
+    return (torch.cat(lls) - 0.5 * csum(q * q), torch.cat(grads) - q)
+
+
 # Plain counterparts of the device model functors, by ``Model.kernel_hook``
-# name: ``fn(q, *hook_floats, *hook_tensors, csum)``.  The fused kernels'
-# plain versions evaluate a model through these, with the sum of the kernel
-# that serves it, as the kernels evaluate it through the functor.
-PLAIN_FUNCTORS = {"iid_normal": iid_normal_logp_grad,
-                  "logistic_regression": logistic_regression_logp_grad}
+# name: ``fn(q, *hook_floats, *hook_tensors, csum)``; a streamed functor, the
+# hook's name with ``_stream`` appended, also takes the model's
+# ``stream_tile_rows`` before ``csum``.  The fused kernels' plain versions
+# evaluate a model through these, with the sum of the kernel that serves it,
+# as the kernels evaluate it through the functor.
+PLAIN_FUNCTORS = {
+    "iid_normal": iid_normal_logp_grad,
+    "logistic_regression": logistic_regression_logp_grad,
+    "logistic_regression_stream": logistic_regression_stream_logp_grad,
+}
+
+
+def stream_tile_rows(n_data: int) -> int:
+    """The JAX model's tile (``gaussian.py:193``)."""
+    return 512 if n_data >= 512 else 8
 
 
 def normal_logp(dim: int, mu: float = 3.0) -> Model:
@@ -79,11 +156,15 @@ def logistic_regression_tensors(x, y):
             torch.from_numpy(np.ascontiguousarray(y)))
 
 
-def logistic_regression_from_tensors(xt, y, name=None) -> Model:
+def logistic_regression_from_tensors(xt, y, name=None,
+                                     tile_rows=None) -> Model:
     """The model of :func:`logistic_regression` on given data tensors
     ``(xt [d, N], y [N])``, which decide the device its closed forms run
-    on."""
+    on.  ``tile_rows``: the rows of a streamed tile (default: the JAX
+    model's, :func:`stream_tile_rows`)."""
     dim = xt.shape[0]
+    if tile_rows is None:
+        tile_rows = stream_tile_rows(xt.shape[1])
 
     def logp(q):
         logits = q.to(xt.dtype) @ xt
@@ -100,15 +181,16 @@ def logistic_regression_from_tensors(xt, y, name=None) -> Model:
                                                   logits), -1)
             p = torch.ones_like(logits) / (1.0 + torch.exp(-logits))
             grad = (y - p) @ xt.T - q
-        return ll - 0.5 * hsum(q * q), grad
+        # one reduction: the sync engine evaluates this every tree iteration
+        return ll - 0.5 * torch.sum(q * q, -1), grad
 
     def on_device(device):
         return logistic_regression_from_tensors(xt.to(device), y.to(device),
-                                                name)
+                                                name, tile_rows)
 
     return Model(logp_fn=logp, dim=dim, logp_grad_fn=logp_grad,
                  kernel_hook=("logistic_regression", (), (xt, y)),
-                 on_device=on_device, name=name or f"logreg_{dim}d")
+                 stream_tile_rows=tile_rows, on_device=on_device, name=name or f"logreg_{dim}d")
 
 
 def logistic_regression(n_data: int = 1000, dim: int = 100,

@@ -11,7 +11,9 @@ carries ``kernel_hook``: the name of a ``__device__`` model functor that is
 compiled into the fused CUDA kernels (``csrc/models.cuh``), with its float
 parameters and, for a model with data, its tensors: the counterpart of the
 arrays in ``pallas_logp_grad`` that the Pallas kernels' ``model_args``
-channel carries.
+channel carries.  ``stream_tile_rows`` is the counterpart of
+``pallas_stream`` (``StreamSpec``, ``model.py:23-70``): the same tensors,
+evaluated in row tiles.
 """
 
 from __future__ import annotations
@@ -55,6 +57,19 @@ class Model:
         counterpart, ``gaussian.PLAIN_FUNCTORS[name](q, *floats, *tensors,
         csum)``.  Models without a hook cannot take the fused engine.
         :meth:`hook_parts` reads either form.
+    stream_tile_rows:
+        Rows of a tile when the hook's data are streamed (the JAX package's
+        ``StreamSpec.tile_rows``), or None for a model whose data cannot
+        stream.  The streamed evaluation reads the same hook tensors; its
+        functor is the hook's name with ``_stream`` appended, in the kernels
+        (``csrc/models.cuh``) and in ``gaussian.PLAIN_FUNCTORS``, whose
+        entry is called ``fn(q, *floats, *tensors, tile_rows, csum)``.  The
+        contract is the JAX one without its lane-aligned packing: rows in
+        tiles of ``stream_tile_rows``, tiles in ascending order, a row past
+        the data's end (the JAX model's zero-weight padding) contributing
+        exactly nothing, the prior added last.  The posterior runner
+        streams when the data fail the resident kernels' size rule
+        (``chain.fused_layout``).
     on_device:
         ``fn(device) -> Model``: the same model with its data (hook tensors
         and whatever the closed forms capture) on ``device``; :meth:`to`
@@ -68,6 +83,7 @@ class Model:
     logp_grad_fn: Optional[Callable] = None
     init_position_fn: Optional[Callable] = None
     kernel_hook: Optional[tuple] = None
+    stream_tile_rows: Optional[int] = None
     on_device: Optional[Callable] = None
     dims: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     coords: Mapping[str, Any] = dataclasses.field(default_factory=dict)

@@ -7,12 +7,21 @@ Port of ``nuts_rs_tpu/sampler.py``: ``NutsSettings`` and
 runners, ``run_next_chunk``, ``_finish_chunk``, ``run`` ``:1957``) and the
 free functions ``schema`` (``:2216``) and ``sample`` (``:2248``).
 
-This package runs the fused engines only.  NUTS: warmup on the fused
-warmup kernel, split at the step-size re-init draw, and the posterior on
-the fused posterior kernel, in the chains-on-lanes layout up to
+NUTS runs on two engines, chosen as the JAX package chooses
+(``nuts_rs_tpu/sampler.py:167-281``).  ``posterior_kernel="sync"`` is the
+per-draw sync engine throughout (``kernels/nuts.py`` under
+``chain.make_draw_step``; any model, every tree option, every step-size
+method).  ``posterior_kernel="pallas"`` is the fused engine: warmup on the
+fused warmup kernel, split at the step-size re-init draw, and the posterior
+on the fused posterior kernel, in the chains-on-lanes layout up to
 ``cl_max_dim(maxdepth)`` dimensions (less for a model with data, whose
 bytes the rule counts) and in the dim-on-lanes layout above
-(as the JAX runners choose, ``nuts_rs_tpu/chain.py:757-784``).  MCLMC: warmup on the fused MCLMC warmup
+(as the JAX runners choose, ``nuts_rs_tpu/chain.py:757-784``); a model
+whose data only stream (``chain.fused_layout``), the good-draw window mode
+and the step-size methods other than dual averaging take the per-draw sync
+warmup before the fused posterior; a tree option the fused kernels lack
+demotes the run to the sync engine with the JAX package's ``UserWarning``.
+MCLMC runs the fused engine only: warmup on the fused MCLMC warmup
 kernel, split at the Euclidean -> microcanonical switch, and the posterior
 on the fused MCLMC posterior kernel, with or without model data, up to the
 JAX MCLMC runners' own limits (``chain.mclmc_max_dim``).  ``posterior_kernel="pallas"`` keeps
@@ -29,24 +38,30 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .adapt.schedule import AdaptScheduleOptions, build_schedule
+from .adapt.schedule import (
+    AdaptScheduleOptions,
+    build_schedule,
+    build_window_params,
+)
 from .adapt.step_size import StepSizeMethod, StepSizeSettings
 from .chain import (
     ChainConfig,
     DiagStrategy,
     cl_max_dim,
+    fused_layout,
     init_chain_state,
-    layout_refusal,
     mclmc_refusal,
     make_fused_mclmc_posterior_runner,
     make_fused_mclmc_warmup_runner,
     make_fused_posterior_runner,
     make_fused_warmup_runner,
+    make_sync_runner,
 )
 from .dynamics.hamiltonian import KineticKind
 from .kernels import _build, nuts_fused
@@ -100,9 +115,24 @@ class NutsSettings:
             store_divergences=self.store_divergences)
 
     def chain_config(self) -> ChainConfig:
+        window_params = None
+        if self.adapt.window_by_good_draws:
+            # reference-semantics warmup (adapt_strategy.rs:121-216): the
+            # per-chain window counters ride the diag strategy's estimator
+            # counts
+            if self.mass_matrix != "diag":
+                raise ValueError(
+                    "adapt.window_by_good_draws=True requires "
+                    f"mass_matrix='diag' (got {self.mass_matrix!r})")
+            if self.cross_chain_adaptation:
+                raise ValueError(
+                    "adapt.window_by_good_draws=True is incompatible with "
+                    "cross_chain_adaptation=True")
+            window_params = build_window_params(self.num_tune, self.adapt)
         return ChainConfig(nuts=self.nuts_options(),
                            step_size=self.step_size,
-                           use_grad_based_estimate=self.use_grad_based_estimate)
+                           use_grad_based_estimate=self.use_grad_based_estimate,
+                           window_params=window_params)
 
     @property
     def _posterior_kernel(self) -> str:
@@ -110,16 +140,43 @@ class NutsSettings:
             return "async"
         return self.posterior_kernel
 
+    def _pallas_disqualifiers(self) -> list:
+        """Settings that keep a ``posterior_kernel="pallas"`` request off
+        the fused engine, named so that the demotion warning can say why
+        (``nuts_rs_tpu/sampler.py:167-197``; the entries whose setting this
+        package refuses altogether are in :meth:`unsupported`)."""
+        reasons = []
+        if self.kinetic_energy is not KineticKind.EUCLIDEAN:
+            reasons.append(f"kinetic_energy={self.kinetic_energy.name}")
+        if self.mindepth != 0:
+            reasons.append(f"mindepth={self.mindepth}")
+        if self.extra_doublings != 0:
+            reasons.append(f"extra_doublings={self.extra_doublings}")
+        if self.target_integration_time is not None:
+            reasons.append("target_integration_time")
+        if not self.check_turning:
+            reasons.append("check_turning=False")
+        return reasons
+
+    def _fused(self) -> bool:
+        """Whether the run reaches the fused engine at all."""
+        return (self._posterior_kernel == "pallas"
+                and not self._pallas_disqualifiers())
+
+    def _fused_warmup(self) -> bool:
+        """Whether the settings allow the fused warmup
+        (``nuts_rs_tpu/sampler.py:252-255``)."""
+        return (self._fused() and not self.adapt.window_by_good_draws
+                and self.step_size.method is StepSizeMethod.DUAL_AVERAGE)
+
     def unsupported(self, model: Model, device=None) -> list:
-        """What this slice does not take on ``device``, each with the
+        """What this package does not take on ``device``, each with the
         ROADMAP.md item that ports it (queue 1 unless named otherwise)."""
         kind = self._posterior_kernel
         reasons = []
-        if kind == "sync":
-            reasons.append("posterior_kernel='sync' (item 3, the sync engine)")
-        elif kind == "async":
+        if kind == "async":
             reasons.append("posterior_kernel='async' (item 16)")
-        elif kind != "pallas":
+        elif kind not in ("sync", "pallas"):
             raise ValueError(f"unknown posterior_kernel {kind!r}")
         if self.mass_matrix == "low_rank":
             reasons.append("mass_matrix='low_rank' (item 14)")
@@ -127,43 +184,49 @@ class NutsSettings:
             reasons.append("mass_matrix='flow' (item 15)")
         elif self.mass_matrix != "diag":
             raise ValueError(f"unknown mass_matrix {self.mass_matrix!r}")
-        if self.kinetic_energy is not KineticKind.EUCLIDEAN:
-            # the JAX package demotes these to its sync engine
-            # (nuts_rs_tpu/sampler.py:180-181,224-241)
-            reasons.append(f"kinetic_energy={self.kinetic_energy.name} "
-                           "(item 3, the sync engine)")
-        for name, bad in (("mindepth", self.mindepth != 0),
-                          ("extra_doublings", self.extra_doublings != 0),
-                          ("target_integration_time",
-                           self.target_integration_time is not None),
-                          ("check_turning=False", not self.check_turning)):
-            if bad:
-                reasons.append(f"{name} (item 3, the sync engine)")
+        if self.kinetic_energy is KineticKind.EXACT_NORMAL:
+            reasons.append("kinetic_energy=EXACT_NORMAL (item 8)")
         if (self.store_gradient or self.store_unconstrained
                 or self.store_transformed or self.store_divergences
                 or self.store_mass_matrix):
             reasons.append("store_* extra stores (item 9)")
         if self.cross_chain_adaptation or self.mesh_axis_name is not None:
             reasons.append("cross-chain adaptation / meshes (item 17)")
-        if self.adapt.window_by_good_draws:
-            reasons.append("adapt.window_by_good_draws (item 4, the "
-                           "per-draw warmup of the sync engine)")
-        if self.step_size.method is not StepSizeMethod.DUAL_AVERAGE:
-            reasons.append(f"step_size.method={self.step_size.method.name} "
-                           "(item 4, the per-draw warmup of the sync engine)")
-        return reasons + _model_reasons(model, self.maxdepth, device,
-                                        ld=True)
+        if reasons or not self._fused():
+            return reasons
+        return _model_reasons(model, self.maxdepth, device, ld=True,
+                              warmup=self._fused_warmup())
 
     def build_phases(self, model: Model, config: ChainConfig, device=None):
-        """``[(start, end, runner)]``: fused warmup split after each
-        step-size re-init draw, so the init search runs at a launch
-        boundary (adapt_strategy.rs:207-212), then the fused posterior.
-        Raises ``NotImplementedError`` for what :meth:`unsupported` lists."""
+        """``[(start, end, runner)]``, as the JAX package plans them
+        (``nuts_rs_tpu/sampler.py:202-281``): the sync engine throughout for
+        ``posterior_kernel="sync"`` and for a ``"pallas"`` request with a
+        setting the fused kernels lack (announced by a ``UserWarning``);
+        else the fused posterior after the fused warmup, split after each
+        step-size re-init draw so that the init search runs at a launch
+        boundary (adapt_strategy.rs:207-212), or after the per-draw sync
+        warmup where the settings or the model's data rule the fused warmup
+        out.  Raises ``NotImplementedError`` for what :meth:`unsupported`
+        lists."""
         _refuse(self.unsupported(model, device))
         total = self.num_tune + self.num_draws
+        sync = make_sync_runner(model, DiagStrategy(config), config,
+                                self.seed)
+        if not self._fused():
+            if self._posterior_kernel == "pallas":
+                warnings.warn(
+                    "posterior_kernel='pallas' requested but the fused "
+                    "engine does not support: "
+                    + "; ".join(self._pallas_disqualifiers())
+                    + " — using the sync engine", UserWarning)
+            return [(0, total, sync)]
         post = make_fused_posterior_runner(model, config, self.num_tune,
-                                           self.seed)
-        warm = make_fused_warmup_runner(model, config, self.seed)
+                                           self.seed, device)
+        warm = (make_fused_warmup_runner(model, config, self.seed, device)
+                if self._fused_warmup() else None)
+        if warm is None:
+            # the warmup stays draw-synchronous
+            return [(0, self.num_tune, sync), (self.num_tune, total, post)]
         sched = build_schedule(self.num_tune, self.num_draws, self.adapt)
         phases, start = [], 0
         for r in np.nonzero(sched.reinit_step_size)[0].tolist():
@@ -193,14 +256,17 @@ def _refuse(reasons):
             "not ported yet (see ROADMAP.md): " + "; ".join(reasons))
 
 
-def _model_reasons(model: Model, maxdepth: int, device, ld: bool) -> list:
+def _model_reasons(model: Model, maxdepth: int, device, ld: bool,
+                   warmup: bool = True) -> list:
     """What the fused kernels do not take of ``model`` on ``device``.
     ``ld``: the sampler is NUTS, which has a dim-on-lanes layout for models
-    above ``cl_max_dim``; the MCLMC kernels are chains-on-lanes only, as in
-    the JAX package (``mclmc_pallas.py:62``), with limits of their own
-    (``chain.mclmc_refusal``).  The port has no model whose data only
-    stream; the JAX MCLMC runners refuse such a model
-    (``nuts_rs_tpu/chain.py:1228-1230``) for its sync engine, item 8."""
+    above ``cl_max_dim`` and a streamed posterior kernel for data beyond the
+    resident rule (``warmup``: the settings ask for the fused warmup too);
+    the MCLMC kernels are chains-on-lanes only, as in the JAX package
+    (``mclmc_pallas.py:62``), with limits of their own
+    (``chain.mclmc_refusal``), and the JAX MCLMC runners refuse a model
+    whose data only stream (``nuts_rs_tpu/chain.py:1228-1230``) for its sync
+    engine, item 8."""
     reasons = []
     on_cuda = device is not None and torch.device(device).type == "cuda"
     if model.kernel_hook is None:
@@ -209,54 +275,37 @@ def _model_reasons(model: Model, maxdepth: int, device, ld: bool) -> list:
         reason = mclmc_refusal(model)
         if reason is not None:
             return [reason]
-        if not on_cuda:
+        if not on_cuda or nuts_fused.cl_kernel(model, model.dim) == "thread":
             return reasons
-        if nuts_fused.cl_kernel(model, model.dim) == "thread":
-            if model.dim not in _build.DIMS:
-                reasons.append(
-                    f"dim {model.dim} on CUDA: the thread-per-chain MCLMC "
-                    f"kernels are instantiated for d in {_build.DIMS} (item "
-                    "12, more kernel sizes)")
-        else:
-            need = _build.mclmc_mid_smem_bytes(model.dim, model)
-            if need > _build.SMEM_OPT_IN_BYTES:
-                reasons.append(
-                    f"model {model.name!r} on CUDA: the mid-d MCLMC kernels "
-                    f"keep {need} bytes per chain in one block's shared "
-                    f"memory of {_build.SMEM_OPT_IN_BYTES}; data of that "
-                    "size must stream (item 12)")
+        need = _build.mclmc_mid_smem_bytes(model.dim, model)
+        if need > _build.SMEM_OPT_IN_BYTES:
+            reasons.append(
+                f"model {model.name!r} on CUDA: the mid-d MCLMC kernels "
+                f"keep {need} bytes per chain in one block's shared "
+                f"memory of {_build.SMEM_OPT_IN_BYTES}; data of that "
+                "size must stream (item 8: the JAX MCLMC runners stream "
+                "no data)")
         return reasons
-    for warmup in (True, False):
-        reason = layout_refusal(model, maxdepth, warmup)
-        if reason is not None:
-            return [reason]
+    config = ChainConfig(nuts=NutsOptions(maxdepth=maxdepth),
+                         step_size=StepSizeSettings())
+    layouts = []
+    for w in ((True, False) if warmup else (False,)):
+        try:
+            layouts.append(fused_layout(model, config, w, device))
+        except NotImplementedError as e:
+            return [str(e).removeprefix("not ported yet (see ROADMAP.md): ")]
     if not on_cuda:
         return reasons
     if maxdepth > _build.LD_MAX_MAXDEPTH:
         reasons.append(f"maxdepth {maxdepth} on CUDA: the kernels that take "
                        "maxdepth at launch take at most "
                        f"{_build.LD_MAX_MAXDEPTH} (item 12)")
-    elif model.dim > cl_max_dim(maxdepth, False, model.data_bytes):
-        if model.dim > _build.ld_max_dim(maxdepth):
-            reasons.append(
-                f"(dim, maxdepth) = {(model.dim, maxdepth)} on CUDA: the "
-                "dim-on-lanes kernels keep a chain's state in one block's "
-                f"shared memory, dim <= {_build.ld_max_dim(maxdepth)} "
-                f"(maxdepth <= {_build.LD_MAX_MAXDEPTH}) (item 12, larger d)")
-    elif nuts_fused.cl_kernel(model, model.dim) == "thread":
-        if (model.dim, maxdepth) not in _build.SIZES:
-            reasons.append(f"(dim, maxdepth) = {(model.dim, maxdepth)} "
-                           "on CUDA: the thread-per-chain chains-on-lanes "
-                           f"kernels are instantiated for {_build.SIZES} "
-                           "(item 12, more kernel sizes)")
-    else:
-        need = _build.mid_smem_bytes("posterior", model.dim, maxdepth, model)
-        if need > _build.SMEM_OPT_IN_BYTES:
-            reasons.append(
-                f"model {model.name!r} on CUDA: the mid-d kernels keep "
-                f"{need} bytes per chain in one block's shared memory of "
-                f"{_build.SMEM_OPT_IN_BYTES}; data of that size must stream "
-                "(kernel K1-stream, item 12)")
+    elif "ld" in layouts and model.dim > _build.ld_max_dim(maxdepth):
+        reasons.append(
+            f"(dim, maxdepth) = {(model.dim, maxdepth)} on CUDA: the "
+            "dim-on-lanes kernels keep a chain's state in one block's "
+            f"shared memory, dim <= {_build.ld_max_dim(maxdepth)} "
+            f"(maxdepth <= {_build.LD_MAX_MAXDEPTH}) (item 12, larger d)")
     return reasons
 
 

@@ -45,6 +45,18 @@ After building the kernels it prints, for each path,
    chains) beside it: what a trajectory's iteration costs beside the
    evaluation.
 
+8. for the streamed-data path (``--only-stream``: NUTS on the regression
+   with 131072 rows, 256 chains, 300 tuning and 400 posterior draws; the
+   per-draw sync engine, then K1-stream), one run with its phases: Sampler
+   construction, the seconds of every warmup chunk with the tree iterations
+   the chains took in lock step, the posterior chunks split as in 1; then
+   what a tree iteration of the sync engine costs beside the model's batched
+   evaluation alone and its two products by ``torch.matmul``; then K1-stream
+   per 128-draw launch on the path's own post-warmup states: on all chains
+   with 1, 2, 4 and 8 chains sharing a pass over the data (the logical chain
+   block, a cluster), and on the first 8 ... 256 chains at 8 and at 1, in
+   milliseconds per block iteration and bytes read per second.
+
 The card's name and power limit come first.  Every number is this run's.
 """
 
@@ -57,12 +69,15 @@ import time
 import numpy as np
 import torch
 
+# the streamed-data path at the JAX benchmark's draws (chip_smoke.py cuts them)
+from chip_smoke import BIG_FULL_DRAWS as BIG_DRAWS
+from chip_smoke import BIG_FULL_TUNE as BIG_TUNE
 from chip_smoke import (
-    CHAINS, CHUNK, DIM, DRAWS, GLM_CHAINS, GLM_DIM, GLM_DRAWS, GLM_ROWS,
-    GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS, LD_STEP, LD_TUNE, MGLM_REFERENCE,
-    MID_DIM, MU, SEED, TUNE, card_line, cuda_events_ms, glm_posterior_inputs,
-    glm_reference, mclmc_posterior_args, mclmc_settings, mclmc_warmup_setup,
-    posterior_inputs, warmup_setup)
+    BIG_CHAINS, BIG_ROWS, CHAINS, CHUNK, DIM, DRAWS, GLM_CHAINS, GLM_DIM,
+    GLM_DRAWS, GLM_ROWS, GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS, LD_STEP,
+    LD_TUNE, MGLM_REFERENCE, MID_DIM, MU, SEED, TUNE, card_line,
+    cuda_events_ms, glm_posterior_inputs, glm_reference, mclmc_posterior_args,
+    mclmc_settings, mclmc_warmup_setup, posterior_inputs, warmup_setup)
 
 BLOCKS = (8, 16, 32, 64, 128)
 LD_BLOCKS = (1, 2, 4, 8)
@@ -390,6 +405,128 @@ def mclmc_iteration_cost(glm, glm_settings, device):
           "over a chain's iterations: the waves of chain blocks are in it)")
 
 
+def stream_path(device):
+    """Item 8: the streamed-data path's phases, the sync engine's tree
+    iteration and K1-stream on the path's own post-warmup states."""
+    from nuts_rs_tpu_torch import DiagNutsSettings, Sampler
+    from nuts_rs_tpu_torch.adapt import step_size as ss
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+    from nuts_rs_tpu_torch.kernels.nuts import nuts_draw
+    from nuts_rs_tpu_torch.models.gaussian import logistic_regression
+
+    def sync():
+        torch.cuda.synchronize(device)
+
+    print("== stream path")
+    t0 = time.perf_counter()
+    big = logistic_regression(BIG_ROWS, GLM_DIM, SEED).to(device)
+    sync()
+    print(f"model: {big.data_bytes / 1e6:.1f} MB of data made and copied in "
+          f"{time.perf_counter() - t0:.3f} s")
+    settings = DiagNutsSettings(num_chains=BIG_CHAINS, num_tune=BIG_TUNE,
+                                num_draws=BIG_DRAWS, seed=SEED,
+                                posterior_kernel="pallas")
+    t0 = time.perf_counter()
+    sampler = Sampler(big, settings, device=device)
+    sync()
+    print(f"Sampler construction (init points, init search): "
+          f"{time.perf_counter() - t0:.3f} s")
+    tuned = None
+    while not sampler.finished:
+        if sampler._next_draw == settings.num_tune:
+            tuned = sampler.state
+        t = time.perf_counter()
+        lo, stats, _ = sampler.run_next_chunk()
+        sync()
+        sec = time.perf_counter() - t
+        steps = stats["n_steps"]
+        if lo < settings.num_tune:
+            # the chains of a draw wait for its deepest tree
+            its = int(steps.max(0).sum())
+            print(f"  warmup chunk {lo}-{lo + steps.shape[1]}: {sec:.3f} s, "
+                  f"{its} tree iterations in lock step "
+                  f"({1e3 * sec / its:.3f} ms each), deepest tree "
+                  f"{int(stats['depth'].max())}, leapfrogs a draw and chain "
+                  f"{float(steps.mean()):.2f}")
+        else:
+            print(f"  posterior chunk {lo}-{lo + steps.shape[1]}: "
+                  f"{sec:.3f} s, leapfrogs a draw and chain "
+                  f"{float(steps.mean()):.2f}")
+    state, config = tuned, sampler.config
+    step = state.step.step_size
+    bars = ss.step_size_bar(state.step, config.step_size)
+    print(f"own states after {settings.num_tune} tuning draws: step size "
+          f"min {float(step.min()):.4f} median {float(step.median()):.4f} "
+          f"max {float(step.max()):.4f}")
+
+    # one tree iteration of the sync engine beside the evaluation alone
+    q = state.pt.q
+    xt = big.hook_parts()[2][0]
+    big.logp_and_grad(q)
+    eval_ms = cuda_events_ms(lambda: big.logp_and_grad(q), 10)
+    mm_ms = cuda_events_ms(
+        lambda: torch.matmul(torch.matmul(q, xt), xt.T), 10)
+    t = time.perf_counter()
+    _, info = nuts_draw(12345, state.pt, state.transform, step,
+                        big.logp_and_grad, config.nuts)
+    sync()
+    sec = time.perf_counter() - t
+    its = int(info.n_steps.max())
+    print(f"sync engine at the tuned state: one draw {sec:.3f} s for {its} "
+          f"tree iterations ({1e3 * sec / its:.3f} ms each); the model's "
+          f"batched evaluation alone {eval_ms:.3f} ms, its two products by "
+          f"torch.matmul {mm_ms:.3f} ms")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        nuts_draw(12345, state.pt, state.transform, step, big.logp_and_grad,
+                  config.nuts)
+        sync()
+        wall_s = time.perf_counter() - t
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in dev) * 1e-6
+    print(f"the same draw under torch.profiler: wall {wall_s:.3f} s, device "
+          f"busy {busy_s:.3f} s ({100 * busy_s / wall_s:.1f}%) in {len(dev)} "
+          f"kernels and copies ({len(dev) / its:.0f} a tree iteration)")
+    per_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in dev:
+        entry = per_name[e.name[:60]]
+        entry[0] += 1
+        entry[1] += e.time_range.elapsed_us() * 1e-6
+    for name, (n, sec_) in sorted(per_name.items(),
+                                  key=lambda kv: -kv[1][1])[:6]:
+        print(f"  device {sec_ * 1e3:.3f} ms in {n} launches: {name}")
+
+    t_ = state.transform
+    args = (state.pt.q, state.pt.g, state.pt.logp, t_.stds, t_.mean,
+            t_.logdet, step, bars)
+
+    def post(n, block):
+        a = tuple(x[:n].contiguous() for x in args)
+        return nf.nuts_fused_run(3, *a, CHUNK, big, config.nuts, 0.1, block,
+                                 stream=True)[4]
+
+    sweep = [(BIG_CHAINS, b) for b in (1, 2, 4, 8)]
+    sweep += [(n, b) for n in (8, 64, 128) for b in (8, 1)]
+    for n, block in sweep:
+        out = post(n, block)
+        ms = cuda_events_ms(lambda: post(n, block), 1)
+        iters = out["loop_iterations"].float()
+        evals = float(out["n_steps"].sum())
+        # a cluster's pass over the data serves its `block` chains
+        passes = 2 * float(iters.sum()) / block
+        print(f"own states, first {n} chains, {block} a block: K1-stream "
+              f"{ms:.2f} ms per {CHUNK}-draw launch, block iterations mean "
+              f"{float(iters.mean()):.1f} max {int(iters.max())}, "
+              f"{ms / float(iters.max()):.3f} ms per block iteration, "
+              f"{evals} evaluations, "
+              f"{passes * big.data_bytes / ms / 1e9:.3f} TB/s read by the "
+              "two products")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
@@ -402,6 +539,8 @@ def main() -> int:
                         help="the data path alone, items 1-3 and 6")
     parser.add_argument("--only-mclmc-data", action="store_true",
                         help="the MCLMC data path alone, items 1-3 and 7")
+    parser.add_argument("--only-stream", action="store_true",
+                        help="the streamed-data path alone, item 8")
     args = parser.parse_args()
     only = ("large-d" if args.only_large_d else "data" if args.only_data
             else "mclmc-data" if args.only_mclmc_data else None)
@@ -417,7 +556,12 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card_line())
-    _build.library()
+    if args.only_stream:
+        _build.build(["nuts_fused_stream_posterior"])
+        stream_path(device)
+        print(card_line())
+        return 0
+    _build.build()
     model = normal_logp(DIM, MU)
     nuts = DiagNutsSettings(num_chains=CHAINS, num_tune=TUNE,
                             num_draws=DRAWS, seed=SEED,
@@ -462,6 +606,8 @@ def main() -> int:
         evaluation_cost(glm, data, device)
     if only in (None, "mclmc-data"):
         mclmc_iteration_cost(glm, mdata, device)
+    if only is None:
+        stream_path(device)
     print(card_line())
     return 0
 

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Reference posterior moments of ``logistic_regression(1000, 100, seed=0)``
+"""Reference posterior moments of ``logistic_regression(rows, 100, seed=0)``
 from the JAX package's sync engines on the CPU: NUTS (the default) or, with
 ``--sampler mclmc``, unadjusted MCLMC under ``DiagMclmcSettings``, whose
-posterior carries its own small bias and so has a file of its own.
+posterior carries its own small bias and so has a file of its own.  ``--rows``
+sets the rows of data (default 1000); 131072 is the streamed-data model,
+whose file is ``logreg_big_reference.json``.
 
     python3 tests/data/make_logreg_d100_reference.py \
         --chains 128 --tune 300 --draws 500 --out tests/data/logreg_d100_reference.json
     python3 tests/data/make_logreg_d100_reference.py --sampler mclmc \
         --chains 128 --tune 300 --draws 500 --out tests/data/mclmc_logreg_d100_reference.json
+    python3 tests/data/make_logreg_d100_reference.py --rows 131072 \
+        --chains 32 --tune 300 --draws 300 --out tests/data/logreg_big_reference.json
 
 Writes, as text, the per-coordinate posterior mean and standard deviation
 (float64 moments over all chains and draws) with the settings and the run's
@@ -41,13 +45,16 @@ def main() -> int:
     ap.add_argument("--tune", type=int, default=300)
     ap.add_argument("--draws", type=int, default=500)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rows", type=int, default=1000)
     ap.add_argument("--sampler", choices=("nuts", "mclmc"), default="nuts")
     ap.add_argument("--out", default=None)
     a = ap.parse_args()
     mclmc = a.sampler == "mclmc"
+    stem = "logreg_d100" if a.rows == 1000 else (
+        "logreg_big" if a.rows == 131072 else f"logreg_n{a.rows}")
     out_path = a.out or str(Path(__file__).with_name(
-        ("mclmc_" if mclmc else "") + "logreg_d100_reference.json"))
-    model = logistic_regression(n_data=1000, dim=100, seed=0)
+        ("mclmc_" if mclmc else "") + stem + "_reference.json"))
+    model = logistic_regression(n_data=a.rows, dim=100, seed=0)
     make = nt.DiagMclmcSettings if mclmc else nt.DiagNutsSettings
     settings = make(num_chains=a.chains, num_tune=a.tune, num_draws=a.draws,
                     seed=a.seed, posterior_kernel="sync")
@@ -77,10 +84,11 @@ def main() -> int:
                 np.asarray(st["step_size_bar"])[:, -1])),
         }
     out = {
-        "model": "logistic_regression(n_data=1000, dim=100, seed=0)",
+        "model": f"logistic_regression(n_data={a.rows}, dim=100, seed=0)",
         "engine": engine,
         "command": "python3 tests/data/make_logreg_d100_reference.py "
                    + ("--sampler mclmc " if mclmc else "")
+                   + (f"--rows {a.rows} " if a.rows != 1000 else "")
                    + f"--chains {a.chains} --tune {a.tune} --draws {a.draws} "
                    f"--seed {a.seed}",
         "chains": a.chains, "tune": a.tune, "draws": a.draws, "seed": a.seed,

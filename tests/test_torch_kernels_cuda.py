@@ -1,7 +1,8 @@
 """The fused CUDA kernels (NUTS K1/K2, their dim-on-lanes forms K1-ld /
-K2-ld and their mid-d forms with model data K1-args / K2-args, MCLMC K3/K4
-and their mid-d forms with model data K3-args / K4-args) against their plain
-PyTorch versions, on the card.
+K2-ld, their mid-d forms with model data K1-args / K2-args and the streamed
+posterior K1-stream, MCLMC K3/K4 and their mid-d forms with model data
+K3-args / K4-args) against their plain PyTorch versions, on the card; the
+sync NUTS engine on the card against the CPU.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -431,3 +432,129 @@ def test_normal_100_runs_mclmc_end_to_end_on_the_card():
         before["mclmc_fused_mid_warmup"]
     assert mf.LAUNCHES["mclmc_fused_posterior"] == \
         before["mclmc_fused_posterior"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,dim,tile,block,maxdepth", [
+    (36, 4, 8, None, 6), (1001, 11, 64, 4, 6), (5000, 37, 512, 8, 8),
+    (300, 5, 512, None, 5)])
+def test_stream_kernel_matches_plain_version_on_the_card(rows, dim, tile,
+                                                         block, maxdepth):
+    """K1-stream at other sizes than the main path's: several tiles with a
+    ragged last one (1001 rows in tiles of 64, 36 in tiles of 8), tiles
+    smaller and larger than the 256 threads, one tile larger than the data,
+    C = 16 chains alone or in logical blocks."""
+    import dataclasses
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    dev = torch.device("cuda", 0)
+    C = 16
+    # (Model.to rebuilds the model with its own tile, so the tile goes last)
+    model = dataclasses.replace(tg.logistic_regression(rows, dim, 3).to(dev),
+                                stream_tile_rows=tile)
+    opts = NutsOptions(maxdepth=maxdepth)
+    rng = np.random.default_rng(rows)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    q = f(0.2 * rng.normal(size=(C, dim)))
+    logp, g = model.logp_and_grad(q)
+    stds = f(rng.uniform(0.05, 0.15, size=(C, dim)))
+    mean = f(0.02 * rng.normal(size=(C, dim)))
+    logdet = -torch.log(stds).sum(1)
+    step = torch.full((C,), 0.4, device=dev)
+    args = (q, g, logp, stds, mean, logdet, step, step.clone())
+    before = dict(nf.LAUNCHES)
+    got = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=block,
+                            stream=True)
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_run_reference(3, *args, 8, model, opts, 0.1,
+                                       block=block, stream=True)
+    assert nf.LAUNCHES["nuts_fused_stream_posterior"] \
+        == before["nuts_fused_stream_posterior"] + 1
+    for name in INT_STATS:
+        np.testing.assert_array_equal(got[4][name].cpu().numpy(),
+                                      want[4][name].cpu().numpy(), name)
+    assert got[3].shape == (C, 8, dim)
+    for i in range(4):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+    for name in nf.STAT_NAMES:
+        _close(got[4][name].cpu(), want[4][name].cpu(), name, 1e-5, 1e-5)
+    # one tile that holds all rows: the resident kernel's bits, whatever
+    # the logical block (one range holds the tile, the others nothing)
+    if tile >= rows:
+        for B in (1, 4):
+            one = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=B,
+                                    stream=True)
+            dense = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=B)
+            for i in range(4):
+                np.testing.assert_array_equal(one[i].cpu().numpy(),
+                                              dense[i].cpu().numpy())
+    bad = list(args)
+    bad[0] = q.T.contiguous().T
+    with pytest.raises(ValueError, match="contiguous"):
+        nf.nuts_fused_run(3, *bad, 8, model, opts, 0.1, stream=True)
+
+
+@pytest.mark.cuda
+def test_sync_engine_on_the_card_matches_the_cpu():
+    """The sync NUTS engine draws from the counter hash, so the same seed
+    gives the same trees on the card as on the CPU: integer stats equal,
+    positions to float32 rounding."""
+    from nuts_rs_tpu_torch.dynamics.hamiltonian import init_point_from_q
+    from nuts_rs_tpu_torch.kernels.nuts import nuts_draw
+    from nuts_rs_tpu_torch.transform.affine import identity_transform
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    model, C, dim = tg.normal_logp(6, 0.5), 16, 6
+    opts = NutsOptions(maxdepth=8)
+    q0 = torch.tensor(np.random.default_rng(4).normal(size=(C, dim)),
+                      dtype=torch.float32)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        t = identity_transform(C, dim, torch.float32, dev)
+        pt = init_point_from_q(q0.to(dev), t, model.logp_and_grad)
+        step = torch.full((C,), 0.45, device=dev)
+        out = []
+        for draw in range(4):
+            pt, info = nuts_draw(100 + draw, pt, t, step,
+                                 model.logp_and_grad, opts)
+            out.append((pt.q.cpu().numpy(), info))
+        results[dev] = out
+    for (q_c, i_c), (q_g, i_g) in zip(results["cpu"], results["cuda"]):
+        for name in ("depth", "n_steps", "idx_in_trajectory", "diverging",
+                     "turning", "reached_maxdepth"):
+            np.testing.assert_array_equal(getattr(i_c, name).numpy(),
+                                          getattr(i_g, name).cpu().numpy(),
+                                          name)
+        _close(q_g, q_c, "position", 1e-4, 1e-5)
+        _close(i_g.sum_accept.cpu(), i_c.sum_accept, "sum_accept", 1e-4,
+               1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [5, 10])
+def test_small_sizes_without_an_instance_run_on_the_card(dim):
+    """d = 5, and d = 10 at maxdepth 8, have no thread-per-chain instance and
+    used to raise on CUDA; the mid-d kernels serve them, NUTS and MCLMC."""
+    import nuts_rs_tpu_torch as nt
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    model = tg.normal_logp(dim, 3.0)
+    kw = dict(num_chains=64, num_tune=150, num_draws=150,
+              posterior_kernel="pallas")
+    before = dict(nf.LAUNCHES)
+    trace = nt.sample(model, nt.DiagNutsSettings(maxdepth=8, **kw),
+                      device="cuda")
+    assert nf.LAUNCHES["nuts_fused_mid_posterior"] \
+        > before["nuts_fused_mid_posterior"]
+    assert nf.LAUNCHES["nuts_fused_posterior"] \
+        == before["nuts_fused_posterior"]
+    pos = trace.posterior["position"]
+    assert abs(pos.mean() - 3.0) < 0.05 and abs(pos.std() - 1.0) < 0.08
+    assert not trace.sample_stats["diverging"].any()
+    if dim == 5:
+        trace = nt.sample(model, nt.DiagMclmcSettings(**kw), device="cuda")
+        pos = trace.posterior["position"]
+        assert abs(pos.mean() - 3.0) < 0.05 and abs(pos.std() - 1.0) < 0.08

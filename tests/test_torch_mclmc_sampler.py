@@ -215,11 +215,10 @@ def _no_hook(dim):
     (dict(cross_chain_adaptation=True), "item 17"),
     (dict(mesh_axis_name="chains"), "item 17"),
     ("no_hook", "item 10"),
-    ("cuda_dim", "item 12"),
     ("above_warmup_limit", "warmup launch's limit of 361.*item 8"),
     ("above_posterior_limit", "posterior launch's limit of 484.*item 8"),
     ("data_fail_the_rule", "bytes of data.*item 8"),
-    ("cuda_smem", "shared.*item 12"),
+    ("cuda_smem", "shared.*item 8"),
 ])
 def test_unsupported_settings_raise(change, item):
     model, device = tg.normal_logp(3), "cpu"
@@ -227,9 +226,6 @@ def test_unsupported_settings_raise(change, item):
               num_draws=5)
     if change == "no_hook":
         model = _no_hook(3)
-    elif change == "cuda_dim":
-        # no kernel instantiation for d=5: refused before anything launches
-        model, device = tg.normal_logp(5), "cuda"
     elif change == "above_warmup_limit":
         # the JAX package runs its sync warmup and the fused posterior
         model = tg.normal_logp(362)
@@ -247,6 +243,23 @@ def test_unsupported_settings_raise(change, item):
         kw.update(change)
     with pytest.raises(NotImplementedError, match=item):
         tnt.Sampler(model, tnt.DiagMclmcSettings(**kw), device=device)
+
+
+def test_small_sizes_without_an_instance_take_the_mid_kernels():
+    """d = 5 has no thread-per-chain MCLMC instance; it used to raise on
+    CUDA and is served by the mid-d kernels now (MCLMC keeps d >= 2)."""
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    settings = tnt.DiagMclmcSettings(posterior_kernel="pallas", num_chains=4,
+                                     num_tune=5, num_draws=5)
+    for dim in (2, 5, 7, 9):
+        model = tg.normal_logp(dim)
+        assert settings.unsupported(model, "cuda") == []
+        assert nf.cl_kernel(model, dim) == "mid"
+    for dim in (3, 4, 6, 10):
+        assert nf.cl_kernel(tg.normal_logp(dim), dim) == "thread"
+    trace = tnt.sample(tg.normal_logp(5), settings, device="cpu")
+    assert trace.posterior["position"].shape == (4, 5, 5)
 
 
 def test_microcanonical_needs_two_dimensions():

@@ -440,9 +440,9 @@ def _jax_launch(monkeypatch, n_data, warmup):
 def test_cl_limit_counts_the_data_as_the_jax_runners(monkeypatch, warmup,
                                                      offset):
     """With data the chains-on-lanes limit falls as the JAX rule's
-    ``args_bytes`` grow.  One row beyond it the JAX warmup runner leaves for
-    the dim-on-lanes layout and the JAX posterior runner streams the data;
-    the port refuses both, naming what is left to port."""
+    ``args_bytes`` grow.  One row beyond it the JAX posterior runner streams
+    the data, and so does the port's; the JAX warmup runner leaves for the
+    dim-on-lanes layout with data, which the port has not (it says so)."""
     n = _largest_n(warmup) + offset
     config = tnt.DiagNutsSettings(posterior_kernel="pallas").chain_config()
     model = tg.logistic_regression(n, LIMIT_DIM, 0)
@@ -451,12 +451,14 @@ def test_cl_limit_counts_the_data_as_the_jax_runners(monkeypatch, warmup,
     if offset == 0:
         assert (layout, streamed, n_args) == ("cl", False, 2)
         assert tchain.fused_layout(model, config, warmup) == "cl"
-    else:
-        assert (layout, streamed) == (("ld", False) if warmup
-                                      else ("cl", True))
+    elif warmup:
+        assert (layout, streamed) == ("ld", False)
         with pytest.raises(NotImplementedError,
-                           match="K1-stream, item 12"):
+                           match="dim-on-lanes kernels read no model data"):
             tchain.fused_layout(model, config, warmup)
+    else:
+        assert (layout, streamed, n_args) == ("cl", True, 0)
+        assert tchain.fused_layout(model, config, warmup) == "stream"
     # without data the limits stay the JAX package's
     assert tchain.cl_max_dim(10) == 212
     assert tchain.cl_max_dim(10, warmup=True) == 178
@@ -504,14 +506,37 @@ def test_mid_sizes_are_served_on_cuda():
                   tg.logistic_regression(64, 4, 0)):
         assert settings.unsupported(model, "cuda") == [], model.name
         assert settings.unsupported(model, "cpu") == [], model.name
-    assert any("item 12" in r for r in settings.unsupported(
-        tg.normal_logp(5), "cuda"))
+    # d = 5 and maxdepth 8 have no thread-per-chain instance: the mid-d
+    # kernels serve them
+    assert settings.unsupported(tg.normal_logp(5), "cuda") == []
+    assert dataclasses.replace(settings, maxdepth=8).unsupported(
+        tg.normal_logp(10), "cuda") == []
+
+
+def test_data_beyond_shared_memory_stream_on_cuda():
+    """Data that fit the JAX rule but not one block's shared memory on the
+    card used to raise there; the posterior streams them (K1-stream) after
+    the sync warmup, and the CPU keeps the resident plain versions."""
+    settings = tnt.DiagNutsSettings(posterior_kernel="pallas", num_chains=4,
+                                    num_tune=5, num_draws=5)
+    config = settings.chain_config()
+    model = tg.logistic_regression_from_tensors(
+        torch.zeros(11, 60000), torch.zeros(60000))
+    assert settings.unsupported(model, "cpu") == []
+    assert settings.unsupported(model, "cuda") == []
+    for warmup in (True, False):
+        assert tchain.fused_layout(model, config, warmup) == "cl"
+        assert tchain.fused_layout(model, config, warmup, "cpu") == "cl"
+    assert tchain.fused_layout(model, config, False, "cuda") == "stream"
+    assert tchain.fused_layout(model, config, True, "cuda") is None
+    assert _build.stream_smem_bytes(11, 10, 8) \
+        < _build.SMEM_OPT_IN_BYTES < _build.mid_smem_bytes(
+            "posterior", 11, 10, model)
 
 
 @pytest.mark.parametrize("case,match", [
     ("mclmc_data", "bytes of data.*item 8"),
     ("mclmc_cuda_dim", "warmup launch's limit of 361.*item 8"),
-    ("cuda_smem", "K1-stream, item 12"),
 ])
 def test_refusals_name_their_items(case, match):
     """MCLMC with data that fail the JAX MCLMC runners' rule or at a d above
@@ -528,14 +553,8 @@ def test_refusals_name_their_items(case, match):
         model, settings = (tg.logistic_regression_from_tensors(
             torch.zeros(32, 131072), torch.zeros(131072)),
             tnt.DiagMclmcSettings(**kw))
-    elif case == "mclmc_cuda_dim":
+    else:
         model, settings, device = (tg.normal_logp(362),
                                    tnt.DiagMclmcSettings(**kw), "cuda")
-    else:
-        # fits the JAX rule, but not one block's shared memory on the card
-        model = tg.logistic_regression_from_tensors(
-            torch.zeros(11, 60000), torch.zeros(60000))
-        device = "cuda"
-        assert settings.unsupported(model, "cpu") == []
     with pytest.raises(NotImplementedError, match=match):
         tnt.Sampler(model, settings, device=device)

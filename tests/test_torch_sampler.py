@@ -16,6 +16,7 @@ import nuts_rs_tpu as jnt
 import nuts_rs_tpu_torch as tnt
 from nuts_rs_tpu.models import gaussian as jg
 from nuts_rs_tpu.sampler import _strategy_for
+from nuts_rs_tpu_torch import chain as tchain
 from nuts_rs_tpu_torch.adapt.schedule import build_schedule
 from nuts_rs_tpu_torch.dynamics.hamiltonian import KineticKind
 from nuts_rs_tpu_torch.kernels import _build
@@ -167,27 +168,20 @@ def _no_hook(dim):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(posterior_kernel="sync"), "item 3"),
     (dict(posterior_kernel="async"), "item 16"),
     (dict(posterior_kernel="sync", async_posterior=True), "item 16"),
     (dict(mass_matrix="low_rank"), "item 14"),
     (dict(mass_matrix="flow"), "item 15"),
-    (dict(kinetic_energy=KineticKind.MICROCANONICAL), "item 3"),
-    (dict(mindepth=1), "item 3"),
-    (dict(extra_doublings=1), "item 3"),
-    (dict(check_turning=False), "item 3"),
+    (dict(kinetic_energy=KineticKind.EXACT_NORMAL), "item 8"),
+    (dict(kinetic_energy=KineticKind.EXACT_NORMAL,
+          posterior_kernel="sync"), "item 8"),
     (dict(store_gradient=True), "item 9"),
     (dict(cross_chain_adaptation=True), "item 17"),
-    (dict(step_size=tnt.StepSizeSettings(
-        method=tnt.StepSizeMethod.ADAM)), "item 4"),
-    (dict(adapt=tnt.AdaptScheduleOptions(window_by_good_draws=True)),
-     "item 4"),
     ("no_hook", "item 10"),
-    ("cuda_dim", "item 12"),
     ("cuda_maxdepth", "item 12"),
     ("cuda_ld_dim", "item 12"),
-    ("data_stream", "K1-stream, item 12"),
     ("data_above_cl", "item 12"),
+    ("data_warmup_ld", "dim-on-lanes kernels read no model data"),
 ])
 def test_unsupported_settings_raise(change, item):
     model = tg.normal_logp(3)
@@ -199,35 +193,102 @@ def test_unsupported_settings_raise(change, item):
     elif change == "cuda_ld_dim":
         # a chain's state must fit one block's shared memory
         model, device = tg.normal_logp(_build.ld_max_dim(10) + 1), "cuda"
-    elif change == "cuda_dim":
-        # no kernel instantiation for d=5: refused before anything launches
-        model, device = tg.normal_logp(5), "cuda"
     elif change == "cuda_maxdepth":
-        kw.update(maxdepth=8)
+        # the kernels that take maxdepth at launch take at most 30
+        kw.update(maxdepth=_build.LD_MAX_MAXDEPTH + 1)
         device = "cuda"
-    elif change == "data_stream":
-        # the JAX benchmark's logreg_big rows (bench.py:365-370) at a dim the
-        # layout takes: the data alone fail the rule, and would stream
-        model = tg.logistic_regression_from_tensors(
-            torch.zeros(32, 131072), torch.zeros(131072))
     elif change == "data_above_cl":
         # the dim-on-lanes kernels read no model data
         model = tg.logistic_regression(16, cl_max_dim(10) + 1, 0)
+    elif change == "data_warmup_ld":
+        # 6 MB of data fit the posterior launch but not the warmup's, and
+        # the JAX warmup differentiates pallas_spec in its dim-on-lanes
+        # layout there
+        model = tg.logistic_regression_from_tensors(
+            torch.zeros(100, 15000), torch.zeros(15000))
     else:
         kw.update(change)
     with pytest.raises(NotImplementedError, match=item):
         tnt.Sampler(model, tnt.DiagNutsSettings(**kw), device=device)
 
 
+@pytest.mark.parametrize("change,demoted", [
+    (dict(posterior_kernel="sync"), False),
+    (dict(kinetic_energy=KineticKind.MICROCANONICAL), True),
+    (dict(mindepth=1), True),
+    (dict(extra_doublings=1), True),
+    (dict(check_turning=False, maxdepth=3), True),
+    (dict(target_integration_time=1.0), True),
+    (dict(step_size=tnt.StepSizeSettings(
+        method=tnt.StepSizeMethod.ADAM)), False),
+    (dict(step_size=tnt.StepSizeSettings(
+        method=tnt.StepSizeMethod.FIXED, fixed_value=0.3)), False),
+    (dict(adapt=tnt.AdaptScheduleOptions(window_by_good_draws=True)), False),
+    ("no_hook_sync", False),
+    ("cuda_dim", False),
+    ("data_stream", False),
+])
+def test_settings_that_used_to_raise_now_run(change, demoted):
+    """What the sync engine (kernels/nuts.py), the streamed posterior kernel
+    and the mid-d kernels at small sizes took over: each used to be a case
+    of ``test_unsupported_settings_raise``."""
+    model = tg.normal_logp(3)
+    kw = dict(posterior_kernel="pallas", num_chains=4, num_tune=6,
+              num_draws=4)
+    if change == "cuda_dim":
+        # d=5 has no thread-per-chain instance: the mid-d kernels serve it
+        model = tg.normal_logp(5)
+        settings = tnt.DiagNutsSettings(**kw)
+        assert settings.unsupported(model, "cuda") == []
+        assert nf.cl_kernel(model, 5, 10) == "mid"
+        assert nf.cl_kernel(tg.normal_logp(3), 3, 8) == "mid"
+        assert nf.cl_kernel(tg.normal_logp(3), 3, 10) == "thread"
+        return
+    if change == "data_stream":
+        # the JAX benchmark's logreg_big rows (bench.py:365-370): the data
+        # alone fail the resident rule, stream in the posterior, and leave
+        # the warmup to the sync engine
+        model = tg.logistic_regression_from_tensors(
+            torch.zeros(32, 131072), torch.zeros(131072))
+        settings = tnt.DiagNutsSettings(**kw)
+        assert settings.unsupported(model, "cuda") == []
+        config = settings.chain_config()
+        assert tchain.fused_layout(model, config, False) == "stream"
+        assert tchain.fused_layout(model, config, True) is None
+        return
+    if change == "no_hook_sync":
+        model = _no_hook(3)
+        kw.update(posterior_kernel="sync")
+    else:
+        kw.update(change)
+    settings = tnt.DiagNutsSettings(**kw)
+    assert settings.unsupported(model, "cpu") == []
+    assert settings.unsupported(model, "cuda") == []
+    if demoted:
+        with pytest.warns(UserWarning, match="using the sync engine"):
+            trace = tnt.sample(model, settings, device="cpu")
+    else:
+        trace = tnt.sample(model, settings, device="cpu")
+    pos = trace.posterior["position"]
+    assert pos.shape == (4, 4, 3) and np.isfinite(pos).all()
+    assert trace.warmup_sample_stats["n_steps"].shape == (4, 6)
+
+
 @pytest.mark.parametrize("kind", ["MICROCANONICAL", "EXACT_NORMAL"])
 def test_nuts_kinetic_energies_name_the_sync_engine(kind):
     # the JAX package runs NUTS with these only on its sync engine (it
-    # demotes a fused request there), so the port points at that item
+    # demotes a fused request there); the port's sync engine takes the
+    # microcanonical dynamics, and the exact-normal ones wait for item 8
     settings = tnt.DiagNutsSettings(posterior_kernel="pallas", num_chains=4,
                                     num_tune=5, num_draws=5,
                                     kinetic_energy=KineticKind[kind])
     reasons = settings.unsupported(tg.normal_logp(3), "cpu")
-    assert reasons == [f"kinetic_energy={kind} (item 3, the sync engine)"]
+    if kind == "EXACT_NORMAL":
+        assert reasons == ["kinetic_energy=EXACT_NORMAL (item 8)"]
+    else:
+        assert reasons == []
+        assert settings._pallas_disqualifiers() == [
+            "kinetic_energy=MICROCANONICAL"]
     jsettings = jnt.DiagNutsSettings(
         posterior_kernel="pallas",
         kinetic_energy=jnt.KineticKind[kind])
