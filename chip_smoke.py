@@ -7,10 +7,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the fused CUDA kernels from ``nuts_rs_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-and drives six paths through ``Sampler(...).run()`` with
+and drives nine paths through ``Sampler(...).run()`` with
 ``posterior_kernel="pallas"`` (``--only PATH`` drives one of them: ``nuts``,
-``mclmc``, ``large_d``, ``data``, ``mclmc_data`` or ``stream``, and builds
-only its kernels).  Two run N(3, 1) at d=10 with 1024 chains,
+``mclmc``, ``large_d``, ``data``, ``mclmc_data``, ``stream``, ``sv``,
+``radon`` or ``zoo``, and builds only its kernels).  Two run N(3, 1) at d=10 with 1024 chains,
 300 tuning and 700 posterior draws: NUTS (``DiagNutsSettings``, kernels K1
 and K2) and MCLMC (``DiagMclmcSettings``, kernels K3 and K4).  The third is
 the large-d path: NUTS on N(3, 1) at d=1000 with 512 chains, 200 tuning and
@@ -25,7 +25,7 @@ MCLMC (``DiagMclmcSettings``, the same chains and draws), on the mid-d MCLMC
 kernels K3-args and K4-args, held against that package's sync MCLMC engine
 (``tests/data/mclmc_logreg_d100_reference.json``).  The sixth is the
 streamed-data path: NUTS on the same regression with 131072 rows (52 MB of
-data, more than a block's shared memory and the card's L2), 256 chains, 150
+data, more than a block's shared memory and the card's L2), 256 chains, 100
 tuning and 256 posterior draws (the JAX benchmark's 300 and 400 cut for this
 script's time; ``profile_main_path.py --only-stream`` runs them whole): the
 per-draw sync engine (plain PyTorch) for the warmup, then the posterior on
@@ -33,17 +33,52 @@ kernel K1-stream, which walks the rows in tiles of 512; its posterior is held
 against the JAX package's sync engine on the same rows
 (``tests/data/logreg_big_reference.json``), and its launch counts must be 2
 of K1-stream and none of a fused warmup kernel.  K1-stream
-is checked at the path's rows and dimension on 64 chains.  For each path it sets
+is checked at the path's rows and dimension on 64 chains.  The seventh is
+the model zoo's headline, stochastic volatility with T = 1000 returns
+(d = 1002, above the chains-on-lanes limit), 512 chains, 400 tuning and 300
+posterior draws, on the dim-on-lanes kernels with the model's data,
+K1-ld-args and K2-ld-args; the eighth radon (85 groups of 12 rows, d = 89),
+1024 chains, 300 tuning and 400 posterior draws, on K1-args and K2-args
+with the Radon functor.  Both are held against the JAX package's sync
+engine on a CPU (``tests/data/sv_t1000_reference.json``,
+``tests/data/radon_reference.json``, made by
+``tests/data/make_zoo_reference.py``): every coordinate's and each named
+quantity's (SV: sigma and nu; radon: mu_a, beta, sigma, sigma_a) posterior
+mean within 0.1 posterior std and std within 10%, a divergence share at
+most the reference's plus 0.2 percentage points and two standard errors
+of the reference's share (SV: 0.23 points each), mean accept in
+(0.7, 0.95), launches of their two kernels and of no other fused NUTS
+kernel; these hold the chains that are not stuck where they started
+(``stuck_chains``: SV's far starts in log sigma, where every tree
+diverges); the stuck chains are held against those that the JAX
+package's sync engine leaves stuck when it starts from this run's own
+starts beyond log sigma 0 (the reference's ``far_starts``): every one
+started there, and the chains stuck in one engine only, b here and c
+there, satisfy |b - c| <= 3 sqrt(b + c); radon's reference records none,
+so no radon chain may stick.  The ninth drives
+the three other hook models, the rank-1 normal
+(d = 100), the funnel (d = 10) and correlated_normal (d = 100), each with
+256 chains, 200 tuning and 200 draws on the mid-d kernels, the two normals
+held against their analytic moments (0.1 std, 10%).  The model functors
+(``csrc/models.cuh``) are rows of the kernel line of their own, checked in
+the kernels that evaluate them: SV's in K1-ld-args and K2-ld-args at the
+path's d on 64 chains (8 draws, and warmup schedule rows 7..8 with the
+window switch, from a post-warmup-like state), radon's in K1-args and
+K2-args the same way, the other three's in K1-args on 64 chains; a
+functor's launches are the kernel launches of its path that evaluated
+it.  For each path it sets
 the launch counts to 0, runs, reads them, and checks that its kernels ran
 and that the posterior is right.  Every kernel is held against its plain
 version at its path's chains and dimension (8 posterior or up to 16 warmup
 draws); the mid-d kernels, NUTS and MCLMC, also on N(3, 1) at d=100 with 64
 chains in logical blocks of 8.  Cut to keep the script under five minutes:
-K2-args is checked on 4 schedule rows (6..9, with the window switch), not
+K2-args is checked on 2 schedule rows (7..8, with the window switch), not
 16, K2-ld and the mid-d K2 without data on 8 (2..9); K4-args' rows start
 from a post-warmup-like state, not the initial one; the streamed-data path
-runs half its warmup and two of its four posterior launches, and
-K1-stream's 128-draw launch is timed once.
+runs a third of its warmup and two of its four posterior launches, and
+K1-stream's 128-draw launch is timed once; the zoo's checks run 64 chains,
+8 draws and two warmup rows, and its functors are timed in the posterior
+kernel alone.
 
 Each kernel is timed (CUDA events) beside its plain version on the check's
 inputs (``ms``, ``plain_ms``, with the bound ``bound_ms`` of that work), and
@@ -53,7 +88,8 @@ every output written once) over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, the card's published peaks; operations are counted from the
 leapfrogs the run's data needed (``n_steps``), ``FLOP_PER_COORD`` per
 coordinate, and for the logistic regression 4 N d + 4 (N + d) more per
-evaluation, with its data among the bytes.  No single PyTorch call computes
+evaluation, for the other functors what ``model_flop_per_grad`` counts,
+with their data among the bytes.  No single PyTorch call computes
 a NUTS or MCLMC launch, so ``library_ms`` is null; the time of one batched
 evaluation of the regression by two ``torch.matmul`` calls is printed as a
 yardstick for its products.
@@ -81,11 +117,11 @@ DIM, MU, CHAINS, TUNE, DRAWS, SEED = 10, 3.0, 1024, 300, 700, 0
 CHUNK = 128          # the Sampler's chunk: draws per launch on the main path
 CHECK_K1_DRAWS = 8   # posterior draws per chain in the kernel check
 CHECK_K2_DRAWS = 16  # warmup draws in the kernel check
-# K2-args' check: rows 6..9 keep the window switch of row 8 and one draw after
-# it; its plain version took 89 s of the script at 16 rows and 48-58 s at 8
-# (every tree from the initial state is a deep one), and the script has five
-# minutes for six paths
-CHECK_K2_ARGS_ROWS = (6, 10)
+# K2-args' check: rows 7..8 keep the window switch of row 8; its plain version
+# took 89 s of the script at 16 rows, 48-58 s at 8 and 18-24 s at 4 (every tree
+# from the initial state is a deep one), and the script has five minutes for
+# nine paths
+CHECK_K2_ARGS_ROWS = (7, 9)
 # K2-ld and the mid-d kernel without data: rows 2..9, with the switch of row 8
 CHECK_K2_SHORT_ROWS = (2, 10)
 CHECK_K3_DRAWS = 8   # MCLMC posterior draws per chain in the kernel check
@@ -112,10 +148,32 @@ MID_DIM, MID_CHAINS = 100, 64
 BIG_ROWS, BIG_CHAINS = 131072, 256
 BIG_FULL_TUNE, BIG_FULL_DRAWS = 300, 400  # what profile_main_path.py runs
 # cut here for the script's five minutes (the sync warmup's 300 draws take
-# 49-96 s with the host's speed): half the warmup, two posterior launches
-BIG_TUNE, BIG_DRAWS = 150, 256
+# 49-96 s with the host's speed): a third of the warmup, two posterior
+# launches
+BIG_TUNE, BIG_DRAWS = 100, 256
 BIG_CHECK_CHAINS = 64  # of the K1-stream check (its plain version's time)
 BIG_REFERENCE = GLM_REFERENCE.with_name("logreg_big_reference.json")
+# the stochastic-volatility path (the JAX package's flagship realistic model,
+# examples/stochastic_volatility.py): T = 1000 returns, d = 1002, above the
+# chains-on-lanes limit, so the dim-on-lanes kernels with data
+SV_T, SV_CHAINS, SV_TUNE, SV_DRAWS = 1000, 512, 400, 300
+SV_REFERENCE = GLM_REFERENCE.with_name("sv_t1000_reference.json")
+SV_STEP = (0.04, 0.06)  # near the reference's adapted step (made-up states)
+# radon at the JAX model's sizes: 85 groups of 12 rows, d = 89
+RADON_CHAINS, RADON_TUNE, RADON_DRAWS = 1024, 300, 400
+RADON_REFERENCE = GLM_REFERENCE.with_name("radon_reference.json")
+RADON_STEP = (0.4, 0.55)
+# a path's divergence share may exceed its reference's by this much and two
+# standard errors of the reference's share over its chains (SV's 64 chains:
+# 0.0023, more than the 0.002 alone; PERF.md)
+DIV_SHARE_TOL = 0.002
+# the zoo's kernel checks: short launches, two warmup rows (7 and 8, with the
+# window switch of row 8), to keep the script's time
+ZOO_CHECK_CHAINS, ZOO_CHECK_ROWS = 64, (7, 9)
+# the hook models without a path of their own of the JAX benchmark, driven
+# through Sampler.run at the sizes of the JAX package's tests
+ZOO_CHAINS, ZOO_TUNE, ZOO_DRAWS = 256, 200, 200
+ZOO_MEAN_TOL, ZOO_STD_TOL = 0.1, 0.1  # against their analytic moments
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 FP32_FLOP_PER_S = 67e12    # H100 SXM outside the tensor cores, published
 # FP32 operations per coordinate and gradient evaluation that every version
@@ -175,14 +233,30 @@ def tensor_bytes(*objs) -> int:
 
 
 def model_flop_per_grad(model):
-    """FP32 operations of one evaluation beyond FLOP_PER_COORD's: the
-    regression's two products and its elementwise pass over rows and
-    columns, as the JAX benchmark counts them (bench.py:271-278)."""
-    if not model.carries_data:
-        return 0
-    xt = model.hook_parts()[2][0]
-    d, n = xt.shape
-    return 4 * n * d + 4 * (n + d)
+    """FP32 operations of one evaluation beyond FLOP_PER_COORD's, counted
+    from the functor (csrc/models.cuh), each exp, log and sqrt as one: the
+    regression's two products and its elementwise pass over rows and columns,
+    as the JAX benchmark counts them (bench.py:271-278); radon's 9 a row
+    (residual 3, u, e, three sums 4) and 6 a group; SV's 33 a coordinate
+    (the two scans 4, h 2, exp 1, z 1, w 2, log1p 5, the term 4, b 3, a 1,
+    the summed products 3, the four sums 4, the gradient 3); the rank-1
+    normal's 12, the funnel's and correlated_normal's 5 a coordinate."""
+    name, _, tensors = model.hook_parts()
+    d = model.dim
+    if name == "logistic_regression":
+        n = tensors[0].shape[1]
+        return 4 * n * d + 4 * (n + d)
+    if name == "radon":
+        return 9 * tensors[0].shape[0] + 6 * (d - 4)
+    return {"stochastic_volatility": 33, "correlated_normal_rank1": 12,
+            "funnel": 5, "correlated_normal": 5}.get(name, 0) * d
+
+
+def hook_bytes(model):
+    """Bytes of the functor's data as the kernels read them (radon's group
+    index, not the JAX model's one-hot matrix that ``data_bytes`` counts
+    for the size rules)."""
+    return sum(t.numel() * t.element_size() for t in model.hook_parts()[2])
 
 
 def bound(kind, model, inputs, out, stats):
@@ -191,7 +265,7 @@ def bound(kind, model, inputs, out, stats):
     grads = float(stats["n_steps"].sum())
     t_ops = grads * (model.dim * FLOP_PER_COORD[kind]
                      + model_flop_per_grad(model)) / FP32_FLOP_PER_S
-    t_bytes = (tensor_bytes(inputs, out) + model.data_bytes) / HBM_BYTES_PER_S
+    t_bytes = (tensor_bytes(inputs, out) + hook_bytes(model)) / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -305,30 +379,50 @@ def check_posterior(model, opts, device, layout="cl", chains=CHAINS,
     return check_row("nuts", model, args, out_k, err, ms, plain_ms)
 
 
-def warmup_setup(model, settings, device, lo, hi, chains=CHAINS):
+def warmup_setup(model, settings, device, lo, hi, chains=CHAINS, state=None):
+    """A warmup launch's inputs for schedule rows lo..hi-1: from the initial
+    state of ``chains`` chains, or from ``state``, a post-warmup-like one as
+    ``posterior_inputs`` returns it, whose estimators hold its own point
+    once and whose dual averaging starts at its step."""
     from nuts_rs_tpu_torch.adapt.schedule import build_schedule
     from nuts_rs_tpu_torch.chain import (
         DiagStrategy, init_chain_state, pack_warmup_state, warmup_flags)
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
     from nuts_rs_tpu_torch.sampler import _schedule_chunk
 
     config = settings.chain_config()
-    state = init_chain_state(SEED, model, DiagStrategy(config), config,
-                             chains, torch.float32, device)
     sched = build_schedule(settings.num_tune, settings.num_draws,
                            settings.adapt)
     flags = warmup_flags(_schedule_chunk(sched, lo, hi), device)
+    tail = (model, config.nuts, config.step_size,
+            config.use_grad_based_estimate)
+    if state is not None:
+        q, g, logp, stds, mean, logdet, step, _ = state
+        est = torch.zeros(q.shape[0], 8, q.shape[1], device=device)
+        est[:, 0], est[:, 2], est[:, 4], est[:, 6] = q, g, q, g
+        sca = torch.zeros(q.shape[0], nf.NSCA, device=device)
+        sca[:, nf.SCA_STEP] = step
+        sca[:, nf.SCA_DA_LS] = sca[:, nf.SCA_DA_LSA] = torch.log(step)
+        sca[:, nf.SCA_DA_MU] = torch.log(10.0 * step)
+        sca[:, nf.SCA_DA_CNT] = 1.0
+        sca[:, nf.SCA_CNT_FG] = sca[:, nf.SCA_CNT_BG] = 1.0
+        sca[:, nf.SCA_LOGDET] = logdet
+        return (11, flags, q, g, logp, stds, mean, est, sca, *tail)
+    state = init_chain_state(SEED, model, DiagStrategy(config), config,
+                             chains, torch.float32, device)
     est, sca = pack_warmup_state(state)
     t = state.transform
     return (11, flags, state.pt.q, state.pt.g, state.pt.logp,
-            t.stds.contiguous(), t.mean.contiguous(), est, sca, model,
-            config.nuts, config.step_size, config.use_grad_based_estimate)
+            t.stds.contiguous(), t.mean.contiguous(), est, sca, *tail)
 
 
 def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
-                 name=None, block=None, rows=(2, 2 + CHECK_K2_DRAWS)):
+                 name=None, block=None, rows=(2, 2 + CHECK_K2_DRAWS),
+                 state=None):
     """K2 (cl), K2-ld or, with ``name`` and maybe a logical chain block, the
-    mid-d cl kernel against its plain version, on schedule rows
-    ``rows[0] .. rows[1] - 1`` from the initial state."""
+    mid-d cl kernel or K2-ld-args against its plain version, on schedule
+    rows ``rows[0] .. rows[1] - 1`` from the initial state or from
+    ``state`` (see ``warmup_setup``)."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     name = name or ("K2-ld" if layout == "ld" else "K2")
@@ -336,7 +430,7 @@ def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
     # mass-matrix updates every draw and the first window switch (row 8)
     lo, hi = rows
     draws = hi - lo
-    args = warmup_setup(model, settings, device, lo, hi, chains)
+    args = warmup_setup(model, settings, device, lo, hi, chains, state)
     if not args[1][:, nf.FLAG_DO_SWITCH].any():
         raise AssertionError(f"{name} check rows hold no window switch")
     out_k, out_p, ms, plain_ms = timed_pair(
@@ -345,19 +439,22 @@ def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
     n, err = compare(name, out_k, out_p,
                      ("q", "g", "logp", "stds", "mean", "est", "sca"),
                      nf.WARMUP_STAT_NAMES, INT_STATS)
+    chains = args[2].shape[0]
     print(f"{name} check: C={chains} d={model.dim} K={draws} "
-          f"(schedule rows {lo}..{hi - 1}, a window switch among "
-          f"them): integer stats equal on all {n} (chain, draw) entries, "
+          f"(schedule rows {lo}..{hi - 1}, a window switch among them, from "
+          f"{'a post-warmup-like' if state else 'the initial'} state): "
+          f"integer stats equal on all {n} (chain, draw) entries, "
           f"max abs err {err:.3g} (draws, final state, est, sca, all "
           f"stats); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
     return check_row("nuts", model, args[1:9], out_k, err, ms, plain_ms)
 
 
 def zero_launch_counts():
+    from nuts_rs_tpu_torch.kernels import _build
     from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
-    for counts in (nf.LAUNCHES, mf.LAUNCHES):
+    for counts in (nf.LAUNCHES, mf.LAUNCHES, _build.MODEL_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -371,12 +468,16 @@ def read_launch_counts(counts, names):
     return launches
 
 
-def run_sampler(model, settings, device):
+def run_sampler(model, settings, device, starts=None):
+    """Sampler.run with its seconds: set-up, warmup, posterior and the
+    whole; ``starts``, a list, receives the chains' initial positions."""
     from nuts_rs_tpu_torch import Sampler
 
     t0 = time.monotonic()
     sampler = Sampler(model, settings, device=device)
     init_s = time.monotonic() - t0
+    if starts is not None:
+        starts.append(sampler.state.pt.q.cpu().numpy())
     trace = sampler.run()
     total_s = time.monotonic() - t0
     tune = settings.num_tune
@@ -426,27 +527,29 @@ def main_path(model, settings, device, kernels, what="main path"):
 
 
 def time_kernels(model, settings, device, layout="cl", chains=CHAINS,
-                 step=(0.8, 1.0), k1=None):
+                 step=(0.8, 1.0), k1=None, k2_state=None, warmup=True):
     """Each NUTS kernel alone at its path's launch: ``chains`` chains, one
-    128-draw chunk (``k1``: the posterior kernel's own inputs)."""
+    128-draw chunk (``k1``: the posterior kernel's own inputs; ``k2_state``:
+    a post-warmup-like state for the warmup kernel, else the initial one;
+    without ``warmup`` the posterior kernel alone)."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     opts = settings.nuts_options()
     if k1 is None:
         k1 = posterior_inputs(model, device, seed=2, chains=chains, step=step)
-    k2 = warmup_setup(model, settings, device, 2, 2 + CHUNK, chains)
-    suffix = "_ld" if layout == "ld" else ""
-    if layout == "cl" and nf.cl_kernel(model, model.dim) == "mid":
-        suffix = "_mid"
+    kind = nf._kernel_kind(model, model.dim, layout, opts.maxdepth)
+    suffix = "" if kind == "thread" else "_" + kind
     times = {
         f"nuts_fused{suffix}_posterior": chunk_time(
             "nuts", model,
             lambda: nf.nuts_fused_run(3, *k1, CHUNK, model, opts, 0.1,
-                                      layout=layout), k1, 4),
-        f"nuts_fused{suffix}_warmup": chunk_time(
+                                      layout=layout), k1, 4)}
+    if warmup:
+        k2 = warmup_setup(model, settings, device, 2, 2 + CHUNK, chains,
+                          k2_state)
+        times[f"nuts_fused{suffix}_warmup"] = chunk_time(
             "nuts", model,
-            lambda: nf.nuts_fused_warmup_run(*k2, layout=layout), k2[1:9], 8),
-    }
+            lambda: nf.nuts_fused_warmup_run(*k2, layout=layout), k2[1:9], 8)
     for name, (ms, b_ms, b_by) in times.items():
         print(f"time {name}: {ms:.4f} ms per {CHUNK}-draw launch at "
               f"C={chains} d={model.dim}; bound {b_ms:.5f} ms ({b_by})")
@@ -466,10 +569,11 @@ def glm_reference(path=GLM_REFERENCE):
 
 
 def glm_posterior_inputs(model, device, ref_mean, ref_std, seed=1,
-                         chains=GLM_CHAINS):
-    """A post-warmup-like state of the regression, made with numpy around
-    the reference posterior: positions drawn from its marginals, the
-    transform near its scales, steps near the adapted one."""
+                         chains=GLM_CHAINS, step=(0.4, 0.55)):
+    """A post-warmup-like state, made with numpy around a posterior's
+    marginals (a reference's, or the analytic ones): positions drawn from
+    them, the transform near their scales, steps drawn from ``step`` (by
+    default near the regression's adapted one)."""
     rng = np.random.default_rng(seed)
     f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)  # noqa: E731
     dim = model.dim
@@ -478,7 +582,7 @@ def glm_posterior_inputs(model, device, ref_mean, ref_std, seed=1,
     mean = f(ref_mean + 0.1 * ref_std * rng.normal(size=(chains, dim)))
     logp, g = model.logp_and_grad(q)
     logdet = -torch.log(stds).sum(1)
-    step = f(rng.uniform(0.4, 0.55, size=chains))
+    step = f(rng.uniform(*step, size=chains))
     return q, g, logp, stds, mean, logdet, step, step.clone()
 
 
@@ -542,8 +646,9 @@ def glm_main_path(model, settings, device, ref_mean, ref_std,
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     zero_launch_counts()
-    trace, init_s, warm_s, post_s, total_s = run_sampler(model, settings,
-                                                         device)
+    starts = []
+    trace, init_s, warm_s, post_s, total_s = run_sampler(
+        model, settings, device, starts)
     launches = read_launch_counts(nf.LAUNCHES, kernels)
     others = {k: n for k, n in nf.LAUNCHES.items() if k not in kernels and n}
     if others:
@@ -849,6 +954,19 @@ KERNELS = (
      "nuts_rs_tpu/kernels/mclmc_pallas.py:506"),
     ("nuts_fused_stream_posterior", "nuts_fused_stream_posterior.cu",
      "nuts_rs_tpu/kernels/nuts_pallas.py:217"),
+    ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_posterior.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:124"),
+    ("nuts_fused_ld_args_warmup", "nuts_fused_ld_args_warmup.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:959"),
+    # the model hooks: device functors in csrc/models.cuh, in the kernels'
+    # bodies as the JAX models' logp is in the Pallas bodies
+    ("stochastic_volatility", "models.cuh",
+     "nuts_rs_tpu/models/stochastic_volatility.py:59"),
+    ("radon", "models.cuh", "nuts_rs_tpu/models/hierarchical.py:99"),
+    ("correlated_normal_rank1", "models.cuh",
+     "nuts_rs_tpu/models/gaussian.py:66"),
+    ("funnel", "models.cuh", "nuts_rs_tpu/models/gaussian.py:107"),
+    ("correlated_normal", "models.cuh", "nuts_rs_tpu/models/gaussian.py:96"),
 )
 
 
@@ -1048,9 +1166,320 @@ def path_stream(device, checks, launches, times):
           f"({evals / CHUNK / BIG_CHAINS:.2f} evaluations a draw and chain)")
 
 
+# ---------------------------------------------------------------------------
+# The model zoo: stochastic volatility on K1-ld-args / K2-ld-args, radon on
+# K1-args / K2-args, the other hook models' functors
+# ---------------------------------------------------------------------------
+
+
+def zoo_reference(path):
+    """A JAX CPU reference of tests/data/make_zoo_reference.py."""
+    ref = json.loads(path.read_text())
+    print(f"{ref['model']} reference: {ref['engine']}, {ref['chains']} "
+          f"chains x {ref['draws']} draws ({ref['tune']} tuning), divergence "
+          f"share {ref['divergence_share']:.5f} (standard error "
+          f"{ref['divergence_share_mc_error']:.5f}), accept "
+          f"{ref['mean_tree_accept']:.4f}, {ref['mean_n_steps']:.2f} "
+          f"leapfrogs a draw, Monte-Carlo error of a mean at most "
+          f"{ref['max_mc_error_of_mean_in_std']:.4f} posterior std, of a std "
+          f"{ref['max_mc_error_of_std']:.4f}")
+    return ref
+
+
+def stuck_chains(pos):
+    """Chains that stay where they are: a chain whose own posterior standard
+    deviation of the first coordinate is under a hundredth of the median of
+    the chains' (tests/data/make_zoo_reference.py applies the same rule to
+    the reference).  SV's far starts in log sigma make them: every tree
+    diverges and the step adapts to nothing there."""
+    sd = pos[..., 0].std(1)
+    return sd < 0.01 * np.median(sd)
+
+
+def check_stuck(ref, settings, q0, stuck, what):
+    """Holds the chains stuck where they started, ``stuck`` (indices), to
+    the reference's record of the JAX package's sync engine run from this
+    run's own starts beyond log sigma 0 with this run's settings
+    (``far_starts``; none stuck without such a record): every stuck chain
+    started there, and over those matched starts the chains stuck in one
+    engine only, b here and c there, satisfy |b - c| <= 3 sqrt(b + c)
+    (McNemar's test at three standard errors; equal sets pass)."""
+    far = ref.get("far_starts")
+    if far is None:
+        if stuck:
+            raise AssertionError(f"{what}: chains {stuck} stuck where they "
+                                 "started; the reference records none")
+        return
+    want = (far["port_chains"], far["tune"], far["draws"], far["seed"])
+    got = (settings.num_chains, settings.num_tune, settings.num_draws,
+           settings.seed)
+    if want != got:
+        raise AssertionError(f"{what}: the reference's far starts are of a "
+                             f"run with {want}, this one has {got}")
+    chains = np.nonzero(q0[:, 0] > 0.0)[0]
+    if chains.tolist() != far["chains"] or not np.array_equal(
+            q0[chains, 0], np.float32(far["start_log_sigma"])):
+        raise AssertionError(f"{what}: the starts beyond log sigma 0 are not "
+                             "those of the reference's far_starts")
+    here, there = set(stuck), set(far["stuck"])
+    b, c = len(here - there), len(there - here)
+    print(f"{what}: chains stuck where they started {sorted(here)}, the JAX "
+          f"package's sync engine from the same starts {sorted(there)}: "
+          f"{b} stuck here only, {c} there only (gate |b - c| <= "
+          f"{3.0 * np.sqrt(b + c):.3f})")
+    below = here - set(far["chains"])
+    if below:
+        raise AssertionError(f"{what}: chains {sorted(below)} stuck from "
+                             "starts below log sigma 0")
+    if abs(b - c) > 3.0 * np.sqrt(b + c):
+        raise AssertionError(f"{what}: the stuck chains differ from the "
+                             "reference's beyond McNemar's three standard "
+                             "errors")
+
+
+def zoo_main_path(model, settings, device, ref, named, kernels, what):
+    """A NUTS path of the zoo through Sampler.run, held against its JAX CPU
+    reference: the chains stuck where they started (``stuck_chains``)
+    against those that the JAX package's sync engine leaves stuck from the
+    same starts (``check_stuck``; none where the reference records no far
+    starts), and over the other chains
+    every coordinate's and every ``named`` quantity's posterior mean within
+    GLM_MEAN_TOL posterior std and std within GLM_STD_TOL, the divergence
+    share at most the reference's plus DIV_SHARE_TOL and two of its
+    standard errors, the mean accept in (0.7, 0.95); launches of
+    ``kernels`` and no other fused NUTS kernel.  Returns the launches and
+    the functor's count."""
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    zero_launch_counts()
+    starts = []
+    trace, init_s, warm_s, post_s, total_s = run_sampler(
+        model, settings, device, starts)
+    launches = read_launch_counts(nf.LAUNCHES, kernels)
+    others = {k: n for k, n in nf.LAUNCHES.items() if k not in kernels and n}
+    if others:
+        raise AssertionError(f"{what} launched other kernels: {others}")
+    functor = model.hook_parts()[0]
+    functor_launches = _build.MODEL_LAUNCHES[functor]
+    if functor_launches != sum(launches.values()):
+        raise AssertionError(f"{what}: {functor_launches} launches evaluated "
+                             f"{functor}, the path made {launches}")
+    pos = trace.posterior["position"]
+    if pos.shape != (settings.num_chains, settings.num_draws, model.dim):
+        raise AssertionError(f"posterior shape {pos.shape}")
+    pos = pos.astype(np.float64)
+    if not np.isfinite(pos).all():
+        raise AssertionError("non-finite posterior draws")
+    stuck = stuck_chains(pos)
+    check_stuck(ref, settings, starts[0], np.nonzero(stuck)[0].tolist(), what)
+    pos = pos[~stuck]
+    flat = pos.reshape(-1, model.dim)
+    ref_mean, ref_std = np.array(ref["mean"]), np.array(ref["std"])
+    mean_err = np.abs(flat.mean(0) - ref_mean) / ref_std
+    std_err = np.abs(flat.std(0) / ref_std - 1.0)
+    worst = [f"coordinates: mean {mean_err.max():.4f} (at "
+             f"{int(mean_err.argmax())}), std {std_err.max():.4f} (at "
+             f"{int(std_err.argmax())})"]
+    errs = [mean_err.max()], [std_err.max()]
+    for name, fn in named.items():
+        x = fn(pos)
+        r = ref["named"][name]
+        em = abs(x.mean() - r["mean"]) / r["std"]
+        es = abs(x.std() / r["std"] - 1.0)
+        worst.append(f"{name} {x.mean():.5g} +- {x.std():.4g} (reference "
+                     f"{r['mean']:.5g} +- {r['std']:.4g}): mean {em:.4f}, "
+                     f"std {es:.4f}")
+        errs[0].append(em)
+        errs[1].append(es)
+    n_grad = int(trace.sample_stats["n_steps"].sum())
+    st = {k: v[~stuck] for k, v in trace.sample_stats.items()}
+    div = float(st["diverging"].mean())
+    acc = float(st["mean_tree_accept"].mean())
+    n_warm = int(trace.warmup_sample_stats["n_steps"].sum())
+    print(f"{what}: {model.name} d={model.dim} chains={settings.num_chains} "
+          f"tune={settings.num_tune} draws={settings.num_draws}: init "
+          f"{init_s:.3f} s, warmup {warm_s:.3f} s, posterior {post_s:.3f} s, "
+          f"total with trace assembly {total_s:.3f} s, {n_grad / post_s:.6g} "
+          f"posterior gradient evaluations/s ({n_grad} in the posterior, "
+          f"{n_warm} in the warmup), launches {launches}, functor "
+          f"{functor} evaluated by {functor_launches}")
+    print(f"{what} posterior against the reference (gates: mean within "
+          f"{GLM_MEAN_TOL} posterior std, std within {GLM_STD_TOL}); "
+          + "; ".join(worst))
+    div_limit = (ref["divergence_share"] + DIV_SHARE_TOL
+                 + 2.0 * ref["divergence_share_mc_error"])
+    print(f"{what}: divergence share {div:.5f} (gate <= reference "
+          f"{ref['divergence_share']:.5f} + {DIV_SHARE_TOL} + 2 x "
+          f"{ref['divergence_share_mc_error']:.5f} = {div_limit:.5f}), mean "
+          "accept "
+          f"{acc:.4f} (reference {ref['mean_tree_accept']:.4f}), step size "
+          f"{float(np.median(st['step_size_bar'][:, -1])):.4f} (reference "
+          f"{ref['median_step_size_bar']:.4f}), mean n_steps "
+          f"{float(st['n_steps'].mean()):.2f} (reference "
+          f"{ref['mean_n_steps']:.2f})")
+    require_glm_moments(max(errs[0]), max(errs[1]))
+    if not div <= div_limit:
+        raise AssertionError(f"{what}: divergence share {div}")
+    if not 0.7 < acc < 0.95:
+        raise AssertionError(f"mean accept {acc} outside (0.7, 0.95)")
+    return launches, functor_launches
+
+
+def path_sv(device, checks, launches, times):
+    """Stochastic volatility, T = 1000 (d = 1002), 512 chains: the
+    dim-on-lanes kernels with the model's data, K1-ld-args and K2-ld-args."""
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.models.stochastic_volatility import (
+        stochastic_volatility)
+
+    ref = zoo_reference(SV_REFERENCE)
+    model = stochastic_volatility(T=SV_T, seed=SEED).to(device)
+    settings = DiagNutsSettings(num_chains=SV_CHAINS, num_tune=SV_TUNE,
+                                num_draws=SV_DRAWS, seed=SEED,
+                                posterior_kernel="pallas")
+    opts = settings.nuts_options()
+    centre, spread = np.array(ref["mean"]), np.array(ref["std"])
+
+    def state(seed, chains=ZOO_CHECK_CHAINS):
+        return glm_posterior_inputs(model, device, centre, spread, seed,
+                                    chains, SV_STEP)
+
+    k1 = check_posterior(model, opts, device, "ld", name="K1-ld-args",
+                         args=state(1))
+    k2 = check_warmup(model, settings, device, "ld", name="K2-ld-args",
+                      rows=ZOO_CHECK_ROWS, state=state(3))
+    checks["nuts_fused_ld_args_posterior"] = k1
+    checks["nuts_fused_ld_args_warmup"] = k2
+    checks["stochastic_volatility"] = functor_row(k1, k2)
+    got, functor_launches = zoo_main_path(
+        model, settings, device, ref,
+        {"sigma": lambda p: np.exp(p[..., 0]),
+         "nu": lambda p: np.exp(p[..., 1])},
+        ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup"),
+        "SV path")
+    launches.update(got)
+    launches["stochastic_volatility"] = functor_launches
+    t = time_kernels(model, settings, device, "ld", SV_CHAINS,
+                     k1=state(2, SV_CHAINS), k2_state=state(4, SV_CHAINS))
+    times.update(t)
+    times["stochastic_volatility"] = t["nuts_fused_ld_args_posterior"]
+
+
+def path_radon(device, checks, launches, times):
+    """Radon, 85 groups of 12 rows (d = 89), 1024 chains: the mid-d kernels
+    with the model's data, K1-args and K2-args, on the Radon functor."""
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.models.hierarchical import radon
+
+    ref = zoo_reference(RADON_REFERENCE)
+    model = radon(seed=SEED).to(device)
+    settings = DiagNutsSettings(num_chains=RADON_CHAINS,
+                                num_tune=RADON_TUNE, num_draws=RADON_DRAWS,
+                                seed=SEED, posterior_kernel="pallas")
+    opts = settings.nuts_options()
+    centre, spread = np.array(ref["mean"]), np.array(ref["std"])
+
+    def state(seed, chains=ZOO_CHECK_CHAINS):
+        return glm_posterior_inputs(model, device, centre, spread, seed,
+                                    chains, RADON_STEP)
+
+    k1 = check_posterior(model, opts, device, name="K1-args radon",
+                         args=state(1))
+    k2 = check_warmup(model, settings, device, name="K2-args radon",
+                      rows=ZOO_CHECK_ROWS, state=state(3))
+    checks["radon"] = functor_row(k1, k2)
+    got, functor_launches = zoo_main_path(
+        model, settings, device, ref,
+        {"mu_a": lambda p: p[..., 0], "beta": lambda p: p[..., 1],
+         "sigma": lambda p: np.exp(p[..., 2]),
+         "sigma_a": lambda p: np.exp(p[..., 3])},
+        ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"), "radon path")
+    launches["radon"] = functor_launches
+    t = time_kernels(model, settings, device, chains=RADON_CHAINS,
+                     k1=state(2, RADON_CHAINS), warmup=False)
+    times["radon"] = t["nuts_fused_mid_posterior"]
+
+
+def functor_row(*rows):
+    """A functor's check row from the kernel checks that evaluated it: the
+    largest error, the times and bound of the first."""
+    row = dict(rows[0])
+    row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return row
+
+
+def path_zoo(device, checks, launches, times):
+    """The other hook models, on the mid-d kernels: the rank-1 normal at
+    d = 100, the funnel at d = 10 and correlated_normal at d = 100, each
+    checked on K1-args against its plain version and driven through
+    Sampler.run (moments held against the analytic ones; the funnel's only
+    for finiteness, its known NUTS bias and divergences aside)."""
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+    from nuts_rs_tpu_torch.models import gaussian as g
+
+    rng = np.random.default_rng(42)
+    u = rng.normal(size=100)
+    u /= np.linalg.norm(u)
+    cases = (
+        ("correlated_normal_rank1", g.correlated_normal_rank1(100),
+         np.sqrt(1.5 * (1.0 + 999.0 * u * u)), (0.1, 0.2)),
+        ("funnel", g.funnel(10), None, (0.2, 0.3)),
+        ("correlated_normal", g.correlated_normal(100), np.full(100, 1.5 ** 0.5),
+         (0.4, 0.6)),
+    )
+    for name, model, std, step in cases:
+        model = model.to(device)
+        settings = DiagNutsSettings(num_chains=ZOO_CHAINS, num_tune=ZOO_TUNE,
+                                    num_draws=ZOO_DRAWS, seed=SEED,
+                                    posterior_kernel="pallas")
+        spread = std if std is not None else np.full(model.dim, 1.0)
+        args = glm_posterior_inputs(model, device, np.zeros(model.dim),
+                                    spread, chains=ZOO_CHECK_CHAINS,
+                                    step=step)
+        checks[name] = check_posterior(model, settings.nuts_options(), device,
+                                       name=f"K1-args {name}", args=args)
+        kernels = ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup")
+        zero_launch_counts()
+        trace, init_s, warm_s, post_s, total_s = run_sampler(
+            model, settings, device)
+        got = read_launch_counts(nf.LAUNCHES, kernels)
+        others = {k: n for k, n in nf.LAUNCHES.items()
+                  if k not in kernels and n}
+        if others or _build.MODEL_LAUNCHES[name] != sum(got.values()):
+            raise AssertionError(f"{name} path launched {dict(nf.LAUNCHES)}")
+        launches[name] = _build.MODEL_LAUNCHES[name]
+        pos = trace.posterior["position"].astype(np.float64)
+        if not np.isfinite(pos).all():
+            raise AssertionError(f"{name}: non-finite posterior draws")
+        flat = pos.reshape(-1, model.dim)
+        line = (f"{name} path: d={model.dim} chains={ZOO_CHAINS} "
+                f"tune={ZOO_TUNE} draws={ZOO_DRAWS}: warmup {warm_s:.3f} s, "
+                f"posterior {post_s:.3f} s, launches {got}, divergences "
+                f"{int(trace.sample_stats['diverging'].sum())}, mean accept "
+                f"{float(trace.sample_stats['mean_tree_accept'].mean()):.4f}")
+        if std is not None:
+            mean_err = float(np.max(np.abs(flat.mean(0)) / std))
+            std_err = float(np.max(np.abs(flat.std(0) / std - 1.0)))
+            line += (f"; against the analytic moments: max |mean| "
+                     f"{mean_err:.4f} std, max |std / std - 1| {std_err:.4f} "
+                     f"(gates {ZOO_MEAN_TOL}, {ZOO_STD_TOL})")
+            if not (mean_err < ZOO_MEAN_TOL and std_err < ZOO_STD_TOL):
+                raise AssertionError(line)
+        print(line)
+        times[name] = time_kernels(
+            model, settings, device, chains=ZOO_CHAINS,
+            k1=glm_posterior_inputs(model, device, np.zeros(model.dim),
+                                    spread, 2, ZOO_CHAINS, step),
+            warmup=False)["nuts_fused_mid_posterior"]
+
+
 PATHS = {"nuts": path_nuts, "mclmc": path_mclmc, "large_d": path_large_d,
          "data": path_data, "mclmc_data": path_mclmc_data,
-         "stream": path_stream}
+         "stream": path_stream, "sv": path_sv, "radon": path_radon,
+         "zoo": path_zoo}
 # the sources each path launches (the smem-size helpers of the mid-d and ld
 # warmup kernels live in their posterior sources)
 PATH_SOURCES = {
@@ -1060,6 +1489,9 @@ PATH_SOURCES = {
     "data": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
     "mclmc_data": ("mclmc_fused_mid_posterior", "mclmc_fused_mid_warmup"),
     "stream": ("nuts_fused_stream_posterior",),
+    "sv": ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup"),
+    "radon": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
+    "zoo": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
 }
 
 
@@ -1098,7 +1530,8 @@ def main(argv=None) -> int:
     print(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}; torch "
           f"{torch.__version__} (CUDA {torch.version.cuda})")
     paths = [only] if only else list(PATHS)
-    stems = [stem for path in paths for stem in PATH_SOURCES[path]]
+    stems = list(dict.fromkeys(stem for path in paths
+                               for stem in PATH_SOURCES[path]))
     t0 = time.monotonic()
     _build.build(stems)
     print(f"build: {time.monotonic() - t0:.1f} s ({len(stems)} sources, one "

@@ -18,7 +18,8 @@ and ``:1363-1364,1445``; here the data travel in ``Model.kernel_hook``).
 Like the JAX runners
 (``chain.py:757-784,1005-1028``), the NUTS runners take the chains-on-lanes
 layout while a model and its data fit it (``cl_max_dim``) and the
-dim-on-lanes layout (``layout="ld"``) above that.
+dim-on-lanes layout (``layout="ld"``, with the model's data where it has
+them) above that.
 
 The chain axis is the leading axis of every state tensor.  Randomness comes
 from the counter hash (kernels/rng.py): each launch's seed is derived from
@@ -159,18 +160,20 @@ def _ld_with_data_fits(model, maxdepth: int, warmup: bool) -> bool:
 
 def fused_layout(model, config: "ChainConfig", warmup: bool, device=None):
     """How the fused NUTS warmup or posterior kernel takes ``model``:
-    ``"cl"`` (chains-on-lanes, data resident), ``"ld"`` (dim-on-lanes, no
-    data), ``"stream"`` (posterior only: chains-on-lanes with the data
-    streamed in row tiles, kernel K1-stream) or None (warmup only: no fused
-    warmup, the sampler runs the per-draw sync warmup), as the JAX runners
-    choose (``chain.py:740-786``, ``:1001-1030``).  Data that fail the
-    chains-on-lanes rule stream when two tiles pass it; the JAX warmup
-    runner, which cannot stream, then runs its dim-on-lanes layout on
-    ``pallas_spec`` while the data fit that tier, which this package has not
-    ported (it raises ``NotImplementedError``), and has no fused warmup
-    beyond.  On a CUDA ``device`` the resident kernels also need the
-    functor's scratch, one float per row, in a block's shared memory; data
-    beyond that stream, and their warmup is the sync one."""
+    ``"cl"`` (chains-on-lanes, data resident), ``"ld"`` (dim-on-lanes,
+    with the model's data where it has them), ``"stream"`` (posterior only:
+    chains-on-lanes with the data streamed in row tiles, kernel K1-stream)
+    or None (warmup only: no fused warmup, the sampler runs the per-draw
+    sync warmup), as the JAX runners choose (``chain.py:740-786``,
+    ``:1001-1030``).  Data that fail the chains-on-lanes rule stream in the
+    posterior when two tiles pass it; else the JAX runners take their
+    dim-on-lanes layout on ``pallas_spec`` while the data fit that tier
+    (``:773-801``, ``:1017-1044``), and beyond it the warmup has no fused
+    kernel and the posterior raises ``NotImplementedError`` (the JAX
+    posterior runner has none either).  On a CUDA ``device`` the resident
+    chains-on-lanes kernels also need the functor's scratch in a block's
+    shared memory; data beyond that stream, and their warmup is the sync
+    one."""
     D = config.nuts.maxdepth
     if not model.carries_data:
         return "ld" if model.dim > cl_max_dim(D, warmup) else "cl"
@@ -182,20 +185,27 @@ def fused_layout(model, config: "ChainConfig", warmup: bool, device=None):
             return "cl"
         if model.stream_tile_rows is not None:
             return None if warmup else "stream"
-    elif (model.stream_tile_rows is not None
-          and model.dim <= cl_max_dim(D, False, stream_bytes(model))):
-        if not warmup:
+    else:
+        if (not warmup and model.stream_tile_rows is not None
+                and model.dim <= cl_max_dim(D, False, stream_bytes(model))):
             return "stream"
-        if not _ld_with_data_fits(model, D, True):
+        if _ld_with_data_fits(model, D, warmup):
+            return "ld"
+        if warmup:
             return None
     what = "warmup" if warmup else "posterior"
+    if model.dim <= cl_max_dim(D, warmup, model.data_bytes):
+        why = ("fit the chains-on-lanes rule but not a block's shared "
+               "memory on the card, and cannot stream")
+    else:
+        why = (f"are beyond the {what} launch's chains-on-lanes rule "
+               f"({cl_max_dim(D, warmup, model.data_bytes)}) and the "
+               "dim-on-lanes tier; the JAX package has no fused kernel for "
+               "such a model either")
     raise NotImplementedError(
         "not ported yet (see ROADMAP.md): model "
         f"{model.name!r} carries {model.data_bytes} bytes of data at dim "
-        f"{model.dim}, beyond the chains-on-lanes {what} launch's rule "
-        f"({cl_max_dim(D, warmup, model.data_bytes)}): the JAX {what} "
-        "runner differentiates pallas_spec in its dim-on-lanes layout "
-        "there, and the dim-on-lanes kernels read no model data (item 12)")
+        f"{model.dim}, which {why} (item 12)")
 
 
 class ChainState(NamedTuple):

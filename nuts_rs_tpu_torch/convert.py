@@ -128,8 +128,9 @@ def model_from_pallas_args(kind: str, args, name=None, tile_rows=None,
             name=name, tile_rows=int(tile_rows))
     if kind != "logistic_regression":
         raise NotImplementedError(
-            f"no data-carrying model {kind!r} is ported (ROADMAP.md queue 1 "
-            "item 10)")
+            f"model_from_pallas_args converts the logistic regression's "
+            f"arrays; build {kind!r} with its own constructor "
+            "(nuts_rs_tpu_torch.models), which makes the JAX model's data")
     x, y = (np.asarray(a) for a in args)
     return logistic_regression_from_tensors(
         *logistic_regression_tensors(x, y), name=name)

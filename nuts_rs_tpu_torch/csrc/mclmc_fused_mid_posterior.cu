@@ -215,8 +215,8 @@ __global__ void __launch_bounds__(LD_T)
 extern "C" long long nrt_mclmc_mid_smem_bytes(int d, int model_id,
                                               const int* model_ints) {
   long long bytes = -1;
-  const float no_params[1] = {0.0f};
-  const void* no_ptrs[2] = {nullptr, nullptr};
+  const float no_params[nrt::MAX_MODEL_PARAMS] = {};
+  const void* no_ptrs[nrt::MAX_MODEL_PTRS] = {};
   nrt::with_block_model(
       model_id, no_params, no_ptrs, model_ints, [&](auto model) {
         bytes = 4 * (long long)(nrt::mc_smem_floats(d) +

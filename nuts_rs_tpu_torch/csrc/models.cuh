@@ -19,12 +19,19 @@
 // together from the whole position vector in shared memory; a gradient
 // coordinate may need all of q, and the functor may hold device pointers to
 // the model's data (the mid-d chains-on-lanes kernels, nuts_fused_mid_*.cu,
-// take only this form).  q and g are d floats of shared memory; the caller has
-// put a __syncthreads between the last write of q and the call; thread t
-// writes g[j] for its own coordinates j = t, t + LD_T, ... and reads only
-// those after the call; every thread returns logp.  `scratch` is
+// and the dim-on-lanes kernels with data, nuts_fused_ld_args_*.cu, take only
+// this form).  q and g are d floats of shared memory; the caller has put a
+// __syncthreads between its last access of q and g and the call; after the
+// call thread t reads only g[j] for its own coordinates j = t, t + LD_T, ...
+// A functor writes those itself, or writes any coordinate of g before a
+// __syncthreads of its own (the one inside Reducer::sum), as Radon and
+// StochasticVolatility do.  Every thread returns logp.  `scratch` is
 // scratch_floats() floats of shared memory that belong to the functor from
 // one call to the next.
+//
+// Only IidNormal has the eval and term / finish forms; a model of another
+// functor takes the mid-d kernels at every chains-on-lanes size
+// (nuts_fused.cl_kernel) and the ld_args kernels above.
 //
 // The plain versions' closed forms take the same orders
 // (nuts_rs_tpu_torch/models/gaussian.py with ops.dsum / ops.tsum).
@@ -44,7 +51,12 @@ namespace cg = cooperative_groups;
 enum ModelId {
   MODEL_IID_NORMAL = 0,
   MODEL_LOGISTIC_REGRESSION = 1,
-  MODEL_LOGISTIC_REGRESSION_STREAM = 2
+  MODEL_LOGISTIC_REGRESSION_STREAM = 2,
+  MODEL_CORRELATED_NORMAL_RANK1 = 3,
+  MODEL_RADON = 4,
+  MODEL_STOCHASTIC_VOLATILITY = 5,
+  MODEL_FUNNEL = 6,
+  MODEL_CORRELATED_NORMAL = 7
 };
 
 // iid Normal(mu, 1): logp = -0.5 sum (q - mu)^2, grad = -(q - mu).
@@ -432,6 +444,389 @@ struct LogisticRegressionStream {
   }
 };
 
+// The rank-1 correlated normal (nuts_rs_tpu/models/gaussian.py:45-76), its
+// data u [d] and the scale diagonal s [d] in device memory:
+//   y = q / sqrt(s),  logp = -0.5 (y.y + coef (u.y) (u.y)),
+//   grad = -(y + coef (u.y) u) / sqrt(s)
+// (the JAX body's spelling, dividing by sqrt(s)).  The two dots in one
+// Reducer call (ops.tsum's order), then the gradient from them.
+struct CorrelatedNormalRank1 {
+  const float* u;  // [d]
+  const float* s;  // [d]
+  float coef;      // 1 / eig - 1
+
+  __host__ __device__ size_t scratch_floats() const { return 0; }
+
+  __device__ __forceinline__ float eval_block(const float* q, float* g, int d,
+                                              Reducer& red, float*) const {
+    float v[2];  // y.y, u.y
+    const int n = (d + LD_T - 1) / LD_T;
+    for (int i = 0; i < n; ++i) {
+      const int j = threadIdx.x + i * LD_T;
+      float yy = 0.0f, uy = 0.0f;
+      if (j < d) {
+        const float y = q[j] / sqrtf(s[j]);
+        yy = y * y;
+        uy = u[j] * y;
+      }
+      acc(v[0], i, yy);
+      acc(v[1], i, uy);
+    }
+    red.sum(v);
+    const float cu = coef * v[1];
+    for (int j = threadIdx.x; j < d; j += LD_T) {
+      const float root = sqrtf(s[j]);
+      const float y = q[j] / root;
+      g[j] = -(y + cu * u[j]) / root;
+    }
+    return -0.5f * (v[0] + cu * v[1]);
+  }
+};
+
+// The correlated normal with covariance I + r 1 1^T
+// (nuts_rs_tpu/models/gaussian.py:79-101), no data: with s = sum q,
+// logp = -0.5 q.q + 0.5 c s s and grad = c s - q, c = r / (1 + r d).
+struct CorrelatedNormal {
+  float c;
+
+  __host__ __device__ size_t scratch_floats() const { return 0; }
+
+  __device__ __forceinline__ float eval_block(const float* q, float* g, int d,
+                                              Reducer& red, float*) const {
+    float v[2];  // sum q, q.q
+    const int n = (d + LD_T - 1) / LD_T;
+    for (int i = 0; i < n; ++i) {
+      const int j = threadIdx.x + i * LD_T;
+      const float qj = j < d ? q[j] : 0.0f;
+      acc(v[0], i, qj);
+      acc(v[1], i, qj * qj);
+    }
+    red.sum(v);
+    const float cs = c * v[0];
+    for (int j = threadIdx.x; j < d; j += LD_T) g[j] = cs - q[j];
+    return -0.5f * v[1] + 0.5f * c * v[0] * v[0];
+  }
+};
+
+// Neal's funnel (nuts_rs_tpu/models/gaussian.py:104-114), no data: with
+// v = q0, t = v / 3, e = exp(-v), h = 0.5 (d - 1) and S the sum of
+// x x e over x = q[1:] (tsum over all d coordinates, coordinate 0's term
+// 0.0): logp = -0.5 t t + (-0.5 S - h v), grad (0.5 S - t / 3) - h for v and
+// -(x e) for x.
+struct Funnel {
+  __host__ __device__ size_t scratch_floats() const { return 0; }
+
+  __device__ __forceinline__ float eval_block(const float* q, float* g, int d,
+                                              Reducer& red, float*) const {
+    const float v = q[0];
+    const float t = v / 3.0f;
+    const float e = expf(-v);
+    float S[1];
+    const int n = (d + LD_T - 1) / LD_T;
+    for (int i = 0; i < n; ++i) {
+      const int j = threadIdx.x + i * LD_T;
+      acc(S[0], i, (j >= 1 && j < d) ? q[j] * q[j] * e : 0.0f);
+    }
+    red.sum(S);
+    const float h = 0.5f * (float)(d - 1);
+    for (int j = threadIdx.x; j < d; j += LD_T)
+      g[j] = j == 0 ? (0.5f * S[0] - t / 3.0f) - h : -(q[j] * e);
+    return -0.5f * (t * t) + (-0.5f * S[0] - h * v);
+  }
+};
+
+constexpr float HALF_LOG_2PI = 0.918938533204672742f;  // 0.5 log(2 pi)
+
+// The radon varying-intercept regression
+// (nuts_rs_tpu/models/hierarchical.py:53-127) over
+// q = [mu_a, beta, log_sigma, log_sigma_a, z_0..z_{J-1}], d = J + 4:
+//   a_j = mu_a + sigma_a z_j,  r_i = (a_{g_i} + beta x_i) - y_i,
+//   logp = -0.5 (mu_a / 10)^2 - 0.5 (beta / 10)^2 + (-0.5 sigma^2 + ls)
+//          + (-0.5 sigma_a^2 + lsa) + -0.5 z.z
+//          + (-0.5 sum (r / sigma)^2 - N (ls + 0.5 log 2 pi))
+// (the JAX body's order of terms).  The rows are held stably sorted by
+// group, x [N] and y [N], with the groups' row offsets off [J + 1].  The
+// gradient needs each group's sum of the residuals' derivatives: thread t
+// walks the rows of its groups j = t, t + LD_T, ... in ascending order, each
+// sum from 0.0, with u = r / sigma and e = u / sigma:
+//   Q_j = sum u u,  E_j = sum e,  X_j = sum e x  (no atomics);
+// Q, E, X, z.z and sum z_j E_j are then sums over the groups in one Reducer
+// call (tsum's order over j), and
+//   g_mu_a = -(mu_a / 10) / 10 - E,  g_beta = -(beta / 10) / 10 - X,
+//   g_ls = ((1 - sigma^2) + Q) - N,  g_lsa = (1 - sigma_a^2) - sigma_a z.E,
+//   g_z_j = -z_j - sigma_a E_j,
+// g_z_j written by group j's thread before the Reducer's barrier.  The plain
+// version (models/hierarchical.py::radon_logp_grad) pads the groups to
+// [J, n_max] and adds their rows column by column in the same order.
+struct Radon {
+  const float* x;    // [N], rows sorted by group
+  const float* y;    // [N]
+  const int* off;    // [J + 1]
+  int N, J;
+
+  __host__ __device__ size_t scratch_floats() const { return 0; }
+
+  __device__ __forceinline__ float eval_block(const float* q, float* g, int,
+                                              Reducer& red, float*) const {
+    const float mu_a = q[0], beta = q[1], ls = q[2], lsa = q[3];
+    const float sigma = expf(ls), sa = expf(lsa);
+    float v[5];  // Q, E, X, z.z, z.E
+    const int n = (J + LD_T - 1) / LD_T;
+    for (int i = 0; i < n; ++i) {
+      const int j = threadIdx.x + i * LD_T;
+      float qs = 0.0f, es = 0.0f, xs = 0.0f, zz = 0.0f, ze = 0.0f;
+      if (j < J) {
+        const float z = q[4 + j];
+        const float a = mu_a + sa * z;
+        const int end = off[j + 1];
+        for (int k = off[j]; k < end; ++k) {
+          const float xk = x[k];
+          const float r = (a + beta * xk) - y[k];
+          const float u = r / sigma;
+          const float e = u / sigma;
+          qs = qs + u * u;
+          es = es + e;
+          xs = xs + e * xk;
+        }
+        zz = z * z;
+        ze = z * es;
+        g[4 + j] = -z - sa * es;
+      }
+      acc(v[0], i, qs);
+      acc(v[1], i, es);
+      acc(v[2], i, xs);
+      acc(v[3], i, zz);
+      acc(v[4], i, ze);
+    }
+    red.sum(v);  // its barrier also publishes g[4 + j]
+    const float t1 = mu_a / 10.0f, t2 = beta / 10.0f;
+    const float nf = (float)N;
+    switch (threadIdx.x) {
+      case 0: g[0] = -(t1 / 10.0f) - v[1]; break;
+      case 1: g[1] = -(t2 / 10.0f) - v[2]; break;
+      case 2: g[2] = ((1.0f - sigma * sigma) + v[0]) - nf; break;
+      case 3: g[3] = (1.0f - sa * sa) - sa * v[4]; break;
+    }
+    float lp = -0.5f * (t1 * t1) - 0.5f * (t2 * t2);
+    lp = lp + (-0.5f * (sigma * sigma) + ls);
+    lp = lp + (-0.5f * (sa * sa) + lsa);
+    lp = lp + -0.5f * v[3];
+    return lp + (-0.5f * v[0] - nf * (ls + HALF_LOG_2PI));
+  }
+};
+
+// Special functions of the stochastic-volatility model out of basic
+// operations, one definition shared with the plain version
+// (models/stochastic_volatility.py: lgamma, digamma, log1p), so that both
+// round alike on the card.  x >= 0; the recurrences shift x up to 6 in at
+// most 6 steps.
+constexpr float SV_PI = 3.14159265358979323846f;
+
+// p *= x, x += 1 while x < 6; Stirling's series to 1/x^13; minus log p
+__device__ __forceinline__ float sv_lgamma(float x) {
+  float p = 1.0f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    if (x < 6.0f) {
+      p = p * x;
+      x = x + 1.0f;
+    }
+  }
+  const float s = 1.0f / x;
+  const float s2 = s * s;
+  float ser = (float)(1.0 / 156.0);
+  ser = (float)(-691.0 / 360360.0) + s2 * ser;
+  ser = (float)(1.0 / 1188.0) + s2 * ser;
+  ser = (float)(-1.0 / 1680.0) + s2 * ser;
+  ser = (float)(1.0 / 1260.0) + s2 * ser;
+  ser = (float)(-1.0 / 360.0) + s2 * ser;
+  ser = (float)(1.0 / 12.0) + s2 * ser;
+  ser = s * ser;
+  return (((x - 0.5f) * logf(x) - x) + HALF_LOG_2PI) + ser - logf(p);
+}
+
+// acc += 1 / x, x += 1 while x < 6; the asymptotic series to 1/x^14
+__device__ __forceinline__ float sv_digamma(float x) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    if (x < 6.0f) {
+      acc = acc + 1.0f / x;
+      x = x + 1.0f;
+    }
+  }
+  const float s = 1.0f / x;
+  const float s2 = s * s;
+  float ser = (float)(1.0 / 12.0);
+  ser = (float)(691.0 / 32760.0) - s2 * ser;
+  ser = (float)(1.0 / 132.0) - s2 * ser;
+  ser = (float)(1.0 / 240.0) - s2 * ser;
+  ser = (float)(1.0 / 252.0) - s2 * ser;
+  ser = (float)(1.0 / 120.0) - s2 * ser;
+  ser = (float)(1.0 / 12.0) - s2 * ser;
+  ser = s2 * ser;
+  return ((logf(x) - 0.5f * s) - ser) - acc;
+}
+
+// log(1 + w): w where 1 + w rounds to 1, else log(u) (w / (u - 1))
+__device__ __forceinline__ float sv_log1p(float w) {
+  const float u = 1.0f + w;
+  return u == 1.0f ? w : logf(u) * (w / (u - 1.0f));
+}
+
+// Exclusive prefix sum of one value per thread over the LD_T threads (REV:
+// the suffix sum, threads and lanes taken in reverse): an inclusive
+// Hillis-Steele scan inside each warp (offsets 1, 2, 4, 8, 16:
+// x_i + x_{i-o}), the same over the LD_W warp totals (1, 2, 4), then
+// warp prefix + lane prefix (0.0 where there is none).  wt: LD_W floats of
+// shared memory; one __syncthreads.
+template <bool REV>
+__device__ __forceinline__ float sv_scan_exclusive(float x, float* wt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lp = REV ? 31 - lane : lane;
+  const int wp = REV ? LD_W - 1 - warp : warp;
+  float incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float y = REV ? __shfl_down_sync(0xffffffffu, incl, o)
+                        : __shfl_up_sync(0xffffffffu, incl, o);
+    if (lp >= o) incl = incl + y;
+  }
+  float lane_ex = REV ? __shfl_down_sync(0xffffffffu, incl, 1)
+                      : __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lp == 0) lane_ex = 0.0f;
+  if (lp == 31) wt[wp] = incl;
+  __syncthreads();
+  float W[LD_W];
+#pragma unroll
+  for (int w = 0; w < LD_W; ++w) W[w] = wt[w];
+#pragma unroll
+  for (int o = 1; o < LD_W; o <<= 1)
+#pragma unroll
+    for (int i = LD_W - 1; i >= o; --i) W[i] = W[i] + W[i - o];
+  float wex = 0.0f;
+#pragma unroll
+  for (int w = 1; w < LD_W; ++w)
+    if (w == wp) wex = W[w - 1];
+  return wex + lane_ex;
+}
+
+// The non-centered Student-t stochastic-volatility model
+// (nuts_rs_tpu/models/stochastic_volatility.py:48-99) over
+// q = [log_sigma, log_nu, eps_0..eps_{T-1}], d = T + 2, the returns r [T]
+// in device memory.  With sigma = exp(q0), nu = exp(q1), k = (nu + 1) 0.5,
+// c the cumulative sum of eps and, per t, h = sigma c, scale = exp(h 0.5),
+// z = r / scale, w = z z / nu, L = log1p(w):
+//   term = (A - log(scale)) - k L,
+//   A = (lgamma(k) - lgamma(nu 0.5)) - 0.5 log(nu pi)
+// (the JAX body's spelling), b = (k w) / (1 + w), a = b - 0.5 = dterm/dh;
+//   logp = ((-lam_s sigma + q0) + (-lam_nu nu + q1)) + -0.5 sum eps^2
+//          + sum term,
+//   g0 = (1 - lam_s sigma) + sum a h,
+//   g1 = ((1 - lam_nu nu) + T (0.5 nu (digamma(k) - digamma(nu 0.5)) - 0.5))
+//        + sum (b - 0.5 nu L),
+//   g_eps_t = sigma rs_t - eps_t,  rs the reverse cumulative sum of a.
+// The scalars of a chain (sigma, nu, A and the digammas) every thread
+// computes alike.
+//
+// Order, shared with the plain version
+// (stochastic_volatility.py::stochastic_volatility_logp_grad).  Inside the
+// functor thread t owns the contiguous run of R = ceil(T / LD_T) coordinates
+// t R .. t R + R - 1 (a position past T counts 0.0); g is still written for
+// the caller's strided coordinates after the Reducer's barrier.  The
+// cumulative sum: the run's inclusive sums in ascending order, the exclusive
+// scan of the LD_T run totals (sv_scan_exclusive), then prefix + local.  The
+// reverse cumulative sum: the same with the run taken from its end and the
+// suffix scan.  The four sums (term, a h, b - 0.5 nu L, eps^2): the run's
+// terms in ascending order, then the Reducer (tsum's order over the LD_T run
+// sums).  The run's values pass through `scratch` ([LD_T R]), which only
+// their thread touches, the two scans' warp totals through 2 LD_W floats.
+struct StochasticVolatility {
+  const float* r;  // [T]
+  float lam_s, lam_nu;
+  int T;
+
+  __host__ __device__ int run() const {
+    return T > LD_T ? (T + LD_T - 1) / LD_T : 1;
+  }
+
+  __host__ __device__ size_t scratch_floats() const {
+    return (size_t)LD_T * run() + 2 * LD_W;
+  }
+
+  __device__ __forceinline__ float eval_block(const float* q, float* g, int,
+                                              Reducer& red,
+                                              float* scratch) const {
+    const int R = run();
+    float* cs = scratch;  // [LD_T R]: the run's sums, then its a, then rs
+    float* wt = scratch + (size_t)LD_T * R;  // [2][LD_W]
+    const int base = threadIdx.x * R;
+    const float ls = q[0], lnu = q[1];
+    const float sigma = expf(ls), nu = expf(lnu);
+    const float k = (nu + 1.0f) * 0.5f, nuh = nu * 0.5f;
+    const float A = (sv_lgamma(k) - sv_lgamma(nuh)) - 0.5f * logf(nu * SV_PI);
+
+    float cur = 0.0f;
+    for (int i = 0; i < R; ++i) {
+      const int s = base + i;
+      const float e = s < T ? q[2 + s] : 0.0f;
+      cur = i == 0 ? e : cur + e;
+      cs[s] = cur;
+    }
+    const float pre = sv_scan_exclusive<false>(cur, wt);
+
+    float part[4];  // term, a h, b - 0.5 nu L, eps^2
+    for (int i = 0; i < R; ++i) {
+      const int s = base + i;
+      float term = 0.0f, ah = 0.0f, tn = 0.0f, ee = 0.0f, a = 0.0f;
+      if (s < T) {
+        const float e = q[2 + s];
+        const float h = sigma * (pre + cs[s]);
+        const float scale = expf(h * 0.5f);
+        const float z = r[s] / scale;
+        const float w = (z * z) / nu;
+        const float L = sv_log1p(w);
+        term = (A - logf(scale)) - k * L;
+        const float b = (k * w) / (1.0f + w);
+        a = b - 0.5f;
+        ah = a * h;
+        tn = b - nuh * L;
+        ee = e * e;
+      }
+      acc(part[0], i, term);
+      acc(part[1], i, ah);
+      acc(part[2], i, tn);
+      acc(part[3], i, ee);
+      cs[s] = a;
+    }
+    float rc = 0.0f;
+    for (int i = R - 1; i >= 0; --i) {
+      const int s = base + i;
+      rc = i == R - 1 ? cs[s] : rc + cs[s];
+      cs[s] = rc;
+    }
+    const float suf = sv_scan_exclusive<true>(rc, wt + LD_W);
+    for (int i = 0; i < R; ++i) {
+      const int s = base + i;
+      if (s < T) g[2 + s] = sigma * (suf + cs[s]) - q[2 + s];
+    }
+    red.sum(part);  // its barrier also publishes g[2 + s]
+    if (threadIdx.x == 0) g[0] = (1.0f - lam_s * sigma) + part[1];
+    if (threadIdx.x == 1)
+      g[1] = ((1.0f - lam_nu * nu) +
+              (float)T * (nuh * (sv_digamma(k) - sv_digamma(nuh)) - 0.5f)) +
+             part[2];
+    float lp = (-lam_s * sigma + ls) + (-lam_nu * nu + lnu);
+    lp = lp + -0.5f * part[3];
+    return lp + part[0];
+  }
+};
+
+// Most floats and tensors of a kernel hook: a shared-memory probe hands
+// with_block_model this many placeholders.
+constexpr int MAX_MODEL_PARAMS = 4;
+constexpr int MAX_MODEL_PTRS = 4;
+
 // Host side of the eval_block form: build the functor `model_id` names from
 // the kernel hook's floats, the device pointers of its tensors and their
 // sizes (Model.kernel_hook, _build.MODEL_IDS) and hand it to fn.
@@ -446,6 +841,21 @@ inline cudaError_t with_block_model(int model_id, const float* params,
       return fn(LogisticRegression{static_cast<const float*>(ptrs[0]),
                                    static_cast<const float*>(ptrs[1]),
                                    ints[0], ints[1]});
+    case MODEL_CORRELATED_NORMAL_RANK1:
+      return fn(CorrelatedNormalRank1{static_cast<const float*>(ptrs[0]),
+                                      static_cast<const float*>(ptrs[1]),
+                                      params[0]});
+    case MODEL_RADON:
+      return fn(Radon{static_cast<const float*>(ptrs[0]),
+                      static_cast<const float*>(ptrs[1]),
+                      static_cast<const int*>(ptrs[2]), ints[0], ints[1]});
+    case MODEL_STOCHASTIC_VOLATILITY:
+      return fn(StochasticVolatility{static_cast<const float*>(ptrs[0]),
+                                     params[0], params[1], ints[0]});
+    case MODEL_FUNNEL:
+      return fn(Funnel{});
+    case MODEL_CORRELATED_NORMAL:
+      return fn(CorrelatedNormal{params[0]});
   }
   return cudaErrorInvalidValue;
 }

@@ -31,7 +31,7 @@ extern "C" int nrt_ld_posterior_launch(
                           stds, mean, logdet, step0,  bar,    draws,
                           stats, q_f, g_f,  logp_f,   iters,  work};
   return (int)nrt::ld_launch(
-      nrt::ld_posterior_kernel<nrt::IidNormal, false>, a,
+      nrt::ld_posterior_kernel<nrt::IidNormal, false, false>, a,
       nrt::IidNormal{model_params[0]}, C, B,
       4 * nrt::ld_smem_floats(nrt::LD_POST_NVEC, dim, maxdepth),
       (cudaStream_t)stream);

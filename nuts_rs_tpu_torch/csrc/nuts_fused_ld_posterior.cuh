@@ -1,8 +1,9 @@
 // Fused draw-asynchronous NUTS posterior with several threads a chain: the
-// kernel body of K1-ld (dim-on-lanes layout, nuts_fused_ld_posterior.cu) and,
-// with MID, of the mid-d chains-on-lanes kernel K1-args
-// (nuts_fused_mid_posterior.cu), which differs in the index of a vector
-// random site and in how the model is evaluated (nuts_tree_ld.cuh).
+// kernel body of K1-ld (dim-on-lanes layout, nuts_fused_ld_posterior.cu), of
+// K1-ld-args (the same with the model's data, its eval_block form,
+// nuts_fused_ld_args_posterior.cu) and, with CL_SITE, of the mid-d
+// chains-on-lanes kernel K1-args (nuts_fused_mid_posterior.cu), which
+// differs in the index of a vector random site (nuts_tree_ld.cuh).
 //
 // Replaces the TPU kernel nuts_rs_tpu/kernels/nuts_pallas.py::make_kernel
 // (:82) with layout="ld" (:123-136,167-173,337-339,450-474), launched by
@@ -68,7 +69,7 @@ struct LdPostArgs {
 // the model's evaluation is the cluster's (the streamed functor, models.cuh,
 // whose cluster barriers every block must meet): they agree at the top of
 // each iteration on whether any of them still lacks draws.
-template <class Model, bool MID, bool LOCKSTEP = false>
+template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool LOCKSTEP = false>
 __global__ void __launch_bounds__(LD_T)
     ld_posterior_kernel(const LdPostArgs a, const Model model) {
   extern __shared__ float smem[];
@@ -123,7 +124,8 @@ __global__ void __launch_bounds__(LD_T)
       const float sd = a.stds[gj], mn = a.mean[gj], q0 = a.q[gj];
       const float z0 = (q0 - mn) / sd;
       const float zg0 = a.g[gj] * sd;
-      const float v0 = normal(seed, 0u, 1u, 2u, block_site<MID>(b, B, d, j));
+      const float v0 =
+          normal(seed, 0u, 1u, 2u, block_site<CL_SITE>(b, B, d, j));
       ch.stds[j] = sd;
       ch.mean[j] = mn;
       ch.e_z[j] = ch.m_z[j] = ch.p_z[j] = ch.dm_z[j] = ch.ds_z[j] = z0;
@@ -166,8 +168,8 @@ __global__ void __launch_bounds__(LD_T)
     const float r_acc = uniform(seed, it, 5u, (uint32_t)b);
     const float dirf = direction;
 
-    const LdLeap lf = ld_leapfrog<MID>(ch, red, model, dirf, step, leaf,
-                                       depth, q1, scratch);
+    const LdLeap lf = ld_leapfrog<EVAL_BLOCK>(ch, red, model, dirf, step,
+                                              leaf, depth, q1, scratch);
     const float logp1 = lf.logp1, ke1 = lf.ke1;
     const float err = (ke1 - (logp1 + logdet)) - e_init;
     const bool diverged = (err > a.max_err) || !isfinite(err);
@@ -263,7 +265,8 @@ __global__ void __launch_bounds__(LD_T)
         const int j = t0 + i * LD_T;
         float term = 0.0f;
         if (j < d) {
-          const float vn = normal(seed, it, 7u, 8u, block_site<MID>(b, B, d, j));
+          const float vn = normal(seed, it, 7u, 8u,
+                                  block_site<CL_SITE>(b, B, d, j));
           const float z = ch.dm_z[j], zg = ch.dm_zg[j];
           ch.e_z[j] = ch.m_z[j] = ch.p_z[j] = z;
           ch.e_v[j] = ch.m_v[j] = ch.p_v[j] = vn;
@@ -315,6 +318,27 @@ __global__ void __launch_bounds__(LD_T)
     a.logp_f[c] = dm_logp;
     a.iters[c] = (int)it;
   }
+}
+
+// Dynamic shared memory of one chain block, in bytes, of the kernels that
+// evaluate the model in its eval_block form (the mid-d and the ld_args ones,
+// which lay it out alike): with `warmup` the warmup kernel's 19 vectors (it
+// keeps q1), else the posterior's 21, then the functor's scratch; -1 for a
+// model id that no functor of the library has.
+inline long long block_smem_bytes(int warmup, int d, int maxdepth,
+                                  int model_id, const int* model_ints) {
+  const int nvec = warmup ? LD_WARM_NVEC + 1 : LD_POST_NVEC;
+  long long bytes = -1;
+  const float no_params[MAX_MODEL_PARAMS] = {};
+  const void* no_ptrs[MAX_MODEL_PTRS] = {};
+  with_block_model(model_id, no_params, no_ptrs, model_ints,
+                   [&](auto model) {
+                     bytes = 4 * (long long)(ld_smem_floats(nvec, d,
+                                                            maxdepth) +
+                                             model.scratch_floats());
+                     return cudaSuccess;
+                   });
+  return bytes;
 }
 
 }  // namespace nrt

@@ -1,8 +1,9 @@
 // Fused lock-step NUTS warmup with in-kernel adaptation and several threads
 // a chain: the kernel body of K2-ld (dim-on-lanes layout,
-// nuts_fused_ld_warmup.cu) and, with MID, of the mid-d chains-on-lanes kernel
-// K2-args (nuts_fused_mid_warmup.cu), which differs in the index of a vector
-// random site and in how the model is evaluated (nuts_tree_ld.cuh).
+// nuts_fused_ld_warmup.cu), of K2-ld-args (the same with the model's data,
+// its eval_block form, nuts_fused_ld_args_warmup.cu) and, with CL_SITE, of
+// the mid-d chains-on-lanes kernel K2-args (nuts_fused_mid_warmup.cu), which
+// differs in the index of a vector random site (nuts_tree_ld.cuh).
 //
 // Replaces the TPU kernel
 // nuts_rs_tpu/kernels/nuts_pallas.py::make_warmup_kernel (:942) with
@@ -70,7 +71,7 @@ struct LdWarmArgs {
   float* work;  // [C][4][D + 1][d] checkpoint stacks
 };
 
-template <class Model, bool MID>
+template <class Model, bool CL_SITE, bool EVAL_BLOCK>
 __global__ void __launch_bounds__(LD_T)
     ld_warmup_kernel(const LdWarmArgs a, const Model model) {
   extern __shared__ float smem[];
@@ -96,7 +97,7 @@ __global__ void __launch_bounds__(LD_T)
     p += d;
   }
   float* q1 = nullptr;  // the new position, where the model needs it whole
-  if (MID) {
+  if (EVAL_BLOCK) {
     q1 = p;
     p += d;
   }
@@ -144,7 +145,8 @@ __global__ void __launch_bounds__(LD_T)
         const float sd = ch.stds[j];
         const float z0 = (q[j] - ch.mean[j]) / sd;
         const float zg0 = g[j] * sd;
-        const float v0 = normal(seed, it, 1u, 2u, block_site<MID>(b, B, d, j));
+        const float v0 = normal(seed, it, 1u, 2u,
+                                  block_site<CL_SITE>(b, B, d, j));
         ch.e_z[j] = ch.m_z[j] = ch.p_z[j] = ch.dm_z[j] = ch.ds_z[j] = z0;
         ch.e_zg[j] = ch.m_zg[j] = ch.p_zg[j] = ch.dm_zg[j] = ch.ds_zg[j] = zg0;
         ch.e_v[j] = ch.m_v[j] = ch.p_v[j] = v0;
@@ -169,8 +171,8 @@ __global__ void __launch_bounds__(LD_T)
         const float r_sel = uniform(seed, it, 4u, (uint32_t)b);
         const float r_acc = uniform(seed, it, 5u, (uint32_t)b);
         const float dirf = direction;
-        const LdLeap lf = ld_leapfrog<MID>(ch, red, model, dirf, step, leaf,
-                                           depth, q1, scratch);
+        const LdLeap lf = ld_leapfrog<EVAL_BLOCK>(ch, red, model, dirf, step,
+                                                  leaf, depth, q1, scratch);
         const float logp1 = lf.logp1, ke1 = lf.ke1;
         const float err = (ke1 - (logp1 + logdet)) - e_init;
         const bool diverged = (err > a.max_err) || !isfinite(err);

@@ -64,22 +64,10 @@
 #include "nuts_fused_ld_posterior.cuh"
 
 // Dynamic shared memory of one chain block of the mid-d kernels, in bytes
-// (0: posterior kernel, 1: warmup kernel, which keeps q1 as a 19th vector),
-// with the model functor's scratch; -1 for a model without the eval_block
-// form.
+// (0: posterior kernel, 1: warmup kernel; nrt::block_smem_bytes).
 extern "C" long long nrt_mid_smem_bytes(int warmup, int d, int maxdepth,
                                         int model_id, const int* model_ints) {
-  const int nvec = warmup ? nrt::LD_WARM_NVEC + 1 : nrt::LD_POST_NVEC;
-  long long bytes = -1;
-  const float no_params[1] = {0.0f};
-  const void* no_ptrs[2] = {nullptr, nullptr};
-  nrt::with_block_model(
-      model_id, no_params, no_ptrs, model_ints, [&](auto model) {
-        bytes = 4 * (long long)(nrt::ld_smem_floats(nvec, d, maxdepth) +
-                                model.scratch_floats());
-        return cudaSuccess;
-      });
-  return bytes;
+  return nrt::block_smem_bytes(warmup, d, maxdepth, model_id, model_ints);
 }
 
 extern "C" int nrt_mid_posterior_launch(
@@ -101,7 +89,7 @@ extern "C" int nrt_mid_posterior_launch(
   return (int)nrt::with_block_model(
       model_id, model_params, model_ptrs, model_ints, [&](auto model) {
         return nrt::ld_launch(
-            nrt::ld_posterior_kernel<decltype(model), true>, a, model, C, B,
+            nrt::ld_posterior_kernel<decltype(model), true, true>, a, model, C, B,
             4 * (nrt::ld_smem_floats(nrt::LD_POST_NVEC, dim, maxdepth) +
                  model.scratch_floats()),
             (cudaStream_t)stream);

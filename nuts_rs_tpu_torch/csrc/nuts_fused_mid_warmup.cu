@@ -53,7 +53,7 @@ extern "C" int nrt_mid_warmup_launch(
   return (int)nrt::with_block_model(
       model_id, model_params, model_ptrs, model_ints, [&](auto model) {
         return nrt::ld_launch(
-            nrt::ld_warmup_kernel<decltype(model), true>, a, model, C, B,
+            nrt::ld_warmup_kernel<decltype(model), true, true>, a, model, C, B,
             4 * (nrt::ld_smem_floats(nrt::LD_WARM_NVEC + 1, dim, maxdepth) +
                  model.scratch_floats()),
             (cudaStream_t)stream);

@@ -14,8 +14,8 @@
 //
 // What was chosen, and why:
 //
-// 1. The tree.  The body is K1-args' (nuts_fused_ld_posterior.cuh with MID,
-//    nuts_tree_ld.cuh): one CUDA block of LD_T = 256 threads per chain, the
+// 1. The tree.  The body is K1-args' (nuts_fused_ld_posterior.cuh with
+//    CL_SITE and EVAL_BLOCK, nuts_tree_ld.cuh): one CUDA block of LD_T = 256 threads per chain, the
 //    21 live vectors in shared memory, the checkpoint stacks in a global
 //    workspace, a thread block cluster of B chains as the logical chain
 //    block, the chains-on-lanes site index j * B + b, the block seed by
@@ -61,7 +61,7 @@ extern "C" long long nrt_stream_smem_bytes(int d, int maxdepth, int B,
                                            int model_id,
                                            const int* model_ints) {
   long long bytes = -1;
-  const void* no_ptrs[2] = {nullptr, nullptr};
+  const void* no_ptrs[nrt::MAX_MODEL_PTRS] = {};
   nrt::with_stream_model(model_id, no_ptrs, model_ints, B, [&](auto model) {
     bytes = 4 * (long long)(nrt::ld_smem_floats(nrt::LD_POST_NVEC, d,
                                                 maxdepth) +
@@ -91,8 +91,8 @@ extern "C" int nrt_stream_posterior_launch(
   return (int)nrt::with_stream_model(
       model_id, model_ptrs, model_ints, B, [&](auto model) {
         return nrt::ld_launch(
-            nrt::ld_posterior_kernel<decltype(model), true, true>, a, model,
-            C, B,
+            nrt::ld_posterior_kernel<decltype(model), true, true, true>, a,
+            model, C, B,
             4 * (nrt::ld_smem_floats(nrt::LD_POST_NVEC, dim, maxdepth) +
                  model.scratch_floats()),
             (cudaStream_t)stream);

@@ -19,12 +19,16 @@
 // (warmup) does, and the chains agree on it through distributed shared
 // memory and one cluster barrier (ClusterMax), not once per iteration.
 //
-// The mid-d chains-on-lanes kernels (nuts_fused_mid_*.cu, template flag MID)
-// are built on the same pieces: they keep the chains-on-lanes numbering of a
-// vector site, j * B + b, so that a configuration whose layout is "cl" in
-// the JAX runners takes the cl random stream, and they evaluate the model
-// through its eval_block form (models.cuh), in which the block's threads
-// see the whole position vector and the model's data.
+// Two template choices make the kernels of these pieces.  CL_SITE: the
+// mid-d chains-on-lanes kernels (nuts_fused_mid_*.cu) keep the
+// chains-on-lanes numbering of a vector site, j * B + b, so that a
+// configuration whose layout is "cl" in the JAX runners takes the cl random
+// stream; the dim-on-lanes kernels number it b * d + j.  EVAL_BLOCK: the
+// model is evaluated through its eval_block form (models.cuh), in which the
+// block's threads see the whole position vector and the model's data (the
+// mid-d kernels and the dim-on-lanes kernels with data,
+// nuts_fused_ld_args_*.cu), or through its term / finish form, one
+// coordinate at a time (the dim-on-lanes kernels of IidNormal).
 //
 // Every per-chain contraction goes through Reducer::sum (block_sum.cuh),
 // whose order is the one of nuts_rs_tpu_torch/ops.py::tsum.  The Pallas
@@ -55,9 +59,10 @@ constexpr int LD_POST_NVEC = 21;
 // Index of a vector site's element for lane b of a logical block of B
 // chains and coordinate j: the flat position in the block's (B, d) shape in
 // the dim-on-lanes layout, in its (d, B) shape in the chains-on-lanes one.
-template <bool MID>
+template <bool CL_SITE>
 __device__ __forceinline__ uint32_t block_site(int b, int B, int d, int j) {
-  return MID ? (uint32_t)j * (uint32_t)B + (uint32_t)b : ld_site(b, d, j);
+  return CL_SITE ? (uint32_t)j * (uint32_t)B + (uint32_t)b
+                 : ld_site(b, d, j);
 }
 
 // max(value) over the blocks of the cluster (the chains of a logical block).
@@ -126,10 +131,10 @@ struct LdLeap {
 // One leapfrog from the moving edge with the model, the checkpoint-stack
 // writes and every U-turn check of the new leaf (nuts_pallas.py:348-576).
 // Writes z1, v2, zg1 (and q1 where the caller keeps it) and the stack rows.
-// With MID the model is evaluated in its eval_block form between two passes
-// over the coordinates: q1_keep must be given, and `scratch` is the
+// With EVAL_BLOCK the model is evaluated in its eval_block form between two
+// passes over the coordinates: q1_keep must be given, and `scratch` is the
 // functor's shared memory.
-template <bool MID, class Model>
+template <bool EVAL_BLOCK, class Model>
 __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
                                               const Model& model, float dirf,
                                               float step, int leaf, int depth,
@@ -153,7 +158,7 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
   const float* b0_v = c.lv + (size_t)D * d;
 
   float logp_block = 0.0f;
-  if constexpr (MID) {
+  if constexpr (EVAL_BLOCK) {
     // first pass: the half step and the new position; v2 holds v1 and zg1
     // the model's gradient until the second pass
     for (int j = threadIdx.x; j < d; j += LD_T) {
@@ -167,9 +172,10 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
     logp_block = model.eval_block(q1_keep, c.zg1, d, red, scratch);
   }
 
-  // sums: model term (0 with MID), v2.v2, z1.v2, then the top-level dots far_z.far_v,
-  // z1.far_v, far_z.v2, near_z.near_v, z1.near_v, near_z.v2, b0_z.far_v,
-  // far_z.b0_v (the last five only matter at depth > 0)
+  // sums: model term (0 with EVAL_BLOCK), v2.v2, z1.v2, then the top-level
+  // dots far_z.far_v, z1.far_v, far_z.v2, near_z.near_v, z1.near_v,
+  // near_z.v2, b0_z.far_v, far_z.b0_v (the last five only matter at
+  // depth > 0)
   float s[LD_NRED];
   for (int i = 0; i < c.n; ++i) {
     const int j = threadIdx.x + i * LD_T;
@@ -177,7 +183,7 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
     if (j < d) {
       const float sd = c.stds[j];
       float v1, z1, g1;
-      if constexpr (MID) {
+      if constexpr (EVAL_BLOCK) {
         v1 = c.v2[j];
         z1 = c.z1[j];
         g1 = c.zg1[j];
@@ -224,7 +230,7 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
   red.sum(s);
 
   LdLeap out;
-  if constexpr (MID)
+  if constexpr (EVAL_BLOCK)
     out.logp1 = logp_block;
   else
     out.logp1 = model.finish(s[0]);

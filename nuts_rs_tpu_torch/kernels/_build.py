@@ -46,7 +46,18 @@ DIMS = tuple(sorted({d for d, _ in SIZES}))
 CL_THREAD_MAX_DIM = max(DIMS)
 # nrt::ModelId of each kernel hook name (csrc/models.cuh)
 MODEL_IDS = {"iid_normal": 0, "logistic_regression": 1,
-             "logistic_regression_stream": 2}
+             "logistic_regression_stream": 2, "correlated_normal_rank1": 3,
+             "radon": 4, "stochastic_volatility": 5, "funnel": 6,
+             "correlated_normal": 7}
+# The functors with a one-coordinate form: the one-thread eval of the
+# thread-per-chain kernels and the term / finish of the dim-on-lanes kernels
+# K1-ld / K2-ld.  Every functor but the streamed one has the eval_block form,
+# which the mid-d kernels and the dim-on-lanes kernels with data (ld_args)
+# take.
+COORD_FUNCTORS = frozenset({"iid_normal"})
+# kernel launches that evaluated each functor, by hook name: the wrappers
+# count them beside their kernels' launches (count_model)
+MODEL_LAUNCHES = dict.fromkeys(MODEL_IDS, 0)
 MAX_BLOCK = 128  # nrt::MAX_BLOCK, the kernels' __launch_bounds__
 # ld kernels: chains per logical block = CUDA blocks per cluster
 # (nrt::LD_MAX_CLUSTER, the portable cluster size); live vectors a chain
@@ -90,6 +101,11 @@ SOURCES = {
         "nrt_ld_smem_bytes": ([_I, _I, _I], _LL)},
     "nuts_fused_ld_warmup": {
         "nrt_ld_warmup_launch": (_NUTS_WARM + [_P] * 18, _I)},
+    "nuts_fused_ld_args_posterior": {
+        "nrt_ld_args_posterior_launch": (_NUTS_POST + [_P] * 19, _I),
+        "nrt_ld_args_smem_bytes": ([_I, _I, _I, _I, _P], _LL)},
+    "nuts_fused_ld_args_warmup": {
+        "nrt_ld_args_warmup_launch": (_NUTS_WARM + [_P] * 20, _I)},
     "nuts_fused_mid_posterior": {
         "nrt_mid_posterior_launch": (_NUTS_POST + [_P] * 19, _I),
         "nrt_mid_smem_bytes": ([_I, _I, _I, _I, _P], _LL)},
@@ -139,7 +155,7 @@ def _library_path(stem: str) -> Path:
 def build(stems=None):
     """Build the libraries of ``stems`` (default: every source) that are not
     built yet, one ``nvcc`` per source, all started together."""
-    stems = list(SOURCES) if stems is None else list(stems)
+    stems = list(SOURCES) if stems is None else list(dict.fromkeys(stems))
     t0 = time.monotonic()
     missing = [(stem, so) for stem in stems
                if not (so := _library_path(stem)).exists()]
@@ -156,8 +172,8 @@ def build(stems=None):
     for stem, so in missing:
         tmp = so.with_suffix(".tmp")
         procs.append((stem, so, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-I", str(BUILD_DIR), "-o",
-             str(tmp), str(CSRC / f"{stem}.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-shared", "-I",
+             str(BUILD_DIR), "-o", str(tmp), str(CSRC / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = None
     for stem, so, tmp, p in procs:
@@ -252,7 +268,7 @@ def _check_esh_dim(d, mopts):
 
 
 def _common(q, model, opts, B):
-    model_id, params = _model_and_block(q, model, B)
+    model_id, params = _model_and_block(q, model, B, coord=True)
     C, d = q.shape
     D = opts.maxdepth
     if (d, D) not in SIZES:
@@ -263,22 +279,25 @@ def _common(q, model, opts, B):
     return C, d, D, model_id, params
 
 
-def _model_and_block(q, model, B, max_block=MAX_BLOCK, data=False):
+def _model_and_block(q, model, B, max_block=MAX_BLOCK, coord=False):
     """(model id, params) of the kernel hook, after the device and block
-    checks.  ``data``: the kernel reads the hook's tensors (only the mid-d
-    kernels do)."""
+    checks.  ``coord``: the kernel takes the one-coordinate form
+    (``COORD_FUNCTORS``; it reads no data), not the eval_block form, which
+    every functor has."""
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, got {q.device}")
     C = q.shape[0]
     if model.kernel_hook is None or model.hook_parts()[0] not in MODEL_IDS:
         raise NotImplementedError(
             f"model {model.name!r} has no kernel hook the CUDA kernels "
-            "compile in (ROADMAP.md queue 1 item 10)")
+            "compile in: the JAX package falls back to its sync engine "
+            "for such a model (ROADMAP.md queue 1 item 9)")
     name, floats, tensors = model.hook_parts()
-    if tensors and not data:
-        raise NotImplementedError(
-            f"model {model.name!r} carries data, which only the mid-d "
-            "chains-on-lanes kernels read (ROADMAP.md queue 1 item 12)")
+    if coord and name not in COORD_FUNCTORS:
+        raise ValueError(
+            f"the {name} functor has no form this kernel evaluates: the "
+            "mid-d and ld_args kernels take it (nuts_fused.cl_kernel, "
+            "nuts_fused._kernel_kind)")
     if not 1 <= B <= max_block or C % B:
         raise ValueError(f"chain block {B} must divide num_chains ({C}) and "
                          f"be at most {max_block}")
@@ -301,8 +320,50 @@ def _logistic_regression_data(tensors, d, device):
 
 def _no_data(tensors, d, device):
     if tensors:
-        raise ValueError("iid_normal carries no data")
+        raise ValueError("this functor carries no data")
     return ()
+
+
+def _rank1_data(tensors, d, device):
+    """Checks ``(u [d], s [d])``."""
+    if len(tensors) != 2:
+        raise ValueError("correlated_normal_rank1 carries (u [d], s [d])")
+    for name, t in zip(("u", "s"), tensors):
+        check_tensor(name, t, (d,), device)
+    return ()
+
+
+def _radon_data(tensors, d, device):
+    """Checks ``(x [N], y [N], offsets [J + 1])`` with ``d = J + 4``, the
+    rows sorted by group; returns (N, J)."""
+    if len(tensors) != 3:
+        raise ValueError("radon carries (x [N], y [N], offsets [J + 1])")
+    x, y, off = tensors
+    N = x.shape[0] if isinstance(x, torch.Tensor) and x.dim() == 1 else -1
+    J = d - 4
+    check_tensor("x", x, (N,), device)
+    check_tensor("y", y, (N,), device)
+    check_tensor("offsets", off, (J + 1,), device, torch.int32)
+    if J < 1 or N < 1:
+        raise ValueError("radon needs a group and a row")
+    return (N, J)
+
+
+def _sv_data(tensors, d, device):
+    """Checks ``(r [T],)`` with ``d = T + 2``; returns (T,)."""
+    if len(tensors) != 1:
+        raise ValueError("stochastic_volatility carries (r [T],)")
+    check_tensor("r", tensors[0], (d - 2,), device)
+    if d < 3:
+        raise ValueError("stochastic_volatility needs a return")
+    return (d - 2,)
+
+
+def _sv_scratch(ints):
+    """StochasticVolatility::scratch_floats: a run of R = ceil(T / 256)
+    floats a thread, two scans' warp totals."""
+    runs = max(1, -(-ints[0] // (32 * LD_WARPS)))
+    return 32 * LD_WARPS * runs + 2 * LD_WARPS
 
 
 # per kernel hook name: (the check of its tensors, which returns the ints
@@ -312,6 +373,11 @@ _MODEL_DATA = {
     "iid_normal": (_no_data, lambda ints: 0),
     "logistic_regression": (_logistic_regression_data,
                             lambda ints: ints[0] + LD_WARPS * ints[1]),
+    "correlated_normal_rank1": (_rank1_data, lambda ints: 0),
+    "radon": (_radon_data, lambda ints: 0),
+    "stochastic_volatility": (_sv_data, _sv_scratch),
+    "funnel": (_no_data, lambda ints: 0),
+    "correlated_normal": (_no_data, lambda ints: 0),
 }
 
 
@@ -325,7 +391,8 @@ def model_data_args(model, d, device):
 
 def mid_smem_bytes(kind, d, maxdepth, model):
     """Dynamic shared memory of one chain's CUDA block in the mid-d kernel
-    ``kind`` ("posterior" / "warmup"): the dim-on-lanes layout of
+    ``kind`` ("posterior" / "warmup"), and in the ld_args kernel of that
+    kind, which lays it out alike: the dim-on-lanes layout of
     ``ld_smem_bytes`` with ``MID_NVEC`` vectors, then the model functor's
     scratch, whose size comes from the functor's check of the model's data
     where they lie."""
@@ -363,7 +430,7 @@ def _mclmc_consts(d, mopts):
 
 
 def _mclmc_common(q, model, mopts, B):
-    model_id, params = _model_and_block(q, model, B)
+    model_id, params = _model_and_block(q, model, B, coord=True)
     C, d = q.shape
     if d not in DIMS:
         raise ValueError(
@@ -377,7 +444,7 @@ def _mclmc_common(q, model, mopts, B):
 def _mclmc_mid_common(kind, q, model, mopts, B):
     """(C, d, model id, params, ptrs, ints, consts, fconsts, lib) of a mid-d
     MCLMC launch, after the device, block, size and data checks."""
-    model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK, data=True)
+    model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK)
     C, d = q.shape
     ints, ptrs = model_data_args(model, d, q.device)
     need = mclmc_mid_smem_bytes(d, model)
@@ -427,12 +494,24 @@ def ld_smem_bytes(kind, d, maxdepth):
                 + 2 * MAX_LD_BLOCK)
 
 
-def ld_max_dim(maxdepth):
+def ld_max_dim(maxdepth, scratch_floats=0):
     """Largest d whose chain state fits a block's shared memory in both ld
-    kernels."""
+    kernels; with a functor's ``scratch_floats`` (the ld_args kernels, whose
+    warmup keeps 19 vectors and posterior 21), in both ld_args kernels."""
     nvec = max(LD_NVEC.values())
-    return (SMEM_OPT_IN_BYTES - ld_smem_bytes("posterior", 0, maxdepth)) \
-        // (4 * nvec)
+    return (SMEM_OPT_IN_BYTES - ld_smem_bytes("posterior", 0, maxdepth)
+            - 4 * scratch_floats) // (4 * nvec)
+
+
+def ld_fits(model, maxdepth):
+    """Whether ``model`` at its own d fits a block's shared memory in both
+    dim-on-lanes kernels that would take it (K1-ld / K2-ld for a functor of
+    the term / finish form, else K1-ld-args / K2-ld-args with the functor's
+    scratch at the model's data)."""
+    if model.kernel_hook is None or model.hook_parts()[0] in COORD_FUNCTORS:
+        return model.dim <= ld_max_dim(maxdepth)
+    return model.dim <= ld_max_dim(maxdepth,
+                                   _scratch_floats(model, model.dim))
 
 
 def _ld_common(kind, q, model, opts, B):
@@ -440,7 +519,8 @@ def _ld_common(kind, q, model, opts, B):
     device, block and size checks.  The workspace holds the four checkpoint
     stacks of every chain, [C, 4, D + 1, d]; the kernels write a row before
     they read it, so it is not cleared."""
-    model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK)
+    model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK,
+                                        coord=True)
     C, d = q.shape
     D = opts.maxdepth
     if not 1 <= D <= LD_MAX_MAXDEPTH:
@@ -462,38 +542,46 @@ def _ld_common(kind, q, model, opts, B):
     return C, d, D, model_id, params, work, library(f"nuts_fused_ld_{kind}")
 
 
-def _mid_common(kind, q, model, opts, B):
-    """(C, d, D, model id, params, ptrs, ints, workspace, lib) of a mid-d
-    launch, after the device, block, size and data checks.  ``ptrs`` and
-    ``ints`` are ctypes arrays of the hook tensors' device pointers and of
-    the sizes their functor takes."""
-    model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK, data=True)
+def _mid_common(kind, q, model, opts, B, family="mid"):
+    """(C, d, D, model id, params, ptrs, ints, workspace, lib) of a launch of
+    the mid-d kernel (``family`` "mid") or of the dim-on-lanes kernel with
+    data ("ld_args"), after the device, block, size and data checks.
+    ``ptrs`` and ``ints`` are ctypes arrays of the hook tensors' device
+    pointers and of the sizes their functor takes."""
+    model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK)
     C, d = q.shape
     D = opts.maxdepth
+    what = {"mid": "mid-d", "ld_args": "dim-on-lanes"}[family]
     if not 1 <= D <= LD_MAX_MAXDEPTH:
         raise NotImplementedError(
-            f"the mid-d CUDA kernels take maxdepth 1..{LD_MAX_MAXDEPTH}, "
+            f"the {what} CUDA kernels take maxdepth 1..{LD_MAX_MAXDEPTH}, "
             f"got {D}")
     ints, ptrs = model_data_args(model, d, q.device)
     need = mid_smem_bytes(kind, d, D, model)
     if need > SMEM_OPT_IN_BYTES:
         raise NotImplementedError(
             f"model {model.name!r} at dim {d} needs {need} bytes of shared "
-            f"memory per chain in the mid-d {kind} kernel; a block has "
-            f"{SMEM_OPT_IN_BYTES}: data of that size must stream (kernel "
-            "K1-stream, ROADMAP.md queue 1 item 12)")
+            f"memory per chain in the {what} {kind} kernel; a block has "
+            f"{SMEM_OPT_IN_BYTES} (ROADMAP.md queue 1 item 12)")
     c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
     c_ptrs = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
-    built = library("nuts_fused_mid_posterior").nrt_mid_smem_bytes(
+    probe = library(f"nuts_fused_{family}_posterior")
+    built = getattr(probe, f"nrt_{family}_smem_bytes")(
         int(kind == "warmup"), d, D, model_id,
         ctypes.cast(c_ints, ctypes.c_void_p))
     if built != need:
         raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
-                           f"for the mid-d {kind} kernel, "
+                           f"for the {what} {kind} kernel, "
                            f"_build.mid_smem_bytes {need}")
     work = torch.empty(C, 4, D + 1, d, dtype=torch.float32, device=q.device)
     return (C, d, D, model_id, params, c_ptrs, c_ints, work,
-            library(f"nuts_fused_mid_{kind}"))
+            library(f"nuts_fused_{family}_{kind}"))
+
+
+def count_model(model, stream=False):
+    """One launch more of a kernel that evaluated ``model``'s functor (the
+    streamed one with ``stream``)."""
+    MODEL_LAUNCHES[model.hook_parts()[0] + ("_stream" if stream else "")] += 1
 
 
 def _raise_on(rc, lib, what):
@@ -643,12 +731,14 @@ def launch_ld_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
 
 
 def launch_mid_posterior(seed, q, g, logp, stds, mean, logdet, step0,
-                         step_bar, K, model, opts, jitter, B):
-    """Launch csrc/nuts_fused_mid_posterior.cu; returns (draws [K, C, d],
-    stats [K, C, NSTATS], q_f, g_f [C, d], logp_f [C], iters [C])."""
+                         step_bar, K, model, opts, jitter, B, family="mid"):
+    """Launch csrc/nuts_fused_mid_posterior.cu (``family`` "mid") or
+    csrc/nuts_fused_ld_args_posterior.cu ("ld_args"); returns (draws
+    [K, C, d], stats [K, C, NSTATS], q_f, g_f [C, d], logp_f [C],
+    iters [C])."""
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
     (C, d, D, model_id, params, ptrs, ints, work,
-     lib) = _mid_common("posterior", q, model, opts, B)
+     lib) = _mid_common("posterior", q, model, opts, B, family)
     dev = q.device
     f32 = dict(dtype=torch.float32, device=dev)
     draws = torch.empty(K, C, d, **f32)
@@ -659,7 +749,7 @@ def launch_mid_posterior(seed, q, g, logp, stds, mean, logdet, step0,
     hj, jc1, jc2 = _jitter_args(jitter)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nrt_mid_posterior_launch(
+        rc = getattr(lib, f"nrt_{family}_posterior_launch")(
             d, D, C, B, K, int(seed) & 0xFFFFFFFF,
             float(opts.max_energy_error), hj, jc1, jc2, model_id,
             ctypes.cast(params, ctypes.c_void_p),
@@ -670,7 +760,7 @@ def launch_mid_posterior(seed, q, g, logp, stds, mean, logdet, step0,
             step_bar.data_ptr(), draws.data_ptr(), stats.data_ptr(),
             q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
             iters.data_ptr(), work.data_ptr(), stream)
-    _raise_on(rc, lib, "nuts_fused_mid_posterior")
+    _raise_on(rc, lib, f"nuts_fused_{family}_posterior")
     return draws, stats, q_f, g_f, logp_f, iters
 
 
@@ -681,13 +771,14 @@ def launch_stream_posterior(seed, q, g, logp, stds, mean, logdet, step0,
     returns (draws [K, C, d], stats [K, C, NSTATS], q_f, g_f [C, d],
     logp_f [C], iters [C])."""
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
-    _, params = _model_and_block(q, model, B, MAX_LD_BLOCK, data=True)
+    _, params = _model_and_block(q, model, B, MAX_LD_BLOCK)
     name = model.hook_parts()[0] + "_stream"
     rows = model.stream_tile_rows
     if name not in MODEL_IDS or rows is None or rows < 1:
         raise NotImplementedError(
             f"model {model.name!r} has no streamed functor the CUDA kernels "
-            "compile in (ROADMAP.md queue 1 item 10)")
+            "compile in: as in the JAX package, only the logistic "
+            "regression streams its data")
     model_id = MODEL_IDS[name]
     C, d = q.shape
     D = opts.maxdepth
@@ -746,15 +837,16 @@ def launch_stream_posterior(seed, q, g, logp, stds, mean, logdet, step0,
 
 
 def launch_mid_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
-                      opts, sset, use_grad_based, B):
-    """Launch csrc/nuts_fused_mid_warmup.cu; returns (draws [K, C, d],
-    stats [K, C, NSTATS_W], q, g, logp, stds, mean, est, sca, iters).  As
-    the ld warmup kernel, it keeps a chain's current q and g and its
-    estimator planes in the output buffers, which start as copies of the
+                      opts, sset, use_grad_based, B, family="mid"):
+    """Launch csrc/nuts_fused_mid_warmup.cu (``family`` "mid") or
+    csrc/nuts_fused_ld_args_warmup.cu ("ld_args"); returns (draws
+    [K, C, d], stats [K, C, NSTATS_W], q, g, logp, stds, mean, est, sca,
+    iters).  As the ld warmup kernel, it keeps a chain's current q and g and
+    its estimator planes in the output buffers, which start as copies of the
     inputs."""
     check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
     (C, d, D, model_id, params, ptrs, ints, work,
-     lib) = _mid_common("warmup", q, model, opts, B)
+     lib) = _mid_common("warmup", q, model, opts, B, family)
     dev = q.device
     K = flags.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
@@ -769,7 +861,7 @@ def launch_mid_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
     da = sset.dual_average
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.nrt_mid_warmup_launch(
+        rc = getattr(lib, f"nrt_{family}_warmup_launch")(
             d, D, C, B, K, int(seed) & 0xFFFFFFFF,
             float(opts.max_energy_error), hj, jc1, jc2, int(use_grad_based),
             float(sset.target_accept), float(da.t0), float(da.gamma),
@@ -782,7 +874,7 @@ def launch_mid_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
             q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
             stds_f.data_ptr(), mean_f.data_ptr(), est_f.data_ptr(),
             sca_f.data_ptr(), iters.data_ptr(), work.data_ptr(), stream)
-    _raise_on(rc, lib, "nuts_fused_mid_warmup")
+    _raise_on(rc, lib, f"nuts_fused_{family}_warmup")
     return (draws, stats, q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
             iters)
 

@@ -63,6 +63,7 @@ from ..dynamics.hamiltonian import KineticKind
 from ._build import (
     check_mclmc_posterior_args,
     check_mclmc_warmup_args,
+    count_model,
     launch_mclmc_mid_posterior,
     launch_mclmc_mid_warmup,
     launch_mclmc_posterior,
@@ -387,6 +388,7 @@ def mclmc_fused_run(seed, q, g, logp, v, stds, mean, logdet, step0,
                 num_draws, model, mopts, jitter,
                 _check_block(q.shape[0], block, kind))
         LAUNCHES["mclmc_fused_mid_posterior"] += 1
+        count_model(model)
         stats_out = {name: stats[:, :, i].T
                      for i, name in enumerate(STAT_NAMES)}
         stats_out["loop_iterations"] = iters
@@ -395,6 +397,7 @@ def mclmc_fused_run(seed, q, g, logp, v, stds, mean, logdet, step0,
         seed, q, g, logp, v, stds, mean, logdet, step0, step_bar, num_draws,
         model, mopts, jitter, _check_block(q.shape[0], block))
     LAUNCHES["mclmc_fused_posterior"] += 1
+    count_model(model)
     stats_out = {name: stats[:, i, :].T for i, name in enumerate(STAT_NAMES)}
     stats_out["loop_iterations"] = iters
     return q_f, g_f, logp_f, v_f, draws.permute(2, 0, 1), stats_out
@@ -528,6 +531,7 @@ def mclmc_fused_warmup_run(seed, flags, q, g, logp, v, stds, mean, est, sca,
             seed, flags, q, g, logp, v, stds, mean, est, sca, model, mopts,
             sset, use_grad_based, _check_block(q.shape[0], block, kind))
         LAUNCHES["mclmc_fused_mid_warmup"] += 1
+        count_model(model)
         stats_out = {name: stats[:, :, i].T
                      for i, name in enumerate(WARMUP_STAT_NAMES)}
         stats_out["loop_iterations"] = iters
@@ -538,6 +542,7 @@ def mclmc_fused_warmup_run(seed, flags, q, g, logp, v, stds, mean, est, sca,
                                   sca, model, mopts, sset, use_grad_based,
                                   _check_block(q.shape[0], block))
     LAUNCHES["mclmc_fused_warmup"] += 1
+    count_model(model)
     stats_out = {name: stats[:, i, :].T
                  for i, name in enumerate(WARMUP_STAT_NAMES)}
     stats_out["loop_iterations"] = iters

@@ -12,13 +12,22 @@ without flow (ROADMAP.md queue 2): ``layout="cl"`` (chains-on-lanes) and ``layou
 (dim-on-lanes, ``nuts_pallas.py:123-136``: large d), whose kernels are
 ``csrc/nuts_fused_ld_posterior.cu`` and ``csrc/nuts_fused_ld_warmup.cu``:
 one CUDA block of ``ops.TSUM_THREADS`` threads per chain and one thread
-block cluster per logical chain block.  The layouts share the tree
-algorithm, salts and stats.  They differ in the index of a vector random
-site (``rng.BlockRng``) and in the default chain block.
+block cluster per logical chain block.  A model whose functor lacks the
+one-coordinate term / finish form of ``iid_normal`` (every model with data,
+and the funnel and ``correlated_normal``) takes the dim-on-lanes kernels
+with data instead, ``csrc/nuts_fused_ld_args_posterior.cu`` and
+``csrc/nuts_fused_ld_args_warmup.cu`` (kernels K1-ld-args and K2-ld-args:
+the ``layout="ld"``, ``n_model_args > 0`` variants of the Pallas bodies,
+which the JAX runners use for a model with ``pallas_spec`` above the cl
+limit, ``nuts_rs_tpu/chain.py:788-801,1031-1044``): the ld bodies with the
+model evaluated as the mid-d kernels evaluate it.  The layouts share the
+tree algorithm, salts and stats.  They differ in the index of a vector
+random site (``rng.BlockRng``) and in the default chain block.
 
 Two kernel pairs serve ``layout="cl"`` (:func:`cl_kernel`).  At the
 instantiated sizes (``_build.SIZES``, d <= ``_build.CL_THREAD_MAX_DIM``) a
-model without data takes the thread-per-chain kernels above (sizes as
+model without data whose functor has the one-thread form
+(``_build.COORD_FUNCTORS``) takes the thread-per-chain kernels above (sizes as
 template parameters, every sum over the parameter axis in coordinate order,
 ``ops.dsum``).  At every other size, and for
 every model that carries data (the ``n_model_args > 0`` variants of the
@@ -49,18 +58,21 @@ warmup launch.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 
 from ..ops import dsum, tsum
 from ..ops import logaddexp as _logaddexp
 from ._build import (
+    COORD_FUNCTORS,
     DIMS,
     MAX_LD_BLOCK,
     SIZES,
     STREAM_BLOCKS,
     check_posterior_args,
     check_warmup_args,
+    count_model,
     launch_ld_posterior,
     launch_ld_warmup,
     launch_mid_posterior,
@@ -114,13 +126,18 @@ DEFAULT_LD_BLOCK = MAX_LD_BLOCK
 # and clusters of 8 fill the card in coarser waves (PERF.md: 1.4x and 1.9x
 # the time per launch at 8 on the data path); blocks up to 8 stay available.
 DEFAULT_MID_BLOCK = 1
+# ld with data: a chain alone, for the reasons of the mid-d kernels (one
+# chain block an SM; 512 chains in 4 waves where clusters of 8 take 5)
+DEFAULT_LD_ARGS_BLOCK = 1
 _DEFAULT_BLOCKS = {"thread": DEFAULT_BLOCK, "mid": DEFAULT_MID_BLOCK,
-                   "ld": DEFAULT_LD_BLOCK}
+                   "ld": DEFAULT_LD_BLOCK, "ld_args": DEFAULT_LD_ARGS_BLOCK}
 
 LAUNCHES = {"nuts_fused_posterior": 0, "nuts_fused_warmup": 0,
             "nuts_fused_ld_posterior": 0, "nuts_fused_ld_warmup": 0,
             "nuts_fused_mid_posterior": 0, "nuts_fused_mid_warmup": 0,
-            "nuts_fused_stream_posterior": 0}
+            "nuts_fused_stream_posterior": 0,
+            "nuts_fused_ld_args_posterior": 0,
+            "nuts_fused_ld_args_warmup": 0}
 
 _F32 = torch.float32
 _NEG_INF = float("-inf")
@@ -213,10 +230,14 @@ def cl_kernel(model, dim, maxdepth=None):
     """The kernel pair that serves ``layout="cl"`` for ``model`` at ``dim``:
     ``"thread"`` (one thread per chain, at the instantiated sizes: ``dim`` in
     ``_build.DIMS`` and, for NUTS, which passes its ``maxdepth``,
-    ``(dim, maxdepth)`` in ``_build.SIZES``) or ``"mid"`` (256 threads a
-    chain, any size, the only one that reads a model's data).  The plain
-    versions take its sum order and default block."""
-    if model.carries_data or dim not in DIMS:
+    ``(dim, maxdepth)`` in ``_build.SIZES``, for a functor with the
+    one-thread form, ``_build.COORD_FUNCTORS``) or ``"mid"`` (256 threads a
+    chain, any size and functor, the only one that reads a model's data;
+    both number the random sites alike).  The plain versions take its sum
+    order and default block."""
+    hook = model.hook_parts()[0] if model.kernel_hook is not None else None
+    if (model.carries_data or dim not in DIMS
+            or (hook is not None and hook not in COORD_FUNCTORS)):
         return "mid"
     if maxdepth is not None and (dim, maxdepth) not in SIZES:
         return "mid"
@@ -224,12 +245,17 @@ def cl_kernel(model, dim, maxdepth=None):
 
 
 def _kernel_kind(model, dim, layout, maxdepth=None, stream=False):
-    """``"ld"``, ``"stream"``, ``"mid"`` or ``"thread"``: the kernel of a
-    call."""
+    """``"ld"``, ``"ld_args"``, ``"stream"``, ``"mid"`` or ``"thread"``: the
+    kernel of a call.  In the ld layout a functor of the term / finish form
+    (``_build.COORD_FUNCTORS``) takes K1-ld / K2-ld, every other one
+    K1-ld-args / K2-ld-args."""
     if _check_layout(layout):
         if stream:
             raise ValueError("the streamed kernel is chains-on-lanes only")
-        return "ld"
+        if model.kernel_hook is None or \
+                model.hook_parts()[0] in COORD_FUNCTORS:
+            return "ld"
+        return "ld_args"
     if stream:
         if model.stream_tile_rows is None:
             raise ValueError(f"model {model.name!r} has no streamed form "
@@ -478,7 +504,8 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
     ``loop_iterations`` [C].  The first draw of each chain uses ``step0``;
     later draws use ``step_bar`` jittered by ``jitter``.  ``block`` is the
     logical chain block (default 32 for the thread-per-chain cl kernel, 1
-    for the mid-d cl kernel, 8 for the ld kernel).  With ``stream`` the
+    for the mid-d cl kernel, 8 for the ld kernel, 1 for the ld kernel with
+    data).  With ``stream`` the
     model's data are evaluated in row tiles of ``model.stream_tile_rows``
     (kernel K1-stream, ``layout="cl"`` only), and the chains of a block
     share each pass over the data: ``block`` is 1, 2, 4 or 8 (default: the
@@ -488,7 +515,9 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
     CPU tensors run the plain PyTorch version; CUDA tensors launch
     ``csrc/nuts_fused_posterior.cu`` or ``csrc/nuts_fused_mid_posterior.cu``
     (cl, see :func:`cl_kernel`), ``csrc/nuts_fused_stream_posterior.cu``
-    (``stream``) or ``csrc/nuts_fused_ld_posterior.cu`` (ld)."""
+    (``stream``), ``csrc/nuts_fused_ld_posterior.cu`` (ld) or
+    ``csrc/nuts_fused_ld_args_posterior.cu`` (ld, a functor without the
+    term / finish form)."""
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar,
                          num_draws)
     kind = _kernel_kind(model, q.shape[1], layout, opts.maxdepth, stream)
@@ -498,11 +527,13 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
                                         opts, jitter, block, layout, stream)
     if kind != "thread":
         launch = {"ld": launch_ld_posterior, "mid": launch_mid_posterior,
+                  "ld_args": partial(launch_mid_posterior, family="ld_args"),
                   "stream": launch_stream_posterior}[kind]
         draws, stats, q_f, g_f, logp_f, iters = launch(
             seed, q, g, logp, stds, mean, logdet, step0, step_bar, num_draws,
             model, opts, jitter, _check_block(q.shape[0], block, kind))
         LAUNCHES[f"nuts_fused_{kind}_posterior"] += 1
+        count_model(model, kind == "stream")
         stats_out = {name: stats[:, :, i].T
                      for i, name in enumerate(STAT_NAMES)}
         stats_out["loop_iterations"] = iters
@@ -511,6 +542,7 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
         seed, q, g, logp, stds, mean, logdet, step0, step_bar, num_draws,
         model, opts, jitter, _check_block(q.shape[0], block))
     LAUNCHES["nuts_fused_posterior"] += 1
+    count_model(model)
     stats_out = {name: stats[:, i, :].T for i, name in enumerate(STAT_NAMES)}
     stats_out["loop_iterations"] = iters
     return q_f, g_f, logp_f, draws.permute(2, 0, 1), stats_out
@@ -740,12 +772,15 @@ def nuts_fused_warmup_run(seed, flags, q, g, logp, stds, mean, est, sca,
     [C, K, d], stats) with stats a dict of [C, K] arrays keyed by
     ``WARMUP_STAT_NAMES`` plus ``loop_iterations`` [C].  The chains of a
     logical block of ``block`` chains (default 32 for the thread-per-chain
-    cl kernel, 1 for the mid-d cl kernel, 8 for the ld kernel) share the iteration
+    cl kernel, 1 for the mid-d cl kernel, 8 for the ld kernel, 1 for the ld
+    kernel with data) share the iteration
     counter and wait for the block's longest tree in every draw.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
     ``csrc/nuts_fused_warmup.cu`` or ``csrc/nuts_fused_mid_warmup.cu`` (cl,
-    see :func:`cl_kernel`) or ``csrc/nuts_fused_ld_warmup.cu`` (ld)."""
+    see :func:`cl_kernel`), ``csrc/nuts_fused_ld_warmup.cu`` (ld) or
+    ``csrc/nuts_fused_ld_args_warmup.cu`` (ld, a functor without the term /
+    finish form)."""
     check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
     kind = _kernel_kind(model, q.shape[1], layout, opts.maxdepth)
     if q.device.type == "cpu":
@@ -753,12 +788,15 @@ def nuts_fused_warmup_run(seed, flags, q, g, logp, stds, mean, est, sca,
             seed, flags, q, g, logp, stds, mean, est, sca, model, opts, sset,
             use_grad_based, block, layout)
     if kind != "thread":
-        launch = launch_ld_warmup if kind == "ld" else launch_mid_warmup
+        launch = {"ld": launch_ld_warmup, "mid": launch_mid_warmup,
+                  "ld_args": partial(launch_mid_warmup,
+                                     family="ld_args")}[kind]
         (draws, stats, q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f,
          iters) = launch(seed, flags, q, g, logp, stds, mean, est, sca,
                          model, opts, sset, use_grad_based,
                          _check_block(q.shape[0], block, kind))
         LAUNCHES[f"nuts_fused_{kind}_warmup"] += 1
+        count_model(model)
         stats_out = {name: stats[:, :, i].T
                      for i, name in enumerate(WARMUP_STAT_NAMES)}
         stats_out["loop_iterations"] = iters
@@ -769,6 +807,7 @@ def nuts_fused_warmup_run(seed, flags, q, g, logp, stds, mean, est, sca,
                             model, opts, sset, use_grad_based,
                             _check_block(q.shape[0], block))
     LAUNCHES["nuts_fused_warmup"] += 1
+    count_model(model)
     stats_out = {name: stats[:, i, :].T
                  for i, name in enumerate(WARMUP_STAT_NAMES)}
     stats_out["loop_iterations"] = iters

@@ -1,10 +1,19 @@
 """Analytic test models.
 
-Port of ``nuts_rs_tpu/models/gaussian.py``: ``normal_logp`` (``:20-28``) and
-``logistic_regression`` (``:149-180,230-232``) with its dense data channel,
-the counterpart of ``Model.pallas_logp_grad``, and its streaming form
-(``:182-228``, kernel K1-stream).  The other models are queue-1 item 10 of
-ROADMAP.md.
+Port of ``nuts_rs_tpu/models/gaussian.py``: ``normal_logp`` (``:20-28``),
+``mv_normal`` (``:31-42``), ``correlated_normal_rank1`` (``:45-76``),
+``correlated_normal`` (``:79-101``), ``funnel`` (``:104-114``),
+``eight_schools`` (``:117-146``) and ``logistic_regression``
+(``:149-180,230-232``) with its dense data channel, the counterpart of
+``Model.pallas_logp_grad``, and its streaming form (``:182-228``, kernel
+K1-stream).  The models whose JAX form reaches the fused Pallas kernels
+carry a device functor (``csrc/models.cuh``) and its plain counterpart in
+``PLAIN_FUNCTORS``: the rank-1 normal through its ``pallas_spec``, the
+funnel and ``correlated_normal`` through their closures, which the JAX
+runners trace into the kernel body (``nuts_rs_tpu/chain.py:686-690``).
+``mv_normal`` and ``eight_schools`` capture array constants, which the JAX
+package's kernels refuse; it falls back to its sync engine for them, and
+here they run on the sync engine (``posterior_kernel="sync"``).
 """
 
 from __future__ import annotations
@@ -42,6 +51,52 @@ def logistic_regression_logp_grad(q, xt, y, csum):
     p = torch.ones_like(logits) / (1.0 + torch.exp(-logits))
     grad = tsum(xt * (y - p)[:, None, :]) - q
     return ll - 0.5 * csum(q * q), grad
+
+
+def correlated_normal_rank1_logp_grad(q, coef, u, s, csum):
+    """Plain counterpart of the ``correlated_normal_rank1`` device functor
+    (csrc/models.cuh::CorrelatedNormalRank1): ``(logp [C], grad [C, d])`` at
+    ``q [C, d]`` for ``u [d]`` and the scale diagonal ``s [d]``, in the JAX
+    body's spelling (``gaussian.py:66-70``): ``y = q / sqrt(s)``, ``logp =
+    -0.5 (y.y + coef (u.y) (u.y))``, and its closed-form gradient
+    ``-(y + coef (u.y) u) / sqrt(s)``.  The two dots by ``csum``."""
+    root = torch.sqrt(s)
+    y = q / root
+    proj = csum(u * y)
+    logp = -0.5 * (csum(y * y) + coef * proj * proj)
+    return logp, -(y + (coef * proj)[:, None] * u) / root
+
+
+def correlated_normal_logp_grad(q, c, csum):
+    """Plain counterpart of the ``correlated_normal`` device functor
+    (csrc/models.cuh::CorrelatedNormal): ``logp = -0.5 q.q + 0.5 c s s``
+    with ``s`` the sum of q (``gaussian.py:96-98``), gradient ``c s - q``;
+    both sums by ``csum``."""
+    s = csum(q)
+    logp = -0.5 * csum(q * q) + 0.5 * c * s * s
+    return logp, (c * s)[:, None] - q
+
+
+def funnel_logp_grad(q, csum):
+    """Plain counterpart of the ``funnel`` device functor
+    (csrc/models.cuh::Funnel), Neal's funnel in the JAX body's spelling
+    (``gaussian.py:107-111``): ``v = q0``, ``t = v / 3``, ``e = exp(-v)``,
+    ``logp = -0.5 t t + (-0.5 S - h v)`` with ``S`` the sum of ``x x e``
+    over the coordinates ``x = q[1:]`` and ``h = 0.5 (d - 1)``; gradient
+    ``(0.5 S - t / 3) - h`` for v and ``-(x e)`` for x.  ``S`` sums the
+    terms of all d coordinates by ``csum``, coordinate 0's term 0.0."""
+    d = q.shape[-1]
+    v = q[:, 0]
+    three = torch.full_like(v, 3.0)
+    t = v / three
+    e = torch.exp(-v)
+    terms = q * q * e[:, None]
+    terms = torch.cat([torch.zeros_like(terms[:, :1]), terms[:, 1:]], 1)
+    S = csum(terms)
+    h = 0.5 * (d - 1)
+    logp = -0.5 * (t * t) + (-0.5 * S - h * v)
+    gv = (0.5 * S - t / three) - h
+    return logp, torch.cat([gv[:, None], -(q[:, 1:] * e[:, None])], 1)
 
 
 # Elements of the [chains, d, rows] product that the streamed plain functor
@@ -121,7 +176,19 @@ PLAIN_FUNCTORS = {
     "iid_normal": iid_normal_logp_grad,
     "logistic_regression": logistic_regression_logp_grad,
     "logistic_regression_stream": logistic_regression_stream_logp_grad,
+    "correlated_normal_rank1": correlated_normal_rank1_logp_grad,
+    "correlated_normal": correlated_normal_logp_grad,
+    "funnel": funnel_logp_grad,
 }
+
+
+def _register_plain_functors():
+    """The plain functors of the models in modules of their own."""
+    from .hierarchical import radon_logp_grad
+    from .stochastic_volatility import stochastic_volatility_logp_grad
+
+    PLAIN_FUNCTORS["radon"] = radon_logp_grad
+    PLAIN_FUNCTORS["stochastic_volatility"] = stochastic_volatility_logp_grad
 
 
 def stream_tile_rows(n_data: int) -> int:
@@ -144,6 +211,119 @@ def normal_logp(dim: int, mu: float = 3.0) -> Model:
 
     return Model(logp_fn=logp, dim=dim, logp_grad_fn=logp_grad,
                  kernel_hook=("iid_normal", (mu,)), name=f"normal_{dim}d")
+
+
+def _const(a):
+    """A float64 tensor of host data, which a ``logp_fn`` casts to the
+    position's dtype as the JAX models cast theirs."""
+    return torch.as_tensor(np.asarray(a, np.float64))
+
+
+def mv_normal(cov) -> Model:
+    """Multivariate normal with dense covariance (nuts-rs
+    src/transform/mod.rs:39).  No device functor: its JAX form captures the
+    precision matrix, which the JAX package's kernels refuse."""
+    cov = np.asarray(cov, dtype=np.float64)
+    dim = cov.shape[0]
+
+    def build(prec):
+        def logp(q):
+            p = prec.to(q.dtype)
+            return -0.5 * q @ p @ q
+
+        return Model(logp_fn=logp, dim=dim, name=f"mvnormal_{dim}d",
+                     on_device=lambda dev: build(prec.to(dev)))
+
+    return build(_const(np.linalg.inv(cov)))
+
+
+def correlated_normal_rank1(dim: int, scale: float = 1.5,
+                            eig: float = 1000.0) -> Model:
+    """Rank-1 correlated Gaussian via its Woodbury precision: covariance
+    ``diag(s)^1/2 (I + (eig - 1) u u^T) diag(s)^1/2`` (nuts-rs
+    ``tests/sample_normal.rs:29-108``), ``u`` from
+    ``np.random.default_rng(42)`` as in the JAX package.  Its data ``u`` and
+    ``s`` travel to the kernels as the JAX model's ``pallas_spec`` args."""
+    rng = np.random.default_rng(42)
+    u = rng.normal(size=dim)
+    u /= np.linalg.norm(u)
+    stds = np.full(dim, scale)
+    coef = 1.0 / eig - 1.0
+    hook = (torch.from_numpy(u.astype(np.float32)),
+            torch.from_numpy(stds.astype(np.float32)))
+
+    def build(hook, u64, s64):
+        def logp(q):
+            y = q / torch.sqrt(s64.to(q.dtype))
+            proj = u64.to(q.dtype) @ y
+            return -0.5 * (y @ y + coef * proj * proj)
+
+        def on_device(dev):
+            return build(tuple(t.to(dev) for t in hook), u64.to(dev),
+                         s64.to(dev))
+
+        return Model(logp_fn=logp, dim=dim, name=f"corr_normal_{dim}d",
+                     kernel_hook=("correlated_normal_rank1", (coef,), hook),
+                     on_device=on_device)
+
+    return build(hook, _const(u), _const(stds))
+
+
+def correlated_normal(dim: int, rank1_scale: float = 0.5) -> Model:
+    """Correlated normal with covariance ``I + rank1_scale 1 1^T`` (nuts-rs
+    tests/sample_normal.rs:21-107): by Woodbury the precision is
+    ``I - c 1 1^T`` with ``c = rank1_scale / (1 + rank1_scale dim)``."""
+    c = rank1_scale / (1.0 + rank1_scale * dim)
+
+    def logp(q):
+        s = torch.sum(q)
+        return -0.5 * torch.sum(q * q) + 0.5 * c * s * s
+
+    return Model(logp_fn=logp, dim=dim, name=f"corr_normal_{dim}d",
+                 kernel_hook=("correlated_normal", (c,)))
+
+
+def funnel(dim: int = 10) -> Model:
+    """Neal's funnel: v ~ N(0, 3), x_i | v ~ N(0, exp(v/2))."""
+
+    def logp(q):
+        v, x = q[0], q[1:]
+        lp_v = -0.5 * (v / 3.0) ** 2
+        lp_x = (-0.5 * torch.sum(torch.square(x) * torch.exp(-v))
+                - 0.5 * (dim - 1) * v)
+        return lp_v + lp_x
+
+    return Model(logp_fn=logp, dim=dim, name=f"funnel_{dim}d",
+                 kernel_hook=("funnel", ()))
+
+
+def eight_schools() -> Model:
+    """Non-centered eight schools; q = [mu, log_tau, theta_tilde x 8].  No
+    device functor: its JAX form captures the data, which the JAX package's
+    kernels refuse."""
+
+    def build(y, sigma):
+        def logp(q):
+            mu, log_tau, tt = q[0], q[1], q[2:]
+            theta = mu + torch.exp(log_tau) * tt
+            lp = -0.5 * (mu / 5.0) ** 2
+            lp = lp - 0.5 * (log_tau / 5.0) ** 2
+            lp = lp - 0.5 * torch.sum(tt * tt)
+            return lp + torch.sum(-0.5 * torch.square(
+                (y.to(q.dtype) - theta) / sigma.to(q.dtype)))
+
+        def expand(q):
+            mu, log_tau, tt = q[0], q[1], q[2:]
+            return {"mu": mu, "tau": torch.exp(log_tau),
+                    "theta": mu + torch.exp(log_tau) * tt}
+
+        return Model(logp_fn=logp, dim=10, expand_fn=expand,
+                     dims={"theta": ["school"]},
+                     coords={"school": np.arange(8)}, name="eight_schools",
+                     on_device=lambda dev: build(y.to(dev), sigma.to(dev)))
+
+    return build(_const([28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]),
+                 _const([15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]))
 
 
 def logistic_regression_tensors(x, y):
@@ -204,3 +384,6 @@ def logistic_regression(n_data: int = 1000, dim: int = 100,
     p = 1.0 / (1.0 + np.exp(-(x @ w_true)))
     y = (rng.uniform(size=n_data) < p).astype(np.float32)
     return logistic_regression_from_tensors(*logistic_regression_tensors(x, y))
+
+
+_register_plain_functors()

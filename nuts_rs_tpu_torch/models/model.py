@@ -74,6 +74,15 @@ class Model:
         ``fn(device) -> Model``: the same model with its data (hook tensors
         and whatever the closed forms capture) on ``device``; :meth:`to`
         calls it.  Models without data need none.
+    args_bytes:
+        Bytes of the JAX model's Pallas ``model_args`` where the hook holds
+        the same data in another form (radon's group index in place of the
+        one-hot ``G``), so that the size rules (:attr:`data_bytes`) choose
+        the layout the JAX runners choose; None: the hook tensors' bytes.
+    expand_fn:
+        Optional ``expand_fn(q: Tensor[dim]) -> dict[str, Tensor]``, the
+        JAX model's deterministics (``model.py:82-85``) without its key.
+        Carried, not yet stored in the trace (ROADMAP.md queue 1 item 9).
     dims / coords:
         xarray-style dimension names / coordinate arrays.
     """
@@ -85,6 +94,8 @@ class Model:
     kernel_hook: Optional[tuple] = None
     stream_tile_rows: Optional[int] = None
     on_device: Optional[Callable] = None
+    args_bytes: Optional[int] = None
+    expand_fn: Optional[Callable] = None
     dims: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     coords: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     name: str = "model"
@@ -102,9 +113,12 @@ class Model:
 
     @property
     def data_bytes(self) -> int:
-        """Bytes of the hook tensors: the JAX runners' ``args_bytes``."""
+        """Bytes of the hook tensors, or :attr:`args_bytes` where set: the
+        JAX runners' ``args_bytes``."""
         if self.kernel_hook is None:
             return 0
+        if self.args_bytes is not None:
+            return self.args_bytes
         return sum(t.numel() * t.element_size() for t in self.hook_parts()[2])
 
     def to(self, device) -> "Model":

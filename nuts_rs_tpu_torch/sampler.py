@@ -270,7 +270,12 @@ def _model_reasons(model: Model, maxdepth: int, device, ld: bool,
     reasons = []
     on_cuda = device is not None and torch.device(device).type == "cuda"
     if model.kernel_hook is None:
-        return [f"model {model.name!r} without a kernel_hook (item 10)"]
+        sync = ("its sync NUTS engine (posterior_kernel='sync' runs it here)"
+                if ld else "its sync MCLMC engine (item 8 ports it)")
+        return [f"model {model.name!r} without a kernel_hook: the fused "
+                "kernels compile device functors only, and the JAX package "
+                "runs a model its kernels cannot trace on " + sync
+                + " (item 9, engine fallback with provenance)"]
     if not ld:
         reason = mclmc_refusal(model)
         if reason is not None:
@@ -300,12 +305,14 @@ def _model_reasons(model: Model, maxdepth: int, device, ld: bool,
         reasons.append(f"maxdepth {maxdepth} on CUDA: the kernels that take "
                        "maxdepth at launch take at most "
                        f"{_build.LD_MAX_MAXDEPTH} (item 12)")
-    elif "ld" in layouts and model.dim > _build.ld_max_dim(maxdepth):
+    elif "ld" in layouts and not _build.ld_fits(model, maxdepth):
         reasons.append(
-            f"(dim, maxdepth) = {(model.dim, maxdepth)} on CUDA: the "
-            "dim-on-lanes kernels keep a chain's state in one block's "
-            f"shared memory, dim <= {_build.ld_max_dim(maxdepth)} "
-            f"(maxdepth <= {_build.LD_MAX_MAXDEPTH}) (item 12, larger d)")
+            f"model {model.name!r} at (dim, maxdepth) = "
+            f"{(model.dim, maxdepth)} on CUDA: the dim-on-lanes kernels keep "
+            "a chain's state and the model functor's scratch in one block's "
+            f"shared memory, dim <= {_build.ld_max_dim(maxdepth)} without "
+            f"scratch (maxdepth <= {_build.LD_MAX_MAXDEPTH}) (item 12, "
+            "larger d)")
     return reasons
 
 

@@ -56,6 +56,11 @@ After building the kernels it prints, for each path,
    with 1, 2, 4 and 8 chains sharing a pass over the data (the logical chain
    block, a cluster), and on the first 8 ... 256 chains at 8 and at 1, in
    milliseconds per block iteration and bytes read per second.
+9. for the model zoo's two paths (``--only-zoo``: stochastic volatility at
+   T = 1000 with 512 chains, 400 tuning and 300 posterior draws on
+   K2-ld-args / K1-ld-args; radon with 1024 chains, 300 + 400 draws on
+   K2-args / K1-args), items 1 and 2: the chunks' host and device split
+   and the device's busy share under the profiler.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -75,7 +80,9 @@ from chip_smoke import BIG_FULL_TUNE as BIG_TUNE
 from chip_smoke import (
     BIG_CHAINS, BIG_ROWS, CHAINS, CHUNK, DIM, DRAWS, GLM_CHAINS, GLM_DIM,
     GLM_DRAWS, GLM_ROWS, GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS, LD_STEP,
-    LD_TUNE, MGLM_REFERENCE, MID_DIM, MU, SEED, TUNE, card_line,
+    LD_TUNE, MGLM_REFERENCE, MID_DIM, MU, PATH_SOURCES, RADON_CHAINS,
+    RADON_DRAWS, RADON_TUNE, SEED, SV_CHAINS, SV_DRAWS, SV_T, SV_TUNE, TUNE,
+    card_line,
     cuda_events_ms, glm_posterior_inputs, glm_reference, mclmc_posterior_args,
     mclmc_settings, mclmc_warmup_setup, posterior_inputs, warmup_setup)
 
@@ -527,6 +534,30 @@ def stream_path(device):
               "two products")
 
 
+def zoo_paths(device, repeats, trace):
+    """Item 9: the SV and radon paths, items 1 and 2 of each."""
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.models.hierarchical import radon
+    from nuts_rs_tpu_torch.models.stochastic_volatility import (
+        stochastic_volatility)
+
+    for label, model, chains, tune, draws in (
+            ("SV", stochastic_volatility(T=SV_T, seed=SEED), SV_CHAINS,
+             SV_TUNE, SV_DRAWS),
+            ("radon", radon(seed=SEED), RADON_CHAINS, RADON_TUNE,
+             RADON_DRAWS)):
+        settings = DiagNutsSettings(num_chains=chains, num_tune=tune,
+                                    num_draws=draws, seed=SEED,
+                                    posterior_kernel="pallas")
+        print(f"== {label} path")
+        run_main_path(model, settings, device)  # first launches, allocator
+        for rep in range(repeats):
+            print_run(f"run {rep}", run_main_path(model, settings, device),
+                      tune)
+        profile_once(model, settings, device, trace and trace.replace(
+            ".json", f"_{label.lower()}.json"))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
@@ -541,6 +572,8 @@ def main() -> int:
                         help="the MCLMC data path alone, items 1-3 and 7")
     parser.add_argument("--only-stream", action="store_true",
                         help="the streamed-data path alone, item 8")
+    parser.add_argument("--only-zoo", action="store_true",
+                        help="the SV and radon paths alone, item 9")
     args = parser.parse_args()
     only = ("large-d" if args.only_large_d else "data" if args.only_data
             else "mclmc-data" if args.only_mclmc_data else None)
@@ -559,6 +592,11 @@ def main() -> int:
     if args.only_stream:
         _build.build(["nuts_fused_stream_posterior"])
         stream_path(device)
+        print(card_line())
+        return 0
+    if args.only_zoo:
+        _build.build([*PATH_SOURCES["sv"], *PATH_SOURCES["radon"]])
+        zoo_paths(device, args.repeats, args.trace)
         print(card_line())
         return 0
     _build.build()
@@ -608,6 +646,7 @@ def main() -> int:
         mclmc_iteration_cost(glm, mdata, device)
     if only is None:
         stream_path(device)
+        zoo_paths(device, args.repeats, args.trace)
     print(card_line())
     return 0
 

@@ -1,8 +1,9 @@
 """The fused CUDA kernels (NUTS K1/K2, their dim-on-lanes forms K1-ld /
-K2-ld, their mid-d forms with model data K1-args / K2-args and the streamed
-posterior K1-stream, MCLMC K3/K4 and their mid-d forms with model data
-K3-args / K4-args) against their plain PyTorch versions, on the card; the
-sync NUTS engine on the card against the CPU.
+K2-ld and, with model data, K1-ld-args / K2-ld-args, their mid-d forms with
+model data K1-args / K2-args and the streamed posterior K1-stream, MCLMC
+K3/K4 and their mid-d forms with model data K3-args / K4-args, and the
+model zoo's functors on them) against their plain PyTorch versions, on the
+card; the sync NUTS engine on the card against the CPU.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -558,3 +559,141 @@ def test_small_sizes_without_an_instance_run_on_the_card(dim):
         trace = nt.sample(model, nt.DiagMclmcSettings(**kw), device="cuda")
         pos = trace.posterior["position"]
         assert abs(pos.mean() - 3.0) < 0.05 and abs(pos.std() - 1.0) < 0.08
+
+
+def _hook_case(name, dev, C, seed):
+    """(model, q, g, logp, stds) of a model of the zoo, at a state near its
+    posterior, on ``dev``."""
+    from nuts_rs_tpu_torch.models import hierarchical as th
+    from nuts_rs_tpu_torch.models import stochastic_volatility as ts
+
+    rng = np.random.default_rng(seed)
+    if name == "rank1":
+        model = tg.correlated_normal_rank1(20)
+        center, sd = np.zeros(20), np.full(20, 1.2)
+    elif name == "radon":
+        model = th.radon(J=10, n_per=3, seed=seed)
+        center = np.r_[1.5, -0.7, np.log(0.8), np.log(0.3), np.zeros(10)]
+        sd = np.r_[0.1, 0.1, 0.1, 0.3, np.full(10, 0.8)]
+    elif name.startswith("sv"):
+        T = 300 if name == "sv_ld" else 30
+        model = ts.stochastic_volatility(T=T, seed=seed)
+        center = np.r_[np.log(0.1), np.log(8.0), np.zeros(T)]
+        sd = np.r_[0.2, 0.4, np.full(T, 0.8)]
+    elif name == "funnel":
+        model = tg.funnel(12)
+        center, sd = np.zeros(12), np.full(12, 0.8)
+    else:
+        model = tg.correlated_normal(12)
+        center, sd = np.zeros(12), np.full(12, 1.0)
+    model = model.to(dev)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    q = f(center + sd * rng.normal(size=(C, model.dim)))
+    logp, g = model.logp_and_grad(q)
+    stds = f(sd * rng.uniform(0.7, 1.3, size=(C, model.dim)))
+    return model, q, g, logp, stds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rank1", "radon", "sv", "funnel",
+                                  "correlated_normal", "sv_ld"])
+def test_model_functors_match_plain_versions_on_the_card(name):
+    """Each functor of the model zoo on the mid-d kernels K1-args and
+    K2-args (NUTS) and K3-args and K4-args (MCLMC), and stochastic
+    volatility at T = 300 (d = 302, ``sv_ld``) on the dim-on-lanes kernels
+    with data K1-ld-args and K2-ld-args, against the plain versions: C = 16
+    chains in logical blocks of 4, maxdepth 6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.adapt.step_size import StepSizeMethod
+    from nuts_rs_tpu_torch.dynamics.hamiltonian import KineticKind
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels.mclmc import MclmcOptions
+
+    dev = torch.device("cuda", 0)
+    C, B = 16, 4
+    model, q, g, logp, stds = _hook_case(name, dev, C, 2)
+    layout = "ld" if name == "sv_ld" else "cl"
+    kind = "ld_args" if layout == "ld" else "mid"
+    assert nf._kernel_kind(model, model.dim, layout, 6) == kind
+    opts = NutsOptions(maxdepth=6)
+    mean = q.mean(0, keepdim=True).expand_as(q).contiguous()
+    logdet = -torch.log(stds).sum(1)
+    step = torch.full((C,), 0.15 if layout == "ld" else 0.3, device=dev)
+    args = (q, g, logp, stds, mean, logdet, step, step.clone())
+    before = dict(nf.LAUNCHES)
+    got = nf.nuts_fused_run(3, *args, 6, model, opts, 0.1, block=B,
+                            layout=layout)
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_run_reference(3, *args, 6, model, opts, 0.1,
+                                       block=B, layout=layout)
+    for stat in INT_STATS:
+        np.testing.assert_array_equal(got[4][stat].cpu().numpy(),
+                                      want[4][stat].cpu().numpy(), stat)
+    for i in range(4):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-5)
+
+    flags = torch.ones(5, nf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, nf.FLAG_DO_SWITCH] = 0
+    flags[3, nf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, model.dim, device=dev)
+    sca = torch.zeros(C, nf.NSCA, device=dev)
+    sca[:, nf.SCA_STEP] = 0.3
+    sca[:, nf.SCA_DA_CNT] = 1.0
+    sca[:, nf.SCA_DA_MU] = float(np.log(3.0))
+    sca[:, nf.SCA_LOGDET] = logdet
+    wargs = (flags, q, g, logp, stds, mean, est, sca, model, opts,
+             StepSizeSettings(), True)
+    got = nf.nuts_fused_warmup_run(5, *wargs, block=B, layout=layout)
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_warmup_run_reference(5, *wargs, block=B,
+                                              layout=layout)
+    for stat in INT_STATS + ("transformation_index",):
+        np.testing.assert_array_equal(got[8][stat].cpu().numpy(),
+                                      want[8][stat].cpu().numpy(), stat)
+    for i in range(8):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-5)
+    for which in ("posterior", "warmup"):
+        key = f"nuts_fused_{kind}_{which}"
+        assert nf.LAUNCHES[key] == before[key] + 1, key
+    if layout == "ld":
+        return
+
+    mopts = MclmcOptions(kind=KineticKind.MICROCANONICAL,
+                         max_energy_error=1000.0, dynamic_step_size=True)
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=(C, model.dim))
+    v = torch.tensor(v / np.linalg.norm(v, axis=1, keepdims=True),
+                     dtype=torch.float32, device=dev)
+    margs = (q, g, logp, v, stds, mean, logdet, step, step.clone())
+    mbefore = dict(mf.LAUNCHES)
+    got = mf.mclmc_fused_run(3, *margs, 6, model, mopts, 0.1, block=B)
+    torch.cuda.synchronize()
+    want = mf.mclmc_fused_run_reference(3, *margs, 6, model, mopts, 0.1,
+                                        block=B)
+    for stat in MCLMC_INT_STATS:
+        np.testing.assert_array_equal(got[5][stat].cpu().numpy(),
+                                      want[5][stat].cpu().numpy(), stat)
+    for i in range(5):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-5)
+    mflags = torch.zeros(5, mf.NFLAGS, dtype=torch.int32, device=dev)
+    mflags[:, mf.FLAG_UPDATE_EST] = 1
+    mflags[0, mf.FLAG_RESAMPLE] = 1
+    mflags[2:, mf.FLAG_DO_UPDATE] = 1
+    mest = torch.zeros(C, 8, model.dim, device=dev)
+    msca = torch.zeros(C, mf.NSCA, device=dev)
+    msca[:, mf.SCA_LOGDET] = logdet
+    sset = StepSizeSettings(method=StepSizeMethod.FIXED, fixed_value=0.3)
+    wargs = (mflags, q, g, logp, v, stds, mean, mest, msca, model, mopts,
+             sset, True)
+    got = mf.mclmc_fused_warmup_run(5, *wargs, block=B)
+    torch.cuda.synchronize()
+    want = mf.mclmc_fused_warmup_run_reference(5, *wargs, block=B)
+    for stat in MCLMC_INT_STATS + ("transformation_index",):
+        np.testing.assert_array_equal(got[9][stat].cpu().numpy(),
+                                      want[9][stat].cpu().numpy(), stat)
+    for i in range(9):
+        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-5)
+    for which in ("posterior", "warmup"):
+        key = f"mclmc_fused_mid_{which}"
+        assert mf.LAUNCHES[key] == mbefore[key] + 1, key

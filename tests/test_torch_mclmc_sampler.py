@@ -214,7 +214,7 @@ def _no_hook(dim):
     (dict(store_divergences=True), "item 9"),
     (dict(cross_chain_adaptation=True), "item 17"),
     (dict(mesh_axis_name="chains"), "item 17"),
-    ("no_hook", "item 10"),
+    ("no_hook", "item 9"),
     ("above_warmup_limit", "warmup launch's limit of 361.*item 8"),
     ("above_posterior_limit", "posterior launch's limit of 484.*item 8"),
     ("data_fail_the_rule", "bytes of data.*item 8"),

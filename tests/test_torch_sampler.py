@@ -22,6 +22,7 @@ from nuts_rs_tpu_torch.dynamics.hamiltonian import KineticKind
 from nuts_rs_tpu_torch.kernels import _build
 from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 from nuts_rs_tpu_torch.models import gaussian as tg
+from nuts_rs_tpu_torch.models import stochastic_volatility as tsv
 from nuts_rs_tpu_torch.models.model import Model
 from nuts_rs_tpu_torch.sampler import _schedule_chunk, cl_max_dim
 
@@ -177,11 +178,11 @@ def _no_hook(dim):
           posterior_kernel="sync"), "item 8"),
     (dict(store_gradient=True), "item 9"),
     (dict(cross_chain_adaptation=True), "item 17"),
-    ("no_hook", "item 10"),
+    ("no_hook", "item 9"),
     ("cuda_maxdepth", "item 12"),
     ("cuda_ld_dim", "item 12"),
-    ("data_above_cl", "item 12"),
-    ("data_warmup_ld", "dim-on-lanes kernels read no model data"),
+    ("data_beyond_ld", "item 12"),
+    ("cuda_ld_data_smem", "item 12"),
 ])
 def test_unsupported_settings_raise(change, item):
     model = tg.normal_logp(3)
@@ -197,15 +198,14 @@ def test_unsupported_settings_raise(change, item):
         # the kernels that take maxdepth at launch take at most 30
         kw.update(maxdepth=_build.LD_MAX_MAXDEPTH + 1)
         device = "cuda"
-    elif change == "data_above_cl":
-        # the dim-on-lanes kernels read no model data
-        model = tg.logistic_regression(16, cl_max_dim(10) + 1, 0)
-    elif change == "data_warmup_ld":
-        # 6 MB of data fit the posterior launch but not the warmup's, and
-        # the JAX warmup differentiates pallas_spec in its dim-on-lanes
-        # layout there
-        model = tg.logistic_regression_from_tensors(
-            torch.zeros(100, 15000), torch.zeros(15000))
+    elif change == "data_beyond_ld":
+        # SV at T = 3500 fails the JAX runners' dim-on-lanes tier too: no
+        # fused posterior in either package
+        model = tsv.stochastic_volatility(T=3500)
+    elif change == "cuda_ld_data_smem":
+        # SV at T = 2650 fits the JAX tier, but its chain state and the
+        # functor's scratch do not fit one block's shared memory
+        model, device = tsv.stochastic_volatility(T=2650), "cuda"
     else:
         kw.update(change)
     with pytest.raises(NotImplementedError, match=item):
@@ -335,9 +335,9 @@ def _spy_layout(monkeypatch, target, name):
     return seen, _Stop
 
 
-def _jax_layouts(monkeypatch, dim):
+def _jax_layouts(monkeypatch, dim, model=None):
     """The layouts the JAX posterior and warmup runners pass to the Pallas
-    launchers for ``normal_logp(dim)`` (nothing launches)."""
+    launchers for ``normal_logp(dim)`` or ``model`` (nothing launches)."""
     import nuts_rs_tpu.chain as jchain
     import nuts_rs_tpu.kernels.nuts_pallas as jpallas
 
@@ -345,7 +345,7 @@ def _jax_layouts(monkeypatch, dim):
               posterior_kernel="pallas")
     js = jnt.DiagNutsSettings(**kw)
     jcfg = js.chain_config()
-    model = jg.normal_logp(dim, 3.0)
+    model = model or jg.normal_logp(dim, 3.0)
     state = jnt.Sampler(model, js, dtype=jnp.float32).state
     sched = build_schedule(20, 10, js.adapt)
     out = []
@@ -370,10 +370,11 @@ def _jax_layouts(monkeypatch, dim):
     return out
 
 
-def _torch_layouts(monkeypatch, dim):
+def _torch_layouts(monkeypatch, dim, model=None):
     ts = tnt.DiagNutsSettings(num_chains=8, num_tune=20, num_draws=10,
                               posterior_kernel="pallas")
-    sampler = tnt.Sampler(tg.normal_logp(dim, 3.0), ts, device="cpu")
+    sampler = tnt.Sampler(model or tg.normal_logp(dim, 3.0), ts,
+                          device="cpu")
     out = []
     for fn_name, lo, hi in (("nuts_fused_warmup_run", 0, 4),
                             ("nuts_fused_run", 20, 24)):
@@ -397,6 +398,42 @@ def test_layout_boundary_is_the_jax_runners(monkeypatch, warmup, offset,
     dim = cl_max_dim(10, warmup) + offset
     assert _torch_layouts(monkeypatch, dim) == layouts
     assert _jax_layouts(monkeypatch, dim) == layouts
+
+
+@pytest.mark.parametrize("case,layouts", [
+    ("sv_1000", ["ld", "ld"]), ("glm_above_cl", ["ld", "ld"]),
+    ("funnel_300", ["ld", "ld"]), ("glm_6mb", ["ld", "cl"])])
+def test_data_above_the_cl_limit_take_ld_as_the_jax_runners(monkeypatch,
+                                                            case, layouts):
+    """A model with data above the chains-on-lanes limit (by its d, or by
+    its data's bytes in the warmup launch: 6 MB of data fit the posterior
+    launch but not the warmup's) takes the dim-on-lanes layout, with its
+    data, as the JAX runners take it on ``pallas_spec``
+    (``nuts_rs_tpu/chain.py:788-801,1031-1044``).  It used to raise.  The
+    funnel, without data, takes the JAX runners' ld layout on its closure;
+    both take the kernels with the eval_block form (K1-ld-args, K2-ld-args)
+    on the card."""
+    from nuts_rs_tpu.models import stochastic_volatility as jsv
+
+    if case == "sv_1000":
+        jm, tm = jsv.stochastic_volatility(T=1000), \
+            tsv.stochastic_volatility(T=1000)
+    elif case == "glm_above_cl":
+        jm = jg.logistic_regression(16, cl_max_dim(10) + 1, 0)
+        tm = tg.logistic_regression(16, cl_max_dim(10) + 1, 0)
+    elif case == "funnel_300":
+        jm, tm = jg.funnel(300), tg.funnel(300)
+    else:
+        jm = jg.logistic_regression(15000, 100, 0)
+        tm = tg.logistic_regression(15000, 100, 0)
+    config = tnt.DiagNutsSettings(posterior_kernel="pallas").chain_config()
+    got = [tchain.fused_layout(tm, config, w) for w in (True, False)]
+    assert got == layouts
+    settings = tnt.DiagNutsSettings(posterior_kernel="pallas")
+    assert settings.unsupported(tm, "cuda") == []
+    assert nf._kernel_kind(tm, tm.dim, "ld") == "ld_args"
+    assert _jax_layouts(monkeypatch, 0, jm) == layouts
+    assert _torch_layouts(monkeypatch, 0, tm) == layouts
 
 
 def test_ld_slice_on_the_cpu():
