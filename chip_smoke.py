@@ -7,10 +7,11 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the fused CUDA kernels from ``nuts_rs_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-and drives nine paths through ``Sampler(...).run()`` with
+and drives ten paths through ``Sampler(...).run()`` with
 ``posterior_kernel="pallas"`` (``--only PATH`` drives one of them: ``nuts``,
 ``mclmc``, ``large_d``, ``data``, ``mclmc_data``, ``stream``, ``sv``,
-``radon`` or ``zoo``, and builds only its kernels).  Two run N(3, 1) at d=10 with 1024 chains,
+``radon``, ``zoo`` or ``flow``, and builds only its kernels).  Two run
+N(3, 1) at d=10 with 1024 chains,
 300 tuning and 700 posterior draws: NUTS (``DiagNutsSettings``, kernels K1
 and K2) and MCLMC (``DiagMclmcSettings``, kernels K3 and K4).  The third is
 the large-d path: NUTS on N(3, 1) at d=1000 with 512 chains, 200 tuning and
@@ -59,7 +60,27 @@ so no radon chain may stick.  The ninth drives
 the three other hook models, the rank-1 normal
 (d = 100), the funnel (d = 10) and correlated_normal (d = 100), each with
 256 chains, 200 tuning and 200 draws on the mid-d kernels, the two normals
-held against their analytic moments (0.1 std, 10%).  The model functors
+held against their analytic moments (0.1 std, 10%).  The tenth is the
+flow path: ``funnel(10)`` under ``FlowNutsSettings`` with the default
+coupling flow (4 layers of 32), the JAX package's flow benchmark (256
+chains, 600 + 600 draws; ``profile_main_path.py --only-flow`` runs it
+whole) cut to 64 chains, 30 tuning and 512 posterior draws: the warmup on
+the per-draw sync engine with the flow's refits (draws 10 and 20), the
+posterior on kernel K1-flow through the frozen pooled flow; held against
+the JAX package's sync engine at the same settings over 8 seeds
+(``tests/data/flow_funnel_reference.json``, made by
+``tests/data/make_flow_reference.py``): v's and every u_i = x_i e^(-v/2)'s
+mean and std (u_i is N(0, 1) under the funnel, with light tails; the x_i's
+own stds are printed, not gated: their run-to-run spread is 23-50%) within
+max(0.1 std, 10%) or 3 sqrt(1 + 1/8) of the 8 runs' run-to-run spread,
+the divergence share at most the seed-0 run's plus 0.2 points and two of
+its standard errors, a refit kept, exactly 4 launches of K1-flow and none
+of another fused kernel.  K1-flow is checked bit for bit on the path's
+own states (64 chains, 8 draws) and timed at 256 chains on the path's own
+and on made-up states, beside the flow's forward and vector-Jacobian
+product by batched PyTorch calls and the flow passes' own share of a block
+iteration (the same trees on one wave with and without them).  The model
+functors
 (``csrc/models.cuh``) are rows of the kernel line of their own, checked in
 the kernels that evaluate them: SV's in K1-ld-args and K2-ld-args at the
 path's d on 64 chains (8 draws, and warmup schedule rows 7..8 with the
@@ -82,7 +103,8 @@ kernel alone.
 
 Each kernel is timed (CUDA events) beside its plain version on the check's
 inputs (``ms``, ``plain_ms``, with the bound ``bound_ms`` of that work), and
-alone at its path's 128-draw launch (``chunk_ms``, ``chunk_bound_ms``).  The
+alone at its path's 128-draw launch (``chunk_ms``, ``chunk_bound_ms``;
+K1-flow's on the path's own states, with ``chunk_ms_made_up`` beside).  The
 bound is the larger of the bytes the call must move (every input read once,
 every output written once) over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, the card's published peaks; operations are counted from the
@@ -167,6 +189,26 @@ RADON_STEP = (0.4, 0.55)
 # standard errors of the reference's share over its chains (SV's 64 chains:
 # 0.0023, more than the 0.002 alone; PERF.md)
 DIV_SHARE_TOL = 0.002
+# the flow path: funnel(10) under FlowNutsSettings with the default coupling
+# flow (4 layers of 32), the JAX package's flow benchmark (BASELINE.md
+# "config 3", 256 chains, 600 + 600 draws; profile_main_path.py --only-flow
+# runs it whole).  Cut here for the script's five minutes: the warmup runs
+# on the per-draw sync engine, whose draws wait for the deepest of the
+# chains' trees (1.7-7.8 s a draw at 256 chains before the flow fits), so
+# 64 chains and 30 tuning draws (refits at draws 10 and 20), and 512
+# posterior draws (4 launches of K1-flow, about a second)
+FLOW_DIM, FLOW_FULL_CHAINS, FLOW_FULL_TUNE, FLOW_FULL_DRAWS = 10, 256, 600, 600
+FLOW_CHAINS, FLOW_TUNE, FLOW_DRAWS = 64, 30, 512
+FLOW_REFERENCE = GLM_REFERENCE.with_name("flow_funnel_reference.json")
+# the gates of PERF.md (section 2), on v and on every u_i = x_i e^(-v/2):
+# a mean within max(0.1, 3 sqrt(1 + 1 / R) s) posterior std of the average
+# of the JAX engine's R runs at seeds 0 .. R - 1, and a std within
+# max(10%, 3 sqrt(1 + 1 / R) s'), s and s' the run-to-run standard
+# deviations of those runs (a run here is one more such run; the average
+# of R has s / sqrt(R) of error)
+FLOW_MEAN_TOL, FLOW_STD_TOL, FLOW_SPREAD_FACTOR = 0.1, 0.1, 3.0
+# the flow's share of K1-flow's block iteration is timed on one wave
+FLOW_ABLATION_CHAINS = 128
 # the zoo's kernel checks: short launches, two warmup rows (7 and 8, with the
 # window switch of row 8), to keep the script's time
 ZOO_CHECK_CHAINS, ZOO_CHECK_ROWS = 64, (7, 9)
@@ -967,6 +1009,9 @@ KERNELS = (
      "nuts_rs_tpu/models/gaussian.py:66"),
     ("funnel", "models.cuh", "nuts_rs_tpu/models/gaussian.py:107"),
     ("correlated_normal", "models.cuh", "nuts_rs_tpu/models/gaussian.py:96"),
+    # K1 through a frozen coupling flow (make_kernel's flow= branch)
+    ("nuts_fused_flow_posterior", "nuts_fused_flow_posterior.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:202"),
 )
 
 
@@ -1476,10 +1521,305 @@ def path_zoo(device, checks, launches, times):
             warmup=False)["nuts_fused_mid_posterior"]
 
 
+# ---------------------------------------------------------------------------
+# The flow path: the sync warmup with the coupling flow's refits, then the
+# posterior on K1-flow through the frozen pooled flow
+# ---------------------------------------------------------------------------
+
+
+def flow_flop_per_grad(packed, d):
+    """FP32 operations of one evaluation of the flow beyond the tree's and
+    the model's: about 12 L H d for the forward and the backward pass
+    (three products of H x d a layer each way, two operations each)."""
+    return 12 * packed.num_layers * packed.hidden * d
+
+
+def flow_bound(model, packed, inputs, out):
+    """(bound_ms, bound_by) of one K1-flow launch: the tree's 23 and the
+    funnel's 5 operations a coordinate and the flow's per evaluation, over
+    FP32 peak, against the inputs, outputs and packed parameters over
+    device memory's rate."""
+    grads = float(out[4]["n_steps"].sum())
+    d = model.dim
+    t_ops = grads * (d * FLOP_PER_COORD["nuts"] + model_flop_per_grad(model)
+                     + flow_flop_per_grad(packed, d)) / FP32_FLOP_PER_S
+    t_bytes = tensor_bytes(inputs, out, packed.arrays) / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def flow_inputs(z, step, bar):
+    """K1-flow's inputs: z in the position slot, the unread ones zero / one."""
+    zc = torch.zeros(z.shape[0], device=z.device)
+    return (z.contiguous(), torch.zeros_like(z), zc, torch.ones_like(z),
+            torch.zeros_like(z), zc.clone(), step.contiguous(),
+            bar.contiguous())
+
+
+def flow_u(pos):
+    """u_i = x_i e^(-v/2), i = 1 .. d-1: N(0, 1) under the funnel whatever v
+    is, with light tails where the x_i's are heavy."""
+    return pos[..., 1:] * np.exp(-0.5 * pos[..., :1])
+
+
+def flow_moment_gates(pos, ref):
+    """(worst share of a mean gate, worst share of a std gate, failures) of
+    the gates on v and on every u_i against the reference's replicate runs:
+    each mean within max(FLOW_MEAN_TOL, k s) std and each std within
+    max(FLOW_STD_TOL, k s') of their averages, k = FLOW_SPREAD_FACTOR
+    sqrt(1 + 1 / R).  A gate of 100% or more (a reference that cannot tell
+    a collapsed coordinate from a right one) raises."""
+    rep = ref["replicates"]
+    k = FLOW_SPREAD_FACTOR * (1.0 + 1.0 / len(rep["seeds"])) ** 0.5
+    u = flow_u(pos)
+    coords = [("v", pos[..., 0], rep["mean"][0], rep["std"][0],
+               rep["sd_of_mean_in_std"][0], rep["sd_of_std"][0])]
+    coords += [(f"u{j + 1}", u[..., j], rep["u_mean"][j], rep["u_std"][j],
+                rep["u_sd_of_mean_in_std"][j], rep["u_sd_of_std"][j])
+               for j in range(u.shape[-1])]
+    failures, worst_m, worst_s = [], 0.0, 0.0
+    for name, x, m_ref, s_ref, sd_m, sd_s in coords:
+        m_err = abs(x.mean() - m_ref) / s_ref
+        s_err = abs(x.std() / s_ref - 1.0)
+        m_tol = max(FLOW_MEAN_TOL, k * sd_m)
+        s_tol = max(FLOW_STD_TOL, k * sd_s)
+        if m_tol >= 1.0 or s_tol >= 1.0:
+            raise AssertionError(f"flow path gate of {name} at {m_tol:.3f} "
+                                 f"std, {s_tol:.3f}: the reference's spread "
+                                 "is too wide to test it")
+        worst_m, worst_s = max(worst_m, m_err / m_tol), max(worst_s,
+                                                            s_err / s_tol)
+        if m_err > m_tol or s_err > s_tol:
+            failures.append(f"{name}: mean {x.mean():.4f} (reference "
+                            f"{m_ref:.4f}, {m_err:.4f} std, gate {m_tol:.4f})"
+                            f", std {x.std():.4f} (reference {s_ref:.4f}, "
+                            f"{s_err:.4f}, gate {s_tol:.4f})")
+    return worst_m, worst_s, failures
+
+
+def flow_ablation(model, packed, state, bars, opts, device):
+    """Microseconds of a block iteration that K1-flow spends on the flow's
+    forward and backward passes: the same trees with and without them.
+    K1-flow under the path's flow with its nets' output layers and its base
+    zeroed (s = t = 0, sigma = 1, mu = 0: the identity, whose passes cost
+    what any flow's do) against the mid-d kernel K1-args with the same
+    funnel functor and no flow, from the same points (z = q) and steps, on
+    one wave of FLOW_ABLATION_CHAINS chains (one chain a block): the two
+    take the same trees, which the loop iterations show, so the difference
+    per iteration is the flow's passes."""
+    from nuts_rs_tpu_torch.flows.coupling import PackedFlow
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    C = FLOW_ABLATION_CHAINS
+    arrays = [a.clone() for a in packed.arrays]
+    for i, a in enumerate(arrays):
+        if i >= 7 * packed.num_layers or i % 7 >= 3:
+            a.zero_()   # w2sT, b2s, w2tT, b2t; log_sigma, mu
+    ident = PackedFlow(arrays, packed.max_scale, packed.max_shift)
+    reps = -(-C // state.pt.z.shape[0])
+    q = state.pt.z.repeat(reps, 1)[:C].contiguous()
+    step = state.step.step_size.repeat(reps)[:C].contiguous()
+    bar = bars.repeat(reps)[:C].contiguous()
+    _, logp_and_grad = nf._evaluators(model, "mid")
+    logp, g = logp_and_grad(q)
+    ones, zc = torch.ones_like(q), torch.zeros(C, device=device)
+    plain_in = (q, g.contiguous(), logp.contiguous(), ones,
+                torch.zeros_like(q), zc, step, bar)
+    runs = {}
+    for label, fn in (
+            ("flow", lambda: nf.nuts_fused_run(
+                7, *flow_inputs(q, step, bar), CHUNK, model, opts, 0.1,
+                flow=ident)),
+            ("none", lambda: nf.nuts_fused_run(7, *plain_in, CHUNK, model,
+                                               opts, 0.1))):
+        out = fn()
+        torch.cuda.synchronize()
+        ms = cuda_events_ms(fn, 3)
+        runs[label] = (ms, int(out[4]["loop_iterations"].max()), out)
+    (f_ms, f_it, f_out), (n_ms, n_it, n_out) = runs["flow"], runs["none"]
+    same = bool(torch.equal(f_out[4]["loop_iterations"],
+                            n_out[4]["loop_iterations"]))
+    us_flow, us_none = 1e3 * f_ms / f_it, 1e3 * n_ms / n_it
+    print(f"K1-flow ablation, {C} chains, {CHUNK} draws from the path's "
+          f"states: with the identity flow's passes {f_ms:.4f} ms ({f_it} "
+          f"block iterations, {us_flow:.3f} us each), without them (K1-args,"
+          f" funnel) {n_ms:.4f} ms ({n_it}, {us_none:.3f} us); same trees: "
+          f"{same}; the flow's passes {us_flow - us_none:.3f} us of "
+          f"{us_flow:.3f} ({(us_flow - us_none) / us_flow:.1%})")
+    return us_flow - us_none
+
+
+def path_flow(device, checks, launches, times):
+    """funnel(10) under FlowNutsSettings: the warmup on the per-draw sync
+    engine with the coupling flow's refits, the posterior on K1-flow."""
+    from nuts_rs_tpu_torch import FlowNutsSettings, Sampler
+    from nuts_rs_tpu_torch.adapt import step_size as ss
+    from nuts_rs_tpu_torch.flows.coupling import tree_map
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+    from nuts_rs_tpu_torch.models.gaussian import funnel
+    from nuts_rs_tpu_torch.transform.ops import flow_vjp
+
+    ref = json.loads(FLOW_REFERENCE.read_text())
+    rep = ref["replicates"]
+    print(f"flow path reference: {ref['engine']}, {ref['settings']}: "
+          f"{ref['refits']} refits, divergence share "
+          f"{ref['divergence_share']:.4f} +- "
+          f"{ref['divergence_share_mc_error']:.4f}; {len(rep['seeds'])} runs "
+          f"at seeds {rep['seeds'][0]}..{rep['seeds'][-1]}: run-to-run "
+          f"spread of a mean at most {max(rep['sd_of_mean_in_std']):.4f} "
+          f"std, of a std at most {max(rep['sd_of_std']):.4f}")
+    model = funnel(FLOW_DIM).to(device)
+    settings = FlowNutsSettings(num_chains=FLOW_CHAINS, num_tune=FLOW_TUNE,
+                                num_draws=FLOW_DRAWS, seed=SEED,
+                                posterior_kernel="pallas")
+    kernel = "nuts_fused_flow_posterior"
+    zero_launch_counts()
+    t0 = time.monotonic()
+    sampler = Sampler(model, settings, device=device)
+    init_s = time.monotonic() - t0
+    trace = sampler.run()
+    total_s = time.monotonic() - t0
+    got = read_launch_counts(nf.LAUNCHES, (kernel,))
+    others = {k: n for k, n in {**nf.LAUNCHES, **mf.LAUNCHES}.items()
+              if k != kernel and n}
+    want = -(-FLOW_DRAWS // CHUNK)
+    if others or got[kernel] != want or \
+            _build.MODEL_LAUNCHES["funnel"] != want:
+        raise AssertionError(f"flow path launched {got}, {others}, funnel "
+                             f"{_build.MODEL_LAUNCHES['funnel']}; want "
+                             f"{want} of K1-flow alone")
+    plan = [(a, b) for a, b, _ in sampler._phase_runners]
+    if plan != [(0, FLOW_TUNE), (FLOW_TUNE, FLOW_TUNE + FLOW_DRAWS)]:
+        raise AssertionError(f"flow path phases {plan}: not the sync warmup "
+                             "then the K1-flow posterior")
+    launches[kernel] = got[kernel]
+    warm_s = sum(s for lo, hi, s in sampler.chunk_seconds if lo < FLOW_TUNE)
+    post_s = sum(s for lo, hi, s in sampler.chunk_seconds if lo >= FLOW_TUNE)
+    pos = trace.posterior["position"].astype(np.float64)
+    st, wst = trace.sample_stats, trace.warmup_sample_stats
+    refits = int(wst["transformation_index"][:, -1].max())
+    params = sampler.state.transform.params
+    accepted = float(params["layers"][0]["net"]["w2"].abs().max()) > 0.0
+    div = st["diverging"].astype(np.float64)
+    div_share = float(div.mean())
+    div_gate = (ref["divergence_share"] + DIV_SHARE_TOL
+                + 2.0 * ref["divergence_share_mc_error"])
+    its = int(wst["n_steps"].max(0).sum())
+    n_grad = int(st["n_steps"].sum())
+    print(f"flow path: d={FLOW_DIM} chains={FLOW_CHAINS} tune={FLOW_TUNE} "
+          f"draws={FLOW_DRAWS}, coupling flow 4 x 32: init {init_s:.3f} s, "
+          f"sync warmup {warm_s:.3f} s ({warm_s / FLOW_TUNE:.4f} s a draw, "
+          f"{its} tree iterations in lock step, {1e3 * warm_s / its:.3f} ms "
+          f"each), posterior {post_s:.3f} s ({n_grad / post_s:.6g} gradient "
+          f"evaluations/s), total {total_s:.3f} s, launches {got}; refits "
+          f"{refits} (one kept: {accepted})")
+    worst_m, worst_s, failures = flow_moment_gates(pos, ref)
+    v, u = pos[..., 0], flow_u(pos)
+    x_ratio = pos[..., 1:].std((0, 1)) / np.asarray(rep["std"][1:])
+    print(f"flow path posterior: v mean {v.mean():.4f} std {v.std():.4f} "
+          f"(analytic N(0, 3); reference {rep['mean'][0]:.4f}, "
+          f"{rep['std'][0]:.4f}); u_i = x_i e^(-v/2) means "
+          f"{u.mean((0, 1)).min():.4f}..{u.mean((0, 1)).max():.4f}, stds "
+          f"{u.std((0, 1)).min():.4f}..{u.std((0, 1)).max():.4f} (analytic "
+          f"N(0, 1)); worst of v and the u_i at {worst_m:.3f} of its mean "
+          f"gate and {worst_s:.3f} of its std gate; x_i stds (not gated) "
+          f"{x_ratio.min():.3f}..{x_ratio.max():.3f} of the reference's; "
+          f"divergence share "
+          f"{div_share:.4f} (gate {div_gate:.4f}), mean accept "
+          f"{float(st['mean_tree_accept'].mean()):.4f}, leapfrogs a draw "
+          f"{float(st['n_steps'].mean()):.2f} (reference "
+          f"{ref['mean_n_steps']:.2f})")
+    if failures:
+        raise AssertionError("flow path moments: " + "; ".join(failures))
+    if div_share > div_gate:
+        raise AssertionError(f"flow path divergence share {div_share} above "
+                             f"{div_gate}")
+    if refits < 1 or not accepted:
+        raise AssertionError(f"flow path: {refits} refits, none kept")
+
+    # K1-flow against its plain version on the path's own states (after the
+    # warmup's refits: nets off the identity), all chains, 8 draws
+    state, config = sampler.state, sampler.config
+    opts = config.nuts
+    packed = sampler.strategy.spec.kernel_pack(
+        tree_map(lambda v: v[0], params))
+    bars = ss.step_size_bar(state.step, config.step_size)
+    args = flow_inputs(state.pt.z, state.step.step_size, bars)
+    out_k, out_p, ms, plain_ms = timed_pair(
+        lambda: nf.nuts_fused_run(5, *args, CHECK_K1_DRAWS, model, opts, 0.1,
+                                  flow=packed),
+        lambda: nf.nuts_fused_run_reference(5, *args, CHECK_K1_DRAWS, model,
+                                            opts, 0.1, flow=packed))
+    n, err = compare("K1-flow", out_k, out_p, ("q", "z", "logp"),
+                     nf.STAT_NAMES, INT_STATS)
+    if err != 0.0:
+        raise AssertionError(f"K1-flow differs from its plain version by "
+                             f"{err}")
+    b_ms, b_by = flow_bound(model, packed, args, out_k)
+    checks[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by}
+    print(f"K1-flow check: C={FLOW_CHAINS} d={FLOW_DIM} K={CHECK_K1_DRAWS} "
+          f"on the path's own states: integer stats equal on all {n} (chain,"
+          f" draw) entries, max abs err {err:.3g} (draws, final q, z, logp, "
+          f"all stats); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+
+    # K1-flow alone at the configuration's 256 chains, 128 draws: on the
+    # path's own states, tiled to 256 (the kernels line's chunk_ms), and on
+    # made-up states near the posterior (z ~ N(0, 1), steps around the
+    # path's)
+    rng = np.random.default_rng(3)
+    C = FLOW_FULL_CHAINS
+    med = float(state.step.step_size.median())
+    made = flow_inputs(
+        torch.tensor(rng.normal(size=(C, FLOW_DIM)), dtype=torch.float32,
+                     device=device),
+        torch.tensor(rng.uniform(0.9 * med, 1.1 * med, size=C),
+                     dtype=torch.float32, device=device),
+        torch.full((C,), med, device=device))
+    reps = C // FLOW_CHAINS
+    own = flow_inputs(state.pt.z.repeat(reps, 1),
+                      state.step.step_size.repeat(reps), bars.repeat(reps))
+    results = {}
+    for label, inputs in (("own", own), ("made-up", made)):
+        def launch(inputs=inputs):
+            return nf.nuts_fused_run(7, *inputs, CHUNK, model, opts, 0.1,
+                                     flow=packed)
+        out = launch()
+        torch.cuda.synchronize()
+        ms_ = cuda_events_ms(launch, 3)
+        b_ms_, b_by_ = flow_bound(model, packed, inputs, out)
+        iters = int(out[4]["loop_iterations"].max())
+        results[label] = (ms_, b_ms_, b_by_)
+        print(f"time K1-flow on {label} states: {ms_:.4f} ms per {CHUNK}-draw "
+              f"launch at C={C} d={FLOW_DIM}, 4 x 32 flow; bound {b_ms_:.5f} "
+              f"ms ({b_by_}); {iters} block iterations at most, "
+              f"{1e3 * ms_ / iters:.2f} us each; leapfrogs a draw "
+              f"{float(out[4]['n_steps'].mean()):.2f}")
+    times[kernel] = results["own"]
+    checks[kernel]["chunk_ms_made_up"] = results["made-up"][0]
+    flow_us = flow_ablation(model, packed, state, bars, opts, device)
+
+    # the yardstick: the flow's forward pass and vector-Jacobian product for
+    # all 256 chains by batched PyTorch calls (torch.bmm / matmul, TF32 off)
+    spec = sampler.strategy.spec
+    p0 = tree_map(lambda v: v[0], params)
+    z = made[0]
+    g = torch.randn_like(z)
+    fwd_ms = cuda_events_ms(lambda: spec.forward(p0, z), 20)
+    vjp_ms = cuda_events_ms(lambda: flow_vjp(spec, p0, z, g), 20)
+    print(f"yardstick: the flow's forward for {C} chains by batched PyTorch "
+          f"calls {fwd_ms:.4f} ms, forward and vjp {vjp_ms:.4f} ms (TF32 "
+          "off; the sync engine pays it at every leapfrog of the warmup), "
+          f"against K1-flow's {flow_us:.2f} us a block iteration for the "
+          f"flow's passes of {FLOW_ABLATION_CHAINS} chains at once")
+
+
 PATHS = {"nuts": path_nuts, "mclmc": path_mclmc, "large_d": path_large_d,
          "data": path_data, "mclmc_data": path_mclmc_data,
          "stream": path_stream, "sv": path_sv, "radon": path_radon,
-         "zoo": path_zoo}
+         "zoo": path_zoo, "flow": path_flow}
 # the sources each path launches (the smem-size helpers of the mid-d and ld
 # warmup kernels live in their posterior sources)
 PATH_SOURCES = {
@@ -1492,6 +1832,7 @@ PATH_SOURCES = {
     "sv": ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup"),
     "radon": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
     "zoo": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
+    "flow": ("nuts_fused_flow_posterior", "nuts_fused_mid_posterior"),
 }
 
 

@@ -3,14 +3,16 @@
 A second package beside the JAX one (``nuts_rs_tpu``, the reference), for one
 NVIDIA H100.  It runs ``DiagNutsSettings`` and ``DiagMclmcSettings`` with
 ``posterior_kernel="pallas"`` on a model with a kernel hook: warmup and
-posterior of each run on hand-written CUDA kernels (``csrc/``, eight in all:
-NUTS at small, mid and large d, with a model's data read inside the kernel,
-and MCLMC) for CUDA tensors, and on their plain PyTorch versions for CPU
-tensors.  The package
+posterior of each run on hand-written CUDA kernels (``csrc/``: NUTS at
+small, mid and large d, with a model's data read inside the kernel or
+streamed, MCLMC, and NUTS through a frozen coupling flow) for CUDA tensors,
+and on their plain PyTorch versions for CPU tensors; ``FlowNutsSettings``
+warms up on the per-draw sync engine with the flow's refits.  The package
 imports torch and numpy and never JAX.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
+from .adapt.flow import FlowAdaptSettings
 from .adapt.schedule import AdaptScheduleOptions
 from .adapt.step_size import (
     AdamOptions,
@@ -20,12 +22,15 @@ from .adapt.step_size import (
 )
 from .convert import state_from_numpy, state_to_numpy
 from .dynamics.hamiltonian import KineticKind
+from .flows.coupling import CouplingFlowConfig, coupling_flow, diag_affine_flow
 from .kernels.nuts import NutsOptions
 from .models.model import Model
 from .kernels.mclmc import MclmcOptions
 from .sampler import (
     DiagMclmcSettings,
     DiagNutsSettings,
+    FlowMclmcSettings,
+    FlowNutsSettings,
     MclmcSettings,
     MclmcTrajectoryKind,
     NutsSettings,
@@ -40,9 +45,13 @@ __version__ = "0.1.0"
 __all__ = [
     "AdamOptions",
     "AdaptScheduleOptions",
+    "CouplingFlowConfig",
     "DiagMclmcSettings",
     "DiagNutsSettings",
     "DualAverageOptions",
+    "FlowAdaptSettings",
+    "FlowMclmcSettings",
+    "FlowNutsSettings",
     "KineticKind",
     "MclmcOptions",
     "MclmcSettings",
@@ -55,6 +64,8 @@ __all__ = [
     "StepSizeMethod",
     "StepSizeSettings",
     "Trace",
+    "coupling_flow",
+    "diag_affine_flow",
     "sample",
     "schema",
     "state_from_numpy",

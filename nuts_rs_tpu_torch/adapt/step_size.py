@@ -22,6 +22,7 @@ from ..dynamics.hamiltonian import (
     leapfrog,
 )
 from ..transform.affine import AffineTransform
+from ..transform.ops import AFFINE_OPS
 
 
 class StepSizeMethod(enum.Enum):
@@ -168,26 +169,29 @@ def apply_jitter(u, state: StepSizeState, settings: StepSizeSettings,
 
 
 def init_search(q, transform: AffineTransform, v, *, logp_grad_fn,
-                settings: StepSizeSettings, kind: KineticKind):
+                settings: StepSizeSettings, kind: KineticKind,
+                ops=AFFINE_OPS):
     """Coarse doubling/halving search for a good initial step size
     (adapt.rs:91-199), for all chains at once.
 
     Probes single leapfrogs with ONE momentum ``v`` [C, d] reused across
     probes, doubles while accept > target (or halves while <), stops at the
     crossing or the bounds [1e-10, 1e5], at most 100 iterations; on a probe
-    failure the chain falls back to ``initial_step``.  Returns [C]."""
+    failure the chain falls back to ``initial_step``.  ``ops`` are the
+    transform's operations (``transform/ops.py``).  Returns [C]."""
     dtype = q.dtype
     if settings.method is StepSizeMethod.FIXED:
         return torch.full(q.shape[:-1], settings.fixed_value, dtype=dtype,
                           device=q.device)
-    pt = init_point_from_q(q, transform, logp_grad_fn)
-    pt = initialize_trajectory(pt, transform, kind, v)
+    pt = init_point_from_q(q, transform, logp_grad_fn, ops)
+    pt = initialize_trajectory(pt, transform, kind, v, ops)
     e0 = pt.energy
     target = settings.target_accept
     init_step = torch.full_like(e0, settings.initial_step)
 
     def probe(step):
-        res = leapfrog(pt, 1, step, transform, logp_grad_fn, kind, e0, 1000.0)
+        res = leapfrog(pt, 1, step, transform, logp_grad_fn, kind, e0, 1000.0,
+                       ops=ops)
         acc = torch.exp(torch.clamp(e0 - res.point.energy, max=0.0))
         return acc, res.diverging
 

@@ -9,7 +9,10 @@ fused NUTS runners ``make_pallas_posterior_runner`` (``:663-943``) and
 ``make_pallas_warmup_runner`` (``:946-1200``), and the fused MCLMC runners
 ``make_pallas_mclmc_posterior_runner`` (``:1203-1337``) and
 ``make_pallas_mclmc_warmup_runner`` (``:1340-1525``), for the diagonal mass
-matrix, without flow.  The posterior runner streams a model's data in row
+matrix; the sync engine's step and the fused NUTS posterior also take a
+learned flow (``adapt/flow.py``: the strategy's ``ops``, and the frozen
+pooled flow in kernel K1-flow, ``:694-727,812-835``).  The posterior
+runner streams a model's data in row
 tiles (kernel K1-stream) where they fail the resident kernels' size rule and
 the streamed tiles pass it, as the JAX runner does (``:740-765``).  All four
 runners pass a model's data to
@@ -49,6 +52,7 @@ from .kernels import _build
 from .kernels.nuts import SALT_JITTER, NutsOptions, nuts_draw
 from .kernels.rng import derive_seed, host_uniform
 from .ops import hsum
+from .transform.ops import AFFINE_OPS
 from .transform.affine import (
     AffineTransform,
     grad_to_transformed,
@@ -212,11 +216,12 @@ class ChainState(NamedTuple):
     """All per-chain state; every tensor has a leading chains axis."""
 
     pt: Point
-    transform: AffineTransform
+    transform: Any  # AffineTransform, or a FlowTransform (transform/ops.py)
     diag_adapt: mm.DiagAdaptState
     step: ss.StepSizeState
     draw_idx: int  # global draw counter
     window: Any = None  # WindowState when adapt.window_by_good_draws
+    extra: Any = None  # the strategy's own state (a flow's FlowWindow)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,7 +266,11 @@ class DiagStrategy:
                                         state.pt.g)
         return state._replace(diag_adapt=da, transform=transform)
 
-    def update_estimators(self, state: ChainState, draw_q, draw_g, is_good):
+    def init_extra(self, dim, num_tune, dtype, num_chains, device):
+        return None
+
+    def update_estimators(self, state: ChainState, draw_q, draw_g, is_good,
+                          logp=None, energy_error=None):
         return state._replace(diag_adapt=mm.update_estimators(
             state.diag_adapt, draw_q, draw_g, is_good))
 
@@ -283,7 +292,8 @@ class DiagStrategy:
         return state._replace(transform=transform)
 
 
-def _init_search(seed, state: ChainState, model, config: ChainConfig):
+def _init_search(seed, state: ChainState, model, config: ChainConfig,
+                 ops=AFFINE_OPS):
     """Step-size init search from the current positions, with momentum from
     the counter hash, then the dual-averaging reset."""
     q = state.pt.q
@@ -291,7 +301,8 @@ def _init_search(seed, state: ChainState, model, config: ChainConfig):
                         config.nuts.kind)
     found = ss.init_search(q, state.transform, v,
                            logp_grad_fn=model.logp_and_grad,
-                           settings=config.step_size, kind=config.nuts.kind)
+                           settings=config.step_size, kind=config.nuts.kind,
+                           ops=ops)
     return state._replace(step=ss.reset_from_found_step(state.step, found))
 
 
@@ -314,16 +325,20 @@ def make_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
     from ``derive_seed(base_seed, draw index + 1, PURPOSE_REINIT_SEARCH)``,
     as the fused warmup runner does after the same draw.  Every number is a
     function of (base seed, draw index, chain), so a checkpoint can hold
-    the stream as counters."""
+    the stream as counters.  The strategy is generic (``chain.py:224-262``):
+    its ``ops`` (``transform/ops.py``; affine by default) carry the
+    transform through the tree, its estimators get each draw's logp and
+    energy error, and with ``use_orbit`` every leapfrog point of the draw."""
     logp_grad = model.logp_and_grad
     sset = config.step_size
     wp = config.window_params
+    ops = getattr(strategy, "ops", AFFINE_OPS)
 
     def draw_step(state: ChainState, flags):
         seed = derive_seed(base_seed, state.draw_idx, PURPOSE_SYNC_DRAW)
         draw_pt, info = nuts_draw(seed, state.pt, state.transform,
                                   state.step.step_size, logp_grad,
-                                  config.nuts)
+                                  config.nuts, ops)
         state = state._replace(pt=draw_pt)
         C = draw_pt.q.shape[0]
         dev = draw_pt.q.device
@@ -333,8 +348,12 @@ def make_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
         sym_acc = _mean0(info.sum_accept_sym, info.n_steps)
 
         def update(s):
-            return strategy.update_estimators(s, draw_pt.q, draw_pt.g,
-                                              info.is_good_for_adapt)
+            if getattr(strategy, "use_orbit", False):
+                # flow orbit mode (external_adapt_strategy.rs:93-128)
+                return strategy.update_estimators_orbit(s, info)
+            return strategy.update_estimators(
+                s, draw_pt.q, draw_pt.g, info.is_good_for_adapt,
+                logp=draw_pt.logp, energy_error=info.energy_error)
 
         reinit_mask = None
         if wp is None:
@@ -410,7 +429,7 @@ def make_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
             return _init_search(
                 derive_seed(base_seed, state.draw_idx + 1,
                             PURPOSE_REINIT_SEARCH),
-                state._replace(step=stp), model, config).step
+                state._replace(step=stp), model, config, ops).step
 
         def without_reinit(stp):
             u = host_uniform(seed, 0, SALT_JITTER, (C,), dev)
@@ -475,10 +494,12 @@ def make_sync_runner(model, strategy: DiagStrategy, config: ChainConfig,
 
 def init_chain_state(seed: int, model, strategy: DiagStrategy,
                      config: ChainConfig, num_chains: int, dtype, device,
-                     init_positions=None) -> ChainState:
+                     init_positions=None, num_tune: int = 0) -> ChainState:
     """Set up all chains: init positions (with retries for non-finite logp
-    or gradient, as nuts-rs src/sampler.rs:1133-1143), the mass-matrix init
-    and the step-size search."""
+    or gradient, as nuts-rs src/sampler.rs:1133-1143), the mass-matrix init,
+    the re-sync of the point to the new transform and the step-size search,
+    through the strategy's ``ops`` (``chain.py:470-512``)."""
+    ops = getattr(strategy, "ops", AFFINE_OPS)
     C, d = num_chains, model.dim
     if init_positions is None:
         q0 = model.init_position(seed, 0, C, dtype, device)
@@ -493,7 +514,7 @@ def init_chain_state(seed: int, model, strategy: DiagStrategy,
         q0 = torch.as_tensor(init_positions, dtype=dtype, device=device)
     transform = strategy.make_transform(C, d, dtype, device)
     state = ChainState(
-        pt=init_point_from_q(q0, transform, model.logp_and_grad),
+        pt=init_point_from_q(q0, transform, model.logp_and_grad, ops),
         transform=transform,
         diag_adapt=mm.new_diag_adapt_state(C, d, dtype, device),
         step=ss.new_step_size_state(config.step_size.initial_step, C, dtype,
@@ -505,12 +526,13 @@ def init_chain_state(seed: int, model, strategy: DiagStrategy,
                 device=device),
             last_update=torch.zeros(C, dtype=torch.int32, device=device),
             has_initial=torch.ones(C, dtype=torch.bool, device=device))),
+        extra=strategy.init_extra(d, num_tune, dtype, C, device),
     )
     state = strategy.init_mass_matrix(state)
     state = state._replace(pt=init_point_from_q(
-        state.pt.q, state.transform, model.logp_and_grad))
+        state.pt.q, state.transform, model.logp_and_grad, ops))
     return _init_search(derive_seed(seed, 0, PURPOSE_INIT_SEARCH), state,
-                        model, config)
+                        model, config, ops)
 
 
 def _stats(draws, out, bars, tid, tuning):
@@ -553,6 +575,80 @@ def _launch_step(base_seed, draw_idx, bars, jitter):
     u = host_uniform(derive_seed(base_seed, draw_idx, PURPOSE_LAUNCH_STEP),
                      0, 1, bars.shape, bars.device)
     return bars * ((1.0 - jitter) + (2.0 * jitter) * u)
+
+
+def flow_cl_fits(dim: int, maxdepth: int, packed_arrays,
+                 args_bytes: int = 0) -> bool:
+    """Whether the JAX posterior runner takes a frozen flow at all: its
+    chains-on-lanes VMEM rule at the smallest lane block (128 chains) with
+    the flow's packed bytes beside the model's data and, for the backward
+    pass's live activations, ``2 * n_layers * (hidden + 4 d)`` words more in
+    the fixed footprint, where ``hidden`` is the largest leading size of a
+    packed array, as that runner reads it (``chain.py:719-727,740-745``).
+    Flows are chains-on-lanes only (``nuts_pallas.py:125-126``): where this
+    fails, the JAX runner is None and the run stays on the sync engine."""
+    flow_bytes = 4 * sum(int(a.numel()) for a in packed_arrays)
+    n_layers = max(0, (len(packed_arrays) - 2) // 7)
+    hidden = max((int(a.shape[0]) for a in packed_arrays), default=0)
+    fixed = (6 * (maxdepth + 1) * dim + 32 * dim + 4
+             + 2 * n_layers * (hidden + 4 * dim))
+    return (4 * 128 * (fixed + 2 * 8 * (dim + 13)) + args_bytes + flow_bytes
+            <= POSTERIOR_BUDGET_BYTES)
+
+
+def make_flow_posterior_runner(model, strategy, config: ChainConfig,
+                               phase_start: int, base_seed: int):
+    """Posterior-phase runner on kernel K1-flow: the frozen pooled flow of
+    ``strategy`` (``adapt/flow.py``), chain 0's parameters packed for every
+    chain (``chain.py:694-727,812-835,886,897-910``).  The kernel's position
+    operand carries z, with stds 1, mean 0 and logdet 0; its aux output
+    carries the final z, from which the point is rebuilt through
+    ``FlowOps.eval_from_z``.  None, as the JAX runner, where the flow has no
+    kernel hooks, is not pooled, or fails :func:`flow_cl_fits`."""
+    from .flows.coupling import tree_map
+
+    spec = strategy.spec
+    if spec.kernel_pack is None or not strategy.flow_settings.pool_chains:
+        return None
+    proto = strategy.make_transform(1, model.dim, torch.float32, "cpu")
+    if not flow_cl_fits(model.dim, config.nuts.maxdepth,
+                        spec.kernel_pack(tree_map(lambda v: v[0],
+                                                  proto.params)).arrays,
+                        model.data_bytes):
+        return None
+    sset = config.step_size
+
+    def runner(state: ChainState, flags):
+        k = len(flags["is_tuning"])
+        C = state.pt.q.shape[0]
+        t = state.transform
+        bars = ss.step_size_bar(state.step, sset)
+        step_in = state.step.step_size
+        if sset.jitter is not None and state.draw_idx != phase_start:
+            step_in = _launch_step(base_seed, state.draw_idx, bars,
+                                   sset.jitter)
+        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_POSTERIOR)
+        z = state.pt.z.contiguous()
+        ones, zeros = torch.ones_like(z), torch.zeros_like(z)
+        packed = spec.kernel_pack(tree_map(lambda v: v[0], t.params))
+        _, z_f, _, draws, out = nf.nuts_fused_run(
+            seed, z, state.pt.g.contiguous(), state.pt.logp, ones, zeros,
+            torch.zeros_like(state.pt.logp), step_in, bars, k, model,
+            config.nuts, sset.jitter, flow=packed)
+        q_f, logp_f, g_f, zg_f, ld_f = strategy.ops.eval_from_z(
+            t, z_f, model.logp_and_grad)
+        pt = state.pt._replace(q=q_f, g=g_f, z=z_f, zg=zg_f, logp=logp_f,
+                               logdet=ld_f)
+        state = state._replace(
+            pt=pt, step=state.step._replace(
+                step_size=out["step_size"][:, -1].contiguous()),
+            draw_idx=state.draw_idx + k)
+        stats = _stats(draws, out, bars[None, :].expand(k, C).contiguous(),
+                       t.id[None, :].expand(k, C).contiguous(),
+                       flags["is_tuning"])
+        return state, stats
+
+    return runner
 
 
 def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,

@@ -11,7 +11,12 @@ jittered ``step_size``.  Model parameters pass through ``Model``
 construction, not through the state; ``model_from_pallas_args`` builds a
 data-carrying model of this package from the arrays the JAX model hands to
 the Pallas kernels' ``model_args`` channel, or from those of its
-``pallas_stream``.
+``pallas_stream``.  A learned flow's parameters (``flows/coupling.py``, the
+JAX package's pytree of the same keys, with or without the chain axis), its
+``FlowTransform`` and its ``FlowWindow`` cross with
+``flow_params_from_numpy``, ``flow_transform_from_numpy`` and
+``flow_window_from_numpy``, so that both packages compute the same thing
+from parameters the JAX package drew.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .adapt.flow import FlowWindow
 from .adapt.mass_matrix import DiagAdaptState, RunningVariance
 from .adapt.step_size import StepSizeState
 from .chain import ChainState
@@ -28,6 +34,7 @@ from .models.gaussian import (
     logistic_regression_tensors,
 )
 from .transform.affine import AffineTransform
+from .transform.ops import FlowTransform
 
 _ESTIMATORS = ("draw", "grad", "draw_bg", "grad_bg")
 _STEP_FIELDS = ("log_step", "log_step_adapted", "hbar", "mu", "count",
@@ -134,3 +141,54 @@ def model_from_pallas_args(kind: str, args, name=None, tile_rows=None,
     x, y = (np.asarray(a) for a in args)
     return logistic_regression_from_tensors(
         *logistic_regression_tensors(x, y), name=name)
+
+
+def flow_params_to_numpy(params) -> dict:
+    """A flow's parameter dict (``layers`` of ``mask`` and ``net`` {w1, b1,
+    w2, b2}, ``log_sigma``, ``mu``; the diagonal flow has only the last two)
+    as numpy arrays, from either package."""
+    out = {k: _np(params[k]) for k in ("log_sigma", "mu")}
+    if "layers" in params:
+        out["layers"] = [
+            {"mask": _np(layer["mask"]),
+             "net": {k: _np(v) for k, v in layer["net"].items()}}
+            for layer in params["layers"]]
+    return out
+
+
+def flow_params_from_numpy(params, device="cpu", dtype=torch.float32):
+    """This package's flow parameters from a parameter pytree of numpy (or
+    JAX) arrays with the JAX package's keys, with or without the chain
+    axis."""
+    def t(x):
+        return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+    out = {k: t(params[k]) for k in ("log_sigma", "mu")}
+    if "layers" in params:
+        out["layers"] = [
+            {"mask": t(layer["mask"]),
+             "net": {k: t(v) for k, v in layer["net"].items()}}
+            for layer in params["layers"]]
+    return out
+
+
+def flow_transform_from_numpy(params, transform_id, device="cpu",
+                              dtype=torch.float32) -> FlowTransform:
+    """A ``FlowTransform`` from per-chain parameters and the version counter
+    [C] (the JAX ``FlowTransform.id``)."""
+    return FlowTransform(
+        params=flow_params_from_numpy(params, device, dtype),
+        id=torch.as_tensor(np.array(transform_id), dtype=torch.int32,
+                           device=device))
+
+
+def flow_window_from_numpy(window, device="cpu",
+                           dtype=torch.float32) -> FlowWindow:
+    """A ``FlowWindow`` from the JAX one's arrays (draws, grads [C, cap, d],
+    logps [C, cap], count [C])."""
+    def t(x, dt=dtype):
+        return torch.as_tensor(np.array(x), dtype=dt, device=device)
+
+    return FlowWindow(draws=t(window.draws), grads=t(window.grads),
+                      logps=t(window.logps),
+                      count=t(window.count, torch.int32))

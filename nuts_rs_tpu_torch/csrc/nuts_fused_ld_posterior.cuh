@@ -69,7 +69,16 @@ struct LdPostArgs {
 // the model's evaluation is the cluster's (the streamed functor, models.cuh,
 // whose cluster barriers every block must meet): they agree at the top of
 // each iteration on whether any of them still lacks draws.
-template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool LOCKSTEP = false>
+//
+// FLOW (kernel K1-flow, nuts_fused_flow_posterior.cu): the chain moves in the
+// z-space of a frozen coupling flow; Model is a CouplingFlowModel
+// (coupling_flow.cuh).  The q input carries z0 and one evaluation at the
+// start gives q, logp, the gradient and the logdet there (g, logp, stds,
+// mean and logdet are not read); the logdet is per point, carried with the
+// selected points as the Pallas body's dm_ld / ds_ld (nuts_pallas.py:
+// 268-282); the g output carries the final z (:709-710).
+template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool LOCKSTEP = false,
+          bool FLOW = false>
 __global__ void __launch_bounds__(LD_T)
     ld_posterior_kernel(const LdPostArgs a, const Model model) {
   extern __shared__ float smem[];
@@ -111,19 +120,22 @@ __global__ void __launch_bounds__(LD_T)
   ch.mz = ch.lv + row;
   ch.mv = ch.mz + row;
 
-  const float logdet = a.logdet[c];
+  if constexpr (FLOW) model.setup(scratch);
+  const float logdet = FLOW ? 0.0f : a.logdet[c];
   const float bar = a.bar[c];
   float step = a.step0[c];
-  const float logp0 = a.logp[c];
+  float logp0 = FLOW ? 0.0f : a.logp[c];
   float s1[1];
   for (int i = 0; i < ch.n; ++i) {
     const int j = t0 + i * LD_T;
     float vv = 0.0f;
     if (j < d) {
       const size_t gj = (size_t)c * d + j;
-      const float sd = a.stds[gj], mn = a.mean[gj], q0 = a.q[gj];
-      const float z0 = (q0 - mn) / sd;
-      const float zg0 = a.g[gj] * sd;
+      const float sd = FLOW ? 1.0f : a.stds[gj];
+      const float mn = FLOW ? 0.0f : a.mean[gj];
+      const float q0 = a.q[gj];
+      const float z0 = FLOW ? q0 : (q0 - mn) / sd;
+      const float zg0 = FLOW ? 0.0f : a.g[gj] * sd;
       const float v0 =
           normal(seed, 0u, 1u, 2u, block_site<CL_SITE>(b, B, d, j));
       ch.stds[j] = sd;
@@ -141,7 +153,25 @@ __global__ void __launch_bounds__(LD_T)
   cluster.sync();
   red.sum(s1);
   const float ke0 = 0.5f * s1[0];
-  float e_init = ke0 - (logp0 + logdet);
+  float dm_ld = logdet, ds_ld = logdet;
+  if constexpr (FLOW) {
+    // the start through the flow: q into dm_q, zg into zg1, then copies
+    __syncthreads();
+    logp0 = model.eval_flow(ch.e_z, dm_q, ch.zg1, d, red, scratch);
+    float ls[1];
+    for (int i = 0; i < ch.n; ++i) {
+      const int j = t0 + i * LD_T;
+      acc(ls[0], i, j < d ? model.ld_term(scratch, j) : 0.0f);
+    }
+    red.sum(ls);
+    dm_ld = ds_ld = ls[0];
+    for (int j = t0; j < d; j += LD_T) {
+      const float zg = ch.zg1[j];
+      ch.e_zg[j] = ch.m_zg[j] = ch.p_zg[j] = ch.dm_zg[j] = ch.ds_zg[j] = zg;
+      ds_q[j] = dm_q[j];
+    }
+  }
+  float e_init = ke0 - (logp0 + dm_ld);
   int dc = 0;
   int e_idx = 0, m_idx = 0, p_idx = 0, dm_idx = 0, ds_idx = 0;
   float dm_logp = logp0, dm_ke = ke0, ds_logp = logp0, ds_ke = ke0;
@@ -168,10 +198,11 @@ __global__ void __launch_bounds__(LD_T)
     const float r_acc = uniform(seed, it, 5u, (uint32_t)b);
     const float dirf = direction;
 
-    const LdLeap lf = ld_leapfrog<EVAL_BLOCK>(ch, red, model, dirf, step,
-                                              leaf, depth, q1, scratch);
+    const LdLeap lf = ld_leapfrog<EVAL_BLOCK, Model, FLOW>(
+        ch, red, model, dirf, step, leaf, depth, q1, scratch);
     const float logp1 = lf.logp1, ke1 = lf.ke1;
-    const float err = (ke1 - (logp1 + logdet)) - e_init;
+    const float ld1 = FLOW ? lf.ld1 : logdet;
+    const float err = (ke1 - (logp1 + ld1)) - e_init;
     const bool diverged = (err > a.max_err) || !isfinite(err);
     const int idx1 = e_idx + (int)dirf;
 
@@ -195,6 +226,7 @@ __global__ void __launch_bounds__(LD_T)
       ds_logp = logp1;
       ds_ke = ke1;
       ds_idx = idx1;
+      if constexpr (FLOW) ds_ld = ld1;
     }
 
     // ---- top-level merge (biased acceptance) ----
@@ -209,6 +241,7 @@ __global__ void __launch_bounds__(LD_T)
         dm_logp = ds_logp;
         dm_ke = ds_ke;
         dm_idx = ds_idx;
+        if constexpr (FLOW) dm_ld = ds_ld;
       }
       logw_m = logaddexp(logw_m, logw_s);
       if (fwd) {
@@ -243,7 +276,7 @@ __global__ void __launch_bounds__(LD_T)
       }
       red.sum(fs);
       if (t0 == 0) {
-        const float energy_m = dm_ke - (dm_logp + logdet);
+        const float energy_m = dm_ke - (dm_logp + dm_ld);
         const float rowv[NSTATS] = {
             (float)depth, diverged ? 1.0f : 0.0f, (float)n_steps, s_acc,
             s_sym, mx_err, dm_logp, energy_m, energy_m - e_init,
@@ -281,7 +314,7 @@ __global__ void __launch_bounds__(LD_T)
         step = bar * (a.jc1 + a.jc2 * uniform(seed, it, 9u, (uint32_t)b));
       else
         step = bar;
-      e_init = ke_new - (dm_logp + logdet);
+      e_init = ke_new - (dm_logp + dm_ld);
       dc += 1;
       e_idx = m_idx = p_idx = dm_idx = 0;
       dm_ke = ke_new;
@@ -312,7 +345,7 @@ __global__ void __launch_bounds__(LD_T)
 
   for (int j = t0; j < d; j += LD_T) {
     a.q_f[(size_t)c * d + j] = dm_q[j];
-    a.g_f[(size_t)c * d + j] = ch.dm_zg[j] / ch.stds[j];
+    a.g_f[(size_t)c * d + j] = FLOW ? ch.dm_z[j] : ch.dm_zg[j] / ch.stds[j];
   }
   if (t0 == 0) {
     a.logp_f[c] = dm_logp;

@@ -125,6 +125,7 @@ __device__ __forceinline__ void ld_dots(const LdChain& c, Reducer& red,
 
 struct LdLeap {
   float logp1, ke1, d1;
+  float ld1;  // the new point's logdet under FLOW (unset otherwise)
   bool turning_int, turning_top;
 };
 
@@ -133,8 +134,12 @@ struct LdLeap {
 // Writes z1, v2, zg1 (and q1 where the caller keeps it) and the stack rows.
 // With EVAL_BLOCK the model is evaluated in its eval_block form between two
 // passes over the coordinates: q1_keep must be given, and `scratch` is the
-// functor's shared memory.
-template <bool EVAL_BLOCK, class Model>
+// functor's shared memory.  With FLOW (and EVAL_BLOCK) the model is a
+// CouplingFlowModel (coupling_flow.cuh): z1 goes through the frozen flow to
+// q1_keep, the functor's gradient comes back through the flow's backward
+// pass as zg1 (no diagonal scaling), and the first sum of the second pass
+// is the flow's logdet over the coordinates.
+template <bool EVAL_BLOCK, class Model, bool FLOW = false>
 __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
                                               const Model& model, float dirf,
                                               float step, int leaf, int depth,
@@ -158,7 +163,16 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
   const float* b0_v = c.lv + (size_t)D * d;
 
   float logp_block = 0.0f;
-  if constexpr (EVAL_BLOCK) {
+  if constexpr (FLOW) {
+    static_assert(EVAL_BLOCK, "the flow evaluates its model in eval_block");
+    for (int j = threadIdx.x; j < d; j += LD_T) {
+      const float v1 = c.e_v[j] + half * c.e_zg[j];
+      c.z1[j] = c.e_z[j] + eps * v1;
+      c.v2[j] = v1;
+    }
+    __syncthreads();
+    logp_block = model.eval_flow(c.z1, q1_keep, c.zg1, d, red, scratch);
+  } else if constexpr (EVAL_BLOCK) {
     // first pass: the half step and the new position; v2 holds v1 and zg1
     // the model's gradient until the second pass
     for (int j = threadIdx.x; j < d; j += LD_T) {
@@ -183,7 +197,12 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
     if (j < d) {
       const float sd = c.stds[j];
       float v1, z1, g1;
-      if constexpr (EVAL_BLOCK) {
+      if constexpr (FLOW) {
+        v1 = c.v2[j];
+        z1 = c.z1[j];
+        g1 = c.zg1[j];
+        t[0] = model.ld_term(scratch, j);
+      } else if constexpr (EVAL_BLOCK) {
         v1 = c.v2[j];
         z1 = c.z1[j];
         g1 = c.zg1[j];
@@ -196,7 +215,7 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
         c.z1[j] = z1;
         if (q1_keep != nullptr) q1_keep[j] = q1;
       }
-      const float zg1 = g1 * sd;
+      const float zg1 = FLOW ? g1 : g1 * sd;
       const float v2 = v1 + half * zg1;
       c.v2[j] = v2;
       c.zg1[j] = zg1;
@@ -234,6 +253,7 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
     out.logp1 = logp_block;
   else
     out.logp1 = model.finish(s[0]);
+  if constexpr (FLOW) out.ld1 = s[0];
   out.ke1 = 0.5f * s[1];
   out.d1 = s[2];
   const float d1 = out.d1;

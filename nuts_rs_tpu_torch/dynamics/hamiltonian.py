@@ -3,10 +3,13 @@ refresh, batched over chains.
 
 Port of ``nuts_rs_tpu/dynamics/hamiltonian.py`` (``:31-250``) for the
 Euclidean and the microcanonical (ESH, unit-sphere momentum) kinetic
-energies.  Every function works on ``[C, d]`` tensors (the chain axis that
-JAX adds with ``vmap`` is written out).  The exact-normal kinetic energy
-raises ``NotImplementedError``; it comes with the sync engine, queue-1 item 8
-of ROADMAP.md.
+energies.  The transform enters through its operations ``ops``
+(``transform/ops.py``: ``AFFINE_OPS`` by default, ``FlowOps`` for a flow,
+whose logdet depends on the position), as in the JAX module
+(``:80,113,178-215``).  Every function works on ``[C, d]`` tensors (the
+chain axis that JAX adds with ``vmap`` is written out).  The exact-normal
+kinetic energy raises ``NotImplementedError``; it comes with the sync
+engine, queue-1 item 8 of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -19,12 +22,8 @@ import torch
 
 from ..kernels.rng import host_normals
 from ..ops import hsum
-from ..transform.affine import (
-    AffineTransform,
-    grad_to_transformed,
-    to_transformed,
-    to_untransformed,
-)
+from ..transform.affine import AffineTransform
+from ..transform.ops import AFFINE_OPS
 from .point import Point
 
 
@@ -73,7 +72,7 @@ class LeapfrogResult(NamedTuple):
 def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
              logp_grad_fn, kind: KineticKind, energy_baseline,
              max_energy_error, step_size_factor=1.0,
-             csum=hsum) -> LeapfrogResult:
+             csum=hsum, ops=AFFINE_OPS) -> LeapfrogResult:
     """One leapfrog step (nuts-rs transformed_hamiltonian.rs:524-615).
 
     ``direction`` is +1/-1 (int or [C]).  Divergence: Euclidean uses
@@ -97,9 +96,8 @@ def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
     else:
         v1 = pt.v + (eps / 2.0) * pt.zg
         z1 = pt.z + eps * v1
-    q1 = to_untransformed(transform, z1)
-    logp1, g1 = logp_grad_fn(q1)
-    zg1 = grad_to_transformed(transform, g1)
+    q1, logp1, g1, zg1, logdet1 = ops.eval_from_z(transform, z1,
+                                                  logp_grad_fn)
     if micro:
         v2, dke2 = esh_momentum_update(zg1, v1, sqrt_n * eps_c / 2.0, csum)
         ke = ke + dke2
@@ -108,7 +106,7 @@ def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
         ke = 0.5 * csum(v2 * v2)
     new_pt = Point(
         q=q1, g=g1, z=z1, zg=zg1, v=v2, logp=logp1,
-        logdet=transform.logdet.to(dtype), ke=ke,
+        logdet=logdet1.to(dtype), ke=ke,
         idx=pt.idx + torch.as_tensor(direction, dtype=torch.int32,
                                      device=pt.z.device),
     )
@@ -146,35 +144,37 @@ def sample_momentum(seed: int, it: int, salt1: int, salt2: int, shape,
     return v
 
 
-def init_point_from_q(q, transform: AffineTransform, logp_grad_fn) -> Point:
+def init_point_from_q(q, transform: AffineTransform, logp_grad_fn,
+                      ops=AFFINE_OPS) -> Point:
     """Build a full point from an untransformed position."""
     logp, g = logp_grad_fn(q)
+    z, zg, logdet = ops.eval_from_q(transform, q, g, logp_grad_fn)
     return Point(
-        q=q, g=g, z=to_transformed(transform, q),
-        zg=grad_to_transformed(transform, g),
+        q=q, g=g, z=z, zg=zg,
         v=torch.zeros_like(q), logp=logp,
-        logdet=transform.logdet.to(q.dtype),
+        logdet=logdet.to(q.dtype),
         ke=torch.zeros_like(logp),
         idx=torch.zeros(q.shape[:-1], dtype=torch.int32, device=q.device),
     )
 
 
 def initialize_trajectory(pt: Point, transform: AffineTransform,
-                          kind: KineticKind, v=None) -> Point:
+                          kind: KineticKind, v=None,
+                          ops=AFFINE_OPS) -> Point:
     """Set the momentum and re-sync the transform cache before a draw
     (nuts-rs initialize_trajectory, transformed_hamiltonian.rs:687-736).
     The caller draws a fresh ``v`` (see ``sample_momentum``); ``v=None``
-    carries ``pt.v`` verbatim, as ``resample_velocity=False`` does."""
+    carries ``pt.v`` verbatim, as ``resample_velocity=False`` does.  Under a
+    flow the re-sync is an inverse and a forward vector-Jacobian product."""
     require_euclidean(kind)
     v = pt.v if v is None else v
+    z, zg, logdet = ops.eval_from_q(transform, pt.q, pt.g)
     if kind is KineticKind.MICROCANONICAL:
         ke = torch.zeros_like(pt.logp)
     else:
         ke = 0.5 * hsum(v * v)
     return pt._replace(
-        v=v, z=to_transformed(transform, pt.q),
-        zg=grad_to_transformed(transform, pt.g),
-        logdet=transform.logdet.to(pt.q.dtype), ke=ke,
+        v=v, z=z, zg=zg, logdet=logdet.to(pt.q.dtype), ke=ke,
         idx=torch.zeros_like(pt.idx),
     )
 

@@ -119,6 +119,10 @@ SOURCES = {
     "nuts_fused_stream_posterior": {
         "nrt_stream_posterior_launch": (_NUTS_POST + [_P] * 19, _I),
         "nrt_stream_smem_bytes": ([_I, _I, _I, _I, _P], _LL)},
+    "nuts_fused_flow_posterior": {
+        "nrt_flow_posterior_launch": (
+            _NUTS_POST + [_I, _I, _F, _F, _I] + [_P] * 20, _I),
+        "nrt_flow_smem_bytes": ([_I, _I, _I, _P, _I, _I, _I], _LL)},
 }
 
 
@@ -762,6 +766,108 @@ def launch_mid_posterior(seed, q, g, logp, stds, mean, logdet, step0,
             iters.data_ptr(), work.data_ptr(), stream)
     _raise_on(rc, lib, f"nuts_fused_{family}_posterior")
     return draws, stats, q_f, g_f, logp_f, iters
+
+
+def flow_packed_floats(d, hidden, n_layers):
+    """Floats of a packed coupling flow (csrc/coupling_flow.cuh)."""
+    return n_layers * (3 * hidden * d + hidden + 3 * d) + 2 * d
+
+
+def flow_smem_bytes(d, maxdepth, model, n_layers, hidden, weights_in_smem):
+    """Dynamic shared memory of one chain's CUDA block in kernel K1-flow: the
+    mid-d posterior layout with the model functor's scratch, then the flow's
+    work space (the activations of L layers, L (4 d + H) floats, four
+    d-vectors and one H-vector) and, with ``weights_in_smem``, the packed
+    parameters (csrc/coupling_flow.cuh)."""
+    work = n_layers * (4 * d + hidden) + 4 * d + hidden
+    if weights_in_smem:
+        work += flow_packed_floats(d, hidden, n_layers)
+    return mid_smem_bytes("posterior", d, maxdepth, model) + 4 * work
+
+
+def check_flow_args(packed, d, device):
+    """Check every array of a packed coupling flow (``flows/coupling.py::
+    PackedFlow``): float32, contiguous, on ``device``, in the shapes of its
+    layout, the same hidden width in every layer.  Returns (layers,
+    hidden)."""
+    arrays = list(packed.arrays)
+    if len(arrays) < 2 or (len(arrays) - 2) % 7:
+        raise ValueError("a packed flow holds 7 arrays a layer and "
+                         "log_sigma, mu")
+    L = (len(arrays) - 2) // 7
+    H = int(arrays[1].shape[0]) if L else 1
+    if H < 1:
+        raise ValueError("a coupling layer needs at least one hidden unit")
+    shapes = [(d, 1), (H, d), (H, 1), (d, H), (d, 1), (d, H), (d, 1)] * L
+    shapes += [(d, 1), (d, 1)]
+    names = ["mask", "w1T", "b1", "w2sT", "b2s", "w2tT", "b2t"] * L
+    names += ["log_sigma", "mu"]
+    for i, (name, a, shape) in enumerate(zip(names, arrays, shapes)):
+        check_tensor(f"flow array {i} ({name})", a, shape, device)
+    return L, H
+
+
+def launch_flow_posterior(seed, q, g, logp, stds, mean, logdet, step0,
+                          step_bar, K, model, opts, jitter, B, flow):
+    """Launch csrc/nuts_fused_flow_posterior.cu (kernel K1-flow): ``q``
+    carries z0, ``flow`` is a PackedFlow of arrays on the card; returns
+    (draws [K, C, d], stats [K, C, NSTATS], q_f, z_f [C, d], logp_f [C],
+    iters [C]).  The parameters go into each block's shared memory where
+    they fit beside the chain's state, else they are read through L2; a
+    chain whose state and the flow's work space do not fit a block is
+    refused."""
+    check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
+    model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK)
+    C, d = q.shape
+    D = opts.maxdepth
+    if not 1 <= D <= LD_MAX_MAXDEPTH:
+        raise NotImplementedError(
+            f"kernel K1-flow takes maxdepth 1..{LD_MAX_MAXDEPTH}, got {D}")
+    L, H = check_flow_args(flow, d, q.device)
+    ints, ptrs = model_data_args(model, d, q.device)
+    in_smem = int(flow_smem_bytes(d, D, model, L, H, True)
+                  <= SMEM_OPT_IN_BYTES)
+    need = flow_smem_bytes(d, D, model, L, H, in_smem)
+    if need > SMEM_OPT_IN_BYTES:
+        raise NotImplementedError(
+            f"kernel K1-flow at dim {d} with {L} layers of {H} needs {need} "
+            f"bytes of shared memory per chain without the parameters; a "
+            f"block has {SMEM_OPT_IN_BYTES}")
+    c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
+    c_ptrs = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+    lib = library("nuts_fused_flow_posterior")
+    built = lib.nrt_flow_smem_bytes(d, D, model_id,
+                                    ctypes.cast(c_ints, ctypes.c_void_p),
+                                    L, H, in_smem)
+    if built != need:
+        raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
+                           f"for kernel K1-flow, _build.flow_smem_bytes "
+                           f"{need}")
+    packed = torch.cat([a.reshape(-1) for a in flow.arrays])
+    work = torch.empty(C, 4, D + 1, d, dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    draws = torch.empty(K, C, d, **f32)
+    stats = torch.empty(K, C, 13, **f32)
+    q_f, z_f = torch.empty(C, d, **f32), torch.empty(C, d, **f32)
+    logp_f = torch.empty(C, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=q.device)
+    hj, jc1, jc2 = _jitter_args(jitter)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.nrt_flow_posterior_launch(
+            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            float(opts.max_energy_error), hj, jc1, jc2, model_id, L, H,
+            float(flow.max_scale), float(flow.max_shift), in_smem,
+            ctypes.cast(params, ctypes.c_void_p),
+            ctypes.cast(c_ptrs, ctypes.c_void_p),
+            ctypes.cast(c_ints, ctypes.c_void_p), packed.data_ptr(),
+            q.data_ptr(), g.data_ptr(), logp.data_ptr(), stds.data_ptr(),
+            mean.data_ptr(), logdet.data_ptr(), step0.data_ptr(),
+            step_bar.data_ptr(), draws.data_ptr(), stats.data_ptr(),
+            q_f.data_ptr(), z_f.data_ptr(), logp_f.data_ptr(),
+            iters.data_ptr(), work.data_ptr(), stream)
+    _raise_on(rc, lib, "nuts_fused_flow_posterior")
+    return draws, stats, q_f, z_f, logp_f, iters
 
 
 def launch_stream_posterior(seed, q, g, logp, stds, mean, logdet, step0,

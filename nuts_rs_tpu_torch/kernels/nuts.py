@@ -1,7 +1,8 @@
 """Iterative No-U-Turn trajectories: the draw-synchronous engine.
 
-Port of ``nuts_rs_tpu/kernels/nuts.py`` (whole, without the orbit buffers of
-flow training): ``NutsOptions`` (``:62-78``), ``DivergenceInfo`` and
+Port of ``nuts_rs_tpu/kernels/nuts.py`` (whole): ``NutsOptions``
+(``:62-78``, with ``collect_orbit``, the orbit buffers of flow training,
+``:75-77,135-140,250-258,324-340``), ``DivergenceInfo`` and
 ``NutsInfo`` (``:91-140``), the tree carry (``:143-179``), ``_dyn_depths``
 (``:198``), ``_init_tree_carry`` (``:215``), ``_tree_body`` (``:265``),
 ``_extract_info`` (``:493``) and ``nuts_draw`` (``:521``).  The tree algorithm
@@ -48,6 +49,7 @@ from ..dynamics.hamiltonian import (
 )
 from ..dynamics.point import Point, chains_where, point_where
 from ..ops import logaddexp
+from ..transform.ops import AFFINE_OPS
 from .rng import hash_bits, host_uniform, tz, uniform_from_bits
 
 SALT_MOMENTUM = (1, 2)
@@ -73,6 +75,10 @@ class NutsOptions:
     target_integration_time: Optional[float] = None
     kind: KineticKind = KineticKind.EUCLIDEAN
     store_divergences: bool = False
+    # Collect every leapfrog point (position, gradient, logp, energy error)
+    # into a fixed [2^maxdepth] buffer per chain for flow training (the
+    # reference's use_orbit_for_training, external_adapt_strategy.rs:93-128)
+    collect_orbit: bool = False
 
 
 # DivergenceInfo.reason codes (the fixed-shape analog of the reference's
@@ -116,6 +122,12 @@ class NutsInfo(NamedTuple):
     idx_in_trajectory: torch.Tensor  # [C] int32 of the selected draw
     is_good_for_adapt: torch.Tensor  # [C] bool (DrawGradCollector.is_good)
     divergence: DivergenceInfo
+    # orbit buffers (NutsOptions.collect_orbit; one row otherwise): a row
+    # per leapfrog in creation order; rows >= min(n_steps, cap) are invalid
+    orbit_q: Optional[torch.Tensor] = None     # [C, cap, d]
+    orbit_g: Optional[torch.Tensor] = None     # [C, cap, d]
+    orbit_logp: Optional[torch.Tensor] = None  # [C, cap]
+    orbit_err: Optional[torch.Tensor] = None   # [C, cap] energy - initial
 
 
 class TreeCarry(NamedTuple):
@@ -152,6 +164,14 @@ class TreeCarry(NamedTuple):
     sum_accept_sym: torch.Tensor
     max_energy_error: torch.Tensor
     div_info: DivergenceInfo
+    orbit_q: torch.Tensor
+    orbit_g: torch.Tensor
+    orbit_logp: torch.Tensor
+    orbit_err: torch.Tensor
+
+
+def _orbit_cap(opts: NutsOptions) -> int:
+    return (1 << opts.maxdepth) if opts.collect_orbit else 1
 
 
 def _sum(x):
@@ -218,6 +238,10 @@ def _init_tree_carry(pt0: Point, step_size, opts: NutsOptions,
         extras_left=torch.full_like(zi, opts.extra_doublings),
         n_steps=zi, sum_accept=zf, sum_accept_sym=zf, max_energy_error=zf,
         div_info=_empty_div_info(C, dim, dtype, dev, opts.store_divergences),
+        orbit_q=torch.zeros(C, _orbit_cap(opts), dim, dtype=dtype, device=dev),
+        orbit_g=torch.zeros(C, _orbit_cap(opts), dim, dtype=dtype, device=dev),
+        orbit_logp=torch.zeros(C, _orbit_cap(opts), dtype=dtype, device=dev),
+        orbit_err=torch.zeros(C, _orbit_cap(opts), dtype=dtype, device=dev),
     )
 
 
@@ -283,7 +307,7 @@ def _uturn_checks(leaf, tzn, depth, dirf, z1, v2, d1, lz, lv, bl, mz, mv,
 
 
 def _tree_body(c: TreeCarry, active, rand3, transform, logp_grad_fn,
-               opts: NutsOptions) -> TreeCarry:
+               opts: NutsOptions, ops=AFFINE_OPS) -> TreeCarry:
     """One leapfrog and all tree bookkeeping for the chains in ``active``
     (``nuts.py:265-490``); the others keep their state, since every mask
     that changes a field carries ``active``.  ``rand3`` are three [C]
@@ -295,7 +319,7 @@ def _tree_body(c: TreeCarry, active, rand3, transform, logp_grad_fn,
 
     res = leapfrog(c.p_edge, c.direction, c.step_size, transform,
                    logp_grad_fn, opts.kind, e0, opts.max_energy_error,
-                   csum=_sum)
+                   csum=_sum, ops=ops)
     new_pt = res.point
     diverged = res.diverging & active
     ok = active & ~diverged
@@ -326,6 +350,17 @@ def _tree_body(c: TreeCarry, active, rand3, transform, logp_grad_fn,
         end_momentum=new_pt.v if store_mom else c.div_info.end_momentum,
         energy_error=res.energy_error, start_idx=c.p_edge.idx,
         end_idx=new_pt.idx, reason=reason), c.div_info)
+
+    # --- orbit collection (flow training): each active chain writes its
+    # leapfrog's row
+    orbit = (c.orbit_q, c.orbit_g, c.orbit_logp, c.orbit_err)
+    if opts.collect_orbit:
+        ca = active.nonzero()[:, 0]
+        row = torch.clamp(c.n_steps[ca], max=_orbit_cap(opts) - 1).long()
+        orbit = tuple(x.clone() for x in orbit)
+        for buf, val in zip(orbit, (new_pt.q, new_pt.g, new_pt.logp,
+                                    res.energy_error)):
+            buf[ca, row] = val[ca].to(buf.dtype)
 
     # --- progressive multinomial within the subtree ---
     logw_leaf = -res.energy_error
@@ -410,7 +445,8 @@ def _tree_body(c: TreeCarry, active, rand3, transform, logp_grad_fn,
         extra_mode=extra_mode, extras_left=extras_left,
         n_steps=c.n_steps + active.to(torch.int32), sum_accept=sum_accept,
         sum_accept_sym=sum_accept_sym, max_energy_error=max_err,
-        div_info=div_info)
+        div_info=div_info, orbit_q=orbit[0], orbit_g=orbit[1],
+        orbit_logp=orbit[2], orbit_err=orbit[3])
 
 
 def _extract_info(final: TreeCarry):
@@ -429,7 +465,9 @@ def _extract_info(final: TreeCarry):
         # DrawGradCollector.is_good (transform/adapt/diagonal.rs:73-84)
         is_good_for_adapt=torch.where(final.diverging,
                                       torch.abs(draw.idx) > 4, draw.idx != 0),
-        divergence=final.div_info)
+        divergence=final.div_info, orbit_q=final.orbit_q,
+        orbit_g=final.orbit_g, orbit_logp=final.orbit_logp,
+        orbit_err=final.orbit_err)
     return draw, info
 
 
@@ -448,17 +486,18 @@ def tree_uniforms(seed: int, it: int, num_chains: int, device, n: int = 1):
 
 
 def nuts_draw(seed: int, init_pt: Point, transform, step_size, logp_grad_fn,
-              opts: NutsOptions):
+              opts: NutsOptions, ops=AFFINE_OPS):
     """One NUTS draw of every chain from ``init_pt`` (``nuts::draw``, nuts-rs
     ``src/nuts.rs:281-388``): momentum refresh, repeated doubling until
     maxdepth, a U-turn or a divergence, and the collectors' bookkeeping.
     Returns ``(draw: Point, info: NutsInfo)``; see the module docstring for
-    the random sites ``seed`` keys."""
+    the random sites ``seed`` keys.  ``ops`` are the transform's operations
+    (``transform/ops.py``)."""
     C, dim = init_pt.q.shape
     dtype, dev = init_pt.q.dtype, init_pt.q.device
     v0 = sample_momentum(seed, 0, *SALT_MOMENTUM, (C, dim), dtype, dev,
                          opts.kind)
-    pt0 = initialize_trajectory(init_pt, transform, opts.kind, v0)
+    pt0 = initialize_trajectory(init_pt, transform, opts.kind, v0, ops)
     rand_dir = host_uniform(seed, 0, SALT_FIRST_DIRECTION, (C,), dev)
     carry = _init_tree_carry(pt0, step_size.to(dtype), opts, rand_dir)
     it = 1
@@ -470,6 +509,6 @@ def nuts_draw(seed: int, init_pt: Point, transform, step_size, logp_grad_fn,
         if k == 0:
             uniforms = tree_uniforms(seed, it, C, dev, _UNIFORM_ITERATIONS)
         carry = _tree_body(carry, active, uniforms[k], transform,
-                           logp_grad_fn, opts)
+                           logp_grad_fn, opts, ops)
         it += 1
     return _extract_info(carry)

@@ -70,9 +70,11 @@ from ._build import (
     MAX_LD_BLOCK,
     SIZES,
     STREAM_BLOCKS,
+    check_flow_args,
     check_posterior_args,
     check_warmup_args,
     count_model,
+    launch_flow_posterior,
     launch_ld_posterior,
     launch_ld_warmup,
     launch_mid_posterior,
@@ -130,14 +132,16 @@ DEFAULT_MID_BLOCK = 1
 # chain block an SM; 512 chains in 4 waves where clusters of 8 take 5)
 DEFAULT_LD_ARGS_BLOCK = 1
 _DEFAULT_BLOCKS = {"thread": DEFAULT_BLOCK, "mid": DEFAULT_MID_BLOCK,
-                   "ld": DEFAULT_LD_BLOCK, "ld_args": DEFAULT_LD_ARGS_BLOCK}
+                   "ld": DEFAULT_LD_BLOCK, "ld_args": DEFAULT_LD_ARGS_BLOCK,
+                   "flow": DEFAULT_MID_BLOCK}
 
 LAUNCHES = {"nuts_fused_posterior": 0, "nuts_fused_warmup": 0,
             "nuts_fused_ld_posterior": 0, "nuts_fused_ld_warmup": 0,
             "nuts_fused_mid_posterior": 0, "nuts_fused_mid_warmup": 0,
             "nuts_fused_stream_posterior": 0,
             "nuts_fused_ld_args_posterior": 0,
-            "nuts_fused_ld_args_warmup": 0}
+            "nuts_fused_ld_args_warmup": 0,
+            "nuts_fused_flow_posterior": 0}
 
 _F32 = torch.float32
 _NEG_INF = float("-inf")
@@ -244,11 +248,19 @@ def cl_kernel(model, dim, maxdepth=None):
     return "thread"
 
 
-def _kernel_kind(model, dim, layout, maxdepth=None, stream=False):
-    """``"ld"``, ``"ld_args"``, ``"stream"``, ``"mid"`` or ``"thread"``: the
-    kernel of a call.  In the ld layout a functor of the term / finish form
-    (``_build.COORD_FUNCTORS``) takes K1-ld / K2-ld, every other one
-    K1-ld-args / K2-ld-args."""
+def _kernel_kind(model, dim, layout, maxdepth=None, stream=False,
+                 flow=False):
+    """``"ld"``, ``"ld_args"``, ``"stream"``, ``"flow"``, ``"mid"`` or
+    ``"thread"``: the kernel of a call.  In the ld layout a functor of the
+    term / finish form (``_build.COORD_FUNCTORS``) takes K1-ld / K2-ld, every
+    other one K1-ld-args / K2-ld-args.  A frozen flow takes K1-flow, the
+    mid-d body, in the chains-on-lanes layout only
+    (``nuts_pallas.py:125-126``)."""
+    if flow:
+        if _check_layout(layout) or stream:
+            raise ValueError("the flow kernel is chains-on-lanes only, "
+                             "without streamed data")
+        return "flow"
     if _check_layout(layout):
         if stream:
             raise ValueError("the streamed kernel is chains-on-lanes only")
@@ -316,15 +328,33 @@ def _jitter_consts(jitter):
 # ---------------------------------------------------------------------------
 
 
+def _flow_evaluator(packed, logp_and_grad, csum):
+    """K1-flow's evaluation z -> (logp, zg, logdet, q) through the frozen
+    packed flow (``nuts_pallas.py:202-216``), in the kernel's order
+    (``flows/coupling.py::packed_forward`` / ``packed_backward``, the model
+    through its plain functor, logdet the ``csum`` of each coordinate's s
+    over the layers and its log sigma)."""
+    from ..flows.coupling import packed_backward, packed_forward
+
+    def eval_z(z):
+        q, sacc, acts = packed_forward(packed, z)
+        logp, g = logp_and_grad(q)
+        return logp, packed_backward(packed, acts, g), csum(sacc), q
+
+    return eval_z
+
+
 def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
                              step_bar, num_draws, model, opts, jitter,
-                             block=None, layout="cl", stream=False):
+                             block=None, layout="cl", stream=False,
+                             flow=None):
     """Plain PyTorch version of the fused posterior kernels.
 
     Same arguments and results as :func:`nuts_fused_run`."""
     C, d = q.shape
     K = num_draws
-    kind = _kernel_kind(model, d, layout, opts.maxdepth, stream)
+    kind = _kernel_kind(model, d, layout, opts.maxdepth, stream,
+                        flow is not None)
     B = _check_block(C, block, kind)
     csum, logp_and_grad = _evaluators(model, kind, B)
     D = opts.maxdepth
@@ -338,17 +368,26 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
     zi = torch.zeros(C, dtype=torch.int32, device=dev)
     zf = torch.zeros(C, dtype=_F32, device=dev)
 
-    z0 = (q - mean) / stds
-    zg0 = g * stds
+    if flow is not None:
+        # the q slot carries z0; one evaluation gives q, logp, the gradient
+        # and the position-dependent logdet at the start
+        eval_z = _flow_evaluator(flow, logp_and_grad, csum)
+        z0 = q
+        logp, zg0, ld0, q = eval_z(z0)
+    else:
+        z0 = (q - mean) / stds
+        zg0 = g * stds
+        ld0 = logdet
     v0 = rng.normals_vec(0, 1, 2)
     ke0 = 0.5 * csum(v0 * v0)
-    e_init = ke0 - (logp + logdet)
+    e_init = ke0 - (logp + ld0)
     dc = zi
     e_z, e_v, e_zg, e_idx = z0, v0, zg0, zi
     m_z, m_v, m_zg, m_idx = z0, v0, zg0, zi
     p_z, p_v, p_zg, p_idx = z0, v0, zg0, zi
     dm_z, dm_zg, dm_logp, dm_ke, dm_idx, dm_q = z0, zg0, logp, ke0, zi, q
     ds_z, ds_zg, ds_logp, ds_ke, ds_idx, ds_q = z0, zg0, logp, ke0, zi, q
+    dm_ld = ds_ld = ld0
     logw_m = zf
     logw_s = torch.full_like(zf, _NEG_INF)
     depth, leaf = zi, zi
@@ -361,7 +400,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
 
     draws = torch.zeros(C, K, d, dtype=_F32, device=dev)
     stats = torch.zeros(C, K, NSTATS, dtype=_F32, device=dev)
-    fin_q, fin_zg, fin_logp = dm_q, dm_zg, dm_logp
+    fin_q, fin_zg, fin_logp, fin_z = dm_q, dm_zg, dm_logp, dm_z
     iters = torch.zeros(C, dtype=torch.int32, device=dev)
     c1, c2 = _jitter_consts(jitter) if jitter is not None else (None, None)
 
@@ -374,12 +413,16 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
         eps = (dirf * step)[:, None]
         v1 = e_v + (eps / 2.0) * e_zg
         z1 = e_z + eps * v1
-        q1 = z1 * stds + mean
-        logp1, g1 = logp_and_grad(q1)
-        zg1 = g1 * stds
+        if flow is not None:
+            logp1, zg1, ld1, q1 = eval_z(z1)
+        else:
+            q1 = z1 * stds + mean
+            logp1, g1 = logp_and_grad(q1)
+            zg1 = g1 * stds
+            ld1 = logdet
         v2 = v1 + (eps / 2.0) * zg1
         ke1 = 0.5 * csum(v2 * v2)
-        err = (ke1 - (logp1 + logdet)) - e_init
+        err = (ke1 - (logp1 + ld1)) - e_init
         diverged = (err > max_err) | ~torch.isfinite(err)
         idx1 = e_idx + dirf.to(torch.int32)
 
@@ -400,6 +443,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
         ds_z, ds_zg = _sel(take, z1, ds_z), _sel(take, zg1, ds_zg)
         ds_logp, ds_ke = _sel(take, logp1, ds_logp), _sel(take, ke1, ds_ke)
         ds_idx, ds_q = _sel(take, idx1, ds_idx), _sel(take, q1, ds_q)
+        ds_ld = _sel(take, ld1, ds_ld)
 
         d1 = csum(z1 * v2)
         row_l = torch.clamp(tz(leaf, D), max=D)
@@ -422,6 +466,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
         dm_z, dm_zg = _sel(mt, ds_z, dm_z), _sel(mt, ds_zg, dm_zg)
         dm_logp, dm_ke = _sel(mt, ds_logp, dm_logp), _sel(mt, ds_ke, dm_ke)
         dm_idx, dm_q = _sel(mt, ds_idx, dm_idx), _sel(mt, ds_q, dm_q)
+        dm_ld = _sel(mt, ds_ld, dm_ld)
         logw_m = torch.where(do_merge, _logaddexp(logw_m, logw_s), logw_m)
         mf = do_merge & fwd
         mb = do_merge & ~fwd
@@ -436,7 +481,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
 
         emit = fin & (dc < K)
         if bool(emit.any()):
-            energy_m = dm_ke - (dm_logp + logdet)
+            energy_m = dm_ke - (dm_logp + dm_ld)
             row = torch.stack([
                 depth.to(_F32), diverged.to(_F32), n_steps.to(_F32), s_acc,
                 s_sym, mx_err, dm_logp, energy_m, energy_m - e_init,
@@ -462,7 +507,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
             return _sel(fin, fresh, _sel(new_doub, doub, cont))
 
         step = _sel(fin, step_new, step)
-        e_init = _sel(fin, ke_new - (dm_logp + logdet), e_init)
+        e_init = _sel(fin, ke_new - (dm_logp + dm_ld), e_init)
         dc = dc + fin.to(torch.int32)
         e_z, e_v = nxt(dm_z, j_z, z1), nxt(v_new, j_v, v2)
         e_zg, e_idx = nxt(dm_zg, j_zg, zg1), nxt(zi, j_idx, idx1)
@@ -484,18 +529,21 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
         fin_q = _sel(live, dm_q, fin_q)
         fin_zg = _sel(live, dm_zg, fin_zg)
         fin_logp = _sel(live, dm_logp, fin_logp)
+        fin_z = _sel(live, dm_z, fin_z)
         iters = torch.where(live, it + 1, iters).to(torch.int32)
         it += 1
         live = _block_any(dc < K, B)
 
     stats_out = {name: stats[:, :, i] for i, name in enumerate(STAT_NAMES)}
     stats_out["loop_iterations"] = iters
-    return fin_q, fin_zg / stds, fin_logp, draws, stats_out
+    # under a flow the aux slot carries the final z (nuts_pallas.py:709-710)
+    aux = fin_z if flow is not None else fin_zg / stds
+    return fin_q, aux, fin_logp, draws, stats_out
 
 
 def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
                    num_draws, model, opts, jitter, block=None, layout="cl",
-                   stream=False):
+                   stream=False, flow=None):
     """Run ``num_draws`` draw-asynchronous NUTS draws per chain.
 
     q, g, stds, mean: [C, d]; logp, logdet, step0, step_bar: [C].  Returns
@@ -510,25 +558,35 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
     (kernel K1-stream, ``layout="cl"`` only), and the chains of a block
     share each pass over the data: ``block`` is 1, 2, 4 or 8 (default: the
     largest that divides the chains), and the tiles' sums are added in that
-    many ranges.
+    many ranges.  With ``flow`` (a ``flows/coupling.py::PackedFlow``, one set
+    of parameters for every chain) the chains move in the flow's z-space
+    (kernel K1-flow, ``layout="cl"`` only, default block 1): ``q`` carries
+    z0 (g, logp, stds, mean and logdet are not read) and the returned
+    ``g_f`` the final z; draws are in q-space.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
     ``csrc/nuts_fused_posterior.cu`` or ``csrc/nuts_fused_mid_posterior.cu``
     (cl, see :func:`cl_kernel`), ``csrc/nuts_fused_stream_posterior.cu``
     (``stream``), ``csrc/nuts_fused_ld_posterior.cu`` (ld) or
     ``csrc/nuts_fused_ld_args_posterior.cu`` (ld, a functor without the
-    term / finish form)."""
+    term / finish form) or ``csrc/nuts_fused_flow_posterior.cu``
+    (``flow``)."""
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar,
                          num_draws)
-    kind = _kernel_kind(model, q.shape[1], layout, opts.maxdepth, stream)
+    kind = _kernel_kind(model, q.shape[1], layout, opts.maxdepth, stream,
+                        flow is not None)
+    if flow is not None:
+        check_flow_args(flow, q.shape[1], q.device)
     if q.device.type == "cpu":
         return nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet,
                                         step0, step_bar, num_draws, model,
-                                        opts, jitter, block, layout, stream)
+                                        opts, jitter, block, layout, stream,
+                                        flow)
     if kind != "thread":
         launch = {"ld": launch_ld_posterior, "mid": launch_mid_posterior,
                   "ld_args": partial(launch_mid_posterior, family="ld_args"),
-                  "stream": launch_stream_posterior}[kind]
+                  "stream": launch_stream_posterior,
+                  "flow": partial(launch_flow_posterior, flow=flow)}[kind]
         draws, stats, q_f, g_f, logp_f, iters = launch(
             seed, q, g, logp, stds, mean, logdet, step0, step_bar, num_draws,
             model, opts, jitter, _check_block(q.shape[0], block, kind))

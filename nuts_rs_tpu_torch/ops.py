@@ -79,6 +79,16 @@ def logaddexp(x1, x2):
                        amax + torch.log1p(torch.exp(-torch.abs(delta))))
 
 
+def tanh(x):
+    """tanh(x) = sign(x) (1 - e) / (1 + e) with e = exp(-2 |x|): one
+    definition from exp and IEEE arithmetic, which the flow kernel K1-flow
+    (csrc/coupling_flow.cuh::ftanh) and its plain version share, so both
+    round alike (CUDA's tanhf and torch.tanh need not).  Absolute error a
+    few 1e-8 in float32."""
+    e = torch.exp(-2.0 * torch.abs(x))
+    return torch.copysign((1.0 - e) / (1.0 + e), x)
+
+
 @contextlib.contextmanager
 def ieee_matmul():
     """IEEE float32 matrix products on the card inside the block (no TF32),

@@ -1,8 +1,10 @@
 """Settings presets, the phase plan and the chunked sampler.
 
 Port of ``nuts_rs_tpu/sampler.py``: ``NutsSettings`` and
-``DiagNutsSettings`` (``:45-281,538-541``), ``MclmcTrajectoryKind``,
-``MclmcSettings`` and ``DiagMclmcSettings`` (``:287-517``), the phase plans
+``DiagNutsSettings`` (``:45-281,538-541``), ``FlowNutsSettings``
+(``:552-559``), ``MclmcTrajectoryKind``, ``MclmcSettings``,
+``DiagMclmcSettings`` and ``FlowMclmcSettings`` (``:287-535``),
+``_strategy_for`` and ``_schedule_for`` (``:663-681``), the phase plans
 ``build_phases``, a reduced ``Sampler`` (``:758``: ``__init__``, the phase
 runners, ``run_next_chunk``, ``_finish_chunk``, ``run`` ``:1957``) and the
 free functions ``schema`` (``:2216``) and ``sample`` (``:2248``).
@@ -21,6 +23,11 @@ whose data only stream (``chain.fused_layout``), the good-draw window mode
 and the step-size methods other than dual averaging take the per-draw sync
 warmup before the fused posterior; a tree option the fused kernels lack
 demotes the run to the sync engine with the JAX package's ``UserWarning``.
+A learned flow (``mass_matrix="flow"``, ``FlowNutsSettings``) warms up on the
+sync engine with its refits (``adapt/flow.py``) and, with ``"pallas"``,
+draws the posterior on kernel K1-flow with the frozen pooled flow; a flow
+without kernel hooks, an unpooled one or one beyond the JAX runner's size
+rule stays on the sync engine, with that package's ``UserWarning``.
 MCLMC runs the fused engine only: warmup on the fused MCLMC warmup
 kernel, split at the Euclidean -> microcanonical switch, and the posterior
 on the fused MCLMC posterior kernel, with or without model data, up to the
@@ -39,11 +46,12 @@ import dataclasses
 import enum
 import time
 import warnings
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from .adapt.flow import FlowAdaptSettings, FlowStrategy, build_flow_schedule
 from .adapt.schedule import (
     AdaptScheduleOptions,
     build_schedule,
@@ -59,6 +67,7 @@ from .chain import (
     mclmc_refusal,
     make_fused_mclmc_posterior_runner,
     make_fused_mclmc_warmup_runner,
+    make_flow_posterior_runner,
     make_fused_posterior_runner,
     make_fused_warmup_runner,
     make_sync_runner,
@@ -102,6 +111,8 @@ class NutsSettings:
     adapt: AdaptScheduleOptions = AdaptScheduleOptions()
     step_size: StepSizeSettings = StepSizeSettings()
     use_grad_based_estimate: bool = True
+    flow: FlowAdaptSettings = FlowAdaptSettings()
+    flow_spec: Any = None  # FlowSpec; None: the built-in coupling flow
     mass_matrix: str = "diag"  # "diag" | "low_rank" | "flow"
 
     def nuts_options(self) -> NutsOptions:
@@ -112,7 +123,9 @@ class NutsSettings:
             extra_doublings=self.extra_doublings,
             target_integration_time=self.target_integration_time,
             kind=self.kinetic_energy,
-            store_divergences=self.store_divergences)
+            store_divergences=self.store_divergences,
+            collect_orbit=(self.mass_matrix == "flow"
+                           and self.flow.use_orbit_for_training))
 
     def chain_config(self) -> ChainConfig:
         window_params = None
@@ -166,7 +179,8 @@ class NutsSettings:
     def _fused_warmup(self) -> bool:
         """Whether the settings allow the fused warmup
         (``nuts_rs_tpu/sampler.py:252-255``)."""
-        return (self._fused() and not self.adapt.window_by_good_draws
+        return (self._fused() and self.mass_matrix == "diag"
+                and not self.adapt.window_by_good_draws
                 and self.step_size.method is StepSizeMethod.DUAL_AVERAGE)
 
     def unsupported(self, model: Model, device=None) -> list:
@@ -180,9 +194,7 @@ class NutsSettings:
             raise ValueError(f"unknown posterior_kernel {kind!r}")
         if self.mass_matrix == "low_rank":
             reasons.append("mass_matrix='low_rank' (item 14)")
-        elif self.mass_matrix == "flow":
-            reasons.append("mass_matrix='flow' (item 15)")
-        elif self.mass_matrix != "diag":
+        elif self.mass_matrix not in ("diag", "flow"):
             raise ValueError(f"unknown mass_matrix {self.mass_matrix!r}")
         if self.kinetic_energy is KineticKind.EXACT_NORMAL:
             reasons.append("kinetic_energy=EXACT_NORMAL (item 8)")
@@ -194,10 +206,13 @@ class NutsSettings:
             reasons.append("cross-chain adaptation / meshes (item 17)")
         if reasons or not self._fused():
             return reasons
+        if self.mass_matrix == "flow":
+            return _flow_model_reasons(model, self.maxdepth, device)
         return _model_reasons(model, self.maxdepth, device, ld=True,
                               warmup=self._fused_warmup())
 
-    def build_phases(self, model: Model, config: ChainConfig, device=None):
+    def build_phases(self, model: Model, config: ChainConfig, device=None,
+                     strategy=None):
         """``[(start, end, runner)]``, as the JAX package plans them
         (``nuts_rs_tpu/sampler.py:202-281``): the sync engine throughout for
         ``posterior_kernel="sync"`` and for a ``"pallas"`` request with a
@@ -206,12 +221,14 @@ class NutsSettings:
         step-size re-init draw so that the init search runs at a launch
         boundary (adapt_strategy.rs:207-212), or after the per-draw sync
         warmup where the settings or the model's data rule the fused warmup
-        out.  Raises ``NotImplementedError`` for what :meth:`unsupported`
-        lists."""
+        out.  A flow run is the sync warmup with its refits, then the K1-flow
+        posterior (``nuts_rs_tpu/sampler.py:252-281``), or the sync engine
+        throughout where the runner declines the flow.  Raises
+        ``NotImplementedError`` for what :meth:`unsupported` lists."""
         _refuse(self.unsupported(model, device))
         total = self.num_tune + self.num_draws
-        sync = make_sync_runner(model, DiagStrategy(config), config,
-                                self.seed)
+        strategy = strategy or _strategy_for(self, config)
+        sync = make_sync_runner(model, strategy, config, self.seed)
         if not self._fused():
             if self._posterior_kernel == "pallas":
                 warnings.warn(
@@ -220,6 +237,16 @@ class NutsSettings:
                     + "; ".join(self._pallas_disqualifiers())
                     + " — using the sync engine", UserWarning)
             return [(0, total, sync)]
+        if self.mass_matrix == "flow":
+            post = make_flow_posterior_runner(model, strategy, config,
+                                              self.num_tune, self.seed)
+            if post is None:
+                warnings.warn(
+                    "posterior_kernel='pallas' requested but no fused-"
+                    "engine tier fits this model (VMEM budget or missing "
+                    "pallas hooks) — using the sync engine", UserWarning)
+                return [(0, total, sync)]
+            return [(0, self.num_tune, sync), (self.num_tune, total, post)]
         post = make_fused_posterior_runner(model, config, self.num_tune,
                                            self.seed, device)
         warm = (make_fused_warmup_runner(model, config, self.seed, device)
@@ -248,6 +275,55 @@ class NutsSettings:
 def DiagNutsSettings(**kw) -> NutsSettings:
     """Defaults of nuts-rs ``DiagNutsSettings`` (src/sampler.rs:630-633)."""
     return NutsSettings(**kw)
+
+
+def FlowNutsSettings(**kw) -> NutsSettings:
+    """Defaults of nuts-rs ``FlowNutsSettings`` (src/sampler.rs:643-646):
+    1500 tuning draws, 1 chain, max_energy_error 20, a learned flow."""
+    kw.setdefault("num_tune", 1500)
+    kw.setdefault("num_chains", 1)
+    kw.setdefault("max_energy_error", 20.0)
+    kw.setdefault("mass_matrix", "flow")
+    return NutsSettings(**kw)
+
+
+def _strategy_for(settings, config: ChainConfig):
+    """The adaptation strategy of ``settings`` (``sampler.py:663-676``): the
+    diagonal one, or a flow's (the built-in coupling flow unless
+    ``flow_spec`` names another)."""
+    if getattr(settings, "mass_matrix", "diag") == "flow":
+        from .flows.coupling import coupling_flow
+
+        return FlowStrategy(config, settings,
+                            settings.flow_spec or coupling_flow())
+    return DiagStrategy(config)
+
+
+def _schedule_for(settings):
+    """The adaptation schedule of ``settings`` (``sampler.py:678-681``)."""
+    if getattr(settings, "mass_matrix", "diag") == "flow":
+        return build_flow_schedule(settings.num_tune, settings.num_draws,
+                                   settings.flow)
+    return build_schedule(settings.num_tune, settings.num_draws,
+                          settings.adapt)
+
+
+def _flow_model_reasons(model: Model, maxdepth: int, device) -> list:
+    """What kernel K1-flow does not take of ``model`` on ``device``: a
+    model without a device functor (the JAX package traces such a model's
+    closure into its flow kernel, or falls back to its sync engine), and on
+    CUDA a maxdepth beyond the kernels that take it at launch.  A model or
+    flow the JAX runner's size rule rejects is no refusal: the run stays on
+    the sync engine, as in the JAX package (``build_phases``)."""
+    if model.kernel_hook is None:
+        return [f"model {model.name!r} without a kernel_hook: kernel K1-flow "
+                "compiles device functors only (posterior_kernel='sync' "
+                "runs it here; item 9, engine fallback with provenance)"]
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    if on_cuda and maxdepth > _build.LD_MAX_MAXDEPTH:
+        return [f"maxdepth {maxdepth} on CUDA: kernel K1-flow takes at most "
+                f"{_build.LD_MAX_MAXDEPTH} (item 12)"]
+    return []
 
 
 def _refuse(reasons):
@@ -406,7 +482,9 @@ class MclmcSettings:
         if self.mass_matrix == "low_rank":
             reasons.append("mass_matrix='low_rank' (item 14)")
         elif self.mass_matrix == "flow":
-            reasons.append("mass_matrix='flow' (item 15)")
+            reasons.append("mass_matrix='flow' (items 8 and 15: the JAX "
+                           "package refits MCLMC's flow on its sync MCLMC "
+                           "engine, which item 8 ports)")
         elif self.mass_matrix != "diag":
             raise ValueError(f"unknown mass_matrix {self.mass_matrix!r}")
         if (self.store_gradient or self.store_unconstrained
@@ -420,7 +498,8 @@ class MclmcSettings:
     def build_phases(self, model: Model, config: ChainConfig, device=None):
         """``[(start, end, runner)]`` as the JAX package plans them
         (``sampler.py:405-492``): fused warmup split at the Euclidean ->
-        microcanonical switch, then the fused posterior.  Raises
+        microcanonical switch, then the fused posterior (the diagonal
+        adaptation runs in the kernels).  Raises
         ``NotImplementedError`` for what :meth:`unsupported` lists."""
         _refuse(self.unsupported(model, device))
         if model.dim < 2 and self.trajectory_kind is not (
@@ -473,6 +552,17 @@ def DiagMclmcSettings(**kw) -> MclmcSettings:
     return MclmcSettings(**kw)
 
 
+def FlowMclmcSettings(**kw) -> MclmcSettings:
+    """Defaults of nuts-rs ``FlowMclmcSettings`` (src/sampler.rs:334,
+    390-392): 1500 tuning draws, 1 chain, max_energy_error 20, a learned
+    flow.  Refused for now (items 8 and 15)."""
+    kw.setdefault("num_tune", 1500)
+    kw.setdefault("num_chains", 1)
+    kw.setdefault("max_energy_error", 20.0)
+    kw.setdefault("mass_matrix", "flow")
+    return MclmcSettings(**kw)
+
+
 def _schedule_chunk(sched, lo: int, hi: int):
     return {name: getattr(sched, name)[lo:hi] for name in (
         "is_tuning", "update_estimators", "do_switch", "do_update",
@@ -508,9 +598,10 @@ _POSTERIOR_STAT_KEYS = ("position",)
 class Sampler:
     """Chunked multi-chain sampler (parallel controller of src/sampler.rs:1254).
 
-    All chains run as one batched computation on ``device`` (``"cuda"``
-    launches the CUDA kernels; on ``"cpu"`` the plain PyTorch versions
-    run, meant for tests at small sizes); the host loop
+    All chains run as one batched computation on ``device`` (``"cuda"``,
+    the default, launches the CUDA kernels and raises where no card is
+    present; on ``"cpu"`` the plain PyTorch versions run, meant for tests at
+    small sizes); the host loop
     launches one chunk at a time and streams it to storage.  State is
     float32, the fused kernels' type.  ``chunk_seconds`` records
     ``(first_draw, last_draw + 1, seconds)`` per chunk, from launch to the
@@ -519,24 +610,32 @@ class Sampler:
 
     def __init__(self, model: Model, settings,
                  storage: Optional[StorageConfig] = None,
-                 chunk_size: int = 128, init_positions=None, *, device):
+                 chunk_size: int = 128, init_positions=None, *,
+                 device="cuda"):
         if model.dim < 1:
             raise ValueError("model.dim must be >= 1")
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
         self.device = torch.device(device)
         _refuse(settings.unsupported(model, self.device))
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the sampler runs on the card by default; "
+                "pass device='cpu' to run the kernels' plain PyTorch "
+                "versions (meant for small sizes)")
         # a model's data go to the sampler's device once
         model = model.to(self.device)
         self.model = model
         self.settings = settings
         self.chunk_size = chunk_size
         self.config = settings.chain_config()
-        self.strategy = DiagStrategy(self.config)
-        self._phase_runners = settings.build_phases(model, self.config,
-                                                    self.device)
-        self.schedule = build_schedule(settings.num_tune, settings.num_draws,
-                                       settings.adapt)
+        self.strategy = _strategy_for(settings, self.config)
+        # a NUTS plan runs the strategy's sync warmup where it has one
+        extra = ({"strategy": self.strategy}
+                 if isinstance(settings, NutsSettings) else {})
+        self._phase_runners = settings.build_phases(
+            model, self.config, self.device, **extra)
+        self.schedule = _schedule_for(settings)
         C = settings.num_chains
         self.trace = (storage or MemoryConfig()).new_trace(settings, model, C)
         if init_positions is not None:
@@ -547,7 +646,8 @@ class Sampler:
                     f"expected (num_chains, dim) = {(C, model.dim)}")
         self.state = init_chain_state(
             settings.seed, model, self.strategy, self.config, C,
-            torch.float32, self.device, init_positions=init_positions)
+            torch.float32, self.device, init_positions=init_positions,
+            num_tune=settings.num_tune)
         init_logp = self.state.pt.logp.cpu().numpy()
         if not np.isfinite(init_logp).all():
             bad = np.nonzero(~np.isfinite(init_logp))[0]
@@ -629,9 +729,10 @@ def schema(model: Model, settings=None):
 def sample(model: Model, settings=None, *,
            seed: Optional[int] = None,
            storage: Optional[StorageConfig] = None, chunk_size: int = 128,
-           init_positions=None, device) -> Trace:
-    """Sample from ``model``; returns an in-memory :class:`Trace` unless
-    another storage backend is given."""
+           init_positions=None, device="cuda") -> Trace:
+    """Sample from ``model`` on ``device`` (the card unless the caller asks
+    for the CPU); returns an in-memory :class:`Trace` unless another storage
+    backend is given."""
     settings = settings or NutsSettings()
     if seed is not None:
         settings = dataclasses.replace(settings, seed=seed)

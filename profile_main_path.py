@@ -61,6 +61,16 @@ After building the kernels it prints, for each path,
    K2-ld-args / K1-ld-args; radon with 1024 chains, 300 + 400 draws on
    K2-args / K1-args), items 1 and 2: the chunks' host and device split
    and the device's busy share under the profiler.
+10. for the flow path (``--only-flow``: ``funnel(10)`` under
+   ``FlowNutsSettings`` with the default coupling flow, 256 chains, 600
+   tuning and 600 posterior draws, the JAX package's flow benchmark), one
+   run: every warmup chunk of the per-draw sync engine with its tree
+   iterations in lock step, ms each, and the refits' seconds, the posterior
+   chunks on K1-flow, end to end; a warmup draw at the tuned state under the
+   profiler (device busy); K1-flow on the path's own post-warmup states at
+   B = 1 ... 8.  ``--log FILE`` appends its lines to FILE as they come (a
+   long run's partial record).  Only ``--only-flow`` runs it: the full
+   configuration takes about 11 minutes, more than all the other items.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -78,7 +88,8 @@ import torch
 from chip_smoke import BIG_FULL_DRAWS as BIG_DRAWS
 from chip_smoke import BIG_FULL_TUNE as BIG_TUNE
 from chip_smoke import (
-    BIG_CHAINS, BIG_ROWS, CHAINS, CHUNK, DIM, DRAWS, GLM_CHAINS, GLM_DIM,
+    BIG_CHAINS, BIG_ROWS, CHAINS, CHUNK, DIM, DRAWS, FLOW_DIM,
+    FLOW_FULL_CHAINS, FLOW_FULL_DRAWS, FLOW_FULL_TUNE, GLM_CHAINS, GLM_DIM,
     GLM_DRAWS, GLM_ROWS, GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS, LD_STEP,
     LD_TUNE, MGLM_REFERENCE, MID_DIM, MU, PATH_SOURCES, RADON_CHAINS,
     RADON_DRAWS, RADON_TUNE, SEED, SV_CHAINS, SV_DRAWS, SV_T, SV_TUNE, TUNE,
@@ -534,6 +545,141 @@ def stream_path(device):
               "two products")
 
 
+def flow_path(device, log_path=None):
+    """Item 10: the flow path at its full configuration, one run: Sampler
+    construction, every warmup chunk with its tree iterations in lock step
+    and the refits inside it, the posterior chunks, end to end; a warmup
+    draw of the sync engine at the tuned state under torch.profiler (its
+    device-busy share); K1-flow on the path's own post-warmup states."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nuts_rs_tpu_torch import FlowNutsSettings, Sampler
+    from nuts_rs_tpu_torch.adapt import step_size as ss
+    from nuts_rs_tpu_torch.flows.coupling import tree_map
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+    from nuts_rs_tpu_torch.kernels.nuts import nuts_draw
+    from nuts_rs_tpu_torch.models.gaussian import funnel
+
+    out = open(log_path, "a") if log_path else None
+
+    def say(line):
+        print(line, flush=True)
+        if out:
+            out.write(line + "\n")
+            out.flush()
+
+    def sync():
+        torch.cuda.synchronize(device)
+
+    say("== flow path")
+    model = funnel(FLOW_DIM).to(device)
+    settings = FlowNutsSettings(num_chains=FLOW_FULL_CHAINS,
+                                num_tune=FLOW_FULL_TUNE,
+                                num_draws=FLOW_FULL_DRAWS, seed=SEED,
+                                posterior_kernel="pallas")
+    t_start = time.perf_counter()
+    sampler = Sampler(model, settings, device=device)
+    sync()
+    say(f"Sampler construction (init points, flow init, init search): "
+        f"{time.perf_counter() - t_start:.3f} s")
+    strategy = sampler.strategy
+    adapt = strategy.adapt_update
+    refits = []
+
+    def timed_refit(state, mask=None):
+        sync()
+        t = time.perf_counter()
+        new = adapt(state, mask)
+        sync()
+        refits.append(time.perf_counter() - t)
+        return new
+
+    strategy.adapt_update = timed_refit
+    tuned, warm_s, post_s = None, 0.0, 0.0
+    post_grads, warm_its = 0, 0
+    while not sampler.finished:
+        if sampler._next_draw == settings.num_tune:
+            tuned = sampler.state
+        n_refits = len(refits)
+        t = time.perf_counter()
+        lo, stats, _ = sampler.run_next_chunk()
+        sync()
+        sec = time.perf_counter() - t
+        steps = stats["n_steps"]
+        hi = lo + steps.shape[1]
+        if lo < settings.num_tune:
+            its = int(steps.max(0).sum())
+            warm_its += its
+            warm_s += sec
+            r = refits[n_refits:]
+            say(f"  warmup chunk {lo}-{hi}: {sec:.3f} s, {its} tree "
+                f"iterations in lock step "
+                f"({1e3 * (sec - sum(r)) / its:.3f} ms each outside the "
+                f"refits), {len(r)} refits {sum(r):.3f} s, deepest tree "
+                f"{int(stats['depth'].max())}, leapfrogs a draw and chain "
+                f"{float(steps.mean()):.2f}, divergent "
+                f"{float(stats['diverging'].mean()):.4f}")
+        else:
+            post_s += sec
+            post_grads += int(steps.sum())
+            say(f"  posterior chunk {lo}-{hi}: {sec:.3f} s, leapfrogs a "
+                f"draw and chain {float(steps.mean()):.2f}")
+    t = time.perf_counter()
+    trace = sampler.trace.finalize()
+    fin_s = time.perf_counter() - t
+    total_s = time.perf_counter() - t_start
+    pos = trace.posterior["position"]
+    v = pos[..., 0].astype(np.float64)
+    say(f"flow path: warmup {warm_s:.3f} s ({warm_s / settings.num_tune:.3f}"
+        f" s a draw; {warm_its} tree iterations in lock step, refits "
+        f"{sum(refits):.3f} s in {len(refits)}), posterior {post_s:.3f} s "
+        f"({post_grads / post_s:.6g} gradient evaluations/s, {post_grads} "
+        f"evaluations), finalize {fin_s:.3f} s, end to end {total_s:.3f} s; "
+        f"launches of K1-flow {nf.LAUNCHES['nuts_fused_flow_posterior']}; "
+        f"v mean {v.mean():.4f} std {v.std():.4f} (N(0, 3)), divergence "
+        f"share {float(trace.sample_stats['diverging'].mean()):.4f}")
+
+    state, config = tuned, sampler.config
+    step = state.step.step_size
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        _, info = nuts_draw(12345, state.pt, state.transform, step,
+                            model.logp_and_grad, config.nuts, strategy.ops)
+        sync()
+        wall_s = time.perf_counter() - t
+    its = int(info.n_steps.max())
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in dev) * 1e-6
+    say(f"a sync-engine draw at the tuned state under torch.profiler: "
+        f"{its} tree iterations, wall {wall_s:.3f} s "
+        f"({1e3 * wall_s / its:.3f} ms each), device busy {busy_s:.3f} s "
+        f"({100 * busy_s / wall_s:.1f}%) in {len(dev)} kernels and copies "
+        f"({len(dev) / its:.0f} a tree iteration)")
+
+    packed = strategy.spec.kernel_pack(
+        tree_map(lambda p: p[0], state.transform.params))
+    bars = ss.step_size_bar(state.step, config.step_size)
+    z = state.pt.z.contiguous()
+    zc = torch.zeros(z.shape[0], device=device)
+    args = (z, torch.zeros_like(z), zc, torch.ones_like(z),
+            torch.zeros_like(z), zc.clone(), step.contiguous(), bars)
+    for block in (1, 2, 4, 8):
+        def launch(block=block):
+            return nf.nuts_fused_run(3, *args, CHUNK, model, config.nuts,
+                                     0.1, block, flow=packed)[4]
+        res = launch()
+        ms = cuda_events_ms(launch, 3)
+        iters = res["loop_iterations"].float()
+        say(f"own states, {block} a block: K1-flow {ms:.3f} ms per {CHUNK}"
+            f"-draw launch, block iterations mean {float(iters.mean()):.1f} "
+            f"max {int(iters.max())} ({1e3 * ms / float(iters.max()):.2f} us "
+            f"each), leapfrogs a draw {float(res['n_steps'].mean()):.2f}")
+    if out:
+        out.close()
+
+
 def zoo_paths(device, repeats, trace):
     """Item 9: the SV and radon paths, items 1 and 2 of each."""
     from nuts_rs_tpu_torch import DiagNutsSettings
@@ -574,6 +720,11 @@ def main() -> int:
                         help="the streamed-data path alone, item 8")
     parser.add_argument("--only-zoo", action="store_true",
                         help="the SV and radon paths alone, item 9")
+    parser.add_argument("--only-flow", action="store_true",
+                        help="the flow path alone at its full configuration,"
+                             " item 10")
+    parser.add_argument("--log", help="append item 10's lines here too, as "
+                        "they come")
     args = parser.parse_args()
     only = ("large-d" if args.only_large_d else "data" if args.only_data
             else "mclmc-data" if args.only_mclmc_data else None)
@@ -592,6 +743,11 @@ def main() -> int:
     if args.only_stream:
         _build.build(["nuts_fused_stream_posterior"])
         stream_path(device)
+        print(card_line())
+        return 0
+    if args.only_flow:
+        _build.build(PATH_SOURCES["flow"])
+        flow_path(device, args.log)
         print(card_line())
         return 0
     if args.only_zoo:

@@ -1,9 +1,10 @@
 """The fused CUDA kernels (NUTS K1/K2, their dim-on-lanes forms K1-ld /
 K2-ld and, with model data, K1-ld-args / K2-ld-args, their mid-d forms with
 model data K1-args / K2-args and the streamed posterior K1-stream, MCLMC
-K3/K4 and their mid-d forms with model data K3-args / K4-args, and the
-model zoo's functors on them) against their plain PyTorch versions, on the
-card; the sync NUTS engine on the card against the CPU.
+K3/K4 and their mid-d forms with model data K3-args / K4-args, the
+model zoo's functors on them, and K1-flow through a frozen coupling flow)
+against their plain PyTorch versions, on the card; the sync NUTS engine on
+the card against the CPU.
 
 Needs a CUDA card and the CUDA toolkit; skips without a card.  The file
 imports no JAX, so it runs where JAX is not installed:
@@ -697,3 +698,72 @@ def test_model_functors_match_plain_versions_on_the_card(name):
     for which in ("posterior", "warmup"):
         key = f"mclmc_fused_mid_{which}"
         assert mf.LAUNCHES[key] == mbefore[key] + 1, key
+
+
+def _perturbed_packed_flow(d, layers, hidden, scale, seed, dev):
+    """A coupling flow's packed parameters moved off the identity map: the
+    init at a random start, every net weight and bias plus N(0, scale^2)
+    (a numpy generator, so that no JAX is needed)."""
+    from nuts_rs_tpu_torch.flows.coupling import (
+        CouplingFlowConfig,
+        coupling_flow,
+        tree_map,
+    )
+
+    spec = coupling_flow(CouplingFlowConfig(num_layers=layers,
+                                            hidden=hidden))
+    rng = np.random.default_rng(seed)
+    q0 = torch.tensor(rng.normal(size=(1, d)), dtype=torch.float32)
+    params = tree_map(lambda v: v[0], spec.init(seed, d, q0, -q0 - 0.5))
+    for layer in params["layers"]:
+        for k, v in layer["net"].items():
+            layer["net"][k] = v + torch.tensor(
+                scale * rng.normal(size=tuple(v.shape)), dtype=torch.float32)
+    return spec.kernel_pack(tree_map(lambda v: v.to(dev), params))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,layers,hidden,C,K,block,jitter", [
+    (10, 4, 32, 64, 8, 1, 0.1), (10, 4, 32, 64, 8, 4, None),
+    (160, 4, 32, 8, 4, 1, 0.1)])
+def test_flow_kernel_matches_plain_version_on_the_card(dim, layers, hidden,
+                                                        C, K, block, jitter):
+    """K1-flow against its plain version on the funnel: parameters in
+    shared memory (d = 10) and read through L2 (d = 160, 255 KB of them),
+    blocks of 1 and 4; max abs err 0 and every integer stat equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    model = tg.funnel(dim).to(dev)
+    packed = _perturbed_packed_flow(dim, layers, hidden, 0.2, 7, dev)
+    in_smem = _build.flow_smem_bytes(dim, 10, model, layers, hidden, True) \
+        <= _build.SMEM_OPT_IN_BYTES
+    assert in_smem == (dim == 10)
+    rng = np.random.default_rng(1)
+    z = torch.tensor(0.8 * rng.normal(size=(C, dim)), dtype=torch.float32,
+                     device=dev)
+    ones, zeros = torch.ones_like(z), torch.zeros_like(z)
+    zc = torch.zeros(C, device=dev)
+    step = torch.tensor(rng.uniform(0.2, 0.4, size=C), dtype=torch.float32,
+                        device=dev)
+    args = (z, zeros, zc, ones, zeros, zc, step, step.clone())
+    opts = NutsOptions(maxdepth=10, max_energy_error=20.0)
+    before = nf.LAUNCHES["nuts_fused_flow_posterior"]
+    got = nf.nuts_fused_run(11, *args, K, model, opts, jitter, block=block,
+                            flow=packed)
+    assert nf.LAUNCHES["nuts_fused_flow_posterior"] == before + 1
+    want = nf.nuts_fused_run_reference(11, *args, K, model, opts, jitter,
+                                       block=block, flow=packed)
+    for name in INT_STATS:
+        np.testing.assert_array_equal(got[4][name].cpu().numpy(),
+                                      want[4][name].cpu().numpy(),
+                                      err_msg=name)
+    for i in range(4):
+        np.testing.assert_array_equal(got[i].cpu().numpy(),
+                                      want[i].cpu().numpy(), err_msg=str(i))
+    for name in nf.STAT_NAMES:
+        np.testing.assert_array_equal(got[4][name].cpu().numpy(),
+                                      want[4][name].cpu().numpy(),
+                                      err_msg=name)

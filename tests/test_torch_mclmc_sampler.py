@@ -209,7 +209,7 @@ def _no_hook(dim):
 @pytest.mark.parametrize("change,item", [
     (dict(posterior_kernel="sync"), "item 8"),
     (dict(mass_matrix="low_rank"), "item 14"),
-    (dict(mass_matrix="flow"), "item 15"),
+    (dict(mass_matrix="flow"), "item 8"),
     (dict(store_gradient=True), "item 9"),
     (dict(store_divergences=True), "item 9"),
     (dict(cross_chain_adaptation=True), "item 17"),

@@ -470,7 +470,8 @@ def _fake_nuts_draws(dim, C, always_good=False):
             orbit_logp=jnp.zeros(1), orbit_err=jnp.zeros(1))
         return draw, info
 
-    def t_nuts_draw(seed, pt, transform, step_size, logp_grad, opts):
+    def t_nuts_draw(seed, pt, transform, step_size, logp_grad, opts,
+                    ops=None):
         q, logp, g, n, acc, idx = _fake_draw_torch(pt, step_size, logp_grad)
         z, zg = (q - transform.mean) * transform.inv_stds, g * transform.stds
         draw = pt._replace(q=q, g=g, z=z, zg=zg, logp=logp)

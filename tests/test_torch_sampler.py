@@ -172,7 +172,6 @@ def _no_hook(dim):
     (dict(posterior_kernel="async"), "item 16"),
     (dict(posterior_kernel="sync", async_posterior=True), "item 16"),
     (dict(mass_matrix="low_rank"), "item 14"),
-    (dict(mass_matrix="flow"), "item 15"),
     (dict(kinetic_energy=KineticKind.EXACT_NORMAL), "item 8"),
     (dict(kinetic_energy=KineticKind.EXACT_NORMAL,
           posterior_kernel="sync"), "item 8"),
@@ -305,13 +304,18 @@ def test_sizes_without_a_kernel_run_on_the_cpu():
         "position"].shape == (4, 2, 5)
 
 
-def test_device_is_required():
+def test_device_is_required(monkeypatch):
+    """The device defaults to the card: without one, a call that names no
+    device raises a clear error and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     settings = tnt.DiagNutsSettings(posterior_kernel="pallas", num_chains=4,
                                     num_tune=3, num_draws=2)
-    with pytest.raises(TypeError, match="device"):
+    with pytest.raises(RuntimeError, match="no CUDA device.*device='cpu'"):
         tnt.sample(tg.normal_logp(3), settings)
-    with pytest.raises(TypeError, match="device"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tnt.Sampler(tg.normal_logp(3), settings)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tnt.Sampler(tg.normal_logp(3), settings, device="cuda")
 
 
 # ---------------------------------------------------------------------------
