@@ -30,11 +30,16 @@ data, more than a block's shared memory and the card's L2), 256 chains, 100
 tuning and 256 posterior draws (the JAX benchmark's 300 and 400 cut for this
 script's time; ``profile_main_path.py --only-stream`` runs them whole): the
 per-draw sync engine (plain PyTorch) for the warmup, then the posterior on
-kernel K1-stream, which walks the rows in tiles of 512; its posterior is held
-against the JAX package's sync engine on the same rows
+kernel K1-stream, whose logical block is the JAX runner's (all 256 chains,
+one cooperative grid: every pass over the tiles of 512 rows serves every
+chain, its rows split over all SMs); its posterior is held against the JAX
+package's sync engine on the same rows
 (``tests/data/logreg_big_reference.json``), and its launch counts must be 2
-of K1-stream and none of a fused warmup kernel.  K1-stream
-is checked at the path's rows and dimension on 64 chains.  The seventh is
+of K1-stream and none of a fused warmup kernel.  K1-stream is checked at the
+path's rows and dimension on 64 chains (one block of 64), and timed per
+128-draw launch on made-up states and on the path's own final states, with
+the microseconds a round of 256 evaluations takes and the share of the
+card's FP32 issue rate that its two products are.  The seventh is
 the model zoo's headline, stochastic volatility with T = 1000 returns
 (d = 1002, above the chains-on-lanes limit), 512 chains, 400 tuning and 300
 posterior draws, on the dim-on-lanes kernels with the model's data,
@@ -104,7 +109,8 @@ kernel alone.
 Each kernel is timed (CUDA events) beside its plain version on the check's
 inputs (``ms``, ``plain_ms``, with the bound ``bound_ms`` of that work), and
 alone at its path's 128-draw launch (``chunk_ms``, ``chunk_bound_ms``;
-K1-flow's on the path's own states, with ``chunk_ms_made_up`` beside).  The
+K1-flow's and K1-stream's on the path's own states, with
+``chunk_ms_made_up`` beside).  The
 bound is the larger of the bytes the call must move (every input read once,
 every output written once) over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, the card's published peaks; operations are counted from the
@@ -510,9 +516,10 @@ def read_launch_counts(counts, names):
     return launches
 
 
-def run_sampler(model, settings, device, starts=None):
+def run_sampler(model, settings, device, starts=None, samplers=None):
     """Sampler.run with its seconds: set-up, warmup, posterior and the
-    whole; ``starts``, a list, receives the chains' initial positions."""
+    whole; ``starts``, a list, receives the chains' initial positions,
+    ``samplers`` the sampler."""
     from nuts_rs_tpu_torch import Sampler
 
     t0 = time.monotonic()
@@ -520,6 +527,8 @@ def run_sampler(model, settings, device, starts=None):
     init_s = time.monotonic() - t0
     if starts is not None:
         starts.append(sampler.state.pt.q.cpu().numpy())
+    if samplers is not None:
+        samplers.append(sampler)
     trace = sampler.run()
     total_s = time.monotonic() - t0
     tune = settings.num_tune
@@ -680,17 +689,17 @@ def require_glm_moments(mean_err, std_err):
 
 def glm_main_path(model, settings, device, ref_mean, ref_std,
                   kernels=("nuts_fused_mid_posterior",
-                           "nuts_fused_mid_warmup"), what="data path"):
+                           "nuts_fused_mid_warmup"), what="data path",
+                  samplers=None):
     """A regression's NUTS path through Sampler.run, held against the JAX
     package's posterior; ``kernels`` names the launch counters it must move
-    (every other fused NUTS kernel must stay at 0).  Returns (launches,
-    warmup seconds)."""
+    (every other fused NUTS kernel must stay at 0); ``samplers``, a list,
+    receives the sampler.  Returns (launches, warmup seconds)."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     zero_launch_counts()
-    starts = []
     trace, init_s, warm_s, post_s, total_s = run_sampler(
-        model, settings, device, starts)
+        model, settings, device, samplers=samplers)
     launches = read_launch_counts(nf.LAUNCHES, kernels)
     others = {k: n for k, n in nf.LAUNCHES.items() if k not in kernels and n}
     if others:
@@ -1159,10 +1168,26 @@ def path_mclmc_data(device, checks, launches, times):
         state=glm_posterior_inputs(glm, device, mref_mean, mref_std, seed=2)))
 
 
+def fp32_issue_per_s():
+    """FP32 instructions the card can issue a second on its CUDA cores: 128
+    lanes an SM at the SM's maximum clock (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * mhz * 1e6, sms, mhz
+
+
 def path_stream(device, checks, launches, times):
     """NUTS with streamed data, 131072 rows at d=100: the sync engine for
-    the warmup, K1-stream for the posterior."""
+    the warmup, K1-stream for the posterior (one logical block of all 256
+    chains, the JAX runner's)."""
     from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.adapt import step_size as ss
+    from nuts_rs_tpu_torch.chain import stream_block
+    from nuts_rs_tpu_torch.kernels import _build
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
     from nuts_rs_tpu_torch.models.gaussian import logistic_regression
 
@@ -1176,39 +1201,77 @@ def path_stream(device, checks, launches, times):
                                 num_draws=BIG_DRAWS, seed=SEED,
                                 posterior_kernel="pallas")
     opts = settings.nuts_options()
+    block = stream_block(big, opts.maxdepth, BIG_CHAINS)
+    check_block = stream_block(big, opts.maxdepth, BIG_CHECK_CHAINS)
+    tiles = -(-BIG_ROWS // big.stream_tile_rows)
+    S, CG = _build.stream_tiling(big.dim, block, opts.maxdepth)
     print(f"streamed-data path: {big.data_bytes / 1e6:.1f} MB of data in "
-          f"{-(-BIG_ROWS // big.stream_tile_rows)} tiles of "
-          f"{big.stream_tile_rows} rows")
+          f"{tiles} tiles of {big.stream_tile_rows} rows, one range a tile; "
+          f"logical block {block} chains (the check's {check_block}), "
+          f"sub-tiles of {S} rows, groups of {CG} chains, "
+          f"{_build.stream_smem_bytes(big.dim, opts.maxdepth, S, CG)} bytes "
+          "of shared memory a chain")
     matmul_ms, _ = time_glm_by_matmul(big, device, BIG_CHAINS)
     checks["nuts_fused_stream_posterior"] = check_posterior(
         big, opts, device, name="K1-stream", stream=True,
         args=glm_posterior_inputs(big, device, ref_mean, ref_std,
                                   chains=BIG_CHECK_CHAINS))
+    t0 = time.monotonic()
+    samplers = []
     got, warm_s = glm_main_path(
         big, settings, device, ref_mean, ref_std,
-        kernels=("nuts_fused_stream_posterior",), what="streamed-data path")
+        kernels=("nuts_fused_stream_posterior",), what="streamed-data path",
+        samplers=samplers)
     want = -(-BIG_DRAWS // CHUNK)
     if got["nuts_fused_stream_posterior"] != want:
         raise AssertionError(f"K1-stream launched {got} times, not {want}")
     launches.update(got)
+    post_chunks = [s_ for lo, hi, s_ in samplers[0].chunk_seconds
+                   if lo >= BIG_TUNE]
     print(f"sync engine: {warm_s / BIG_TUNE:.4f} s per warmup draw "
           f"({BIG_TUNE} draws of {BIG_CHAINS} chains in lock step, "
-          f"{warm_s:.2f} s)")
-    k1 = glm_posterior_inputs(big, device, ref_mean, ref_std, seed=2,
-                              chains=BIG_CHAINS)
-    # one timed call and no first one: the path has just run this kernel, and
-    # a launch takes seconds
-    box = []
-    ms = cuda_events_ms(lambda: box.append(nf.nuts_fused_run(
-        3, *k1, CHUNK, big, opts, 0.1, stream=True)), 1)
-    b_ms, b_by = bound("nuts", big, k1, box[0], box[0][4])
-    times["nuts_fused_stream_posterior"] = (ms, b_ms, b_by)
-    evals = float(box[0][4]["n_steps"].sum())
-    print(f"time nuts_fused_stream_posterior: {ms:.4f} ms per {CHUNK}-draw "
-          f"launch at C={BIG_CHAINS} d={big.dim} N={BIG_ROWS}; bound "
-          f"{b_ms:.5f} ms ({b_by}); the two products of one batched "
-          f"evaluation by torch.matmul take {matmul_ms:.4f} ms "
-          f"({evals / CHUNK / BIG_CHAINS:.2f} evaluations a draw and chain)")
+          f"{warm_s:.2f} s); posterior chunks "
+          f"{', '.join(f'{s_:.3f}' for s_ in post_chunks)} s; the run "
+          f"{time.monotonic() - t0:.1f} s")
+    # K1-stream's 128-draw launch on made-up states and on the path's own
+    # (its final state: positions, transform, adapted steps); one timed call
+    # each after the path's own launches
+    state = samplers[0].state
+    bars = ss.step_size_bar(state.step, samplers[0].config.step_size)
+    t_ = state.transform
+    own = (state.pt.q, state.pt.g, state.pt.logp, t_.stds.contiguous(),
+           t_.mean.contiguous(), t_.logdet, state.step.step_size.contiguous(),
+           bars.contiguous())
+    made = glm_posterior_inputs(big, device, ref_mean, ref_std, seed=2,
+                                chains=BIG_CHAINS)
+    rate, sms, mhz = fp32_issue_per_s()
+    results = {}
+    for label, k1 in (("made-up", made), ("own", own)):
+        box = []
+        ms = cuda_events_ms(lambda: box.append(nf.nuts_fused_run(
+            3, *k1, CHUNK, big, opts, 0.1, stream=True)), 1)
+        out = box[0]
+        b_ms, b_by = bound("nuts", big, k1, out, out[4])
+        iters = int(out[4]["loop_iterations"].max())
+        round_us = 1e3 * ms / iters
+        share = 4 * BIG_CHAINS * BIG_ROWS * big.dim / (round_us * 1e-6) / rate
+        evals = float(out[4]["n_steps"].sum())
+        results[label] = (ms, b_ms, b_by)
+        print(f"time nuts_fused_stream_posterior on {label} states: "
+              f"{ms:.4f} ms per {CHUNK}-draw launch at C={BIG_CHAINS} "
+              f"(B={block}) d={big.dim} N={BIG_ROWS}; bound {b_ms:.5f} ms "
+              f"({b_by}; with -fmad=false the FP32 floor is twice the "
+              f"operations'); {iters} block iterations, {round_us:.2f} us "
+              f"each round of {BIG_CHAINS} evaluations, "
+              f"{100 * share:.1f}% of the card's FP32 issue rate "
+              f"({sms} SMs x 128 lanes x {mhz:.0f} MHz) for the two "
+              f"products; {evals / CHUNK / BIG_CHAINS:.2f} evaluations a "
+              "draw and chain")
+    print(f"the two products of one batched evaluation of all "
+          f"{BIG_CHAINS} chains by torch.matmul take {matmul_ms:.4f} ms")
+    times["nuts_fused_stream_posterior"] = results["own"]
+    checks["nuts_fused_stream_posterior"]["chunk_ms_made_up"] = \
+        results["made-up"][0]
 
 
 # ---------------------------------------------------------------------------

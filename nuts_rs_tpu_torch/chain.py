@@ -30,7 +30,8 @@ from the counter hash (kernels/rng.py): each launch's seed is derived from
 from threefry keys.  The two packages therefore agree in distribution, not
 draw for draw.  Unlike the JAX runners, a chunk is one launch: the VMEM
 tiers and the cap of 64 draws per launch (``chain.py:710-745,993-1053``) do
-not apply, since device memory holds a whole chunk's outputs.
+not apply, since device memory holds a whole chunk's outputs, but for the
+streamed kernel's chain block (:func:`stream_block`).
 """
 
 from __future__ import annotations
@@ -150,6 +151,40 @@ def stream_bytes(model) -> int:
     the number is the size rule's alone."""
     pcols = -(-(model.dim + 2) // 128) * 128
     return 4 * 2 * model.stream_tile_rows * pcols
+
+
+# The JAX posterior runner's chains-on-lanes tiers (``chain.py:53-70``).
+CL_TIERS = (256, 128)
+
+
+def stream_block(model, maxdepth: int, num_chains: int) -> int:
+    """The logical chain block of kernel K1-stream: the JAX posterior
+    runner's for the same model and chains.  The runner takes the largest
+    tier in (256, 128) whose footprint ``4 tier (fixed + 16 (d + 13))`` with
+    ``fixed = 6 (D + 1) d + 32 d + 4`` and the stream's double tile
+    (:func:`stream_bytes`) fits its 12.5 MB (``chain.py:719-721,740-765``),
+    and ``nuts_pallas_run`` makes it ``B = min(tier, C)`` and asserts that B
+    divides the chains (``nuts_pallas.py:763-764``).  For
+    ``logistic_regression(131072, 100)`` at maxdepth 10 the footprint at 256
+    is 12,414,976 bytes: one block of all 256 chains.  Raises where the JAX
+    runner refuses: no tier fits (it has no fused posterior for the model)
+    or B does not divide the chains."""
+    d = model.dim
+    fixed = 6 * (maxdepth + 1) * d + 32 * d + 4
+    for tier in CL_TIERS:
+        if (4 * tier * (fixed + 2 * 8 * (d + 13)) + stream_bytes(model)
+                <= POSTERIOR_BUDGET_BYTES):
+            break
+    else:
+        raise ValueError(
+            f"model {model.name!r} at dim {d} streams in no chain block of "
+            f"{CL_TIERS}: the JAX posterior runner has no fused kernel for it")
+    B = min(tier, num_chains)
+    if num_chains % B:
+        raise ValueError(f"num_chains ({num_chains}) must be a multiple of "
+                         f"the streamed kernel's chain block ({B}, the JAX "
+                         "runner's)")
+    return B
 
 
 def _ld_with_data_fits(model, maxdepth: int, warmup: bool) -> bool:
@@ -678,7 +713,8 @@ def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
         q_f, g_f, logp_f, draws, out = nf.nuts_fused_run(
             seed, state.pt.q, state.pt.g, state.pt.logp, t.stds, t.mean,
             t.logdet, step_in, bars, k, model, config.nuts, sset.jitter,
-            layout=layout, stream=stream)
+            block=stream_block(model, config.nuts.maxdepth, C) if stream
+            else None, layout=layout, stream=stream)
         pt = state.pt._replace(q=q_f, g=g_f, z=to_transformed(t, q_f),
                                zg=grad_to_transformed(t, g_f), logp=logp_f)
         state = state._replace(

@@ -41,6 +41,7 @@
 #include <stddef.h>
 
 #include "block_sum.cuh"
+#include "grid_sync.cuh"
 #include "nuts_tree.cuh"
 
 namespace nrt {
@@ -224,223 +225,266 @@ struct LogisticRegression {
   }
 };
 
-// The same regression with its rows streamed from device memory in tiles of
-// TR rows (the stream= mode of the TPU kernel,
-// nuts_rs_tpu/kernels/nuts_pallas.py:217-254, with the model's tile_eval and
-// finalize, models/gaussian.py:202-228): the functor of kernel K1-stream.
-// LogisticRegression keeps N + 8 d floats of shared memory, which no block
-// has at N = 131072; this one keeps the residuals of one tile in registers
-// (a thread owns up to 4 rows of a tile, so a tile has at most 4 LD_T rows)
-// and the warp partials of two tiles in shared memory, whatever N is.
+// The same regression with its rows streamed from device memory (the
+// stream= mode of the TPU kernel, nuts_rs_tpu/kernels/nuts_pallas.py:217-254,
+// with the model's tile_eval and finalize, models/gaussian.py:202-228): the
+// functor of kernel K1-stream (nuts_fused_stream_posterior.cu), whose B
+// chains are the CUDA blocks of one cooperative grid (grid_sync.cuh).
 //
-// The G chains of a logical block (a thread block cluster of G CUDA blocks,
-// one chain each, stepping in lock step) share one pass over the data, as
-// the B chains of a TPU block share a tile: block b of the cluster walks
-// range b of the tiles, tiles [b T / G, (b + 1) T / G), for all G chains at
-// once (a loaded x[n][j] serves G products), and hands chain g's partial
-// (logp, grad) of its range to block g through distributed shared memory.
-// So a launch reads the data once per cluster and evaluation, not once per
-// chain.
+// An evaluation is the whole block's, in three phases:
+// (a) each chain writes its position into pos [d][B]; a grid barrier;
+// (b) the data phase: the tiles of TR rows fall into R ranges, range r the
+//     tiles [r T / R, (r + 1) T / R), and CUDA block k takes the ranges
+//     k, k + B, ...  For a range and each group of CG chains it walks the
+//     rows in sub-tiles of S rows: it stages the sub-tile's rows of x
+//     (xs [S][XS], XS = d + 1 rounded up to odd, so that neither product's
+//     reads meet in a bank; by cp.async, every copy of a thread in flight
+//     at once) and the group's positions (qs [d][CG]) in shared
+//     memory, forms the logits as register tiles of 4 rows x 8 chains (a
+//     staged x value serves 8 chains, a position value 4 rows), turns them
+//     into residuals (rs [S][CG], in the place of qs) and quad sums of the
+//     log-likelihood terms (llp [S / 4][CG]), then the gradient as register
+//     tiles of 8 chains x 4 columns that run over the range's rows, and
+//     writes the range's (grad [d], loglik) of every chain into part
+//     [R][B][d + 1]; a grid barrier;
+// (c) each chain adds its R partials, then the prior.
+// S and CG are the wrapper's choice (_build.stream_tiling) and change no
+// bit; R and TR are the sum order's.
 //
 // Sum order, shared with the plain version
-// (gaussian.py::logistic_regression_stream_logp_grad with splits = G).  A
-// logit's terms in ascending j.  Inside a tile the log-likelihood's terms
-// and each gradient column's terms x[n][j] (y - p)[n] are summed over the
-// tile's TR rows in the block order (ops.tsum over the tile: thread t owns
-// the tile's rows t, t + LD_T, ..., a row past the tile's or the data's end
-// counts 0.0, the warp's halving 16, 8, 4, 2, 1, the LD_W warp sums halved).
-// The tiles of a range are added in ascending order to the range's sums,
-// which start as its first tile's; the ranges' sums are added in ascending
-// order, starting from the first range that holds a tile.  Last the prior:
-// logp = ll - 0.5 tsum_j(q q), g = g - q.  With G = 1 there is one range:
-// tiles ascending, and a single tile that holds all rows gives
-// LogisticRegression's bits.
-//
-// Barriers: one __syncthreads a tile (the Reducer call that sums the tile's
-// log-likelihoods also publishes its warp partials, whose buffer alternates
-// with the tile's parity), and two cluster barriers an evaluation: after
-// every chain's position is written (then each block copies all G), and
-// after every range's partials are (then each block adds up its chain's).
-// A block overwrites its position or its partials only after the next
-// barrier of the other kind, which its readers have passed by then.
-template <int G>
+// (gaussian.py::logistic_regression_stream_logp_grad).  A logit's terms in
+// ascending j.  Over rows, for the log-likelihood and each gradient column
+// alike: a range's rows in quads of 4 from its first row (the last quad
+// short), a quad's terms added left to right; the range's quads left to
+// right; the R ranges in ascending order; the prior last, logp = ll - 0.5
+// tsum_j(q q) and g = grad - q.  A row past the data's end is no term.
+// 4 bytes from global to shared memory without a register (cp.async, through
+// L1), and the wait for every such copy of the thread.
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned to = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 struct LogisticRegressionStream {
-  static constexpr int J = 16 / G;  // columns of one pass, second product
-  static constexpr int MAX_ROWS = 4;  // of a tile that one thread may own
+  static constexpr int MAX_S = 128;   // rows of a sub-tile
+  static constexpr int MAX_CG = 64;   // chains of a group
   const float* xt;  // [d, N]
   const float* y;   // [N]
-  int N, d, TR;
+  int N, d, TR, R, S, CG;
+  int B;         // chains of the logical block: the grid's CUDA blocks
+  float* pos;    // [d][B]
+  float* part;   // [R][B][d + 1]
+  GridBarrier bar;
 
-  __host__ __device__ int rows_per_thread() const {
-    return (TR + LD_T - 1) / LD_T;
-  }
+  // row stride of the staged rows: odd, so that the 8 rows (quads apart)
+  // that a warp's logit tiles read at one column lie in 8 banks
+  __host__ __device__ int xs() const { return (d + 1) | 1; }
 
-  // the G positions [d][G] (16-byte aligned: 4 floats of slack); two
-  // buffers of LD_W partials per column and chain; this block's range sums:
-  // log-likelihoods [8] and gradients [d][G]
+  // 4 floats of slack for the 16-byte alignment, the staged rows, the
+  // positions or residuals, the quad sums
   __host__ __device__ size_t scratch_floats() const {
-    return 4 + (size_t)d * G + 2 * (size_t)LD_W * d * G + 8 + (size_t)d * G;
+    return 4 + (size_t)S * xs() + (size_t)(d > S ? d : S) * CG +
+           (size_t)(S / 4) * CG;
   }
 
-  // One tile for all G chains: the log-likelihood sums into s, the warp
-  // partials of the gradient columns into `part`.  A thread owns R rows of
-  // the tile (t, t + LD_T, ...); they advance together through the columns
-  // of the first product, so that their loads are in flight at once, and
-  // their residuals y - p stay in registers for the second.  Each logit sums
-  // its terms in ascending j; a row past the tile's or the data's end reads
-  // the tile's first row and counts 0.0.
-  template <int R>
-  __device__ __forceinline__ void tile(const float* qs, float* part, int base,
-                                       float (&s)[G]) const {
-    const int t = threadIdx.x;
-    const int lane = t & 31, warp = t >> 5;
-    int nc[R];
-    bool in[R];
-    float res[R][G];  // the logits, then y - p
+  // Not inlined: the chain's tree state, live across the evaluation, is
+  // saved once around the call instead of taking the registers of the
+  // products' tiles (the kernel has 128 a thread, two blocks an SM).
+  __device__ __noinline__ void data_phase(float* base) const {
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int XS = xs(), T = (N + TR - 1) / TR;
+    float* xsm = base;                            // [S][XS]
+    float* qs = base + (size_t)S * XS;            // [d][CG], then
+    float* rs = qs;                               // [S][CG]
+    float* llp = qs + (size_t)(d > S ? d : S) * CG;  // [S / 4][CG]
+    // logit tiles: a warp holds 8 row quads x 4 chain octets
+    const int nrq = S / 4, nco = CG / 8, njq = (d + 3) / 4;
+    const int wr = nrq > 8 ? nrq / 8 : 1;
+    const int rq = (lane & 7) + 8 * (warp % wr);
+    const int co = (lane >> 3) + 4 * (warp / wr);
+    const bool lact = rq < nrq && co < nco;
+    // gradient tiles: chain octet gco, column quad gjq
+    const int gco = t % nco, gjq = t / nco;
+    const bool gact = gjq < njq;
+    for (int r = blockIdx.x; r < R; r += gridDim.x) {
+      const int lo = (int)((long long)r * T / R) * TR;
+      const int hi = min((int)((long long)(r + 1) * T / R) * TR, N);
+      for (int c0 = 0; c0 < B; c0 += CG) {
+        const int ncg = min(CG, B - c0);
+        float ga[8][4];
+        float la = 0.0f;
+        for (int row0 = lo; row0 < hi; row0 += S) {
+          const int rows = min(S, hi - row0);
+          const bool first = row0 == lo;
+          __syncthreads();  // the last sub-tile's readers are done
+          {
+            // the rows by asynchronous copies, all in flight at once (x is
+            // constant over the launch: through L1), the positions past L1
+            const int n = t % S, step = LD_T / S;
+            if (n < rows) {
+              for (int j = t / S; j < d; j += step)
+                copy_async4(xsm + n * XS + j, xt + (size_t)j * N + row0 + n);
+            }
+            const int cc = t % CG, cstep = LD_T / CG;
+#pragma unroll 8
+            for (int j = t / CG; j < d; j += cstep)
+              qs[j * CG + cc] =
+                  cc < ncg ? __ldcg(pos + (size_t)j * B + c0 + cc) : 0.0f;
+            copy_async_wait();
+          }
+          __syncthreads();
+          float lg[4][8];
+          if (lact) {
+            const float* xr = xsm + 4 * rq * XS;
+            const float* qc = qs + 8 * co;
+            float xv[4], qv[8];
+            auto load = [&](int j) {
 #pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const int loc = t + k * LD_T;
-      in[k] = loc < TR && base + loc < N;
-      nc[k] = in[k] ? base + loc : base;
-      const float x0 = xt[nc[k]];
+              for (int k = 0; k < 4; ++k) xv[k] = xr[k * XS + j];
+              const float4 qa = *reinterpret_cast<const float4*>(qc + j * CG);
+              const float4 qb =
+                  *reinterpret_cast<const float4*>(qc + j * CG + 4);
+              qv[0] = qa.x, qv[1] = qa.y, qv[2] = qa.z, qv[3] = qa.w;
+              qv[4] = qb.x, qv[5] = qb.y, qv[6] = qb.z, qv[7] = qb.w;
+            };
+            load(0);
 #pragma unroll
-      for (int c = 0; c < G; ++c) res[k][c] = x0 * qs[c];
-    }
-#pragma unroll((G == 1 ? 32 : 16) / R)
-    for (int j = 1; j < d; ++j) {
-      const float* col = xt + (size_t)j * N;
-      float qj[G];
-      if constexpr (G % 4 == 0) {
+            for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int c = 0; c < G; c += 4) {
-          const float4 q4 = *reinterpret_cast<const float4*>(qs + j * G + c);
-          qj[c] = q4.x, qj[c + 1] = q4.y, qj[c + 2] = q4.z, qj[c + 3] = q4.w;
+              for (int c = 0; c < 8; ++c) lg[k][c] = xv[k] * qv[c];
+#pragma unroll 2
+            for (int j = 1; j < d; ++j) {
+              load(j);
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+#pragma unroll
+                for (int c = 0; c < 8; ++c) lg[k][c] = lg[k][c] + xv[k] * qv[c];
+            }
+          }
+          __syncthreads();  // the positions are read: residuals replace them
+          if (lact) {
+            float lq[8];
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int n = 4 * rq + k;
+              const bool in = n < rows;
+              const float yn = in ? y[row0 + n] : 0.0f;
+              float rv[8];
+#pragma unroll
+              for (int c = 0; c < 8; ++c) {
+                const float logit = lg[k][c];
+                float term = 0.0f, res = 0.0f;
+                if (in) {
+                  term = yn * logit - logaddexp(0.0f, logit);
+                  res = yn - 1.0f / (1.0f + expf(-logit));
+                }
+                rv[c] = res;
+                lq[c] = k == 0 ? term : (in ? lq[c] + term : lq[c]);
+              }
+              float4* dst = reinterpret_cast<float4*>(rs + n * CG + 8 * co);
+              dst[0] = make_float4(rv[0], rv[1], rv[2], rv[3]);
+              dst[1] = make_float4(rv[4], rv[5], rv[6], rv[7]);
+            }
+            if (4 * rq < rows) {
+              float4* dst = reinterpret_cast<float4*>(llp + rq * CG + 8 * co);
+              dst[0] = make_float4(lq[0], lq[1], lq[2], lq[3]);
+              dst[1] = make_float4(lq[4], lq[5], lq[6], lq[7]);
+            }
+          }
+          __syncthreads();
+          const int nq = (rows + 3) / 4;
+          if (t < ncg) {
+            for (int i = 0; i < nq; ++i) {
+              const float v = llp[i * CG + t];
+              la = (first && i == 0) ? v : la + v;
+            }
+          }
+          if (gact) {
+            const float* xc = xsm + 4 * gjq;
+            const float* rc = rs + 8 * gco;
+            for (int i = 0; i < nq; ++i) {
+              float s[8][4];
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const int n = 4 * i + k;
+                if (k > 0 && n >= rows) break;
+                float xv[4], rv[8];
+#pragma unroll
+                for (int jj = 0; jj < 4; ++jj) xv[jj] = xc[n * XS + jj];
+                const float4 ra = *reinterpret_cast<const float4*>(rc + n * CG);
+                const float4 rb =
+                    *reinterpret_cast<const float4*>(rc + n * CG + 4);
+                rv[0] = ra.x, rv[1] = ra.y, rv[2] = ra.z, rv[3] = ra.w;
+                rv[4] = rb.x, rv[5] = rb.y, rv[6] = rb.z, rv[7] = rb.w;
+#pragma unroll
+                for (int c = 0; c < 8; ++c)
+#pragma unroll
+                  for (int jj = 0; jj < 4; ++jj)
+                    s[c][jj] = k == 0 ? xv[jj] * rv[c]
+                                      : s[c][jj] + xv[jj] * rv[c];
+              }
+              const bool start = first && i == 0;
+#pragma unroll
+              for (int c = 0; c < 8; ++c)
+#pragma unroll
+                for (int jj = 0; jj < 4; ++jj)
+                  ga[c][jj] = start ? s[c][jj] : ga[c][jj] + s[c][jj];
+            }
+          }
         }
-      } else {
+        // the range's sums of the group's chains
+        if (gact) {
 #pragma unroll
-        for (int c = 0; c < G; ++c) qj[c] = qs[j * G + c];
-      }
+          for (int c = 0; c < 8; ++c) {
+            const int ch = 8 * gco + c;
+            if (ch >= ncg) continue;
+            float* dst = part + ((size_t)r * B + c0 + ch) * (d + 1);
 #pragma unroll
-      for (int k = 0; k < R; ++k) {
-        const float x = col[nc[k]];
-#pragma unroll
-        for (int c = 0; c < G; ++c) res[k][c] = res[k][c] + x * qj[c];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const float yn = in[k] ? y[nc[k]] : 0.0f;
-#pragma unroll
-      for (int c = 0; c < G; ++c) {
-        const float logit = res[k][c];
-        float term = 0.0f, r = 0.0f;
-        if (in[k]) {
-          term = yn * logit - logaddexp(0.0f, logit);
-          r = yn - 1.0f / (1.0f + expf(-logit));
+            for (int jj = 0; jj < 4; ++jj)
+              if (4 * gjq + jj < d) dst[4 * gjq + jj] = ga[c][jj];
+          }
         }
-        res[k][c] = r;
-        acc(s[c], k, term);
+        if (t < ncg) part[((size_t)r * B + c0 + t) * (d + 1) + d] = la;
       }
-    }
-    // J columns of all G chains share one pass over the thread's rows and
-    // one reduction of their 16 sums over the warp; a column past the end
-    // repeats the last one and is not stored.
-    for (int j0 = 0; j0 < d; j0 += J) {
-      float c16[16];
-#pragma unroll
-      for (int k = 0; k < J; ++k) {
-        const float* col = xt + (size_t)min(j0 + k, d - 1) * N;
-#pragma unroll
-        for (int i = 0; i < R; ++i) {
-          const float x = col[nc[i]];
-#pragma unroll
-          for (int c = 0; c < G; ++c)
-            acc(c16[k * G + c], i, in[i] ? x * res[i][c] : 0.0f);
-        }
-      }
-      const int v = warp_sum16(c16);
-      if ((lane & 1) == 0 && j0 + v / G < d)
-        part[((j0 + v / G) * G + v % G) * LD_W + warp] = c16[0];
     }
   }
 
   __device__ __forceinline__ float eval_block(const float* q, float* g, int,
                                               Reducer& red,
                                               float* scratch) const {
-    cg::cluster_group cluster = cg::this_cluster();
-    const int b = (int)cluster.block_rank();
-    const int rows = rows_per_thread();
-    // [d][G], 16-byte aligned for the float4 reads of a column's G values
-    float* qs = reinterpret_cast<float*>(
+    const int t = threadIdx.x, b = blockIdx.x;
+    for (int j = t; j < d; j += LD_T) pos[(size_t)j * B + b] = q[j];
+    bar.sync();  // every chain's position is written
+    float* base = reinterpret_cast<float*>(
         (reinterpret_cast<size_t>(scratch) + 15) & ~(size_t)15);
-    float* part0 = qs + d * G;             // [2][d][G][LD_W]
-    float* pl = part0 + 2 * LD_W * d * G;  // [8]
-    float* pg = pl + 8;                    // [d][G]
-    const int t = threadIdx.x;
-    const int nd = (d + LD_T - 1) / LD_T;
-    const int ndg = (d * G + LD_T - 1) / LD_T;
-    const int tiles = (N + TR - 1) / TR;
-
-    cluster.sync();  // every chain of the cluster has written its position
-    for (int i = t; i < d * G; i += LD_T)
-      qs[i] = cluster.map_shared_rank(const_cast<float*>(q), i % G)[i / G];
-    __syncthreads();
-
-    const int lo = b * tiles / G, hi = (b + 1) * tiles / G;
-    float ll[G];
-    for (int tl = lo; tl < hi; ++tl) {
-      float* part = part0 + (tl & 1) * LD_W * d * G;
-      float s[G];
-      if (rows == 1)
-        tile<1>(qs, part, tl * TR, s);
-      else if (rows == 2)
-        tile<2>(qs, part, tl * TR, s);
+    data_phase(base);
+    bar.sync();  // every range's sums are written
+    // this chain's sums: the ranges in ascending order, then the prior
+    float* total_ll = base + (size_t)S * xs();  // free after the data phase
+    const size_t stride = (size_t)B * (d + 1);
+    for (int j = t; j <= d; j += LD_T) {
+      const float* w = part + (size_t)b * (d + 1) + j;
+      float s = __ldcg(w);
+#pragma unroll 8
+      for (int r = 1; r < R; ++r) s = s + __ldcg(w + r * stride);
+      if (j < d)
+        g[j] = s - q[j];
       else
-        tile<MAX_ROWS>(qs, part, tl * TR, s);
-      red.sum(s);  // its barrier also publishes `part`
-#pragma unroll
-      for (int c = 0; c < G; ++c) ll[c] = tl == lo ? s[c] : ll[c] + s[c];
-      for (int i = 0; i < ndg; ++i) {
-        const int e = t + i * LD_T;  // column e / G of chain e % G
-        if (e < d * G) {
-          const float gp = halve_warps(part + e * LD_W);
-          pg[e] = tl == lo ? gp : pg[e] + gp;
-        }
-      }
+        *total_ll = s;
     }
-    if (t == 0) {
-#pragma unroll
-      for (int c = 0; c < G; ++c) pl[c] = ll[c];
-    }
-    cluster.sync();  // every range's sums are written
-
-    // this block's chain: the ranges' sums in ascending order
-    float total = 0.0f;
-    bool first = true;
-    for (int sb = 0; sb < G; ++sb) {
-      if ((sb + 1) * tiles / G == sb * tiles / G) continue;  // no tile
-      const float v = cluster.map_shared_rank(pl, sb)[b];
-      total = first ? v : total + v;
-      first = false;
-    }
+    const int nd = (d + LD_T - 1) / LD_T;
     float s2[1];
     for (int i = 0; i < nd; ++i) {
       const int j = t + i * LD_T;
-      if (j < d) {
-        float gj = 0.0f;
-        first = true;
-        for (int sb = 0; sb < G; ++sb) {
-          if ((sb + 1) * tiles / G == sb * tiles / G) continue;
-          const float v = cluster.map_shared_rank(pg, sb)[j * G + b];
-          gj = first ? v : gj + v;
-          first = false;
-        }
-        g[j] = gj - q[j];
-      }
       acc(s2[0], i, j < d ? q[j] * q[j] : 0.0f);
     }
-    red.sum(s2);
-    return total - 0.5f * s2[0];
+    red.sum(s2);  // its barrier also publishes total_ll
+    return *total_ll - 0.5f * s2[0];
   }
 };
 
@@ -856,30 +900,6 @@ inline cudaError_t with_block_model(int model_id, const float* params,
       return fn(Funnel{});
     case MODEL_CORRELATED_NORMAL:
       return fn(CorrelatedNormal{params[0]});
-  }
-  return cudaErrorInvalidValue;
-}
-
-// The same for the streamed functors (kernel K1-stream alone compiles them):
-// ints are (N, d, tile_rows); G is the cluster's size, the chains that share
-// a pass over the data.
-template <class Fn>
-inline cudaError_t with_stream_model(int model_id, const void* const* ptrs,
-                                     const int* ints, int G, Fn&& fn) {
-  if (model_id != MODEL_LOGISTIC_REGRESSION_STREAM || ints[2] < 1 ||
-      ints[2] > LogisticRegressionStream<1>::MAX_ROWS * LD_T)
-    return cudaErrorInvalidValue;
-  const float* xt = static_cast<const float*>(ptrs[0]);
-  const float* y = static_cast<const float*>(ptrs[1]);
-  switch (G) {
-    case 1:
-      return fn(LogisticRegressionStream<1>{xt, y, ints[0], ints[1], ints[2]});
-    case 2:
-      return fn(LogisticRegressionStream<2>{xt, y, ints[0], ints[1], ints[2]});
-    case 4:
-      return fn(LogisticRegressionStream<4>{xt, y, ints[0], ints[1], ints[2]});
-    case 8:
-      return fn(LogisticRegressionStream<8>{xt, y, ints[0], ints[1], ints[2]});
   }
   return cudaErrorInvalidValue;
 }

@@ -101,8 +101,7 @@ extern "C" int nrt_flow_posterior_launch(
       model_id, model_params, model_ptrs, model_ints, flow, dim, n_layers,
       hidden, max_scale, max_shift, weights_in_smem, [&](auto model) {
         return nrt::ld_launch(
-            nrt::ld_posterior_kernel<decltype(model), true, true, false,
-                                     true>,
+            nrt::ld_posterior_kernel<decltype(model), true, true, true>,
             a, model, C, B,
             4 * (nrt::ld_smem_floats(nrt::LD_POST_NVEC, dim, maxdepth) +
                  model.scratch_floats()),

@@ -65,10 +65,12 @@ struct LdPostArgs {
   float* work;  // [C][4][D + 1][d] checkpoint stacks
 };
 
-// LOCKSTEP: the chains of a cluster take every iteration together, because
-// the model's evaluation is the cluster's (the streamed functor, models.cuh,
-// whose cluster barriers every block must meet): they agree at the top of
-// each iteration on whether any of them still lacks draws.
+// The body of one chain of a logical chain block `grp` (ClusterBlock, or the
+// streamed kernel's GridBlock, grid_sync.cuh).  Group::LOCKSTEP: the chains
+// of the block take every iteration together, because the model's
+// evaluation is the block's (the streamed functor, models.cuh, whose grid
+// barriers every chain must meet): they agree at the top of each iteration
+// on whether any of them still lacks draws.
 //
 // FLOW (kernel K1-flow, nuts_fused_flow_posterior.cu): the chain moves in the
 // z-space of a frozen coupling flow; Model is a CouplingFlowModel
@@ -77,16 +79,11 @@ struct LdPostArgs {
 // mean and logdet are not read); the logdet is per point, carried with the
 // selected points as the Pallas body's dm_ld / ds_ld (nuts_pallas.py:
 // 268-282); the g output carries the final z (:709-710).
-template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool LOCKSTEP = false,
-          bool FLOW = false>
-__global__ void __launch_bounds__(LD_T)
-    ld_posterior_kernel(const LdPostArgs a, const Model model) {
-  extern __shared__ float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int B = (int)cluster.num_blocks();
-  const int b = (int)cluster.block_rank();
-  const int c = blockIdx.x;
-  const int pid = c / B;
+template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool FLOW, class Group>
+__device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
+                                                   const Model& model,
+                                                   Group& grp, float* smem) {
+  const int B = grp.B, b = grp.b, c = grp.c, pid = grp.pid;
   const int C = a.C, K = a.K, d = a.d, D = a.D;
   const uint32_t seed = a.seed + 0x51ED2701u * (uint32_t)pid;
   const int t0 = threadIdx.x;
@@ -112,7 +109,7 @@ __global__ void __launch_bounds__(LD_T)
   p += 2 * (D + 1);
   Reducer red{p, 0};
   p += 2 * LD_NRED * LD_W;
-  ClusterMax last{reinterpret_cast<uint32_t*>(p), 0};
+  grp.bind(reinterpret_cast<uint32_t*>(p));
   float* scratch = p + 2 * LD_MAX_CLUSTER;  // the model functor's
   const size_t row = (size_t)(D + 1) * d;
   ch.lz = a.work + (size_t)c * 4 * row;
@@ -149,8 +146,8 @@ __global__ void __launch_bounds__(LD_T)
     acc(s1[0], i, vv);
   }
   if (t0 <= D) ch.bl[t0] = ch.bm[t0] = 0.0f;
-  // every block of the cluster runs before any writes into its slots
-  cluster.sync();
+  // every chain of the block runs before any writes into its slots
+  grp.sync();
   red.sum(s1);
   const float ke0 = 0.5f * s1[0];
   float dm_ld = logdet, ds_ld = logdet;
@@ -185,11 +182,11 @@ __global__ void __launch_bounds__(LD_T)
   uint32_t it = 1, it_end = 0;
   bool have_end = false;
   while (true) {
-    if constexpr (LOCKSTEP) {
-      if (last.max(dc < K ? 1u : 0u) == 0u) break;
+    if constexpr (Group::LOCKSTEP) {
+      if (!grp.any(dc < K)) break;
     } else {
       if (!have_end && dc >= K) {
-        it_end = last.max(it);
+        it_end = grp.max(it);
         have_end = true;
       }
       if (have_end && it >= it_end) break;
@@ -351,6 +348,16 @@ __global__ void __launch_bounds__(LD_T)
     a.logp_f[c] = dm_logp;
     a.iters[c] = (int)it;
   }
+}
+
+// One CUDA block of LD_T threads per chain, a thread block cluster per
+// logical chain block.
+template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool FLOW = false>
+__global__ void __launch_bounds__(LD_T)
+    ld_posterior_kernel(const LdPostArgs a, const Model model) {
+  extern __shared__ float smem[];
+  ClusterBlock grp;
+  ld_posterior_chain<Model, CL_SITE, EVAL_BLOCK, FLOW>(a, model, grp, smem);
 }
 
 // Dynamic shared memory of one chain block, in bytes, of the kernels that

@@ -1,100 +1,180 @@
 // Fused draw-asynchronous NUTS posterior with the model's data streamed from
-// device memory in row tiles, chains-on-lanes random stream (kernel
-// K1-stream).
+// device memory, chains-on-lanes random stream (kernel K1-stream).
 //
 // Replaces the TPU kernel nuts_rs_tpu/kernels/nuts_pallas.py::make_kernel
 // (:82) with stream= (:115-121,156-165,217-254), launched by nuts_pallas_run
 // (:718, pallas_call :863): K draw-asynchronous NUTS draws per chain whose
 // every evaluation passes once over likelihood data too large to sit beside
-// a chain: per leapfrog, for tile t = 0..T-1 of tile_rows rows, the two
-// products logits = tile q and grad += tile^T (y - p), the partial
-// (logp, grad) added tile after tile, then the prior.  Plain PyTorch version:
+// a chain.  The TPU kernel's logical block of B chains (the JAX runner's
+// pick, up to 256: nuts_rs_tpu/chain.py:740-765, the port's
+// chain.stream_block) steps in lock step, and every tile it streams serves
+// all B chains in two MXU products.  Plain PyTorch version:
 // nuts_rs_tpu_torch/kernels/nuts_fused.py::nuts_fused_run_reference with
-// stream=True.  d, maxdepth, the rows and the tile are launch arguments.
+// stream=True.  d, maxdepth, the rows, the tile, the ranges R and the block
+// are launch arguments.
 //
-// What was chosen, and why:
+// What bounds it on this card: the two products of an evaluation,
+// 2 B N d multiply-adds for the block (6.7 G at B = 256, N = 131072,
+// d = 100), which IEEE f32 without contraction (-fmad=false, so that the
+// plain version's bits come out) issues as twice as many instructions; at
+// the 128 lanes of 132 SMs that is 0.40 ms a round of evaluations.  The
+// tree (a few us a leapfrog and chain) and the 52 MB of x a round (16 us at
+// the device's 3.35 TB/s) are small beside it; a design that lets few
+// chains share a pass over the data pays the bytes or the L2 traffic many
+// times over, and one that leaves SMs idle pays the products' time.
 //
-// 1. The tree.  The body is K1-args' (nuts_fused_ld_posterior.cuh with
-//    CL_SITE and EVAL_BLOCK, nuts_tree_ld.cuh): one CUDA block of LD_T = 256 threads per chain, the
-//    21 live vectors in shared memory, the checkpoint stacks in a global
-//    workspace, a thread block cluster of B chains as the logical chain
-//    block, the chains-on-lanes site index j * B + b, the block seed by
-//    program id, every dot product in ops.tsum's order.
-// 2. Why not K1-args itself.  Its functor keeps a residual per row in shared
-//    memory, N + 8 d floats: 512 KB at N = 131072 against the 227 KB a block
-//    may have.  LogisticRegressionStream (models.cuh) walks the rows in tiles
-//    and keeps one tile's residuals and two buffers of warp partials,
-//    whatever N is.
-// 3. Chains share a pass over the data.  One chain a block that walks all
-//    the data on its own reads chains x evaluations x 2 x 52 MB a launch
-//    (B = 1 here: 3.4 ms an evaluation on an NVIDIA H100 80GB HBM3 at 700 W
-//    for a block alone and the same for 128 blocks, which read 3.8 TB/s
-//    between them; PERF.md section 5).  The TPU kernel's B chains step in
-//    lock step and one tile serves all of them.
-//    Here the B <= 8 chains of a cluster do the same (LOCKSTEP in the
-//    body): every iteration each block takes its chain's half step, then
-//    block b walks range b of the tiles for all B chains at once, so that a
-//    loaded x[n][j] serves B products, and the chains collect their sums
-//    from the blocks through distributed shared memory: two cluster
-//    barriers an evaluation, one more an iteration for the loop's end.
-//    Chains that have their K draws keep stepping to the block's last
-//    iteration, as they do in the TPU kernel.
-// 4. Sum order (the contract with the plain version): a logit's terms in
-//    ascending j; inside a tile every sum over rows in ops.tsum's order;
-//    the tiles of a range added in ascending order, then the B ranges in
-//    ascending order; the prior last.  B = 1 is tiles ascending, and one
-//    tile that holds all rows gives K1-args' bits.
-// 5. The products are loops in this kernel's body, in IEEE f32 with
-//    -fmad=false; the data, x transposed [d, N] so that a warp's threads
-//    (rows n, n + 1, ...) read neighbouring addresses, is read from device
-//    memory through L2 once per product, tile by tile; the second product's
-//    reads of a tile find what the first one brought in.  The sixteen sums
-//    of a pass of the second product are halved over the warp together
-//    (block_sum.cuh::warp_sum16).
+// What the design does about it:
+//
+// 1. The logical block is the JAX runner's, B = min(tier, C) chains, and
+//    it is the whole grid of a cooperative launch: one CUDA block of
+//    LD_T = 256 threads per chain (the body of K1-args,
+//    nuts_fused_ld_posterior.cuh with the cl site index, unchanged in its
+//    order of operations), all B resident at once (two an SM:
+//    __launch_bounds__(256, 2), so at most 128 registers a thread; the
+//    tree's state spills around the data phase, which is where the time
+//    is).  The launch checks residency with
+//    cudaOccupancyMaxActiveBlocksPerMultiprocessor first and returns
+//    cudaErrorCooperativeLaunchTooLarge rather than launch what could not
+//    be resident; the wrapper raises on it.  C = m B chains run as m
+//    logical blocks one after another in the same launch.
+// 2. Every iteration has three phases, with the block's chains in lock
+//    step (grid_sync.cuh::GridBlock, the Pallas loop's "any chain of the
+//    block still lacks draws" as a flag a chain and a grid barrier): the
+//    tree phase, each chain's tree logic and the leapfrog's half steps in
+//    its own CUDA block; the data phase, in which every CUDA block walks
+//    its ranges of rows for all B chains at once
+//    (models.cuh::LogisticRegressionStream: register tiles over x staged in
+//    shared memory, each staged x value serving 8 chains and each position
+//    value 4 rows, the ranges' partial sums written to a global workspace
+//    [R][B][d + 1]); and, after a grid barrier, the reduction, in which
+//    each chain adds its R partials in ascending order, then the prior.
+//    So one pass over each tile serves every chain of the block, and with
+//    B = 256 the rows of a data phase are split over all 132 SMs.  The
+//    data phase is a call of its own (not inlined), so that the products'
+//    register tiles do not compete with the tree's state for the 128
+//    registers; the staged rows come by cp.async.  At B = 256 a group of
+//    64 chains takes one pass over a range's rows, so x is read 4 times a
+//    round (210 MB, from L2 or device memory), still a small part of it.
+// 3. R is the wrapper's (the tiles, at most 256: gaussian.stream_ranges),
+//    not the card's, so the plain version repeats the split; the
+//    sub-tile S and the chain group CG (_build.stream_tiling) only tile
+//    the work and change no bit.
+// 4. Sum order (the contract with the plain version, models.cuh): a
+//    logit's terms in ascending j; a range's rows in quads of 4, each
+//    quad's terms left to right, the quads left to right; the ranges in
+//    ascending order; the prior last.
+// 5. FP32 on the CUDA cores only, no tensor cores: a TF32 product rounds
+//    inside the unit in a way no plain PyTorch version repeats.
 
+#include "grid_sync.cuh"
 #include "nuts_fused_ld_posterior.cuh"
 
-// Dynamic shared memory of one chain block in a cluster of B, in bytes, with
-// the streamed functor's scratch; -1 for a model without a streamed functor
-// or a B that is not 1, 2, 4 or 8.
-extern "C" long long nrt_stream_smem_bytes(int d, int maxdepth, int B,
-                                           int model_id,
+namespace {
+
+// The B chains of a logical block as the B CUDA blocks of a cooperative
+// grid; the C / B logical blocks one after another.
+__global__ void __launch_bounds__(nrt::LD_T, 2)
+    stream_posterior_kernel(const nrt::LdPostArgs a,
+                            const nrt::LogisticRegressionStream model,
+                            unsigned* flags) {
+  extern __shared__ float smem[];
+  const int B = (int)gridDim.x, b = (int)blockIdx.x;
+  for (int pid = 0; pid < a.C / B; ++pid) {
+    nrt::GridBlock grp{B, b, pid * B + b, pid, model.bar, flags};
+    nrt::ld_posterior_chain<nrt::LogisticRegressionStream, true, true,
+                            false>(a, model, grp, smem);
+  }
+}
+
+// The functor of a launch, after the checks of its sizes: ints are
+// (N, d, tile rows, R, S, CG); sync holds the barrier's count and
+// generation, then B flags.
+cudaError_t stream_model(int model_id, const void* const* ptrs,
+                         const int* ints, int d, int B, float* pos,
+                         float* part, unsigned* sync,
+                         nrt::LogisticRegressionStream* out) {
+  using M = nrt::LogisticRegressionStream;
+  const int N = ints[0], TR = ints[2], R = ints[3], S = ints[4],
+            CG = ints[5];
+  const bool pow2_s = S >= 4 && S <= M::MAX_S && (S & (S - 1)) == 0;
+  const bool pow2_cg = CG >= 8 && CG <= M::MAX_CG && (CG & (CG - 1)) == 0;
+  if (model_id != nrt::MODEL_LOGISTIC_REGRESSION_STREAM || N < 1 ||
+      ints[1] != d || d < 1 || TR < 1 || R < 1 || R > (N + TR - 1) / TR ||
+      !pow2_s || !pow2_cg || (CG / 8) * ((d + 3) / 4) > nrt::LD_T || B < 1)
+    return cudaErrorInvalidValue;
+  *out = M{static_cast<const float*>(ptrs[0]),
+           static_cast<const float*>(ptrs[1]),
+           N, d, TR, R, S, CG, B, pos, part,
+           nrt::GridBarrier{sync, sync + 1, (unsigned)B}};
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Dynamic shared memory of one chain's CUDA block, in bytes: the mid-d
+// posterior layout, then the streamed functor's scratch; -1 for sizes the
+// kernel does not take.
+extern "C" long long nrt_stream_smem_bytes(int d, int maxdepth, int model_id,
                                            const int* model_ints) {
-  long long bytes = -1;
-  const void* no_ptrs[nrt::MAX_MODEL_PTRS] = {};
-  nrt::with_stream_model(model_id, no_ptrs, model_ints, B, [&](auto model) {
-    bytes = 4 * (long long)(nrt::ld_smem_floats(nrt::LD_POST_NVEC, d,
-                                                maxdepth) +
-                            model.scratch_floats());
-    return cudaSuccess;
-  });
-  return bytes;
+  const void* no_ptrs[2] = {};
+  nrt::LogisticRegressionStream m;
+  if (maxdepth < 1 || maxdepth > 30 ||
+      stream_model(model_id, no_ptrs, model_ints, d, 1, nullptr, nullptr,
+                   nullptr, &m) != cudaSuccess)
+    return -1;
+  return 4 * (long long)(nrt::ld_smem_floats(nrt::LD_POST_NVEC, d,
+                                             maxdepth) +
+                         m.scratch_floats());
 }
 
 extern "C" int nrt_stream_posterior_launch(
     int dim, int maxdepth, int C, int B, int K, uint32_t seed, float max_err,
     int has_jitter, float jc1, float jc2, int model_id,
-    const float* model_params, const void* const* model_ptrs,
-    const int* model_ints, const float* q, const float* g, const float* logp,
-    const float* stds, const float* mean, const float* logdet,
-    const float* step0, const float* bar, float* draws, float* stats,
-    float* q_f, float* g_f, float* logp_f, int* iters, float* work,
-    void* stream) {
-  (void)model_params;
-  if (B < 1 || B > nrt::LD_MAX_CLUSTER || C % B != 0 || dim < 1 ||
-      maxdepth < 1 || maxdepth > 30)
+    const void* const* model_ptrs, const int* model_ints, const float* q,
+    const float* g, const float* logp, const float* stds, const float* mean,
+    const float* logdet, const float* step0, const float* bar, float* draws,
+    float* stats, float* q_f, float* g_f, float* logp_f, int* iters,
+    float* work, float* pos, float* part, unsigned* sync, void* stream) {
+  nrt::LogisticRegressionStream model;
+  cudaError_t err = stream_model(model_id, model_ptrs, model_ints, dim, B,
+                                 pos, part, sync, &model);
+  if (err != cudaSuccess || C % B != 0 || maxdepth < 1 || maxdepth > 30)
     return (int)cudaErrorInvalidValue;
   const nrt::LdPostArgs a{C,    K,    dim,  maxdepth, seed,   max_err,
                           has_jitter, jc1, jc2, q,    g,      logp,
                           stds, mean, logdet, step0,  bar,    draws,
                           stats, q_f, g_f,  logp_f,   iters,  work};
-  return (int)nrt::with_stream_model(
-      model_id, model_ptrs, model_ints, B, [&](auto model) {
-        return nrt::ld_launch(
-            nrt::ld_posterior_kernel<decltype(model), true, true, true>, a,
-            model, C, B,
-            4 * (nrt::ld_smem_floats(nrt::LD_POST_NVEC, dim, maxdepth) +
-                 model.scratch_floats()),
-            (cudaStream_t)stream);
-      });
+  const size_t smem =
+      4 * (nrt::ld_smem_floats(nrt::LD_POST_NVEC, dim, maxdepth) +
+           model.scratch_floats());
+  err = cudaFuncSetAttribute(stream_posterior_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // every chain of a block must be resident at once
+  int device = 0, sms = 0, per_sm = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, stream_posterior_kernel, nrt::LD_T, smem);
+  if (err != cudaSuccess) return (int)err;
+  if ((long long)per_sm * sms < B)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)B);
+  cfg.blockDim = dim3(nrt::LD_T);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, stream_posterior_kernel, a, model,
+                           sync + 2);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

@@ -88,6 +88,31 @@ struct ClusterMax {
   }
 };
 
+// The logical chain block of a posterior body (nuts_fused_ld_posterior.cuh)
+// as a thread block cluster: B = the cluster's size, this chain's lane b in
+// it, its chain c = blockIdx.x and its block's program id.  The chains run
+// draw-asynchronously and agree on the block's last iteration once
+// (ClusterMax over their own last ones).  The streamed kernel's block is a
+// cooperative grid instead (grid_sync.cuh::GridBlock).
+struct ClusterBlock {
+  static constexpr bool LOCKSTEP = false;
+  int B, b, c, pid;
+  ClusterMax last;
+
+  __device__ ClusterBlock() {
+    cg::cluster_group cluster = cg::this_cluster();
+    B = (int)cluster.num_blocks();
+    b = (int)cluster.block_rank();
+    c = blockIdx.x;
+    pid = c / B;
+    last = ClusterMax{nullptr, 0};
+  }
+  // the [2][LD_MAX_CLUSTER] slots of shared memory that max() takes
+  __device__ void bind(uint32_t* slots) { last.slots = slots; }
+  __device__ void sync() { cg::this_cluster().sync(); }
+  __device__ uint32_t max(uint32_t value) { return last.max(value); }
+};
+
 // One chain's vectors.  The live ones are shared memory, d floats each; the
 // checkpoint stacks are global memory, [D + 1][d] each.
 struct LdChain {

@@ -117,8 +117,8 @@ SOURCES = {
     "mclmc_fused_mid_warmup": {
         "nrt_mclmc_mid_warmup_launch": (_MCLMC_WARM + [_P] * 21, _I)},
     "nuts_fused_stream_posterior": {
-        "nrt_stream_posterior_launch": (_NUTS_POST + [_P] * 19, _I),
-        "nrt_stream_smem_bytes": ([_I, _I, _I, _I, _P], _LL)},
+        "nrt_stream_posterior_launch": (_NUTS_POST + [_P] * 21, _I),
+        "nrt_stream_smem_bytes": ([_I, _I, _I, _P], _LL)},
     "nuts_fused_flow_posterior": {
         "nrt_flow_posterior_launch": (
             _NUTS_POST + [_I, _I, _F, _F, _I] + [_P] * 20, _I),
@@ -471,22 +471,53 @@ def _mclmc_mid_common(kind, q, model, mopts, B):
     return C, d, model_id, params, c_ptrs, c_ints, consts, fconsts, lib
 
 
-STREAM_BLOCKS = (1, 2, 4, 8)  # cluster sizes the streamed kernel is built for
-# most rows of a streamed tile: a thread keeps its rows' residuals in
-# registers, at most 4 (csrc/models.cuh::LogisticRegressionStream::MAX_ROWS)
-STREAM_MAX_TILE_ROWS = 4 * 32 * LD_WARPS
+# K1-stream's tiling of a data phase (csrc/models.cuh::
+# LogisticRegressionStream): sub-tiles of at most 128 rows staged in shared
+# memory, groups of at most 64 chains; neither changes a bit of the result.
+STREAM_MAX_SUBTILE = 128
+STREAM_MAX_GROUP = 64
 
 
-def stream_smem_bytes(d, maxdepth, B):
+def stream_tiling(d, B, maxdepth):
+    """``(S, CG)`` of a K1-stream launch: the chain group CG, the largest of
+    64, 32, 16, 8 whose gradient tiles (8 chains x 4 columns) the block's
+    256 threads hold at once, ``CG / 8 * ceil(d / 4) <= 256``, and no larger
+    than the block needs; the sub-tile S, the largest of 128, 64, ..., 4
+    rows with which a chain's shared memory fits a block."""
+    CG = STREAM_MAX_GROUP
+    while CG > 8 and (CG // 8 * -(-d // 4) > 32 * LD_WARPS or CG // 2 >= B):
+        CG //= 2
+    if CG // 8 * -(-d // 4) > 32 * LD_WARPS:
+        raise NotImplementedError(
+            f"the streamed kernel takes d up to {4 * 32 * LD_WARPS}, got {d}")
+    S = STREAM_MAX_SUBTILE
+    while S > 4 and stream_smem_bytes(d, maxdepth, S, CG) > SMEM_OPT_IN_BYTES:
+        S //= 2
+    if stream_smem_bytes(d, maxdepth, S, CG) > SMEM_OPT_IN_BYTES:
+        raise NotImplementedError(
+            f"dim {d} needs {stream_smem_bytes(d, maxdepth, S, CG)} bytes of "
+            "shared memory per chain in the streamed kernel; a block has "
+            f"{SMEM_OPT_IN_BYTES}")
+    return S, CG
+
+
+def stream_smem_bytes(d, maxdepth, S, CG):
     """Dynamic shared memory of one chain's CUDA block in the streamed
-    posterior kernel at a logical block of ``B`` chains: the mid-d posterior
-    layout, then the streamed functor's scratch (csrc/models.cuh): the B
-    positions (with 4 floats of slack for their alignment), two buffers of
-    warp partials per column and chain, and the block's range sums;
-    whatever the rows of data or of a tile."""
-    scratch = 4 + d * B + 2 * LD_WARPS * d * B + 8 + d * B
+    posterior kernel: the mid-d posterior layout, then the streamed
+    functor's scratch (csrc/models.cuh): 4 floats of slack for alignment,
+    S staged rows of x at an odd stride of at least d + 1, the group's
+    positions or residuals, and the quad sums of the log-likelihood; whatever
+    the rows of data, of a tile or the ranges."""
+    scratch = 4 + S * ((d + 1) | 1) + max(d, S) * CG + S // 4 * CG
     return 4 * (MID_NVEC["posterior"] * d + 2 * (maxdepth + 1)
                 + LD_REDUCE_FLOATS + 2 * MAX_LD_BLOCK + scratch)
+
+
+def stream_workspace_floats(R, B, d):
+    """Floats of K1-stream's global workspace besides the checkpoint
+    stacks: the block's positions [d, B] and the ranges' partial sums
+    [R, B, d + 1]."""
+    return d * B + R * B * (d + 1)
 
 
 def ld_smem_bytes(kind, d, maxdepth):
@@ -871,13 +902,16 @@ def launch_flow_posterior(seed, q, g, logp, stds, mean, logdet, step0,
 
 
 def launch_stream_posterior(seed, q, g, logp, stds, mean, logdet, step0,
-                            step_bar, K, model, opts, jitter, B):
+                            step_bar, K, model, opts, jitter, B, R):
     """Launch csrc/nuts_fused_stream_posterior.cu (kernel K1-stream) on the
-    hook tensors of ``model`` in tiles of ``model.stream_tile_rows`` rows;
-    returns (draws [K, C, d], stats [K, C, NSTATS], q_f, g_f [C, d],
-    logp_f [C], iters [C])."""
+    hook tensors of ``model`` in tiles of ``model.stream_tile_rows`` rows,
+    in logical blocks of ``B`` chains (one cooperative grid of B CUDA
+    blocks, all resident at once) and ``R`` ranges of tiles; returns
+    (draws [K, C, d], stats [K, C, NSTATS], q_f, g_f [C, d], logp_f [C],
+    iters [C]).  A block that cannot be resident at once, or a launch that
+    CUDA refuses, raises with the CUDA error; nothing is launched then."""
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
-    _, params = _model_and_block(q, model, B, MAX_LD_BLOCK)
+    _model_and_block(q, model, 1)
     name = model.hook_parts()[0] + "_stream"
     rows = model.stream_tile_rows
     if name not in MODEL_IDS or rows is None or rows < 1:
@@ -893,24 +927,18 @@ def launch_stream_posterior(seed, q, g, logp, stds, mean, logdet, step0,
             f"the streamed CUDA kernel takes maxdepth 1..{LD_MAX_MAXDEPTH}, "
             f"got {D}")
     ints, ptrs = model_data_args(model, d, q.device)
-    if B not in STREAM_BLOCKS:
-        raise ValueError(f"the streamed kernel is built for chain blocks "
-                         f"{STREAM_BLOCKS}, not {B}")
-    ints = (*ints, int(rows))
-    if rows > STREAM_MAX_TILE_ROWS:
-        raise NotImplementedError(
-            f"the streamed kernel takes tiles of at most "
-            f"{STREAM_MAX_TILE_ROWS} rows, got {rows}")
-    need = stream_smem_bytes(d, D, B)
-    if need > SMEM_OPT_IN_BYTES:
-        raise NotImplementedError(
-            f"dim {d} with {B} chains a block needs {need} bytes of shared "
-            f"memory per chain in the streamed kernel; a block has "
-            f"{SMEM_OPT_IN_BYTES}")
+    T = -(-ints[0] // rows)
+    if not 1 <= B or C % B:
+        raise ValueError(f"chain block {B} must divide num_chains ({C})")
+    if not 1 <= R <= T:
+        raise ValueError(f"ranges must be 1..{T} (the tiles), got {R}")
+    S, CG = stream_tiling(d, B, D)
+    ints = (*ints, int(rows), int(R), S, CG)
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     lib = library("nuts_fused_stream_posterior")
-    built = lib.nrt_stream_smem_bytes(d, D, B, model_id,
+    need = stream_smem_bytes(d, D, S, CG)
+    built = lib.nrt_stream_smem_bytes(d, D, model_id,
                                       ctypes.cast(c_ints, ctypes.c_void_p))
     if built != need:
         raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
@@ -919,6 +947,9 @@ def launch_stream_posterior(seed, q, g, logp, stds, mean, logdet, step0,
     dev = q.device
     f32 = dict(dtype=torch.float32, device=dev)
     work = torch.empty(C, 4, D + 1, d, **f32)
+    space = torch.empty(stream_workspace_floats(R, B, d), **f32)
+    pos, part = space[:d * B], space[d * B:]
+    sync = torch.zeros(2 + B, dtype=torch.int32, device=dev)
     draws = torch.empty(K, C, d, **f32)
     stats = torch.empty(K, C, 13, **f32)
     q_f, g_f = torch.empty(C, d, **f32), torch.empty(C, d, **f32)
@@ -930,14 +961,14 @@ def launch_stream_posterior(seed, q, g, logp, stds, mean, logdet, step0,
         rc = lib.nrt_stream_posterior_launch(
             d, D, C, B, K, int(seed) & 0xFFFFFFFF,
             float(opts.max_energy_error), hj, jc1, jc2, model_id,
-            ctypes.cast(params, ctypes.c_void_p),
             ctypes.cast(c_ptrs, ctypes.c_void_p),
             ctypes.cast(c_ints, ctypes.c_void_p),
             q.data_ptr(), g.data_ptr(), logp.data_ptr(), stds.data_ptr(),
             mean.data_ptr(), logdet.data_ptr(), step0.data_ptr(),
             step_bar.data_ptr(), draws.data_ptr(), stats.data_ptr(),
             q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
-            iters.data_ptr(), work.data_ptr(), stream)
+            iters.data_ptr(), work.data_ptr(), pos.data_ptr(),
+            part.data_ptr(), sync.data_ptr(), stream)
     _raise_on(rc, lib, "nuts_fused_stream_posterior")
     return draws, stats, q_f, g_f, logp_f, iters
 

@@ -69,7 +69,6 @@ from ._build import (
     DIMS,
     MAX_LD_BLOCK,
     SIZES,
-    STREAM_BLOCKS,
     check_flow_args,
     check_posterior_args,
     check_warmup_args,
@@ -277,16 +276,7 @@ def _kernel_kind(model, dim, layout, maxdepth=None, stream=False,
 
 
 def _check_block(C, block, kind="thread"):
-    if kind == "stream":
-        # the chains of a block share a pass over the data (and its tiles
-        # are summed in as many ranges): the largest cluster that divides
-        # the chains, unless the caller names one
-        if block is None:
-            block = max(b for b in STREAM_BLOCKS if C % b == 0)
-        if block not in STREAM_BLOCKS:
-            raise ValueError(f"the streamed kernel takes chain blocks "
-                             f"{STREAM_BLOCKS}, not {block}")
-    elif block is None:
+    if block is None:
         block = _DEFAULT_BLOCKS[kind]
     B = min(block, C)
     if C % B:
@@ -295,14 +285,32 @@ def _check_block(C, block, kind="thread"):
     return B
 
 
-def _evaluators(model, kind, B=1):
+def _stream_sizes(model, C, maxdepth, block, ranges):
+    """(B, R) of a K1-stream call: the logical chain block, by default the
+    JAX posterior runner's (``chain.stream_block``), else ``min(block, C)``,
+    which must divide the chains; and the ranges the tiles fall into, by
+    default ``gaussian.stream_ranges``, else 1..T.  A block of any size is
+    taken here; on the card its chains must also be resident at once."""
+    from ..chain import stream_block
+    from ..models.gaussian import stream_ranges
+
+    B = stream_block(model, maxdepth, C) if block is None \
+        else _check_block(C, block)
+    T = -(-model.hook_parts()[2][1].shape[0] // model.stream_tile_rows)
+    R = stream_ranges(T) if ranges is None else ranges
+    if not isinstance(R, int) or not 1 <= R <= T:
+        raise ValueError(f"ranges must be an int in 1..{T} (the tiles), "
+                         f"got {R!r}")
+    return B, R
+
+
+def _evaluators(model, kind, ranges=None):
     """(csum, logp_and_grad) of a kernel ("thread", "mid", "stream" or
     "ld"): its sum over the parameter axis, and the model evaluated as the
     kernel evaluates it, through the plain counterpart of its device functor
-    with that sum ("stream": the streamed functor, tile after tile, the
-    tiles in ``B`` ranges as the logical block's ``B`` chains split them).
-    A model without a functor has no kernel to agree with and is evaluated
-    as it is."""
+    with that sum ("stream": the streamed functor, its tiles in ``ranges``
+    ranges).  A model without a functor has no kernel to agree with and is
+    evaluated as it is."""
     from ..models.gaussian import PLAIN_FUNCTORS
 
     csum = dsum if kind == "thread" else tsum
@@ -312,7 +320,8 @@ def _evaluators(model, kind, B=1):
     if kind == "stream":
         functor = PLAIN_FUNCTORS[name + "_stream"]
         rows = model.stream_tile_rows
-        return csum, lambda q: functor(q, *floats, *tensors, rows, csum, B)
+        return csum, lambda q: functor(q, *floats, *tensors, rows, csum,
+                                       ranges)
     functor = PLAIN_FUNCTORS[name]
     return csum, lambda q: functor(q, *floats, *tensors, csum)
 
@@ -347,7 +356,7 @@ def _flow_evaluator(packed, logp_and_grad, csum):
 def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
                              step_bar, num_draws, model, opts, jitter,
                              block=None, layout="cl", stream=False,
-                             flow=None):
+                             flow=None, ranges=None):
     """Plain PyTorch version of the fused posterior kernels.
 
     Same arguments and results as :func:`nuts_fused_run`."""
@@ -355,8 +364,11 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
     K = num_draws
     kind = _kernel_kind(model, d, layout, opts.maxdepth, stream,
                         flow is not None)
-    B = _check_block(C, block, kind)
-    csum, logp_and_grad = _evaluators(model, kind, B)
+    if kind == "stream":
+        B, R = _stream_sizes(model, C, opts.maxdepth, block, ranges)
+    else:
+        B, R = _check_block(C, block, kind), None
+    csum, logp_and_grad = _evaluators(model, kind, R)
     D = opts.maxdepth
     max_err = float(opts.max_energy_error)
     dev = q.device
@@ -543,7 +555,7 @@ def nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet, step0,
 
 def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
                    num_draws, model, opts, jitter, block=None, layout="cl",
-                   stream=False, flow=None):
+                   stream=False, flow=None, ranges=None):
     """Run ``num_draws`` draw-asynchronous NUTS draws per chain.
 
     q, g, stds, mean: [C, d]; logp, logdet, step0, step_bar: [C].  Returns
@@ -556,10 +568,13 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
     data).  With ``stream`` the
     model's data are evaluated in row tiles of ``model.stream_tile_rows``
     (kernel K1-stream, ``layout="cl"`` only), and the chains of a block
-    share each pass over the data: ``block`` is 1, 2, 4 or 8 (default: the
-    largest that divides the chains), and the tiles' sums are added in that
-    many ranges.  With ``flow`` (a ``flows/coupling.py::PackedFlow``, one set
-    of parameters for every chain) the chains move in the flow's z-space
+    share each pass over the data: ``block`` defaults to the JAX posterior
+    runner's (``chain.stream_block``: 256 chains for
+    ``logistic_regression(131072, 100)``), and the tiles fall into
+    ``ranges`` ranges (default ``gaussian.stream_ranges``: one a tile, at
+    most 256) whose sums are added in order.  With ``flow`` (a
+    ``flows/coupling.py::PackedFlow``, one set of parameters for every
+    chain) the chains move in the flow's z-space
     (kernel K1-flow, ``layout="cl"`` only, default block 1): ``q`` carries
     z0 (g, logp, stds, mean and logdet are not read) and the returned
     ``g_f`` the final z; draws are in q-space.
@@ -577,33 +592,38 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
                         flow is not None)
     if flow is not None:
         check_flow_args(flow, q.shape[1], q.device)
+    if kind == "stream":
+        B, R = _stream_sizes(model, q.shape[0], opts.maxdepth, block, ranges)
     if q.device.type == "cpu":
         return nuts_fused_run_reference(seed, q, g, logp, stds, mean, logdet,
                                         step0, step_bar, num_draws, model,
                                         opts, jitter, block, layout, stream,
-                                        flow)
-    if kind != "thread":
-        launch = {"ld": launch_ld_posterior, "mid": launch_mid_posterior,
-                  "ld_args": partial(launch_mid_posterior, family="ld_args"),
-                  "stream": launch_stream_posterior,
-                  "flow": partial(launch_flow_posterior, flow=flow)}[kind]
-        draws, stats, q_f, g_f, logp_f, iters = launch(
+                                        flow, ranges)
+    if kind == "thread":
+        draws, stats, q_f, g_f, logp_f, iters = launch_posterior(
             seed, q, g, logp, stds, mean, logdet, step0, step_bar, num_draws,
-            model, opts, jitter, _check_block(q.shape[0], block, kind))
-        LAUNCHES[f"nuts_fused_{kind}_posterior"] += 1
-        count_model(model, kind == "stream")
-        stats_out = {name: stats[:, :, i].T
+            model, opts, jitter, _check_block(q.shape[0], block))
+        LAUNCHES["nuts_fused_posterior"] += 1
+        count_model(model)
+        stats_out = {name: stats[:, i, :].T
                      for i, name in enumerate(STAT_NAMES)}
         stats_out["loop_iterations"] = iters
-        return q_f, g_f, logp_f, draws.permute(1, 0, 2), stats_out
-    draws, stats, q_f, g_f, logp_f, iters = launch_posterior(
+        return q_f, g_f, logp_f, draws.permute(2, 0, 1), stats_out
+    if kind == "stream":
+        launch = partial(launch_stream_posterior, R=R)
+    else:
+        B = _check_block(q.shape[0], block, kind)
+        launch = {"ld": launch_ld_posterior, "mid": launch_mid_posterior,
+                  "ld_args": partial(launch_mid_posterior, family="ld_args"),
+                  "flow": partial(launch_flow_posterior, flow=flow)}[kind]
+    draws, stats, q_f, g_f, logp_f, iters = launch(
         seed, q, g, logp, stds, mean, logdet, step0, step_bar, num_draws,
-        model, opts, jitter, _check_block(q.shape[0], block))
-    LAUNCHES["nuts_fused_posterior"] += 1
-    count_model(model)
-    stats_out = {name: stats[:, i, :].T for i, name in enumerate(STAT_NAMES)}
+        model, opts, jitter, B)
+    LAUNCHES[f"nuts_fused_{kind}_posterior"] += 1
+    count_model(model, kind == "stream")
+    stats_out = {name: stats[:, :, i].T for i, name in enumerate(STAT_NAMES)}
     stats_out["loop_iterations"] = iters
-    return q_f, g_f, logp_f, draws.permute(2, 0, 1), stats_out
+    return q_f, g_f, logp_f, draws.permute(1, 0, 2), stats_out
 
 
 # ---------------------------------------------------------------------------

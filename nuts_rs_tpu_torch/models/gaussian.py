@@ -102,76 +102,100 @@ def funnel_logp_grad(q, csum):
 # Elements of the [chains, d, rows] product that the streamed plain functor
 # forms at once; more chains are evaluated in groups.
 _STREAM_PRODUCT_ELEMENTS = 1 << 28
+# Most ranges a streamed evaluation splits its tiles into: kernel K1-stream
+# writes one partial sum per range and chain, and adds them in turn.
+STREAM_MAX_RANGES = 256
+
+
+def stream_ranges(n_tiles: int) -> int:
+    """The ranges the tiles of a streamed evaluation fall into by default:
+    one a tile, at most ``STREAM_MAX_RANGES`` (a constant of the sum order,
+    not of the card)."""
+    return min(n_tiles, STREAM_MAX_RANGES)
+
+
+def stream_quads(n_data: int, tile_rows: int, ranges: int):
+    """The rows of a streamed evaluation in its sum order: ``(rows [R, Q, 4],
+    present [R, Q, 4])``, range r holding the tiles ``[r T // R, (r + 1) T //
+    R)`` of ``tile_rows`` rows, cut from its first row into quads of 4 rows;
+    ``rows`` indexes the data (0 where no row is), ``present`` marks a row of
+    the data.  Every range holds at least one tile (``1 <= R <= T``)."""
+    T = -(-n_data // tile_rows)
+    lo = torch.tensor([(r * T // ranges) * tile_rows for r in range(ranges)])
+    hi = torch.tensor([min(((r + 1) * T // ranges) * tile_rows, n_data)
+                       for r in range(ranges)])
+    Q = int(-(-(hi - lo).max() // 4))
+    rows = lo[:, None, None] + torch.arange(4 * Q).reshape(1, Q, 4)
+    present = rows < hi[:, None, None]
+    return torch.where(present, rows, 0), present
+
+
+def _sum_quads(terms, present):
+    """Terms ``[..., R, Q, 4]`` summed in the streamed order: a quad's present
+    terms left to right, a range's quads left to right, the ranges in
+    ascending order (``[...]``)."""
+    quad = terms[..., 0]
+    for k in range(1, 4):
+        quad = torch.where(present[..., k], quad + terms[..., k], quad)
+    rng = quad[..., 0]
+    for i in range(1, quad.shape[-1]):
+        rng = torch.where(present[:, i, 0], rng + quad[..., i], rng)
+    total = rng[..., 0]
+    for r in range(1, rng.shape[-1]):
+        total = total + rng[..., r]
+    return total
 
 
 def logistic_regression_stream_logp_grad(q, xt, y, tile_rows, csum,
-                                         splits=1):
+                                         ranges=None):
     """Plain counterpart of the ``logistic_regression_stream`` device functor
     (csrc/models.cuh::LogisticRegressionStream), the evaluation of kernel
     K1-stream: ``(logp [C], grad [C, d])`` at ``q [C, d]`` for the data
-    ``xt [d, N]`` and ``y [N]`` walked in tiles of ``tile_rows`` rows, as the
-    JAX model's ``tile_eval`` and ``finalize`` walk them
+    ``xt [d, N]`` and ``y [N]`` in tiles of ``tile_rows`` rows, as the JAX
+    model's ``tile_eval`` and ``finalize`` walk them
     (``gaussian.py:202-228``).
 
-    Sum order, the functor's: a logit's terms in ascending j; inside a tile
-    the log-likelihood's and each gradient column's terms over the tile's
-    rows in the block order (``ops.tsum`` over the tile; a row past the data's
-    end counts 0.0, as the JAX model's zero-weight padding rows do).  The T
-    tiles fall into ``splits`` ranges, range s the tiles
-    ``[s T // splits, (s + 1) T // splits)`` (the kernel's logical block of
-    ``splits`` chains gives each of its CUDA blocks one range): a range's
-    tiles are added in ascending order, starting from its first, and the
-    ranges' sums in ascending order, starting from the first range that holds
-    a tile.  Last the prior, its terms by ``csum`` (``tsum``).  With
-    ``splits`` 1 that is tiles ascending, and a single tile that holds every
-    row gives :func:`logistic_regression_logp_grad`'s bits.  The tiles are
-    evaluated side by side and only their sums are added in turn; the
-    [C, d, N] product is formed for a group of chains at a time."""
+    Sum order, the functor's: a logit's terms in ascending j.  The T tiles
+    fall into ``ranges`` ranges (default :func:`stream_ranges`), range r the
+    tiles ``[r T // R, (r + 1) T // R)``; over a range's rows, for the
+    log-likelihood and each gradient column alike, quads of 4 rows from the
+    range's first row (:func:`stream_quads`), a quad's terms added left to
+    right, then the range's quads left to right, then the ranges in
+    ascending order.  A row past the data's end is no term (the JAX model's
+    zero-weight padding rows add 0).  Last the prior, its terms by ``csum``
+    (``tsum``).  The terms are formed side by side and only their sums are
+    added in turn; the [C, d, rows] product is formed for a group of chains
+    at a time."""
     d, N = xt.shape
     T = -(-N // tile_rows)
-    pad = T * tile_rows - N
-    if pad:
-        xt = torch.nn.functional.pad(xt, (0, pad))
-        y = torch.nn.functional.pad(y, (0, pad))
-    valid = (torch.arange(T * tile_rows, device=q.device) < N).reshape(
-        T, tile_rows)
-    xt = xt.reshape(d, T, tile_rows)
-    y = y.reshape(T, tile_rows)
-    group = max(1, _STREAM_PRODUCT_ELEMENTS // (d * T * tile_rows))
+    R = stream_ranges(T) if ranges is None else ranges
+    if not 1 <= R <= T:
+        raise ValueError(f"ranges must be 1..{T} (the tiles), got {R}")
+    rows, present = stream_quads(N, tile_rows, R)
+    rows, present = rows.to(q.device), present.to(q.device)
+    xg = xt[:, rows]                 # [d, R, Q, 4]
+    yg = y[rows]
+    group = max(1, _STREAM_PRODUCT_ELEMENTS // (d * rows.numel()))
     lls, grads = [], []
     for lo in range(0, q.shape[0], group):
-        qc = q[lo:lo + group]
-        logits = xt[0] * qc[:, 0, None, None]
+        qc = q[lo:lo + group, :, None, None, None]
+        logits = xg[0] * qc[:, 0]
         for j in range(1, d):
-            logits = logits + xt[j] * qc[:, j, None, None]
-        zero = torch.zeros_like(logits)
-        tile_ll = tsum(torch.where(
-            valid, y * logits - logaddexp(zero, logits), zero))
+            logits = logits + xg[j] * qc[:, j]
+        ll = yg * logits - logaddexp(torch.zeros_like(logits), logits)
         p = torch.ones_like(logits) / (1.0 + torch.exp(-logits))
-        res = torch.where(valid, y - p, zero)
-        tile_grad = tsum(torch.where(valid, xt * res[:, None], zero[:, None]))
-        ll = grad = None
-        for s in range(splits):
-            lo, hi = s * T // splits, (s + 1) * T // splits
-            if lo == hi:
-                continue
-            part_ll, part_grad = tile_ll[:, lo], tile_grad[:, :, lo]
-            for t in range(lo + 1, hi):
-                part_ll = part_ll + tile_ll[:, t]
-                part_grad = part_grad + tile_grad[:, :, t]
-            ll = part_ll if ll is None else ll + part_ll
-            grad = part_grad if grad is None else grad + part_grad
-        lls.append(ll)
-        grads.append(grad)
+        res = yg - p
+        lls.append(_sum_quads(ll, present))
+        grads.append(_sum_quads(xg * res[:, None], present))
     return (torch.cat(lls) - 0.5 * csum(q * q), torch.cat(grads) - q)
 
 
 # Plain counterparts of the device model functors, by ``Model.kernel_hook``
 # name: ``fn(q, *hook_floats, *hook_tensors, csum)``; a streamed functor, the
 # hook's name with ``_stream`` appended, also takes the model's
-# ``stream_tile_rows`` before ``csum``.  The fused kernels' plain versions
-# evaluate a model through these, with the sum of the kernel that serves it,
-# as the kernels evaluate it through the functor.
+# ``stream_tile_rows`` before ``csum`` and its ranges after it.  The fused
+# kernels' plain versions evaluate a model through these, with the sum of
+# the kernel that serves it, as the kernels evaluate it through the functor.
 PLAIN_FUNCTORS = {
     "iid_normal": iid_normal_logp_grad,
     "logistic_regression": logistic_regression_logp_grad,

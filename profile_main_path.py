@@ -52,10 +52,11 @@ After building the kernels it prints, for each path,
    the chains took in lock step, the posterior chunks split as in 1; then
    what a tree iteration of the sync engine costs beside the model's batched
    evaluation alone and its two products by ``torch.matmul``; then K1-stream
-   per 128-draw launch on the path's own post-warmup states: on all chains
-   with 1, 2, 4 and 8 chains sharing a pass over the data (the logical chain
-   block, a cluster), and on the first 8 ... 256 chains at 8 and at 1, in
-   milliseconds per block iteration and bytes read per second.
+   per 128-draw launch on the path's own post-warmup states: on all 256
+   chains in one logical block (the JAX runner's pick) and in blocks of 128
+   and 64 run one after another, and on the first 64 and 128 chains, in
+   microseconds per round of evaluations and the share of the card's FP32
+   issue rate that the two products take.
 9. for the model zoo's two paths (``--only-zoo``: stochastic volatility at
    T = 1000 with 512 chains, 400 tuning and 300 posterior draws on
    K2-ld-args / K1-ld-args; radon with 1024 chains, 300 + 400 draws on
@@ -71,6 +72,11 @@ After building the kernels it prints, for each path,
    B = 1 ... 8.  ``--log FILE`` appends its lines to FILE as they come (a
    long run's partial record).  Only ``--only-flow`` runs it: the full
    configuration takes about 11 minutes, more than all the other items.
+11. ``--stream-launch TREE [TREE ...]``: K1-stream's 128-draw launch on
+   ``chip_smoke.py``'s made-up states (256 chains, 131072 rows), in a
+   process of its own for each checkout given, built from that checkout:
+   an earlier commit unpacked beside this one (``git archive``) is timed
+   the same way in the same call (parent, this, this, parent).
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -79,6 +85,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import subprocess
+import sys
 import time
 
 import numpy as np
@@ -527,22 +535,32 @@ def stream_path(device):
         return nf.nuts_fused_run(3, *a, CHUNK, big, config.nuts, 0.1, block,
                                  stream=True)[4]
 
-    sweep = [(BIG_CHAINS, b) for b in (1, 2, 4, 8)]
-    sweep += [(n, b) for n in (8, 64, 128) for b in (8, 1)]
+    # the logical block of all chains (the JAX runner's 256, the default),
+    # smaller blocks one after another in the same launch, and fewer chains
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0])
+    rate = sms * 128 * mhz * 1e6
+    sweep = [(BIG_CHAINS, b) for b in (None, 128, 64)]
+    sweep += [(n, None) for n in (64, 128)]
     for n, block in sweep:
         out = post(n, block)
         ms = cuda_events_ms(lambda: post(n, block), 1)
         iters = out["loop_iterations"].float()
         evals = float(out["n_steps"].sum())
-        # a cluster's pass over the data serves its `block` chains
-        passes = 2 * float(iters.sum()) / block
-        print(f"own states, first {n} chains, {block} a block: K1-stream "
+        B = n if block is None else block
+        # a round: every chain's evaluation, 4 N d FP32 instructions each in
+        # the two products; the blocks of a launch run one after another
+        round_us = 1e3 * ms / (float(iters.max()) * n // B)
+        share = 4 * B * BIG_ROWS * GLM_DIM / (round_us * 1e-6) / rate
+        print(f"own states, first {n} chains, blocks of {B}: K1-stream "
               f"{ms:.2f} ms per {CHUNK}-draw launch, block iterations mean "
               f"{float(iters.mean()):.1f} max {int(iters.max())}, "
-              f"{ms / float(iters.max()):.3f} ms per block iteration, "
-              f"{evals} evaluations, "
-              f"{passes * big.data_bytes / ms / 1e9:.3f} TB/s read by the "
-              "two products")
+              f"{round_us:.1f} us per round of {B} evaluations, "
+              f"{100 * share:.1f}% of the FP32 issue rate ({sms} SMs x 128 "
+              f"x {mhz:.0f} MHz), {evals} evaluations")
 
 
 def flow_path(device, log_path=None):
@@ -704,6 +722,41 @@ def zoo_paths(device, repeats, trace):
             ".json", f"_{label.lower()}.json"))
 
 
+# Item 11: K1-stream's 128-draw launch on chip_smoke's made-up states at the
+# cell's sizes, in the tree given (its own package and chip_smoke, so that
+# an earlier commit's tree, unpacked beside this one, is timed alike); run in
+# a process of its own, one warm launch and one timed.
+STREAM_LAUNCH = """
+import torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+from nuts_rs_tpu_torch.kernels.nuts import NutsOptions
+from nuts_rs_tpu_torch.models.gaussian import logistic_regression
+dev = torch.device("cuda", 0)
+big = logistic_regression(cs.BIG_ROWS, cs.GLM_DIM, cs.SEED).to(dev)
+mean, std, _ = cs.glm_reference(cs.BIG_REFERENCE)
+args = cs.glm_posterior_inputs(big, dev, mean, std, seed=2,
+                               chains=cs.BIG_CHAINS)
+def run():
+    return nf.nuts_fused_run(3, *args, cs.CHUNK, big,
+                             NutsOptions(maxdepth=10), 0.1, stream=True)
+out = run()
+torch.cuda.synchronize()
+ms = cs.cuda_events_ms(run, 1)
+print(f"K1-stream made-up states: {ms:.2f} ms per {cs.CHUNK}-draw launch, "
+      f"block iterations max {int(out[4]['loop_iterations'].max())}")
+"""
+
+
+def stream_launch(trees):
+    """Item 11 for each tree in turn (e.g. parent, this one, this one,
+    parent)."""
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", STREAM_LAUNCH], cwd=tree,
+                             capture_output=True, text=True, check=True)
+        print(f"{tree}: {out.stdout.strip().splitlines()[-1]}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
@@ -725,6 +778,8 @@ def main() -> int:
                              " item 10")
     parser.add_argument("--log", help="append item 10's lines here too, as "
                         "they come")
+    parser.add_argument("--stream-launch", nargs="+", metavar="TREE",
+                        help="item 11 alone, for each checkout in turn")
     args = parser.parse_args()
     only = ("large-d" if args.only_large_d else "data" if args.only_data
             else "mclmc-data" if args.only_mclmc_data else None)
@@ -740,6 +795,10 @@ def main() -> int:
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     print(card_line())
+    if args.stream_launch:
+        stream_launch(args.stream_launch)
+        print(card_line())
+        return 0
     if args.only_stream:
         _build.build(["nuts_fused_stream_posterior"])
         stream_path(device)

@@ -17,7 +17,9 @@ of the suite).  With sums in coordinate order and the kernels built with
 stats equal, floats to 1e-5 relative.  The dim-on-lanes kernels sum in
 ``ops.tsum``'s order, which their plain versions share; so do the mid-d
 kernels, whose logistic-regression functor also sums a logit's terms in
-ascending j.
+ascending j.  K1-stream and its plain version share their sum order too
+(ranges of tiles, quads of rows: models.cuh::LogisticRegressionStream) and
+agree bit for bit.
 """
 
 import numpy as np
@@ -437,21 +439,24 @@ def test_normal_100_runs_mclmc_end_to_end_on_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,dim,tile,block,maxdepth", [
-    (36, 4, 8, None, 6), (1001, 11, 64, 4, 6), (5000, 37, 512, 8, 8),
-    (300, 5, 512, None, 5)])
-def test_stream_kernel_matches_plain_version_on_the_card(rows, dim, tile,
-                                                         block, maxdepth):
-    """K1-stream at other sizes than the main path's: several tiles with a
-    ragged last one (1001 rows in tiles of 64, 36 in tiles of 8), tiles
-    smaller and larger than the 256 threads, one tile larger than the data,
-    C = 16 chains alone or in logical blocks."""
+@pytest.mark.parametrize("rows,dim,tile,C,block,ranges,maxdepth", [
+    (36, 4, 8, 16, None, None, 6), (1001, 11, 64, 16, 4, 3, 6),
+    (5000, 37, 512, 16, 8, None, 8), (300, 5, 512, 16, None, None, 5),
+    (5000, 37, 512, 256, None, 7, 8), (2000, 20, 128, 512, None, None, 6)])
+def test_stream_kernel_matches_plain_version_on_the_card(rows, dim, tile, C,
+                                                         block, ranges,
+                                                         maxdepth):
+    """K1-stream at other sizes than the main path's, bit for bit: several
+    tiles with a ragged last one (1001 rows in tiles of 64, 36 in tiles of
+    8), one tile larger than the data, ranges that do not divide the tiles
+    (3 of 16, 7 of 10), 16 chains in one logical block (the JAX runner's
+    pick) or in blocks of 4 and 8, 256 chains in one block and 512 in two
+    (the JAX runner's 256: two CUDA blocks an SM)."""
     import dataclasses
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
     dev = torch.device("cuda", 0)
-    C = 16
     # (Model.to rebuilds the model with its own tile, so the tile goes last)
     model = dataclasses.replace(tg.logistic_regression(rows, dim, 3).to(dev),
                                 stream_tile_rows=tile)
@@ -467,10 +472,11 @@ def test_stream_kernel_matches_plain_version_on_the_card(rows, dim, tile,
     args = (q, g, logp, stds, mean, logdet, step, step.clone())
     before = dict(nf.LAUNCHES)
     got = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=block,
-                            stream=True)
+                            stream=True, ranges=ranges)
     torch.cuda.synchronize()
     want = nf.nuts_fused_run_reference(3, *args, 8, model, opts, 0.1,
-                                       block=block, stream=True)
+                                       block=block, stream=True,
+                                       ranges=ranges)
     assert nf.LAUNCHES["nuts_fused_stream_posterior"] \
         == before["nuts_fused_stream_posterior"] + 1
     for name in INT_STATS:
@@ -478,23 +484,40 @@ def test_stream_kernel_matches_plain_version_on_the_card(rows, dim, tile,
                                       want[4][name].cpu().numpy(), name)
     assert got[3].shape == (C, 8, dim)
     for i in range(4):
-        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+        np.testing.assert_array_equal(got[i].cpu().numpy(),
+                                      want[i].cpu().numpy(), str(i))
     for name in nf.STAT_NAMES:
-        _close(got[4][name].cpu(), want[4][name].cpu(), name, 1e-5, 1e-5)
-    # one tile that holds all rows: the resident kernel's bits, whatever
-    # the logical block (one range holds the tile, the others nothing)
-    if tile >= rows:
-        for B in (1, 4):
-            one = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=B,
-                                    stream=True)
-            dense = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=B)
-            for i in range(4):
-                np.testing.assert_array_equal(one[i].cpu().numpy(),
-                                              dense[i].cpu().numpy())
+        np.testing.assert_array_equal(got[4][name].cpu().numpy(),
+                                      want[4][name].cpu().numpy(), name)
     bad = list(args)
     bad[0] = q.T.contiguous().T
     with pytest.raises(ValueError, match="contiguous"):
         nf.nuts_fused_run(3, *bad, 8, model, opts, 0.1, stream=True)
+
+
+@pytest.mark.cuda
+def test_stream_kernel_refuses_a_block_that_cannot_be_resident():
+    """1024 chains forced into one logical block: the card holds two CUDA
+    blocks an SM (264 chains), so the launch is refused with CUDA's error
+    and nothing runs (no retreat to a smaller block or to the plain
+    version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    dev = torch.device("cuda", 0)
+    C, dim = 1024, 20
+    model = tg.logistic_regression(2000, dim, 3).to(dev)
+    q = torch.zeros(C, dim, device=dev)
+    logp, g = model.logp_and_grad(q)
+    ones = torch.ones(C, dim, device=dev)
+    step = torch.full((C,), 0.4, device=dev)
+    args = (q, g, logp, ones, 0 * ones, torch.zeros(C, device=dev), step,
+            step.clone())
+    before = dict(nf.LAUNCHES)
+    with pytest.raises(RuntimeError, match="cooperative"):
+        nf.nuts_fused_run(3, *args, 8, model, NutsOptions(maxdepth=6), 0.1,
+                          block=C, stream=True)
+    torch.cuda.synchronize()
+    assert nf.LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -528,7 +528,7 @@ def test_data_beyond_shared_memory_stream_on_cuda():
         assert tchain.fused_layout(model, config, warmup, "cpu") == "cl"
     assert tchain.fused_layout(model, config, False, "cuda") == "stream"
     assert tchain.fused_layout(model, config, True, "cuda") is None
-    assert _build.stream_smem_bytes(11, 10, 8) \
+    assert _build.stream_smem_bytes(11, 10, *_build.stream_tiling(11, 4, 10)) \
         < _build.SMEM_OPT_IN_BYTES < _build.mid_smem_bytes(
             "posterior", 11, 10, model)
 

@@ -6,15 +6,16 @@ The plain version of K1-stream (``nuts_fused_run_reference`` with
 ``gaussian.logistic_regression_stream_logp_grad``) replays
 ``nuts_pallas_run`` with ``stream=`` in interpret mode draw for draw, as
 tests/test_pallas_stream.py runs it: every integer stat equal on every
-(chain, draw), floats to rounding.  The streamed functor holds the JAX
-model's rows in the JAX model's tiles, a single tile gives the resident
-functor's bits, the runners stream where the JAX runners stream, and the
-slice as a whole (sync warmup, streamed posterior) agrees with the JAX
-package in distribution.
+(chain, draw), floats to rounding, at one logical block and at two.  The
+streamed functor holds the JAX model's rows in the JAX model's tiles and
+adds them in its stated order (ranges of tiles, quads of rows), the chain
+block is the JAX runner's pick, the runners stream where the JAX runners
+stream, and the slice as a whole (sync warmup, streamed posterior) agrees
+with the JAX package in distribution.
 
 Float tolerances are those of tests/test_torch_model_args.py (K1-args): the
-plain version sums a logit's terms in ascending j and the rows of a tile in
-``ops.tsum``'s order, XLA's dot in its own; rtol 2e-6 with atol 2e-6 on
+plain version sums a logit's terms in ascending j and a range's rows in
+quads of 4, XLA's dot in its own; rtol 2e-6 with atol 2e-6 on
 positions and step sizes, 2e-5 on log densities and energy stats, 5e-5 on
 the accept sums and 2e-3 on gradients.
 
@@ -105,7 +106,7 @@ def test_k1_stream_plain_version_matches_pallas(num_draws, jitter):
     tm = model_from_pallas_args("logistic_regression_stream", spec.args,
                                 tile_rows=tile)
     assert tm.stream_tile_rows == tile and tm.hook_parts()[2][1].shape == (n,)
-    # block = C = 8 chains: five tiles in eight ranges, three of them empty
+    # block = C = 8 chains; the five tiles in five ranges (the default)
     args = _inputs(logp, C, d, 7, 0.22)
     want = nuts_pallas_run(11, *map(jnp.asarray, args), num_draws, None,
                            JaxNutsOptions(maxdepth=6), jitter, block=C,
@@ -114,6 +115,32 @@ def test_k1_stream_plain_version_matches_pallas(num_draws, jitter):
                                       NutsOptions(maxdepth=6), jitter,
                                       block=C, stream=True)
     assert int(np.asarray(want[4]["depth"]).max()) >= 3
+    _check_posterior(got, want)
+
+
+@pytest.mark.parametrize("ranges", [None, 2])
+def test_k1_stream_plain_version_matches_pallas_in_two_blocks(ranges):
+    """16 chains in two logical blocks of 8 (each block's seed by its
+    program id, its own last iteration), the five tiles in five ranges (the
+    default, one a tile) or in two of two and three tiles."""
+    n, d, tile, C, B = 36, 4, 8, 16, 8
+    spec, _, _, logp = _logreg_pieces(n, d, seed=3, tile_rows=tile)
+    tm = model_from_pallas_args("logistic_regression_stream", spec.args,
+                                tile_rows=tile)
+    args = _inputs(logp, C, d, 9, 0.22)
+    want = nuts_pallas_run(13, *map(jnp.asarray, args), 14, None,
+                           JaxNutsOptions(maxdepth=6), 0.1, block=B,
+                           interpret=True, stream=spec, model_args=())
+    got = nf.nuts_fused_run_reference(13, *map(_t, args), 14, tm,
+                                      NutsOptions(maxdepth=6), 0.1, block=B,
+                                      stream=True, ranges=ranges)
+    iters = np.asarray(want[4]["loop_iterations"])
+    assert len(set(iters[:B])) == len(set(iters[B:])) == 1
+    # max_energy_error is the leapfrog error of largest magnitude; chain 14's
+    # draw 12 has two that mirror each other (-0.0082626 and +0.0082626), so
+    # the sums' rounding picks its sign: held in magnitude here
+    for out in (got[4], want[4]):
+        out["max_energy_error"] = np.abs(np.asarray(out["max_energy_error"]))
     _check_posterior(got, want)
 
 
@@ -141,25 +168,31 @@ def test_k1_stream_plain_version_on_the_shipped_packed_spec():
 
 
 def test_stream_single_tile_bit_identical():
-    """One tile that holds every row: the streamed plain version gives the
-    resident one's (K1-args') bits, as the JAX test of the same name."""
+    """One tile that holds every row: one range, and a tile larger than the
+    data changes no bit (a row past the data's end is no term).  The
+    resident plain version (K1-args') sums the rows in ``ops.tsum``'s order,
+    the streamed one in quads (``gaussian.stream_quads``): the same draws to
+    rounding, every integer stat equal."""
     n, d, C = 24, 4, 8
     tm = tg.logistic_regression(n, d, 3)
-    one_tile = dataclasses.replace(tm, stream_tile_rows=24)
     args = list(map(_t, _inputs(jg.logistic_regression(n, d, 3).logp_fn, C,
                                 d, 1, 0.3)))
     opts = NutsOptions(maxdepth=6)
     dense = nf.nuts_fused_run_reference(11, *args, 20, tm, opts, 0.1,
                                         block=4)
+    first = None
     for rows in (24, 256, 300):
-        model = dataclasses.replace(one_tile, stream_tile_rows=rows)
+        model = dataclasses.replace(tm, stream_tile_rows=rows)
         got = nf.nuts_fused_run_reference(11, *args, 20, model, opts, 0.1,
                                           block=4, stream=True)
-        for a, b in zip(got[:4], dense[:4]):
+        if first is None:
+            first = got
+            _check_posterior(got, dense)
+        for a, b in zip(got[:4], first[:4]):
             np.testing.assert_array_equal(a.numpy(), b.numpy())
-        for name in dense[4]:
+        for name in first[4]:
             np.testing.assert_array_equal(got[4][name].numpy(),
-                                          dense[4][name].numpy(), name)
+                                          first[4][name].numpy(), name)
 
 
 # ---------------------------------------------------------------------------
@@ -205,35 +238,51 @@ def test_streamed_functor_matches_autodiff_and_the_jax_model(n_data, dim,
         _close(grad, np.asarray(g_s).T, "grad vs tile_eval", 2e-5, 2e-5)
 
 
-@pytest.mark.parametrize("splits", [1, 2, 4, 8])
-def test_streamed_functor_adds_its_tiles_in_ranges(splits):
-    """The tiles' sums are added range by range, the ranges a logical block
-    of ``splits`` chains gives its CUDA blocks: tiles ``[s T // splits,
-    (s + 1) T // splits)``, empty ranges skipped."""
+@pytest.mark.parametrize("ranges", [1, 2, 5, 13])
+def test_streamed_functor_adds_its_tiles_in_ranges(ranges):
+    """The sum order over rows, whatever the chain block: the 13 tiles of 8
+    rows (the last of 4) in ``ranges`` ranges, range r the tiles ``[r T //
+    R, (r + 1) T // R)``; a range's rows in quads of 4 from its first row,
+    each quad left to right, the quads left to right; the ranges in
+    ascending order; the prior last.  Re-added here one row at a time from
+    the functor's own terms, bit for bit."""
     tm = tg.logistic_regression(100, 4, 0)
     xt, y = tm.hook_parts()[2]
     q = _t(np.random.default_rng(2).normal(size=(3, 4)).astype(np.float32))
     tile, T = 8, 13
     logp, grad = tg.logistic_regression_stream_logp_grad(q, xt, y, tile,
-                                                         tsum, splits)
-    ll = g = None
-    for s in range(splits):
+                                                         tsum, ranges)
+    rows, present = tg.stream_quads(100, tile, ranges)
+    assert rows.shape[0] == ranges and int(present.sum()) == 100
+    # the functor's terms, on its own layout
+    xg = xt[:, rows]
+    logits = xg[0] * q[:, 0, None, None, None]
+    for j in range(1, 4):
+        logits = logits + xg[j] * q[:, j, None, None, None]
+    ll = y[rows] * logits - tg.logaddexp(torch.zeros_like(logits), logits)
+    res = y[rows] - torch.ones_like(logits) / (1.0 + torch.exp(-logits))
+    terms = torch.cat([ll[:, None], xg * res[:, None]], 1)  # [C, 1 + d, ...]
+    total = None
+    for r in range(ranges):
+        lo = (r * T // ranges) * tile
+        hi = min(((r + 1) * T // ranges) * tile, 100)
         part = None
-        for t in range(s * T // splits, (s + 1) * T // splits):
-            sl = slice(t * tile, min((t + 1) * tile, 100))
-            one = tg.logistic_regression_stream_logp_grad(
-                q, xt[:, sl].contiguous(), y[sl].contiguous(), tile, tsum)
-            # a single tile's likelihood: take the prior out again
-            lt = one[0] + 0.5 * tsum(q * q)
-            gt = one[1] + q
-            part = (lt, gt) if part is None else (part[0] + lt, part[1] + gt)
-        if part is not None:
-            ll, g = part if ll is None else (ll + part[0], g + part[1])
-    _close(logp, ll - 0.5 * tsum(q * q), "logp", 1e-6, 1e-6)
-    _close(grad, g - q, "grad", 1e-6, 1e-6)
-    whole = tg.logistic_regression_stream_logp_grad(q, xt, y, tile, tsum)
+        for n0 in range(lo, hi, 4):
+            quad = None
+            for n in range(n0, min(n0 + 4, hi)):
+                i, k = divmod(n - lo, 4)
+                term = terms[:, :, r, i, k]
+                quad = term if quad is None else quad + term
+            part = quad if part is None else part + quad
+        total = part if total is None else total + part
+    np.testing.assert_array_equal(logp.numpy(),
+                                  (total[:, 0] - 0.5 * tsum(q * q)).numpy())
+    np.testing.assert_array_equal(grad.numpy(), (total[:, 1:] - q).numpy())
+    whole = tg.logistic_regression_stream_logp_grad(q, xt, y, tile, tsum, 1)
     _close(logp, whole[0], "logp vs one range", 1e-5, 1e-5)
-    assert nf._evaluators(tm, "stream", splits)[1](q)[0].shape == (3,)
+    assert nf._evaluators(tm, "stream", ranges)[1](q)[0].shape == (3,)
+    with pytest.raises(ValueError, match="ranges must be 1..13"):
+        tg.logistic_regression_stream_logp_grad(q, xt, y, tile, tsum, 14)
 
 
 def test_streamed_functor_evaluates_chains_in_groups(monkeypatch):
@@ -286,12 +335,12 @@ def test_cpu_tensors_take_the_plain_version_and_arguments_are_checked():
     for a, b in zip(got[:4], want[:4]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert nf.LAUNCHES == before and "nuts_fused_stream_posterior" in before
-    # the chains of a block share a pass: the largest cluster that divides
-    assert nf._check_block(64, None, "stream") == 8
-    assert nf._check_block(12, None, "stream") == 4
-    assert nf._check_block(7, None, "stream") == 1
-    with pytest.raises(ValueError, match="chain blocks"):
-        nf._check_block(12, 3, "stream")
+    # the block: the JAX runner's by default (all 8 chains at this size),
+    # else min(block, C), which must divide the chains
+    assert nf._stream_sizes(tm, 8, 4, None, None) == (8, 5)
+    assert nf._stream_sizes(tm, 8, 4, 16, 2) == (8, 2)
+    with pytest.raises(ValueError, match="multiple of the chain block"):
+        nf.nuts_fused_run(1, *args, 3, tm, opts, 0.1, block=3, stream=True)
     bad = list(args)
     bad[0] = args[0].T.contiguous().T  # not contiguous
     with pytest.raises(ValueError, match="contiguous"):
@@ -303,26 +352,123 @@ def test_cpu_tensors_take_the_plain_version_and_arguments_are_checked():
         nf.nuts_fused_run(1, *args, 3, tg.normal_logp(4), opts, 0.1,
                           stream=True)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        _build.launch_stream_posterior(1, *args, 3, tm, opts, 0.1, 1)
+        _build.launch_stream_posterior(1, *args, 3, tm, opts, 0.1, 8, 5)
+
+
+@pytest.mark.parametrize("ranges,match", [
+    (0, "ranges must be an int in 1..5"), (6, "ranges must be an int in 1..5"),
+    (2.0, "ranges must be an int"), ("3", "ranges must be an int")])
+def test_stream_ranges_are_checked(ranges, match):
+    """R, the ranges the tiles fall into, is 1..T (every range holds a tile)
+    on both devices; the kernel's workspace holds a partial sum a range,
+    chain and column, and the block's positions."""
+    tm = tg.logistic_regression(40, 4, 1)  # 5 tiles of 8
+    args = list(map(_t, _inputs(jg.logistic_regression(40, 4, 1).logp_fn, 8,
+                                4, 1, 0.3)))
+    with pytest.raises(ValueError, match=match):
+        nf.nuts_fused_run(1, *args, 3, tm, NutsOptions(maxdepth=4), 0.1,
+                          stream=True, ranges=ranges)
+    assert _build.stream_workspace_floats(5, 8, 4) == 4 * 8 + 5 * 8 * 5
+    assert _build.stream_workspace_floats(256, 256, 100) == \
+        100 * 256 + 256 * 256 * 101
 
 
 def test_stream_shared_memory_does_not_grow_with_the_rows():
     # 21 vectors, the cached dots, the reduction scratch, the cluster
-    # slots, then per chain of the block a position, two buffers of 8 d
-    # partials and the range's gradient, with 8 sums and 4 floats of slack
-    assert _build.stream_smem_bytes(100, 10, 1) == 4 * (
-        21 * 100 + 22 + 176 + 16 + 100 + 1600 + 100 + 12)
-    assert _build.stream_smem_bytes(100, 10, 8) == 4 * (
-        21 * 100 + 22 + 176 + 16 + 8 * (100 + 1600 + 100) + 12)
-    assert _build.stream_smem_bytes(100, 10, 8) < _build.SMEM_OPT_IN_BYTES
-    assert _build.STREAM_MAX_TILE_ROWS == 1024
+    # slots, then 4 floats of slack, S rows of x at an odd stride >= d + 1,
+    # the group's positions or residuals and the quad sums
+    assert _build.stream_smem_bytes(100, 10, 128, 64) == 4 * (
+        21 * 100 + 22 + 176 + 16 + 4 + 128 * 101 + 128 * 64 + 32 * 64)
+    assert _build.stream_smem_bytes(5, 6, 128, 8) == 4 * (
+        21 * 5 + 14 + 176 + 16 + 4 + 128 * 7 + 128 * 8 + 32 * 8)
+    # the main path's tiling: two chains' blocks an SM (1 KB each reserved)
+    assert _build.stream_tiling(100, 256, 10) == (128, 64)
+    assert 2 * (_build.stream_smem_bytes(100, 10, 128, 64) + 1024) <= 233472
+    # the group no larger than the block needs; fewer chains at larger d
+    assert _build.stream_tiling(4, 8, 6) == (128, 8)
+    assert _build.stream_tiling(4, 12, 6) == (128, 16)
+    assert _build.stream_tiling(200, 128, 10) == (128, 32)
+    assert _build.stream_tiling(1000, 64, 10)[1] == 8
+    with pytest.raises(NotImplementedError, match="d up to 1024"):
+        _build.stream_tiling(1025, 64, 10)
     big = tg.logistic_regression_from_tensors(torch.zeros(100, 131072),
                                               torch.zeros(131072))
     assert big.stream_tile_rows == 512 and tg.stream_tile_rows(511) == 8
+    assert tg.stream_ranges(256) == 256 and tg.stream_ranges(300) == 256
+    assert tg.stream_ranges(5) == 5
     assert _build.mid_smem_bytes("posterior", 100, 10, big) \
         > _build.SMEM_OPT_IN_BYTES
     assert "nuts_fused_stream_posterior" in _build.SOURCES
     assert _build.MODEL_IDS["logistic_regression_stream"] == 2
+
+
+@pytest.mark.parametrize("chains", [256, 64, 320])
+def test_stream_block_is_the_jax_runners_pick(monkeypatch, chains):
+    """``logistic_regression(131072, 100)``: the JAX posterior runner passes
+    its tier, 256, to ``nuts_pallas_run``, whose block is ``min(256, C)``
+    and must divide the chains; the port's ``chain.stream_block`` gives the
+    same block (256 at 256 chains, 64 at 64) and raises at 320 chains, where
+    the JAX launch asserts, and the port's runner passes it to its kernel."""
+    import nuts_rs_tpu.chain as jchain
+    import nuts_rs_tpu.kernels.nuts_pallas as jpallas
+
+    js = jnt.DiagNutsSettings(num_chains=chains, num_tune=20, num_draws=10,
+                              posterior_kernel="pallas")
+    jcfg = js.chain_config()
+    jm = jg.logistic_regression(131072, 100, 0)
+    strategy = _strategy_for(js, jcfg)
+    seen = []
+    real = jpallas.nuts_pallas_run
+
+    class _Stop(Exception):
+        pass
+
+    def spy(seed, q, *args, **kw):
+        seen.append(kw["block"])
+        C = q.shape[0]
+        if C % min(kw["block"], C):
+            return real(seed, q, *args, **kw)  # the JAX launch's refusal
+        raise _Stop
+
+    monkeypatch.setattr(jpallas, "nuts_pallas_run", spy)
+    runner = jchain.make_pallas_posterior_runner(jm, strategy, jcfg,
+                                                 phase_start=20, base_seed=0)
+    state = jnt.Sampler(jg.logistic_regression(32, 100, 0), js,
+                        dtype=jnp.float32).state
+    flags = {k: jnp.zeros(4, bool) for k in (
+        "is_tuning", "update_estimators", "do_switch", "do_update",
+        "use_late_estimator", "reinit_step_size", "use_best_guess",
+        "advance_da")}
+    tm = tg.logistic_regression_from_tensors(torch.zeros(100, 131072),
+                                             torch.zeros(131072))
+    if chains % 256 and chains > 256:
+        with pytest.raises(AssertionError):
+            runner(state, flags)
+        with pytest.raises(ValueError, match="multiple of the streamed"):
+            tchain.stream_block(tm, 10, chains)
+        return
+    with pytest.raises(_Stop):
+        runner(state, flags)
+    assert seen == [256]
+    assert tchain.stream_block(tm, 10, chains) == min(256, chains) == chains
+
+    # the port's runner launches its kernel with that block
+    ts = tnt.DiagNutsSettings(num_chains=chains, num_tune=20, num_draws=10,
+                              posterior_kernel="pallas")
+    tstate = tnt.Sampler(tg.logistic_regression(32, 100, 0), ts,
+                         device="cpu").state
+    got = []
+
+    def tspy(*args, **kw):
+        got.append((kw["block"], kw["stream"]))
+        raise _Stop
+
+    monkeypatch.setattr(nf, "nuts_fused_run", tspy)
+    trunner = tchain.make_fused_posterior_runner(
+        tm, ts.chain_config(), phase_start=20, base_seed=0, device="cpu")
+    with pytest.raises(_Stop):
+        trunner(tstate, {"is_tuning": torch.zeros(4, dtype=torch.bool)})
+    assert got == [(chains, True)]
 
 
 # ---------------------------------------------------------------------------
