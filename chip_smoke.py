@@ -109,8 +109,9 @@ kernel alone.
 Each kernel is timed (CUDA events) beside its plain version on the check's
 inputs (``ms``, ``plain_ms``, with the bound ``bound_ms`` of that work), and
 alone at its path's 128-draw launch (``chunk_ms``, ``chunk_bound_ms``;
-K1-flow's and K1-stream's on the path's own states, with
-``chunk_ms_made_up`` beside).  The
+K1-flow's, K1-stream's, K1-ld-args' and K2-ld-args' on the path's own
+states, with ``chunk_ms_made_up`` beside; K2-ld-args' own launch is the
+SV path's first full chunk of 128 warmup draws).  The
 bound is the larger of the bytes the call must move (every input read once,
 every output written once) over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, the card's published peaks; operations are counted from the
@@ -1438,6 +1439,8 @@ def path_sv(device, checks, launches, times):
     """Stochastic volatility, T = 1000 (d = 1002), 512 chains: the
     dim-on-lanes kernels with the model's data, K1-ld-args and K2-ld-args."""
     from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
     from nuts_rs_tpu_torch.models.stochastic_volatility import (
         stochastic_volatility)
 
@@ -1460,18 +1463,46 @@ def path_sv(device, checks, launches, times):
     checks["nuts_fused_ld_args_posterior"] = k1
     checks["nuts_fused_ld_args_warmup"] = k2
     checks["stochastic_volatility"] = functor_row(k1, k2)
-    got, functor_launches = zoo_main_path(
-        model, settings, device, ref,
-        {"sigma": lambda p: np.exp(p[..., 0]),
-         "nu": lambda p: np.exp(p[..., 1])},
-        ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup"),
-        "SV path")
+    # the path's own launches, kept to be timed again: its first posterior
+    # launch (the post-warmup states) and its first full warmup chunk
+    seen = {}
+    run0, warm0 = nf.nuts_fused_run, nf.nuts_fused_warmup_run
+
+    def keep(key, fn, rows=None):
+        def launch(*a, **k):
+            if rows is None or a[1].shape[0] == rows:
+                seen.setdefault(key, (a, k))
+            return fn(*a, **k)
+        return launch
+
+    nf.nuts_fused_run = keep("nuts_fused_ld_args_posterior", run0)
+    nf.nuts_fused_warmup_run = keep("nuts_fused_ld_args_warmup", warm0, CHUNK)
+    try:
+        got, functor_launches = zoo_main_path(
+            model, settings, device, ref,
+            {"sigma": lambda p: np.exp(p[..., 0]),
+             "nu": lambda p: np.exp(p[..., 1])},
+            ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup"),
+            "SV path")
+    finally:
+        nf.nuts_fused_run, nf.nuts_fused_warmup_run = run0, warm0
     launches.update(got)
     launches["stochastic_volatility"] = functor_launches
-    t = time_kernels(model, settings, device, "ld", SV_CHAINS,
-                     k1=state(2, SV_CHAINS), k2_state=state(4, SV_CHAINS))
-    times.update(t)
-    times["stochastic_volatility"] = t["nuts_fused_ld_args_posterior"]
+    made = time_kernels(model, settings, device, "ld", SV_CHAINS,
+                        k1=state(2, SV_CHAINS), k2_state=state(4, SV_CHAINS))
+    for name, fn, at in (("nuts_fused_ld_args_posterior", run0, 4),
+                         ("nuts_fused_ld_args_warmup", warm0, 8)):
+        a, k = seen[name]
+        times[name] = chunk_time("nuts", model,
+                                 lambda fn=fn, a=a, k=k: fn(*a, **k),
+                                 a[1:9], at)
+        checks[name]["chunk_ms_made_up"] = made[name][0]
+        print(f"time {name} on the path's own states: {times[name][0]:.4f} "
+              f"ms per {CHUNK}-draw launch at C={SV_CHAINS} d={model.dim} "
+              f"({_build.ld_args_blocks_per_sm(name.split('_')[-1], model, opts.maxdepth)}"
+              f" chain blocks an SM); bound {times[name][1]:.5f} ms "
+              f"({times[name][2]})")
+    times["stochastic_volatility"] = times["nuts_fused_ld_args_posterior"]
 
 
 def path_radon(device, checks, launches, times):

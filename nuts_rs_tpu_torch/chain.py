@@ -187,9 +187,11 @@ def stream_block(model, maxdepth: int, num_chains: int) -> int:
     return B
 
 
-def _ld_with_data_fits(model, maxdepth: int, warmup: bool) -> bool:
-    """Whether the JAX runner would take its dim-on-lanes layout for a model
-    with data (``chain.py:773-784``, ``:1017-1028``, smallest tier 8)."""
+def _ld_tier_fits(model, maxdepth: int, warmup: bool) -> bool:
+    """Whether the JAX runner would take its dim-on-lanes layout for
+    ``model``, with or without data (``chain.py:773-784``, ``:1017-1028``,
+    smallest tier 8): where it does not, the runner is None and the JAX
+    package runs its sync engine."""
     dim_pad = -(-model.dim // 128) * 128
     D1 = maxdepth + 1
     fixed_ld = (6 * D1 + (48 if warmup else 32)) * dim_pad + D1 ** 2 + 64 * 128
@@ -202,49 +204,40 @@ def fused_layout(model, config: "ChainConfig", warmup: bool, device=None):
     ``"cl"`` (chains-on-lanes, data resident), ``"ld"`` (dim-on-lanes,
     with the model's data where it has them), ``"stream"`` (posterior only:
     chains-on-lanes with the data streamed in row tiles, kernel K1-stream)
-    or None (warmup only: no fused warmup, the sampler runs the per-draw
-    sync warmup), as the JAX runners choose (``chain.py:740-786``,
-    ``:1001-1030``).  Data that fail the chains-on-lanes rule stream in the
-    posterior when two tiles pass it; else the JAX runners take their
-    dim-on-lanes layout on ``pallas_spec`` while the data fit that tier
-    (``:773-801``, ``:1017-1044``), and beyond it the warmup has no fused
-    kernel and the posterior raises ``NotImplementedError`` (the JAX
-    posterior runner has none either).  On a CUDA ``device`` the resident
-    chains-on-lanes kernels also need the functor's scratch in a block's
-    shared memory; data beyond that stream, and their warmup is the sync
-    one."""
+    or None where the JAX runner is None, as the JAX runners choose
+    (``chain.py:740-790``, ``:1001-1030``).  Above the chains-on-lanes
+    limit the JAX runners take their dim-on-lanes layout while the model
+    and its data fit that tier (``:773-801``, ``:1017-1044``); data that
+    fail the chains-on-lanes rule stream in the posterior first when two
+    tiles pass it.  A None warmup leaves the warmup to the per-draw sync
+    engine; a None posterior demotes the whole run to the sync engine
+    (``NutsSettings.build_phases``, as ``nuts_rs_tpu/sampler.py:240-251``).
+    On a CUDA ``device`` the resident chains-on-lanes kernels also need the
+    functor's scratch in a block's shared memory; data beyond that stream,
+    and their warmup is the sync one; where they cannot stream either, the
+    JAX runner has a fused kernel the port lacks, and this raises
+    ``NotImplementedError`` (item 12)."""
     D = config.nuts.maxdepth
-    if not model.carries_data:
-        return "ld" if model.dim > cl_max_dim(D, warmup) else "cl"
-    if model.dim <= cl_max_dim(D, warmup, model.data_bytes):
-        on_cuda = device is not None and torch.device(device).type == "cuda"
-        kind = "warmup" if warmup else "posterior"
-        if not on_cuda or (_build.mid_smem_bytes(kind, model.dim, D, model)
-                           <= _build.SMEM_OPT_IN_BYTES):
-            return "cl"
-        if model.stream_tile_rows is not None:
-            return None if warmup else "stream"
-    else:
-        if (not warmup and model.stream_tile_rows is not None
+    if model.dim > cl_max_dim(D, warmup, model.data_bytes):
+        if (model.carries_data and not warmup
+                and model.stream_tile_rows is not None
                 and model.dim <= cl_max_dim(D, False, stream_bytes(model))):
             return "stream"
-        if _ld_with_data_fits(model, D, warmup):
-            return "ld"
-        if warmup:
-            return None
-    what = "warmup" if warmup else "posterior"
-    if model.dim <= cl_max_dim(D, warmup, model.data_bytes):
-        why = ("fit the chains-on-lanes rule but not a block's shared "
-               "memory on the card, and cannot stream")
-    else:
-        why = (f"are beyond the {what} launch's chains-on-lanes rule "
-               f"({cl_max_dim(D, warmup, model.data_bytes)}) and the "
-               "dim-on-lanes tier; the JAX package has no fused kernel for "
-               "such a model either")
+        return "ld" if _ld_tier_fits(model, D, warmup) else None
+    if not model.carries_data:
+        return "cl"
+    on_cuda = device is not None and torch.device(device).type == "cuda"
+    kind = "warmup" if warmup else "posterior"
+    if not on_cuda or (_build.mid_smem_bytes(kind, model.dim, D, model)
+                       <= _build.SMEM_OPT_IN_BYTES):
+        return "cl"
+    if model.stream_tile_rows is not None:
+        return None if warmup else "stream"
     raise NotImplementedError(
         "not ported yet (see ROADMAP.md): model "
         f"{model.name!r} carries {model.data_bytes} bytes of data at dim "
-        f"{model.dim}, which {why} (item 12)")
+        f"{model.dim}, which fit the chains-on-lanes rule but not a block's "
+        "shared memory on the card, and cannot stream (item 12)")
 
 
 class ChainState(NamedTuple):
@@ -690,10 +683,13 @@ def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
                                 base_seed: int, device=None):
     """Posterior-phase runner on the fused engine: ``(state, flags) ->
     (state, stats)`` with ``stats[name]`` shaped [k, C, ...].  One launch
-    per chunk.  ``device`` is where the sampler runs (:func:`fused_layout`
+    per chunk, or None where :func:`fused_layout` gives the model no fused
+    posterior.  ``device`` is where the sampler runs (:func:`fused_layout`
     needs it to choose between the resident and the streamed kernel)."""
     sset = config.step_size
     layout = fused_layout(model, config, warmup=False, device=device)
+    if layout is None:
+        return None
     stream = layout == "stream"
     if stream:
         layout = "cl"

@@ -726,6 +726,9 @@ __device__ __forceinline__ float sv_log1p(float w) {
 // shared memory; one __syncthreads.
 template <bool REV>
 __device__ __forceinline__ float sv_scan_exclusive(float x, float* wt) {
+#ifdef NRT_ABLATE_SV_SCANS
+  return 0.0f;  // timing ablations only: no scan, no barrier
+#endif
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int lp = REV ? 31 - lane : lane;
   const int wp = REV ? LD_W - 1 - warp : warp;
@@ -740,7 +743,9 @@ __device__ __forceinline__ float sv_scan_exclusive(float x, float* wt) {
                       : __shfl_up_sync(0xffffffffu, incl, 1);
   if (lp == 0) lane_ex = 0.0f;
   if (lp == 31) wt[wp] = incl;
+#ifndef NRT_ABLATE_SV_BARRIERS  // (the scan without its barrier)
   __syncthreads();
+#endif
   float W[LD_W];
 #pragma unroll
   for (int w = 0; w < LD_W; ++w) W[w] = wt[w];
@@ -854,7 +859,13 @@ struct StochasticVolatility {
       const int s = base + i;
       if (s < T) g[2 + s] = sigma * (suf + cs[s]) - q[2 + s];
     }
+#if defined(NRT_ABLATE_SV_SCANS)
+#elif defined(NRT_ABLATE_SV_BARRIERS)  // (the warps' sums alone)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) part[k] = warp_sum(part[k]);
+#else
     red.sum(part);  // its barrier also publishes g[2 + s]
+#endif
     if (threadIdx.x == 0) g[0] = (1.0f - lam_s * sigma) + part[1];
     if (threadIdx.x == 1)
       g[1] = ((1.0f - lam_nu * nu) +

@@ -21,12 +21,41 @@
 // stochastic volatility at T = 1000 (d = 1002; models.cuh::
 // StochasticVolatility: two scans over the 1000 innovations, lgamma,
 // digamma and log1p out of basic operations); every functor of
-// with_block_model is instantiated.  What bounds it: as K1-ld, the latency
-// of one block iteration's dependent steps (the evaluation adds two
-// block-wide scans and one reduction to the leapfrog's), not bytes or FP32
-// peak.
+// with_block_model is instantiated.
+//
+// What bounds it: as K1-ld, the latency of one block iteration's dependent
+// steps, not bytes or FP32 peak: at d = 1002 a thread owns 4 coordinates,
+// and a leapfrog is a few passes over them between block barriers (the
+// first pass, SV's two scans and its reduction, the leapfrog's reduction,
+// one more a U-turn level).  On the SV path's own states, with every tree
+// forced to maxdepth 7 (profile_main_path.py item 12, PERF.md; an H100 at
+// 700 W), one chain alone on an SM takes 8.05 us a leapfrog: the tree 3.69
+// us (K1-ld on the
+// iid normal from the same states), SV's scans and their barriers 1.05 us,
+// SV's arithmetic the rest.  What the design does about it: two chain
+// blocks an SM (__launch_bounds__(LD_T, LD_ARGS_MIN_BLOCKS = 2): at most
+// 128 registers a thread; 89 KB of shared memory a chain block at d = 1002
+// fits twice), so 264 chains are resident, not 132, and one chain's
+// barriers and dependent steps overlap the other's; an SM then spends 7.10
+// us on a leapfrog where one chain alone takes 8.05.  The order of every
+// operation is K1-ld's and the functor's, so the bits do not depend on
+// the blocks an SM.  SV's scans over the leapfrog's own coordinates with
+// its reduction merged into the leapfrog's (4 barriers a leapfrog, not 5)
+// measured slower than this at one block an SM and at two (PERF.md), so
+// the functor keeps its eval_block form.
 
 #include "nuts_fused_ld_posterior.cuh"
+
+namespace {
+
+// The kernel that a functor's launch takes.
+template <class Model>
+auto ld_args_posterior_kernel() {
+  return nrt::ld_posterior_kernel<Model, false, true, false,
+                                  nrt::LD_ARGS_MIN_BLOCKS>;
+}
+
+}  // namespace
 
 // Dynamic shared memory of one chain block of the ld_args kernels, in bytes
 // (0: posterior kernel, 1: warmup kernel; nrt::block_smem_bytes).
@@ -34,6 +63,25 @@ extern "C" long long nrt_ld_args_smem_bytes(int warmup, int d, int maxdepth,
                                             int model_id,
                                             const int* model_ints) {
   return nrt::block_smem_bytes(warmup, d, maxdepth, model_id, model_ints);
+}
+
+// Chain blocks one SM holds of the posterior kernel for `model_id` at
+// `smem` bytes of shared memory each (minus a CUDA error code where the
+// query fails; -1 for an unknown model id).
+extern "C" int nrt_ld_args_posterior_blocks_per_sm(int model_id,
+                                                   const int* model_ints,
+                                                   long long smem) {
+  int n = -1;
+  const float no_params[nrt::MAX_MODEL_PARAMS] = {};
+  const void* no_ptrs[nrt::MAX_MODEL_PTRS] = {};
+  nrt::with_block_model(model_id, no_params, no_ptrs, model_ints,
+                        [&](auto model) {
+                          n = nrt::blocks_per_sm(
+                              ld_args_posterior_kernel<decltype(model)>(),
+                              smem);
+                          return cudaSuccess;
+                        });
+  return n;
 }
 
 extern "C" int nrt_ld_args_posterior_launch(
@@ -55,8 +103,7 @@ extern "C" int nrt_ld_args_posterior_launch(
   return (int)nrt::with_block_model(
       model_id, model_params, model_ptrs, model_ints, [&](auto model) {
         return nrt::ld_launch(
-            nrt::ld_posterior_kernel<decltype(model), false, true>, a, model,
-            C, B,
+            ld_args_posterior_kernel<decltype(model)>(), a, model, C, B,
             4 * (nrt::ld_smem_floats(nrt::LD_POST_NVEC, dim, maxdepth) +
                  model.scratch_floats()),
             (cudaStream_t)stream);

@@ -19,9 +19,38 @@
 // scratch after the chain's vectors); its shared memory is
 // nrt_ld_args_smem_bytes(1, ...) (nuts_fused_ld_args_posterior.cu).  What
 // bounds it: as K2-ld, the latency of a leapfrog's dependent steps and the
-// wait for the longest tree of a block's chains in every draw.
+// wait for the longest tree of a block's chains in every draw.  The design
+// is K1-ld-args' (nuts_fused_ld_args_posterior.cu): two chain blocks an SM,
+// the order of every operation unchanged.
 
 #include "nuts_fused_ld_warmup.cuh"
+
+namespace {
+
+// The kernel that a functor's launch takes.
+template <class Model>
+auto ld_args_warmup_kernel() {
+  return nrt::ld_warmup_kernel<Model, false, true, nrt::LD_ARGS_MIN_BLOCKS>;
+}
+
+}  // namespace
+
+// Chain blocks one SM holds of the warmup kernel for `model_id` at `smem`
+// bytes of shared memory each (as nrt_ld_args_posterior_blocks_per_sm).
+extern "C" int nrt_ld_args_warmup_blocks_per_sm(int model_id,
+                                                const int* model_ints,
+                                                long long smem) {
+  int n = -1;
+  const float no_params[nrt::MAX_MODEL_PARAMS] = {};
+  const void* no_ptrs[nrt::MAX_MODEL_PTRS] = {};
+  nrt::with_block_model(model_id, no_params, no_ptrs, model_ints,
+                        [&](auto model) {
+                          n = nrt::blocks_per_sm(
+                              ld_args_warmup_kernel<decltype(model)>(), smem);
+                          return cudaSuccess;
+                        });
+  return n;
+}
 
 extern "C" int nrt_ld_args_warmup_launch(
     int dim, int maxdepth, int C, int B, int K, uint32_t seed,
@@ -46,8 +75,7 @@ extern "C" int nrt_ld_args_warmup_launch(
   return (int)nrt::with_block_model(
       model_id, model_params, model_ptrs, model_ints, [&](auto model) {
         return nrt::ld_launch(
-            nrt::ld_warmup_kernel<decltype(model), false, true>, a, model, C,
-            B,
+            ld_args_warmup_kernel<decltype(model)>(), a, model, C, B,
             4 * (nrt::ld_smem_floats(nrt::LD_WARM_NVEC + 1, dim, maxdepth) +
                  model.scratch_floats()),
             (cudaStream_t)stream);

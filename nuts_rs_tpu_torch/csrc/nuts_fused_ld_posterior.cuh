@@ -200,7 +200,7 @@ __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
     const float logp1 = lf.logp1, ke1 = lf.ke1;
     const float ld1 = FLOW ? lf.ld1 : logdet;
     const float err = (ke1 - (logp1 + ld1)) - e_init;
-    const bool diverged = (err > a.max_err) || !isfinite(err);
+    const bool diverged = ablate_keep((err > a.max_err) || !isfinite(err));
     const int idx1 = e_idx + (int)dirf;
 
     // ---- accept stats ----
@@ -351,9 +351,11 @@ __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
 }
 
 // One CUDA block of LD_T threads per chain, a thread block cluster per
-// logical chain block.
-template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool FLOW = false>
-__global__ void __launch_bounds__(LD_T)
+// logical chain block; MIN_BLOCKS resident an SM (at 2: at most 128
+// registers a thread).
+template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool FLOW = false,
+          int MIN_BLOCKS = 1>
+__global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
     ld_posterior_kernel(const LdPostArgs a, const Model model) {
   extern __shared__ float smem[];
   ClusterBlock grp;

@@ -71,8 +71,9 @@ struct LdWarmArgs {
   float* work;  // [C][4][D + 1][d] checkpoint stacks
 };
 
-template <class Model, bool CL_SITE, bool EVAL_BLOCK>
-__global__ void __launch_bounds__(LD_T)
+// MIN_BLOCKS resident an SM (at 2: at most 128 registers a thread).
+template <class Model, bool CL_SITE, bool EVAL_BLOCK, int MIN_BLOCKS = 1>
+__global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
     ld_warmup_kernel(const LdWarmArgs a, const Model model) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -175,7 +176,8 @@ __global__ void __launch_bounds__(LD_T)
                                                   leaf, depth, q1, scratch);
         const float logp1 = lf.logp1, ke1 = lf.ke1;
         const float err = (ke1 - (logp1 + logdet)) - e_init;
-        const bool diverged = (err > a.max_err) || !isfinite(err);
+        const bool diverged =
+            ablate_keep((err > a.max_err) || !isfinite(err));
         const int idx1 = e_idx + (int)dirf;
 
         const float diff = -err;

@@ -35,7 +35,12 @@
 //    is).  The launch checks residency with
 //    cudaOccupancyMaxActiveBlocksPerMultiprocessor first and returns
 //    cudaErrorCooperativeLaunchTooLarge rather than launch what could not
-//    be resident; the wrapper raises on it.  C = m B chains run as m
+//    be resident; the wrapper raises on it.  The wrapper's sub-tile S
+//    (_build.stream_tiling) keeps a block's shared memory within what each
+//    of the ceil(B / SMs) blocks an SM may use, (SM's shared memory) / k
+//    minus the card's reservation a block (115,712 bytes at two an SM),
+//    which the launch checks too; nrt_stream_resident_blocks lets a
+//    sampler check residency before its warmup.  C = m B chains run as m
 //    logical blocks one after another in the same launch.
 // 2. Every iteration has three phases, with the block's chains in lock
 //    step (grid_sync.cuh::GridBlock, the Pallas loop's "any chain of the
@@ -127,6 +132,32 @@ extern "C" long long nrt_stream_smem_bytes(int d, int maxdepth, int model_id,
                          m.scratch_floats());
 }
 
+// The card's SMs and how many blocks of the kernel one SM holds at
+// `smem` bytes of dynamic shared memory each.
+static cudaError_t stream_occupancy(size_t smem, int* sms, int* per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(
+      stream_posterior_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  int device = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, stream_posterior_kernel, nrt::LD_T, smem);
+  return err;
+}
+
+// How many blocks of the kernel the card holds at once at `smem` bytes of
+// dynamic shared memory each (a logical block of more chains cannot run);
+// minus a CUDA error code where the query fails.
+extern "C" int nrt_stream_resident_blocks(long long smem) {
+  int sms = 0, per_sm = 0;
+  const cudaError_t err = stream_occupancy((size_t)smem, &sms, &per_sm);
+  return err == cudaSuccess ? per_sm * sms : -(int)err;
+}
+
 extern "C" int nrt_stream_posterior_launch(
     int dim, int maxdepth, int C, int B, int K, uint32_t seed, float max_err,
     int has_jitter, float jc1, float jc2, int model_id,
@@ -147,21 +178,22 @@ extern "C" int nrt_stream_posterior_launch(
   const size_t smem =
       4 * (nrt::ld_smem_floats(nrt::LD_POST_NVEC, dim, maxdepth) +
            model.scratch_floats());
-  err = cudaFuncSetAttribute(stream_posterior_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  // every chain of a block must be resident at once
-  int device = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&device);
+  // every chain of a block must be resident at once: ceil(B / SMs) blocks
+  // an SM, each within its share of the SM's shared memory
+  // (_build.stream_block_smem_limit), and as many as the occupancy allows
+  int sms = 0, per_sm = 0, sm_smem = 0, reserved = 0, device = 0;
+  err = stream_occupancy(smem, &sms, &per_sm);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+    err = cudaDeviceGetAttribute(
+        &sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, stream_posterior_kernel, nrt::LD_T, smem);
+    err = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, device);
   if (err != cudaSuccess) return (int)err;
-  if ((long long)per_sm * sms < B)
+  const int k = (B + sms - 1) / sms;
+  if ((long long)per_sm * sms < B ||
+      (long long)smem > (long long)(sm_smem / k - reserved))
     return (int)cudaErrorCooperativeLaunchTooLarge;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)B);

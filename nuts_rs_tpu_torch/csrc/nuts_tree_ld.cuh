@@ -35,6 +35,12 @@
 // body's cross-dot matrix caches these same dots; here the few rows a
 // leapfrog's checks need are read from the stacks directly, which gives the
 // same values.
+//
+// NRT_ABLATE_FIXED_TREES, a build-time switch for timing ablations only
+// (profile_main_path.py item 12; it changes results), keeps every U-turn
+// check and the divergence test but ignores their outcome, so every tree
+// runs to maxdepth whatever the model: the same leapfrog count for any
+// functor.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -49,6 +55,24 @@
 namespace nrt {
 
 namespace cg = cooperative_groups;
+
+#ifdef NRT_ABLATE_FIXED_TREES
+__device__ int nrt_ablate_keep;  // 0: outcomes ignored (read at run time)
+__device__ __forceinline__ bool ablate_keep(bool x) {
+  return x && *(volatile int*)&nrt_ablate_keep != 0;
+}
+#else
+__device__ __forceinline__ bool ablate_keep(bool x) { return x; }
+#endif
+
+// Chain blocks an SM of the dim-on-lanes kernels with data (K1-ld-args,
+// K2-ld-args): two, so at most 128 registers a thread and 264 chains
+// resident (NRT_LD_ARGS_MIN_BLOCKS=n changes it for timing ablations).
+#ifdef NRT_LD_ARGS_MIN_BLOCKS
+constexpr int LD_ARGS_MIN_BLOCKS = NRT_LD_ARGS_MIN_BLOCKS;
+#else
+constexpr int LD_ARGS_MIN_BLOCKS = 2;
+#endif
 
 constexpr int LD_MAX_CLUSTER = 8;  // chains per logical block (portable size)
 // live vectors of a chain in shared memory (LdChain's 18; the posterior
@@ -343,7 +367,8 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
       turning = turning || turn2(dirf, r[0], a_b, d1, r[1]);
     }
   }
-  out.turning_int = turning;
+  out.turning_int = ablate_keep(turning);
+  out.turning_top = ablate_keep(out.turning_top);
   return out;
 }
 
@@ -352,6 +377,20 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
 __host__ __device__ inline size_t ld_smem_floats(int nvec, int d, int D) {
   return (size_t)nvec * d + 2 * (D + 1) + 2 * LD_NRED * LD_W +
          2 * LD_MAX_CLUSTER;
+}
+
+// Blocks of `kernel` one SM holds at `smem` bytes of dynamic shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); minus a CUDA error code
+// where the query fails.
+template <class Kernel>
+inline int blocks_per_sm(Kernel kernel, long long smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, LD_T,
+                                                        (size_t)smem);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // Launch one block of LD_T threads per chain in clusters of B blocks, with

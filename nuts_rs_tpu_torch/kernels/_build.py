@@ -70,9 +70,25 @@ MCLMC_MID_NVEC = 15  # nrt::MC_MID_NVEC, both mid-d MCLMC kernels
 LD_WARPS = 8  # nrt::LD_W, warps of a chain's block (ops.TSUM_THREADS / 32)
 LD_REDUCE_FLOATS = 2 * 11 * LD_WARPS  # two scratch buffers, LD_NRED x LD_W
 LD_MAX_MAXDEPTH = 30
-SMEM_OPT_IN_BYTES = 232448
+# Shared memory of one SM on sm_90 (cudaDevAttrMaxSharedMemoryPerMultiprocessor)
+# and what the card reserves for each resident block
+# (cudaDevAttrReservedSharedMemoryPerBlock): one block may opt in to
+# SM_SMEM_BYTES - SMEM_BLOCK_RESERVED bytes, and each of k blocks resident on
+# one SM to at most SM_SMEM_BYTES // k - SMEM_BLOCK_RESERVED
+# (stream_block_smem_limit; csrc/nuts_fused_stream_posterior.cu checks the
+# same).
+SM_SMEM_BYTES = 233472
+SMEM_BLOCK_RESERVED = 1024
+SMEM_OPT_IN_BYTES = SM_SMEM_BYTES - SMEM_BLOCK_RESERVED
+H100_SMS = 132  # SMs of the card the kernels are sized for
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
+# Macros for timing ablations only (profile_main_path.py item 12; all but
+# the last change results): NRT_ABLATE_FIXED_TREES (csrc/nuts_tree_ld.cuh),
+# NRT_ABLATE_SV_SCANS, NRT_ABLATE_SV_BARRIERS (csrc/models.cuh),
+# NRT_LD_ARGS_MIN_BLOCKS=n.  Empty in every other use; set before the first
+# library loads.
+NVCC_DEFINES = []
 
 BUILD_INFO = {"seconds": 0.0, "libraries": {}}
 _LIBS = {}
@@ -103,9 +119,11 @@ SOURCES = {
         "nrt_ld_warmup_launch": (_NUTS_WARM + [_P] * 18, _I)},
     "nuts_fused_ld_args_posterior": {
         "nrt_ld_args_posterior_launch": (_NUTS_POST + [_P] * 19, _I),
-        "nrt_ld_args_smem_bytes": ([_I, _I, _I, _I, _P], _LL)},
+        "nrt_ld_args_smem_bytes": ([_I, _I, _I, _I, _P], _LL),
+        "nrt_ld_args_posterior_blocks_per_sm": ([_I, _P, _LL], _I)},
     "nuts_fused_ld_args_warmup": {
-        "nrt_ld_args_warmup_launch": (_NUTS_WARM + [_P] * 20, _I)},
+        "nrt_ld_args_warmup_launch": (_NUTS_WARM + [_P] * 20, _I),
+        "nrt_ld_args_warmup_blocks_per_sm": ([_I, _P, _LL], _I)},
     "nuts_fused_mid_posterior": {
         "nrt_mid_posterior_launch": (_NUTS_POST + [_P] * 19, _I),
         "nrt_mid_smem_bytes": ([_I, _I, _I, _I, _P], _LL)},
@@ -118,7 +136,8 @@ SOURCES = {
         "nrt_mclmc_mid_warmup_launch": (_MCLMC_WARM + [_P] * 21, _I)},
     "nuts_fused_stream_posterior": {
         "nrt_stream_posterior_launch": (_NUTS_POST + [_P] * 21, _I),
-        "nrt_stream_smem_bytes": ([_I, _I, _I, _P], _LL)},
+        "nrt_stream_smem_bytes": ([_I, _I, _I, _P], _LL),
+        "nrt_stream_resident_blocks": ([_LL], _I)},
     "nuts_fused_flow_posterior": {
         "nrt_flow_posterior_launch": (
             _NUTS_POST + [_I, _I, _F, _F, _I] + [_P] * 20, _I),
@@ -144,6 +163,10 @@ def _sizes_header() -> str:
             f"#define NRT_FOR_EACH_DIM(X) {dims}\n")
 
 
+def _flags():
+    return NVCC_FLAGS + [f"-D{m}" for m in NVCC_DEFINES]
+
+
 def _library_path(stem: str) -> Path:
     """Where the library of ``csrc/<stem>.cu`` lies: named by a hash of that
     source, every header, the flags and the instantiated sizes."""
@@ -151,7 +174,7 @@ def _library_path(stem: str) -> Path:
     for p in [CSRC / f"{stem}.cu"] + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags()).encode())
     h.update(_sizes_header().encode())
     return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
@@ -176,7 +199,7 @@ def build(stems=None):
     for stem, so in missing:
         tmp = so.with_suffix(".tmp")
         procs.append((stem, so, tmp, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-I",
+            [_nvcc(), *_flags(), "-shared", "-I",
              str(BUILD_DIR), "-o", str(tmp), str(CSRC / f"{stem}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = None
@@ -478,27 +501,64 @@ STREAM_MAX_SUBTILE = 128
 STREAM_MAX_GROUP = 64
 
 
+def stream_block_smem_limit(B):
+    """Shared memory each of K1-stream's CUDA blocks may use: its logical
+    block of B chains is one cooperative grid, resident at once, so above
+    ``H100_SMS`` chains two blocks share an SM (115,712 bytes each; up to
+    ``H100_SMS`` chains a block's opt-in)."""
+    return SM_SMEM_BYTES // -(-B // H100_SMS) - SMEM_BLOCK_RESERVED
+
+
 def stream_tiling(d, B, maxdepth):
     """``(S, CG)`` of a K1-stream launch: the chain group CG, the largest of
     64, 32, 16, 8 whose gradient tiles (8 chains x 4 columns) the block's
     256 threads hold at once, ``CG / 8 * ceil(d / 4) <= 256``, and no larger
     than the block needs; the sub-tile S, the largest of 128, 64, ..., 4
-    rows with which a chain's shared memory fits a block."""
+    rows with which a chain's shared memory fits a block at the blocks an
+    SM that B chains need (:func:`stream_block_smem_limit`)."""
     CG = STREAM_MAX_GROUP
     while CG > 8 and (CG // 8 * -(-d // 4) > 32 * LD_WARPS or CG // 2 >= B):
         CG //= 2
     if CG // 8 * -(-d // 4) > 32 * LD_WARPS:
         raise NotImplementedError(
             f"the streamed kernel takes d up to {4 * 32 * LD_WARPS}, got {d}")
+    limit = stream_block_smem_limit(B)
     S = STREAM_MAX_SUBTILE
-    while S > 4 and stream_smem_bytes(d, maxdepth, S, CG) > SMEM_OPT_IN_BYTES:
+    while S > 4 and stream_smem_bytes(d, maxdepth, S, CG) > limit:
         S //= 2
-    if stream_smem_bytes(d, maxdepth, S, CG) > SMEM_OPT_IN_BYTES:
+    if stream_smem_bytes(d, maxdepth, S, CG) > limit:
         raise NotImplementedError(
             f"dim {d} needs {stream_smem_bytes(d, maxdepth, S, CG)} bytes of "
-            "shared memory per chain in the streamed kernel; a block has "
-            f"{SMEM_OPT_IN_BYTES}")
+            f"shared memory per chain in the streamed kernel; each of its "
+            f"blocks has {limit} at a logical block of {B} chains")
     return S, CG
+
+
+def stream_resident_blocks(d, B, maxdepth):
+    """How many of K1-stream's CUDA blocks the card holds at once at the
+    shared memory of a logical block of B chains
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times the SMs, from
+    the kernel's library)."""
+    S, CG = stream_tiling(d, B, maxdepth)
+    lib = library("nuts_fused_stream_posterior")
+    n = lib.nrt_stream_resident_blocks(stream_smem_bytes(d, maxdepth, S, CG))
+    if n < 0:
+        _raise_on(-n, lib, "nuts_fused_stream_posterior occupancy")
+    return n
+
+
+def check_stream_resident(d, B, maxdepth):
+    """Raise unless K1-stream's logical block of B chains can be resident at
+    once on this card: checked before a sampler's warmup, so that a block
+    the card cannot hold fails before the first posterior launch."""
+    n = stream_resident_blocks(d, B, maxdepth)
+    if n < B:
+        S, CG = stream_tiling(d, B, maxdepth)
+        raise RuntimeError(
+            f"the streamed kernel's logical block of {B} chains cannot be "
+            f"resident at once: the card holds {n} of its blocks at "
+            f"{stream_smem_bytes(d, maxdepth, S, CG)} bytes of shared memory "
+            f"each (d = {d}, maxdepth {maxdepth}, sub-tile {S})")
 
 
 def stream_smem_bytes(d, maxdepth, S, CG):
@@ -611,6 +671,24 @@ def _mid_common(kind, q, model, opts, B, family="mid"):
     work = torch.empty(C, 4, D + 1, d, dtype=torch.float32, device=q.device)
     return (C, d, D, model_id, params, c_ptrs, c_ints, work,
             library(f"nuts_fused_{family}_{kind}"))
+
+
+def ld_args_blocks_per_sm(kind, model, maxdepth):
+    """Chain blocks one SM holds of the ld_args kernel ``kind``
+    ("posterior" / "warmup") for ``model`` at its own d and shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    d = model.dim
+    tensors = model.hook_parts()[2]
+    ints, _ = model_data_args(model, d,
+                              tensors[0].device if tensors else "cpu")
+    c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
+    lib = library(f"nuts_fused_ld_args_{kind}")
+    n = getattr(lib, f"nrt_ld_args_{kind}_blocks_per_sm")(
+        MODEL_IDS[model.hook_parts()[0]], ctypes.cast(c_ints, ctypes.c_void_p),
+        mid_smem_bytes(kind, d, maxdepth, model))
+    if n < 0:
+        _raise_on(-n, lib, f"nuts_fused_ld_args_{kind} occupancy")
+    return n
 
 
 def count_model(model, stream=False):

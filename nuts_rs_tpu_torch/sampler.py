@@ -22,7 +22,9 @@ bytes the rule counts) and in the dim-on-lanes layout above
 whose data only stream (``chain.fused_layout``), the good-draw window mode
 and the step-size methods other than dual averaging take the per-draw sync
 warmup before the fused posterior; a tree option the fused kernels lack
-demotes the run to the sync engine with the JAX package's ``UserWarning``.
+demotes the run to the sync engine with the JAX package's ``UserWarning``,
+and so does a model that no fused posterior tier takes (the JAX posterior
+runner is None: ``chain.fused_layout``).
 A learned flow (``mass_matrix="flow"``, ``FlowNutsSettings``) warms up on the
 sync engine with its refits (``adapt/flow.py``) and, with ``"pallas"``,
 draws the posterior on kernel K1-flow with the frozen pooled flow; a flow
@@ -71,6 +73,7 @@ from .chain import (
     make_fused_posterior_runner,
     make_fused_warmup_runner,
     make_sync_runner,
+    stream_block,
 )
 from .dynamics.hamiltonian import KineticKind
 from .kernels import _build, nuts_fused
@@ -221,9 +224,11 @@ class NutsSettings:
         step-size re-init draw so that the init search runs at a launch
         boundary (adapt_strategy.rs:207-212), or after the per-draw sync
         warmup where the settings or the model's data rule the fused warmup
-        out.  A flow run is the sync warmup with its refits, then the K1-flow
-        posterior (``nuts_rs_tpu/sampler.py:252-281``), or the sync engine
-        throughout where the runner declines the flow.  Raises
+        out; the sync engine throughout, with the JAX package's
+        ``UserWarning``, where no fused posterior tier takes the model
+        (``:240-251``).  A flow run is the sync warmup with its refits, then
+        the K1-flow posterior (``nuts_rs_tpu/sampler.py:252-281``), or the
+        sync engine throughout where the runner declines the flow.  Raises
         ``NotImplementedError`` for what :meth:`unsupported` lists."""
         _refuse(self.unsupported(model, device))
         total = self.num_tune + self.num_draws
@@ -240,15 +245,24 @@ class NutsSettings:
         if self.mass_matrix == "flow":
             post = make_flow_posterior_runner(model, strategy, config,
                                               self.num_tune, self.seed)
-            if post is None:
-                warnings.warn(
-                    "posterior_kernel='pallas' requested but no fused-"
-                    "engine tier fits this model (VMEM budget or missing "
-                    "pallas hooks) — using the sync engine", UserWarning)
-                return [(0, total, sync)]
+        else:
+            post = make_fused_posterior_runner(model, config, self.num_tune,
+                                               self.seed, device)
+        if post is None:
+            warnings.warn(
+                "posterior_kernel='pallas' requested but no fused-engine "
+                "tier fits this model (VMEM budget or missing pallas hooks) "
+                "— using the sync engine", UserWarning)
+            return [(0, total, sync)]
+        if self.mass_matrix == "flow":
             return [(0, self.num_tune, sync), (self.num_tune, total, post)]
-        post = make_fused_posterior_runner(model, config, self.num_tune,
-                                           self.seed, device)
+        if (device is not None and torch.device(device).type == "cuda"
+                and fused_layout(model, config, False, device) == "stream"):
+            # K1-stream's logical block must be resident at once: checked
+            # here, before the warmup, not at the first posterior launch
+            _build.check_stream_resident(
+                model.dim, stream_block(model, self.maxdepth,
+                                        self.num_chains), self.maxdepth)
         warm = (make_fused_warmup_runner(model, config, self.seed, device)
                 if self._fused_warmup() else None)
         if warm is None:

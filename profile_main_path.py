@@ -77,6 +77,21 @@ After building the kernels it prints, for each path,
    process of its own for each checkout given, built from that checkout:
    an earlier commit unpacked beside this one (``git archive``) is timed
    the same way in the same call (parent, this, this, parent).
+12. ``--sv-launch TREE [TREE ...]``: on the SV path (T = 1000, 512 chains),
+   K1-ld-args' first 128-draw posterior launch on the path's own
+   post-warmup states and K2-ld-args' first full 128-row warmup launch on
+   the path's own warmup states, in a process of its own for each checkout
+   given, with their leapfrogs, block iterations, bounds and the SV
+   instantiation's ptxas line, the launches' inputs saved; then each
+   checkout in the order given (parent, this, this, parent) on every saved
+   set, so that two checkouts are timed on the same states; then, in this
+   checkout, the ablation of K1-ld-args on its saved posterior states with
+   every tree forced to maxdepth 7 (the same 127 leapfrogs a draw for any
+   model): one chain block an SM and two, each as it is, without SV's two
+   scans and their barriers, and without its three barriers alone, and
+   K1-ld on the iid normal at d = 1002 from the same states; in
+   microseconds of an SM and of one chain a leapfrog, with the blocks an
+   SM of each.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -757,6 +772,197 @@ def stream_launch(trees):
         print(f"{tree}: {out.stdout.strip().splitlines()[-1]}")
 
 
+# Item 12: K1-ld-args' 128-draw launch on the SV path's own post-warmup
+# states and K2-ld-args' first full 128-row launch on the path's own warmup
+# states, in the tree given (its own package and chip_smoke); run in a
+# process of its own: the path's Sampler runs until its first posterior
+# launch, the two launches it made are repeated here, and their inputs are
+# saved to the file given (SV_TIME repeats them in another tree).
+SV_LAUNCH = """
+import re, sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DiagNutsSettings, Sampler
+from nuts_rs_tpu_torch.kernels import _build, nuts_fused as nf
+from nuts_rs_tpu_torch.models.stochastic_volatility import (
+    stochastic_volatility)
+dev = torch.device("cuda", 0)
+settings = DiagNutsSettings(num_chains=cs.SV_CHAINS, num_tune=cs.SV_TUNE,
+                            num_draws=cs.SV_DRAWS, seed=cs.SEED,
+                            posterior_kernel="pallas")
+seen = {}
+run0, warm0 = nf.nuts_fused_run, nf.nuts_fused_warmup_run
+def run(*a, **k):
+    seen.setdefault("post", (a, k))
+    return run0(*a, **k)
+def warm(*a, **k):
+    if a[1].shape[0] == cs.CHUNK:
+        seen.setdefault("warm", (a, k))
+    return warm0(*a, **k)
+nf.nuts_fused_run, nf.nuts_fused_warmup_run = run, warm
+sampler = Sampler(stochastic_volatility(T=cs.SV_T, seed=cs.SEED), settings,
+                  device=dev)
+while "post" not in seen:
+    sampler.run_next_chunk()
+nf.nuts_fused_run, nf.nuts_fused_warmup_run = run0, warm0
+p, w = seen["post"][0], seen["warm"][0]
+torch.save({"post": p[:9], "K": p[9], "jitter": p[12], "warm": w[:9],
+            "grad": w[12]}, sys.argv[1])
+for name, fn, key, at in (("K1-ld-args", run0, "post", 4),
+                          ("K2-ld-args", warm0, "warm", 8)):
+    a, k = seen[key]
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(lambda: fn(*a, **k), 3)
+    st = out[at]
+    b_ms, b_by = cs.bound("nuts", sampler.model, a[1:9], out, st)
+    it = st["loop_iterations"].float()
+    print(f"{name} own states: {ms:.4f} ms per launch of "
+          f"{tuple(st['n_steps'].shape)} (chains, draws); leapfrogs "
+          f"{int(st['n_steps'].sum())}, per draw "
+          f"{float(st['n_steps'].float().mean()):.2f}; block iterations "
+          f"mean {float(it.mean()):.1f} max {int(it.max())}; bound "
+          f"{b_ms:.4f} ms ({b_by})")
+log = (_build.BUILD_DIR / "build_nuts_fused_ld_args_posterior.log")
+text = log.read_text() if log.exists() else ""
+for entry in text.split("Compiling entry function")[1:]:
+    if "StochasticVolatility" in entry.split("\\n")[0]:
+        nums = [re.findall(p, entry) for p in (
+            r"Used (\\d+) registers", r"(\\d+) bytes stack frame",
+            r"(\\d+) bytes spill stores", r"(\\d+) bytes spill loads")]
+        print("ptxas K1-ld-args (SV): registers {} stack {} spill stores {} "
+              "spill loads {}".format(*(n[0] if n else "?" for n in nums)))
+"""
+
+# Item 12's comparison on common inputs: this tree's K1-ld-args and
+# K2-ld-args on the launches SV_LAUNCH saved (each tree's own path), so
+# that two trees are timed on the same states.
+SV_TIME = """
+import sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DiagNutsSettings
+from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+from nuts_rs_tpu_torch.models.stochastic_volatility import (
+    stochastic_volatility)
+dev = torch.device("cuda", 0)
+config = DiagNutsSettings(num_chains=cs.SV_CHAINS, seed=cs.SEED,
+                          posterior_kernel="pallas").chain_config()
+model = stochastic_volatility(T=cs.SV_T, seed=cs.SEED).to(dev)
+for path in sys.argv[1:]:
+    s = torch.load(path)
+    runs = (("K1-ld-args", lambda: nf.nuts_fused_run(
+                *s["post"], s["K"], model, config.nuts, s["jitter"],
+                layout="ld"), 4),
+            ("K2-ld-args", lambda: nf.nuts_fused_warmup_run(
+                *s["warm"], model, config.nuts, config.step_size, s["grad"],
+                layout="ld"), 8))
+    for name, fn, at in runs:
+        out = fn()
+        torch.cuda.synchronize()
+        ms = cs.cuda_events_ms(fn, 3)
+        it = out[at]["loop_iterations"]
+        print(f"{name} on {path.rsplit('/', 1)[-1]}: {ms:.4f} ms; "
+              f"leapfrogs {int(out[at]['n_steps'].sum())}, block "
+              f"iterations max {int(it.max())}")
+"""
+
+# Item 12's ablation, in this tree only: K1-ld-args on the saved own states
+# with every tree forced to maxdepth 7 (127 leapfrogs a draw whatever the
+# model, NRT_ABLATE_FIXED_TREES), built with the macros given: one chain
+# block an SM (NRT_LD_ARGS_MIN_BLOCKS=1, the design before this one) and
+# two, each as it is, without SV's two scans and their barriers
+# (NRT_ABLATE_SV_SCANS: the prefixes 0.0; the functor's values change) and
+# with the scans but without SV's three barriers (NRT_ABLATE_SV_BARRIERS:
+# the warps read whatever the totals hold, its sums are its warps'); beside
+# the first, K1-ld on the iid normal at d = 1002 from the same points,
+# steps and mass matrices.
+SV_ABLATE = """
+import sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch.kernels import _build, nuts_fused as nf
+from nuts_rs_tpu_torch.kernels.nuts import NutsOptions
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+from nuts_rs_tpu_torch.models.stochastic_volatility import (
+    stochastic_volatility)
+_build.NVCC_DEFINES[:] = sys.argv[2:]
+dev = torch.device("cuda", 0)
+saved = torch.load(sys.argv[1])
+args, jitter = saved["post"], saved["jitter"]
+K, D = 32, 7
+opts = NutsOptions(maxdepth=D)
+sv = stochastic_volatility(T=cs.SV_T, seed=cs.SEED).to(dev)
+label = " ".join(m.removeprefix("NRT_") for m in sys.argv[2:])
+one_block = "NRT_LD_ARGS_MIN_BLOCKS=1" in sys.argv
+cases = [("K1-ld-args SV", sv, args, "ld_args")]
+if one_block and not any(m.startswith("NRT_ABLATE_SV") for m in sys.argv):
+    iid = normal_logp(sv.dim, 0.0)
+    q = args[1]
+    logp, g = iid.logp_and_grad(q)
+    cases.append(("K1-ld iid normal", iid,
+                  (args[0], q, g.contiguous(), logp.contiguous())
+                  + tuple(args[4:9]), "ld"))
+for name, model, a, kind in cases:
+    def fn():
+        return nf.nuts_fused_run(*a, K, model, opts, jitter, block=1,
+                                 layout="ld")
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(fn, 3)
+    leaps = int(out[4]["n_steps"].sum())
+    per_sm = (_build.ld_args_blocks_per_sm("posterior", model, D)
+              if kind == "ld_args" else 1)
+    us = 1e3 * ms * torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"ablation [{label}] {name}: {ms:.4f} ms, {leaps} leapfrogs "
+          f"({leaps / (a[1].shape[0] * K):.1f} a draw), {per_sm} blocks an "
+          f"SM; {us / leaps:.4f} us of an SM a leapfrog, "
+          f"{per_sm * us / leaps:.4f} us a leapfrog of one chain")
+"""
+
+SV_ABLATIONS = tuple(
+    ("NRT_ABLATE_FIXED_TREES", *blocks, *skip)
+    for blocks in (("NRT_LD_ARGS_MIN_BLOCKS=1",), ())
+    for skip in ((), ("NRT_ABLATE_SV_SCANS",), ("NRT_ABLATE_SV_BARRIERS",)))
+
+
+def sv_launch(trees):
+    """Item 12: each distinct tree's own SV path, its launches saved; then
+    every tree in the order given (e.g. parent, this one, this one, parent)
+    timed on every saved set of launches; then the ablation in this tree."""
+    from pathlib import Path
+
+    from nuts_rs_tpu_torch.kernels import _build
+
+    here = Path(__file__).resolve().parent
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    saved = {}
+    for tree in trees:
+        key = Path(tree).resolve()
+        if key in saved:
+            continue
+        saved[key] = str(_build.BUILD_DIR / f"sv_states_{len(saved)}.pt")
+        out = subprocess.run([sys.executable, "-c", SV_LAUNCH, saved[key]],
+                             cwd=tree, capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+        for line in out.stdout.strip().splitlines():
+            print(f"{tree}: {line} [saved as {saved[key]}]")
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", SV_TIME,
+                              *saved.values()], cwd=tree,
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+        for line in out.stdout.strip().splitlines():
+            print(f"{tree}: {line}")
+    states = saved.get(here) or next(iter(saved.values()))
+    for defines in SV_ABLATIONS:
+        out = subprocess.run([sys.executable, "-c", SV_ABLATE, states,
+                              *defines], cwd=here, capture_output=True,
+                             text=True)
+        if out.returncode:
+            raise RuntimeError(f"ablation {defines}: {out.stderr[-3000:]}")
+        print(out.stdout.strip())
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
@@ -780,6 +986,9 @@ def main() -> int:
                         "they come")
     parser.add_argument("--stream-launch", nargs="+", metavar="TREE",
                         help="item 11 alone, for each checkout in turn")
+    parser.add_argument("--sv-launch", nargs="+", metavar="TREE",
+                        help="item 12 alone, for each checkout in turn, "
+                             "then its ablation in this one")
     args = parser.parse_args()
     only = ("large-d" if args.only_large_d else "data" if args.only_data
             else "mclmc-data" if args.only_mclmc_data else None)
@@ -797,6 +1006,10 @@ def main() -> int:
     print(card_line())
     if args.stream_launch:
         stream_launch(args.stream_launch)
+        print(card_line())
+        return 0
+    if args.sv_launch:
+        sv_launch(args.sv_launch)
         print(card_line())
         return 0
     if args.only_stream:

@@ -442,7 +442,9 @@ def test_normal_100_runs_mclmc_end_to_end_on_the_card():
 @pytest.mark.parametrize("rows,dim,tile,C,block,ranges,maxdepth", [
     (36, 4, 8, 16, None, None, 6), (1001, 11, 64, 16, 4, 3, 6),
     (5000, 37, 512, 16, 8, None, 8), (300, 5, 512, 16, None, None, 5),
-    (5000, 37, 512, 256, None, 7, 8), (2000, 20, 128, 512, None, None, 6)])
+    (5000, 37, 512, 256, None, 7, 8), (2000, 20, 128, 512, None, None, 6),
+    (2000, 130, 512, 256, None, None, 5),
+    (2000, 125, 512, 256, None, None, 5)])
 def test_stream_kernel_matches_plain_version_on_the_card(rows, dim, tile, C,
                                                          block, ranges,
                                                          maxdepth):
@@ -451,7 +453,10 @@ def test_stream_kernel_matches_plain_version_on_the_card(rows, dim, tile, C,
     8), one tile larger than the data, ranges that do not divide the tiles
     (3 of 16, 7 of 10), 16 chains in one logical block (the JAX runner's
     pick) or in blocks of 4 and 8, 256 chains in one block and 512 in two
-    (the JAX runner's 256: two CUDA blocks an SM)."""
+    (the JAX runner's 256: two CUDA blocks an SM), and 256 chains in one
+    block at maxdepth 5 and d = 130 and 125, where the sub-tile is sized for
+    two blocks an SM (at d = 125 the rule of one block's opt-in gave 117,316
+    bytes a block, and the launch was refused)."""
     import dataclasses
 
     if not torch.cuda.is_available():
@@ -517,6 +522,33 @@ def test_stream_kernel_refuses_a_block_that_cannot_be_resident():
         nf.nuts_fused_run(3, *args, 8, model, NutsOptions(maxdepth=6), 0.1,
                           block=C, stream=True)
     torch.cuda.synchronize()
+    assert nf.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_stream_residency_is_checked_before_the_warmup(monkeypatch):
+    """The card holds a logical block of 256 chains at d = 125, maxdepth 5;
+    a block it cannot hold (1024 chains forced as the JAX runner's pick) is
+    refused when the Sampler is built, naming the numbers, before any
+    warmup draw (NotImplementedError is a RuntimeError)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    import nuts_rs_tpu_torch as tnt
+    from nuts_rs_tpu_torch import sampler as tsampler
+    from nuts_rs_tpu_torch.kernels import _build
+
+    assert _build.stream_resident_blocks(125, 256, 5) >= 256
+    _build.check_stream_resident(125, 256, 5)
+    model = tg.logistic_regression(131072, 125, 3)
+    settings = tnt.DiagNutsSettings(posterior_kernel="pallas", maxdepth=5,
+                                    num_chains=1024, num_tune=4,
+                                    num_draws=4)
+    monkeypatch.setattr(tsampler, "stream_block", lambda *a: 1024)
+    before = dict(nf.LAUNCHES)
+    # (the sub-tile rule refuses it first: eight blocks an SM leave each
+    # 28,160 bytes)
+    with pytest.raises(RuntimeError, match="logical block of 1024 chains"):
+        tnt.Sampler(model, settings, device="cuda")
     assert nf.LAUNCHES == before
 
 
@@ -721,6 +753,75 @@ def test_model_functors_match_plain_versions_on_the_card(name):
     for which in ("posterior", "warmup"):
         key = f"mclmc_fused_mid_{which}"
         assert mf.LAUNCHES[key] == mbefore[key] + 1, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [300, 264])
+def test_sv_ld_args_kernels_match_plain_versions_at_t1000(C):
+    """K1-ld-args and K2-ld-args on stochastic volatility at T = 1000
+    (d = 1002, the SV path's model, the functor's fused form) with two
+    chain blocks an SM resident (264 chains at once), at 300 chains (not a
+    multiple of 264: a second, partial round) and at 264, against their
+    plain versions: every integer stat equal and every float bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.models import stochastic_volatility as ts
+
+    dev = torch.device("cuda", 0)
+    model = ts.stochastic_volatility(T=1000, seed=0).to(dev)
+    opts = NutsOptions(maxdepth=10)
+    for kind in ("posterior", "warmup"):
+        assert _build.ld_args_blocks_per_sm(kind, model, 10) == 2, kind
+    rng = np.random.default_rng(C)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    centre = np.r_[np.log(0.1), np.log(8.0), np.zeros(1000)]
+    sd = np.r_[0.2, 0.4, np.full(1000, 0.8)]
+    q = f(centre + sd * rng.normal(size=(C, 1002)))
+    logp, g = model.logp_and_grad(q)
+    stds = f(sd * rng.uniform(0.7, 1.3, size=(C, 1002)))
+    mean = q.mean(0, keepdim=True).expand_as(q).contiguous()
+    logdet = -torch.log(stds).sum(1)
+    step = f(rng.uniform(0.04, 0.06, size=C))
+    args = (q, g, logp, stds, mean, logdet, step, step.clone())
+    before = dict(nf.LAUNCHES)
+    got = nf.nuts_fused_run(3, *args, 4, model, opts, 0.1, layout="ld")
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_run_reference(3, *args, 4, model, opts, 0.1,
+                                       layout="ld")
+    for stat in INT_STATS:
+        np.testing.assert_array_equal(got[4][stat].cpu().numpy(),
+                                      want[4][stat].cpu().numpy(), stat)
+    for i in range(4):
+        np.testing.assert_array_equal(got[i].cpu().numpy(),
+                                      want[i].cpu().numpy(), str(i))
+    for stat in nf.STAT_NAMES:
+        np.testing.assert_array_equal(got[4][stat].cpu().numpy(),
+                                      want[4][stat].cpu().numpy(), stat)
+
+    flags = torch.ones(3, nf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, nf.FLAG_DO_SWITCH] = 0
+    flags[1, nf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, 1002, device=dev)
+    sca = torch.zeros(C, nf.NSCA, device=dev)
+    sca[:, nf.SCA_STEP] = step
+    sca[:, nf.SCA_DA_CNT] = 1.0
+    sca[:, nf.SCA_DA_MU] = float(np.log(0.5))
+    sca[:, nf.SCA_LOGDET] = logdet
+    wargs = (flags, q, g, logp, stds, mean, est, sca, model, opts,
+             StepSizeSettings(), True)
+    got = nf.nuts_fused_warmup_run(5, *wargs, layout="ld")
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_warmup_run_reference(5, *wargs, layout="ld")
+    for stat in INT_STATS + ("transformation_index",):
+        np.testing.assert_array_equal(got[8][stat].cpu().numpy(),
+                                      want[8][stat].cpu().numpy(), stat)
+    for i in range(8):
+        np.testing.assert_array_equal(got[i].cpu().numpy(),
+                                      want[i].cpu().numpy(), str(i))
+    for which in ("posterior", "warmup"):
+        key = f"nuts_fused_ld_args_{which}"
+        assert nf.LAUNCHES[key] == before[key] + 1, key
 
 
 def _perturbed_packed_flow(d, layers, hidden, scale, seed, dev):

@@ -55,12 +55,16 @@ CASES = {
            lambda: tsv.stochastic_volatility(T=14, seed=0), 0.0, 0.5),
     "sv_long": (lambda: jsv.stochastic_volatility(T=600, seed=2),
                 lambda: tsv.stochastic_volatility(T=600, seed=2), 0.0, 0.3),
+    # runs of R = 2 innovations a thread (T = 300, d = 302: the size the
+    # card tests run on the dim-on-lanes kernels with data)
+    "sv_300": (lambda: jsv.stochastic_volatility(T=300, seed=4),
+               lambda: tsv.stochastic_volatility(T=300, seed=4), 0.0, 0.3),
     # the sampler's own starts far out in log sigma at T = 1000 (_points)
     "sv_far": (lambda: jsv.stochastic_volatility(T=1000, seed=0),
                lambda: tsv.stochastic_volatility(T=1000, seed=0), None, None),
 }
 FUNCTOR_CASES = ("rank1", "correlated_normal", "funnel", "radon",
-                 "radon_ragged", "sv", "sv_long", "sv_far")
+                 "radon_ragged", "sv", "sv_long", "sv_300", "sv_far")
 
 
 def _ragged_radon():
@@ -93,7 +97,7 @@ def _f64_hook(name, tm):
     the float64 comparisons (the hook tensors are float32)."""
     _, floats, tensors = tm.hook_parts()
     if name.startswith("sv"):
-        T, seed = {"sv": (14, 0), "sv_long": (600, 2),
+        T, seed = {"sv": (14, 0), "sv_long": (600, 2), "sv_300": (300, 4),
                    "sv_far": (1000, 0)}[name]
         return floats, (torch.as_tensor(tsv.generate_returns(T, seed=seed)),)
     if name == "radon":

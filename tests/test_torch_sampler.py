@@ -180,7 +180,6 @@ def _no_hook(dim):
     ("no_hook", "item 9"),
     ("cuda_maxdepth", "item 12"),
     ("cuda_ld_dim", "item 12"),
-    ("data_beyond_ld", "item 12"),
     ("cuda_ld_data_smem", "item 12"),
 ])
 def test_unsupported_settings_raise(change, item):
@@ -197,10 +196,6 @@ def test_unsupported_settings_raise(change, item):
         # the kernels that take maxdepth at launch take at most 30
         kw.update(maxdepth=_build.LD_MAX_MAXDEPTH + 1)
         device = "cuda"
-    elif change == "data_beyond_ld":
-        # SV at T = 3500 fails the JAX runners' dim-on-lanes tier too: no
-        # fused posterior in either package
-        model = tsv.stochastic_volatility(T=3500)
     elif change == "cuda_ld_data_smem":
         # SV at T = 2650 fits the JAX tier, but its chain state and the
         # functor's scratch do not fit one block's shared memory
@@ -209,6 +204,58 @@ def test_unsupported_settings_raise(change, item):
         kw.update(change)
     with pytest.raises(NotImplementedError, match=item):
         tnt.Sampler(model, tnt.DiagNutsSettings(**kw), device=device)
+
+
+@pytest.mark.parametrize("case", ["sv_3500", "normal_3100"])
+def test_no_fused_tier_demotes_to_the_sync_engine(case):
+    """A model that no fused posterior tier of the JAX runners takes (SV at
+    T = 3500 beyond the dim-on-lanes tier with its data, N(0, 1) at
+    d = 3100 beyond it without data) runs the whole run on the sync engine
+    with the JAX package's ``UserWarning``
+    (``nuts_rs_tpu/sampler.py:240-251``), on either device; it used to
+    raise naming item 12 (the ``data_beyond_ld`` case of
+    ``test_unsupported_settings_raise``)."""
+    model = (tsv.stochastic_volatility(T=3500) if case == "sv_3500"
+             else tg.normal_logp(3100))
+    settings = tnt.DiagNutsSettings(posterior_kernel="pallas", num_chains=4,
+                                    num_tune=5, num_draws=5)
+    config = settings.chain_config()
+    assert tchain.fused_layout(model, config, False) is None
+    assert tchain.fused_layout(model, config, True) is None
+    assert settings.unsupported(model, "cuda") == []
+    with pytest.warns(UserWarning, match="no fused-engine tier fits this "
+                      "model"):
+        sampler = tnt.Sampler(model, settings, device="cpu")
+    (lo, hi, runner), = sampler._phase_runners
+    assert (lo, hi) == (0, 10)
+    assert runner.__qualname__.startswith("make_sync_runner")
+
+
+@pytest.mark.parametrize("dim,warmup,fits", [
+    (2688, True, True), (2689, True, False), (3072, False, True),
+    (3073, False, False)])
+def test_ld_tier_without_data_is_the_jax_runners(dim, warmup, fits):
+    """The dim-on-lanes tier ends where the JAX runners' does for a model
+    without data too (``nuts_rs_tpu/chain.py:773-790``, ``:1017-1030``): the
+    warmup's above d = 2688 (the sync warmup, then the fused posterior), the
+    posterior's above d = 3072 (the sync engine throughout)."""
+    import nuts_rs_tpu.chain as jchain
+
+    js = jnt.DiagNutsSettings(num_chains=8, num_tune=20, num_draws=10,
+                              posterior_kernel="pallas")
+    jcfg = js.chain_config()
+    jm = jg.normal_logp(dim, 3.0)
+    if warmup:
+        jr = jchain.make_pallas_warmup_runner(
+            jm, _strategy_for(js, jcfg), jcfg, base_seed=0,
+            use_grad_based=True)
+    else:
+        jr = jchain.make_pallas_posterior_runner(
+            jm, _strategy_for(js, jcfg), jcfg, phase_start=20, base_seed=0)
+    assert (jr is not None) == fits
+    config = tnt.DiagNutsSettings(posterior_kernel="pallas").chain_config()
+    got = tchain.fused_layout(tg.normal_logp(dim, 3.0), config, warmup)
+    assert got == ("ld" if fits else None)
 
 
 @pytest.mark.parametrize("change,demoted", [

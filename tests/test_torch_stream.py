@@ -402,6 +402,46 @@ def test_stream_shared_memory_does_not_grow_with_the_rows():
     assert _build.MODEL_IDS["logistic_regression_stream"] == 2
 
 
+@pytest.mark.parametrize("maxdepth", range(1, 11))
+def test_stream_tiling_fits_two_blocks_an_sm(maxdepth):
+    """A logical block of 256 chains is two CUDA blocks an SM, so each may
+    use at most (233,472 - 2 x 1,024) / 2 = 115,712 bytes of shared memory.
+    For ``logistic_regression(131072, d)`` at 256 chains, at every d whose
+    JAX block is 256 (the runner's rule, ``chain.stream_block``), the
+    sub-tile is chosen against that, not against one block's opt-in; the
+    opt-in rule exceeded it at 78 (maxdepth, d) pairs, d within 123..182 at
+    maxdepth 1 down to 123..126 at 6 (each refused at its first posterior
+    launch on the card), and fits them all at S = 64.  Up to 132 chains a
+    block keeps the opt-in."""
+    from types import SimpleNamespace
+
+    assert _build.stream_block_smem_limit(256) == 115712
+    assert _build.stream_block_smem_limit(132) == _build.SMEM_OPT_IN_BYTES
+    assert _build.stream_block_smem_limit(133) == 115712
+    opt_in_pairs = 0
+    for d in range(100, 200):
+        big = SimpleNamespace(dim=d, stream_tile_rows=512, name=f"glm_{d}")
+        try:
+            B = tchain.stream_block(big, maxdepth, 256)
+        except ValueError:
+            continue
+        if B != 256:
+            continue
+        S, CG = _build.stream_tiling(d, B, maxdepth)
+        assert _build.stream_smem_bytes(d, maxdepth, S, CG) <= 115712, d
+        # the old rule: the largest S that fits one block's opt-in
+        S_old = _build.STREAM_MAX_SUBTILE
+        while S_old > 4 and _build.stream_smem_bytes(
+                d, maxdepth, S_old, CG) > _build.SMEM_OPT_IN_BYTES:
+            S_old //= 2
+        if _build.stream_smem_bytes(d, maxdepth, S_old, CG) > 115712:
+            opt_in_pairs += 1
+            assert 123 <= d <= 182 and S == 64
+    # 78 in all: 36 d at maxdepth 1, 20 at 2, 6 at 3-5, 4 at 6
+    want = {1: 36, 2: 20, 3: 6, 4: 6, 5: 6, 6: 4}.get(maxdepth, 0)
+    assert opt_in_pairs == want
+
+
 @pytest.mark.parametrize("chains", [256, 64, 320])
 def test_stream_block_is_the_jax_runners_pick(monkeypatch, chains):
     """``logistic_regression(131072, 100)``: the JAX posterior runner passes
