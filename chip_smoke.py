@@ -83,8 +83,7 @@ its standard errors, a refit kept, exactly 4 launches of K1-flow and none
 of another fused kernel.  K1-flow is checked bit for bit on the path's
 own states (64 chains, 8 draws) and timed at 256 chains on the path's own
 and on made-up states, beside the flow's forward and vector-Jacobian
-product by batched PyTorch calls and the flow passes' own share of a block
-iteration (the same trees on one wave with and without them).  The model
+product by batched PyTorch calls.  The model
 functors
 (``csrc/models.cuh``) are rows of the kernel line of their own, checked in
 the kernels that evaluate them: SV's in K1-ld-args and K2-ld-args at the
@@ -103,15 +102,18 @@ K2-args is checked on 2 schedule rows (7..8, with the window switch), not
 from a post-warmup-like state, not the initial one; the streamed-data path
 runs a third of its warmup and two of its four posterior launches, and
 K1-stream's 128-draw launch is timed once; the zoo's checks run 64 chains,
-8 draws and two warmup rows, and its functors are timed in the posterior
-kernel alone.
+8 draws and two warmup rows, and the zoo path's three functors are timed
+in the posterior kernel alone.
 
 Each kernel is timed (CUDA events) beside its plain version on the check's
 inputs (``ms``, ``plain_ms``, with the bound ``bound_ms`` of that work), and
 alone at its path's 128-draw launch (``chunk_ms``, ``chunk_bound_ms``;
-K1-flow's, K1-stream's, K1-ld-args' and K2-ld-args' on the path's own
-states, with ``chunk_ms_made_up`` beside; K2-ld-args' own launch is the
-SV path's first full chunk of 128 warmup draws).  The
+K1-flow's, K1-stream's, K1-ld-args', K2-ld-args', K1-args' and K2-args'
+(and radon's row, K1-args on the radon path) on the path's own states,
+with ``chunk_ms_made_up`` beside: a posterior kernel's own launch is its
+path's first posterior launch, a warmup kernel's the path's first full
+chunk of 128 warmup draws; the mid-d kernels' chains a CUDA block, G, and
+blocks an SM are printed with them).  The
 bound is the larger of the bytes the call must move (every input read once,
 every output written once) over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, the card's published peaks; operations are counted from the
@@ -132,6 +134,7 @@ without a CUDA card it exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -214,8 +217,6 @@ FLOW_REFERENCE = GLM_REFERENCE.with_name("flow_funnel_reference.json")
 # deviations of those runs (a run here is one more such run; the average
 # of R has s / sqrt(R) of error)
 FLOW_MEAN_TOL, FLOW_STD_TOL, FLOW_SPREAD_FACTOR = 0.1, 0.1, 3.0
-# the flow's share of K1-flow's block iteration is timed on one wave
-FLOW_ABLATION_CHAINS = 128
 # the zoo's kernel checks: short launches, two warmup rows (7 and 8, with the
 # window switch of row 8), to keep the script's time
 ZOO_CHECK_CHAINS, ZOO_CHECK_ROWS = 64, (7, 9)
@@ -606,6 +607,63 @@ def time_kernels(model, settings, device, layout="cl", chains=CHAINS,
         print(f"time {name}: {ms:.4f} ms per {CHUNK}-draw launch at "
               f"C={chains} d={model.dim}; bound {b_ms:.5f} ms ({b_by})")
     return times
+
+
+@contextlib.contextmanager
+def first_launches(seen):
+    """Keep a path's first posterior launch and its first full warmup launch
+    of CHUNK rows in ``seen`` ("post", "warm": the function and its
+    arguments), to be timed again on the path's own states."""
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    run0, warm0 = nf.nuts_fused_run, nf.nuts_fused_warmup_run
+
+    def run(*a, **k):
+        seen.setdefault("post", (run0, a, k))
+        return run0(*a, **k)
+
+    def warm(*a, **k):
+        if a[1].shape[0] == CHUNK:
+            seen.setdefault("warm", (warm0, a, k))
+        return warm0(*a, **k)
+
+    nf.nuts_fused_run, nf.nuts_fused_warmup_run = run, warm
+    try:
+        yield seen
+    finally:
+        nf.nuts_fused_run, nf.nuts_fused_warmup_run = run0, warm0
+
+
+def time_own_launches(model, seen, names, made, what):
+    """The kept launches (``first_launches``) timed again on the path's own
+    states, for the posterior and the warmup kernel ``names``, printed
+    beside ``made`` (time_kernels' times on made-up states) with the mid-d
+    kernels' chains a CUDA block or the ld_args kernels' blocks an SM;
+    returns {name: (ms, bound_ms, bound_by)}."""
+    from nuts_rs_tpu_torch.kernels import _build
+
+    own = {}
+    for key, name, at in (("post", names[0], 4), ("warm", names[1], 8)):
+        fn, a, k = seen[key]
+        own[name] = ms, b_ms, b_by = chunk_time(
+            "nuts", model, lambda fn=fn, a=a, k=k: fn(*a, **k), a[1:9], at)
+        kind = name.rsplit("_", 1)[-1]
+        D = a[11 if key == "post" else 10].maxdepth
+        chains = a[1 if key == "post" else 2].shape[0]
+        if "_mid_" in name:
+            G = _build.mid_launch_group(kind, model.dim, D, model, chains, 1,
+                                        _build.sm_count(a[1].device))
+            where = (f"G = {G} chains a CUDA block, "
+                     f"{_build.mid_blocks_per_sm(kind, model, D, G)} blocks "
+                     "an SM")
+        else:
+            where = (f"{_build.ld_args_blocks_per_sm(kind, model, D)} chain "
+                     "blocks an SM")
+        print(f"time {name} ({what}) on the path's own states: {ms:.4f} ms "
+              f"per {CHUNK}-draw launch at C={chains} d={model.dim} ({where}"
+              f"; made-up states {made[name][0]:.4f} ms); bound {b_ms:.5f} "
+              f"ms ({b_by})")
+    return own
 
 
 # ---------------------------------------------------------------------------
@@ -1114,11 +1172,16 @@ def path_data(device, checks, launches, times):
                     block=8)
     check_warmup(mid_model, mid_settings, device, chains=MID_CHAINS,
                  name="mid-d K2 B=8", block=8, rows=CHECK_K2_SHORT_ROWS)
-    launches.update(glm_main_path(glm, glm_settings, device, ref_mean,
-                                  ref_std)[0])
-    times.update(time_kernels(
+    names = ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup")
+    with first_launches({}) as seen:
+        launches.update(glm_main_path(glm, glm_settings, device, ref_mean,
+                                      ref_std)[0])
+    made = time_kernels(
         glm, glm_settings, device, chains=GLM_CHAINS,
-        k1=glm_posterior_inputs(glm, device, ref_mean, ref_std, seed=2)))
+        k1=glm_posterior_inputs(glm, device, ref_mean, ref_std, seed=2))
+    times.update(time_own_launches(glm, seen, names, made, "data path"))
+    for name in names:
+        checks[name]["chunk_ms_made_up"] = made[name][0]
 
 
 def path_mclmc_data(device, checks, launches, times):
@@ -1439,8 +1502,6 @@ def path_sv(device, checks, launches, times):
     """Stochastic volatility, T = 1000 (d = 1002), 512 chains: the
     dim-on-lanes kernels with the model's data, K1-ld-args and K2-ld-args."""
     from nuts_rs_tpu_torch import DiagNutsSettings
-    from nuts_rs_tpu_torch.kernels import _build
-    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
     from nuts_rs_tpu_torch.models.stochastic_volatility import (
         stochastic_volatility)
 
@@ -1465,43 +1526,19 @@ def path_sv(device, checks, launches, times):
     checks["stochastic_volatility"] = functor_row(k1, k2)
     # the path's own launches, kept to be timed again: its first posterior
     # launch (the post-warmup states) and its first full warmup chunk
-    seen = {}
-    run0, warm0 = nf.nuts_fused_run, nf.nuts_fused_warmup_run
-
-    def keep(key, fn, rows=None):
-        def launch(*a, **k):
-            if rows is None or a[1].shape[0] == rows:
-                seen.setdefault(key, (a, k))
-            return fn(*a, **k)
-        return launch
-
-    nf.nuts_fused_run = keep("nuts_fused_ld_args_posterior", run0)
-    nf.nuts_fused_warmup_run = keep("nuts_fused_ld_args_warmup", warm0, CHUNK)
-    try:
+    names = ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup")
+    with first_launches({}) as seen:
         got, functor_launches = zoo_main_path(
             model, settings, device, ref,
             {"sigma": lambda p: np.exp(p[..., 0]),
-             "nu": lambda p: np.exp(p[..., 1])},
-            ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup"),
-            "SV path")
-    finally:
-        nf.nuts_fused_run, nf.nuts_fused_warmup_run = run0, warm0
+             "nu": lambda p: np.exp(p[..., 1])}, names, "SV path")
     launches.update(got)
     launches["stochastic_volatility"] = functor_launches
     made = time_kernels(model, settings, device, "ld", SV_CHAINS,
                         k1=state(2, SV_CHAINS), k2_state=state(4, SV_CHAINS))
-    for name, fn, at in (("nuts_fused_ld_args_posterior", run0, 4),
-                         ("nuts_fused_ld_args_warmup", warm0, 8)):
-        a, k = seen[name]
-        times[name] = chunk_time("nuts", model,
-                                 lambda fn=fn, a=a, k=k: fn(*a, **k),
-                                 a[1:9], at)
+    times.update(time_own_launches(model, seen, names, made, "SV path"))
+    for name in names:
         checks[name]["chunk_ms_made_up"] = made[name][0]
-        print(f"time {name} on the path's own states: {times[name][0]:.4f} "
-              f"ms per {CHUNK}-draw launch at C={SV_CHAINS} d={model.dim} "
-              f"({_build.ld_args_blocks_per_sm(name.split('_')[-1], model, opts.maxdepth)}"
-              f" chain blocks an SM); bound {times[name][1]:.5f} ms "
-              f"({times[name][2]})")
     times["stochastic_volatility"] = times["nuts_fused_ld_args_posterior"]
 
 
@@ -1528,16 +1565,21 @@ def path_radon(device, checks, launches, times):
     k2 = check_warmup(model, settings, device, name="K2-args radon",
                       rows=ZOO_CHECK_ROWS, state=state(3))
     checks["radon"] = functor_row(k1, k2)
-    got, functor_launches = zoo_main_path(
-        model, settings, device, ref,
-        {"mu_a": lambda p: p[..., 0], "beta": lambda p: p[..., 1],
-         "sigma": lambda p: np.exp(p[..., 2]),
-         "sigma_a": lambda p: np.exp(p[..., 3])},
-        ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"), "radon path")
+    names = ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup")
+    with first_launches({}) as seen:
+        got, functor_launches = zoo_main_path(
+            model, settings, device, ref,
+            {"mu_a": lambda p: p[..., 0], "beta": lambda p: p[..., 1],
+             "sigma": lambda p: np.exp(p[..., 2]),
+             "sigma_a": lambda p: np.exp(p[..., 3])}, names, "radon path")
     launches["radon"] = functor_launches
-    t = time_kernels(model, settings, device, chains=RADON_CHAINS,
-                     k1=state(2, RADON_CHAINS), warmup=False)
-    times["radon"] = t["nuts_fused_mid_posterior"]
+    made = time_kernels(model, settings, device, chains=RADON_CHAINS,
+                        k1=state(2, RADON_CHAINS),
+                        k2_state=state(4, RADON_CHAINS))
+    own = time_own_launches(model, seen, names, made, "radon path")
+    # the functor's row: K1-args on radon, the path's own states
+    times["radon"] = own["nuts_fused_mid_posterior"]
+    checks["radon"]["chunk_ms_made_up"] = made["nuts_fused_mid_posterior"][0]
 
 
 def functor_row(*rows):
@@ -1691,58 +1733,6 @@ def flow_moment_gates(pos, ref):
     return worst_m, worst_s, failures
 
 
-def flow_ablation(model, packed, state, bars, opts, device):
-    """Microseconds of a block iteration that K1-flow spends on the flow's
-    forward and backward passes: the same trees with and without them.
-    K1-flow under the path's flow with its nets' output layers and its base
-    zeroed (s = t = 0, sigma = 1, mu = 0: the identity, whose passes cost
-    what any flow's do) against the mid-d kernel K1-args with the same
-    funnel functor and no flow, from the same points (z = q) and steps, on
-    one wave of FLOW_ABLATION_CHAINS chains (one chain a block): the two
-    take the same trees, which the loop iterations show, so the difference
-    per iteration is the flow's passes."""
-    from nuts_rs_tpu_torch.flows.coupling import PackedFlow
-    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
-
-    C = FLOW_ABLATION_CHAINS
-    arrays = [a.clone() for a in packed.arrays]
-    for i, a in enumerate(arrays):
-        if i >= 7 * packed.num_layers or i % 7 >= 3:
-            a.zero_()   # w2sT, b2s, w2tT, b2t; log_sigma, mu
-    ident = PackedFlow(arrays, packed.max_scale, packed.max_shift)
-    reps = -(-C // state.pt.z.shape[0])
-    q = state.pt.z.repeat(reps, 1)[:C].contiguous()
-    step = state.step.step_size.repeat(reps)[:C].contiguous()
-    bar = bars.repeat(reps)[:C].contiguous()
-    _, logp_and_grad = nf._evaluators(model, "mid")
-    logp, g = logp_and_grad(q)
-    ones, zc = torch.ones_like(q), torch.zeros(C, device=device)
-    plain_in = (q, g.contiguous(), logp.contiguous(), ones,
-                torch.zeros_like(q), zc, step, bar)
-    runs = {}
-    for label, fn in (
-            ("flow", lambda: nf.nuts_fused_run(
-                7, *flow_inputs(q, step, bar), CHUNK, model, opts, 0.1,
-                flow=ident)),
-            ("none", lambda: nf.nuts_fused_run(7, *plain_in, CHUNK, model,
-                                               opts, 0.1))):
-        out = fn()
-        torch.cuda.synchronize()
-        ms = cuda_events_ms(fn, 3)
-        runs[label] = (ms, int(out[4]["loop_iterations"].max()), out)
-    (f_ms, f_it, f_out), (n_ms, n_it, n_out) = runs["flow"], runs["none"]
-    same = bool(torch.equal(f_out[4]["loop_iterations"],
-                            n_out[4]["loop_iterations"]))
-    us_flow, us_none = 1e3 * f_ms / f_it, 1e3 * n_ms / n_it
-    print(f"K1-flow ablation, {C} chains, {CHUNK} draws from the path's "
-          f"states: with the identity flow's passes {f_ms:.4f} ms ({f_it} "
-          f"block iterations, {us_flow:.3f} us each), without them (K1-args,"
-          f" funnel) {n_ms:.4f} ms ({n_it}, {us_none:.3f} us); same trees: "
-          f"{same}; the flow's passes {us_flow - us_none:.3f} us of "
-          f"{us_flow:.3f} ({(us_flow - us_none) / us_flow:.1%})")
-    return us_flow - us_none
-
-
 def path_flow(device, checks, launches, times):
     """funnel(10) under FlowNutsSettings: the warmup on the per-draw sync
     engine with the coupling flow's refits, the posterior on K1-flow."""
@@ -1893,7 +1883,6 @@ def path_flow(device, checks, launches, times):
               f"{float(out[4]['n_steps'].mean()):.2f}")
     times[kernel] = results["own"]
     checks[kernel]["chunk_ms_made_up"] = results["made-up"][0]
-    flow_us = flow_ablation(model, packed, state, bars, opts, device)
 
     # the yardstick: the flow's forward pass and vector-Jacobian product for
     # all 256 chains by batched PyTorch calls (torch.bmm / matmul, TF32 off)
@@ -1905,9 +1894,7 @@ def path_flow(device, checks, launches, times):
     vjp_ms = cuda_events_ms(lambda: flow_vjp(spec, p0, z, g), 20)
     print(f"yardstick: the flow's forward for {C} chains by batched PyTorch "
           f"calls {fwd_ms:.4f} ms, forward and vjp {vjp_ms:.4f} ms (TF32 "
-          "off; the sync engine pays it at every leapfrog of the warmup), "
-          f"against K1-flow's {flow_us:.2f} us a block iteration for the "
-          f"flow's passes of {FLOW_ABLATION_CHAINS} chains at once")
+          "off; the sync engine pays it at every leapfrog of the warmup)")
 
 
 PATHS = {"nuts": path_nuts, "mclmc": path_mclmc, "large_d": path_large_d,
@@ -1926,7 +1913,7 @@ PATH_SOURCES = {
     "sv": ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup"),
     "radon": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
     "zoo": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
-    "flow": ("nuts_fused_flow_posterior", "nuts_fused_mid_posterior"),
+    "flow": ("nuts_fused_flow_posterior",),
 }
 
 

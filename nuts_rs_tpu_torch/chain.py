@@ -228,8 +228,7 @@ def fused_layout(model, config: "ChainConfig", warmup: bool, device=None):
         return "cl"
     on_cuda = device is not None and torch.device(device).type == "cuda"
     kind = "warmup" if warmup else "posterior"
-    if not on_cuda or (_build.mid_smem_bytes(kind, model.dim, D, model)
-                       <= _build.SMEM_OPT_IN_BYTES):
+    if not on_cuda or _build.mid_group(kind, model.dim, D, model) >= 1:
         return "cl"
     if model.stream_tile_rows is not None:
         return None if warmup else "stream"

@@ -1,5 +1,6 @@
-// Block-wide sums in one fixed order, for the kernels in which the LD_T
-// threads of a CUDA block share one chain (nuts_tree_ld.cuh) and for the
+// Sums in one fixed order, for the kernels in which the LD_T threads of a
+// CUDA block share one chain (nuts_tree_ld.cuh), for the kernels in which
+// one warp runs a chain in that order (nuts_tree_group.cuh), and for the
 // model functors those threads evaluate together (models.cuh).
 //
 // The order is the one of nuts_rs_tpu_torch/ops.py::tsum: each thread adds
@@ -30,19 +31,26 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The butterflies of 16 values at once, in 16 shuffles where 16 calls of
-// warp_sum take 80: at each of the halvings 16, 8, 4, 2 a lane keeps the half
-// of its values that its side of the halving ends up owning and sends the
-// other half, so that the sums of a lane and its partner are formed once;
-// the last halving is the plain one.  Every sum adds the same pairs in the
-// same tree as warp_sum (IEEE addition commutes).  Returns the index of the
-// value whose warp sum this lane now holds in v[0] (both lanes of a pair
-// l, l ^ 1 hold the same one).
-__device__ __forceinline__ int warp_sum16(float (&v)[16]) {
+// The butterflies of M values at once (M a power of two up to 32), in
+// M - 1 + 5 - log2(M) shuffles where M calls of warp_sum take 5 M: at each
+// of the first log2(M) halvings (16, 8, ...) a lane keeps the half of its
+// values that its side of the halving ends up owning and sends the other
+// half, so that the sums of a lane and its partner are formed once; the
+// remaining halvings are the plain ones.  Every sum adds the same pairs in
+// the same tree as warp_sum (IEEE addition commutes).  Returns the index of
+// the value whose warp sum this lane now holds in v[0]: its bits are the
+// lane's bits 4, 3, ... from the top, so the lanes that differ in the lower
+// bits hold the same one.
+template <int M>
+__device__ __forceinline__ int warp_sums(float (&v)[M]) {
+  static_assert(M >= 1 && M <= 32 && (M & (M - 1)) == 0, "M: 1, 2, .. 32");
+  constexpr int S = M >= 32 ? 5 : M >= 16 ? 4 : M >= 8 ? 3 : M >= 4 ? 2
+                  : M >= 2 ? 1 : 0;  // log2(M): the halvings that split
   const int lane = threadIdx.x & 31;
   int index = 0;
 #pragma unroll
-  for (int h = 8, o = 16; h > 0; h >>= 1, o >>= 1) {
+  for (int s = 0; s < S; ++s) {
+    const int h = M >> (s + 1), o = 16 >> s;
     const bool upper = (lane & o) != 0;
 #pragma unroll
     for (int i = 0; i < h; ++i) {
@@ -52,7 +60,9 @@ __device__ __forceinline__ int warp_sum16(float (&v)[16]) {
     }
     if (upper) index += h;
   }
-  v[0] = v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
+#pragma unroll
+  for (int s = S; s < 5; ++s)
+    v[0] = v[0] + __shfl_xor_sync(0xffffffffu, v[0], 16 >> s);
   return index;
 }
 
@@ -66,6 +76,76 @@ __device__ __forceinline__ float halve_warps(const float* p_in) {
 #pragma unroll
     for (int w = 0; w < h; ++w) p[w] = p[w] + p[w + h];
   return p[0];
+}
+
+// Chains whose LD_T virtual threads of tsum's order run on one warp (the
+// mid-d kernels K1-args and K2-args, nuts_tree_group.cuh): lane l holds the
+// LD_W slots of the virtual threads l + 32 w, w = 0 .. LD_W - 1, and slot w
+// adds the terms of coordinates l + 32 w + LD_T i in ascending i.
+constexpr int GR_SLOTS = LD_W;
+constexpr int GR_MAX = LD_W;  // chains a CUDA block of those kernels
+
+// tsum of N values over a chain's d coordinates on its warp: term(j, t)
+// gives the N terms of coordinate j < d.  The slots are taken one at a time
+// (a loop, not unrolled, so that N partials are live, not LD_W N), each
+// slot's partials butterflied by warp_sum, and the LD_W warp sums combined
+// as halve_warps combines them, ((p0 + p4) + (p2 + p6)) + ((p1 + p5) +
+// (p3 + p7)), in the slot order 0, 4, 2, 6, 1, 5, 3, 7: the bits of
+// Reducer::sum.  A slot with no coordinate (32 w >= d) is the warp sum of
+// 0.0 terms, +0.0, without its shuffles.  Every lane gets every sum.
+template <int N, class F>
+__device__ __forceinline__ void slot_sums(int d, F&& term, float (&out)[N]) {
+  static_assert(GR_SLOTS == 8, "the combination below is LD_W = 8's");
+  const int lane = threadIdx.x & 31;
+  const int n = (d + LD_T - 1) / LD_T;
+  float first[N], pair[N], half[N];
+#pragma unroll 1
+  for (int s = 0; s < GR_SLOTS; ++s) {
+    const int w = ((s & 1) << 2) | (s & 2) | (s >> 2);
+    float p[N];
+    if (32 * w < d) {
+      for (int i = 0; i < n; ++i) {
+        const int j = lane + 32 * w + LD_T * i;
+        float t[N];
+        if (j < d) {
+          term(j, t);
+        } else {
+#pragma unroll
+          for (int k = 0; k < N; ++k) t[k] = 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < N; ++k) acc(p[k], i, t[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < N; ++k) p[k] = warp_sum(p[k]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < N; ++k) p[k] = 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      if ((s & 1) == 0) {
+        first[k] = p[k];  // p_w of the pair (w, w + 4)
+      } else {
+        const float q = first[k] + p[k];
+        if ((s & 2) == 0)
+          pair[k] = q;  // p0 + p4, or p1 + p5
+        else if (s == 3)
+          half[k] = pair[k] + q;  // (p0 + p4) + (p2 + p6)
+        else
+          out[k] = half[k] + (pair[k] + q);
+      }
+    }
+  }
+}
+
+// tsum of one value from the slots' partials p[w] of every lane, for a
+// functor that keeps them in an array (StochasticVolatility::eval_team):
+// each slot butterflied by warp_sum, combined as halve_warps does.
+__device__ __forceinline__ float slot_sum(float (&p)[GR_SLOTS]) {
+#pragma unroll
+  for (int w = 0; w < GR_SLOTS; ++w) p[w] = warp_sum(p[w]);
+  return halve_warps(p);
 }
 
 // Up to LD_NRED sums at once; every thread gets every sum.  Two scratch

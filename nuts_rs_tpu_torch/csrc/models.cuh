@@ -18,8 +18,8 @@
 // eval_block: the LD_T threads of a block evaluate one chain
 // together from the whole position vector in shared memory; a gradient
 // coordinate may need all of q, and the functor may hold device pointers to
-// the model's data (the mid-d chains-on-lanes kernels, nuts_fused_mid_*.cu,
-// and the dim-on-lanes kernels with data, nuts_fused_ld_args_*.cu, take only
+// the model's data (the mid-d MCLMC kernels, mclmc_fused_mid_*.cu, the
+// dim-on-lanes kernels with data, nuts_fused_ld_args_*.cu, and K1-flow take
 // this form).  q and g are d floats of shared memory; the caller has put a
 // __syncthreads between its last access of q and g and the call; after the
 // call thread t reads only g[j] for its own coordinates j = t, t + LD_T, ...
@@ -28,6 +28,22 @@
 // StochasticVolatility do.  Every thread returns logp.  `scratch` is
 // scratch_floats() floats of shared memory that belong to the functor from
 // one call to the next.
+//
+// The mid-d kernels K1-args and K2-args (nuts_fused_mid_*.cu) run G <= 8
+// chains a CUDA block, one warp a chain, and take one of two more forms:
+//
+// eval_team: the warp of one chain evaluates it from the whole position
+// vector in shared memory, as eval_block does with the block, in the same
+// order: lane l stands for tsum's virtual threads l + 32 w (its slots, w =
+// 0 .. LD_W - 1), and a sum over them is block_sum.cuh::slot_sums, the
+// bits of Reducer::sum.  The caller puts a __syncwarp before
+// and after the call; the functor may write any coordinate of g.  Every
+// functor but the regressions has it; `scratch` is the chain's
+// scratch_floats().
+//
+// the group form (GROUP): the block's LD_T threads evaluate all G chains
+// together, each read of the model's data serving every chain
+// (LogisticRegression alone: stage, eval_group, grad, finish).
 //
 // Only IidNormal has the eval and term / finish forms; a model of another
 // functor takes the mid-d kernels at every chains-on-lanes size
@@ -85,6 +101,8 @@ struct IidNormal {
 
   __device__ __forceinline__ float finish(float s) const { return -0.5f * s; }
 
+  static constexpr bool GROUP = false;
+
   __host__ __device__ size_t scratch_floats() const { return 0; }
 
   __device__ __forceinline__ float eval_block(const float* q, float* g, int d,
@@ -102,6 +120,20 @@ struct IidNormal {
       acc(s[0], i, sq);
     }
     red.sum(s);
+    return -0.5f * s[0];
+  }
+
+  __device__ __forceinline__ float eval_team(const float* q, float* g, int d,
+                                             float*) const {
+    float s[1];
+    slot_sums(
+        d,
+        [&](int j, float (&t)[1]) {
+          const float diff = q[j] - mu;
+          g[j] = -diff;
+          t[0] = diff * diff;
+        },
+        s);
     return -0.5f * s[0];
   }
 };
@@ -129,6 +161,13 @@ struct IidNormal {
 // one butterfly in the second.  Neither changes the order of any sum.
 constexpr int GLM_R = 4;  // rows of a thread in flight in the first product
 constexpr int GLM_J = 8;  // columns of one pass over the rows in the second
+// the group form (K1-args / K2-args): columns of x in flight a thread in the
+// first product, and columns of one pass over the rows in the second
+constexpr int GLM_PJ = 4;
+constexpr int GLM_GJ = 4;
+// row stride of a warp's transposition buffer: 16-byte rows whose 8 lanes of
+// a quarter warp meet in distinct banks, and columns read without conflict
+constexpr int GLM_TS = GLM_GJ * GR_MAX + 4;
 
 struct LogisticRegression {
   const float* xt;  // [d, N]
@@ -222,6 +261,256 @@ struct LogisticRegression {
       if (j < d) g[j] = halve_warps(part + j * LD_W) - q[j];
     }
     return s[0] - 0.5f * s[1];
+  }
+
+  // The group form (K1-args / K2-args, G <= GR_MAX chains a CUDA block).
+  // The block's thread t keeps its rows n = t + LD_T i, as eval_block does,
+  // and forms their logits for all G chains: each load of xt[j][n] serves
+  // every chain, and the G positions at j are one 32-byte row of qg (two
+  // 16-byte loads).  A logit still sums ascending j (ops.dsum).  Over rows,
+  // each chain's log-likelihood and each gradient column take eval_block's
+  // order: the thread's rows ascending, the warp's butterfly (warp_sums, 8
+  // chains' log-likelihoods or 2 columns x 8 chains at once), the LD_W warp
+  // partials halved by the chain's own lane (grad, finish); the prior's
+  // terms join the caller's reduction (prior_term, tsum over j).  So the
+  // bits are eval_block's, and the L2 traffic of x per chain and
+  // evaluation falls by G.  The residuals of a thread's rows stay in
+  // registers where it has at most GLM_R rows (N <= LD_T GLM_R), else they
+  // go through shared memory (rs).  No tensor cores: TF32 would round the
+  // products' inputs, and the port keeps TF32 off.
+  static constexpr bool GROUP = true;
+
+  __host__ __device__ bool rows_in_registers() const {
+    return N <= LD_T * GLM_R;
+  }
+
+  // qg [d][GR_MAX], part [G][d][LD_W], llp [G][LD_W], a warp's
+  // [32][GLM_TS] of the second product's butterflies each, then rs [G][N]
+  // where the residuals do not stay in registers
+  __host__ __device__ size_t group_floats(int G) const {
+    return (size_t)GR_MAX * d + (size_t)G * LD_W * (d + 1) +
+           (size_t)LD_W * 32 * GLM_TS +
+           (rows_in_registers() ? 0 : (size_t)G * N);
+  }
+
+  // chain cb's new position at coordinate j, for eval_group
+  __device__ __forceinline__ void stage(float* gs, int cb, int j,
+                                        float qj) const {
+    gs[j * GR_MAX + cb] = qj;
+  }
+
+  // x at columns j .. j + U - 1 (past the end: the last column) of the R
+  // rows nc, 0.0 where a row is not `in`
+  template <int U, int R>
+  __device__ __forceinline__ void fetch_cols(int j, const int (&nc)[R],
+                                             const bool (&in)[R],
+                                             float (&x)[U][R]) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float* col = xt + (size_t)min(j + u, d - 1) * N;
+#pragma unroll
+      for (int k = 0; k < R; ++k) x[u][k] = in[k] ? col[nc[k]] : 0.0f;
+    }
+  }
+
+  // Every thread of the block, the G chains' positions staged; ends with a
+  // barrier after which grad and finish read the sums.  Inlined, with the
+  // chains' trees parked in shared memory around it (the kernels' GrPost /
+  // GrWarmScalars), so that its tiles have the registers.  Both products
+  // keep the next GLM_PJ (first) or GLM_GJ (second) columns of the thread's
+  // rows in flight while the current ones are used: an SM runs 8 warps, so
+  // each must hide the latency of L2 itself.  The second product's warp
+  // butterflies go through shared memory (a [32][GLM_TS] buffer a warp),
+  // which costs fewer issue slots than 31 shuffles and their selects for 32
+  // values.
+  __device__ __forceinline__ void eval_group(int G, float* gs) const {
+    const float* qg = gs;
+    float* part = gs + (size_t)GR_MAX * d;
+    float* llp = part + (size_t)G * d * LD_W;
+    float* tb = llp + G * LD_W;
+    float* rs = tb + LD_W * 32 * GLM_TS;
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int rows = (N + LD_T - 1) / LD_T;
+    const bool regs = rows_in_registers();
+    float ll[GR_MAX];
+    float r[GLM_R][GR_MAX];
+    for (int i0 = 0; i0 < rows; i0 += GLM_R) {
+      int nc[GLM_R];
+      bool in[GLM_R];
+#pragma unroll
+      for (int k = 0; k < GLM_R; ++k) {
+        const int n = t + (i0 + k) * LD_T;
+        in[k] = n < N;
+        nc[k] = in[k] ? n : 0;
+      }
+      // column 0 starts every logit; a row past the end has logits of 0.0
+      float logit[GLM_R][GR_MAX];
+      {
+        float x[1][GLM_R];
+        fetch_cols(0, nc, in, x);
+        const float4 qa = *reinterpret_cast<const float4*>(qg);
+        const float4 qb = *reinterpret_cast<const float4*>(qg + 4);
+        const float qv[GR_MAX] = {qa.x, qa.y, qa.z, qa.w,
+                                  qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+        for (int k = 0; k < GLM_R; ++k)
+#pragma unroll
+          for (int c = 0; c < GR_MAX; ++c) logit[k][c] = x[0][k] * qv[c];
+      }
+      float xb[GLM_PJ][GLM_R];
+      fetch_cols(1, nc, in, xb);
+      for (int j0 = 1; j0 < d; j0 += GLM_PJ) {
+        float xc[GLM_PJ][GLM_R];
+#pragma unroll
+        for (int u = 0; u < GLM_PJ; ++u)
+#pragma unroll
+          for (int k = 0; k < GLM_R; ++k) xc[u][k] = xb[u][k];
+        if (j0 + GLM_PJ < d) fetch_cols(j0 + GLM_PJ, nc, in, xb);
+#pragma unroll
+        for (int u = 0; u < GLM_PJ; ++u) {
+          const int j = j0 + u;
+          if (j >= d) break;
+          const float4 qa =
+              *reinterpret_cast<const float4*>(qg + j * GR_MAX);
+          const float4 qb =
+              *reinterpret_cast<const float4*>(qg + j * GR_MAX + 4);
+          const float qv[GR_MAX] = {qa.x, qa.y, qa.z, qa.w,
+                                    qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+          for (int k = 0; k < GLM_R; ++k)
+#pragma unroll
+            for (int c = 0; c < GR_MAX; ++c)
+              logit[k][c] = logit[k][c] + xc[u][k] * qv[c];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < GLM_R; ++k) {
+        if (i0 + k >= rows) break;
+        const float yn = y[nc[k]];
+#pragma unroll
+        for (int c = 0; c < GR_MAX; ++c) {
+          float term = 0.0f, res = 0.0f;
+          if (in[k] && c < G) {
+            term = yn * logit[k][c] - logaddexp(0.0f, logit[k][c]);
+            const float p = 1.0f / (1.0f + expf(-logit[k][c]));
+            res = yn - p;
+          }
+          acc(ll[c], i0 + k, term);
+          if (regs)
+            r[k][c] = res;
+          else if (in[k] && c < G)
+            rs[(size_t)c * N + nc[k]] = res;
+        }
+      }
+    }
+    {
+      const int c = warp_sums(ll);
+      if ((lane & 3) == 0 && c < G) llp[c * LD_W + warp] = ll[0];
+    }
+    // GLM_GJ columns x GR_MAX chains share one pass over the thread's rows
+    // and one warp_sums (32 values: lane l ends with column l / 8, chain
+    // l % 8); a column past the end repeats the last one and is not
+    // stored.  A row past the data's end is the term 0.0 (x and r 0.0).
+    int nc[GLM_R];
+    bool in[GLM_R];
+#pragma unroll
+    for (int i = 0; i < GLM_R; ++i) {
+      const int n = t + i * LD_T;
+      in[i] = n < N;
+      nc[i] = in[i] ? n : 0;
+    }
+    float xb[GLM_GJ][GLM_R];
+    if (regs) fetch_cols(0, nc, in, xb);
+    for (int j0 = 0; j0 < d; j0 += GLM_GJ) {
+      float v[GLM_GJ * GR_MAX];  // [column][chain]
+      if (regs) {
+        float xc[GLM_GJ][GLM_R];
+#pragma unroll
+        for (int jj = 0; jj < GLM_GJ; ++jj)
+#pragma unroll
+          for (int i = 0; i < GLM_R; ++i) xc[jj][i] = xb[jj][i];
+        if (j0 + GLM_GJ < d) fetch_cols(j0 + GLM_GJ, nc, in, xb);
+#pragma unroll
+        for (int i = 0; i < GLM_R; ++i) {
+          if (i >= rows) break;
+#pragma unroll
+          for (int jj = 0; jj < GLM_GJ; ++jj)
+#pragma unroll
+            for (int c = 0; c < GR_MAX; ++c)
+              acc(v[jj * GR_MAX + c], i, xc[jj][i] * r[i][c]);
+        }
+      } else {
+        for (int i = 0; i < rows; ++i) {
+          const int n = t + i * LD_T;
+          const bool row_in = n < N;
+          float x[GLM_GJ];
+#pragma unroll
+          for (int jj = 0; jj < GLM_GJ; ++jj)
+            x[jj] = row_in ? xt[(size_t)min(j0 + jj, d - 1) * N + n] : 0.0f;
+#pragma unroll
+          for (int c = 0; c < GR_MAX; ++c) {
+            const float rn =
+                (row_in && c < G) ? rs[(size_t)c * N + n] : 0.0f;
+#pragma unroll
+            for (int jj = 0; jj < GLM_GJ; ++jj)
+              acc(v[jj * GR_MAX + c], i, x[jj] * rn);
+          }
+        }
+      }
+      // the warp's butterfly of each of the 32 values, in its tree, through
+      // shared memory: the lanes' values out, then lane L adds value L of
+      // every lane in warp_sum's tree (lane 0's side of each pair first;
+      // IEEE addition commutes), reading the lanes in bit-reversed order so
+      // that a stack of 5 partial sums holds the tree's open nodes
+      float* tw = tb + (size_t)warp * 32 * GLM_TS;  // this warp's
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < GLM_GJ * GR_MAX; k += 4)
+        *reinterpret_cast<float4*>(tw + lane * GLM_TS + k) =
+            make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+      __syncwarp();
+      float st[5];
+      float sum = 0.0f;
+#pragma unroll
+      for (int s = 0; s < 32; ++s) {
+        const int m = ((s & 1) << 4) | ((s & 2) << 2) | (s & 4) |
+                      ((s & 8) >> 2) | ((s & 16) >> 4);
+        float x = tw[m * GLM_TS + lane];
+#pragma unroll
+        for (int L = 0; L < 5; ++L) {
+          if ((s >> L) & 1) {
+            x = st[L] + x;
+          } else {
+            st[L] = x;
+            break;
+          }
+        }
+        if (s == 31) sum = x;
+      }
+      const int jj = lane / GR_MAX, c = lane % GR_MAX;
+      if (c < G && j0 + jj < d)
+        part[((size_t)c * d + j0 + jj) * LD_W + warp] = sum;
+    }
+    __syncthreads();  // publishes part and llp
+  }
+
+  // chain cb's gradient at its coordinate j, from the column's warp partials
+  __device__ __forceinline__ float grad(const float* gs, int cb, int j,
+                                        float qj) const {
+    return halve_warps(gs + (size_t)GR_MAX * d +
+                       ((size_t)cb * d + j) * LD_W) - qj;
+  }
+
+  // a coordinate's term of the prior, summed in the caller's reduction
+  __device__ __forceinline__ float prior_term(float qj) const {
+    return qj * qj;
+  }
+
+  // chain cb's logp from the prior's sum
+  __device__ __forceinline__ float finish(const float* gs, int G, int cb,
+                                          float prior) const {
+    return halve_warps(gs + (size_t)GR_MAX * d + (size_t)G * d * LD_W +
+                       cb * LD_W) - 0.5f * prior;
   }
 };
 
@@ -495,6 +784,7 @@ struct LogisticRegressionStream {
 // (the JAX body's spelling, dividing by sqrt(s)).  The two dots in one
 // Reducer call (ops.tsum's order), then the gradient from them.
 struct CorrelatedNormalRank1 {
+  static constexpr bool GROUP = false;
   const float* u;  // [d]
   const float* s;  // [d]
   float coef;      // 1 / eig - 1
@@ -525,12 +815,34 @@ struct CorrelatedNormalRank1 {
     }
     return -0.5f * (v[0] + cu * v[1]);
   }
+
+  __device__ __forceinline__ float eval_team(const float* q, float* g, int d,
+                                             float*) const {
+    float v[2];  // y.y, u.y
+    slot_sums(
+        d,
+        [&](int j, float (&t)[2]) {
+          const float y = q[j] / sqrtf(s[j]);
+          t[0] = y * y;
+          t[1] = u[j] * y;
+        },
+        v);
+    const float yy = v[0], uy = v[1];
+    const float cu = coef * uy;
+    for (int j = threadIdx.x & 31; j < d; j += 32) {
+      const float root = sqrtf(s[j]);
+      const float y = q[j] / root;
+      g[j] = -(y + cu * u[j]) / root;
+    }
+    return -0.5f * (yy + cu * uy);
+  }
 };
 
 // The correlated normal with covariance I + r 1 1^T
 // (nuts_rs_tpu/models/gaussian.py:79-101), no data: with s = sum q,
 // logp = -0.5 q.q + 0.5 c s s and grad = c s - q, c = r / (1 + r d).
 struct CorrelatedNormal {
+  static constexpr bool GROUP = false;
   float c;
 
   __host__ __device__ size_t scratch_floats() const { return 0; }
@@ -550,6 +862,22 @@ struct CorrelatedNormal {
     for (int j = threadIdx.x; j < d; j += LD_T) g[j] = cs - q[j];
     return -0.5f * v[1] + 0.5f * c * v[0] * v[0];
   }
+
+  __device__ __forceinline__ float eval_team(const float* q, float* g, int d,
+                                             float*) const {
+    float v[2];  // sum q, q.q
+    slot_sums(
+        d,
+        [&](int j, float (&t)[2]) {
+          t[0] = q[j];
+          t[1] = q[j] * q[j];
+        },
+        v);
+    const float sq = v[0], qq = v[1];
+    const float cs = c * sq;
+    for (int j = threadIdx.x & 31; j < d; j += 32) g[j] = cs - q[j];
+    return -0.5f * qq + 0.5f * c * sq * sq;
+  }
 };
 
 // Neal's funnel (nuts_rs_tpu/models/gaussian.py:104-114), no data: with
@@ -558,6 +886,7 @@ struct CorrelatedNormal {
 // 0.0): logp = -0.5 t t + (-0.5 S - h v), grad (0.5 S - t / 3) - h for v and
 // -(x e) for x.
 struct Funnel {
+  static constexpr bool GROUP = false;
   __host__ __device__ size_t scratch_floats() const { return 0; }
 
   __device__ __forceinline__ float eval_block(const float* q, float* g, int d,
@@ -576,6 +905,23 @@ struct Funnel {
     for (int j = threadIdx.x; j < d; j += LD_T)
       g[j] = j == 0 ? (0.5f * S[0] - t / 3.0f) - h : -(q[j] * e);
     return -0.5f * (t * t) + (-0.5f * S[0] - h * v);
+  }
+
+  __device__ __forceinline__ float eval_team(const float* q, float* g, int d,
+                                             float*) const {
+    const float v = q[0];
+    const float t = v / 3.0f;
+    const float e = expf(-v);
+    float p[1];
+    slot_sums(
+        d,
+        [&](int j, float (&t)[1]) { t[0] = j >= 1 ? q[j] * q[j] * e : 0.0f; },
+        p);
+    const float S = p[0];
+    const float h = 0.5f * (float)(d - 1);
+    for (int j = threadIdx.x & 31; j < d; j += 32)
+      g[j] = j == 0 ? (0.5f * S - t / 3.0f) - h : -(q[j] * e);
+    return -0.5f * (t * t) + (-0.5f * S - h * v);
   }
 };
 
@@ -603,6 +949,7 @@ constexpr float HALF_LOG_2PI = 0.918938533204672742f;  // 0.5 log(2 pi)
 // version (models/hierarchical.py::radon_logp_grad) pads the groups to
 // [J, n_max] and adds their rows column by column in the same order.
 struct Radon {
+  static constexpr bool GROUP = false;
   const float* x;    // [N], rows sorted by group
   const float* y;    // [N]
   const int* off;    // [J + 1]
@@ -656,6 +1003,54 @@ struct Radon {
     lp = lp + (-0.5f * (sa * sa) + lsa);
     lp = lp + -0.5f * v[3];
     return lp + (-0.5f * v[0] - nf * (ls + HALF_LOG_2PI));
+  }
+
+  // The warp of one chain: lane l walks the groups of its slots, j = l +
+  // 32 w + LD_T i, each group's rows in row order, as eval_block's thread
+  // j does; the five sums over groups are slot_sum's (tsum's order).  A
+  // group's rows sit in L1 for the block's other chains.
+  __device__ __forceinline__ float eval_team(const float* q, float* g, int,
+                                             float*) const {
+    const float mu_a = q[0], beta = q[1], ls = q[2], lsa = q[3];
+    const float sigma = expf(ls), sa = expf(lsa);
+    float S[5];  // Q, E, X, z.z, z.E
+    slot_sums(
+        J,
+        [&](int j, float (&t)[5]) {
+          const float z = q[4 + j];
+          const float a = mu_a + sa * z;
+          const int end = off[j + 1];
+          float qs = 0.0f, es = 0.0f, xs = 0.0f;
+          for (int k = off[j]; k < end; ++k) {
+            const float xk = x[k];
+            const float r = (a + beta * xk) - y[k];
+            const float u = r / sigma;
+            const float e = u / sigma;
+            qs = qs + u * u;
+            es = es + e;
+            xs = xs + e * xk;
+          }
+          g[4 + j] = -z - sa * es;
+          t[0] = qs;
+          t[1] = es;
+          t[2] = xs;
+          t[3] = z * z;
+          t[4] = z * es;
+        },
+        S);
+    const float t1 = mu_a / 10.0f, t2 = beta / 10.0f;
+    const float nf = (float)N;
+    switch (threadIdx.x & 31) {
+      case 0: g[0] = -(t1 / 10.0f) - S[1]; break;
+      case 1: g[1] = -(t2 / 10.0f) - S[2]; break;
+      case 2: g[2] = ((1.0f - sigma * sigma) + S[0]) - nf; break;
+      case 3: g[3] = (1.0f - sa * sa) - sa * S[4]; break;
+    }
+    float lp = -0.5f * (t1 * t1) - 0.5f * (t2 * t2);
+    lp = lp + (-0.5f * (sigma * sigma) + ls);
+    lp = lp + (-0.5f * (sa * sa) + lsa);
+    lp = lp + -0.5f * S[3];
+    return lp + (-0.5f * S[0] - nf * (ls + HALF_LOG_2PI));
   }
 };
 
@@ -760,6 +1155,49 @@ __device__ __forceinline__ float sv_scan_exclusive(float x, float* wt) {
   return wex + lane_ex;
 }
 
+// sv_scan_exclusive for the LD_W virtual warps of one real warp (the mid-d
+// kernels' eval_team): x[w] is virtual thread lane + 32 w's value, out[w]
+// its exclusive prefix (REV: suffix) sum, with the same additions: each
+// virtual warp's Hillis-Steele scan over the lanes, the LD_W warp totals
+// (read from lane 31, REV: lane 0) scanned in registers, then warp prefix
+// + lane prefix.
+template <bool REV>
+__device__ __forceinline__ void sv_scan_team(const float (&x)[GR_SLOTS],
+                                             float (&out)[GR_SLOTS]) {
+  const int lane = threadIdx.x & 31;
+  const int lp = REV ? 31 - lane : lane;
+  float W[LD_W];
+#pragma unroll
+  for (int w = 0; w < GR_SLOTS; ++w) {
+    float incl = x[w];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const float y = REV ? __shfl_down_sync(0xffffffffu, incl, o)
+                          : __shfl_up_sync(0xffffffffu, incl, o);
+      if (lp >= o) incl = incl + y;
+    }
+    float lane_ex = REV ? __shfl_down_sync(0xffffffffu, incl, 1)
+                        : __shfl_up_sync(0xffffffffu, incl, 1);
+    if (lp == 0) lane_ex = 0.0f;
+    out[w] = lane_ex;
+    W[REV ? LD_W - 1 - w : w] =
+        __shfl_sync(0xffffffffu, incl, REV ? 0 : 31);
+  }
+#pragma unroll
+  for (int o = 1; o < LD_W; o <<= 1)
+#pragma unroll
+    for (int i = LD_W - 1; i >= o; --i) W[i] = W[i] + W[i - o];
+#pragma unroll
+  for (int w = 0; w < GR_SLOTS; ++w) {
+    const int wp = REV ? LD_W - 1 - w : w;
+    float wex = 0.0f;
+#pragma unroll
+    for (int k = 1; k < LD_W; ++k)
+      if (k == wp) wex = W[k - 1];
+    out[w] = wex + out[w];
+  }
+}
+
 // The non-centered Student-t stochastic-volatility model
 // (nuts_rs_tpu/models/stochastic_volatility.py:48-99) over
 // q = [log_sigma, log_nu, eps_0..eps_{T-1}], d = T + 2, the returns r [T]
@@ -791,6 +1229,7 @@ __device__ __forceinline__ float sv_scan_exclusive(float x, float* wt) {
 // sums).  The run's values pass through `scratch` ([LD_T R]), which only
 // their thread touches, the two scans' warp totals through 2 LD_W floats.
 struct StochasticVolatility {
+  static constexpr bool GROUP = false;
   const float* r;  // [T]
   float lam_s, lam_nu;
   int T;
@@ -874,6 +1313,94 @@ struct StochasticVolatility {
     float lp = (-lam_s * sigma + ls) + (-lam_nu * nu + lnu);
     lp = lp + -0.5f * part[3];
     return lp + part[0];
+  }
+
+  // The warp of one chain, eval_block's order: lane l runs the runs of its
+  // virtual threads l + 32 w (sv_scan_team, slot_sum); the warp totals'
+  // floats of the scratch are not used.
+  __device__ __forceinline__ float eval_team(const float* q, float* g, int,
+                                             float* scratch) const {
+    const int R = run();
+    float* cs = scratch;  // [LD_T R]: the runs' sums, then their a, then rs
+    const int lane = threadIdx.x & 31;
+    const float ls = q[0], lnu = q[1];
+    const float sigma = expf(ls), nu = expf(lnu);
+    const float k = (nu + 1.0f) * 0.5f, nuh = nu * 0.5f;
+    const float A = (sv_lgamma(k) - sv_lgamma(nuh)) - 0.5f * logf(nu * SV_PI);
+
+    float cur[GR_SLOTS];
+#pragma unroll
+    for (int w = 0; w < GR_SLOTS; ++w) {
+      const int base = (lane + 32 * w) * R;
+      for (int i = 0; i < R; ++i) {
+        const int s = base + i;
+        const float e = s < T ? q[2 + s] : 0.0f;
+        cur[w] = i == 0 ? e : cur[w] + e;
+        cs[s] = cur[w];
+      }
+    }
+    float pre[GR_SLOTS];
+    sv_scan_team<false>(cur, pre);
+
+    float part[4][GR_SLOTS];  // term, a h, b - 0.5 nu L, eps^2
+#pragma unroll
+    for (int w = 0; w < GR_SLOTS; ++w) {
+      const int base = (lane + 32 * w) * R;
+      for (int i = 0; i < R; ++i) {
+        const int s = base + i;
+        float term = 0.0f, ah = 0.0f, tn = 0.0f, ee = 0.0f, a = 0.0f;
+        if (s < T) {
+          const float e = q[2 + s];
+          const float h = sigma * (pre[w] + cs[s]);
+          const float scale = expf(h * 0.5f);
+          const float z = r[s] / scale;
+          const float wv = (z * z) / nu;
+          const float L = sv_log1p(wv);
+          term = (A - logf(scale)) - k * L;
+          const float b = (k * wv) / (1.0f + wv);
+          a = b - 0.5f;
+          ah = a * h;
+          tn = b - nuh * L;
+          ee = e * e;
+        }
+        acc(part[0][w], i, term);
+        acc(part[1][w], i, ah);
+        acc(part[2][w], i, tn);
+        acc(part[3][w], i, ee);
+        cs[s] = a;
+      }
+    }
+    float rc[GR_SLOTS];
+#pragma unroll
+    for (int w = 0; w < GR_SLOTS; ++w) {
+      const int base = (lane + 32 * w) * R;
+      for (int i = R - 1; i >= 0; --i) {
+        const int s = base + i;
+        rc[w] = i == R - 1 ? cs[s] : rc[w] + cs[s];
+        cs[s] = rc[w];
+      }
+    }
+    float suf[GR_SLOTS];
+    sv_scan_team<true>(rc, suf);
+#pragma unroll
+    for (int w = 0; w < GR_SLOTS; ++w) {
+      const int base = (lane + 32 * w) * R;
+      for (int i = 0; i < R; ++i) {
+        const int s = base + i;
+        if (s < T) g[2 + s] = sigma * (suf[w] + cs[s]) - q[2 + s];
+      }
+    }
+    float tot[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) tot[j] = slot_sum(part[j]);
+    if (lane == 0) g[0] = (1.0f - lam_s * sigma) + tot[1];
+    if (lane == 1)
+      g[1] = ((1.0f - lam_nu * nu) +
+              (float)T * (nuh * (sv_digamma(k) - sv_digamma(nuh)) - 0.5f)) +
+             tot[2];
+    float lp = (-lam_s * sigma + ls) + (-lam_nu * nu + lnu);
+    lp = lp + -0.5f * tot[3];
+    return lp + tot[0];
   }
 };
 

@@ -14,9 +14,9 @@
 //
 // What was chosen, and why:
 //
-// 1. Body.  The mid-d chains-on-lanes kernel K1-args
-//    (nuts_fused_mid_posterior.cu; nuts_fused_ld_posterior.cuh with CL_SITE
-//    and EVAL_BLOCK): one CUDA block of LD_T = 256 threads a chain, the 21
+// 1. Body.  The dim-on-lanes posterior body with the chains-on-lanes site
+//    index (nuts_fused_ld_posterior.cuh with CL_SITE and EVAL_BLOCK): one
+//    CUDA block of LD_T = 256 threads a chain, the 21
 //    live vectors in shared memory, the stacks in a global workspace, a
 //    cluster of B <= 8 blocks a logical chain block (default 1).  Flows are
 //    chains-on-lanes only in the JAX package (nuts_pallas.py:125-126), so

@@ -30,7 +30,7 @@ namespace {
 // The kernel that a functor's launch takes.
 template <class Model>
 auto ld_args_warmup_kernel() {
-  return nrt::ld_warmup_kernel<Model, false, true, nrt::LD_ARGS_MIN_BLOCKS>;
+  return nrt::ld_warmup_kernel<Model, true, nrt::LD_ARGS_MIN_BLOCKS>;
 }
 
 }  // namespace

@@ -1,8 +1,8 @@
 // Fused draw-asynchronous NUTS posterior with several threads a chain: the
 // kernel body of K1-ld (dim-on-lanes layout, nuts_fused_ld_posterior.cu), of
 // K1-ld-args (the same with the model's data, its eval_block form,
-// nuts_fused_ld_args_posterior.cu) and, with CL_SITE, of the mid-d
-// chains-on-lanes kernel K1-args (nuts_fused_mid_posterior.cu), which
+// nuts_fused_ld_args_posterior.cu) and, with CL_SITE and FLOW, of the
+// chains-on-lanes kernel K1-flow (nuts_fused_flow_posterior.cu), which
 // differs in the index of a vector random site (nuts_tree_ld.cuh).
 //
 // Replaces the TPU kernel nuts_rs_tpu/kernels/nuts_pallas.py::make_kernel
@@ -363,8 +363,9 @@ __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
 }
 
 // Dynamic shared memory of one chain block, in bytes, of the kernels that
-// evaluate the model in its eval_block form (the mid-d and the ld_args ones,
-// which lay it out alike): with `warmup` the warmup kernel's 19 vectors (it
+// evaluate the model in its eval_block form (the ld_args ones, and K1-flow's
+// posterior before the flow's work space): with `warmup` the warmup kernel's
+// 19 vectors (it
 // keeps q1), else the posterior's 21, then the functor's scratch; -1 for a
 // model id that no functor of the library has.
 inline long long block_smem_bytes(int warmup, int d, int maxdepth,

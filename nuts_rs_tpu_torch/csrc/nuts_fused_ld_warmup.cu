@@ -27,7 +27,7 @@ extern "C" int nrt_ld_warmup_launch(
                           stds_f, mean_f,   est_f,    sca_f,    iters,
                           work};
   return (int)nrt::ld_launch(
-      nrt::ld_warmup_kernel<nrt::IidNormal, false, false>, a,
+      nrt::ld_warmup_kernel<nrt::IidNormal, false>, a,
       nrt::IidNormal{model_params[0]}, C, B,
       4 * nrt::ld_smem_floats(nrt::LD_WARM_NVEC, dim, maxdepth),
       (cudaStream_t)stream);

@@ -1,9 +1,7 @@
 // Fused lock-step NUTS warmup with in-kernel adaptation and several threads
 // a chain: the kernel body of K2-ld (dim-on-lanes layout,
 // nuts_fused_ld_warmup.cu), of K2-ld-args (the same with the model's data,
-// its eval_block form, nuts_fused_ld_args_warmup.cu) and, with CL_SITE, of
-// the mid-d chains-on-lanes kernel K2-args (nuts_fused_mid_warmup.cu), which
-// differs in the index of a vector random site (nuts_tree_ld.cuh).
+// its eval_block form, nuts_fused_ld_args_warmup.cu).
 //
 // Replaces the TPU kernel
 // nuts_rs_tpu/kernels/nuts_pallas.py::make_warmup_kernel (:942) with
@@ -72,7 +70,7 @@ struct LdWarmArgs {
 };
 
 // MIN_BLOCKS resident an SM (at 2: at most 128 registers a thread).
-template <class Model, bool CL_SITE, bool EVAL_BLOCK, int MIN_BLOCKS = 1>
+template <class Model, bool EVAL_BLOCK, int MIN_BLOCKS = 1>
 __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
     ld_warmup_kernel(const LdWarmArgs a, const Model model) {
   extern __shared__ float smem[];
@@ -146,8 +144,7 @@ __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
         const float sd = ch.stds[j];
         const float z0 = (q[j] - ch.mean[j]) / sd;
         const float zg0 = g[j] * sd;
-        const float v0 = normal(seed, it, 1u, 2u,
-                                  block_site<CL_SITE>(b, B, d, j));
+        const float v0 = normal(seed, it, 1u, 2u, ld_site(b, d, j));
         ch.e_z[j] = ch.m_z[j] = ch.p_z[j] = ch.dm_z[j] = ch.ds_z[j] = z0;
         ch.e_zg[j] = ch.m_zg[j] = ch.p_zg[j] = ch.dm_zg[j] = ch.ds_zg[j] = zg0;
         ch.e_v[j] = ch.m_v[j] = ch.p_v[j] = v0;

@@ -20,15 +20,17 @@
 // memory and one cluster barrier (ClusterMax), not once per iteration.
 //
 // Two template choices make the kernels of these pieces.  CL_SITE: the
-// mid-d chains-on-lanes kernels (nuts_fused_mid_*.cu) keep the
+// chains-on-lanes kernel K1-flow (nuts_fused_flow_posterior.cu) keeps the
 // chains-on-lanes numbering of a vector site, j * B + b, so that a
 // configuration whose layout is "cl" in the JAX runners takes the cl random
 // stream; the dim-on-lanes kernels number it b * d + j.  EVAL_BLOCK: the
 // model is evaluated through its eval_block form (models.cuh), in which the
-// block's threads see the whole position vector and the model's data (the
-// mid-d kernels and the dim-on-lanes kernels with data,
+// block's threads see the whole position vector and the model's data
+// (K1-flow and the dim-on-lanes kernels with data,
 // nuts_fused_ld_args_*.cu), or through its term / finish form, one
-// coordinate at a time (the dim-on-lanes kernels of IidNormal).
+// coordinate at a time (the dim-on-lanes kernels of IidNormal).  The mid-d
+// kernels K1-args and K2-args run several chains a block, a warp each, on
+// nuts_tree_group.cuh.
 //
 // Every per-chain contraction goes through Reducer::sum (block_sum.cuh),
 // whose order is the one of nuts_rs_tpu_torch/ops.py::tsum.  The Pallas

@@ -66,6 +66,14 @@ MAX_BLOCK = 128  # nrt::MAX_BLOCK, the kernels' __launch_bounds__
 MAX_LD_BLOCK = 8
 LD_NVEC = {"posterior": 21, "warmup": 18}
 MID_NVEC = {"posterior": 21, "warmup": 19}  # the warmup keeps q1 as well
+# mid-d kernels K1-args / K2-args: at most GROUP_MAX chains a CUDA block, a
+# warp each (nrt::GR_MAX), in blocks of GROUP_FLAGS floats of flags; the
+# regression's group form keeps its residuals in registers up to
+# GROUP_ROWS_IN_REGISTERS rows (LogisticRegression::rows_in_registers)
+GROUP_MAX = 8
+GROUP_FLAGS = 2 * GROUP_MAX
+GROUP_SCALARS = GROUP_MAX * 64  # nrt::GR_SCALAR_FLOATS a chain (group form)
+GROUP_ROWS_IN_REGISTERS = 256 * 4
 MCLMC_MID_NVEC = 15  # nrt::MC_MID_NVEC, both mid-d MCLMC kernels
 LD_WARPS = 8  # nrt::LD_W, warps of a chain's block (ops.TSUM_THREADS / 32)
 LD_REDUCE_FLOATS = 2 * 11 * LD_WARPS  # two scratch buffers, LD_NRED x LD_W
@@ -83,11 +91,12 @@ SMEM_OPT_IN_BYTES = SM_SMEM_BYTES - SMEM_BLOCK_RESERVED
 H100_SMS = 132  # SMs of the card the kernels are sized for
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
-# Macros for timing ablations only (profile_main_path.py item 12; all but
-# the last change results): NRT_ABLATE_FIXED_TREES (csrc/nuts_tree_ld.cuh),
-# NRT_ABLATE_SV_SCANS, NRT_ABLATE_SV_BARRIERS (csrc/models.cuh),
-# NRT_LD_ARGS_MIN_BLOCKS=n.  Empty in every other use; set before the first
-# library loads.
+# Macros for timing ablations only (profile_main_path.py items 12 and 13;
+# all but NRT_LD_ARGS_MIN_BLOCKS change results): NRT_ABLATE_FIXED_TREES
+# (csrc/nuts_tree_ld.cuh), NRT_ABLATE_SV_SCANS, NRT_ABLATE_SV_BARRIERS
+# (csrc/models.cuh), NRT_LD_ARGS_MIN_BLOCKS=n, NRT_ABLATE_EVAL
+# (csrc/nuts_fused_mid_posterior.cu: no model evaluation).  Empty in every
+# other use; set before the first library loads.
 NVCC_DEFINES = []
 
 BUILD_INFO = {"seconds": 0.0, "libraries": {}}
@@ -125,10 +134,15 @@ SOURCES = {
         "nrt_ld_args_warmup_launch": (_NUTS_WARM + [_P] * 20, _I),
         "nrt_ld_args_warmup_blocks_per_sm": ([_I, _P, _LL], _I)},
     "nuts_fused_mid_posterior": {
-        "nrt_mid_posterior_launch": (_NUTS_POST + [_P] * 19, _I),
-        "nrt_mid_smem_bytes": ([_I, _I, _I, _I, _P], _LL)},
+        "nrt_mid_posterior_launch": (
+            _NUTS_POST[:4] + [_I] + _NUTS_POST[4:] + [_P] * 19, _I),
+        "nrt_mid_group_bytes": ([_I, _I, _I, _I, _P, _I], _LL),
+        "nrt_mid_group": ([_I, _I, _I, _I, _P], _I),
+        "nrt_mid_posterior_blocks_per_sm": ([_I, _P, _LL], _I)},
     "nuts_fused_mid_warmup": {
-        "nrt_mid_warmup_launch": (_NUTS_WARM + [_P] * 20, _I)},
+        "nrt_mid_warmup_launch": (
+            _NUTS_WARM[:4] + [_I] + _NUTS_WARM[4:] + [_P] * 20, _I),
+        "nrt_mid_warmup_blocks_per_sm": ([_I, _P, _LL], _I)},
     "mclmc_fused_mid_posterior": {
         "nrt_mclmc_mid_posterior_launch": (_MCLMC_POST + [_P] * 20, _I),
         "nrt_mclmc_mid_smem_bytes": ([_I, _I, _P], _LL)},
@@ -408,6 +422,18 @@ _MODEL_DATA = {
 }
 
 
+# the group form's scratch in floats from the functor's ints and G, for the
+# functors that have one (csrc/models.cuh: LogisticRegression::group_floats:
+# qg [d][8], part [G][d][8], llp [G][8], a warp's [32][36] for the second
+# product's butterflies, rs [G][N] past the registers)
+_GROUP_FLOATS = {
+    "logistic_regression": lambda ints, G: (
+        GROUP_MAX * ints[1] + G * LD_WARPS * (ints[1] + 1)
+        + LD_WARPS * 32 * 36
+        + (0 if ints[0] <= GROUP_ROWS_IN_REGISTERS else G * ints[0])),
+}
+
+
 def model_data_args(model, d, device):
     """(ints, ptrs) of a model's hook tensors for a mid-d launch, after the
     functor's own check of them on ``device``."""
@@ -417,23 +443,63 @@ def model_data_args(model, d, device):
 
 
 def mid_smem_bytes(kind, d, maxdepth, model):
-    """Dynamic shared memory of one chain's CUDA block in the mid-d kernel
-    ``kind`` ("posterior" / "warmup"), and in the ld_args kernel of that
-    kind, which lays it out alike: the dim-on-lanes layout of
-    ``ld_smem_bytes`` with ``MID_NVEC`` vectors, then the model functor's
-    scratch, whose size comes from the functor's check of the model's data
-    where they lie."""
+    """Dynamic shared memory of one chain's CUDA block of 256 threads that
+    evaluates the model in its eval_block form: the ld_args kernel ``kind``
+    ("posterior" / "warmup") and, for the posterior, K1-flow
+    (``flow_smem_bytes``): the dim-on-lanes layout of ``ld_smem_bytes``
+    with ``MID_NVEC`` vectors, then the model functor's scratch, whose size
+    comes from the functor's check of the model's data where they lie.  The
+    mid-d kernels lay out G chains a block (``mid_group_bytes``)."""
     return 4 * (MID_NVEC[kind] * d + 2 * (maxdepth + 1) + LD_REDUCE_FLOATS
                 + 2 * MAX_LD_BLOCK + _scratch_floats(model, d))
 
 
-def _scratch_floats(model, d):
-    """Shared-memory floats of a model functor's scratch, from the functor's
-    check of the model's data where they lie."""
+def _hook_ints(model, d):
+    """(hook name, the ints its functor takes) from the functor's check of
+    the model's data where they lie."""
     name, _, tensors = model.hook_parts()
-    ints = _MODEL_DATA[name][0](tensors, d, tensors[0].device if tensors
-                                else None)
+    return name, _MODEL_DATA[name][0](tensors, d, tensors[0].device
+                                      if tensors else None)
+
+
+def _scratch_floats(model, d):
+    """Shared-memory floats of a model functor's scratch."""
+    name, ints = _hook_ints(model, d)
     return _MODEL_DATA[name][1](ints)
+
+
+def _round4(n):
+    return -(-n // 4) * 4
+
+
+def mid_group_bytes(kind, d, maxdepth, model, G):
+    """Dynamic shared memory of a CUDA block of ``G`` chains in the mid-d
+    kernel ``kind`` (K1-args / K2-args), as csrc/nuts_tree_group.cuh lays it
+    out: the group form's scratch (the regression's), the chain flags, the
+    chains' scalars while the group form runs, then G chain parts of
+    ``MID_NVEC`` vectors, the two cached-dot rows and,
+    for a functor without the group form, its scratch, every part a
+    multiple of 4 floats."""
+    name, ints = _hook_ints(model, d)
+    nvec, D1 = MID_NVEC[kind], maxdepth + 1
+    if name in _GROUP_FLOATS:
+        group = _GROUP_FLOATS[name](ints, G) + GROUP_SCALARS
+        chain = nvec * d + 2 * D1
+    else:
+        group, chain = 0, nvec * d + 2 * D1 + _MODEL_DATA[name][1](ints)
+    return 4 * (_round4(group) + GROUP_FLAGS + G * _round4(chain))
+
+
+def mid_group(kind, d, maxdepth, model):
+    """The chains a CUDA block of the mid-d kernel ``kind`` serves: the most,
+    a power of two up to ``GROUP_MAX``, whose block fits a block's opt-in
+    shared memory (``mid_group_bytes``); 0 where one chain does not fit.
+    csrc/nuts_tree_group.cuh::gr_chains is the same rule, and a launch
+    checks that the two agree.  A logical chain block B must divide it."""
+    for G in (8, 4, 2, 1):
+        if mid_group_bytes(kind, d, maxdepth, model, G) <= SMEM_OPT_IN_BYTES:
+            return G
+    return 0
 
 
 def mclmc_mid_smem_bytes(d, model):
@@ -638,11 +704,14 @@ def _ld_common(kind, q, model, opts, B):
 
 
 def _mid_common(kind, q, model, opts, B, family="mid"):
-    """(C, d, D, model id, params, ptrs, ints, workspace, lib) of a launch of
-    the mid-d kernel (``family`` "mid") or of the dim-on-lanes kernel with
-    data ("ld_args"), after the device, block, size and data checks.
-    ``ptrs`` and ``ints`` are ctypes arrays of the hook tensors' device
-    pointers and of the sizes their functor takes."""
+    """(C, d, D, model id, params, ptrs, ints, workspace, lib, G) of a
+    launch of the mid-d kernel (``family`` "mid") or of the dim-on-lanes
+    kernel with data ("ld_args"; G None), after the device, block, size and
+    data checks.  ``ptrs`` and ``ints`` are ctypes arrays of the hook
+    tensors' device pointers and of the sizes their functor takes.  A
+    mid-d launch serves ``mid_launch_group``'s G chains a CUDA block; B must
+    divide the rule's G, and the block must fit an SM
+    (``mid_blocks_per_sm``), or this raises."""
     model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK)
     C, d = q.shape
     D = opts.maxdepth
@@ -652,25 +721,115 @@ def _mid_common(kind, q, model, opts, B, family="mid"):
             f"the {what} CUDA kernels take maxdepth 1..{LD_MAX_MAXDEPTH}, "
             f"got {D}")
     ints, ptrs = model_data_args(model, d, q.device)
-    need = mid_smem_bytes(kind, d, D, model)
-    if need > SMEM_OPT_IN_BYTES:
-        raise NotImplementedError(
-            f"model {model.name!r} at dim {d} needs {need} bytes of shared "
-            f"memory per chain in the {what} {kind} kernel; a block has "
-            f"{SMEM_OPT_IN_BYTES} (ROADMAP.md queue 1 item 12)")
     c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
     c_ptrs = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
     probe = library(f"nuts_fused_{family}_posterior")
-    built = getattr(probe, f"nrt_{family}_smem_bytes")(
-        int(kind == "warmup"), d, D, model_id,
-        ctypes.cast(c_ints, ctypes.c_void_p))
-    if built != need:
-        raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
-                           f"for the {what} {kind} kernel, "
-                           f"_build.mid_smem_bytes {need}")
+    p_ints = ctypes.cast(c_ints, ctypes.c_void_p)
+    G = None
+    if family == "mid":
+        rule = mid_group_for(kind, d, D, model, B)
+        G = mid_launch_group(kind, d, D, model, C, B, sm_count(q.device))
+        built = probe.nrt_mid_group(int(kind == "warmup"), d, D, model_id,
+                                    p_ints)
+        need = mid_group_bytes(kind, d, D, model, G)
+        got = probe.nrt_mid_group_bytes(int(kind == "warmup"), d, D,
+                                        model_id, p_ints, G)
+        if built != rule or got != need:
+            raise RuntimeError(
+                f"csrc/nuts_tree_group.cuh gives G = {built} and {got} bytes "
+                f"for the mid-d {kind} kernel, _build.mid_group {rule} and "
+                f"mid_group_bytes {need}")
+        mid_blocks_per_sm(kind, model, D, G)
+    else:
+        need = mid_smem_bytes(kind, d, D, model)
+        if need > SMEM_OPT_IN_BYTES:
+            raise NotImplementedError(
+                f"model {model.name!r} at dim {d} needs {need} bytes of "
+                f"shared memory per chain in the {what} {kind} kernel; a "
+                f"block has {SMEM_OPT_IN_BYTES} (ROADMAP.md queue 1 item 12)")
+        built = probe.nrt_ld_args_smem_bytes(int(kind == "warmup"), d, D,
+                                             model_id, p_ints)
+        if built != need:
+            raise RuntimeError(f"csrc lays out {built} bytes of shared "
+                               f"memory for the {what} {kind} kernel, "
+                               f"_build.mid_smem_bytes {need}")
     work = torch.empty(C, 4, D + 1, d, dtype=torch.float32, device=q.device)
     return (C, d, D, model_id, params, c_ptrs, c_ints, work,
-            library(f"nuts_fused_{family}_{kind}"))
+            library(f"nuts_fused_{family}_{kind}"), G)
+
+
+def mid_group_for(kind, d, maxdepth, model, B):
+    """The chains a CUDA block of a mid-d launch in logical chain blocks of
+    B: ``mid_group``'s; raises where one chain does not fit, or where B does
+    not divide G (a chain block never spans CUDA blocks)."""
+    G = mid_group(kind, d, maxdepth, model)
+    if G < 1:
+        raise NotImplementedError(
+            f"model {model.name!r} at dim {d} needs "
+            f"{mid_group_bytes(kind, d, maxdepth, model, 1)} bytes of shared "
+            f"memory for one chain in the mid-d {kind} kernel; a block has "
+            f"{SMEM_OPT_IN_BYTES} (ROADMAP.md queue 1 item 12)")
+    if G % B:
+        raise ValueError(
+            f"the mid-d {kind} kernel serves {G} chains a CUDA block (its "
+            f"shared memory), which must be a multiple of the chain block "
+            f"{B}")
+    return G
+
+
+def mid_launch_group(kind, d, maxdepth, model, C, B, sms):
+    """The chains a CUDA block of a mid-d launch of C chains in logical
+    blocks of B on a card of ``sms`` SMs.  The regression's group form
+    takes ``mid_group_for``'s G: one read of its data serves them all.  A
+    functor without it evaluates each chain on its own warp, so more chains
+    a block only pack them onto fewer SMs: it takes the fewest, a power of
+    two and a multiple of B, whose ceil(C / G) blocks (one an SM) fit the
+    card in one wave, up to the rule's G."""
+    G = mid_group_for(kind, d, maxdepth, model, B)
+    if model.hook_parts()[0] in _GROUP_FLOATS:
+        return G
+    fewest = B
+    while fewest < G and -(-C // fewest) > sms:
+        fewest *= 2
+    return fewest
+
+
+_SMS = {}
+
+
+def sm_count(device):
+    """SMs of the card ``device`` (cached)."""
+    device = torch.device(device)
+    if device not in _SMS:
+        _SMS[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SMS[device]
+
+
+_BLOCKS_PER_SM = {}
+
+
+def mid_blocks_per_sm(kind, model, maxdepth, G):
+    """CUDA blocks of G chains one SM holds of the mid-d kernel ``kind`` for
+    ``model`` at its own d (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    at ``mid_group_bytes``); raises where it is none."""
+    d = model.dim
+    name, ints = _hook_ints(model, d)
+    smem = mid_group_bytes(kind, d, maxdepth, model, G)
+    key = (kind, name, tuple(ints), smem)
+    n = _BLOCKS_PER_SM.get(key)
+    if n is None:
+        c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
+        lib = library(f"nuts_fused_mid_{kind}")
+        n = getattr(lib, f"nrt_mid_{kind}_blocks_per_sm")(
+            MODEL_IDS[name], ctypes.cast(c_ints, ctypes.c_void_p), smem)
+        if n < 0:
+            _raise_on(-n, lib, f"nuts_fused_mid_{kind} occupancy")
+        _BLOCKS_PER_SM[key] = n
+    if n < 1:
+        raise RuntimeError(f"an SM holds no block of {G} chains of the mid-d "
+                           f"{kind} kernel ({smem} bytes of shared memory)")
+    return n
 
 
 def ld_args_blocks_per_sm(kind, model, maxdepth):
@@ -845,13 +1004,14 @@ def launch_ld_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
 
 def launch_mid_posterior(seed, q, g, logp, stds, mean, logdet, step0,
                          step_bar, K, model, opts, jitter, B, family="mid"):
-    """Launch csrc/nuts_fused_mid_posterior.cu (``family`` "mid") or
+    """Launch csrc/nuts_fused_mid_posterior.cu (``family`` "mid", G chains a
+    CUDA block, see ``_mid_common``) or
     csrc/nuts_fused_ld_args_posterior.cu ("ld_args"); returns (draws
     [K, C, d], stats [K, C, NSTATS], q_f, g_f [C, d], logp_f [C],
     iters [C])."""
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
-    (C, d, D, model_id, params, ptrs, ints, work,
-     lib) = _mid_common("posterior", q, model, opts, B, family)
+    (C, d, D, model_id, params, ptrs, ints, work, lib,
+     G) = _mid_common("posterior", q, model, opts, B, family)
     dev = q.device
     f32 = dict(dtype=torch.float32, device=dev)
     draws = torch.empty(K, C, d, **f32)
@@ -863,7 +1023,8 @@ def launch_mid_posterior(seed, q, g, logp, stds, mean, logdet, step0,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"nrt_{family}_posterior_launch")(
-            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            d, D, C, B, *(() if G is None else (G,)), K,
+            int(seed) & 0xFFFFFFFF,
             float(opts.max_energy_error), hj, jc1, jc2, model_id,
             ctypes.cast(params, ctypes.c_void_p),
             ctypes.cast(ptrs, ctypes.c_void_p),
@@ -1053,15 +1214,16 @@ def launch_stream_posterior(seed, q, g, logp, stds, mean, logdet, step0,
 
 def launch_mid_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
                       opts, sset, use_grad_based, B, family="mid"):
-    """Launch csrc/nuts_fused_mid_warmup.cu (``family`` "mid") or
+    """Launch csrc/nuts_fused_mid_warmup.cu (``family`` "mid", G chains a
+    CUDA block, see ``_mid_common``) or
     csrc/nuts_fused_ld_args_warmup.cu ("ld_args"); returns (draws
     [K, C, d], stats [K, C, NSTATS_W], q, g, logp, stds, mean, est, sca,
     iters).  As the ld warmup kernel, it keeps a chain's current q and g and
     its estimator planes in the output buffers, which start as copies of the
     inputs."""
     check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
-    (C, d, D, model_id, params, ptrs, ints, work,
-     lib) = _mid_common("warmup", q, model, opts, B, family)
+    (C, d, D, model_id, params, ptrs, ints, work, lib,
+     G) = _mid_common("warmup", q, model, opts, B, family)
     dev = q.device
     K = flags.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
@@ -1077,7 +1239,8 @@ def launch_mid_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = getattr(lib, f"nrt_{family}_warmup_launch")(
-            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            d, D, C, B, *(() if G is None else (G,)), K,
+            int(seed) & 0xFFFFFFFF,
             float(opts.max_energy_error), hj, jc1, jc2, int(use_grad_based),
             float(sset.target_accept), float(da.t0), float(da.gamma),
             float(-da.k), math.log(da.max_step_size), model_id,

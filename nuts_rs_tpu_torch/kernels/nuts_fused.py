@@ -33,10 +33,11 @@ template parameters, every sum over the parameter axis in coordinate order,
 every model that carries data (the ``n_model_args > 0`` variants of the
 Pallas bodies, ``nuts_pallas.py:84,159-166`` and ``:944,975-979``: K1-args
 and K2-args), it takes the mid-d kernels ``csrc/nuts_fused_mid_posterior.cu``
-and ``csrc/nuts_fused_mid_warmup.cu``: the ld kernels' bodies (256 threads
-a chain, d and maxdepth at launch, sums in ``ops.tsum``'s order, logical
-blocks of at most 8 chains, by default 1) with the cl site index and the model evaluated
-by the block's threads together.  A model's data travel in its
+and ``csrc/nuts_fused_mid_warmup.cu``: the ld kernels' tree (d and maxdepth
+at launch, sums in ``ops.tsum``'s order, logical blocks of at most 8
+chains, by default 1) with the cl site index, G <= 8 chains a CUDA block
+of 256 threads, one warp a chain (``_build.mid_group``), the regression
+evaluated by the block for all its chains at once.  A model's data travel in its
 ``kernel_hook`` (``models/model.py``), not in an argument of their own.
 
 Each kernel has a plain PyTorch version here (``*_reference``): the same

@@ -92,6 +92,19 @@ After building the kernels it prints, for each path,
    K1-ld on the iid normal at d = 1002 from the same states; in
    microseconds of an SM and of one chain a leapfrog, with the blocks an
    SM of each.
+13. ``--data-launch TREE [TREE ...]``: as item 12 for the mid-d kernels on
+   the data path (logistic regression, 1000 rows, d = 100, 1024 chains) and
+   the radon path (1024 chains): K1-args' first 128-draw posterior launch
+   on the path's own post-warmup states and K2-args' first full 128-row
+   warmup launch (draws 2-130) on its own warmup states, in a process of its
+   own for each checkout given, with their leapfrogs, block iterations,
+   bounds and the chains a CUDA block (G) and blocks an SM where the
+   checkout has them, the launches' inputs saved; then each checkout in the
+   order given (parent, this, this, parent) on every saved set; then the
+   ablation: K1-args on this checkout's saved states with every tree forced
+   to maxdepth 3 (32 draws of 7 leapfrogs), in every checkout given, and in
+   this one also without the model's evaluation, in microseconds a block
+   iteration and of an SM a chain's leapfrog.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -963,6 +976,193 @@ def sv_launch(trees):
         print(out.stdout.strip())
 
 
+# Item 13: K1-args' first 128-draw posterior launch on the data path's (or
+# radon path's) own post-warmup states and K2-args' first full 128-row
+# warmup launch on its own warmup states, in the tree given, as SV_LAUNCH
+# does for the SV path.
+DATA_LAUNCH = """
+import sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DiagNutsSettings, Sampler
+from nuts_rs_tpu_torch.kernels import _build, nuts_fused as nf
+from nuts_rs_tpu_torch.models.gaussian import logistic_regression
+from nuts_rs_tpu_torch.models.hierarchical import radon
+dev = torch.device("cuda", 0)
+which, path = sys.argv[1], sys.argv[2]
+if which == "glm":
+    model = logistic_regression(cs.GLM_ROWS, cs.GLM_DIM, cs.SEED)
+    chains, tune, draws = cs.GLM_CHAINS, cs.GLM_TUNE, cs.GLM_DRAWS
+else:
+    model = radon(seed=cs.SEED)
+    chains, tune, draws = cs.RADON_CHAINS, cs.RADON_TUNE, cs.RADON_DRAWS
+settings = DiagNutsSettings(num_chains=chains, num_tune=tune,
+                            num_draws=draws, seed=cs.SEED,
+                            posterior_kernel="pallas")
+seen = {}
+run0, warm0 = nf.nuts_fused_run, nf.nuts_fused_warmup_run
+def run(*a, **k):
+    seen.setdefault("post", (a, k))
+    return run0(*a, **k)
+def warm(*a, **k):
+    if a[1].shape[0] == cs.CHUNK:
+        seen.setdefault("warm", (a, k))
+    return warm0(*a, **k)
+nf.nuts_fused_run, nf.nuts_fused_warmup_run = run, warm
+sampler = Sampler(model, settings, device=dev)
+while "post" not in seen:
+    sampler.run_next_chunk()
+nf.nuts_fused_run, nf.nuts_fused_warmup_run = run0, warm0
+p, w = seen["post"][0], seen["warm"][0]
+torch.save({"post": p[:9], "K": p[9], "jitter": p[12], "warm": w[:9],
+            "grad": w[12]}, path)
+model, D = sampler.model, settings.nuts_options().maxdepth
+for name, fn, key, at, kind in (("K1-args", run0, "post", 4, "posterior"),
+                                ("K2-args", warm0, "warm", 8, "warmup")):
+    a, k = seen[key]
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(lambda: fn(*a, **k), 3)
+    st = out[at]
+    b_ms, b_by = cs.bound("nuts", model, a[1:9], out, st)
+    it = st["loop_iterations"].float()
+    group = ""
+    if hasattr(_build, "mid_launch_group"):
+        G = _build.mid_launch_group(kind, model.dim, D, model, chains, 1,
+                                    _build.sm_count(dev))
+        group = (f"; G = {G} chains a CUDA block, "
+                 f"{_build.mid_blocks_per_sm(kind, model, D, G)} blocks an SM")
+    print(f"{which} {name} own states: {ms:.4f} ms per launch of "
+          f"{tuple(st['n_steps'].shape)} (chains, draws); leapfrogs "
+          f"{int(st['n_steps'].sum())}, per draw "
+          f"{float(st['n_steps'].float().mean()):.2f}; loop iterations "
+          f"mean {float(it.mean()):.1f} max {int(it.max())}; bound "
+          f"{b_ms:.4f} ms ({b_by}){group}")
+"""
+
+# Item 13's comparison on common inputs: this tree's K1-args and K2-args on
+# the launches DATA_LAUNCH saved, 5 calls after a first.
+DATA_TIME = """
+import sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DiagNutsSettings
+from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+from nuts_rs_tpu_torch.models.gaussian import logistic_regression
+from nuts_rs_tpu_torch.models.hierarchical import radon
+dev = torch.device("cuda", 0)
+config = DiagNutsSettings(seed=cs.SEED,
+                          posterior_kernel="pallas").chain_config()
+for spec in sys.argv[1:]:
+    which, path = spec.split("=", 1)
+    model = (logistic_regression(cs.GLM_ROWS, cs.GLM_DIM, cs.SEED)
+             if which == "glm" else radon(seed=cs.SEED)).to(dev)
+    s = torch.load(path)
+    runs = (("K1-args", lambda: nf.nuts_fused_run(
+                *s["post"], s["K"], model, config.nuts, s["jitter"]), 4),
+            ("K2-args", lambda: nf.nuts_fused_warmup_run(
+                *s["warm"], model, config.nuts, config.step_size,
+                s["grad"]), 8))
+    for name, fn, at in runs:
+        out = fn()
+        torch.cuda.synchronize()
+        ms = cs.cuda_events_ms(fn, 5)
+        it = out[at]["loop_iterations"]
+        print(f"{which} {name} on {path.rsplit('/', 1)[-1]}: {ms:.4f} ms; "
+              f"leapfrogs {int(out[at]['n_steps'].sum())}, loop "
+              f"iterations max {int(it.max())}")
+"""
+
+
+# Item 13's ablation: K1-args on a saved set of its own states with every
+# tree forced to maxdepth 3 (NRT_ABLATE_FIXED_TREES: 7 leapfrogs a draw,
+# whatever the model's values), in the tree given and with the macros given
+# (NRT_ABLATE_EVAL: without the model's evaluation); microseconds a block
+# iteration and of an SM a chain's leapfrog.
+DATA_ABLATE = """
+import sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch.kernels import _build, nuts_fused as nf
+from nuts_rs_tpu_torch.kernels.nuts import NutsOptions
+from nuts_rs_tpu_torch.models.gaussian import logistic_regression
+from nuts_rs_tpu_torch.models.hierarchical import radon
+_build.NVCC_DEFINES[:] = sys.argv[2:]
+dev = torch.device("cuda", 0)
+label = " ".join(m.removeprefix("NRT_") for m in sys.argv[2:])
+K, D = 32, 3
+opts = NutsOptions(maxdepth=D)
+for spec in sys.argv[1].split(","):
+    which, path = spec.split("=", 1)
+    model = (logistic_regression(cs.GLM_ROWS, cs.GLM_DIM, cs.SEED)
+             if which == "glm" else radon(seed=cs.SEED)).to(dev)
+    s = torch.load(path)
+    def fn():
+        return nf.nuts_fused_run(*s["post"], K, model, opts, s["jitter"])
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(fn, 3)
+    it = int(out[4]["loop_iterations"].max())
+    leaps = int(out[4]["n_steps"].sum())
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"ablation [{label}] {which} K1-args: {ms:.4f} ms, {leaps} "
+          f"leapfrogs, block iterations max {it}: {1e3 * ms / it:.3f} us "
+          f"an iteration, {1e3 * ms * sms / leaps:.4f} us of an SM a "
+          "leapfrog")
+"""
+
+DATA_ABLATIONS = (("NRT_ABLATE_FIXED_TREES",),
+                  ("NRT_ABLATE_FIXED_TREES", "NRT_ABLATE_EVAL"))
+
+
+def data_launch(trees):
+    """Item 13: each distinct tree's own data and radon paths, their
+    launches saved; then every tree in the order given (e.g. parent, this
+    one, this one, parent) timed on every saved set."""
+    from pathlib import Path
+
+    from nuts_rs_tpu_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    saved = {}
+    for tree in trees:
+        key = Path(tree).resolve()
+        if key in saved:
+            continue
+        saved[key] = []
+        for which in ("glm", "radon"):
+            path = str(_build.BUILD_DIR / f"{which}_states_{len(saved)}.pt")
+            saved[key].append(f"{which}={path}")
+            out = subprocess.run([sys.executable, "-c", DATA_LAUNCH, which,
+                                  path], cwd=tree, capture_output=True,
+                                 text=True)
+            if out.returncode:
+                raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+            for line in out.stdout.strip().splitlines():
+                print(f"{tree}: {line} [saved as {path}]")
+    specs = [spec for specs in saved.values() for spec in specs]
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", DATA_TIME, *specs],
+                             cwd=tree, capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+        for line in out.stdout.strip().splitlines():
+            print(f"{tree}: {line}")
+    # the ablation on this checkout's states: every tree given with fixed
+    # trees (the design before this one, if it is among them, for its
+    # iteration), this checkout also without the evaluation
+    here = Path(__file__).resolve().parent
+    states = ",".join(saved.get(here) or next(iter(saved.values())))
+    for tree in dict.fromkeys(trees):
+        own = Path(tree).resolve() == here
+        for defines in DATA_ABLATIONS if own else DATA_ABLATIONS[:1]:
+            out = subprocess.run([sys.executable, "-c", DATA_ABLATE, states,
+                                  *defines], cwd=tree, capture_output=True,
+                                 text=True)
+            if out.returncode:
+                raise RuntimeError(f"{tree} ablation {defines}: "
+                                   f"{out.stderr[-3000:]}")
+            for line in out.stdout.strip().splitlines():
+                print(f"{tree}: {line}")
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
@@ -989,6 +1189,8 @@ def main() -> int:
     parser.add_argument("--sv-launch", nargs="+", metavar="TREE",
                         help="item 12 alone, for each checkout in turn, "
                              "then its ablation in this one")
+    parser.add_argument("--data-launch", nargs="+", metavar="TREE",
+                        help="item 13 alone, for each checkout in turn")
     args = parser.parse_args()
     only = ("large-d" if args.only_large_d else "data" if args.only_data
             else "mclmc-data" if args.only_mclmc_data else None)
@@ -1010,6 +1212,10 @@ def main() -> int:
         return 0
     if args.sv_launch:
         sv_launch(args.sv_launch)
+        print(card_line())
+        return 0
+    if args.data_launch:
+        data_launch(args.data_launch)
         print(card_line())
         return 0
     if args.only_stream:

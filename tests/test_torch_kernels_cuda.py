@@ -219,6 +219,155 @@ def test_mid_kernels_with_data_match_plain_versions_on_the_card(
                           block=block)
 
 
+def _same_bits(got, want, what):
+    a, b = np.asarray(got.cpu()), np.asarray(want.cpu())
+    assert a.shape == b.shape, what
+    if not np.array_equal(a, b, equal_nan=True):
+        with np.errstate(invalid="ignore"):
+            diff = np.nanmax(np.abs(a - b))
+        raise AssertionError(f"{what}: not bit for bit (max abs diff {diff})")
+
+
+def _group_case(name, dev, C):
+    """(model, maxdepth, posterior inputs near the model's posterior) of a
+    mid-d group-kernel case."""
+    import json
+    from pathlib import Path
+
+    from nuts_rs_tpu_torch.chain import cl_max_dim
+    from nuts_rs_tpu_torch.models import hierarchical as th
+
+    rng = np.random.default_rng(len(name) + C)
+    D = 10
+    if name == "glm":
+        model = tg.logistic_regression(1000, 100, 0)
+        ref = json.loads((Path(__file__).parent / "data" /
+                          "logreg_d100_reference.json").read_text())
+        center, sd, steps = np.array(ref["mean"]), np.array(ref["std"]), \
+            (0.4, 0.55)
+    elif name.startswith("glm_"):  # residuals through shared memory
+        # 1500 rows: G = 8; 15000: G = 2 (their shared memory); 30000: G = 1
+        rows = {"glm_rows": 1500, "glm_g2": 15000, "glm_g1": 30000}[name]
+        model = tg.logistic_regression(rows, 37, 1)
+        center, sd, steps = np.zeros(37), np.full(37, 0.05), (0.3, 0.4)
+        D = 6
+    elif name == "radon":
+        model = th.radon(seed=0)
+        center = np.r_[1.5, -0.7, np.log(0.8), np.log(0.3), np.zeros(85)]
+        sd = np.r_[0.1, 0.1, 0.05, 0.3, np.full(85, 0.8)]
+        steps = (0.4, 0.55)
+    elif name == "rank1":
+        model = tg.correlated_normal_rank1(100)
+        center, sd, steps = np.zeros(100), np.full(100, 1.2), (0.1, 0.2)
+    elif name == "funnel":
+        model = tg.funnel(10)
+        center, sd, steps = np.zeros(10), np.full(10, 0.8), (0.2, 0.3)
+    elif name == "correlated_normal":
+        model = tg.correlated_normal(100)
+        center, sd, steps = np.zeros(100), np.full(100, 1.2), (0.4, 0.6)
+    else:  # normal<d>, or normal_max: the largest mid d at maxdepth 2
+        D = 2 if name == "normal_max" else 10
+        d = cl_max_dim(2) if name == "normal_max" else int(name[6:])
+        model = tg.normal_logp(d, 0.5)
+        center, sd, steps = np.full(d, 0.5), np.ones(d), (0.3, 0.5)
+    model = model.to(dev)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    d = model.dim
+    q = f(center + sd * rng.normal(size=(C, d)))
+    logp, g = model.logp_and_grad(q)
+    stds = f(sd * rng.uniform(0.8, 1.2, size=(C, d)))
+    mean = f(center + 0.1 * sd * rng.normal(size=(C, d)))
+    logdet = -torch.log(stds).sum(1)
+    step = f(rng.uniform(*steps, size=C))
+    return model, D, (q, g, logp, stds, mean, logdet, step, step.clone())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,C,B", [
+    ("glm", 1024, 1), ("glm", 100, 2), ("glm", 64, 8), ("glm_rows", 100, 1),
+    ("glm_g2", 64, 2), ("glm_g1", 64, 1), ("radon", 1024, 1),
+    ("radon", 100, 4), ("radon", 64, 8), ("rank1", 100, 1), ("funnel", 64, 8),
+    ("correlated_normal", 1024, 2), ("normal11", 100, 1),
+    ("normal212", 64, 8), ("normal_max", 100, 2), ("normal_max", 64, 1)])
+def test_mid_group_kernels_match_plain_versions_bit_for_bit(name, C, B):
+    """K1-args and K2-args, G chains a CUDA block (the regression's the
+    rule's: 8; 2 and 1 where its residuals fill the shared memory; a
+    functor without the group form the fewest for one wave, up to the
+    rule's: 4 at the largest mid d at maxdepth 2), against their plain
+    versions: every integer
+    stat equal and every float bit for bit, at 64, 100 (the last CUDA block
+    partly empty) and 1024 chains in logical blocks of B, on the regression
+    (1000 x 100; 1500, 15000 and 30000 rows at d = 37: residuals in shared
+    memory), radon, the three other functors and the iid normal at d = 11,
+    212 and the largest mid d at maxdepth 2."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    model, D, args = _group_case(name, dev, C)
+    opts = NutsOptions(maxdepth=D)
+    d = model.dim
+    assert nf.cl_kernel(model, d) == "mid"
+    for kind in ("posterior", "warmup"):
+        G = _build.mid_launch_group(kind, d, D, model, C, B,
+                                    _build.sm_count(dev))
+        print(f"{name} {kind}: d={d} C={C} B={B} G={G}, "
+              f"{_build.mid_blocks_per_sm(kind, model, D, G)} blocks an SM")
+    before = dict(nf.LAUNCHES)
+    got = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=B)
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_run_reference(3, *args, 8, model, opts, 0.1,
+                                       block=B)
+    for i, what in enumerate(("q_f", "g_f", "logp_f", "draws")):
+        _same_bits(got[i], want[i], what)
+    for stat in list(nf.STAT_NAMES) + ["loop_iterations"]:
+        _same_bits(got[4][stat], want[4][stat], stat)
+
+    q, g, logp, stds, mean, logdet, step, _ = args
+    flags = torch.ones(4, nf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, nf.FLAG_DO_SWITCH] = 0
+    flags[2, nf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, d, device=dev)
+    est[:, 0], est[:, 2], est[:, 4], est[:, 6] = q, g, q, g
+    sca = torch.zeros(C, nf.NSCA, device=dev)
+    sca[:, nf.SCA_STEP] = step
+    sca[:, nf.SCA_DA_LS] = sca[:, nf.SCA_DA_LSA] = torch.log(step)
+    sca[:, nf.SCA_DA_MU] = torch.log(10.0 * step)
+    sca[:, nf.SCA_DA_CNT] = 1.0
+    sca[:, nf.SCA_CNT_FG] = sca[:, nf.SCA_CNT_BG] = 1.0
+    sca[:, nf.SCA_LOGDET] = logdet
+    wargs = (flags, q, g, logp, stds, mean, est, sca, model, opts,
+             StepSizeSettings(), True)
+    got = nf.nuts_fused_warmup_run(5, *wargs, block=B)
+    torch.cuda.synchronize()
+    want = nf.nuts_fused_warmup_run_reference(5, *wargs, block=B)
+    for i, what in enumerate(("q", "g", "logp", "stds", "mean", "est", "sca",
+                              "draws")):
+        _same_bits(got[i], want[i], what)
+    for stat in list(nf.WARMUP_STAT_NAMES) + ["loop_iterations"]:
+        _same_bits(got[8][stat], want[8][stat], stat)
+    for which in ("posterior", "warmup"):
+        key = f"nuts_fused_mid_{which}"
+        assert nf.LAUNCHES[key] == before[key] + 1, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,B", [("normal_max", 8), ("glm_g1", 2)])
+def test_mid_group_kernels_refuse_a_block_g_does_not_hold(name, B):
+    """A logical block that does not divide the CUDA block's G chains is
+    refused (G = 4 at the largest mid d at maxdepth 2, 1 where one chain's
+    residuals fill the shared memory); no CUDA tensor reaches a plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    dev = torch.device("cuda", 0)
+    model, D, args = _group_case(name, dev, 64)
+    opts = NutsOptions(maxdepth=D)
+    with pytest.raises(ValueError, match=f"multiple of the chain block {B}"):
+        nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=B)
+
+
 @pytest.mark.cuda
 def test_normal_100_runs_end_to_end_on_the_card():
     """A size between the thread-per-chain instances and the dim-on-lanes
