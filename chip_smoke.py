@@ -1058,9 +1058,13 @@ KERNELS = (
      "nuts_rs_tpu/kernels/nuts_pallas.py:84"),
     ("nuts_fused_mid_warmup", "nuts_fused_mid_warmup.cu",
      "nuts_rs_tpu/kernels/nuts_pallas.py:944"),
-    ("mclmc_fused_mid_posterior", "mclmc_fused_mid_posterior.cu",
+    # K3-args and K4-args: the regression's microcanonical draws in their
+    # group form (the path's posterior and microcanonical warmup launches),
+    # every other launch of theirs in mclmc_fused_mid_*.cu
+    # (_build.MCLMC_MID_FORMS); one count for both forms
+    ("mclmc_fused_mid_posterior", "mclmc_fused_group_posterior.cu",
      "nuts_rs_tpu/kernels/mclmc_pallas.py:61"),
-    ("mclmc_fused_mid_warmup", "mclmc_fused_mid_warmup.cu",
+    ("mclmc_fused_mid_warmup", "mclmc_fused_group_warmup.cu",
      "nuts_rs_tpu/kernels/mclmc_pallas.py:506"),
     ("nuts_fused_stream_posterior", "nuts_fused_stream_posterior.cu",
      "nuts_rs_tpu/kernels/nuts_pallas.py:217"),
@@ -1185,7 +1189,9 @@ def path_data(device, checks, launches, times):
 
 
 def path_mclmc_data(device, checks, launches, times):
-    """MCLMC with model data at d=100: K3-args, K4-args (mid-d)."""
+    """MCLMC with model data at d=100: K3-args, K4-args (mid-d; the
+    regression's microcanonical draws in the group form, its Euclidean
+    warmup draws and the iid normal in the 256-threads-a-chain form)."""
     from nuts_rs_tpu_torch import DiagMclmcSettings
     from nuts_rs_tpu_torch.models.gaussian import (
         logistic_regression,
@@ -1908,7 +1914,8 @@ PATH_SOURCES = {
     "mclmc": ("mclmc_fused_posterior", "mclmc_fused_warmup"),
     "large_d": ("nuts_fused_ld_posterior", "nuts_fused_ld_warmup"),
     "data": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
-    "mclmc_data": ("mclmc_fused_mid_posterior", "mclmc_fused_mid_warmup"),
+    "mclmc_data": ("mclmc_fused_mid_posterior", "mclmc_fused_mid_warmup",
+                   "mclmc_fused_group_posterior", "mclmc_fused_group_warmup"),
     "stream": ("nuts_fused_stream_posterior",),
     "sv": ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup"),
     "radon": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),

@@ -91,12 +91,14 @@ SMEM_OPT_IN_BYTES = SM_SMEM_BYTES - SMEM_BLOCK_RESERVED
 H100_SMS = 132  # SMs of the card the kernels are sized for
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
-# Macros for timing ablations only (profile_main_path.py items 12 and 13;
+# Macros for timing ablations only (profile_main_path.py items 12-14;
 # all but NRT_LD_ARGS_MIN_BLOCKS change results): NRT_ABLATE_FIXED_TREES
 # (csrc/nuts_tree_ld.cuh), NRT_ABLATE_SV_SCANS, NRT_ABLATE_SV_BARRIERS
 # (csrc/models.cuh), NRT_LD_ARGS_MIN_BLOCKS=n, NRT_ABLATE_EVAL
-# (csrc/nuts_fused_mid_posterior.cu: no model evaluation).  Empty in every
-# other use; set before the first library loads.
+# (csrc/nuts_fused_mid_posterior.cu and the group-form MCLMC kernels: no
+# model evaluation), NRT_ABLATE_FIXED_STEPS (csrc/mclmc_step_group.cuh: 6
+# leapfrogs a draw, no halvings).  Empty in every other use; set before the
+# first library loads.
 NVCC_DEFINES = []
 
 BUILD_INFO = {"seconds": 0.0, "libraries": {}}
@@ -148,6 +150,16 @@ SOURCES = {
         "nrt_mclmc_mid_smem_bytes": ([_I, _I, _P], _LL)},
     "mclmc_fused_mid_warmup": {
         "nrt_mclmc_mid_warmup_launch": (_MCLMC_WARM + [_P] * 21, _I)},
+    "mclmc_fused_group_posterior": {
+        "nrt_mclmc_group_posterior_launch": (
+            [_I] * 6 + [_U] + [_F] * 4 + [_I, _F, _F] + [_P] * 19, _I),
+        "nrt_mclmc_group_bytes": ([_I, _P, _I], _LL),
+        "nrt_mclmc_group": ([_I, _P], _I),
+        "nrt_mclmc_group_posterior_blocks_per_sm": ([_LL], _I)},
+    "mclmc_fused_group_warmup": {
+        "nrt_mclmc_group_warmup_launch": (
+            [_I] * 6 + [_U] + [_F] * 5 + [_I, _F, _F, _I] + [_P] * 20, _I),
+        "nrt_mclmc_group_warmup_blocks_per_sm": ([_LL], _I)},
     "nuts_fused_stream_posterior": {
         "nrt_stream_posterior_launch": (_NUTS_POST + [_P] * 21, _I),
         "nrt_stream_smem_bytes": ([_I, _I, _I, _P], _LL),
@@ -511,6 +523,128 @@ def mclmc_mid_smem_bytes(d, model):
                 + _scratch_floats(model, d))
 
 
+def mclmc_mid_group_bytes(d, model, G):
+    """Dynamic shared memory of a CUDA block of ``G`` chains in the group
+    form of either mid-d MCLMC kernel (K3-args / K4-args on the
+    regression), as csrc/mclmc_step_group.cuh lays it out: the regression's
+    group scratch, the chain flags, the chains' scalars while the group form
+    runs, then G chain parts of ``MCLMC_MID_NVEC`` vectors, every part a
+    multiple of 4 floats.  No checkpoint stacks, so nothing depends on a
+    depth."""
+    name, ints = _hook_ints(model, d)
+    if name not in _GROUP_FLOATS:
+        raise ValueError(f"the {name} functor has no group form")
+    group = _GROUP_FLOATS[name](ints, G) + GROUP_SCALARS
+    return 4 * (_round4(group) + GROUP_FLAGS + G * _round4(MCLMC_MID_NVEC * d))
+
+
+def mclmc_mid_group(d, model):
+    """The chains a CUDA block of the group-form MCLMC kernels serves: the
+    most, a power of two up to ``GROUP_MAX``, whose block fits a block's
+    opt-in shared memory (``mclmc_mid_group_bytes``); 0 where one chain does
+    not fit.  csrc/mclmc_step_group.cuh::mg_chains is the same rule, and a
+    launch checks that the two agree."""
+    for G in (8, 4, 2, 1):
+        if mclmc_mid_group_bytes(d, model, G) <= SMEM_OPT_IN_BYTES:
+            return G
+    return 0
+
+
+def mclmc_mid_group_for(d, model, B):
+    """``mclmc_mid_group``'s G for a launch in logical chain blocks of B;
+    raises where one chain does not fit, or where B does not divide G (a
+    chain block never spans CUDA blocks)."""
+    G = mclmc_mid_group(d, model)
+    if G < 1:
+        raise NotImplementedError(
+            f"model {model.name!r} at dim {d} needs "
+            f"{mclmc_mid_group_bytes(d, model, 1)} bytes of shared memory "
+            f"for one chain in the group-form MCLMC kernels; a block has "
+            f"{SMEM_OPT_IN_BYTES}: data of that size must stream (ROADMAP.md "
+            "queue 1 item 12)")
+    if G % B:
+        raise ValueError(
+            f"the group-form MCLMC kernels serve {G} chains a CUDA block "
+            f"(their shared memory), which must be a multiple of the chain "
+            f"block {B}")
+    return G
+
+
+# The form of the mid-d MCLMC kernels K3-args and K4-args for each functor
+# they take (every hook of MODEL_IDS but the streamed regression) and each
+# kinetic energy, with the measurement that chose it: profile_main_path.py
+# item 14, each launch on its own path's states against the
+# 256-threads-a-chain form in the same chip call (NVIDIA H100 80GB HBM3,
+# 700.00 W; PERF.md section 6).  "group": G <= 8 chains a CUDA block of 256 threads, a warp a
+# chain's trajectory, the regression evaluated by the whole block for its G
+# chains (csrc/mclmc_fused_group_*.cu); "block": 256 threads a chain's
+# trajectory, logical chain blocks as thread block clusters
+# (csrc/mclmc_fused_mid_*.cu).  A chain on one warp takes about 10 us an
+# iteration without the evaluation, 256 threads about 4: the group form
+# wins only where one read of the data serves G chains and the chains of a
+# block need about as many iterations.
+_ONE_WARP = ("a chain's iteration on one warp (10 us) is longer than on 256 "
+             "threads (4 us) and no data read is shared: ")
+MCLMC_MID_FORMS = {
+    ("logistic_regression", "microcanonical"): (
+        "group", "one read of x serves 8 chains: K3-args 97.20 -> 53.87 ms, "
+                 "K4-args' first microcanonical chunk 105.69 -> 52.85 ms "
+                 "(N = 1000, d = 100, 1024 chains)"),
+    ("logistic_regression", "euclidean"): (
+        "block", "the warmup's Euclidean draws 0-90 from the initial state "
+                 "differ 10x between chains (653 iterations on average, 6263 "
+                 "the most) and a block of 8 runs to its slowest chain: "
+                 "344.86 ms against 173.82"),
+    ("iid_normal", "microcanonical"): (
+        "block", _ONE_WARP + "d = 100, 256 chains 3.21 -> 7.85 ms (1024 "
+                 "chains 8.65 -> 8.12)"),
+    ("correlated_normal_rank1", "microcanonical"): (
+        "block", _ONE_WARP + "d = 100, 256 chains 3.52 -> 9.11 ms"),
+    ("radon", "microcanonical"): (
+        "block", _ONE_WARP + "1024 chains 21.77 -> 27.05 ms"),
+    ("stochastic_volatility", "microcanonical"): (
+        "block", _ONE_WARP + "T = 300, 256 chains 13.12 -> 40.13 ms"),
+    ("funnel", "microcanonical"): (
+        "block", _ONE_WARP + "d = 10, 256 chains 3.45 -> 5.44 ms"),
+    ("correlated_normal", "microcanonical"): (
+        "block", _ONE_WARP + "d = 100, 256 chains 3.50 -> 8.16 ms"),
+    **{(name, "euclidean"): (
+        "block", "as under the microcanonical dynamics (not measured apart): "
+                 "no data read to share")
+       for name in ("iid_normal", "correlated_normal_rank1", "radon",
+                    "stochastic_volatility", "funnel", "correlated_normal")},
+}
+
+
+def mclmc_mid_form(model, mopts):
+    """The form, "group" or "block", that the mid-d MCLMC kernels take for
+    ``model``'s functor under ``mopts``' kinetic energy
+    (``MCLMC_MID_FORMS``)."""
+    kind = mopts.kind.name.lower()
+    return MCLMC_MID_FORMS[(model.hook_parts()[0], kind)][0]
+
+
+def mclmc_mid_blocks_per_sm(kind, model, G):
+    """CUDA blocks of G chains one SM holds of the group-form MCLMC kernel
+    ``kind`` for ``model`` at its own d
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at
+    ``mclmc_mid_group_bytes``); raises where it is none."""
+    smem = mclmc_mid_group_bytes(model.dim, model, G)
+    key = ("mclmc_group", kind, smem)
+    n = _BLOCKS_PER_SM.get(key)
+    if n is None:
+        lib = library(f"mclmc_fused_group_{kind}")
+        n = getattr(lib, f"nrt_mclmc_group_{kind}_blocks_per_sm")(smem)
+        if n < 0:
+            _raise_on(-n, lib, f"mclmc_fused_group_{kind} occupancy")
+        _BLOCKS_PER_SM[key] = n
+    if n < 1:
+        raise RuntimeError(f"an SM holds no block of {G} chains of the "
+                           f"group-form MCLMC {kind} kernel ({smem} bytes "
+                           "of shared memory)")
+    return n
+
+
 def _mclmc_consts(d, mopts):
     """The dynamics' template flags (microcanonical, dynamic step size) and
     f32 constants (max_energy_error, L, F L, sqrt(d)) of an MCLMC launch."""
@@ -558,6 +692,33 @@ def _mclmc_mid_common(kind, q, model, mopts, B):
     consts, fconsts = _mclmc_consts(d, mopts)
     lib = library(f"mclmc_fused_mid_{kind}")
     return C, d, model_id, params, c_ptrs, c_ints, consts, fconsts, lib
+
+
+def _mclmc_group_common(kind, q, model, mopts, B):
+    """(C, d, G, ptrs, ints, dynamic, fconsts, lib) of a group-form MCLMC
+    launch, after the device, block, size and data checks: the launch
+    serves ``mclmc_mid_group_for``'s G chains a CUDA block, and the block
+    must fit an SM (``mclmc_mid_blocks_per_sm``), or this raises."""
+    _model_and_block(q, model, B, MAX_LD_BLOCK)
+    C, d = q.shape
+    ints, ptrs = model_data_args(model, d, q.device)
+    G = mclmc_mid_group_for(d, model, B)
+    c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
+    c_ptrs = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
+    p_ints = ctypes.cast(c_ints, ctypes.c_void_p)
+    probe = library("mclmc_fused_group_posterior")
+    built = probe.nrt_mclmc_group(d, p_ints)
+    need = mclmc_mid_group_bytes(d, model, G)
+    got = probe.nrt_mclmc_group_bytes(d, p_ints, G)
+    if built != G or got != need:
+        raise RuntimeError(
+            f"csrc/mclmc_step_group.cuh gives G = {built} and {got} bytes "
+            f"for the group-form MCLMC kernels, _build.mclmc_mid_group {G} "
+            f"and mclmc_mid_group_bytes {need}")
+    mclmc_mid_blocks_per_sm(kind, model, G)
+    consts, fconsts = _mclmc_consts(d, mopts)
+    return (C, d, G, c_ptrs, c_ints, consts[1], fconsts,
+            library(f"mclmc_fused_group_{kind}"))
 
 
 # K1-stream's tiling of a data phase (csrc/models.cuh::
@@ -1389,5 +1550,75 @@ def launch_mclmc_mid_warmup(seed, flags, q, g, logp, v, stds, mean, est, sca,
             v_f.data_ptr(), stds_f.data_ptr(), mean_f.data_ptr(),
             est_f.data_ptr(), sca_f.data_ptr(), iters.data_ptr(), stream)
     _raise_on(rc, lib, "mclmc_fused_mid_warmup")
+    return (draws, stats, q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f,
+            iters)
+
+
+def launch_mclmc_group_posterior(seed, q, g, logp, v, stds, mean, logdet,
+                                 step0, step_bar, K, model, mopts, jitter, B):
+    """Launch csrc/mclmc_fused_group_posterior.cu (the regression under the
+    microcanonical dynamics); returns what ``launch_mclmc_mid_posterior``
+    returns."""
+    check_mclmc_posterior_args(q, g, logp, v, stds, mean, logdet, step0,
+                               step_bar, K, mopts)
+    (C, d, G, ptrs, ints, dynamic, fconsts,
+     lib) = _mclmc_group_common("posterior", q, model, mopts, B)
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, C, d, **f32)
+    stats = torch.empty(K, C, 8, **f32)
+    q_f, g_f, v_f = (torch.empty(C, d, **f32) for _ in range(3))
+    logp_f = torch.empty(C, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(jitter)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_mclmc_group_posterior_launch(
+            d, dynamic, C, B, G, K, int(seed) & 0xFFFFFFFF, *fconsts, hj,
+            jc1, jc2, ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(ints, ctypes.c_void_p),
+            q.data_ptr(), g.data_ptr(), logp.data_ptr(), v.data_ptr(),
+            stds.data_ptr(), mean.data_ptr(), logdet.data_ptr(),
+            step0.data_ptr(), step_bar.data_ptr(), draws.data_ptr(),
+            stats.data_ptr(), q_f.data_ptr(), g_f.data_ptr(),
+            logp_f.data_ptr(), v_f.data_ptr(), iters.data_ptr(), stream)
+    _raise_on(rc, lib, "mclmc_fused_group_posterior")
+    return draws, stats, q_f, g_f, logp_f, v_f, iters
+
+
+def launch_mclmc_group_warmup(seed, flags, q, g, logp, v, stds, mean, est,
+                              sca, model, mopts, sset, use_grad_based, B):
+    """Launch csrc/mclmc_fused_group_warmup.cu (the regression under the
+    microcanonical dynamics); returns what ``launch_mclmc_mid_warmup``
+    returns, its q, g and estimator planes kept in the output buffers as
+    there."""
+    check_mclmc_warmup_args(flags, q, g, logp, v, stds, mean, est, sca,
+                            mopts)
+    (C, d, G, ptrs, ints, dynamic, fconsts,
+     lib) = _mclmc_group_common("warmup", q, model, mopts, B)
+    dev = q.device
+    K = flags.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    draws = torch.empty(K, C, d, **f32)
+    stats = torch.empty(K, C, 9, **f32)
+    q_f, g_f, est_f = q.clone(), g.clone(), est.clone()
+    logp_f = torch.empty(C, **f32)
+    v_f, stds_f, mean_f = (torch.empty(C, d, **f32) for _ in range(3))
+    sca_f = torch.empty(C, 4, **f32)
+    iters = torch.empty(C, dtype=torch.int32, device=dev)
+    hj, jc1, jc2 = _jitter_args(sset.jitter)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.nrt_mclmc_group_warmup_launch(
+            d, dynamic, C, B, G, K, int(seed) & 0xFFFFFFFF, *fconsts,
+            float(sset.fixed_value), hj, jc1, jc2, int(use_grad_based),
+            ctypes.cast(ptrs, ctypes.c_void_p),
+            ctypes.cast(ints, ctypes.c_void_p), flags.data_ptr(),
+            logp.data_ptr(), v.data_ptr(), stds.data_ptr(), mean.data_ptr(),
+            sca.data_ptr(), draws.data_ptr(), stats.data_ptr(),
+            q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
+            v_f.data_ptr(), stds_f.data_ptr(), mean_f.data_ptr(),
+            est_f.data_ptr(), sca_f.data_ptr(), iters.data_ptr(), stream)
+    _raise_on(rc, lib, "mclmc_fused_group_warmup")
     return (draws, stats, q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f,
             iters)

@@ -21,6 +21,13 @@ K4-args), takes the mid-d kernels ``csrc/mclmc_fused_mid_posterior.cu`` and
 shared memory, d at launch, sums in ``ops.tsum``'s order, the model
 evaluated by the block's threads together from its data in device memory,
 logical chain blocks of at most 8 (a thread block cluster), by default 1.
+For the regression under the microcanonical dynamics they take their group
+form instead, ``csrc/mclmc_fused_group_posterior.cu`` and
+``csrc/mclmc_fused_group_warmup.cu``: G <= 8 chains a CUDA block of 256
+threads, a warp a chain's trajectory, one read of the data serving the
+block's G chains, logical chain blocks that divide G.  The form is the one
+``_build.MCLMC_MID_FORMS`` gives the functor and kinetic energy
+(``_build.mclmc_mid_form``); both count as K3-args / K4-args launches.
 
 Per draw, ``round(subsample_frequency * L / eps)`` leapfrogs (ESH or
 Euclidean) bracketed by partial momentum refreshes, with the dynamic
@@ -64,10 +71,13 @@ from ._build import (
     check_mclmc_posterior_args,
     check_mclmc_warmup_args,
     count_model,
+    launch_mclmc_group_posterior,
+    launch_mclmc_group_warmup,
     launch_mclmc_mid_posterior,
     launch_mclmc_mid_warmup,
     launch_mclmc_posterior,
     launch_mclmc_warmup,
+    mclmc_mid_form,
 )
 from .diag_adapt import NEST, adapt_draw
 from .mclmc import MAX_HALVINGS, STAT_NAMES
@@ -372,8 +382,10 @@ def mclmc_fused_run(seed, q, g, logp, v, stds, mean, logdet, step0,
     chain has its draws.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
-    ``csrc/mclmc_fused_posterior.cu`` or ``csrc/mclmc_fused_mid_posterior.cu``
-    (see :func:`nuts_fused.cl_kernel`)."""
+    ``csrc/mclmc_fused_posterior.cu`` or, for the mid-d kernels (see
+    :func:`nuts_fused.cl_kernel`), the form ``_build.mclmc_mid_form``
+    gives: ``csrc/mclmc_fused_mid_posterior.cu`` or
+    ``csrc/mclmc_fused_group_posterior.cu``."""
     check_mclmc_posterior_args(q, g, logp, v, stds, mean, logdet, step0,
                                step_bar, num_draws, mopts)
     if q.device.type == "cpu":
@@ -382,11 +394,13 @@ def mclmc_fused_run(seed, q, g, logp, v, stds, mean, logdet, step0,
                                          model, mopts, jitter, block)
     kind = cl_kernel(model, q.shape[1])
     if kind == "mid":
-        draws, stats, q_f, g_f, logp_f, v_f, iters = \
-            launch_mclmc_mid_posterior(
-                seed, q, g, logp, v, stds, mean, logdet, step0, step_bar,
-                num_draws, model, mopts, jitter,
-                _check_block(q.shape[0], block, kind))
+        launch = (launch_mclmc_group_posterior
+                  if mclmc_mid_form(model, mopts) == "group"
+                  else launch_mclmc_mid_posterior)
+        draws, stats, q_f, g_f, logp_f, v_f, iters = launch(
+            seed, q, g, logp, v, stds, mean, logdet, step0, step_bar,
+            num_draws, model, mopts, jitter,
+            _check_block(q.shape[0], block, kind))
         LAUNCHES["mclmc_fused_mid_posterior"] += 1
         count_model(model)
         stats_out = {name: stats[:, :, i].T
@@ -517,7 +531,9 @@ def mclmc_fused_warmup_run(seed, flags, q, g, logp, v, stds, mean, est, sca,
     draw.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
-    ``csrc/mclmc_fused_warmup.cu`` or ``csrc/mclmc_fused_mid_warmup.cu``."""
+    ``csrc/mclmc_fused_warmup.cu`` or the mid-d form ``_build.mclmc_mid_form``
+    gives: ``csrc/mclmc_fused_mid_warmup.cu`` or
+    ``csrc/mclmc_fused_group_warmup.cu``."""
     check_mclmc_warmup_args(flags, q, g, logp, v, stds, mean, est, sca,
                             mopts)
     if q.device.type == "cpu":
@@ -526,8 +542,11 @@ def mclmc_fused_warmup_run(seed, flags, q, g, logp, v, stds, mean, est, sca,
             sset, use_grad_based, block)
     kind = cl_kernel(model, q.shape[1])
     if kind == "mid":
+        launch = (launch_mclmc_group_warmup
+                  if mclmc_mid_form(model, mopts) == "group"
+                  else launch_mclmc_mid_warmup)
         (draws, stats, q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f,
-         iters) = launch_mclmc_mid_warmup(
+         iters) = launch(
             seed, flags, q, g, logp, v, stds, mean, est, sca, model, mopts,
             sset, use_grad_based, _check_block(q.shape[0], block, kind))
         LAUNCHES["mclmc_fused_mid_warmup"] += 1

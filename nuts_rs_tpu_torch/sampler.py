@@ -373,6 +373,11 @@ def _model_reasons(model: Model, maxdepth: int, device, ld: bool,
         if not on_cuda or nuts_fused.cl_kernel(model, model.dim) == "thread":
             return reasons
         need = _build.mclmc_mid_smem_bytes(model.dim, model)
+        micro = MclmcOptions(kind=KineticKind.MICROCANONICAL)
+        if (need <= _build.SMEM_OPT_IN_BYTES
+                and _build.mclmc_mid_form(model, micro) == "group"
+                and _build.mclmc_mid_group(model.dim, model) < 1):
+            need = _build.mclmc_mid_group_bytes(model.dim, model, 1)
         if need > _build.SMEM_OPT_IN_BYTES:
             reasons.append(
                 f"model {model.name!r} on CUDA: the mid-d MCLMC kernels "

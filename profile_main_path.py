@@ -105,6 +105,23 @@ After building the kernels it prints, for each path,
    to maxdepth 3 (32 draws of 7 leapfrogs), in every checkout given, and in
    this one also without the model's evaluation, in microseconds a block
    iteration and of an SM a chain's leapfrog.
+14. ``--mclmc-data-launch TREE [TREE ...]``: as item 13 for the mid-d MCLMC
+   kernels on the MCLMC data path (the regression, 1024 chains, 300 + 400
+   draws): K3-args' first 128-draw posterior launch on the path's own
+   post-warmup states, K4-args' Euclidean launch (draws 0-90) and its first
+   microcanonical chunk (draws 90-218) on the path's own warmup states,
+   and K3-args' first posterior launch on the own states of each functor's
+   MCLMC path at its card-test or zoo shape (the iid normal at d = 100 with
+   1024 and 256 chains, radon with 1024, the rank-1 normal, the funnel,
+   correlated_normal and stochastic volatility at T = 300 with 256), in a
+   process of its own for each checkout given, with leapfrogs, block
+   iterations, bounds and the chains a CUDA block (G) and blocks an SM
+   where the checkout has them, the inputs saved; then each checkout in the
+   order given (parent, this, this, parent) on every saved set, in ms a
+   launch, us a block iteration and us of an SM a chain's leapfrog; then,
+   in this checkout, the ablation of K3-args on its saved regression states
+   (32 draws of a fixed 6 leapfrogs, no halvings), with the evaluation and
+   without it.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -1163,6 +1180,200 @@ def data_launch(trees):
                 print(f"{tree}: {line}")
 
 
+# Item 14: the MCLMC data path's own launches (K3-args' first posterior
+# chunk, K4-args' Euclidean launch and first microcanonical chunk) and each
+# functor's own first K3-args launch, in the tree given, saved for
+# MCLMC_TIME.
+MCLMC_CASES = """
+import chip_smoke as cs
+from nuts_rs_tpu_torch.models import gaussian as tg
+from nuts_rs_tpu_torch.models.hierarchical import radon
+from nuts_rs_tpu_torch.models.stochastic_volatility import (
+    stochastic_volatility)
+CASES = {  # name: (model, chains)
+    "glm": (lambda: tg.logistic_regression(cs.GLM_ROWS, cs.GLM_DIM, cs.SEED),
+            cs.GLM_CHAINS),
+    "normal": (lambda: tg.normal_logp(cs.MID_DIM, cs.MU), 1024),
+    "normal256": (lambda: tg.normal_logp(cs.MID_DIM, cs.MU), 256),
+    "radon": (lambda: radon(seed=cs.SEED), 1024),
+    "rank1": (lambda: tg.correlated_normal_rank1(100), 256),
+    "funnel": (lambda: tg.funnel(10), 256),
+    "correlated_normal": (lambda: tg.correlated_normal(100), 256),
+    "sv": (lambda: stochastic_volatility(T=300, seed=cs.SEED), 256),
+}
+"""
+
+MCLMC_LAUNCH = MCLMC_CASES + """
+import sys, torch
+from nuts_rs_tpu_torch import DiagMclmcSettings, Sampler
+from nuts_rs_tpu_torch.kernels import _build, mclmc_fused as mf
+dev = torch.device("cuda", 0)
+which, path = sys.argv[1], sys.argv[2]
+make, chains = CASES[which]
+model = make()
+settings = DiagMclmcSettings(num_chains=chains, num_tune=cs.GLM_TUNE,
+                             num_draws=cs.GLM_DRAWS, seed=cs.SEED,
+                             posterior_kernel="pallas")
+seen = {}
+run0, warm0 = mf.mclmc_fused_run, mf.mclmc_fused_warmup_run
+def keep(a):
+    return tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+def run(*a, **k):
+    seen.setdefault("post", (keep(a), k))
+    return run0(*a, **k)
+def warm(*a, **k):
+    if "euclid" not in seen:
+        seen["euclid"] = (keep(a), k)
+    elif "micro" not in seen and a[1].shape[0] == cs.CHUNK:
+        seen["micro"] = (keep(a), k)
+    return warm0(*a, **k)
+mf.mclmc_fused_run, mf.mclmc_fused_warmup_run = run, warm
+sampler = Sampler(model, settings, device=dev)
+while "post" not in seen:
+    sampler.run_next_chunk()
+mf.mclmc_fused_run, mf.mclmc_fused_warmup_run = run0, warm0
+keys = ("post", "euclid", "micro") if which == "glm" else ("post",)
+# the model (closures) is made again where the launch is timed
+at = {"post": 11, "euclid": 10, "micro": 10}
+torch.save({key: (seen[key][0][:at[key]] + (None,)
+                  + seen[key][0][at[key] + 1:], seen[key][1])
+            for key in keys}, path)
+model = sampler.model
+for key in keys:
+    a, k = seen[key]
+    fn = (lambda: run0(*a, **k)) if key == "post" else (
+        lambda: warm0(*a, **k))
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(fn, 3)
+    st = out[5] if key == "post" else out[9]
+    inputs = a[1:10] if key == "post" else a[1:10]
+    b_ms, b_by = cs.bound("mclmc", model, inputs, out, st)
+    it = st["loop_iterations"].float()
+    group = ""
+    mopts = a[12] if key == "post" else a[11]
+    if (hasattr(_build, "mclmc_mid_form")
+            and _build.mclmc_mid_form(model, mopts) == "group"):
+        G = _build.mclmc_mid_group(model.dim, model)
+        kind = "posterior" if key == "post" else "warmup"
+        group = (f"; group form, G = {G} chains a CUDA block, "
+                 f"{_build.mclmc_mid_blocks_per_sm(kind, model, G)} blocks "
+                 "an SM")
+    print(f"{which} {key} own states: {ms:.4f} ms per launch of "
+          f"{tuple(st['n_steps'].shape)} (chains, draws); leapfrogs "
+          f"{int(st['n_steps'].sum())}, per draw "
+          f"{float(st['n_steps'].float().mean()):.3f}; loop iterations "
+          f"mean {float(it.mean()):.1f} max {int(it.max())}; bound "
+          f"{b_ms:.4f} ms ({b_by}){group}")
+"""
+
+# Item 14's comparison on common inputs: this tree's K3-args and K4-args on
+# the launches MCLMC_LAUNCH saved, 5 calls after a first.
+MCLMC_TIME = MCLMC_CASES + """
+import sys, torch
+from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+dev = torch.device("cuda", 0)
+sms = torch.cuda.get_device_properties(0).multi_processor_count
+for spec in sys.argv[1:]:
+    which, path = spec.split("=", 1)
+    model = CASES[which][0]().to(dev)
+    saved = torch.load(path, weights_only=False)
+    for key, (a, k) in saved.items():
+        at = 11 if key == "post" else 10  # the model's argument
+        a = a[:at] + (model,) + a[at + 1:]
+        if key == "post":
+            fn, at = (lambda: mf.mclmc_fused_run(*a, **k)), 5
+        else:
+            fn, at = (lambda: mf.mclmc_fused_warmup_run(*a, **k)), 9
+        out = fn()
+        torch.cuda.synchronize()
+        ms = cs.cuda_events_ms(fn, 5)
+        st = out[at]
+        it = int(st["loop_iterations"].max())
+        leaps = int(st["n_steps"].sum())
+        print(f"{which} {key} on {path.rsplit('/', 1)[-1]}: {ms:.4f} ms; "
+              f"leapfrogs {leaps}, loop iterations max {it}: "
+              f"{1e3 * ms / it:.3f} us a block iteration, "
+              f"{1e3 * ms * sms / leaps:.4f} us of an SM a chain's leapfrog")
+"""
+
+# Item 14's ablation: K3-args on this tree's saved regression states, 32
+# draws with every draw at 6 leapfrogs and no halvings
+# (NRT_ABLATE_FIXED_STEPS), and with the macros given (NRT_ABLATE_EVAL:
+# without the model's evaluation).
+MCLMC_ABLATE = MCLMC_CASES + """
+import sys, torch
+from nuts_rs_tpu_torch.kernels import _build, mclmc_fused as mf
+_build.NVCC_DEFINES[:] = sys.argv[2:]
+dev = torch.device("cuda", 0)
+label = " ".join(m.removeprefix("NRT_") for m in sys.argv[2:])
+sms = torch.cuda.get_device_properties(0).multi_processor_count
+which, path = sys.argv[1].split("=", 1)
+model = CASES[which][0]().to(dev)
+a, k = torch.load(path, weights_only=False)["post"]
+a = a[:10] + (32, model) + a[12:]
+fn = lambda: mf.mclmc_fused_run(*a, **k)
+out = fn()
+torch.cuda.synchronize()
+ms = cs.cuda_events_ms(fn, 3)
+it = int(out[5]["loop_iterations"].max())
+leaps = int(out[5]["n_steps"].sum())
+print(f"ablation [{label}] {which} K3-args: {ms:.4f} ms, {leaps} "
+      f"leapfrogs, block iterations max {it}: {1e3 * ms / it:.3f} us an "
+      f"iteration, {1e3 * ms * sms / leaps:.4f} us of an SM a leapfrog")
+"""
+
+MCLMC_ABLATIONS = (("NRT_ABLATE_FIXED_STEPS",),
+                   ("NRT_ABLATE_FIXED_STEPS", "NRT_ABLATE_EVAL"))
+MCLMC_WHICH = ("glm", "normal", "normal256", "radon", "rank1", "funnel",
+               "correlated_normal", "sv")
+
+
+def mclmc_data_launch(trees):
+    """Item 14: each distinct tree's own MCLMC data path and functor paths,
+    their launches saved; then every tree in the order given (e.g. parent,
+    this one, this one, parent) timed on every saved set; then the ablation
+    in this tree."""
+    from pathlib import Path
+
+    from nuts_rs_tpu_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    saved = {}
+    for tree in trees:
+        key = Path(tree).resolve()
+        if key in saved:
+            continue
+        saved[key] = []
+        for which in MCLMC_WHICH:
+            path = str(_build.BUILD_DIR / f"mclmc_{which}_{len(saved)}.pt")
+            saved[key].append(f"{which}={path}")
+            out = subprocess.run([sys.executable, "-c", MCLMC_LAUNCH, which,
+                                  path], cwd=tree, capture_output=True,
+                                 text=True)
+            if out.returncode:
+                raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+            for line in out.stdout.strip().splitlines():
+                print(f"{tree}: {line} [saved as {path}]", flush=True)
+    specs = [spec for specs in saved.values() for spec in specs]
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", MCLMC_TIME, *specs],
+                             cwd=tree, capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+        for line in out.stdout.strip().splitlines():
+            print(f"{tree}: {line}", flush=True)
+    here = Path(__file__).resolve().parent
+    glm = (saved.get(here) or next(iter(saved.values())))[0]
+    for defines in MCLMC_ABLATIONS:
+        out = subprocess.run([sys.executable, "-c", MCLMC_ABLATE, glm,
+                              *defines], cwd=here, capture_output=True,
+                             text=True)
+        if out.returncode:
+            raise RuntimeError(f"ablation {defines}: {out.stderr[-3000:]}")
+        print(out.stdout.strip(), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
@@ -1191,6 +1402,9 @@ def main() -> int:
                              "then its ablation in this one")
     parser.add_argument("--data-launch", nargs="+", metavar="TREE",
                         help="item 13 alone, for each checkout in turn")
+    parser.add_argument("--mclmc-data-launch", nargs="+", metavar="TREE",
+                        help="item 14 alone, for each checkout in turn, "
+                             "then its ablation in this one")
     args = parser.parse_args()
     only = ("large-d" if args.only_large_d else "data" if args.only_data
             else "mclmc-data" if args.only_mclmc_data else None)
@@ -1216,6 +1430,10 @@ def main() -> int:
         return 0
     if args.data_launch:
         data_launch(args.data_launch)
+        print(card_line())
+        return 0
+    if args.mclmc_data_launch:
+        mclmc_data_launch(args.mclmc_data_launch)
         print(card_line())
         return 0
     if args.only_stream:

@@ -1,7 +1,8 @@
 """The fused CUDA kernels (NUTS K1/K2, their dim-on-lanes forms K1-ld /
 K2-ld and, with model data, K1-ld-args / K2-ld-args, their mid-d forms with
 model data K1-args / K2-args and the streamed posterior K1-stream, MCLMC
-K3/K4 and their mid-d forms with model data K3-args / K4-args, the
+K3/K4 and their mid-d forms with model data K3-args / K4-args (also in
+their group form, the regression's microcanonical draws), the
 model zoo's functors on them, and K1-flow through a frozen coupling flow)
 against their plain PyTorch versions, on the card; the sync NUTS engine on
 the card against the CPU.
@@ -245,6 +246,9 @@ def _group_case(name, dev, C):
                           "logreg_d100_reference.json").read_text())
         center, sd, steps = np.array(ref["mean"]), np.array(ref["std"]), \
             (0.4, 0.55)
+    elif name == "glm300":  # the regression's largest MCLMC G of 4
+        model = tg.logistic_regression(1000, 300, 2)
+        center, sd, steps = np.zeros(300), np.full(300, 0.05), (0.3, 0.4)
     elif name.startswith("glm_"):  # residuals through shared memory
         # 1500 rows: G = 8; 15000: G = 2 (their shared memory); 30000: G = 1
         rows = {"glm_rows": 1500, "glm_g2": 15000, "glm_g1": 30000}[name]
@@ -557,6 +561,97 @@ def test_mclmc_mid_kernels_match_plain_versions_on_the_card(
     # a chain block above the cluster size is refused, not run another way
     with pytest.raises(ValueError, match="chain block"):
         mf.mclmc_fused_run(3, *args, 8, model, mopts, 0.1, block=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,C,B,micro,max_err,dynamic,jitter", [
+    ("glm", 1024, 1, True, 1000.0, True, 0.1),
+    ("glm", 20, 2, True, 0.05, True, 0.1),
+    ("glm", 64, 8, True, 0.5, False, None),
+    ("glm300", 64, 4, True, 0.5, True, 0.1),
+    ("glm_g2", 64, 2, True, 1000.0, True, 0.1),
+    ("glm_g1", 20, 1, True, 0.5, True, 0.1),
+    ("glm", 20, 2, False, 0.05, True, 0.1),
+    ("radon", 100, 4, True, 0.5, True, 0.1),
+    ("normal100", 256, 2, False, 0.05, True, None),
+    ("funnel", 64, 4, True, 0.5, True, 0.1)])
+def test_mclmc_mid_group_kernels_match_plain_versions_bit_for_bit(
+        name, C, B, micro, max_err, dynamic, jitter):
+    """K3-args and K4-args in the form the table gives
+    (``_build.MCLMC_MID_FORMS``) against their unchanged plain versions:
+    every integer stat equal and every float bit for bit.  The group form
+    (the regression's microcanonical draws) at G = 8 (d = 100), 4 (d = 300),
+    2 and 1 (residuals filling the shared memory), in logical blocks of
+    B = 1, 2, 4, 8, with halvings and give-ups under a small
+    ``max_energy_error``, with and without jitter and the dynamic step size,
+    at chain counts that leave the last CUDA block partly empty (20); the
+    256-threads-a-chain form on the regression's Euclidean draws, radon, the
+    iid normal and the funnel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.adapt.step_size import StepSizeMethod
+    from nuts_rs_tpu_torch.dynamics.hamiltonian import KineticKind
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels.mclmc import MclmcOptions
+
+    dev = torch.device("cuda", 0)
+    model, _, (q, g, logp, stds, mean, logdet, step, _) = _group_case(
+        name, dev, C)
+    d = model.dim
+    assert nf.cl_kernel(model, d) == "mid"
+    rng = np.random.default_rng(C + d)
+    v = rng.normal(size=(C, d))
+    v = torch.tensor(v / np.linalg.norm(v, axis=1, keepdims=True),
+                     dtype=torch.float32, device=dev)
+    kind = KineticKind.MICROCANONICAL if micro else KineticKind.EUCLIDEAN
+    mopts = MclmcOptions(kind=kind, max_energy_error=max_err,
+                         dynamic_step_size=dynamic)
+    form = _build.mclmc_mid_form(model, mopts)
+    assert (form == "group") == (name.startswith("glm") and micro)
+    if form == "group":
+        G = _build.mclmc_mid_group_for(d, model, B)
+        print(f"{name}: d={d} C={C} B={B} G={G}, "
+              f"{_build.mclmc_mid_blocks_per_sm('posterior', model, G)} "
+              "blocks an SM")
+    args = (q, g, logp, v, stds, mean, logdet, step, step.clone())
+    before = dict(mf.LAUNCHES)
+    got = mf.mclmc_fused_run(3, *args, 8, model, mopts, jitter, block=B)
+    torch.cuda.synchronize()
+    want = mf.mclmc_fused_run_reference(3, *args, 8, model, mopts, jitter,
+                                        block=B)
+    for i, what in enumerate(("q_f", "g_f", "logp_f", "v_f", "draws")):
+        _same_bits(got[i], want[i], what)
+    for stat in list(mf.STAT_NAMES) + ["loop_iterations"]:
+        _same_bits(got[5][stat], want[5][stat], stat)
+    if max_err < 1.0:  # the case exercises halvings or give-ups
+        st = want[5]
+        assert bool((st["diverging"] > 0).any()) or bool(
+            (st["average_step_size"] < st["step_size"] * 0.99).any())
+
+    flags = torch.zeros(6, mf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, mf.FLAG_UPDATE_EST] = 1
+    flags[0, mf.FLAG_RESAMPLE] = flags[4, mf.FLAG_RESAMPLE] = 1
+    flags[2:, mf.FLAG_DO_UPDATE] = 1
+    flags[3, mf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, d, device=dev)
+    sca = torch.zeros(C, mf.NSCA, device=dev)
+    sca[:, mf.SCA_LOGDET] = logdet
+    sset = StepSizeSettings(method=StepSizeMethod.FIXED,
+                            fixed_value=float(step[0]), jitter=jitter)
+    wargs = (flags, q, g, logp, v, stds, mean, est, sca, model, mopts, sset,
+             True)
+    got = mf.mclmc_fused_warmup_run(5, *wargs, block=B)
+    torch.cuda.synchronize()
+    want = mf.mclmc_fused_warmup_run_reference(5, *wargs, block=B)
+    for i, what in enumerate(("q", "g", "logp", "v", "stds", "mean", "est",
+                              "sca", "draws")):
+        _same_bits(got[i], want[i], what)
+    for stat in list(mf.WARMUP_STAT_NAMES) + ["loop_iterations"]:
+        _same_bits(got[9][stat], want[9][stat], stat)
+    for which in ("posterior", "warmup"):
+        key = f"mclmc_fused_mid_{which}"
+        assert mf.LAUNCHES[key] == before[key] + 1, key
 
 
 @pytest.mark.cuda
