@@ -320,13 +320,13 @@ def bound(kind, model, inputs, out, stats):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def timed_pair(kernel, plain):
+def timed_pair(kernel, plain, repeats=3):
     """Run a kernel and its plain version on the same inputs: (kernel's
-    result, plain result, kernel ms per call over 3 calls, plain ms of its
-    one call)."""
+    result, plain result, kernel ms per call over ``repeats`` calls, plain
+    ms of its one call)."""
     out_k = kernel()
     torch.cuda.synchronize()
-    ms = cuda_events_ms(kernel, 3)
+    ms = cuda_events_ms(kernel, repeats)
     box = []
     plain_ms = cuda_events_ms(lambda: box.append(plain()), 1)
     return out_k, box[0], ms, plain_ms
@@ -468,11 +468,12 @@ def warmup_setup(model, settings, device, lo, hi, chains=CHAINS, state=None):
 
 def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
                  name=None, block=None, rows=(2, 2 + CHECK_K2_DRAWS),
-                 state=None):
+                 state=None, repeats=3):
     """K2 (cl), K2-ld or, with ``name`` and maybe a logical chain block, the
     mid-d cl kernel or K2-ld-args against its plain version, on schedule
     rows ``rows[0] .. rows[1] - 1`` from the initial state or from
-    ``state`` (see ``warmup_setup``)."""
+    ``state`` (see ``warmup_setup``); the kernel timed over ``repeats``
+    calls after a first."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     name = name or ("K2-ld" if layout == "ld" else "K2")
@@ -485,7 +486,8 @@ def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
         raise AssertionError(f"{name} check rows hold no window switch")
     out_k, out_p, ms, plain_ms = timed_pair(
         lambda: nf.nuts_fused_warmup_run(*args, block, layout),
-        lambda: nf.nuts_fused_warmup_run_reference(*args, block, layout))
+        lambda: nf.nuts_fused_warmup_run_reference(*args, block, layout),
+        repeats)
     n, err = compare(name, out_k, out_p,
                      ("q", "g", "logp", "stds", "mean", "est", "sca"),
                      nf.WARMUP_STAT_NAMES, INT_STATS)
@@ -495,7 +497,8 @@ def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
           f"{'a post-warmup-like' if state else 'the initial'} state): "
           f"integer stats equal on all {n} (chain, draw) entries, "
           f"max abs err {err:.3g} (draws, final state, est, sca, all "
-          f"stats); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+          f"stats); kernel {ms:.4f} ms ({repeats} calls), plain "
+          f"{plain_ms:.2f} ms")
     return check_row("nuts", model, args[1:9], out_k, err, ms, plain_ms)
 
 
@@ -1121,6 +1124,7 @@ def path_mclmc(device, checks, launches, times):
 def path_large_d(device, checks, launches, times):
     """NUTS at d=1000, the dim-on-lanes layout: K1-ld, K2-ld."""
     from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.kernels import _build
     from nuts_rs_tpu_torch.models.gaussian import normal_logp
 
     ld_model = normal_logp(LD_DIM, MU)
@@ -1130,9 +1134,18 @@ def path_large_d(device, checks, launches, times):
     checks["nuts_fused_ld_posterior"] = check_posterior(
         ld_model, ld_settings.nuts_options(), device, "ld", LD_CHAINS,
         LD_STEP)
+    # the short check launch's time over 10 calls: over 3 it read 24.9 and
+    # 10.5 ms on the same inputs in two runs (PERF.md section 7)
     checks["nuts_fused_ld_warmup"] = check_warmup(
         ld_model, ld_settings, device, "ld", LD_CHAINS,
-        rows=CHECK_K2_SHORT_ROWS)
+        rows=CHECK_K2_SHORT_ROWS, repeats=10)
+    D = ld_settings.nuts_options().maxdepth
+    for kind in ("posterior", "warmup"):
+        per_sm, clusters = _build.ld_occupancy(kind, LD_DIM, D)
+        print(f"K{1 if kind == 'posterior' else 2}-ld at d={LD_DIM}: "
+              f"{_build.ld_form(kind, LD_DIM, D)} form, {per_sm} chain "
+              f"blocks an SM, {clusters} clusters of {_build.MAX_LD_BLOCK} "
+              "resident")
     launches.update(main_path(
         ld_model, ld_settings, device,
         ("nuts_fused_ld_posterior", "nuts_fused_ld_warmup"),

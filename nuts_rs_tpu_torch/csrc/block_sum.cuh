@@ -67,15 +67,20 @@ __device__ __forceinline__ int warp_sums(float (&v)[M]) {
 }
 
 // The LD_W warp sums p[0..LD_W) of one value, halved (4, 2, 1).
-__device__ __forceinline__ float halve_warps(const float* p_in) {
-  float p[LD_W];
-#pragma unroll
-  for (int w = 0; w < LD_W; ++w) p[w] = p_in[w];
+__device__ __forceinline__ float halve(float (&p)[LD_W]) {
 #pragma unroll
   for (int h = LD_W / 2; h > 0; h >>= 1)
 #pragma unroll
     for (int w = 0; w < h; ++w) p[w] = p[w] + p[w + h];
   return p[0];
+}
+
+// halve() of the LD_W warp sums at p_in[0..LD_W).
+__device__ __forceinline__ float halve_warps(const float* p_in) {
+  float p[LD_W];
+#pragma unroll
+  for (int w = 0; w < LD_W; ++w) p[w] = p_in[w];
+  return halve(p);
 }
 
 // Chains whose LD_T virtual threads of tsum's order run on one warp (the
@@ -171,6 +176,99 @@ struct Reducer {
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < N; ++k) v[k] = halve_warps(buf + k * LD_W);
+  }
+};
+
+// warp_sums<M> with every index a template constant: the halving at lane
+// bit O keeps the half of v that this lane's side owns and adds the
+// partner's other half (H = M / 2 values), then halves the kept ones at bit
+// O / 2, down to one value and the plain halvings below.  The same pairs in
+// the same tree as warp_sums and warp_sum; written as a recursion so that
+// no array needs a run-time index (warp_sums' loops left v in local memory
+// at M = 8 .. 32 in the dim-on-lanes kernels).  After it v[0] holds the warp
+// sum of value lane >> (5 - log2 M).
+// p ? a : b by one selp, so that a choice between two elements of an array
+// never becomes a run-time index into it.
+__device__ __forceinline__ float select(bool p, float a, float b) {
+  float r;
+  asm("{\n .reg .pred q;\n setp.ne.b32 q, %3, 0;\n"
+      " selp.f32 %0, %1, %2, q;\n}"
+      : "=f"(r)
+      : "f"(a), "f"(b), "r"((int)p));
+  return r;
+}
+
+template <int M, int O = 16>
+__device__ __forceinline__ void warp_sums_fixed(float (&v)[M]) {
+  static_assert(M >= 1 && (M == 1 || M <= 2 * O) && (M & (M - 1)) == 0,
+                "M: 1, 2, .. 32");
+  if constexpr (M > 1) {
+    constexpr int H = M / 2;
+    const bool upper = (threadIdx.x & O) != 0;
+    float kept[H];
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float send = select(upper, v[i], v[i + H]);
+      const float keep = select(upper, v[i + H], v[i]);
+      kept[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+    warp_sums_fixed<H, O / 2>(kept);
+    v[0] = kept[0];
+  } else {
+    if constexpr (O >= 1) {
+      v[0] = v[0] + __shfl_xor_sync(0xffffffffu, v[0], O);
+      warp_sums_fixed<1, O / 2>(v);
+    }
+  }
+}
+
+// Up to LD_WIDE sums at once in tsum's order, for the merged leapfrog of
+// K1-ld / K2-ld (nuts_tree_ld.cuh): the N values' warp butterflies in one
+// warp_sums_fixed<M> pass (M the power of two at or above N; the values
+// past N are 0.0 and their sums unused), one lane a value writes its warp
+// sum to [warp][value] of a scratch buffer, one __syncthreads, then lane
+// k < N halves the LD_W warp sums of value k as halve_warps does (the same
+// pairs in the same tree as Reducer::sum, so the same bits) and every lane
+// takes each sum from its lane by a shuffle.  A value's 8 warp sums lie
+// LD_WIDE floats apart, so the 32 lanes' reads fall in 32 banks.  Two
+// buffers alternate, as Reducer's do.
+constexpr int LD_WIDE = 32;
+constexpr int LD_WIDE_FLOATS = 2 * LD_W * LD_WIDE;
+
+struct WideReducer {
+  float* scratch;  // shared memory, [2][LD_W][LD_WIDE]
+  int parity;
+
+  template <int N>
+  __device__ __forceinline__ void sum(float (&v)[N]) {
+    static_assert(N >= 1 && N <= LD_WIDE, "scratch too small");
+    constexpr int M = N <= 1 ? 1 : N <= 2 ? 2 : N <= 4 ? 4 : N <= 8 ? 8
+                    : N <= 16 ? 16 : 32;
+    constexpr int SHIFT = M >= 32 ? 0 : M >= 16 ? 1 : M >= 8 ? 2
+                        : M >= 4 ? 3 : M >= 2 ? 4 : 5;  // 5 - log2(M)
+    float* buf = scratch + parity * (LD_W * LD_WIDE);
+    parity ^= 1;
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    float u[M];
+#pragma unroll
+    for (int k = 0; k < N; ++k) u[k] = v[k];
+#pragma unroll
+    for (int k = N; k < M; ++k) u[k] = 0.0f;
+    warp_sums_fixed<M>(u);
+    const int k = lane >> SHIFT;  // the value whose warp sum u[0] holds
+    if ((lane & ((1 << SHIFT) - 1)) == 0 && k < N)
+      buf[warp * LD_WIDE + k] = u[0];
+    __syncthreads();
+    float x = 0.0f;
+    if (lane < N) {
+      float p[LD_W];
+#pragma unroll
+      for (int w = 0; w < LD_W; ++w) p[w] = buf[w * LD_WIDE + lane];
+      x = halve(p);
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) v[i] = __shfl_sync(0xffffffffu, x, i);
   }
 };
 

@@ -14,22 +14,31 @@
 //
 // What bounds it on this card: at d = 1000 a leapfrog moves a few KB per
 // chain and does a few thousand operations, so neither bytes nor operations
-// but the time of one block iteration's dependent steps: a pass over the
-// chain's coordinates, a block-wide sum (shuffles, one __syncthreads), the
-// scalar tree logic, which every thread of the block repeats, and the sums
-// of the active U-turn levels over stack rows read from L2.
+// but the time of one block iteration's steps, which all 8 warps of the
+// chain's block issue: a pass over the chain's coordinates, a block-wide sum
+// (shuffles, one __syncthreads, shared-memory reads), the scalar tree
+// logic, which every thread of the block repeats, and the sums of the
+// active U-turn levels over stack rows read from L2.  Today's leapfrog
+// (one reduction a U-turn level, copies of the new point) split its 7365
+// cycles into the pass 1878, its reduction 1428, the checks 1330 and the
+// scalar tree 2728 (one chain alone at d = 1000, every tree 15 leapfrogs;
+// profile_main_path.py item 15, PERF.md).
 //
 // What the design does about it: one CUDA block of LD_T = 256 threads per
 // chain, a thread owning every 256th coordinate (4 at d = 1000), so a pass
 // is a few operations per thread.  The 21 live vectors of a chain sit in
-// dynamic shared memory (84 KB at d = 1000, two chains per SM; d up to 2757
-// at maxdepth 10); the four checkpoint stacks ((D + 1) x d each, 176 KB per
-// chain at d = 1000, maxdepth 10) are a global-memory workspace of which a
-// leapfrog writes two rows per stack and reads only the rows of the U-turn
-// levels it completes (about two on average; the Pallas body reads all 11
-// through masked sums or keeps a cross-dot matrix).  All sums of one step
-// share one reduction (11 at the leapfrog, 6 per U-turn level).  Draws are
-// written coalesced along d, [K, C, d].
+// dynamic shared memory (87 KB at d = 1000; d up to 2757 at maxdepth 10);
+// the four checkpoint stacks ((D + 1) x d each, 176 KB per chain at
+// d = 1000, maxdepth 10) are a global-memory workspace of which a leapfrog
+// writes two rows per stack and reads only the rows of the U-turn levels it
+// completes (the Pallas body reads all 11 through masked sums or keeps a
+// cross-dot matrix).  In K1-ld (MERGED) one pass forms the leapfrog's sums
+// and the checks' dots, its inputs loaded ahead, and one wide reduction
+// gives them all (nuts_tree_ld.cuh::ld_leap_merged); the moving edge takes
+// the new point by swapping buffers and the other copies load before they
+// store (ld_swap_edge, ld_copy_n): 5243 cycles a leapfrog, the pass
+// 2338, the reduction 548, the checks 720, the scalar tree 1637.  Draws
+// are written coalesced along d, [K, C, d].
 //
 // A thread block cluster of B chains is the Pallas kernel's logical chain
 // block (nuts_tree_ld.cuh): the Pallas loop runs until every chain of the
@@ -79,7 +88,11 @@ struct LdPostArgs {
 // mean and logdet are not read); the logdet is per point, carried with the
 // selected points as the Pallas body's dm_ld / ds_ld (nuts_pallas.py:
 // 268-282); the g output carries the final z (:709-710).
-template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool FLOW, class Group>
+//
+// MERGED (K1-ld): the merged leapfrog (nuts_tree_ld.cuh::ld_leap_merged), with
+// the wide reduction's scratch after the cluster slots.
+template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool FLOW, class Group,
+          bool MERGED = false>
 __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
                                                    const Model& model,
                                                    Group& grp, float* smem) {
@@ -92,6 +105,10 @@ __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
   ch.d = d;
   ch.D = D;
   ch.n = (d + LD_T - 1) / LD_T;
+#ifdef NRT_LD_CLOCKS
+  LdClocks clocks{clock64(), {0, 0, 0, 0}};
+  ch.clk = &clocks;
+#endif
   float* p = smem;
   float** vecs[] = {&ch.stds, &ch.mean, &ch.e_z, &ch.e_v, &ch.e_zg, &ch.m_z,
                     &ch.m_v, &ch.m_zg, &ch.p_z, &ch.p_v, &ch.p_zg, &ch.dm_z,
@@ -110,7 +127,10 @@ __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
   Reducer red{p, 0};
   p += 2 * LD_NRED * LD_W;
   grp.bind(reinterpret_cast<uint32_t*>(p));
-  float* scratch = p + 2 * LD_MAX_CLUSTER;  // the model functor's
+  p += 2 * LD_MAX_CLUSTER;
+  WideReducer wide{p, 0};
+  if constexpr (MERGED) p += LD_WIDE_FLOATS;
+  float* scratch = p;  // the model functor's
   const size_t row = (size_t)(D + 1) * d;
   ch.lz = a.work + (size_t)c * 4 * row;
   ch.lv = ch.lz + row;
@@ -195,8 +215,8 @@ __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
     const float r_acc = uniform(seed, it, 5u, (uint32_t)b);
     const float dirf = direction;
 
-    const LdLeap lf = ld_leapfrog<EVAL_BLOCK, Model, FLOW>(
-        ch, red, model, dirf, step, leaf, depth, q1, scratch);
+    const LdLeap lf = ld_leapfrog<EVAL_BLOCK, Model, FLOW, MERGED>(
+        ch, red, wide, model, dirf, step, leaf, depth, q1, scratch);
     const float logp1 = lf.logp1, ke1 = lf.ke1;
     const float ld1 = FLOW ? lf.ld1 : logdet;
     const float err = (ke1 - (logp1 + ld1)) - e_init;
@@ -217,9 +237,13 @@ __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
     const bool first = leaf == 0;
     logw_s = first ? logw_leaf : logaddexp(logw_s, logw_leaf);
     if (first || (logf(r_sel) < logw_leaf - logw_s)) {
-      ld_copy(ch, ch.ds_z, ch.z1);
-      ld_copy(ch, ch.ds_zg, ch.zg1);
-      ld_copy(ch, ds_q, q1);
+      if constexpr (MERGED) {
+        ld_copy_n<3>(ch, {ch.ds_z, ch.ds_zg, ds_q}, {ch.z1, ch.zg1, q1});
+      } else {
+        ld_copy(ch, ch.ds_z, ch.z1);
+        ld_copy(ch, ch.ds_zg, ch.zg1);
+        ld_copy(ch, ds_q, q1);
+      }
       ds_logp = logp1;
       ds_ke = ke1;
       ds_idx = idx1;
@@ -232,9 +256,14 @@ __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
     const bool do_merge = subtree_done && !diverged && !lf.turning_int;
     if (do_merge) {
       if ((logw_s >= logw_m) || (logf(r_acc) < logw_s - logw_m)) {
-        ld_copy(ch, ch.dm_z, ch.ds_z);
-        ld_copy(ch, ch.dm_zg, ch.ds_zg);
-        ld_copy(ch, dm_q, ds_q);
+        if constexpr (MERGED) {
+          ld_copy_n<3>(ch, {ch.dm_z, ch.dm_zg, dm_q},
+                       {ch.ds_z, ch.ds_zg, ds_q});
+        } else {
+          ld_copy(ch, ch.dm_z, ch.ds_z);
+          ld_copy(ch, ch.dm_zg, ch.ds_zg);
+          ld_copy(ch, dm_q, ds_q);
+        }
         dm_logp = ds_logp;
         dm_ke = ds_ke;
         dm_idx = ds_idx;
@@ -242,14 +271,22 @@ __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
       }
       logw_m = logaddexp(logw_m, logw_s);
       if (fwd) {
-        ld_copy(ch, ch.p_z, ch.z1);
-        ld_copy(ch, ch.p_v, ch.v2);
-        ld_copy(ch, ch.p_zg, ch.zg1);
+        if constexpr (MERGED) {
+          ld_copy_n<3>(ch, {ch.p_z, ch.p_v, ch.p_zg}, {ch.z1, ch.v2, ch.zg1});
+        } else {
+          ld_copy(ch, ch.p_z, ch.z1);
+          ld_copy(ch, ch.p_v, ch.v2);
+          ld_copy(ch, ch.p_zg, ch.zg1);
+        }
         p_idx = idx1;
       } else {
-        ld_copy(ch, ch.m_z, ch.z1);
-        ld_copy(ch, ch.m_v, ch.v2);
-        ld_copy(ch, ch.m_zg, ch.zg1);
+        if constexpr (MERGED) {
+          ld_copy_n<3>(ch, {ch.m_z, ch.m_v, ch.m_zg}, {ch.z1, ch.v2, ch.zg1});
+        } else {
+          ld_copy(ch, ch.m_z, ch.z1);
+          ld_copy(ch, ch.m_v, ch.v2);
+          ld_copy(ch, ch.m_zg, ch.zg1);
+        }
         m_idx = idx1;
       }
       depth += 1;
@@ -321,14 +358,24 @@ __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
       s_acc = s_sym = mx_err = 0.0f;
     } else if (new_doub) {
       const bool jump_p = new_dir > 0.0f;
-      ld_copy(ch, ch.e_z, jump_p ? ch.p_z : ch.m_z);
-      ld_copy(ch, ch.e_v, jump_p ? ch.p_v : ch.m_v);
-      ld_copy(ch, ch.e_zg, jump_p ? ch.p_zg : ch.m_zg);
+      if constexpr (MERGED) {
+        ld_copy_n<3>(ch, {ch.e_z, ch.e_v, ch.e_zg},
+                     {jump_p ? ch.p_z : ch.m_z, jump_p ? ch.p_v : ch.m_v,
+                      jump_p ? ch.p_zg : ch.m_zg});
+      } else {
+        ld_copy(ch, ch.e_z, jump_p ? ch.p_z : ch.m_z);
+        ld_copy(ch, ch.e_v, jump_p ? ch.p_v : ch.m_v);
+        ld_copy(ch, ch.e_zg, jump_p ? ch.p_zg : ch.m_zg);
+      }
       e_idx = jump_p ? p_idx : m_idx;
     } else {
-      ld_copy(ch, ch.e_z, ch.z1);
-      ld_copy(ch, ch.e_v, ch.v2);
-      ld_copy(ch, ch.e_zg, ch.zg1);
+      if constexpr (MERGED) {
+        ld_swap_edge(ch);
+      } else {
+        ld_copy(ch, ch.e_z, ch.z1);
+        ld_copy(ch, ch.e_v, ch.v2);
+        ld_copy(ch, ch.e_zg, ch.zg1);
+      }
       e_idx = idx1;
     }
     if (fin || new_doub) {
@@ -348,18 +395,25 @@ __device__ __forceinline__ void ld_posterior_chain(const LdPostArgs& a,
     a.logp_f[c] = dm_logp;
     a.iters[c] = (int)it;
   }
+#ifdef NRT_LD_CLOCKS
+  if (c == 0 && t0 == 0) {
+    for (int k = 0; k < 4; ++k) nrt_ld_clocks[k] += clocks.acc[k];
+    nrt_ld_clocks[4] += (unsigned long long)(it - 1);
+  }
+#endif
 }
 
 // One CUDA block of LD_T threads per chain, a thread block cluster per
 // logical chain block; MIN_BLOCKS resident an SM (at 2: at most 128
 // registers a thread).
 template <class Model, bool CL_SITE, bool EVAL_BLOCK, bool FLOW = false,
-          int MIN_BLOCKS = 1>
+          int MIN_BLOCKS = 1, bool MERGED = false>
 __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
     ld_posterior_kernel(const LdPostArgs a, const Model model) {
   extern __shared__ float smem[];
   ClusterBlock grp;
-  ld_posterior_chain<Model, CL_SITE, EVAL_BLOCK, FLOW>(a, model, grp, smem);
+  ld_posterior_chain<Model, CL_SITE, EVAL_BLOCK, FLOW, ClusterBlock, MERGED>(
+      a, model, grp, smem);
 }
 
 // Dynamic shared memory of one chain block, in bytes, of the kernels that

@@ -69,8 +69,11 @@ struct LdWarmArgs {
   float* work;  // [C][4][D + 1][d] checkpoint stacks
 };
 
-// MIN_BLOCKS resident an SM (at 2: at most 128 registers a thread).
-template <class Model, bool EVAL_BLOCK, int MIN_BLOCKS = 1>
+// MIN_BLOCKS resident an SM (at 2: at most 128 registers a thread); MERGED
+// (K2-ld): the merged leapfrog (nuts_tree_ld.cuh::ld_leap_merged), with the
+// wide reduction's scratch after the cluster slots.
+template <class Model, bool EVAL_BLOCK, int MIN_BLOCKS = 1,
+          bool MERGED = false>
 __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
     ld_warmup_kernel(const LdWarmArgs a, const Model model) {
   extern __shared__ float smem[];
@@ -87,6 +90,10 @@ __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
   ch.d = d;
   ch.D = D;
   ch.n = (d + LD_T - 1) / LD_T;
+#ifdef NRT_LD_CLOCKS
+  LdClocks clocks{clock64(), {0, 0, 0, 0}};  // counted in the posterior only
+  ch.clk = &clocks;
+#endif
   float* p = smem;
   float** vecs[] = {&ch.stds, &ch.mean, &ch.e_z, &ch.e_v, &ch.e_zg, &ch.m_z,
                     &ch.m_v, &ch.m_zg, &ch.p_z, &ch.p_v, &ch.p_zg, &ch.dm_z,
@@ -106,7 +113,10 @@ __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
   Reducer red{p, 0};
   p += 2 * LD_NRED * LD_W;
   ClusterMax longest{reinterpret_cast<uint32_t*>(p), 0};
-  float* scratch = p + 2 * LD_MAX_CLUSTER;  // the model functor's
+  p += 2 * LD_MAX_CLUSTER;
+  WideReducer wide{p, 0};
+  if constexpr (MERGED) p += LD_WIDE_FLOATS;
+  float* scratch = p;  // the model functor's
   const size_t row = (size_t)(D + 1) * d;
   ch.lz = a.work + (size_t)c * 4 * row;
   ch.lv = ch.lz + row;
@@ -169,8 +179,8 @@ __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
         const float r_sel = uniform(seed, it, 4u, (uint32_t)b);
         const float r_acc = uniform(seed, it, 5u, (uint32_t)b);
         const float dirf = direction;
-        const LdLeap lf = ld_leapfrog<EVAL_BLOCK>(ch, red, model, dirf, step,
-                                                  leaf, depth, q1, scratch);
+        const LdLeap lf = ld_leapfrog<EVAL_BLOCK, Model, false, MERGED>(
+            ch, red, wide, model, dirf, step, leaf, depth, q1, scratch);
         const float logp1 = lf.logp1, ke1 = lf.ke1;
         const float err = (ke1 - (logp1 + logdet)) - e_init;
         const bool diverged =
@@ -190,8 +200,12 @@ __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
         const bool first = leaf == 0;
         logw_s = first ? logw_leaf : logaddexp(logw_s, logw_leaf);
         if (first || (logf(r_sel) < logw_leaf - logw_s)) {
-          ld_copy(ch, ch.ds_z, ch.z1);
-          ld_copy(ch, ch.ds_zg, ch.zg1);
+          if constexpr (MERGED) {
+            ld_copy_n<2>(ch, {ch.ds_z, ch.ds_zg}, {ch.z1, ch.zg1});
+          } else {
+            ld_copy(ch, ch.ds_z, ch.z1);
+            ld_copy(ch, ch.ds_zg, ch.zg1);
+          }
           ds_logp = logp1;
           ds_ke = ke1;
           ds_idx = idx1;
@@ -202,22 +216,36 @@ __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
         const bool do_merge = subtree_done && !diverged && !lf.turning_int;
         if (do_merge) {
           if ((logw_s >= logw_m) || (logf(r_acc) < logw_s - logw_m)) {
-            ld_copy(ch, ch.dm_z, ch.ds_z);
-            ld_copy(ch, ch.dm_zg, ch.ds_zg);
+            if constexpr (MERGED) {
+              ld_copy_n<2>(ch, {ch.dm_z, ch.dm_zg}, {ch.ds_z, ch.ds_zg});
+            } else {
+              ld_copy(ch, ch.dm_z, ch.ds_z);
+              ld_copy(ch, ch.dm_zg, ch.ds_zg);
+            }
             dm_logp = ds_logp;
             dm_ke = ds_ke;
             dm_idx = ds_idx;
           }
           logw_m = logaddexp(logw_m, logw_s);
           if (fwd) {
-            ld_copy(ch, ch.p_z, ch.z1);
-            ld_copy(ch, ch.p_v, ch.v2);
-            ld_copy(ch, ch.p_zg, ch.zg1);
+            if constexpr (MERGED) {
+              ld_copy_n<3>(ch, {ch.p_z, ch.p_v, ch.p_zg},
+                           {ch.z1, ch.v2, ch.zg1});
+            } else {
+              ld_copy(ch, ch.p_z, ch.z1);
+              ld_copy(ch, ch.p_v, ch.v2);
+              ld_copy(ch, ch.p_zg, ch.zg1);
+            }
             p_idx = idx1;
           } else {
-            ld_copy(ch, ch.m_z, ch.z1);
-            ld_copy(ch, ch.m_v, ch.v2);
-            ld_copy(ch, ch.m_zg, ch.zg1);
+            if constexpr (MERGED) {
+              ld_copy_n<3>(ch, {ch.m_z, ch.m_v, ch.m_zg},
+                           {ch.z1, ch.v2, ch.zg1});
+            } else {
+              ld_copy(ch, ch.m_z, ch.z1);
+              ld_copy(ch, ch.m_v, ch.v2);
+              ld_copy(ch, ch.m_zg, ch.zg1);
+            }
             m_idx = idx1;
           }
           depth += 1;
@@ -231,16 +259,26 @@ __global__ void __launch_bounds__(LD_T, MIN_BLOCKS)
         if (new_doub) {
           const bool jump_p =
               uniform(seed, it, 6u, (uint32_t)b) < 0.5f;  // new direction
-          ld_copy(ch, ch.e_z, jump_p ? ch.p_z : ch.m_z);
-          ld_copy(ch, ch.e_v, jump_p ? ch.p_v : ch.m_v);
-          ld_copy(ch, ch.e_zg, jump_p ? ch.p_zg : ch.m_zg);
+          if constexpr (MERGED) {
+            ld_copy_n<3>(ch, {ch.e_z, ch.e_v, ch.e_zg},
+                         {jump_p ? ch.p_z : ch.m_z, jump_p ? ch.p_v : ch.m_v,
+                          jump_p ? ch.p_zg : ch.m_zg});
+          } else {
+            ld_copy(ch, ch.e_z, jump_p ? ch.p_z : ch.m_z);
+            ld_copy(ch, ch.e_v, jump_p ? ch.p_v : ch.m_v);
+            ld_copy(ch, ch.e_zg, jump_p ? ch.p_zg : ch.m_zg);
+          }
           e_idx = jump_p ? p_idx : m_idx;
           leaf = 0;
           direction = jump_p ? 1.0f : -1.0f;
         } else {
-          ld_copy(ch, ch.e_z, ch.z1);
-          ld_copy(ch, ch.e_v, ch.v2);
-          ld_copy(ch, ch.e_zg, ch.zg1);
+          if constexpr (MERGED) {
+            ld_swap_edge(ch);
+          } else {
+            ld_copy(ch, ch.e_z, ch.z1);
+            ld_copy(ch, ch.e_v, ch.v2);
+            ld_copy(ch, ch.e_zg, ch.zg1);
+          }
           e_idx = idx1;
           leaf += 1;
         }

@@ -77,6 +77,9 @@ GROUP_ROWS_IN_REGISTERS = 256 * 4
 MCLMC_MID_NVEC = 15  # nrt::MC_MID_NVEC, both mid-d MCLMC kernels
 LD_WARPS = 8  # nrt::LD_W, warps of a chain's block (ops.TSUM_THREADS / 32)
 LD_REDUCE_FLOATS = 2 * 11 * LD_WARPS  # two scratch buffers, LD_NRED x LD_W
+# K1-ld / K2-ld's merged leapfrog: the wide reduction's two scratch buffers,
+# LD_W x LD_WIDE (csrc/block_sum.cuh::WideReducer), besides LD_REDUCE_FLOATS
+LD_WIDE_FLOATS = 2 * LD_WARPS * 32
 LD_MAX_MAXDEPTH = 30
 # Shared memory of one SM on sm_90 (cudaDevAttrMaxSharedMemoryPerMultiprocessor)
 # and what the card reserves for each resident block
@@ -91,10 +94,13 @@ SMEM_OPT_IN_BYTES = SM_SMEM_BYTES - SMEM_BLOCK_RESERVED
 H100_SMS = 132  # SMs of the card the kernels are sized for
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
-# Macros for timing ablations only (profile_main_path.py items 12-14;
+# Macros for timing ablations only (profile_main_path.py items 12-15;
 # all but NRT_LD_ARGS_MIN_BLOCKS change results): NRT_ABLATE_FIXED_TREES
 # (csrc/nuts_tree_ld.cuh), NRT_ABLATE_SV_SCANS, NRT_ABLATE_SV_BARRIERS
-# (csrc/models.cuh), NRT_LD_ARGS_MIN_BLOCKS=n, NRT_ABLATE_EVAL
+# (csrc/models.cuh), NRT_LD_ARGS_MIN_BLOCKS=n, NRT_LD_MIN_BLOCKS=n,
+# NRT_LD_TODAY, NRT_LD_EARLY=n, NRT_LD_CLOCKS (csrc/nuts_tree_ld.cuh: K1-ld /
+# K2-ld's blocks an SM, form, early loads and phase clocks; none of these
+# four changes results), NRT_ABLATE_EVAL
 # (csrc/nuts_fused_mid_posterior.cu and the group-form MCLMC kernels: no
 # model evaluation), NRT_ABLATE_FIXED_STEPS (csrc/mclmc_step_group.cuh: 6
 # leapfrogs a draw, no halvings).  Empty in every other use; set before the
@@ -125,9 +131,11 @@ SOURCES = {
         "nrt_mclmc_warmup_launch": (_MCLMC_WARM + [_P] * 22, _I)},
     "nuts_fused_ld_posterior": {
         "nrt_ld_posterior_launch": (_NUTS_POST + [_P] * 17, _I),
-        "nrt_ld_smem_bytes": ([_I, _I, _I], _LL)},
+        "nrt_ld_smem_bytes": ([_I, _I, _I], _LL),
+        "nrt_ld_posterior_occupancy": ([_I, _I, _I, _P], _I)},
     "nuts_fused_ld_warmup": {
-        "nrt_ld_warmup_launch": (_NUTS_WARM + [_P] * 18, _I)},
+        "nrt_ld_warmup_launch": (_NUTS_WARM + [_P] * 18, _I),
+        "nrt_ld_warmup_occupancy": ([_I, _I, _I, _P], _I)},
     "nuts_fused_ld_args_posterior": {
         "nrt_ld_args_posterior_launch": (_NUTS_POST + [_P] * 19, _I),
         "nrt_ld_args_smem_bytes": ([_I, _I, _I, _I, _P], _LL),
@@ -807,22 +815,60 @@ def stream_workspace_floats(R, B, d):
     return d * B + R * B * (d + 1)
 
 
-def ld_smem_bytes(kind, d, maxdepth):
+def _ld_layout_bytes(kind, d, maxdepth, merged):
     """Dynamic shared memory of one chain's CUDA block in the ld kernel
     ``kind`` ("posterior" / "warmup"), as csrc/nuts_tree_ld.cuh lays it out:
     the live vectors, the two cached-dot rows, the reduction scratch and
-    the cluster slots."""
+    the cluster slots, and with ``merged`` the wide reduction's scratch."""
     return 4 * (LD_NVEC[kind] * d + 2 * (maxdepth + 1) + LD_REDUCE_FLOATS
-                + 2 * MAX_LD_BLOCK)
+                + 2 * MAX_LD_BLOCK + (LD_WIDE_FLOATS if merged else 0))
+
+
+def ld_form(kind, d, maxdepth):
+    """The form of K1-ld / K2-ld (``kind`` "posterior" / "warmup") at
+    (d, maxdepth): "merged" (csrc/nuts_tree_ld.cuh::ld_leap_merged, one
+    reduction a leapfrog and its checks, with 2 KB more of reduction
+    scratch) where its layout fits a block's shared memory, else "today"
+    (one reduction a U-turn level), which serves d up to ``ld_max_dim``
+    (the posterior's 2733..2757 at maxdepth 10).  The kernels pick theirs
+    by the same rule (nuts_tree_ld.cuh::ld_kernel_form); under the
+    ablation macro NRT_LD_TODAY the merged form's kernel runs today's
+    leapfrog and lays out today's bytes."""
+    merged = "NRT_LD_TODAY" not in NVCC_DEFINES
+    fits = _ld_layout_bytes(kind, d, maxdepth, merged) <= SMEM_OPT_IN_BYTES
+    return "merged" if fits else "today"
+
+
+def ld_smem_bytes(kind, d, maxdepth):
+    """Dynamic shared memory of one chain's CUDA block in the ld kernel
+    ``kind`` ("posterior" / "warmup") in the form ``ld_form`` picks."""
+    merged = (ld_form(kind, d, maxdepth) == "merged"
+              and "NRT_LD_TODAY" not in NVCC_DEFINES)
+    return _ld_layout_bytes(kind, d, maxdepth, merged)
 
 
 def ld_max_dim(maxdepth, scratch_floats=0):
     """Largest d whose chain state fits a block's shared memory in both ld
-    kernels; with a functor's ``scratch_floats`` (the ld_args kernels, whose
-    warmup keeps 19 vectors and posterior 21), in both ld_args kernels."""
+    kernels (today's form serves the d where the merged one does not fit);
+    with a functor's ``scratch_floats`` (the ld_args kernels, whose warmup
+    keeps 19 vectors and posterior 21), in both ld_args kernels."""
     nvec = max(LD_NVEC.values())
-    return (SMEM_OPT_IN_BYTES - ld_smem_bytes("posterior", 0, maxdepth)
+    return (SMEM_OPT_IN_BYTES - _ld_layout_bytes("posterior", 0, maxdepth,
+                                                 False)
             - 4 * scratch_floats) // (4 * nvec)
+
+
+def ld_occupancy(kind, d, maxdepth, B=MAX_LD_BLOCK):
+    """(chain blocks one SM holds, clusters of B chains the card holds at
+    once) of K1-ld / K2-ld (``kind``) at (d, maxdepth), in the form
+    ``ld_form`` picks (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``,
+    ``cudaOccupancyMaxActiveClusters``)."""
+    lib = library(f"nuts_fused_ld_{kind}")
+    out = (ctypes.c_int * 2)()
+    rc = getattr(lib, f"nrt_ld_{kind}_occupancy")(
+        d, maxdepth, B, ctypes.cast(out, ctypes.c_void_p))
+    _raise_on(rc, lib, f"nuts_fused_ld_{kind} occupancy")
+    return out[0], out[1]
 
 
 def ld_fits(model, maxdepth):

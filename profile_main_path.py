@@ -122,6 +122,26 @@ After building the kernels it prints, for each path,
    in this checkout, the ablation of K3-args on its saved regression states
    (32 draws of a fixed 6 leapfrogs, no halvings), with the evaluation and
    without it.
+15. ``--ld-launch TREE [TREE ...]``: as item 12 for K1-ld and K2-ld on the
+   large-d path (N(3, 1) at d = 1000, 512 chains, 200 + 300 draws): K1-ld's
+   first 128-draw posterior launch on the path's own post-warmup states (at
+   the path's B = 8 and at B = 1) and K2-ld's first full 128-row warmup
+   launch (draws 2-130) on its own warmup states, in a process of its own
+   for each checkout given, with leapfrogs, block iterations, bounds, the
+   form, chain blocks an SM and resident clusters of 8 where the checkout
+   has them, and the ptxas lines of both sources, the launches' inputs
+   saved; then each checkout in the order given (parent, this, this,
+   parent) on every saved set; then, in this checkout, the ablation of
+   K1-ld on its saved posterior states with every tree at maxdepth 4 (15
+   leapfrogs a draw, the path's own trees; NRT_ABLATE_FIXED_TREES), each
+   build of ``LD_ABLATIONS`` (today's leapfrog and the merged one, at one
+   and two blocks an SM, the merged one also without the early loads, and
+   both with NRT_LD_CLOCKS: chain 0's SM cycles a leapfrog in the pass, its
+   reduction, the checks after it and the scalar tree) with its ptxas line
+   and SASS instruction counts: microseconds a leapfrog of one chain alone
+   (132 chains, one an SM) and of each of two chains sharing an SM (264
+   chains), and of an SM a leapfrog at the path's 512 chains in clusters
+   of 8.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -1374,6 +1394,246 @@ def mclmc_data_launch(trees):
         print(out.stdout.strip(), flush=True)
 
 
+# Item 15: K1-ld's first 128-draw posterior launch on the large-d path's own
+# post-warmup states (at the path's B = 8 and at B = 1) and K2-ld's first
+# full 128-row warmup launch on its own warmup states, in the tree given, as
+# SV_LAUNCH does for the SV path; the inputs saved for LD_TIME.
+LD_LAUNCH = """
+import re, sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DiagNutsSettings, Sampler
+from nuts_rs_tpu_torch.kernels import _build, nuts_fused as nf
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+dev = torch.device("cuda", 0)
+settings = DiagNutsSettings(num_chains=cs.LD_CHAINS, num_tune=cs.LD_TUNE,
+                            num_draws=cs.LD_DRAWS, seed=cs.SEED,
+                            posterior_kernel="pallas")
+seen = {}
+run0, warm0 = nf.nuts_fused_run, nf.nuts_fused_warmup_run
+def run(*a, **k):
+    seen.setdefault("post", (a, k))
+    return run0(*a, **k)
+def warm(*a, **k):
+    if a[1].shape[0] == cs.CHUNK:
+        seen.setdefault("warm", (a, k))
+    return warm0(*a, **k)
+nf.nuts_fused_run, nf.nuts_fused_warmup_run = run, warm
+sampler = Sampler(normal_logp(cs.LD_DIM, cs.MU), settings, device=dev)
+while "post" not in seen:
+    sampler.run_next_chunk()
+nf.nuts_fused_run, nf.nuts_fused_warmup_run = run0, warm0
+p, w = seen["post"][0], seen["warm"][0]
+torch.save({"post": p[:9], "K": p[9], "jitter": p[12], "warm": w[:9],
+            "grad": w[12]}, sys.argv[1])
+D = settings.nuts_options().maxdepth
+for name, fn, key, at, kind in (("K1-ld", run0, "post", 4, "posterior"),
+                                ("K2-ld", warm0, "warm", 8, "warmup")):
+    a, k = seen[key]
+    out = fn(*a, **k)
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(lambda: fn(*a, **k), 5)
+    st = out[at]
+    b_ms, b_by = cs.bound("nuts", sampler.model, a[1:9], out, st)
+    it = st["loop_iterations"].float()
+    where = "one chain block an SM, 15 clusters of 8 (parent's form)"
+    if hasattr(_build, "ld_occupancy"):
+        per_sm, clusters = _build.ld_occupancy(kind, cs.LD_DIM, D)
+        where = (f"form {_build.ld_form(kind, cs.LD_DIM, D)}, {per_sm} chain "
+                 f"blocks an SM, {clusters} clusters of 8 resident")
+    print(f"{name} own states: {ms:.4f} ms per launch of "
+          f"{tuple(st['n_steps'].shape)} (chains, draws); leapfrogs "
+          f"{int(st['n_steps'].sum())}, per draw "
+          f"{float(st['n_steps'].float().mean()):.2f}; block iterations "
+          f"mean {float(it.mean()):.1f} max {int(it.max())}; bound "
+          f"{b_ms:.4f} ms ({b_by}); {where}")
+for stem in ("nuts_fused_ld_posterior", "nuts_fused_ld_warmup"):
+    log = _build.BUILD_DIR / f"build_{stem}.log"
+    text = log.read_text() if log.exists() else ""
+    for entry in text.split("Compiling entry function")[1:]:
+        nums = [re.findall(p, entry) for p in (
+            r"Used (\\d+) registers", r"(\\d+) bytes stack frame",
+            r"(\\d+) bytes spill stores", r"(\\d+) bytes spill loads")]
+        mangled = entry.split("\\n")[0]  # <..., MIN_BLOCKS, MERGED>
+        form = ("min blocks " + (re.findall(r"Li(\\d)E", mangled) or ["1"])[0]
+                + (", merged" if "Lb1EEEv" in mangled else ", today's"))
+        print("ptxas {} ({}): registers {} stack {} spill stores {} spill "
+              "loads {}".format(stem, form,
+                                *(n[0] if n else "?" for n in nums)))
+"""
+
+# Item 15's comparison on common inputs: this tree's K1-ld (B = 8 and B = 1)
+# and K2-ld on the launches LD_LAUNCH saved, 5 calls after a first.
+LD_TIME = """
+import sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DiagNutsSettings
+from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+dev = torch.device("cuda", 0)
+config = DiagNutsSettings(num_chains=cs.LD_CHAINS, seed=cs.SEED,
+                          posterior_kernel="pallas").chain_config()
+model = normal_logp(cs.LD_DIM, cs.MU)
+for path in sys.argv[1:]:
+    s = torch.load(path)
+    runs = [(f"K1-ld B={b}", lambda b=b: nf.nuts_fused_run(
+                *s["post"], s["K"], model, config.nuts, s["jitter"], block=b,
+                layout="ld"), 4) for b in (8, 1)]
+    runs.append(("K2-ld", lambda: nf.nuts_fused_warmup_run(
+        *s["warm"], model, config.nuts, config.step_size, s["grad"],
+        layout="ld"), 8))
+    for name, fn, at in runs:
+        out = fn()
+        torch.cuda.synchronize()
+        ms = cs.cuda_events_ms(fn, 5)
+        it = out[at]["loop_iterations"]
+        print(f"{name} on {path.rsplit('/', 1)[-1]}: {ms:.4f} ms; "
+              f"leapfrogs {int(out[at]['n_steps'].sum())}, block "
+              f"iterations max {int(it.max())}")
+"""
+
+# Item 15's ablation, in this tree only: K1-ld on the saved own states with
+# every tree at maxdepth 4 (15 leapfrogs a draw, NRT_ABLATE_FIXED_TREES),
+# built with the macros given (csrc/nuts_tree_ld.cuh) into a build
+# directory of their own; a first argument "build" builds the library,
+# prints its ptxas lines and stops.  One chain alone on an SM: 132 chains
+# at B = 1; two chains sharing each SM: 264; the path's 512 chains in
+# clusters of 8.
+LD_ABLATE = """
+import re, sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch.kernels import _build, nuts_fused as nf
+from nuts_rs_tpu_torch.kernels.nuts import NutsOptions
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+_build.NVCC_DEFINES[:] = sys.argv[2:]
+label = " ".join(m.removeprefix("NRT_") for m in sys.argv[2:])
+_build.BUILD_DIR = _build.BUILD_DIR / re.sub(r"[^A-Za-z0-9]+", "_", label)
+if sys.argv[1] == "build":
+    _build.build(["nuts_fused_ld_posterior"])
+    text = (_build.BUILD_DIR / "build_nuts_fused_ld_posterior.log").read_text()
+    for entry in text.split("Compiling entry function")[1:]:
+        if ("Li1ELb0EEEv" in entry.split("\\n")[0]
+                and "LD_TODAY" not in label):
+            continue  # today's form at one block: the fallback kernel
+        nums = [re.findall(p, entry)[:1] or ["?"] for p in (
+            r"Used (\\d+) registers", r"(\\d+) bytes stack frame",
+            r"(\\d+) bytes spill stores", r"(\\d+) bytes spill loads")]
+        print("ptxas [{}]: registers {} stack {} spill stores {} spill loads "
+              "{}".format(label, *(n[0] for n in nums)))
+    import collections, shutil, subprocess
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_build._library_path(
+        "nuts_fused_ld_posterior"))], capture_output=True, text=True).stdout
+    for fn in sass.split("Function : ")[1:]:
+        name = fn.split("\\n")[0]
+        if "Li1ELb0EEEv" in name and "LD_TODAY" not in label:
+            continue
+        op = r"/\\*[0-9a-f]{4,}\\*/\\s+(?:@!?U?P\\w+\\s+)?([A-Z][A-Z0-9.]*)"
+        ops = collections.Counter(m.split(".")[0] for m in re.findall(op, fn))
+        keys = ("LDS", "STS", "LDG", "STG", "SHFL", "BAR", "LDL", "STL",
+                "FADD", "FMUL", "BRA")
+        print(f"sass [{label}]: {sum(ops.values())} instructions; "
+              + ", ".join(f"{k} {ops[k]}" for k in keys))
+    raise SystemExit(0)
+dev = torch.device("cuda", 0)
+saved = torch.load(sys.argv[1])
+args, jitter = saved["post"], saved["jitter"]
+K, D = 32, 4
+opts = NutsOptions(maxdepth=D)
+model = normal_logp(cs.LD_DIM, cs.MU)
+per_sm, clusters = _build.ld_occupancy("posterior", cs.LD_DIM, D)
+sms = torch.cuda.get_device_properties(0).multi_processor_count
+line = [f"ablation [{label}]: {per_sm} blocks an SM, {clusters} clusters"]
+for C, B, what in ((sms, 1, "one chain alone"),
+                   (2 * sms, 1, "two chains an SM"),
+                   (cs.LD_CHAINS, 8, "path's 512 at B=8")):
+    a = (args[0],) + tuple(x[:C] for x in args[1:])
+    def fn():
+        return nf.nuts_fused_run(*a, K, model, opts, jitter, block=B,
+                                 layout="ld")
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(fn, 10)
+    leaps = int(out[4]["n_steps"].sum())
+    line.append(f"{what}: {ms:.4f} ms, {1e3 * ms * C / leaps:.4f} us a "
+                f"chain's leapfrog, {1e3 * ms * sms / leaps:.4f} us of an "
+                "SM a leapfrog")
+    if "NRT_LD_CLOCKS" in sys.argv and C == sms:
+        import ctypes
+        lib = _build.library("nuts_fused_ld_posterior")
+        clocks = (ctypes.c_ulonglong * 5)()
+        lib.nrt_ld_clocks.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.nrt_ld_clocks(1, ctypes.cast(clocks, ctypes.c_void_p))
+        fn()
+        torch.cuda.synchronize()
+        lib.nrt_ld_clocks(1, ctypes.cast(clocks, ctypes.c_void_p))
+        total = sum(clocks[:4])
+        n = leaps / C
+        phases = ", ".join(
+            f"{name} {clocks[k] / n:.0f} ({100 * clocks[k] / total:.1f}%)"
+            for k, name in enumerate(("pass", "leapfrog reduction",
+                                      "checks", "scalar tree")))
+        line.append(f"chain 0's cycles a leapfrog: {phases}; {total / n:.0f} "
+                    f"in all, {clocks[4]} block iterations, "
+                    f"{total / (1e3 * ms):.0f} MHz over the timed launches")
+print("; ".join(line))
+"""
+
+LD_ABLATIONS = tuple(
+    ("NRT_ABLATE_FIXED_TREES", *build) for build in (
+        ("NRT_LD_TODAY",), ("NRT_LD_TODAY", "NRT_LD_MIN_BLOCKS=2"), (),
+        ("NRT_LD_MIN_BLOCKS=2",), ("NRT_LD_EARLY=0",),
+        ("NRT_LD_CLOCKS", "NRT_LD_TODAY"), ("NRT_LD_CLOCKS",)))
+
+
+def ld_launch(trees):
+    """Item 15: each distinct tree's own large-d path, its launches saved;
+    then every tree in the order given (e.g. parent, this one, this one,
+    parent) timed on every saved set; then the ablation in this tree, its
+    six builds made together first."""
+    from pathlib import Path
+
+    from nuts_rs_tpu_torch.kernels import _build
+
+    here = Path(__file__).resolve().parent
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    builds = [subprocess.Popen([sys.executable, "-c", LD_ABLATE, "build",
+                                *defines], cwd=here, stdout=subprocess.PIPE,
+                               text=True)
+              for defines in LD_ABLATIONS]
+    saved = {}
+    for tree in trees:
+        key = Path(tree).resolve()
+        if key in saved:
+            continue
+        saved[key] = str(_build.BUILD_DIR / f"ld_states_{len(saved)}.pt")
+        out = subprocess.run([sys.executable, "-c", LD_LAUNCH, saved[key]],
+                             cwd=tree, capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+        for line in out.stdout.strip().splitlines():
+            print(f"{tree}: {line} [saved as {saved[key]}]", flush=True)
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", LD_TIME,
+                              *saved.values()], cwd=tree,
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+        for line in out.stdout.strip().splitlines():
+            print(f"{tree}: {line}", flush=True)
+    for p in builds:
+        print(p.communicate()[0].strip(), flush=True)
+        if p.returncode:
+            raise RuntimeError("an ablation build failed")
+    states = saved.get(here) or next(iter(saved.values()))
+    for defines in LD_ABLATIONS:
+        out = subprocess.run([sys.executable, "-c", LD_ABLATE, states,
+                              *defines], cwd=here, capture_output=True,
+                             text=True)
+        if out.returncode:
+            raise RuntimeError(f"ablation {defines}: {out.stderr[-3000:]}")
+        print(out.stdout.strip(), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
@@ -1405,6 +1665,9 @@ def main() -> int:
     parser.add_argument("--mclmc-data-launch", nargs="+", metavar="TREE",
                         help="item 14 alone, for each checkout in turn, "
                              "then its ablation in this one")
+    parser.add_argument("--ld-launch", nargs="+", metavar="TREE",
+                        help="item 15 alone, for each checkout in turn, "
+                             "then its ablation in this one")
     args = parser.parse_args()
     only = ("large-d" if args.only_large_d else "data" if args.only_data
             else "mclmc-data" if args.only_mclmc_data else None)
@@ -1434,6 +1697,10 @@ def main() -> int:
         return 0
     if args.mclmc_data_launch:
         mclmc_data_launch(args.mclmc_data_launch)
+        print(card_line())
+        return 0
+    if args.ld_launch:
+        ld_launch(args.ld_launch)
         print(card_line())
         return 0
     if args.only_stream:

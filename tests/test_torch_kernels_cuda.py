@@ -83,15 +83,26 @@ def test_kernels_match_plain_versions_on_the_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim,block,maxdepth", [(300, 8, 10), (257, 4, 6)])
-def test_ld_kernels_match_plain_versions_on_the_card(dim, block, maxdepth):
-    """K1-ld and K2-ld at a mid size, C = 16 chains in logical blocks of
-    ``block`` (clusters of that many CUDA blocks), d and maxdepth given at
-    launch."""
+@pytest.mark.parametrize("dim,block,maxdepth,step", [
+    (300, 8, 10, 0.25), (257, 4, 6, 0.25),
+    # the large-d path's d at its block and at B = 1, with trees deep enough
+    # for leaves of tzn >= 3 (the merged pass's extra reduction)
+    (1000, 8, 10, 0.1), (1000, 1, 10, 0.1),
+    # the largest d of each form at maxdepth 10 (_build.ld_form): the
+    # posterior's merged form, then today's form (the warmup's merged)
+    (2732, 8, 10, 0.1), (2757, 8, 10, 0.1)])
+def test_ld_kernels_match_plain_versions_on_the_card(dim, block, maxdepth,
+                                                     step):
+    """K1-ld and K2-ld, C = 16 chains in logical blocks of ``block``
+    (clusters of that many CUDA blocks), d and maxdepth given at launch, bit
+    for bit against their plain versions: every output and stat equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.kernels import _build
+
     dev = torch.device("cuda", 0)
     C, mu = 16, 3.0
+    same = np.testing.assert_array_equal
     model, opts = tg.normal_logp(dim, mu), NutsOptions(maxdepth=maxdepth)
     rng = np.random.default_rng(dim)
     f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
@@ -100,8 +111,8 @@ def test_ld_kernels_match_plain_versions_on_the_card(dim, block, maxdepth):
     stds = f(rng.uniform(0.7, 1.3, size=(C, dim)))
     mean = f(mu + 0.1 * rng.normal(size=(C, dim)))
     logdet = -torch.log(stds).sum(1)
-    step = torch.full((C,), 0.25, device=dev)
-    args = (q, g, logp, stds, mean, logdet, step, step.clone())
+    steps = torch.full((C,), step, device=dev)
+    args = (q, g, logp, stds, mean, logdet, steps, steps.clone())
     before = dict(nf.LAUNCHES)
     got = nf.nuts_fused_run(3, *args, 8, model, opts, 0.1, block=block,
                             layout="ld")
@@ -109,13 +120,19 @@ def test_ld_kernels_match_plain_versions_on_the_card(dim, block, maxdepth):
     want = nf.nuts_fused_run_reference(3, *args, 8, model, opts, 0.1,
                                        block=block, layout="ld")
     for name in INT_STATS:
-        np.testing.assert_array_equal(got[4][name].cpu().numpy(),
-                                      want[4][name].cpu().numpy(), name)
+        same(got[4][name].cpu().numpy(), want[4][name].cpu().numpy(), name)
     assert got[3].shape == (C, 8, dim)
     for i in range(4):
-        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+        same(got[i].cpu().numpy(), want[i].cpu().numpy(), str(i))
     for name in nf.STAT_NAMES:
-        _close(got[4][name].cpu(), want[4][name].cpu(), name, 1e-5, 1e-5)
+        same(got[4][name].cpu().numpy(), want[4][name].cpu().numpy(), name)
+    if step < 0.25:
+        # a tree of depth 4 or more ran the leaf of tzn = 3 of its third
+        # subtree
+        assert int(got[4]["depth"].max()) >= 4
+    print(f"K1-ld d={dim} form {_build.ld_form('posterior', dim, maxdepth)}"
+          f", K2-ld form {_build.ld_form('warmup', dim, maxdepth)}; "
+          f"depth max {int(got[4]['depth'].max())}")
 
     flags = torch.ones(6, nf.NFLAGS, dtype=torch.int32, device=dev)
     flags[:, nf.FLAG_DO_SWITCH] = 0
@@ -133,12 +150,11 @@ def test_ld_kernels_match_plain_versions_on_the_card(dim, block, maxdepth):
     want = nf.nuts_fused_warmup_run_reference(5, *wargs, block=block,
                                               layout="ld")
     for name in INT_STATS + ("transformation_index",):
-        np.testing.assert_array_equal(got[8][name].cpu().numpy(),
-                                      want[8][name].cpu().numpy(), name)
+        same(got[8][name].cpu().numpy(), want[8][name].cpu().numpy(), name)
     for i in range(8):
-        _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
+        same(got[i].cpu().numpy(), want[i].cpu().numpy(), str(i))
     for name in nf.WARMUP_STAT_NAMES:
-        _close(got[8][name].cpu(), want[8][name].cpu(), name, 1e-5, 1e-5)
+        same(got[8][name].cpu().numpy(), want[8][name].cpu().numpy(), name)
     assert nf.LAUNCHES["nuts_fused_ld_posterior"] == \
         before["nuts_fused_ld_posterior"] + 1
     assert nf.LAUNCHES["nuts_fused_ld_warmup"] == \
