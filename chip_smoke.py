@@ -80,10 +80,17 @@ own stds are printed, not gated: their run-to-run spread is 23-50%) within
 max(0.1 std, 10%) or 3 sqrt(1 + 1/8) of the 8 runs' run-to-run spread,
 the divergence share at most the seed-0 run's plus 0.2 points and two of
 its standard errors, a refit kept, exactly 4 launches of K1-flow and none
-of another fused kernel.  K1-flow is checked bit for bit on the path's
-own states (64 chains, 8 draws) and timed at 256 chains on the path's own
-and on made-up states, beside the flow's forward and vector-Jacobian
-product by batched PyTorch calls.  The model
+of another fused kernel, all in the flow's warp form (``_build.flow_form``:
+both passes on one warp at d <= 32 and H <= 32).  K1-flow is checked bit
+for bit on the path's own states (64 chains, 8 draws) and timed at 256
+chains on the path's own and on made-up states, beside the flow's forward
+and vector-Jacobian product by batched PyTorch calls.  Its other form,
+today's (every thread of the chain's block; d > 32 or H > 32), has a row of
+its own: ``funnel(40)`` through the default flow driven by ``Sampler.run``
+with 8 chains, no tuning and 128 posterior draws (one launch, in today's
+form), a check launch of 8 chains and 4 draws through a flow off the
+identity, max abs err 0, and its 128-draw launch timed at 256 chains on
+made-up states.  The model
 functors
 (``csrc/models.cuh``) are rows of the kernel line of their own, checked in
 the kernels that evaluate them: SV's in K1-ld-args and K2-ld-args at the
@@ -210,6 +217,9 @@ DIV_SHARE_TOL = 0.002
 FLOW_DIM, FLOW_FULL_CHAINS, FLOW_FULL_TUNE, FLOW_FULL_DRAWS = 10, 256, 600, 600
 FLOW_CHAINS, FLOW_TUNE, FLOW_DRAWS = 64, 30, 512
 FLOW_REFERENCE = GLM_REFERENCE.with_name("flow_funnel_reference.json")
+# K1-flow's today's form (d > 32): funnel(40) through the default flow, 8
+# chains, no tuning, one 128-draw launch; its check launch 8 chains, 4 draws
+FLOW_TODAY_DIM, FLOW_TODAY_CHAINS, FLOW_TODAY_K = 40, 8, 4
 # the gates of PERF.md (section 2), on v and on every u_i = x_i e^(-v/2):
 # a mean within max(0.1, 3 sqrt(1 + 1 / R) s) posterior std of the average
 # of the JAX engine's R runs at seeds 0 .. R - 1, and a std within
@@ -507,7 +517,8 @@ def zero_launch_counts():
     from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
-    for counts in (nf.LAUNCHES, mf.LAUNCHES, _build.MODEL_LAUNCHES):
+    for counts in (nf.LAUNCHES, mf.LAUNCHES, _build.MODEL_LAUNCHES,
+                   _build.FLOW_FORM_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1084,8 +1095,11 @@ KERNELS = (
      "nuts_rs_tpu/models/gaussian.py:66"),
     ("funnel", "models.cuh", "nuts_rs_tpu/models/gaussian.py:107"),
     ("correlated_normal", "models.cuh", "nuts_rs_tpu/models/gaussian.py:96"),
-    # K1 through a frozen coupling flow (make_kernel's flow= branch)
-    ("nuts_fused_flow_posterior", "nuts_fused_flow_posterior.cu",
+    # K1 through a frozen coupling flow (make_kernel's flow= branch), the
+    # flow's passes on one warp (the flow path), and in today's form
+    ("nuts_fused_flow_posterior", "nuts_fused_flow_warp_posterior.cu",
+     "nuts_rs_tpu/kernels/nuts_pallas.py:202"),
+    ("nuts_fused_flow_posterior_today", "nuts_fused_flow_posterior.cu",
      "nuts_rs_tpu/kernels/nuts_pallas.py:202"),
 )
 
@@ -1797,6 +1811,9 @@ def path_flow(device, checks, launches, times):
     if plan != [(0, FLOW_TUNE), (FLOW_TUNE, FLOW_TUNE + FLOW_DRAWS)]:
         raise AssertionError(f"flow path phases {plan}: not the sync warmup "
                              "then the K1-flow posterior")
+    if _build.FLOW_FORM_LAUNCHES != {"warp": want, "today": 0}:
+        raise AssertionError(f"flow path forms {_build.FLOW_FORM_LAUNCHES}: "
+                             f"want {want} in the warp form")
     launches[kernel] = got[kernel]
     warm_s = sum(s for lo, hi, s in sampler.chunk_seconds if lo < FLOW_TUNE)
     post_s = sum(s for lo, hi, s in sampler.chunk_seconds if lo >= FLOW_TUNE)
@@ -1863,10 +1880,13 @@ def path_flow(device, checks, launches, times):
     b_ms, b_by = flow_bound(model, packed, args, out_k)
     checks[kernel] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "bound_ms": b_ms, "bound_by": b_by}
+    form, per_sm = _build.flow_blocks_per_sm(model, opts.maxdepth,
+                                             packed.num_layers, packed.hidden)
     print(f"K1-flow check: C={FLOW_CHAINS} d={FLOW_DIM} K={CHECK_K1_DRAWS} "
           f"on the path's own states: integer stats equal on all {n} (chain,"
           f" draw) entries, max abs err {err:.3g} (draws, final q, z, logp, "
-          f"all stats); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+          f"all stats); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; {form} "
+          f"form, {per_sm} chain blocks an SM")
 
     # K1-flow alone at the configuration's 256 chains, 128 draws: on the
     # path's own states, tiled to 256 (the kernels line's chunk_ms), and on
@@ -1914,6 +1934,111 @@ def path_flow(device, checks, launches, times):
     print(f"yardstick: the flow's forward for {C} chains by batched PyTorch "
           f"calls {fwd_ms:.4f} ms, forward and vjp {vjp_ms:.4f} ms (TF32 "
           "off; the sync engine pays it at every leapfrog of the warmup)")
+    flow_today(device, checks, launches, times, med)
+
+
+def perturbed_flow(spec, d, seed, scale=0.2):
+    """``spec``'s parameters at a random start, every net weight and bias
+    moved by N(0, scale^2) off the identity map, packed for K1-flow on the
+    card."""
+    from nuts_rs_tpu_torch.flows.coupling import tree_map
+
+    rng = np.random.default_rng(seed)
+    q0 = torch.tensor(rng.normal(size=(1, d)), dtype=torch.float32)
+    params = tree_map(lambda v: v[0], spec.init(seed, d, q0, -q0 - 0.5))
+    for layer in params["layers"]:
+        for k, v in layer["net"].items():
+            layer["net"][k] = v + torch.tensor(
+                scale * rng.normal(size=tuple(v.shape)), dtype=torch.float32)
+    return spec.kernel_pack(tree_map(lambda v: v.cuda(), params))
+
+
+def flow_today(device, checks, launches, times, med):
+    """K1-flow in today's form (d > 32): funnel(40) through the default flow
+    by Sampler.run (8 chains, no tuning, one 128-draw launch), a check
+    launch through a flow off the identity, and its 128-draw launch at 256
+    chains on made-up states."""
+    from nuts_rs_tpu_torch import FlowNutsSettings, Sampler
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+    from nuts_rs_tpu_torch.models.gaussian import funnel
+
+    d, C = FLOW_TODAY_DIM, FLOW_TODAY_CHAINS
+    row, kernel = "nuts_fused_flow_posterior_today", "nuts_fused_flow_posterior"
+    model = funnel(d).to(device)
+    settings = FlowNutsSettings(num_chains=C, num_tune=0, num_draws=CHUNK,
+                                seed=SEED, posterior_kernel="pallas")
+    zero_launch_counts()
+    t0 = time.monotonic()
+    sampler = Sampler(model, settings, device=device)
+    trace = sampler.run()
+    run_s = time.monotonic() - t0
+    got = read_launch_counts(nf.LAUNCHES, (kernel,))
+    forms = dict(_build.FLOW_FORM_LAUNCHES)
+    if got[kernel] != 1 or forms != {"warp": 0, "today": 1}:
+        raise AssertionError(f"funnel({d}) through the flow launched {got}, "
+                             f"forms {forms}: want one in today's form")
+    pos = trace.posterior["position"]
+    if pos.shape != (C, CHUNK, d) or not np.isfinite(pos).all():
+        raise AssertionError(f"funnel({d}) through the flow: draws of shape "
+                             f"{pos.shape}, finite {np.isfinite(pos).all()}")
+    launches[row] = forms["today"]
+
+    spec = sampler.strategy.spec
+    packed = perturbed_flow(spec, d, 7)
+    opts = sampler.config.nuts
+    form, per_sm = _build.flow_blocks_per_sm(model, opts.maxdepth,
+                                             packed.num_layers, packed.hidden)
+    if form != "today":
+        raise AssertionError(f"funnel({d}) takes K1-flow's {form} form")
+    rng = np.random.default_rng(4)
+    step = torch.tensor(rng.uniform(0.2, 0.4, size=C), dtype=torch.float32,
+                        device=device)
+    args = flow_inputs(
+        torch.tensor(0.8 * rng.normal(size=(C, d)), dtype=torch.float32,
+                     device=device), step, step.clone())
+    out_k, out_p, ms, plain_ms = timed_pair(
+        lambda: nf.nuts_fused_run(5, *args, FLOW_TODAY_K, model, opts, 0.1,
+                                  flow=packed),
+        lambda: nf.nuts_fused_run_reference(5, *args, FLOW_TODAY_K, model,
+                                            opts, 0.1, flow=packed))
+    n, err = compare("K1-flow (today's form)", out_k, out_p, ("q", "z", "logp"),
+                     nf.STAT_NAMES, INT_STATS)
+    if err != 0.0:
+        raise AssertionError(f"K1-flow in today's form differs from its "
+                             f"plain version by {err}")
+    b_ms, b_by = flow_bound(model, packed, args, out_k)
+    checks[row] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+    print(f"K1-flow in today's form: funnel({d}) by Sampler.run, {C} chains, "
+          f"{CHUNK} draws in {run_s:.3f} s, launches {forms}; check C={C} "
+          f"d={d} K={FLOW_TODAY_K} through a 4 x 32 flow off the identity: "
+          f"integer stats equal on all {n} (chain, draw) entries, max abs err "
+          f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; "
+          f"{per_sm} chain blocks an SM")
+
+    full = FLOW_FULL_CHAINS
+    made = flow_inputs(
+        torch.tensor(rng.normal(size=(full, d)), dtype=torch.float32,
+                     device=device),
+        torch.tensor(rng.uniform(0.9 * med, 1.1 * med, size=full),
+                     dtype=torch.float32, device=device),
+        torch.full((full,), med, device=device))
+
+    def launch():
+        return nf.nuts_fused_run(7, *made, CHUNK, model, opts, 0.1,
+                                 flow=packed)
+    out = launch()
+    torch.cuda.synchronize()
+    ms_ = cuda_events_ms(launch, 3)
+    b_ms_, b_by_ = flow_bound(model, packed, made, out)
+    iters = int(out[4]["loop_iterations"].max())
+    times[row] = (ms_, b_ms_, b_by_)
+    print(f"time K1-flow in today's form on made-up states: {ms_:.4f} ms per "
+          f"{CHUNK}-draw launch at C={full} d={d}, 4 x 32 flow; bound "
+          f"{b_ms_:.5f} ms ({b_by_}); {iters} block iterations at most, "
+          f"{1e3 * ms_ / iters:.2f} us each; leapfrogs a draw "
+          f"{float(out[4]['n_steps'].mean()):.2f}")
 
 
 PATHS = {"nuts": path_nuts, "mclmc": path_mclmc, "large_d": path_large_d,
@@ -1933,7 +2058,7 @@ PATH_SOURCES = {
     "sv": ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup"),
     "radon": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
     "zoo": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
-    "flow": ("nuts_fused_flow_posterior",),
+    "flow": ("nuts_fused_flow_warp_posterior", "nuts_fused_flow_posterior"),
 }
 
 

@@ -608,7 +608,11 @@ __device__ __forceinline__ LdLeap ld_leapfrog(const LdChain& c, Reducer& red,
       c.z1[j] = c.e_z[j] + eps * v1;
       c.v2[j] = v1;
     }
-    __syncthreads();
+    // the flow's warp form reads z1 on the warp that wrote it (d <= 32)
+    if constexpr (Model::WARP_FORM)
+      __syncwarp();
+    else
+      __syncthreads();
     logp_block = model.eval_flow(c.z1, q1_keep, c.zg1, d, red, scratch);
   } else if constexpr (EVAL_BLOCK) {
     // first pass: the half step and the new position; v2 holds v1 and zg1

@@ -58,6 +58,9 @@ COORD_FUNCTORS = frozenset({"iid_normal"})
 # kernel launches that evaluated each functor, by hook name: the wrappers
 # count them beside their kernels' launches (count_model)
 MODEL_LAUNCHES = dict.fromkeys(MODEL_IDS, 0)
+# launches of kernel K1-flow in each form of its flow (flow_form), counted
+# beside the kernel's own count
+FLOW_FORM_LAUNCHES = {"warp": 0, "today": 0}
 MAX_BLOCK = 128  # nrt::MAX_BLOCK, the kernels' __launch_bounds__
 # ld kernels: chains per logical block = CUDA blocks per cluster
 # (nrt::LD_MAX_CLUSTER, the portable cluster size); live vectors a chain
@@ -100,7 +103,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # (csrc/models.cuh), NRT_LD_ARGS_MIN_BLOCKS=n, NRT_LD_MIN_BLOCKS=n,
 # NRT_LD_TODAY, NRT_LD_EARLY=n, NRT_LD_CLOCKS (csrc/nuts_tree_ld.cuh: K1-ld /
 # K2-ld's blocks an SM, form, early loads and phase clocks; none of these
-# four changes results), NRT_ABLATE_EVAL
+# four changes results), NRT_FLOW_CLOCKS, NRT_FLOW_NO_PASSES (changes
+# results), NRT_FLOW_TODAY, NRT_FLOW_BARRIERS, NRT_FLOW_CONFLICTS,
+# NRT_FLOW_ROLLED, NRT_FLOW_MIN_BLOCKS=n (csrc/coupling_flow.cuh and
+# nuts_fused_flow_posterior.cuh: K1-flow's phase clocks, its flow's passes
+# left out, its form, and the warp form with block barriers, with bank
+# conflicts, with today's loops, its blocks an SM), NRT_ABLATE_EVAL
 # (csrc/nuts_fused_mid_posterior.cu and the group-form MCLMC kernels: no
 # model evaluation), NRT_ABLATE_FIXED_STEPS (csrc/mclmc_step_group.cuh: 6
 # leapfrogs a draw, no halvings).  Empty in every other use; set before the
@@ -172,11 +180,18 @@ SOURCES = {
         "nrt_stream_posterior_launch": (_NUTS_POST + [_P] * 21, _I),
         "nrt_stream_smem_bytes": ([_I, _I, _I, _P], _LL),
         "nrt_stream_resident_blocks": ([_LL], _I)},
-    "nuts_fused_flow_posterior": {
-        "nrt_flow_posterior_launch": (
-            _NUTS_POST + [_I, _I, _F, _F, _I] + [_P] * 20, _I),
-        "nrt_flow_smem_bytes": ([_I, _I, _I, _P, _I, _I, _I], _LL)},
 }
+# K1-flow: one library for each form of its flow (flow_form), the same C
+# interface in both, so that the two build in parallel
+_FLOW_API = {
+    "nrt_flow_posterior_launch": (
+        _NUTS_POST + [_I, _I, _F, _F, _I, _I] + [_P] * 20, _I),
+    "nrt_flow_smem_bytes": ([_I, _I, _I, _P, _I, _I, _I, _I], _LL),
+    "nrt_flow_form": ([_I, _I, _I, _P, _I, _I], _I),
+    "nrt_flow_blocks_per_sm": ([_I, _I, _P, _LL], _I)}
+FLOW_LIBRARIES = {"today": "nuts_fused_flow_posterior",
+                  "warp": "nuts_fused_flow_warp_posterior"}
+SOURCES.update((stem, _FLOW_API) for stem in FLOW_LIBRARIES.values())
 
 
 def _nvcc() -> str:
@@ -1250,16 +1265,85 @@ def flow_packed_floats(d, hidden, n_layers):
     return n_layers * (3 * hidden * d + hidden + 3 * d) + 2 * d
 
 
-def flow_smem_bytes(d, maxdepth, model, n_layers, hidden, weights_in_smem):
+# K1-flow's warp form (csrc/coupling_flow.cuh): d and H up to FLOW_WARP_MAX,
+# vectors of FLOW_VEC floats, weight rows at a stride of FLOW_ROW floats (32
+# under the ablation macro NRT_FLOW_CONFLICTS)
+FLOW_WARP_MAX = 32
+FLOW_VEC = 32
+FLOW_ROW = 36
+
+
+def flow_warp_floats(d, hidden, n_layers):
+    """Floats of the warp form's shared memory beyond the model functor's
+    scratch (csrc/coupling_flow.cuh::flow_warp_floats): 3 to start it on a
+    16-byte boundary, five vectors a layer (z, e^s, tanh_s, tanh_t, h) and
+    five more (z m, gs, gt, gpre, sacc), then per layer four vectors (mask,
+    b1, b2s, b2t) and H + 2 d weight rows, then log sigma and mu and 32
+    rows of slack (a lane's row or column past d or H reads there)."""
+    row = 32 if "NRT_FLOW_CONFLICTS" in NVCC_DEFINES else FLOW_ROW
+    layer = 4 * FLOW_VEC + row * (hidden + 2 * d)
+    return (3 + 5 * FLOW_VEC * (n_layers + 1) + n_layers * layer
+            + 2 * FLOW_VEC + FLOW_WARP_MAX * row)
+
+
+def flow_smem_bytes(d, maxdepth, model, n_layers, hidden,
+                    weights_in_smem=True, form="today"):
     """Dynamic shared memory of one chain's CUDA block in kernel K1-flow: the
-    mid-d posterior layout with the model functor's scratch, then the flow's
-    work space (the activations of L layers, L (4 d + H) floats, four
-    d-vectors and one H-vector) and, with ``weights_in_smem``, the packed
-    parameters (csrc/coupling_flow.cuh)."""
-    work = n_layers * (4 * d + hidden) + 4 * d + hidden
-    if weights_in_smem:
-        work += flow_packed_floats(d, hidden, n_layers)
+    mid-d posterior layout with the model functor's scratch, then in the
+    warp form (``form="warp"``) ``flow_warp_floats``, in today's form the
+    flow's work space (the activations of L layers, L (4 d + H) floats,
+    four d-vectors and one H-vector) and, with ``weights_in_smem``, the
+    packed parameters (csrc/coupling_flow.cuh)."""
+    if form == "warp":
+        work = flow_warp_floats(d, hidden, n_layers)
+    else:
+        work = n_layers * (4 * d + hidden) + 4 * d + hidden
+        if weights_in_smem:
+            work += flow_packed_floats(d, hidden, n_layers)
     return mid_smem_bytes("posterior", d, maxdepth, model) + 4 * work
+
+
+def flow_form(d, maxdepth, model, n_layers, hidden):
+    """The form of K1-flow's flow at these shapes: "warp" (both passes on
+    one warp, no block barrier inside them) where d <= 32 and H <= 32 and
+    its layout fits a block's shared memory, else "today" (every thread of
+    the block; the parameters in shared memory where they fit, else read
+    through L2).  csrc/coupling_flow.cuh::flow_kernel_form is the same rule;
+    under the ablation macro NRT_FLOW_TODAY every flow takes today's form.
+    Not a fallback: a launch in the form chosen raises where it fails."""
+    if "NRT_FLOW_TODAY" in NVCC_DEFINES:
+        return "today"
+    fits = flow_smem_bytes(d, maxdepth, model, n_layers, hidden,
+                           form="warp") <= SMEM_OPT_IN_BYTES
+    return ("warp" if d <= FLOW_WARP_MAX and hidden <= FLOW_WARP_MAX and fits
+            else "today")
+
+
+def _flow_layout(d, maxdepth, model, n_layers, hidden):
+    """(form, parameters in shared memory, bytes of shared memory) of a
+    K1-flow launch: the warp form keeps its parameters there, today's where
+    they fit beside the chain's state."""
+    form = flow_form(d, maxdepth, model, n_layers, hidden)
+    in_smem = form == "warp" or flow_smem_bytes(
+        d, maxdepth, model, n_layers, hidden) <= SMEM_OPT_IN_BYTES
+    return form, in_smem, flow_smem_bytes(d, maxdepth, model, n_layers,
+                                          hidden, in_smem, form)
+
+
+def flow_blocks_per_sm(model, maxdepth, n_layers, hidden):
+    """(form, chain blocks of K1-flow one SM holds) for ``model`` at its own
+    d through a flow of ``n_layers`` x ``hidden``
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    d = model.dim
+    form, _, smem = _flow_layout(d, maxdepth, model, n_layers, hidden)
+    name, ints = _hook_ints(model, d)
+    c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
+    lib = library(FLOW_LIBRARIES[form])
+    n = lib.nrt_flow_blocks_per_sm(int(form == "warp"), MODEL_IDS[name],
+                                   ctypes.cast(c_ints, ctypes.c_void_p), smem)
+    if n < 0:
+        _raise_on(-n, lib, f"{FLOW_LIBRARIES[form]} occupancy")
+    return form, n
 
 
 def check_flow_args(packed, d, device):
@@ -1286,13 +1370,15 @@ def check_flow_args(packed, d, device):
 
 def launch_flow_posterior(seed, q, g, logp, stds, mean, logdet, step0,
                           step_bar, K, model, opts, jitter, B, flow):
-    """Launch csrc/nuts_fused_flow_posterior.cu (kernel K1-flow): ``q``
+    """Launch kernel K1-flow (csrc/nuts_fused_flow_posterior.cuh, from the
+    library of its flow's form, ``FLOW_LIBRARIES``): ``q``
     carries z0, ``flow`` is a PackedFlow of arrays on the card; returns
     (draws [K, C, d], stats [K, C, NSTATS], q_f, z_f [C, d], logp_f [C],
-    iters [C]).  The parameters go into each block's shared memory where
-    they fit beside the chain's state, else they are read through L2; a
-    chain whose state and the flow's work space do not fit a block is
-    refused."""
+    iters [C]).  The flow takes the form ``flow_form`` picks: the warp form
+    with its own layout of the parameters in shared memory, or today's,
+    whose parameters go into each block's shared memory where they fit
+    beside the chain's state, else are read through L2; a chain whose state
+    and the flow's work space do not fit a block is refused."""
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
     model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK)
     C, d = q.shape
@@ -1302,9 +1388,7 @@ def launch_flow_posterior(seed, q, g, logp, stds, mean, logdet, step0,
             f"kernel K1-flow takes maxdepth 1..{LD_MAX_MAXDEPTH}, got {D}")
     L, H = check_flow_args(flow, d, q.device)
     ints, ptrs = model_data_args(model, d, q.device)
-    in_smem = int(flow_smem_bytes(d, D, model, L, H, True)
-                  <= SMEM_OPT_IN_BYTES)
-    need = flow_smem_bytes(d, D, model, L, H, in_smem)
+    form, in_smem, need = _flow_layout(d, D, model, L, H)
     if need > SMEM_OPT_IN_BYTES:
         raise NotImplementedError(
             f"kernel K1-flow at dim {d} with {L} layers of {H} needs {need} "
@@ -1312,14 +1396,15 @@ def launch_flow_posterior(seed, q, g, logp, stds, mean, logdet, step0,
             f"block has {SMEM_OPT_IN_BYTES}")
     c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
     c_ptrs = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
-    lib = library("nuts_fused_flow_posterior")
-    built = lib.nrt_flow_smem_bytes(d, D, model_id,
-                                    ctypes.cast(c_ints, ctypes.c_void_p),
-                                    L, H, in_smem)
-    if built != need:
+    lib = library(FLOW_LIBRARIES[form])
+    p_ints = ctypes.cast(c_ints, ctypes.c_void_p)
+    built = lib.nrt_flow_smem_bytes(d, D, model_id, p_ints, L, H,
+                                    int(form == "warp"), int(in_smem))
+    built_form = lib.nrt_flow_form(d, D, model_id, p_ints, L, H)
+    if built != need or built_form != int(form == "warp"):
         raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
-                           f"for kernel K1-flow, _build.flow_smem_bytes "
-                           f"{need}")
+                           f"for kernel K1-flow in form {built_form}, "
+                           f"_build.flow_smem_bytes {need} in form {form!r}")
     packed = torch.cat([a.reshape(-1) for a in flow.arrays])
     work = torch.empty(C, 4, D + 1, d, dtype=torch.float32, device=q.device)
     f32 = dict(dtype=torch.float32, device=q.device)
@@ -1334,7 +1419,8 @@ def launch_flow_posterior(seed, q, g, logp, stds, mean, logdet, step0,
         rc = lib.nrt_flow_posterior_launch(
             d, D, C, B, K, int(seed) & 0xFFFFFFFF,
             float(opts.max_energy_error), hj, jc1, jc2, model_id, L, H,
-            float(flow.max_scale), float(flow.max_shift), in_smem,
+            float(flow.max_scale), float(flow.max_shift),
+            int(form == "warp"), int(in_smem),
             ctypes.cast(params, ctypes.c_void_p),
             ctypes.cast(c_ptrs, ctypes.c_void_p),
             ctypes.cast(c_ints, ctypes.c_void_p), packed.data_ptr(),
@@ -1343,7 +1429,8 @@ def launch_flow_posterior(seed, q, g, logp, stds, mean, logdet, step0,
             step_bar.data_ptr(), draws.data_ptr(), stats.data_ptr(),
             q_f.data_ptr(), z_f.data_ptr(), logp_f.data_ptr(),
             iters.data_ptr(), work.data_ptr(), stream)
-    _raise_on(rc, lib, "nuts_fused_flow_posterior")
+    _raise_on(rc, lib, FLOW_LIBRARIES[form])
+    FLOW_FORM_LAUNCHES[form] += 1
     return draws, stats, q_f, z_f, logp_f, iters
 
 

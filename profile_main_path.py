@@ -142,6 +142,25 @@ After building the kernels it prints, for each path,
    (132 chains, one an SM) and of each of two chains sharing an SM (264
    chains), and of an SM a leapfrog at the path's 512 chains in clusters
    of 8.
+16. ``--flow-launch TREE [TREE ...]``: K1-flow's first 128-draw posterior
+   launch on the flow path's own post-warmup states, saved once in this
+   checkout: ``chip_smoke.py``'s cut path (64 chains, 30 tuning draws) and,
+   with ``--flow-full``, the full configuration (256 chains, 600 tuning
+   draws, about 11 minutes of sync warmup); then each checkout in the order
+   given (parent, this, this, parent) on every saved set at B = 1, 2, 4 and
+   8 (the cut path's 64 chains tiled to 256, as ``chip_smoke.py`` times
+   them), in ms a launch, block iterations and us each, with the flow's
+   form and chain blocks an SM where the checkout has them and the ptxas
+   lines of the funnel's instantiations; then, in this checkout, the
+   ablation of K1-flow on the cut path's saved states with every tree at
+   maxdepth 4 (15 leapfrogs a draw; NRT_ABLATE_FIXED_TREES), each build of
+   ``FLOW_ABLATIONS`` (the warp form at one and two chain blocks an SM,
+   today's form, the flow's passes left out, the warp form with block
+   barriers, with bank conflicts, with today's loops, and both forms with
+   NRT_FLOW_CLOCKS: chain 0's SM cycles an evaluation in the forward pass,
+   the model, the backward pass and the rest of the block iteration), in
+   us a block iteration of one chain alone on an SM (132 chains), of two
+   chains an SM (264) and at 256 chains.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -161,10 +180,10 @@ import torch
 from chip_smoke import BIG_FULL_DRAWS as BIG_DRAWS
 from chip_smoke import BIG_FULL_TUNE as BIG_TUNE
 from chip_smoke import (
-    BIG_CHAINS, BIG_ROWS, CHAINS, CHUNK, DIM, DRAWS, FLOW_DIM,
-    FLOW_FULL_CHAINS, FLOW_FULL_DRAWS, FLOW_FULL_TUNE, GLM_CHAINS, GLM_DIM,
-    GLM_DRAWS, GLM_ROWS, GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS, LD_STEP,
-    LD_TUNE, MGLM_REFERENCE, MID_DIM, MU, PATH_SOURCES, RADON_CHAINS,
+    BIG_CHAINS, BIG_ROWS, CHAINS, CHUNK, DIM, DRAWS, FLOW_CHAINS, FLOW_DIM,
+    FLOW_FULL_CHAINS, FLOW_FULL_DRAWS, FLOW_FULL_TUNE, FLOW_TUNE, GLM_CHAINS,
+    GLM_DIM, GLM_DRAWS, GLM_ROWS, GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS,
+    LD_STEP, LD_TUNE, MGLM_REFERENCE, MID_DIM, MU, PATH_SOURCES, RADON_CHAINS,
     RADON_DRAWS, RADON_TUNE, SEED, SV_CHAINS, SV_DRAWS, SV_T, SV_TUNE, TUNE,
     card_line,
     cuda_events_ms, glm_posterior_inputs, glm_reference, mclmc_posterior_args,
@@ -1634,6 +1653,242 @@ def ld_launch(trees):
         print(out.stdout.strip(), flush=True)
 
 
+# Item 16: K1-flow's first 128-draw posterior launch on the flow path's own
+# post-warmup states (argv: output file, chains, tuning draws), in this tree;
+# its inputs and the packed flow saved for FLOW_TIME.
+FLOW_LAUNCH = """
+import sys, time, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import FlowNutsSettings, Sampler
+from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+from nuts_rs_tpu_torch.models.gaussian import funnel
+dev = torch.device("cuda", 0)
+path, chains, tune = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+settings = FlowNutsSettings(num_chains=chains, num_tune=tune,
+                            num_draws=cs.CHUNK, seed=cs.SEED,
+                            posterior_kernel="pallas")
+seen = {}
+run0 = nf.nuts_fused_run
+def run(*a, **k):
+    if k.get("flow") is not None:
+        seen.setdefault("post", (a, k))
+    return run0(*a, **k)
+nf.nuts_fused_run = run
+t0 = time.monotonic()
+sampler = Sampler(funnel(cs.FLOW_DIM).to(dev), settings, device=dev)
+while "post" not in seen:
+    sampler.run_next_chunk()
+nf.nuts_fused_run = run0
+a, k = seen["post"]
+p = k["flow"]
+torch.save({"args": a[:9], "K": a[9], "jitter": a[12],
+            "maxdepth": a[11].maxdepth,
+            "max_energy_error": a[11].max_energy_error,
+            "arrays": [x.cpu() for x in p.arrays],
+            "max_scale": p.max_scale, "max_shift": p.max_shift}, path)
+st = a[7]
+print(f"flow path at {chains} chains, {tune} tuning draws: warmup "
+      f"{time.monotonic() - t0:.1f} s; first posterior launch's steps "
+      f"{float(st.min()):.4f}-{float(st.max()):.4f}")
+"""
+
+# Item 16's comparison on common inputs: this tree's K1-flow at B = 1, 2, 4,
+# 8 on the launches FLOW_LAUNCH saved (fewer than 256 chains tiled to 256),
+# 3 calls after a first; the flow's form, blocks an SM and ptxas lines where
+# the tree has them.
+FLOW_TIME = """
+import re, sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch.flows.coupling import PackedFlow
+from nuts_rs_tpu_torch.kernels import _build, nuts_fused as nf
+from nuts_rs_tpu_torch.kernels.nuts import NutsOptions
+from nuts_rs_tpu_torch.models.gaussian import funnel
+dev = torch.device("cuda", 0)
+model = funnel(cs.FLOW_DIM).to(dev)
+for path in sys.argv[1:]:
+    s = torch.load(path)
+    packed = PackedFlow([x.to(dev) for x in s["arrays"]], s["max_scale"],
+                        s["max_shift"])
+    opts = NutsOptions(maxdepth=s["maxdepth"],
+                       max_energy_error=s["max_energy_error"])
+    seed, args = s["args"][0], [x.to(dev) for x in s["args"][1:]]
+    C0 = args[0].shape[0]
+    reps = cs.FLOW_FULL_CHAINS // C0
+    args = [x.repeat(reps, *[1] * (x.dim() - 1)) for x in args]
+    where = "one form, one chain block an SM (parent's)"
+    if hasattr(_build, "flow_blocks_per_sm"):
+        form, per_sm = _build.flow_blocks_per_sm(
+            model, opts.maxdepth, packed.num_layers, packed.hidden)
+        where = f"{form} form, {per_sm} chain blocks an SM"
+    name = path.rsplit("/", 1)[-1]
+    for B in (1, 2, 4, 8):
+        def fn(B=B):
+            return nf.nuts_fused_run(seed, *args, s["K"], model, opts,
+                                     s["jitter"], B, flow=packed)
+        out = fn()
+        torch.cuda.synchronize()
+        ms = cs.cuda_events_ms(fn, 3)
+        it = int(out[4]["loop_iterations"].max())
+        print(f"K1-flow B={B} on {name} ({C0} chains tiled to "
+              f"{len(args[0])}): {ms:.4f} ms; block iterations max {it}, "
+              f"{1e3 * ms / it:.3f} us each; leapfrogs "
+              f"{int(out[4]['n_steps'].sum())}; {where}")
+text = "".join(
+    log.read_text() for log in _build.BUILD_DIR.glob("build_nuts_fused_flow*.log"))
+for entry in text.split("Compiling entry function")[1:]:
+    mangled = entry.split("\\n")[0]
+    if "Funnel" not in mangled:
+        continue
+    form = "warp" if "FunnelELb1E" in mangled else "today's"
+    nums = [re.findall(p, entry)[:1] or ["?"] for p in (
+        r"Used (\\d+) registers", r"(\\d+) bytes stack frame",
+        r"(\\d+) bytes spill stores", r"(\\d+) bytes spill loads")]
+    print("ptxas K1-flow, funnel ({}): registers {} stack "
+          "{} spill stores {} spill loads {}".format(
+              form, *(n[0] for n in nums)))
+"""
+
+# Item 16's ablation, in this tree only: K1-flow on the cut path's saved
+# states with every tree at maxdepth 4 (15 leapfrogs a draw,
+# NRT_ABLATE_FIXED_TREES), built with the macros given
+# (csrc/coupling_flow.cuh, nuts_fused_flow_posterior.cuh) into a build
+# directory of their own; a first argument "build" builds the library,
+# prints the funnel's ptxas lines and stops.  One chain alone on an SM: 132
+# chains; two an SM: 264; then 256 chains.
+FLOW_ABLATE = """
+import ctypes, re, sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch.flows.coupling import PackedFlow
+from nuts_rs_tpu_torch.kernels import _build, nuts_fused as nf
+from nuts_rs_tpu_torch.kernels.nuts import NutsOptions
+from nuts_rs_tpu_torch.models.gaussian import funnel
+_build.NVCC_DEFINES[:] = sys.argv[2:]
+label = " ".join(m.removeprefix("NRT_") for m in sys.argv[2:])
+_build.BUILD_DIR = _build.BUILD_DIR / re.sub(r"[^A-Za-z0-9]+", "_", label)
+if sys.argv[1] == "build":
+    _build.build(cs.PATH_SOURCES["flow"])
+    text = "".join((_build.BUILD_DIR / f"build_{stem}.log").read_text()
+                   for stem in cs.PATH_SOURCES["flow"])
+    for entry in text.split("Compiling entry function")[1:]:
+        mangled = entry.split("\\n")[0]
+        if "Funnel" not in mangled:
+            continue
+        form = "warp" if "FunnelELb1E" in mangled else "today's"
+        nums = [re.findall(p, entry)[:1] or ["?"] for p in (
+            r"Used (\\d+) registers", r"(\\d+) bytes stack frame",
+            r"(\\d+) bytes spill stores", r"(\\d+) bytes spill loads")]
+        print("ptxas [{}] {}: registers {} stack {} spill stores {} spill "
+              "loads {}".format(label, form, *(n[0] for n in nums)))
+    raise SystemExit(0)
+dev = torch.device("cuda", 0)
+s = torch.load(sys.argv[1])
+packed = PackedFlow([x.to(dev) for x in s["arrays"]], s["max_scale"],
+                    s["max_shift"])
+K, D = 32, 4
+opts = NutsOptions(maxdepth=D, max_energy_error=s["max_energy_error"])
+model = funnel(cs.FLOW_DIM).to(dev)
+seed, args = s["args"][0], [x.to(dev) for x in s["args"][1:]]
+C0 = args[0].shape[0]
+form, per_sm = _build.flow_blocks_per_sm(model, D, packed.num_layers,
+                                         packed.hidden)
+sms = torch.cuda.get_device_properties(0).multi_processor_count
+line = [f"ablation [{label}]: {form} form, {per_sm} chain blocks an SM"]
+for C, what in ((sms, "one chain an SM"), (2 * sms, "two chains an SM"),
+                (cs.FLOW_FULL_CHAINS, "256 chains")):
+    a = [x.repeat(-(-C // C0), *[1] * (x.dim() - 1))[:C] for x in args]
+    def fn():
+        return nf.nuts_fused_run(seed, *a, K, model, opts, s["jitter"], 1,
+                                 flow=packed)
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(fn, 5)
+    it = int(out[4]["loop_iterations"].max())
+    leaps = int(out[4]["n_steps"].sum())
+    line.append(f"{what}: {ms:.4f} ms, {it} block iterations, "
+                f"{1e3 * ms / it:.3f} us each, {1e3 * ms * sms / leaps:.4f} "
+                "us of an SM a leapfrog")
+    if "NRT_FLOW_CLOCKS" in sys.argv and C == sms:
+        lib = _build.library(_build.FLOW_LIBRARIES[form])
+        clocks = (ctypes.c_ulonglong * 11)()
+        lib.nrt_flow_clocks.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.nrt_flow_clocks(1, ctypes.cast(clocks, ctypes.c_void_p))
+        fn()
+        torch.cuda.synchronize()
+        lib.nrt_flow_clocks(1, ctypes.cast(clocks, ctypes.c_void_p))
+        n = clocks[10]
+        total = sum(clocks[:10])
+        coarse = (("forward pass", sum(clocks[0:5])), ("model", clocks[5]),
+                  ("backward pass", sum(clocks[6:9])), ("rest", clocks[9]))
+        phases = ", ".join(f"{name} {c / n:.0f} ({100 * c / total:.1f}%)"
+                           for name, c in coarse)
+        fine = ", ".join(
+            f"{name} {clocks[k] / n:.0f}" for k, name in enumerate((
+                "z m", "h sums", "h tanh", "head sums", "s t z'", "model",
+                "gs gt", "gpre sums", "w1T sums")))
+        line.append(f"chain 0's cycles an evaluation: {phases}; "
+                    f"{total / n:.0f} in all over {n} evaluations, "
+                    f"{total / (1e3 * ms):.0f} MHz over a launch; by phase "
+                    f"(today's form: forward in z m, backward in gs gt): "
+                    f"{fine}")
+print("; ".join(line))
+"""
+
+FLOW_ABLATIONS = tuple(
+    ("NRT_ABLATE_FIXED_TREES", *build) for build in (
+        (), ("NRT_FLOW_MIN_BLOCKS=1",), ("NRT_FLOW_TODAY",),
+        ("NRT_FLOW_NO_PASSES",), ("NRT_FLOW_BARRIERS",),
+        ("NRT_FLOW_CONFLICTS",), ("NRT_FLOW_ROLLED",), ("NRT_FLOW_CLOCKS",),
+        ("NRT_FLOW_CLOCKS", "NRT_FLOW_TODAY")))
+
+
+def flow_launch(trees, full):
+    """Item 16: the flow path's first posterior launch saved in this tree
+    (the cut path's and, with ``full``, the full configuration's); then
+    every tree in the order given timed on every saved set; then the
+    ablation in this tree, its builds made together first."""
+    from pathlib import Path
+
+    from nuts_rs_tpu_torch.kernels import _build
+
+    here = Path(__file__).resolve().parent
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    builds = [subprocess.Popen([sys.executable, "-c", FLOW_ABLATE, "build",
+                                *defines], cwd=here, stdout=subprocess.PIPE,
+                               text=True)
+              for defines in FLOW_ABLATIONS]
+    sets = [("cut", FLOW_CHAINS, FLOW_TUNE)]
+    if full:
+        sets.append(("full", FLOW_FULL_CHAINS, FLOW_FULL_TUNE))
+    saved = []
+    for label, chains, tune in sets:
+        path = str(_build.BUILD_DIR / f"flow_states_{label}.pt")
+        out = subprocess.run([sys.executable, "-c", FLOW_LAUNCH, path,
+                              str(chains), str(tune)], cwd=here,
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"flow states {label}: {out.stderr[-3000:]}")
+        print(f"{out.stdout.strip()} [saved as {path}]", flush=True)
+        saved.append(path)
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", FLOW_TIME, *saved],
+                             cwd=tree, capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+        for line in out.stdout.strip().splitlines():
+            print(f"{tree}: {line}", flush=True)
+    for p in builds:
+        print(p.communicate()[0].strip(), flush=True)
+        if p.returncode:
+            raise RuntimeError("an ablation build failed")
+    for defines in FLOW_ABLATIONS:
+        out = subprocess.run([sys.executable, "-c", FLOW_ABLATE, saved[0],
+                              *defines], cwd=here, capture_output=True,
+                             text=True)
+        if out.returncode:
+            raise RuntimeError(f"ablation {defines}: {out.stderr[-3000:]}")
+        print(out.stdout.strip(), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
@@ -1668,6 +1923,12 @@ def main() -> int:
     parser.add_argument("--ld-launch", nargs="+", metavar="TREE",
                         help="item 15 alone, for each checkout in turn, "
                              "then its ablation in this one")
+    parser.add_argument("--flow-launch", nargs="+", metavar="TREE",
+                        help="item 16 alone, for each checkout in turn, "
+                             "then its ablation in this one")
+    parser.add_argument("--flow-full", action="store_true",
+                        help="item 16 on the full configuration's states "
+                             "too (about 11 minutes more)")
     args = parser.parse_args()
     only = ("large-d" if args.only_large_d else "data" if args.only_data
             else "mclmc-data" if args.only_mclmc_data else None)
@@ -1701,6 +1962,10 @@ def main() -> int:
         return 0
     if args.ld_launch:
         ld_launch(args.ld_launch)
+        print(card_line())
+        return 0
+    if args.flow_launch:
+        flow_launch(args.flow_launch, args.flow_full)
         print(card_line())
         return 0
     if args.only_stream:

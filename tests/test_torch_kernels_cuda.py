@@ -1107,14 +1107,26 @@ def _perturbed_packed_flow(d, layers, hidden, scale, seed, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim,layers,hidden,C,K,block,jitter", [
-    (10, 4, 32, 64, 8, 1, 0.1), (10, 4, 32, 64, 8, 4, None),
-    (160, 4, 32, 8, 4, 1, 0.1)])
+@pytest.mark.parametrize("dim,layers,hidden,C,K,block,jitter,form", [
+    (10, 4, 32, 64, 8, 1, 0.1, "warp"), (10, 4, 32, 64, 8, 4, None, "warp"),
+    (160, 4, 32, 8, 4, 1, 0.1, "today"),
+    # the warp form's edges: d = H = 32, sums over d of 32 at d = 17, one
+    # layer, d and H below a chunk of 4, clusters of 8, two chain blocks an
+    # SM (264 chains); today's form just past them (parameters in shared
+    # memory)
+    (32, 4, 32, 32, 8, 1, 0.1, "warp"), (17, 2, 32, 32, 8, 2, 0.1, "warp"),
+    (10, 1, 32, 32, 8, 1, None, "warp"), (7, 3, 5, 32, 8, 1, 0.1, "warp"),
+    (10, 4, 32, 64, 8, 8, 0.1, "warp"), (10, 4, 32, 264, 2, 1, 0.1, "warp"),
+    (33, 4, 33, 16, 4, 1, 0.1, "today"), (33, 2, 32, 16, 4, 1, 0.1, "today"),
+    (10, 2, 33, 16, 4, 1, 0.1, "today")])
 def test_flow_kernel_matches_plain_version_on_the_card(dim, layers, hidden,
-                                                        C, K, block, jitter):
-    """K1-flow against its plain version on the funnel: parameters in
-    shared memory (d = 10) and read through L2 (d = 160, 255 KB of them),
-    blocks of 1 and 4; max abs err 0 and every integer stat equal."""
+                                                        C, K, block, jitter,
+                                                        form):
+    """K1-flow against its plain version on the funnel: in the warp form
+    (d <= 32 and H <= 32, two chain blocks an SM) and in today's, with its
+    parameters in shared memory (d = 33 or H = 33) and read through L2
+    (d = 160, 255 KB of them), blocks of 1, 2, 4 and 8; max abs err 0 and
+    every integer stat equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
     from nuts_rs_tpu_torch.kernels import _build
@@ -1122,9 +1134,12 @@ def test_flow_kernel_matches_plain_version_on_the_card(dim, layers, hidden,
     dev = torch.device("cuda", 0)
     model = tg.funnel(dim).to(dev)
     packed = _perturbed_packed_flow(dim, layers, hidden, 0.2, 7, dev)
+    assert _build.flow_form(dim, 10, model, layers, hidden) == form
     in_smem = _build.flow_smem_bytes(dim, 10, model, layers, hidden, True) \
         <= _build.SMEM_OPT_IN_BYTES
-    assert in_smem == (dim == 10)
+    assert in_smem == (dim != 160)
+    per_sm = _build.flow_blocks_per_sm(model, 10, layers, hidden)
+    assert per_sm == (form, 2 if form == "warp" else 1)
     rng = np.random.default_rng(1)
     z = torch.tensor(0.8 * rng.normal(size=(C, dim)), dtype=torch.float32,
                      device=dev)
