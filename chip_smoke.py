@@ -13,7 +13,8 @@ and drives ten paths through ``Sampler(...).run()`` with
 ``radon``, ``zoo`` or ``flow``, and builds only its kernels).  Two run
 N(3, 1) at d=10 with 1024 chains,
 300 tuning and 700 posterior draws: NUTS (``DiagNutsSettings``, kernels K1
-and K2) and MCLMC (``DiagMclmcSettings``, kernels K3 and K4).  The third is
+and K2) and MCLMC (``DiagMclmcSettings``, kernels K3 and K4, a chain's
+coordinates on 16 lanes).  The third is
 the large-d path: NUTS on N(3, 1) at d=1000 with 512 chains, 200 tuning and
 300 posterior draws, on the dim-on-lanes kernels K1-ld and K2-ld.  The
 fourth is the data-carrying path: NUTS on Bayesian logistic regression with
@@ -82,21 +83,23 @@ the divergence share at most the seed-0 run's plus 0.2 points and two of
 its standard errors, a refit kept, exactly 4 launches of K1-flow and none
 of another fused kernel, all in the flow's warp form (``_build.flow_form``:
 both passes on one warp at d <= 32 and H <= 32).  K1-flow is checked bit
-for bit on the path's own states (64 chains, 8 draws) and timed at 256
+for bit on the path's own states (64 chains, 2 draws) and timed at 256
 chains on the path's own and on made-up states, beside the flow's forward
 and vector-Jacobian product by batched PyTorch calls.  Its other form,
 today's (every thread of the chain's block; d > 32 or H > 32), has a row of
 its own: ``funnel(40)`` through the default flow driven by ``Sampler.run``
-with 8 chains, no tuning and 128 posterior draws (one launch, in today's
-form), a check launch of 8 chains and 4 draws through a flow off the
-identity, max abs err 0, and its 128-draw launch timed at 256 chains on
-made-up states.  The model
+with 8 chains, 5 tuning and 128 posterior draws (one launch, in today's
+form; every chain must move), a check launch of 8 chains and one draw
+through a flow off the identity, max abs err 0, and its 128-draw launch
+timed at 256 chains on made-up states; both launches' trees must grow
+(depth above 0 somewhere, not every draw divergent).  The model
 functors
 (``csrc/models.cuh``) are rows of the kernel line of their own, checked in
 the kernels that evaluate them: SV's in K1-ld-args and K2-ld-args at the
-path's d on 64 chains (8 draws, and warmup schedule rows 7..8 with the
+path's d on 64 chains (2 draws, and warmup schedule rows 7..8 with the
 window switch, from a post-warmup-like state), radon's in K1-args and
-K2-args the same way, the other three's in K1-args on 64 chains; a
+K2-args the same way at 8 draws, the other three's in K1-args on 64
+chains and 2 draws; a
 functor's launches are the kernel launches of its path that evaluated
 it.  For each path it sets
 the launch counts to 0, runs, reads them, and checks that its kernels ran
@@ -108,9 +111,14 @@ K2-args is checked on 2 schedule rows (7..8, with the window switch), not
 16, K2-ld and the mid-d K2 without data on 8 (2..9); K4-args' rows start
 from a post-warmup-like state, not the initial one; the streamed-data path
 runs a third of its warmup and two of its four posterior launches, and
-K1-stream's 128-draw launch is timed once; the zoo's checks run 64 chains,
-8 draws and two warmup rows, and the zoo path's three functors are timed
-in the posterior kernel alone.
+K1-stream's 128-draw launch is timed once, and so is that of K1-flow's
+today's form; K1-stream, K1-ld-args, K1-flow and K1-args on the three zoo
+functors are checked on 2 draws; the zoo's checks run 64 chains and two
+warmup rows, and the zoo path's three functors are timed in the posterior
+kernel alone.  The build runs beside the paths (the host's cores less two,
+niced, in the order the paths need the sources), each path waiting for its
+own sources alone; the flow path runs first, its sync warmup needing no
+kernel, and the streamed-data path second.
 
 Each kernel is timed (CUDA events) beside its plain version on the check's
 inputs (``ms``, ``plain_ms``, with the bound ``bound_ms`` of that work), and
@@ -132,8 +140,10 @@ a NUTS or MCLMC launch, so ``library_ms`` is null; the time of one batched
 evaluation of the regression by two ``torch.matmul`` calls is printed as a
 yardstick for its products.
 
-Output: the card's name and power limit, the nvcc version, the build time,
-the checks and timings, a JSON line ``{"kernels": [...]}`` and, last,
+Output: the card's name and power limit, the nvcc version, the host's
+usable cores, the checks and timings, each path's seconds with its checks'
+plain versions', each nvcc's seconds and ptxas line, a JSON line
+``{"kernels": [...]}`` and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA card it exits non-zero before printing a result.
 """
@@ -143,6 +153,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -155,13 +166,17 @@ import torch
 DIM, MU, CHAINS, TUNE, DRAWS, SEED = 10, 3.0, 1024, 300, 700, 0
 CHUNK = 128          # the Sampler's chunk: draws per launch on the main path
 CHECK_K1_DRAWS = 8   # posterior draws per chain in the kernel check
-CHECK_K2_DRAWS = 16  # warmup draws in the kernel check
+# the checks whose plain versions took longest at 8 draws (on one host:
+# K1-ld-args 20.0 s, K1-stream 10.7, K1-args on the funnel 10.2, K1-flow on
+# its path's own states 9.9, on the rank-1 normal 5.4): 2 draws, every chain
+CHECK_SHORT_DRAWS = 2
 # K2-args' check: rows 7..8 keep the window switch of row 8; its plain version
 # took 89 s of the script at 16 rows, 48-58 s at 8 and 18-24 s at 4 (every tree
 # from the initial state is a deep one), and the script has five minutes for
 # nine paths
 CHECK_K2_ARGS_ROWS = (7, 9)
-# K2-ld and the mid-d kernel without data: rows 2..9, with the switch of row 8
+# K2, K2-ld and the mid-d kernel without data: rows 2..9, with the switch of
+# row 8 (K2's check on rows 2..17 took 5.1 s of plain version)
 CHECK_K2_SHORT_ROWS = (2, 10)
 CHECK_K3_DRAWS = 8   # MCLMC posterior draws per chain in the kernel check
 CHECK_K4_DRAWS = 16  # MCLMC warmup draws in each kernel check
@@ -218,8 +233,18 @@ FLOW_DIM, FLOW_FULL_CHAINS, FLOW_FULL_TUNE, FLOW_FULL_DRAWS = 10, 256, 600, 600
 FLOW_CHAINS, FLOW_TUNE, FLOW_DRAWS = 64, 30, 512
 FLOW_REFERENCE = GLM_REFERENCE.with_name("flow_funnel_reference.json")
 # K1-flow's today's form (d > 32): funnel(40) through the default flow, 8
-# chains, no tuning, one 128-draw launch; its check launch 8 chains, 4 draws
-FLOW_TODAY_DIM, FLOW_TODAY_CHAINS, FLOW_TODAY_K = 40, 8, 4
+# chains, 5 tuning draws on the sync engine (without them 3 of the 8 chains
+# stayed at their start for all 128 draws; with 3 every chain moved on the
+# plain version on a CPU), one 128-draw launch; its check
+# launch 8 chains, one draw (trees to depth 7-8: 15.4 s of plain version at
+# two draws)
+FLOW_TODAY_DIM, FLOW_TODAY_CHAINS, FLOW_TODAY_K = 40, 8, 1
+FLOW_TODAY_TUNE = 5
+# the check and timed launches' inputs, under which the trees grow (depth up
+# to 9 on the plain version; a flow moved N(0, 0.2^2) with steps U(0.2, 0.4)
+# made every draw diverge at its first leapfrog): a flow moved N(0, 0.05^2)
+# off the identity, z = 0.8 N(0, 1), steps U(0.05, 0.1)
+FLOW_TODAY_SCALE, FLOW_TODAY_STEP = 0.05, (0.05, 0.1)
 # the gates of PERF.md (section 2), on v and on every u_i = x_i e^(-v/2):
 # a mean within max(0.1, 3 sqrt(1 + 1 / R) s) posterior std of the average
 # of the JAX engine's R runs at seeds 0 .. R - 1, and a std within
@@ -256,6 +281,14 @@ MCLMC_STD_TOL = 0.05
 # agree and every float is compared, on all chains, within RTOL / ATOL.
 RTOL = 1e-4
 ATOL = 1e-5
+# a 128-draw launch this long or longer is timed over one call after the
+# first, a shorter one over three (their spread is a few per cent at most)
+LONG_LAUNCH_MS = 50.0
+# The build beside the paths: its nvcc at this priority (nice -n), as many
+# at a time as the host has cores less BUILD_SPARE_CORES (for the paths' own
+# host work), in the order the paths need them
+BUILD_NICE = 10
+BUILD_SPARE_CORES = 2
 
 
 def card_line() -> str:
@@ -330,6 +363,11 @@ def bound(kind, model, inputs, out, stats):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+# seconds spent in the checks' plain versions (timed_pair), read by main
+# for each path
+PLAIN_SECONDS = [0.0]
+
+
 def timed_pair(kernel, plain, repeats=3):
     """Run a kernel and its plain version on the same inputs: (kernel's
     result, plain result, kernel ms per call over ``repeats`` calls, plain
@@ -339,15 +377,18 @@ def timed_pair(kernel, plain, repeats=3):
     ms = cuda_events_ms(kernel, repeats)
     box = []
     plain_ms = cuda_events_ms(lambda: box.append(plain()), 1)
+    PLAIN_SECONDS[0] += plain_ms / 1e3
     return out_k, box[0], ms, plain_ms
 
 
-def chunk_time(kind, model, fn, inputs, stats_at, repeats=3):
-    """A kernel alone at its path's 128-draw launch: (ms over ``repeats``
-    calls after a first one, bound_ms, bound_by)."""
-    out = fn()
-    torch.cuda.synchronize()
-    ms = cuda_events_ms(fn, repeats)
+def chunk_time(kind, model, fn, inputs, stats_at):
+    """A kernel alone at its path's 128-draw launch: (ms over 3 calls after
+    a first one, or over one where the first took LONG_LAUNCH_MS or more,
+    bound_ms, bound_by)."""
+    box = []
+    first_ms = cuda_events_ms(lambda: box.append(fn()), 1)
+    out = box[0]
+    ms = cuda_events_ms(fn, 1 if first_ms >= LONG_LAUNCH_MS else 3)
     b_ms, b_by = bound(kind, model, inputs, out, out[stats_at])
     return ms, b_ms, b_by
 
@@ -413,25 +454,25 @@ def check_row(kind, model, inputs, out_k, err, ms, plain_ms):
 
 def check_posterior(model, opts, device, layout="cl", chains=CHAINS,
                     step=(0.8, 1.0), name=None, args=None, block=None,
-                    stream=False):
+                    stream=False, draws=CHECK_K1_DRAWS):
     """K1 (cl), K1-ld or, with ``name`` and maybe its own inputs ``args``
     and logical chain block, the mid-d cl kernel or (``stream``) the
-    streamed one against its plain version."""
+    streamed one against its plain version, over ``draws`` draws."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     name = name or ("K1-ld" if layout == "ld" else "K1")
     if args is None:
         args = posterior_inputs(model, device, chains=chains, step=step)
     out_k, out_p, ms, plain_ms = timed_pair(
-        lambda: nf.nuts_fused_run(7, *args, CHECK_K1_DRAWS, model, opts, 0.1,
-                                  block, layout, stream),
-        lambda: nf.nuts_fused_run_reference(7, *args, CHECK_K1_DRAWS, model,
-                                            opts, 0.1, block, layout, stream))
+        lambda: nf.nuts_fused_run(7, *args, draws, model, opts, 0.1, block,
+                                  layout, stream),
+        lambda: nf.nuts_fused_run_reference(7, *args, draws, model, opts, 0.1,
+                                            block, layout, stream))
     n, err = compare(name, out_k, out_p, ("q_f", "g_f", "logp_f"),
                      nf.STAT_NAMES, INT_STATS)
     blocks = len(set(out_k[4]["loop_iterations"].cpu().tolist()))
     chains = args[0].shape[0]
-    print(f"{name} check: C={chains} d={model.dim} K={CHECK_K1_DRAWS}: "
+    print(f"{name} check: C={chains} d={model.dim} K={draws}: "
           f"integer stats equal on all {n} (chain, draw) entries, max abs "
           f"err {err:.3g} (draws, final state, all stats); {blocks} distinct "
           f"block iteration counts; kernel {ms:.4f} ms, plain {plain_ms:.2f} "
@@ -477,7 +518,7 @@ def warmup_setup(model, settings, device, lo, hi, chains=CHAINS, state=None):
 
 
 def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
-                 name=None, block=None, rows=(2, 2 + CHECK_K2_DRAWS),
+                 name=None, block=None, rows=CHECK_K2_SHORT_ROWS,
                  state=None, repeats=3):
     """K2 (cl), K2-ld or, with ``name`` and maybe a logical chain block, the
     mid-d cl kernel or K2-ld-args against its plain version, on schedule
@@ -820,6 +861,17 @@ def mclmc_settings():
                              posterior_kernel="pallas")
 
 
+def lanes(model, B):
+    """`` T=n``, the lanes of a chain in K3 / K4 (``_build.mclmc_lanes``),
+    where the model takes them."""
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    if nf.cl_kernel(model, model.dim) != "thread":
+        return ""
+    return f" T={_build.mclmc_lanes(model.dim, B)}"
+
+
 def mclmc_posterior_args(model, settings, device, seed=1, state=None):
     """K3's inputs: a post-warmup-like state (``state``: one made elsewhere,
     as ``posterior_inputs`` returns it) with unit-sphere velocities."""
@@ -853,7 +905,8 @@ def check_mclmc_posterior(model, settings, device, name="K3", state=None,
                      mf.STAT_NAMES, MCLMC_INT_STATS)
     chains = args[0].shape[0]
     B = nf._check_block(chains, block, nf.cl_kernel(model, model.dim))
-    print(f"{name} check: C={chains} d={model.dim} B={B} K={CHECK_K3_DRAWS} "
+    print(f"{name} check: C={chains} d={model.dim} B={B}{lanes(model, B)} "
+          f"K={CHECK_K3_DRAWS} "
           f"microcanonical: integer stats equal on all {n} (chain, draw) "
           f"entries, max abs err {err:.3g} (draws, final state, all stats); "
           f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
@@ -940,7 +993,7 @@ def check_mclmc_warmup(model, settings, device, name="K4", block=None,
             " from a post-warmup-like state" if state is not None else ""))
     chains = settings.num_chains
     B = nf._check_block(chains, block, nf.cl_kernel(model, model.dim))
-    print(f"{name} check: C={chains} d={model.dim} B={B} "
+    print(f"{name} check: C={chains} d={model.dim} B={B}{lanes(model, B)} "
           f"K={CHECK_K4_DRAWS}, schedule "
           f"rows {' and '.join(rows)} (each holds a momentum resample and a "
           "window switch): integer stats equal on all "
@@ -1311,6 +1364,7 @@ def path_stream(device, checks, launches, times):
     matmul_ms, _ = time_glm_by_matmul(big, device, BIG_CHAINS)
     checks["nuts_fused_stream_posterior"] = check_posterior(
         big, opts, device, name="K1-stream", stream=True,
+        draws=CHECK_SHORT_DRAWS,
         args=glm_posterior_inputs(big, device, ref_mean, ref_std,
                                   chains=BIG_CHECK_CHAINS))
     t0 = time.monotonic()
@@ -1551,7 +1605,7 @@ def path_sv(device, checks, launches, times):
                                     chains, SV_STEP)
 
     k1 = check_posterior(model, opts, device, "ld", name="K1-ld-args",
-                         args=state(1))
+                         args=state(1), draws=CHECK_SHORT_DRAWS)
     k2 = check_warmup(model, settings, device, "ld", name="K2-ld-args",
                       rows=ZOO_CHECK_ROWS, state=state(3))
     checks["nuts_fused_ld_args_posterior"] = k1
@@ -1654,7 +1708,8 @@ def path_zoo(device, checks, launches, times):
                                     spread, chains=ZOO_CHECK_CHAINS,
                                     step=step)
         checks[name] = check_posterior(model, settings.nuts_options(), device,
-                                       name=f"K1-args {name}", args=args)
+                                       name=f"K1-args {name}", args=args,
+                                       draws=CHECK_SHORT_DRAWS)
         kernels = ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup")
         zero_launch_counts()
         trace, init_s, warm_s, post_s, total_s = run_sampler(
@@ -1860,7 +1915,7 @@ def path_flow(device, checks, launches, times):
         raise AssertionError(f"flow path: {refits} refits, none kept")
 
     # K1-flow against its plain version on the path's own states (after the
-    # warmup's refits: nets off the identity), all chains, 8 draws
+    # warmup's refits: nets off the identity), all chains, 2 draws
     state, config = sampler.state, sampler.config
     opts = config.nuts
     packed = sampler.strategy.spec.kernel_pack(
@@ -1868,10 +1923,10 @@ def path_flow(device, checks, launches, times):
     bars = ss.step_size_bar(state.step, config.step_size)
     args = flow_inputs(state.pt.z, state.step.step_size, bars)
     out_k, out_p, ms, plain_ms = timed_pair(
-        lambda: nf.nuts_fused_run(5, *args, CHECK_K1_DRAWS, model, opts, 0.1,
-                                  flow=packed),
-        lambda: nf.nuts_fused_run_reference(5, *args, CHECK_K1_DRAWS, model,
-                                            opts, 0.1, flow=packed))
+        lambda: nf.nuts_fused_run(5, *args, CHECK_SHORT_DRAWS, model, opts,
+                                  0.1, flow=packed),
+        lambda: nf.nuts_fused_run_reference(5, *args, CHECK_SHORT_DRAWS,
+                                            model, opts, 0.1, flow=packed))
     n, err = compare("K1-flow", out_k, out_p, ("q", "z", "logp"),
                      nf.STAT_NAMES, INT_STATS)
     if err != 0.0:
@@ -1882,7 +1937,7 @@ def path_flow(device, checks, launches, times):
                       "bound_ms": b_ms, "bound_by": b_by}
     form, per_sm = _build.flow_blocks_per_sm(model, opts.maxdepth,
                                              packed.num_layers, packed.hidden)
-    print(f"K1-flow check: C={FLOW_CHAINS} d={FLOW_DIM} K={CHECK_K1_DRAWS} "
+    print(f"K1-flow check: C={FLOW_CHAINS} d={FLOW_DIM} K={CHECK_SHORT_DRAWS} "
           f"on the path's own states: integer stats equal on all {n} (chain,"
           f" draw) entries, max abs err {err:.3g} (draws, final q, z, logp, "
           f"all stats); kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; {form} "
@@ -1934,13 +1989,13 @@ def path_flow(device, checks, launches, times):
     print(f"yardstick: the flow's forward for {C} chains by batched PyTorch "
           f"calls {fwd_ms:.4f} ms, forward and vjp {vjp_ms:.4f} ms (TF32 "
           "off; the sync engine pays it at every leapfrog of the warmup)")
-    flow_today(device, checks, launches, times, med)
+    flow_today(device, checks, launches, times)
 
 
-def perturbed_flow(spec, d, seed, scale=0.2):
+def perturbed_flow(spec, d, seed, scale, device):
     """``spec``'s parameters at a random start, every net weight and bias
-    moved by N(0, scale^2) off the identity map, packed for K1-flow on the
-    card."""
+    moved by N(0, scale^2) off the identity map, packed for K1-flow on
+    ``device``."""
     from nuts_rs_tpu_torch.flows.coupling import tree_map
 
     rng = np.random.default_rng(seed)
@@ -1950,15 +2005,42 @@ def perturbed_flow(spec, d, seed, scale=0.2):
         for k, v in layer["net"].items():
             layer["net"][k] = v + torch.tensor(
                 scale * rng.normal(size=tuple(v.shape)), dtype=torch.float32)
-    return spec.kernel_pack(tree_map(lambda v: v.cuda(), params))
+    return spec.kernel_pack(tree_map(lambda v: v.to(device), params))
 
 
-def flow_today(device, checks, launches, times, med):
+def flow_today_inputs(spec, device, chains, seed):
+    """(packed flow, K1-flow's eight posterior inputs) of today's form's
+    check (``chains`` = FLOW_TODAY_CHAINS) and timed launch
+    (FLOW_FULL_CHAINS) at funnel(FLOW_TODAY_DIM)."""
+    d = FLOW_TODAY_DIM
+    packed = perturbed_flow(spec, d, 7, FLOW_TODAY_SCALE, device)
+    rng = np.random.default_rng(seed)
+    z = torch.tensor(0.8 * rng.normal(size=(chains, d)), dtype=torch.float32,
+                     device=device)
+    step = torch.tensor(rng.uniform(*FLOW_TODAY_STEP, size=chains),
+                        dtype=torch.float32, device=device)
+    return packed, flow_inputs(z, step, step.clone())
+
+
+def require_growing_trees(stats, what):
+    """Raise unless some tree grew past depth 0 and not every draw
+    diverged: draws that all diverge at their first leapfrog check no
+    tree."""
+    depth = stats["depth"].cpu().numpy()
+    div = stats["diverging"].cpu().numpy()
+    if depth.max() < 1 or div.all():
+        raise AssertionError(f"{what}: no tree grows (depth at most "
+                             f"{depth.max()}, {div.mean():.0%} of draws "
+                             "divergent)")
+
+
+def flow_today(device, checks, launches, times):
     """K1-flow in today's form (d > 32): funnel(40) through the default flow
-    by Sampler.run (8 chains, no tuning, one 128-draw launch), a check
-    launch through a flow off the identity, and its 128-draw launch at 256
-    chains on made-up states."""
-    from nuts_rs_tpu_torch import FlowNutsSettings, Sampler
+    by Sampler.run (8 chains, 5 tuning draws, one 128-draw launch; every
+    chain must move), a check launch through a flow off the identity, and
+    its 128-draw launch at 256 chains on made-up states; both launches'
+    trees grow."""
+    from nuts_rs_tpu_torch import FlowNutsSettings
     from nuts_rs_tpu_torch.kernels import _build
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
     from nuts_rs_tpu_torch.models.gaussian import funnel
@@ -1966,13 +2048,14 @@ def flow_today(device, checks, launches, times, med):
     d, C = FLOW_TODAY_DIM, FLOW_TODAY_CHAINS
     row, kernel = "nuts_fused_flow_posterior_today", "nuts_fused_flow_posterior"
     model = funnel(d).to(device)
-    settings = FlowNutsSettings(num_chains=C, num_tune=0, num_draws=CHUNK,
-                                seed=SEED, posterior_kernel="pallas")
+    settings = FlowNutsSettings(num_chains=C, num_tune=FLOW_TODAY_TUNE,
+                                num_draws=CHUNK, seed=SEED,
+                                posterior_kernel="pallas")
     zero_launch_counts()
-    t0 = time.monotonic()
-    sampler = Sampler(model, settings, device=device)
-    trace = sampler.run()
-    run_s = time.monotonic() - t0
+    samplers = []
+    trace, _, warm_s, post_s, run_s = run_sampler(model, settings, device,
+                                                  samplers=samplers)
+    sampler = samplers[0]
     got = read_launch_counts(nf.LAUNCHES, (kernel,))
     forms = dict(_build.FLOW_FORM_LAUNCHES)
     if got[kernel] != 1 or forms != {"warp": 0, "today": 1}:
@@ -1982,26 +2065,26 @@ def flow_today(device, checks, launches, times, med):
     if pos.shape != (C, CHUNK, d) or not np.isfinite(pos).all():
         raise AssertionError(f"funnel({d}) through the flow: draws of shape "
                              f"{pos.shape}, finite {np.isfinite(pos).all()}")
+    moved = (pos != pos[:, :1]).any(axis=(1, 2))
+    if not moved.all():
+        raise AssertionError(f"funnel({d}) through the flow: chains "
+                             f"{np.nonzero(~moved)[0].tolist()} never left "
+                             "their first draw")
     launches[row] = forms["today"]
 
     spec = sampler.strategy.spec
-    packed = perturbed_flow(spec, d, 7)
+    packed, args = flow_today_inputs(spec, device, C, 4)
     opts = sampler.config.nuts
     form, per_sm = _build.flow_blocks_per_sm(model, opts.maxdepth,
                                              packed.num_layers, packed.hidden)
     if form != "today":
         raise AssertionError(f"funnel({d}) takes K1-flow's {form} form")
-    rng = np.random.default_rng(4)
-    step = torch.tensor(rng.uniform(0.2, 0.4, size=C), dtype=torch.float32,
-                        device=device)
-    args = flow_inputs(
-        torch.tensor(0.8 * rng.normal(size=(C, d)), dtype=torch.float32,
-                     device=device), step, step.clone())
     out_k, out_p, ms, plain_ms = timed_pair(
         lambda: nf.nuts_fused_run(5, *args, FLOW_TODAY_K, model, opts, 0.1,
                                   flow=packed),
         lambda: nf.nuts_fused_run_reference(5, *args, FLOW_TODAY_K, model,
                                             opts, 0.1, flow=packed))
+    require_growing_trees(out_p[4], "K1-flow (today's form) check")
     n, err = compare("K1-flow (today's form)", out_k, out_p, ("q", "z", "logp"),
                      nf.STAT_NAMES, INT_STATS)
     if err != 0.0:
@@ -2010,41 +2093,47 @@ def flow_today(device, checks, launches, times, med):
     b_ms, b_by = flow_bound(model, packed, args, out_k)
     checks[row] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by}
+    st = out_p[4]
     print(f"K1-flow in today's form: funnel({d}) by Sampler.run, {C} chains, "
-          f"{CHUNK} draws in {run_s:.3f} s, launches {forms}; check C={C} "
+          f"{FLOW_TODAY_TUNE} + {CHUNK} draws in {run_s:.3f} s (warmup "
+          f"{warm_s:.3f} s, posterior {post_s:.3f} s; every chain moves), "
+          f"launches {forms}; check C={C} "
           f"d={d} K={FLOW_TODAY_K} through a 4 x 32 flow off the identity: "
           f"integer stats equal on all {n} (chain, draw) entries, max abs err "
-          f"{err:.3g}; kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; "
-          f"{per_sm} chain blocks an SM")
+          f"{err:.3g}; depth up to {int(st['depth'].max())}, "
+          f"{float(st['diverging'].float().mean()):.0%} of draws divergent, "
+          f"{float(st['n_steps'].float().mean()):.2f} leapfrogs a draw; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms; {per_sm} chain "
+          "blocks an SM")
 
-    full = FLOW_FULL_CHAINS
-    made = flow_inputs(
-        torch.tensor(rng.normal(size=(full, d)), dtype=torch.float32,
-                     device=device),
-        torch.tensor(rng.uniform(0.9 * med, 1.1 * med, size=full),
-                     dtype=torch.float32, device=device),
-        torch.full((full,), med, device=device))
+    _, made = flow_today_inputs(spec, device, FLOW_FULL_CHAINS, 5)
 
-    def launch():
-        return nf.nuts_fused_run(7, *made, CHUNK, model, opts, 0.1,
-                                 flow=packed)
-    out = launch()
-    torch.cuda.synchronize()
-    ms_ = cuda_events_ms(launch, 3)
+    # one timed call (2.8 s at 256 chains on this form's growing trees),
+    # after the check launch of the same kernel
+    box = []
+    ms_ = cuda_events_ms(lambda: box.append(nf.nuts_fused_run(
+        7, *made, CHUNK, model, opts, 0.1, flow=packed)), 1)
+    out = box[0]
+    require_growing_trees(out[4], "K1-flow (today's form) timed launch")
     b_ms_, b_by_ = flow_bound(model, packed, made, out)
     iters = int(out[4]["loop_iterations"].max())
     times[row] = (ms_, b_ms_, b_by_)
     print(f"time K1-flow in today's form on made-up states: {ms_:.4f} ms per "
-          f"{CHUNK}-draw launch at C={full} d={d}, 4 x 32 flow; bound "
-          f"{b_ms_:.5f} ms ({b_by_}); {iters} block iterations at most, "
-          f"{1e3 * ms_ / iters:.2f} us each; leapfrogs a draw "
-          f"{float(out[4]['n_steps'].mean()):.2f}")
+          f"{CHUNK}-draw launch at C={FLOW_FULL_CHAINS} d={d}, 4 x 32 flow; "
+          f"bound {b_ms_:.5f} ms ({b_by_}); {iters} block iterations at "
+          f"most, {1e3 * ms_ / iters:.2f} us each; leapfrogs a draw "
+          f"{float(out[4]['n_steps'].float().mean()):.2f}, depth up to "
+          f"{int(out[4]['depth'].max())}, "
+          f"{float(out[4]['diverging'].float().mean()):.0%} of draws "
+          "divergent")
 
 
-PATHS = {"nuts": path_nuts, "mclmc": path_mclmc, "large_d": path_large_d,
-         "data": path_data, "mclmc_data": path_mclmc_data,
-         "stream": path_stream, "sv": path_sv, "radon": path_radon,
-         "zoo": path_zoo, "flow": path_flow}
+# in the order they run: the two paths whose sync warmups need no kernel
+# first, so that the build runs beside them
+PATHS = {"flow": path_flow, "stream": path_stream, "nuts": path_nuts,
+         "mclmc": path_mclmc, "large_d": path_large_d, "data": path_data,
+         "mclmc_data": path_mclmc_data, "sv": path_sv, "radon": path_radon,
+         "zoo": path_zoo}
 # the sources each path launches (the smem-size helpers of the mid-d and ld
 # warmup kernels live in their posterior sources)
 PATH_SOURCES = {
@@ -2099,18 +2188,32 @@ def main(argv=None) -> int:
     paths = [only] if only else list(PATHS)
     stems = list(dict.fromkeys(stem for path in paths
                                for stem in PATH_SOURCES[path]))
-    t0 = time.monotonic()
-    _build.build(stems)
-    print(f"build: {time.monotonic() - t0:.1f} s ({len(stems)} sources, one "
-          f"nvcc each, together, into {_build.BUILD_DIR})")
-    for stem in stems:
-        print("  " + ptxas_summary(stem, _build.BUILD_DIR / f"build_{stem}.log"))
+    # the build runs beside the paths, in the order they need its sources,
+    # niced and cores - BUILD_SPARE_CORES nvcc at a time; a path waits for
+    # its own sources alone (_build.library).  The flow path comes first:
+    # its sync warmup needs no kernel, and the build ends during it.
+    cores = len(os.sched_getaffinity(0))
+    jobs = max(1, cores - BUILD_SPARE_CORES)
+    _build.start_build(stems, nice=BUILD_NICE, jobs=jobs)
+    print(f"build: {len(stems)} sources, one nvcc each, {jobs} at a time at "
+          f"nice {BUILD_NICE} beside the paths, in their order, into "
+          f"{_build.BUILD_DIR}; the host's usable cores: {cores}", flush=True)
 
     checks, launches, times = {}, {}, {}
     for path in paths:
-        t0 = time.monotonic()
+        t0, plain0 = time.monotonic(), PLAIN_SECONDS[0]
         PATHS[path](device, checks, launches, times)
-        print(f"path {path}: {time.monotonic() - t0:.1f} s")
+        print(f"path {path}: {time.monotonic() - t0:.1f} s, of which the "
+              f"checks' plain versions {PLAIN_SECONDS[0] - plain0:.1f} s",
+              flush=True)
+    _build.build(stems)  # raises where a source failed
+    nvcc_s = _build.BUILD_INFO["nvcc_seconds"]
+    print(f"build: the last nvcc ended "
+          f"{max(nvcc_s.values(), default=0.0):.1f} s after the start")
+    for stem in stems:
+        took = f"nvcc {nvcc_s[stem]:.1f} s; " if stem in nvcc_s else ""
+        print(f"  {took}"
+              + ptxas_summary(stem, _build.BUILD_DIR / f"build_{stem}.log"))
 
     kernels = []
     for name, source, replaces in KERNELS:

@@ -17,12 +17,15 @@
 // draw reverts to the draw start with fresh momentum on a give-up
 // (mclmc.rs:361-394).
 //
-// What bounds it on this card: latency-bound scalar work per thread, plus the
-// wait for the block's longest trajectory in each draw.  What the design
-// does about it: one thread per chain, one warp-sized block per logical
-// chain block, so the wait is over 32 chains and not the whole chunk; the
-// loop condition is __syncthreads_or; state, the halving stack and the eight
-// estimator planes stay in registers or local memory of the thread.
+// What bounds it on this card: the latency of one chain's dependent scalar
+// work, plus the wait for the block's longest trajectory in each draw.  What
+// the design does about it: a chain's coordinates on a group of T lanes, as
+// in K3 (mclmc_step.cuh, mclmc_lanes), each lane with its coordinates'
+// state and eight estimator rows, the adaptation by diag_adapt.cuh's
+// one-coordinate functions on each lane and logdet = -sum log stds by the
+// ordered gather; one CUDA block per logical chain block of B chains, so the
+// wait is over B chains and not the whole chunk; the loop condition is
+// __syncthreads_or.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,11 +59,61 @@ struct McWarmArgs {
   int* iters;
 };
 
-template <int DIM, bool MICRO, int H, class Model>
-__global__ void __launch_bounds__(MAX_BLOCK)
+// adapt_draw (diag_adapt.cuh) on a lane's slots of one chain: feed (q, g)
+// to fg and bg where `inc`, switch windows, apply the diagonal rule; the
+// new logdet = -sum log stds by the ordered gather.  Updates est, the
+// counts, stds, mean and tid in place.
+template <int DIM, int T>
+__device__ __forceinline__ float adapt_draw_lanes(
+    float (*est)[slots<DIM, T>()], float& cnt_fg, float& cnt_bg, float& tid,
+    float* stds, float* mean, const float* q, const float* g, bool inc,
+    bool do_switch, bool do_update, bool use_grad_based, const Lane<T>& ln) {
+  constexpr int NC = slots<DIM, T>();
+  if (inc) {
+    const float fg = cnt_fg + 1.0f, bg = cnt_bg + 1.0f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      add2_coord(est[0][i], est[1][i], fg, q[i]);
+      add2_coord(est[2][i], est[3][i], fg, g[i]);
+      add2_coord(est[4][i], est[5][i], bg, q[i]);
+      add2_coord(est[6][i], est[7][i], bg, g[i]);
+    }
+  }
+  cnt_fg = cnt_fg + (inc ? 1.0f : 0.0f);
+  cnt_bg = cnt_bg + (inc ? 1.0f : 0.0f);
+  if (do_switch) {
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        est[p][i] = est[p + 4][i];
+        est[p + 4][i] = 0.0f;
+      }
+    cnt_fg = cnt_bg;
+    cnt_bg = 0.0f;
+  }
+
+  const bool enough = do_update && cnt_fg >= 3.0f;
+  float l[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    if (enough)
+      diag_rule_coord(est[0][i], est[1][i], est[2][i], est[3][i], cnt_fg,
+                      use_grad_based, stds[i], mean[i]);
+    l[i] = logf(stds[i]);
+  }
+  tid = tid + (enough ? 1.0f : 0.0f);
+  return -ordered_sum<DIM, T>(l, ln);
+}
+
+template <int DIM, int T, bool MICRO, int H, class Model>
+__global__ void __launch_bounds__(T * MAX_BLOCK < MAX_THREADS ? T * MAX_BLOCK
+                                                              : MAX_THREADS)
     mclmc_warmup_kernel(const McWarmArgs a, const Model model) {
-  const int B = blockDim.x;
-  const int b = threadIdx.x;
+  constexpr int NC = slots<DIM, T>();
+  const Lane<T> ln;
+  const int B = blockDim.x / T;
+  const int b = threadIdx.x / T;
   const int c = blockIdx.x * B + b;
   const int C = a.C;
   const uint32_t seed = a.seed + 0x51ED2701u * (uint32_t)blockIdx.x;
@@ -68,27 +121,28 @@ __global__ void __launch_bounds__(MAX_BLOCK)
   // salts shift by one when the jitter draw (salt 1) is present
   const uint32_t sj = a.has_jitter ? 1u : 0u;
 
-  float q[DIM], g[DIM], v[DIM], stds[DIM], mean[DIM];
-  float est[NEST][DIM];
+  float q[NC], g[NC], v[NC], stds[NC], mean[NC];
+  float est[NEST][NC];
   float sca[MS_NSCA];
   float logp = a.logp[c];
 #pragma unroll
-  for (int j = 0; j < DIM; ++j) {
-    q[j] = a.q[c * DIM + j];
-    g[j] = a.g[c * DIM + j];
-    v[j] = a.v[c * DIM + j];
-    stds[j] = a.stds[c * DIM + j];
-    mean[j] = a.mean[c * DIM + j];
+  for (int i = 0; i < NC; ++i) {
+    const int j = ln.lane + T * i;
+    const bool own = j < DIM;
+    q[i] = own ? a.q[c * DIM + j] : 0.0f;
+    g[i] = own ? a.g[c * DIM + j] : 0.0f;
+    v[i] = own ? a.v[c * DIM + j] : 0.0f;
+    stds[i] = own ? a.stds[c * DIM + j] : 1.0f;
+    mean[i] = own ? a.mean[c * DIM + j] : 0.0f;
+#pragma unroll
+    for (int p = 0; p < NEST; ++p)
+      est[p][i] = own ? a.est[(c * NEST + p) * DIM + j] : 0.0f;
   }
-#pragma unroll
-  for (int p = 0; p < NEST; ++p)
-#pragma unroll
-    for (int j = 0; j < DIM; ++j) est[p][j] = a.est[(c * NEST + p) * DIM + j];
 #pragma unroll
   for (int r = 0; r < MS_NSCA; ++r) sca[r] = a.sca[c * MS_NSCA + r];
 
-  McState<DIM, H> s;
-  float z0[DIM], zg0[DIM];
+  McState<DIM, T, H> s;
+  float z0[NC], zg0[NC];
   uint32_t it = 1;
   for (int i = 0; i < a.K; ++i) {
     const int* fl = a.flags + i * MF_NFLAGS;
@@ -100,35 +154,33 @@ __global__ void __launch_bounds__(MAX_BLOCK)
 
     // ---- fresh trajectory (initialize_trajectory semantics) ----
     if (fl[MF_RESAMPLE] != 0) {
-#pragma unroll
-      for (int j = 0; j < DIM; ++j)
-        v[j] = normal(seed, it, 1u + sj, 2u + sj, (uint32_t)(j * B + b));
+      lane_normals<DIM, T>(v, seed, it, 1u + sj, 2u + sj, b, B, ln);
       if (MICRO) {
-        const float nrm = sqrtf(dot<DIM>(v, v));
+        const float nrm = sqrtf(ordered_dot<DIM, T>(v, v, ln));
 #pragma unroll
-        for (int j = 0; j < DIM; ++j) v[j] = v[j] / nrm;
+        for (int m = 0; m < NC; ++m) v[m] = v[m] / nrm;
       }
     }
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) {
-      z0[j] = (q[j] - mean[j]) / stds[j];
-      zg0[j] = g[j] * stds[j];
-      s.z[j] = z0[j];
-      s.zg[j] = zg0[j];
-      s.v[j] = v[j];
-      s.noise[j] = normal(seed, it, 3u + sj, 4u + sj, (uint32_t)(j * B + b));
+    for (int m = 0; m < NC; ++m) {
+      z0[m] = (q[m] - mean[m]) / stds[m];
+      zg0[m] = g[m] * stds[m];
+      s.z[m] = z0[m];
+      s.zg[m] = zg0[m];
+      s.v[m] = v[m];
     }
+    lane_normals<DIM, T>(s.noise, seed, it, 3u + sj, 4u + sj, b, B, ln);
     s.logp = logp;
-    s.ke = MICRO ? 0.0f : 0.5f * dot<DIM>(v, v);
+    s.ke = MICRO ? 0.0f : 0.5f * ordered_dot<DIM, T>(v, v, ln);
     const float e_init = s.ke - (logp + logdet);
     start_trajectory(s, nsd);
 
     bool done = false, div = false;
     while (__syncthreads_or(!done)) {
       if (!done) {
-        const int r = leapfrog_try<DIM, MICRO, H>(s, step, nsd, logdet, stds,
-                                                  mean, model, k, seed, it,
-                                                  5u + sj, b, B);
+        const int r = leapfrog_try<DIM, T, MICRO, H>(
+            s, step, nsd, logdet, stds, mean, model, k, seed, it, 5u + sj, b,
+            B, ln);
         done = r != MC_CONTINUE;
         div = r == MC_GAVE_UP;
       }
@@ -136,11 +188,11 @@ __global__ void __launch_bounds__(MAX_BLOCK)
     }
 
     // ---- adaptation: the collector sees the trajectory end ----
-    float q_coll[DIM], g_coll[DIM];
+    float q_coll[NC], g_coll[NC];
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) {
-      q_coll[j] = s.z[j] * stds[j] + mean[j];
-      g_coll[j] = s.zg[j] / stds[j];
+    for (int m = 0; m < NC; ++m) {
+      q_coll[m] = s.z[m] * stds[m] + mean[m];
+      g_coll[m] = s.zg[m] / stds[m];
     }
     const bool is_good = (div && s.steps > 4) || (!div && s.steps != 0);
     const float e_change = (s.ke - (s.logp + logdet)) - e_init;
@@ -148,81 +200,112 @@ __global__ void __launch_bounds__(MAX_BLOCK)
     // ---- emitted draw: the trajectory end, or on a give-up the draw start
     // with fresh momentum ----
     float em_ke = s.ke, em_logp = s.logp;
-    float em_z[DIM], em_zg[DIM];
-    copy<DIM>(em_z, div ? z0 : s.z);
-    copy<DIM>(em_zg, div ? zg0 : s.zg);
+    float e[NC];
+#pragma unroll
+    for (int m = 0; m < NC; ++m) {
+      const float em_z = div ? z0[m] : s.z[m];
+      const float em_zg = div ? zg0[m] : s.zg[m];
+      e[m] = em_z + em_zg;
+      q[m] = em_z * stds[m] + mean[m];
+      g[m] = em_zg / stds[m];
+      const int j = ln.lane + T * m;
+      if (j < DIM) a.draws[((size_t)i * DIM + j) * C + c] = q[m];
+    }
     if (div) {
-      em_ke = give_up_momentum<DIM, MICRO>(seed, it, 9u + sj, b, B, v);
+      em_ke = give_up_momentum<DIM, T, MICRO>(seed, it, 9u + sj, b, B, v, ln);
       em_logp = logp;
     } else {
-      copy<DIM>(v, s.v);
-    }
-    float fisher = 0.0f;
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) {
-      const float e = em_z[j] + em_zg[j];
-      fisher = (j == 0) ? e * e : fisher + e * e;
-      q[j] = em_z[j] * stds[j] + mean[j];
-      g[j] = em_zg[j] / stds[j];
-      a.draws[((size_t)i * DIM + j) * C + c] = q[j];
+      for (int m = 0; m < NC; ++m) v[m] = s.v[m];
     }
+    const float fisher = ordered_dot<DIM, T>(e, e, ln);
     logp = em_logp;
 
-    sca[MS_LOGDET] = adapt_draw<DIM>(
+    sca[MS_LOGDET] = adapt_draw_lanes<DIM, T>(
         est, sca[MS_CNT_FG], sca[MS_CNT_BG], sca[MS_TID], stds, mean, q_coll,
         g_coll, (fl[MF_UPD_EST] != 0) && is_good, fl[MF_DO_SWITCH] != 0,
-        fl[MF_DO_UPDATE] != 0, a.use_grad_based != 0);
+        fl[MF_DO_UPDATE] != 0, a.use_grad_based != 0, ln);
 
     // ---- emit row i ----
-    const float row[NSTATS_MW] = {
-        div ? 1.0f : 0.0f, (float)s.steps, e_change,
-        s.ttime / (float)max(s.steps, 1), step, em_logp,
-        em_ke - (em_logp + logdet), fisher, sca[MS_TID]};
+    if (ln.lane == 0) {
+      const float row[NSTATS_MW] = {
+          div ? 1.0f : 0.0f, (float)s.steps, e_change,
+          s.ttime / (float)max(s.steps, 1), step, em_logp,
+          em_ke - (em_logp + logdet), fisher, sca[MS_TID]};
 #pragma unroll
-    for (int t = 0; t < NSTATS_MW; ++t)
-      a.stats[((size_t)i * NSTATS_MW + t) * C + c] = row[t];
+      for (int t = 0; t < NSTATS_MW; ++t)
+        a.stats[((size_t)i * NSTATS_MW + t) * C + c] = row[t];
+    }
   }
 
 #pragma unroll
-  for (int j = 0; j < DIM; ++j) {
-    a.q_f[c * DIM + j] = q[j];
-    a.g_f[c * DIM + j] = g[j];
-    a.v_f[c * DIM + j] = v[j];
-    a.stds_f[c * DIM + j] = stds[j];
-    a.mean_f[c * DIM + j] = mean[j];
+  for (int m = 0; m < NC; ++m) {
+    const int j = ln.lane + T * m;
+    if (j < DIM) {
+      a.q_f[c * DIM + j] = q[m];
+      a.g_f[c * DIM + j] = g[m];
+      a.v_f[c * DIM + j] = v[m];
+      a.stds_f[c * DIM + j] = stds[m];
+      a.mean_f[c * DIM + j] = mean[m];
+#pragma unroll
+      for (int p = 0; p < NEST; ++p)
+        a.est_f[(c * NEST + p) * DIM + j] = est[p][m];
+    }
   }
+  if (ln.lane == 0) {
 #pragma unroll
-  for (int p = 0; p < NEST; ++p)
-#pragma unroll
-    for (int j = 0; j < DIM; ++j) a.est_f[(c * NEST + p) * DIM + j] = est[p][j];
-#pragma unroll
-  for (int r = 0; r < MS_NSCA; ++r) a.sca_f[c * MS_NSCA + r] = sca[r];
-  a.logp_f[c] = logp;
-  a.iters[c] = (int)it;
+    for (int r = 0; r < MS_NSCA; ++r) a.sca_f[c * MS_NSCA + r] = sca[r];
+    a.logp_f[c] = logp;
+    a.iters[c] = (int)it;
+  }
 }
 
-template <int DIM, bool MICRO, int H>
+template <int DIM, int T, bool MICRO, int H>
 cudaError_t launch_mclmc_warmup(const McWarmArgs& a, int B, int model_id,
                                 const float* params, cudaStream_t stream) {
   if (model_id != MODEL_IID_NORMAL) return cudaErrorInvalidValue;
-  mclmc_warmup_kernel<DIM, MICRO, H, IidNormal>
-      <<<a.C / B, B, 0, stream>>>(a, IidNormal{params[0]});
+  mclmc_warmup_kernel<DIM, T, MICRO, H, IidNormal>
+      <<<a.C / B, B * T, 0, stream>>>(a, IidNormal{params[0]});
   return cudaGetLastError();
+}
+
+// As launch_mclmc_posterior_lanes (mclmc_fused_posterior.cu).
+template <int DIM, int T>
+cudaError_t launch_mclmc_warmup_lanes(const McWarmArgs& a, int B, int micro,
+                                      int dynamic, int model_id,
+                                      const float* params,
+                                      cudaStream_t stream) {
+  if constexpr (mclmc_lanes_taken(DIM, T)) {
+    if (micro && dynamic)
+      return launch_mclmc_warmup<DIM, T, true, MAX_HALVINGS>(
+          a, B, model_id, params, stream);
+    if (micro)
+      return launch_mclmc_warmup<DIM, T, true, 0>(a, B, model_id, params,
+                                                  stream);
+    if (dynamic)
+      return launch_mclmc_warmup<DIM, T, false, MAX_HALVINGS>(
+          a, B, model_id, params, stream);
+    return launch_mclmc_warmup<DIM, T, false, 0>(a, B, model_id, params,
+                                                 stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace nrt
 
+// lanes: as nrt_mclmc_posterior_launch's.
 extern "C" int nrt_mclmc_warmup_launch(
-    int dim, int micro, int dynamic, int C, int B, int K, uint32_t seed,
-    float max_err, float ell, float fsub_ell, float sqrt_n, float fixed_step,
-    int has_jitter, float jc1, float jc2, int use_grad_based, int model_id,
-    const float* model_params, const int* flags, const float* q,
-    const float* g, const float* logp, const float* v, const float* stds,
-    const float* mean, const float* est, const float* sca, float* draws,
-    float* stats, float* q_f, float* g_f, float* logp_f, float* v_f,
-    float* stds_f, float* mean_f, float* est_f, float* sca_f, int* iters,
-    void* stream) {
-  if (B < 1 || B > nrt::MAX_BLOCK || C % B != 0)
+    int dim, int micro, int dynamic, int lanes, int C, int B, int K,
+    uint32_t seed, float max_err, float ell, float fsub_ell, float sqrt_n,
+    float fixed_step, int has_jitter, float jc1, float jc2,
+    int use_grad_based, int model_id, const float* model_params,
+    const int* flags, const float* q, const float* g, const float* logp,
+    const float* v, const float* stds, const float* mean, const float* est,
+    const float* sca, float* draws, float* stats, float* q_f, float* g_f,
+    float* logp_f, float* v_f, float* stds_f, float* mean_f, float* est_f,
+    float* sca_f, int* iters, void* stream) {
+  if (B < 1 || B > nrt::MAX_BLOCK || C % B != 0 ||
+      lanes != nrt::mclmc_lanes(dim, B) || B * lanes > nrt::MAX_THREADS)
     return (int)cudaErrorInvalidValue;
   const nrt::McWarmArgs a{C,      K,      seed,   {max_err, ell, fsub_ell, sqrt_n},
                           fixed_step, has_jitter, jc1, jc2, use_grad_based,
@@ -231,21 +314,19 @@ extern "C" int nrt_mclmc_warmup_launch(
                           g_f,    logp_f, v_f,    stds_f, mean_f, est_f,
                           sca_f,  iters};
   cudaStream_t s = (cudaStream_t)stream;
-#define NRT_CASE(DIM_)                                                      \
-  if (dim == DIM_) {                                                        \
-    if (micro && dynamic)                                                   \
-      return (int)nrt::launch_mclmc_warmup<DIM_, true, nrt::MAX_HALVINGS>(  \
-          a, B, model_id, model_params, s);                                 \
-    if (micro)                                                              \
-      return (int)nrt::launch_mclmc_warmup<DIM_, true, 0>(                  \
-          a, B, model_id, model_params, s);                                 \
-    if (dynamic)                                                            \
-      return (int)nrt::launch_mclmc_warmup<DIM_, false, nrt::MAX_HALVINGS>( \
-          a, B, model_id, model_params, s);                                 \
-    return (int)nrt::launch_mclmc_warmup<DIM_, false, 0>(                   \
-        a, B, model_id, model_params, s);                                   \
+#define NRT_LANES(DIM_, T_)                                                \
+  if (lanes == T_)                                                         \
+    return (int)nrt::launch_mclmc_warmup_lanes<DIM_, T_>(                  \
+        a, B, micro, dynamic, model_id, model_params, s);
+#define NRT_CASE(DIM_)                                                     \
+  if (dim == DIM_) {                                                       \
+    NRT_LANES(DIM_, 1)                                                     \
+    NRT_LANES(DIM_, 4)                                                     \
+    NRT_LANES(DIM_, 8)                                                     \
+    NRT_LANES(DIM_, 16)                                                    \
   }
   NRT_FOR_EACH_DIM(NRT_CASE)
 #undef NRT_CASE
+#undef NRT_LANES
   return (int)cudaErrorInvalidValue;
 }

@@ -6,16 +6,28 @@
 // make_mclmc_warmup_kernel :577-746); plain PyTorch version:
 // nuts_rs_tpu_torch/kernels/mclmc_fused.py (_esh, _refresh, _num_steps,
 // _leapfrog_try).  The Pallas body keeps the halving stack as f32 planes
-// read back with masked sums (Mosaic has no dynamic row index); one thread
-// per chain indexes its own int stack.  Sums run in coordinate order and
-// every expression keeps the Pallas grouping, including log((1+a)+(1-a)z^2)
-// for log1p and exp(x)-1 for expm1.
+// read back with masked sums (Mosaic has no dynamic row index); a chain
+// indexes its own int stack.  Every expression keeps the Pallas grouping,
+// including log((1+a)+(1-a)z^2) for log1p and exp(x)-1 for expm1.
+//
+// A chain's coordinates lie on a group of T lanes (T = 4, 8 or 16, a
+// power of 2 that divides the warp; mclmc_lanes): coordinate j on lane
+// j mod T, in slot j / T of that lane's arrays.  Every step on one
+// coordinate runs on its own lane: the divisions of the ESH step and the
+// refresh, the leapfrog's updates, the model's term, the Box-Muller normals
+// at site j * B + b.  A sum over d (ordered_sum) gathers the d terms by
+// __shfl_sync within the group and every lane adds them in coordinate order
+// j = 0..d-1, one after another, as nuts_tree.cuh::dot does, so every lane
+// holds the same bits as the one-thread sum and the plain version's
+// ops.dsum.  Scalars (kinetic energy, logp, the halving stack, the step
+// counts) are computed alike on every lane of a group, so no lane
+// broadcasts them; a group's lanes take the same branches.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
 
-#include "nuts_tree.cuh"  // dot, copy, MAX_BLOCK
+#include "nuts_tree.cuh"  // MAX_BLOCK
 #include "rng.cuh"
 
 namespace nrt {
@@ -23,6 +35,29 @@ namespace nrt {
 constexpr int MAX_HALVINGS = 10;  // kernels/mclmc.py::MAX_HALVINGS
 constexpr int NSTATS_M = 8;       // mclmc.py::STAT_NAMES
 constexpr int NSTATS_MW = 9;      // + transformation_index
+constexpr int MAX_THREADS = 1024;  // of a CUDA block
+
+// Lanes a chain of K3 / K4 at d coordinates in logical chain blocks of B
+// (_build.mclmc_lanes, the same rule): one coordinate a lane, 4 lanes at
+// d <= 4, 8 at d <= 8, 16 above, halved while the block's B * T threads
+// exceed 1024 (16 -> 8 at B > 64).  The ablation macro NRT_MCLMC_LANES=n
+// fixes T for every shape (profile_main_path.py item 17).
+__host__ __device__ constexpr int mclmc_lanes(int d, int B) {
+#ifdef NRT_MCLMC_LANES
+  return NRT_MCLMC_LANES + 0 * (d + B);
+#else
+  int T = d <= 4 ? 4 : (d <= 8 ? 8 : 16);
+  while (T > 4 && B * T > MAX_THREADS) T /= 2;
+  return T;
+#endif
+}
+
+// Whether K3 / K4 instantiate lanes T at d: some block B in 1..MAX_BLOCK
+// takes it (the rule gives the most lanes at B = 1, the fewest at
+// MAX_BLOCK, and every power of 2 in between).
+__host__ __device__ constexpr bool mclmc_lanes_taken(int d, int T) {
+  return T <= mclmc_lanes(d, 1) && T >= mclmc_lanes(d, MAX_BLOCK);
+}
 
 // Per-run constants, f32 as the Pallas body rounds its Python floats.
 struct McConst {
@@ -32,10 +67,58 @@ struct McConst {
   float sqrt_n;    // sqrt(d)
 };
 
-// One chain's trajectory state.
-template <int DIM, int H>
+// A lane's place in its chain's group of T lanes: its lane index and the
+// mask of the group's lanes in the warp.
+template <int T>
+struct Lane {
+  static_assert(T >= 1 && T <= 32 && (T & (T - 1)) == 0,
+                "a group is a power of 2 of lanes within a warp");
+  int lane;
+  unsigned mask;
+  __device__ __forceinline__ Lane()
+      : lane((int)(threadIdx.x % T)),
+        mask(T == 32 ? 0xffffffffu
+                     : ((1u << (T & 31)) - 1u)
+                           << (((threadIdx.x & 31) / T) * T)) {}
+};
+
+// Coordinate slots a lane holds: coordinate lane + T * i in slot i.
+template <int DIM, int T>
+__host__ __device__ constexpr int slots() {
+  return (DIM + T - 1) / T;
+}
+
+// The sum over the d coordinates of x (slot i of each lane its term of
+// coordinate lane + T * i), in coordinate order, on every lane.
+template <int DIM, int T>
+__device__ __forceinline__ float ordered_sum(const float* x,
+                                             const Lane<T>& g) {
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) {
+    const float t = __shfl_sync(g.mask, x[j / T], j % T, T);
+    s = (j == 0) ? t : s + t;
+  }
+  return s;
+}
+
+// dot<DIM>(a, b) over the group: each lane's products, then ordered_sum.
+template <int DIM, int T>
+__device__ __forceinline__ float ordered_dot(const float* a, const float* b,
+                                             const Lane<T>& g) {
+  constexpr int NC = slots<DIM, T>();
+  float p[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) p[i] = a[i] * b[i];
+  return ordered_sum<DIM, T>(p, g);
+}
+
+// One chain's trajectory state; each lane holds its slots of the vectors
+// and every scalar.
+template <int DIM, int T, int H>
 struct McState {
-  float z[DIM], v[DIM], zg[DIM], noise[DIM];
+  static constexpr int NC = slots<DIM, T>();
+  float z[NC], v[NC], zg[NC], noise[NC];
   float logp, ke;
   int rem;         // steps left at the current factor
   float factor;    // step factor, a power of 2
@@ -45,27 +128,61 @@ struct McState {
   float ttime;     // integrated time of the draw
 };
 
+// Standard normals of a vector site at (seed, it, salt1, salt2), slot i
+// at site (lane + T i) * B + b.  Under the timing ablation
+// NRT_ABLATE_MCLMC_NORMALS a value from the site alone, without the hashes
+// and Box-Muller's log, sqrt and cos (changes results).
+template <int DIM, int T>
+__device__ __forceinline__ void lane_normals(float* out, uint32_t seed,
+                                             uint32_t it, uint32_t salt1,
+                                             uint32_t salt2, int b, int B,
+                                             const Lane<T>& g) {
+#pragma unroll
+  for (int i = 0; i < slots<DIM, T>(); ++i) {
+    const uint32_t idx = (uint32_t)((g.lane + T * i) * B + b);
+#ifdef NRT_ABLATE_MCLMC_NORMALS
+    out[i] = 0.25f * (float)((idx + it + salt1) % 7u) - 0.75f +
+             0.0f * (float)(seed + salt2);
+#else
+    out[i] = normal(seed, it, salt1, salt2, idx);
+#endif
+  }
+}
+
+// x / y, the IEEE division of every per-coordinate quotient of the ESH step
+// and the refresh; under the timing ablation NRT_ABLATE_MCLMC_DIVISIONS the
+// approximate __fdividef (changes results).
+__device__ __forceinline__ float coord_div(float x, float y) {
+#ifdef NRT_ABLATE_MCLMC_DIVISIONS
+  return __fdividef(x, y);
+#else
+  return x / y;
+#endif
+}
+
 // ESH momentum half-step (math.rs:188-204): writes the new unit momentum to
 // vn and returns the kinetic-energy change.
-template <int DIM>
+template <int DIM, int T>
 __device__ __forceinline__ float esh(const float* zg, const float* v,
-                                     float step, float* vn) {
+                                     float step, float* vn,
+                                     const Lane<T>& g) {
+  constexpr int NC = slots<DIM, T>();
   const float dm1 = (float)(DIM - 1);
-  const float gn = sqrtf(dot<DIM>(zg, zg));
-  float gh[DIM];
+  const float gn = sqrtf(ordered_dot<DIM, T>(zg, zg, g));
+  float gh[NC];
 #pragma unroll
-  for (int j = 0; j < DIM; ++j) gh[j] = zg[j] / gn;
-  const float alpha = dot<DIM>(v, gh);
+  for (int i = 0; i < NC; ++i) gh[i] = coord_div(zg[i], gn);
+  const float alpha = ordered_dot<DIM, T>(v, gh, g);
   const float delta = step * gn / dm1;
   const float zeta = expf(-delta);
   const float cg = (1.0f - zeta) * (1.0f + zeta + alpha * (1.0f - zeta));
   const float tz2 = 2.0f * zeta;
-  float vr[DIM];
+  float vr[NC];
 #pragma unroll
-  for (int j = 0; j < DIM; ++j) vr[j] = cg * gh[j] + tz2 * v[j];
-  const float nrm = sqrtf(dot<DIM>(vr, vr));
+  for (int i = 0; i < NC; ++i) vr[i] = cg * gh[i] + tz2 * v[i];
+  const float nrm = sqrtf(ordered_dot<DIM, T>(vr, vr, g));
 #pragma unroll
-  for (int j = 0; j < DIM; ++j) vn[j] = vr[j] / nrm;
+  for (int i = 0; i < NC; ++i) vn[i] = coord_div(vr[i], nrm);
   return (delta - (float)0.69314718055994530942 +
           logf((1.0f + alpha) + (1.0f - alpha) * zeta * zeta)) *
          dm1;
@@ -73,24 +190,26 @@ __device__ __forceinline__ float esh(const float* zg, const float* v,
 
 // Partial momentum refresh (transformed_hamiltonian.rs:777-826): writes the
 // refreshed momentum to out; returns its kinetic energy (Euclidean) or 0.
-template <int DIM, bool MICRO>
+template <int DIM, int T, bool MICRO>
 __device__ __forceinline__ float refresh(const float* v, const float* noise,
-                                         float half, float ell, float* out) {
+                                         float half, float ell, float* out,
+                                         const Lane<T>& g) {
+  constexpr int NC = slots<DIM, T>();
   if (MICRO) {
     const float nu = sqrtf((expf(2.0f * half / ell) - 1.0f) / (float)DIM);
-    float vr[DIM];
+    float vr[NC];
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) vr[j] = v[j] + nu * noise[j];
-    const float nrm = sqrtf(dot<DIM>(vr, vr));
+    for (int i = 0; i < NC; ++i) vr[i] = v[i] + nu * noise[i];
+    const float nrm = sqrtf(ordered_dot<DIM, T>(vr, vr, g));
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) out[j] = vr[j] / nrm;
+    for (int i = 0; i < NC; ++i) out[i] = coord_div(vr[i], nrm);
     return 0.0f;
   }
   const float alpha = expf(-half / ell);
   const float beta = sqrtf(1.0f - alpha * alpha);
 #pragma unroll
-  for (int j = 0; j < DIM; ++j) out[j] = alpha * v[j] + beta * noise[j];
-  return 0.5f * dot<DIM>(out, out);
+  for (int i = 0; i < NC; ++i) out[i] = alpha * v[i] + beta * noise[i];
+  return 0.5f * ordered_dot<DIM, T>(out, out, g);
 }
 
 // round(F L / eps), half to even as jnp.round, clipped to [1, 1e6].
@@ -100,8 +219,9 @@ __device__ __forceinline__ int num_steps_for(float step, const McConst& k) {
 
 // Reset the counters and the halving stack for a fresh trajectory of nsd
 // base steps (position, gradient and momentum are set by the caller).
-template <int DIM, int H>
-__device__ __forceinline__ void start_trajectory(McState<DIM, H>& s, int nsd) {
+template <int DIM, int T, int H>
+__device__ __forceinline__ void start_trajectory(McState<DIM, T, H>& s,
+                                                 int nsd) {
   s.rem = nsd;
   s.factor = 1.0f;
   s.ssize = 0;
@@ -117,48 +237,51 @@ enum { MC_CONTINUE = 0, MC_DONE = 1, MC_GAVE_UP = 2 };
 // and the stack unwinds; on a divergence the state stays at its pre-refresh
 // values, the factor halves and the remaining count is pushed, or, with the
 // stack full, the draw gives up.  Returns MC_CONTINUE, MC_DONE (remaining
-// count reached 0) or MC_GAVE_UP.
-template <int DIM, bool MICRO, int H, class Model>
+// count reached 0) or MC_GAVE_UP.  The model contributes its one-coordinate
+// term on each lane and its finish of their ordered sum.
+template <int DIM, int T, bool MICRO, int H, class Model>
 __device__ __forceinline__ int leapfrog_try(
-    McState<DIM, H>& s, float step, int nsd, float ld, const float* stds,
+    McState<DIM, T, H>& s, float step, int nsd, float ld, const float* stds,
     const float* mean, const Model& model, const McConst& k, uint32_t seed,
-    uint32_t it, uint32_t salt, int b, int B) {
+    uint32_t it, uint32_t salt, int b, int B, const Lane<T>& g) {
+  constexpr int NC = slots<DIM, T>();
   const float f = s.factor;
   const float eps = step * f;
   const float half = eps / 2.0f;
-  float vr[DIM];
-  float ke_r = refresh<DIM, MICRO>(s.v, s.noise, half, k.ell, vr);
+  float vr[NC];
+  float ke_r = refresh<DIM, T, MICRO>(s.v, s.noise, half, k.ell, vr, g);
   if (MICRO) ke_r = s.ke;
   const float base = ke_r - (s.logp + ld);
 
-  float v1[DIM], z1[DIM], q1[DIM], zg1[DIM], v2[DIM];
+  float v1[NC], z1[NC], zg1[NC], v2[NC], sq[NC];
   float logp1, ke2;
   if (MICRO) {
-    const float ke1 = ke_r + esh<DIM>(s.zg, vr, k.sqrt_n * eps / 2.0f, v1);
+    const float ke1 = ke_r + esh<DIM, T>(s.zg, vr, k.sqrt_n * eps / 2.0f, v1,
+                                         g);
     const float es = eps * k.sqrt_n;
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) z1[j] = s.z[j] + es * v1[j];
+    for (int i = 0; i < NC; ++i) {
+      z1[i] = s.z[i] + es * v1[i];
+      sq[i] = model.term(z1[i] * stds[i] + mean[i], zg1[i]);
+    }
+    logp1 = model.finish(ordered_sum<DIM, T>(sq, g));
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) q1[j] = z1[j] * stds[j] + mean[j];
-    logp1 = model.template eval<DIM>(q1, zg1);
-#pragma unroll
-    for (int j = 0; j < DIM; ++j) zg1[j] = zg1[j] * stds[j];
-    ke2 = ke1 + esh<DIM>(zg1, v1, k.sqrt_n * eps / 2.0f, v2);
+    for (int i = 0; i < NC; ++i) zg1[i] = zg1[i] * stds[i];
+    ke2 = ke1 + esh<DIM, T>(zg1, v1, k.sqrt_n * eps / 2.0f, v2, g);
   } else {
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) {
-      v1[j] = vr[j] + half * s.zg[j];
-      z1[j] = s.z[j] + eps * v1[j];
+    for (int i = 0; i < NC; ++i) {
+      v1[i] = vr[i] + half * s.zg[i];
+      z1[i] = s.z[i] + eps * v1[i];
+      sq[i] = model.term(z1[i] * stds[i] + mean[i], zg1[i]);
     }
+    logp1 = model.finish(ordered_sum<DIM, T>(sq, g));
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) q1[j] = z1[j] * stds[j] + mean[j];
-    logp1 = model.template eval<DIM>(q1, zg1);
-#pragma unroll
-    for (int j = 0; j < DIM; ++j) {
-      zg1[j] = zg1[j] * stds[j];
-      v2[j] = v1[j] + half * zg1[j];
+    for (int i = 0; i < NC; ++i) {
+      zg1[i] = zg1[i] * stds[i];
+      v2[i] = v1[i] + half * zg1[i];
     }
-    ke2 = 0.5f * dot<DIM>(v2, v2);
+    ke2 = 0.5f * ordered_dot<DIM, T>(v2, v2, g);
   }
   const float err = (ke2 - (logp1 + ld)) - base;
   const float max_err_step = (k.max_err / (float)nsd) * f;
@@ -172,18 +295,17 @@ __device__ __forceinline__ int leapfrog_try(
     return MC_CONTINUE;
   }
 
-  float n1[DIM];
-#pragma unroll
-  for (int j = 0; j < DIM; ++j)
-    n1[j] = normal(seed, it, salt, salt + 1u, (uint32_t)(j * B + b));
-  const float ke3 = refresh<DIM, MICRO>(v2, n1, half, k.ell, s.v);
+  float n1[NC];
+  lane_normals<DIM, T>(n1, seed, it, salt, salt + 1u, b, B, g);
+  const float ke3 = refresh<DIM, T, MICRO>(v2, n1, half, k.ell, s.v, g);
   s.ke = MICRO ? ke2 : ke3;
-  copy<DIM>(s.z, z1);
-  copy<DIM>(s.zg, zg1);
-  s.logp = logp1;
 #pragma unroll
-  for (int j = 0; j < DIM; ++j)
-    s.noise[j] = normal(seed, it, salt + 2u, salt + 3u, (uint32_t)(j * B + b));
+  for (int i = 0; i < NC; ++i) {
+    s.z[i] = z1[i];
+    s.zg[i] = zg1[i];
+  }
+  s.logp = logp1;
+  lane_normals<DIM, T>(s.noise, seed, it, salt + 2u, salt + 3u, b, B, g);
   s.rem -= 1;
   s.steps += 1;
   s.ttime = s.ttime + f * step;
@@ -197,18 +319,18 @@ __device__ __forceinline__ int leapfrog_try(
 
 // The momentum and kinetic energy emitted by a give-up draw: fresh normals
 // at (salt, salt+1), on the unit sphere for the microcanonical kind.
-template <int DIM, bool MICRO>
+template <int DIM, int T, bool MICRO>
 __device__ __forceinline__ float give_up_momentum(uint32_t seed, uint32_t it,
                                                   uint32_t salt, int b, int B,
-                                                  float* vf) {
-#pragma unroll
-  for (int j = 0; j < DIM; ++j)
-    vf[j] = normal(seed, it, salt, salt + 1u, (uint32_t)(j * B + b));
-  const float s2 = dot<DIM>(vf, vf);
+                                                  float* vf,
+                                                  const Lane<T>& g) {
+  constexpr int NC = slots<DIM, T>();
+  lane_normals<DIM, T>(vf, seed, it, salt, salt + 1u, b, B, g);
+  const float s2 = ordered_dot<DIM, T>(vf, vf, g);
   if (MICRO) {
     const float nrm = sqrtf(s2);
 #pragma unroll
-    for (int j = 0; j < DIM; ++j) vf[j] = vf[j] / nrm;
+    for (int i = 0; i < NC; ++i) vf[i] = vf[i] / nrm;
     return 0.0f;
   }
   return 0.5f * s2;

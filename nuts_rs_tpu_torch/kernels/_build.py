@@ -6,7 +6,9 @@ a shared library of its own with a plain C interface, under
 ``nuts_rs_tpu_torch/_build/`` (named by a hash of the source, the headers
 and the flags, so an edited source rebuilds), and loaded with ``ctypes``: a
 caller builds only the kernels it launches, and :func:`build` starts one
-``nvcc`` per source for several at once.  The launchers
+``nvcc`` per source for several at once (:func:`start_build` in the
+background, :func:`library` then waiting for its own source alone).  The
+launchers
 check every tensor, allocate outputs with ``torch.empty`` and launch on
 PyTorch's current stream; a nonzero ``cudaGetLastError`` raises.
 
@@ -23,6 +25,7 @@ import math
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -111,12 +114,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # conflicts, with today's loops, its blocks an SM), NRT_ABLATE_EVAL
 # (csrc/nuts_fused_mid_posterior.cu and the group-form MCLMC kernels: no
 # model evaluation), NRT_ABLATE_FIXED_STEPS (csrc/mclmc_step_group.cuh: 6
-# leapfrogs a draw, no halvings).  Empty in every other use; set before the
-# first library loads.
+# leapfrogs a draw, no halvings), NRT_MCLMC_LANES=n, NRT_ABLATE_MCLMC_NORMALS,
+# NRT_ABLATE_MCLMC_DIVISIONS (csrc/mclmc_step.cuh: K3 / K4's lanes a chain,
+# their normals without the hashes and Box-Muller, their ESH and refresh
+# quotients by __fdividef; all change results but the lanes).  Empty in
+# every other use; set before the first library loads.
 NVCC_DEFINES = []
 
-BUILD_INFO = {"seconds": 0.0, "libraries": {}}
+BUILD_INFO = {"seconds": 0.0, "libraries": {}, "nvcc_seconds": {}}
 _LIBS = {}
+# sources whose nvcc start_build started: an event set when it has ended, and
+# nvcc's output where it failed
+_BUILDING, _BUILD_FAILED = {}, {}
+_BUILD_LOCK = threading.Lock()
 
 _P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                   ctypes.c_float)
@@ -126,6 +136,9 @@ _NUTS_WARM = _NUTS_POST + [_F] * 5 + [_I]
 _MCLMC_POST = [_I, _I, _I, _I, _I, _I, _U, _F, _F, _F, _F, _I, _F, _F, _I]
 _MCLMC_WARM = [_I, _I, _I, _I, _I, _I, _U, _F, _F, _F, _F, _F, _I, _F, _F,
                _I, _I]
+# K3 / K4 take the chain's lanes (mclmc_lanes) after dynamic_step_size
+_LANES_POST = _MCLMC_POST[:3] + [_I] + _MCLMC_POST[3:]
+_LANES_WARM = _MCLMC_WARM[:3] + [_I] + _MCLMC_WARM[3:]
 # One shared library per source: stem -> {exported function: (argtypes,
 # restype)}.
 SOURCES = {
@@ -134,9 +147,10 @@ SOURCES = {
     "nuts_fused_warmup": {
         "nrt_warmup_launch": (_NUTS_WARM + [_P] * 20, _I)},
     "mclmc_fused_posterior": {
-        "nrt_mclmc_posterior_launch": (_MCLMC_POST + [_P] * 18, _I)},
+        "nrt_mclmc_posterior_launch": (_LANES_POST + [_P] * 18, _I),
+        "nrt_mclmc_lanes": ([_I, _I], _I)},
     "mclmc_fused_warmup": {
-        "nrt_mclmc_warmup_launch": (_MCLMC_WARM + [_P] * 22, _I)},
+        "nrt_mclmc_warmup_launch": (_LANES_WARM + [_P] * 22, _I)},
     "nuts_fused_ld_posterior": {
         "nrt_ld_posterior_launch": (_NUTS_POST + [_P] * 17, _I),
         "nrt_ld_smem_bytes": ([_I, _I, _I], _LL),
@@ -228,14 +242,20 @@ def _library_path(stem: str) -> Path:
     return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(stems=None):
-    """Build the libraries of ``stems`` (default: every source) that are not
-    built yet, one ``nvcc`` per source, all started together."""
+def start_build(stems=None, nice=0, jobs=None):
+    """Queue one ``nvcc`` per source of ``stems`` (default: every source)
+    whose library is neither built nor building, in the order given, and
+    return at once; at most ``jobs`` of them run at a time (default: all).
+    ``library`` and ``build`` wait for a source's own ``nvcc`` alone.
+    ``nice`` lowers the ``nvcc``s' priority (``nice -n``), so that a
+    build in the background leaves the host's cores to the caller.  Each
+    ``nvcc``'s own seconds go to ``BUILD_INFO["nvcc_seconds"]``."""
     stems = list(SOURCES) if stems is None else list(dict.fromkeys(stems))
-    t0 = time.monotonic()
-    missing = [(stem, so) for stem in stems
-               if not (so := _library_path(stem)).exists()]
-    if missing:
+    with _BUILD_LOCK:
+        queue = [(stem, so) for stem in stems if stem not in _BUILDING
+                 and not (so := _library_path(stem)).exists()]
+        if not queue:
+            return
         # the generated header is in place, whole, before any nvcc starts
         BUILD_DIR.mkdir(exist_ok=True)
         header = BUILD_DIR / "nrt_sizes.h"
@@ -244,28 +264,61 @@ def build(stems=None):
             new = header.with_suffix(f".{os.getpid()}.tmp")
             new.write_text(text)
             new.replace(header)
-    procs = []
-    for stem, so in missing:
-        tmp = so.with_suffix(".tmp")
-        procs.append((stem, so, tmp, subprocess.Popen(
-            [_nvcc(), *_flags(), "-shared", "-I",
-             str(BUILD_DIR), "-o", str(tmp), str(CSRC / f"{stem}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    failed = None
-    for stem, so, tmp, p in procs:
-        out, _ = p.communicate()
-        (BUILD_DIR / f"build_{stem}.log").write_text(out)
-        if p.returncode != 0:
-            failed = failed or f"nvcc failed on {stem}.cu:\n{out}"
-        else:
-            tmp.replace(so)
+        for stem, _ in queue:
+            _BUILDING[stem] = threading.Event()
+    threading.Thread(target=_run_queue, args=(queue, nice, jobs or len(queue)),
+                     daemon=True).start()
+
+
+def _run_queue(queue, nice, jobs):
+    """Run the ``nvcc``s of ``start_build``, ``jobs`` at a time in the
+    queue's order: put each library in place or keep its output, then mark
+    the source done."""
+    running = []
+    while queue or running:
+        while queue and len(running) < jobs:
+            stem, so = queue.pop(0)
+            log = BUILD_DIR / f"build_{stem}.log"
+            cmd = [_nvcc(), *_flags(), "-shared", "-I", str(BUILD_DIR), "-o",
+                   str(so.with_suffix(".tmp")), str(CSRC / f"{stem}.cu")]
+            if nice:
+                cmd = ["nice", "-n", str(nice), *cmd]
+            with open(log, "w") as out:
+                running.append((stem, so, log, time.monotonic(),
+                                subprocess.Popen(cmd, stdout=out,
+                                                 stderr=subprocess.STDOUT)))
+        for entry in [e for e in running if e[-1].poll() is not None]:
+            running.remove(entry)
+            stem, so, log, start, p = entry
+            BUILD_INFO["nvcc_seconds"][stem] = time.monotonic() - start
+            if p.returncode != 0:
+                _BUILD_FAILED[stem] = (f"nvcc failed on {stem}.cu:\n"
+                                       f"{log.read_text()}")
+            else:
+                so.with_suffix(".tmp").replace(so)
+            _BUILDING[stem].set()
+        time.sleep(0.02)
+
+
+def build(stems=None):
+    """Build the libraries of ``stems`` (default: every source) that are not
+    built yet, one ``nvcc`` per source, all started together, and wait for
+    them; raises if one failed."""
+    stems = list(SOURCES) if stems is None else list(dict.fromkeys(stems))
+    t0 = time.monotonic()
+    start_build(stems)
+    for stem in stems:
+        if stem in _BUILDING:
+            _BUILDING[stem].wait()
+    failed = [_BUILD_FAILED[stem] for stem in stems if stem in _BUILD_FAILED]
     if failed:
-        raise RuntimeError(failed)
+        raise RuntimeError(failed[0])
     BUILD_INFO["seconds"] += time.monotonic() - t0
 
 
 def library(stem: str):
-    """The loaded library of ``csrc/<stem>.cu``, built on first use."""
+    """The loaded library of ``csrc/<stem>.cu``, built on first use (or
+    waited for, where ``start_build`` started it)."""
     lib = _LIBS.get(stem)
     if lib is not None:
         return lib
@@ -679,16 +732,42 @@ def _mclmc_consts(d, mopts):
     return consts, fconsts
 
 
+MAX_THREADS = 1024  # of a CUDA block
+
+
+def mclmc_lanes(d, B):
+    """Lanes of a chain in K3 / K4 at d coordinates in logical chain blocks
+    of B (csrc/mclmc_step.cuh::mclmc_lanes, the same rule, checked at every
+    launch): one coordinate a lane, 4 lanes at d <= 4, 8 at d <= 8, 16
+    above, halved while the block's B * T threads exceed 1024: at d = 10, 16
+    lanes for B <= 64 and 8 for B = 65..128.  A form chosen by the shapes,
+    not a fallback.  Under the ablation macro NRT_MCLMC_LANES=n every shape
+    takes n lanes."""
+    for define in NVCC_DEFINES:
+        if define.startswith("NRT_MCLMC_LANES="):
+            return int(define.split("=", 1)[1])
+    T = 4 if d <= 4 else (8 if d <= 8 else 16)
+    while T > 4 and B * T > MAX_THREADS:
+        T //= 2
+    return T
+
+
 def _mclmc_common(q, model, mopts, B):
     model_id, params = _model_and_block(q, model, B, coord=True)
     C, d = q.shape
     if d not in DIMS:
         raise ValueError(
-            f"the thread-per-chain MCLMC kernels are instantiated for d in "
-            f"{DIMS}, not {d}: the mid-d kernels serve every other size "
+            f"the chains-on-lanes MCLMC kernels K3 / K4 are instantiated "
+            f"for d in {DIMS}, not {d}: the mid-d kernels serve every other "
+            "size "
             "(nuts_fused.cl_kernel)")
     consts, fconsts = _mclmc_consts(d, mopts)
-    return C, d, model_id, params, consts, fconsts
+    T = mclmc_lanes(d, B)
+    built = library("mclmc_fused_posterior").nrt_mclmc_lanes(d, B)
+    if built != T:
+        raise RuntimeError(f"csrc/mclmc_step.cuh gives {built} lanes a chain "
+                           f"at d = {d}, B = {B}; _build.mclmc_lanes {T}")
+    return C, d, model_id, params, (*consts, T), fconsts
 
 
 def _mclmc_mid_common(kind, q, model, mopts, B):

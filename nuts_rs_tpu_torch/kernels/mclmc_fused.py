@@ -9,10 +9,11 @@ with the CUDA kernel ``csrc/mclmc_fused_posterior.cu``, and
 
 Two kernel pairs serve them, chosen as the fused NUTS kernels choose
 (``nuts_fused.cl_kernel``).  A model without data of at most
-``_build.CL_THREAD_MAX_DIM`` dimensions takes the thread-per-chain kernels
-above (instantiated for the d of ``_build.DIMS``): a chain in one thread's
-registers, every sum over the parameter axis in coordinate order
-(``ops.dsum``), chain blocks of 32.  Every larger size, and every model that
+``_build.CL_THREAD_MAX_DIM`` dimensions takes the chains-on-lanes kernels
+above (instantiated for the d of ``_build.DIMS``): a chain's coordinates on
+a group of lanes, one a lane (``_build.mclmc_lanes``), every sum over the
+parameter axis gathered and added in coordinate order (``ops.dsum``), chain
+blocks of 32.  Every larger size, and every model that
 carries data (the
 ``n_model_args > 0`` variants of the Pallas bodies,
 ``mclmc_pallas.py:61,82-85,124`` and ``:506,532-536,574``: K3-args and
@@ -377,9 +378,8 @@ def mclmc_fused_run(seed, q, g, logp, v, stds, mean, logdet, step0,
     arrays keyed by ``STAT_NAMES`` plus ``loop_iterations`` [C].  The first
     draw of each chain uses ``step0``; later draws use ``step_bar``
     jittered by ``jitter``.  The chains of a logical block of ``block``
-    chains (default 32 for the thread-per-chain kernel, 1 for the mid-d
-    kernel) share the iteration counter and run until the block's last
-    chain has its draws.
+    chains (default 32 for K3, 1 for the mid-d kernel) share the
+    iteration counter and run until the block's last chain has its draws.
 
     CPU tensors run the plain PyTorch version; CUDA tensors launch
     ``csrc/mclmc_fused_posterior.cu`` or, for the mid-d kernels (see

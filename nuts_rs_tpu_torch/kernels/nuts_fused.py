@@ -232,7 +232,8 @@ def _check_layout(layout):
 
 def cl_kernel(model, dim, maxdepth=None):
     """The kernel pair that serves ``layout="cl"`` for ``model`` at ``dim``:
-    ``"thread"`` (one thread per chain, at the instantiated sizes: ``dim`` in
+    ``"thread"`` (one thread per chain, K3 / K4 a group of lanes
+    (``_build.mclmc_lanes``), at the instantiated sizes: ``dim`` in
     ``_build.DIMS`` and, for NUTS, which passes its ``maxdepth``,
     ``(dim, maxdepth)`` in ``_build.SIZES``, for a functor with the
     one-thread form, ``_build.COORD_FUNCTORS``) or ``"mid"`` (256 threads a

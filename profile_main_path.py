@@ -161,6 +161,19 @@ After building the kernels it prints, for each path,
    the model, the backward pass and the rest of the block iteration), in
    us a block iteration of one chain alone on an SM (132 chains), of two
    chains an SM (264) and at 256 chains.
+17. ``--mclmc-launch TREE [TREE ...]``: on the MCLMC d = 10 path (N(3, 1),
+   1024 chains, 300 + 700 draws), K3's first 128-draw posterior launch on
+   the path's own tuned state, K4's Euclidean launch (draws 0-90) and its
+   first microcanonical chunk (draws 90-218) on the path's own warmup
+   states, saved once in this checkout; then each checkout in the order
+   given (parent, this, this, parent) on the saved launches, in ms a launch
+   and us a block iteration, and the path end to end by items 1 and 2 (one
+   warm-up run, three repeats, one profiled run); then, in this checkout,
+   the same launches in builds of ``MCLMC_D10_ABLATIONS``: a chain's lanes
+   fixed at 1, 4, 8 and 16 (NRT_MCLMC_LANES), and at the rule's lanes and
+   at one lane without the Box-Muller normals (NRT_ABLATE_MCLMC_NORMALS),
+   with approximate divisions in the ESH step and the refresh
+   (NRT_ABLATE_MCLMC_DIVISIONS) and with both.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -1889,6 +1902,142 @@ def flow_launch(trees, full):
         print(out.stdout.strip(), flush=True)
 
 
+# Item 17: the MCLMC d = 10 path's own launches (K3's first 128-draw
+# posterior launch from the tuned state, K4's Euclidean launch and its first
+# microcanonical chunk), saved for MCLMC_D10_TIME.
+MCLMC_D10_LAUNCH = """
+import sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import Sampler
+from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+dev = torch.device("cuda", 0)
+seen = {}
+run0, warm0 = mf.mclmc_fused_run, mf.mclmc_fused_warmup_run
+def keep(a):
+    return tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+def run(*a, **k):
+    seen.setdefault("post", (keep(a), k))
+    return run0(*a, **k)
+def warm(*a, **k):
+    if "euclid" not in seen:
+        seen["euclid"] = (keep(a), k)
+    elif "micro" not in seen and a[1].shape[0] == cs.CHUNK:
+        seen["micro"] = (keep(a), k)
+    return warm0(*a, **k)
+mf.mclmc_fused_run, mf.mclmc_fused_warmup_run = run, warm
+sampler = Sampler(normal_logp(cs.DIM, cs.MU), cs.mclmc_settings(), device=dev)
+while "post" not in seen:
+    sampler.run_next_chunk()
+mf.mclmc_fused_run, mf.mclmc_fused_warmup_run = run0, warm0
+at = {"post": 11, "euclid": 10, "micro": 10}  # the model, made again
+torch.save({key: (a[:at[key]] + (None,) + a[at[key] + 1:], k)
+            for key, (a, k) in seen.items()}, sys.argv[1])
+for key, (a, k) in seen.items():
+    rows, chains = (a[10], a[1]) if key == "post" else (a[1].shape[0], a[2])
+    print(f"saved {key}: {rows} draws of {chains.shape[0]} chains")
+"""
+
+# Item 17's timing on the saved launches in the tree given (5 calls after a
+# first), then the path end to end (items 1 and 2) unless "--launches".
+MCLMC_D10_TIME = """
+import sys, torch
+import chip_smoke as cs
+import profile_main_path as pm
+from nuts_rs_tpu_torch.kernels import _build, mclmc_fused as mf
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+label = ""
+if sys.argv[2] != "-":
+    _build.NVCC_DEFINES[:] = sys.argv[2].split(",")
+    label = "[" + " ".join(m.removeprefix("NRT_")
+                           for m in _build.NVCC_DEFINES) + "] "
+dev = torch.device("cuda", 0)
+model = normal_logp(cs.DIM, cs.MU).to(dev)
+saved = torch.load(sys.argv[1], weights_only=False)
+for key in ("post", "micro", "euclid"):
+    a, k = saved[key]
+    at = 11 if key == "post" else 10
+    a = a[:at] + (model,) + a[at + 1:]
+    if key == "post":
+        fn, at = (lambda: mf.mclmc_fused_run(*a, **k)), 5
+    else:
+        fn, at = (lambda: mf.mclmc_fused_warmup_run(*a, **k)), 9
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(fn, 5)
+    st = out[at]
+    it = int(st["loop_iterations"].max())
+    lanes = (f", {_build.mclmc_lanes(cs.DIM, 32)} lanes a chain"
+             if hasattr(_build, "mclmc_lanes") else ", one thread a chain")
+    print(f"{label}{'K3' if key == 'post' else 'K4'} {key}: {ms:.4f} ms; "
+          f"leapfrogs {int(st['n_steps'].sum())}, block iterations max "
+          f"{it}: {1e3 * ms / it:.3f} us a block iteration{lanes}",
+          flush=True)
+if "--path" in sys.argv:
+    settings = cs.mclmc_settings()
+    pm.run_main_path(model, settings, dev)
+    for rep in range(3):
+        pm.print_run(f"run {rep}", pm.run_main_path(model, settings, dev),
+                     settings.num_tune)
+    pm.profile_once(model, settings, dev)
+"""
+
+# Item 17's builds: a chain's lanes fixed, and the normals and divisions
+# left out (timing only; these change results)
+MCLMC_D10_ABLATIONS = (
+    ("NRT_MCLMC_LANES=1",), ("NRT_MCLMC_LANES=4",), ("NRT_MCLMC_LANES=8",),
+    ("NRT_MCLMC_LANES=16",), ("NRT_ABLATE_MCLMC_NORMALS",),
+    ("NRT_ABLATE_MCLMC_DIVISIONS",),
+    ("NRT_ABLATE_MCLMC_NORMALS", "NRT_ABLATE_MCLMC_DIVISIONS"),
+    ("NRT_MCLMC_LANES=1", "NRT_ABLATE_MCLMC_NORMALS"),
+    ("NRT_MCLMC_LANES=1", "NRT_ABLATE_MCLMC_DIVISIONS"))
+
+
+def mclmc_launch(trees):
+    """Item 17: the MCLMC d = 10 path's launches saved in this tree; every
+    tree in the order given (e.g. parent, this one, this one, parent) timed
+    on them with its path end to end; then this tree's ablation builds,
+    compiled together, each timed on the same launches."""
+    from pathlib import Path
+
+    from nuts_rs_tpu_torch.kernels import _build
+
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    here = Path(__file__).resolve().parent
+    saved = str(_build.BUILD_DIR / "mclmc_d10_launches.pt")
+    out = subprocess.run([sys.executable, "-c", MCLMC_D10_LAUNCH, saved],
+                         cwd=here, capture_output=True, text=True)
+    if out.returncode:
+        raise RuntimeError(out.stderr[-3000:])
+    print(out.stdout.strip(), flush=True)
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", MCLMC_D10_TIME, saved,
+                              "-", "--path"], cwd=tree, capture_output=True,
+                             text=True)
+        if out.returncode:
+            raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+        for line in out.stdout.strip().splitlines():
+            print(f"{tree}: {line}", flush=True)
+    build = ("import sys\nfrom nuts_rs_tpu_torch.kernels import _build\n"
+             "_build.NVCC_DEFINES[:] = sys.argv[1].split(',')\n"
+             "_build.build(['mclmc_fused_posterior', 'mclmc_fused_warmup'])")
+    procs = [subprocess.Popen([sys.executable, "-c", build, ",".join(d)],
+                              cwd=here, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for d in MCLMC_D10_ABLATIONS]
+    for defines, p in zip(MCLMC_D10_ABLATIONS, procs):
+        text = p.communicate()[0].strip()
+        if p.returncode:
+            raise RuntimeError(f"ablation build {defines}: {text[-3000:]}")
+    for defines in MCLMC_D10_ABLATIONS:
+        out = subprocess.run([sys.executable, "-c", MCLMC_D10_TIME, saved,
+                              ",".join(defines)], cwd=here,
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"ablation {defines}: {out.stderr[-3000:]}")
+        print(out.stdout.strip(), flush=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--repeats", type=int, default=3)
@@ -1925,6 +2074,9 @@ def main() -> int:
                              "then its ablation in this one")
     parser.add_argument("--flow-launch", nargs="+", metavar="TREE",
                         help="item 16 alone, for each checkout in turn, "
+                             "then its ablation in this one")
+    parser.add_argument("--mclmc-launch", nargs="+", metavar="TREE",
+                        help="item 17 alone, for each checkout in turn, "
                              "then its ablation in this one")
     parser.add_argument("--flow-full", action="store_true",
                         help="item 16 on the full configuration's states "
@@ -1966,6 +2118,10 @@ def main() -> int:
         return 0
     if args.flow_launch:
         flow_launch(args.flow_launch, args.flow_full)
+        print(card_line())
+        return 0
+    if args.mclmc_launch:
+        mclmc_launch(args.mclmc_launch)
         print(card_line())
         return 0
     if args.only_stream:

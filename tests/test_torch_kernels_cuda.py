@@ -479,6 +479,134 @@ def test_mclmc_kernels_match_plain_versions_on_the_card(micro, max_err,
         _close(got[i].cpu(), want[i].cpu(), str(i), 1e-5, 1e-6)
 
 
+# K3 / K4 with a chain's coordinates on a group of lanes (_build.mclmc_lanes):
+# every d of _build.DIMS under both kinetic energies with and without the
+# halving stack, logical blocks of 1, 32 and 128 chains (16 lanes a chain
+# at d = 10 and B <= 64, 8 above: the rule's every choice, and its edge at
+# B = 64 / 65).  With halvings (max_energy_error small) some draws halve
+# their step; without, some draws give up and some do not; the 0.0005 case
+# does both.  (dim, micro, dynamic, C, B, max_err, expect)
+MCLMC_LANE_CASES = [
+    (d, micro, dynamic, 128 if B == 128 else 64, B,
+     (0.05 if micro else 0.02) if dynamic else (2.0 if micro else 1.0),
+     ("halve",) if dynamic else ("give_up",))
+    for i, (d, micro, dynamic) in enumerate(
+        (d, m, y) for d in (3, 4, 6, 10) for m in (True, False)
+        for y in (True, False))
+    for B in [(1, 32, 128)[i % 3]]] + [
+    (10, True, True, 32, 32, 0.0005, ("halve", "give_up")),
+    (10, False, True, 130, 65, 0.02, ("halve",)),
+    (10, True, False, 128, 64, 2.0, ("give_up",))]
+
+
+def mclmc_lane_inputs(dim, micro, dynamic, C, max_err, dev):
+    """(model, options, K3's nine inputs, K4's flags and inputs) of a
+    ``MCLMC_LANE_CASES`` case: a state near N(0.5, 1) with unit-sphere
+    velocities, steps of 1.2 for K3, six warmup rows with two momentum
+    resamples, a window switch and mass-matrix updates for K4."""
+    from nuts_rs_tpu_torch.adapt.step_size import StepSizeMethod
+    from nuts_rs_tpu_torch.dynamics.hamiltonian import KineticKind
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels.mclmc import MclmcOptions
+
+    kind = KineticKind.MICROCANONICAL if micro else KineticKind.EUCLIDEAN
+    mopts = MclmcOptions(kind=kind, max_energy_error=max_err,
+                         dynamic_step_size=dynamic)
+    model, q, g, logp, v, stds, mean = _mclmc_state(dev, C, dim, 1)
+    logdet = -torch.log(stds).sum(1)
+    step = torch.full((C,), 1.2, device=dev)
+    post = (q, g, logp, v, stds, mean, logdet, step, step.clone())
+    flags = torch.zeros(6, mf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, mf.FLAG_UPDATE_EST] = 1
+    flags[0, mf.FLAG_RESAMPLE] = flags[4, mf.FLAG_RESAMPLE] = 1
+    flags[2:, mf.FLAG_DO_UPDATE] = 1
+    flags[3, mf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, dim, device=dev)
+    sca = torch.zeros(C, mf.NSCA, device=dev)
+    sca[:, mf.SCA_LOGDET] = logdet
+    sset = StepSizeSettings(method=StepSizeMethod.FIXED, fixed_value=0.9)
+    warm = (flags, q, g, logp, v, stds, mean, est, sca, model, mopts, sset,
+            True)
+    return model, mopts, post, warm
+
+
+def require_mclmc_expect(stats, expect, what):
+    """Raise unless the draws show ``expect``: "halve", some draw that did
+    not give up integrated at a smaller average step than its own (a halving
+    changes it by 1 / (n_steps + 1) at least, rounding by an ulp);
+    "give_up", some draws gave up and some did not."""
+    div = stats["diverging"].cpu().numpy() != 0
+    avg = stats["average_step_size"].cpu().numpy()
+    step = stats["step_size"].cpu().numpy()
+    if "halve" in expect:
+        assert ((avg < 0.999 * step) & ~div).any(), f"{what}: no draw halved"
+    if "give_up" in expect:
+        assert div.any() and not div.all(), \
+            f"{what}: {div.mean():.0%} of draws gave up"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,micro,dynamic,C,B,max_err,expect",
+                         MCLMC_LANE_CASES)
+def test_mclmc_lane_kernels_match_plain_versions_bit_for_bit(
+        dim, micro, dynamic, C, B, max_err, expect):
+    """K3 and K4 (a chain's coordinates on the lanes _build.mclmc_lanes
+    gives) against their plain versions: every integer stat equal and
+    every float bit for bit, after the plain versions' draws showed the
+    case's halvings or give-ups."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+
+    dev = torch.device("cuda", 0)
+    model, mopts, post, warm = mclmc_lane_inputs(dim, micro, dynamic, C,
+                                                 max_err, dev)
+    T = _build.mclmc_lanes(dim, B)
+    assert B * T <= 1024 and (T >= dim or (B > 64 and T == 8))
+    what = f"d={dim} micro={micro} dynamic={dynamic} B={B} T={T}"
+    want = mf.mclmc_fused_run_reference(3, *post, 8, model, mopts, 0.1, B)
+    require_mclmc_expect(want[5], expect, f"K3 {what}")
+    before = dict(mf.LAUNCHES)
+    got = mf.mclmc_fused_run(3, *post, 8, model, mopts, 0.1, B)
+    for name in MCLMC_INT_STATS:
+        np.testing.assert_array_equal(got[5][name].cpu().numpy(),
+                                      want[5][name].cpu().numpy(),
+                                      err_msg=f"K3 {what} {name}")
+    for i in range(5):
+        _same_bits(got[i], want[i], f"K3 {what} output {i}")
+    for name in mf.STAT_NAMES:
+        _same_bits(got[5][name], want[5][name], f"K3 {what} {name}")
+
+    want = mf.mclmc_fused_warmup_run_reference(5, *warm, B)
+    require_mclmc_expect(want[9], expect, f"K4 {what}")
+    got = mf.mclmc_fused_warmup_run(5, *warm, B)
+    for name in MCLMC_INT_STATS + ("transformation_index",):
+        np.testing.assert_array_equal(got[9][name].cpu().numpy(),
+                                      want[9][name].cpu().numpy(),
+                                      err_msg=f"K4 {what} {name}")
+    for i in range(9):
+        _same_bits(got[i], want[i], f"K4 {what} output {i}")
+    for name in mf.WARMUP_STAT_NAMES:
+        _same_bits(got[9][name], want[9][name], f"K4 {what} {name}")
+    for key in ("mclmc_fused_posterior", "mclmc_fused_warmup"):
+        assert mf.LAUNCHES[key] == before[key] + 1, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 4, 6, 10])
+def test_mclmc_lane_rule_is_the_same_in_c(dim):
+    """csrc/mclmc_step.cuh::mclmc_lanes gives the lanes _build.mclmc_lanes
+    gives at every block of 1 .. 128 chains."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.kernels import _build
+
+    lib = _build.library("mclmc_fused_posterior")
+    for B in range(1, _build.MAX_BLOCK + 1):
+        assert lib.nrt_mclmc_lanes(dim, B) == _build.mclmc_lanes(dim, B), B
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,rows,block,micro,max_err,dynamic", [
     (37, 300, 8, True, 1000.0, True),
@@ -1106,55 +1234,97 @@ def _perturbed_packed_flow(d, layers, hidden, scale, seed, dev):
     return spec.kernel_pack(tree_map(lambda v: v.to(dev), params))
 
 
+# Inputs under which K1-flow's trees grow (no draw diverges at its first
+# leapfrog, as every draw does under the recipe above at d >= 17): a flow
+# moved N(0, 0.05^2) off the identity and steps U(0.05, 0.1).  The plain
+# version on the CPU holds each case to depth > 0 somewhere and not every
+# draw divergent (tests/test_torch_card_inputs.py), and so does the card
+# test before it compares.
+FLOW_GROW_SCALE, FLOW_GROW_STEP = 0.05, (0.05, 0.1)
+FLOW_GROW_CASES = [  # (dim, layers, hidden, C, K, block, form)
+    (33, 4, 33, 8, 2, 1, "today"), (160, 4, 32, 8, 2, 1, "today"),
+    (32, 4, 32, 8, 2, 1, "warp"), (17, 2, 32, 8, 4, 2, "warp")]
+
+
+def flow_case_inputs(dim, layers, hidden, C, grow, dev):
+    """(funnel model, packed flow, K1-flow's eight posterior inputs) of a
+    card case: a flow off the identity, z = 0.8 N(0, 1), unit mass matrix;
+    with ``grow`` the inputs of ``FLOW_GROW_CASES``."""
+    model = tg.funnel(dim).to(dev)
+    scale, steps = (FLOW_GROW_SCALE, FLOW_GROW_STEP) if grow else \
+        (0.2, (0.2, 0.4))
+    packed = _perturbed_packed_flow(dim, layers, hidden, scale, 7, dev)
+    rng = np.random.default_rng(1)
+    z = torch.tensor(0.8 * rng.normal(size=(C, dim)), dtype=torch.float32,
+                     device=dev)
+    ones, zeros = torch.ones_like(z), torch.zeros_like(z)
+    zc = torch.zeros(C, device=dev)
+    step = torch.tensor(rng.uniform(*steps, size=C), dtype=torch.float32,
+                        device=dev)
+    return model, packed, (z, zeros, zc, ones, zeros, zc, step, step.clone())
+
+
+def require_growing_trees(stats, what):
+    """Raise unless some tree grew past depth 0 and not every draw
+    diverged: a comparison of draws that all diverge at their first
+    leapfrog checks no tree."""
+    depth = stats["depth"].cpu().numpy()
+    div = stats["diverging"].cpu().numpy()
+    assert depth.max() > 0, f"{what}: every tree stopped at depth 0"
+    assert not div.all(), f"{what}: every draw diverged"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim,layers,hidden,C,K,block,jitter,form", [
-    (10, 4, 32, 64, 8, 1, 0.1, "warp"), (10, 4, 32, 64, 8, 4, None, "warp"),
-    (160, 4, 32, 8, 4, 1, 0.1, "today"),
+@pytest.mark.parametrize("dim,layers,hidden,C,K,block,jitter,form,grow", [
+    (10, 4, 32, 64, 8, 1, 0.1, "warp", False),
+    (10, 4, 32, 64, 8, 4, None, "warp", False),
+    (160, 4, 32, 8, 4, 1, 0.1, "today", False),
     # the warp form's edges: d = H = 32, sums over d of 32 at d = 17, one
     # layer, d and H below a chunk of 4, clusters of 8, two chain blocks an
     # SM (264 chains); today's form just past them (parameters in shared
     # memory)
-    (32, 4, 32, 32, 8, 1, 0.1, "warp"), (17, 2, 32, 32, 8, 2, 0.1, "warp"),
-    (10, 1, 32, 32, 8, 1, None, "warp"), (7, 3, 5, 32, 8, 1, 0.1, "warp"),
-    (10, 4, 32, 64, 8, 8, 0.1, "warp"), (10, 4, 32, 264, 2, 1, 0.1, "warp"),
-    (33, 4, 33, 16, 4, 1, 0.1, "today"), (33, 2, 32, 16, 4, 1, 0.1, "today"),
-    (10, 2, 33, 16, 4, 1, 0.1, "today")])
+    (32, 4, 32, 32, 8, 1, 0.1, "warp", False),
+    (17, 2, 32, 32, 8, 2, 0.1, "warp", False),
+    (10, 1, 32, 32, 8, 1, None, "warp", False),
+    (7, 3, 5, 32, 8, 1, 0.1, "warp", False),
+    (10, 4, 32, 64, 8, 8, 0.1, "warp", False),
+    (10, 4, 32, 264, 2, 1, 0.1, "warp", False),
+    (33, 4, 33, 16, 4, 1, 0.1, "today", False),
+    (33, 2, 32, 16, 4, 1, 0.1, "today", False),
+    (10, 2, 33, 16, 4, 1, 0.1, "today", False),
+    # trees that grow, in both forms and at the warp form's edges
+    *((d, L, H, C, K, B, 0.1, form, True)
+      for d, L, H, C, K, B, form in FLOW_GROW_CASES)])
 def test_flow_kernel_matches_plain_version_on_the_card(dim, layers, hidden,
                                                         C, K, block, jitter,
-                                                        form):
+                                                        form, grow):
     """K1-flow against its plain version on the funnel: in the warp form
     (d <= 32 and H <= 32, two chain blocks an SM) and in today's, with its
     parameters in shared memory (d = 33 or H = 33) and read through L2
     (d = 160, 255 KB of them), blocks of 1, 2, 4 and 8; max abs err 0 and
-    every integer stat equal."""
+    every integer stat equal.  With ``grow`` the trees grow (up to depth
+    8), which the plain version's stats must show before the comparison."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU build")
     from nuts_rs_tpu_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
-    model = tg.funnel(dim).to(dev)
-    packed = _perturbed_packed_flow(dim, layers, hidden, 0.2, 7, dev)
+    model, packed, args = flow_case_inputs(dim, layers, hidden, C, grow, dev)
     assert _build.flow_form(dim, 10, model, layers, hidden) == form
     in_smem = _build.flow_smem_bytes(dim, 10, model, layers, hidden, True) \
         <= _build.SMEM_OPT_IN_BYTES
     assert in_smem == (dim != 160)
     per_sm = _build.flow_blocks_per_sm(model, 10, layers, hidden)
     assert per_sm == (form, 2 if form == "warp" else 1)
-    rng = np.random.default_rng(1)
-    z = torch.tensor(0.8 * rng.normal(size=(C, dim)), dtype=torch.float32,
-                     device=dev)
-    ones, zeros = torch.ones_like(z), torch.zeros_like(z)
-    zc = torch.zeros(C, device=dev)
-    step = torch.tensor(rng.uniform(0.2, 0.4, size=C), dtype=torch.float32,
-                        device=dev)
-    args = (z, zeros, zc, ones, zeros, zc, step, step.clone())
     opts = NutsOptions(maxdepth=10, max_energy_error=20.0)
+    want = nf.nuts_fused_run_reference(11, *args, K, model, opts, jitter,
+                                       block=block, flow=packed)
+    if grow:
+        require_growing_trees(want[4], f"d={dim} L={layers} H={hidden}")
     before = nf.LAUNCHES["nuts_fused_flow_posterior"]
     got = nf.nuts_fused_run(11, *args, K, model, opts, jitter, block=block,
                             flow=packed)
     assert nf.LAUNCHES["nuts_fused_flow_posterior"] == before + 1
-    want = nf.nuts_fused_run_reference(11, *args, K, model, opts, jitter,
-                                       block=block, flow=packed)
     for name in INT_STATS:
         np.testing.assert_array_equal(got[4][name].cpu().numpy(),
                                       want[4][name].cpu().numpy(),
