@@ -381,13 +381,16 @@ def timed_pair(kernel, plain, repeats=3):
     return out_k, box[0], ms, plain_ms
 
 
-def chunk_time(kind, model, fn, inputs, stats_at):
+def chunk_time(kind, model, fn, inputs, stats_at, grow=None):
     """A kernel alone at its path's 128-draw launch: (ms over 3 calls after
     a first one, or over one where the first took LONG_LAUNCH_MS or more,
-    bound_ms, bound_by)."""
+    bound_ms, bound_by).  With ``grow`` (the launch's name) the first
+    call's trees must grow (``require_growing_trees``)."""
     box = []
     first_ms = cuda_events_ms(lambda: box.append(fn()), 1)
     out = box[0]
+    if grow:
+        require_growing_trees(out[stats_at], grow)
     ms = cuda_events_ms(fn, 1 if first_ms >= LONG_LAUNCH_MS else 3)
     b_ms, b_by = bound(kind, model, inputs, out, out[stats_at])
     return ms, b_ms, b_by
@@ -431,6 +434,30 @@ def posterior_inputs(model, device, seed=1, chains=CHAINS, step=(0.8, 1.0)):
     return q, g, logp, stds, mean, logdet, step, step.clone()
 
 
+def nuts_lanes(name, model, block):
+    """`` T=n``, the lanes of a chain in K1 / K2 (``_build.nuts_lanes``) at
+    the check's block, for the checks of those two."""
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    if name not in GROWING_CHECKS:
+        return ""
+    return f" T={_build.nuts_lanes(model.dim, block or nf.DEFAULT_BLOCK)}"
+
+
+def tree_summary(stats):
+    """The deepest tree and the divergent share of a launch's draws, for a
+    check's line."""
+    return (f"depth up to {int(stats['depth'].max())}, "
+            f"{float(stats['diverging'].float().mean()):.1%} of draws "
+            "divergent")
+
+
+# the checks of the chains-on-lanes NUTS kernels, whose plain versions' trees
+# must grow before the comparison (require_growing_trees)
+GROWING_CHECKS = ("K1", "K2")
+
+
 def compare(name, out_k, out_p, state_names, stat_names, int_stats):
     """Raise unless kernel and plain version agree: integer stats on every
     (chain, draw), floats within RTOL / ATOL.  The last two entries of each
@@ -468,15 +495,18 @@ def check_posterior(model, opts, device, layout="cl", chains=CHAINS,
                                   layout, stream),
         lambda: nf.nuts_fused_run_reference(7, *args, draws, model, opts, 0.1,
                                             block, layout, stream))
+    if name in GROWING_CHECKS:
+        require_growing_trees(out_p[4], f"{name} check")
     n, err = compare(name, out_k, out_p, ("q_f", "g_f", "logp_f"),
                      nf.STAT_NAMES, INT_STATS)
     blocks = len(set(out_k[4]["loop_iterations"].cpu().tolist()))
     chains = args[0].shape[0]
-    print(f"{name} check: C={chains} d={model.dim} K={draws}: "
-          f"integer stats equal on all {n} (chain, draw) entries, max abs "
+    print(f"{name} check: C={chains} d={model.dim} K={draws}"
+          f"{nuts_lanes(name, model, block)}: integer stats equal on all "
+          f"{n} (chain, draw) entries, max abs "
           f"err {err:.3g} (draws, final state, all stats); {blocks} distinct "
-          f"block iteration counts; kernel {ms:.4f} ms, plain {plain_ms:.2f} "
-          "ms")
+          f"block iteration counts; {tree_summary(out_p[4])}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms")
     return check_row("nuts", model, args, out_k, err, ms, plain_ms)
 
 
@@ -539,17 +569,20 @@ def check_warmup(model, settings, device, layout="cl", chains=CHAINS,
         lambda: nf.nuts_fused_warmup_run(*args, block, layout),
         lambda: nf.nuts_fused_warmup_run_reference(*args, block, layout),
         repeats)
+    if name in GROWING_CHECKS:
+        require_growing_trees(out_p[8], f"{name} check")
     n, err = compare(name, out_k, out_p,
                      ("q", "g", "logp", "stds", "mean", "est", "sca"),
                      nf.WARMUP_STAT_NAMES, INT_STATS)
     chains = args[2].shape[0]
-    print(f"{name} check: C={chains} d={model.dim} K={draws} "
-          f"(schedule rows {lo}..{hi - 1}, a window switch among them, from "
+    print(f"{name} check: C={chains} d={model.dim} K={draws}"
+          f"{nuts_lanes(name, model, block)} (schedule rows {lo}..{hi - 1}, "
+          "a window switch among them, from "
           f"{'a post-warmup-like' if state else 'the initial'} state): "
           f"integer stats equal on all {n} (chain, draw) entries, "
           f"max abs err {err:.3g} (draws, final state, est, sca, all "
-          f"stats); kernel {ms:.4f} ms ({repeats} calls), plain "
-          f"{plain_ms:.2f} ms")
+          f"stats); {tree_summary(out_p[8])}; kernel {ms:.4f} ms ({repeats} "
+          f"calls), plain {plain_ms:.2f} ms")
     return check_row("nuts", model, args[1:9], out_k, err, ms, plain_ms)
 
 
@@ -647,17 +680,21 @@ def time_kernels(model, settings, device, layout="cl", chains=CHAINS,
         k1 = posterior_inputs(model, device, seed=2, chains=chains, step=step)
     kind = nf._kernel_kind(model, model.dim, layout, opts.maxdepth)
     suffix = "" if kind == "thread" else "_" + kind
+    # K1 and K2's timed launches must grow trees
+    grow = kind == "thread"
     times = {
         f"nuts_fused{suffix}_posterior": chunk_time(
             "nuts", model,
             lambda: nf.nuts_fused_run(3, *k1, CHUNK, model, opts, 0.1,
-                                      layout=layout), k1, 4)}
+                                      layout=layout), k1, 4,
+            grow and "K1 timed launch")}
     if warmup:
         k2 = warmup_setup(model, settings, device, 2, 2 + CHUNK, chains,
                           k2_state)
         times[f"nuts_fused{suffix}_warmup"] = chunk_time(
             "nuts", model,
-            lambda: nf.nuts_fused_warmup_run(*k2, layout=layout), k2[1:9], 8)
+            lambda: nf.nuts_fused_warmup_run(*k2, layout=layout), k2[1:9], 8,
+            grow and "K2 timed launch")
     for name, (ms, b_ms, b_by) in times.items():
         print(f"time {name}: {ms:.4f} ms per {CHUNK}-draw launch at "
               f"C={chains} d={model.dim}; bound {b_ms:.5f} ms ({b_by})")
@@ -2213,7 +2250,7 @@ def main(argv=None) -> int:
     for stem in stems:
         took = f"nvcc {nvcc_s[stem]:.1f} s; " if stem in nvcc_s else ""
         print(f"  {took}"
-              + ptxas_summary(stem, _build.BUILD_DIR / f"build_{stem}.log"))
+              + ptxas_summary(stem, _build.build_log(stem)))
 
     kernels = []
     for name, source, replaces in KERNELS:

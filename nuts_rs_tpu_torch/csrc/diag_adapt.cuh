@@ -5,13 +5,15 @@
 // rule that the Pallas warmup bodies inline
 // (nuts_rs_tpu/kernels/nuts_pallas.py:1399-1450, mclmc_pallas.py:785-842),
 // with the plain version's order of operations.  The *_coord functions handle
-// one coordinate; the chains-on-lanes kernels (one thread per chain) loop
-// them over d in adapt_draw, the dim-on-lanes warmup kernel
-// (nuts_fused_ld_warmup.cu) calls them on each thread's own coordinates and
-// sums logdet through its block reduction.
+// one coordinate; the chains-on-lanes kernels K2 and K4 (a chain's
+// coordinates on a group of lanes) call them on each lane's slots in
+// adapt_draw_lanes, the dim-on-lanes and mid-d warmup kernels on each
+// thread's own coordinates, with logdet summed by their block reductions.
 #pragma once
 
 #include <math.h>
+
+#include "lanes.cuh"
 
 namespace nrt {
 
@@ -44,55 +46,53 @@ __device__ __forceinline__ void diag_rule_coord(float dm, float dv, float gm,
   mean = new_mean;
 }
 
-// add_sample on one plane pair of one chain, gated on `inc`.
-template <int DIM>
-__device__ __forceinline__ void add2(float* mean_p, float* var_p,
-                                     float cnt_old, bool inc,
-                                     const float* value) {
-  if (!inc) return;
-  const float cnt = cnt_old + 1.0f;
+// One draw of one chain whose coordinates lie on a group of T lanes
+// (lanes.cuh), each lane with its slots of est, stds and mean: feed (q, g)
+// to fg and bg where `inc`, switch windows, apply the diagonal rule
+// (adapt_diag + set_diag); the new logdet = -sum log stds by the ordered
+// gather.  Updates est, the counts, stds, mean and tid in place; T = 1 is
+// one thread a chain.
+template <int DIM, int T>
+__device__ __forceinline__ float adapt_draw_lanes(
+    float (*est)[slots<DIM, T>()], float& cnt_fg, float& cnt_bg, float& tid,
+    float* stds, float* mean, const float* q, const float* g, bool inc,
+    bool do_switch, bool do_update, bool use_grad_based, const Lane<T>& ln) {
+  constexpr int NC = slots<DIM, T>();
+  if (inc) {
+    const float fg = cnt_fg + 1.0f, bg = cnt_bg + 1.0f;
 #pragma unroll
-  for (int j = 0; j < DIM; ++j) add2_coord(mean_p[j], var_p[j], cnt, value[j]);
-}
-
-// One draw: feed (q, g) to fg and bg where `inc`, switch windows, apply the
-// diagonal rule (adapt_diag + set_diag).  Updates est, the counts, stds,
-// mean and tid in place; returns the new logdet = -sum log stds.
-template <int DIM>
-__device__ __forceinline__ float adapt_draw(
-    float (*est)[DIM], float& cnt_fg, float& cnt_bg, float& tid, float* stds,
-    float* mean, const float* q, const float* g, bool inc, bool do_switch,
-    bool do_update, bool use_grad_based) {
-  add2<DIM>(est[0], est[1], cnt_fg, inc, q);
-  add2<DIM>(est[2], est[3], cnt_fg, inc, g);
-  add2<DIM>(est[4], est[5], cnt_bg, inc, q);
-  add2<DIM>(est[6], est[7], cnt_bg, inc, g);
+    for (int i = 0; i < NC; ++i) {
+      add2_coord(est[0][i], est[1][i], fg, q[i]);
+      add2_coord(est[2][i], est[3][i], fg, g[i]);
+      add2_coord(est[4][i], est[5][i], bg, q[i]);
+      add2_coord(est[6][i], est[7][i], bg, g[i]);
+    }
+  }
   cnt_fg = cnt_fg + (inc ? 1.0f : 0.0f);
   cnt_bg = cnt_bg + (inc ? 1.0f : 0.0f);
   if (do_switch) {
 #pragma unroll
     for (int p = 0; p < 4; ++p)
 #pragma unroll
-      for (int j = 0; j < DIM; ++j) {
-        est[p][j] = est[p + 4][j];
-        est[p + 4][j] = 0.0f;
+      for (int i = 0; i < NC; ++i) {
+        est[p][i] = est[p + 4][i];
+        est[p + 4][i] = 0.0f;
       }
     cnt_fg = cnt_bg;
     cnt_bg = 0.0f;
   }
 
   const bool enough = do_update && cnt_fg >= 3.0f;
-  float logdet = 0.0f;
+  float l[NC];
 #pragma unroll
-  for (int j = 0; j < DIM; ++j) {
+  for (int i = 0; i < NC; ++i) {
     if (enough)
-      diag_rule_coord(est[0][j], est[1][j], est[2][j], est[3][j], cnt_fg,
-                      use_grad_based, stds[j], mean[j]);
-    const float l = logf(stds[j]);
-    logdet = (j == 0) ? l : logdet + l;
+      diag_rule_coord(est[0][i], est[1][i], est[2][i], est[3][i], cnt_fg,
+                      use_grad_based, stds[i], mean[i]);
+    l[i] = logf(stds[i]);
   }
   tid = tid + (enough ? 1.0f : 0.0f);
-  return -logdet;
+  return -ordered_sum<DIM, T>(l, ln);
 }
 
 }  // namespace nrt

@@ -59,53 +59,6 @@ struct McWarmArgs {
   int* iters;
 };
 
-// adapt_draw (diag_adapt.cuh) on a lane's slots of one chain: feed (q, g)
-// to fg and bg where `inc`, switch windows, apply the diagonal rule; the
-// new logdet = -sum log stds by the ordered gather.  Updates est, the
-// counts, stds, mean and tid in place.
-template <int DIM, int T>
-__device__ __forceinline__ float adapt_draw_lanes(
-    float (*est)[slots<DIM, T>()], float& cnt_fg, float& cnt_bg, float& tid,
-    float* stds, float* mean, const float* q, const float* g, bool inc,
-    bool do_switch, bool do_update, bool use_grad_based, const Lane<T>& ln) {
-  constexpr int NC = slots<DIM, T>();
-  if (inc) {
-    const float fg = cnt_fg + 1.0f, bg = cnt_bg + 1.0f;
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      add2_coord(est[0][i], est[1][i], fg, q[i]);
-      add2_coord(est[2][i], est[3][i], fg, g[i]);
-      add2_coord(est[4][i], est[5][i], bg, q[i]);
-      add2_coord(est[6][i], est[7][i], bg, g[i]);
-    }
-  }
-  cnt_fg = cnt_fg + (inc ? 1.0f : 0.0f);
-  cnt_bg = cnt_bg + (inc ? 1.0f : 0.0f);
-  if (do_switch) {
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-#pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        est[p][i] = est[p + 4][i];
-        est[p + 4][i] = 0.0f;
-      }
-    cnt_fg = cnt_bg;
-    cnt_bg = 0.0f;
-  }
-
-  const bool enough = do_update && cnt_fg >= 3.0f;
-  float l[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    if (enough)
-      diag_rule_coord(est[0][i], est[1][i], est[2][i], est[3][i], cnt_fg,
-                      use_grad_based, stds[i], mean[i]);
-    l[i] = logf(stds[i]);
-  }
-  tid = tid + (enough ? 1.0f : 0.0f);
-  return -ordered_sum<DIM, T>(l, ln);
-}
-
 template <int DIM, int T, bool MICRO, int H, class Model>
 __global__ void __launch_bounds__(T * MAX_BLOCK < MAX_THREADS ? T * MAX_BLOCK
                                                               : MAX_THREADS)

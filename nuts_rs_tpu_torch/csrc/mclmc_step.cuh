@@ -15,18 +15,17 @@
 // j mod T, in slot j / T of that lane's arrays.  Every step on one
 // coordinate runs on its own lane: the divisions of the ESH step and the
 // refresh, the leapfrog's updates, the model's term, the Box-Muller normals
-// at site j * B + b.  A sum over d (ordered_sum) gathers the d terms by
-// __shfl_sync within the group and every lane adds them in coordinate order
-// j = 0..d-1, one after another, as nuts_tree.cuh::dot does, so every lane
-// holds the same bits as the one-thread sum and the plain version's
-// ops.dsum.  Scalars (kinetic energy, logp, the halving stack, the step
-// counts) are computed alike on every lane of a group, so no lane
-// broadcasts them; a group's lanes take the same branches.
+// at site j * B + b.  A sum over d is lanes.cuh's ordered gather, which
+// keeps the bits of the one-thread sum and of the plain version's ops.dsum.
+// Scalars (kinetic energy, logp, the halving stack, the step counts) are
+// computed alike on every lane of a group, so no lane broadcasts them; a
+// group's lanes take the same branches.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
 
+#include "lanes.cuh"  // Lane, slots, ordered_sum, ordered_dot, MAX_THREADS
 #include "nuts_tree.cuh"  // MAX_BLOCK
 #include "rng.cuh"
 
@@ -35,7 +34,6 @@ namespace nrt {
 constexpr int MAX_HALVINGS = 10;  // kernels/mclmc.py::MAX_HALVINGS
 constexpr int NSTATS_M = 8;       // mclmc.py::STAT_NAMES
 constexpr int NSTATS_MW = 9;      // + transformation_index
-constexpr int MAX_THREADS = 1024;  // of a CUDA block
 
 // Lanes a chain of K3 / K4 at d coordinates in logical chain blocks of B
 // (_build.mclmc_lanes, the same rule): one coordinate a lane, 4 lanes at
@@ -66,52 +64,6 @@ struct McConst {
   float fsub_ell;  // subsample_frequency * L (product taken in f64)
   float sqrt_n;    // sqrt(d)
 };
-
-// A lane's place in its chain's group of T lanes: its lane index and the
-// mask of the group's lanes in the warp.
-template <int T>
-struct Lane {
-  static_assert(T >= 1 && T <= 32 && (T & (T - 1)) == 0,
-                "a group is a power of 2 of lanes within a warp");
-  int lane;
-  unsigned mask;
-  __device__ __forceinline__ Lane()
-      : lane((int)(threadIdx.x % T)),
-        mask(T == 32 ? 0xffffffffu
-                     : ((1u << (T & 31)) - 1u)
-                           << (((threadIdx.x & 31) / T) * T)) {}
-};
-
-// Coordinate slots a lane holds: coordinate lane + T * i in slot i.
-template <int DIM, int T>
-__host__ __device__ constexpr int slots() {
-  return (DIM + T - 1) / T;
-}
-
-// The sum over the d coordinates of x (slot i of each lane its term of
-// coordinate lane + T * i), in coordinate order, on every lane.
-template <int DIM, int T>
-__device__ __forceinline__ float ordered_sum(const float* x,
-                                             const Lane<T>& g) {
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < DIM; ++j) {
-    const float t = __shfl_sync(g.mask, x[j / T], j % T, T);
-    s = (j == 0) ? t : s + t;
-  }
-  return s;
-}
-
-// dot<DIM>(a, b) over the group: each lane's products, then ordered_sum.
-template <int DIM, int T>
-__device__ __forceinline__ float ordered_dot(const float* a, const float* b,
-                                             const Lane<T>& g) {
-  constexpr int NC = slots<DIM, T>();
-  float p[NC];
-#pragma unroll
-  for (int i = 0; i < NC; ++i) p[i] = a[i] * b[i];
-  return ordered_sum<DIM, T>(p, g);
-}
 
 // One chain's trajectory state; each lane holds its slots of the vectors
 // and every scalar.

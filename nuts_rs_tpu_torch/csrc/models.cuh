@@ -3,17 +3,15 @@
 // Counterpart of the batched logp/grad that the Pallas kernels trace in
 // (nuts_rs_tpu/chain.py:677-690), and of the arrays their model_args
 // channel replicates to every block (nuts_pallas.py:84,159-166).  A functor
-// has up to three forms.
+// has up to two forms.
 //
-// eval: one thread evaluates one chain (the thread-per-chain
-// chains-on-lanes kernels); it computes logp at q and writes the gradient
-// into g, summing in coordinate order.
-//
-// term / finish: the threads of a block share one chain and every gradient
+// term / finish: several threads share one chain and every gradient
 // coordinate depends on its own position coordinate alone (the dim-on-lanes
-// kernels, chain.py:805-807); term gives one coordinate's gradient and its
-// summand of logp, the block sums the summands in its fixed order
-// (block_sum.cuh::Reducer), and finish turns the sum into logp.
+// kernels, chain.py:805-807, and the chains-on-lanes kernels K1-K4, a
+// chain's coordinates on a group of lanes); term gives one coordinate's
+// gradient and its summand of logp, the threads sum the summands in their
+// kernel's fixed order (block_sum.cuh::Reducer, lanes.cuh::ordered_sum),
+// and finish turns the sum into logp.
 //
 // eval_block: the LD_T threads of a block evaluate one chain
 // together from the whole position vector in shared memory; a gradient
@@ -79,19 +77,6 @@ enum ModelId {
 // iid Normal(mu, 1): logp = -0.5 sum (q - mu)^2, grad = -(q - mu).
 struct IidNormal {
   float mu;
-
-  template <int DIM>
-  __device__ __forceinline__ float eval(const float* q, float* g) const {
-    float s = 0.0f;
-#pragma unroll
-    for (int j = 0; j < DIM; ++j) {
-      const float diff = q[j] - mu;
-      const float sq = diff * diff;
-      s = (j == 0) ? sq : s + sq;
-      g[j] = -diff;
-    }
-    return -0.5f * s;
-  }
 
   __device__ __forceinline__ float term(float q, float& g) const {
     const float diff = q - mu;

@@ -23,6 +23,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -37,10 +38,10 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# (d, maxdepth) instantiations of the thread-per-chain chains-on-lanes NUTS
-# kernels; every other size takes the mid-d kernels
-# (``nuts_fused.cl_kernel``).  The MCLMC kernels
-# are instantiated for the same d (``DIMS``), both kinetic energies and both
+# (d, maxdepth) instantiations of the chains-on-lanes NUTS kernels K1 / K2 (a
+# chain's coordinates on a group of lanes, ``nuts_lanes``); every other size
+# takes the mid-d kernels (``nuts_fused.cl_kernel``).  The MCLMC kernels are
+# instantiated for the same d (``DIMS``), both kinetic energies and both
 # settings of ``dynamic_step_size``.  The mid-d chains-on-lanes kernels, NUTS
 # and MCLMC (above ``CL_THREAD_MAX_DIM``, and every model with data), and the
 # dim-on-lanes (ld) NUTS kernels take d (and maxdepth) at run time.
@@ -52,10 +53,10 @@ MODEL_IDS = {"iid_normal": 0, "logistic_regression": 1,
              "logistic_regression_stream": 2, "correlated_normal_rank1": 3,
              "radon": 4, "stochastic_volatility": 5, "funnel": 6,
              "correlated_normal": 7}
-# The functors with a one-coordinate form: the one-thread eval of the
-# thread-per-chain kernels and the term / finish of the dim-on-lanes kernels
-# K1-ld / K2-ld.  Every functor but the streamed one has the eval_block form,
-# which the mid-d kernels and the dim-on-lanes kernels with data (ld_args)
+# The functors with a one-coordinate form: the term / finish of the
+# chains-on-lanes kernels K1-K4 and of the dim-on-lanes kernels K1-ld /
+# K2-ld.  Every functor but the streamed one has the eval_block form, which
+# the mid-d kernels and the dim-on-lanes kernels with data (ld_args)
 # take.
 COORD_FUNCTORS = frozenset({"iid_normal"})
 # kernel launches that evaluated each functor, by hook name: the wrappers
@@ -100,7 +101,7 @@ SMEM_OPT_IN_BYTES = SM_SMEM_BYTES - SMEM_BLOCK_RESERVED
 H100_SMS = 132  # SMs of the card the kernels are sized for
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v"]
-# Macros for timing ablations only (profile_main_path.py items 12-15;
+# Macros for timing ablations only (profile_main_path.py items 12-18;
 # all but NRT_LD_ARGS_MIN_BLOCKS change results): NRT_ABLATE_FIXED_TREES
 # (csrc/nuts_tree_ld.cuh), NRT_ABLATE_SV_SCANS, NRT_ABLATE_SV_BARRIERS
 # (csrc/models.cuh), NRT_LD_ARGS_MIN_BLOCKS=n, NRT_LD_MIN_BLOCKS=n,
@@ -117,7 +118,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # leapfrogs a draw, no halvings), NRT_MCLMC_LANES=n, NRT_ABLATE_MCLMC_NORMALS,
 # NRT_ABLATE_MCLMC_DIVISIONS (csrc/mclmc_step.cuh: K3 / K4's lanes a chain,
 # their normals without the hashes and Box-Muller, their ESH and refresh
-# quotients by __fdividef; all change results but the lanes).  Empty in
+# quotients by __fdividef; all change results but the lanes),
+# NRT_NUTS_LANES=n, NRT_NUTS_MAX_THREADS=n, NRT_ABLATE_NUTS_NORMALS,
+# NRT_NUTS_SMEM_STACKS (csrc/nuts_tree.cuh: K1 / K2's lanes a chain, their
+# blocks' threads at most, their normals without the hashes and Box-Muller
+# (changes results), their checkpoint stacks in shared memory).  Empty in
 # every other use; set before the first library loads.
 NVCC_DEFINES = []
 
@@ -133,6 +138,9 @@ _P, _I, _U, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
 _LL = ctypes.c_longlong
 _NUTS_POST = [_I, _I, _I, _I, _I, _U, _F, _I, _F, _F, _I]
 _NUTS_WARM = _NUTS_POST + [_F] * 5 + [_I]
+# K1 / K2 take the chain's lanes (nuts_lanes) after maxdepth
+_NUTS_LANES_POST = _NUTS_POST[:2] + [_I] + _NUTS_POST[2:]
+_NUTS_LANES_WARM = _NUTS_WARM[:2] + [_I] + _NUTS_WARM[2:]
 _MCLMC_POST = [_I, _I, _I, _I, _I, _I, _U, _F, _F, _F, _F, _I, _F, _F, _I]
 _MCLMC_WARM = [_I, _I, _I, _I, _I, _I, _U, _F, _F, _F, _F, _F, _I, _F, _F,
                _I, _I]
@@ -143,9 +151,11 @@ _LANES_WARM = _MCLMC_WARM[:3] + [_I] + _MCLMC_WARM[3:]
 # restype)}.
 SOURCES = {
     "nuts_fused_posterior": {
-        "nrt_posterior_launch": (_NUTS_POST + [_P] * 16, _I)},
+        "nrt_posterior_launch": (_NUTS_LANES_POST + [_P] * 16, _I),
+        "nrt_nuts_lanes": ([_I, _I], _I)},
     "nuts_fused_warmup": {
-        "nrt_warmup_launch": (_NUTS_WARM + [_P] * 20, _I)},
+        "nrt_warmup_launch": (_NUTS_LANES_WARM + [_P] * 20, _I),
+        "nrt_nuts_lanes": ([_I, _I], _I)},
     "mclmc_fused_posterior": {
         "nrt_mclmc_posterior_launch": (_LANES_POST + [_P] * 18, _I),
         "nrt_mclmc_lanes": ([_I, _I], _I)},
@@ -230,6 +240,14 @@ def _flags():
     return NVCC_FLAGS + [f"-D{m}" for m in NVCC_DEFINES]
 
 
+def build_log(stem: str) -> Path:
+    """Where nvcc's output for ``csrc/<stem>.cu`` under today's
+    NVCC_DEFINES goes (``-Xptxas -v``: registers, stack, spills)."""
+    tag = "".join("_" + re.sub(r"[^A-Za-z0-9]+", "_", d)
+                  for d in NVCC_DEFINES)
+    return BUILD_DIR / f"build_{stem}{tag}.log"
+
+
 def _library_path(stem: str) -> Path:
     """Where the library of ``csrc/<stem>.cu`` lies: named by a hash of that
     source, every header, the flags and the instantiated sizes."""
@@ -278,7 +296,7 @@ def _run_queue(queue, nice, jobs):
     while queue or running:
         while queue and len(running) < jobs:
             stem, so = queue.pop(0)
-            log = BUILD_DIR / f"build_{stem}.log"
+            log = build_log(stem)
             cmd = [_nvcc(), *_flags(), "-shared", "-I", str(BUILD_DIR), "-o",
                    str(so.with_suffix(".tmp")), str(CSRC / f"{stem}.cu")]
             if nice:
@@ -396,16 +414,24 @@ def _check_esh_dim(d, mopts):
         raise ValueError("the microcanonical dynamics need dim >= 2")
 
 
-def _common(q, model, opts, B):
+def _common(q, model, opts, B, stem):
+    """(C, d, maxdepth, model id, params, lanes) of a K1 / K2 launch, after
+    the device, block and size checks and the lane rule's check against
+    ``stem``'s library."""
     model_id, params = _model_and_block(q, model, B, coord=True)
     C, d = q.shape
     D = opts.maxdepth
     if (d, D) not in SIZES:
         raise ValueError(
-            f"the thread-per-chain kernels are instantiated for (d, "
+            f"the chains-on-lanes kernels K1 / K2 are instantiated for (d, "
             f"maxdepth) in {SIZES}, not ({d}, {D}): the mid-d kernels serve "
             "every other size (nuts_fused.cl_kernel)")
-    return C, d, D, model_id, params
+    T = nuts_lanes(d, B)
+    built = library(stem).nrt_nuts_lanes(d, B)
+    if built != T:
+        raise RuntimeError(f"csrc/nuts_tree.cuh gives {built} lanes a chain "
+                           f"at d = {d}, B = {B}; _build.nuts_lanes {T}")
+    return C, d, D, model_id, params, T
 
 
 def _model_and_block(q, model, B, max_block=MAX_BLOCK, coord=False):
@@ -735,6 +761,27 @@ def _mclmc_consts(d, mopts):
 MAX_THREADS = 1024  # of a CUDA block
 
 
+def _lanes_define(name):
+    """n of the ablation macro ``name=n`` in NVCC_DEFINES, or None."""
+    for define in NVCC_DEFINES:
+        if define.startswith(name + "="):
+            return int(define.split("=", 1)[1])
+    return None
+
+
+def nuts_lanes(d, B):
+    """Lanes of a chain in K1 / K2 at d coordinates in logical chain blocks
+    of B (csrc/nuts_tree.cuh::nuts_lanes, the same rule, checked at every
+    launch): 4 at every instantiated d and block (at most 512 threads a
+    block).  At d = 10 and B = 32, 4 lanes beat 8 and 16 on the path's own
+    states (profile_main_path.py item 18): a chain's scalar work runs on
+    every lane of its group, so more lanes issue it more often on the
+    block's one SM.  A form chosen by the shapes, not a fallback.  Under
+    the ablation macro NRT_NUTS_LANES=n every shape takes n lanes."""
+    fixed = _lanes_define("NRT_NUTS_LANES")
+    return 4 if fixed is None else fixed
+
+
 def mclmc_lanes(d, B):
     """Lanes of a chain in K3 / K4 at d coordinates in logical chain blocks
     of B (csrc/mclmc_step.cuh::mclmc_lanes, the same rule, checked at every
@@ -743,9 +790,9 @@ def mclmc_lanes(d, B):
     lanes for B <= 64 and 8 for B = 65..128.  A form chosen by the shapes,
     not a fallback.  Under the ablation macro NRT_MCLMC_LANES=n every shape
     takes n lanes."""
-    for define in NVCC_DEFINES:
-        if define.startswith("NRT_MCLMC_LANES="):
-            return int(define.split("=", 1)[1])
+    fixed = _lanes_define("NRT_MCLMC_LANES")
+    if fixed is not None:
+        return fixed
     T = 4 if d <= 4 else (8 if d <= 8 else 16)
     while T > 4 and B * T > MAX_THREADS:
         T //= 2
@@ -1173,7 +1220,8 @@ def launch_posterior(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
                      K, model, opts, jitter, B):
     """Launch csrc/nuts_fused_posterior.cu; returns (draws [K, d, C],
     stats [K, NSTATS, C], q_f, g_f [C, d], logp_f [C], iters [C])."""
-    C, d, D, model_id, params = _common(q, model, opts, B)
+    C, d, D, model_id, params, T = _common(q, model, opts, B,
+                                           "nuts_fused_posterior")
     dev = q.device
     check_posterior_args(q, g, logp, stds, mean, logdet, step0, step_bar, K)
     lib = library("nuts_fused_posterior")
@@ -1187,7 +1235,7 @@ def launch_posterior(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.nrt_posterior_launch(
-            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            d, D, T, C, B, K, int(seed) & 0xFFFFFFFF,
             float(opts.max_energy_error), hj, jc1, jc2, model_id,
             ctypes.cast(params, ctypes.c_void_p),
             q.data_ptr(), g.data_ptr(), logp.data_ptr(), stds.data_ptr(),
@@ -1203,7 +1251,8 @@ def launch_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model, opts,
                   sset, use_grad_based, B):
     """Launch csrc/nuts_fused_warmup.cu; returns (draws [K, d, C],
     stats [K, NSTATS_W, C], q, g, logp, stds, mean, est, sca, iters)."""
-    C, d, D, model_id, params = _common(q, model, opts, B)
+    C, d, D, model_id, params, T = _common(q, model, opts, B,
+                                           "nuts_fused_warmup")
     dev = q.device
     K = flags.shape[0]
     check_warmup_args(flags, q, g, logp, stds, mean, est, sca)
@@ -1221,7 +1270,7 @@ def launch_warmup(seed, flags, q, g, logp, stds, mean, est, sca, model, opts,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.nrt_warmup_launch(
-            d, D, C, B, K, int(seed) & 0xFFFFFFFF,
+            d, D, T, C, B, K, int(seed) & 0xFFFFFFFF,
             float(opts.max_energy_error), hj, jc1, jc2, int(use_grad_based),
             float(sset.target_accept), float(da.t0), float(da.gamma),
             float(-da.k), math.log(da.max_step_size), model_id,

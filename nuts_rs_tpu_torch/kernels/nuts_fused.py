@@ -26,8 +26,9 @@ random site (``rng.BlockRng``) and in the default chain block.
 
 Two kernel pairs serve ``layout="cl"`` (:func:`cl_kernel`).  At the
 instantiated sizes (``_build.SIZES``, d <= ``_build.CL_THREAD_MAX_DIM``) a
-model without data whose functor has the one-thread form
-(``_build.COORD_FUNCTORS``) takes the thread-per-chain kernels above (sizes as
+model without data whose functor has the one-coordinate form
+(``_build.COORD_FUNCTORS``) takes the chains-on-lanes kernels above (a
+chain's coordinates on a group of lanes, ``_build.nuts_lanes``; sizes as
 template parameters, every sum over the parameter axis in coordinate order,
 ``ops.dsum``).  At every other size, and for
 every model that carries data (the ``n_model_args > 0`` variants of the
@@ -118,7 +119,7 @@ SCA_TID = 8
 SCA_LOGDET = 9
 NSCA = 10
 
-DEFAULT_BLOCK = 32  # cl, thread per chain: chains per CUDA block, one warp
+DEFAULT_BLOCK = 32  # cl, K1 / K2: chains per CUDA block (of 32 * nuts_lanes)
 # ld: chains per logical block = CUDA blocks per cluster (the portable
 # cluster size, and the JAX package's smallest ld tier)
 DEFAULT_LD_BLOCK = MAX_LD_BLOCK
@@ -232,14 +233,14 @@ def _check_layout(layout):
 
 def cl_kernel(model, dim, maxdepth=None):
     """The kernel pair that serves ``layout="cl"`` for ``model`` at ``dim``:
-    ``"thread"`` (one thread per chain, K3 / K4 a group of lanes
-    (``_build.mclmc_lanes``), at the instantiated sizes: ``dim`` in
-    ``_build.DIMS`` and, for NUTS, which passes its ``maxdepth``,
-    ``(dim, maxdepth)`` in ``_build.SIZES``, for a functor with the
-    one-thread form, ``_build.COORD_FUNCTORS``) or ``"mid"`` (256 threads a
-    chain, any size and functor, the only one that reads a model's data;
-    both number the random sites alike).  The plain versions take its sum
-    order and default block."""
+    ``"thread"`` (a chain's coordinates on a group of lanes,
+    ``_build.nuts_lanes`` and ``_build.mclmc_lanes``, at the instantiated
+    sizes: ``dim`` in ``_build.DIMS`` and, for NUTS, which passes its
+    ``maxdepth``, ``(dim, maxdepth)`` in ``_build.SIZES``, for a functor
+    with the one-coordinate form, ``_build.COORD_FUNCTORS``) or ``"mid"``
+    (256 threads a chain, any size and functor, the only one that reads a
+    model's data; both number the random sites alike).  The plain versions
+    take its sum order and default block."""
     hook = model.hook_parts()[0] if model.kernel_hook is not None else None
     if (model.carries_data or dim not in DIMS
             or (hook is not None and hook not in COORD_FUNCTORS)):
@@ -565,7 +566,7 @@ def nuts_fused_run(seed, q, g, logp, stds, mean, logdet, step0, step_bar,
     a dict of [C, K] float32 arrays keyed by ``STAT_NAMES`` plus
     ``loop_iterations`` [C].  The first draw of each chain uses ``step0``;
     later draws use ``step_bar`` jittered by ``jitter``.  ``block`` is the
-    logical chain block (default 32 for the thread-per-chain cl kernel, 1
+    logical chain block (default 32 for the chains-on-lanes cl kernel, 1
     for the mid-d cl kernel, 8 for the ld kernel, 1 for the ld kernel with
     data).  With ``stream`` the
     model's data are evaluated in row tiles of ``model.stream_tile_rows``
@@ -851,7 +852,7 @@ def nuts_fused_warmup_run(seed, flags, q, g, logp, stds, mean, est, sca,
     (``SCA_*``).  Returns (q, g, logp, stds, mean, est, sca, draws
     [C, K, d], stats) with stats a dict of [C, K] arrays keyed by
     ``WARMUP_STAT_NAMES`` plus ``loop_iterations`` [C].  The chains of a
-    logical block of ``block`` chains (default 32 for the thread-per-chain
+    logical block of ``block`` chains (default 32 for the chains-on-lanes
     cl kernel, 1 for the mid-d cl kernel, 8 for the ld kernel, 1 for the ld
     kernel with data) share the iteration
     counter and wait for the block's longest tree in every draw.

@@ -174,6 +174,22 @@ After building the kernels it prints, for each path,
    at one lane without the Box-Muller normals (NRT_ABLATE_MCLMC_NORMALS),
    with approximate divisions in the ESH step and the refresh
    (NRT_ABLATE_MCLMC_DIVISIONS) and with both.
+18. ``--nuts-launch TREE [TREE ...]``: on the NUTS d = 10 path (N(3, 1),
+   1024 chains, 300 + 700 draws), K1's first 128-draw posterior launch on
+   the path's own tuned state and K2's first full chunk (draws 2-130) on
+   the path's own warmup state, saved once in this checkout; then each
+   checkout in the order given (parent, this, this, parent) on the saved
+   launches, in ms a launch and us a block iteration, and the path end to
+   end by items 1 and 2 (one warm-up run, three repeats, one profiled run);
+   then, in this checkout, the same launches in builds of
+   ``NUTS_D10_ABLATIONS``: a chain's lanes fixed at 1, 2, 8 and 16
+   (NRT_NUTS_LANES; the rule's are 4), 8 and 16 lanes in blocks of at most
+   512 threads (NRT_NUTS_MAX_THREADS: up to 128 registers a thread), the
+   fresh momentum's normals without the hashes and Box-Muller
+   (NRT_ABLATE_NUTS_NORMALS) at the rule's lanes and at one lane, and the
+   checkpoint stacks in shared memory (NRT_NUTS_SMEM_STACKS) at the rule's
+   lanes and at 16 lanes with 128 registers; then each build's registers,
+   stack and spills an instantiation.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -182,6 +198,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import re
 import subprocess
 import sys
 import time
@@ -1479,7 +1496,7 @@ for name, fn, key, at, kind in (("K1-ld", run0, "post", 4, "posterior"),
           f"mean {float(it.mean()):.1f} max {int(it.max())}; bound "
           f"{b_ms:.4f} ms ({b_by}); {where}")
 for stem in ("nuts_fused_ld_posterior", "nuts_fused_ld_warmup"):
-    log = _build.BUILD_DIR / f"build_{stem}.log"
+    log = _build.build_log(stem)
     text = log.read_text() if log.exists() else ""
     for entry in text.split("Compiling entry function")[1:]:
         nums = [re.findall(p, entry) for p in (
@@ -1780,7 +1797,7 @@ label = " ".join(m.removeprefix("NRT_") for m in sys.argv[2:])
 _build.BUILD_DIR = _build.BUILD_DIR / re.sub(r"[^A-Za-z0-9]+", "_", label)
 if sys.argv[1] == "build":
     _build.build(cs.PATH_SOURCES["flow"])
-    text = "".join((_build.BUILD_DIR / f"build_{stem}.log").read_text()
+    text = "".join((_build.build_log(stem)).read_text()
                    for stem in cs.PATH_SOURCES["flow"])
     for entry in text.split("Compiling entry function")[1:]:
         mangled = entry.split("\\n")[0]
@@ -1994,25 +2011,140 @@ MCLMC_D10_ABLATIONS = (
 
 
 def mclmc_launch(trees):
-    """Item 17: the MCLMC d = 10 path's launches saved in this tree; every
-    tree in the order given (e.g. parent, this one, this one, parent) timed
-    on them with its path end to end; then this tree's ablation builds,
-    compiled together, each timed on the same launches."""
+    """Item 17: the MCLMC d = 10 path's launches, parent against change,
+    then this tree's ablation builds."""
+    launch_and_ablate(trees, MCLMC_D10_LAUNCH, MCLMC_D10_TIME,
+                      MCLMC_D10_ABLATIONS, "mclmc_d10_launches.pt",
+                      ("mclmc_fused_posterior", "mclmc_fused_warmup"))
+
+
+def nuts_launch(trees):
+    """Item 18: the NUTS d = 10 path's launches, parent against change,
+    then this tree's ablation builds."""
+    launch_and_ablate(trees, NUTS_D10_LAUNCH, NUTS_D10_TIME,
+                      NUTS_D10_ABLATIONS, "nuts_d10_launches.pt",
+                      ("nuts_fused_posterior", "nuts_fused_warmup"))
+
+
+# Item 18: the NUTS d = 10 path's own launches (K1's first 128-draw
+# posterior launch from the tuned state, K2's first full chunk), saved for
+# NUTS_D10_TIME.
+NUTS_D10_LAUNCH = """
+import sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DiagNutsSettings, Sampler
+from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+dev = torch.device("cuda", 0)
+seen = {}
+run0, warm0 = nf.nuts_fused_run, nf.nuts_fused_warmup_run
+def keep(a):
+    return tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+def run(*a, **k):
+    seen.setdefault("post", (keep(a), k))
+    return run0(*a, **k)
+def warm(*a, **k):
+    if "warm" not in seen and a[1].shape[0] == cs.CHUNK:
+        seen["warm"] = (keep(a), k)
+    return warm0(*a, **k)
+nf.nuts_fused_run, nf.nuts_fused_warmup_run = run, warm
+settings = DiagNutsSettings(num_chains=cs.CHAINS, num_tune=cs.TUNE,
+                            num_draws=cs.DRAWS, seed=cs.SEED,
+                            posterior_kernel="pallas")
+sampler = Sampler(normal_logp(cs.DIM, cs.MU), settings, device=dev)
+while "post" not in seen:
+    sampler.run_next_chunk()
+nf.nuts_fused_run, nf.nuts_fused_warmup_run = run0, warm0
+at = {"post": 10, "warm": 9}  # the model, made again
+torch.save({key: (a[:at[key]] + (None,) + a[at[key] + 1:], k)
+            for key, (a, k) in seen.items()}, sys.argv[1])
+for key, (a, k) in seen.items():
+    rows, chains = (a[9], a[1]) if key == "post" else (a[1].shape[0], a[2])
+    print(f"saved {key}: {rows} draws of {chains.shape[0]} chains")
+"""
+
+# Item 18's timing on the saved launches in the tree given (5 calls after a
+# first), then the path end to end (items 1 and 2) with "--path".
+NUTS_D10_TIME = """
+import sys, torch
+import chip_smoke as cs
+import profile_main_path as pm
+from nuts_rs_tpu_torch import DiagNutsSettings
+from nuts_rs_tpu_torch.kernels import _build, nuts_fused as nf
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+label = ""
+if sys.argv[2] != "-":
+    _build.NVCC_DEFINES[:] = sys.argv[2].split(",")
+    label = "[" + " ".join(m.removeprefix("NRT_")
+                           for m in _build.NVCC_DEFINES) + "] "
+dev = torch.device("cuda", 0)
+model = normal_logp(cs.DIM, cs.MU).to(dev)
+saved = torch.load(sys.argv[1], weights_only=False)
+for key in ("post", "warm"):
+    a, k = saved[key]
+    at = 10 if key == "post" else 9
+    a = a[:at] + (model,) + a[at + 1:]
+    if key == "post":
+        fn, at = (lambda: nf.nuts_fused_run(*a, **k)), 4
+    else:
+        fn, at = (lambda: nf.nuts_fused_warmup_run(*a, **k)), 8
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(fn, 5)
+    st = out[at]
+    it = int(st["loop_iterations"].max())
+    lanes = (f", {_build.nuts_lanes(cs.DIM, nf.DEFAULT_BLOCK)} lanes a chain"
+             if hasattr(_build, "nuts_lanes") else ", one thread a chain")
+    print(f"{label}{'K1' if key == 'post' else 'K2'} {key}: {ms:.4f} ms; "
+          f"leapfrogs {int(st['n_steps'].sum())}, depth up to "
+          f"{int(st['depth'].max())}, block iterations max {it}: "
+          f"{1e3 * ms / it:.3f} us a block iteration{lanes}", flush=True)
+if "--path" in sys.argv:
+    settings = DiagNutsSettings(num_chains=cs.CHAINS, num_tune=cs.TUNE,
+                                num_draws=cs.DRAWS, seed=cs.SEED,
+                                posterior_kernel="pallas")
+    pm.run_main_path(model, settings, dev)
+    for rep in range(3):
+        pm.print_run(f"run {rep}", pm.run_main_path(model, settings, dev),
+                     settings.num_tune)
+    pm.profile_once(model, settings, dev)
+"""
+
+# Item 18's builds: a chain's lanes fixed, the fresh momentum's normals left
+# out (timing only; changes results), the stacks in shared memory
+NUTS_D10_ABLATIONS = (
+    ("NRT_NUTS_LANES=1",), ("NRT_NUTS_LANES=2",), ("NRT_NUTS_LANES=8",),
+    ("NRT_NUTS_LANES=16",),
+    ("NRT_NUTS_LANES=8", "NRT_NUTS_MAX_THREADS=512"),
+    ("NRT_NUTS_LANES=16", "NRT_NUTS_MAX_THREADS=512"),
+    ("NRT_ABLATE_NUTS_NORMALS",),
+    ("NRT_NUTS_LANES=1", "NRT_ABLATE_NUTS_NORMALS"),
+    ("NRT_NUTS_SMEM_STACKS",),
+    ("NRT_NUTS_LANES=16", "NRT_NUTS_MAX_THREADS=512",
+     "NRT_NUTS_SMEM_STACKS"))
+
+
+def launch_and_ablate(trees, launch, time_src, ablations, saved_name, stems):
+    """Items 17 and 18: the path's launches saved in this tree by
+    ``launch``; every tree in the order given (e.g. parent, this one, this
+    one, parent) timed on them by ``time_src`` with its path end to end;
+    then this tree's ``ablations`` builds of ``stems``, compiled together,
+    each timed on the same launches."""
     from pathlib import Path
 
     from nuts_rs_tpu_torch.kernels import _build
 
     _build.BUILD_DIR.mkdir(exist_ok=True)
     here = Path(__file__).resolve().parent
-    saved = str(_build.BUILD_DIR / "mclmc_d10_launches.pt")
-    out = subprocess.run([sys.executable, "-c", MCLMC_D10_LAUNCH, saved],
-                         cwd=here, capture_output=True, text=True)
+    saved = str(_build.BUILD_DIR / saved_name)
+    out = subprocess.run([sys.executable, "-c", launch, saved], cwd=here,
+                         capture_output=True, text=True)
     if out.returncode:
         raise RuntimeError(out.stderr[-3000:])
     print(out.stdout.strip(), flush=True)
     for tree in trees:
-        out = subprocess.run([sys.executable, "-c", MCLMC_D10_TIME, saved,
-                              "-", "--path"], cwd=tree, capture_output=True,
+        out = subprocess.run([sys.executable, "-c", time_src, saved, "-",
+                              "--path"], cwd=tree, capture_output=True,
                              text=True)
         if out.returncode:
             raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
@@ -2020,22 +2152,48 @@ def mclmc_launch(trees):
             print(f"{tree}: {line}", flush=True)
     build = ("import sys\nfrom nuts_rs_tpu_torch.kernels import _build\n"
              "_build.NVCC_DEFINES[:] = sys.argv[1].split(',')\n"
-             "_build.build(['mclmc_fused_posterior', 'mclmc_fused_warmup'])")
+             f"_build.build({list(stems)!r})")
     procs = [subprocess.Popen([sys.executable, "-c", build, ",".join(d)],
                               cwd=here, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-             for d in MCLMC_D10_ABLATIONS]
-    for defines, p in zip(MCLMC_D10_ABLATIONS, procs):
+             for d in ablations]
+    for defines, p in zip(ablations, procs):
         text = p.communicate()[0].strip()
         if p.returncode:
             raise RuntimeError(f"ablation build {defines}: {text[-3000:]}")
-    for defines in MCLMC_D10_ABLATIONS:
-        out = subprocess.run([sys.executable, "-c", MCLMC_D10_TIME, saved,
+    for defines in ablations:
+        out = subprocess.run([sys.executable, "-c", time_src, saved,
                               ",".join(defines)], cwd=here,
                              capture_output=True, text=True)
         if out.returncode:
             raise RuntimeError(f"ablation {defines}: {out.stderr[-3000:]}")
         print(out.stdout.strip(), flush=True)
+    for defines in [()] + list(ablations):
+        _build.NVCC_DEFINES[:] = defines
+        for stem in stems:
+            log = _build.build_log(stem)
+            if log.exists():
+                print(f"ptxas {stem} [{' '.join(defines) or 'as built'}]: "
+                      + "; ".join(ptxas_entries(log.read_text())),
+                      flush=True)
+    _build.NVCC_DEFINES[:] = []
+
+
+def ptxas_entries(text):
+    """Each entry function of an ``-Xptxas -v`` log: its name with its
+    template's integer and boolean arguments, registers, stack frame and
+    spill stores."""
+    lines = []
+    for entry in text.split("Compiling entry function")[1:]:
+        mangled = entry.split("\n")[0]
+        name = re.findall(r"nrt\d+(\w+?)I", mangled)
+        targs = ",".join(re.findall(r"L[ib](\d+)E", mangled))
+        nums = [re.findall(p, entry)[:1] or ["?"] for p in (
+            r"Used (\d+) registers", r"(\d+) bytes stack frame",
+            r"(\d+) bytes spill stores")]
+        lines.append("{}<{}> {} registers, {} stack, {} spill".format(
+            name[0] if name else mangled[:40], targs, *(n[0] for n in nums)))
+    return lines
 
 
 def main() -> int:
@@ -2077,6 +2235,9 @@ def main() -> int:
                              "then its ablation in this one")
     parser.add_argument("--mclmc-launch", nargs="+", metavar="TREE",
                         help="item 17 alone, for each checkout in turn, "
+                             "then its ablation in this one")
+    parser.add_argument("--nuts-launch", nargs="+", metavar="TREE",
+                        help="item 18 alone, for each checkout in turn, "
                              "then its ablation in this one")
     parser.add_argument("--flow-full", action="store_true",
                         help="item 16 on the full configuration's states "
@@ -2122,6 +2283,10 @@ def main() -> int:
         return 0
     if args.mclmc_launch:
         mclmc_launch(args.mclmc_launch)
+        print(card_line())
+        return 0
+    if args.nuts_launch:
+        nuts_launch(args.nuts_launch)
         print(card_line())
         return 0
     if args.only_stream:

@@ -607,6 +607,151 @@ def test_mclmc_lane_rule_is_the_same_in_c(dim):
         assert lib.nrt_mclmc_lanes(dim, B) == _build.mclmc_lanes(dim, B), B
 
 
+# K1 and K2 with a chain's coordinates on a group of T lanes
+# (csrc/nuts_tree.cuh, _build.nuts_lanes: 4) over every instantiated d (one
+# to three coordinates a lane, a padding slot on one or two lanes at d = 3,
+# 6 and 10), blocks of 1, 32, 64, 65 and 128 (512 threads), jitter on and
+# off and K2 with both estimates of the mass matrix; every case's trees
+# grow, one case diverges in some draws and not in all (a small
+# max_energy_error) and one reaches maxdepth (steps of 0.002-0.003; one
+# draw and one warmup row, each tree 1023 leapfrogs).  The plain version's
+# draws are held to the case's expectation before the comparison
+# (tests/test_torch_nuts_lanes.py does the same on the CPU).
+# (dim, B, C, jitter, use_grad_based, max_err, step, draws, expect)
+NUTS_LANE_CASES = [
+    (3, 1, 64, 0.1, True, 1000.0, (0.8, 1.0), 8, "grow"),
+    (3, 128, 128, None, False, 1000.0, (0.8, 1.0), 8, "grow"),
+    (4, 32, 64, None, True, 1000.0, (0.8, 1.0), 8, "grow"),
+    (4, 65, 130, 0.1, False, 1000.0, (0.8, 1.0), 8, "grow"),
+    (6, 64, 128, 0.1, True, 1000.0, (0.8, 1.0), 8, "grow"),
+    (6, 1, 64, None, False, 1000.0, (0.8, 1.0), 8, "grow"),
+    (10, 1, 64, 0.1, False, 1000.0, (0.8, 1.0), 8, "grow"),
+    (10, 32, 64, 0.1, True, 1000.0, (0.8, 1.0), 8, "grow"),
+    (10, 64, 128, None, True, 1000.0, (0.8, 1.0), 8, "grow"),
+    (10, 65, 130, 0.1, True, 1000.0, (0.8, 1.0), 8, "grow"),
+    (10, 128, 128, None, False, 1000.0, (0.8, 1.0), 8, "grow"),
+    (10, 32, 64, 0.1, True, 1.0, (0.8, 1.0), 8, "diverge"),
+    (10, 32, 32, 0.1, True, 1000.0, (0.002, 0.003), 1, "maxdepth")]
+
+
+def nuts_lane_inputs(dim, C, jitter, max_err, step, draws, dev):
+    """(model, options, K1's eight inputs, K2's flags and inputs) of a
+    ``NUTS_LANE_CASES`` case: a state near N(3, 1) with a diagonal mass
+    matrix off the identity and steps U(step) for K1; ``draws`` warmup rows
+    (at most 6) with estimator and mass-matrix updates and, from 4 rows on,
+    a window switch, dual averaging from each chain's step for K2."""
+    from nuts_rs_tpu_torch.adapt.step_size import StepSizeSettings
+    from nuts_rs_tpu_torch.kernels.nuts import NutsOptions
+
+    mu = 3.0
+    model = tg.normal_logp(dim, mu)
+    opts = NutsOptions(maxdepth=10, max_energy_error=max_err)
+    rng = np.random.default_rng(dim)
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    q = f(mu + rng.normal(size=(C, dim)))
+    logp, g = model.logp_and_grad(q)
+    stds = f(rng.uniform(0.8, 1.2, size=(C, dim)))
+    mean = f(mu + 0.1 * rng.normal(size=(C, dim)))
+    logdet = -torch.log(stds).sum(1)
+    steps = f(rng.uniform(*step, size=C))
+    post = (q, g, logp, stds, mean, logdet, steps, steps.clone())
+    rows = min(draws, 6)
+    flags = torch.ones(rows, nf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, nf.FLAG_DO_SWITCH] = 0
+    if rows > 3:
+        flags[3, nf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, dim, device=dev)
+    sca = torch.zeros(C, nf.NSCA, device=dev)
+    sca[:, nf.SCA_STEP] = steps
+    sca[:, nf.SCA_DA_LS] = sca[:, nf.SCA_DA_LSA] = torch.log(steps)
+    sca[:, nf.SCA_DA_MU] = torch.log(10.0 * steps)
+    sca[:, nf.SCA_DA_CNT] = 1.0
+    sca[:, nf.SCA_LOGDET] = logdet
+    warm = (flags, q, g, logp, stds, mean, est, sca, model, opts,
+            StepSizeSettings(jitter=jitter))
+    return model, opts, post, warm
+
+
+def require_nuts_expect(stats, expect, what):
+    """Raise unless the draws' trees grow (``require_growing_trees``) and,
+    for "diverge", some draws diverged and some did not, for "maxdepth",
+    some tree reached maxdepth."""
+    require_growing_trees(stats, what)
+    div = stats["diverging"].cpu().numpy() != 0
+    if expect == "diverge":
+        assert div.any() and not div.all(), \
+            f"{what}: {div.mean():.0%} of draws diverged"
+    if expect == "maxdepth":
+        assert (stats["maxdepth_reached"].cpu().numpy() != 0).any(), \
+            f"{what}: no tree reached maxdepth"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "dim,B,C,jitter,use_grad_based,max_err,step,draws,expect",
+    NUTS_LANE_CASES)
+def test_nuts_lane_kernels_match_plain_versions_bit_for_bit(
+        dim, B, C, jitter, use_grad_based, max_err, step, draws, expect):
+    """K1 and K2 (a chain's coordinates on the lanes _build.nuts_lanes
+    gives) against their plain versions: every integer stat equal and every
+    float bit for bit, after the plain versions' draws showed the case's
+    growing trees, divergences or maxdepth."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    model, opts, post, warm = nuts_lane_inputs(dim, C, jitter, max_err, step,
+                                               draws, dev)
+    T = _build.nuts_lanes(dim, B)
+    assert T == 4 and B * T <= 512
+    what = f"d={dim} B={B} T={T} jitter={jitter} max_err={max_err}"
+    want = nf.nuts_fused_run_reference(3, *post, draws, model, opts, jitter,
+                                       block=B)
+    require_nuts_expect(want[4], expect, f"K1 {what}")
+    before = dict(nf.LAUNCHES)
+    got = nf.nuts_fused_run(3, *post, draws, model, opts, jitter, block=B)
+    for name in INT_STATS:
+        np.testing.assert_array_equal(got[4][name].cpu().numpy(),
+                                      want[4][name].cpu().numpy(),
+                                      err_msg=f"K1 {what} {name}")
+    for i in range(4):
+        _same_bits(got[i], want[i], f"K1 {what} output {i}")
+    for name in nf.STAT_NAMES:
+        _same_bits(got[4][name], want[4][name], f"K1 {what} {name}")
+
+    wargs = (*warm, use_grad_based)
+    want = nf.nuts_fused_warmup_run_reference(5, *wargs, block=B)
+    require_nuts_expect(want[8], expect, f"K2 {what}")
+    got = nf.nuts_fused_warmup_run(5, *wargs, block=B)
+    for name in INT_STATS + ("transformation_index",):
+        np.testing.assert_array_equal(got[8][name].cpu().numpy(),
+                                      want[8][name].cpu().numpy(),
+                                      err_msg=f"K2 {what} {name}")
+    for i in range(8):
+        _same_bits(got[i], want[i], f"K2 {what} output {i}")
+    for name in nf.WARMUP_STAT_NAMES:
+        _same_bits(got[8][name], want[8][name], f"K2 {what} {name}")
+    for key in ("nuts_fused_posterior", "nuts_fused_warmup"):
+        assert nf.LAUNCHES[key] == before[key] + 1, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [3, 4, 6, 10])
+def test_nuts_lane_rule_is_the_same_in_c(dim):
+    """csrc/nuts_tree.cuh::nuts_lanes gives the lanes _build.nuts_lanes
+    gives at every block of 1 .. 128 chains, in both libraries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.kernels import _build
+
+    for stem in ("nuts_fused_posterior", "nuts_fused_warmup"):
+        lib = _build.library(stem)
+        for B in range(1, _build.MAX_BLOCK + 1):
+            assert lib.nrt_nuts_lanes(dim, B) == _build.nuts_lanes(dim, B), \
+                (stem, B)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim,rows,block,micro,max_err,dynamic", [
     (37, 300, 8, True, 1000.0, True),

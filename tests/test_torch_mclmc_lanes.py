@@ -6,7 +6,7 @@ Coordinate j of a chain lies on lane j mod T of its group, in slot j / T.
 A sum over d gathers the d terms by shuffles within the group and every
 lane adds them in coordinate order, one after another.  The numpy
 emulation here repeats that gather lane by lane and must give the bits of
-the one-thread sum ``nuts_tree.cuh::dot`` and of ``ops.dsum``, which the
+the one-thread sum (``lanes.cuh::ordered_sum``) and of ``ops.dsum``, which the
 plain versions take; the kernels' own bits are held against the plain
 versions on the card (``tests/test_torch_kernels_cuda.py``, whose cases'
 halvings and give-ups are checked here on the plain versions first).
