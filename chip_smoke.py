@@ -7,10 +7,36 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the fused CUDA kernels from ``nuts_rs_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-and drives ten paths through ``Sampler(...).run()`` with
+and drives thirteen paths through ``Sampler(...).run()``, ten of them with
 ``posterior_kernel="pallas"`` (``--only PATH`` drives one of them: ``nuts``,
 ``mclmc``, ``large_d``, ``data``, ``mclmc_data``, ``stream``, ``sv``,
-``radon``, ``zoo`` or ``flow``, and builds only its kernels).  Two run
+``radon``, ``zoo``, ``flow``, ``mclmc_sync``, ``exact_normal`` or
+``mclmc_d400``, and builds only its kernels).  The last three are the sync
+engines': ``mclmc_sync`` is the MCLMC d=10 configuration below on the sync
+MCLMC engine (``DiagMclmcSettings``' default ``posterior_kernel="sync"``)
+with the ``store_gradient``, ``store_unconstrained``, ``store_divergences``
+and ``store_mass_matrix`` extra stores (the MCLMC gates below, the stored
+gradient within 1e-5 of -(q - 3), ``mass_matrix_inv`` of shape
+[C, draws, d], no fused launch); ``exact_normal`` is NUTS with the
+exact-normal kinetic energy on N(3, 1) at d=10 with 1024 chains, 100 +
+300 draws, a ``"pallas"`` request demoted to the sync NUTS engine with the
+JAX package's warning (the analytic moments, no divergence, acceptance at
+least 0.99: the JAX engine's is 0.999999 there, no fused launch);
+``mclmc_d400`` is MCLMC on N(3, 1) at d=400 with 512 chains, 200 + 300
+draws, between the fused MCLMC warmup's limit and the posterior's: the
+sync warmup, then K3's mid form, without a warning, held against the JAX
+sync engine (``tests/data/mclmc_normal_d400_reference.json``, made by
+``tests/data/make_mclmc_sync_reference.py``), its first posterior launch
+checked bit for bit on the path's own post-warmup states (K = 2, after
+asserting that the plain version's trajectories move) and timed.  In a
+whole run the first two run in a second process (``--beside``) beside
+the flow path's sync warmup; the flow path waits for it before it checks
+or times a kernel.  The NUTS d=10 path also runs ``Sampler.run`` once more
+with the transfer knobs (``keep_stats``, float16 ``draw_dtype`` and
+``stats_dtype``, ``store_warmup=False``: no warmup group, the kept stats
+alone, the positions the first run's cast to float16 bit for bit), and the
+large-d path twice more, at float32 and at float16 ``draw_dtype``, with
+their copies', ``finalize``'s and end-to-end seconds.  Two run
 N(3, 1) at d=10 with 1024 chains,
 300 tuning and 700 posterior draws: NUTS (``DiagNutsSettings``, kernels K1
 and K2) and MCLMC (``DiagMclmcSettings``, kernels K3 and K4, a chain's
@@ -276,6 +302,33 @@ MCLMC_INT_STATS = ("n_steps", "diverging", "loop_iterations")
 # the JAX package gives for the same settings on the CPU (PERF.md).
 MCLMC_JAX_STD = 1.011754
 MCLMC_STD_TOL = 0.05
+# the sync MCLMC path: the MCLMC main configuration on the sync MCLMC engine
+# (DiagMclmcSettings' default posterior_kernel="sync") with four extra
+# stores; its gates are the MCLMC path's (the std is the JAX package's sync
+# engine's at exactly these settings) and the stores'
+MSYNC_STORES = dict(store_gradient=True, store_unconstrained=True,
+                    store_divergences=True, store_mass_matrix=True)
+MSYNC_GRAD_TOL = 1e-5  # stored gradient against -(q - 3), absolute
+# the mixed MCLMC plan: d = 400 lies between the fused MCLMC warmup's limit
+# (361) and the posterior's (484), so the sync warmup, then K3's mid form;
+# the JAX benchmark's normal_d1000 chain and draw counts; held against the
+# JAX sync engine at the same settings (tests/data/
+# make_mclmc_sync_reference.py) as the other references are
+M400_DIM, M400_CHAINS, M400_TUNE, M400_DRAWS = 400, 512, 200, 300
+M400_REFERENCE = GLM_REFERENCE.with_name("mclmc_normal_d400_reference.json")
+M400_CHECK_DRAWS = 2
+# the exact-normal path: NUTS with the exact-normal kinetic energy, demoted
+# from "pallas" to the sync NUTS engine; the main path's chains and d, its
+# draws cut from 300 + 700 (the sync engine is host-bound).  NUTS is exact,
+# so the analytic moments hold; the acceptance is the JAX sync engine's at
+# these settings, near 1 (the integrator is exact for the adapted standard
+# normal, so dual averaging grows the step until the rotation wraps)
+EXACT_TUNE, EXACT_DRAWS = 100, 300
+EXACT_MIN_ACCEPT = 0.99
+# the transfer knobs' run of the NUTS d = 10 path
+KNOBS = dict(keep_stats=("mean_tree_accept",), draw_dtype=np.float16,
+             stats_dtype=np.float16, store_warmup=False)
+ALWAYS_KEPT = {"position", "diverging", "n_steps", "step_size"}
 # Kernels and plain versions round alike (-fmad=false, sums in coordinate
 # order, IEEE division), so every integer stat of every (chain, draw) must
 # agree and every float is compared, on all chains, within RTOL / ATOL.
@@ -606,14 +659,15 @@ def read_launch_counts(counts, names):
     return launches
 
 
-def run_sampler(model, settings, device, starts=None, samplers=None):
+def run_sampler(model, settings, device, starts=None, samplers=None,
+                **knobs):
     """Sampler.run with its seconds: set-up, warmup, posterior and the
     whole; ``starts``, a list, receives the chains' initial positions,
-    ``samplers`` the sampler."""
+    ``samplers`` the sampler; ``knobs`` are the transfer knobs."""
     from nuts_rs_tpu_torch import Sampler
 
     t0 = time.monotonic()
-    sampler = Sampler(model, settings, device=device)
+    sampler = Sampler(model, settings, device=device, **knobs)
     init_s = time.monotonic() - t0
     if starts is not None:
         starts.append(sampler.state.pt.q.cpu().numpy())
@@ -627,14 +681,18 @@ def run_sampler(model, settings, device, starts=None, samplers=None):
     return trace, init_s, warm_s, post_s, total_s
 
 
-def main_path(model, settings, device, kernels, what="main path"):
+def main_path(model, settings, device, kernels, what="main path",
+              traces=None):
     """One NUTS path through Sampler.run with its gates; ``kernels`` names
-    the launch counters it must move."""
+    the launch counters it must move; ``traces``, a list, receives the
+    trace."""
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     zero_launch_counts()
     trace, init_s, warm_s, post_s, total_s = run_sampler(model, settings,
                                                          device)
+    if traces is not None:
+        traces.append(trace)
     launches = read_launch_counts(nf.LAUNCHES, kernels)
     pos = trace.posterior["position"]
     st = trace.sample_stats
@@ -1191,6 +1249,11 @@ KERNELS = (
      "nuts_rs_tpu/kernels/nuts_pallas.py:202"),
     ("nuts_fused_flow_posterior_today", "nuts_fused_flow_posterior.cu",
      "nuts_rs_tpu/kernels/nuts_pallas.py:202"),
+    # K3's mid form in its block form (a model without data), on the d = 400
+    # MCLMC path's posterior after the sync warmup; its launches are the
+    # mid posterior count of that path
+    ("mclmc_fused_mid_block_posterior", "mclmc_fused_mid_posterior.cu",
+     "nuts_rs_tpu/kernels/mclmc_pallas.py:61"),
 )
 
 
@@ -1206,9 +1269,51 @@ def path_nuts(device, checks, launches, times):
     checks["nuts_fused_posterior"] = check_posterior(
         model, settings.nuts_options(), device)
     checks["nuts_fused_warmup"] = check_warmup(model, settings, device)
+    traces = []
     launches.update(main_path(model, settings, device,
-                              ("nuts_fused_posterior", "nuts_fused_warmup")))
+                              ("nuts_fused_posterior", "nuts_fused_warmup"),
+                              traces=traces))
+    knob_run(model, settings, device, traces[0])
     times.update(time_kernels(model, settings, device))
+
+
+def knob_run(model, settings, device, full):
+    """The NUTS d = 10 path once more with the transfer knobs (``KNOBS``):
+    no warmup group, exactly the kept and the always-kept stats at their
+    dtypes, and the positions the first run's ``full`` cast to float16, bit
+    for bit (same seed, same kernels)."""
+    trace, init_s, warm_s, post_s, total_s = run_sampler(model, settings,
+                                                         device, **KNOBS)
+    for group in ("warmup_posterior", "warmup_sample_stats"):
+        held = {k: v.shape for k, v in getattr(trace, group).items()
+                if v.shape[1]}
+        if held:
+            raise AssertionError(f"store_warmup=False stored {group}: {held}")
+    names = set(trace.sample_stats) | set(trace.posterior)
+    want = ALWAYS_KEPT | set(KNOBS["keep_stats"])
+    if names != want:
+        raise AssertionError(f"keep_stats: stored {sorted(names)}, expected "
+                             f"{sorted(want)}")
+    pos = trace.posterior["position"]
+    if pos.dtype != np.float16 or trace.sample_stats[
+            "mean_tree_accept"].dtype != np.float16:
+        raise AssertionError("draw_dtype / stats_dtype: positions "
+                             f"{pos.dtype}, mean_tree_accept "
+                             f"{trace.sample_stats['mean_tree_accept'].dtype}")
+    if trace.sample_stats["n_steps"].dtype != np.int32:
+        raise AssertionError("stats_dtype cast an integer stat")
+    cast = full.posterior["position"].astype(np.float16)
+    if not np.array_equal(pos.view(np.uint16), cast.view(np.uint16)):
+        bad = int((pos.view(np.uint16) != cast.view(np.uint16)).sum())
+        raise AssertionError(f"draw_dtype: {bad} positions differ from the "
+                             "first run's cast to float16")
+    knobs = ", ".join(f"{k}={np.dtype(v).name if 'dtype' in k else v!r}"
+                      for k, v in KNOBS.items())
+    print(f"transfer knobs ({knobs}): warmup {warm_s:.3f} s, posterior "
+          f"{post_s:.3f} s, total with trace assembly {total_s:.3f} s; no "
+          f"warmup group, stats "
+          f"{sorted(names)}, positions float16 equal to the first run's cast "
+          f"on all {pos.size}")
 
 
 def path_mclmc(device, checks, launches, times):
@@ -1254,8 +1359,43 @@ def path_large_d(device, checks, launches, times):
         ld_model, ld_settings, device,
         ("nuts_fused_ld_posterior", "nuts_fused_ld_warmup"),
         what="large-d path"))
+    copies = {np.dtype(dt or np.float32).name: copy_run(
+        ld_model, ld_settings, device, dt) for dt in (None, np.float16)}
+    print("large-d path, copies to the host, finalize, end to end (s): "
+          + "; ".join(f"draw_dtype={k}: {c:.3f}, {f:.3f}, {e:.3f}"
+                      for k, (c, f, e) in copies.items()))
     times.update(time_kernels(ld_model, ld_settings, device, "ld", LD_CHAINS,
                               LD_STEP))
+
+
+def copy_run(model, settings, device, draw_dtype):
+    """Sampler.run split into (seconds of the chunks' copies to the host,
+    of ``finalize``, end to end); a copy's seconds run from the chunk's
+    stats ready on the card (a synchronize) to their numpy arrays."""
+    from nuts_rs_tpu_torch import Sampler
+
+    class Timed(Sampler):
+        copy_s = 0.0
+
+        def _finish_chunk(self, lo, hi, stats, t0):
+            torch.cuda.synchronize()
+            t1 = time.monotonic()
+            out = super()._finish_chunk(lo, hi, stats, t0)
+            Timed.copy_s += time.monotonic() - t1
+            return out
+
+    t0 = time.monotonic()
+    sampler = Timed(model, settings, device=device, draw_dtype=draw_dtype)
+    while not sampler.finished:
+        sampler.run_next_chunk()
+    t1 = time.monotonic()
+    trace = sampler.trace.finalize()
+    t2 = time.monotonic()
+    want = np.float16 if draw_dtype is not None else np.float32
+    if trace.posterior["position"].dtype != want:
+        raise AssertionError(f"positions stored at "
+                             f"{trace.posterior['position'].dtype}")
+    return Timed.copy_s, t2 - t1, t2 - t0
 
 
 def path_data(device, checks, launches, times):
@@ -1353,6 +1493,222 @@ def path_mclmc_data(device, checks, launches, times):
     times.update(time_mclmc_kernels(
         glm, mglm_settings, device,
         state=glm_posterior_inputs(glm, device, mref_mean, mref_std, seed=2)))
+
+
+def fused_launches():
+    """Every fused-kernel launch counter of the port, by name."""
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    return {**nf.LAUNCHES, **mf.LAUNCHES}
+
+
+def require_no_fused_launch(what):
+    ran = {k: v for k, v in fused_launches().items() if v}
+    if ran:
+        raise AssertionError(f"{what} launched fused kernels: {ran}")
+
+
+def path_mclmc_sync(device, checks, launches, times):
+    """The MCLMC main configuration on the sync MCLMC engine (the default
+    posterior_kernel="sync"), with four extra stores; no fused kernel."""
+    from nuts_rs_tpu_torch import DiagMclmcSettings
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    model = normal_logp(DIM, MU)
+    settings = DiagMclmcSettings(num_chains=CHAINS, num_tune=TUNE,
+                                 num_draws=DRAWS, seed=SEED, **MSYNC_STORES)
+    zero_launch_counts()
+    trace, init_s, warm_s, post_s, total_s = run_sampler(model, settings,
+                                                         device)
+    require_no_fused_launch("the sync MCLMC path")
+    pos = trace.posterior["position"].astype(np.float64)
+    st, ws = trace.sample_stats, trace.warmup_sample_stats
+    mean, std = float(pos.mean()), float(pos.std())
+    n_div = int(st["diverging"].sum()) + int(ws["diverging"].sum())
+    n_steps = float(st["n_steps"].mean())
+    grad_err = max(
+        float(np.abs(s["gradient"] + (p["position"].astype(np.float64) - MU)
+                     ).max())
+        for s, p in ((st, trace.posterior), (ws, trace.warmup_posterior)))
+    mm = st["mass_matrix_inv"].shape
+    n_grad = int(st["n_steps"].sum())
+    print(f"sync MCLMC path: d={DIM} chains={CHAINS} tune={TUNE} "
+          f"draws={DRAWS}, stores {sorted(MSYNC_STORES)}: init {init_s:.3f} "
+          f"s, warmup {warm_s:.3f} s, posterior {post_s:.3f} s, total with "
+          f"trace assembly {total_s:.3f} s, "
+          f"{(warm_s + post_s) / (TUNE + DRAWS) * 1e3:.2f} ms a draw, "
+          f"{n_grad / max(post_s, 1e-9):.6g} posterior gradient "
+          "evaluations/s; no fused launch")
+    print(f"sync MCLMC posterior: mean {mean:.5f} std {std:.5f} (JAX sync "
+          f"engine: {MCLMC_JAX_STD}) divergences {n_div} mean n_steps "
+          f"{n_steps:.3f} (gate {MGLM_NSTEPS}), max |gradient + (q - 3)| "
+          f"{grad_err:.3g} (gate {MSYNC_GRAD_TOL}), mass_matrix_inv {mm}, "
+          f"divergence_reason max {int(st['divergence_reason'].max())}")
+    if not abs(mean - MU) < 0.02:
+        raise AssertionError(f"sync MCLMC mean {mean} not within 0.02 of {MU}")
+    if not abs(std - MCLMC_JAX_STD) < MCLMC_STD_TOL:
+        raise AssertionError(f"sync MCLMC std {std} not within "
+                             f"{MCLMC_STD_TOL} of {MCLMC_JAX_STD}")
+    if n_div:
+        raise AssertionError(f"{n_div} sync MCLMC divergences")
+    if not MGLM_NSTEPS[0] < n_steps < MGLM_NSTEPS[1]:
+        raise AssertionError(f"mean n_steps {n_steps} outside {MGLM_NSTEPS}")
+    if not grad_err <= MSYNC_GRAD_TOL:
+        raise AssertionError(f"stored gradient off -(q - 3) by {grad_err}")
+    if mm != (CHAINS, DRAWS, DIM):
+        raise AssertionError(f"mass_matrix_inv of shape {mm}")
+
+
+def path_mclmc_d400(device, checks, launches, times):
+    """MCLMC at d = 400: the sync warmup (above the fused warmup's limit),
+    then K3's mid form for the posterior, without a warning."""
+    import warnings
+
+    from nuts_rs_tpu_torch import DiagMclmcSettings, MclmcTrajectoryKind
+    from nuts_rs_tpu_torch.adapt import step_size as ss
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    model = normal_logp(M400_DIM, MU)
+    settings = DiagMclmcSettings(num_chains=M400_CHAINS, num_tune=M400_TUNE,
+                                 num_draws=M400_DRAWS, seed=SEED,
+                                 posterior_kernel="pallas")
+    mopts = settings._mclmc_options(MclmcTrajectoryKind.MICROCANONICAL)
+    form = _build.mclmc_mid_form(model, mopts)
+    ref_mean, ref_std, ref = glm_reference(M400_REFERENCE)
+    zero_launch_counts()
+    samplers, states = [], []
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        from nuts_rs_tpu_torch import Sampler
+
+        t0 = time.monotonic()
+        sampler = Sampler(model, settings, device=device)
+        samplers.append(sampler)
+        while not sampler.finished:
+            if sampler._next_draw == M400_TUNE:
+                states.append(sampler.state)
+                torch.cuda.synchronize()
+                warm_s = time.monotonic() - t0
+            sampler.run_next_chunk()
+        trace = sampler.trace.finalize()
+        total_s = time.monotonic() - t0
+    noted = [str(w.message) for w in seen
+             if issubclass(w.category, UserWarning)]
+    counts = fused_launches()
+    post = counts.pop("mclmc_fused_mid_posterior")
+    if noted:
+        raise AssertionError(f"the d = 400 plan warned: {noted}")
+    if post < 1 or any(counts.values()) or form != "block":
+        raise AssertionError(f"d = 400 launches: mid posterior {post}, "
+                             f"others {counts}, form {form}")
+    launches["mclmc_fused_mid_block_posterior"] = post
+    st = trace.sample_stats
+    mean_err, std_err = glm_moment_errors(trace, settings, M400_DIM,
+                                          ref_mean, ref_std)
+    n_div = int(st["diverging"].sum())
+    print(f"MCLMC d=400 path: chains={M400_CHAINS} tune={M400_TUNE} "
+          f"draws={M400_DRAWS}: sync warmup {warm_s:.3f} s (with set-up), "
+          f"total {total_s:.3f} s, {post} launches of K3's {form} form, no "
+          "fused warmup launch, no warning")
+    print(f"MCLMC d=400 posterior: max |mean - reference| {mean_err:.4f} "
+          f"posterior std (gate {GLM_MEAN_TOL}; the reference's Monte-Carlo "
+          f"error {ref['max_mc_error_of_mean_in_std']:.4f}), max |std / "
+          f"reference - 1| {std_err:.4f} (gate {GLM_STD_TOL}), divergences "
+          f"{n_div} (warmup "
+          f"{int(trace.warmup_sample_stats['diverging'].sum())}), mean "
+          f"n_steps {float(st['n_steps'].mean()):.3f}")
+    require_glm_moments(mean_err, std_err)
+    if n_div:
+        raise AssertionError(f"{n_div} MCLMC divergences at d = 400")
+    # the path's first posterior launch on its own post-warmup states
+    state = states[0]
+    t = state.transform
+    sset = settings.step_size_settings
+    args = (state.pt.q, state.pt.g, state.pt.logp, state.pt.v.contiguous(),
+            t.stds.contiguous(), t.mean.contiguous(), t.logdet,
+            state.step.step_size, ss.step_size_bar(state.step, sset))
+    out_k, out_p, ms, plain_ms = timed_pair(
+        lambda: mf.mclmc_fused_run(7, *args, M400_CHECK_DRAWS, model, mopts,
+                                   sset.jitter),
+        lambda: mf.mclmc_fused_run_reference(7, *args, M400_CHECK_DRAWS,
+                                             model, mopts, sset.jitter))
+    ps = out_p[-1]
+    if not (ps["n_steps"] > 0).any() or bool((ps["diverging"] > 0.5).all()):
+        raise AssertionError("d = 400 check: the plain version's "
+                             "trajectories do not move")
+    n, err = compare("K3 mid d=400", out_k, out_p,
+                     ("q_f", "g_f", "logp_f", "v_f"), mf.STAT_NAMES,
+                     MCLMC_INT_STATS)
+    print(f"K3 mid (block form) check on the d=400 path's own post-warmup "
+          f"states: C={M400_CHAINS} d={M400_DIM} K={M400_CHECK_DRAWS}: "
+          f"integer stats equal on all {n} (chain, draw) entries, max abs "
+          f"err {err:.3g} (draws, final state, all stats); mean n_steps "
+          f"{float(ps['n_steps'].mean()):.2f}, "
+          f"{float((ps['diverging'] > 0.5).float().mean()):.1%} divergent; "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+    checks["mclmc_fused_mid_block_posterior"] = check_row(
+        "mclmc", model, args, out_k, err, ms, plain_ms)
+    timed = chunk_time(
+        "mclmc", model,
+        lambda: mf.mclmc_fused_run(3, *args, CHUNK, model, mopts,
+                                   sset.jitter), args, 5)
+    times["mclmc_fused_mid_block_posterior"] = timed
+    print(f"time mclmc_fused_mid_block_posterior on the path's own states: "
+          f"{timed[0]:.4f} ms per {CHUNK}-draw launch at C={M400_CHAINS} "
+          f"d={M400_DIM}; bound {timed[1]:.5f} ms ({timed[2]})")
+
+
+def path_exact_normal(device, checks, launches, times):
+    """NUTS with the exact-normal kinetic energy: a "pallas" request demoted
+    to the sync NUTS engine with the JAX package's warning."""
+    import warnings
+
+    from nuts_rs_tpu_torch import DiagNutsSettings, KineticKind
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    model = normal_logp(DIM, MU)
+    settings = DiagNutsSettings(num_chains=CHAINS, num_tune=EXACT_TUNE,
+                                num_draws=EXACT_DRAWS, seed=SEED,
+                                kinetic_energy=KineticKind.EXACT_NORMAL,
+                                posterior_kernel="pallas")
+    zero_launch_counts()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        trace, init_s, warm_s, post_s, total_s = run_sampler(model, settings,
+                                                             device)
+    noted = [str(w.message) for w in seen
+             if "does not support: kinetic_energy=EXACT_NORMAL" in str(
+                 w.message)]
+    if len(noted) != 1:
+        raise AssertionError("the exact-normal demotion's warning is "
+                             f"missing: {[str(w.message) for w in seen]}")
+    require_no_fused_launch("the exact-normal path")
+    pos = trace.posterior["position"].astype(np.float64)
+    st = trace.sample_stats
+    mean, std = float(pos.mean()), float(pos.std())
+    n_div = int(st["diverging"].sum())
+    acc = float(st["mean_tree_accept"].mean())
+    print(f"exact-normal path: d={DIM} chains={CHAINS} tune={EXACT_TUNE} "
+          f"draws={EXACT_DRAWS}: init {init_s:.3f} s, warmup {warm_s:.3f} s, "
+          f"posterior {post_s:.3f} s, total {total_s:.3f} s, "
+          f"{(warm_s + post_s) / (EXACT_TUNE + EXACT_DRAWS) * 1e3:.2f} ms a "
+          f"draw; demoted with the JAX warning; no fused launch")
+    print(f"exact-normal posterior: mean {mean:.5f} std {std:.5f} "
+          f"divergences {n_div} mean accept {acc:.6f} step size "
+          f"{float(np.median(st['step_size_bar'][:, -1])):.4f} mean n_steps "
+          f"{float(st['n_steps'].mean()):.3f}")
+    if not abs(mean - MU) < 0.02:
+        raise AssertionError(f"exact-normal mean {mean} not within 0.02")
+    if not abs(std - 1.0) < 0.05:
+        raise AssertionError(f"exact-normal std {std} not within 0.05 of 1")
+    if n_div:
+        raise AssertionError(f"{n_div} exact-normal divergences")
+    if not acc >= EXACT_MIN_ACCEPT:
+        raise AssertionError(f"exact-normal mean accept {acc} below "
+                             f"{EXACT_MIN_ACCEPT}")
 
 
 def fp32_issue_per_s():
@@ -1890,6 +2246,8 @@ def path_flow(device, checks, launches, times):
     init_s = time.monotonic() - t0
     trace = sampler.run()
     total_s = time.monotonic() - t0
+    # the sync-engine paths' process ends before any kernel is timed
+    wait_beside()
     got = read_launch_counts(nf.LAUNCHES, (kernel,))
     others = {k: n for k, n in {**nf.LAUNCHES, **mf.LAUNCHES}.items()
               if k != kernel and n}
@@ -2165,11 +2523,51 @@ def flow_today(device, checks, launches, times):
           "divergent")
 
 
+# The paths on the sync engines alone launch no kernel and are host-bound
+# (one small kernel after another): in a whole run they run in a second
+# process beside the flow path's sync warmup, also host-bound, and the
+# flow path waits for that process before it checks or times a kernel
+# (wait_beside), so no kernel is timed beside them.
+BESIDE_PATHS = ("mclmc_sync", "exact_normal")
+BESIDE = []  # the second process and its start
+
+
+def start_beside():
+    """Start the sync-engine paths in a second process (``--beside``)."""
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--beside"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    BESIDE.append((proc, time.monotonic()))
+
+
+def wait_beside():
+    """Wait for the second process, relay its lines, raise if it failed."""
+    if not BESIDE:
+        return
+    proc, t0 = BESIDE.pop()
+    out, _ = proc.communicate(timeout=900)
+    print(out, end="")
+    print(f"paths {', '.join(BESIDE_PATHS)} in a second process: "
+          f"{time.monotonic() - t0:.1f} s from its start, exit "
+          f"{proc.returncode}", flush=True)
+    if proc.returncode:
+        raise AssertionError(f"the paths {BESIDE_PATHS} failed")
+
+
+def stop_beside():
+    for proc, _ in BESIDE:
+        proc.kill()
+        proc.wait()
+    BESIDE.clear()
+
+
 # in the order they run: the two paths whose sync warmups need no kernel
 # first, so that the build runs beside them
-PATHS = {"flow": path_flow, "stream": path_stream, "nuts": path_nuts,
-         "mclmc": path_mclmc, "large_d": path_large_d, "data": path_data,
-         "mclmc_data": path_mclmc_data, "sv": path_sv, "radon": path_radon,
+PATHS = {"flow": path_flow, "mclmc_sync": path_mclmc_sync,
+         "exact_normal": path_exact_normal, "stream": path_stream,
+         "nuts": path_nuts, "mclmc": path_mclmc, "large_d": path_large_d,
+         "data": path_data, "mclmc_data": path_mclmc_data,
+         "mclmc_d400": path_mclmc_d400, "sv": path_sv, "radon": path_radon,
          "zoo": path_zoo}
 # the sources each path launches (the smem-size helpers of the mid-d and ld
 # warmup kernels live in their posterior sources)
@@ -2185,6 +2583,10 @@ PATH_SOURCES = {
     "radon": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
     "zoo": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
     "flow": ("nuts_fused_flow_warp_posterior", "nuts_fused_flow_posterior"),
+    # the sync engines launch no kernel
+    "mclmc_sync": (),
+    "exact_normal": (),
+    "mclmc_d400": ("mclmc_fused_mid_posterior",),
 }
 
 
@@ -2207,22 +2609,33 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=sorted(PATHS), default=None,
                     help="drive this path alone and build only its kernels")
-    only = ap.parse_args(argv).only
+    ap.add_argument("--beside", action="store_true",
+                    help="drive the sync-engine paths alone, as the second "
+                         "process of a whole run does")
+    args = ap.parse_args(argv)
+    only = args.only
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA card "
                            "(torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if args.beside:
+        device = torch.device("cuda", 0)
+        for path in BESIDE_PATHS:
+            t0 = time.monotonic()
+            PATHS[path](device, {}, {}, {})
+            print(f"path {path}: {time.monotonic() - t0:.1f} s", flush=True)
+        return 0
     from nuts_rs_tpu_torch.kernels import _build
 
     device = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card)
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True, timeout=60)
     print(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}; torch "
           f"{torch.__version__} (CUDA {torch.version.cuda})")
-    paths = [only] if only else list(PATHS)
+    paths = [only] if only else [p for p in PATHS if p not in BESIDE_PATHS]
     stems = list(dict.fromkeys(stem for path in paths
                                for stem in PATH_SOURCES[path]))
     # the build runs beside the paths, in the order they need its sources,
@@ -2237,12 +2650,18 @@ def main(argv=None) -> int:
           f"{_build.BUILD_DIR}; the host's usable cores: {cores}", flush=True)
 
     checks, launches, times = {}, {}, {}
-    for path in paths:
-        t0, plain0 = time.monotonic(), PLAIN_SECONDS[0]
-        PATHS[path](device, checks, launches, times)
-        print(f"path {path}: {time.monotonic() - t0:.1f} s, of which the "
-              f"checks' plain versions {PLAIN_SECONDS[0] - plain0:.1f} s",
-              flush=True)
+    try:
+        if not only:
+            start_beside()
+        for path in paths:
+            t0, plain0 = time.monotonic(), PLAIN_SECONDS[0]
+            PATHS[path](device, checks, launches, times)
+            print(f"path {path}: {time.monotonic() - t0:.1f} s, of which the "
+                  f"checks' plain versions {PLAIN_SECONDS[0] - plain0:.1f} s",
+                  flush=True)
+        wait_beside()
+    finally:
+        stop_beside()
     _build.build(stems)  # raises where a source failed
     nvcc_s = _build.BUILD_INFO["nvcc_seconds"]
     print(f"build: the last nvcc ended "

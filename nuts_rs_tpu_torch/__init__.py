@@ -7,7 +7,10 @@ posterior of each run on hand-written CUDA kernels (``csrc/``: NUTS at
 small, mid and large d, with a model's data read inside the kernel or
 streamed, MCLMC, and NUTS through a frozen coupling flow) for CUDA tensors,
 and on their plain PyTorch versions for CPU tensors; ``FlowNutsSettings``
-warms up on the per-draw sync engine with the flow's refits.  The package
+warms up on the per-draw sync engine with the flow's refits.  The per-draw
+sync engines (``posterior_kernel="sync"``: NUTS with any tree option and
+kinetic energy, MCLMC) run any model, and take the extra stores and what
+the fused kernels lack, as the JAX package plans it.  The package
 imports torch and numpy and never JAX.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """

@@ -71,6 +71,7 @@ PURPOSE_LAUNCH_STEP = 5
 PURPOSE_MCLMC_WARMUP = 6
 PURPOSE_MCLMC_POSTERIOR = 7
 PURPOSE_SYNC_DRAW = 8
+PURPOSE_SYNC_MCLMC_DRAW = 9
 
 # The JAX runners' VMEM budgets in bytes (posterior ``chain.py:742-743``,
 # warmup ``:1008-1009``), kept so that a configuration takes the same path
@@ -121,26 +122,15 @@ def mclmc_max_dim(warmup: bool = False, args_bytes: int = 0) -> int:
     return (words - 64 - 16 * 8) // (32 + 16)
 
 
-def mclmc_refusal(model):
-    """Why the fused MCLMC kernels do not take ``model``, or None.  Above
-    the posterior limit the JAX package demotes the whole run to its sync
-    engine (``nuts_rs_tpu/sampler.py:431-438,457-458``); between the warmup
-    and the posterior limit it runs the per-draw sync warmup and the fused
-    posterior (``:482-491``).  The sync engines are item 8."""
-    dim, nbytes = model.dim, model.data_bytes
-    data = (f"with its {nbytes} bytes of data " if model.carries_data else "")
-    if dim > mclmc_max_dim(False, nbytes):
-        return (f"model {model.name!r} at dim {dim} {data}is above the fused "
-                f"MCLMC posterior launch's limit of "
-                f"{mclmc_max_dim(False, nbytes)}: the JAX package runs such "
-                "a model on its sync MCLMC engine (item 8, the sync engines)")
-    if dim > mclmc_max_dim(True, nbytes):
-        return (f"model {model.name!r} at dim {dim} {data}is above the fused "
-                f"MCLMC warmup launch's limit of "
-                f"{mclmc_max_dim(True, nbytes)}: the JAX package runs its "
-                "per-draw sync warmup before the fused posterior there "
-                "(item 8, the sync engines)")
-    return None
+def mclmc_fused_fits(model, warmup: bool) -> bool:
+    """Whether the JAX MCLMC posterior or, with ``warmup``, warmup runner
+    takes ``model`` (:func:`mclmc_max_dim` with the data's bytes).  Above
+    the posterior limit the JAX package runs the whole run on its sync MCLMC
+    engine, with a ``UserWarning`` (``nuts_rs_tpu/sampler.py:431-438``);
+    between the warmup and the posterior limit it runs the per-draw sync
+    warmup and the fused posterior, without one (``:457-491``).  The port
+    plans the same (``MclmcSettings.build_phases``)."""
+    return model.dim <= mclmc_max_dim(warmup, model.data_bytes)
 
 
 def stream_bytes(model) -> int:
@@ -261,6 +251,13 @@ class ChainConfig:
     # Non-None switches the sync warmup to per-chain good-draw window
     # advancement (adapt_strategy.rs:121-216).
     window_params: Optional[WindowParams] = None
+    # The extra stores (chain.py:119-123), which the sync draw steps emit;
+    # a request with any of them runs on the sync engines.
+    store_gradient: bool = False
+    store_unconstrained: bool = False
+    store_transformed: bool = False
+    store_divergences: bool = False
+    store_mass_matrix: bool = False
 
 
 class WindowState(NamedTuple):
@@ -493,28 +490,147 @@ def make_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
             "transformation_index": state.transform.id,
             "tuning": torch.full((C,), bool(flags["is_tuning"]), device=dev),
         }
+        stats.update(extra_stats(config, state, draw_pt, info.divergence,
+                                 transformed=True))
         return state, stats
 
     return draw_step
 
 
+def extra_stats(config: ChainConfig, state: ChainState, draw_pt,
+                divergence, transformed: bool):
+    """The extra stores of a sync draw step (``chain.py:391-411`` for NUTS,
+    ``:575-592`` for MCLMC, which stores no transformed point): the draw's
+    gradient and position, its transformed point, the divergence's
+    forensics (the seven ``divergence_*`` fields; a draw that did not
+    diverge keeps the empty record: NaN vectors, reason 0) and the
+    transform after the draw's adaptation."""
+    stats = {}
+    if config.store_gradient:
+        stats["gradient"] = draw_pt.g
+    if config.store_unconstrained:
+        stats["unconstrained_draw"] = draw_pt.q
+    if config.store_transformed and transformed:
+        stats["transformed_position"] = draw_pt.z
+        stats["transformed_gradient"] = draw_pt.zg
+    if config.store_divergences:
+        stats["divergence_start"] = divergence.start_location
+        stats["divergence_start_gradient"] = divergence.start_gradient
+        stats["divergence_start_momentum"] = divergence.start_momentum
+        stats["divergence_end"] = divergence.end_location
+        stats["divergence_momentum"] = divergence.end_momentum
+        stats["divergence_energy_error"] = divergence.energy_error
+        # 0 none, 1 energy, 2 non-finite logp, 3 non-finite gradient
+        # (hamiltonian.rs:26-55)
+        stats["divergence_reason"] = divergence.reason
+    if config.store_mass_matrix:
+        stats["mass_matrix_inv"] = state.transform.stds
+        stats["transformation_mu"] = state.transform.mean
+    return stats
+
+
+def make_mclmc_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
+                         mopts, base_seed: int):
+    """One draw of the sync MCLMC engine and its adaptation for all chains
+    (``chain.py:517-600``; nuts-rs ``MclmcChain::draw``,
+    src/mclmc.rs:487-546): ``(state, flags) -> (state, stats)``, ``flags``
+    one row of the schedule as Python booleans with ``resample_velocity``,
+    ``stats[name]`` shaped [C, ...] with the names and dtypes of the fused
+    MCLMC runners' ``_mclmc_stats``.  The estimators see the trajectory's
+    end; the step size is the fixed value, jittered every draw.
+
+    Randomness: the draw's seed is ``derive_seed(base_seed, draw index,
+    PURPOSE_SYNC_MCLMC_DRAW)``; ``kernels/mclmc.py`` documents the draw's
+    sites under it, and the jitter is its scalar site
+    ``(seed, it 0, salt 11, chain)``."""
+    from .kernels.mclmc import SALT_JITTER as MCLMC_SALT_JITTER
+    from .kernels.mclmc import mclmc_draw
+
+    logp_grad = model.logp_and_grad
+    sset = config.step_size
+    ops = getattr(strategy, "ops", AFFINE_OPS)
+
+    def draw_step(state: ChainState, flags):
+        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_SYNC_MCLMC_DRAW)
+        draw_pt, info = mclmc_draw(seed, state.pt, state.transform,
+                                   state.step.step_size, logp_grad, mopts,
+                                   bool(flags["resample_velocity"]), ops)
+        state = state._replace(pt=draw_pt)
+        C = draw_pt.q.shape[0]
+        dev = draw_pt.q.device
+        # --- adaptation: the collector sees the trajectory's end ---
+        if flags["update_estimators"]:
+            state = strategy.update_estimators(
+                state, info.draw_q, info.draw_g, info.is_good_for_adapt,
+                logp=info.draw_logp, energy_error=info.energy_change)
+        if flags["do_switch"]:
+            state = strategy.switch(state)
+        if flags["do_update"]:
+            state = strategy.adapt_update(state)
+        # the fixed step, jittered every draw (StepSizeAdaptMethod::Fixed
+        # with the default 10% jitter)
+        u = host_uniform(seed, 0, MCLMC_SALT_JITTER, (C,), dev)
+        state = state._replace(
+            step=ss.apply_jitter(u, state.step, sset,
+                                 bool(flags["use_best_guess"])),
+            draw_idx=state.draw_idx + 1)
+        stats = {
+            "position": draw_pt.q,
+            "diverging": info.diverging,
+            "n_steps": info.num_steps,
+            "energy_change": info.energy_change,
+            "log_weight": info.log_weight,
+            "average_step_size": info.average_step_size,
+            "step_size": state.step.step_size,
+            "logp": draw_pt.logp,
+            "energy": draw_pt.energy,
+            "fisher_distance": torch.sum(
+                torch.square(draw_pt.z + draw_pt.zg), -1),
+            "transformation_index": state.transform.id,
+            "tuning": torch.full((C,), bool(flags["is_tuning"]), device=dev),
+        }
+        stats.update(extra_stats(config, state, draw_pt, info.divergence,
+                                 transformed=False))
+        return state, stats
+
+    return draw_step
+
+
+def _run_rows(step, state: ChainState, flags):
+    """A chunk of a draw step: ``flags`` the chunk's schedule rows, the
+    stats stacked to [k, C, ...] (``sampler.py::_scan_chunk``)."""
+    rows = []
+    for i in range(len(flags["is_tuning"])):
+        state, stats = step(state, {name: bool(v[i])
+                                    for name, v in flags.items()})
+        rows.append(stats)
+    return state, {name: torch.stack([r[name] for r in rows])
+                   for name in rows[0]}
+
+
 def make_sync_runner(model, strategy: DiagStrategy, config: ChainConfig,
                      base_seed: int):
-    """Phase runner of the per-draw sync engine, with the fused runners'
-    signature: ``(state, flags) -> (state, stats)``, ``flags`` the chunk's
-    schedule rows and ``stats[name]`` shaped [k, C, ...]
+    """Phase runner of the per-draw sync NUTS engine, with the fused
+    runners' signature: ``(state, flags) -> (state, stats)``, ``flags`` the
+    chunk's schedule rows and ``stats[name]`` shaped [k, C, ...]
     (``sampler.py::_scan_chunk`` over ``make_draw_step``)."""
     step = make_draw_step(model, strategy, config, base_seed)
 
     def runner(state: ChainState, flags):
-        k = len(flags["is_tuning"])
-        rows = []
-        for i in range(k):
-            state, stats = step(state, {name: bool(v[i])
-                                        for name, v in flags.items()})
-            rows.append(stats)
-        return state, {name: torch.stack([r[name] for r in rows])
-                       for name in rows[0]}
+        return _run_rows(step, state, flags)
+
+    return runner
+
+
+def make_sync_mclmc_runner(model, strategy: DiagStrategy, config: ChainConfig,
+                           mopts, base_seed: int):
+    """Phase runner of the per-draw sync MCLMC engine
+    (``make_mclmc_draw_step``), with ``make_sync_runner``'s signature; the
+    schedule rows carry ``resample_velocity``."""
+    step = make_mclmc_draw_step(model, strategy, config, mopts, base_seed)
+
+    def runner(state: ChainState, flags):
+        return _run_rows(step, state, flags)
 
     return runner
 

@@ -1,15 +1,16 @@
 """Leapfrog integrators, trajectory initialization and the MCLMC momentum
 refresh, batched over chains.
 
-Port of ``nuts_rs_tpu/dynamics/hamiltonian.py`` (``:31-250``) for the
-Euclidean and the microcanonical (ESH, unit-sphere momentum) kinetic
-energies.  The transform enters through its operations ``ops``
+Port of ``nuts_rs_tpu/dynamics/hamiltonian.py`` (``:31-250``) for its
+three kinetic energies: Euclidean (velocity Verlet), exact-normal (the
+geodesic integrator, exact for a standard-normal potential: a half kick by
+``z + zg``, a rotation by the step, a half kick) and microcanonical (ESH,
+unit-sphere momentum).  The transform enters through its operations ``ops``
 (``transform/ops.py``: ``AFFINE_OPS`` by default, ``FlowOps`` for a flow,
 whose logdet depends on the position), as in the JAX module
 (``:80,113,178-215``).  Every function works on ``[C, d]`` tensors (the
 chain axis that JAX adds with ``vmap`` is written out).  The exact-normal
-kinetic energy raises ``NotImplementedError``; it comes with the sync
-engine, queue-1 item 8 of ROADMAP.md.
+kinetic energy runs on the sync engines only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,15 +32,6 @@ class KineticKind(enum.Enum):
     EUCLIDEAN = "euclidean"
     EXACT_NORMAL = "exact_normal"
     MICROCANONICAL = "microcanonical"
-
-
-def require_euclidean(kind: KineticKind) -> None:
-    """Refuse the kinetic energy this package has not ported (exact-normal);
-    Euclidean and microcanonical pass."""
-    if kind is KineticKind.EXACT_NORMAL:
-        raise NotImplementedError(
-            f"kinetic_energy={kind.name} is not ported yet (ROADMAP.md "
-            "queue 1 item 8, the sync engines)")
 
 
 def esh_momentum_update(zg, v, step, csum=hsum):
@@ -75,17 +67,25 @@ def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
              csum=hsum, ops=AFFINE_OPS) -> LeapfrogResult:
     """One leapfrog step (nuts-rs transformed_hamiltonian.rs:524-615).
 
-    ``direction`` is +1/-1 (int or [C]).  Divergence: Euclidean uses
-    ``err > max_energy_error``, microcanonical ``|err| >= max_energy_error``;
-    a non-finite energy always diverges.  ``csum`` sums over the parameter
-    axis (the host's ``hsum``; the sync NUTS engine passes ``torch.sum``)."""
-    require_euclidean(kind)
+    ``direction`` is +1/-1 (int or [C]).  Divergence: Euclidean and
+    exact-normal use ``err > max_energy_error``, microcanonical
+    ``|err| >= max_energy_error``; a non-finite energy always diverges.
+    ``csum`` sums over the parameter axis (the host's ``hsum``; the sync
+    engines pass ``torch.sum``)."""
     dtype = pt.z.dtype
-    eps_c = (torch.as_tensor(direction, dtype=dtype, device=pt.z.device)
-             * step_size * step_size_factor)
+    if isinstance(direction, int):
+        # a host direction multiplies last: +-1 times a product is exact,
+        # so the bits are those of direction * step * factor, without a
+        # host-to-device copy of the direction
+        eps_c = torch.as_tensor(step_size * step_size_factor * direction,
+                                dtype=dtype, device=pt.z.device)
+    else:
+        eps_c = (torch.as_tensor(direction, dtype=dtype, device=pt.z.device)
+                 * step_size * step_size_factor)
     eps_c = eps_c.expand(pt.z.shape[:-1])
     eps = eps_c[..., None]
     micro = kind is KineticKind.MICROCANONICAL
+    exact = kind is KineticKind.EXACT_NORMAL
     sqrt_n = math.sqrt(pt.z.shape[-1])
     ke = pt.ke
     if micro:
@@ -93,6 +93,12 @@ def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
                                        csum)
         ke = ke + dke1
         z1 = pt.z + eps * sqrt_n * v1
+    elif exact:
+        # std_norm_grad_flow, then std_norm_flow (util.rs:650,507-511)
+        v1 = pt.v + (eps / 2.0) * (pt.z + pt.zg)
+        cos_e, sin_e = torch.cos(eps), torch.sin(eps)
+        z1 = pt.z * cos_e + v1 * sin_e
+        v1 = -pt.z * sin_e + v1 * cos_e
     else:
         v1 = pt.v + (eps / 2.0) * pt.zg
         z1 = pt.z + eps * v1
@@ -101,14 +107,18 @@ def leapfrog(pt: Point, direction, step_size, transform: AffineTransform,
     if micro:
         v2, dke2 = esh_momentum_update(zg1, v1, sqrt_n * eps_c / 2.0, csum)
         ke = ke + dke2
+    elif exact:
+        v2 = v1 + (eps / 2.0) * (z1 + zg1)
+        ke = 0.5 * csum(v2 * v2)
     else:
         v2 = v1 + (eps / 2.0) * zg1
         ke = 0.5 * csum(v2 * v2)
     new_pt = Point(
         q=q1, g=g1, z=z1, zg=zg1, v=v2, logp=logp1,
         logdet=logdet1.to(dtype), ke=ke,
-        idx=pt.idx + torch.as_tensor(direction, dtype=torch.int32,
-                                     device=pt.z.device),
+        idx=pt.idx + (direction if isinstance(direction, int) else
+                      torch.as_tensor(direction, dtype=torch.int32,
+                                      device=pt.z.device)),
     )
     energy_error = new_pt.energy - energy_baseline
     if micro:
@@ -133,14 +143,13 @@ def is_turning(z1, v1, i1, z2, v2, i2):
 
 
 def sample_momentum(seed: int, it: int, salt1: int, salt2: int, shape,
-                    dtype, device, kind: KineticKind):
+                    dtype, device, kind: KineticKind, csum=hsum):
     """Fresh Gaussian momentum from the counter hash (flat index); on the
     unit sphere for the microcanonical kind (transformed_hamiltonian.rs
-    :696-704)."""
-    require_euclidean(kind)
+    :696-704); Gaussian for the Euclidean and exact-normal kinds."""
     v = host_normals(seed, it, salt1, salt2, shape, device).to(dtype)
     if kind is KineticKind.MICROCANONICAL:
-        v = v / torch.sqrt(hsum(v * v))[..., None]
+        v = v / torch.sqrt(csum(v * v))[..., None]
     return v
 
 
@@ -160,43 +169,61 @@ def init_point_from_q(q, transform: AffineTransform, logp_grad_fn,
 
 def initialize_trajectory(pt: Point, transform: AffineTransform,
                           kind: KineticKind, v=None,
-                          ops=AFFINE_OPS) -> Point:
+                          ops=AFFINE_OPS, csum=hsum) -> Point:
     """Set the momentum and re-sync the transform cache before a draw
     (nuts-rs initialize_trajectory, transformed_hamiltonian.rs:687-736).
     The caller draws a fresh ``v`` (see ``sample_momentum``); ``v=None``
     carries ``pt.v`` verbatim, as ``resample_velocity=False`` does.  Under a
-    flow the re-sync is an inverse and a forward vector-Jacobian product."""
-    require_euclidean(kind)
+    flow the re-sync is an inverse and a forward vector-Jacobian product.
+    The kinetic energy is 0 on the unit sphere, ``0.5 |v|^2`` for the
+    Euclidean and exact-normal kinds."""
     v = pt.v if v is None else v
     z, zg, logdet = ops.eval_from_q(transform, pt.q, pt.g)
     if kind is KineticKind.MICROCANONICAL:
         ke = torch.zeros_like(pt.logp)
     else:
-        ke = 0.5 * hsum(v * v)
+        ke = 0.5 * csum(v * v)
     return pt._replace(
         v=v, z=z, zg=zg, logdet=logdet.to(pt.q.dtype), ke=ke,
         idx=torch.zeros_like(pt.idx),
     )
 
 
+def refresh_coefficients(step_size, factor, decoherence_length,
+                         kind: KineticKind, v):
+    """The partial refresh's coefficients for velocities like ``v`` [C, d]
+    (transformed_hamiltonian.rs:777-826), with h = step * factor / 2:
+    microcanonical nu = sqrt(expm1(2 h / L) / n); Euclidean and
+    exact-normal (alpha, beta) = (exp(-h / L), sqrt(1 - alpha^2)), each
+    [C, 1].  ``step_size`` and ``factor`` are floats or [C]."""
+    half_step = torch.as_tensor(step_size * factor / 2.0,
+                                dtype=v.dtype, device=v.device)
+    half_step = half_step.expand(v.shape[:-1])[..., None]
+    if kind is KineticKind.MICROCANONICAL:
+        n = float(v.shape[-1])
+        return torch.sqrt(torch.expm1(2.0 * half_step / decoherence_length)
+                          / n)
+    alpha = torch.exp(-half_step / decoherence_length)
+    return alpha, torch.sqrt(1.0 - alpha * alpha)
+
+
+def refresh_momentum(pt: Point, noise, coeffs, kind: KineticKind,
+                     csum=hsum) -> Point:
+    """The partial refresh with ``refresh_coefficients``' ``coeffs``:
+    microcanonical v <- normalize(v + nu z), else
+    v <- alpha v + beta z with ke = |v|^2 / 2."""
+    if kind is KineticKind.MICROCANONICAL:
+        v = pt.v + coeffs * noise
+        return pt._replace(v=v / torch.sqrt(csum(v * v))[..., None])
+    alpha, beta = coeffs
+    v = alpha * pt.v + beta * noise
+    return pt._replace(v=v, ke=0.5 * csum(v * v))
+
+
 def partial_momentum_refresh(pt: Point, noise, step_size, factor,
                              decoherence_length, kind: KineticKind) -> Point:
     """MCLMC Ornstein-Uhlenbeck partial momentum refresh
-    (transformed_hamiltonian.rs:777-826).  Microcanonical:
-    nu = sqrt(expm1(2 h / L) / n), v <- normalize(v + nu z); Euclidean:
-    alpha = exp(-h / L), v <- alpha v + sqrt(1 - alpha^2) z.  ``step_size``
-    and ``factor`` are floats or [C]."""
-    require_euclidean(kind)
-    half_step = torch.as_tensor(step_size * factor / 2.0,
-                                dtype=pt.v.dtype, device=pt.v.device)
-    half_step = half_step.expand(pt.v.shape[:-1])[..., None]
-    if kind is KineticKind.MICROCANONICAL:
-        n = float(pt.v.shape[-1])
-        nu = torch.sqrt(torch.expm1(2.0 * half_step / decoherence_length) / n)
-        v = pt.v + nu * noise
-        v = v / torch.sqrt(hsum(v * v))[..., None]
-        return pt._replace(v=v)
-    alpha = torch.exp(-half_step / decoherence_length)
-    beta = torch.sqrt(1.0 - alpha * alpha)
-    v = alpha * pt.v + beta * noise
-    return pt._replace(v=v, ke=0.5 * hsum(v * v))
+    (transformed_hamiltonian.rs:777-826): ``refresh_momentum`` with the
+    coefficients of ``step_size * factor``."""
+    return refresh_momentum(pt, noise, refresh_coefficients(
+        step_size, factor, decoherence_length, kind, pt.v), kind)

@@ -445,8 +445,8 @@ def _model_and_block(q, model, B, max_block=MAX_BLOCK, coord=False):
     if model.kernel_hook is None or model.hook_parts()[0] not in MODEL_IDS:
         raise NotImplementedError(
             f"model {model.name!r} has no kernel hook the CUDA kernels "
-            "compile in: the JAX package falls back to its sync engine "
-            "for such a model (ROADMAP.md queue 1 item 9)")
+            "compile in: the sampler plans such a model onto the sync "
+            "engine (build_phases)")
     name, floats, tensors = model.hook_parts()
     if coord and name not in COORD_FUNCTORS:
         raise ValueError(

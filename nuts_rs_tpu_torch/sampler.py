@@ -30,16 +30,26 @@ sync engine with its refits (``adapt/flow.py``) and, with ``"pallas"``,
 draws the posterior on kernel K1-flow with the frozen pooled flow; a flow
 without kernel hooks, an unpooled one or one beyond the JAX runner's size
 rule stays on the sync engine, with that package's ``UserWarning``.
-MCLMC runs the fused engine only: warmup on the fused MCLMC warmup
-kernel, split at the Euclidean -> microcanonical switch, and the posterior
-on the fused MCLMC posterior kernel, with or without model data, up to the
-JAX MCLMC runners' own limits (``chain.mclmc_max_dim``).  ``posterior_kernel="pallas"`` keeps
-its name, so one user script runs on both packages; in this package it selects the hand-written
-CUDA kernels (and their plain PyTorch versions for CPU tensors).  A setting
-the slice does not take raises ``NotImplementedError`` naming the ROADMAP.md
-item that ports it; nothing runs quietly on another path.  The control
-surface (pause/resume, checkpoints, progress, convergence stop, transfer
-knobs, expansions) is queue-1 item 9.
+MCLMC runs on two engines too: ``"sync"`` (the default) is the per-draw
+sync MCLMC engine (``kernels/mclmc.py`` under
+``chain.make_mclmc_draw_step``), split at the Euclidean -> microcanonical
+switch; ``"pallas"`` is the fused warmup, split there, and the fused
+posterior, with or without model data, up to the JAX MCLMC runners' own
+limits (``chain.mclmc_max_dim``): the sync warmup before the fused posterior
+between the warmup's and the posterior's limit, the sync engine throughout
+above it or with an extra store (with the JAX package's ``UserWarning``).
+A model without a kernel hook runs on the sync engine of either sampler
+with a ``UserWarning``.  Every demotion is decided in ``build_phases``,
+before any launch.  ``posterior_kernel="pallas"`` keeps its name, so one
+user script runs on both packages; in this package it selects the
+hand-written CUDA kernels (and their plain PyTorch versions for CPU
+tensors).  A setting the slice does not take raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it; nothing
+runs quietly on another path.  The extra stores run on the sync engines;
+the transfer knobs (``keep_stats``, ``draw_dtype``, ``stats_dtype``,
+``store_warmup``) act on the device before a chunk's copy.  The rest of
+the control surface (pause/resume, checkpoints, progress, convergence
+stop, expansions) is queue-1 item 9.
 """
 
 from __future__ import annotations
@@ -66,12 +76,13 @@ from .chain import (
     cl_max_dim,
     fused_layout,
     init_chain_state,
-    mclmc_refusal,
+    mclmc_fused_fits,
     make_fused_mclmc_posterior_runner,
     make_fused_mclmc_warmup_runner,
     make_flow_posterior_runner,
     make_fused_posterior_runner,
     make_fused_warmup_runner,
+    make_sync_mclmc_runner,
     make_sync_runner,
     stream_block,
 )
@@ -145,10 +156,15 @@ class NutsSettings:
                     "adapt.window_by_good_draws=True is incompatible with "
                     "cross_chain_adaptation=True")
             window_params = build_window_params(self.num_tune, self.adapt)
+        if self.store_mass_matrix and self.mass_matrix == "flow":
+            raise ValueError(
+                "store_mass_matrix stores a diagonal transform's stds and "
+                "mean; a flow has neither")
         return ChainConfig(nuts=self.nuts_options(),
                            step_size=self.step_size,
                            use_grad_based_estimate=self.use_grad_based_estimate,
-                           window_params=window_params)
+                           window_params=window_params,
+                           **_store_fields(self))
 
     @property
     def _posterior_kernel(self) -> str:
@@ -172,6 +188,10 @@ class NutsSettings:
             reasons.append("target_integration_time")
         if not self.check_turning:
             reasons.append("check_turning=False")
+        if any(_store_fields(self).values()):
+            reasons.append("store_gradient/store_unconstrained/"
+                           "store_transformed/store_divergences/"
+                           "store_mass_matrix")
         return reasons
 
     def _fused(self) -> bool:
@@ -199,15 +219,9 @@ class NutsSettings:
             reasons.append("mass_matrix='low_rank' (item 14)")
         elif self.mass_matrix not in ("diag", "flow"):
             raise ValueError(f"unknown mass_matrix {self.mass_matrix!r}")
-        if self.kinetic_energy is KineticKind.EXACT_NORMAL:
-            reasons.append("kinetic_energy=EXACT_NORMAL (item 8)")
-        if (self.store_gradient or self.store_unconstrained
-                or self.store_transformed or self.store_divergences
-                or self.store_mass_matrix):
-            reasons.append("store_* extra stores (item 9)")
         if self.cross_chain_adaptation or self.mesh_axis_name is not None:
             reasons.append("cross-chain adaptation / meshes (item 17)")
-        if reasons or not self._fused():
+        if reasons or not self._fused() or model.kernel_hook is None:
             return reasons
         if self.mass_matrix == "flow":
             return _flow_model_reasons(model, self.maxdepth, device)
@@ -226,10 +240,13 @@ class NutsSettings:
         warmup where the settings or the model's data rule the fused warmup
         out; the sync engine throughout, with the JAX package's
         ``UserWarning``, where no fused posterior tier takes the model
-        (``:240-251``).  A flow run is the sync warmup with its refits, then
-        the K1-flow posterior (``nuts_rs_tpu/sampler.py:252-281``), or the
-        sync engine throughout where the runner declines the flow.  Raises
-        ``NotImplementedError`` for what :meth:`unsupported` lists."""
+        (``:240-251``), and with a warning of its own for a model without a
+        kernel hook (the kernels compile device functors only; the JAX
+        package traces such a model's closure into its kernels).  A flow
+        run is the sync warmup with its refits, then the K1-flow posterior
+        (``nuts_rs_tpu/sampler.py:252-281``), or the sync engine throughout
+        where the runner declines the flow.  Raises ``NotImplementedError``
+        for what :meth:`unsupported` lists."""
         _refuse(self.unsupported(model, device))
         total = self.num_tune + self.num_draws
         strategy = strategy or _strategy_for(self, config)
@@ -241,6 +258,9 @@ class NutsSettings:
                     "engine does not support: "
                     + "; ".join(self._pallas_disqualifiers())
                     + " — using the sync engine", UserWarning)
+            return [(0, total, sync)]
+        if model.kernel_hook is None:
+            _warn_no_hook(model)
             return [(0, total, sync)]
         if self.mass_matrix == "flow":
             post = make_flow_posterior_runner(model, strategy, config,
@@ -323,21 +343,32 @@ def _schedule_for(settings):
 
 
 def _flow_model_reasons(model: Model, maxdepth: int, device) -> list:
-    """What kernel K1-flow does not take of ``model`` on ``device``: a
-    model without a device functor (the JAX package traces such a model's
-    closure into its flow kernel, or falls back to its sync engine), and on
-    CUDA a maxdepth beyond the kernels that take it at launch.  A model or
-    flow the JAX runner's size rule rejects is no refusal: the run stays on
-    the sync engine, as in the JAX package (``build_phases``)."""
-    if model.kernel_hook is None:
-        return [f"model {model.name!r} without a kernel_hook: kernel K1-flow "
-                "compiles device functors only (posterior_kernel='sync' "
-                "runs it here; item 9, engine fallback with provenance)"]
+    """What kernel K1-flow does not take of ``model`` on ``device``: on
+    CUDA a maxdepth beyond the kernels that take it at launch.  A model
+    without a device functor, or a model or flow the JAX runner's size rule
+    rejects, is no refusal: the run stays on the sync engine
+    (``build_phases``)."""
     on_cuda = device is not None and torch.device(device).type == "cuda"
     if on_cuda and maxdepth > _build.LD_MAX_MAXDEPTH:
         return [f"maxdepth {maxdepth} on CUDA: kernel K1-flow takes at most "
                 f"{_build.LD_MAX_MAXDEPTH} (item 12)"]
     return []
+
+
+def _store_fields(settings) -> dict:
+    return {name: getattr(settings, name) for name in (
+        "store_gradient", "store_unconstrained", "store_transformed",
+        "store_divergences", "store_mass_matrix")}
+
+
+def _warn_no_hook(model: Model):
+    """The demotion of a model without a kernel hook, decided before any
+    launch (the JAX package traces such a model's logp into its kernels;
+    the port's kernels compile device functors only)."""
+    warnings.warn(
+        f"posterior_kernel='pallas' requested but model {model.name!r} has "
+        "no kernel_hook (the fused kernels compile device functors only) — "
+        "using the sync engine", UserWarning)
 
 
 def _refuse(reasons):
@@ -348,28 +379,20 @@ def _refuse(reasons):
 
 def _model_reasons(model: Model, maxdepth: int, device, ld: bool,
                    warmup: bool = True) -> list:
-    """What the fused kernels do not take of ``model`` on ``device``.
+    """What the fused kernels do not take of ``model`` on ``device``, for a
+    model with a kernel hook (one without runs on the sync engine).
     ``ld``: the sampler is NUTS, which has a dim-on-lanes layout for models
     above ``cl_max_dim`` and a streamed posterior kernel for data beyond the
     resident rule (``warmup``: the settings ask for the fused warmup too);
     the MCLMC kernels are chains-on-lanes only, as in the JAX package
     (``mclmc_pallas.py:62``), with limits of their own
-    (``chain.mclmc_refusal``), and the JAX MCLMC runners refuse a model
-    whose data only stream (``nuts_rs_tpu/chain.py:1228-1230``) for its sync
-    engine, item 8."""
+    (``chain.mclmc_fused_fits``), beyond which the run or its warmup is on
+    the sync MCLMC engine, as in the JAX package."""
     reasons = []
     on_cuda = device is not None and torch.device(device).type == "cuda"
-    if model.kernel_hook is None:
-        sync = ("its sync NUTS engine (posterior_kernel='sync' runs it here)"
-                if ld else "its sync MCLMC engine (item 8 ports it)")
-        return [f"model {model.name!r} without a kernel_hook: the fused "
-                "kernels compile device functors only, and the JAX package "
-                "runs a model its kernels cannot trace on " + sync
-                + " (item 9, engine fallback with provenance)"]
     if not ld:
-        reason = mclmc_refusal(model)
-        if reason is not None:
-            return [reason]
+        if not mclmc_fused_fits(model, warmup=False):
+            return reasons
         if not on_cuda or nuts_fused.cl_kernel(model, model.dim) == "thread":
             return reasons
         need = _build.mclmc_mid_smem_bytes(model.dim, model)
@@ -382,9 +405,9 @@ def _model_reasons(model: Model, maxdepth: int, device, ld: bool,
             reasons.append(
                 f"model {model.name!r} on CUDA: the mid-d MCLMC kernels "
                 f"keep {need} bytes per chain in one block's shared "
-                f"memory of {_build.SMEM_OPT_IN_BYTES}; data of that "
-                "size must stream (item 8: the JAX MCLMC runners stream "
-                "no data)")
+                f"memory of {_build.SMEM_OPT_IN_BYTES}; the JAX MCLMC "
+                "runners take it in their fused kernels (item 12: data "
+                "beyond a block's shared memory)")
         return reasons
     config = ChainConfig(nuts=NutsOptions(maxdepth=maxdepth),
                          step_size=StepSizeSettings())
@@ -468,7 +491,8 @@ class MclmcSettings:
         return ChainConfig(
             nuts=NutsOptions(max_energy_error=self.max_energy_error),
             step_size=self.step_size_settings,
-            use_grad_based_estimate=self.use_grad_based_estimate)
+            use_grad_based_estimate=self.use_grad_based_estimate,
+            **_store_fields(self))
 
     @property
     def switch_draw(self) -> Optional[int]:
@@ -488,62 +512,108 @@ class MclmcSettings:
                   else KineticKind.EUCLIDEAN),
             store_divergences=self.store_divergences)
 
+    def _pallas_disqualifiers(self) -> list:
+        """Settings that keep a ``posterior_kernel="pallas"`` request off
+        the fused MCLMC engine (``nuts_rs_tpu/sampler.py:376-388``; the
+        other mass matrices, meshes and pooling are refused altogether in
+        :meth:`unsupported`)."""
+        return [f"{name}=True" for name, on in _store_fields(self).items()
+                if on]
+
+    def _fused_posterior(self, model: Model) -> bool:
+        """Whether the posterior runs on the fused MCLMC kernel: a
+        ``"pallas"`` request without disqualifiers, for a model with a
+        kernel hook that the JAX posterior runner takes."""
+        return (self.posterior_kernel == "pallas"
+                and not self._pallas_disqualifiers()
+                and model.kernel_hook is not None
+                and mclmc_fused_fits(model, warmup=False))
+
     def unsupported(self, model: Model, device=None) -> list:
         """What this package does not take on ``device``, each with the
         ROADMAP.md item that ports it (queue 1)."""
         reasons = []
-        if self.posterior_kernel == "sync":
-            reasons.append("posterior_kernel='sync' (item 8, the sync "
-                           "engines: kernels/mclmc.py::mclmc_draw)")
-        elif self.posterior_kernel != "pallas":
+        if self.posterior_kernel not in ("sync", "pallas"):
             raise ValueError(
                 f"unknown posterior_kernel {self.posterior_kernel!r}")
         if self.mass_matrix == "low_rank":
             reasons.append("mass_matrix='low_rank' (item 14)")
         elif self.mass_matrix == "flow":
-            reasons.append("mass_matrix='flow' (items 8 and 15: the JAX "
-                           "package refits MCLMC's flow on its sync MCLMC "
-                           "engine, which item 8 ports)")
+            reasons.append("mass_matrix='flow' (item 15: the JAX package "
+                           "refits MCLMC's flow on its sync MCLMC engine; "
+                           "the refit's gates need a reference of their "
+                           "own)")
         elif self.mass_matrix != "diag":
             raise ValueError(f"unknown mass_matrix {self.mass_matrix!r}")
-        if (self.store_gradient or self.store_unconstrained
-                or self.store_transformed or self.store_divergences
-                or self.store_mass_matrix):
-            reasons.append("store_* extra stores (item 9)")
         if self.cross_chain_adaptation or self.mesh_axis_name is not None:
             reasons.append("cross-chain adaptation / meshes (item 17)")
-        return reasons + _model_reasons(model, 10, device, ld=False)
+        if reasons or not self._fused_posterior(model):
+            return reasons
+        return _model_reasons(model, 10, device, ld=False)
 
-    def build_phases(self, model: Model, config: ChainConfig, device=None):
+    def build_phases(self, model: Model, config: ChainConfig, device=None,
+                     strategy=None):
         """``[(start, end, runner)]`` as the JAX package plans them
-        (``sampler.py:405-492``): fused warmup split at the Euclidean ->
-        microcanonical switch, then the fused posterior (the diagonal
-        adaptation runs in the kernels).  Raises
-        ``NotImplementedError`` for what :meth:`unsupported` lists."""
+        (``nuts_rs_tpu/sampler.py:390-492``).  ``"sync"``: the sync MCLMC
+        engine throughout, split at the Euclidean -> microcanonical switch.
+        ``"pallas"``: the fused warmup split at the switch, then the fused
+        posterior (the diagonal adaptation runs in the kernels); the sync
+        warmup before the fused posterior where the JAX warmup runner is
+        None (d = 362..484 without data); the sync engine throughout where
+        the fused posterior cannot run: an extra store (the JAX package's
+        ``UserWarning``, ``:415-423``), a model above the JAX posterior
+        runner's limit or whose data only stream (its other warning,
+        ``:430-438``) or a model without a kernel hook (a warning of the
+        port's own).  Every demotion is decided here, before any launch.
+        Raises ``NotImplementedError`` for what :meth:`unsupported`
+        lists."""
         _refuse(self.unsupported(model, device))
         if model.dim < 2 and self.trajectory_kind is not (
                 MclmcTrajectoryKind.EUCLIDEAN):
             raise ValueError("the microcanonical dynamics need dim >= 2 "
                              "(the ESH step divides by dim - 1)")
+        if self.posterior_kernel == "pallas":
+            reasons = self._pallas_disqualifiers()
+            if reasons:
+                warnings.warn(
+                    "posterior_kernel='pallas' requested but the fused "
+                    "MCLMC engine does not support: " + "; ".join(reasons)
+                    + " — using the sync engine", UserWarning)
+            elif model.kernel_hook is None:
+                _warn_no_hook(model)
+            elif not mclmc_fused_fits(model, warmup=False):
+                warnings.warn(
+                    "posterior_kernel='pallas' requested but no fused-"
+                    "engine tier fits this model (VMEM budget or "
+                    "streaming-only likelihood) — using the sync engine",
+                    UserWarning)
         total = self.num_tune + self.num_draws
         sw = self.switch_draw
-        if sw is None:
-            warm = [(0, total)]
-        else:
-            warm = [(0, sw), (sw, total)]
+        strategy = strategy or DiagStrategy(config)
+
+        def kind_of(hi):
+            if sw is None:
+                return self.trajectory_kind
+            return (MclmcTrajectoryKind.EUCLIDEAN if hi <= sw
+                    else MclmcTrajectoryKind.MICROCANONICAL)
+
+        warm = [(0, total)] if sw is None else [(0, sw), (sw, total)]
+        if not self._fused_posterior(model):
+            return [(lo, hi, make_sync_mclmc_runner(
+                model, strategy, config, self._mclmc_options(kind_of(hi)),
+                self.seed)) for lo, hi in warm]
+        # the fused engine takes over at num_tune
+        warm = [(lo, min(hi, self.num_tune)) for lo, hi in warm
+                if lo < self.num_tune]
+        fused_warm = mclmc_fused_fits(model, warmup=True)
         phases = []
         for lo, hi in warm:
-            if lo >= self.num_tune:
-                continue
-            hi = min(hi, self.num_tune)
-            if sw is None:
-                kind = self.trajectory_kind
-            elif hi <= sw:
-                kind = MclmcTrajectoryKind.EUCLIDEAN
-            else:
-                kind = MclmcTrajectoryKind.MICROCANONICAL
-            phases.append((lo, hi, make_fused_mclmc_warmup_runner(
-                model, config, self._mclmc_options(kind), self.seed)))
+            mopts = self._mclmc_options(kind_of(hi))
+            phases.append((lo, hi, (
+                make_fused_mclmc_warmup_runner(model, config, mopts,
+                                               self.seed) if fused_warm
+                else make_sync_mclmc_runner(model, strategy, config, mopts,
+                                            self.seed))))
         post_kind = (MclmcTrajectoryKind.EUCLIDEAN
                      if self.trajectory_kind is MclmcTrajectoryKind.EUCLIDEAN
                      else MclmcTrajectoryKind.MICROCANONICAL)
@@ -574,7 +644,7 @@ def DiagMclmcSettings(**kw) -> MclmcSettings:
 def FlowMclmcSettings(**kw) -> MclmcSettings:
     """Defaults of nuts-rs ``FlowMclmcSettings`` (src/sampler.rs:334,
     390-392): 1500 tuning draws, 1 chain, max_energy_error 20, a learned
-    flow.  Refused for now (items 8 and 15)."""
+    flow.  Refused for now (item 15)."""
     kw.setdefault("num_tune", 1500)
     kw.setdefault("num_chains", 1)
     kw.setdefault("max_energy_error", 20.0)
@@ -612,6 +682,98 @@ _STAT_DTYPES = {
     },
 }
 _POSTERIOR_STAT_KEYS = ("position",)
+# stats the sampler itself reads, kept whatever ``keep_stats`` lists
+# (``nuts_rs_tpu/sampler.py:1084-1088``), and the accounting planes that
+# an all-tuning chunk copies with ``store_warmup=False`` (``:1649-1685``)
+_ALWAYS_KEPT = ("position", "diverging", "n_steps", "step_size")
+_ACCOUNTING = ("diverging", "n_steps", "step_size")
+# the sparse events' extra fields, named by the stats they come from
+# (``nuts_rs_tpu/sampler.py:2027-2033``)
+_DIV_EVENT_KEYS = ("divergence_start", "divergence_end",
+                   "divergence_start_gradient", "divergence_start_momentum",
+                   "divergence_momentum", "divergence_energy_error",
+                   "divergence_reason")
+_TRANSFORM_EVENT_KEYS = ("mass_matrix_inv", "transformation_mu")
+
+
+def _extra_stat_dtypes(settings) -> dict:
+    """The extra stores' stats (name -> (dtype, has a [d] tail)), as the
+    sync draw steps emit them (``chain.extra_stats``); MCLMC stores no
+    transformed point (``nuts_rs_tpu/chain.py:575-592``)."""
+    out = {}
+    if settings.store_gradient:
+        out["gradient"] = (np.float32, True)
+    if settings.store_unconstrained:
+        out["unconstrained_draw"] = (np.float32, True)
+    if settings.store_transformed and settings.sampler_name == "nuts":
+        out["transformed_position"] = (np.float32, True)
+        out["transformed_gradient"] = (np.float32, True)
+    if settings.store_divergences:
+        for name in ("divergence_start", "divergence_start_gradient",
+                     "divergence_start_momentum", "divergence_end",
+                     "divergence_momentum"):
+            out[name] = (np.float32, True)
+        out["divergence_energy_error"] = (np.float32, False)
+        out["divergence_reason"] = (np.int32, False)
+    if settings.store_mass_matrix:
+        out["mass_matrix_inv"] = (np.float32, True)
+        out["transformation_mu"] = (np.float32, True)
+    return out
+
+
+def _torch_dtype(dtype):
+    """A torch dtype from a numpy dtype (``np.float16``) or a torch one."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+class _Transfer:
+    """The transfer knobs (``nuts_rs_tpu/sampler.py:1080-1107``):
+    ``keep_stats`` (the stats to keep beside ``_ALWAYS_KEPT``; None keeps
+    all), ``draw_dtype`` (the positions' dtype in storage), ``stats_dtype``
+    (the float stats' dtype in storage; int and bool stats keep theirs) and
+    ``store_warmup`` (False stores no warmup draw).  Each acts on the
+    device, before the copy to the host."""
+
+    def __init__(self, keep_stats=None, draw_dtype=None, stats_dtype=None,
+                 store_warmup=True):
+        self.keep = (None if keep_stats is None
+                     else set(keep_stats) | set(_ALWAYS_KEPT))
+        self.draw_dtype = draw_dtype
+        self.stats_dtype = stats_dtype
+        self.store_warmup = store_warmup
+
+    def on_device(self, stats: dict, all_tuning: bool) -> dict:
+        """The chunk's stats as they cross to the host; an all-tuning chunk
+        with ``store_warmup=False`` keeps the accounting planes alone."""
+        if self.keep is not None:
+            stats = {k: v for k, v in stats.items() if k in self.keep}
+        if all_tuning and not self.store_warmup:
+            stats = {k: v for k, v in stats.items() if k in _ACCOUNTING}
+        elif self.draw_dtype is not None and "position" in stats:
+            stats = dict(stats, position=stats["position"].to(
+                _torch_dtype(self.draw_dtype)))
+        if self.stats_dtype is not None:
+            sd = _torch_dtype(self.stats_dtype)
+            stats = {k: (v.to(sd) if k != "position"
+                         and v.is_floating_point() else v)
+                     for k, v in stats.items()}
+        return stats
+
+    def entries(self, entries: dict) -> dict:
+        """A schema group's ``{name: {"dtype", "shape"}}`` as stored."""
+        if self.keep is not None:
+            entries = {k: v for k, v in entries.items() if k in self.keep}
+        out = {}
+        for name, e in entries.items():
+            if name == "position" and self.draw_dtype is not None:
+                e = dict(e, dtype=np.dtype(self.draw_dtype))
+            elif (name != "position" and self.stats_dtype is not None
+                  and np.issubdtype(e["dtype"], np.floating)):
+                e = dict(e, dtype=np.dtype(self.stats_dtype))
+            out[name] = e
+        return out
 
 
 class Sampler:
@@ -625,12 +787,22 @@ class Sampler:
     float32, the fused kernels' type.  ``chunk_seconds`` records
     ``(first_draw, last_draw + 1, seconds)`` per chunk, from launch to the
     chunk's stats on the host.
+
+    The transfer knobs act on the device, before a chunk's copy to the host
+    (``nuts_rs_tpu/sampler.py:1080-1107,1645-1750``): ``keep_stats`` keeps
+    the listed stats beside ``position``, ``diverging``, ``n_steps`` and
+    ``step_size``; ``draw_dtype`` (a numpy or torch dtype) casts the
+    positions and ``stats_dtype`` the float stats (int and bool stats keep
+    theirs); ``store_warmup=False`` stores no warmup draw, and an
+    all-tuning chunk copies the accounting planes alone.  The kernels
+    compute in float32 whatever the knobs say.
     """
 
     def __init__(self, model: Model, settings,
                  storage: Optional[StorageConfig] = None,
                  chunk_size: int = 128, init_positions=None, *,
-                 device="cuda"):
+                 device="cuda", keep_stats=None, draw_dtype=None,
+                 stats_dtype=None, store_warmup: bool = True):
         if model.dim < 1:
             raise ValueError("model.dim must be >= 1")
         if chunk_size < 1:
@@ -647,13 +819,12 @@ class Sampler:
         self.model = model
         self.settings = settings
         self.chunk_size = chunk_size
+        self._transfer = _Transfer(keep_stats, draw_dtype, stats_dtype,
+                                   store_warmup)
         self.config = settings.chain_config()
         self.strategy = _strategy_for(settings, self.config)
-        # a NUTS plan runs the strategy's sync warmup where it has one
-        extra = ({"strategy": self.strategy}
-                 if isinstance(settings, NutsSettings) else {})
         self._phase_runners = settings.build_phases(
-            model, self.config, self.device, **extra)
+            model, self.config, self.device, strategy=self.strategy)
         self.schedule = _schedule_for(settings)
         C = settings.num_chains
         self.trace = (storage or MemoryConfig()).new_trace(settings, model, C)
@@ -698,12 +869,21 @@ class Sampler:
         return self._finish_chunk(lo, hi, stats, t0)
 
     def _finish_chunk(self, lo, hi, stats, t0):
+        tuning = self.schedule.is_tuning[lo:hi]
+        all_tuning = hi > lo and bool(tuning.all())
+        stats = self._transfer.on_device(stats, all_tuning)
         # device -> host; [k, C, ...] -> [C, k, ...]
         stats = {k: np.moveaxis(v.cpu().numpy(), 0, 1)
                  for k, v in stats.items()}
         self.chunk_seconds.append((lo, hi, time.monotonic() - t0))
-        tuning = self.schedule.is_tuning[lo:hi]
-        self.trace.record_chunk(lo, stats, tuning)
+        if self._transfer.store_warmup:
+            self.trace.record_chunk(lo, stats, tuning)
+        elif not all_tuning:
+            # a chunk across the end of the warmup: its tuning rows go
+            split = int(tuning.sum())
+            self.trace.record_chunk(
+                lo + split, {k: v[:, split:] for k, v in stats.items()},
+                tuning[split:])
         return lo, stats, tuning
 
     def run(self) -> Trace:
@@ -714,47 +894,79 @@ class Sampler:
     def schema(self):
         """The trace schema: ``{group: {name: {"dtype", "shape", "dims"}}}``
         for the four draw groups plus ``"coords"`` and ``"events"``, as
-        ``nuts_rs_tpu``'s ``Sampler.schema`` reflects it for these
-        settings."""
-        return schema(self.model, self.settings)
+        ``nuts_rs_tpu``'s ``Sampler.schema`` reflects it for these settings
+        and transfer knobs."""
+        t = self._transfer
+        return schema(self.model, self.settings, keep_stats=t.keep,
+                      draw_dtype=t.draw_dtype, stats_dtype=t.stats_dtype,
+                      store_warmup=t.store_warmup)
 
 
-def schema(model: Model, settings=None):
-    """Settings-level trace schema, without a sampler or a device."""
+def schema(model: Model, settings=None, *, keep_stats=None, draw_dtype=None,
+           stats_dtype=None, store_warmup: bool = True):
+    """Settings-level trace schema, without a sampler or a device
+    (``nuts_rs_tpu/sampler.py:2035-2180,2216-2245``): what is stored, the
+    extra stores and the transfer knobs applied."""
     settings = settings or NutsSettings()
-    dtypes = _STAT_DTYPES[settings.sampler_name]
+    transfer = _Transfer(keep_stats, draw_dtype, stats_dtype, store_warmup)
+    dtypes = {n: (dt, n == "position")
+              for n, dt in _STAT_DTYPES[settings.sampler_name].items()}
+    dtypes.update(_extra_stat_dtypes(settings))
+    if not (settings.num_tune or settings.num_draws):
+        dtypes = {}
+    every = transfer.entries({
+        n: {"dtype": np.dtype(dt), "shape": (model.dim,) if vec else ()}
+        for n, (dt, vec) in dtypes.items()})
 
-    def entry(name):
-        shape = (model.dim,) if name == "position" else ()
-        return {"dtype": np.dtype(dtypes[name]), "shape": shape,
-                "dims": dims_for_tail(model, name, shape)}
+    def group(names, on):
+        if not on:
+            return {}
+        return {n: dict(e, dims=dims_for_tail(model, n, e["shape"]))
+                for n, e in every.items() if (n in _POSTERIOR_STAT_KEYS)
+                == names}
 
-    draws = {n: entry(n) for n in dtypes if n in _POSTERIOR_STAT_KEYS}
-    stats = {n: entry(n) for n in dtypes if n not in _POSTERIOR_STAT_KEYS}
     scalar = {"dtype": np.dtype(np.int64), "shape": (), "dims": []}
+
+    def ev_field(e):
+        return {"dtype": (e["dtype"] if e["dtype"].kind == "f"
+                          else np.dtype(np.int64)),
+                "shape": e["shape"],
+                "dims": ["unconstrained_parameter"] if e["shape"] else []}
+
+    events = {}
+    if "diverging" in every:
+        events["divergence"] = {"draw": dict(scalar), **{
+            k: ev_field(every[k]) for k in _DIV_EVENT_KEYS if k in every}}
+    if "transformation_index" in every:
+        events["transformation_update"] = {
+            "draw": dict(scalar), "transformation_update_id": dict(scalar),
+            **{k: ev_field(every[k]) for k in _TRANSFORM_EVENT_KEYS
+               if k in every}}
+    warm = bool(settings.num_tune) and store_warmup
     return {
-        "posterior": dict(draws) if settings.num_draws else {},
-        "sample_stats": dict(stats) if settings.num_draws else {},
-        "warmup_posterior": dict(draws) if settings.num_tune else {},
-        "warmup_sample_stats": dict(stats) if settings.num_tune else {},
+        "posterior": group(True, settings.num_draws),
+        "sample_stats": group(False, settings.num_draws),
+        "warmup_posterior": group(True, warm),
+        "warmup_sample_stats": group(False, warm),
         "coords": dict(model.coords or {}),
-        "events": {"divergence": {"draw": dict(scalar)},
-                   "transformation_update": {
-                       "draw": dict(scalar),
-                       "transformation_update_id": dict(scalar)}},
+        "events": events,
     }
 
 
 def sample(model: Model, settings=None, *,
            seed: Optional[int] = None,
            storage: Optional[StorageConfig] = None, chunk_size: int = 128,
-           init_positions=None, device="cuda") -> Trace:
+           init_positions=None, device="cuda", keep_stats=None,
+           draw_dtype=None, stats_dtype=None,
+           store_warmup: bool = True) -> Trace:
     """Sample from ``model`` on ``device`` (the card unless the caller asks
     for the CPU); returns an in-memory :class:`Trace` unless another storage
-    backend is given."""
+    backend is given.  The transfer knobs are :class:`Sampler`'s."""
     settings = settings or NutsSettings()
     if seed is not None:
         settings = dataclasses.replace(settings, seed=seed)
     return Sampler(model, settings, storage=storage, chunk_size=chunk_size,
-                   init_positions=init_positions, device=device).run()
+                   init_positions=init_positions, device=device,
+                   keep_stats=keep_stats, draw_dtype=draw_dtype,
+                   stats_dtype=stats_dtype, store_warmup=store_warmup).run()
 

@@ -7,7 +7,10 @@ substance; importing the JAX package's copy would import JAX).
 Accumulates chunks and finalizes into a :class:`Trace` with xarray-free
 ArviZ-style groups: ``posterior``, ``sample_stats``, ``warmup_posterior``,
 ``warmup_sample_stats`` — each a dict of arrays shaped ``[chain, draw, ...]``
-— plus compacted sparse event streams (divergences, transformation updates).
+(a phase that stored no draw, as with ``store_warmup=False``, holds arrays
+of no draws, as the JAX package's) — plus compacted sparse event streams
+(divergences, transformation updates, with the transform at each update
+where ``store_mass_matrix`` stored it).
 """
 
 from __future__ import annotations
@@ -100,8 +103,13 @@ class MemoryStorage(TraceStorage):
             for c in range(n_chains):
                 prev = np.concatenate([[np.int64(-(10 ** 9))], ids[c][:-1]])
                 ev = np.nonzero(ids[c] != prev)[0]
-                updates.append({"draw": ev,
-                                "transformation_update_id": ids[c][ev]})
+                rec = {"draw": ev, "transformation_update_id": ids[c][ev]}
+                # the transform at each update (store_mass_matrix)
+                for name in ("mass_matrix_inv", "transformation_mu"):
+                    if name in names:
+                        rec[name] = np.concatenate(
+                            [ch[name][c] for ch in self._chunks])[ev]
+                updates.append(rec)
 
         model = self._model
         return Trace(

@@ -190,6 +190,12 @@ After building the kernels it prints, for each path,
    checkpoint stacks in shared memory (NRT_NUTS_SMEM_STACKS) at the rule's
    lanes and at 16 lanes with 128 registers; then each build's registers,
    stack and spills an instantiation.
+19. for the sync MCLMC path (``--only-mclmc-sync``: chip_smoke.py's, the
+   MCLMC main configuration on the sync MCLMC engine with four extra
+   stores; no kernel is built), one run with each chunk's seconds, the host
+   loop's iterations a draw, their milliseconds and the successful
+   leapfrogs an iteration; then 20 draws at the tuned state under
+   torch.profiler: the device's busy share and its kernels an iteration.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -213,7 +219,8 @@ from chip_smoke import (
     BIG_CHAINS, BIG_ROWS, CHAINS, CHUNK, DIM, DRAWS, FLOW_CHAINS, FLOW_DIM,
     FLOW_FULL_CHAINS, FLOW_FULL_DRAWS, FLOW_FULL_TUNE, FLOW_TUNE, GLM_CHAINS,
     GLM_DIM, GLM_DRAWS, GLM_ROWS, GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS,
-    LD_STEP, LD_TUNE, MGLM_REFERENCE, MID_DIM, MU, PATH_SOURCES, RADON_CHAINS,
+    LD_STEP, LD_TUNE, MGLM_REFERENCE, MID_DIM, MSYNC_STORES, MU, PATH_SOURCES,
+    RADON_CHAINS,
     RADON_DRAWS, RADON_TUNE, SEED, SV_CHAINS, SV_DRAWS, SV_T, SV_TUNE, TUNE,
     card_line,
     cuda_events_ms, glm_posterior_inputs, glm_reference, mclmc_posterior_args,
@@ -543,6 +550,88 @@ def mclmc_iteration_cost(glm, glm_settings, device):
           f"B=1: K3-args {1e3 * ms_g / it_g:.3f} us, the same kernel on "
           f"N(3, 1) at d={MID_DIM} {1e3 * ms_n / it_n:.3f} us (launch time "
           "over a chain's iterations: the waves of chain blocks are in it)")
+
+
+def mclmc_sync_path(device):
+    """Item 19: chip_smoke.py's sync MCLMC path (the MCLMC main
+    configuration on the sync MCLMC engine, with its four extra stores): one
+    run with each chunk's seconds, the host loop's iterations a draw and
+    the successful leapfrogs an iteration (its attempts, where no step
+    halves); then 20 draws at the tuned state under torch.profiler: the
+    device's busy share and kernels an iteration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nuts_rs_tpu_torch import DiagMclmcSettings, Sampler
+    from nuts_rs_tpu_torch.kernels import mclmc as tm
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    settings = DiagMclmcSettings(num_chains=CHAINS, num_tune=TUNE,
+                                 num_draws=DRAWS, seed=SEED, **MSYNC_STORES)
+    # one call of refresh_coefficients an attempt, so one a loop iteration
+    coeffs0, calls = tm.refresh_coefficients, [0]
+
+    def coeffs(*a):
+        calls[0] += 1
+        return coeffs0(*a)
+
+    tm.refresh_coefficients = coeffs
+    try:
+        t0 = time.perf_counter()
+        sampler = Sampler(normal_logp(DIM, MU), settings, device=device)
+        torch.cuda.synchronize(device)
+        print(f"sync MCLMC path: Sampler construction "
+              f"{time.perf_counter() - t0:.3f} s")
+        steps = 0
+        while not sampler.finished:
+            t, c0 = time.perf_counter(), calls[0]
+            lo, stats, _ = sampler.run_next_chunk()
+            sec = time.perf_counter() - t
+            k = stats["n_steps"].shape[1]
+            its = calls[0] - c0
+            steps += int(stats["n_steps"].sum())
+            print(f"  draws {lo}-{lo + k}: {sec:.3f} s, {1e3 * sec / k:.2f} "
+                  f"ms a draw, {its / k:.2f} loop iterations a draw, "
+                  f"{1e3 * sec / its:.3f} ms each, "
+                  f"{stats['n_steps'].sum() / its:.1f} successful leapfrogs "
+                  f"an iteration of {CHAINS} chains")
+        t = time.perf_counter()
+        sampler.trace.finalize()
+        print(f"  finalize {time.perf_counter() - t:.3f} s; end to end "
+              f"{time.perf_counter() - t0:.3f} s, {calls[0]} loop iterations "
+              f"for {TUNE + DRAWS} draws, {steps} leapfrogs")
+        runner = sampler._phase_runners[-1][2]
+        flags = {name: np.zeros(20, bool) for name in (
+            "is_tuning", "update_estimators", "do_switch", "do_update",
+            "use_late_estimator", "reinit_step_size", "use_best_guess",
+            "advance_da", "resample_velocity")}
+        runner(sampler.state, flags)
+        torch.cuda.synchronize(device)
+        c0 = calls[0]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            runner(sampler.state, flags)
+            torch.cuda.synchronize(device)
+            wall_s = time.perf_counter() - t
+        its = calls[0] - c0
+    finally:
+        tm.refresh_coefficients = coeffs0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in dev) * 1e-6
+    print(f"20 draws at the tuned state under torch.profiler: wall "
+          f"{wall_s:.3f} s ({1e3 * wall_s / its:.3f} ms a loop iteration, "
+          f"{its / 20:.2f} a draw), device busy {busy_s:.3f} s "
+          f"({100 * busy_s / wall_s:.1f}%) in {len(dev)} kernels and copies "
+          f"({len(dev) / its:.0f} a loop iteration)")
+    per_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in dev:
+        entry = per_name[e.name[:60]]
+        entry[0] += 1
+        entry[1] += e.time_range.elapsed_us() * 1e-6
+    for name, (n, sec_) in sorted(per_name.items(),
+                                  key=lambda kv: -kv[1][1])[:6]:
+        print(f"  device {sec_ * 1e3:.3f} ms in {n} launches: {name}")
 
 
 def stream_path(device):
@@ -2212,6 +2301,8 @@ def main() -> int:
                         help="the streamed-data path alone, item 8")
     parser.add_argument("--only-zoo", action="store_true",
                         help="the SV and radon paths alone, item 9")
+    parser.add_argument("--only-mclmc-sync", action="store_true",
+                        help="the sync MCLMC path alone, item 19")
     parser.add_argument("--only-flow", action="store_true",
                         help="the flow path alone at its full configuration,"
                              " item 10")
@@ -2287,6 +2378,10 @@ def main() -> int:
         return 0
     if args.nuts_launch:
         nuts_launch(args.nuts_launch)
+        print(card_line())
+        return 0
+    if args.only_mclmc_sync:
+        mclmc_sync_path(device)
         print(card_line())
         return 0
     if args.only_stream:

@@ -1,5 +1,5 @@
-"""The port's model, diagonal transform and dynamics (Euclidean and
-microcanonical) against the JAX package, at float64 on random points
+"""The port's model, diagonal transform and dynamics (Euclidean,
+exact-normal and microcanonical) against the JAX package, at float64 on random points
 (tolerance 1e-12: the same formulas, sums over d of a few terms in possibly
 another order)."""
 
@@ -179,11 +179,31 @@ def test_microcanonical_leapfrog(direction):
     assert bool(got.diverging.any()) and not bool(got.diverging.all())
 
 
-def test_other_kinetic_energies_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.require_euclidean(th.KineticKind.EXACT_NORMAL)
-    for kind in (th.KineticKind.EUCLIDEAN, th.KineticKind.MICROCANONICAL):
-        th.require_euclidean(kind)
+def test_every_kinetic_energy_is_ported():
+    """The exact-normal kinetic energy used to raise naming item 8; every
+    kind of the JAX package now has its leapfrog here, and the exact-normal
+    one matches the JAX one (tests/test_torch_exact_normal.py holds it in
+    full)."""
+    assert {k.name for k in th.KineticKind} == {
+        k.name for k in jh.KineticKind}
+    assert not hasattr(th, "require_euclidean")
+    rng = np.random.default_rng(9)
+    jt, tt = _transforms(rng)
+    q, v = rng.normal(size=(C, D)), rng.normal(size=(C, D))
+    step = rng.uniform(0.1, 1.5, size=C)
+    jm, tm = jg.normal_logp(D, 0.5), tg.normal_logp(D, 0.5)
+    jpt = _jax_point(jm, jt, q, v)
+    tpt = th.init_point_from_q(_t(q), tt, tm.logp_and_grad)._replace(
+        v=_t(v), ke=_t(0.5 * np.sum(v * v, axis=1)))
+    base = np.asarray(jpt.energy)
+    want = jax.vmap(lambda p, s, t, e: jh.leapfrog(
+        p, jnp.int32(1), s, t, jm.logp_and_grad,
+        jh.KineticKind.EXACT_NORMAL, e, 1000.0))(
+        jpt, jnp.asarray(step), jt, jnp.asarray(base))
+    got = th.leapfrog(tpt, 1, _t(step), tt, tm.logp_and_grad,
+                      th.KineticKind.EXACT_NORMAL, _t(base), 1000.0)
+    for name in want.point._fields:
+        _close(getattr(got.point, name), getattr(want.point, name))
 
 
 def test_esh_momentum_update():
@@ -201,7 +221,8 @@ def test_esh_momentum_update():
                                rtol=1e-14)
 
 
-@pytest.mark.parametrize("kind", ["EUCLIDEAN", "MICROCANONICAL"])
+@pytest.mark.parametrize("kind", ["EUCLIDEAN", "MICROCANONICAL",
+                                  "EXACT_NORMAL"])
 def test_partial_momentum_refresh(kind):
     rng = np.random.default_rng(5)
     jt, tt = _transforms(rng)

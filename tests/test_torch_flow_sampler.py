@@ -4,8 +4,8 @@ The flow warmup runs on the per-draw sync engine with its refits; with
 ``posterior_kernel="pallas"`` the coupling flow's posterior runs on kernel
 K1-flow's plain version (CPU tensors), a flow without kernel hooks or an
 unpooled one stays on the sync engine with the JAX package's
-``UserWarning``, and a model without a device functor is refused for the
-fused path (item 9), as in the port's other fused paths.  The moment checks
+``UserWarning``, and a model without a device functor is demoted there
+with a warning of the port's own, as in the port's other fused paths.  The moment checks
 are those of the JAX package's own flow tests (tests/test_flow.py:91-193),
 at their sizes or smaller; the phase plans are the JAX package's.
 """
@@ -134,7 +134,8 @@ def test_coupling_flow_posterior_on_a_normal():
 
 def test_eight_schools_on_the_sync_engine():
     """eight_schools has no device functor: the flow runs on the sync engine
-    throughout; its fused request is refused (item 9)."""
+    throughout; its fused request is demoted there with a warning (it used
+    to be refused naming item 9)."""
     trace = tnt.sample(tg.eight_schools(), tnt.FlowNutsSettings(
         num_tune=150, num_draws=150, num_chains=2, seed=0,
         posterior_kernel="sync", flow_spec=_small_flow()), chunk_size=150,
@@ -143,9 +144,13 @@ def test_eight_schools_on_the_sync_engine():
     assert np.isfinite(trace.posterior["position"]).all()
     assert abs(mu.mean() - 4.4) < 2.5
     assert trace.warmup_sample_stats["transformation_index"].max() > 0
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tnt.Sampler(tg.eight_schools(), tnt.FlowNutsSettings(
-            num_chains=2, posterior_kernel="pallas"), device="cpu")
+    settings = tnt.FlowNutsSettings(num_chains=2, num_tune=10, num_draws=5,
+                                    posterior_kernel="pallas",
+                                    flow_spec=_small_flow())
+    assert settings.unsupported(tg.eight_schools(), "cuda") == []
+    with pytest.warns(UserWarning, match="no kernel_hook"):
+        smp = tnt.Sampler(tg.eight_schools(), settings, device="cpu")
+    assert [(a, b) for a, b, _ in smp._phase_runners] == [(0, 15)]
 
 
 def test_unpooled_flow_stays_on_the_sync_engine():
@@ -184,6 +189,7 @@ def test_flow_phase_plans_match_jax(kernel, spec):
 
 
 def test_flow_mclmc_is_refused_naming_items_8_and_15():
-    with pytest.raises(NotImplementedError, match="items 8 and 15"):
+    # item 8, the sync MCLMC engine, is in: the refusal names item 15
+    with pytest.raises(NotImplementedError, match="item 15"):
         tnt.Sampler(tg.normal_logp(3), tnt.FlowMclmcSettings(
             posterior_kernel="pallas"), device="cpu")

@@ -359,8 +359,8 @@ def _largest_n(warmup):
                                            (True, 1)])
 def test_mclmc_limit_without_data_is_the_jax_runners(warmup, offset):
     """484 (posterior) and 361 (warmup), not the NUTS layouts' 212 and 178:
-    one step beyond, the JAX runner is None and the port raises naming the
-    sync engines."""
+    one step beyond, the JAX runner is None and the port plans its sync
+    MCLMC engine there (it used to raise naming item 8)."""
     assert tchain.mclmc_max_dim() == 484 and tchain.mclmc_max_dim(True) == 361
     dim = tchain.mclmc_max_dim(warmup) + offset
     runner = _jax_runner(jg.normal_logp(dim), warmup)
@@ -368,12 +368,14 @@ def test_mclmc_limit_without_data_is_the_jax_runners(warmup, offset):
     reasons = settings.unsupported(tg.normal_logp(dim), "cuda")
     if offset == 0:
         assert runner is not None
-        # served by the posterior kernel; the warmup decides the whole run
-        assert (reasons == []) == (dim <= tchain.mclmc_max_dim(True))
+        # served by the posterior kernel; above the warmup's limit the
+        # warmup runs on the sync engine
+        assert reasons == []
     else:
         assert runner is None
-        assert len(reasons) == 1 and "item 8" in reasons[0]
-        assert ("warmup" if warmup else "posterior") in reasons[0]
+        assert reasons == []
+        assert tchain.mclmc_fused_fits(tg.normal_logp(dim), warmup) is False
+        assert tchain.mclmc_fused_fits(tg.normal_logp(dim - 1), warmup)
 
 
 @pytest.mark.parametrize("warmup,offset", [(False, 0), (False, 1), (True, 0),
@@ -391,13 +393,10 @@ def test_mclmc_limit_counts_the_data_as_the_jax_runners(warmup, offset):
     assert fits == (offset == 0)
     assert (runner is not None) == fits
     settings = tnt.DiagMclmcSettings(posterior_kernel="pallas")
-    reasons = settings.unsupported(model, "cpu")
-    if warmup and offset == 0:
-        assert reasons == []
-    else:
-        # beyond the warmup limit (the smaller one) the run is refused
-        assert len(reasons) == 1 and "item 8" in reasons[0]
-        assert f"{nbytes} bytes of data" in reasons[0]
+    # beyond a limit that launch runs on the sync MCLMC engine (it used to
+    # be refused naming item 8)
+    assert settings.unsupported(model, "cpu") == []
+    assert tchain.mclmc_fused_fits(model, warmup) == fits
 
 
 def test_mclmc_serves_data_and_mid_d_on_cuda():
@@ -417,9 +416,14 @@ def test_mclmc_serves_data_and_mid_d_on_cuda():
     wide = tg.logistic_regression_from_tensors(torch.zeros(11, 60000),
                                                torch.zeros(60000))
     assert settings.unsupported(wide, "cpu") == []
-    assert any("item 8" in r for r in settings.unsupported(wide, "cuda"))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tnt.Sampler(tg.normal_logp(362), settings, device="cpu")
+    assert any("item 12" in r for r in settings.unsupported(wide, "cuda"))
+    # one dimension above the warmup limit: the sync warmup, then K3-args
+    # (it used to raise naming item 8)
+    phases = settings.build_phases(tg.normal_logp(362),
+                                   settings.chain_config(), "cuda")
+    assert [r.__qualname__.split(".")[0] for _, _, r in phases] == [
+        "make_sync_mclmc_runner", "make_sync_mclmc_runner",
+        "make_fused_mclmc_posterior_runner"]
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,12 @@
 """The port's MCLMC path end to end on the CPU (the fused kernels' plain
 PyTorch versions) against the JAX package: the phase plan, the warmup's
 transformation schedule, the trace schema, the posterior moments, the
-state carried between packages, reproducibility, and the settings it
-refuses."""
+state carried between packages, reproducibility, the settings it
+refuses, and the plans of the requests it used to refuse (the sync MCLMC
+engine's, tests/test_torch_mclmc_sync.py)."""
+
+import functools
+import warnings
 
 import jax.numpy as jnp
 import numpy as np
@@ -207,35 +211,17 @@ def _no_hook(dim):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(posterior_kernel="sync"), "item 8"),
     (dict(mass_matrix="low_rank"), "item 14"),
-    (dict(mass_matrix="flow"), "item 8"),
-    (dict(store_gradient=True), "item 9"),
-    (dict(store_divergences=True), "item 9"),
+    (dict(mass_matrix="flow"), "item 15"),
     (dict(cross_chain_adaptation=True), "item 17"),
     (dict(mesh_axis_name="chains"), "item 17"),
-    ("no_hook", "item 9"),
-    ("above_warmup_limit", "warmup launch's limit of 361.*item 8"),
-    ("above_posterior_limit", "posterior launch's limit of 484.*item 8"),
-    ("data_fail_the_rule", "bytes of data.*item 8"),
-    ("cuda_smem", "shared.*item 8"),
+    ("cuda_smem", "shared.*item 12"),
 ])
 def test_unsupported_settings_raise(change, item):
     model, device = tg.normal_logp(3), "cpu"
     kw = dict(posterior_kernel="pallas", num_chains=4, num_tune=5,
               num_draws=5)
-    if change == "no_hook":
-        model = _no_hook(3)
-    elif change == "above_warmup_limit":
-        # the JAX package runs its sync warmup and the fused posterior
-        model = tg.normal_logp(362)
-    elif change == "above_posterior_limit":
-        model = tg.normal_logp(485)  # the JAX package runs all of it sync
-    elif change == "data_fail_the_rule":
-        # 8.9 MB of data at d = 100 leave the warmup launch no room
-        model = tg.logistic_regression_from_tensors(
-            torch.zeros(100, 22000), torch.zeros(22000))
-    elif change == "cuda_smem":
+    if change == "cuda_smem":
         # fits the JAX rule, but not one block's shared memory on the card
         model, device = tg.logistic_regression_from_tensors(
             torch.zeros(11, 60000), torch.zeros(60000)), "cuda"
@@ -243,6 +229,84 @@ def test_unsupported_settings_raise(change, item):
         kw.update(change)
     with pytest.raises(NotImplementedError, match=item):
         tnt.Sampler(model, tnt.DiagMclmcSettings(**kw), device=device)
+
+
+def _plan(phases):
+    return [(lo, hi, "fused" if "fused" in r.__qualname__ else "sync")
+            for lo, hi, r in phases]
+
+
+def _jax_plan(phases):
+    return [(lo, hi, "sync" if isinstance(r, functools.partial)
+             else "fused") for lo, hi, r in phases]
+
+
+@pytest.mark.parametrize("change,warn", [
+    (dict(posterior_kernel="sync"), None),
+    (dict(store_gradient=True), "does not support: store_gradient=True"),
+    (dict(store_divergences=True), "does not support: store_divergences"),
+    ("no_hook", "no kernel_hook"),
+    ("above_warmup_limit", None),
+    ("above_posterior_limit", "no fused-engine tier fits"),
+    ("data_fail_the_rule", None),
+    ("data_fail_both_rules", "no fused-engine tier fits"),
+])
+def test_settings_that_used_to_raise_now_plan_as_the_jax_package(change,
+                                                                 warn):
+    """Each used to be a case of ``test_unsupported_settings_raise`` naming
+    item 8 or item 9.  The port now plans what the JAX package plans, on
+    the sync MCLMC engine where that package's fused runners decline, with
+    that package's ``UserWarning`` (a model without a kernel hook: the
+    port's own, since the JAX package traces its logp into its kernels)."""
+    kw = dict(posterior_kernel="pallas", num_chains=4, num_tune=5,
+              num_draws=5)
+    jmodel, model = jg.normal_logp(3), tg.normal_logp(3)
+    if change == "no_hook":
+        model = _no_hook(3)
+    elif change == "above_warmup_limit":
+        # the sync warmup, then the fused posterior, without a warning
+        jmodel, model = jg.normal_logp(362), tg.normal_logp(362)
+    elif change == "above_posterior_limit":
+        jmodel, model = jg.normal_logp(485), tg.normal_logp(485)
+    elif change == "data_fail_the_rule":
+        # 8.9 MB of data at d = 100 leave the warmup launch no room: the
+        # sync warmup, then the fused posterior
+        jmodel = jg.logistic_regression(22000, 100, 0)
+        model = tg.logistic_regression_from_tensors(
+            torch.zeros(100, 22000), torch.zeros(22000))
+    elif change == "data_fail_both_rules":
+        # the JAX benchmark's logreg_big data (16.9 MB at d = 32): no
+        # fused MCLMC launch holds them, and MCLMC streams none
+        jmodel = jg.logistic_regression(131072, 32, 0)
+        model = tg.logistic_regression_from_tensors(
+            torch.zeros(32, 131072), torch.zeros(131072))
+    else:
+        kw.update(change)
+    ts, js = tnt.DiagMclmcSettings(**kw), jnt.DiagMclmcSettings(**kw)
+    assert ts.unsupported(model, "cpu") == []
+    assert ts.unsupported(model, "cuda") == []
+    jcfg = js.chain_config()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        got = _plan(ts.build_phases(model, ts.chain_config(), "cpu"))
+        if change != "no_hook":
+            want = _jax_plan(js.build_phases(jmodel, _strategy_for(js, jcfg),
+                                             jcfg))
+    texts = [str(w.message) for w in seen
+             if issubclass(w.category, UserWarning)]
+    if warn is None:
+        assert texts == []
+    else:
+        assert all("using the" in t for t in texts)
+        assert any(warn in t for t in texts), texts
+    if change == "no_hook":
+        # the JAX package would run it fused (its kernels trace the logp)
+        want = [(0, 1, "sync"), (1, 10, "sync")]
+    elif change in ("above_warmup_limit", "data_fail_the_rule"):
+        assert want == [(0, 1, "sync"), (1, 5, "sync"), (5, 10, "fused")]
+    else:
+        assert want == [(0, 1, "sync"), (1, 10, "sync")]
+    assert got == want
 
 
 def test_small_sizes_without_an_instance_take_the_mid_kernels():

@@ -534,16 +534,20 @@ def test_data_beyond_shared_memory_stream_on_cuda():
 
 
 @pytest.mark.parametrize("case,match", [
-    ("mclmc_data", "bytes of data.*item 8"),
-    ("mclmc_cuda_dim", "warmup launch's limit of 361.*item 8"),
+    ("mclmc_data", "no fused-engine tier fits"),
+    ("mclmc_cuda_dim", None),
 ])
 def test_refusals_name_their_items(case, match):
-    """MCLMC with data that fail the JAX MCLMC runners' rule or at a d above
-    their warmup limit (data that fit, and d = 11..361, run on K3-args and
-    K4-args: tests/test_torch_mclmc_args.py), and data beyond a block's
-    shared memory on the card (the NUTS refusals for data that
-    would stream or lie above the chains-on-lanes limit are cases of
+    """MCLMC with data that fail the JAX MCLMC runners' rule, or at a d
+    above their warmup limit (data that fit, and d = 11..361, run on
+    K3-args and K4-args: tests/test_torch_mclmc_args.py), used to be refused
+    naming item 8.  Now the first runs on the sync MCLMC engine with the
+    JAX package's warning, the second its warmup there and the posterior on
+    the mid-d kernel, without one (the NUTS refusals for data that would
+    stream or lie above the chains-on-lanes limit are cases of
     tests/test_torch_sampler.py::test_unsupported_settings_raise)."""
+    import warnings
+
     kw = dict(posterior_kernel="pallas", num_chains=4, num_tune=5,
               num_draws=5)
     device, settings = "cpu", tnt.DiagNutsSettings(**kw)
@@ -555,5 +559,16 @@ def test_refusals_name_their_items(case, match):
     else:
         model, settings, device = (tg.normal_logp(362),
                                    tnt.DiagMclmcSettings(**kw), "cuda")
-    with pytest.raises(NotImplementedError, match=match):
-        tnt.Sampler(model, settings, device=device)
+    assert settings.unsupported(model, device) == []
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        phases = settings.build_phases(model, settings.chain_config(), device)
+    texts = [str(w.message) for w in seen]
+    kinds = [r.__qualname__.split(".")[0] for _, _, r in phases]
+    if match is None:
+        assert texts == []
+        assert kinds[-1] == "make_fused_mclmc_posterior_runner"
+        assert set(kinds[:-1]) == {"make_sync_mclmc_runner"}
+    else:
+        assert len(texts) == 1 and match in texts[0]
+        assert set(kinds) == {"make_sync_mclmc_runner"}

@@ -172,12 +172,7 @@ def _no_hook(dim):
     (dict(posterior_kernel="async"), "item 16"),
     (dict(posterior_kernel="sync", async_posterior=True), "item 16"),
     (dict(mass_matrix="low_rank"), "item 14"),
-    (dict(kinetic_energy=KineticKind.EXACT_NORMAL), "item 8"),
-    (dict(kinetic_energy=KineticKind.EXACT_NORMAL,
-          posterior_kernel="sync"), "item 8"),
-    (dict(store_gradient=True), "item 9"),
     (dict(cross_chain_adaptation=True), "item 17"),
-    ("no_hook", "item 9"),
     ("cuda_maxdepth", "item 12"),
     ("cuda_ld_dim", "item 12"),
     ("cuda_ld_data_smem", "item 12"),
@@ -187,9 +182,7 @@ def test_unsupported_settings_raise(change, item):
     device = "cpu"
     kw = dict(posterior_kernel="pallas", num_chains=4, num_tune=5,
               num_draws=5)
-    if change == "no_hook":
-        model = _no_hook(3)
-    elif change == "cuda_ld_dim":
+    if change == "cuda_ld_dim":
         # a chain's state must fit one block's shared memory
         model, device = tg.normal_logp(_build.ld_max_dim(10) + 1), "cuda"
     elif change == "cuda_maxdepth":
@@ -273,11 +266,20 @@ def test_ld_tier_without_data_is_the_jax_runners(dim, warmup, fits):
     ("no_hook_sync", False),
     ("cuda_dim", False),
     ("data_stream", False),
+    (dict(kinetic_energy=KineticKind.EXACT_NORMAL), True),
+    (dict(kinetic_energy=KineticKind.EXACT_NORMAL,
+          posterior_kernel="sync"), False),
+    (dict(store_gradient=True), True),
+    ("no_hook", True),
 ])
 def test_settings_that_used_to_raise_now_run(change, demoted):
     """What the sync engine (kernels/nuts.py), the streamed posterior kernel
     and the mid-d kernels at small sizes took over: each used to be a case
-    of ``test_unsupported_settings_raise``."""
+    of ``test_unsupported_settings_raise``.  The exact-normal kinetic
+    energy and the extra stores run on the sync engine, a ``"pallas"``
+    request demoted with the JAX package's warning; a model without a
+    kernel hook is demoted with the port's own warning, decided in
+    ``build_phases``."""
     model = tg.normal_logp(3)
     kw = dict(posterior_kernel="pallas", num_chains=4, num_tune=6,
               num_draws=4)
@@ -305,6 +307,8 @@ def test_settings_that_used_to_raise_now_run(change, demoted):
     if change == "no_hook_sync":
         model = _no_hook(3)
         kw.update(posterior_kernel="sync")
+    elif change == "no_hook":
+        model = _no_hook(3)
     else:
         kw.update(change)
     settings = tnt.DiagNutsSettings(**kw)
@@ -323,18 +327,12 @@ def test_settings_that_used_to_raise_now_run(change, demoted):
 @pytest.mark.parametrize("kind", ["MICROCANONICAL", "EXACT_NORMAL"])
 def test_nuts_kinetic_energies_name_the_sync_engine(kind):
     # the JAX package runs NUTS with these only on its sync engine (it
-    # demotes a fused request there); the port's sync engine takes the
-    # microcanonical dynamics, and the exact-normal ones wait for item 8
+    # demotes a fused request there); the port's sync engine takes both
     settings = tnt.DiagNutsSettings(posterior_kernel="pallas", num_chains=4,
                                     num_tune=5, num_draws=5,
                                     kinetic_energy=KineticKind[kind])
-    reasons = settings.unsupported(tg.normal_logp(3), "cpu")
-    if kind == "EXACT_NORMAL":
-        assert reasons == ["kinetic_energy=EXACT_NORMAL (item 8)"]
-    else:
-        assert reasons == []
-        assert settings._pallas_disqualifiers() == [
-            "kinetic_energy=MICROCANONICAL"]
+    assert settings.unsupported(tg.normal_logp(3), "cpu") == []
+    assert settings._pallas_disqualifiers() == [f"kinetic_energy={kind}"]
     jsettings = jnt.DiagNutsSettings(
         posterior_kernel="pallas",
         kinetic_energy=jnt.KineticKind[kind])
@@ -522,9 +520,14 @@ def test_ld_slice_on_the_cpu():
 
 
 def test_mclmc_refuses_large_d_naming_the_sync_engine():
-    # the JAX package's MCLMC kernels are chains-on-lanes only, up to the
-    # MCLMC runners' own limit (no checkpoint stacks in it), not the NUTS
-    # layouts': one dimension above cl_max_dim is still served
+    """The JAX package's MCLMC kernels are chains-on-lanes only, up to the
+    MCLMC runners' own limit (no checkpoint stacks in it), not the NUTS
+    layouts': one dimension above cl_max_dim is still served.  One
+    dimension above the warmup's limit used to be refused naming the sync
+    engine (item 8); now its warmup runs on the sync MCLMC engine, without
+    a warning, as in the JAX package."""
+    import warnings
+
     from nuts_rs_tpu_torch.chain import mclmc_max_dim
 
     settings = tnt.DiagMclmcSettings(posterior_kernel="pallas", num_chains=4,
@@ -532,8 +535,13 @@ def test_mclmc_refuses_large_d_naming_the_sync_engine():
     assert settings.unsupported(tg.normal_logp(cl_max_dim(10) + 1),
                                 "cuda") == []
     model = tg.normal_logp(mclmc_max_dim(warmup=True) + 1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tnt.Sampler(model, settings, device="cpu")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        phases = settings.build_phases(model, settings.chain_config(), "cpu")
+    assert [(lo, hi, r.__qualname__.split(".")[0]) for lo, hi, r in
+            phases] == [(0, 1, "make_sync_mclmc_runner"),
+                        (1, 5, "make_sync_mclmc_runner"),
+                        (5, 10, "make_fused_mclmc_posterior_runner")]
 
 
 def test_trace_parts_are_joined_per_phase():
