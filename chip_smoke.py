@@ -7,11 +7,29 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the fused CUDA kernels from ``nuts_rs_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-and drives thirteen paths through ``Sampler(...).run()``, ten of them with
-``posterior_kernel="pallas"`` (``--only PATH`` drives one of them: ``nuts``,
-``mclmc``, ``large_d``, ``data``, ``mclmc_data``, ``stream``, ``sv``,
-``radon``, ``zoo``, ``flow``, ``mclmc_sync``, ``exact_normal`` or
-``mclmc_d400``, and builds only its kernels).  The last three are the sync
+and drives fourteen paths through ``Sampler(...).run()``, eleven of them
+with ``posterior_kernel="pallas"`` (``--only PATH`` drives one of them:
+``nuts``, ``control``, ``mclmc``, ``large_d``, ``data``, ``mclmc_data``,
+``stream``, ``sv``, ``radon``, ``zoo``, ``flow``, ``mclmc_sync``,
+``exact_normal`` or ``mclmc_d400``, and builds only its kernels).  The
+``control`` path drives the Sampler's control surface on the NUTS d=10
+configuration below (K1, K2): a checkpoint at the first chunk boundary at
+or after draw 428, ``abort``, and a restore into a fresh sampler, equal to
+the uninterrupted run bit for bit; the same checkpoint restored on the
+CPU (its state bit for bit, its first 2 draws on the plain versions within
+the kernel checks' tolerances, integer stats equal); ``wait_timeout(0.0)``;
+a pause from a progress callback, ``resume`` and the final
+``ChainProgress``; a ``ConvergenceStop(rhat_max=1.01, min_ess_bulk=400)``
+(shorter than 700 posterior draws, the moment gates); ``expand_fn`` and a
+draw-indexed ``expand_host_fn`` at float16 draws (equal to ``exp(q - 3)``
+of the float32 run's positions; the index invariant to the chunk size);
+and the stuck-chain detector raising on 256 frozen chains of 1024 on the
+sync engine.  The SV path's first run passes ``fail_after=None``
+(``check_stuck`` needs its whole trace); a second run with the default
+``fail_after=100``, paused at draw 130, must raise ``ChainFailedError``
+exactly where the detector replayed on the first run's draws says, or
+not at all where the replay names no chain.  The exact-normal path runs
+with ``progress_tick=16`` and checks the ticks.  The last three are the sync
 engines': ``mclmc_sync`` is the MCLMC d=10 configuration below on the sync
 MCLMC engine (``DiagMclmcSettings``' default ``posterior_kernel="sync"``)
 with the ``store_gradient``, ``store_unconstrained``, ``store_divergences``
@@ -239,6 +257,9 @@ BIG_REFERENCE = GLM_REFERENCE.with_name("logreg_big_reference.json")
 SV_T, SV_CHAINS, SV_TUNE, SV_DRAWS = 1000, 512, 400, 300
 SV_REFERENCE = GLM_REFERENCE.with_name("sv_t1000_reference.json")
 SV_STEP = (0.04, 0.06)  # near the reference's adapted step (made-up states)
+# the detector's SV run stops here (a pause): the first chunk end past
+# draw 100, where a chain frozen from its start is named (draw 130)
+SV_DETECTOR_DRAWS = 130
 # radon at the JAX model's sizes: 85 groups of 12 rows, d = 89
 RADON_CHAINS, RADON_TUNE, RADON_DRAWS = 1024, 300, 400
 RADON_REFERENCE = GLM_REFERENCE.with_name("radon_reference.json")
@@ -325,6 +346,7 @@ M400_CHECK_DRAWS = 2
 # normal, so dual averaging grows the step until the rotation wraps)
 EXACT_TUNE, EXACT_DRAWS = 100, 300
 EXACT_MIN_ACCEPT = 0.99
+EXACT_TICK = 16  # its run's progress_tick: in-chunk progress every 16 draws
 # the transfer knobs' run of the NUTS d = 10 path
 KNOBS = dict(keep_stats=("mean_tree_accept",), draw_dtype=np.float16,
              stats_dtype=np.float16, store_warmup=False)
@@ -660,14 +682,18 @@ def read_launch_counts(counts, names):
 
 
 def run_sampler(model, settings, device, starts=None, samplers=None,
-                **knobs):
+                rate_seconds=None, **knobs):
     """Sampler.run with its seconds: set-up, warmup, posterior and the
     whole; ``starts``, a list, receives the chains' initial positions,
-    ``samplers`` the sampler; ``knobs`` are the transfer knobs."""
+    ``samplers`` the sampler; ``rate_seconds`` sets its
+    ``progress_rate_seconds``; ``knobs`` are the Sampler's other keyword
+    arguments (the transfer knobs, the control surface's)."""
     from nuts_rs_tpu_torch import Sampler
 
     t0 = time.monotonic()
     sampler = Sampler(model, settings, device=device, **knobs)
+    if rate_seconds is not None:
+        sampler.progress_rate_seconds = rate_seconds
     init_s = time.monotonic() - t0
     if starts is not None:
         starts.append(sampler.state.pt.q.cpu().numpy())
@@ -1273,6 +1299,7 @@ def path_nuts(device, checks, launches, times):
     launches.update(main_path(model, settings, device,
                               ("nuts_fused_posterior", "nuts_fused_warmup"),
                               traces=traces))
+    MAIN_TRACE["nuts"] = (settings, traces[0])
     knob_run(model, settings, device, traces[0])
     times.update(time_kernels(model, settings, device))
 
@@ -1314,6 +1341,279 @@ def knob_run(model, settings, device, full):
           f"warmup group, stats "
           f"{sorted(names)}, positions float16 equal to the first run's cast "
           f"on all {pos.size}")
+
+
+# the NUTS d = 10 path's uninterrupted run, which the control path reuses
+# (``--only control`` runs its own)
+MAIN_TRACE = {}
+# the control path's checkpoint: the first chunk boundary at or after this
+# draw (a posterior launch, so the restored sampler's first launch draws a
+# freshly jittered step)
+CONTROL_CHECKPOINT_AT = 428
+CONTROL_CPU_DRAWS = 2  # the CPU sampler's draws from the card's checkpoint
+CONTROL_STOP = dict(rhat_max=1.01, min_ess_bulk=400.0)
+
+
+def same_trace(got, want, what, first=0, end=None):
+    """Every group of ``got`` equal, bit for bit, to ``want``'s draws from
+    global draw ``first`` to ``end`` (``got`` holds those draws)."""
+    tune = want.warmup_posterior["position"].shape[1]
+    for group in ("posterior", "sample_stats", "warmup_posterior",
+                  "warmup_sample_stats"):
+        start = 0 if group.startswith("warmup") else tune
+        cut = max(0, first - start)
+        stop = None if end is None else max(0, end - start)
+        a, b = getattr(got, group), getattr(want, group)
+        if set(a) != set(b):
+            raise AssertionError(f"{what}: {group} holds {sorted(a)}, the "
+                                 f"uninterrupted run {sorted(b)}")
+        for name, v in b.items():
+            if not np.array_equal(a[name], v[:, cut:stop], equal_nan=True):
+                raise AssertionError(f"{what}: {group}/{name} differs from "
+                                     "the uninterrupted run's")
+
+
+def progress_gates(sampler, trace, what):
+    """Every chain's final ChainProgress against the trace: all draws
+    finished, its divergences the posterior's, its leapfrogs all of them."""
+    total = sampler.settings.num_tune + sampler.settings.num_draws
+    div = trace.sample_stats["diverging"].sum(1)
+    steps = (trace.warmup_sample_stats["n_steps"].sum(1, dtype=np.int64)
+             + trace.sample_stats["n_steps"].sum(1, dtype=np.int64))
+    for c, p in enumerate(sampler.progress):
+        if (p.finished_draws != total or p.divergences != int(div[c])
+                or p.total_num_steps != int(steps[c]) or p.failed):
+            raise AssertionError(
+                f"{what}: chain {c}'s progress {p.finished_draws} draws, "
+                f"{p.divergences} divergences, {p.total_num_steps} "
+                f"leapfrogs, failed {p.failed}; the trace {total}, "
+                f"{int(div[c])}, {int(steps[c])}")
+
+
+def draw_index(positions, first_draw):
+    """expand_host_fn of the control path: each draw's global index."""
+    C, k = positions.shape[:2]
+    return {"draw_index": np.broadcast_to(
+        first_draw + np.arange(k, dtype=np.int64), (C, k)).copy()}
+
+
+def path_control(device, checks, launches, times):
+    """The Sampler's control surface on the main path's configuration (NUTS
+    d = 10, 1024 chains, 300 + 700 draws, K1 and K2): checkpoint and
+    restore on the card bit for bit and across to the CPU, wait_timeout,
+    pause from a progress callback and resume, ChainProgress, a
+    ConvergenceStop and the expansions under float16 draws."""
+    import dataclasses
+    import tempfile
+
+    from nuts_rs_tpu_torch import ConvergenceStop, DiagNutsSettings, Sampler
+    from nuts_rs_tpu_torch.checkpoint import state_leaves
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    model = normal_logp(DIM, MU)
+    settings = DiagNutsSettings(num_chains=CHAINS, num_tune=TUNE,
+                                num_draws=DRAWS, seed=SEED,
+                                posterior_kernel="pallas")
+    names = ("nuts_fused_posterior", "nuts_fused_warmup")
+    zero_launch_counts()
+    t0 = time.monotonic()
+    kept = MAIN_TRACE.get("nuts")
+    if kept is not None and kept[0] == settings:
+        full, reused = kept[1], "the main path's"
+    else:
+        full, reused = run_sampler(model, settings, device)[0], "its own"
+
+    # checkpoint at a chunk boundary, abort, restore in a fresh sampler
+    a = Sampler(model, settings, device=device)
+    while a._next_draw < CONTROL_CHECKPOINT_AT:
+        a.run_next_chunk()
+    at = a._next_draw
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "state.npz")
+        a.checkpoint(path)
+        snap = a.abort()
+        if snap.posterior["position"].shape[1] != at - TUNE:
+            raise AssertionError("abort's snapshot holds "
+                                 f"{snap.posterior['position'].shape}")
+        try:
+            a.run()
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError("run() after abort() did not raise")
+        b = Sampler(model, settings, device=device)
+        b.restore(path)
+        # the card's checkpoint on the CPU: its state bit for bit, then its
+        # first draws on the kernels' plain versions against the card's
+        cpu = Sampler(model, settings, device="cpu",
+                      chunk_size=CONTROL_CPU_DRAWS)
+        cpu.restore(path)
+    for x, y in zip(state_leaves(cpu.state), state_leaves(b.state)):
+        if isinstance(x, torch.Tensor):
+            if x.device.type != "cpu" or not torch.equal(x, y.cpu()):
+                raise AssertionError("the card's checkpoint restored on the "
+                                     "CPU differs")
+        elif x != y:
+            raise AssertionError("the card's checkpoint's draw index differs")
+    restored = b.run()
+    same_trace(restored, full, "restored run", first=at)
+    t_ck = time.monotonic()
+    _, cstats, _ = cpu.run_next_chunk()
+    t_cpu = time.monotonic() - t_ck
+    k = CONTROL_CPU_DRAWS
+    cross = close(torch.from_numpy(cstats["position"]),
+                  torch.from_numpy(restored.posterior["position"][:, :k]),
+                  "the CPU's first restored draws against the card's")
+    for name in ("depth", "n_steps", "diverging"):
+        if not np.array_equal(cstats[name],
+                              restored.sample_stats[name][:, :k]):
+            raise AssertionError(f"the CPU's first restored {name} differ "
+                                 "from the card's")
+
+    t_ck = time.monotonic() - t0 - t_cpu
+
+    # wait_timeout(0), pause from the callback, resume
+    t1 = time.monotonic()
+    def pause_once(progress):
+        if not pause_once.done:
+            pause_once.done = True
+            p.pause()
+
+    pause_once.done = False
+    p = Sampler(model, settings, device=device, progress_callback=pause_once)
+    if p.wait_timeout(0.0) is not None or p.finished or p._next_draw:
+        raise AssertionError("wait_timeout(0.0) ran or returned a trace")
+    try:
+        p.run()
+    except RuntimeError:
+        paused_at = p._next_draw
+    else:
+        raise AssertionError("run() paused from the callback did not raise")
+    if not 0 < paused_at < TUNE + DRAWS or paused_at != p.chunk_seconds[-1][1]:
+        raise AssertionError(f"paused at draw {paused_at}")
+    p.resume()
+    resumed = p.run()
+    same_trace(resumed, full, "paused and resumed run")
+    progress_gates(p, resumed, "paused and resumed run")
+
+    t_pause = time.monotonic() - t1
+
+    # the convergence stop
+    t1 = time.monotonic()
+    stop = Sampler(model, settings, device=device,
+                   stop_when=ConvergenceStop(**CONTROL_STOP))
+    stopped = stop.run()
+    spos = stopped.posterior["position"]
+    n_post = spos.shape[1]
+    if not (stop.converged and n_post < DRAWS
+            and stop._next_draw == TUNE + n_post
+            == stop.chunk_seconds[-1][1]):
+        raise AssertionError(f"ConvergenceStop: converged {stop.converged}, "
+                             f"{n_post} posterior draws, cursor "
+                             f"{stop._next_draw}")
+    same_trace(stopped, full, "stopped run", end=TUNE + n_post)
+    smean = float(spos.mean(dtype=np.float64))
+    sstd = float(spos.std(dtype=np.float64))
+    if not (abs(smean - MU) < 0.02 and abs(sstd - 1.0) < 0.05):
+        raise AssertionError(f"ConvergenceStop posterior mean {smean} std "
+                             f"{sstd}")
+
+    t_stop = time.monotonic() - t1
+
+    # the expansions at float16 draws: exp(q - 3) of the float32 positions
+    # on the card, the draw index invariant to the chunk size
+    t1 = time.monotonic()
+    emodel = dataclasses.replace(
+        model, expand_fn=lambda q: {"e": torch.exp(q - 3.0)},
+        expand_host_fn=draw_index)
+    exp_traces = {}
+    for chunk in (CHUNK, CHUNK // 2):
+        exp_traces[chunk] = Sampler(
+            emodel, settings, device=device, chunk_size=chunk,
+            draw_dtype=np.float16).run()
+    q32 = full.posterior["position"]
+    want_e = torch.exp(torch.from_numpy(q32).to(device) - 3.0).cpu().numpy()
+    e16 = exp_traces[CHUNK]
+    if e16.posterior["position"].dtype != np.float16 or not np.array_equal(
+            e16.posterior["position"], q32.astype(np.float16)):
+        raise AssertionError("expansion run: positions not the float32 "
+                             "run's cast to float16")
+    if e16.posterior["e"].dtype != np.float32 or not np.array_equal(
+            e16.posterior["e"], want_e):
+        raise AssertionError("expand_fn did not read the float32 positions")
+    for chunk, tr in exp_traces.items():
+        for group, first, n in (("warmup_posterior", 0, TUNE),
+                                ("posterior", TUNE, DRAWS)):
+            want = np.broadcast_to(np.arange(first, first + n), (CHAINS, n))
+            if not np.array_equal(getattr(tr, group)["draw_index"], want):
+                raise AssertionError(f"expand_host_fn's draw index at chunk "
+                                     f"size {chunk} ({group})")
+    t_exp = time.monotonic() - t1
+    got = read_launch_counts(nf.LAUNCHES, names)
+    t1 = time.monotonic()
+    frozen_chains_raise(device)
+    t_det = time.monotonic() - t1
+    print(f"control path ({reused} uninterrupted run): checkpoint at draw "
+          f"{at}, restored on the card: every group equal bit for bit; on "
+          f"the CPU: the state bit for bit, its first {k} draws within "
+          f"rtol {RTOL} / atol {ATOL} of the card's (max abs diff "
+          f"{cross:.3g}); wait_timeout(0.0) None; paused from the callback "
+          f"at draw {paused_at}, resumed: equal bit for bit, every chain's "
+          f"progress {TUNE + DRAWS} draws with the trace's divergences and "
+          "leapfrogs; "
+          f"ConvergenceStop({CONTROL_STOP}) at draw {stop._next_draw} "
+          f"({n_post} posterior draws, mean {smean:.5f} std {sstd:.5f}); "
+          f"expansions at float16 draws: e = exp(q32 - 3) bit for bit, the "
+          f"draw index equal at chunk sizes {sorted(exp_traces)}; launches "
+          f"{got}; {time.monotonic() - t0:.1f} s (uninterrupted run and "
+          f"checkpoint {t_ck:.2f}, the CPU's draws {t_cpu:.2f}, pause "
+          f"{t_pause:.2f}, stop {t_stop:.2f}, expansions {t_exp:.2f}, "
+          f"frozen chains {t_det:.2f}); frozen chains on the card: "
+          "ChainFailedError at draw 12 naming exactly those started at the "
+          "frozen point", flush=True)
+
+
+def frozen_chains_raise(device):
+    """The stuck-chain detector on the card: 1024 chains of a model whose
+    logp is NaN beyond q[0] = 5 but at the bit-exact point (100, ..., 100),
+    every fourth chain started there, the others at 0.5, on the sync
+    engine at a fixed step (``tests/test_torch_failure.py``'s mixed run;
+    maxdepth 2 keeps the healthy chains' trees, and so the host loop,
+    short): ``fail_after=8`` at 4-draw chunks must raise ChainFailedError
+    at draw 12 (streaks 3, 7, 11) naming exactly the chains started at the
+    point, each failed in its ChainProgress and the rest not."""
+    from nuts_rs_tpu_torch import (ChainFailedError, DiagNutsSettings,
+                                   Sampler, StepSizeMethod, StepSizeSettings)
+    from nuts_rs_tpu_torch.models.model import Model
+
+    def logp_grad(q):
+        ok = (q[:, 0] < 5.0) | (q == 100.0).all(-1)
+        logp = torch.where(ok, -0.5 * torch.sum(q * q, -1), torch.nan)
+        return logp, torch.where(ok[:, None], -q, torch.nan)
+
+    init = np.full((CHAINS, DIM), 0.5, np.float32)
+    frozen = list(range(0, CHAINS, 4))
+    init[frozen] = 100.0
+    settings = DiagNutsSettings(
+        num_chains=CHAINS, num_tune=20, num_draws=20, seed=SEED, maxdepth=2,
+        step_size=StepSizeSettings(method=StepSizeMethod.FIXED,
+                                   fixed_value=0.5))
+    model = Model(logp_fn=lambda q: logp_grad(q[None])[0][0], dim=DIM,
+                  logp_grad_fn=logp_grad, name="frozen")
+    sampler = Sampler(model, settings, chunk_size=4, init_positions=init,
+                      fail_after=8, device=device)
+    try:
+        sampler.run()
+    except ChainFailedError as e:
+        if e.chains != frozen or sampler._next_draw != 12:
+            raise AssertionError(f"frozen chains: named {len(e.chains)} "
+                                 f"chains at draw {sampler._next_draw}")
+    else:
+        raise AssertionError("frozen chains: no ChainFailedError")
+    if [p.failed for p in sampler.progress] != [c % 4 == 0
+                                                 for c in range(CHAINS)]:
+        raise AssertionError("frozen chains: ChainProgress.failed flags")
 
 
 def path_mclmc(device, checks, launches, times):
@@ -1675,10 +1975,18 @@ def path_exact_normal(device, checks, launches, times):
                                 kinetic_energy=KineticKind.EXACT_NORMAL,
                                 posterior_kernel="pallas")
     zero_launch_counts()
+    samplers, ticks = [], []
+
+    def record(progress):
+        # the sampler's cursor stays at a chunk's start during its ticks
+        ticks.append((samplers[0]._next_draw, progress[0].finished_draws,
+                      progress[0].total_num_steps))
+
     with warnings.catch_warnings(record=True) as seen:
         warnings.simplefilter("always")
-        trace, init_s, warm_s, post_s, total_s = run_sampler(model, settings,
-                                                             device)
+        trace, init_s, warm_s, post_s, total_s = run_sampler(
+            model, settings, device, samplers=samplers, rate_seconds=0.0,
+            progress_tick=EXACT_TICK, progress_callback=record)
     noted = [str(w.message) for w in seen
              if "does not support: kinetic_energy=EXACT_NORMAL" in str(
                  w.message)]
@@ -1709,6 +2017,35 @@ def path_exact_normal(device, checks, launches, times):
     if not acc >= EXACT_MIN_ACCEPT:
         raise AssertionError(f"exact-normal mean accept {acc} below "
                              f"{EXACT_MIN_ACCEPT}")
+    progress_tick_gates(samplers[0], trace, ticks, EXACT_TICK)
+
+
+def progress_tick_gates(sampler, trace, ticks, every):
+    """The in-chunk ticks of a sync-engine run (``progress_tick=every``,
+    a callback at every call): within each chunk a tick every ``every``
+    draws, its finished draws rising, its running leapfrog count chain 0's
+    exact one through that draw; the chunk end's exact values after them;
+    the final progress the trace's."""
+    want = []
+    for lo, hi, _ in sampler.chunk_seconds:
+        want += [(lo, lo + j) for j in range(every, hi - lo + 1, every)]
+        want.append((hi, hi))
+    got = [(lo, d) for lo, d, _ in ticks]
+    if got != want:
+        raise AssertionError(f"progress_tick: calls {got[:12]}..., expected "
+                             f"{want[:12]}...")
+    steps = np.concatenate([trace.warmup_sample_stats["n_steps"][0],
+                            trace.sample_stats["n_steps"][0]])
+    steps = np.cumsum(steps, dtype=np.int64)
+    for lo, d, n in ticks:
+        if n != steps[d - 1]:
+            raise AssertionError(f"progress_tick: {n} leapfrogs at draw {d}, "
+                                 f"the trace {steps[d - 1]}")
+    progress_gates(sampler, trace, "progress_tick run")
+    print(f"progress_tick={every}: {len(ticks) - len(sampler.chunk_seconds)}"
+          f" ticks inside {len(sampler.chunk_seconds)} chunks, each chunk's "
+          "end replacing them; every call's leapfrog count chain 0's exact "
+          "one")
 
 
 def fp32_issue_per_s():
@@ -1889,7 +2226,8 @@ def check_stuck(ref, settings, q0, stuck, what):
                              "errors")
 
 
-def zoo_main_path(model, settings, device, ref, named, kernels, what):
+def zoo_main_path(model, settings, device, ref, named, kernels, what,
+                  kept=None, fail_after=100):
     """A NUTS path of the zoo through Sampler.run, held against its JAX CPU
     reference: the chains stuck where they started (``stuck_chains``)
     against those that the JAX package's sync engine leaves stuck from the
@@ -1899,15 +2237,18 @@ def zoo_main_path(model, settings, device, ref, named, kernels, what):
     GLM_MEAN_TOL posterior std and std within GLM_STD_TOL, the divergence
     share at most the reference's plus DIV_SHARE_TOL and two of its
     standard errors, the mean accept in (0.7, 0.95); launches of
-    ``kernels`` and no other fused NUTS kernel.  Returns the launches and
-    the functor's count."""
+    ``kernels`` and no other fused NUTS kernel.  ``kept``, a list, receives
+    the sampler, the trace and the starts; ``fail_after`` is the Sampler's.
+    Returns the launches and the functor's count."""
     from nuts_rs_tpu_torch.kernels import _build
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     zero_launch_counts()
-    starts = []
+    starts, samplers = [], []
     trace, init_s, warm_s, post_s, total_s = run_sampler(
-        model, settings, device, starts)
+        model, settings, device, starts, samplers, fail_after=fail_after)
+    if kept is not None:
+        kept.extend((samplers[0], trace, starts[0]))
     launches = read_launch_counts(nf.LAUNCHES, kernels)
     others = {k: n for k, n in nf.LAUNCHES.items() if k not in kernels and n}
     if others:
@@ -1978,6 +2319,147 @@ def zoo_main_path(model, settings, device, ref, named, kernels, what):
     return launches, functor_launches
 
 
+def draws_of(trace, group, key, lo, hi):
+    """Global draws [lo, hi) of ``group``'s ``key`` ("posterior" or
+    "sample_stats", with its warmup twin) of a trace of every draw."""
+    warm, post = getattr(trace, "warmup_" + group)[key], \
+        getattr(trace, group)[key]
+    tune = warm.shape[1]
+    return np.concatenate([warm[:, lo:min(hi, tune)],
+                           post[:, max(lo - tune, 0):max(hi - tune, 0)]], 1)
+
+
+def detector_replay(trace, boundaries, fail_after):
+    """The stuck-chain detector replayed on a whole run's stored draws,
+    chunk by chunk: at each chunk end a chain's streak is its trailing run
+    of draws that diverged and left every coordinate bit-equal to the draw
+    before (NaN equal to NaN; the run's first draw counts as moved).
+    Returns (the first chunk end where some streak reaches ``fail_after``,
+    the chains whose streak does there), or (None, []) where none does."""
+    streak, prev, lo = None, None, 0
+    for end in boundaries:
+        pos = draws_of(trace, "posterior", "position", lo, end)
+        div = draws_of(trace, "sample_stats", "diverging", lo, end)
+        before = np.concatenate([(pos[:, :1] if prev is None else prev),
+                                 pos[:, :-1]], 1)
+        same = ((pos == before) | (np.isnan(pos) & np.isnan(before))).all(-1)
+        if prev is None:
+            same[:, 0] = False
+            streak = np.zeros(len(div), np.int64)
+        for t in range(end - lo):
+            streak = np.where(div[:, t] & same[:, t], streak + 1, 0)
+        prev, lo = pos[:, -1:], end
+        named = np.nonzero(streak >= fail_after)[0]
+        if named.size:
+            return end, named.tolist()
+    return None, []
+
+
+def longest_frozen(trace, chains):
+    """Each of ``chains``' longest run of draws that diverged and left
+    every coordinate bit-equal to the draw before, over the whole run, and
+    its share of divergent draws."""
+    out = {}
+    for c in chains:
+        pos = np.concatenate([trace.warmup_posterior["position"][c],
+                              trace.posterior["position"][c]])
+        div = np.concatenate([trace.warmup_sample_stats["diverging"][c],
+                              trace.sample_stats["diverging"][c]])
+        stuck = div[1:] & (pos[1:] == pos[:-1]).all(-1)
+        run = best = 0
+        for x in stuck:
+            run = run + 1 if x else 0
+            best = max(best, run)
+        out[c] = (best, float(div.mean()))
+    return out
+
+
+def sv_detector(model, settings, device, first, trace, q0, names):
+    """SV once more with the JAX package's default ``fail_after=100``, to
+    draw SV_DETECTOR_DRAWS (a progress callback pauses it there): the
+    detector must stop it with ChainFailedError exactly where its replay on
+    the first run's stored draws says (same seed and chunks), naming those
+    chains, each among the first run's ``stuck_chains`` and never leaving
+    its start in the partial trace, which equals the first run's draws; a
+    chain frozen and divergent through draw 100 makes the raise required;
+    where the replay names none by then, the run pauses unfailed."""
+    from nuts_rs_tpu_torch import ChainFailedError, Sampler
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    fail_after = 100
+    # the pause lands on the first chunk end at or past SV_DETECTOR_DRAWS;
+    # the replay reads the first run's draws up to there
+    ends = [hi for _, hi, _ in first.chunk_seconds]
+    stop_at = min(e for e in ends if e >= SV_DETECTOR_DRAWS)
+    ends = [e for e in ends if e <= stop_at]
+    at, want = detector_replay(trace, ends, fail_after)
+    stuck = np.nonzero(stuck_chains(
+        trace.posterior["position"].astype(np.float64)))[0].tolist()
+    pos = trace.warmup_posterior["position"]
+    div = trace.warmup_sample_stats["diverging"]
+    # frozen through draw fail_after: the raise is required
+    still = [c for c in range(len(q0))
+             if (pos[c, :fail_after + 1] == q0[c]).all()
+             and div[c, 1:fail_after + 1].all()]
+    zero_launch_counts()
+    t0 = time.monotonic()
+
+    def pause_there(progress):
+        if progress[0].finished_draws >= SV_DETECTOR_DRAWS:
+            sampler.pause()
+
+    sampler = Sampler(model, settings, device=device, fail_after=fail_after,
+                      progress_callback=pause_there)
+    sampler.progress_rate_seconds = 0.0
+    err = None
+    try:
+        sampler.run()
+    except ChainFailedError as e:
+        err = e
+    except RuntimeError:
+        pass  # paused
+    seconds = time.monotonic() - t0
+    got = {k: n for k, n in nf.LAUNCHES.items() if n}
+    print(f"SV detector (fail_after={fail_after}, to draw "
+          f"{SV_DETECTOR_DRAWS}): replay on the first run's {len(ends)} "
+          f"chunk ends names {want} at draw {at}; chains frozen through draw "
+          f"{fail_after}: {still}; stuck_chains' longest frozen runs and "
+          f"divergent shares: {longest_frozen(trace, stuck)}; the run "
+          + (f"raised ChainFailedError at draw {sampler._next_draw} naming "
+             f"{err.chains}" if err is not None
+             else f"paused unfailed at draw {sampler._next_draw}")
+          + f", {seconds:.2f} s, launches {got}", flush=True)
+    if still and err is None:
+        raise AssertionError(f"SV detector: chains {still} were frozen "
+                             f"through draw {fail_after} and no "
+                             "ChainFailedError came")
+    if at is None:
+        if err is not None or any(p.failed for p in sampler.progress):
+            raise AssertionError("SV detector: a chain failed where its "
+                                 "replay names none")
+        if sampler._next_draw != stop_at:
+            raise AssertionError(f"SV detector: paused at draw "
+                                 f"{sampler._next_draw}, not {stop_at}")
+        return
+    if err is None or err.chains != want or sampler._next_draw != at:
+        raise AssertionError(f"SV detector: expected ChainFailedError at "
+                             f"draw {at} naming {want}")
+    if not set(want) <= set(stuck):
+        raise AssertionError(f"SV detector: named {want}, stuck_chains "
+                             f"{stuck}")
+    part = err.trace.warmup_posterior["position"]
+    if part.shape[1] != at or not np.array_equal(part, pos[:, :at]):
+        raise AssertionError("SV detector: the partial trace differs from "
+                             "the first run's draws")
+    for c in want:
+        if not (part[c] == q0[c]).all():
+            raise AssertionError(f"SV detector: chain {c} left its start")
+    if not all(p.failed == (c in want)
+               for c, p in enumerate(sampler.progress)):
+        raise AssertionError("SV detector: ChainProgress.failed flags")
+    read_launch_counts(nf.LAUNCHES, names[1:])
+
+
 def path_sv(device, checks, launches, times):
     """Stochastic volatility, T = 1000 (d = 1002), 512 chains: the
     dim-on-lanes kernels with the model's data, K1-ld-args and K2-ld-args."""
@@ -2007,13 +2489,19 @@ def path_sv(device, checks, launches, times):
     # the path's own launches, kept to be timed again: its first posterior
     # launch (the post-warmup states) and its first full warmup chunk
     names = ("nuts_fused_ld_args_posterior", "nuts_fused_ld_args_warmup")
+    kept = []
     with first_launches({}) as seen:
+        # fail_after=None: check_stuck holds the chains stuck where they
+        # started against the JAX reference's, which needs the whole trace;
+        # the detector's own run follows (sv_detector)
         got, functor_launches = zoo_main_path(
             model, settings, device, ref,
             {"sigma": lambda p: np.exp(p[..., 0]),
-             "nu": lambda p: np.exp(p[..., 1])}, names, "SV path")
+             "nu": lambda p: np.exp(p[..., 1])}, names, "SV path", kept,
+            fail_after=None)
     launches.update(got)
     launches["stochastic_volatility"] = functor_launches
+    sv_detector(model, settings, device, *kept, names)
     made = time_kernels(model, settings, device, "ld", SV_CHAINS,
                         k1=state(2, SV_CHAINS), k2_state=state(4, SV_CHAINS))
     times.update(time_own_launches(model, seen, names, made, "SV path"))
@@ -2565,7 +3053,8 @@ def stop_beside():
 # first, so that the build runs beside them
 PATHS = {"flow": path_flow, "mclmc_sync": path_mclmc_sync,
          "exact_normal": path_exact_normal, "stream": path_stream,
-         "nuts": path_nuts, "mclmc": path_mclmc, "large_d": path_large_d,
+         "nuts": path_nuts, "control": path_control, "mclmc": path_mclmc,
+         "large_d": path_large_d,
          "data": path_data, "mclmc_data": path_mclmc_data,
          "mclmc_d400": path_mclmc_d400, "sv": path_sv, "radon": path_radon,
          "zoo": path_zoo}
@@ -2573,6 +3062,7 @@ PATHS = {"flow": path_flow, "mclmc_sync": path_mclmc_sync,
 # warmup kernels live in their posterior sources)
 PATH_SOURCES = {
     "nuts": ("nuts_fused_posterior", "nuts_fused_warmup"),
+    "control": ("nuts_fused_posterior", "nuts_fused_warmup"),
     "mclmc": ("mclmc_fused_posterior", "mclmc_fused_warmup"),
     "large_d": ("nuts_fused_ld_posterior", "nuts_fused_ld_warmup"),
     "data": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),

@@ -11,7 +11,12 @@ warms up on the per-draw sync engine with the flow's refits.  The per-draw
 sync engines (``posterior_kernel="sync"``: NUTS with any tree option and
 kinetic energy, MCLMC) run any model, and take the extra stores and what
 the fused kernels lack, as the JAX package plans it.  The package
-imports torch and numpy and never JAX.  What is not ported yet raises
+imports torch, numpy and scipy and never JAX.  The ``Sampler``'s control
+surface is the JAX package's: pause / resume, ``wait_timeout``, ``abort``,
+progress callbacks, checkpoints, the stuck-chain detector
+(``ChainFailedError``), ``ConvergenceStop`` over the copied diagnostics,
+``sample_sequentially``, the model's expansions and the memory, CSV and
+Arrow storage backends.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -24,12 +29,16 @@ from .adapt.step_size import (
     StepSizeSettings,
 )
 from .convert import state_from_numpy, state_to_numpy
+from .diagnostics import ess_bulk, ess_tail, split_rhat, summary
 from .dynamics.hamiltonian import KineticKind
 from .flows.coupling import CouplingFlowConfig, coupling_flow, diag_affine_flow
 from .kernels.nuts import NutsOptions
 from .models.model import Model
 from .kernels.mclmc import MclmcOptions
 from .sampler import (
+    ChainFailedError,
+    ChainProgress,
+    ConvergenceStop,
     DiagMclmcSettings,
     DiagNutsSettings,
     FlowMclmcSettings,
@@ -39,8 +48,11 @@ from .sampler import (
     NutsSettings,
     Sampler,
     sample,
+    sample_sequentially,
     schema,
 )
+from .storage.arrow import ArrowConfig
+from .storage.csv import CsvConfig
 from .storage.memory import MemoryConfig, Trace
 
 __version__ = "0.1.0"
@@ -48,7 +60,12 @@ __version__ = "0.1.0"
 __all__ = [
     "AdamOptions",
     "AdaptScheduleOptions",
+    "ArrowConfig",
+    "ChainFailedError",
+    "ChainProgress",
+    "ConvergenceStop",
     "CouplingFlowConfig",
+    "CsvConfig",
     "DiagMclmcSettings",
     "DiagNutsSettings",
     "DualAverageOptions",
@@ -69,8 +86,13 @@ __all__ = [
     "Trace",
     "coupling_flow",
     "diag_affine_flow",
+    "ess_bulk",
+    "ess_tail",
     "sample",
+    "sample_sequentially",
     "schema",
+    "split_rhat",
     "state_from_numpy",
     "state_to_numpy",
+    "summary",
 ]

@@ -72,6 +72,7 @@ PURPOSE_MCLMC_WARMUP = 6
 PURPOSE_MCLMC_POSTERIOR = 7
 PURPOSE_SYNC_DRAW = 8
 PURPOSE_SYNC_MCLMC_DRAW = 9
+PURPOSE_EXPAND = 11  # a chunk's expand_fn generator, under seed + 1
 
 # The JAX runners' VMEM budgets in bytes (posterior ``chain.py:742-743``,
 # warmup ``:1008-1009``), kept so that a configuration takes the same path
@@ -596,14 +597,28 @@ def make_mclmc_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
     return draw_step
 
 
-def _run_rows(step, state: ChainState, flags):
+def _run_rows(step, state: ChainState, flags, tick=None):
     """A chunk of a draw step: ``flags`` the chunk's schedule rows, the
-    stats stacked to [k, C, ...] (``sampler.py::_scan_chunk``)."""
+    stats stacked to [k, C, ...] (``sampler.py::_scan_chunk``).  ``tick``,
+    where given, is ``(every, fn)``: after every ``every``-th draw of the
+    chunk, ``fn(done, divergences, steps, last_steps, step_size)`` with the
+    chunk's running sums of ``diverging`` and ``n_steps`` per chain, as
+    the JAX package's ``_scan_chunk_ticked`` sends them
+    (``nuts_rs_tpu/sampler.py:724-755``; a plain call here)."""
     rows = []
+    divs = steps = None
     for i in range(len(flags["is_tuning"])):
         state, stats = step(state, {name: bool(v[i])
                                     for name, v in flags.items()})
         rows.append(stats)
+        if tick is not None:
+            every, fn = tick
+            nst = stats["n_steps"].to(torch.int32)
+            div = stats["diverging"].to(torch.int32)
+            divs = div if divs is None else divs + div
+            steps = nst if steps is None else steps + nst
+            if (i + 1) % every == 0:
+                fn(i + 1, divs, steps, nst, stats["step_size"])
     return state, {name: torch.stack([r[name] for r in rows])
                    for name in rows[0]}
 
@@ -613,12 +628,14 @@ def make_sync_runner(model, strategy: DiagStrategy, config: ChainConfig,
     """Phase runner of the per-draw sync NUTS engine, with the fused
     runners' signature: ``(state, flags) -> (state, stats)``, ``flags`` the
     chunk's schedule rows and ``stats[name]`` shaped [k, C, ...]
-    (``sampler.py::_scan_chunk`` over ``make_draw_step``)."""
+    (``sampler.py::_scan_chunk`` over ``make_draw_step``), with ``tick`` as
+    :func:`_run_rows` takes it."""
     step = make_draw_step(model, strategy, config, base_seed)
 
-    def runner(state: ChainState, flags):
-        return _run_rows(step, state, flags)
+    def runner(state: ChainState, flags, tick=None):
+        return _run_rows(step, state, flags, tick)
 
+    runner.ticks = True  # takes the sampler's progress_tick
     return runner
 
 
@@ -629,9 +646,10 @@ def make_sync_mclmc_runner(model, strategy: DiagStrategy, config: ChainConfig,
     schedule rows carry ``resample_velocity``."""
     step = make_mclmc_draw_step(model, strategy, config, mopts, base_seed)
 
-    def runner(state: ChainState, flags):
-        return _run_rows(step, state, flags)
+    def runner(state: ChainState, flags, tick=None):
+        return _run_rows(step, state, flags, tick)
 
+    runner.ticks = True
     return runner
 
 

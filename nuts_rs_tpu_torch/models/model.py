@@ -80,9 +80,27 @@ class Model:
         one-hot ``G``), so that the size rules (:attr:`data_bytes`) choose
         the layout the JAX runners choose; None: the hook tensors' bytes.
     expand_fn:
-        Optional ``expand_fn(q: Tensor[dim]) -> dict[str, Tensor]``, the
-        JAX model's deterministics (``model.py:82-85``) without its key.
-        Carried, not yet stored in the trace (ROADMAP.md queue 1 item 9).
+        Optional deterministics stored beside the positions in the
+        posterior groups (the JAX model's ``expand_fn``, ``model.py:82-85``;
+        nuts-rs ``Math::expand_vector``).  ``expand_fn(q: Tensor[dim]) ->
+        dict[str, Tensor]`` over one position, which the sampler applies
+        to a chunk's ``[C, k, dim]`` positions on its device with
+        ``torch.func.vmap``; or, where its second parameter is required,
+        ``expand_fn(q: Tensor[C, k, dim], generator) -> dict[str,
+        Tensor[C, k, ...]]`` over the whole chunk, with a
+        ``torch.Generator`` on the sampler's device for its random draws
+        (the JAX key's counterpart), seeded from the counter hash of
+        (seed + 1, the chunk's first draw).
+    expand_host_fn:
+        Optional host-side expansion (``model.py:120-139``):
+        ``expand_host_fn(positions: ndarray[C, k, dim]) -> dict[str,
+        ndarray[C, k, ...]]`` on numpy arrays, any numpy dtype (strings,
+        datetime64); a two-argument ``fn(positions, first_draw)`` whose
+        second parameter is required also gets the chunk's first global
+        draw index, so draw-indexed outputs do not depend on the chunk
+        size.  ``schema()`` probes it once with zeros ``[C, 1, dim]``, so
+        it should have no side effects.  Both expansions read the
+        float32 positions whatever ``draw_dtype`` stores.
     dims / coords:
         xarray-style dimension names / coordinate arrays.
     """
@@ -96,6 +114,7 @@ class Model:
     on_device: Optional[Callable] = None
     args_bytes: Optional[int] = None
     expand_fn: Optional[Callable] = None
+    expand_host_fn: Optional[Callable] = None
     dims: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     coords: Mapping[str, Any] = dataclasses.field(default_factory=dict)
     name: str = "model"
@@ -123,10 +142,15 @@ class Model:
 
     def to(self, device) -> "Model":
         """This model with its data on ``device`` (itself when it has
-        none); the sampler calls it once, at construction."""
+        none), with this model's expansions; the sampler calls it once, at
+        construction."""
         if self.on_device is None:
             return self
-        return self.on_device(torch.device(device))
+        moved = self.on_device(torch.device(device))
+        # the expansions as this model carries them, which a caller may
+        # have replaced (``dataclasses.replace``) after the model was built
+        return dataclasses.replace(moved, expand_fn=self.expand_fn,
+                                   expand_host_fn=self.expand_host_fn)
 
     def logp_and_grad(self, q: torch.Tensor):
         """Batched ``(logp [C], grad [C, d])`` at ``q [C, d]``."""

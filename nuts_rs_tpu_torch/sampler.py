@@ -5,9 +5,12 @@ Port of ``nuts_rs_tpu/sampler.py``: ``NutsSettings`` and
 (``:552-559``), ``MclmcTrajectoryKind``, ``MclmcSettings``,
 ``DiagMclmcSettings`` and ``FlowMclmcSettings`` (``:287-535``),
 ``_strategy_for`` and ``_schedule_for`` (``:663-681``), the phase plans
-``build_phases``, a reduced ``Sampler`` (``:758``: ``__init__``, the phase
-runners, ``run_next_chunk``, ``_finish_chunk``, ``run`` ``:1957``) and the
-free functions ``schema`` (``:2216``) and ``sample`` (``:2248``).
+``build_phases``, ``ConvergenceStop``, ``ChainProgress`` and
+``ChainFailedError`` (``:563-657``), the ``Sampler`` (``:758-2214``; not
+its ``dtype``, ``mesh``, ``profile_dir``, ``max_chains_per_launch`` and
+``auto_recover`` options, nor ``run()``'s launch/finish pipelining) and
+the free functions ``schema`` (``:2216``), ``sample`` (``:2248``) and
+``sample_sequentially`` (``:2287``).
 
 NUTS runs on two engines, chosen as the JAX package chooses
 (``nuts_rs_tpu/sampler.py:167-281``).  ``posterior_kernel="sync"`` is the
@@ -47,15 +50,17 @@ tensors).  A setting the slice does not take raises
 ``NotImplementedError`` naming the ROADMAP.md item that ports it; nothing
 runs quietly on another path.  The extra stores run on the sync engines;
 the transfer knobs (``keep_stats``, ``draw_dtype``, ``stats_dtype``,
-``store_warmup``) act on the device before a chunk's copy.  The rest of
-the control surface (pause/resume, checkpoints, progress, convergence
-stop, expansions) is queue-1 item 9.
+``store_warmup``) act on the device before a chunk's copy.  The control
+surface (pause / resume, ``wait_timeout``, ``abort``, progress with
+in-chunk ticks on the sync engines, checkpoints, the stuck-chain detector,
+the convergence stop, the expansions) works on every engine.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import inspect
 import time
 import warnings
 from typing import Any, Optional
@@ -71,6 +76,7 @@ from .adapt.schedule import (
 )
 from .adapt.step_size import StepSizeMethod, StepSizeSettings
 from .chain import (
+    PURPOSE_EXPAND,
     ChainConfig,
     DiagStrategy,
     cl_max_dim,
@@ -86,9 +92,11 @@ from .chain import (
     make_sync_runner,
     stream_block,
 )
+from .checkpoint import load_state, save_state
 from .dynamics.hamiltonian import KineticKind
 from .kernels import _build, nuts_fused
 from .kernels.mclmc import MclmcOptions
+from .kernels.rng import derive_seed
 from .kernels.nuts import NutsOptions
 from .models.model import Model
 from .storage.core import StorageConfig, dims_for_tail
@@ -776,6 +784,124 @@ class _Transfer:
         return out
 
 
+@dataclasses.dataclass(frozen=True)
+class ConvergenceStop:
+    """Early-stopping criteria: sample until converged, then stop
+    (``nuts_rs_tpu/sampler.py:563-606``).
+
+    After every chunk holding posterior draws the sampler computes
+    rank-normalized split-R-hat and bulk ESS (``diagnostics.py``) over the
+    posterior draws of ``var`` buffered so far; once every dimension
+    satisfies BOTH targets it stops and finalizes the shorter trace.
+    ``settings.num_draws`` stays the upper bound.  Dimensions whose
+    diagnostics are NaN (a constant) never satisfy the check.  Beyond
+    ``max_buffer_draws`` draws a chain the buffer is thinned by 2 (every
+    stride-th draw on the global posterior index), which only lowers the
+    ESS: the stop stays conservative.
+    """
+
+    rhat_max: float = 1.01
+    min_ess_bulk: float = 400.0
+    # posterior draws required before the first (and any) check
+    min_draws: int = 100
+    # check only the first N dims of ``var`` (None = all)
+    check_dims: Optional[int] = None
+    var: str = "position"
+    max_buffer_draws: int = 4096
+
+    def satisfied(self, x) -> bool:
+        from .diagnostics import ess_bulk, split_rhat
+
+        if x.shape[1] < max(self.min_draws, 4):
+            return False
+        if self.check_dims is not None and x.ndim == 3:
+            x = x[..., : self.check_dims]
+        rhat = np.asarray(split_rhat(x))
+        if not np.all(rhat <= self.rhat_max):  # NaN -> False -> keep going
+            return False
+        ess = np.asarray(ess_bulk(x))
+        return bool(np.all(ess >= self.min_ess_bulk))
+
+
+@dataclasses.dataclass
+class ChainProgress:
+    """Mirror of nuts-rs ``ChainProgress`` (src/sampler.rs:1009-1051), with
+    the JAX package's fields (``nuts_rs_tpu/sampler.py:609-626``)."""
+
+    finished_draws: int = 0
+    total_draws: int = 0
+    divergences: int = 0
+    tuning: bool = True
+    started: bool = False
+    latest_num_steps: int = 0
+    total_num_steps: int = 0
+    step_size: float = 0.0
+    runtime: float = 0.0
+    divergent_draws: list = dataclasses.field(default_factory=list)
+    # set by the sampler's between-chunk stuck-chain detector (reference:
+    # LogpError::is_recoverable, src/math/math.rs:9-13)
+    failed: bool = False
+    error: Optional[str] = None
+
+
+class ChainFailedError(RuntimeError):
+    """A chain's logp function failed unrecoverably: every draw diverges
+    and the chain never moves (``nuts_rs_tpu/sampler.py:640-657``).
+
+    Sampling stops and the trace is finalized first (src/sampler.rs:
+    1452-1457); the partial results ride on the exception.
+
+    Attributes:
+        trace: the finalized partial trace (all chains, draws so far).
+        chains: indices of the failed chains.
+    """
+
+    def __init__(self, msg: str, trace=None, chains=()):
+        super().__init__(msg)
+        self.trace = trace
+        self.chains = list(chains)
+
+
+def _second_arg_required(fn) -> bool:
+    """Whether ``fn``'s second positional parameter is explicitly required
+    (``nuts_rs_tpu/sampler.py:966-990``): a ``*args`` wrapper or a
+    defaulted second parameter keeps the one-argument call."""
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return False  # builtins / C callables: the one-argument form
+    pos = [p for p in params
+           if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    return len(pos) >= 2 and pos[1].default is pos[1].empty
+
+
+def _numpy_dtype(dtype: torch.dtype) -> np.dtype:
+    return torch.zeros(0, dtype=dtype).numpy().dtype
+
+
+def _expand_device(model: Model, q, seed: int, lo: int) -> dict:
+    """``model.expand_fn`` on a chunk's positions ``q`` [C, k, d], on
+    their device: a one-argument fn over each position by
+    ``torch.func.vmap``, a two-argument fn over the chunk with a generator
+    seeded from the counter hash of (``seed`` + 1, ``lo``)."""
+    fn = model.expand_fn
+    if _second_arg_required(fn):
+        gen = torch.Generator(device=q.device)
+        gen.manual_seed(derive_seed(seed + 1, lo, PURPOSE_EXPAND))
+        out = fn(q, gen)
+    else:
+        out = torch.func.vmap(torch.func.vmap(fn))(q)
+    return {name: torch.as_tensor(v) for name, v in out.items()}
+
+
+def _expand_host(model: Model, pos, lo: int) -> dict:
+    """``model.expand_host_fn`` on a chunk's positions [C, k, d] (numpy),
+    with the chunk's first draw where its second parameter is required."""
+    fn = model.expand_host_fn
+    out = fn(pos, lo) if _second_arg_required(fn) else fn(pos)
+    return {name: np.asarray(v) for name, v in out.items()}
+
+
 class Sampler:
     """Chunked multi-chain sampler (parallel controller of src/sampler.rs:1254).
 
@@ -791,22 +917,44 @@ class Sampler:
     The transfer knobs act on the device, before a chunk's copy to the host
     (``nuts_rs_tpu/sampler.py:1080-1107,1645-1750``): ``keep_stats`` keeps
     the listed stats beside ``position``, ``diverging``, ``n_steps`` and
-    ``step_size``; ``draw_dtype`` (a numpy or torch dtype) casts the
-    positions and ``stats_dtype`` the float stats (int and bool stats keep
-    theirs); ``store_warmup=False`` stores no warmup draw, and an
-    all-tuning chunk copies the accounting planes alone.  The kernels
-    compute in float32 whatever the knobs say.
+    ``step_size`` (and ``stop_when.var``); ``draw_dtype`` (a numpy or torch
+    dtype) casts the positions and ``stats_dtype`` the float stats (int and
+    bool stats keep theirs); ``store_warmup=False`` stores no warmup draw,
+    and an all-tuning chunk copies the accounting planes alone.  The
+    kernels compute in float32 whatever the knobs say, and the stuck-chain
+    detector and both expansions read the float32 positions.
+
+    The control surface is the JAX package's
+    (``nuts_rs_tpu/sampler.py:758-2214``), at chunk granularity:
+    ``pause`` / ``resume`` (``run`` stops at a chunk boundary when paused),
+    ``wait_timeout``, ``abort``, ``inspect`` and ``flush``; per-chain
+    :class:`ChainProgress` in ``progress``, handed to ``progress_callback``
+    after a chunk at most every ``progress_rate_seconds`` and always at the
+    end, and every ``progress_tick`` draws from inside a chunk of the sync
+    engines (provisional values, replaced at the chunk's end; a fused chunk
+    is one launch and gets no ticks); ``stop_when`` (:class:`ConvergenceStop`);
+    the stuck-chain detector: ``fail_after`` consecutive draws that diverged
+    and left every coordinate bit-equal to the draw before (NaN equal to
+    NaN; the run's first draw counts as moved) mark a chain failed, and
+    ``run`` / ``wait_timeout`` then finalize the trace and raise
+    :class:`ChainFailedError` (None disables it); ``checkpoint`` /
+    ``restore``; and the model's expansions, stored beside the positions.
     """
 
     def __init__(self, model: Model, settings,
                  storage: Optional[StorageConfig] = None,
                  chunk_size: int = 128, init_positions=None, *,
                  device="cuda", keep_stats=None, draw_dtype=None,
-                 stats_dtype=None, store_warmup: bool = True):
+                 stats_dtype=None, store_warmup: bool = True,
+                 progress_callback=None, progress_tick: Optional[int] = None,
+                 stop_when: Optional[ConvergenceStop] = None,
+                 fail_after: Optional[int] = 100):
         if model.dim < 1:
             raise ValueError("model.dim must be >= 1")
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
+        if progress_tick is not None and progress_tick < 1:
+            raise ValueError("progress_tick must be >= 1")
         self.device = torch.device(device)
         _refuse(settings.unsupported(model, self.device))
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -819,6 +967,8 @@ class Sampler:
         self.model = model
         self.settings = settings
         self.chunk_size = chunk_size
+        if keep_stats is not None and stop_when is not None:
+            keep_stats = set(keep_stats) | {stop_when.var}
         self._transfer = _Transfer(keep_stats, draw_dtype, stats_dtype,
                                    store_warmup)
         self.config = settings.chain_config()
@@ -848,6 +998,33 @@ class Sampler:
         self._next_draw = 0
         self._total = settings.num_tune + settings.num_draws
         self.chunk_seconds = []
+        self.progress = [ChainProgress(total_draws=self._total)
+                         for _ in range(C)]
+        self.progress_callback = progress_callback
+        self.progress_rate_seconds = 0.5
+        self._last_callback = 0.0
+        self.progress_tick = progress_tick
+        self._tick_lo = 0
+        self._tick_base = None
+        self._live_done = 0
+        self._paused = False
+        self.stop_when = stop_when
+        self.converged = False
+        self._post_buffer: list = []
+        self._post_thin = 1
+        self._post_seen = 0
+        self.fail_after = fail_after
+        self._div_streak = np.zeros(C, np.int64)
+        self._last_pos: Optional[torch.Tensor] = None  # [C, d] float32
+        self._failed_chains: list = []
+        # backends that create their arrays upfront get the schema first
+        if getattr(self.trace, "wants_schema", False):
+            try:
+                self.trace.declare_schema(self.schema())
+            except Exception as e:
+                warnings.warn(
+                    f"trace schema reflection failed ({e!r}); storage "
+                    "arrays will materialize on first write", RuntimeWarning)
 
     @property
     def finished(self) -> bool:
@@ -856,7 +1033,8 @@ class Sampler:
     def run_next_chunk(self):
         """Run one chunk and stream it to storage.  Returns ``(lo, stats,
         tuning)``: the chunk's first global draw index, the host stats dict
-        (``stats[name]`` shaped [chains, k, ...]) and the tuning mask."""
+        (``stats[name]`` shaped [chains, k, ...], the expansions included)
+        and the tuning mask."""
         lo = self._next_draw
         start, end, runner = next(
             (s, e, r) for s, e, r in self._phase_runners if s <= lo < e)
@@ -864,51 +1042,345 @@ class Sampler:
         t0 = time.monotonic()
         flags = self.settings.extra_flags(
             _schedule_chunk(self.schedule, lo, hi), lo, hi)
-        self.state, stats = runner(self.state, flags)
+        if self.progress_tick is not None and getattr(runner, "ticks",
+                                                      False):
+            # the base of the ticks' provisional values
+            self._tick_lo = lo
+            self._tick_base = [(p.finished_draws, p.divergences,
+                                p.total_num_steps) for p in self.progress]
+            self._live_done = 0
+            self.state, stats = runner(
+                self.state, flags, tick=(self.progress_tick, self._tick_fn))
+        else:
+            self.state, stats = runner(self.state, flags)
         self._next_draw = hi
         return self._finish_chunk(lo, hi, stats, t0)
 
     def _finish_chunk(self, lo, hi, stats, t0):
         tuning = self.schedule.is_tuning[lo:hi]
         all_tuning = hi > lo and bool(tuning.all())
+        drop_warm = all_tuning and not self._transfer.store_warmup
+        # the detector's mask and both expansions read the float32
+        # positions on the device, before the knobs cast or drop them
+        pos = stats["position"]                           # [k, C, d]
+        same = (self._same_as_before(pos) if self.fail_after is not None
+                else None)
+        expanded = {}
+        if self.model.expand_fn is not None and not drop_warm:
+            expanded = {k: v.cpu().numpy() for k, v in _expand_device(
+                self.model, pos.movedim(0, 1), self.settings.seed,
+                lo).items()}
         stats = self._transfer.on_device(stats, all_tuning)
         # device -> host; [k, C, ...] -> [C, k, ...]
         stats = {k: np.moveaxis(v.cpu().numpy(), 0, 1)
                  for k, v in stats.items()}
-        self.chunk_seconds.append((lo, hi, time.monotonic() - t0))
-        if self._transfer.store_warmup:
-            self.trace.record_chunk(lo, stats, tuning)
-        elif not all_tuning:
+        if self.model.expand_host_fn is not None and not drop_warm:
+            host_pos = stats["position"]
+            if host_pos.dtype != np.float32:
+                host_pos = np.moveaxis(pos.cpu().numpy(), 0, 1)
+            expanded.update(_expand_host(self.model, host_pos, lo))
+        elapsed = time.monotonic() - t0
+        self.chunk_seconds.append((lo, hi, elapsed))
+        if drop_warm:
+            pass  # an all-tuning chunk with store_warmup=False: no rows
+        elif not self._transfer.store_warmup and tuning.any():
             # a chunk across the end of the warmup: its tuning rows go
             split = int(tuning.sum())
             self.trace.record_chunk(
                 lo + split, {k: v[:, split:] for k, v in stats.items()},
+                {k: v[:, split:] for k, v in expanded.items()},
                 tuning[split:])
-        return lo, stats, tuning
+        else:
+            self.trace.record_chunk(lo, stats, expanded, tuning)
+        if self.stop_when is not None and not self.converged and not drop_warm:
+            self._buffer_for_stop({**stats, **expanded}[self.stop_when.var],
+                                  tuning)
+        self._update_progress(lo, stats, tuning, elapsed)
+        if same is not None:
+            self._detect_failed_chains(stats["diverging"], same)
+        if self.progress_callback is not None:
+            now = time.monotonic()
+            if (now - self._last_callback >= self.progress_rate_seconds
+                    or self.finished):
+                self._last_callback = now
+                self.progress_callback(self.progress)
+        return lo, {**stats, **expanded}, tuning
+
+    def _buffer_for_stop(self, x, tuning):
+        """Buffer the chunk's posterior draws of ``stop_when.var``, every
+        ``_post_thin``-th on the global posterior index, halve the buffer
+        beyond ``max_buffer_draws``, and test the criteria
+        (``nuts_rs_tpu/sampler.py:1753-1781``)."""
+        post = np.asarray(x)[:, ~tuning]
+        if not post.shape[1]:
+            return
+        if self.stop_when.check_dims is not None and post.ndim == 3:
+            post = post[..., : self.stop_when.check_dims]
+        idx = np.arange(self._post_seen, self._post_seen + post.shape[1])
+        self._post_seen += post.shape[1]
+        keep = (idx % self._post_thin) == 0
+        if keep.any():
+            self._post_buffer.append(post[:, keep].copy())
+        series = (self._post_buffer[0] if len(self._post_buffer) == 1
+                  else np.concatenate(self._post_buffer, axis=1))
+        while series.shape[1] > self.stop_when.max_buffer_draws:
+            series = series[:, ::2]
+            self._post_thin *= 2
+            self._post_buffer = [series]
+        self.converged = self.stop_when.satisfied(series)
+
+    def _tick_fn(self, done, divs, steps, last, step_size):
+        """In-chunk progress (see ``progress_tick``): provisional values,
+        replaced by the chunk-end accounting in :meth:`_update_progress`
+        (``nuts_rs_tpu/sampler.py:1798-1831``)."""
+        done = int(done)
+        if done <= self._live_done or self._tick_base is None:
+            return
+        self._live_done = done
+        base, lo = self._tick_base, self._tick_lo
+        tuning = bool(self.schedule.is_tuning[min(lo + done - 1,
+                                                  self._total - 1)])
+        divs, steps = divs.cpu().numpy(), steps.cpu().numpy()
+        last, step_size = last.cpu().numpy(), step_size.cpu().numpy()
+        for c, prog in enumerate(self.progress):
+            b = base[c]
+            prog.started = True
+            prog.finished_draws = b[0] + done
+            prog.divergences = b[1] + int(divs[c])
+            prog.total_num_steps = b[2] + int(steps[c])
+            prog.latest_num_steps = int(last[c])
+            prog.step_size = float(step_size[c])
+            prog.tuning = tuning
+        cb = self.progress_callback
+        if cb is None:
+            return
+        now = time.monotonic()
+        if now - self._last_callback >= self.progress_rate_seconds:
+            self._last_callback = now
+            cb(self.progress)
+
+    def _update_progress(self, lo, stats, tuning, elapsed):
+        """The chunk-end accounting of ``progress``
+        (``nuts_rs_tpu/sampler.py:1833-1869``): a chain's runtime is the
+        chunk's seconds in proportion to its leapfrogs, the busiest
+        chain's being the whole."""
+        if self._tick_base is not None:
+            # rewind the ticks' provisional values
+            for c, prog in enumerate(self.progress):
+                (prog.finished_draws, prog.divergences,
+                 prog.total_num_steps) = self._tick_base[c]
+            self._tick_base = None
+        div_mask = stats["diverging"] & ~tuning                 # [C, k]
+        C, k = div_mask.shape
+        rows, cols = np.nonzero(div_mask)
+        div_draws = np.split(lo + cols, np.searchsorted(rows, np.arange(1, C)))
+        steps = stats["n_steps"].sum(axis=1, dtype=np.int64)
+        runtime = elapsed * steps / max(float(steps.max()), 1.0)
+        tuning_now = bool(tuning[-1])
+        for prog, n_div, draws, n, last, step, t in zip(
+                self.progress, div_mask.sum(1).tolist(), div_draws,
+                steps.tolist(), stats["n_steps"][:, -1].tolist(),
+                stats["step_size"][:, -1].tolist(), runtime.tolist()):
+            prog.started = True
+            prog.divergences += n_div
+            if n_div:
+                prog.divergent_draws.extend(draws.tolist())
+            prog.finished_draws += k
+            prog.tuning = tuning_now
+            prog.latest_num_steps = last
+            prog.total_num_steps += n
+            prog.step_size = step
+            prog.runtime += t
+
+    def _same_as_before(self, pos):
+        """[C, k] host mask: each draw's position bit-equal to the draw
+        before (NaN equal to NaN), computed on the device on the float32
+        positions ``pos`` [k, C, d]; the run's first draw has no
+        predecessor and counts as moved
+        (``nuts_rs_tpu/sampler.py:1657-1679``)."""
+        def equal(a, b):
+            return ((a == b) | (torch.isnan(a) & torch.isnan(b))).all(-1)
+
+        same = torch.zeros(pos.shape[:2], dtype=torch.bool,
+                           device=pos.device)
+        same[1:] = equal(pos[1:], pos[:-1])
+        if self._last_pos is not None:
+            same[0] = equal(pos[0], self._last_pos)
+        self._last_pos = pos[-1].clone()
+        return same.T.cpu().numpy()
+
+    def _detect_failed_chains(self, div, same) -> None:
+        """Between-chunk unrecoverable-failure detector (see ``fail_after``;
+        ``nuts_rs_tpu/sampler.py:1871-1933``): a chain's streak counts the
+        draws that diverged AND left the position bit-equal to the draw
+        before; any other draw resets it.  ``div`` and ``same`` are [C, k]
+        host masks."""
+        div = np.asarray(div).astype(bool)
+        C, k = div.shape
+        if not div.any():
+            self._div_streak[:] = 0
+            return
+        ok = ~(div & same)
+        has_ok = ok.any(axis=1)
+        last_ok = np.where(has_ok, k - 1 - np.argmax(ok[:, ::-1], axis=1), -1)
+        self._div_streak = np.where(
+            has_ok, k - 1 - last_ok, self._div_streak + k)
+        newly = np.nonzero((self._div_streak >= self.fail_after)
+                           & ~np.array([p.failed for p in self.progress]))[0]
+        for c in newly.tolist():
+            self.progress[c].failed = True
+            self.progress[c].error = (
+                f"chain {c}: logp function appears permanently failing — "
+                f"{int(self._div_streak[c])} consecutive divergent draws "
+                "with no accepted move (unrecoverable; see "
+                "ChainFailedError)")
+            self._failed_chains.append(c)
+
+    def _raise_if_failed(self) -> None:
+        if not self._failed_chains:
+            return
+        self.flush()
+        trace = self.trace.finalize()
+        chains = list(self._failed_chains)
+        msgs = "; ".join(str(self.progress[c].error) for c in chains[:3])
+        raise ChainFailedError(
+            f"{len(chains)} chain(s) failed unrecoverably: {msgs}"
+            + (" ..." if len(chains) > 3 else ""),
+            trace=trace, chains=chains)
+
+    def pause(self) -> None:
+        """Stop launching further chunks from :meth:`run` (the reference's
+        chain pause commands, src/sampler.rs:1469-1490; granularity here is
+        the chunk)."""
+        self._paused = True
+
+    def resume(self) -> None:
+        self._paused = False
 
     def run(self) -> Trace:
-        while not self.finished:
+        """Run to the end, to convergence (``stop_when``) or to a pause.
+        Raises :class:`ChainFailedError` once the detector marks a chain,
+        and ``RuntimeError`` where a pause left the run unfinished."""
+        while (not self.finished and not self.converged
+               and not self._failed_chains):
+            if self._paused:
+                break
             self.run_next_chunk()
+        self._raise_if_failed()
+        if self.converged and not self.finished:
+            # early convergence stop: the shorter trace
+            self.flush()
+            return self.trace.finalize()
+        if not self.finished:
+            raise RuntimeError(
+                "sampler paused before completion; call resume() and run() "
+                "again, or inspect() the partial trace")
         return self.trace.finalize()
+
+    def wait_timeout(self, timeout: float) -> Optional[Trace]:
+        """Run until finished or ``timeout`` seconds elapse (the reference's
+        ``Sampler::wait_timeout``, src/sampler.rs:1526-1542).  Returns the
+        finalized trace, or None on timeout with the state kept; the check
+        runs between chunks, so the wait can overshoot by one chunk."""
+        deadline = time.monotonic() + timeout
+        while not self.finished:
+            self._raise_if_failed()
+            if self.converged:
+                self.flush()
+                return self.trace.finalize()
+            if self._paused or time.monotonic() >= deadline:
+                return None
+            self.run_next_chunk()
+        self._raise_if_failed()
+        return self.trace.finalize()
+
+    def abort(self) -> Any:
+        """Stop sampling and return the partial results (the reference's
+        ``Sampler::abort``, src/sampler.rs:1516-1524): storage is flushed
+        and the backend's ``inspect()`` snapshot returned; ``run()`` then
+        raises."""
+        self._paused = True
+        self.trace.flush()
+        return self.trace.inspect()
+
+    def checkpoint(self, path: str) -> None:
+        """Save the chain state and the draw cursor (``checkpoint.py``); a
+        Sampler built with the same settings can ``restore`` and continue
+        bit-identically, on this device or another."""
+        save_state(path, self.state, self._next_draw)
+
+    def restore(self, path: str) -> None:
+        """Load a checkpoint into this sampler.  The convergence buffer and
+        the stuck-chain detector start afresh, as in a new sampler."""
+        self.state, self._next_draw = load_state(path, self.state)
+        self.converged = False
+        self._post_buffer = []
+        self._post_thin = 1
+        self._post_seen = 0
+        self._div_streak[:] = 0
+        self._last_pos = None
+
+    def inspect(self):
+        return self.trace.inspect()
+
+    def flush(self) -> None:
+        """Force buffered trace chunks to storage without consuming them
+        (nuts-rs ``Sampler`` flush command, src/sampler.rs:1231-1244)."""
+        self.trace.flush()
 
     def schema(self):
         """The trace schema: ``{group: {name: {"dtype", "shape", "dims"}}}``
         for the four draw groups plus ``"coords"`` and ``"events"``, as
-        ``nuts_rs_tpu``'s ``Sampler.schema`` reflects it for these settings
-        and transfer knobs."""
+        ``nuts_rs_tpu``'s ``Sampler.schema`` reflects it for these settings,
+        transfer knobs and expansions (``expand_fn`` probed on the
+        sampler's device)."""
         t = self._transfer
-        return schema(self.model, self.settings, keep_stats=t.keep,
-                      draw_dtype=t.draw_dtype, stats_dtype=t.stats_dtype,
-                      store_warmup=t.store_warmup)
+        return _schema(self.model, self.settings, t, self.device)
 
 
 def schema(model: Model, settings=None, *, keep_stats=None, draw_dtype=None,
            stats_dtype=None, store_warmup: bool = True):
     """Settings-level trace schema, without a sampler or a device
     (``nuts_rs_tpu/sampler.py:2035-2180,2216-2245``): what is stored, the
-    extra stores and the transfer knobs applied."""
+    extra stores, the transfer knobs and the expansions applied.  The
+    expansions are probed on the CPU, once, with zero positions [C, 1, d];
+    an ``expand_host_fn`` that fails on the probe is left out with a
+    ``UserWarning``."""
     settings = settings or NutsSettings()
     transfer = _Transfer(keep_stats, draw_dtype, stats_dtype, store_warmup)
+    return _schema(model, settings, transfer, torch.device("cpu"))
+
+
+def _probe_expansions(model: Model, settings, transfer: _Transfer,
+                      device) -> dict:
+    """``{name: {"dtype", "shape"}}`` of the expansions, from one call of
+    each on zero positions [C, 1, d] (float32 on ``device`` for
+    ``expand_fn``; at ``draw_dtype`` on the host for ``expand_host_fn``,
+    as the JAX package probes it)."""
+    C, d = settings.num_chains, model.dim
+    out = {}
+    if model.expand_fn is not None:
+        zero = torch.zeros(C, 1, d, dtype=torch.float32, device=device)
+        for name, v in _expand_device(model, zero, settings.seed, 0).items():
+            out[name] = {"dtype": _numpy_dtype(v.dtype),
+                         "shape": tuple(v.shape[2:])}
+    if model.expand_host_fn is not None:
+        try:
+            zero = np.zeros((C, 1, d), np.dtype(transfer.draw_dtype
+                                                or np.float32))
+            for name, v in _expand_host(model, zero, 0).items():
+                out.setdefault(name, {"dtype": v.dtype,
+                                      "shape": tuple(v.shape[2:])})
+        except Exception as e:
+            warnings.warn(
+                "expand_host_fn failed on the schema probe "
+                f"({type(e).__name__}: {str(e)[:200]}); its arrays are not "
+                "reflected upfront and will materialize on first write",
+                UserWarning)
+    return out
+
+
+def _schema(model: Model, settings, transfer: _Transfer, probe_device):
     dtypes = {n: (dt, n == "position")
               for n, dt in _STAT_DTYPES[settings.sampler_name].items()}
     dtypes.update(_extra_stat_dtypes(settings))
@@ -917,13 +1389,17 @@ def schema(model: Model, settings=None, *, keep_stats=None, draw_dtype=None,
     every = transfer.entries({
         n: {"dtype": np.dtype(dt), "shape": (model.dim,) if vec else ()}
         for n, (dt, vec) in dtypes.items()})
+    expanded = _probe_expansions(model, settings, transfer, probe_device)
+
+    def dims(entries):
+        return {n: dict(e, dims=dims_for_tail(model, n, e["shape"]))
+                for n, e in entries.items()}
 
     def group(names, on):
         if not on:
             return {}
-        return {n: dict(e, dims=dims_for_tail(model, n, e["shape"]))
-                for n, e in every.items() if (n in _POSTERIOR_STAT_KEYS)
-                == names}
+        return dims({n: e for n, e in every.items()
+                     if (n in _POSTERIOR_STAT_KEYS) == names})
 
     scalar = {"dtype": np.dtype(np.int64), "shape": (), "dims": []}
 
@@ -942,11 +1418,14 @@ def schema(model: Model, settings=None, *, keep_stats=None, draw_dtype=None,
             "draw": dict(scalar), "transformation_update_id": dict(scalar),
             **{k: ev_field(every[k]) for k in _TRANSFORM_EVENT_KEYS
                if k in every}}
-    warm = bool(settings.num_tune) and store_warmup
+    warm = bool(settings.num_tune) and transfer.store_warmup
+    # the expansions sit beside the positions in both posterior groups,
+    # whichever phases the run has (``nuts_rs_tpu/sampler.py:2136-2150``)
     return {
-        "posterior": group(True, settings.num_draws),
+        "posterior": {**group(True, settings.num_draws), **dims(expanded)},
         "sample_stats": group(False, settings.num_draws),
-        "warmup_posterior": group(True, warm),
+        "warmup_posterior": ({**group(True, warm), **dims(expanded)}
+                             if transfer.store_warmup else {}),
         "warmup_sample_stats": group(False, warm),
         "coords": dict(model.coords or {}),
         "events": events,
@@ -958,15 +1437,55 @@ def sample(model: Model, settings=None, *,
            storage: Optional[StorageConfig] = None, chunk_size: int = 128,
            init_positions=None, device="cuda", keep_stats=None,
            draw_dtype=None, stats_dtype=None,
-           store_warmup: bool = True) -> Trace:
+           store_warmup: bool = True, progress_callback=None,
+           progress_tick: Optional[int] = None,
+           stop_when: Optional[ConvergenceStop] = None,
+           fail_after: Optional[int] = 100) -> Trace:
     """Sample from ``model`` on ``device`` (the card unless the caller asks
     for the CPU); returns an in-memory :class:`Trace` unless another storage
-    backend is given.  The transfer knobs are :class:`Sampler`'s."""
+    backend is given.  The transfer knobs, ``progress_callback``,
+    ``progress_tick``, ``stop_when`` (:class:`ConvergenceStop`) and
+    ``fail_after`` (the stuck-chain detector; :class:`ChainFailedError`)
+    are :class:`Sampler`'s."""
     settings = settings or NutsSettings()
     if seed is not None:
         settings = dataclasses.replace(settings, seed=seed)
     return Sampler(model, settings, storage=storage, chunk_size=chunk_size,
                    init_positions=init_positions, device=device,
                    keep_stats=keep_stats, draw_dtype=draw_dtype,
-                   stats_dtype=stats_dtype, store_warmup=store_warmup).run()
+                   stats_dtype=stats_dtype, store_warmup=store_warmup,
+                   progress_callback=progress_callback,
+                   progress_tick=progress_tick, stop_when=stop_when,
+                   fail_after=fail_after).run()
 
+
+def sample_sequentially(model, settings, start, draws, chain=0, seed=0,
+                        chunk_size: int = 16, *, device="cuda"):
+    """Single-chain lazy iterator (nuts-rs ``sample_sequentially``,
+    src/sampler.rs:994-1005; ``nuts_rs_tpu/sampler.py:2287-2319``), one
+    chain on ``device``.
+
+    ``draws`` counts all draws, the first ``num_tune`` of them tuning.
+    Yields ``(position, progress_dict)`` per draw, the dict with the
+    reference's ``Progress`` fields (chain.rs:178-188) under the JAX
+    package's keys.  Lazy at ``chunk_size``: the next chunk runs only when
+    the last one's draws are consumed."""
+    num_tune = min(getattr(settings, "num_tune", 0), draws)
+    settings = dataclasses.replace(settings, num_chains=1, num_tune=num_tune,
+                                   num_draws=draws - num_tune, seed=seed)
+    sampler = Sampler(model, settings,
+                      chunk_size=max(1, min(chunk_size, draws)),
+                      init_positions=np.asarray(start)[None, :],
+                      device=device)
+    while not sampler.finished:
+        lo, stats, tuning = sampler.run_next_chunk()
+        for j in range(len(tuning)):
+            progress = {
+                "draw": lo + j,
+                "chain": chain,
+                "diverging": bool(stats["diverging"][0, j]),
+                "tuning": bool(tuning[j]),
+                "step_size": float(stats["step_size"][0, j]),
+                "num_steps": int(stats["n_steps"][0, j]),
+            }
+            yield np.asarray(stats["position"][0, j]), progress

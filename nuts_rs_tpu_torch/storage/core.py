@@ -40,26 +40,43 @@ def dims_for_tail(model, name, tail_shape):
 
 
 class TraceStorage(abc.ABC):
-    """Progressive multi-chain trace writer.  The JAX package's schema
-    declaration, flush, inspect and expanded-draw hooks come with the
-    ``Sampler`` control surface (ROADMAP.md queue 1 item 9)."""
+    """Progressive multi-chain trace writer."""
+
+    # Backends that create their full array hierarchy upfront from the
+    # reflected schema (reference: Settings reflects every stat
+    # name/type/dims BEFORE sampling, src/sampler.rs:73-162) set this True;
+    # the sampler then calls declare_schema before the first chunk.
+    wants_schema = False
+
+    def declare_schema(self, schema) -> None:
+        """Create storage for every name in ``schema`` upfront (see
+        ``Sampler.schema`` for the layout).  Default: no-op."""
 
     @abc.abstractmethod
     def record_chunk(
         self,
         start_draw: int,
         stats: Mapping[str, np.ndarray],
+        expanded: Mapping[str, np.ndarray],
         tuning: np.ndarray,
     ) -> None:
         """Append a chunk of draws.
 
-        ``stats[name]`` has shape ``[chains, k, ...]``; ``tuning`` is a bool
-        array of length ``k`` marking warmup draws.
+        ``stats[name]`` and ``expanded[name]`` (the model's expansions,
+        stored beside the positions) have shape ``[chains, k, ...]``;
+        ``tuning`` is a bool array of length ``k`` marking warmup draws.
         """
 
     @abc.abstractmethod
     def finalize(self) -> Any:
         """Close the trace and return the backend-specific result."""
+
+    def flush(self) -> None:
+        """Force buffered data out (nuts-rs ``ChainStorage::flush``)."""
+
+    def inspect(self) -> Any:
+        """Readable snapshot of the live trace (nuts-rs ``inspect``)."""
+        return None
 
 
 class StorageConfig(abc.ABC):

@@ -10,7 +10,10 @@ ArviZ-style groups: ``posterior``, ``sample_stats``, ``warmup_posterior``,
 (a phase that stored no draw, as with ``store_warmup=False``, holds arrays
 of no draws, as the JAX package's) — plus compacted sparse event streams
 (divergences, transformation updates, with the transform at each update
-where ``store_mass_matrix`` stored it).
+where ``store_mass_matrix`` stored it).  The model's expansions are stored
+beside the positions, in the two posterior groups
+(``nuts_rs_tpu/storage/memory.py:46-133``); :meth:`MemoryStorage.inspect`
+assembles what was recorded so far without finalizing.
 """
 
 from __future__ import annotations
@@ -51,16 +54,23 @@ class Trace:
 class MemoryStorage(TraceStorage):
     def __init__(self, settings=None, model=None, num_chains: int = 0):
         self._chunks: List[Mapping[str, np.ndarray]] = []
+        self._expanded_chunks: List[Mapping[str, np.ndarray]] = []
         self._tuning: List[np.ndarray] = []
         self._settings = settings
         self._model = model
 
-    def record_chunk(self, start_draw, stats, tuning):
+    def record_chunk(self, start_draw, stats, expanded, tuning):
         self._chunks.append({k: np.asarray(v) for k, v in stats.items()})
+        self._expanded_chunks.append(
+            {k: np.asarray(v) for k, v in expanded.items()})
         self._tuning.append(np.asarray(tuning))
 
     def finalize(self) -> Trace:
-        if not self._chunks:  # num_tune = num_draws = 0
+        if not self._chunks:
+            # num_tune = num_draws = 0, or a failing run that stored nothing
+            # (store_warmup=False and every chain failed in the warmup): an
+            # empty trace, not a storage exception in the ChainFailedError's
+            # way
             return Trace(
                 posterior={}, sample_stats={}, warmup_posterior={},
                 warmup_sample_stats={}, transformation_updates=[],
@@ -70,31 +80,38 @@ class MemoryStorage(TraceStorage):
         tuning = self._tuning
         names = list(self._chunks[0])
 
-        def part(name, want_tuning):
+        def part(chunks, name, want_tuning):
             """One group's array: the chunks' draws of that phase, joined
             once.  A chunk that lies wholly in the phase (every chunk does
             when chunks end at the phase boundary) is joined as it is, so
             the trace is the only copy made of a large posterior."""
             pieces = []
-            for chunk, t in zip(self._chunks, tuning):
+            for chunk, t in zip(chunks, tuning):
                 keep = t if want_tuning else ~t
                 if keep.all():
                     pieces.append(chunk[name])
                 elif keep.any():
                     pieces.append(chunk[name][:, keep])
             if not pieces:
-                first = self._chunks[0][name]
+                first = chunks[0][name]
                 return first[:, :0]
             return np.concatenate(pieces, axis=1)
 
         ids = (np.concatenate([c["transformation_index"]
                                for c in self._chunks], axis=1)
                if "transformation_index" in names else None)
-        warm_post = {"position": part("position", True)}
-        post_post = {"position": part("position", False)}
         stat_names = [k for k in names if k not in _POSTERIOR_KEYS]
-        warm_stats = {k: part(k, True) for k in stat_names}
-        post_stats = {k: part(k, False) for k in stat_names}
+        exp_names = list(self._expanded_chunks[0])
+
+        def posterior(want_tuning):
+            out = {"position": part(self._chunks, "position", want_tuning)}
+            out.update({k: part(self._expanded_chunks, k, want_tuning)
+                        for k in exp_names})
+            return out
+
+        warm_post, post_post = posterior(True), posterior(False)
+        warm_stats = {k: part(self._chunks, k, True) for k in stat_names}
+        post_stats = {k: part(self._chunks, k, False) for k in stat_names}
 
         # Compact transformation-update events from the id stream.
         updates: List[Dict[str, np.ndarray]] = []
@@ -122,6 +139,9 @@ class MemoryStorage(TraceStorage):
             coords=getattr(model, "coords", None),
             dims=getattr(model, "dims", None),
         )
+
+    def inspect(self) -> Trace:
+        return self.finalize()
 
 
 class MemoryConfig(StorageConfig):

@@ -556,7 +556,8 @@ def test_trace_parts_are_joined_per_phase():
               np.array([True, False, False, False])]
     for lo, (pos, t) in enumerate(zip(chunks, tuning)):
         store.record_chunk(lo, {"position": pos,
-                                "n_steps": pos[..., 0].astype(np.int32)}, t)
+                                "n_steps": pos[..., 0].astype(np.int32)},
+                           {}, t)
     trace = store.finalize()
     whole = np.concatenate(chunks, axis=1)
     np.testing.assert_array_equal(trace.warmup_posterior["position"],
