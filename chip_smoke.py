@@ -7,9 +7,10 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the fused CUDA kernels from ``nuts_rs_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-and drives fourteen paths through ``Sampler(...).run()``, eleven of them
+and drives fifteen paths through ``Sampler(...).run()``, twelve of them
 with ``posterior_kernel="pallas"`` (``--only PATH`` drives one of them:
-``nuts``, ``control``, ``mclmc``, ``large_d``, ``data``, ``mclmc_data``,
+``nuts``, ``control``, ``pipeline``, ``mclmc``, ``large_d``, ``data``,
+``mclmc_data``,
 ``stream``, ``sv``, ``radon``, ``zoo``, ``flow``, ``mclmc_sync``,
 ``exact_normal`` or ``mclmc_d400``, and builds only its kernels).  The
 ``control`` path drives the Sampler's control surface on the NUTS d=10
@@ -24,7 +25,22 @@ a pause from a progress callback, ``resume`` and the final
 draw-indexed ``expand_host_fn`` at float16 draws (equal to ``exp(q - 3)``
 of the float32 run's positions; the index invariant to the chunk size);
 and the stuck-chain detector raising on 256 frozen chains of 1024 on the
-sync engine.  The SV path's first run passes ``fail_after=None``
+sync engine.  The ``pipeline`` path drives, on the same configuration,
+``run()`` pipelined against a ``run_next_chunk`` loop (the same trace bit
+for bit; end-to-end and posterior seconds and K1 / K2's busy share, by
+CUDA events, of each), ``run()`` into ``ZarrConfig(async_writes=True)``
+(every array read back equal to the serial run's; the Zarr write and
+``finalize`` seconds beside memory storage's), ``max_chains_per_launch=512``
+(twice K1's and K2's launches, the moment gates, each group's first
+posterior launch against its plain version), ``profile_dir`` (a chunk's
+Chrome trace names K1's kernel) and ``auto_recover``: a real
+``torch.cuda.OutOfMemoryError`` replayed at half the launch size, and a
+child process whose runner hits a device-side assert and raises
+``DeviceLostError``, whose spill a second child, started beside it,
+restores and finishes, the two equal to the uninterrupted run bit for bit
+(in a whole run the two children start beside the flow path's sync
+warmup, once K1 and K2 are built, and end before any kernel is checked or
+timed).  The SV path's first run passes ``fail_after=None``
 (``check_stuck`` needs its whole trace); a second run with the default
 ``fail_after=100``, paused at draw 130, must raise ``ChainFailedError``
 exactly where the detector replayed on the first run's draws says, or
@@ -1570,7 +1586,7 @@ def path_control(device, checks, launches, times):
           f"checkpoint {t_ck:.2f}, the CPU's draws {t_cpu:.2f}, pause "
           f"{t_pause:.2f}, stop {t_stop:.2f}, expansions {t_exp:.2f}, "
           f"frozen chains {t_det:.2f}); frozen chains on the card: "
-          "ChainFailedError at draw 12 naming exactly those started at the "
+          "ChainFailedError at draw 16 naming exactly those started at the "
           "frozen point", flush=True)
 
 
@@ -1580,9 +1596,11 @@ def frozen_chains_raise(device):
     every fourth chain started there, the others at 0.5, on the sync
     engine at a fixed step (``tests/test_torch_failure.py``'s mixed run;
     maxdepth 2 keeps the healthy chains' trees, and so the host loop,
-    short): ``fail_after=8`` at 4-draw chunks must raise ChainFailedError
-    at draw 12 (streaks 3, 7, 11) naming exactly the chains started at the
-    point, each failed in its ChainProgress and the rest not."""
+    short): ``fail_after=8`` at 4-draw chunks names them at draw 12
+    (streaks 3, 7, 11), and the pipelined ``run()`` stores the chunk it
+    launched before (draws 12..15), as the JAX ``run()`` does: it must
+    raise ChainFailedError at draw 16 naming exactly the chains started at
+    the point, each failed in its ChainProgress and the rest not."""
     from nuts_rs_tpu_torch import (ChainFailedError, DiagNutsSettings,
                                    Sampler, StepSizeMethod, StepSizeSettings)
     from nuts_rs_tpu_torch.models.model import Model
@@ -1606,7 +1624,7 @@ def frozen_chains_raise(device):
     try:
         sampler.run()
     except ChainFailedError as e:
-        if e.chains != frozen or sampler._next_draw != 12:
+        if e.chains != frozen or sampler._next_draw != 16:
             raise AssertionError(f"frozen chains: named {len(e.chains)} "
                                  f"chains at draw {sampler._next_draw}")
     else:
@@ -1614,6 +1632,521 @@ def frozen_chains_raise(device):
     if [p.failed for p in sampler.progress] != [c % 4 == 0
                                                  for c in range(CHAINS)]:
         raise AssertionError("frozen chains: ChainProgress.failed flags")
+
+
+# the pipeline path: the split launches' group size, the child processes'
+# fault (the second posterior launch) and their time limit
+PIPE_SPLIT = 512
+PIPE_FAULT_LAUNCH = 2
+PIPE_CHILD_SECONDS = 300
+# the Zarr run: one chunk a chain and array (Zarr's chunks are a chain's,
+# as the JAX backend's, so an array is 1024 files at least), the native
+# writer's threads (its default is 2), and the transfer knobs that keep
+# its trace to 5 arrays: the card's host wrote about 2,300 files a second
+# (34 arrays, 34,816 files: 15.0 s of run() against 0.4 s into memory,
+# and 18 s to read them back); the CPU tests hold every array of the
+# layout against the JAX backend's
+PIPE_ZARR_DRAWS = TUNE + DRAWS
+PIPE_ZARR_THREADS = 8
+PIPE_ZARR_KNOBS = dict(keep_stats=("mean_tree_accept",), store_warmup=False)
+# a child of the pipeline path: the main path with auto_recover and a
+# recovery path, whose posterior runner launches an out-of-bounds index on
+# the card at its PIPE_FAULT_LAUNCH-th call (a device-side assert, sticky),
+# so DeviceLostError must come; then it saves what it stored
+PIPE_CHILD_FAULT = """
+import os, sys, numpy as np, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DeviceLostError, DiagNutsSettings, Sampler
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+out, rec = sys.argv[1], sys.argv[2]
+dev = torch.device("cuda", 0)
+settings = DiagNutsSettings(num_chains=cs.CHAINS, num_tune=cs.TUNE,
+                            num_draws=cs.DRAWS, seed=cs.SEED,
+                            posterior_kernel="pallas")
+s = Sampler(normal_logp(cs.DIM, cs.MU), settings, device=dev,
+            auto_recover=1, recovery_path=rec)
+calls = [0]
+def faulting(runner):
+    def run(state, flags):
+        calls[0] += 1
+        res = runner(state, flags)
+        if calls[0] == cs.PIPE_FAULT_LAUNCH:
+            x = torch.zeros(4, device=dev)
+            x[torch.full((1,), 1 << 20, dtype=torch.long, device=dev)] = 1.0
+            torch.cuda.synchronize(dev)
+        return res
+    return run
+s._phase_runners[-1] = s._phase_runners[-1][:2] + (
+    faulting(s._phase_runners[-1][2]),)
+try:
+    s.run()
+except DeviceLostError as e:
+    tr = s.trace.finalize()
+    np.savez(out, warm=tr.warmup_posterior["position"],
+             post=tr.posterior["position"],
+             steps=tr.sample_stats["n_steps"])
+    print(f"DeviceLostError at draw {s._next_draw}: {str(e)[:160]}",
+          flush=True)
+    # the context is dead: freeing its tensors at exit would abort
+    os._exit(0)
+sys.exit("no DeviceLostError")
+"""
+# the second child: a fresh process, started beside the first, builds its
+# sampler, waits for the first child's stored draws (written after the
+# spill), restores the spilled snapshot and finishes the run
+PIPE_CHILD_RESTORE = """
+import os, sys, time, numpy as np, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DiagNutsSettings, Sampler
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+out, rec, part = sys.argv[1], sys.argv[2], sys.argv[3]
+settings = DiagNutsSettings(num_chains=cs.CHAINS, num_tune=cs.TUNE,
+                            num_draws=cs.DRAWS, seed=cs.SEED,
+                            posterior_kernel="pallas")
+s = Sampler(normal_logp(cs.DIM, cs.MU), settings,
+            device=torch.device("cuda", 0))
+deadline = time.monotonic() + cs.PIPE_CHILD_SECONDS
+while not os.path.exists(part):
+    if time.monotonic() > deadline:
+        sys.exit("the faulting child wrote nothing")
+    time.sleep(0.05)
+s.restore(rec)
+at = s._next_draw
+tr = s.run()
+np.savez(out, at=at, warm=tr.warmup_posterior["position"],
+         post=tr.posterior["position"], steps=tr.sample_stats["n_steps"])
+print(f"restored at draw {at}, finished at draw {s._next_draw}")
+"""
+
+
+def timed_launches(sink):
+    """Record CUDA events around every K1 / K2 call into ``sink`` (the
+    kernels' device time, without waiting for the card); returns the
+    function that undoes it."""
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+
+    run0, warm0 = nf.nuts_fused_run, nf.nuts_fused_warmup_run
+
+    def wrap(fn):
+        def call(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            sink.append((start, end))
+            return out
+        return call
+
+    nf.nuts_fused_run, nf.nuts_fused_warmup_run = wrap(run0), wrap(warm0)
+
+    def undo():
+        nf.nuts_fused_run, nf.nuts_fused_warmup_run = run0, warm0
+    return undo
+
+
+def pipeline_run(model, settings, device, serial, **knobs):
+    """The main path once, by ``run()`` or (``serial``) a ``run_next_chunk``
+    loop: (trace, sampler, end-to-end seconds, posterior seconds from the
+    first posterior launch to the end, the kernels' busy share of the
+    end-to-end wall, the storage's finalize seconds)."""
+    from nuts_rs_tpu_torch import Sampler
+
+    events, first_post, fin = [], [], []
+    undo = timed_launches(events)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        s = Sampler(model, settings, device=device, **knobs)
+        launch0, finalize0 = s._launch_chunk, s.trace.finalize
+
+        def launch():
+            if s._next_draw >= settings.num_tune and not first_post:
+                first_post.append(time.monotonic())
+            return launch0()
+
+        def finalize():
+            t = time.monotonic()
+            out = finalize0()
+            fin.append(time.monotonic() - t)
+            return out
+
+        s._launch_chunk, s.trace.finalize = launch, finalize
+        if serial:
+            while not s.finished:
+                s.run_next_chunk()
+            trace = s.trace.finalize()
+        else:
+            trace = s.run()
+        torch.cuda.synchronize()
+        t_end = time.monotonic()
+    finally:
+        undo()
+    wall = t_end - t0
+    busy = sum(a.elapsed_time(b) for a, b in events) / 1e3
+    return trace, s, wall, t_end - first_post[0], busy / wall, fin[0]
+
+
+# runs the two children side by side, beside the pipeline path, and relays
+# their lines, the faulting child's first
+PIPE_CHILDREN = """
+import subprocess, sys
+import chip_smoke as cs
+part, rec, done = sys.argv[1:4]
+procs = [subprocess.Popen([sys.executable, "-c", src, *args],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                          text=True)
+         for src, args in ((cs.PIPE_CHILD_FAULT, (part, rec)),
+                           (cs.PIPE_CHILD_RESTORE, (done, rec, part)))]
+bad = []
+for p in procs:
+    if bad:  # the restoring child would wait for a spill that never comes
+        p.kill()
+    out, err = p.communicate(timeout=cs.PIPE_CHILD_SECONDS)
+    print(out.strip(), flush=True)
+    if p.returncode:
+        bad.append(f"exit {p.returncode}: {out[-1500:]} {err[-1500:]}")
+sys.exit("; ".join(bad) or None)
+"""
+
+
+def pipeline_children(tmp):
+    """Start the two children (PIPE_CHILDREN) in the directory ``tmp``;
+    returns the Popen and the files they write, their lines' log last."""
+    here = Path(__file__).resolve().parent
+    files = [os.path.join(tmp, f"{n}.npz") for n in ("part", "rec", "done")]
+    log = os.path.join(tmp, "children.log")
+    with open(log, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", PIPE_CHILDREN, *files], cwd=here,
+            stdout=out, stderr=subprocess.STDOUT, text=True)
+    return proc, files + [log]
+
+
+# In a whole run the children start beside the flow path's sync warmup, as
+# soon as K1 and K2 are built (a child must not build them too), and end
+# before any kernel is checked or timed (wait_beside); the pipeline path
+# then reads what they wrote.
+PIPE_EARLY = []  # [(thread, box)]
+
+
+def start_pipeline_children():
+    import tempfile
+    import threading
+
+    from nuts_rs_tpu_torch.kernels import _build
+
+    box = {"tmp": tempfile.TemporaryDirectory()}
+
+    def start():
+        try:
+            _build.build(PATH_SOURCES["pipeline"])
+            box["children"] = pipeline_children(box["tmp"].name)
+        except Exception as e:  # raised again in the pipeline path
+            box["error"] = e
+
+    thread = threading.Thread(target=start, daemon=True)
+    thread.start()
+    PIPE_EARLY.append((thread, box))
+
+
+def wait_pipeline_children():
+    for thread, box in PIPE_EARLY:
+        thread.join()
+        if "children" in box:
+            box["children"][0].wait(timeout=2 * PIPE_CHILD_SECONDS)
+
+
+def stop_pipeline_children():
+    for thread, box in PIPE_EARLY:
+        thread.join()
+        if "children" in box and box["children"][0].poll() is None:
+            box["children"][0].kill()
+            box["children"][0].wait()
+        box["tmp"].cleanup()
+    PIPE_EARLY.clear()
+
+
+def pipeline_restore_gates(proc, files, serial):
+    """Wait for the children: the faulting one raised DeviceLostError and
+    spilled its snapshot, the second restored it and finished; the two
+    together hold every draw of the uninterrupted run ``serial`` exactly
+    once, bit for bit."""
+    proc.wait(timeout=2 * PIPE_CHILD_SECONDS)
+    part, rec, done, log = files
+    out = Path(log).read_text()
+    if proc.returncode or "DeviceLostError" not in out:
+        raise AssertionError(f"the children: exit {proc.returncode}: "
+                             f"{out[-3000:]}")
+    if not os.path.exists(rec):
+        raise AssertionError("the faulting child spilled no snapshot")
+    a, b = np.load(part), np.load(done)
+    at = int(b["at"])
+    warm = serial.warmup_posterior["position"]
+    post = serial.posterior["position"]
+    steps = serial.sample_stats["n_steps"]
+    if at <= TUNE:
+        raise AssertionError(f"the snapshot is at draw {at}, in the warmup")
+    p = at - TUNE
+    if not (np.array_equal(a["warm"], warm)
+            and np.array_equal(a["post"][:, :p], post[:, :p])
+            and np.array_equal(a["steps"][:, :p], steps[:, :p])
+            and a["post"].shape[1] == p):
+        raise AssertionError("the faulting child's stored draws differ from "
+                             "the uninterrupted run's")
+    if not (np.array_equal(b["post"], post[:, p:])
+            and np.array_equal(b["steps"], steps[:, p:])
+            and b["warm"].shape[1] == 0):
+        raise AssertionError("the restored child's draws differ from the "
+                             "uninterrupted run's")
+    lines = out.strip().splitlines()
+    return lines[0], lines[-1], at
+
+
+def path_pipeline(device, checks, launches, times):
+    """run()'s pipelining, split launches, the Zarr backend, profile_dir
+    and auto_recover on the main path's configuration (NUTS d = 10, 1024
+    chains, 300 + 700 draws, K1 and K2)."""
+    import dataclasses
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nuts_rs_tpu_torch import DiagNutsSettings, ZarrConfig
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+    from nuts_rs_tpu_torch.storage.zarr_format import read_array
+
+    model = normal_logp(DIM, MU)
+    settings = DiagNutsSettings(num_chains=CHAINS, num_tune=TUNE,
+                                num_draws=DRAWS, seed=SEED,
+                                posterior_kernel="pallas")
+    names = ("nuts_fused_posterior", "nuts_fused_warmup")
+    t_path = time.monotonic()
+    # the serial loop, then run() pipelined, into memory, twice each in
+    # turn: end-to-end and posterior seconds, the kernels' busy share
+    zero_launch_counts()
+    runs = {"serial": [], "pipelined": []}
+    for rep in range(2):
+        for how in ("serial", "pipelined"):
+            runs[how].append(pipeline_run(model, settings, device,
+                                          how == "serial"))
+    counts = read_launch_counts(nf.LAUNCHES, names)
+    once = {k: n // 4 for k, n in counts.items()}
+    serial = runs["serial"][0][0]
+    for how, rs in runs.items():
+        for r in rs:
+            same_trace(r[0], serial, f"{how} run")
+    card = card_line()
+    for how, rs in runs.items():
+        print(f"pipeline path, {how} ({card}): end to end "
+              + ", ".join(f"{r[2]:.3f}" for r in rs) + " s; posterior "
+              + ", ".join(f"{r[3]:.3f}" for r in rs) + " s; K1 / K2 busy "
+              + ", ".join(f"{100 * r[4]:.1f}%" for r in rs)
+              + " of the end-to-end wall", flush=True)
+    copier = runs["pipelined"][0][1]._copier
+    if copier.reused_in_flight or not copier.reused:
+        raise AssertionError(f"copy stream: {copier.reused} buffers reused, "
+                             f"{copier.reused_in_flight} while in flight")
+
+    early = PIPE_EARLY.pop() if PIPE_EARLY else None
+    with tempfile.TemporaryDirectory() as tmp:
+        # the children run beside what follows (started beside the flow
+        # path in a whole run); no timing below
+        if early is None:
+            proc, files = pipeline_children(tmp)
+        else:
+            early[0].join()
+            if "error" in early[1]:
+                raise early[1]["error"]
+            proc, files = early[1]["children"]
+        try:
+            # run() into Zarr through the native writer, against memory
+            t0 = time.monotonic()
+            s_z = pipeline_run(model, settings, device, False,
+                               storage=ZarrConfig(
+                                   os.path.join(tmp, "trace.zarr"),
+                                   chunk_draws=PIPE_ZARR_DRAWS,
+                                   async_writes=True,
+                                   writer_threads=PIPE_ZARR_THREADS),
+                               **PIPE_ZARR_KNOBS)
+            zpath = s_z[0]
+            kept = ALWAYS_KEPT | set(PIPE_ZARR_KNOBS["keep_stats"])
+            wanted = [(group, name, want) for group in (
+                "posterior", "sample_stats")
+                for name, want in getattr(serial, group).items()
+                if name in kept]
+            stored = {g: sorted(n for n in os.listdir(os.path.join(zpath, g))
+                                if not n.startswith((
+                                    ".", "divergence_",
+                                    "transformation_update_")))
+                      for g in ("posterior", "sample_stats",
+                                "warmup_posterior", "warmup_sample_stats")}
+            if {n for g in stored.values() for n in g} != kept or any(
+                    stored[g] for g in stored if g.startswith("warmup")):
+                raise AssertionError(f"Zarr with the knobs stored {stored}")
+            # read back on the host's cores (file reads and zlib release
+            # the GIL)
+            with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+                read = list(pool.map(lambda w: read_array(
+                    os.path.join(zpath, w[0], w[1])), wanted))
+            n_arrays = len(wanted)
+            for (group, name, want), got in zip(wanted, read):
+                want = (want.astype(np.int64) if want.dtype == np.int32
+                        else want)
+                if got.dtype != want.dtype or not np.array_equal(
+                        got, want, equal_nan=True):
+                    raise AssertionError(f"Zarr {group}/{name} differs from "
+                                         "the serial run's")
+            mem = runs["pipelined"][0]
+            print(f"pipeline path, Zarr ({PIPE_ZARR_KNOBS}: {n_arrays} "
+                  f"arrays; the native writer, async, "
+                  f"{PIPE_ZARR_THREADS} threads, codec "
+                  f"{s_z[1].trace.groups[('posterior', False)].codec}, "
+                  f"{PIPE_ZARR_DRAWS} draws a chunk, one file a chain and "
+                  f"array): run() {s_z[2]:.3f} s "
+                  f"end to end of which finalize {s_z[5]:.4f} s, against "
+                  f"{mem[2]:.3f} s and {mem[5]:.4f} s into memory; all "
+                  f"{n_arrays} arrays read back equal to the serial run's; "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+
+            # max_chains_per_launch: twice the launches, the gates, and the
+            # first split posterior launch of each group against its plain
+            # version
+            seen = []
+            run0 = nf.nuts_fused_run
+
+            def spy(*a, **k):
+                if len(seen) < CHAINS // PIPE_SPLIT:
+                    seen.append((tuple(x.clone() if torch.is_tensor(x)
+                                       else x for x in a), dict(k)))
+                return run0(*a, **k)
+
+            nf.nuts_fused_run = spy
+            try:
+                zero_launch_counts()
+                split, _, split_s, _, _, _ = pipeline_run(
+                    model, settings, device, False,
+                    max_chains_per_launch=PIPE_SPLIT)
+            finally:
+                nf.nuts_fused_run = run0
+            got = read_launch_counts(nf.LAUNCHES, names)
+            if any(got[k] != 2 * once[k] for k in names):
+                raise AssertionError(f"max_chains_per_launch={PIPE_SPLIT}: "
+                                     f"launches {got}, unsplit {once}")
+            split_gates(split)
+            errs = []
+            for g, (a, k) in enumerate(seen):
+                a = a[:9] + (CHECK_SHORT_DRAWS,) + a[10:]
+                out_k = nf.nuts_fused_run(*a, **k)
+                out_p = nf.nuts_fused_run_reference(*a, **k)
+                require_growing_trees(out_p[4], f"split launch {g}")
+                errs.append(compare(f"split launch {g}", out_k, out_p,
+                                    ("q_f", "g_f", "logp_f"), nf.STAT_NAMES,
+                                    INT_STATS)[1])
+            print(f"pipeline path, max_chains_per_launch={PIPE_SPLIT}: "
+                  f"launches {got} (unsplit {once}); run() {split_s:.3f} s; "
+                  f"the moment gates pass; the first posterior launch of "
+                  f"each group (seeds {[a[0] for a, _ in seen]}) against "
+                  f"its plain version at {CHECK_SHORT_DRAWS} draws: integer "
+                  f"stats equal, max abs err {max(errs):.3g}", flush=True)
+
+            # profile_dir: a trace a chunk, naming K1's kernel
+            t0 = time.monotonic()
+            prof_dir = os.path.join(tmp, "profile")
+            short = dataclasses.replace(settings, num_tune=0,
+                                        num_draws=CHUNK)
+            zero_launch_counts()
+            pipeline_run(model, short, device, False, profile_dir=prof_dir)
+            traces = sorted(os.listdir(prof_dir))
+            text = Path(prof_dir, traces[0]).read_text()
+            if len(traces) != 1 or "posterior_kernel" not in text:
+                raise AssertionError(f"profile_dir: {traces}, K1 named: "
+                                     f"{'posterior_kernel' in text}")
+            print(f"pipeline path, profile_dir: {traces[0]} "
+                  f"({len(text)} bytes) names K1's posterior_kernel; "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+
+            # auto_recover: a real out-of-memory error at the second
+            # posterior launch, replayed at half the launch size
+            t0 = time.monotonic()
+            oom = oom_run(model, settings, device, serial)
+            print(f"pipeline path, auto_recover: {oom}; "
+                  f"{time.monotonic() - t0:.1f} s", flush=True)
+            t0 = time.monotonic()
+            lost, restored, at = pipeline_restore_gates(proc, files, serial)
+            waited = time.monotonic() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if early is not None:
+                early[1]["tmp"].cleanup()
+    print(f"pipeline path, device lost: {lost}; {restored}; the two "
+          f"children's draws equal the uninterrupted run's bit for bit "
+          f"(snapshot at draw {at}); waited {waited:.1f} s for them; the "
+          f"path {time.monotonic() - t_path:.1f} s", flush=True)
+
+
+def split_gates(trace):
+    """The main path's moment gates on a split run's trace."""
+    pos = trace.posterior["position"]
+    st = trace.sample_stats
+    mean = float(pos.mean(dtype=np.float64))
+    std = float(pos.std(dtype=np.float64))
+    n_div = int(st["diverging"].sum())
+    acc = float(st["mean_tree_accept"].mean())
+    if not (abs(mean - MU) < 0.02 and abs(std - 1.0) < 0.05 and n_div == 0
+            and 0.7 < acc < 0.95):
+        raise AssertionError(f"split run: mean {mean} std {std} divergences "
+                             f"{n_div} accept {acc}")
+
+
+def oom_run(model, settings, device, serial):
+    """auto_recover on a real torch.cuda.OutOfMemoryError: the posterior
+    runner asks the caching allocator for a terabyte at its
+    PIPE_FAULT_LAUNCH-th call; the run replays from the last stored chunk
+    at half the launch size and stores every draw once.  The first group's
+    chains keep their streams (its seed and program ids are the unsplit
+    launch's), so they equal the uninterrupted run's bit for bit; the
+    others do up to the snapshot."""
+    import warnings
+
+    from nuts_rs_tpu_torch import Sampler
+
+    s = Sampler(model, settings, device=device, auto_recover=1)
+    calls = [0]
+    runner0 = s._phase_runners[-1][2]
+
+    def runner(state, flags):
+        calls[0] += 1
+        if calls[0] == PIPE_FAULT_LAUNCH:
+            torch.empty(1 << 40, dtype=torch.uint8, device=device)
+        return runner0(state, flags)
+
+    s._phase_runners[-1] = s._phase_runners[-1][:2] + (runner,)
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        trace = s.run()
+    faults = [str(w.message) for w in seen
+              if "device fault" in str(w.message)]
+    if len(faults) != 1 or "OutOfMemoryError" not in faults[0]:
+        raise AssertionError(f"auto_recover: warnings {faults}")
+    half = CHAINS // 2
+    at = int(re.search(r"at draw (\d+)", faults[0]).group(1)) - TUNE
+    pos, want = trace.posterior["position"], serial.posterior["position"]
+    if (pos.shape != want.shape or s.max_chains_per_launch != half
+            or not np.array_equal(pos[:half], want[:half])
+            or not np.array_equal(pos[:, :at], want[:, :at])
+            or not np.array_equal(trace.warmup_posterior["position"],
+                                  serial.warmup_posterior["position"])):
+        raise AssertionError("auto_recover: the recovered trace is not the "
+                             "uninterrupted run's where it must be")
+    progress_gates(s, trace, "recovered run")
+    return (f"a real OutOfMemoryError ({faults[0].split('(')[1][:60]}...) "
+            f"at posterior launch {PIPE_FAULT_LAUNCH}, replayed from draw "
+            f"{TUNE + at} at max_chains_per_launch={s.max_chains_per_launch}:"
+            f" every draw stored once, the first {half} chains equal the "
+            "uninterrupted run's bit for bit, the rest up to the snapshot")
 
 
 def path_mclmc(device, checks, launches, times):
@@ -1677,11 +2210,14 @@ def copy_run(model, settings, device, draw_dtype):
     class Timed(Sampler):
         copy_s = 0.0
 
-        def _finish_chunk(self, lo, hi, stats, t0):
+        def _start_copies(self, lo, hi, stats, t0):
             torch.cuda.synchronize()
-            t1 = time.monotonic()
-            out = super()._finish_chunk(lo, hi, stats, t0)
-            Timed.copy_s += time.monotonic() - t1
+            self.t_ready = time.monotonic()
+            return super()._start_copies(lo, hi, stats, t0)
+
+        def _finish_chunk(self, chunk):
+            out = super()._finish_chunk(chunk)
+            Timed.copy_s += time.monotonic() - self.t_ready
             return out
 
     t0 = time.monotonic()
@@ -2334,9 +2870,9 @@ def detector_replay(trace, boundaries, fail_after):
     chunk by chunk: at each chunk end a chain's streak is its trailing run
     of draws that diverged and left every coordinate bit-equal to the draw
     before (NaN equal to NaN; the run's first draw counts as moved).
-    Returns (the first chunk end where some streak reaches ``fail_after``,
-    the chains whose streak does there), or (None, []) where none does."""
-    streak, prev, lo = None, None, 0
+    Returns [(chunk end, the chains whose streak first reaches
+    ``fail_after`` there)] for every end in ``boundaries``."""
+    streak, prev, lo, named, out = None, None, 0, set(), []
     for end in boundaries:
         pos = draws_of(trace, "posterior", "position", lo, end)
         div = draws_of(trace, "sample_stats", "diverging", lo, end)
@@ -2349,10 +2885,11 @@ def detector_replay(trace, boundaries, fail_after):
         for t in range(end - lo):
             streak = np.where(div[:, t] & same[:, t], streak + 1, 0)
         prev, lo = pos[:, -1:], end
-        named = np.nonzero(streak >= fail_after)[0]
-        if named.size:
-            return end, named.tolist()
-    return None, []
+        new = [c for c in np.nonzero(streak >= fail_after)[0].tolist()
+               if c not in named]
+        named.update(new)
+        out.append((end, new))
+    return out
 
 
 def longest_frozen(trace, chains):
@@ -2382,17 +2919,28 @@ def sv_detector(model, settings, device, first, trace, q0, names):
     chains, each among the first run's ``stuck_chains`` and never leaving
     its start in the partial trace, which equals the first run's draws; a
     chain frozen and divergent through draw 100 makes the raise required;
-    where the replay names none by then, the run pauses unfailed."""
+    where the replay names none by then, the run pauses unfailed.  The
+    pipelined ``run()`` stops one chunk after the chunk end where the pause
+    or the first named chain comes (it stores the chunk it launched
+    before, as the JAX ``run()`` does), and the chains named in that chunk
+    are named too."""
     from nuts_rs_tpu_torch import ChainFailedError, Sampler
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     fail_after = 100
-    # the pause lands on the first chunk end at or past SV_DETECTOR_DRAWS;
-    # the replay reads the first run's draws up to there
+    # the pause comes at the first chunk end at or past SV_DETECTOR_DRAWS
+    # and the run stops one chunk later; the replay reads the first run's
+    # draws up to there
     ends = [hi for _, hi, _ in first.chunk_seconds]
     stop_at = min(e for e in ends if e >= SV_DETECTOR_DRAWS)
-    ends = [e for e in ends if e <= stop_at]
-    at, want = detector_replay(trace, ends, fail_after)
+    after = {e: n for e, n in zip(ends, ends[1:])}
+    replay = detector_replay(trace, [e for e in ends
+                                     if e <= after[stop_at]], fail_after)
+    first_named = next((e for e, new in replay if new), None)
+    end = after[min(stop_at, first_named or stop_at)]
+    want = [c for e, new in replay if e <= end for c in new]
+    at = end if want else None
+    ends = [e for e in ends if e <= end]
     stuck = np.nonzero(stuck_chains(
         trace.posterior["position"].astype(np.float64)))[0].tolist()
     pos = trace.warmup_posterior["position"]
@@ -2437,9 +2985,9 @@ def sv_detector(model, settings, device, first, trace, q0, names):
         if err is not None or any(p.failed for p in sampler.progress):
             raise AssertionError("SV detector: a chain failed where its "
                                  "replay names none")
-        if sampler._next_draw != stop_at:
+        if sampler._next_draw != end:
             raise AssertionError(f"SV detector: paused at draw "
-                                 f"{sampler._next_draw}, not {stop_at}")
+                                 f"{sampler._next_draw}, not {end}")
         return
     if err is None or err.chains != want or sampler._next_draw != at:
         raise AssertionError(f"SV detector: expected ChainFailedError at "
@@ -3029,7 +3577,9 @@ def start_beside():
 
 
 def wait_beside():
-    """Wait for the second process, relay its lines, raise if it failed."""
+    """Wait for the second process, relay its lines, raise if it failed;
+    wait for the pipeline path's children too."""
+    wait_pipeline_children()
     if not BESIDE:
         return
     proc, t0 = BESIDE.pop()
@@ -3053,7 +3603,8 @@ def stop_beside():
 # first, so that the build runs beside them
 PATHS = {"flow": path_flow, "mclmc_sync": path_mclmc_sync,
          "exact_normal": path_exact_normal, "stream": path_stream,
-         "nuts": path_nuts, "control": path_control, "mclmc": path_mclmc,
+         "nuts": path_nuts, "control": path_control,
+         "pipeline": path_pipeline, "mclmc": path_mclmc,
          "large_d": path_large_d,
          "data": path_data, "mclmc_data": path_mclmc_data,
          "mclmc_d400": path_mclmc_d400, "sv": path_sv, "radon": path_radon,
@@ -3063,6 +3614,7 @@ PATHS = {"flow": path_flow, "mclmc_sync": path_mclmc_sync,
 PATH_SOURCES = {
     "nuts": ("nuts_fused_posterior", "nuts_fused_warmup"),
     "control": ("nuts_fused_posterior", "nuts_fused_warmup"),
+    "pipeline": ("nuts_fused_posterior", "nuts_fused_warmup"),
     "mclmc": ("mclmc_fused_posterior", "mclmc_fused_warmup"),
     "large_d": ("nuts_fused_ld_posterior", "nuts_fused_ld_warmup"),
     "data": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
@@ -3143,6 +3695,7 @@ def main(argv=None) -> int:
     try:
         if not only:
             start_beside()
+            start_pipeline_children()
         for path in paths:
             t0, plain0 = time.monotonic(), PLAIN_SECONDS[0]
             PATHS[path](device, checks, launches, times)
@@ -3152,6 +3705,7 @@ def main(argv=None) -> int:
         wait_beside()
     finally:
         stop_beside()
+        stop_pipeline_children()
     _build.build(stems)  # raises where a source failed
     nvcc_s = _build.BUILD_INFO["nvcc_seconds"]
     print(f"build: the last nvcc ended "

@@ -15,8 +15,9 @@ imports torch, numpy and scipy and never JAX.  The ``Sampler``'s control
 surface is the JAX package's: pause / resume, ``wait_timeout``, ``abort``,
 progress callbacks, checkpoints, the stuck-chain detector
 (``ChainFailedError``), ``ConvergenceStop`` over the copied diagnostics,
-``sample_sequentially``, the model's expansions and the memory, CSV and
-Arrow storage backends.  What is not ported yet raises
+``sample_sequentially``, the model's expansions, ``dtype``,
+``max_chains_per_launch``, ``profile_dir``, ``auto_recover`` and the
+memory, CSV, Arrow and Zarr storage backends, with ``run()`` pipelined.  What is not ported yet raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 """
 
@@ -39,6 +40,7 @@ from .sampler import (
     ChainFailedError,
     ChainProgress,
     ConvergenceStop,
+    DeviceLostError,
     DiagMclmcSettings,
     DiagNutsSettings,
     FlowMclmcSettings,
@@ -54,6 +56,22 @@ from .sampler import (
 from .storage.arrow import ArrowConfig
 from .storage.csv import CsvConfig
 from .storage.memory import MemoryConfig, Trace
+from .storage.zarr import ZarrConfig
+from .kernels.nuts import DivergenceInfo
+
+# Reference-name aliases, as the JAX package has them
+# (``nuts_rs_tpu/__init__.py:48-62``): each maps to the closest concept
+# here, and the aliased class is the implementation, not a shim.
+# src/lib.rs:115-153 of nuts-rs is the reference export list.
+KineticEnergyKind = KineticKind            # sampler.rs KineticEnergyKind
+StepSizeAdaptMethod = StepSizeMethod       # stepsize/ StepSizeAdaptMethod
+FlowSettings = FlowAdaptSettings           # external_adapt_strategy.rs
+# its nested fields are not taken: see AdaptScheduleOptions' docstring
+EuclideanAdaptOptions = AdaptScheduleOptions
+# the reference's HashMap and Ndarray backends both keep everything in host
+# memory; MemoryConfig is that backend here
+HashMapConfig = MemoryConfig
+NdarrayConfig = MemoryConfig
 
 __version__ = "0.1.0"
 
@@ -66,6 +84,7 @@ __all__ = [
     "ConvergenceStop",
     "CouplingFlowConfig",
     "CsvConfig",
+    "DeviceLostError",
     "DiagMclmcSettings",
     "DiagNutsSettings",
     "DualAverageOptions",
@@ -95,4 +114,13 @@ __all__ = [
     "state_from_numpy",
     "state_to_numpy",
     "summary",
+    "ZarrConfig",
+    # reference-name aliases (see the alias block above)
+    "DivergenceInfo",
+    "KineticEnergyKind",
+    "StepSizeAdaptMethod",
+    "FlowSettings",
+    "EuclideanAdaptOptions",
+    "HashMapConfig",
+    "NdarrayConfig",
 ]

@@ -37,7 +37,13 @@ import numpy as np
 
 @dataclasses.dataclass(frozen=True)
 class AdaptScheduleOptions:
-    """nuts-rs ``EuclideanAdaptOptions`` (``src/adapt_strategy.rs:41-69``)."""
+    """nuts-rs ``EuclideanAdaptOptions`` (``src/adapt_strategy.rs:41-69``),
+    exported under that name too: its schedule fields.  Its nested
+    ``dual_average_options`` and ``mass_matrix_options`` are not fields
+    here, and passing them raises ``TypeError``: they are the Settings
+    presets' flat ``step_size`` (:class:`StepSizeSettings`, with
+    ``dual_average``), ``store_mass_matrix`` and
+    ``use_grad_based_estimate`` fields."""
 
     early_window: float = 0.3
     step_size_window: float = 0.15

@@ -51,7 +51,7 @@ from .kernels import mclmc_fused as mf
 from .kernels import nuts_fused as nf
 from .kernels import _build
 from .kernels.nuts import SALT_JITTER, NutsOptions, nuts_draw
-from .kernels.rng import derive_seed, host_uniform
+from .kernels.rng import derive_seed, group_seed, host_uniform
 from .ops import hsum
 from .transform.ops import AFFINE_OPS
 from .transform.affine import (
@@ -724,7 +724,7 @@ def _stats(draws, out, bars, tid, tuning):
         "index_in_trajectory": t(out["index_in_trajectory"]).to(torch.int32),
         "fisher_distance": t(out["fisher_distance"]),
         "transformation_index": tid,
-        "tuning": torch.as_tensor(tuning, device=draws.device)[:, None]
+        "tuning": to_device(tuning, draws.device)[:, None]
         .expand(k, draws.shape[0]).contiguous(),
     }
 
@@ -788,7 +788,8 @@ def make_flow_posterior_runner(model, strategy, config: ChainConfig,
         if sset.jitter is not None and state.draw_idx != phase_start:
             step_in = _launch_step(base_seed, state.draw_idx, bars,
                                    sset.jitter)
-        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_POSTERIOR)
+        seed = group_seed(derive_seed(base_seed, state.draw_idx,
+                                     PURPOSE_POSTERIOR))
         z = state.pt.z.contiguous()
         ones, zeros = torch.ones_like(z), torch.zeros_like(z)
         packed = spec.kernel_pack(tree_map(lambda v: v[0], t.params))
@@ -838,7 +839,8 @@ def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
         if sset.jitter is not None and state.draw_idx != phase_start:
             step_in = _launch_step(base_seed, state.draw_idx, bars,
                                    sset.jitter)
-        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_POSTERIOR)
+        seed = group_seed(derive_seed(base_seed, state.draw_idx,
+                                     PURPOSE_POSTERIOR))
         q_f, g_f, logp_f, draws, out = nf.nuts_fused_run(
             seed, state.pt.q, state.pt.g, state.pt.logp, t.stds, t.mean,
             t.logdet, step_in, bars, k, model, config.nuts, sset.jitter,
@@ -873,7 +875,18 @@ def warmup_flags(flags, device, columns=_FLAG_COLUMNS):
     cols = torch.zeros(k, nf.NFLAGS, dtype=torch.int32)
     for col, name in columns:
         cols[:, col] = torch.as_tensor(flags[name], dtype=torch.int32)
-    return cols.to(device)
+    return to_device(cols, device)
+
+
+def to_device(x, device):
+    """A host array or CPU tensor on ``device``, without waiting for the
+    card: a pageable copy to the card waits for the work queued on the
+    stream, so the copy goes through pinned memory, queued behind that work
+    (the caching host allocator keeps the pinned block until it is done)."""
+    x = torch.as_tensor(x)
+    if torch.device(device).type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
 
 
 def _estimator_planes(a: mm.DiagAdaptState):
@@ -911,7 +924,8 @@ def make_fused_warmup_runner(model, config: ChainConfig, base_seed: int,
         k = len(flags["is_tuning"])
         st, t = state.step, state.transform
         est, sca = pack_warmup_state(state)
-        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_WARMUP)
+        seed = group_seed(derive_seed(base_seed, state.draw_idx,
+                                     PURPOSE_WARMUP))
         (q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f, draws,
          out) = nf.nuts_fused_warmup_run(
             seed, warmup_flags(flags, est.device), state.pt.q, state.pt.g,
@@ -981,7 +995,7 @@ def _mclmc_stats(draws, out, tid, tuning):
         "energy": t(out["energy"]),
         "fisher_distance": t(out["fisher_distance"]),
         "transformation_index": tid,
-        "tuning": torch.as_tensor(tuning, device=draws.device)[:, None]
+        "tuning": to_device(tuning, draws.device)[:, None]
         .expand(k, draws.shape[0]).contiguous(),
     }
 
@@ -1014,7 +1028,8 @@ def make_fused_mclmc_posterior_runner(model, config: ChainConfig, mopts,
         if sset.jitter is not None and state.draw_idx != phase_start:
             step_in = _launch_step(base_seed, state.draw_idx, bars,
                                    sset.jitter)
-        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_MCLMC_POSTERIOR)
+        seed = group_seed(derive_seed(base_seed, state.draw_idx,
+                                     PURPOSE_MCLMC_POSTERIOR))
         q_f, g_f, logp_f, v_f, draws, out = mf.mclmc_fused_run(
             seed, state.pt.q, state.pt.g, state.pt.logp, state.pt.v, t.stds,
             t.mean, t.logdet, step_in, bars, k, model, mopts, sset.jitter)
@@ -1061,7 +1076,8 @@ def make_fused_mclmc_warmup_runner(model, config: ChainConfig, mopts,
         k = len(flags["is_tuning"])
         t = state.transform
         est, sca = pack_mclmc_warmup_state(state)
-        seed = derive_seed(base_seed, state.draw_idx, PURPOSE_MCLMC_WARMUP)
+        seed = group_seed(derive_seed(base_seed, state.draw_idx,
+                                     PURPOSE_MCLMC_WARMUP))
         (q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f, draws,
          out) = mf.mclmc_fused_warmup_run(
             seed, warmup_flags(flags, est.device, MCLMC_FLAG_COLUMNS),

@@ -38,9 +38,13 @@ def state_leaves(tree) -> List[Any]:
     raise TypeError(f"checkpoint: unsupported state leaf {type(tree)!r}")
 
 
-def _rebuild(like, leaves):
-    """``like`` with its leaves taken, in order, from the iterator
+def rebuild_state(like, leaves):
+    """``like`` with its leaves taken, in order, from the iterable
     ``leaves``."""
+    return _rebuild(like, iter(leaves))
+
+
+def _rebuild(like, leaves):
     if like is None:
         return None
     if isinstance(like, (torch.Tensor, int, float, bool)):
@@ -53,7 +57,12 @@ def _rebuild(like, leaves):
 
 
 def save_state(path: str, state: Any, next_draw: int) -> None:
-    leaves = state_leaves(state)
+    save_leaves(path, state_leaves(state), next_draw)
+
+
+def save_leaves(path: str, leaves: List[Any], next_draw: int) -> None:
+    """A checkpoint of the state whose leaves are ``leaves`` (tensors on
+    any device, host copies included, and Python numbers)."""
     arrays = {}
     for i, leaf in enumerate(leaves):
         arrays[f"leaf_{i}"] = (leaf.detach().cpu().numpy()
@@ -94,4 +103,4 @@ def load_state(path: str, like: Any) -> Tuple[Any, int]:
                 device=ref.device, dtype=ref.dtype))
         else:
             leaves.append(type(ref)(arr))
-    return _rebuild(like, iter(leaves)), next_draw
+    return rebuild_state(like, leaves), next_draw

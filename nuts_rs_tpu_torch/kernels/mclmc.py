@@ -64,6 +64,7 @@ from ..dynamics.hamiltonian import (
 from ..dynamics.point import Point, chains_where, point_where
 from ..kernels.rng import (
     box_muller,
+    chain_index,
     hash_bits,
     host_normals,
     uniform_from_bits,
@@ -199,10 +200,10 @@ def attempt_noise(seed: int, it: int, n: int, shape, device):
     size = 1
     for k in shape:
         size *= k
-    idx = torch.arange(size, dtype=torch.int64, device=device)
+    idx = chain_index(size, shape[0], device)
     u = uniform_from_bits(hash_bits(
-        torch.tensor(int(seed) & 0xFFFFFFFF, device=device),
-        its[:, None, None], salts[None, :, None], idx[None, None, :]))
+        int(seed) & 0xFFFFFFFF, its[:, None, None], salts[None, :, None],
+        idx[None, None, :]))
     z = box_muller(u[:, 0::2], u[:, 1::2])
     return z.reshape(n, 2, *shape)
 

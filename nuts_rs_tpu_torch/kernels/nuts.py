@@ -50,7 +50,13 @@ from ..dynamics.hamiltonian import (
 from ..dynamics.point import Point, chains_where, point_where
 from ..ops import logaddexp
 from ..transform.ops import AFFINE_OPS
-from .rng import hash_bits, host_uniform, tz, uniform_from_bits
+from .rng import (
+    chain_index,
+    hash_bits,
+    host_uniform,
+    tz,
+    uniform_from_bits,
+)
 
 SALT_MOMENTUM = (1, 2)
 SALT_FIRST_DIRECTION = 3
@@ -478,10 +484,10 @@ def tree_uniforms(seed: int, it: int, num_chains: int, device, n: int = 1):
     its = torch.arange(it, it + n, dtype=torch.int64, device=device)
     salts = torch.tensor([SALT_SELECT, SALT_ACCEPT, SALT_DIRECTION],
                          dtype=torch.int64, device=device)
-    idx = torch.arange(num_chains, dtype=torch.int64, device=device)
+    idx = chain_index(num_chains, num_chains, device)
     u = uniform_from_bits(hash_bits(
-        torch.tensor(int(seed) & 0xFFFFFFFF, device=device),
-        its[:, None, None], salts[None, :, None], idx[None, None, :]))
+        int(seed) & 0xFFFFFFFF, its[:, None, None], salts[None, :, None],
+        idx[None, None, :]))
     return tuple(u[0]) if n == 1 else u
 
 

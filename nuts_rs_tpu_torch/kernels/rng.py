@@ -18,10 +18,21 @@ site, coordinate ``j``, index ``j * B + b`` (the flat position in the
 block's ``(d, B)`` shape).  In the dim-on-lanes layout (``layout="ld"``)
 the block's vectors are ``(B, d)``, so a vector site has index
 ``b * d + j``; scalar sites and the block seed are the same.
+
+A launch over a group of chains (``Sampler(max_chains_per_launch=B)``)
+runs under :func:`chain_offset`: the host-side sites, whose flat index
+leads with the chain, are shifted to the group's global chains, so the
+sync engines and the launch jitter draw what one launch of every chain
+draws; a fused kernel's program ids restart at 0 in each group, as in the
+JAX package, whose runners salt each group's seed with its first chain's
+key (``nuts_rs_tpu/chain.py:838-845``): :func:`group_seed` salts it with
+the first chain's index.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
@@ -63,6 +74,41 @@ def hash_bits(seed, it, salt: int, idx):
     h = _mul32(h, 0xC2B2AE35)
     h = h ^ (h >> 16)
     return h
+
+
+_FIRST_CHAIN = contextvars.ContextVar("first_chain", default=0)
+# the purpose of a launch group's seed salt (chain.py's PURPOSE_* are 1..11)
+_PURPOSE_GROUP = 12
+
+
+@contextlib.contextmanager
+def chain_offset(first_chain: int):
+    """Run the enclosed launch as chains ``first_chain ..`` of the run."""
+    token = _FIRST_CHAIN.set(int(first_chain))
+    try:
+        yield
+    finally:
+        _FIRST_CHAIN.reset(token)
+
+
+def chain_index(size: int, num_chains: int, device):
+    """The flat index ``0 .. size - 1`` of a site shaped [num_chains, ...],
+    shifted to the launch group's global chains (:func:`chain_offset`)."""
+    idx = torch.arange(size, dtype=torch.int64, device=device)
+    first = _FIRST_CHAIN.get()
+    if first:
+        idx = idx + first * (size // num_chains)
+    return idx
+
+
+def group_seed(seed: int) -> int:
+    """A fused launch's seed in its launch group: ``seed`` itself for the
+    group of chain 0 (and for a launch of every chain), else salted by the
+    group's first chain."""
+    first = _FIRST_CHAIN.get()
+    if not first:
+        return seed
+    return (int(seed) ^ derive_seed(first, 0, _PURPOSE_GROUP)) & 0x7FFFFFFF
 
 
 def uniform_from_bits(bits):
@@ -144,10 +190,8 @@ def host_uniform(seed: int, it: int, salt: int, shape, device):
     n = 1
     for s in shape:
         n *= s
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
-    return uniform_from_bits(hash_bits(torch.tensor(int(seed) & MASK32,
-                                                    device=device),
-                                       it, salt, idx))
+    idx = chain_index(n, shape[0], device).reshape(shape)
+    return uniform_from_bits(hash_bits(int(seed) & MASK32, it, salt, idx))
 
 
 def host_normals(seed: int, it: int, salt1: int, salt2: int, shape, device):

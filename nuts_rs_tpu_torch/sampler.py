@@ -6,10 +6,10 @@ Port of ``nuts_rs_tpu/sampler.py``: ``NutsSettings`` and
 ``DiagMclmcSettings`` and ``FlowMclmcSettings`` (``:287-535``),
 ``_strategy_for`` and ``_schedule_for`` (``:663-681``), the phase plans
 ``build_phases``, ``ConvergenceStop``, ``ChainProgress`` and
-``ChainFailedError`` (``:563-657``), the ``Sampler`` (``:758-2214``; not
-its ``dtype``, ``mesh``, ``profile_dir``, ``max_chains_per_launch`` and
-``auto_recover`` options, nor ``run()``'s launch/finish pipelining) and
-the free functions ``schema`` (``:2216``), ``sample`` (``:2248``) and
+``ChainFailedError`` and ``DeviceLostError`` (``:563-657``), the
+``Sampler`` (``:758-2214``; not its ``mesh`` option, which is ROADMAP.md
+item 17, nor ``max_chains_per_launch="auto"``, the libtpu launch probe)
+and the free functions ``schema`` (``:2216``), ``sample`` (``:2248``) and
 ``sample_sequentially`` (``:2287``).
 
 NUTS runs on two engines, chosen as the JAX package chooses
@@ -61,6 +61,8 @@ from __future__ import annotations
 import dataclasses
 import enum
 import inspect
+import math
+import os
 import time
 import warnings
 from typing import Any, Optional
@@ -92,11 +94,17 @@ from .chain import (
     make_sync_runner,
     stream_block,
 )
-from .checkpoint import load_state, save_state
+from .checkpoint import (
+    load_state,
+    rebuild_state,
+    save_leaves,
+    save_state,
+    state_leaves,
+)
 from .dynamics.hamiltonian import KineticKind
 from .kernels import _build, nuts_fused
 from .kernels.mclmc import MclmcOptions
-from .kernels.rng import derive_seed
+from .kernels.rng import chain_offset, derive_seed
 from .kernels.nuts import NutsOptions
 from .models.model import Model
 from .storage.core import StorageConfig, dims_for_tail
@@ -902,17 +910,181 @@ def _expand_host(model: Model, pos, lo: int) -> dict:
     return {name: np.asarray(v) for name, v in out.items()}
 
 
+class DeviceLostError(RuntimeError):
+    """The device died mid-run and cannot be used again in this process
+    (``nuts_rs_tpu/sampler.py:629-637``).
+
+    Raised by ``auto_recover`` after a sticky CUDA error (a device-side
+    assert, an illegal memory access, an unspecified launch failure),
+    which poisons the process's CUDA context.  The last stored chunk's
+    snapshot has been written to ``Sampler(recovery_path=...)`` in
+    checkpoint format and storage was flushed; a Sampler built with the
+    same settings in a fresh process continues via
+    ``restore(recovery_path)``.
+    """
+
+
+# the messages of the CUDA errors that leave the context unusable
+_STICKY_TOKENS = ("device-side assert", "illegal memory access",
+                  "unspecified launch failure")
+
+
+class _Copier:
+    """A chunk's device -> host copies, off the compute stream.
+
+    On the card: an event is recorded on the compute stream after the
+    chunk's device work; a copy stream waits on it and copies every tensor
+    with ``non_blocking=True`` into a pinned host buffer of its shape and
+    dtype, taken from a pool and given back once the host has read it (so
+    chunk N+1, whose copies are queued before chunk N is read, takes other
+    buffers); ``record_stream`` keeps the caching allocator from handing a
+    source's memory to the next chunk before its copy is done; and the host
+    waits on the copies' event, never on the device.  On the CPU the
+    tensors are the host arrays.  ``allocated`` and ``reused`` count the
+    pinned buffers made and taken again; ``reused_in_flight`` counts the
+    buffers taken while a copy into them was in flight, which must stay 0.
+    """
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.device = device
+        self._stream = None
+        self._free: dict = {}
+        self._last_copy: dict = {}
+        self.allocated = 0
+        self.reused = 0
+        self.reused_in_flight = 0
+
+    def start(self, tensors: dict) -> "_Copies":
+        if not self.cuda:
+            return _Copies(self, tensors, None)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(self.device))
+        out = {}
+        with torch.cuda.stream(self._stream):
+            self._stream.wait_event(ready)
+            for name, src in tensors.items():
+                buf = self._take(tuple(src.shape), src.dtype)
+                buf.copy_(src, non_blocking=True)
+                src.record_stream(self._stream)
+                out[name] = buf
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        for buf in out.values():
+            self._last_copy[id(buf)] = done
+        return _Copies(self, out, done)
+
+    def _take(self, shape, dtype):
+        pool = self._free.get((shape, dtype))
+        if not pool:
+            self.allocated += 1
+            return torch.empty(shape, dtype=dtype, pin_memory=True)
+        buf = pool.pop()
+        self.reused += 1
+        last = self._last_copy.get(id(buf))
+        if last is not None and not last.query():
+            self.reused_in_flight += 1
+        return buf
+
+    def _give_back(self, bufs):
+        for buf in bufs:
+            self._free.setdefault((tuple(buf.shape), buf.dtype),
+                                  []).append(buf)
+
+
+class _Copies:
+    """The copies of one chunk in flight; :meth:`wait` returns them as
+    numpy arrays that the host owns."""
+
+    def __init__(self, copier: _Copier, tensors: dict, done):
+        self._copier = copier
+        self._tensors = tensors
+        self._done = done
+
+    def wait(self) -> dict:
+        if self._done is None:
+            return {k: v.numpy() for k, v in self._tensors.items()}
+        self._done.synchronize()
+        out = {k: v.numpy().copy() for k, v in self._tensors.items()}
+        self._copier._give_back(self._tensors.values())
+        self._tensors = {}
+        return out
+
+
+def _split_state(state, first: int, last: int, C: int):
+    """The chains ``first .. last - 1`` of ``state``: every tensor leaf
+    with a leading axis of ``C`` is sliced, the others (the draw index)
+    are shared, as ``nuts_rs_tpu/sampler.py:1619-1626`` splits them."""
+    return rebuild_state(state, [
+        x[first:last] if isinstance(x, torch.Tensor) and x.ndim >= 1
+        and x.shape[0] == C else x for x in state_leaves(state)])
+
+
+def _join_states(parts, B: int):
+    """One state from the launch groups' states (``:1628-1631``)."""
+    leaves = [state_leaves(p) for p in parts]
+    return rebuild_state(parts[0], [
+        torch.cat(xs, 0) if isinstance(xs[0], torch.Tensor)
+        and xs[0].ndim >= 1 and xs[0].shape[0] == B else xs[0]
+        for xs in zip(*leaves)])
+
+
 class Sampler:
     """Chunked multi-chain sampler (parallel controller of src/sampler.rs:1254).
 
     All chains run as one batched computation on ``device`` (``"cuda"``,
     the default, launches the CUDA kernels and raises where no card is
     present; on ``"cpu"`` the plain PyTorch versions run, meant for tests at
-    small sizes); the host loop
-    launches one chunk at a time and streams it to storage.  State is
-    float32, the fused kernels' type.  ``chunk_seconds`` records
-    ``(first_draw, last_draw + 1, seconds)`` per chunk, from launch to the
-    chunk's stats on the host.
+    small sizes); the host loop launches one chunk at a time and streams it
+    to storage.  ``dtype`` is the chain state's (float32, the fused
+    kernels' type, by default; float64 runs on the sync engines: a
+    ``posterior_kernel="pallas"`` request with it is demoted there with a
+    ``UserWarning``, since the kernels compute in float32).
+    ``chunk_seconds`` records ``(first_draw, last_draw + 1, seconds)`` per
+    chunk, from launch to the chunk's stats on the host.
+
+    ``run()`` is pipelined as the JAX package's (``nuts_rs_tpu/sampler.py:
+    1957-1989``): it launches chunk N+1 before it finishes chunk N, and a
+    chunk's copies to the host run on a copy stream of their own into
+    pinned buffers, so the host's work on chunk N (copies, storage,
+    progress, the detector) overlaps the device's on chunk N+1.  The trace
+    is the same bit for bit.  Pipelining is off with ``progress_tick``,
+    ``auto_recover`` or ``profile_dir``, and ``run_next_chunk`` and
+    ``wait_timeout`` run one chunk at a time.  A pause from a callback,
+    ``stop_when`` and the stuck-chain detector act at chunk N's end, when
+    chunk N+1 is already launched: ``run()`` stores chunk N+1 too before it
+    stops, as the JAX ``run()`` does, so these three can see one chunk more
+    than ``run_next_chunk`` and ``wait_timeout`` do.  A ``checkpoint``
+    between calls sees the last stored chunk: no launched chunk outlives
+    ``run()``.
+
+    ``max_chains_per_launch`` (B, a divisor of the chains) runs each chunk
+    as one launch per group of B chains on slices of the state
+    (``:1611-1643``).  The sync engines and the launch jitter draw the
+    same numbers as one launch of every chain (their random sites are
+    keyed by the global chain), so a split is bit-transparent there; a
+    fused kernel's program ids restart at 0 in each group and its seed is
+    salted by the group's first chain (the JAX runners salt it by that
+    chain's key), so there the groups after the first draw other streams
+    than one launch would.  A pooled flow's refits pool within each group,
+    with the JAX package's ``UserWarning`` for pooled adaptation.
+
+    ``profile_dir``: every chunk runs under ``torch.profiler`` (with CUDA
+    activities on the card) and writes a Chrome trace
+    ``chunk_<lo>_<hi>.json`` there, the counterpart of the JAX package's
+    ``jax.profiler.trace`` (``:1602-1605``).
+
+    ``auto_recover=N`` (True: 3) keeps a host snapshot of the state at
+    every stored chunk's end (``:1108-1135,1196-1340``).  A chunk that
+    fails with ``torch.cuda.OutOfMemoryError`` empties the caching
+    allocator, halves ``max_chains_per_launch``, restores the snapshot and
+    replays, up to N times.  A sticky CUDA error poisons the context: the
+    device probe fails, and with ``recovery_path`` the snapshot is written
+    there in checkpoint format and :class:`DeviceLostError` names it (a
+    fresh process ``restore``-s and finishes); without it the error is
+    raised.  Any other error is raised at once.
 
     The transfer knobs act on the device, before a chunk's copy to the host
     (``nuts_rs_tpu/sampler.py:1080-1107,1645-1750``): ``keep_stats`` keeps
@@ -922,21 +1094,22 @@ class Sampler:
     bool stats keep theirs); ``store_warmup=False`` stores no warmup draw,
     and an all-tuning chunk copies the accounting planes alone.  The
     kernels compute in float32 whatever the knobs say, and the stuck-chain
-    detector and both expansions read the float32 positions.
+    detector and both expansions read the state's positions.
 
     The control surface is the JAX package's
     (``nuts_rs_tpu/sampler.py:758-2214``), at chunk granularity:
     ``pause`` / ``resume`` (``run`` stops at a chunk boundary when paused),
     ``wait_timeout``, ``abort``, ``inspect`` and ``flush``; per-chain
     :class:`ChainProgress` in ``progress``, handed to ``progress_callback``
-    after a chunk at most every ``progress_rate_seconds`` and always at the
-    end, and every ``progress_tick`` draws from inside a chunk of the sync
-    engines (provisional values, replaced at the chunk's end; a fused chunk
-    is one launch and gets no ticks); ``stop_when`` (:class:`ConvergenceStop`);
-    the stuck-chain detector: ``fail_after`` consecutive draws that diverged
-    and left every coordinate bit-equal to the draw before (NaN equal to
-    NaN; the run's first draw counts as moved) mark a chain failed, and
-    ``run`` / ``wait_timeout`` then finalize the trace and raise
+    after a chunk at most every ``progress_rate_seconds`` (the first chunk
+    always) and always at the end, and every ``progress_tick`` draws from
+    inside a chunk of the sync engines (provisional values, replaced at the
+    chunk's end; a fused chunk is one launch and gets no ticks);
+    ``stop_when`` (:class:`ConvergenceStop`); the stuck-chain detector:
+    ``fail_after`` consecutive draws that diverged and left every
+    coordinate bit-equal to the draw before (NaN equal to NaN; the run's
+    first draw counts as moved) mark a chain failed, and ``run`` /
+    ``wait_timeout`` then finalize the trace and raise
     :class:`ChainFailedError` (None disables it); ``checkpoint`` /
     ``restore``; and the model's expansions, stored beside the positions.
     """
@@ -944,17 +1117,31 @@ class Sampler:
     def __init__(self, model: Model, settings,
                  storage: Optional[StorageConfig] = None,
                  chunk_size: int = 128, init_positions=None, *,
-                 device="cuda", keep_stats=None, draw_dtype=None,
+                 device="cuda", dtype=None, keep_stats=None, draw_dtype=None,
                  stats_dtype=None, store_warmup: bool = True,
                  progress_callback=None, progress_tick: Optional[int] = None,
                  stop_when: Optional[ConvergenceStop] = None,
-                 fail_after: Optional[int] = 100):
+                 fail_after: Optional[int] = 100,
+                 max_chains_per_launch: Optional[int] = None,
+                 profile_dir: Optional[str] = None,
+                 auto_recover=0, recovery_path: Optional[str] = None):
         if model.dim < 1:
             raise ValueError("model.dim must be >= 1")
         if chunk_size < 1:
             raise ValueError("chunk_size must be >= 1")
         if progress_tick is not None and progress_tick < 1:
             raise ValueError("progress_tick must be >= 1")
+        self.dtype = _torch_dtype(dtype or torch.float32)
+        if self.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype must be float32 or float64, got "
+                             f"{self.dtype}")
+        if (self.dtype != torch.float32
+                and settings.posterior_kernel == "pallas"):
+            warnings.warn(
+                "posterior_kernel='pallas' requested but the fused engine "
+                f"does not support: dtype={self.dtype} (the kernels compute "
+                "in float32) — using the sync engine", UserWarning)
+            settings = dataclasses.replace(settings, posterior_kernel="sync")
         self.device = torch.device(device)
         _refuse(settings.unsupported(model, self.device))
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -962,6 +1149,30 @@ class Sampler:
                 "no CUDA device: the sampler runs on the card by default; "
                 "pass device='cpu' to run the kernels' plain PyTorch "
                 "versions (meant for small sizes)")
+        C = settings.num_chains
+        if max_chains_per_launch == "auto":
+            raise NotImplementedError(
+                'max_chains_per_launch="auto" is the JAX package\'s libtpu '
+                "launch probe, left out of the port (ROADMAP.md); pass a "
+                "divisor of num_chains")
+        if max_chains_per_launch is not None:
+            if progress_tick is not None:
+                raise ValueError(
+                    "progress_tick is incompatible with "
+                    "max_chains_per_launch (each chain-group launch would "
+                    "re-count the chunk's draws)")
+            if max_chains_per_launch < 1 or C % max_chains_per_launch:
+                raise ValueError(
+                    f"num_chains ({C}) must be a multiple of "
+                    f"max_chains_per_launch ({max_chains_per_launch})")
+            if (getattr(settings, "mass_matrix", "diag") == "flow"
+                    and settings.flow.pool_chains
+                    and max_chains_per_launch < C):
+                warnings.warn(
+                    "pooled flow adaptation with max_chains_per_launch "
+                    f"pools within each {max_chains_per_launch}-chain "
+                    "launch group only", UserWarning)
+        self.max_chains_per_launch = max_chains_per_launch
         # a model's data go to the sampler's device once
         model = model.to(self.device)
         self.model = model
@@ -976,7 +1187,6 @@ class Sampler:
         self._phase_runners = settings.build_phases(
             model, self.config, self.device, strategy=self.strategy)
         self.schedule = _schedule_for(settings)
-        C = settings.num_chains
         self.trace = (storage or MemoryConfig()).new_trace(settings, model, C)
         if init_positions is not None:
             init_positions = np.asarray(init_positions)
@@ -986,7 +1196,7 @@ class Sampler:
                     f"expected (num_chains, dim) = {(C, model.dim)}")
         self.state = init_chain_state(
             settings.seed, model, self.strategy, self.config, C,
-            torch.float32, self.device, init_positions=init_positions,
+            self.dtype, self.device, init_positions=init_positions,
             num_tune=settings.num_tune)
         init_logp = self.state.pt.logp.cpu().numpy()
         if not np.isfinite(init_logp).all():
@@ -998,16 +1208,19 @@ class Sampler:
         self._next_draw = 0
         self._total = settings.num_tune + settings.num_draws
         self.chunk_seconds = []
+        self._copier = _Copier(self.device)
         self.progress = [ChainProgress(total_draws=self._total)
                          for _ in range(C)]
         self.progress_callback = progress_callback
         self.progress_rate_seconds = 0.5
-        self._last_callback = 0.0
+        # never called: the first chunk calls back whatever the clock reads
+        self._last_callback = -math.inf
         self.progress_tick = progress_tick
         self._tick_lo = 0
         self._tick_base = None
         self._live_done = 0
         self._paused = False
+        self._profile_dir = profile_dir
         self.stop_when = stop_when
         self.converged = False
         self._post_buffer: list = []
@@ -1015,8 +1228,18 @@ class Sampler:
         self._post_seen = 0
         self.fail_after = fail_after
         self._div_streak = np.zeros(C, np.int64)
-        self._last_pos: Optional[torch.Tensor] = None  # [C, d] float32
+        self._last_pos: Optional[torch.Tensor] = None  # [C, d], on device
         self._failed_chains: list = []
+        if auto_recover is True:
+            auto_recover = 3
+        self._auto_recover = int(auto_recover or 0)
+        self._recover_left = self._auto_recover
+        if recovery_path is not None and not recovery_path.endswith(".npz"):
+            recovery_path += ".npz"  # np.savez appends it otherwise
+        self.recovery_path = recovery_path
+        self._snap = None
+        if self._auto_recover:
+            self._commit_snapshot(self._materialize_snapshot())
         # backends that create their arrays upfront get the schema first
         if getattr(self.trace, "wants_schema", False):
             try:
@@ -1030,11 +1253,33 @@ class Sampler:
     def finished(self) -> bool:
         return self._next_draw >= self._total
 
+    @property
+    def pipelined(self) -> bool:
+        """Whether :meth:`run` launches a chunk before it finishes the one
+        before (see the class docstring)."""
+        return (self.progress_tick is None and not self._auto_recover
+                and self._profile_dir is None)
+
     def run_next_chunk(self):
         """Run one chunk and stream it to storage.  Returns ``(lo, stats,
         tuning)``: the chunk's first global draw index, the host stats dict
         (``stats[name]`` shaped [chains, k, ...], the expansions included)
         and the tuning mask."""
+        while True:
+            try:
+                return self._finish_chunk(self._launch_chunk())
+            except Exception as e:
+                # auto_recover: restore the last stored chunk's snapshot
+                # and replay (nuts_rs_tpu/sampler.py:1558-1565)
+                if not self._maybe_recover(e):
+                    raise
+
+    def _launch_chunk(self):
+        """Launch one chunk's device work, the chunk's device-side
+        finishing (the detector's mask, ``expand_fn``, the transfer knobs)
+        and its copies to the host, without waiting for the device, and
+        advance the draw cursor; :meth:`_finish_chunk` does the host's
+        part."""
         lo = self._next_draw
         start, end, runner = next(
             (s, e, r) for s, e, r in self._phase_runners if s <= lo < e)
@@ -1042,6 +1287,7 @@ class Sampler:
         t0 = time.monotonic()
         flags = self.settings.extra_flags(
             _schedule_chunk(self.schedule, lo, hi), lo, hi)
+        tick = None
         if self.progress_tick is not None and getattr(runner, "ticks",
                                                       False):
             # the base of the ticks' provisional values
@@ -1049,38 +1295,92 @@ class Sampler:
             self._tick_base = [(p.finished_draws, p.divergences,
                                 p.total_num_steps) for p in self.progress]
             self._live_done = 0
-            self.state, stats = runner(
-                self.state, flags, tick=(self.progress_tick, self._tick_fn))
-        else:
-            self.state, stats = runner(self.state, flags)
-        self._next_draw = hi
-        return self._finish_chunk(lo, hi, stats, t0)
+            tick = (self.progress_tick, self._tick_fn)
+        if self._profile_dir is not None:
+            from torch.profiler import ProfilerActivity, profile
 
-    def _finish_chunk(self, lo, hi, stats, t0):
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            with profile(activities=acts) as prof:
+                self.state, stats = self._run_runner(runner, flags, tick)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            os.makedirs(self._profile_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(
+                self._profile_dir, f"chunk_{lo:07d}_{hi:07d}.json"))
+        else:
+            self.state, stats = self._run_runner(runner, flags, tick)
+        self._next_draw = hi
+        return self._start_copies(lo, hi, stats, t0)
+
+    def _run_runner(self, runner, flags, tick=None):
+        """One chunk's device work, in one launch per group of
+        ``max_chains_per_launch`` chains where that is set
+        (``nuts_rs_tpu/sampler.py:1611-1643``)."""
+        kw = {} if tick is None else {"tick": tick}
+        B = self.max_chains_per_launch
+        C = self.settings.num_chains
+        if B is None or B >= C:
+            return runner(self.state, flags, **kw)
+        states, stats = [], []
+        for first in range(0, C, B):
+            with chain_offset(first):
+                s2, st = runner(_split_state(self.state, first, first + B,
+                                             C), flags)
+            states.append(s2)
+            stats.append(st)
+        # stats are [draws, chains, ...]: the chain axis is 1
+        return _join_states(states, B), {
+            k: torch.cat([st[k] for st in stats], 1) for k in stats[0]}
+
+    def _start_copies(self, lo, hi, stats, t0):
+        """The device-side part of a chunk's finishing, then its copies to
+        the host (:class:`_Copier`)."""
         tuning = self.schedule.is_tuning[lo:hi]
         all_tuning = hi > lo and bool(tuning.all())
         drop_warm = all_tuning and not self._transfer.store_warmup
-        # the detector's mask and both expansions read the float32
+        # the detector's mask and both expansions read the state's
         # positions on the device, before the knobs cast or drop them
         pos = stats["position"]                           # [k, C, d]
-        same = (self._same_as_before(pos) if self.fail_after is not None
-                else None)
-        expanded = {}
+        out = {}
+        if self.fail_after is not None:
+            out["same"] = self._same_as_before(pos)        # [C, k]
+        expand = {}
         if self.model.expand_fn is not None and not drop_warm:
-            expanded = {k: v.cpu().numpy() for k, v in _expand_device(
-                self.model, pos.movedim(0, 1), self.settings.seed,
-                lo).items()}
+            expand = _expand_device(self.model, pos.movedim(0, 1),
+                                    self.settings.seed, lo)
         stats = self._transfer.on_device(stats, all_tuning)
-        # device -> host; [k, C, ...] -> [C, k, ...]
-        stats = {k: np.moveaxis(v.cpu().numpy(), 0, 1)
-                 for k, v in stats.items()}
+        out.update({"s:" + k: v for k, v in stats.items()})
+        out.update({"e:" + k: v for k, v in expand.items()})
+        if (self.model.expand_host_fn is not None and not drop_warm
+                and stats["position"].dtype != pos.dtype):
+            out["pos"] = pos
+        return (lo, hi, t0, self._copier.start(out))
+
+    def _finish_chunk(self, chunk):
+        """The host's part of a chunk: wait for its copies, store it, and
+        do the accounting."""
+        lo, hi, t0, copies = chunk
+        host = copies.wait()
+        tuning = self.schedule.is_tuning[lo:hi]
+        drop_warm = (hi > lo and bool(tuning.all())
+                     and not self._transfer.store_warmup)
+        # [k, C, ...] -> [C, k, ...]
+        stats = {k[2:]: np.moveaxis(v, 0, 1) for k, v in host.items()
+                 if k.startswith("s:")}
+        expanded = {k[2:]: v for k, v in host.items() if k.startswith("e:")}
         if self.model.expand_host_fn is not None and not drop_warm:
-            host_pos = stats["position"]
-            if host_pos.dtype != np.float32:
-                host_pos = np.moveaxis(pos.cpu().numpy(), 0, 1)
+            host_pos = (np.moveaxis(host["pos"], 0, 1) if "pos" in host
+                        else stats["position"])
             expanded.update(_expand_host(self.model, host_pos, lo))
         elapsed = time.monotonic() - t0
         self.chunk_seconds.append((lo, hi, elapsed))
+        # auto_recover: the state's copy to the host, before the accounting
+        # (a fault here replays a chunk never recorded), adopted after it
+        # (``nuts_rs_tpu/sampler.py:1700-1708,1792-1795``)
+        pending_snap = (self._materialize_snapshot() if self._auto_recover
+                        else None)
         if drop_warm:
             pass  # an all-tuning chunk with store_warmup=False: no rows
         elif not self._transfer.store_warmup and tuning.any():
@@ -1096,15 +1396,104 @@ class Sampler:
             self._buffer_for_stop({**stats, **expanded}[self.stop_when.var],
                                   tuning)
         self._update_progress(lo, stats, tuning, elapsed)
-        if same is not None:
-            self._detect_failed_chains(stats["diverging"], same)
+        if "same" in host:
+            self._detect_failed_chains(stats["diverging"], host["same"])
         if self.progress_callback is not None:
+            # the run's last chunk calls back whatever the rate (the cursor
+            # is already at the end while a pipelined run() finishes the
+            # chunk before it)
             now = time.monotonic()
             if (now - self._last_callback >= self.progress_rate_seconds
-                    or self.finished):
+                    or hi >= self._total):
                 self._last_callback = now
                 self.progress_callback(self.progress)
+        if pending_snap is not None:
+            self._commit_snapshot(pending_snap)
         return lo, {**stats, **expanded}, tuning
+
+    def _materialize_snapshot(self):
+        """The state's leaves copied to the host: the part of a snapshot
+        that touches the device."""
+        return [x.detach().to("cpu", copy=True)
+                if isinstance(x, torch.Tensor) else x
+                for x in state_leaves(self.state)]
+
+    def _commit_snapshot(self, leaves) -> None:
+        """Adopt host leaves as the replay boundary, with the cursor and the
+        detector's streak and last positions (``:1164-1171``)."""
+        self._snap = (leaves, self._next_draw, self._div_streak.copy(),
+                      None if self._last_pos is None
+                      else self._last_pos.detach().to("cpu", copy=True))
+
+    def _wait_device_alive(self, attempts: int = 3) -> bool:
+        """Probe the device (``:1199-1212``); a sticky CUDA error fails
+        every probe."""
+        delay = 0.5
+        for attempt in range(attempts):
+            try:
+                x = torch.zeros(8, device=self.device) + 1.0
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                return bool(x.sum().item() == 8.0)
+            except Exception:
+                if attempt + 1 < attempts:
+                    time.sleep(delay)
+                    delay *= 2
+        return False
+
+    def _maybe_recover(self, err: Exception) -> bool:
+        """Restore the last stored chunk's snapshot after a device fault and
+        halve the launch groups (``:1288-1353``); False where the error is
+        not a device fault, the budget is spent or the feature is off (the
+        caller raises).  Raises :class:`DeviceLostError` where the device
+        stays dead and ``recovery_path`` is set."""
+        if not self._auto_recover or self._recover_left <= 0:
+            return False
+        msg = f"{type(err).__name__}: {err}"
+        oom = isinstance(err, torch.cuda.OutOfMemoryError)
+        if not oom and not any(t in msg for t in _STICKY_TOKENS):
+            return False
+        self._recover_left -= 1
+        C = self.settings.num_chains
+        if self.progress_tick is None:  # ticks forbid split launches
+            b = self.max_chains_per_launch or C
+            if b > 1:
+                nb = max(1, b // 2)
+                while C % nb:  # keep the group size a divisor of C
+                    nb -= 1
+                self.max_chains_per_launch = nb
+        leaves, draw, streak, last_pos = self._snap
+        warnings.warn(
+            f"device fault during the chunk at draw {draw} ({msg[:200]}); "
+            "restoring the snapshot and retrying with "
+            f"max_chains_per_launch={self.max_chains_per_launch} "
+            f"({self._recover_left} retries left)", RuntimeWarning)
+        if not self._wait_device_alive():
+            if self.recovery_path is not None:
+                save_leaves(self.recovery_path, leaves, draw)
+                try:
+                    self.flush()
+                except Exception:
+                    pass
+                raise DeviceLostError(
+                    f"device unusable after a fault; the draw-{draw} "
+                    f"snapshot was saved to {self.recovery_path!r} — build "
+                    "a Sampler with the same settings in a NEW process and "
+                    f"call restore({self.recovery_path!r}) to continue"
+                ) from err
+            return False
+        if oom and self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.state = rebuild_state(self.state, [
+            x.to(self.device) if isinstance(x, torch.Tensor) else x
+            for x in leaves])
+        self._next_draw = draw
+        self._div_streak = streak.copy()
+        self._last_pos = None if last_pos is None else last_pos.to(
+            self.device)
+        self._tick_base = None
+        self._live_done = 0
+        return True
 
     def _buffer_for_stop(self, x, tuning):
         """Buffer the chunk's posterior draws of ``stop_when.var``, every
@@ -1140,8 +1529,11 @@ class Sampler:
         base, lo = self._tick_base, self._tick_lo
         tuning = bool(self.schedule.is_tuning[min(lo + done - 1,
                                                   self._total - 1)])
-        divs, steps = divs.cpu().numpy(), steps.cpu().numpy()
-        last, step_size = last.cpu().numpy(), step_size.cpu().numpy()
+        host = self._copier.start({"divs": divs, "steps": steps,
+                                   "last": last,
+                                   "step_size": step_size}).wait()
+        divs, steps = host["divs"], host["steps"]
+        last, step_size = host["last"], host["step_size"]
         for c, prog in enumerate(self.progress):
             b = base[c]
             prog.started = True
@@ -1193,11 +1585,10 @@ class Sampler:
             prog.runtime += t
 
     def _same_as_before(self, pos):
-        """[C, k] host mask: each draw's position bit-equal to the draw
-        before (NaN equal to NaN), computed on the device on the float32
-        positions ``pos`` [k, C, d]; the run's first draw has no
-        predecessor and counts as moved
-        (``nuts_rs_tpu/sampler.py:1657-1679``)."""
+        """[C, k] mask on the device: each draw's position bit-equal to the
+        draw before (NaN equal to NaN), on the state's positions ``pos``
+        [k, C, d]; the run's first draw has no predecessor and counts as
+        moved (``nuts_rs_tpu/sampler.py:1657-1679``)."""
         def equal(a, b):
             return ((a == b) | (torch.isnan(a) & torch.isnan(b))).all(-1)
 
@@ -1207,7 +1598,7 @@ class Sampler:
         if self._last_pos is not None:
             same[0] = equal(pos[0], self._last_pos)
         self._last_pos = pos[-1].clone()
-        return same.T.cpu().numpy()
+        return same.T.contiguous()
 
     def _detect_failed_chains(self, div, same) -> None:
         """Between-chunk unrecoverable-failure detector (see ``fail_after``;
@@ -1258,14 +1649,26 @@ class Sampler:
         self._paused = False
 
     def run(self) -> Trace:
-        """Run to the end, to convergence (``stop_when``) or to a pause.
-        Raises :class:`ChainFailedError` once the detector marks a chain,
-        and ``RuntimeError`` where a pause left the run unfinished."""
+        """Run to the end, to convergence (``stop_when``) or to a pause,
+        pipelined (see the class docstring; ``nuts_rs_tpu/sampler.py:
+        1957-1989``).  Raises :class:`ChainFailedError` once the detector
+        marks a chain, and ``RuntimeError`` where a pause left the run
+        unfinished."""
+        pending = None
+        pipelined = self.pipelined
         while (not self.finished and not self.converged
                and not self._failed_chains):
             if self._paused:
                 break
-            self.run_next_chunk()
+            if not pipelined:
+                self.run_next_chunk()
+                continue
+            nxt = self._launch_chunk()
+            if pending is not None:
+                self._finish_chunk(pending)
+            pending = nxt
+        if pending is not None:
+            self._finish_chunk(pending)
         self._raise_if_failed()
         if self.converged and not self.finished:
             # early convergence stop: the shorter trace
@@ -1281,7 +1684,8 @@ class Sampler:
         """Run until finished or ``timeout`` seconds elapse (the reference's
         ``Sampler::wait_timeout``, src/sampler.rs:1526-1542).  Returns the
         finalized trace, or None on timeout with the state kept; the check
-        runs between chunks, so the wait can overshoot by one chunk."""
+        runs between chunks, so the wait can overshoot by one chunk; it
+        runs one chunk at a time, not pipelined."""
         deadline = time.monotonic() + timeout
         while not self.finished:
             self._raise_if_failed()
@@ -1311,7 +1715,8 @@ class Sampler:
 
     def restore(self, path: str) -> None:
         """Load a checkpoint into this sampler.  The convergence buffer and
-        the stuck-chain detector start afresh, as in a new sampler."""
+        the stuck-chain detector start afresh, as in a new sampler, and
+        ``auto_recover``'s snapshot is the restored state."""
         self.state, self._next_draw = load_state(path, self.state)
         self.converged = False
         self._post_buffer = []
@@ -1319,6 +1724,9 @@ class Sampler:
         self._post_seen = 0
         self._div_streak[:] = 0
         self._last_pos = None
+        if self._auto_recover:
+            # the replay boundary is the restored draw
+            self._commit_snapshot(self._materialize_snapshot())
 
     def inspect(self):
         return self.trace.inspect()
@@ -1335,24 +1743,27 @@ class Sampler:
         transfer knobs and expansions (``expand_fn`` probed on the
         sampler's device)."""
         t = self._transfer
-        return _schema(self.model, self.settings, t, self.device)
+        return _schema(self.model, self.settings, t, self.device,
+                       self.dtype)
 
 
-def schema(model: Model, settings=None, *, keep_stats=None, draw_dtype=None,
-           stats_dtype=None, store_warmup: bool = True):
+def schema(model: Model, settings=None, *, dtype=None, keep_stats=None,
+           draw_dtype=None, stats_dtype=None, store_warmup: bool = True):
     """Settings-level trace schema, without a sampler or a device
     (``nuts_rs_tpu/sampler.py:2035-2180,2216-2245``): what is stored, the
-    extra stores, the transfer knobs and the expansions applied.  The
+    extra stores, the state's ``dtype``, the transfer knobs and the
+    expansions applied.  The
     expansions are probed on the CPU, once, with zero positions [C, 1, d];
     an ``expand_host_fn`` that fails on the probe is left out with a
     ``UserWarning``."""
     settings = settings or NutsSettings()
     transfer = _Transfer(keep_stats, draw_dtype, stats_dtype, store_warmup)
-    return _schema(model, settings, transfer, torch.device("cpu"))
+    return _schema(model, settings, transfer, torch.device("cpu"),
+                   _torch_dtype(dtype or torch.float32))
 
 
 def _probe_expansions(model: Model, settings, transfer: _Transfer,
-                      device) -> dict:
+                      device, dtype=torch.float32) -> dict:
     """``{name: {"dtype", "shape"}}`` of the expansions, from one call of
     each on zero positions [C, 1, d] (float32 on ``device`` for
     ``expand_fn``; at ``draw_dtype`` on the host for ``expand_host_fn``,
@@ -1360,14 +1771,14 @@ def _probe_expansions(model: Model, settings, transfer: _Transfer,
     C, d = settings.num_chains, model.dim
     out = {}
     if model.expand_fn is not None:
-        zero = torch.zeros(C, 1, d, dtype=torch.float32, device=device)
+        zero = torch.zeros(C, 1, d, dtype=dtype, device=device)
         for name, v in _expand_device(model, zero, settings.seed, 0).items():
             out[name] = {"dtype": _numpy_dtype(v.dtype),
                          "shape": tuple(v.shape[2:])}
     if model.expand_host_fn is not None:
         try:
             zero = np.zeros((C, 1, d), np.dtype(transfer.draw_dtype
-                                                or np.float32))
+                                                or _numpy_dtype(dtype)))
             for name, v in _expand_host(model, zero, 0).items():
                 out.setdefault(name, {"dtype": v.dtype,
                                       "shape": tuple(v.shape[2:])})
@@ -1380,16 +1791,21 @@ def _probe_expansions(model: Model, settings, transfer: _Transfer,
     return out
 
 
-def _schema(model: Model, settings, transfer: _Transfer, probe_device):
+def _schema(model: Model, settings, transfer: _Transfer, probe_device,
+            dtype=torch.float32):
     dtypes = {n: (dt, n == "position")
               for n, dt in _STAT_DTYPES[settings.sampler_name].items()}
     dtypes.update(_extra_stat_dtypes(settings))
+    # the float stats come out in the state's dtype
+    dtypes = {n: (_numpy_dtype(dtype) if dt is np.float32 else dt, vec)
+              for n, (dt, vec) in dtypes.items()}
     if not (settings.num_tune or settings.num_draws):
         dtypes = {}
     every = transfer.entries({
         n: {"dtype": np.dtype(dt), "shape": (model.dim,) if vec else ()}
         for n, (dt, vec) in dtypes.items()})
-    expanded = _probe_expansions(model, settings, transfer, probe_device)
+    expanded = _probe_expansions(model, settings, transfer, probe_device,
+                                 dtype)
 
     def dims(entries):
         return {n: dict(e, dims=dims_for_tail(model, n, e["shape"]))
@@ -1435,28 +1851,31 @@ def _schema(model: Model, settings, transfer: _Transfer, probe_device):
 def sample(model: Model, settings=None, *,
            seed: Optional[int] = None,
            storage: Optional[StorageConfig] = None, chunk_size: int = 128,
-           init_positions=None, device="cuda", keep_stats=None,
-           draw_dtype=None, stats_dtype=None,
+           init_positions=None, device="cuda", dtype=None,
+           keep_stats=None, draw_dtype=None, stats_dtype=None,
            store_warmup: bool = True, progress_callback=None,
            progress_tick: Optional[int] = None,
            stop_when: Optional[ConvergenceStop] = None,
-           fail_after: Optional[int] = 100) -> Trace:
+           fail_after: Optional[int] = 100,
+           max_chains_per_launch: Optional[int] = None) -> Trace:
     """Sample from ``model`` on ``device`` (the card unless the caller asks
     for the CPU); returns an in-memory :class:`Trace` unless another storage
-    backend is given.  The transfer knobs, ``progress_callback``,
-    ``progress_tick``, ``stop_when`` (:class:`ConvergenceStop`) and
-    ``fail_after`` (the stuck-chain detector; :class:`ChainFailedError`)
-    are :class:`Sampler`'s."""
+    backend is given.  ``dtype``, the transfer knobs,
+    ``progress_callback``, ``progress_tick``, ``stop_when``
+    (:class:`ConvergenceStop`), ``fail_after`` (the stuck-chain detector;
+    :class:`ChainFailedError`) and ``max_chains_per_launch`` are
+    :class:`Sampler`'s."""
     settings = settings or NutsSettings()
     if seed is not None:
         settings = dataclasses.replace(settings, seed=seed)
     return Sampler(model, settings, storage=storage, chunk_size=chunk_size,
                    init_positions=init_positions, device=device,
-                   keep_stats=keep_stats, draw_dtype=draw_dtype,
+                   dtype=dtype, keep_stats=keep_stats, draw_dtype=draw_dtype,
                    stats_dtype=stats_dtype, store_warmup=store_warmup,
                    progress_callback=progress_callback,
                    progress_tick=progress_tick, stop_when=stop_when,
-                   fail_after=fail_after).run()
+                   fail_after=fail_after,
+                   max_chains_per_launch=max_chains_per_launch).run()
 
 
 def sample_sequentially(model, settings, start, draws, chain=0, seed=0,

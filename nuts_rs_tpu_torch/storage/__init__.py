@@ -1,7 +1,7 @@
-"""Trace storage backends: in memory, CmdStan CSV and Apache Arrow (the
-JAX package's ``storage`` without its Zarr backend, ROADMAP.md queue 1
-item 9)."""
+"""Trace storage backends: in memory, CmdStan CSV, Apache Arrow and Zarr
+(the JAX package's ``storage``)."""
 from .arrow import ArrowConfig
 from .core import StorageConfig, TraceStorage
 from .csv import CsvConfig
 from .memory import MemoryConfig, MemoryStorage, Trace
+from .zarr import ZarrConfig, ZarrStorage

@@ -196,6 +196,18 @@ After building the kernels it prints, for each path,
    loop's iterations a draw, their milliseconds and the successful
    leapfrogs an iteration; then 20 draws at the tuned state under
    torch.profiler: the device's busy share and its kernels an iteration.
+20. ``--pipeline TREE [TREE ...]``: the NUTS and MCLMC d = 10 paths
+   (N(3, 1), 1024 chains, 300 + 700 draws, kernels K1 / K2 and K3 / K4) in
+   each checkout in the order given (parent, this, this, parent), each in
+   a process of its own: every runner call of one serial run under
+   ``torch.cuda.set_sync_debug_mode("warn")``, with the port's innermost
+   frame of each synchronizing call; items 1 and 2 of the serial loop
+   (``run_next_chunk``: the runner's host seconds, the wait for the device
+   after it, the rest of the chunk; one warm-up run, three repeats); then
+   ``run()`` (pipelined where the checkout has it) against the serial loop
+   end to end, three turns, and one profiled run of each: the device's
+   busy share of the profiled wall and the device-to-host copies by kind
+   (pinned or pageable) and stream.
 
 The card's name and power limit come first.  Every number is this run's.
 """
@@ -2213,6 +2225,118 @@ NUTS_D10_ABLATIONS = (
      "NRT_NUTS_SMEM_STACKS"))
 
 
+# Item 20 in the checkout it runs in (the parent's Sampler has no pipelined
+# run(): there run() is its serial loop).
+PIPELINE_SRC = """
+import collections, time, traceback, warnings
+import torch
+import chip_smoke as cs
+import profile_main_path as pm
+from nuts_rs_tpu_torch import DiagNutsSettings, Sampler
+from nuts_rs_tpu_torch.kernels import _build
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+dev = torch.device("cuda", 0)
+_build.build(["nuts_fused_posterior", "nuts_fused_warmup",
+              "mclmc_fused_posterior", "mclmc_fused_warmup"])
+model = normal_logp(cs.DIM, cs.MU).to(dev)
+paths = {"NUTS": DiagNutsSettings(num_chains=cs.CHAINS, num_tune=cs.TUNE,
+                                  num_draws=cs.DRAWS, seed=cs.SEED,
+                                  posterior_kernel="pallas"),
+         "MCLMC": cs.mclmc_settings()}
+
+def sync_sites(settings):
+    sites = collections.Counter()
+    def hook(message, *a, **k):
+        if "synchroniz" not in str(message):
+            return
+        frames = [f for f in traceback.extract_stack()
+                  if "nuts_rs_tpu_torch" in f.filename]
+        f = frames[-1] if frames else None
+        sites[f"{f.filename.split('nuts_rs_tpu_torch/')[-1]}:{f.lineno} "
+              f"{f.name}" if f else "outside the port"] += 1
+    def watched(runner):
+        def run(state, flags, **kw):
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = hook
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return runner(state, flags, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        return run
+    s = Sampler(model, settings, device=dev)
+    s._phase_runners = [(a, b, watched(r)) for a, b, r in s._phase_runners]
+    while not s.finished:
+        s.run_next_chunk()
+    return sites
+
+def whole(settings, pipelined):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s = Sampler(model, settings, device=dev)
+    if pipelined:
+        s.run()
+    else:
+        while not s.finished:
+            s.run_next_chunk()
+        s.trace.finalize()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+def profiled(settings, pipelined):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = whole(settings, pipelined)
+    busy, copies = 0.0, collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.time_range.elapsed_us() * 1e-6
+            if "DtoH" in e.name or "Device -> " in e.name:
+                copies[f"{e.name} (stream {getattr(e, 'stream', '?')})"] += 1
+    return wall, busy, copies
+
+has_pipeline = hasattr(Sampler, "pipelined")
+for label, settings in paths.items():
+    sites = sync_sites(settings)
+    print(f"{label}: synchronizing calls inside the runners in one serial "
+          f"run: {sum(sites.values())}"
+          + "".join(f"; {n} x {site}" for site, n in sites.most_common(8)),
+          flush=True)
+    pm.run_main_path(model, settings, dev)
+    for rep in range(3):
+        pm.print_run(f"{label} serial loop, run {rep}",
+                     pm.run_main_path(model, settings, dev),
+                     settings.num_tune)
+    times = {"serial": [], "run()": []}
+    for rep in range(3):
+        for how in ("serial", "run()"):
+            times[how].append(whole(settings, how == "run()"))
+    print(f"{label} end to end (run() {'pipelined' if has_pipeline else 'is the serial loop'}): "
+          + "; ".join(f"{how} " + ", ".join(f"{t:.4f}" for t in ts) + " s"
+                      for how, ts in times.items()), flush=True)
+    for how in ("serial", "run()"):
+        wall, busy, copies = profiled(settings, how == "run()")
+        print(f"{label} {how} profiled: wall {wall:.4f} s, device busy "
+              f"{busy:.4f} s ({100 * busy / wall:.1f}%); device-to-host "
+              "copies: " + "; ".join(f"{n} x {k}" for k, n in
+                                    copies.most_common()), flush=True)
+"""
+
+
+def pipeline_item(trees):
+    """Item 20: the d = 10 paths serial and pipelined in each checkout."""
+    for tree in trees:
+        out = subprocess.run([sys.executable, "-c", PIPELINE_SRC], cwd=tree,
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"{tree}: {out.stderr[-3000:]}")
+        for line in out.stdout.strip().splitlines():
+            print(f"{tree}: {line}", flush=True)
+
+
 def launch_and_ablate(trees, launch, time_src, ablations, saved_name, stems):
     """Items 17 and 18: the path's launches saved in this tree by
     ``launch``; every tree in the order given (e.g. parent, this one, this
@@ -2330,6 +2454,8 @@ def main() -> int:
     parser.add_argument("--nuts-launch", nargs="+", metavar="TREE",
                         help="item 18 alone, for each checkout in turn, "
                              "then its ablation in this one")
+    parser.add_argument("--pipeline", nargs="+", metavar="TREE",
+                        help="item 20 alone, for each checkout in turn")
     parser.add_argument("--flow-full", action="store_true",
                         help="item 16 on the full configuration's states "
                              "too (about 11 minutes more)")
@@ -2378,6 +2504,10 @@ def main() -> int:
         return 0
     if args.nuts_launch:
         nuts_launch(args.nuts_launch)
+        print(card_line())
+        return 0
+    if args.pipeline:
+        pipeline_item(args.pipeline)
         print(card_line())
         return 0
     if args.only_mclmc_sync:

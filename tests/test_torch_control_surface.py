@@ -257,8 +257,12 @@ def test_convergence_stop_ends_early_at_a_chunk_boundary(kernel):
     assert s.converged and not s.finished
     assert 40 <= pos.shape[1] < 1000
     assert s._next_draw == 60 + pos.shape[1] == s.chunk_seconds[-1][1]
-    # the stop came at the first chunk end where the criteria held
-    before = s.chunk_seconds[-2][1] - 60
+    # the criteria first held at the end of the chunk before the last: the
+    # pipelined run() had launched the last one and stores it too, as the
+    # JAX run() does
+    held = s.chunk_seconds[-2][1] - 60
+    before = s.chunk_seconds[-3][1] - 60
+    assert crit.satisfied(pos[:, :held])
     assert not crit.satisfied(pos[:, :before])
     assert np.all(split_rhat(pos) <= 1.05)
     assert np.all(ess_bulk(pos) >= 150.0)

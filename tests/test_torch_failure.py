@@ -97,13 +97,15 @@ def test_nan_wall_names_every_chain_at_the_jax_draw(drive):
     assert [p.failed for p in ts.progress] == [p.failed for p in js.progress]
     assert all("unrecoverable" in p.error for p in ts.progress)
     # two chunks of 32: the streak is 63 >= 48 at draw 64 (the run's first
-    # draw counts as moved); the JAX run() launches the next chunk before
-    # it finishes this one, so it stops one chunk later
-    assert ts._next_draw == 64
-    assert js._next_draw == ts._next_draw + (32 if drive == "run" else 0)
-    np.testing.assert_array_equal(ts._div_streak[:4], 63)
+    # draw counts as moved); run() launches the next chunk before it
+    # finishes this one, in both packages, so it stops one chunk later,
+    # at the JAX run()'s draw, and wait_timeout() at draw 64
+    assert ts._next_draw == js._next_draw == (96 if drive == "run" else 64)
+    np.testing.assert_array_equal(ts._div_streak[:4], js._div_streak[:4])
+    np.testing.assert_array_equal(ts._div_streak[:4],
+                                  95 if drive == "run" else 63)
     pos = terr.trace.warmup_posterior["position"]
-    assert pos.shape == (4, 64, 4) and not pos.any()
+    assert pos.shape == (4, ts._next_draw, 4) and not pos.any()
     assert terr.trace.warmup_sample_stats["diverging"].all()
 
 
@@ -146,7 +148,8 @@ def test_float16_copy_does_not_freeze_a_slow_healthy_chain():
              "n_steps": torch.ones(k, C, dtype=torch.int32),
              "step_size": torch.full((k, C), 0.1)}
     s._next_draw = k  # as if the chunk had been launched
-    _, out, _ = s._finish_chunk(0, k, stats, time.monotonic())
+    _, out, _ = s._finish_chunk(s._start_copies(0, k, stats,
+                                                time.monotonic()))
     p16 = out["position"][0]
     assert p16.dtype == np.float16 and (p16[1:] == p16[:-1]).all()
     assert not s.progress[0].failed and s._div_streak[0] == 0
@@ -165,7 +168,10 @@ def test_streak_runs_across_chunks_and_none_disables():
                     init_positions=np.zeros((2, 2)), fail_after=24)
     with pytest.raises(tnt.ChainFailedError):
         s.run()
-    assert s._next_draw == 32  # 15 + 16 = 31 >= 24 after two chunks
+    # 15 + 16 = 31 >= 24 after two chunks; run() stores the third, which
+    # it launched before it finished the second, as the JAX run() does
+    assert s._next_draw == 48
+    assert [p.failed for p in s.progress] == [True, True]
     off = tnt.Sampler(model, settings, chunk_size=50, device="cpu",
                       init_positions=np.zeros((2, 2)), fail_after=None)
     trace = off.run()

@@ -1481,3 +1481,34 @@ def test_flow_kernel_matches_plain_version_on_the_card(dim, layers, hidden,
         np.testing.assert_array_equal(got[4][name].cpu().numpy(),
                                       want[4][name].cpu().numpy(),
                                       err_msg=name)
+
+
+@pytest.mark.cuda
+def test_the_copy_stream_takes_no_buffer_while_its_copy_is_in_flight():
+    """run()'s pipelining on the card: chunk N+1 is launched before chunk N
+    is read, and chunk N's copies to the host run on the copy stream into
+    pinned buffers.  After a pipelined run buffers were taken again, none
+    while a copy into it was in flight (the copier checks each buffer's
+    last copy event when it hands the buffer out), and the trace equals
+    the serial loop's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch import DiagNutsSettings, Sampler
+
+    model = tg.normal_logp(10, 3.0)
+    settings = DiagNutsSettings(num_chains=256, num_tune=60, num_draws=200,
+                                seed=0, posterior_kernel="pallas")
+    s = Sampler(model, settings, chunk_size=32)
+    assert s.pipelined
+    trace = s.run()
+    copier = s._copier
+    assert copier.reused > 0 and copier.reused_in_flight == 0
+    serial = Sampler(model, settings, chunk_size=32)
+    while not serial.finished:
+        serial.run_next_chunk()
+    want = serial.trace.finalize()
+    for group in ("posterior", "sample_stats", "warmup_posterior",
+                  "warmup_sample_stats"):
+        for name, arr in getattr(want, group).items():
+            np.testing.assert_array_equal(getattr(trace, group)[name], arr,
+                                          err_msg=f"{group}/{name}")
