@@ -7,12 +7,30 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 It builds the fused CUDA kernels from ``nuts_rs_tpu_torch/csrc`` (nvcc,
 sm_90a), holds each kernel against its plain PyTorch version on the card,
-and drives fifteen paths through ``Sampler(...).run()``, twelve of them
-with ``posterior_kernel="pallas"`` (``--only PATH`` drives one of them:
-``nuts``, ``control``, ``pipeline``, ``mclmc``, ``large_d``, ``data``,
-``mclmc_data``,
+and drives nineteen paths through ``Sampler(...).run()``, fourteen of them
+with ``posterior_kernel="pallas"`` (``--only PATH`` drives one path,
+one of them or the float64 ``low_rank64``:
+``nuts``, ``control``, ``pipeline``, ``mclmc``, ``float64``, ``large_d``,
+``data``, ``mclmc_data``,
 ``stream``, ``sv``, ``radon``, ``zoo``, ``flow``, ``mclmc_sync``,
-``exact_normal`` or ``mclmc_d400``, and builds only its kernels).  The
+``exact_normal``, ``mclmc_d400``, ``low_rank``, ``low_rank64``,
+``low_rank_exact`` or ``cross_chain``, and builds only its kernels).  The ``float64`` path runs
+the NUTS and MCLMC d=10 configurations below at ``dtype=float64``: K1-K4
+on float32 copies of the state, as the JAX package plans them, without a
+warning, the main paths' gates, and the trace's dtypes the JAX run's
+(NUTS float64, MCLMC float32).  The ``low_rank`` path is BASELINE config
+2, ``correlated_normal_rank1(100)`` under ``LowRankNutsSettings`` (64
+chains, 800 tuning draws, the posterior cut to 200, at the default
+float32), demoted from ``"pallas"`` to the sync engine with the JAX
+warning, held to a bound on the chains whose step collapsed and, over the
+others, to the analytic moments (every coordinate, and the variance along
+the inflated direction u), the divergence share and the accept rate, and
+to the refits' eigenvalues; ``low_rank64`` (with ``--only`` alone) the
+same at float64, where no chain may collapse; ``low_rank_exact`` the reference's whitening oracle at
+float64 (``fisher_distance`` < 1e-10); ``cross_chain`` the NUTS d=10
+model and chains with ``cross_chain_adaptation=True`` on the sync engine
+(one mass matrix and adapted step for every chain, the main path's
+moment gates).  The
 ``control`` path drives the Sampler's control surface on the NUTS d=10
 configuration below (K1, K2): a checkpoint at the first chunk boundary at
 or after draw 428, ``abort``, and a restore into a fresh sampler, equal to
@@ -63,9 +81,10 @@ sync engine (``tests/data/mclmc_normal_d400_reference.json``, made by
 ``tests/data/make_mclmc_sync_reference.py``), its first posterior launch
 checked bit for bit on the path's own post-warmup states (K = 2, after
 asserting that the plain version's trajectories move) and timed.  In a
-whole run the first two run in a second process (``--beside``) beside
-the flow path's sync warmup; the flow path waits for it before it checks
-or times a kernel.  The NUTS d=10 path also runs ``Sampler.run`` once more
+whole run ``low_rank`` (``--beside 0``) and these two with
+``cross_chain`` and ``low_rank_exact`` (``--beside 1``) run in two more
+processes beside the flow path's sync warmup; the flow path waits for
+them before it checks or times a kernel.  The NUTS d=10 path also runs ``Sampler.run`` once more
 with the transfer knobs (``keep_stats``, float16 ``draw_dtype`` and
 ``stats_dtype``, ``store_warmup=False``: no warmup group, the kept stats
 alone, the positions the first run's cast to float16 bit for bit), and the
@@ -363,6 +382,49 @@ M400_CHECK_DRAWS = 2
 EXACT_TUNE, EXACT_DRAWS = 100, 300
 EXACT_MIN_ACCEPT = 0.99
 EXACT_TICK = 16  # its run's progress_tick: in-chunk progress every 16 draws
+# the float64 path: the NUTS and MCLMC main configurations at
+# dtype=float64 with posterior_kernel="pallas", on K1 / K2 and K3 / K4 as
+# in the JAX package (each launch takes float32 copies of the state); the
+# trace's dtypes are the JAX run's at the same settings on the CPU under
+# x64 (tests/test_torch_aliases_dtype.py holds the port's to them): NUTS's
+# float64 warmup chunks join its float32 posterior chunks into float64
+# groups, MCLMC hands float32 throughout
+F64_FLOAT = {"nuts": np.float64, "mclmc": np.float32}
+# the low-rank path: BASELINE config 2 (BASELINE.md:41,335-337, a 100-d
+# correlated Gaussian exercising low-rank mass-matrix adaptation, 64
+# chains), correlated_normal_rank1(100): covariance 1.5 (I + 999 u u^T);
+# LowRankNutsSettings' 800 tuning draws, whose refits need them, and the
+# posterior cut from 1000 draws for the script's time
+LR_DIM, LR_CHAINS, LR_TUNE, LR_DRAWS, LR_FULL_DRAWS = 100, 64, 800, 200, 1000
+LR_SCALE, LR_EIG = 1.5, 1000.0
+# at float32, the port's default, the refits fail until a window holds about
+# 300 draws, and a few of those that take are hundreds of per cent off the
+# float64 refit of the same window, in the JAX package's code as in the
+# port's (tests/data/low_rank_float32_witness.py): a chain that takes one
+# can have its step collapse in the divergences that follow, its trees then
+# at maxdepth 10.  A chain is collapsed where its posterior step is below
+# LR_COLLAPSED_STEP; at most LR_MAX_COLLAPSED of the 64 may be (none in the
+# JAX package's float32 runs on the CPU at seeds 0-2 nor in the port's with
+# the refits' eigendecompositions on the host's LAPACK; 1-6 where the card's
+# own float32 solver decomposed them, PERF.md section 7), and the moment
+# gates hold the others.  low_rank64 (``--only low_rank64``, not in a whole
+# run, for its time) runs the preset at float64, the JAX package's dtype
+# under x64, where every refit takes and no chain may collapse.
+LR_COLLAPSED_STEP = 1e-6
+LR_MAX_COLLAPSED = 2
+LR_MEAN_TOL, LR_STD_TOL, LR_VAR_U_TOL = 0.1, 0.1, 0.1
+LR_MAX_DIV_SHARE = 0.01
+# the low-rank oracle (nuts-rs tests/sample_normal.rs:320-356, the JAX twin
+# tests/test_low_rank.py:122-140): correlated_normal(10, 0.5), 1 chain,
+# 500 + 100 draws at float64, the whole spectrum kept; the adapted
+# transform whitens the target exactly
+LRX_DIM, LRX_TUNE, LRX_DRAWS, LRX_CUTOFF, LRX_SEED = 10, 500, 100, 1.00001, 42
+LRX_FISHER = 1e-10
+# the cross-chain path: the NUTS main configuration's model and chains on
+# the sync engine with pooled adaptation, draws cut from 300 + 700 (the
+# sync engine takes about 28.5 ms a draw there)
+XC_TUNE, XC_DRAWS = 100, 200
+XC_JITTER = 0.1  # StepSizeSettings' default: each chain's own step jitter
 # the transfer knobs' run of the NUTS d = 10 path
 KNOBS = dict(keep_stats=("mean_tree_accept",), draw_dtype=np.float16,
              stats_dtype=np.float16, store_warmup=False)
@@ -377,9 +439,13 @@ ATOL = 1e-5
 LONG_LAUNCH_MS = 50.0
 # The build beside the paths: its nvcc at this priority (nice -n), as many
 # at a time as the host has cores less BUILD_SPARE_CORES (for the paths' own
-# host work), in the order the paths need them
+# host work: the main process, the two beside it and the pipeline path's two
+# children), in the order the paths need them
 BUILD_NICE = 10
-BUILD_SPARE_CORES = 2
+BUILD_SPARE_CORES = 4
+# the processes beside the paths run at this priority: the main process's
+# flow path, host-bound too, is the run's critical path
+BESIDE_NICE = 5
 
 
 def card_line() -> str:
@@ -3559,41 +3625,316 @@ def flow_today(device, checks, launches, times):
           "divergent")
 
 
+# ---------------------------------------------------------------------------
+# Slice 20: float64 on the fused kernels (fault D), the low-rank presets and
+# cross-chain adaptation on one card (the last three on the sync engine)
+# ---------------------------------------------------------------------------
+
+
+def trace_dtypes(trace):
+    """The float dtypes of a trace's four groups, as one set each."""
+    return {group: sorted({str(np.asarray(v).dtype)
+                           for v in getattr(trace, group).values()
+                           if np.asarray(v).dtype.kind == "f"})
+            for group in ("posterior", "sample_stats", "warmup_posterior",
+                          "warmup_sample_stats")}
+
+
+def plan_warnings(seen):
+    return [str(w.message) for w in seen
+            if issubclass(w.category, UserWarning)]
+
+
+def path_float64(device, checks, launches, times):
+    """The NUTS and MCLMC main configurations at dtype=float64 with
+    posterior_kernel="pallas": planned on K1 / K2 and K3 / K4, as the JAX
+    package plans them (fault D), without a warning; the main paths' gates;
+    the trace's dtypes the JAX run's."""
+    import warnings
+
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels import nuts_fused as nf
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    model = normal_logp(DIM, MU)
+    runs = (("nuts", DiagNutsSettings(num_chains=CHAINS, num_tune=TUNE,
+                                      num_draws=DRAWS, seed=SEED,
+                                      posterior_kernel="pallas"),
+             nf.LAUNCHES, ("nuts_fused_posterior", "nuts_fused_warmup")),
+            ("mclmc", mclmc_settings(), mf.LAUNCHES,
+             ("mclmc_fused_posterior", "mclmc_fused_warmup")))
+    for name, settings, counts, kernels in runs:
+        zero_launch_counts()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            trace, init_s, warm_s, post_s, total_s = run_sampler(
+                model, settings, device, dtype=torch.float64)
+        got = read_launch_counts(counts, kernels)
+        said = plan_warnings(seen)
+        pos = trace.posterior["position"].astype(np.float64)
+        st = trace.sample_stats
+        mean, std = float(pos.mean()), float(pos.std())
+        n_div = int(st["diverging"].sum())
+        n_grad = int(st["n_steps"].sum())
+        dtypes = trace_dtypes(trace)
+        want = {g: [np.dtype(F64_FLOAT[name]).name] for g in dtypes}
+        print(f"float64 {name} path: d={DIM} chains={CHAINS} tune={TUNE} "
+              f"draws={DRAWS}: init {init_s:.3f} s, warmup {warm_s:.3f} s, "
+              f"posterior {post_s:.3f} s, total {total_s:.3f} s, "
+              f"{n_grad / post_s:.6g} posterior gradient evaluations/s, "
+              f"launches {got}; mean {mean:.5f} std {std:.5f} divergences "
+              f"{n_div}; trace float dtypes {dtypes} (the JAX run's: "
+              f"{want}); plan warnings {said}")
+        if said:
+            raise AssertionError(f"the float64 {name} plan warned: {said}")
+        if dtypes != want:
+            raise AssertionError(f"float64 {name} trace dtypes {dtypes}, "
+                                 f"the JAX run's {want}")
+        if not abs(mean - MU) < 0.02:
+            raise AssertionError(f"float64 {name} mean {mean}")
+        target = 1.0 if name == "nuts" else MCLMC_JAX_STD
+        tol = 0.05 if name == "nuts" else MCLMC_STD_TOL
+        if not abs(std - target) < tol:
+            raise AssertionError(f"float64 {name} std {std} not within {tol} "
+                                 f"of {target}")
+        if n_div:
+            raise AssertionError(f"{n_div} float64 {name} divergences")
+        if name == "nuts":
+            acc = float(st["mean_tree_accept"].mean())
+            if not 0.7 < acc < 0.95:
+                raise AssertionError(f"float64 mean accept {acc}")
+
+
+def rank1_moments(dim, scale, eig):
+    """The rank-1 normal's coordinate stds, its direction u and the
+    variance along u, analytic: covariance scale (I + (eig - 1) u u^T),
+    u from np.random.default_rng(42) as the model draws it."""
+    rng = np.random.default_rng(42)
+    u = rng.normal(size=dim)
+    u /= np.linalg.norm(u)
+    return np.sqrt(scale * (1.0 + (eig - 1.0) * u * u)), u, scale * eig
+
+
+def path_low_rank(device, checks, launches, times, draws=LR_DRAWS,
+                  dtype=torch.float32):
+    """BASELINE config 2 under LowRankNutsSettings on the sync engine: a
+    "pallas" request demoted with the JAX package's warning, no fused
+    launch, the collapsed chains' share, and over the others the analytic
+    moments (every coordinate and the inflated direction), the divergence
+    share, the accept rate; the refits' eigenvalues."""
+    import warnings
+
+    from nuts_rs_tpu_torch import LowRankNutsSettings, LowRankSettings
+    from nuts_rs_tpu_torch.models.gaussian import correlated_normal_rank1
+
+    settings = LowRankNutsSettings(
+        num_chains=LR_CHAINS, num_draws=draws, seed=SEED,
+        posterior_kernel="pallas",
+        low_rank=LowRankSettings(store_mass_matrix=True))
+    assert settings.num_tune == LR_TUNE
+    zero_launch_counts()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        trace, init_s, warm_s, post_s, total_s = run_sampler(
+            correlated_normal_rank1(LR_DIM, LR_SCALE, LR_EIG), settings,
+            device, dtype=dtype)
+    said = plan_warnings(seen)
+    if not any("does not support: mass_matrix='low_rank' (the fused "
+               "low-rank transform measured slower than XLA)" in w
+               for w in said):
+        raise AssertionError(f"the low-rank demotion's warning: {said}")
+    require_no_fused_launch("the low-rank path")
+    sd, u, var_u = rank1_moments(LR_DIM, LR_SCALE, LR_EIG)
+    st, ws = trace.sample_stats, trace.warmup_sample_stats
+    collapsed = np.nonzero(st["step_size"][:, -1] < LR_COLLAPSED_STEP)[0]
+    keep = np.setdiff1d(np.arange(LR_CHAINS), collapsed)
+    pos = trace.posterior["position"][keep].astype(np.float64).reshape(
+        -1, LR_DIM)
+    mean_err = float(np.max(np.abs(pos.mean(0)) / sd))
+    std_err = float(np.max(np.abs(pos.std(0) / sd - 1.0)))
+    var_u_err = abs(float(np.var(pos @ u)) / var_u - 1.0)
+    div = float(st["diverging"][keep].mean())
+    acc = float(st["mean_tree_accept"][keep].mean())
+    updates = np.nonzero(np.diff(ws["transformation_index"][0]))[0] + 1
+    n_eig = ws["num_eigenvalues"][:, updates[-1]] if len(updates) else None
+    ev = trace.transformation_updates[0]
+    top = float(ws["mass_matrix_eigvals"][:, -1].max())
+    n_grad = int(st["n_steps"].sum())
+    lockstep = int(ws["n_steps"].max(0).sum() + st["n_steps"].max(0).sum())
+    name = str(dtype).replace("torch.", "")
+    print(f"low-rank path ({name}): d={LR_DIM} chains={LR_CHAINS} "
+          f"tune={LR_TUNE} draws={draws}: init {init_s:.3f} s, warmup "
+          f"{warm_s:.3f} s ({1e3 * warm_s / LR_TUNE:.2f} ms a draw), "
+          f"posterior {post_s:.3f} s ({1e3 * post_s / draws:.2f} ms a draw), "
+          f"total {total_s:.3f} s, {lockstep} tree iterations in lock step, "
+          f"{n_grad / post_s:.6g} posterior gradient evaluations/s; no fused "
+          f"launch; {len(updates)} transform updates on chain 0, "
+          f"num_eigenvalues at the last "
+          f"{None if n_eig is None else n_eig.tolist()[:8]}, largest "
+          f"eigenvalue {top:.4g}; collapsed chains (posterior step below "
+          f"{LR_COLLAPSED_STEP}) {collapsed.tolist()}")
+    print(f"low-rank posterior ({name}, the {len(keep)} chains not "
+          f"collapsed): max |mean| {mean_err:.4f} std (gate {LR_MEAN_TOL}), "
+          f"max |std / std - 1| {std_err:.4f} (gate {LR_STD_TOL}), variance "
+          f"along u {float(np.var(pos @ u)):.2f} against {var_u:.1f} "
+          f"({var_u_err:.4f}, gate {LR_VAR_U_TOL}), divergence share "
+          f"{div:.5f} (gate {LR_MAX_DIV_SHARE}), mean accept {acc:.4f}, mean "
+          f"n_steps {float(st['n_steps'][keep].mean()):.2f}")
+    most = LR_MAX_COLLAPSED if dtype == torch.float32 else 0
+    if len(collapsed) > most:
+        raise AssertionError(f"{len(collapsed)} low-rank chains collapsed "
+                             f"at {name} (at most {most})")
+    if not (mean_err < LR_MEAN_TOL and std_err < LR_STD_TOL
+            and var_u_err < LR_VAR_U_TOL):
+        raise AssertionError("low-rank posterior moments off")
+    if not div <= LR_MAX_DIV_SHARE:
+        raise AssertionError(f"low-rank divergence share {div}")
+    if not 0.7 < acc < 0.95:
+        raise AssertionError(f"low-rank mean accept {acc}")
+    if n_eig is None or not (n_eig >= 1).all():
+        raise AssertionError(f"num_eigenvalues at the last update {n_eig}")
+    if not ("mass_matrix_eigvals" in ev and ev["mass_matrix_eigvals"].shape
+            == (len(ev["draw"]), LR_DIM) and ev["num_eigenvalues"][-1] >= 1):
+        raise AssertionError("transformation_updates hold no eigenvalues")
+
+
+def path_low_rank64(device, checks, launches, times):
+    """The low-rank path's preset at float64 (the JAX package's dtype
+    under x64), where every refit takes: no chain may collapse."""
+    path_low_rank(device, checks, launches, times, dtype=torch.float64)
+
+
+def path_low_rank_exact(device, checks, launches, times):
+    """The reference's strongest oracle at float64 on the card's
+    torch.linalg: the adapted low-rank transform whitens
+    correlated_normal(10, 0.5) exactly."""
+    from nuts_rs_tpu_torch import LowRankNutsSettings, LowRankSettings
+    from nuts_rs_tpu_torch.models.gaussian import correlated_normal
+
+    settings = LowRankNutsSettings(
+        num_chains=1, num_tune=LRX_TUNE, num_draws=LRX_DRAWS, seed=LRX_SEED,
+        low_rank=LowRankSettings(eigval_cutoff=LRX_CUTOFF))
+    zero_launch_counts()
+    trace, init_s, warm_s, post_s, total_s = run_sampler(
+        correlated_normal(LRX_DIM, 0.5), settings, device,
+        dtype=torch.float64, chunk_size=300)
+    require_no_fused_launch("the low-rank oracle")
+    fisher = trace.sample_stats["fisher_distance"]
+    n_div = int(trace.sample_stats["diverging"].sum())
+    print(f"low-rank oracle: correlated_normal({LRX_DIM}, 0.5), 1 chain, "
+          f"{LRX_TUNE} + {LRX_DRAWS} draws at float64: total {total_s:.3f} "
+          f"s; max fisher_distance {float(fisher.max()):.3g} (gate "
+          f"{LRX_FISHER}), divergences {n_div}")
+    if not (fisher.shape == (1, LRX_DRAWS) and (fisher < LRX_FISHER).all()):
+        raise AssertionError("the low-rank transform does not whiten exactly")
+    if n_div:
+        raise AssertionError(f"{n_div} divergences in the low-rank oracle")
+
+
+def path_cross_chain(device, checks, launches, times, draws=XC_DRAWS):
+    """The NUTS main configuration's model and chains with
+    cross_chain_adaptation=True on the sync engine: one mass matrix and one
+    adapted step for every chain, the main path's moment gates."""
+    from nuts_rs_tpu_torch import DiagNutsSettings
+    from nuts_rs_tpu_torch.models.gaussian import normal_logp
+
+    settings = DiagNutsSettings(num_chains=CHAINS, num_tune=XC_TUNE,
+                                num_draws=draws, seed=SEED,
+                                cross_chain_adaptation=True,
+                                store_mass_matrix=True)
+    zero_launch_counts()
+    trace, init_s, warm_s, post_s, total_s = run_sampler(
+        normal_logp(DIM, MU), settings, device)
+    require_no_fused_launch("the cross-chain path")
+    ws, st = trace.warmup_sample_stats, trace.sample_stats
+
+    def every(name):
+        return np.concatenate([ws[name], st[name]], 1)
+
+    def shared(x):
+        return bool((x == x[:1]).all())
+
+    tid = every("transformation_index")
+    first = int(np.argmax(tid[0] != tid[0, 0]))  # after the first update
+    same = {name: shared(every(name)[:, first:]) for name in (
+        "mass_matrix_inv", "transformation_mu")}
+    same["transformation_index"] = shared(tid)
+    same["step_size_bar"] = shared(every("step_size_bar"))
+    ss = every("step_size")
+    spread = float((ss.max(0) / ss.min(0)).max())
+    pos = trace.posterior["position"].astype(np.float64)
+    mean, std = float(pos.mean()), float(pos.std())
+    n_div = int(st["diverging"].sum())
+    acc = float(st["mean_tree_accept"].mean())
+    print(f"cross-chain path: d={DIM} chains={CHAINS} tune={XC_TUNE} "
+          f"draws={draws}: init {init_s:.3f} s, warmup {warm_s:.3f} s, "
+          f"posterior {post_s:.3f} s, total {total_s:.3f} s "
+          f"({1e3 * (warm_s + post_s) / (XC_TUNE + draws):.2f} ms a draw); "
+          f"shared over the chains {same} (the mass matrix from draw "
+          f"{first}); each chain's jittered step within a factor {spread:.4f}"
+          f" of the others' (at most {(1 + XC_JITTER) / (1 - XC_JITTER):.4f})"
+          f"; mean {mean:.5f} std {std:.5f} posterior divergences {n_div} "
+          f"mean accept {acc:.4f}")
+    if not all(same.values()) or not 0 < first < 10:
+        raise AssertionError(f"the pooled adaptation is not shared: {same}")
+    if not spread <= (1 + XC_JITTER) / (1 - XC_JITTER) + 1e-6:
+        raise AssertionError(f"step sizes spread by {spread}")
+    if not abs(mean - MU) < 0.02:
+        raise AssertionError(f"cross-chain mean {mean}")
+    if not abs(std - 1.0) < 0.05:
+        raise AssertionError(f"cross-chain std {std}")
+    if n_div:
+        raise AssertionError(f"{n_div} cross-chain divergences")
+    if not 0.7 < acc < 0.95:
+        raise AssertionError(f"cross-chain mean accept {acc}")
+
+
 # The paths on the sync engines alone launch no kernel and are host-bound
-# (one small kernel after another): in a whole run they run in a second
-# process beside the flow path's sync warmup, also host-bound, and the
-# flow path waits for that process before it checks or times a kernel
-# (wait_beside), so no kernel is timed beside them.
-BESIDE_PATHS = ("mclmc_sync", "exact_normal")
-BESIDE = []  # the second process and its start
+# (one small kernel, or one CUDA graph, after another): in a whole run they
+# run in two more processes, started together, beside the flow path's
+# sync warmup, also host-bound, and the flow path waits for them before it
+# checks or times a kernel (wait_beside), so no kernel is timed beside them.
+BESIDE_GROUPS = (("low_rank",),
+                 ("mclmc_sync", "exact_normal", "cross_chain",
+                  "low_rank_exact"))
+BESIDE_PATHS = tuple(p for group in BESIDE_GROUPS for p in group)
+# the paths that run with --only alone
+ONLY_PATHS = ("low_rank64",)
+BESIDE = []  # the processes beside, their groups and starts
 
 
 def start_beside():
-    """Start the sync-engine paths in a second process (``--beside``)."""
-    proc = subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--beside"],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    BESIDE.append((proc, time.monotonic()))
+    """Start each group of sync-engine paths in a process of its own
+    (``--beside N``)."""
+    for n, group in enumerate(BESIDE_GROUPS):
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--beside",
+             str(n)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        BESIDE.append((proc, group, time.monotonic()))
 
 
 def wait_beside():
-    """Wait for the second process, relay its lines, raise if it failed;
-    wait for the pipeline path's children too."""
+    """Wait for the processes beside, relay their lines, raise if one
+    failed; wait for the pipeline path's children too."""
     wait_pipeline_children()
-    if not BESIDE:
-        return
-    proc, t0 = BESIDE.pop()
-    out, _ = proc.communicate(timeout=900)
-    print(out, end="")
-    print(f"paths {', '.join(BESIDE_PATHS)} in a second process: "
-          f"{time.monotonic() - t0:.1f} s from its start, exit "
-          f"{proc.returncode}", flush=True)
-    if proc.returncode:
-        raise AssertionError(f"the paths {BESIDE_PATHS} failed")
+    failed = []
+    while BESIDE:
+        proc, group, t0 = BESIDE.pop(0)
+        out, _ = proc.communicate(timeout=900)
+        print(out, end="")
+        print(f"paths {', '.join(group)} in a process beside: "
+              f"{time.monotonic() - t0:.1f} s from its start, exit "
+              f"{proc.returncode}", flush=True)
+        if proc.returncode:
+            failed += group
+    if failed:
+        raise AssertionError(f"the paths {failed} failed")
 
 
 def stop_beside():
-    for proc, _ in BESIDE:
+    for proc, _, _ in BESIDE:
         proc.kill()
         proc.wait()
     BESIDE.clear()
@@ -3605,10 +3946,13 @@ PATHS = {"flow": path_flow, "mclmc_sync": path_mclmc_sync,
          "exact_normal": path_exact_normal, "stream": path_stream,
          "nuts": path_nuts, "control": path_control,
          "pipeline": path_pipeline, "mclmc": path_mclmc,
-         "large_d": path_large_d,
+         "float64": path_float64, "large_d": path_large_d,
          "data": path_data, "mclmc_data": path_mclmc_data,
          "mclmc_d400": path_mclmc_d400, "sv": path_sv, "radon": path_radon,
-         "zoo": path_zoo}
+         "zoo": path_zoo, "low_rank": path_low_rank,
+         "low_rank64": path_low_rank64,
+         "low_rank_exact": path_low_rank_exact,
+         "cross_chain": path_cross_chain}
 # the sources each path launches (the smem-size helpers of the mid-d and ld
 # warmup kernels live in their posterior sources)
 PATH_SOURCES = {
@@ -3625,9 +3969,15 @@ PATH_SOURCES = {
     "radon": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
     "zoo": ("nuts_fused_mid_posterior", "nuts_fused_mid_warmup"),
     "flow": ("nuts_fused_flow_warp_posterior", "nuts_fused_flow_posterior"),
+    "float64": ("nuts_fused_posterior", "nuts_fused_warmup",
+                "mclmc_fused_posterior", "mclmc_fused_warmup"),
     # the sync engines launch no kernel
     "mclmc_sync": (),
     "exact_normal": (),
+    "low_rank": (),
+    "low_rank64": (),
+    "low_rank_exact": (),
+    "cross_chain": (),
     "mclmc_d400": ("mclmc_fused_mid_posterior",),
 }
 
@@ -3651,9 +4001,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only", choices=sorted(PATHS), default=None,
                     help="drive this path alone and build only its kernels")
-    ap.add_argument("--beside", action="store_true",
-                    help="drive the sync-engine paths alone, as the second "
-                         "process of a whole run does")
+    ap.add_argument("--beside", type=int, choices=range(len(BESIDE_GROUPS)),
+                    default=None,
+                    help="drive this group of sync-engine paths alone, as a "
+                         "process beside a whole run does")
     args = ap.parse_args(argv)
     only = args.only
     if not torch.cuda.is_available():
@@ -3661,9 +4012,10 @@ def main(argv=None) -> int:
                            "(torch.cuda.is_available() is false)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.beside:
+    if args.beside is not None:
+        os.nice(BESIDE_NICE)
         device = torch.device("cuda", 0)
-        for path in BESIDE_PATHS:
+        for path in BESIDE_GROUPS[args.beside]:
             t0 = time.monotonic()
             PATHS[path](device, {}, {}, {})
             print(f"path {path}: {time.monotonic() - t0:.1f} s", flush=True)
@@ -3677,7 +4029,8 @@ def main(argv=None) -> int:
                           text=True, check=True, timeout=60)
     print(f"nvcc: {nvcc.stdout.strip().splitlines()[-1]}; torch "
           f"{torch.__version__} (CUDA {torch.version.cuda})")
-    paths = [only] if only else [p for p in PATHS if p not in BESIDE_PATHS]
+    paths = [only] if only else [p for p in PATHS
+                                 if p not in BESIDE_PATHS + ONLY_PATHS]
     stems = list(dict.fromkeys(stem for path in paths
                                for stem in PATH_SOURCES[path]))
     # the build runs beside the paths, in the order they need its sources,

@@ -9,8 +9,10 @@ streamed, MCLMC, and NUTS through a frozen coupling flow) for CUDA tensors,
 and on their plain PyTorch versions for CPU tensors; ``FlowNutsSettings``
 warms up on the per-draw sync engine with the flow's refits.  The per-draw
 sync engines (``posterior_kernel="sync"``: NUTS with any tree option and
-kinetic energy, MCLMC) run any model, and take the extra stores and what
-the fused kernels lack, as the JAX package plans it.  The package
+kinetic energy, MCLMC) run any model, and take the extra stores, the
+low-rank presets (``LowRankNutsSettings``, ``LowRankMclmcSettings``),
+cross-chain adaptation and what else the fused kernels lack, as the JAX
+package plans it.  The package
 imports torch, numpy and scipy and never JAX.  The ``Sampler``'s control
 surface is the JAX package's: pause / resume, ``wait_timeout``, ``abort``,
 progress callbacks, checkpoints, the stuck-chain detector
@@ -22,6 +24,7 @@ memory, CSV, Arrow and Zarr storage backends, with ``run()`` pipelined.  What is
 """
 
 from .adapt.flow import FlowAdaptSettings
+from .adapt.low_rank import LowRankSettings
 from .adapt.schedule import AdaptScheduleOptions
 from .adapt.step_size import (
     AdamOptions,
@@ -45,6 +48,8 @@ from .sampler import (
     DiagNutsSettings,
     FlowMclmcSettings,
     FlowNutsSettings,
+    LowRankMclmcSettings,
+    LowRankNutsSettings,
     MclmcSettings,
     MclmcTrajectoryKind,
     NutsSettings,
@@ -92,6 +97,9 @@ __all__ = [
     "FlowMclmcSettings",
     "FlowNutsSettings",
     "KineticKind",
+    "LowRankMclmcSettings",
+    "LowRankNutsSettings",
+    "LowRankSettings",
     "MclmcOptions",
     "MclmcSettings",
     "MclmcTrajectoryKind",

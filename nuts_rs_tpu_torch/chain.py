@@ -24,6 +24,14 @@ layout while a model and its data fit it (``cl_max_dim``) and the
 dim-on-lanes layout (``layout="ld"``, with the model's data where it has
 them) above that.
 
+Each fused launch takes contiguous float32 copies of the state's operands
+(:func:`f32`, the JAX runners' casts, ``nuts_pallas.py:770-781``), and the
+warmup runners cast what the kernels return to the state's dtype
+(``chain.py:1123-1128,1455-1461``), so a float64 state runs the same
+kernels.  ``make_draw_step`` and ``init_chain_state`` take any
+:class:`Strategy`: the diagonal one (pooled over the chains with
+``cross_chain``), the low-rank one (``adapt/low_rank.py``) or a flow's.
+
 The chain axis is the leading axis of every state tensor.  Randomness comes
 from the counter hash (kernels/rng.py): each launch's seed is derived from
 (base seed, global draw index, purpose), where the JAX runners derive theirs
@@ -37,7 +45,7 @@ streamed kernel's chain block (:func:`stream_block`).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Protocol
 
 import torch
 
@@ -53,6 +61,7 @@ from .kernels import _build
 from .kernels.nuts import SALT_JITTER, NutsOptions, nuts_draw
 from .kernels.rng import derive_seed, group_seed, host_uniform
 from .ops import hsum
+from .parallel.collectives import merge_running_variance
 from .transform.ops import AFFINE_OPS
 from .transform.affine import (
     AffineTransform,
@@ -259,6 +268,13 @@ class ChainConfig:
     store_transformed: bool = False
     store_divergences: bool = False
     store_mass_matrix: bool = False
+    # low-rank MatrixStats (nuts-rs LowRankSettings.store_mass_matrix,
+    # src/transform/low_rank.rs:195,236): the eigenvalues and their count
+    store_mass_matrix_eigs: bool = False
+    # pool the per-draw acceptance statistic over the chains before dual
+    # averaging, and the init searches' steps by their geometric mean, so
+    # that every chain shares one step size (chain.py:111-114,205-214)
+    cross_chain_step_size: bool = False
 
 
 class WindowState(NamedTuple):
@@ -271,13 +287,37 @@ class WindowState(NamedTuple):
     has_initial: torch.Tensor     # [C] bool has_initial_mass_matrix
 
 
+class Strategy(Protocol):
+    """What the draw steps and ``init_chain_state`` ask of an adaptation
+    strategy: :class:`DiagStrategy`, ``adapt.low_rank.LowRankStrategy`` or
+    ``adapt.flow.FlowStrategy``.  ``ops`` (``transform/ops.py``) carries its
+    transform through the dynamics."""
+
+    def make_transform(self, num_chains, dim, dtype, device): ...
+
+    def init_extra(self, dim, num_tune, dtype, num_chains, device): ...
+
+    def init_mass_matrix(self, state: ChainState) -> ChainState: ...
+
+    def update_estimators(self, state: ChainState, draw_q, draw_g, is_good,
+                          logp=None, energy_error=None) -> ChainState: ...
+
+    def switch(self, state: ChainState) -> ChainState: ...
+
+    def adapt_update(self, state: ChainState) -> ChainState: ...
+
+
 class DiagStrategy:
     """Diagonal mass-matrix adaptation (nuts-rs ``DiagAdaptStrategy``).  The
     fused warmup kernels run the per-draw updates themselves; the sync
-    engine's draw step calls them here."""
+    engine's draw step calls them here.  With ``cross_chain`` the
+    foreground estimators are pooled over the chains before each update
+    (``nuts_rs_tpu/chain.py:131-197``; the mesh part is ROADMAP.md item
+    17b)."""
 
-    def __init__(self, config: ChainConfig):
+    def __init__(self, config: ChainConfig, cross_chain: bool = False):
         self.config = config
+        self.cross_chain = cross_chain
 
     def make_transform(self, num_chains, dim, dtype, device):
         return identity_transform(num_chains, dim, dtype, device)
@@ -308,10 +348,15 @@ class DiagStrategy:
         return state._replace(diag_adapt=da)
 
     def adapt_update(self, state: ChainState, mask=None) -> ChainState:
-        """The mass-matrix update from the foreground estimators; with
-        ``mask`` [C] the other chains keep their transform untouched."""
+        """The mass-matrix update from the foreground estimators, pooled
+        with ``cross_chain``; with ``mask`` [C] (the good-draw window mode,
+        which pooling excludes) the other chains keep their transform."""
+        adapt = state.diag_adapt
+        if self.cross_chain:
+            adapt = adapt._replace(draw=merge_running_variance(adapt.draw),
+                                   grad=merge_running_variance(adapt.grad))
         transform = mm.adapt_diag(
-            state.diag_adapt, state.transform,
+            adapt, state.transform,
             use_grad_based_estimate=self.config.use_grad_based_estimate,
             update_mask=mask)
         return state._replace(transform=transform)
@@ -328,6 +373,10 @@ def _init_search(seed, state: ChainState, model, config: ChainConfig,
                            logp_grad_fn=model.logp_and_grad,
                            settings=config.step_size, kind=config.nuts.kind,
                            ops=ops)
+    if config.cross_chain_step_size:
+        # every chain starts from the found steps' geometric mean
+        # (chain.py:205-214), so that pooled dual averaging keeps one step
+        found = torch.exp(torch.log(found).mean()).expand_as(found)
     return state._replace(step=ss.reset_from_found_step(state.step, found))
 
 
@@ -335,7 +384,7 @@ def _mean0(x, n):
     return x / torch.clamp(n.to(x.dtype), min=1.0)
 
 
-def make_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
+def make_draw_step(model, strategy: Strategy, config: ChainConfig,
                    base_seed: int):
     """One draw of the sync NUTS engine and its adaptation for all chains:
     ``(state, flags) -> (state, stats)``, where ``flags`` is one row of the
@@ -358,12 +407,13 @@ def make_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
     sset = config.step_size
     wp = config.window_params
     ops = getattr(strategy, "ops", AFFINE_OPS)
+    graphs = {}  # the tree iteration's CUDA graphs, this step's own
 
     def draw_step(state: ChainState, flags):
         seed = derive_seed(base_seed, state.draw_idx, PURPOSE_SYNC_DRAW)
         draw_pt, info = nuts_draw(seed, state.pt, state.transform,
                                   state.step.step_size, logp_grad,
-                                  config.nuts, ops)
+                                  config.nuts, ops, graphs=graphs)
         state = state._replace(pt=draw_pt)
         C = draw_pt.q.shape[0]
         dev = draw_pt.q.device
@@ -440,6 +490,9 @@ def make_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
             reinit_mask = did_change & w.has_initial
             use_late = is_late | (not in_win)
             accept_stat = torch.where(use_late, sym_acc, mean_acc)
+        if config.cross_chain_step_size:
+            # one accept statistic for every chain (chain.py:323-327)
+            accept_stat = accept_stat.mean().expand(C)
 
         # --- dual averaging advance (early: plain mean; late: symmetric) ---
         step_state = state.step
@@ -504,8 +557,9 @@ def extra_stats(config: ChainConfig, state: ChainState, draw_pt,
     ``:575-592`` for MCLMC, which stores no transformed point): the draw's
     gradient and position, its transformed point, the divergence's
     forensics (the seven ``divergence_*`` fields; a draw that did not
-    diverge keeps the empty record: NaN vectors, reason 0) and the
-    transform after the draw's adaptation."""
+    diverge keeps the empty record: NaN vectors, reason 0), the transform
+    after the draw's adaptation and, of a low-rank transform, its
+    eigenvalues and their count (``:412-419``)."""
     stats = {}
     if config.store_gradient:
         stats["gradient"] = draw_pt.g
@@ -527,10 +581,16 @@ def extra_stats(config: ChainConfig, state: ChainState, draw_pt,
     if config.store_mass_matrix:
         stats["mass_matrix_inv"] = state.transform.stds
         stats["transformation_mu"] = state.transform.mean
+    if config.store_mass_matrix_eigs and state.transform.vecs is not None:
+        # MatrixStats (low_rank.rs:210-222): a padded direction carries
+        # lam = 1 exactly, so the selected ones are those that differ
+        vals = torch.square(state.transform.vals_sqrt)
+        stats["mass_matrix_eigvals"] = vals
+        stats["num_eigenvalues"] = (vals != 1.0).sum(-1, dtype=torch.int32)
     return stats
 
 
-def make_mclmc_draw_step(model, strategy: DiagStrategy, config: ChainConfig,
+def make_mclmc_draw_step(model, strategy: Strategy, config: ChainConfig,
                          mopts, base_seed: int):
     """One draw of the sync MCLMC engine and its adaptation for all chains
     (``chain.py:517-600``; nuts-rs ``MclmcChain::draw``,
@@ -623,7 +683,7 @@ def _run_rows(step, state: ChainState, flags, tick=None):
                    for name in rows[0]}
 
 
-def make_sync_runner(model, strategy: DiagStrategy, config: ChainConfig,
+def make_sync_runner(model, strategy: Strategy, config: ChainConfig,
                      base_seed: int):
     """Phase runner of the per-draw sync NUTS engine, with the fused
     runners' signature: ``(state, flags) -> (state, stats)``, ``flags`` the
@@ -639,7 +699,7 @@ def make_sync_runner(model, strategy: DiagStrategy, config: ChainConfig,
     return runner
 
 
-def make_sync_mclmc_runner(model, strategy: DiagStrategy, config: ChainConfig,
+def make_sync_mclmc_runner(model, strategy: Strategy, config: ChainConfig,
                            mopts, base_seed: int):
     """Phase runner of the per-draw sync MCLMC engine
     (``make_mclmc_draw_step``), with ``make_sync_runner``'s signature; the
@@ -653,7 +713,7 @@ def make_sync_mclmc_runner(model, strategy: DiagStrategy, config: ChainConfig,
     return runner
 
 
-def init_chain_state(seed: int, model, strategy: DiagStrategy,
+def init_chain_state(seed: int, model, strategy: Strategy,
                      config: ChainConfig, num_chains: int, dtype, device,
                      init_positions=None, num_tune: int = 0) -> ChainState:
     """Set up all chains: init positions (with retries for non-finite logp
@@ -694,6 +754,25 @@ def init_chain_state(seed: int, model, strategy: DiagStrategy,
         state.pt.q, state.transform, model.logp_and_grad, ops))
     return _init_search(derive_seed(seed, 0, PURPOSE_INIT_SEARCH), state,
                         model, config, ops)
+
+
+def f32(x):
+    """A contiguous float32 copy of a state operand for a kernel launch
+    (the JAX runners' ``vec`` / ``sca`` casts, ``nuts_pallas.py:770-781``);
+    a contiguous float32 tensor passes as it is."""
+    return x.to(torch.float32).contiguous()
+
+
+def _as(dtype, *xs):
+    """The kernel's float32 outputs in the state's ``dtype``."""
+    return tuple(x.to(dtype) for x in xs)
+
+
+def _float_stats(stats, dtype):
+    """A warmup chunk's float stats in the state's ``dtype``, as the JAX
+    warmup runner hands them to storage (``chain.py:1169-1170``)."""
+    return {k: v.to(dtype) if v.is_floating_point() else v
+            for k, v in stats.items()}
 
 
 def _stats(draws, out, bars, tid, tuning):
@@ -790,26 +869,28 @@ def make_flow_posterior_runner(model, strategy, config: ChainConfig,
                                    sset.jitter)
         seed = group_seed(derive_seed(base_seed, state.draw_idx,
                                      PURPOSE_POSTERIOR))
-        z = state.pt.z.contiguous()
+        z, logp = f32(state.pt.z), f32(state.pt.logp)
         ones, zeros = torch.ones_like(z), torch.zeros_like(z)
         packed = spec.kernel_pack(tree_map(lambda v: v[0], t.params))
         _, z_f, _, draws, out = nf.nuts_fused_run(
-            seed, z, state.pt.g.contiguous(), state.pt.logp, ones, zeros,
-            torch.zeros_like(state.pt.logp), step_in, bars, k, model,
+            seed, z, f32(state.pt.g), logp, ones, zeros,
+            torch.zeros_like(logp), f32(step_in), f32(bars), k, model,
             config.nuts, sset.jitter, flow=packed)
+        z_f = z_f.to(state.pt.z.dtype)
         q_f, logp_f, g_f, zg_f, ld_f = strategy.ops.eval_from_z(
             t, z_f, model.logp_and_grad)
         pt = state.pt._replace(q=q_f, g=g_f, z=z_f, zg=zg_f, logp=logp_f,
                                logdet=ld_f)
-        state = state._replace(
-            pt=pt, step=state.step._replace(
-                step_size=out["step_size"][:, -1].contiguous()),
-            draw_idx=state.draw_idx + k)
+        step = out["step_size"][:, -1].contiguous().to(q_f.dtype)
+        state = state._replace(pt=pt,
+                               step=state.step._replace(step_size=step),
+                               draw_idx=state.draw_idx + k)
         stats = _stats(draws, out, bars[None, :].expand(k, C).contiguous(),
                        t.id[None, :].expand(k, C).contiguous(),
                        flags["is_tuning"])
         return state, stats
 
+    runner.hands_float32 = True  # float32 stats to storage, as JAX's
     return runner
 
 
@@ -841,22 +922,26 @@ def make_fused_posterior_runner(model, config: ChainConfig, phase_start: int,
                                    sset.jitter)
         seed = group_seed(derive_seed(base_seed, state.draw_idx,
                                      PURPOSE_POSTERIOR))
+        dt = state.pt.q.dtype
         q_f, g_f, logp_f, draws, out = nf.nuts_fused_run(
-            seed, state.pt.q, state.pt.g, state.pt.logp, t.stds, t.mean,
-            t.logdet, step_in, bars, k, model, config.nuts, sset.jitter,
+            seed, f32(state.pt.q), f32(state.pt.g), f32(state.pt.logp),
+            f32(t.stds), f32(t.mean), f32(t.logdet), f32(step_in),
+            f32(bars), k, model, config.nuts, sset.jitter,
             block=stream_block(model, config.nuts.maxdepth, C) if stream
             else None, layout=layout, stream=stream)
+        q_f, g_f, logp_f = _as(dt, q_f, g_f, logp_f)
         pt = state.pt._replace(q=q_f, g=g_f, z=to_transformed(t, q_f),
                                zg=grad_to_transformed(t, g_f), logp=logp_f)
         state = state._replace(
             pt=pt, step=state.step._replace(
-                step_size=out["step_size"][:, -1].contiguous()),
+                step_size=out["step_size"][:, -1].contiguous().to(dt)),
             draw_idx=state.draw_idx + k)
         stats = _stats(draws, out, bars[None, :].expand(k, C).contiguous(),
                        t.id[None, :].expand(k, C).contiguous(),
                        flags["is_tuning"])
         return state, stats
 
+    runner.hands_float32 = True  # float32 stats to storage, as JAX's
     return runner
 
 
@@ -923,15 +1008,19 @@ def make_fused_warmup_runner(model, config: ChainConfig, base_seed: int,
     def runner(state: ChainState, flags):
         k = len(flags["is_tuning"])
         st, t = state.step, state.transform
+        dt = state.pt.q.dtype
         est, sca = pack_warmup_state(state)
         seed = group_seed(derive_seed(base_seed, state.draw_idx,
                                      PURPOSE_WARMUP))
         (q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f, draws,
          out) = nf.nuts_fused_warmup_run(
-            seed, warmup_flags(flags, est.device), state.pt.q, state.pt.g,
-            state.pt.logp, t.stds.contiguous(), t.mean.contiguous(), est,
-            sca, model, config.nuts, sset, config.use_grad_based_estimate,
-            layout=layout)
+            seed, warmup_flags(flags, est.device), f32(state.pt.q),
+            f32(state.pt.g), f32(state.pt.logp), f32(t.stds), f32(t.mean),
+            f32(est), f32(sca), model, config.nuts, sset,
+            config.use_grad_based_estimate, layout=layout)
+        # back to the state's dtype (chain.py:1123-1128)
+        q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f = _as(
+            dt, q_f, g_f, logp_f, stds_f, mean_f, est_f, sca_f)
 
         def row(i):
             return sca_f[:, i].contiguous()
@@ -968,7 +1057,7 @@ def make_fused_warmup_runner(model, config: ChainConfig, base_seed: int,
         stats = _stats(draws, out, out["step_size_bar"].T.contiguous(),
                        out["transformation_index"].T.to(torch.int32),
                        flags["is_tuning"])
-        return state, stats
+        return state, _float_stats(stats, dt)
 
     return runner
 
@@ -1030,13 +1119,16 @@ def make_fused_mclmc_posterior_runner(model, config: ChainConfig, mopts,
                                    sset.jitter)
         seed = group_seed(derive_seed(base_seed, state.draw_idx,
                                      PURPOSE_MCLMC_POSTERIOR))
+        dt = state.pt.q.dtype
         q_f, g_f, logp_f, v_f, draws, out = mf.mclmc_fused_run(
-            seed, state.pt.q, state.pt.g, state.pt.logp, state.pt.v, t.stds,
-            t.mean, t.logdet, step_in, bars, k, model, mopts, sset.jitter)
+            seed, f32(state.pt.q), f32(state.pt.g), f32(state.pt.logp),
+            f32(state.pt.v), f32(t.stds), f32(t.mean), f32(t.logdet),
+            f32(step_in), f32(bars), k, model, mopts, sset.jitter)
+        q_f, g_f, logp_f, v_f = _as(dt, q_f, g_f, logp_f, v_f)
         state = state._replace(
             pt=_mclmc_point(state.pt, t, q_f, g_f, logp_f, v_f, mopts.kind),
             step=state.step._replace(
-                step_size=out["step_size"][:, -1].contiguous()),
+                step_size=out["step_size"][:, -1].contiguous().to(dt)),
             draw_idx=state.draw_idx + k)
         C = state.pt.q.shape[0]
         stats = _mclmc_stats(draws, out,
@@ -1044,6 +1136,7 @@ def make_fused_mclmc_posterior_runner(model, config: ChainConfig, mopts,
                              flags["is_tuning"])
         return state, stats
 
+    runner.hands_float32 = True  # float32 stats to storage, as JAX's
     return runner
 
 
@@ -1081,9 +1174,14 @@ def make_fused_mclmc_warmup_runner(model, config: ChainConfig, mopts,
         (q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f, draws,
          out) = mf.mclmc_fused_warmup_run(
             seed, warmup_flags(flags, est.device, MCLMC_FLAG_COLUMNS),
-            state.pt.q, state.pt.g, state.pt.logp, state.pt.v.contiguous(),
-            t.stds.contiguous(), t.mean.contiguous(), est, sca, model, mopts,
-            sset, config.use_grad_based_estimate)
+            f32(state.pt.q), f32(state.pt.g), f32(state.pt.logp),
+            f32(state.pt.v), f32(t.stds), f32(t.mean), f32(est), f32(sca),
+            model, mopts, sset, config.use_grad_based_estimate)
+        # back to the state's dtype (chain.py:1455-1461); the stats stay
+        # float32, as the JAX MCLMC runners hand them to storage
+        q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f = _as(
+            state.pt.q.dtype, q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f,
+            sca_f)
 
         def row(i):
             return sca_f[:, i].contiguous()
@@ -1114,4 +1212,5 @@ def make_fused_mclmc_warmup_runner(model, config: ChainConfig, mopts,
                              flags["is_tuning"])
         return state, stats
 
+    runner.hands_float32 = True  # float32 stats to storage, as JAX's
     return runner

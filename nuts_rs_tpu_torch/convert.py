@@ -16,7 +16,12 @@ JAX package's pytree of the same keys, with or without the chain axis), its
 ``FlowTransform`` and its ``FlowWindow`` cross with
 ``flow_params_from_numpy``, ``flow_transform_from_numpy`` and
 ``flow_window_from_numpy``, so that both packages compute the same thing
-from parameters the JAX package drew.
+from parameters the JAX package drew.  A low-rank transform's factors
+(``vecs``, ``vals_sqrt``, ``vals_sqrt_inv``, ``mu_lr``) and its strategy's
+window (``window_*``, in ``extra``) travel in the same dict, and
+``low_rank_transform_from_numpy`` / ``low_rank_window_from_numpy`` build
+this package's from the JAX package's arrays, so that both refit from one
+window.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from .adapt.flow import FlowWindow
+from .adapt.low_rank import LowRankWindow
 from .adapt.mass_matrix import DiagAdaptState, RunningVariance
 from .adapt.step_size import StepSizeState
 from .chain import ChainState
@@ -39,6 +45,8 @@ from .transform.ops import FlowTransform
 _ESTIMATORS = ("draw", "grad", "draw_bg", "grad_bg")
 _STEP_FIELDS = ("log_step", "log_step_adapted", "hbar", "mu", "count",
                 "adam_m", "adam_v", "adam_t", "step_size")
+_LOW_RANK_FIELDS = ("vecs", "vals_sqrt", "vals_sqrt_inv", "mu_lr")
+_WINDOW_FIELDS = LowRankWindow._fields
 
 
 def _np(x):
@@ -54,6 +62,12 @@ def state_to_numpy(state) -> dict:
            for name in ("q", "g", "z", "zg", "v", "logp", "ke")}
     out.update(stds=_np(t.stds), mean=_np(t.mean), logdet=_np(t.logdet),
                transform_id=_np(t.id))
+    if getattr(t, "vecs", None) is not None:
+        out.update({name: _np(getattr(t, name)) for name in _LOW_RANK_FIELDS})
+    w = getattr(state, "extra", None)
+    if w is not None and hasattr(w, "bg_start"):
+        out.update({f"window_{name}": _np(getattr(w, name))
+                    for name in _WINDOW_FIELDS})
     for est in _ESTIMATORS:
         rv = getattr(state.diag_adapt, est)
         out[f"{est}_mean"] = _np(rv.mean)
@@ -79,6 +93,12 @@ def state_from_numpy(arrays, device="cpu", dtype=torch.float32) -> ChainState:
     transform = AffineTransform(mean=f("mean"), stds=stds,
                                 inv_stds=1.0 / stds, logdet=f("logdet"),
                                 id=i32("transform_id"))
+    if "vecs" in arrays:
+        transform = transform._replace(**{name: f(name)
+                                          for name in _LOW_RANK_FIELDS})
+    extra = (low_rank_window_from_numpy(
+        {name: arrays[f"window_{name}"] for name in _WINDOW_FIELDS},
+        device, dtype) if "window_draws" in arrays else None)
     q = f("q")
     pt = Point(q=q, g=f("g"), z=f("z"), zg=f("zg"), v=f("v"), logp=f("logp"),
                logdet=transform.logdet, ke=f("ke"),
@@ -91,7 +111,39 @@ def state_from_numpy(arrays, device="cpu", dtype=torch.float32) -> ChainState:
         name: (i32 if name == "adam_t" else f)(f"step_{name}")
         for name in _STEP_FIELDS})
     return ChainState(pt=pt, transform=transform, diag_adapt=diag, step=step,
-                      draw_idx=int(np.asarray(arrays["draw_idx"])))
+                      draw_idx=int(np.asarray(arrays["draw_idx"])),
+                      extra=extra)
+
+
+def low_rank_transform_from_numpy(t, device="cpu",
+                                  dtype=torch.float32) -> AffineTransform:
+    """A low-rank ``AffineTransform`` from the fields of the JAX one (or any
+    object or dict with its names), with the chain axis."""
+    def get(name):
+        return t[name] if isinstance(t, dict) else getattr(t, name)
+
+    def f(name, dt=dtype):
+        return torch.as_tensor(np.array(get(name)), dtype=dt, device=device)
+
+    return AffineTransform(
+        mean=f("mean"), stds=f("stds"), inv_stds=f("inv_stds"),
+        logdet=f("logdet"), id=f("id", torch.int32),
+        **{name: f(name) for name in _LOW_RANK_FIELDS})
+
+
+def low_rank_window_from_numpy(w, device="cpu",
+                               dtype=torch.float32) -> LowRankWindow:
+    """A ``LowRankWindow`` from the JAX one's arrays (draws, grads
+    [C, cap, d], write_pos, start, bg_start [C]), or a dict of them."""
+    def get(name):
+        return w[name] if isinstance(w, dict) else getattr(w, name)
+
+    def t(name, dt=dtype):
+        return torch.as_tensor(np.array(get(name)), dtype=dt, device=device)
+
+    return LowRankWindow(draws=t("draws"), grads=t("grads"),
+                         **{name: t(name, torch.int32)
+                            for name in ("write_pos", "start", "bg_start")})
 
 
 def model_from_pallas_args(kind: str, args, name=None, tile_rows=None,

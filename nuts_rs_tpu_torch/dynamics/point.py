@@ -30,7 +30,10 @@ class Point(NamedTuple):
 
 def chains_where(cond, a, b):
     """Per-chain select on a [C] bool mask between two tensors with a
-    leading chains axis, or two (nested) tuples of such tensors."""
+    leading chains axis, or two (nested) tuples of such tensors (a None
+    field, a diagonal transform's low-rank ones, stays None)."""
+    if a is None:
+        return None
     if isinstance(a, torch.Tensor):
         return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - 1)),
                            a, b)

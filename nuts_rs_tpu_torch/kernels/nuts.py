@@ -47,6 +47,7 @@ from ..dynamics.hamiltonian import (
     leapfrog,
     sample_momentum,
 )
+from ..checkpoint import rebuild_state, state_leaves
 from ..dynamics.point import Point, chains_where, point_where
 from ..ops import logaddexp
 from ..transform.ops import AFFINE_OPS
@@ -491,14 +492,122 @@ def tree_uniforms(seed: int, it: int, num_chains: int, device, n: int = 1):
     return tuple(u[0]) if n == 1 else u
 
 
+# The tree iteration as one CUDA graph on the card, for the affine
+# transforms without orbit collection: eager PyTorch launches its ~480
+# kernels one by one from the host, 6-9 ms an iteration on the H100's host
+# with the device 4.4% busy (PERF.md section 5); a replay launches
+# the same kernels on the same inputs, so the bits are the eager ones.
+# The graphs live in the cache that the caller hands ``nuts_draw`` (one a
+# draw step, ``chain.make_draw_step``), so they go with their sampler.
+_GRAPHS_KEPT = 4
+# tree iterations a replay (a divisor of _UNIFORM_ITERATIONS): one wait on
+# the host for this many passes, of which those after the last chain's
+# tree has ended change nothing
+_GRAPH_ITERATIONS = 8
+
+
+def _graphable(dev, opts: NutsOptions, ops) -> bool:
+    """Whether a draw's tree iterations replay as a CUDA graph: on the
+    card, without orbit collection, under a transform that is not a
+    flow's (FlowOps evaluate through autograd)."""
+    return (dev.type == "cuda" and not opts.collect_orbit
+            and not getattr(ops, "is_flow", False))
+
+
+def _tensors(tree):
+    return [x for x in state_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def _clone(tree):
+    return rebuild_state(tree, [x.clone() if isinstance(x, torch.Tensor)
+                                else x for x in state_leaves(tree)])
+
+
+def _signature(tree):
+    """Shapes and dtypes of a tree's leaves, and where it has None."""
+    return (tuple((tuple(x.shape), x.dtype) if isinstance(x, torch.Tensor)
+                  else x for x in state_leaves(tree)),
+            tuple(f is None for f in tree) if isinstance(tree, tuple) else ())
+
+
+class _GraphedTree:
+    """``_GRAPH_ITERATIONS`` passes of ``_tree_body`` and the host loop's
+    finished test, captured once as a CUDA graph over static copies of the
+    carry, the transform and the passes' uniforms: a replay advances the
+    static carry in place and sets ``more`` where a chain's tree goes on.
+    A pass after every chain has finished changes nothing (each write of
+    ``_tree_body`` carries ``active``), so the bits are the eager loop's.
+    The host waits for a replay on a blocking event, asleep, not spinning:
+    a run beside others leaves their cores to them."""
+
+    def __init__(self, carry, rand, transform, logp_grad_fn, opts, ops):
+        self.carry = _clone(carry)
+        self.transform = _clone(transform)
+        self.rand = rand.clone()  # [_GRAPH_ITERATIONS, 3, C]
+        self.logp_grad_fn = logp_grad_fn  # held: its id keys the cache
+        self.more = torch.zeros((), dtype=torch.bool, device=rand.device)
+        self.done = torch.cuda.Event(blocking=True)
+        ins = _tensors(self.carry)
+        at = {id(x): i for i, x in enumerate(ins)}
+
+        def step():
+            for k in range(self.rand.shape[0]):
+                active = ~_tree_finished(self.carry)
+                outs = _tensors(_tree_body(self.carry, active, self.rand[k],
+                                           self.transform, logp_grad_fn,
+                                           opts, ops))
+                # an output that is another field's input is copied first
+                outs = [src.clone() if at.get(id(src), i) != i else src
+                        for i, src in enumerate(outs)]
+                for dst, src in zip(ins, outs):
+                    if src is not dst:
+                        dst.copy_(src)
+            self.more.copy_((~_tree_finished(self.carry)).any())
+
+        dev = rand.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):  # lazy initializations, not captured
+            step()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            step()
+
+    def load(self, carry, transform):
+        for dst, src in zip(_tensors(self.carry) + _tensors(self.transform),
+                            _tensors(carry) + _tensors(transform)):
+            dst.copy_(src)
+        self.more.copy_((~_tree_finished(carry)).any())
+
+
+def _graphed(graphs: dict, carry, rand, transform, logp_grad_fn, opts,
+             ops):
+    """The graph in ``graphs`` for this tree's shapes, model, options and
+    transform (captured on first use; the least recently used goes past
+    ``_GRAPHS_KEPT``), loaded with ``carry`` and ``transform``."""
+    key = (str(carry.step_size.device), _signature(carry),
+           _signature(transform), id(logp_grad_fn), opts, type(ops))
+    g = graphs.pop(key, None)
+    if g is None:
+        g = _GraphedTree(carry, rand, transform, logp_grad_fn, opts, ops)
+        while len(graphs) >= _GRAPHS_KEPT:
+            graphs.pop(next(iter(graphs)))
+    graphs[key] = g
+    g.load(carry, transform)
+    return g
+
+
 def nuts_draw(seed: int, init_pt: Point, transform, step_size, logp_grad_fn,
-              opts: NutsOptions, ops=AFFINE_OPS):
+              opts: NutsOptions, ops=AFFINE_OPS, graphs=None):
     """One NUTS draw of every chain from ``init_pt`` (``nuts::draw``, nuts-rs
     ``src/nuts.rs:281-388``): momentum refresh, repeated doubling until
     maxdepth, a U-turn or a divergence, and the collectors' bookkeeping.
     Returns ``(draw: Point, info: NutsInfo)``; see the module docstring for
     the random sites ``seed`` keys.  ``ops`` are the transform's operations
-    (``transform/ops.py``)."""
+    (``transform/ops.py``).  ``graphs``, a dict the caller keeps, holds the
+    CUDA graphs of the tree iteration where ``_graphable``; without it
+    every iteration runs eagerly."""
     C, dim = init_pt.q.shape
     dtype, dev = init_pt.q.dtype, init_pt.q.device
     v0 = sample_momentum(seed, 0, *SALT_MOMENTUM, (C, dim), dtype, dev,
@@ -506,6 +615,23 @@ def nuts_draw(seed: int, init_pt: Point, transform, step_size, logp_grad_fn,
     pt0 = initialize_trajectory(init_pt, transform, opts.kind, v0, ops)
     rand_dir = host_uniform(seed, 0, SALT_FIRST_DIRECTION, (C,), dev)
     carry = _init_tree_carry(pt0, step_size.to(dtype), opts, rand_dir)
+    if graphs is not None and _graphable(dev, opts, ops):
+        K = _GRAPH_ITERATIONS
+        uniforms = tree_uniforms(seed, 1, C, dev, _UNIFORM_ITERATIONS)
+        g = _graphed(graphs, carry, uniforms[:K], transform, logp_grad_fn,
+                     opts, ops)
+        it = 1
+        while bool(g.more):
+            k = (it - 1) % _UNIFORM_ITERATIONS
+            if k == 0 and it > 1:
+                uniforms = tree_uniforms(seed, it, C, dev,
+                                         _UNIFORM_ITERATIONS)
+            g.rand.copy_(uniforms[k:k + K])
+            g.graph.replay()
+            g.done.record()
+            g.done.synchronize()
+            it += K
+        return _extract_info(_clone(g.carry))
     it = 1
     while True:
         active = ~_tree_finished(carry)

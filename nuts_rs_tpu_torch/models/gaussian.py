@@ -267,7 +267,8 @@ def correlated_normal_rank1(dim: int, scale: float = 1.5,
     ``diag(s)^1/2 (I + (eig - 1) u u^T) diag(s)^1/2`` (nuts-rs
     ``tests/sample_normal.rs:29-108``), ``u`` from
     ``np.random.default_rng(42)`` as in the JAX package.  Its data ``u`` and
-    ``s`` travel to the kernels as the JAX model's ``pallas_spec`` args."""
+    ``s`` travel to the kernels as the JAX model's ``pallas_spec`` args; the
+    host evaluates the functor's closed form with ``ops.hsum``."""
     rng = np.random.default_rng(42)
     u = rng.normal(size=dim)
     u /= np.linalg.norm(u)
@@ -282,11 +283,16 @@ def correlated_normal_rank1(dim: int, scale: float = 1.5,
             proj = u64.to(q.dtype) @ y
             return -0.5 * (y @ y + coef * proj * proj)
 
+        def logp_grad(q):
+            return correlated_normal_rank1_logp_grad(
+                q, coef, u64.to(q.dtype), s64.to(q.dtype), hsum)
+
         def on_device(dev):
             return build(tuple(t.to(dev) for t in hook), u64.to(dev),
                          s64.to(dev))
 
-        return Model(logp_fn=logp, dim=dim, name=f"corr_normal_{dim}d",
+        return Model(logp_fn=logp, dim=dim, logp_grad_fn=logp_grad,
+                     name=f"corr_normal_{dim}d",
                      kernel_hook=("correlated_normal_rank1", (coef,), hook),
                      on_device=on_device)
 
@@ -296,14 +302,19 @@ def correlated_normal_rank1(dim: int, scale: float = 1.5,
 def correlated_normal(dim: int, rank1_scale: float = 0.5) -> Model:
     """Correlated normal with covariance ``I + rank1_scale 1 1^T`` (nuts-rs
     tests/sample_normal.rs:21-107): by Woodbury the precision is
-    ``I - c 1 1^T`` with ``c = rank1_scale / (1 + rank1_scale dim)``."""
+    ``I - c 1 1^T`` with ``c = rank1_scale / (1 + rank1_scale dim)``; the
+    host evaluates the functor's closed form with ``ops.hsum``."""
     c = rank1_scale / (1.0 + rank1_scale * dim)
 
     def logp(q):
         s = torch.sum(q)
         return -0.5 * torch.sum(q * q) + 0.5 * c * s * s
 
-    return Model(logp_fn=logp, dim=dim, name=f"corr_normal_{dim}d",
+    def logp_grad(q):
+        return correlated_normal_logp_grad(q, c, hsum)
+
+    return Model(logp_fn=logp, dim=dim, logp_grad_fn=logp_grad,
+                 name=f"corr_normal_{dim}d",
                  kernel_hook=("correlated_normal", (c,)))
 
 

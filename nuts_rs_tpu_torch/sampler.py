@@ -1,14 +1,15 @@
 """Settings presets, the phase plan and the chunked sampler.
 
-Port of ``nuts_rs_tpu/sampler.py``: ``NutsSettings`` and
-``DiagNutsSettings`` (``:45-281,538-541``), ``FlowNutsSettings``
-(``:552-559``), ``MclmcTrajectoryKind``, ``MclmcSettings``,
-``DiagMclmcSettings`` and ``FlowMclmcSettings`` (``:287-535``),
+Port of ``nuts_rs_tpu/sampler.py``: ``NutsSettings``,
+``DiagNutsSettings`` and ``LowRankNutsSettings`` (``:45-281,538-549``),
+``FlowNutsSettings`` (``:552-559``), ``MclmcTrajectoryKind``,
+``MclmcSettings``, ``DiagMclmcSettings``, ``LowRankMclmcSettings`` and
+``FlowMclmcSettings`` (``:287-535``),
 ``_strategy_for`` and ``_schedule_for`` (``:663-681``), the phase plans
 ``build_phases``, ``ConvergenceStop``, ``ChainProgress`` and
 ``ChainFailedError`` and ``DeviceLostError`` (``:563-657``), the
 ``Sampler`` (``:758-2214``; not its ``mesh`` option, which is ROADMAP.md
-item 17, nor ``max_chains_per_launch="auto"``, the libtpu launch probe)
+item 17b, nor ``max_chains_per_launch="auto"``, the libtpu launch probe)
 and the free functions ``schema`` (``:2216``), ``sample`` (``:2248``) and
 ``sample_sequentially`` (``:2287``).
 
@@ -33,6 +34,11 @@ sync engine with its refits (``adapt/flow.py``) and, with ``"pallas"``,
 draws the posterior on kernel K1-flow with the frozen pooled flow; a flow
 without kernel hooks, an unpooled one or one beyond the JAX runner's size
 rule stays on the sync engine, with that package's ``UserWarning``.
+A low-rank mass matrix (``mass_matrix="low_rank"``, the ``LowRank*``
+presets, ``adapt/low_rank.py``) and cross-chain adaptation
+(``cross_chain_adaptation=True``: pooled estimators and, for NUTS, one
+pooled step size) run on the sync engines of either sampler, a
+``"pallas"`` request demoted there with the JAX package's ``UserWarning``.
 MCLMC runs on two engines too: ``"sync"`` (the default) is the per-draw
 sync MCLMC engine (``kernels/mclmc.py`` under
 ``chain.make_mclmc_draw_step``), split at the Euclidean -> microcanonical
@@ -71,6 +77,7 @@ import numpy as np
 import torch
 
 from .adapt.flow import FlowAdaptSettings, FlowStrategy, build_flow_schedule
+from .adapt.low_rank import LowRankSettings, LowRankStrategy
 from .adapt.schedule import (
     AdaptScheduleOptions,
     build_schedule,
@@ -140,6 +147,7 @@ class NutsSettings:
     mesh_axis_name: Optional[str] = None
     adapt: AdaptScheduleOptions = AdaptScheduleOptions()
     step_size: StepSizeSettings = StepSizeSettings()
+    low_rank: LowRankSettings = LowRankSettings()
     use_grad_based_estimate: bool = True
     flow: FlowAdaptSettings = FlowAdaptSettings()
     flow_spec: Any = None  # FlowSpec; None: the built-in coupling flow
@@ -180,6 +188,7 @@ class NutsSettings:
                            step_size=self.step_size,
                            use_grad_based_estimate=self.use_grad_based_estimate,
                            window_params=window_params,
+                           cross_chain_step_size=self.cross_chain_adaptation,
                            **_store_fields(self))
 
     @property
@@ -191,9 +200,11 @@ class NutsSettings:
     def _pallas_disqualifiers(self) -> list:
         """Settings that keep a ``posterior_kernel="pallas"`` request off
         the fused engine, named so that the demotion warning can say why
-        (``nuts_rs_tpu/sampler.py:167-197``; the entries whose setting this
-        package refuses altogether are in :meth:`unsupported`)."""
+        (``nuts_rs_tpu/sampler.py:167-197``)."""
         reasons = []
+        if self.mass_matrix == "low_rank":
+            reasons.append(f"mass_matrix={self.mass_matrix!r} (the fused "
+                           "low-rank transform measured slower than XLA)")
         if self.kinetic_energy is not KineticKind.EUCLIDEAN:
             reasons.append(f"kinetic_energy={self.kinetic_energy.name}")
         if self.mindepth != 0:
@@ -204,10 +215,12 @@ class NutsSettings:
             reasons.append("target_integration_time")
         if not self.check_turning:
             reasons.append("check_turning=False")
-        if any(_store_fields(self).values()):
+        if any(getattr(self, name) for name in _STORES):
             reasons.append("store_gradient/store_unconstrained/"
                            "store_transformed/store_divergences/"
                            "store_mass_matrix")
+        if self.cross_chain_adaptation:
+            reasons.append("cross_chain_adaptation=True")
         return reasons
 
     def _fused(self) -> bool:
@@ -231,12 +244,10 @@ class NutsSettings:
             reasons.append("posterior_kernel='async' (item 16)")
         elif kind not in ("sync", "pallas"):
             raise ValueError(f"unknown posterior_kernel {kind!r}")
-        if self.mass_matrix == "low_rank":
-            reasons.append("mass_matrix='low_rank' (item 14)")
-        elif self.mass_matrix not in ("diag", "flow"):
+        if self.mass_matrix not in ("diag", "low_rank", "flow"):
             raise ValueError(f"unknown mass_matrix {self.mass_matrix!r}")
-        if self.cross_chain_adaptation or self.mesh_axis_name is not None:
-            reasons.append("cross-chain adaptation / meshes (item 17)")
+        if self.mesh_axis_name is not None:
+            reasons.append("mesh_axis_name: meshes of cards (item 17b)")
         if reasons or not self._fused() or model.kernel_hook is None:
             return reasons
         if self.mass_matrix == "flow":
@@ -327,6 +338,15 @@ def DiagNutsSettings(**kw) -> NutsSettings:
     return NutsSettings(**kw)
 
 
+def LowRankNutsSettings(**kw) -> NutsSettings:
+    """Defaults of nuts-rs ``LowRankNutsSettings`` (src/sampler.rs:635-641):
+    800 tuning draws, a low-rank mass matrix updated every 20 draws."""
+    kw.setdefault("num_tune", 800)
+    kw.setdefault("mass_matrix", "low_rank")
+    kw.setdefault("adapt", AdaptScheduleOptions(mass_matrix_update_freq=20))
+    return NutsSettings(**kw)
+
+
 def FlowNutsSettings(**kw) -> NutsSettings:
     """Defaults of nuts-rs ``FlowNutsSettings`` (src/sampler.rs:643-646):
     1500 tuning draws, 1 chain, max_energy_error 20, a learned flow."""
@@ -339,14 +359,18 @@ def FlowNutsSettings(**kw) -> NutsSettings:
 
 def _strategy_for(settings, config: ChainConfig):
     """The adaptation strategy of ``settings`` (``sampler.py:663-676``): the
-    diagonal one, or a flow's (the built-in coupling flow unless
-    ``flow_spec`` names another)."""
-    if getattr(settings, "mass_matrix", "diag") == "flow":
+    diagonal one (pooled with ``cross_chain_adaptation``), the low-rank one
+    or a flow's (the built-in coupling flow unless ``flow_spec`` names
+    another)."""
+    kind = getattr(settings, "mass_matrix", "diag")
+    if kind == "flow":
         from .flows.coupling import coupling_flow
 
         return FlowStrategy(config, settings,
                             settings.flow_spec or coupling_flow())
-    return DiagStrategy(config)
+    if kind == "low_rank":
+        return LowRankStrategy(config, settings)
+    return DiagStrategy(config, cross_chain=settings.cross_chain_adaptation)
 
 
 def _schedule_for(settings):
@@ -371,10 +395,19 @@ def _flow_model_reasons(model: Model, maxdepth: int, device) -> list:
     return []
 
 
+# the extra stores, each of which keeps a run off the fused kernels
+_STORES = ("store_gradient", "store_unconstrained", "store_transformed",
+           "store_divergences", "store_mass_matrix")
+
+
 def _store_fields(settings) -> dict:
-    return {name: getattr(settings, name) for name in (
-        "store_gradient", "store_unconstrained", "store_transformed",
-        "store_divergences", "store_mass_matrix")}
+    """The ``ChainConfig`` store flags of ``settings``: the five stores and
+    a low-rank transform's eigenvalues (``nuts_rs_tpu/sampler.py:
+    140-141,363-364``)."""
+    out = {name: getattr(settings, name) for name in _STORES}
+    out["store_mass_matrix_eigs"] = (settings.mass_matrix == "low_rank"
+                                     and settings.low_rank.store_mass_matrix)
+    return out
 
 
 def _warn_no_hook(model: Model):
@@ -484,8 +517,11 @@ class MclmcSettings:
         MclmcTrajectoryKind.EUCLIDEAN_EARLY_THEN_MICROCANONICAL)
     trajectory_switch_fraction: float = 0.3
     adapt: AdaptScheduleOptions = AdaptScheduleOptions()
+    low_rank: LowRankSettings = LowRankSettings()
     use_grad_based_estimate: bool = True
     mass_matrix: str = "diag"  # "diag" | "low_rank" | "flow"
+    # pool the mass matrix's estimators over the chains (MCLMC's step is
+    # fixed, so only the geometry pools)
     cross_chain_adaptation: bool = False
     mesh_axis_name: Optional[str] = None
     # "sync" | "pallas".  "pallas" selects the fused engine: the
@@ -530,11 +566,16 @@ class MclmcSettings:
 
     def _pallas_disqualifiers(self) -> list:
         """Settings that keep a ``posterior_kernel="pallas"`` request off
-        the fused MCLMC engine (``nuts_rs_tpu/sampler.py:376-388``; the
-        other mass matrices, meshes and pooling are refused altogether in
-        :meth:`unsupported`)."""
-        return [f"{name}=True" for name, on in _store_fields(self).items()
-                if on]
+        the fused MCLMC engine (``nuts_rs_tpu/sampler.py:376-388``; a flow
+        and meshes are refused altogether in :meth:`unsupported`)."""
+        reasons = []
+        if self.mass_matrix == "low_rank":
+            reasons.append(f"mass_matrix={self.mass_matrix!r}")
+        reasons += [f"{name}=True" for name in _STORES
+                    if getattr(self, name)]
+        if self.cross_chain_adaptation:
+            reasons.append("cross_chain_adaptation=True")
+        return reasons
 
     def _fused_posterior(self, model: Model) -> bool:
         """Whether the posterior runs on the fused MCLMC kernel: a
@@ -552,17 +593,15 @@ class MclmcSettings:
         if self.posterior_kernel not in ("sync", "pallas"):
             raise ValueError(
                 f"unknown posterior_kernel {self.posterior_kernel!r}")
-        if self.mass_matrix == "low_rank":
-            reasons.append("mass_matrix='low_rank' (item 14)")
-        elif self.mass_matrix == "flow":
+        if self.mass_matrix == "flow":
             reasons.append("mass_matrix='flow' (item 15: the JAX package "
                            "refits MCLMC's flow on its sync MCLMC engine; "
                            "the refit's gates need a reference of their "
                            "own)")
-        elif self.mass_matrix != "diag":
+        elif self.mass_matrix not in ("diag", "low_rank"):
             raise ValueError(f"unknown mass_matrix {self.mass_matrix!r}")
-        if self.cross_chain_adaptation or self.mesh_axis_name is not None:
-            reasons.append("cross-chain adaptation / meshes (item 17)")
+        if self.mesh_axis_name is not None:
+            reasons.append("mesh_axis_name: meshes of cards (item 17b)")
         if reasons or not self._fused_posterior(model):
             return reasons
         return _model_reasons(model, 10, device, ld=False)
@@ -605,7 +644,7 @@ class MclmcSettings:
                     UserWarning)
         total = self.num_tune + self.num_draws
         sw = self.switch_draw
-        strategy = strategy or DiagStrategy(config)
+        strategy = strategy or _strategy_for(self, config)
 
         def kind_of(hi):
             if sw is None:
@@ -654,6 +693,17 @@ class MclmcSettings:
 
 def DiagMclmcSettings(**kw) -> MclmcSettings:
     """Defaults of nuts-rs ``DiagMclmcSettings`` (src/sampler.rs:381-387)."""
+    return MclmcSettings(**kw)
+
+
+def LowRankMclmcSettings(**kw) -> MclmcSettings:
+    """Defaults of nuts-rs ``LowRankMclmcSettings`` (src/sampler.rs:389-396):
+    800 tuning draws, a low-rank mass matrix, early switches every 20
+    draws."""
+    kw.setdefault("num_tune", 800)
+    kw.setdefault("mass_matrix", "low_rank")
+    kw.setdefault("adapt",
+                  AdaptScheduleOptions(early_mass_matrix_switch_freq=20))
     return MclmcSettings(**kw)
 
 
@@ -709,13 +759,16 @@ _DIV_EVENT_KEYS = ("divergence_start", "divergence_end",
                    "divergence_start_gradient", "divergence_start_momentum",
                    "divergence_momentum", "divergence_energy_error",
                    "divergence_reason")
-_TRANSFORM_EVENT_KEYS = ("mass_matrix_inv", "transformation_mu")
+_TRANSFORM_EVENT_KEYS = ("mass_matrix_inv", "transformation_mu",
+                         "mass_matrix_eigvals", "num_eigenvalues")
 
 
-def _extra_stat_dtypes(settings) -> dict:
-    """The extra stores' stats (name -> (dtype, has a [d] tail)), as the
-    sync draw steps emit them (``chain.extra_stats``); MCLMC stores no
-    transformed point (``nuts_rs_tpu/chain.py:575-592``)."""
+def _extra_stat_dtypes(settings, dim: int) -> dict:
+    """The extra stores' stats (name -> (dtype, has a [d] tail, or the
+    tail's shape)), as the sync draw steps emit them
+    (``chain.extra_stats``); MCLMC stores no transformed point
+    (``nuts_rs_tpu/chain.py:575-592``).  A low-rank transform's eigenvalues
+    have the transform's rank as their tail."""
     out = {}
     if settings.store_gradient:
         out["gradient"] = (np.float32, True)
@@ -734,6 +787,10 @@ def _extra_stat_dtypes(settings) -> dict:
     if settings.store_mass_matrix:
         out["mass_matrix_inv"] = (np.float32, True)
         out["transformation_mu"] = (np.float32, True)
+    if _store_fields(settings)["store_mass_matrix_eigs"]:
+        rank = min(settings.low_rank.max_rank or dim, dim)
+        out["mass_matrix_eigvals"] = (np.float32, (rank,))
+        out["num_eigenvalues"] = (np.int32, False)
     return out
 
 
@@ -1039,9 +1096,10 @@ class Sampler:
     present; on ``"cpu"`` the plain PyTorch versions run, meant for tests at
     small sizes); the host loop launches one chunk at a time and streams it
     to storage.  ``dtype`` is the chain state's (float32, the fused
-    kernels' type, by default; float64 runs on the sync engines: a
-    ``posterior_kernel="pallas"`` request with it is demoted there with a
-    ``UserWarning``, since the kernels compute in float32).
+    kernels' type, by default; float64 runs the same plan as float32, as
+    in the JAX package: each fused launch takes float32 copies of the
+    state's operands and a warmup launch casts what it returns back,
+    ``nuts_rs_tpu/chain.py:1123-1128``).
     ``chunk_seconds`` records ``(first_draw, last_draw + 1, seconds)`` per
     chunk, from launch to the chunk's stats on the host.
 
@@ -1135,13 +1193,6 @@ class Sampler:
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64, got "
                              f"{self.dtype}")
-        if (self.dtype != torch.float32
-                and settings.posterior_kernel == "pallas"):
-            warnings.warn(
-                "posterior_kernel='pallas' requested but the fused engine "
-                f"does not support: dtype={self.dtype} (the kernels compute "
-                "in float32) — using the sync engine", UserWarning)
-            settings = dataclasses.replace(settings, posterior_kernel="sync")
         self.device = torch.device(device)
         _refuse(settings.unsupported(model, self.device))
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -1170,6 +1221,13 @@ class Sampler:
                     and max_chains_per_launch < C):
                 warnings.warn(
                     "pooled flow adaptation with max_chains_per_launch "
+                    f"pools within each {max_chains_per_launch}-chain "
+                    "launch group only", UserWarning)
+            if settings.cross_chain_adaptation:
+                # each launch group pools its own chains (the JAX package
+                # pools inside one launch too, :1061-1071)
+                warnings.warn(
+                    "cross_chain_adaptation with max_chains_per_launch "
                     f"pools within each {max_chains_per_launch}-chain "
                     "launch group only", UserWarning)
         self.max_chains_per_launch = max_chains_per_launch
@@ -1744,13 +1802,14 @@ class Sampler:
         sampler's device)."""
         t = self._transfer
         return _schema(self.model, self.settings, t, self.device,
-                       self.dtype)
+                       self.dtype, self._phase_runners)
 
 
 def schema(model: Model, settings=None, *, dtype=None, keep_stats=None,
            draw_dtype=None, stats_dtype=None, store_warmup: bool = True):
     """Settings-level trace schema, without a sampler or a device
-    (``nuts_rs_tpu/sampler.py:2035-2180,2216-2245``): what is stored, the
+    (``nuts_rs_tpu/sampler.py:2035-2180,2216-2245``), equal to
+    ``Sampler(...).schema()`` at the same arguments: what is stored, the
     extra stores, the state's ``dtype``, the transfer knobs and the
     expansions applied.  The
     expansions are probed on the CPU, once, with zero positions [C, 1, d];
@@ -1758,8 +1817,15 @@ def schema(model: Model, settings=None, *, dtype=None, keep_stats=None,
     ``UserWarning``."""
     settings = settings or NutsSettings()
     transfer = _Transfer(keep_stats, draw_dtype, stats_dtype, store_warmup)
-    return _schema(model, settings, transfer, torch.device("cpu"),
-                   _torch_dtype(dtype or torch.float32))
+    # the sampler's plan on the CPU, as the JAX function builds a sampler's
+    # (its demotion warnings included): the stored phases' runners say in
+    # which type the trace holds the float stats
+    cpu = torch.device("cpu")
+    config = settings.chain_config()
+    phases = settings.build_phases(model.to(cpu), config, cpu,
+                                   strategy=_strategy_for(settings, config))
+    return _schema(model, settings, transfer, cpu,
+                   _torch_dtype(dtype or torch.float32), phases)
 
 
 def _probe_expansions(model: Model, settings, transfer: _Transfer,
@@ -1791,18 +1857,43 @@ def _probe_expansions(model: Model, settings, transfer: _Transfer,
     return out
 
 
+def _stored_float_dtype(name, settings, transfer: _Transfer, dtype,
+                        phases) -> np.dtype:
+    """The dtype in which the trace holds the float stat ``name``: the
+    state's, but where a stored phase's runner hands its float stats to
+    storage in float32 (``hands_float32``: the fused posteriors, a NUTS
+    one's ``step_size_bar`` aside, and the fused MCLMC warmup), the type
+    that the stored phases' chunks join to (``storage/memory.py``)."""
+    state = _numpy_dtype(dtype)
+    warm = bool(settings.num_tune) and transfer.store_warmup
+    tune = settings.num_tune
+    kinds = [np.dtype(np.float32)
+             if getattr(r, "hands_float32", False) and name != "step_size_bar"
+             else state
+             for lo, hi, r in phases
+             if (warm and lo < tune) or hi > tune]
+    return np.result_type(*kinds) if kinds else state
+
+
 def _schema(model: Model, settings, transfer: _Transfer, probe_device,
-            dtype=torch.float32):
+            dtype, phases):
+    """The schema of :meth:`Sampler.schema` and :func:`schema`; ``phases``
+    is the sampler's plan."""
     dtypes = {n: (dt, n == "position")
               for n, dt in _STAT_DTYPES[settings.sampler_name].items()}
-    dtypes.update(_extra_stat_dtypes(settings))
-    # the float stats come out in the state's dtype
-    dtypes = {n: (_numpy_dtype(dtype) if dt is np.float32 else dt, vec)
+    dtypes.update(_extra_stat_dtypes(settings, model.dim))
+    dtypes = {n: (_stored_float_dtype(n, settings, transfer, dtype, phases)
+                  if dt is np.float32 else dt, vec)
               for n, (dt, vec) in dtypes.items()}
     if not (settings.num_tune or settings.num_draws):
         dtypes = {}
+
+    def tail(vec):
+        return vec if isinstance(vec, tuple) else (
+            (model.dim,) if vec else ())
+
     every = transfer.entries({
-        n: {"dtype": np.dtype(dt), "shape": (model.dim,) if vec else ()}
+        n: {"dtype": np.dtype(dt), "shape": tail(vec)}
         for n, (dt, vec) in dtypes.items()})
     expanded = _probe_expansions(model, settings, transfer, probe_device,
                                  dtype)

@@ -10,7 +10,8 @@ ArviZ-style groups: ``posterior``, ``sample_stats``, ``warmup_posterior``,
 (a phase that stored no draw, as with ``store_warmup=False``, holds arrays
 of no draws, as the JAX package's) — plus compacted sparse event streams
 (divergences, transformation updates, with the transform at each update
-where ``store_mass_matrix`` stored it).  The model's expansions are stored
+where ``store_mass_matrix`` stored it and a low-rank transform's
+eigenvalues where ``LowRankSettings.store_mass_matrix`` did).  The model's expansions are stored
 beside the positions, in the two posterior groups
 (``nuts_rs_tpu/storage/memory.py:46-133``); :meth:`MemoryStorage.inspect`
 assembles what was recorded so far without finalizing.
@@ -82,9 +83,13 @@ class MemoryStorage(TraceStorage):
 
         def part(chunks, name, want_tuning):
             """One group's array: the chunks' draws of that phase, joined
-            once.  A chunk that lies wholly in the phase (every chunk does
-            when chunks end at the phase boundary) is joined as it is, so
-            the trace is the only copy made of a large posterior."""
+            once, in the type that every chunk's joins to (the JAX
+            package joins all draws before it splits the phases: a float64
+            warmup with float32 posterior chunks gives float64 groups).  A
+            chunk that lies wholly in the phase (every chunk does when
+            chunks end at the phase boundary) is joined as it is, so the
+            trace is the only copy made of a large posterior."""
+            dtype = np.result_type(*(c[name].dtype for c in chunks))
             pieces = []
             for chunk, t in zip(chunks, tuning):
                 keep = t if want_tuning else ~t
@@ -93,9 +98,10 @@ class MemoryStorage(TraceStorage):
                 elif keep.any():
                     pieces.append(chunk[name][:, keep])
             if not pieces:
-                first = chunks[0][name]
-                return first[:, :0]
-            return np.concatenate(pieces, axis=1)
+                return chunks[0][name][:, :0].astype(dtype)
+            if len(pieces) == 1:
+                return pieces[0].astype(dtype, copy=False)
+            return np.concatenate(pieces, axis=1, dtype=dtype)
 
         ids = (np.concatenate([c["transformation_index"]
                                for c in self._chunks], axis=1)
@@ -121,8 +127,10 @@ class MemoryStorage(TraceStorage):
                 prev = np.concatenate([[np.int64(-(10 ** 9))], ids[c][:-1]])
                 ev = np.nonzero(ids[c] != prev)[0]
                 rec = {"draw": ev, "transformation_update_id": ids[c][ev]}
-                # the transform at each update (store_mass_matrix)
-                for name in ("mass_matrix_inv", "transformation_mu"):
+                # the transform at each update (store_mass_matrix) and a
+                # low-rank one's eigenvalues (low_rank.rs:210-222)
+                for name in ("mass_matrix_inv", "transformation_mu",
+                             "mass_matrix_eigvals", "num_eigenvalues"):
                     if name in names:
                         rec[name] = np.concatenate(
                             [ch[name][c] for ch in self._chunks])[ev]

@@ -7,8 +7,8 @@ trait, src/transform/transformation.rs:12-71): the transform *state* is an
 :class:`FlowTransform` holding learned parameters, and the *operations* are
 a Python object chosen once:
 
-* ``AFFINE_OPS``: the diagonal affine map, whose logdet is a constant of
-  the transform.
+* ``AFFINE_OPS``: the diagonal or low-rank affine map, whose logdet is a
+  constant of the transform.
 * ``FlowOps(spec)``: a normalizing flow (``flows/coupling.py``): forward
   and inverse are batched PyTorch functions, the transformed gradient is
   the Jacobian transpose of the forward map by ``torch.autograd.grad``, and
@@ -105,7 +105,8 @@ def flow_vjp(spec: FlowSpec, params, z, g, create_graph=False):
 
 
 class AffineOps:
-    """Operations on :class:`AffineTransform` states."""
+    """Operations on :class:`AffineTransform` states, diagonal or low-rank
+    (``transform/affine.py`` carries the low-rank factors through)."""
 
     is_flow = False
 

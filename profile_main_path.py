@@ -209,6 +209,19 @@ After building the kernels it prints, for each path,
    busy share of the profiled wall and the device-to-host copies by kind
    (pinned or pageable) and stream.
 
+21. for the low-rank path (``--only-low-rank``: BASELINE config 2 whole,
+   ``correlated_normal_rank1(100)`` under ``LowRankNutsSettings`` with 64
+   chains, 800 + 1000 draws, a ``"pallas"`` request on the sync engine, as
+   in the JAX package, at ``--low-rank-dtype`` (float32 by default;
+   chip_smoke.py runs float64 with the posterior cut); no kernel is
+   built): Sampler construction, each chunk's seconds with its tree
+   iterations in lock step (the deepest tree of a draw, summed over its
+   draws) and their milliseconds, the refits (``LowRankStrategy.
+   adapt_update``: batched eigh / QR on the card) and the seconds of each,
+   the posterior's gradient evaluations a second, ``finalize`` and end to
+   end; then 20 draws at the tuned state under torch.profiler: the device's
+   busy share and its kernels an iteration.
+
 The card's name and power limit come first.  Every number is this run's.
 """
 
@@ -231,7 +244,8 @@ from chip_smoke import (
     BIG_CHAINS, BIG_ROWS, CHAINS, CHUNK, DIM, DRAWS, FLOW_CHAINS, FLOW_DIM,
     FLOW_FULL_CHAINS, FLOW_FULL_DRAWS, FLOW_FULL_TUNE, FLOW_TUNE, GLM_CHAINS,
     GLM_DIM, GLM_DRAWS, GLM_ROWS, GLM_TUNE, LD_CHAINS, LD_DIM, LD_DRAWS,
-    LD_STEP, LD_TUNE, MGLM_REFERENCE, MID_DIM, MSYNC_STORES, MU, PATH_SOURCES,
+    LD_STEP, LD_TUNE, LR_CHAINS, LR_DIM, LR_EIG, LR_FULL_DRAWS, LR_SCALE,
+    MGLM_REFERENCE, MID_DIM, MSYNC_STORES, MU, PATH_SOURCES,
     RADON_CHAINS,
     RADON_DRAWS, RADON_TUNE, SEED, SV_CHAINS, SV_DRAWS, SV_T, SV_TUNE, TUNE,
     card_line,
@@ -636,6 +650,125 @@ def mclmc_sync_path(device):
           f"{its / 20:.2f} a draw), device busy {busy_s:.3f} s "
           f"({100 * busy_s / wall_s:.1f}%) in {len(dev)} kernels and copies "
           f"({len(dev) / its:.0f} a loop iteration)")
+    per_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in dev:
+        entry = per_name[e.name[:60]]
+        entry[0] += 1
+        entry[1] += e.time_range.elapsed_us() * 1e-6
+    for name, (n, sec_) in sorted(per_name.items(),
+                                  key=lambda kv: -kv[1][1])[:6]:
+        print(f"  device {sec_ * 1e3:.3f} ms in {n} launches: {name}")
+
+
+def low_rank_path(device, dtype=torch.float32):
+    """Item 21: BASELINE config 2 whole on the sync engine at ``dtype``, its
+    refits timed one by one, then 20 draws under torch.profiler."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nuts_rs_tpu_torch import LowRankNutsSettings, LowRankSettings, Sampler
+    from nuts_rs_tpu_torch.adapt.low_rank import LowRankStrategy
+    from nuts_rs_tpu_torch.models.gaussian import correlated_normal_rank1
+
+    def sync():
+        torch.cuda.synchronize(device)
+
+    settings = LowRankNutsSettings(
+        num_chains=LR_CHAINS, num_draws=LR_FULL_DRAWS, seed=SEED,
+        posterior_kernel="pallas",
+        low_rank=LowRankSettings(store_mass_matrix=True))
+    refits = []
+    adapt0 = LowRankStrategy.adapt_update
+
+    def timed(self, state):
+        sync()
+        t = time.perf_counter()
+        out = adapt0(self, state)
+        sync()
+        refits.append(time.perf_counter() - t)
+        return out
+
+    print(f"== low-rank path: correlated_normal_rank1({LR_DIM}, {LR_SCALE}, "
+          f"{LR_EIG}), {LR_CHAINS} chains, {settings.num_tune} + "
+          f"{LR_FULL_DRAWS} draws, {dtype}")
+    LowRankStrategy.adapt_update = timed
+    try:
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the JAX package's demotion
+            # chunks of 100 end at the warmup's end (one sync phase runs
+            # both)
+            sampler = Sampler(correlated_normal_rank1(LR_DIM, LR_SCALE,
+                                                      LR_EIG).to(device),
+                              settings, device=device, chunk_size=100,
+                              dtype=dtype)
+        sync()
+        print(f"Sampler construction (init points, init search): "
+              f"{time.perf_counter() - t0:.3f} s")
+        warm_s = post_s = 0.0
+        warm_its = post_its = post_grads = 0
+        tuned = None
+        while not sampler.finished:
+            if sampler._next_draw == settings.num_tune:
+                tuned = sampler.state
+            n_refits = len(refits)
+            t = time.perf_counter()
+            lo, stats, tuning = sampler.run_next_chunk()
+            sync()
+            sec = time.perf_counter() - t
+            steps = stats["n_steps"]
+            its = int(steps.max(0).sum())  # the draws wait for the deepest
+            mine = refits[n_refits:]
+            if tuning.all():
+                warm_s, warm_its = warm_s + sec, warm_its + its
+            else:
+                post_s, post_its = post_s + sec, post_its + its
+                post_grads += int(steps.sum())
+            print(f"  draws {lo}-{lo + steps.shape[1]}: {sec:.3f} s, {its} "
+                  f"tree iterations in lock step "
+                  f"({its / steps.shape[1]:.2f} a draw, "
+                  f"{1e3 * (sec - sum(mine)) / max(its, 1):.3f} ms each "
+                  f"without the refits), {len(mine)} refits "
+                  f"{sum(mine):.3f} s, leapfrogs a draw and chain "
+                  f"{float(steps.mean()):.2f}, the most a chain "
+                  f"{float(steps.mean(1).max()):.2f}, divergences "
+                  f"{int(stats['diverging'].sum())}", flush=True)
+        t = time.perf_counter()
+        sampler.trace.finalize()
+        fin_s = time.perf_counter() - t
+    finally:
+        LowRankStrategy.adapt_update = adapt0
+    print(f"warmup {warm_s:.3f} s ({warm_its} tree iterations), posterior "
+          f"{post_s:.3f} s ({post_its} tree iterations, "
+          f"{1e3 * post_s / max(post_its, 1):.3f} ms each), "
+          f"{post_grads / post_s:.6g} posterior gradient evaluations/s, "
+          f"finalize {fin_s:.3f} s, end to end "
+          f"{time.perf_counter() - t0:.3f} s")
+    print(f"{len(refits)} refits, {sum(refits):.3f} s in all: "
+          + ", ".join(f"{r * 1e3:.1f}" for r in refits) + " ms")
+    runner = sampler._phase_runners[-1][2]
+    flags = {name: np.zeros(20, bool) for name in (
+        "is_tuning", "update_estimators", "do_switch", "do_update",
+        "use_late_estimator", "reinit_step_size", "use_best_guess",
+        "advance_da")}
+    runner(tuned, flags)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        _, stats = runner(tuned, flags)
+        sync()
+        wall_s = time.perf_counter() - t
+    its = int(stats["n_steps"].max(1).values.sum())
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.time_range.elapsed_us() for e in dev) * 1e-6
+    print(f"20 draws at the tuned state under torch.profiler: wall "
+          f"{wall_s:.3f} s ({its} tree iterations, "
+          f"{1e3 * wall_s / its:.3f} ms each), device busy {busy_s:.3f} s "
+          f"({100 * busy_s / wall_s:.1f}%) in {len(dev)} kernels and copies "
+          f"({len(dev) / its:.0f} a tree iteration)")
     per_name = collections.defaultdict(lambda: [0, 0.0])
     for e in dev:
         entry = per_name[e.name[:60]]
@@ -2425,6 +2558,11 @@ def main() -> int:
                         help="the streamed-data path alone, item 8")
     parser.add_argument("--only-zoo", action="store_true",
                         help="the SV and radon paths alone, item 9")
+    parser.add_argument("--only-low-rank", action="store_true",
+                        help="item 21 alone: BASELINE config 2 whole")
+    parser.add_argument("--low-rank-dtype", default="float32",
+                        choices=("float32", "float64"),
+                        help="item 21's state dtype")
     parser.add_argument("--only-mclmc-sync", action="store_true",
                         help="the sync MCLMC path alone, item 19")
     parser.add_argument("--only-flow", action="store_true",
@@ -2512,6 +2650,10 @@ def main() -> int:
         return 0
     if args.only_mclmc_sync:
         mclmc_sync_path(device)
+        print(card_line())
+        return 0
+    if args.only_low_rank:
+        low_rank_path(device, getattr(torch, args.low_rank_dtype))
         print(card_line())
         return 0
     if args.only_stream:

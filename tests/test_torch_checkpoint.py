@@ -3,8 +3,10 @@ the CPU: a sampler built afresh with the same settings that restores a
 checkpoint taken mid-warmup or mid-posterior and runs to the end gives
 every stored draw and stat of an uninterrupted run bit for bit, on the
 fused NUTS engine's plain versions, the sync NUTS engine, the sync and
-fused MCLMC engines and a learned flow (``FlowNutsSettings``: the sync
-warmup with the flow's refits, then K1-flow's plain version).  The draw
+fused MCLMC engines, a learned flow (``FlowNutsSettings``: the sync
+warmup with the flow's refits, then K1-flow's plain version), a low-rank
+mass matrix (``LowRankNutsSettings``, its window partly full at the
+warmup's checkpoint) and cross-chain adaptation.  The draw
 index is the whole random state: every seed comes from the counter hash of
 (base seed, draw index, purpose).  A checkpoint of other settings raises
 ``ValueError``; the file holds the JAX package's keys."""
@@ -46,6 +48,13 @@ def _settings(engine, seed=3):
     if engine == "flow":
         return tnt.FlowNutsSettings(posterior_kernel="pallas",
                                     flow_spec=_flow(), **base)
+    if engine == "low_rank":
+        # refits every 10 draws, so one lies on each side of draw 13
+        return tnt.LowRankNutsSettings(
+            adapt=tnt.AdaptScheduleOptions(mass_matrix_update_freq=10),
+            **base)
+    if engine == "cross_chain":
+        return tnt.DiagNutsSettings(cross_chain_adaptation=True, **base)
     raise ValueError(engine)
 
 
@@ -66,7 +75,8 @@ def _tail(trace, start):
 
 @pytest.mark.parametrize("at", ["warmup", "posterior"])
 @pytest.mark.parametrize("engine", ["nuts_fused", "nuts_sync", "mclmc_sync",
-                                    "mclmc_fused", "flow"])
+                                    "mclmc_fused", "flow", "low_rank",
+                                    "cross_chain"])
 def test_restored_run_equals_the_uninterrupted_one(engine, at, tmp_path):
     full = _sampler(engine).run()
     stop = 13 if at == "warmup" else TUNE + 5
@@ -95,6 +105,13 @@ def test_restored_run_equals_the_uninterrupted_one(engine, at, tmp_path):
         # the warmup (draws 10 and 20)
         ids = full.warmup_sample_stats["transformation_index"]
         assert ids[:, 12].min() == 1 and ids[:, 25].min() == 2
+    if engine == "low_rank" and at == "warmup":
+        # the window was partly full at the checkpoint, and a refit came
+        # after it
+        w = a.state.extra
+        assert 0 < int(w.write_pos.min()) and int(w.write_pos.max()) < TUNE
+        ids = full.warmup_sample_stats["transformation_index"]
+        assert (ids[:, -1] > ids[:, boundary - 1]).all()
 
 
 def test_other_settings_raise_value_error(tmp_path):

@@ -1512,3 +1512,216 @@ def test_the_copy_stream_takes_no_buffer_while_its_copy_is_in_flight():
         for name, arr in getattr(want, group).items():
             np.testing.assert_array_equal(getattr(trace, group)[name], arr,
                                           err_msg=f"{group}/{name}")
+
+
+def _float32_state(state):
+    from nuts_rs_tpu_torch.checkpoint import rebuild_state, state_leaves
+
+    return rebuild_state(state, [
+        x.float() if torch.is_tensor(x) and x.is_floating_point() else x
+        for x in state_leaves(state)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["nuts", "mclmc"])
+@pytest.mark.parametrize("phase", ["warmup", "posterior"])
+def test_fused_runners_on_a_float64_state_are_the_float32_ones(sampler,
+                                                              phase):
+    """Fault D's repair: a fused runner launches float32 copies of a
+    float64 state's operands, so its draws and stats are those of the same
+    runner on that state cast to float32, bit for bit (the warmup's float
+    stats come back in float64, exactly).  The posterior launches at the
+    phase's start, whose step is the state's, and NUTS's with a fixed step
+    size, whose ``step_size_bar`` is a constant: an adapted bar or a
+    continuation's jitter is host arithmetic in the state's dtype, which
+    rounds otherwise in float32 (as in the JAX runners)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    import nuts_rs_tpu_torch as tnt
+    from nuts_rs_tpu_torch.sampler import _schedule_chunk
+
+    dev = torch.device("cuda", 0)
+    make = (tnt.DiagNutsSettings if sampler == "nuts"
+            else tnt.DiagMclmcSettings)
+    kw = dict(num_chains=256, num_tune=100, num_draws=64, seed=3,
+              posterior_kernel="pallas")
+    if sampler == "nuts" and phase == "posterior":
+        kw["step_size"] = tnt.StepSizeSettings(
+            method=tnt.StepSizeMethod.FIXED, fixed_value=0.3)
+    settings = make(**kw)
+    s = tnt.Sampler(tg.normal_logp(10, 3.0), settings, device=dev,
+                    dtype=torch.float64)
+    lo, hi, runner = (s._phase_runners[0] if phase == "warmup"
+                      else s._phase_runners[-1])
+    assert "fused" in runner.__qualname__
+    hi = min(hi, lo + 16)
+    if phase == "warmup" and sampler == "nuts":
+        # a chunk that ends before the re-init search (host arithmetic in
+        # the state's dtype after the launch)
+        reinit = np.nonzero(s.schedule.reinit_step_size)[0]
+        hi = min(hi, int(reinit[0]))
+    flags = settings.extra_flags(_schedule_chunk(s.schedule, lo, hi), lo, hi)
+    state64 = s.state._replace(draw_idx=lo)
+    new64, stats64 = runner(state64, flags)
+    new32, stats32 = runner(_float32_state(state64), flags)
+    assert new64.pt.q.dtype == torch.float64
+    assert set(stats64) == set(stats32)
+    for name, v in stats32.items():
+        got = stats64[name]
+        if name == "step_size_bar" and phase == "posterior":
+            got = got.float()  # the state's bars, float32 at launch
+        elif phase == "warmup" and sampler == "nuts" \
+                and v.is_floating_point():
+            assert got.dtype == torch.float64
+            got = got.float()
+        assert got.dtype == v.dtype, name
+        assert torch.equal(got, v), name
+    assert torch.equal(new64.pt.q.float(), new32.pt.q)
+    assert (stats32["n_steps"] > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pooled", [False, True])
+def test_low_rank_refit_on_the_card_matches_the_cpu(pooled):
+    """The low-rank refit (batched eigh / QR on the card) against the same
+    refit on the CPU from one window at float32: the transform's dense
+    matrix dq/dz within 1e-4 relative (eigenvector signs and the order of
+    equal eigenvalues are each library's own)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from nuts_rs_tpu_torch.adapt import low_rank as tlr
+    from nuts_rs_tpu_torch.transform import affine as taff
+
+    rng = np.random.default_rng(0)
+    C, cap, d = 8, 64, 12
+    u = rng.normal(size=d)
+    u /= np.linalg.norm(u)
+    cov = 1.5 * (np.eye(d) + 49.0 * np.outer(u, u))
+    x = rng.multivariate_normal(np.zeros(d), cov, size=(C, cap))
+    g = -x @ np.linalg.inv(cov)
+
+    def refit(device):
+        w = tlr.LowRankWindow(
+            draws=torch.tensor(x, dtype=torch.float32, device=device),
+            grads=torch.tensor(g, dtype=torch.float32, device=device),
+            write_pos=torch.full((C,), cap, dtype=torch.int32, device=device),
+            start=torch.full((C,), 8, dtype=torch.int32, device=device),
+            bg_start=torch.full((C,), cap, dtype=torch.int32, device=device))
+        t = taff.identity_transform(C, d, torch.float32, device, rank=d)
+        fn = tlr.pooled_compute_update if pooled else tlr.compute_update
+        t = fn(w, t, 1e-5, 2.0)
+        z0 = torch.zeros(C, d, dtype=torch.float32, device=device)
+        q0 = taff.to_untransformed(t, z0)
+        eye = torch.eye(d, dtype=torch.float32, device=device)
+        dense = torch.stack([taff.to_untransformed(t, z0 + eye[j]) - q0
+                             for j in range(d)], -1)
+        return t, dense.cpu().numpy(), q0.cpu().numpy()
+
+    t_gpu, dense_gpu, off_gpu = refit(torch.device("cuda", 0))
+    t_cpu, dense_cpu, off_cpu = refit("cpu")
+    assert t_gpu.id.cpu().tolist() == t_cpu.id.tolist() == [0] * C
+    scale = np.abs(dense_cpu).max()
+    np.testing.assert_allclose(dense_gpu, dense_cpu, rtol=1e-4,
+                               atol=1e-4 * scale)
+    np.testing.assert_allclose(off_gpu, off_cpu, rtol=1e-4,
+                               atol=1e-4 * np.abs(off_cpu).max())
+    np.testing.assert_allclose(t_gpu.logdet.cpu().numpy(),
+                               t_cpu.logdet.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_a_low_rank_checkpoint_restores_on_the_card_and_the_cpu(tmp_path):
+    """A low-rank run checkpointed mid-warmup, its window partly full,
+    restores on the card bit for bit (every stored draw and stat of the
+    uninterrupted run) and, into a sampler on the CPU, to the same state
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import nuts_rs_tpu_torch as tnt
+    from nuts_rs_tpu_torch.checkpoint import state_leaves
+
+    dev = torch.device("cuda", 0)
+    settings = tnt.LowRankNutsSettings(
+        num_chains=16, num_tune=60, num_draws=20, seed=2,
+        adapt=tnt.AdaptScheduleOptions(mass_matrix_update_freq=10))
+    model = tg.correlated_normal_rank1(12)
+
+    def sampler(device):
+        return tnt.Sampler(model, settings, chunk_size=8, device=device)
+
+    full = sampler(dev).run()
+    a = sampler(dev)
+    while a._next_draw < 25:
+        a.run_next_chunk()
+    boundary = a._next_draw
+    w = a.state.extra
+    assert 0 < int(w.write_pos.min()) and int(w.write_pos.max()) < 60
+    path = str(tmp_path / "low_rank.npz")
+    a.checkpoint(path)
+    b = sampler(dev)
+    b.restore(path)
+    got = b.run()
+    for group in ("warmup_posterior", "warmup_sample_stats"):
+        for name, v in getattr(full, group).items():
+            np.testing.assert_array_equal(getattr(got, group)[name],
+                                          v[:, boundary:], err_msg=name)
+    for group in ("posterior", "sample_stats"):
+        for name, v in getattr(full, group).items():
+            np.testing.assert_array_equal(getattr(got, group)[name], v,
+                                          err_msg=name)
+    c = sampler("cpu")
+    c.restore(path)
+    for x, y in zip(state_leaves(c.state), state_leaves(a.state)):
+        if torch.is_tensor(y):
+            assert x.device.type == "cpu" and torch.equal(x, y.cpu())
+        else:
+            assert x == y
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["diag", "low_rank", "exact_normal",
+                                  "stream", "cross_chain"])
+def test_sync_engine_graphs_give_the_eager_bits(case, monkeypatch):
+    """The sync NUTS engine's tree iteration replayed as one CUDA graph
+    (``kernels/nuts.py::_GraphedTree``) gives the eager run's trace bit for
+    bit: the same kernels on the same inputs.  The cases: the NUTS main
+    model, a low-rank transform, the exact-normal kinetic energy, the
+    streamed-data path's model at its shapes (131072 rows, d = 100, 256
+    chains) and pooled cross-chain adaptation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import nuts_rs_tpu_torch as tnt
+    from nuts_rs_tpu_torch.kernels import nuts as knuts
+
+    dev = torch.device("cuda", 0)
+    kw = dict(num_chains=64, num_tune=60, num_draws=40, seed=1)
+    model, dtype = tg.normal_logp(10, 3.0), torch.float32
+    if case == "diag":
+        settings = tnt.DiagNutsSettings(**kw)
+    elif case == "exact_normal":
+        settings = tnt.DiagNutsSettings(
+            kinetic_energy=tnt.KineticKind.EXACT_NORMAL, **kw)
+    elif case == "stream":
+        model = tg.logistic_regression(131072, 100, 0).to(dev)
+        settings = tnt.DiagNutsSettings(num_chains=256, num_tune=20,
+                                        num_draws=5, seed=1)
+    elif case == "cross_chain":
+        settings = tnt.DiagNutsSettings(cross_chain_adaptation=True, **kw)
+    else:
+        model, dtype = tg.correlated_normal_rank1(12, eig=20.0), torch.float64
+        settings = tnt.LowRankNutsSettings(
+            adapt=tnt.AdaptScheduleOptions(mass_matrix_update_freq=10), **kw)
+    graphed = knuts._graphable
+    traces = {}
+    for on in (True, False):
+        monkeypatch.setattr(knuts, "_graphable",
+                            graphed if on else lambda *a: False)
+        traces[on] = tnt.sample(model, settings, device=dev, dtype=dtype)
+    assert (traces[True].warmup_sample_stats["n_steps"] > 1).any()
+    for group in ("posterior", "sample_stats", "warmup_posterior",
+                  "warmup_sample_stats"):
+        want = getattr(traces[False], group)
+        got = getattr(traces[True], group)
+        assert set(got) == set(want)
+        for name, v in want.items():
+            np.testing.assert_array_equal(got[name], v, err_msg=name)

@@ -310,7 +310,9 @@ def test_float32_draws_are_close_to_float64_ones():
     step = torch.full((C,), 0.4, dtype=F64)
     opts = tnuts.NutsOptions(maxdepth=6)
     a_pt, a = tnuts.nuts_draw(5, pt, transform, step, logp_grad, opts)
-    f = lambda x: x.float() if x.is_floating_point() else x  # noqa: E731
+    # (a diagonal transform's low-rank fields are None)
+    f = lambda x: x.float() if x is not None and x.is_floating_point() \
+        else x  # noqa: E731
     pt32 = type(pt)(*(f(x) for x in pt))
     t32 = type(transform)(*(f(x) for x in transform))
 
@@ -471,7 +473,7 @@ def _fake_nuts_draws(dim, C, always_good=False):
         return draw, info
 
     def t_nuts_draw(seed, pt, transform, step_size, logp_grad, opts,
-                    ops=None):
+                    ops=None, graphs=None):
         q, logp, g, n, acc, idx = _fake_draw_torch(pt, step_size, logp_grad)
         z, zg = (q - transform.mean) * transform.inv_stds, g * transform.stds
         draw = pt._replace(q=q, g=g, z=z, zg=zg, logp=logp)

@@ -171,8 +171,7 @@ def _no_hook(dim):
 @pytest.mark.parametrize("change,item", [
     (dict(posterior_kernel="async"), "item 16"),
     (dict(posterior_kernel="sync", async_posterior=True), "item 16"),
-    (dict(mass_matrix="low_rank"), "item 14"),
-    (dict(cross_chain_adaptation=True), "item 17"),
+    (dict(mesh_axis_name="chains"), "item 17b"),
     ("cuda_maxdepth", "item 12"),
     ("cuda_ld_dim", "item 12"),
     ("cuda_ld_data_smem", "item 12"),
@@ -271,6 +270,8 @@ def test_ld_tier_without_data_is_the_jax_runners(dim, warmup, fits):
           posterior_kernel="sync"), False),
     (dict(store_gradient=True), True),
     ("no_hook", True),
+    (dict(mass_matrix="low_rank"), True),
+    (dict(cross_chain_adaptation=True), True),
 ])
 def test_settings_that_used_to_raise_now_run(change, demoted):
     """What the sync engine (kernels/nuts.py), the streamed posterior kernel
@@ -279,7 +280,9 @@ def test_settings_that_used_to_raise_now_run(change, demoted):
     energy and the extra stores run on the sync engine, a ``"pallas"``
     request demoted with the JAX package's warning; a model without a
     kernel hook is demoted with the port's own warning, decided in
-    ``build_phases``."""
+    ``build_phases``.  The low-rank mass matrix and cross-chain adaptation
+    (queue 1 items 14 and 17a) run on the sync engine, a ``"pallas"``
+    request demoted with the JAX package's warning."""
     model = tg.normal_logp(3)
     kw = dict(posterior_kernel="pallas", num_chains=4, num_tune=6,
               num_draws=4)
