@@ -207,7 +207,9 @@ K1-flow's, K1-stream's, K1-ld-args', K2-ld-args', K1-args' and K2-args'
 with ``chunk_ms_made_up`` beside: a posterior kernel's own launch is its
 path's first posterior launch, a warmup kernel's the path's first full
 chunk of 128 warmup draws; the mid-d kernels' chains a CUDA block, G, and
-blocks an SM are printed with them).  The
+blocks an SM are printed with them; the block form of K4-args on the MCLMC
+data path's Euclidean launch, rows 0 .. the trajectory switch from the
+initial state, with its slowest chain's iterations).  The
 bound is the larger of the bytes the call must move (every input read once,
 every output written once) over 3.35 TB/s and its FP32 operations over 67
 TFLOP/s, the card's published peaks; operations are counted from the
@@ -749,7 +751,8 @@ def zero_launch_counts():
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
 
     for counts in (nf.LAUNCHES, mf.LAUNCHES, _build.MODEL_LAUNCHES,
-                   _build.FLOW_FORM_LAUNCHES):
+                   _build.FLOW_FORM_LAUNCHES,
+                   _build.MCLMC_BLOCK_FORM_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -1159,14 +1162,15 @@ def mclmc_warmup_setup(model, settings, device, lo, hi, kind, state=None):
 
 
 def check_mclmc_warmup(model, settings, device, name="K4", block=None,
-                       micro_state=None, euclid_state=None):
+                       micro_state=None, euclid_state=None, euclid_row=None):
     """K4 or, with ``name`` and maybe a logical chain block, the mid-d MCLMC
     warmup kernel, on schedule rows that hold a momentum resample, a window
     switch and mass-matrix updates: from draw 0 with the Euclidean kinetic
     energy, and across the trajectory switch with the microcanonical one
     (each from the initial state, or from ``euclid_state`` /
     ``micro_state``, see ``mclmc_warmup_setup``).  The row's times and bound
-    are those of the microcanonical rows."""
+    are those of the microcanonical rows; with ``euclid_row`` (a dict) the
+    Euclidean rows' own check row goes there too."""
     from nuts_rs_tpu_torch import MclmcTrajectoryKind as Kind
     from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
     from nuts_rs_tpu_torch.kernels import nuts_fused as nf
@@ -1192,6 +1196,9 @@ def check_mclmc_warmup(model, settings, device, name="K4", block=None,
             mf.WARMUP_STAT_NAMES,
             MCLMC_INT_STATS + ("transformation_index",))
         n, err = n + n_i, max(err, err_i)
+        if kind is Kind.EUCLIDEAN and euclid_row is not None:
+            euclid_row.update(check_row("mclmc", model, args[1:10], out_k,
+                                        err_i, ms, plain_ms))
         rows.append(f"{lo}..{hi - 1} {kind.value}" + (
             " from a post-warmup-like state" if state is not None else ""))
     chains = settings.num_chains
@@ -1331,7 +1338,8 @@ KERNELS = (
     # K3-args and K4-args: the regression's microcanonical draws in their
     # group form (the path's posterior and microcanonical warmup launches),
     # every other launch of theirs in mclmc_fused_mid_*.cu
-    # (_build.MCLMC_MID_FORMS); one count for both forms
+    # (_build.MCLMC_MID_FORMS, the block form; its rows below); one count
+    # for both forms
     ("mclmc_fused_mid_posterior", "mclmc_fused_group_posterior.cu",
      "nuts_rs_tpu/kernels/mclmc_pallas.py:61"),
     ("mclmc_fused_mid_warmup", "mclmc_fused_group_warmup.cu",
@@ -1362,6 +1370,12 @@ KERNELS = (
     # mid posterior count of that path
     ("mclmc_fused_mid_block_posterior", "mclmc_fused_mid_posterior.cu",
      "nuts_rs_tpu/kernels/mclmc_pallas.py:61"),
+    # K4-args in its block form (the pair form: one chain on two CUDA
+    # blocks, the regression's rows in their shared memory), the MCLMC data
+    # path's Euclidean launch; its launches are that path's block-form
+    # warmup launches
+    ("mclmc_fused_mid_block_warmup", "mclmc_fused_mid_warmup.cu",
+     "nuts_rs_tpu/kernels/mclmc_pallas.py:506"),
 )
 
 
@@ -2371,6 +2385,9 @@ def path_mclmc_data(device, checks, launches, times):
     checks["mclmc_fused_mid_posterior"] = check_mclmc_posterior(
         glm, mglm_settings, device, name="K3-args",
         state=glm_posterior_inputs(glm, device, mref_mean, mref_std))
+    # the Euclidean rows in the block form's pair (its own row), the
+    # microcanonical ones in the group form
+    euclid_row = {}
     checks["mclmc_fused_mid_warmup"] = check_mclmc_warmup(
         glm, mglm_settings, device, name="K4-args",
         micro_state=glm_posterior_inputs(glm, device, mref_mean, mref_std,
@@ -2378,7 +2395,8 @@ def path_mclmc_data(device, checks, launches, times):
         # the Euclidean rows too: from the initial state their plain version
         # took 45-65 s of the script (hundreds of halving iterations)
         euclid_state=glm_posterior_inputs(glm, device, mref_mean, mref_std,
-                                          seed=4))
+                                          seed=4), euclid_row=euclid_row)
+    checks["mclmc_fused_mid_block_warmup"] = euclid_row
     # the same kernels without data, on N(3, 1) at d=100, in logical blocks
     # of 8 chains (clusters; the path runs chains alone)
     mmid_settings = DiagMclmcSettings(
@@ -2392,9 +2410,62 @@ def path_mclmc_data(device, checks, launches, times):
                        block=8)
     launches.update(mclmc_glm_main_path(glm, mglm_settings, device, mref_mean,
                                         mref_std))
+    launches["mclmc_fused_mid_block_warmup"] = block_warmup_launches(
+        "the MCLMC data path", "pair")
     times.update(time_mclmc_kernels(
         glm, mglm_settings, device,
         state=glm_posterior_inputs(glm, device, mref_mean, mref_std, seed=2)))
+    times["mclmc_fused_mid_block_warmup"] = time_euclidean_launch(
+        glm, mglm_settings, device)
+
+
+def block_warmup_launches(what, form):
+    """The block-form MCLMC warmup kernel's launches on a path that just ran
+    (``_build.MCLMC_BLOCK_FORM_LAUNCHES``): every one in ``form``, at least
+    one."""
+    from nuts_rs_tpu_torch.kernels import _build
+
+    counts = {k.split()[1]: n for k, n in
+              _build.MCLMC_BLOCK_FORM_LAUNCHES.items()
+              if k.startswith("warmup") and n}
+    if set(counts) != {form}:
+        raise AssertionError(f"{what}: block-form warmup launches {counts}, "
+                             f"not all in the {form} form")
+    return counts[form]
+
+
+def time_euclidean_launch(model, settings, device):
+    """K4-args' Euclidean launch of the MCLMC data path on its own inputs
+    (rows 0 .. the trajectory switch from the sampler's initial state), in
+    the block form the rule gives it: (ms, bound_ms, bound_by), with the
+    slowest chain's iterations printed."""
+    from nuts_rs_tpu_torch import MclmcTrajectoryKind
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+
+    sw = settings.switch_draw
+    args = mclmc_warmup_setup(model, settings, device, 0, sw,
+                              MclmcTrajectoryKind.EUCLIDEAN)
+    box = []
+
+    def run():
+        out = mf.mclmc_fused_warmup_run(*args)
+        if not box:
+            box.append(out[9]["loop_iterations"])
+        return out
+
+    timed = chunk_time("mclmc", model, run, args[1:10], 9)
+    it = box[0].double()
+    form = _build.block_form_name(_build.mclmc_block_form(
+        model.dim, model, 1, args[11]))
+    print(f"time mclmc_fused_mid_block_warmup on the path's own Euclidean "
+          f"launch (rows 0..{sw - 1} from the initial state, "
+          f"C={settings.num_chains}, {form} form): {timed[0]:.4f} ms; "
+          f"iterations: slowest chain {int(it.max())}, mean "
+          f"{float(it.mean()):.1f}: {1e3 * timed[0] / float(it.max()):.3f} "
+          f"us an iteration of the slowest chain; bound {timed[1]:.5f} ms "
+          f"({timed[2]})")
+    return timed
 
 
 def fused_launches():
@@ -2501,11 +2572,16 @@ def path_mclmc_d400(device, checks, launches, times):
              if issubclass(w.category, UserWarning)]
     counts = fused_launches()
     post = counts.pop("mclmc_fused_mid_posterior")
+    block_form = _build.block_form_name(_build.mclmc_block_form(
+        M400_DIM, model, 1, mopts))
+    forms = {k: n for k, n in _build.MCLMC_BLOCK_FORM_LAUNCHES.items() if n}
     if noted:
         raise AssertionError(f"the d = 400 plan warned: {noted}")
-    if post < 1 or any(counts.values()) or form != "block":
+    if (post < 1 or any(counts.values()) or form != "block"
+            or forms != {f"posterior {block_form}": post}):
         raise AssertionError(f"d = 400 launches: mid posterior {post}, "
-                             f"others {counts}, form {form}")
+                             f"others {counts}, form {form}, block-form "
+                             f"launches {forms}")
     launches["mclmc_fused_mid_block_posterior"] = post
     st = trace.sample_stats
     mean_err, std_err = glm_moment_errors(trace, settings, M400_DIM,
@@ -2513,8 +2589,8 @@ def path_mclmc_d400(device, checks, launches, times):
     n_div = int(st["diverging"].sum())
     print(f"MCLMC d=400 path: chains={M400_CHAINS} tune={M400_TUNE} "
           f"draws={M400_DRAWS}: sync warmup {warm_s:.3f} s (with set-up), "
-          f"total {total_s:.3f} s, {post} launches of K3's {form} form, no "
-          "fused warmup launch, no warning")
+          f"total {total_s:.3f} s, {post} launches of K3's {form} form "
+          f"({block_form}), no fused warmup launch, no warning")
     print(f"MCLMC d=400 posterior: max |mean - reference| {mean_err:.4f} "
           f"posterior std (gate {GLM_MEAN_TOL}; the reference's Monte-Carlo "
           f"error {ref['max_mc_error_of_mean_in_std']:.4f}), max |std / "

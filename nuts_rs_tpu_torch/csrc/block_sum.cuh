@@ -18,6 +18,30 @@ constexpr int LD_T = 256;        // threads per chain; ops.py::TSUM_THREADS
 constexpr int LD_W = LD_T / 32;  // warps per chain
 constexpr int LD_NRED = 11;      // most sums of one Reducer::sum call
 
+// NRT_MCLMC_CLOCKS, a build-time switch for timing ablations only
+// (profile_main_path.py item 22; it changes no result): thread 0 of the
+// launch's first CUDA block adds the SM cycles of each phase of the
+// block-form MCLMC iteration (mclmc_step_block.cuh: 0 the refresh, 1 the
+// model, 2 the step's other sums and check, 3 the success part; in the
+// pair's evaluation 4 the first product, 5 the second, 6 the block's
+// barrier, 7 the exchange) to nrt_mc_clocks, and its iterations to
+// nrt_mc_clocks[8]; nrt_mclmc_block_clocks() reads them.
+#ifdef NRT_MCLMC_CLOCKS
+__device__ unsigned long long nrt_mc_clocks[9];
+__device__ __forceinline__ void mc_mark(int k) {
+  __shared__ long long last;
+  if (threadIdx.x == 0 && blockIdx.x == 0) {
+    const long long now = clock64();
+    if (k >= 0) atomicAdd(&nrt_mc_clocks[k], (unsigned long long)(now - last));
+    if (k == -1) atomicAdd(&nrt_mc_clocks[8], 1ull);
+    last = now;
+  }
+}
+#define MC_MARK(k) mc_mark(k)
+#else
+#define MC_MARK(k)
+#endif
+
 // Accumulate one term into a thread's partial: the first term starts the
 // sum, as tsum starts from the first row.
 __device__ __forceinline__ void acc(float& s, int i, float term) {
@@ -176,6 +200,64 @@ struct Reducer {
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < N; ++k) v[k] = halve_warps(buf + k * LD_W);
+  }
+};
+
+// Reducer::sum for a chain on T = 128 or 256 threads (the block-form MCLMC
+// kernels, mclmc_step_block.cuh): thread t holds the S = LD_T / T slots
+// t + T s of tsum's LD_T, so warp u holds the slot warps u + W s (W = T / 32
+// warps).  Each slot's partial is butterflied by warp_sum; the thread adds
+// its S warp sums as halve() pairs them (slot warps w and w + 4 at S = 2);
+// the W results of the warps go through shared memory and one barrier of
+// the T threads and are halved in turn.
+// So every sum is halve()'s tree over the same 8 warp sums: the bits of
+// Reducer::sum, which T = 256 calls as it is (r, shared with the model's
+// eval_block).  Scratch and parity are r's; flip is the pair form's
+// exchange buffer (LogisticRegression::eval_pair).
+template <int T>
+struct TeamReducer {
+  static_assert(T == 128 || T == LD_T, "T: 128 or 256");
+  static constexpr int S = LD_T / T;  // slots a thread
+  static constexpr int W = T / 32;    // warps of the chain
+  Reducer r;
+  int flip;
+
+  template <int N>
+  __device__ __forceinline__ void sum(float (&v)[S][N], float (&out)[N]) {
+    static_assert(N <= LD_NRED, "scratch too small");
+    if constexpr (S == 1) {
+#pragma unroll
+      for (int k = 0; k < N; ++k) out[k] = v[0][k];
+      r.sum(out);
+    } else {
+      float* buf = r.scratch + r.parity * (LD_NRED * LD_W);
+      r.parity ^= 1;
+      const int lane = threadIdx.x & 31;
+      const int warp = threadIdx.x >> 5;
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        float p[S];
+#pragma unroll
+        for (int s = 0; s < S; ++s) p[s] = warp_sum(v[s][k]);
+#pragma unroll
+        for (int h = S / 2; h > 0; h >>= 1)
+#pragma unroll
+          for (int s = 0; s < h; ++s) p[s] = p[s] + p[s + h];
+        if (lane == 0) buf[k * LD_W + warp] = p[0];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        float p[W];
+#pragma unroll
+        for (int w = 0; w < W; ++w) p[w] = buf[k * LD_W + w];
+#pragma unroll
+        for (int h = W / 2; h > 0; h >>= 1)
+#pragma unroll
+          for (int w = 0; w < h; ++w) p[w] = p[w] + p[w + h];
+        out[k] = p[0];
+      }
+    }
   }
 };
 

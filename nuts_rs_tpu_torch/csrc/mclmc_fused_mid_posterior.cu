@@ -23,19 +23,34 @@
 // iid normal at d = 100) that latency is all there is.  Neither device
 // memory nor FP32 peak comes near: a chain block reads its state once and
 // writes d floats a draw.  On an NVIDIA H100 80GB HBM3 at 700 W, d = 100,
-// N = 1000: 28.9 us an iteration with the regression, 3.9 us without.
+// N = 1000: 28.9 us an iteration with the regression, 3.9 us without, in
+// the 256-thread form (the pair form's in PERF.md section 6).
 //
-// What the design does about it: one CUDA block of LD_T = 256 threads per
-// chain, thread t owning coordinates t, t + 256, ... of the 15 live vectors
-// in dynamic shared memory (6 KB at d = 100, plus the functor's N + 8 d
-// floats); no checkpoint stacks, so no global workspace.  ptxas keeps the
-// kernels with data at 128 registers and those without at 64-80, so two
-// (four) chain blocks share an SM and one chain's barriers and loads overlap
-// another's: two blocks an SM run 1.8 times the evaluations a second of one.
-// Scalars and the 10-deep halving stack are per thread and uniform across the
-// block.  Draws are written coalesced along d, [K, C, d], so the trace needs
-// no transpose.  Every sum takes ops.tsum's order through Reducer::sum, the
-// regression's as models.cuh fixes them; no atomics.
+// What the design does about it: a chain's trajectory on the 256 threads of
+// one CUDA block (mclmc_step_block.cuh::mc_block_form), thread t owning
+// coordinates t, t + 256, ... of the 15 live vectors in dynamic shared
+// memory (6 KB at d = 100, plus the functor's N + 8 d floats); no
+// checkpoint stacks, so no global workspace.  (128 and 64 threads a chain,
+// each thread holding slots t + T s of tsum's 256, lost to 256 at d = 400:
+// PERF.md section 6.)  For the regression under the Euclidean dynamics at
+// B = 1, where its rows fit two blocks' shared memory, the pair form: one
+// chain on a thread block cluster of two blocks of 128 threads that run the
+// same trajectory, each holding the rows of half of tsum's slot warps in
+// its shared memory (200 KB at N = 1000, d = 100, staged once a launch), so
+// that both products read x from shared memory and not through L2, and one
+// exchange of d + 1 halves through distributed shared memory an evaluation
+// (models.cuh::LogisticRegression::eval_pair).  One chain's iteration is
+// what the Euclidean warmup launch waits for (its slowest chain takes ten
+// times the mean chain's iterations), so the pair gives up throughput (one
+// block an SM) for it.  The 256-thread kernels are held to two blocks an SM
+// (__launch_bounds__(256, 2): 128 registers with data, the regression's
+// batched loads spilling up to 120 bytes, where unbounded they took 206
+// registers and one block an SM; 64-80 without data), so two (four) chain
+// blocks share an SM and one chain's barriers and loads overlap another's.  Scalars and the
+// 10-deep halving stack are per thread and uniform across the block.  Draws
+// are written coalesced along d, [K, C, d], so the trace needs no
+// transpose.  Every sum takes ops.tsum's order, the regression's as
+// models.cuh fixes them; no atomics.
 //
 // A thread block cluster of B <= 8 chains is the Pallas kernel's logical
 // chain block (default 1): its chains share the seed and the counter `it`
@@ -66,14 +81,13 @@ struct McMidPostArgs {
   int* iters;
 };
 
-template <bool MICRO, int H, class Model>
-__global__ void __launch_bounds__(LD_T)
+template <bool MICRO, int H, int T, int X, class Model>
+__global__ void __launch_bounds__(T, X == 2 ? 1 : 2)
     mclmc_mid_posterior_kernel(const McMidPostArgs a, const Model model) {
   extern __shared__ float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int B = (int)cluster.num_blocks();
-  const int b = (int)cluster.block_rank();
-  const int c = blockIdx.x;
+  const McPlace<X> at = McPlace<X>::get();
+  const int B = at.B, b = at.b, c = at.c;
+  const bool writer = at.rank == 0;
   const int C = a.C, K = a.K, d = a.d;
   const uint32_t seed = a.seed + 0x51ED2701u * (uint32_t)(c / B);
   const McConst& k = a.k;
@@ -81,42 +95,41 @@ __global__ void __launch_bounds__(LD_T)
 
   McChain ch;
   float* p = mc_chain_layout(ch, d, smem);
-  Reducer red{p, 0};
+  TeamReducer<T> red{{p, 0}, 0};
   p += 2 * LD_NRED * LD_W;
   ClusterMax last{reinterpret_cast<uint32_t*>(p), 0};
   float* scratch = p + 2 * LD_MAX_CLUSTER;  // the model functor's
+  if constexpr (X == 2) model.stage_pair(scratch, at.rank);
 
   McScalars<H> s;
   const float ld = a.logdet[c];
   const float bar = a.bar[c];
   float step = a.step0[c];
   s.logp = a.logp[c];
-  float v2[1];
-  for (int i = 0; i < ch.n; ++i) {
-    const int j = t0 + i * LD_T;
-    float vv = 0.0f;
-    if (j < d) {
-      const size_t gj = (size_t)c * d + j;
-      const float sd = a.stds[gj], mn = a.mean[gj], v0 = a.v[gj];
-      const float z0 = (a.q[gj] - mn) / sd;
-      const float zg0 = a.g[gj] * sd;
-      ch.stds[j] = sd;
-      ch.mean[j] = mn;
-      ch.z[j] = ch.z0[j] = z0;
-      ch.zg[j] = ch.zg0[j] = zg0;
-      ch.v[j] = v0;
-      ch.noise[j] =
-          normal(seed, 0u, 1u, 2u, (uint32_t)j * (uint32_t)B + (uint32_t)b);
-      vv = v0 * v0;
-    }
-    acc(v2[0], i, vv);
-  }
+  float v2p[LD_T / T][1], v2[1];
+  team_terms<T>(
+      ch,
+      [&](int j, float (&t)[1]) {
+        const size_t gj = (size_t)c * d + j;
+        const float sd = a.stds[gj], mn = a.mean[gj], v0 = a.v[gj];
+        const float z0 = (a.q[gj] - mn) / sd;
+        const float zg0 = a.g[gj] * sd;
+        ch.stds[j] = sd;
+        ch.mean[j] = mn;
+        ch.z[j] = ch.z0[j] = z0;
+        ch.zg[j] = ch.zg0[j] = zg0;
+        ch.v[j] = v0;
+        ch.noise[j] = site_normal(seed, 0u, 1u, 2u,
+                                  (uint32_t)j * (uint32_t)B + (uint32_t)b);
+        t[0] = v0 * v0;
+      },
+      v2p);
   // every block of the cluster runs before any writes into its slots
-  cluster.sync();
+  cg::this_cluster().sync();
   if (MICRO) {
     s.ke = 0.0f;
   } else {
-    red.sum(v2);
+    red.sum(v2p, v2);
     s.ke = 0.5f * v2[0];
   }
   int nsd = num_steps_for(step, k);
@@ -135,39 +148,37 @@ __global__ void __launch_bounds__(LD_T)
       have_end = true;
     }
     if (have_end && it >= it_end) break;
-    const int r = leapfrog_try_block<MICRO, H>(ch, s, red, model, scratch,
-                                               step, nsd, ld, k, seed, it, 3u,
-                                               b, B);
+    const int r = leapfrog_try_block<MICRO, H, T, X>(
+        ch, s, red, model, scratch, step, nsd, ld, k, seed, it, 3u, b, B);
     if (r != MC_CONTINUE) {
       // energy_change uses the loop-exit point, as mclmc_draw does
       const float e_change = (s.ke - (s.logp + ld)) - e_init;
       float em_ke = s.ke;
       if (r == MC_GAVE_UP) {
         // the draw start with fresh momentum; the next noise as on success
-        em_ke = give_up_momentum_block<MICRO>(ch, red, seed, it, 7u, b, B);
-        for (int j = t0; j < d; j += LD_T) {
+        em_ke =
+            give_up_momentum_block<MICRO, T>(ch, red, seed, it, 7u, b, B);
+        for (int j = t0; j < d; j += T) {
           ch.z[j] = ch.z0[j];
           ch.zg[j] = ch.zg0[j];
-          ch.noise[j] = normal(seed, it, 5u, 6u,
-                               (uint32_t)j * (uint32_t)B + (uint32_t)b);
+          ch.noise[j] = site_normal(seed, it, 5u, 6u,
+                                    (uint32_t)j * (uint32_t)B + (uint32_t)b);
         }
         s.logp = lpi;
       }
       if (dc < K) {
         float* out = a.draws + ((size_t)dc * C + c) * d;
-        float fs[1];
-        for (int i = 0; i < ch.n; ++i) {
-          const int j = t0 + i * LD_T;
-          float term = 0.0f;
-          if (j < d) {
-            const float e = ch.z[j] + ch.zg[j];
-            term = e * e;
-            out[j] = ch.z[j] * ch.stds[j] + ch.mean[j];
-          }
-          acc(fs[0], i, term);
-        }
-        red.sum(fs);
-        if (t0 == 0) {
+        float fsp[LD_T / T][1], fs[1];
+        team_terms<T>(
+            ch,
+            [&](int j, float (&t)[1]) {
+              const float e = ch.z[j] + ch.zg[j];
+              t[0] = e * e;
+              if (writer) out[j] = ch.z[j] * ch.stds[j] + ch.mean[j];
+            },
+            fsp);
+        red.sum(fsp, fs);
+        if (t0 == 0 && writer) {
           const float row[NSTATS_M] = {
               r == MC_GAVE_UP ? 1.0f : 0.0f, (float)s.steps, e_change,
               s.ttime / (float)max(s.steps, 1), step, s.logp,
@@ -185,7 +196,7 @@ __global__ void __launch_bounds__(LD_T)
                  : bar;
       nsd = num_steps_for(step, k);
       start_trajectory(s, nsd);
-      for (int j = t0; j < d; j += LD_T) {
+      for (int j = t0; j < d; j += T) {
         ch.z0[j] = ch.z[j];
         ch.zg0[j] = ch.zg[j];
       }
@@ -195,7 +206,8 @@ __global__ void __launch_bounds__(LD_T)
     it += 1;
   }
 
-  for (int j = t0; j < d; j += LD_T) {
+  if (!writer) return;
+  for (int j = t0; j < d; j += T) {
     const size_t gj = (size_t)c * d + j;
     a.q_f[gj] = ch.z[j] * ch.stds[j] + ch.mean[j];
     a.g_f[gj] = ch.zg[j] / ch.stds[j];
@@ -209,21 +221,27 @@ __global__ void __launch_bounds__(LD_T)
 
 }  // namespace nrt
 
-// Dynamic shared memory of one chain block of the mid-d MCLMC kernels, in
-// bytes, with the model functor's scratch; -1 for a model without the
-// eval_block form.
-extern "C" long long nrt_mclmc_mid_smem_bytes(int d, int model_id,
-                                              const int* model_ints) {
-  long long bytes = -1;
+// The block form of a launch (nrt::mc_block_form): out = {T, X, the
+// dynamic shared memory of each of its CUDA blocks in bytes}; -1 bytes for
+// a model without the eval_block form.
+extern "C" void nrt_mclmc_block_form(int d, int model_id,
+                                     const int* model_ints, int B, int micro,
+                                     long long* out) {
   const float no_params[nrt::MAX_MODEL_PARAMS] = {};
   const void* no_ptrs[nrt::MAX_MODEL_PTRS] = {};
+  const int N = model_id == nrt::MODEL_LOGISTIC_REGRESSION ? model_ints[0]
+                                                           : 0;
+  const nrt::McBlockForm form = nrt::mc_block_form(d, model_id, N, B, micro);
+  out[0] = form.T;
+  out[1] = form.X;
+  out[2] = -1;
   nrt::with_block_model(
       model_id, no_params, no_ptrs, model_ints, [&](auto model) {
-        bytes = 4 * (long long)(nrt::mc_smem_floats(d) +
-                                model.scratch_floats());
+        out[2] = form.X == 2 ? (long long)nrt::mc_pair_bytes(d, N)
+                             : 4 * (long long)(nrt::mc_smem_floats(d) +
+                                               model.scratch_floats());
         return cudaSuccess;
       });
-  return bytes;
 }
 
 extern "C" int nrt_mclmc_mid_posterior_launch(
@@ -244,22 +262,49 @@ extern "C" int nrt_mclmc_mid_posterior_launch(
                              draws, stats, q_f,    g_f,    logp_f, v_f,
                              iters};
   cudaStream_t s = (cudaStream_t)stream;
+  long long form[3];
+  nrt_mclmc_block_form(dim, model_id, model_ints, B, micro, form);
   return (int)nrt::with_block_model(
       model_id, model_params, model_ptrs, model_ints, [&](auto model) {
         using M = decltype(model);
-        const size_t smem =
-            4 * (nrt::mc_smem_floats(dim) + model.scratch_floats());
-        constexpr int H = nrt::MAX_HALVINGS;
-        if (micro && dynamic)
-          return nrt::ld_launch(nrt::mclmc_mid_posterior_kernel<true, H, M>,
-                                a, model, C, B, smem, s);
-        if (micro)
-          return nrt::ld_launch(nrt::mclmc_mid_posterior_kernel<true, 0, M>,
-                                a, model, C, B, smem, s);
-        if (dynamic)
-          return nrt::ld_launch(nrt::mclmc_mid_posterior_kernel<false, H, M>,
-                                a, model, C, B, smem, s);
-        return nrt::ld_launch(nrt::mclmc_mid_posterior_kernel<false, 0, M>, a,
-                              model, C, B, smem, s);
+        return nrt::with_block_form<M>(
+            {(int)form[0], (int)form[1]}, [&](auto T_, auto X_) {
+              constexpr int T = decltype(T_)::value, X = decltype(X_)::value;
+              constexpr int H = nrt::MAX_HALVINGS;
+              const size_t smem = (size_t)form[2];
+              if constexpr (X == 2) {
+                if (micro) return cudaErrorInvalidValue;
+              } else {
+                if (micro && dynamic)
+                  return nrt::mc_block_launch(
+                      nrt::mclmc_mid_posterior_kernel<true, H, T, X, M>, a,
+                      model, C, B, T, X, smem, s);
+                if (micro)
+                  return nrt::mc_block_launch(
+                      nrt::mclmc_mid_posterior_kernel<true, 0, T, X, M>, a,
+                      model, C, B, T, X, smem, s);
+              }
+              if (dynamic)
+                return nrt::mc_block_launch(
+                    nrt::mclmc_mid_posterior_kernel<false, H, T, X, M>, a,
+                    model, C, B, T, X, smem, s);
+              return nrt::mc_block_launch(
+                  nrt::mclmc_mid_posterior_kernel<false, 0, T, X, M>, a,
+                  model, C, B, T, X, smem, s);
+            });
       });
 }
+
+#ifdef NRT_MCLMC_CLOCKS
+// The cycles nrt_mc_clocks holds (block_sum.cuh), read and, with reset,
+// zeroed.
+extern "C" int nrt_mclmc_block_clocks(int reset, unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, nrt::nrt_mc_clocks,
+                                         sizeof(nrt::nrt_mc_clocks));
+  if (err == cudaSuccess && reset) {
+    const unsigned long long zero[9] = {};
+    err = cudaMemcpyToSymbol(nrt::nrt_mc_clocks, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+#endif

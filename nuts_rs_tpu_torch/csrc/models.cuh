@@ -140,12 +140,15 @@ struct IidNormal {
 // coordinate j, after the barrier of the one Reducer call that also sums
 // the log-likelihood (tsum over n) and the prior (tsum over j).
 //
-// Both products wait for L2 and not for arithmetic, so a thread keeps many
-// loads in flight: GLM_R of its rows advance together through the columns
-// of the first product, and GLM_J columns share one pass over its rows and
-// one butterfly in the second.  Neither changes the order of any sum.
-constexpr int GLM_R = 4;  // rows of a thread in flight in the first product
-constexpr int GLM_J = 8;  // columns of one pass over the rows in the second
+// Both products wait for their loads and not for arithmetic, so a thread
+// keeps many loads in flight, issued together in explicit batches (left to
+// the compiler, the block-form MCLMC kernels issued them one column at a
+// time): GLM_R of its rows advance together through the columns of the
+// first product, GLM_BJ columns' loads at a time, and 32 columns share one
+// pass over its rows and one butterfly (warp_sums_fixed) in the second.
+// Neither changes the order of any sum.
+constexpr int GLM_R = 4;   // rows of a thread in flight in the first product
+constexpr int GLM_BJ = 8;  // columns of one batch of loads in the first
 // the group form (K1-args / K2-args): columns of x in flight a thread in the
 // first product, and columns of one pass over the rows in the second
 constexpr int GLM_PJ = 4;
@@ -153,6 +156,50 @@ constexpr int GLM_GJ = 4;
 // row stride of a warp's transposition buffer: 16-byte rows whose 8 lanes of
 // a quarter warp meet in distinct banks, and columns read without conflict
 constexpr int GLM_TS = GLM_GJ * GR_MAX + 4;
+
+// The regression's shared memory in the pair form (eval_pair), in floats:
+// a block's rows of x (128 a round of 256 rows), their y and residuals, the
+// column partials of its 4 warps, the two exchange buffers the other block
+// writes, its own half sums and its warps' log-likelihoods.
+__host__ __device__ inline size_t glm_pair_floats(int d, int N) {
+  const size_t rows = 128 * (size_t)((N + LD_T - 1) / LD_T);
+  return (size_t)d * rows + 2 * rows + 4 * (size_t)d + 3 * ((size_t)d + 1) +
+         4;
+}
+
+// The first product's logits of GLM_R rows (x's column j at col + j *
+// stride, the rows at offsets m): logit[k] starts as x[0] q[0] and adds
+// x[j] q[j] in ascending j, GLM_BJ columns' loads issued before their
+// terms are added.
+__device__ __forceinline__ void first_product(const float* x, size_t stride,
+                                              const float* q, int d,
+                                              const int (&m)[GLM_R],
+                                              float (&logit)[GLM_R]) {
+#pragma unroll
+  for (int k = 0; k < GLM_R; ++k) logit[k] = x[m[k]] * q[0];
+  int j = 1;
+  for (; j + GLM_BJ <= d; j += GLM_BJ) {
+    float xv[GLM_BJ][GLM_R], qv[GLM_BJ];
+#pragma unroll
+    for (int jj = 0; jj < GLM_BJ; ++jj) {
+      const float* col = x + (size_t)(j + jj) * stride;
+      qv[jj] = q[j + jj];
+#pragma unroll
+      for (int k = 0; k < GLM_R; ++k) xv[jj][k] = col[m[k]];
+    }
+#pragma unroll
+    for (int jj = 0; jj < GLM_BJ; ++jj)
+#pragma unroll
+      for (int k = 0; k < GLM_R; ++k)
+        logit[k] = logit[k] + xv[jj][k] * qv[jj];
+  }
+  for (; j < d; ++j) {
+    const float* col = x + (size_t)j * stride;
+    const float qj = q[j];
+#pragma unroll
+    for (int k = 0; k < GLM_R; ++k) logit[k] = logit[k] + col[m[k]] * qj;
+  }
+}
 
 struct LogisticRegression {
   const float* xt;  // [d, N]
@@ -185,15 +232,8 @@ struct LogisticRegression {
         const int n = t + (i0 + k) * LD_T;
         in[k] = n < N;
         nc[k] = in[k] ? n : 0;
-        logit[k] = xt[nc[k]] * q[0];
       }
-#pragma unroll 8
-      for (int j = 1; j < d; ++j) {
-        const float* col = xt + (size_t)j * N;
-        const float qj = q[j];
-#pragma unroll
-        for (int k = 0; k < GLM_R; ++k) logit[k] = logit[k] + col[nc[k]] * qj;
-      }
+      first_product(xt, (size_t)N, q, d, nc, logit);
 #pragma unroll
       for (int k = 0; k < GLM_R; ++k) {
         if (i0 + k >= rows) break;
@@ -212,33 +252,25 @@ struct LogisticRegression {
       const int j = t + i * LD_T;
       acc(s[1], i, j < d ? q[j] * q[j] : 0.0f);
     }
-    // GLM_J columns share one pass over the thread's rows and one butterfly;
-    // a column past the end repeats the last one and is not stored.
-    for (int j0 = 0; j0 < d; j0 += GLM_J) {
-      const float* col[GLM_J];
-#pragma unroll
-      for (int k = 0; k < GLM_J; ++k)
-        col[k] = xt + (size_t)min(j0 + k, d - 1) * N;
-      float c[GLM_J];
+    // 32 columns share one pass over the thread's rows and one butterfly
+    // (lane l ends with column j0 + l's warp sum); a column past the end
+    // repeats the last one and is not stored.
+    for (int j0 = 0; j0 < d; j0 += 32) {
+      float c[32];
       for (int i = 0; i < rows; ++i) {
         const int n = t + i * LD_T;
         const bool in = n < N;
         const int nn = in ? n : 0;
         const float rn = in ? r[nn] : 0.0f;
+        float x[32];
 #pragma unroll
-        for (int k = 0; k < GLM_J; ++k)
-          acc(c[k], i, in ? col[k][nn] * rn : 0.0f);
+        for (int k = 0; k < 32; ++k)
+          x[k] = xt[(size_t)min(j0 + k, d - 1) * N + nn];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) acc(c[k], i, in ? x[k] * rn : 0.0f);
       }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-#pragma unroll
-        for (int k = 0; k < GLM_J; ++k)
-          c[k] = c[k] + __shfl_xor_sync(0xffffffffu, c[k], o);
-      if (lane == 0) {
-#pragma unroll
-        for (int k = 0; k < GLM_J; ++k)
-          if (j0 + k < d) part[(j0 + k) * LD_W + warp] = c[k];
-      }
+      warp_sums_fixed<32>(c);
+      if (j0 + lane < d) part[(j0 + lane) * LD_W + warp] = c[0];
     }
     red.sum(s);  // its barrier also publishes `part`
     for (int i = 0; i < nd; ++i) {
@@ -246,6 +278,151 @@ struct LogisticRegression {
       if (j < d) g[j] = halve_warps(part + j * LD_W) - q[j];
     }
     return s[0] - 0.5f * s[1];
+  }
+
+  // The pair form (the block-form MCLMC kernels' pair, mclmc_step_block.cuh):
+  // one chain on a thread block cluster of two blocks of 128 threads, each
+  // holding the rows of half of tsum's 256 slots in its shared memory,
+  // staged once a launch (stage_pair), so that both products read x from
+  // shared memory and not from L2.  Block `rank` r holds the slot warps r,
+  // r + 2, r + 4, r + 6: its warp u is slot warp r + 2 u, and its lane l
+  // owns eval_block's rows n = 32 (r + 2 u) + l + 256 i, kept as local row
+  // m = 32 u + l + 128 i (so n = 64 (m >> 5) + 32 r + (m & 31)).  Each
+  // thread forms its rows' logits in ascending j and adds its rows' terms in
+  // ascending i, as eval_block's thread does; a warp's butterfly
+  // (warp_sums_fixed, 32 columns at once) gives its slot warp's sum; the
+  // block adds its four as halve() pairs them ((w, w + 4) then (w, w + 2):
+  // ((p0 + p4) + (p2 + p6)) in block 0, ((p1 + p5) + (p3 + p7)) in block 1)
+  // and the last halving adds the two blocks' halves after one exchange
+  // through distributed shared memory and the cluster's barrier.  The prior
+  // (tsum over j) is summed in full in both blocks by their slots, whose
+  // one barrier also publishes the column partials.  So every bit is
+  // eval_block's.  The two blocks run the same trajectory, so both return
+  // the same logp and the full gradient at their own coordinates.
+  static constexpr bool PAIR = true;
+
+  __device__ __forceinline__ int pair_rows() const {
+    return 128 * ((N + LD_T - 1) / LD_T);
+  }
+
+  // global row of block `rank`'s local row m
+  __device__ __forceinline__ static int pair_row(int m, int rank) {
+    return 64 * (m >> 5) + 32 * rank + (m & 31);
+  }
+
+  // Copy the block's rows of x (row-major by column: xs[j][m]) and y into
+  // shared memory; 0.0 past the data's end.  Ends with a barrier.
+  __device__ __forceinline__ void stage_pair(float* scratch,
+                                             int rank) const {
+    const int rows = pair_rows();
+    float* xs = scratch;
+    float* ys = xs + (size_t)d * rows;
+    for (int j = 0; j < d; ++j) {
+      const float* col = xt + (size_t)j * N;
+      for (int m = threadIdx.x; m < rows; m += 128) {
+        const int n = pair_row(m, rank);
+        xs[(size_t)j * rows + m] = n < N ? col[n] : 0.0f;
+      }
+    }
+    for (int m = threadIdx.x; m < rows; m += 128) {
+      const int n = pair_row(m, rank);
+      ys[m] = n < N ? y[n] : 0.0f;
+    }
+    __syncthreads();
+  }
+
+  __device__ __forceinline__ float eval_pair(const float* q, float* g, int,
+                                             TeamReducer<128>& red,
+                                             float* scratch) const {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = (int)cluster.block_rank() & 1;
+    const int rows = pair_rows();
+    const int R = rows / 128;  // a thread's rows, eval_block's `rows`
+    float* xs = scratch;                   // [d][rows]
+    float* ys = xs + (size_t)d * rows;     // [rows]
+    float* rs = ys + rows;                 // [rows], the thread's own rows
+    float* part = rs + rows;               // [d][4]
+    float* xch = part + 4 * d;             // [2][d + 1], the other block's
+    float* mine = xch + 2 * (d + 1);       // [d + 1]
+    float* llw = mine + d + 1;             // [4]
+    const int t = threadIdx.x;
+    const int lane = t & 31, u = t >> 5;
+    const int m0 = 32 * u + lane;
+    float ll = 0.0f;
+    for (int i0 = 0; i0 < R; i0 += GLM_R) {
+      int m[GLM_R];
+      float logit[GLM_R];
+#pragma unroll
+      for (int k = 0; k < GLM_R; ++k) m[k] = m0 + 128 * min(i0 + k, R - 1);
+      first_product(xs, (size_t)rows, q, d, m, logit);
+#pragma unroll
+      for (int k = 0; k < GLM_R; ++k) {
+        if (i0 + k >= R) break;
+        float term = 0.0f, res = 0.0f;  // rows past the data: no term
+        if (pair_row(m[k], rank) < N) {
+          const float yn = ys[m[k]];
+          term = yn * logit[k] - logaddexp(0.0f, logit[k]);
+          const float p = 1.0f / (1.0f + expf(-logit[k]));
+          res = yn - p;
+        }
+        rs[m[k]] = res;
+        acc(ll, i0 + k, term);
+      }
+    }
+    MC_MARK(4);
+    float prior[LD_T / 128][1], sums[1];
+    const int nd = (d + LD_T - 1) / LD_T;
+#pragma unroll
+    for (int s = 0; s < LD_T / 128; ++s)
+      for (int i = 0; i < nd; ++i) {
+        const int j = t + 128 * s + LD_T * i;
+        acc(prior[s][0], i, j < d ? q[j] * q[j] : 0.0f);
+      }
+    // 32 columns share one pass over the thread's rows, their loads issued
+    // together, and one butterfly (warp_sums_fixed: lane l ends with column
+    // j0 + l's warp sum); a column past the end repeats the last one and is
+    // not stored.  A row past the data is x = 0 and residual 0, so its term
+    // is +0.0, eval_block's 0.0.
+    for (int j0 = 0; j0 < d; j0 += 32) {
+      float c[32];
+      for (int i = 0; i < R; ++i) {
+        const int mi = m0 + 128 * i;
+        const float rn = rs[mi];
+        float x[32];
+#pragma unroll
+        for (int k = 0; k < 32; ++k)
+          x[k] = xs[(size_t)min(j0 + k, d - 1) * rows + mi];
+#pragma unroll
+        for (int k = 0; k < 32; ++k) acc(c[k], i, x[k] * rn);
+      }
+      warp_sums_fixed<32>(c);
+      if (j0 + lane < d) part[(j0 + lane) * 4 + u] = c[0];
+    }
+    ll = warp_sum(ll);
+    if (lane == 0) llw[u] = ll;
+    MC_MARK(5);
+    red.sum(prior, sums);  // its barrier also publishes part and llw
+    MC_MARK(6);
+    // the other block's halves arrive in `other`; ours go to its copy of
+    // the same buffer (two alternate, as Reducer's do)
+    float* other = xch + red.flip * (d + 1);
+    red.flip ^= 1;
+    float* peer = cluster.map_shared_rank(other, rank ^ 1);
+    for (int j = t; j < d; j += 128) {
+      const float* pj = part + 4 * j;
+      const float half = (pj[0] + pj[2]) + (pj[1] + pj[3]);
+      mine[j] = half;
+      peer[j] = half;
+    }
+    if (t == 0) {
+      const float half = (llw[0] + llw[2]) + (llw[1] + llw[3]);
+      mine[d] = half;
+      peer[d] = half;
+    }
+    cluster.sync();
+    for (int j = t; j < d; j += 128) g[j] = (mine[j] + other[j]) - q[j];
+    MC_MARK(7);
+    return (mine[d] + other[d]) - 0.5f * sums[0];
   }
 
   // The group form (K1-args / K2-args, G <= GR_MAX chains a CUDA block).

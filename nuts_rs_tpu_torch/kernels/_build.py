@@ -122,8 +122,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # NRT_NUTS_LANES=n, NRT_NUTS_MAX_THREADS=n, NRT_ABLATE_NUTS_NORMALS,
 # NRT_NUTS_SMEM_STACKS (csrc/nuts_tree.cuh: K1 / K2's lanes a chain, their
 # blocks' threads at most, their normals without the hashes and Box-Muller
-# (changes results), their checkpoint stacks in shared memory).  Empty in
-# every other use; set before the first library loads.
+# (changes results), their checkpoint stacks in shared memory),
+# NRT_MCLMC_CLOCKS (csrc/block_sum.cuh: the block-form MCLMC kernels' SM
+# cycles by phase; NRT_ABLATE_EVAL, NRT_ABLATE_MCLMC_NORMALS and
+# NRT_ABLATE_MCLMC_DIVISIONS act there too; profile_main_path.py item 22).
+# Empty in every other use; set before the first library loads.
 NVCC_DEFINES = []
 
 BUILD_INFO = {"seconds": 0.0, "libraries": {}, "nvcc_seconds": {}}
@@ -187,9 +190,9 @@ SOURCES = {
         "nrt_mid_warmup_blocks_per_sm": ([_I, _P, _LL], _I)},
     "mclmc_fused_mid_posterior": {
         "nrt_mclmc_mid_posterior_launch": (_MCLMC_POST + [_P] * 20, _I),
-        "nrt_mclmc_mid_smem_bytes": ([_I, _I, _P], _LL)},
+        "nrt_mclmc_block_form": ([_I, _I, _P, _I, _I, _P], None)},
     "mclmc_fused_mid_warmup": {
-        "nrt_mclmc_mid_warmup_launch": (_MCLMC_WARM + [_P] * 21, _I)},
+        "nrt_mclmc_mid_warmup_launch": (_MCLMC_WARM + [_P] * 24, _I)},
     "mclmc_fused_group_posterior": {
         "nrt_mclmc_group_posterior_launch": (
             [_I] * 6 + [_U] + [_F] * 4 + [_I, _F, _F] + [_P] * 19, _I),
@@ -625,6 +628,56 @@ def mclmc_mid_smem_bytes(d, model):
                 + _scratch_floats(model, d))
 
 
+def mclmc_pair_bytes(d, model):
+    """Dynamic shared memory of each CUDA block of the pair form of the
+    block-form mid-d MCLMC kernels (the regression, csrc/models.cuh::
+    glm_pair_floats): the chain's part as ``mclmc_mid_smem_bytes`` lays it
+    out without the functor's scratch, then the block's half of the data
+    (128 rows a round of 256, x and y), its residuals, the column partials
+    of its 4 warps, two exchange buffers, its own halves and 4 warp sums."""
+    name, ints = _hook_ints(model, d)
+    if name != "logistic_regression":
+        raise ValueError(f"the {name} functor has no pair form")
+    rows = 128 * -(-ints[0] // 256)
+    return 4 * (MCLMC_MID_NVEC * d + LD_REDUCE_FLOATS + 2 * MAX_LD_BLOCK
+                + d * rows + 2 * rows + 4 * d + 3 * (d + 1) + 4)
+
+
+# Launches of the block-form mid-d MCLMC kernels (csrc/mclmc_fused_mid_
+# posterior.cu, csrc/mclmc_fused_mid_warmup.cu) by kind and form
+# ("posterior pair", "warmup T256", ...: block_form_name of
+# mclmc_block_form), beside the kernels' own counts, which also count their
+# group form.
+MCLMC_BLOCK_FORM_LAUNCHES = {f"{kind} {form}": 0
+                             for kind in ("posterior", "warmup")
+                             for form in ("pair", "T256")}
+
+
+def block_form_name(form):
+    """"pair" for the pair form, "T<threads>" for one block a chain."""
+    T, X = form
+    return "pair" if X == 2 else f"T{T}"
+
+
+def mclmc_block_form(d, model, B, mopts):
+    """(T, X) of a block-form mid-d MCLMC launch: T threads a CUDA block, X
+    blocks a chain (csrc/mclmc_step_block.cuh::mc_block_form, the same rule,
+    checked at every launch).  The pair form (128, 2) for the regression
+    under the Euclidean dynamics where its rows fit two blocks' shared
+    memory (``mclmc_pair_bytes``) and the logical chain block is one chain:
+    one chain's iteration reads x from shared memory instead of L2, and its
+    exchange waits at the cluster's barrier, which the chains of a larger
+    block would reach at different points.  Else (256, 1), the form every
+    launch took before (128 and 64 threads a chain lost to it at d = 400).
+    A form chosen by the shapes, never a fallback; measured in
+    profile_main_path.py item 22 (PERF.md section 6)."""
+    if (model.hook_parts()[0] == "logistic_regression"
+            and mopts.kind is not KineticKind.MICROCANONICAL and B == 1
+            and mclmc_pair_bytes(d, model) <= SMEM_OPT_IN_BYTES):
+        return 128, 2
+    return 256, 1
+
+
 def mclmc_mid_group_bytes(d, model, G):
     """Dynamic shared memory of a CUDA block of ``G`` chains in the group
     form of either mid-d MCLMC kernel (K3-args / K4-args on the
@@ -818,8 +871,10 @@ def _mclmc_common(q, model, mopts, B):
 
 
 def _mclmc_mid_common(kind, q, model, mopts, B):
-    """(C, d, model id, params, ptrs, ints, consts, fconsts, lib) of a mid-d
-    MCLMC launch, after the device, block, size and data checks."""
+    """(C, d, model id, params, ptrs, ints, consts, fconsts, lib, form) of a
+    block-form mid-d MCLMC launch, after the device, block, size and data
+    checks; ``form`` is ``mclmc_block_form``'s (T, X), checked against
+    csrc/mclmc_step_block.cuh::mc_block_form with its bytes."""
     model_id, params = _model_and_block(q, model, B, MAX_LD_BLOCK)
     C, d = q.shape
     ints, ptrs = model_data_args(model, d, q.device)
@@ -830,17 +885,24 @@ def _mclmc_mid_common(kind, q, model, mopts, B):
             f"memory per chain in the mid-d MCLMC kernels; a block has "
             f"{SMEM_OPT_IN_BYTES}: data of that size must stream (ROADMAP.md "
             "queue 1 item 12)")
+    form = mclmc_block_form(d, model, B, mopts)
+    if form[1] == 2:
+        need = mclmc_pair_bytes(d, model)
     c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
     c_ptrs = (ctypes.c_void_p * max(1, len(ptrs)))(*ptrs)
-    built = library("mclmc_fused_mid_posterior").nrt_mclmc_mid_smem_bytes(
-        d, model_id, ctypes.cast(c_ints, ctypes.c_void_p))
-    if built != need:
-        raise RuntimeError(f"csrc lays out {built} bytes of shared memory "
-                           "for the mid-d MCLMC kernels, "
-                           f"_build.mclmc_mid_smem_bytes {need}")
+    built = (ctypes.c_longlong * 3)()
+    library("mclmc_fused_mid_posterior").nrt_mclmc_block_form(
+        d, model_id, ctypes.cast(c_ints, ctypes.c_void_p), B,
+        int(mopts.kind is KineticKind.MICROCANONICAL),
+        ctypes.cast(built, ctypes.c_void_p))
+    if tuple(built) != (*form, need):
+        raise RuntimeError(
+            f"csrc/mclmc_step_block.cuh gives the block form (T, X, bytes) "
+            f"{tuple(built)} at d = {d}, B = {B}; _build.mclmc_block_form "
+            f"{(*form, need)}")
     consts, fconsts = _mclmc_consts(d, mopts)
     lib = library(f"mclmc_fused_mid_{kind}")
-    return C, d, model_id, params, c_ptrs, c_ints, consts, fconsts, lib
+    return C, d, model_id, params, c_ptrs, c_ints, consts, fconsts, lib, form
 
 
 def _mclmc_group_common(kind, q, model, mopts, B):
@@ -1750,8 +1812,8 @@ def launch_mclmc_mid_posterior(seed, q, g, logp, v, stds, mean, logdet, step0,
     stats [K, C, 8], q_f, g_f [C, d], logp_f [C], v_f [C, d], iters [C])."""
     check_mclmc_posterior_args(q, g, logp, v, stds, mean, logdet, step0,
                                step_bar, K, mopts)
-    (C, d, model_id, params, ptrs, ints, consts, fconsts,
-     lib) = _mclmc_mid_common("posterior", q, model, mopts, B)
+    (C, d, model_id, params, ptrs, ints, consts, fconsts, lib,
+     form) = _mclmc_mid_common("posterior", q, model, mopts, B)
     dev = q.device
     f32 = dict(dtype=torch.float32, device=dev)
     draws = torch.empty(K, C, d, **f32)
@@ -1773,6 +1835,7 @@ def launch_mclmc_mid_posterior(seed, q, g, logp, v, stds, mean, logdet, step0,
             stats.data_ptr(), q_f.data_ptr(), g_f.data_ptr(),
             logp_f.data_ptr(), v_f.data_ptr(), iters.data_ptr(), stream)
     _raise_on(rc, lib, "mclmc_fused_mid_posterior")
+    MCLMC_BLOCK_FORM_LAUNCHES[f"posterior {block_form_name(form)}"] += 1
     return draws, stats, q_f, g_f, logp_f, v_f, iters
 
 
@@ -1784,14 +1847,18 @@ def launch_mclmc_mid_warmup(seed, flags, q, g, logp, v, stds, mean, est, sca,
     planes in the output buffers, which start as copies of the inputs."""
     check_mclmc_warmup_args(flags, q, g, logp, v, stds, mean, est, sca,
                             mopts)
-    (C, d, model_id, params, ptrs, ints, consts, fconsts,
-     lib) = _mclmc_mid_common("warmup", q, model, mopts, B)
+    (C, d, model_id, params, ptrs, ints, consts, fconsts, lib,
+     form) = _mclmc_mid_common("warmup", q, model, mopts, B)
     dev = q.device
     K = flags.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     draws = torch.empty(K, C, d, **f32)
     stats = torch.empty(K, C, 9, **f32)
     q_f, g_f, est_f = q.clone(), g.clone(), est.clone()
+    # the pair form's second block keeps its own copies (mclmc_fused_mid_
+    # warmup.cu); null pointers elsewhere
+    pair = ((q.clone(), g.clone(), est.clone()) if form[1] == 2
+            else (None, None, None))
     logp_f = torch.empty(C, **f32)
     v_f, stds_f, mean_f = (torch.empty(C, d, **f32) for _ in range(3))
     sca_f = torch.empty(C, 4, **f32)
@@ -1809,8 +1876,10 @@ def launch_mclmc_mid_warmup(seed, flags, q, g, logp, v, stds, mean, est, sca,
             sca.data_ptr(), draws.data_ptr(), stats.data_ptr(),
             q_f.data_ptr(), g_f.data_ptr(), logp_f.data_ptr(),
             v_f.data_ptr(), stds_f.data_ptr(), mean_f.data_ptr(),
-            est_f.data_ptr(), sca_f.data_ptr(), iters.data_ptr(), stream)
+            est_f.data_ptr(), sca_f.data_ptr(), iters.data_ptr(),
+            *(None if t is None else t.data_ptr() for t in pair), stream)
     _raise_on(rc, lib, "mclmc_fused_mid_warmup")
+    MCLMC_BLOCK_FORM_LAUNCHES[f"warmup {block_form_name(form)}"] += 1
     return (draws, stats, q_f, g_f, logp_f, v_f, stds_f, mean_f, est_f, sca_f,
             iters)
 

@@ -222,6 +222,27 @@ After building the kernels it prints, for each path,
    end; then 20 draws at the tuned state under torch.profiler: the device's
    busy share and its kernels an iteration.
 
+22. ``--only-mclmc-block TREE [TREE ...]``: the block-form mid-d MCLMC
+   kernels (csrc/mclmc_fused_mid_*.cu) in each checkout in the order given
+   (parent, this, this, parent), each step in a process of its own: K4-args'
+   Euclidean launch on the MCLMC data path's own states (the regression,
+   N = 1000, d = 100, 1024 chains, rows 0 .. switch from the sampler's
+   initial state, as the path hands them over): ms a launch (CUDA events,
+   3 calls after a first), the slowest chain's iterations and us an
+   iteration of it, and one chain alone; the same launch at logical blocks
+   of 2 chains, and at one chain with 2000 rows (beyond the pair's shared
+   memory: 256 threads a chain in both checkouts, as a Sampler run on
+   such data takes it); K3's block form on the d = 400 path's own post-warmup
+   states (chip_smoke.py's path, its sync warmup run once in this
+   checkout and saved): ms a 128-draw launch; the MCLMC data path end to
+   end (items 1's total, one warm-up run, two repeats).  Then, in this
+   checkout, the same two launches in builds of ``MBLOCK_ABLATIONS``: the
+   Euclidean launch without the model's evaluation (NRT_ABLATE_EVAL) and
+   with the SM cycles of each phase (NRT_MCLMC_CLOCKS), the d = 400 launch
+   with its cycles, without the hashed normals and with __fdividef
+   (NRT_ABLATE_MCLMC_NORMALS, NRT_ABLATE_MCLMC_DIVISIONS); each build's
+   registers, stack and spills.
+
 The card's name and power limit come first.  Every number is this run's.
 """
 
@@ -2470,6 +2491,272 @@ def pipeline_item(trees):
             print(f"{tree}: {line}", flush=True)
 
 
+# Item 22: the block-form mid-d MCLMC kernels.  MBLOCK_SAVE (this checkout,
+# once): the d = 400 path's sync warmup as chip_smoke.py runs it, its state
+# at the first posterior draw saved.  MBLOCK_TIME (each checkout, or a build
+# of macros given after the file): K4-args' Euclidean launch on the MCLMC
+# data path's initial state and K3 on the saved d = 400 states.
+MBLOCK_SAVE = """
+import sys, time, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DiagMclmcSettings, Sampler
+from nuts_rs_tpu_torch.adapt import step_size as ss
+from nuts_rs_tpu_torch.models.gaussian import normal_logp
+dev = torch.device("cuda", 0)
+settings = DiagMclmcSettings(num_chains=cs.M400_CHAINS,
+                             num_tune=cs.M400_TUNE, num_draws=cs.M400_DRAWS,
+                             seed=cs.SEED, posterior_kernel="pallas")
+t0 = time.monotonic()
+sampler = Sampler(normal_logp(cs.M400_DIM, cs.MU), settings, device=dev)
+while sampler._next_draw < cs.M400_TUNE:
+    sampler.run_next_chunk()
+state = sampler.state
+t = state.transform
+sset = settings.step_size_settings
+args = (state.pt.q, state.pt.g, state.pt.logp, state.pt.v.contiguous(),
+        t.stds.contiguous(), t.mean.contiguous(), t.logdet,
+        state.step.step_size, ss.step_size_bar(state.step, sset))
+torch.save({"args": tuple(a.clone() for a in args),
+            "jitter": sset.jitter}, sys.argv[1])
+print(f"d=400 path: sync warmup of {cs.M400_TUNE} draws, "
+      f"{time.monotonic() - t0:.1f} s; states saved")
+"""
+
+MBLOCK_TIME = """
+import re, sys, torch
+import chip_smoke as cs
+from nuts_rs_tpu_torch import DiagMclmcSettings, MclmcTrajectoryKind as Kind
+from nuts_rs_tpu_torch.kernels import _build, mclmc_fused as mf
+from nuts_rs_tpu_torch.models.gaussian import logistic_regression, normal_logp
+saved, what, defines = sys.argv[1], sys.argv[2], sys.argv[3:]
+label = " ".join(m.removeprefix("NRT_") for m in defines) or "as built"
+if defines:
+    _build.NVCC_DEFINES[:] = defines
+    _build.BUILD_DIR = _build.BUILD_DIR / re.sub(r"[^A-Za-z0-9]+", "_", label)
+    stem = ("mclmc_fused_mid_warmup" if what == "k4"
+            else "mclmc_fused_mid_posterior")
+    _build.build([stem, "mclmc_fused_mid_posterior"])
+dev = torch.device("cuda", 0)
+def form(model, B, mopts):
+    if not hasattr(_build, "mclmc_block_form"):
+        return "T256 (the parent's one form)"
+    return _build.block_form_name(_build.mclmc_block_form(model.dim, model, B,
+                                                          mopts))
+def alone(run, args, it, at, name):
+    # the launch with the slowest chain's inputs alone (chain 0 of one, so
+    # its own random stream): us an iteration of one chain alone
+    c, C = int(it.argmax()), it.shape[0]
+    one = tuple(x[c:c + 1].contiguous()
+                if torch.is_tensor(x) and x.dim() and x.shape[0] == C else x
+                for x in args)
+    fn = lambda: run(one)
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(fn, 3)
+    n = int(out[at]["loop_iterations"].max())
+    print(f"{name} [{label}] one chain alone (chain {c}'s inputs): "
+          f"{ms:.4f} ms, {n} iterations: {1e3 * ms / n:.3f} us an "
+          f"iteration; latency floor of the launch {int(it.max())} x that "
+          f"= {int(it.max()) * ms / n:.3f} ms")
+    if "NRT_MCLMC_CLOCKS" in defines:
+        import ctypes
+        lib = _build.library(stem)
+        get = lib.nrt_mclmc_block_clocks
+        get.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        clocks = (ctypes.c_ulonglong * 9)()
+        get(1, ctypes.cast(clocks, ctypes.c_void_p))
+        ms1 = cs.cuda_events_ms(fn, 1)
+        get(1, ctypes.cast(clocks, ctypes.c_void_p))
+        iters = max(int(clocks[8]), 1)
+        names = ("refresh", "model", "other sums and check", "success",
+                 "pair: first product", "pair: second product",
+                 "pair: block barrier", "pair: exchange")
+        total = sum(clocks[:4]) + sum(clocks[4:8])
+        print(f"{name} [{label}] cycles an iteration of the chain alone: "
+              + ", ".join(f"{k} {clocks[i] / iters:.0f}"
+                          for i, k in enumerate(names) if clocks[i])
+              + f"; {total / iters:.0f} in all over {iters} iterations, "
+              f"{total / (1e3 * ms1):.0f} MHz")
+if what == "k4":
+    glm = logistic_regression(cs.GLM_ROWS, cs.GLM_DIM, cs.SEED).to(dev)
+    settings = DiagMclmcSettings(num_chains=cs.GLM_CHAINS,
+                                 num_tune=cs.GLM_TUNE, num_draws=cs.GLM_DRAWS,
+                                 seed=cs.SEED, posterior_kernel="pallas")
+    sw = settings.switch_draw
+    args = cs.mclmc_warmup_setup(glm, settings, dev, 0, sw, Kind.EUCLIDEAN)
+    fn = lambda: mf.mclmc_fused_warmup_run(*args)
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(fn, 3)
+    it = out[9]["loop_iterations"].double()
+    steps = out[9]["n_steps"].double()
+    print(f"K4-args Euclidean launch [{label}], rows 0..{sw - 1}, "
+          f"C={cs.GLM_CHAINS}, form {form(glm, 1, args[11])}: {ms:.4f} ms; "
+          f"iterations: slowest chain {int(it.max())}, mean "
+          f"{float(it.mean()):.1f}, all chains {int(it.sum())}; "
+          f"{1e3 * ms / float(it.max()):.3f} us an iteration of the slowest "
+          f"chain; leapfrogs {int(steps.sum())}")
+    alone(lambda a: mf.mclmc_fused_warmup_run(*a), args, it, 9, "K4-args")
+    # logical blocks of 2 chains: 256 threads a chain in both checkouts
+    fn2 = lambda: mf.mclmc_fused_warmup_run(*args, 2)
+    out2 = fn2()
+    torch.cuda.synchronize()
+    ms2 = cs.cuda_events_ms(fn2, 1)
+    it2 = out2[9]["loop_iterations"].double()
+    print(f"K4-args Euclidean launch [{label}] at B=2, form "
+          f"{form(glm, 2, args[11])}: {ms2:.4f} ms; slowest chain "
+          f"{int(it2.max())} iterations: {1e3 * ms2 / float(it2.max()):.3f} "
+          "us an iteration of it")
+    # 2000 rows at one chain a logical block: 256 threads a chain
+    wide = logistic_regression(2 * cs.GLM_ROWS, cs.GLM_DIM, cs.SEED).to(dev)
+    wargs = cs.mclmc_warmup_setup(wide, settings, dev, 0, sw, Kind.EUCLIDEAN)
+    fn3 = lambda: mf.mclmc_fused_warmup_run(*wargs)
+    out3 = fn3()
+    torch.cuda.synchronize()
+    ms3 = cs.cuda_events_ms(fn3, 3)
+    it3 = out3[9]["loop_iterations"].double()
+    print(f"K4-args Euclidean launch [{label}], N={2 * cs.GLM_ROWS} at B=1, "
+          f"form {form(wide, 1, wargs[11])}: {ms3:.4f} ms; slowest chain "
+          f"{int(it3.max())} iterations, mean {float(it3.mean()):.1f}: "
+          f"{1e3 * ms3 / float(it3.max()):.3f} us an iteration of it")
+    alone(lambda a: mf.mclmc_fused_warmup_run(*a), wargs, it3, 9,
+          f"K4-args N={2 * cs.GLM_ROWS}")
+else:
+    s = torch.load(saved, weights_only=False)
+    model = normal_logp(cs.M400_DIM, cs.MU)
+    settings = DiagMclmcSettings(num_chains=cs.M400_CHAINS, seed=cs.SEED,
+                                 posterior_kernel="pallas")
+    mopts = settings._mclmc_options(Kind.MICROCANONICAL)
+    fn = lambda: mf.mclmc_fused_run(3, *s["args"], cs.CHUNK, model, mopts,
+                                    s["jitter"])
+    out = fn()
+    torch.cuda.synchronize()
+    ms = cs.cuda_events_ms(fn, 3)
+    it = out[5]["loop_iterations"].double()
+    steps = out[5]["n_steps"].double()
+    alone(lambda a: mf.mclmc_fused_run(3, *a, cs.CHUNK, model, mopts,
+                                       s["jitter"]), s["args"], it, 5, "K3")
+    print(f"K3 block form d=400 [{label}], C={cs.M400_CHAINS}, "
+          f"K={cs.CHUNK}, form {form(model, 1, mopts)}: {ms:.4f} ms; "
+          f"iterations: slowest chain {int(it.max())}, mean "
+          f"{float(it.mean()):.1f}; {1e3 * ms / float(it.max()):.3f} us an "
+          f"iteration of the slowest chain; leapfrogs a draw "
+          f"{float(steps.mean()):.3f}")
+if defines:
+    text = _build.build_log(stem).read_text()
+    for entry in text.split("Compiling entry function")[1:]:
+        name = entry.split("\\n")[0]
+        if what == "k4" and "ILb0E" not in name:
+            continue  # the Euclidean instantiations alone
+        nums = [re.findall(p, entry)[:1] or ["?"] for p in (
+            r"Used (\\d+) registers", r"(\\d+) bytes stack frame",
+            r"(\\d+) bytes spill stores")]
+        print("ptxas [{}] {}: registers {} stack {} spill stores {}".format(
+            label, name.strip()[:90], *(n[0] for n in nums)))
+"""
+
+MBLOCK_E2E = """
+import torch
+import chip_smoke as cs
+import profile_main_path as pm
+from nuts_rs_tpu_torch import DiagMclmcSettings
+from nuts_rs_tpu_torch.models.gaussian import logistic_regression
+dev = torch.device("cuda", 0)
+glm = logistic_regression(cs.GLM_ROWS, cs.GLM_DIM, cs.SEED).to(dev)
+settings = DiagMclmcSettings(num_chains=cs.GLM_CHAINS, num_tune=cs.GLM_TUNE,
+                             num_draws=cs.GLM_DRAWS, seed=cs.SEED,
+                             posterior_kernel="pallas")
+pm.run_main_path(glm, settings, dev)
+for rep in range(2):
+    total_s, init_s, chunks, finalize_s, trace = pm.run_main_path(
+        glm, settings, dev)
+    first = chunks[0]
+    print(f"MCLMC data path end to end, run {rep}: total {total_s:.4f} s, "
+          f"init {init_s:.4f} s, finalize {finalize_s:.4f} s; the Euclidean "
+          f"chunk {first[0]}-{first[1]}: runner {first[2]:.4f} s, device "
+          f"wait {first[3]:.4f} s")
+"""
+
+MBLOCK_ABLATIONS = (
+    ("k4", ("NRT_ABLATE_EVAL",)),
+    ("k4", ("NRT_MCLMC_CLOCKS",)),
+    ("k3", ("NRT_MCLMC_CLOCKS",)),
+    ("k3", ("NRT_ABLATE_MCLMC_NORMALS",)),
+    ("k3", ("NRT_ABLATE_MCLMC_DIVISIONS",)),
+)
+
+# the SASS of K4-args' Euclidean instantiations (dynamic step size) with the
+# regression, by instruction class, in the checkout given
+MBLOCK_SASS = """
+import collections, re, shutil, subprocess
+from nuts_rs_tpu_torch.kernels import _build
+_build.build(["mclmc_fused_mid_warmup"])
+tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+sass = subprocess.run([tool, "-sass", str(_build._library_path(
+    "mclmc_fused_mid_warmup"))], capture_output=True, text=True).stdout
+for fn in sass.split("Function : ")[1:]:
+    name = fn.split("\\n")[0].strip()
+    if "LogisticRegression" not in name or "ILb0ELi10E" not in name:
+        continue
+    op = r"/\\*[0-9a-f]{4,}\\*/\\s+(?:@!?U?P\\w+\\s+)?([A-Z][A-Z0-9.]*)"
+    ops = collections.Counter(m.split(".")[0] for m in re.findall(op, fn))
+    keys = ("LDG", "LDS", "STS", "LDL", "STL", "SHFL", "BAR", "FADD", "FMUL",
+            "MUFU", "BRA")
+    print(f"sass {name[:80]}: {sum(ops.values())} instructions; "
+          + ", ".join(f"{k} {ops[k]}" for k in keys))
+"""
+
+
+def mclmc_block_item(trees):
+    """Item 22 (see the module's docstring)."""
+    from pathlib import Path
+
+    from nuts_rs_tpu_torch.kernels import _build
+
+    here = Path(__file__).resolve().parent
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    saved = str(_build.BUILD_DIR / "mclmc_block_d400.pt")
+
+    def run(src, *argv, cwd=here):
+        out = subprocess.run([sys.executable, "-c", src, *argv], cwd=cwd,
+                             capture_output=True, text=True)
+        if out.returncode:
+            raise RuntimeError(f"{cwd} {argv}: {out.stderr[-3000:]}")
+        return out.stdout.strip().splitlines()
+
+    for line in run(MBLOCK_SAVE, saved):
+        print(line, flush=True)
+    for tree in dict.fromkeys(trees):
+        for line in run(MBLOCK_SASS, cwd=tree):
+            print(f"{tree}: {line}", flush=True)
+    for tree in trees:
+        for what in ("k4", "k3"):
+            for line in run(MBLOCK_TIME, saved, what, cwd=tree):
+                print(f"{tree}: {line}", flush=True)
+        for line in run(MBLOCK_E2E, cwd=tree):
+            print(f"{tree}: {line}", flush=True)
+    # the ablation builds, all at once, then their timed launches
+    procs = []
+    for defines in dict.fromkeys(d for _, d in MBLOCK_ABLATIONS):
+        label = re.sub(r"[^A-Za-z0-9]+", "_",
+                       " ".join(m.removeprefix("NRT_") for m in defines))
+        code = ("import sys\nfrom nuts_rs_tpu_torch.kernels import _build\n"
+                "_build.NVCC_DEFINES[:] = sys.argv[1:]\n"
+                f"_build.BUILD_DIR = _build.BUILD_DIR / {label!r}\n"
+                "_build.build(['mclmc_fused_mid_posterior', "
+                "'mclmc_fused_mid_warmup'])\n")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code, *defines],
+            cwd=here, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE))
+    for proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"ablation build: {err[-3000:]}")
+    for what, defines in MBLOCK_ABLATIONS:
+        for line in run(MBLOCK_TIME, saved, what, *defines):
+            print(line, flush=True)
+
+
 def launch_and_ablate(trees, launch, time_src, ablations, saved_name, stems):
     """Items 17 and 18: the path's launches saved in this tree by
     ``launch``; every tree in the order given (e.g. parent, this one, this
@@ -2594,6 +2881,9 @@ def main() -> int:
                              "then its ablation in this one")
     parser.add_argument("--pipeline", nargs="+", metavar="TREE",
                         help="item 20 alone, for each checkout in turn")
+    parser.add_argument("--only-mclmc-block", nargs="+", metavar="TREE",
+                        help="item 22 alone, for each checkout in turn, "
+                             "then its ablation in this one")
     parser.add_argument("--flow-full", action="store_true",
                         help="item 16 on the full configuration's states "
                              "too (about 11 minutes more)")
@@ -2646,6 +2936,10 @@ def main() -> int:
         return 0
     if args.pipeline:
         pipeline_item(args.pipeline)
+        print(card_line())
+        return 0
+    if args.only_mclmc_block:
+        mclmc_block_item(args.only_mclmc_block)
         print(card_line())
         return 0
     if args.only_mclmc_sync:

@@ -943,6 +943,211 @@ def test_mclmc_mid_group_kernels_match_plain_versions_bit_for_bit(
         assert mf.LAUNCHES[key] == before[key] + 1, key
 
 
+def _initial_warmup_rows(model, C, lo, hi, kind, dev):
+    """K4's inputs for schedule rows lo..hi-1 of a DiagMclmcSettings run of
+    C chains from its initial state, as the sampler hands them over."""
+    from nuts_rs_tpu_torch import DiagMclmcSettings
+    from nuts_rs_tpu_torch.adapt.schedule import build_schedule
+    from nuts_rs_tpu_torch.chain import (
+        MCLMC_FLAG_COLUMNS, DiagStrategy, init_chain_state,
+        pack_mclmc_warmup_state, warmup_flags)
+    from nuts_rs_tpu_torch.sampler import _schedule_chunk
+
+    settings = DiagMclmcSettings(num_chains=C, num_tune=300, num_draws=400,
+                                 seed=0, posterior_kernel="pallas")
+    config = settings.chain_config()
+    state = init_chain_state(0, model, DiagStrategy(config), config, C,
+                             torch.float32, dev)
+    sched = build_schedule(settings.num_tune, settings.num_draws,
+                           settings.adapt)
+    flags = warmup_flags(
+        settings.extra_flags(_schedule_chunk(sched, lo, hi), lo, hi), dev,
+        MCLMC_FLAG_COLUMNS)
+    est, sca = pack_mclmc_warmup_state(state)
+    t = state.transform
+    return (flags, state.pt.q, state.pt.g, state.pt.logp, state.pt.v,
+            t.stds.contiguous(), t.mean.contiguous(), est, sca, model,
+            settings._mclmc_options(kind), config.step_size,
+            config.use_grad_based_estimate)
+
+
+def _require_moving(stats, what, halvings=False):
+    """The plain version's draws move: some leapfrog taken, not every draw
+    divergent, and with ``halvings`` some draw's step halved."""
+    assert bool((stats["n_steps"] > 0).any()), f"{what}: no leapfrog taken"
+    assert not bool((stats["diverging"] > 0.5).all()), \
+        f"{what}: every draw divergent"
+    if halvings:
+        assert bool((stats["average_step_size"]
+                     < stats["step_size"] * 0.99).any()), \
+            f"{what}: no step halved"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,C,B,micro,max_err", [
+    ("normal11", 64, 8, True, 0.5),
+    ("normal100", 64, 1, False, 0.05),
+    ("normal100", 64, 8, True, 1000.0),
+    ("normal361", 64, 2, True, 0.5),
+    ("normal361", 64, 1, False, 1000.0),
+    ("normal400", 512, 1, True, 1000.0),
+    ("normal400", 64, 2, False, 0.05),
+    ("normal400", 64, 8, True, 0.5),
+    ("normal484", 64, 1, True, 0.5),
+    ("normal484", 64, 8, False, 1000.0),
+    ("glm", 64, 1, False, 0.05),
+    ("glm", 64, 2, False, 1000.0),
+    ("glm", 64, 8, False, 0.5),
+    ("glm_rows", 64, 1, False, 0.5),
+    ("radon", 64, 1, False, 0.5)])
+def test_mclmc_block_forms_match_plain_versions_bit_for_bit(
+        name, C, B, micro, max_err):
+    """K3-args and K4-args in their block form (csrc/mclmc_fused_mid_*.cu)
+    in the form ``_build.mclmc_block_form`` gives (the pair of two blocks
+    for the regression's Euclidean draws at B = 1 where its rows fit their
+    shared memory, else 256 threads; the iid normal up to the posterior
+    limit of d = 484) against their
+    unchanged plain versions: every float bit for bit, every integer stat
+    equal, on draws that move (and halve where ``max_err`` is small); the
+    warmup kernel up to its limit of d = 361 without data; the form's
+    launch count says which form ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch.adapt.step_size import StepSizeMethod
+    from nuts_rs_tpu_torch.dynamics.hamiltonian import KineticKind
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+    from nuts_rs_tpu_torch.kernels.mclmc import MclmcOptions
+
+    dev = torch.device("cuda", 0)
+    model, _, (q, g, logp, stds, mean, logdet, step, _) = _group_case(
+        name, dev, C)
+    d = model.dim
+    kind = KineticKind.MICROCANONICAL if micro else KineticKind.EUCLIDEAN
+    mopts = MclmcOptions(kind=kind, max_energy_error=max_err)
+    assert _build.mclmc_mid_form(model, mopts) == "block"
+    form = _build.block_form_name(_build.mclmc_block_form(d, model, B, mopts))
+    want_form = "pair" if name.startswith("glm") and B == 1 else "T256"
+    assert form == want_form, (name, B, form)
+    rng = np.random.default_rng(C + d)
+    v = rng.normal(size=(C, d))
+    v = torch.tensor(v / np.linalg.norm(v, axis=1, keepdims=True),
+                     dtype=torch.float32, device=dev)
+    args = (q, g, logp, v, stds, mean, logdet, step, step.clone())
+    before = dict(_build.MCLMC_BLOCK_FORM_LAUNCHES)
+    got = mf.mclmc_fused_run(3, *args, 4, model, mopts, 0.1, block=B)
+    torch.cuda.synchronize()
+    want = mf.mclmc_fused_run_reference(3, *args, 4, model, mopts, 0.1,
+                                        block=B)
+    _require_moving(want[5], f"{name} posterior", halvings=max_err < 0.1)
+    for i, what in enumerate(("q_f", "g_f", "logp_f", "v_f", "draws")):
+        _same_bits(got[i], want[i], what)
+    for stat in list(mf.STAT_NAMES) + ["loop_iterations"]:
+        _same_bits(got[5][stat], want[5][stat], stat)
+    key = f"posterior {form}"
+    assert _build.MCLMC_BLOCK_FORM_LAUNCHES[key] == before[key] + 1, key
+    if d > 361:
+        return
+    flags = torch.zeros(6, mf.NFLAGS, dtype=torch.int32, device=dev)
+    flags[:, mf.FLAG_UPDATE_EST] = 1
+    flags[0, mf.FLAG_RESAMPLE] = flags[4, mf.FLAG_RESAMPLE] = 1
+    flags[2:, mf.FLAG_DO_UPDATE] = 1
+    flags[3, mf.FLAG_DO_SWITCH] = 1
+    est = torch.zeros(C, 8, d, device=dev)
+    sca = torch.zeros(C, mf.NSCA, device=dev)
+    sca[:, mf.SCA_LOGDET] = logdet
+    sset = StepSizeSettings(method=StepSizeMethod.FIXED,
+                            fixed_value=float(step[0]), jitter=0.1)
+    wargs = (flags, q, g, logp, v, stds, mean, est, sca, model, mopts, sset,
+             True)
+    got = mf.mclmc_fused_warmup_run(5, *wargs, block=B)
+    torch.cuda.synchronize()
+    want = mf.mclmc_fused_warmup_run_reference(5, *wargs, block=B)
+    _require_moving(want[9], f"{name} warmup")
+    for i, what in enumerate(("q", "g", "logp", "v", "stds", "mean", "est",
+                              "sca", "draws")):
+        _same_bits(got[i], want[i], what)
+    for stat in list(mf.WARMUP_STAT_NAMES) + ["loop_iterations"]:
+        _same_bits(got[9][stat], want[9][stat], stat)
+    key = f"warmup {form}"
+    assert _build.MCLMC_BLOCK_FORM_LAUNCHES[key] == before[key] + 1, key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,B", [(1000, 1), (1000, 2), (2000, 1)])
+def test_mclmc_block_form_from_the_initial_state_bit_for_bit(rows, B):
+    """K4-args' Euclidean rows 0..3 of the MCLMC data path's model (the
+    regression, N = 1000, d = 100) from the sampler's initial state, where
+    steps halve for hundreds of iterations: the pair form at B = 1, 256
+    threads a chain at B = 2 (outside the pair's rule) and, at B = 1, with
+    2000 rows (beyond the pair's shared memory, as a Sampler run on such
+    data takes it), each bit for bit against the unchanged plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    from nuts_rs_tpu_torch import MclmcTrajectoryKind
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels import mclmc_fused as mf
+
+    dev = torch.device("cuda", 0)
+    model = tg.logistic_regression(rows, 100, 0).to(dev)
+    wargs = _initial_warmup_rows(model, 32, 0, 4,
+                                 MclmcTrajectoryKind.EUCLIDEAN, dev)
+    form = _build.block_form_name(
+        _build.mclmc_block_form(100, model, B, wargs[10]))
+    assert form == ("pair" if B == 1 and rows == 1000 else "T256")
+    before = dict(_build.MCLMC_BLOCK_FORM_LAUNCHES)
+    got = mf.mclmc_fused_warmup_run(13, *wargs, block=B)
+    torch.cuda.synchronize()
+    want = mf.mclmc_fused_warmup_run_reference(13, *wargs, block=B)
+    _require_moving(want[9], "initial rows", halvings=True)
+    for i, what in enumerate(("q", "g", "logp", "v", "stds", "mean", "est",
+                              "sca", "draws")):
+        _same_bits(got[i], want[i], what)
+    for stat in list(mf.WARMUP_STAT_NAMES) + ["loop_iterations"]:
+        _same_bits(got[9][stat], want[9][stat], stat)
+    key = f"warmup {form}"
+    assert _build.MCLMC_BLOCK_FORM_LAUNCHES[key] == before[key] + 1, key
+
+
+@pytest.mark.cuda
+def test_mclmc_block_form_rule_is_the_same_in_c():
+    """csrc/mclmc_step_block.cuh::mc_block_form gives the (T, X) and bytes
+    _build.mclmc_block_form and its byte formulas give, at every mid-d size
+    without data, and for the regression at its rule's boundaries: rows and
+    d on both sides of the pair's shared memory, B = 1, 2, 4, 8, both
+    kinetic energies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU build")
+    import ctypes
+
+    from nuts_rs_tpu_torch.dynamics.hamiltonian import KineticKind
+    from nuts_rs_tpu_torch.kernels import _build
+    from nuts_rs_tpu_torch.kernels.mclmc import MclmcOptions
+
+    lib = _build.library("mclmc_fused_mid_posterior")
+    cases = [(tg.normal_logp(d), d) for d in range(11, 485, 7)]
+    cases += [(tg.normal_logp(d), d) for d in (255, 256, 257)]
+    cases += [(tg.logistic_regression(n, d, 0), d)
+              for n, d in ((1000, 100), (1000, 106), (1000, 107), (1024, 100),
+                           (1025, 100), (256, 400), (40, 5))]
+    for model, d in cases:
+        ints, _ = _build.model_data_args(model, d, "cpu")
+        c_ints = (ctypes.c_int * max(1, len(ints)))(*ints)
+        for kind in KineticKind.EUCLIDEAN, KineticKind.MICROCANONICAL:
+            mopts = MclmcOptions(kind=kind)
+            for B in (1, 2, 4, 8):
+                form = _build.mclmc_block_form(d, model, B, mopts)
+                need = (_build.mclmc_pair_bytes(d, model) if form[1] == 2
+                        else _build.mclmc_mid_smem_bytes(d, model))
+                out = (ctypes.c_longlong * 3)()
+                lib.nrt_mclmc_block_form(
+                    d, _build.MODEL_IDS[model.hook_parts()[0]],
+                    ctypes.cast(c_ints, ctypes.c_void_p), B,
+                    int(kind is KineticKind.MICROCANONICAL),
+                    ctypes.cast(out, ctypes.c_void_p))
+                assert tuple(out) == (*form, need), (model.name, d, B, kind)
+
+
 @pytest.mark.cuda
 def test_normal_100_runs_mclmc_end_to_end_on_the_card():
     """MCLMC at a d between the thread-per-chain instances and the fused
